@@ -1,0 +1,43 @@
+"""i3rc_tpu_torch — the 3-D Monte Carlo radiative transfer solver on PyTorch.
+
+A port of ``i3rc_tpu`` (JAX/XLA/Pallas on a TPU) to PyTorch and hand-written
+CUDA on an NVIDIA Hopper GPU.  The JAX package stays the reference; this
+package reuses its JAX-free host modules (domains, phase tables, namelists,
+netCDF I/O, result writers) and never imports ``jax``.
+
+Layer map:
+  core/         Philox random streams, photon sources
+  ops/          grid geometry
+  integrators/  the fastpath planner and trace loop, results, the Integrator
+  kernels/      hand-written CUDA kernels, their plain PyTorch twins, the build
+  csrc/         CUDA C++ sources (built with nvcc for sm_90a at first use)
+  parallel/     batch statistics
+  drivers/      the namelist driver (monteCarloDriver analog)
+"""
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    # JAX-free host layer shared with the JAX package.
+    "IntegratorConfig": "i3rc_tpu.integrators.config",
+    "make_step_cloud": "i3rc_tpu.models.step_cloud",
+    "write_domains": "i3rc_tpu.models.step_cloud",
+    # The port.
+    "PhotonSource": "i3rc_tpu_torch.core.illumination",
+    "batch_key": "i3rc_tpu_torch.core.rng",
+    "Integrator": "i3rc_tpu_torch.integrators.integrator",
+    "Results": "i3rc_tpu_torch.integrators.results",
+    "run_batches": "i3rc_tpu_torch.parallel.mesh",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    # Lazy exports keep `import i3rc_tpu_torch` light: torch loads only when
+    # the integrator layer is touched.
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module 'i3rc_tpu_torch' has no attribute '{name}'")

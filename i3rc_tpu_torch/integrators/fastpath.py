@@ -1,0 +1,559 @@
+"""Fused transport fastpath (flux, separable optics, HG phase) in PyTorch.
+
+Port of ``i3rc_tpu/integrators/fastpath.py`` for the flux slice:
+
+  * the host-side planner (``StepFactor``, ``separable_factors``,
+    ``detect_hg``, ``FastPlan``, ``fast_plan``) in numpy, with the
+    StepFactor where-chains also as torch functions;
+  * the trace loop (``make_fast_tracer``): per K-event block it renormalizes
+    directions, flushes pending exits into float64 per-column tallies
+    (``index_add_``), refills dead lanes in FIFO order (``cumsum``) and runs
+    the event block (``kernels/event_block.py``: the CUDA kernel on a card,
+    its plain twin on the CPU).
+
+Extinction is factorized as ext(x, y, z) = fx(x) * fy(y) * fz(z) with few-
+segment step functions; every photon keeps weight 1 and tallies once at its
+death (exit top, exit bottom, or Bernoulli absorption when ssa < 1).
+
+Plans the JAX package supports but this slice does not — radiance
+detectors, reflecting surfaces, the gas channel, column media, tabulated
+phase functions — raise NotImplementedError naming their ROADMAP item;
+configurations the JAX planner rejects return None, as there.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from i3rc_tpu_torch.core.illumination import PhotonSource
+from i3rc_tpu_torch.core.rng import STREAM_REFILL, PhiloxKey
+from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32, make_direction_cosines
+# hg_cosine is re-exported: the JAX package defines it in fastpath.
+from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
+    ALIVE, BAD, EVCT, MAX_SEGMENTS, ORDERS, PK, TAU, UX, UY, UZ, X, Y, Z,
+    EventSpec, LaneState, event_block, hg_cosine,
+)
+
+# Rows of the JAX package's one-hot read limit (i3rc_tpu/ops/gather.py):
+# column media beyond it are not eligible there either.
+ONEHOT_MAX_ROWS = 1 << 18
+
+# Lanes per wavefront when the caller gives none (not tuned on the GPU yet).
+DEFAULT_LANES = 1 << 20
+
+
+def lane_width(n_photons: int, n_lanes: int | None = None) -> int:
+    """The wavefront width: the caller's, else min(n_photons, DEFAULT_LANES)."""
+    return int(n_lanes or min(n_photons, DEFAULT_LANES))
+
+# Features of the JAX fastpath outside this slice, by ROADMAP item number.
+_ITEM_DETECTORS = (10, "radiance detectors on the fastpath: ROADMAP item 10")
+_ITEM_SURFACE = (11, "reflecting surfaces and BRDFs on the fastpath: ROADMAP item 11")
+_ITEM_GAS = (13, "the gas channel: ROADMAP item 13")
+_ITEM_COLUMN = (14, "column-mode media: ROADMAP item 14")
+_ITEM_TABLE = (15, "tabulated (non-HG) phase functions on the fastpath: ROADMAP item 15")
+
+
+# ---------------------------------------------------------------------------
+# Host-side plan construction
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StepFactor:
+    """Piecewise-constant 1-D function of position: values[i] applies on
+    [thresholds[i-1], thresholds[i]) with implicit end thresholds."""
+
+    thresholds: tuple[float, ...]  # ascending interior breakpoints
+    values: tuple[float, ...]      # len(thresholds) + 1
+
+    def __call__(self, pos):
+        v = torch.full_like(pos, f32(self.values[0]))
+        for t, val in zip(self.thresholds, self.values[1:]):
+            v = torch.where(pos >= f32(t), f32(val), v)
+        return v
+
+    def face_up(self, pos, hi: float):
+        """Nearest segment boundary (or domain edge) above pos (strict)."""
+        face = torch.full_like(pos, f32(hi))
+        for t in reversed(self.thresholds):
+            face = torch.where(pos < f32(t), f32(t), face)
+        return face
+
+    def face_dn(self, pos, lo: float):
+        """Nearest segment boundary (or domain edge) below pos (strict)."""
+        face = torch.full_like(pos, f32(lo))
+        for t in self.thresholds:
+            face = torch.where(pos > f32(t), f32(t), face)
+        return face
+
+    def next_face(self, pos, up, lo: float, hi: float):
+        """Nearest segment boundary (or domain edge) in the travel direction."""
+        return torch.where(up, self.face_up(pos, hi), self.face_dn(pos, lo))
+
+    @property
+    def n_ops(self) -> int:
+        return len(self.thresholds)
+
+    def reciprocal(self) -> "StepFactor":
+        """Reciprocal-value chain (zero segments -> 0; masked by ext > 0)."""
+        return StepFactor(self.thresholds,
+                          tuple(1.0 / v if v else 0.0 for v in self.values))
+
+
+def _compress_factor(values: np.ndarray, edges: np.ndarray) -> StepFactor | None:
+    """Run-length compress per-cell values into a StepFactor over position."""
+    values = np.asarray(values, dtype=np.float64)
+    change = np.flatnonzero(np.diff(values)) + 1
+    if change.size > MAX_SEGMENTS:
+        return None
+    return StepFactor(tuple(float(edges[i]) for i in change),
+                      tuple([float(values[0])] + [float(values[i]) for i in change]))
+
+
+def separable_factors(ext: np.ndarray, x_edges, y_edges, z_edges):
+    """Exact rank-1 factorization ext = fx ⊗ fy ⊗ fz, or None.
+
+    Chooses the max-extinction cell as pivot and verifies the outer product
+    reproduces the field to float32 accuracy.  Zero fields factorize
+    trivially.
+    """
+    ext = np.asarray(ext, dtype=np.float64)
+    if ext.ndim != 3:
+        return None
+    if not np.any(ext):
+        return StepFactor((), (0.0,)), StepFactor((), (1.0,)), StepFactor((), (1.0,))
+    i0, j0, k0 = np.unravel_index(np.argmax(ext), ext.shape)
+    pivot = ext[i0, j0, k0]
+    vx = ext[:, j0, k0] / pivot
+    vy = ext[i0, :, k0] / pivot
+    vz = ext[i0, j0, :]
+    recon = vx[:, None, None] * vy[None, :, None] * vz[None, None, :]
+    if not np.allclose(recon, ext, rtol=1e-6, atol=1e-9 * pivot):
+        return None
+    fx = _compress_factor(vx, np.asarray(x_edges, float))
+    fy = _compress_factor(vy, np.asarray(y_edges, float))
+    fz = _compress_factor(vz, np.asarray(z_edges, float))
+    if fx is None or fy is None or fz is None:
+        return None
+    return fx, fy, fz
+
+
+def column_structure(ext: np.ndarray, z_edges: np.ndarray, ssa=None, pfi=None):
+    """(n_cols, 3 or 5) column table when every column is one homogeneous
+    layer, else None — the eligibility test of the JAX column mode
+    (fastpath.py:164-211), kept so the port declines the same domains."""
+    nx, ny, nz = ext.shape
+    if nx * ny > ONEHOT_MAX_ROWS:
+        return None
+    flat = ext.reshape(nx * ny, nz)
+    nonzero = flat > 0.0
+    count = nonzero.sum(axis=1)
+    first = np.where(count > 0, np.argmax(nonzero, axis=1), 0)
+    last = np.where(count > 0, nz - 1 - np.argmax(nonzero[:, ::-1], axis=1), -1)
+    if not np.all((last - first + 1 == count) | (count == 0)):
+        return None
+    v = flat.max(axis=1)
+    if not np.all(np.where(nonzero, flat, v[:, None]) == v[:, None]):
+        return None
+    z_edges = np.asarray(z_edges, np.float64)
+    zb = np.where(count > 0, z_edges[first], z_edges[0])
+    zt = np.where(count > 0, z_edges[last + 1], z_edges[0])
+    cols = [v, zb, zt]
+    if ssa is not None:
+        for field in (np.asarray(ssa, np.float64).reshape(nx * ny, nz),
+                      np.asarray(pfi, np.float64).reshape(nx * ny, nz)):
+            rep = field[np.arange(nx * ny), first]
+            if not np.all(np.where(nonzero, field, rep[:, None]) == rep[:, None]):
+                return None
+            cols.append(np.where(count > 0, rep, 0.0))
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
+def detect_hg(table) -> float | None:
+    """Asymmetry parameter when the (single-entry) table is pure HG.
+
+    HG Legendre moments are xi_l = g^l; the tolerance grows with the order
+    because netCDF round trips store the coefficients as float32.
+    """
+    if len(table.phase_functions) != 1:
+        return None
+    c = table.phase_functions[0].legendre_coefficients
+    if c is None or c.size < 2:
+        return None
+    g = float(c[0])
+    if abs(g) >= 1.0:
+        return None
+    orders = np.arange(1, c.size + 1)
+    expect = g ** orders
+    tol = 2.5e-7 * (orders + 1) * np.abs(expect) + 1e-12
+    if not np.all(np.abs(np.asarray(c, float) - expect) <= tol):
+        return None
+    return g
+
+
+@dataclass(frozen=True)
+class FastPlan:
+    """Static (host-side) description of one fastpath trace: the separable
+    extinction factors, the HG asymmetry, the block length K (``unroll``)
+    and the uniform single-scattering albedo (< 1: Bernoulli absorption)."""
+
+    fx: StepFactor
+    fy: StepFactor
+    fz: StepFactor
+    hg_g: float
+    unroll: int
+    ssa: float = 1.0
+
+
+@dataclass(frozen=True)
+class OpticsFlags:
+    """Single-component uniformity flags the planner reads
+    (i3rc_tpu/integrators/integrator.py:95-107)."""
+
+    n_components: int
+    uniform_ssa: float | None
+    uniform_phase_index: int | None
+
+
+def optics_flags(flat) -> OpticsFlags:
+    """Uniform ssa / phase index over every cell with extinction, or None."""
+    n_comp = flat.n_components
+    uniform_ssa = uniform_pf = None
+    if n_comp == 1:
+        occupied = flat.total_ext.ravel() > 0.0
+        if occupied.any():
+            s = flat.ssa.ravel()[occupied]
+            p = flat.phase_index.ravel()[occupied]
+            if np.all(s == s[0]):
+                uniform_ssa = float(s[0])
+            if np.all(p == p[0]):
+                uniform_pf = int(p[0])
+    return OpticsFlags(n_comp, uniform_ssa, uniform_pf)
+
+
+def _gas_split(flat, geom):
+    """The JAX planner's cloud + gas decomposition (fastpath.py:440-491):
+    (cloud_idx, cloud_field, ssa, g) or None where it declines."""
+    total = np.asarray(flat.total_ext, np.float64)
+    cum = np.asarray(flat.cumulative_ext, np.float64)
+    ssa_c = np.asarray(flat.ssa, np.float64)
+    pfi = np.asarray(flat.phase_index)
+    exts = [cum[..., 0] * total, (cum[..., 1] - cum[..., 0]) * total]
+
+    def is_gas(c):
+        occ = exts[c] > 0.0
+        if not occ.any() or np.any(ssa_c[..., c][occ] != 0.0):
+            return False
+        prof = exts[c]
+        tol = 1e-6 * max(prof.max(), 1e-30) + 4e-7 * float(total.max())
+        return bool(np.ptp(prof, axis=(0, 1)).max() <= tol)
+
+    gas_idx = next((c for c in (1, 0) if is_gas(c)), -1)
+    if gas_idx < 0:
+        return None
+    cloud_idx = 1 - gas_idx
+    gas_profile = exts[gas_idx].mean(axis=(0, 1))
+    cloud_ext = np.maximum(total - gas_profile[None, None, :], 0.0)
+    occ = cloud_ext > 0.0
+    if not occ.any():
+        return None
+    s_occ = ssa_c[..., cloud_idx][occ]
+    p_occ = pfi[..., cloud_idx][occ]
+    if not (np.all(s_occ == s_occ.flat[0]) and np.all(p_occ == p_occ.flat[0])):
+        return None
+    uniform_ssa = float(s_occ.flat[0])
+    if not (0.0 < uniform_ssa <= 1.0):
+        return None
+    snap = 1e-6 * max(gas_profile.max(), 1e-30) + 4e-7 * float(total.max())
+    for i in range(1, gas_profile.size):
+        if abs(gas_profile[i] - gas_profile[i - 1]) <= snap:
+            gas_profile[i] = gas_profile[i - 1]
+    if _compress_factor(gas_profile, np.asarray(geom.z_edges.cpu())) is None:
+        return None
+    return (cloud_idx, np.asarray(cloud_ext, np.float32), uniform_ssa,
+            detect_hg(flat.forward_tables[cloud_idx]))
+
+
+def _shadow_eligible(fx, fy, fz, intensity, geom, gas: bool) -> bool:
+    """The JAX planner's detector checks (fastpath.py:592-631)."""
+    dirs = np.asarray(intensity.directions, float)
+    if (fx.n_ops > 0) + (fy.n_ops > 0) <= 1 and all(abs(dirs[2, d]) > 1e-6
+                                                    for d in range(dirs.shape[1])):
+        return True
+    if gas:
+        return False
+    xe, ye, ze = (np.asarray(e.cpu(), float) for e in
+                  (geom.x_edges, geom.y_edges, geom.z_edges))
+
+    def min_gap(f, lo, hi):
+        return float(np.diff(np.asarray([lo, *f.thresholds, hi])).min())
+
+    shadow_steps = 0
+    for d in range(dirs.shape[1]):
+        dx_, dy_, dz_ = dirs[:, d]
+        path = (ze[-1] - ze[0]) / max(abs(dz_), 1e-6)
+        steps = 2 + fz.n_ops + 1
+        if fx.n_ops:
+            steps += int(path * abs(dx_) / min_gap(fx, xe[0], xe[-1])) + 1
+        steps += int(path * abs(dx_) / (xe[-1] - xe[0])) + 1
+        if fy.n_ops:
+            steps += int(path * abs(dy_) / min_gap(fy, ye[0], ye[-1])) + 1
+        steps += int(path * abs(dy_) / (ye[-1] - ye[0])) + 1
+        shadow_steps = max(shadow_steps, steps)
+    return shadow_steps <= 24
+
+
+def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> FastPlan | None:
+    """Eligibility check + plan, decided as the JAX ``fast_plan`` decides.
+
+    Returns None where the JAX planner returns None.  Where it would return
+    a plan that uses a feature outside this slice, raises
+    NotImplementedError naming the ROADMAP item.
+    """
+    if not getattr(config, "use_fastpath", True) or config.use_ray_tracing:
+        return None
+    if intensity is not None and (config.use_hybrid_phase_funs
+                                  or config.limit_intensity_contributions):
+        return None
+    missing = []
+    if surface.uses_brdf:
+        if not (surface.n_xs == 1 and surface.n_ys == 1):
+            return None
+        missing.append(_ITEM_SURFACE)
+    else:
+        if not (0.0 <= float(surface.albedo) <= 1.0):
+            return None
+        if float(surface.albedo) > 0.0:
+            missing.append(_ITEM_SURFACE)
+    if not (geom.xy_regular and geom.z_regular):
+        return None
+
+    gas = optics.n_components == 2
+    per_col_props = False
+    if gas:
+        split = _gas_split(flat, geom)
+        if split is None:
+            return None
+        cloud_idx, cloud_field, uniform_ssa, g = split
+        missing.append(_ITEM_GAS)
+    elif optics.n_components == 1 and optics.uniform_ssa is not None \
+            and optics.uniform_phase_index is not None:
+        if not (0.0 < optics.uniform_ssa <= 1.0):
+            return None
+        uniform_ssa = float(optics.uniform_ssa)
+        g = detect_hg(flat.forward_tables[0])
+        cloud_field = flat.total_ext
+    elif optics.n_components == 1 and intensity is None:
+        if np.any((np.asarray(flat.ssa) < 0.0) | (np.asarray(flat.ssa) > 1.0)):
+            return None
+        per_col_props = True
+        uniform_ssa, g, cloud_field = 1.0, 0.0, flat.total_ext
+    else:
+        return None
+    if per_col_props or g is None or g == 0.0:
+        comp = cloud_idx if gas else 0
+        if not per_col_props and len(flat.forward_tables[comp].phase_functions) != 1:
+            return None
+        missing.append(_ITEM_TABLE)
+        g = 0.0
+    factors = None if per_col_props else separable_factors(
+        cloud_field, *(np.asarray(e.cpu()) for e in
+                       (geom.x_edges, geom.y_edges, geom.z_edges)))
+    if factors is not None and sum(f.n_ops for f in factors) > MAX_SEGMENTS:
+        factors = None
+    if factors is None:
+        if intensity is not None or gas:
+            return None
+        if column_structure(
+                flat.total_ext, np.asarray(geom.z_edges.cpu()),
+                ssa=np.asarray(flat.ssa)[..., 0] if per_col_props else None,
+                pfi=np.asarray(flat.phase_index)[..., 0] if per_col_props
+                else None) is None:
+            return None
+        missing.append(_ITEM_COLUMN)
+        trivial = StepFactor((), (1.0,))
+        fx = fy = fz = trivial
+    elif per_col_props:
+        return None
+    else:
+        fx, fy, fz = factors
+    if intensity is not None:
+        if not _shadow_eligible(fx, fy, fz, intensity, geom, gas):
+            return None
+        missing.append(_ITEM_DETECTORS)
+    if missing:
+        raise NotImplementedError(f"fastpath plan needs {min(missing)[1]}")
+    cfg_unroll = getattr(config, "fastpath_unroll", None)
+    return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g,
+                    unroll=int(cfg_unroll) if cfg_unroll else 8, ssa=uniform_ssa)
+
+
+def plan_from_jax(plan) -> FastPlan:
+    """The port's plan for a JAX ``FastPlan`` (host numpy already)."""
+    extras = {"detectors": _ITEM_DETECTORS, "surface_albedo": _ITEM_SURFACE,
+              "brdf_fn": _ITEM_SURFACE, "gas_factor": _ITEM_GAS, "gas_k": _ITEM_GAS,
+              "column_data": _ITEM_COLUMN, "column_props": _ITEM_COLUMN,
+              "cubic": _ITEM_TABLE, "fwd_cubic": _ITEM_TABLE}
+    for name, item in extras.items():
+        v = getattr(plan, name, None)
+        if v is not None and not (isinstance(v, (tuple, bool, float)) and not v):
+            raise NotImplementedError(f"fastpath plan needs {item[1]}")
+    conv = lambda f: StepFactor(tuple(f.thresholds), tuple(f.values))
+    return FastPlan(conv(plan.fx), conv(plan.fy), conv(plan.fz), float(plan.hg_g),
+                    int(plan.unroll), float(plan.ssa))
+
+
+def state_from_numpy(st, device="cpu") -> LaneState:
+    """Lane state from a JAX fast-event state tuple converted to numpy:
+    (alive, x, y, z, ux, uy, uz, tau, orders, pk, bad, evct, ...).  A scalar
+    y placeholder (untracked y) fills the y row."""
+    alive, x, y, z, ux, uy, uz, tau, orders, pk, bad, evct = st[:12]
+    L = np.shape(x)[0]
+    fl = np.stack([np.broadcast_to(np.asarray(a, np.float32), (L,))
+                   for a in (x, y, z, ux, uy, uz, tau)])
+    it = np.stack([np.asarray(a).astype(np.int32) for a in (alive, orders, pk, bad, evct)])
+    return LaneState(torch.as_tensor(fl, device=device).contiguous(),
+                     torch.as_tensor(it, device=device).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Trace loop
+# ---------------------------------------------------------------------------
+
+def event_spec(geom, plan: FastPlan, config) -> EventSpec:
+    """Constants of the event block for one plan on one grid."""
+    x0, y0, z0 = geom.x0, geom.y0, geom.z0
+    x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
+    # Face-push nudges: ~8 float32 ulps of the coordinate scale per axis.
+    nudge = lambda lo, hi: f32(8 * 2.0 ** -23 * max(abs(lo), abs(hi)))
+    chain = int(getattr(config, "fastpath_chain", -1))
+    return EventSpec(
+        fx=plan.fx, fy=plan.fy, fz=plan.fz,
+        inv_fx=plan.fx.reciprocal(), inv_fy=plan.fy.reciprocal(),
+        inv_fz=plan.fz.reciprocal(),
+        x0=x0, y0=y0, z0=z0, x_max=x_max, y_max=y_max, z_max=z_max,
+        wx=float(np.float32(x_max) - np.float32(x0)),
+        wy=float(np.float32(y_max) - np.float32(y0)),
+        nudge_x=nudge(x0, x_max), nudge_y=nudge(y0, y_max), nudge_z=nudge(z0, z_max),
+        g=f32(plan.hg_g), ssa=f32(plan.ssa), max_events=int(config.max_events),
+        K=max(1, plan.unroll),
+        # Collision-chain depth: auto (-1) is 2 for cloud media.
+        chain=2 if chain < 0 else chain,
+        # y drops out for slab-symmetric domains: nothing reads it.
+        track_y=not (geom.n_y == 1 and plan.fy.n_ops == 0))
+
+
+def launch_state(geom, batch, n_photons: int) -> LaneState:
+    """Lane state for a launch batch (positions in [0, 1] scaled to the
+    domain); lanes beyond the photon budget start dead."""
+    L = batch.n_photons
+    dev = batch.x.device
+    f = torch.zeros((7, L), dtype=torch.float32, device=dev)
+    i = torch.zeros((5, L), dtype=torch.int32, device=dev)
+    f[X] = geom.x0 + batch.x * (geom.x_max - geom.x0)
+    f[Y] = geom.y0 + batch.y * (geom.y_max - geom.y0)
+    f[Z] = geom.z0 + batch.z * (geom.z_max - geom.z0)
+    f[UX], f[UY], f[UZ] = make_direction_cosines(batch.mu, batch.phi)
+    i[ALIVE] = (torch.arange(L, device=dev) < n_photons).to(torch.int32)
+    return LaneState(f, i)
+
+
+def renormalize(st: LaneState) -> None:
+    """Rescale directions to unit length in place: the event block skips the
+    per-rotation rescale, so the trace loop does it once per block."""
+    ux, uy, uz = st.f[UX], st.f[UY], st.f[UZ]
+    st.f[UX:UZ + 1] *= torch.rsqrt(torch.clamp(ux * ux + uy * uy + uz * uz,
+                                               min=f32(1e-12)))
+
+
+def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
+                     n_lanes: int | None = None):
+    """Build trace(key, batch, source) -> RawTallies for the fast plan; the
+    trace runs on the device of the launch batch's tensors."""
+    n_x, n_y, n_z = geom.n_x, geom.n_y, geom.n_z
+    L = lane_width(n_photons, n_lanes)
+    spec = event_spec(geom, plan, config)
+    K = spec.K
+    x0, y0, z0 = geom.x0, geom.y0, geom.z0
+    x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
+    inv_dx, inv_dy = 1.0 / geom.dx, 1.0 / geom.dy
+    inv_dz_cell = f32(n_z / (z_max - z0))
+    # Global hang guard (counts K-event blocks): ~2x the event budget.
+    max_blocks = -(-2 * config.max_events * (n_photons // L + 2) // K)
+    n_cols = n_x * n_y
+    absorbing = spec.absorbing
+    vol_tally = bool(getattr(config, "compute_volume_absorption", False)) and absorbing
+
+    def flush(columns, vol, st: LaneState) -> None:
+        """Tally pending exits at their frozen positions, then clear pk."""
+        x, y, z = st.f[X], st.f[Y], st.f[Z]
+        pk = st.i[PK]
+        col = torch.clamp(((x - x0) * inv_dx).to(torch.int64), 0, n_x - 1)
+        if spec.track_y and n_y > 1:
+            iy = torch.clamp(((y - y0) * inv_dy).to(torch.int64), 0, n_y - 1)
+            col = col * n_y + iy
+        kinds = [pk == 1, pk == 2] + ([pk == 3] if absorbing else [])
+        columns.index_add_(0, col, torch.stack(kinds, dim=1).to(torch.float64))
+        if vol_tally:
+            iz = torch.clamp(((z - z0) * inv_dz_cell).to(torch.int64), 0, n_z - 1)
+            vol.index_add_(0, col * n_z + iz, (pk == 3).to(torch.float64))
+        pk.zero_()
+
+    def refill(st: LaneState, launched, key: PhiloxKey, source: PhotonSource, kb: int):
+        """Dead lanes take the next photons of the budget, in lane order."""
+        dead = st.i[ALIVE] == 0
+        dead_i = dead.to(torch.int64)
+        new_id = launched + torch.cumsum(dead_i, 0) - dead_i
+        take = dead & (new_id < n_photons)
+        fresh = source.sample(key, L, st.f.device, stream=STREAM_REFILL, block=kb)
+        f, i = st.f, st.i
+        f[X] = torch.where(take, x0 + fresh.x * (x_max - x0), f[X])
+        f[Y] = torch.where(take, y0 + fresh.y * (y_max - y0), f[Y])
+        f[Z] = torch.where(take, z0 + fresh.z * (z_max - z0), f[Z])
+        for row, v in zip((UX, UY, UZ), make_direction_cosines(fresh.mu, fresh.phi)):
+            f[row] = torch.where(take, v, f[row])
+        f[TAU] = torch.where(take, 0.0, f[TAU])
+        i[ORDERS] = torch.where(take, 0, i[ORDERS])
+        i[ALIVE] = i[ALIVE] | take.to(torch.int32)
+        return launched + take.sum()
+
+    @torch.inference_mode()
+    def trace(key: PhiloxKey, batch, source: PhotonSource) -> RawTallies:
+        dev = batch.x.device
+        st = launch_state(geom, batch, n_photons)
+        f, i = st.f, st.i
+        launched = torch.tensor(min(L, n_photons), dtype=torch.int64, device=dev)
+        columns = torch.zeros((n_cols, 3 if absorbing else 2), dtype=torch.float64,
+                              device=dev)
+        vol = torch.zeros(n_cols * n_z if vol_tally else 0, dtype=torch.float64,
+                          device=dev)
+        kb = 0
+        while kb < max_blocks:
+            # The loop condition: one host sync per K-event block.
+            any_alive, n_launched = torch.stack(
+                [i[ALIVE].any().to(torch.int64), launched]).tolist()
+            if not (any_alive or n_launched < n_photons):
+                break
+            renormalize(st)
+            flush(columns, vol, st)
+            if n_photons > L:
+                launched = refill(st, launched, key, source, kb)
+            event_block(spec, st, key, kb)
+            kb += 1
+        flush(columns, vol, st)
+        # Lanes alive at the block cap vanish with their weight: count bad.
+        n_bad = i[BAD].sum(dtype=torch.int64) + i[ALIVE].sum(dtype=torch.int64)
+        zeros = lambda n: torch.zeros(n, dtype=torch.float64, device=dev)
+        return RawTallies(
+            flux_up=columns[:, 0], flux_down=columns[:, 1],
+            flux_absorbed=columns[:, 2] if absorbing else zeros(n_cols),
+            volume_absorption=vol if vol_tally else zeros(n_cols * n_z),
+            intensity=zeros(0), intensity_by_component=zeros(0),
+            intensity_excess=zeros(0), n_photons=int(n_photons), n_bad=n_bad,
+            n_iterations=kb * K,
+            n_lane_events=i[EVCT].sum(dtype=torch.int64))
+
+    return trace

@@ -1,0 +1,408 @@
+"""The fast event block: K transport events per lane, kernel and plain twin.
+
+``event_block`` is the wrapper the trace loop calls.  On a CUDA tensor it
+launches the hand-written Hopper kernel ``csrc/fast_event_block.cu`` (the
+port of the Pallas kernel ``_build_pallas_block``,
+i3rc_tpu/integrators/fastpath.py:665, flux variant) and raises if the build
+or the launch fails; on a CPU tensor it runs ``event_block_reference``, the
+plain PyTorch version, on the same Philox draws.  Both update the lane state
+in place.
+
+The twin applies exactly the kernel's draw layout: event ``j`` of the block
+reads ``uniforms[j, i]`` for its draw ``i`` (``rng.philox_uniforms``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from i3rc_tpu_torch.core.rng import (
+    STREAM_EVENT,
+    PhiloxKey,
+    exponential_deviate,
+    philox_uniforms,
+)
+from i3rc_tpu_torch.integrators.wavefront import f32, rotate_direction
+
+MAX_SEGMENTS = 24
+HUGE = f32(3.0e38)
+SUPPORTED_K = (1, 8, 16)
+SUPPORTED_CHAIN = (0, 1, 2, 3)
+
+# Rows of LaneState.f and LaneState.i.
+X, Y, Z, UX, UY, UZ, TAU = range(7)
+ALIVE, ORDERS, PK, BAD, EVCT = range(5)
+
+
+@dataclass
+class LaneState:
+    """Per-lane wavefront state, one fixed layout for every plan.
+
+    ``f`` is (7, L) float32: x, y, z, ux, uy, uz, tau (remaining optical
+    depth; 0 = draw a fresh free path).  ``i`` is (5, L) int32: alive,
+    orders, pk (pending exit kind: 1 top, 2 bottom, 3 absorbed), bad,
+    evct.  The y row is always present; plans that do not track y leave it
+    untouched.
+    """
+
+    f: torch.Tensor
+    i: torch.Tensor
+
+    @property
+    def n_lanes(self) -> int:
+        return self.f.shape[1]
+
+    def clone(self) -> "LaneState":
+        return LaneState(self.f.clone(), self.i.clone())
+
+
+@dataclass(frozen=True)
+class EventSpec:
+    """Everything the event block needs besides the state and the draws.
+
+    fx/fy/fz are fastpath.StepFactor chains; inv_* carry the reciprocal
+    values (0 for zero segments).  Bounds, widths and nudges are float32
+    values held in Python floats.
+    """
+
+    fx: object
+    fy: object
+    fz: object
+    inv_fx: object
+    inv_fy: object
+    inv_fz: object
+    x0: float
+    y0: float
+    z0: float
+    x_max: float
+    y_max: float
+    z_max: float
+    wx: float
+    wy: float
+    nudge_x: float
+    nudge_y: float
+    nudge_z: float
+    g: float
+    ssa: float
+    max_events: int
+    K: int
+    chain: int
+    track_y: bool
+
+    @property
+    def absorbing(self) -> bool:
+        return self.ssa < 1.0
+
+    @property
+    def bonus_draws(self) -> int:
+        return 4 if self.absorbing else 3
+
+    @property
+    def n_draws(self) -> int:
+        return self.bonus_draws * (1 + self.chain)
+
+
+def hg_cosine(g: float, u):
+    """Exact HG inverse CDF: the closed form of sampleHG (g != 0)."""
+    g = np.float32(g)
+    one = np.float32(1.0)
+    # Scalar factors in float32 arithmetic, as the JAX version computes them;
+    # both divisions are tensor / tensor, since torch turns a division by a
+    # scalar into a multiply by its reciprocal (a second rounding).
+    denom = 1.0 + float(g) * (2.0 * u - 1.0)
+    frac = torch.full_like(denom, float(one - g * g)) / denom
+    c = (float(one + g * g) - frac * frac) / torch.full_like(denom, float(g + g))
+    return torch.clamp(c, -1.0, 1.0)
+
+
+def _wrap(v, lo: float, hi: float, w: float):
+    """Periodic wrap for positions at most one event-step outside."""
+    return torch.where(v >= hi, v - w, torch.where(v < lo, v + w, v))
+
+
+def _fast_event(spec: EventSpec, u, s: dict) -> None:
+    """One fast_event (fastpath.py:1291-1676 with D = 0, MARCH = 1) on the
+    lane tensors in ``s``; u is the (n_draws, L) draw block of the event."""
+    x, y, z = s["x"], s["y"], s["z"]
+    ux, uy, uz = s["ux"], s["uy"], s["uz"]
+    alive, pk = s["alive"], s["pk"]
+    ty = spec.track_y
+    tau = torch.where(s["tau"] > 0.0, s["tau"], exponential_deviate(u[0]))
+
+    up_x, up_z = ux >= 0.0, uz >= 0.0
+    sign_x = torch.where(up_x, spec.nudge_x, -spec.nudge_x)
+    sign_z = torch.where(up_z, spec.nudge_z, -spec.nudge_z)
+    ext = spec.fx(x) * spec.fz(z)
+    inv_ext = spec.inv_fx(x) * spec.inv_fz(z)
+    face_x = spec.fx.next_face(x, up_x, spec.x0, spec.x_max)
+    face_z = spec.fz.next_face(z, up_z, spec.z0, spec.z_max)
+    sx = torch.where(ux.abs() >= f32(2e-30), (face_x - x) / ux, HUGE)
+    sz = torch.where(uz.abs() >= f32(2e-30), (face_z - z) / uz, HUGE)
+    s_bnd = torch.minimum(sx, sz)
+    if ty:
+        up_y = uy >= 0.0
+        sign_y = torch.where(up_y, spec.nudge_y, -spec.nudge_y)
+        ext = ext * spec.fy(y)
+        inv_ext = inv_ext * spec.inv_fy(y)
+        face_y = spec.fy.next_face(y, up_y, spec.y0, spec.y_max)
+        sy = torch.where(uy.abs() >= f32(2e-30), (face_y - y) / uy, HUGE)
+        s_bnd = torch.minimum(s_bnd, sy)
+    s_bnd = torch.clamp(s_bnd, min=0.0)
+    s_col = torch.where(ext > 0.0, tau * inv_ext, HUGE)
+
+    collide = alive & (s_col <= s_bnd)
+    cross = alive & ~collide
+    adv = torch.minimum(s_col, s_bnd)
+    nxp = torch.where(cross & (sx <= s_bnd), face_x + sign_x, x + ux * adv)
+    nzp = torch.where(cross & (sz <= s_bnd), face_z + sign_z, z + uz * adv)
+    nxp = _wrap(nxp, spec.x0, spec.x_max, spec.wx)
+    exit_top = cross & (nzp >= spec.z_max)
+    exit_bot = cross & ~exit_top & (nzp <= spec.z0)
+    pk = torch.where(exit_top, 1, torch.where(exit_bot, 2, pk))
+    tau = torch.where(cross, tau - s_bnd * ext, torch.where(collide, 0.0, tau))
+    x = torch.where(alive, nxp, x)
+    z = torch.where(alive, nzp, z)
+    if ty:
+        nyp = torch.where(cross & (sy <= s_bnd), face_y + sign_y, y + uy * adv)
+        y = torch.where(alive, _wrap(nyp, spec.y0, spec.y_max, spec.wy), y)
+
+    collided = collide
+    if spec.absorbing:
+        die = collided & (u[3] >= f32(spec.ssa))
+        pk = torch.where(die, 3, pk)
+        collided = collided & ~die
+    nux, nuy, nuz = rotate_direction(ux, uy, uz, hg_cosine(spec.g, u[1]), u[2],
+                                     renormalize=False)
+    ux = torch.where(collided, nux, ux)
+    uy = torch.where(collided, nuy, uy)
+    uz = torch.where(collided, nuz, uz)
+    n_coll = collided.to(torch.int32)
+
+    if spec.chain:
+        # Collision chaining inside the segment box of the collision point
+        # (fastpath.py:1598-1665).
+        wx_lo = spec.fx.face_dn(x, spec.x0)
+        wx_hi = spec.fx.face_up(x, spec.x_max)
+        wz_lo = spec.fz.face_dn(z, spec.z0)
+        wz_hi = spec.fz.face_up(z, spec.z_max)
+        inv_c = spec.inv_fx(x) * spec.inv_fz(z)
+        if ty:
+            wy_lo = spec.fy.face_dn(y, spec.y0)
+            wy_hi = spec.fy.face_up(y, spec.y_max)
+            inv_c = inv_c * spec.inv_fy(y)
+        chain = collided
+        for b in range(spec.chain):
+            i0 = spec.bonus_draws * (1 + b)
+            tau_new = exponential_deviate(u[i0])
+            s_c = tau_new * inv_c
+            cx = x + ux * s_c
+            cz = z + uz * s_c
+            inside = (cx > wx_lo) & (cx < wx_hi) & (cz > wz_lo) & (cz < wz_hi)
+            if ty:
+                cy = y + uy * s_c
+                inside = inside & (cy > wy_lo) & (cy < wy_hi)
+            commit = chain & inside
+            tau = torch.where(chain & ~inside, tau_new, tau)
+            x = torch.where(commit, cx, x)
+            z = torch.where(commit, cz, z)
+            if ty:
+                y = torch.where(commit, cy, y)
+            n_coll = n_coll + commit.to(torch.int32)
+            if spec.absorbing:
+                die_c = commit & (u[i0 + 3] >= f32(spec.ssa))
+                pk = torch.where(die_c, 3, pk)
+                commit = commit & ~die_c
+            bx, by, bz = rotate_direction(ux, uy, uz, hg_cosine(spec.g, u[i0 + 1]),
+                                          u[i0 + 2], renormalize=False)
+            ux = torch.where(commit, bx, ux)
+            uy = torch.where(commit, by, uy)
+            uz = torch.where(commit, bz, uz)
+            chain = commit
+
+    orders = s["orders"] + n_coll
+    over = alive & (orders >= spec.max_events)
+    s.update(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz, tau=tau, pk=pk, orders=orders,
+             bad=s["bad"] + over.to(torch.int32),
+             evct=s["evct"] + alive.to(torch.int32),
+             alive=alive & (pk == 0) & ~over)
+
+
+def event_block_reference(spec: EventSpec, state: LaneState, uniforms) -> None:
+    """Plain PyTorch version of the kernel: K events with the given draws.
+
+    ``uniforms`` is (K, n_draws, L) float32 in the kernel's layout.  Updates
+    ``state`` in place.
+    """
+    f, i = state.f, state.i
+    s = {"x": f[X], "y": f[Y], "z": f[Z], "ux": f[UX], "uy": f[UY], "uz": f[UZ],
+         "tau": f[TAU], "alive": i[ALIVE] != 0, "orders": i[ORDERS], "pk": i[PK],
+         "bad": i[BAD], "evct": i[EVCT]}
+    for j in range(spec.K):
+        _fast_event(spec, uniforms[j], s)
+    state.f.copy_(torch.stack([s[k] for k in ("x", "y", "z", "ux", "uy", "uz", "tau")]))
+    state.i.copy_(torch.stack([s["alive"].to(torch.int32), s["orders"], s["pk"],
+                               s["bad"], s["evct"]]))
+
+
+def compare_states(spec: EventSpec, got: LaneState, ref: LaneState, rtol: float) -> dict:
+    """Lane-by-lane agreement of two states after the same event block.
+
+    ``int_frac``: share of lanes whose five integer fields are equal.
+    ``float_frac``: share of those lanes whose seven float fields are all
+    within rtol of ``ref`` relative to the field's magnitude, max(|ref|, 1)
+    over the lanes (x and y compared on the periodic domain).
+    ``max_abs_err``: largest float difference on those lanes.
+    A lane can flip an integer field when one rounding step differs (a lane
+    sitting on a segment face); such lanes are counted, not compared.
+    """
+    int_eq = (got.i == ref.i).all(dim=0)
+    d = (got.f - ref.f).abs()
+    d[X] = torch.minimum(d[X], (spec.wx - d[X]).abs())
+    d[Y] = torch.minimum(d[Y], (spec.wy - d[Y]).abs())
+    scale = ref.f.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    ok = (d <= rtol * scale).all(dim=0) & int_eq
+    n_eq = int(int_eq.sum())
+    return {"int_frac": n_eq / got.n_lanes,
+            "float_frac": int(ok.sum()) / max(n_eq, 1),
+            "max_abs_err": float(d[:, int_eq].max()) if n_eq else float("inf")}
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+
+class _StepChain(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int),
+                ("t", ctypes.c_float * MAX_SEGMENTS),
+                ("v", ctypes.c_float * (MAX_SEGMENTS + 1)),
+                ("iv", ctypes.c_float * (MAX_SEGMENTS + 1))]
+
+
+class _EventParams(ctypes.Structure):
+    _fields_ = [("fx", _StepChain), ("fy", _StepChain), ("fz", _StepChain)] + [
+        (n, ctypes.c_float) for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max",
+                                      "wx", "wy", "nudge_x", "nudge_y", "nudge_z",
+                                      "g", "ssa")] + [
+        ("max_events", ctypes.c_int), ("key0", ctypes.c_uint32),
+        ("key1", ctypes.c_uint32), ("kb", ctypes.c_uint32), ("n_lanes", ctypes.c_int)]
+
+
+def _step_chain(f, inv) -> _StepChain:
+    c = _StepChain()
+    c.n = len(f.thresholds)
+    c.t[:c.n] = [f32(t) for t in f.thresholds]
+    c.v[:c.n + 1] = [f32(v) for v in f.values]
+    c.iv[:c.n + 1] = [f32(v) for v in inv.values]
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def build():
+    """Compile (or reuse) the kernel library and declare its C interface."""
+    from i3rc_tpu_torch.kernels.build import build as _build
+
+    built = _build("fast_event_block", ("fast_event_block.cu",))
+    lib = built.lib
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.i3rc_event_params_size.argtypes = []
+    lib.i3rc_event_params_size.restype = ci
+    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.i3rc_fast_event_block.restype = ci
+    lib.i3rc_philox_uniforms.argtypes = [vp, cu, cu, cu, cu, ci, ci, vp]
+    lib.i3rc_philox_uniforms.restype = ci
+    lib.i3rc_philox_bits.argtypes = [vp, cu, cu, cu, cu, cu, ci, vp]
+    lib.i3rc_philox_bits.restype = ci
+    if lib.i3rc_event_params_size() != ctypes.sizeof(_EventParams):
+        raise RuntimeError("EventParams layout differs between Python and CUDA")
+    return built
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int) -> None:
+    f, i = state.f, state.i
+    L = state.n_lanes
+    if f.device != i.device or i.device.type != "cuda":
+        raise ValueError("event_block: state tensors must share one CUDA device")
+    if f.dtype != torch.float32 or i.dtype != torch.int32:
+        raise TypeError("event_block: state must be float32 (f) and int32 (i)")
+    if f.shape != (7, L) or i.shape != (5, L) or not (f.is_contiguous()
+                                                      and i.is_contiguous()):
+        raise ValueError("event_block: state must be contiguous (7, L) and (5, L)")
+    if spec.K not in SUPPORTED_K or spec.chain not in SUPPORTED_CHAIN:
+        raise NotImplementedError(
+            f"event_block kernel is built for K in {SUPPORTED_K} and chain depth in "
+            f"{SUPPORTED_CHAIN}; got K={spec.K}, chain={spec.chain}")
+    p = _EventParams()
+    p.fx = _step_chain(spec.fx, spec.inv_fx)
+    p.fy = _step_chain(spec.fy, spec.inv_fy)
+    p.fz = _step_chain(spec.fz, spec.inv_fz)
+    for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max", "wx", "wy",
+              "nudge_x", "nudge_y", "nudge_z", "g", "ssa"):
+        setattr(p, n, getattr(spec, n))
+    p.max_events = spec.max_events
+    p.key0, p.key1 = key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF
+    p.kb = kb & 0xFFFFFFFF
+    p.n_lanes = L
+    lib = build().lib
+    with torch.cuda.device(f.device):
+        rc = lib.i3rc_fast_event_block(f.data_ptr(), i.data_ptr(), ctypes.byref(p),
+                                       spec.K, spec.chain, int(spec.absorbing),
+                                       int(spec.track_y), _stream(f.device))
+    _check(rc, "fast_event_block launch")
+
+
+def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int) -> None:
+    """Advance every lane K events, in place, with the draws of block ``kb``.
+
+    CUDA tensors launch the kernel (counted in ``event_block.launches``);
+    CPU tensors run the plain twin on ``philox_uniforms`` draws.
+    """
+    device = state.f.device
+    if device.type == "cuda":
+        _launch(spec, state, key, kb)
+        event_block.launches += 1
+    elif device.type == "cpu":
+        u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, device)
+        event_block_reference(spec, state, u)
+    else:
+        raise NotImplementedError(f"event_block: no kernel for device {device}")
+
+
+event_block.launches = 0
+
+
+def kernel_philox_uniforms(key: PhiloxKey, kb: int, K: int, n_draws: int, n_lanes: int,
+                           device) -> torch.Tensor:
+    """The kernel's own event draws, (K, n_draws, L): the test entry of the
+    CUDA library, for bit-for-bit checks against rng.philox_uniforms."""
+    G = -(-n_draws // 4)
+    out = torch.empty((4 * K * G, n_lanes), dtype=torch.float32, device=device)
+    with torch.cuda.device(out.device):
+        rc = build().lib.i3rc_philox_uniforms(
+            out.data_ptr(), key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF,
+            kb & 0xFFFFFFFF, STREAM_EVENT, K * G, n_lanes, _stream(out.device))
+    _check(rc, "philox_uniforms launch")
+    return out.reshape(K, 4 * G, n_lanes)[:, :n_draws]
+
+
+def kernel_philox_bits(k0: int, k1: int, c1: int, c2: int, c3: int, n_lanes: int,
+                       device) -> torch.Tensor:
+    """(n_lanes, 4) raw Philox4x32-10 words at counter (lane, c1, c2, c3)."""
+    out = torch.empty((n_lanes, 4), dtype=torch.int32, device=device)
+    with torch.cuda.device(out.device):
+        rc = build().lib.i3rc_philox_bits(out.data_ptr(), k0, k1, c1, c2, c3, n_lanes,
+                                          _stream(out.device))
+    _check(rc, "philox_bits launch")
+    return out.to(torch.int64) & 0xFFFFFFFF
