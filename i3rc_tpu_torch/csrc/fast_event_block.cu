@@ -1,8 +1,9 @@
 // Fast event block: K complete photon-transport events per lane, state in
-// registers.  Hopper (sm_90a) port of the flux variant of the Pallas kernel
-// `_build_pallas_block` (i3rc_tpu/integrators/fastpath.py:665, pallas_call at
-// :783), whose body runs `fast_event` (fastpath.py:1291-1676) with no radiance
-// detectors, no gas channel, no column mode and no table mode.
+// registers.  Hopper (sm_90a) port of the Pallas kernel `_build_pallas_block`
+// (i3rc_tpu/integrators/fastpath.py:665, pallas_call at :783), whose body runs
+// `fast_event` (fastpath.py:1291-1676), in two variants: flux (n_detectors =
+// 0) and radiance detectors (n_detectors = D > 0, the closed-form shadow
+// trace, HG phase); no gas channel, no column mode and no table mode.
 //
 // One thread owns one photon lane.  It loads the lane's state once, runs K
 // events (free path, separable where-chain extinction, nearest segment face,
@@ -10,6 +11,18 @@
 // bookkeeping, Bernoulli absorption, Henyey-Greenstein scattering, up to
 // CHAIN bonus collisions inside the segment box, counters) and stores the
 // state back.  The state arrays are updated IN PLACE.
+//
+// Detector variant (DET, chain depth 0 as on the TPU): at every collision
+// that survives absorption, for each detector d it evaluates the HG phase
+// toward d, the closed-form optical depth to the z boundary (z segments x the
+// cumulative integral of the one varying horizontal factor, fastpath.py:
+// 1140-1247), the exit column, and with IW the Iwabuchi roulette, and adds
+// P / (4 pi |mu_d|) exp(-tau) to the (column, d) bin.  The TPU kernel wrote
+// K x D (contribution, column) record arrays that XLA glue tallied; here each
+// CTA tallies into an (n_cols x D) float64 histogram in shared memory and
+// flushes it with atomicAdd into the global accumulator at its end (global
+// atomics directly when the histogram exceeds SMEM_HIST_BYTES).  The sum is
+// the same; its order differs from the twin's index_add_.
 //
 // What bounds it: ALU work.  Each event costs ceil(n_draws/4) Philox4x32-10
 // calls (10 rounds of two 32x32 multiplies each) plus the where-chains over
@@ -28,7 +41,12 @@
 //    tiles in VMEM.
 //  * Segment data arrive in one parameter struct (<= MAX_SEGMENTS thresholds
 //    per axis); loops run to the runtime count, so one build serves every
-//    domain.  K, CHAIN, absorbing and track_y are template parameters.
+//    domain.  K, CHAIN, absorbing, track_y, detectors and Iwabuchi are
+//    template parameters; the detector count (<= MAX_DETECTORS) and the
+//    shadow-trace segments are runtime loops.
+//  * Iwabuchi's small-phase case keeps the transmittance: it contributes
+//    zeta/pi with probability (pf_pi/zeta) exp(-tau), the law of the
+//    reference's trace; the JAX fastpath drops exp(-tau) there.
 //
 // Float arithmetic follows the JAX reference and the PyTorch twin operation
 // by operation; the library is built with --fmad=false so that no multiply-
@@ -38,13 +56,37 @@
 #include <stdint.h>
 
 #define MAX_SEGMENTS 24
+#define MAX_DETECTORS 8
 #define STREAM_EVENT 0u
+#define SMEM_HIST_BYTES (48 * 1024)
 
 struct StepChain {
   int n;                        // number of interior thresholds
   float t[MAX_SEGMENTS];        // ascending thresholds
   float v[MAX_SEGMENTS + 1];    // segment values
   float iv[MAX_SEGMENTS + 1];   // reciprocal values (0 for zero segments)
+};
+
+// Radiance detectors and the closed-form shadow trace (i3rc_tpu_torch/kernels/
+// event_block.py DetectorSpec).
+struct DetParams {
+  int n;                          // detectors D
+  int n_bins;                     // n_cols * D
+  float dx[MAX_DETECTORS], dy[MAX_DETECTORS], dz[MAX_DETECTORS];
+  float inv_dz[MAX_DETECTORS];
+  float dh[MAX_DETECTORS], inv_dh[MAX_DETECTORS];   // along the varying axis
+  float norm[MAX_DETECTORS];      // 1 / (4 pi |mu_d|)
+  int mode[MAX_DETECTORS];        // 0 no horizontal factor, 1 constant, 2 FhP
+  int n_z;                        // z segments with extinction > 0
+  float z_lo[MAX_SEGMENTS + 1], z_hi[MAX_SEGMENTS + 1], z_v[MAX_SEGMENTS + 1];
+  int h_axis;                     // 0 x (fx), 1 y (fy), -1 none
+  float h_lo, h_tot, h_w, h_inv_w;
+  float h_cum[MAX_SEGMENTS];      // FhP at each interior threshold
+  float z_top, z_bot;
+  float x0, inv_dx, wrap_wx, wrap_inv_x;
+  float y0, inv_dy, wrap_wy, wrap_inv_y;
+  int n_x, n_y, col_y;
+  float zeta, zeta_pi;            // Iwabuchi zeta_min and zeta / pi
 };
 
 struct EventParams {
@@ -58,6 +100,7 @@ struct EventParams {
   unsigned int key0, key1;      // Philox key (seed, batch)
   unsigned int kb;              // K-event block index
   int n_lanes;
+  DetParams det;                // read by the detector variant only
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -76,6 +119,7 @@ struct EventParams {
 #define C2 0x1.03bdd4p-2f
 #define C3 -0x1.550d82p-6f
 #define C4 0x1.c39082p-11f
+#define PI_F 0x1.921fb6p+1f
 
 // ---------------------------------------------------------------------------
 // Philox4x32-10 (Salmon et al. 2011), four uniforms per call.
@@ -188,11 +232,95 @@ struct Lane {
   int alive, orders, pk, bad, evct;
 };
 
-// One fast_event (fastpath.py:1291-1676, D = 0, MARCH = 1).  u holds the
-// event's draws: u[0] free path, u[1] scattering cosine, u[2] azimuth,
-// u[3] absorption (when ABS), then CHAIN bonus phases of BD draws each.
-template <int CHAIN, bool ABS, bool TY>
-__device__ __forceinline__ void fast_event(const EventParams& p, const float* u, Lane& s) {
+// u[i] of a register array with a runtime i, as selects (no local memory).
+template <int N>
+__device__ __forceinline__ float pick(const float (&u)[N], int i) {
+  float r = u[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    if (i == k) r = u[k];
+  return r;
+}
+
+// FhP: cumulative integral of the varying horizontal factor, periodically
+// extended (fastpath.py:1175-1186).
+__device__ __forceinline__ float cum_h(const EventParams& p, float xu) {
+  const DetParams& q = p.det;
+  const StepChain& c = q.h_axis == 0 ? p.fx : p.fy;
+  const float n = floorf((xu - q.h_lo) * q.h_inv_w);
+  const float r = xu - n * q.h_w;
+  float F = c.v[0] * (r - q.h_lo);
+  for (int k = 0; k < c.n; ++k)
+    if (r >= c.t[k]) F = q.h_cum[k] + c.v[k + 1] * (r - c.t[k]);
+  return n * q.h_tot + F;
+}
+
+// Local estimate of detector d from a collision at s (direction before the
+// scattering): the contribution and its exit column (fastpath.py:1501-1571
+// with shadow_closed, :1194-1247).
+template <bool IW>
+__device__ __forceinline__ float detector_contribution(const EventParams& p, int d,
+                                                       const Lane& s, float u_iw,
+                                                       int* col_out) {
+  const DetParams& q = p.det;
+  const float proj =
+      fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
+  const float r =
+      1.0f / sqrtf(fmaxf((1.0f + p.g * p.g) - (p.g + p.g) * proj, EPS12_F));
+  const float norm_pf = (1.0f - p.g * p.g) * r * r * r * q.norm[d];
+
+  const float inv_dz = q.inv_dz[d];
+  const bool up = q.dz[d] >= 0.0f;
+  const float ph = q.h_axis == 0 ? s.x : s.y;
+  float tau = 0.0f;
+  for (int k = 0; k < q.n_z; ++k) {
+    const float a = up ? q.z_lo[k] : q.z_hi[k];
+    const float b = up ? q.z_hi[k] : q.z_lo[k];
+    const float t_lo = fmaxf((a - s.z) * inv_dz, 0.0f);
+    const float t_hi = fmaxf((b - s.z) * inv_dz, 0.0f);
+    float seg;
+    if (q.mode[d] == 2) {
+      seg = (cum_h(p, ph + t_hi * q.dh[d]) - cum_h(p, ph + t_lo * q.dh[d])) * q.inv_dh[d];
+    } else if (q.mode[d] == 1) {
+      const StepChain& c = q.h_axis == 0 ? p.fx : p.fy;
+      seg = chain_value(c, c.v, ph) * (t_hi - t_lo);
+    } else {
+      seg = t_hi - t_lo;
+    }
+    tau = tau + q.z_v[k] * fmaxf(seg, 0.0f);
+  }
+
+  const float t_ex = ((up ? q.z_top : q.z_bot) - s.z) * inv_dz;
+  float xe = s.x + t_ex * q.dx[d];
+  xe = xe - q.wrap_wx * floorf((xe - q.x0) * q.wrap_inv_x);
+  int col = min(max((int)((xe - q.x0) * q.inv_dx), 0), q.n_x - 1);
+  if (q.col_y) {
+    float ye = s.y + t_ex * q.dy[d];
+    ye = ye - q.wrap_wy * floorf((ye - q.y0) * q.wrap_inv_y);
+    col = col * q.n_y + min(max((int)((ye - q.y0) * q.inv_dy), 0), q.n_y - 1);
+  }
+  *col_out = col;
+
+  if (IW) {
+    // Iwabuchi Eq 13/14 on the exact tau; the small-phase case accepts with
+    // probability (pf_pi / zeta) exp(-tau) (see the header).
+    const float pf_pi = PI_F * norm_pf;
+    const float tau_max = -logf(q.zeta / fmaxf(pf_pi, TINY_F));
+    if (pf_pi <= q.zeta) return (u_iw * q.zeta <= pf_pi * expf(-tau)) ? q.zeta_pi : 0.0f;
+    if (tau <= tau_max) return norm_pf * expf(-tau);
+    return (u_iw < expf(tau_max - tau)) ? q.zeta_pi : 0.0f;
+  }
+  return norm_pf * expf(-tau);
+}
+
+// One fast_event (fastpath.py:1291-1676, MARCH = 1).  u holds the event's
+// draws: u[0] free path, u[1] scattering cosine, u[2] azimuth, u[3]
+// absorption (when ABS), then CHAIN bonus phases of BD draws each, or with
+// DET && IW one Iwabuchi draw per detector.  DET adds the collision's
+// detector contributions to hist (shared or global, n_bins doubles).
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, int NU>
+__device__ __forceinline__ void fast_event(const EventParams& p, const float (&u)[NU],
+                                           Lane& s, double* hist) {
   constexpr int BD = ABS ? 4 : 3;
   const bool alive = s.alive != 0;
   float tau = s.tau > 0.0f ? s.tau : exponential_deviate(u[0]);
@@ -252,6 +380,14 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float* u,
     const bool die = collided && (u[3] >= p.ssa);
     if (die) s.pk = 3;
     collided = collided && !die;
+  }
+  if (DET && collided) {
+#pragma unroll 1
+    for (int d = 0; d < p.det.n; ++d) {
+      int col;
+      const float c = detector_contribution<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &col);
+      if (c != 0.0f) atomicAdd(hist + col * p.det.n + d, (double)c);
+    }
   }
   if (collided) {
     float nx, ny, nz;
@@ -325,106 +461,153 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float* u,
 // State layout (i3rc_tpu_torch/kernels/event_block.py LaneState):
 //   f: (7, L) float32 rows x, y, z, ux, uy, uz, tau
 //   i: (5, L) int32   rows alive, orders, pk, bad, evct
-template <int K, int CHAIN, bool ABS, bool TY>
+// acc (DET): (n_cols, D) float64 detector accumulator, added to.
+template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW>
 __global__ void __launch_bounds__(256)
-fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
-                        const __grid_constant__ EventParams p) {
+fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
+                        int hist_in_smem, const __grid_constant__ EventParams p) {
+  extern __shared__ double smem_hist[];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n_lanes) return;
   const size_t L = (size_t)p.n_lanes;
   constexpr int BD = ABS ? 4 : 3;
-  constexpr int ND = BD * (1 + CHAIN);
-  constexpr int G = (ND + 3) / 4;
+  // Draw slots: with DET && IW the count depends on the runtime D, so the
+  // register array is sized for MAX_DETECTORS and only G groups are drawn.
+  constexpr int ND_MAX = DET ? (IW ? BD + MAX_DETECTORS : BD) : BD * (1 + CHAIN);
+  constexpr int G_MAX = (ND_MAX + 3) / 4;
+  const int G = (DET && IW) ? (BD + p.det.n + 3) / 4 : G_MAX;
 
-  Lane s;
-  s.x = f[0 * L + lane];
-  s.y = TY ? f[1 * L + lane] : 0.0f;
-  s.z = f[2 * L + lane];
-  s.ux = f[3 * L + lane];
-  s.uy = f[4 * L + lane];
-  s.uz = f[5 * L + lane];
-  s.tau = f[6 * L + lane];
-  s.alive = iv[0 * L + lane];
-  s.orders = iv[1 * L + lane];
-  s.pk = iv[2 * L + lane];
-  s.bad = iv[3 * L + lane];
-  s.evct = iv[4 * L + lane];
+  double* hist = acc;
+  if (DET && hist_in_smem) {
+    hist = smem_hist;
+    for (int k = threadIdx.x; k < p.det.n_bins; k += blockDim.x) smem_hist[k] = 0.0;
+    __syncthreads();
+  }
+
+  if (lane < p.n_lanes) {
+    Lane s;
+    s.x = f[0 * L + lane];
+    s.y = TY ? f[1 * L + lane] : 0.0f;
+    s.z = f[2 * L + lane];
+    s.ux = f[3 * L + lane];
+    s.uy = f[4 * L + lane];
+    s.uz = f[5 * L + lane];
+    s.tau = f[6 * L + lane];
+    s.alive = iv[0 * L + lane];
+    s.orders = iv[1 * L + lane];
+    s.pk = iv[2 * L + lane];
+    s.bad = iv[3 * L + lane];
+    s.evct = iv[4 * L + lane];
 
 #pragma unroll 1
-  for (int j = 0; j < K; ++j) {
-    float u[4 * G];
+    for (int j = 0; j < K; ++j) {
+      float u[4 * G_MAX];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      uint32_t w[4];
-      philox4x32_10((uint32_t)lane, p.kb, (uint32_t)(j * G + g), STREAM_EVENT,
-                    p.key0, p.key1, w);
+      for (int g = 0; g < G_MAX; ++g) {
+        if (g < G) {
+          uint32_t w[4];
+          philox4x32_10((uint32_t)lane, p.kb, (uint32_t)(j * G + g), STREAM_EVENT,
+                        p.key0, p.key1, w);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) u[4 * g + k] = to_unit(w[k]);
+          for (int k = 0; k < 4; ++k) u[4 * g + k] = to_unit(w[k]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) u[4 * g + k] = 0.0f;
+        }
+      }
+      fast_event<CHAIN, ABS, TY, DET, IW>(p, u, s, hist);
     }
-    fast_event<CHAIN, ABS, TY>(p, u, s);
+
+    f[0 * L + lane] = s.x;
+    if (TY) f[1 * L + lane] = s.y;
+    f[2 * L + lane] = s.z;
+    f[3 * L + lane] = s.ux;
+    f[4 * L + lane] = s.uy;
+    f[5 * L + lane] = s.uz;
+    f[6 * L + lane] = s.tau;
+    iv[0 * L + lane] = s.alive;
+    iv[1 * L + lane] = s.orders;
+    iv[2 * L + lane] = s.pk;
+    iv[3 * L + lane] = s.bad;
+    iv[4 * L + lane] = s.evct;
   }
 
-  f[0 * L + lane] = s.x;
-  if (TY) f[1 * L + lane] = s.y;
-  f[2 * L + lane] = s.z;
-  f[3 * L + lane] = s.ux;
-  f[4 * L + lane] = s.uy;
-  f[5 * L + lane] = s.uz;
-  f[6 * L + lane] = s.tau;
-  iv[0 * L + lane] = s.alive;
-  iv[1 * L + lane] = s.orders;
-  iv[2 * L + lane] = s.pk;
-  iv[3 * L + lane] = s.bad;
-  iv[4 * L + lane] = s.evct;
+  if (DET && hist_in_smem) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < p.det.n_bins; k += blockDim.x)
+      if (smem_hist[k] != 0.0) atomicAdd(acc + k, smem_hist[k]);
+  }
 }
 
-template <int K, int CHAIN, bool ABS, bool TY>
-static void launch(float* f, int* i, const EventParams& p, cudaStream_t stream) {
+template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW>
+static void launch(float* f, int* i, double* acc, const EventParams& p,
+                   cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (p.n_lanes + threads - 1) / threads;
-  fast_event_block_kernel<K, CHAIN, ABS, TY><<<blocks, threads, 0, stream>>>(f, i, p);
+  const size_t hist_bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
+  const int in_smem = hist_bytes <= SMEM_HIST_BYTES;
+  fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW>
+      <<<blocks, threads, in_smem ? hist_bytes : 0, stream>>>(f, i, acc, in_smem, p);
 }
 
-template <int K, int CHAIN>
-static bool launch_flags(float* f, int* i, const EventParams& p, bool absorbing,
-                         bool track_y, cudaStream_t stream) {
-  if (absorbing) {
-    if (track_y) launch<K, CHAIN, true, true>(f, i, p, stream);
-    else launch<K, CHAIN, true, false>(f, i, p, stream);
-  } else {
-    if (track_y) launch<K, CHAIN, false, true>(f, i, p, stream);
-    else launch<K, CHAIN, false, false>(f, i, p, stream);
-  }
-  return true;
-}
-
-template <int K>
-static bool launch_chain(float* f, int* i, const EventParams& p, int chain,
+template <int K, int CHAIN, bool DET, bool IW>
+static void launch_flags(float* f, int* i, double* acc, const EventParams& p,
                          bool absorbing, bool track_y, cudaStream_t stream) {
+  if (absorbing) {
+    if (track_y) launch<K, CHAIN, true, true, DET, IW>(f, i, acc, p, stream);
+    else launch<K, CHAIN, true, false, DET, IW>(f, i, acc, p, stream);
+  } else {
+    if (track_y) launch<K, CHAIN, false, true, DET, IW>(f, i, acc, p, stream);
+    else launch<K, CHAIN, false, false, DET, IW>(f, i, acc, p, stream);
+  }
+}
+
+// Only the variants the planner asks for: flux at chain depth 0-3, and the
+// detector variant (always chain depth 0) with or without Iwabuchi.
+template <int K>
+static bool launch_variant(float* f, int* i, double* acc, const EventParams& p,
+                           int chain, bool absorbing, bool track_y, bool detectors,
+                           bool iwabuchi, cudaStream_t stream) {
+  if (detectors) {
+    if (chain != 0 || p.det.n < 1 || p.det.n > MAX_DETECTORS || acc == nullptr)
+      return false;
+    if (iwabuchi) launch_flags<K, 0, true, true>(f, i, acc, p, absorbing, track_y, stream);
+    else launch_flags<K, 0, true, false>(f, i, acc, p, absorbing, track_y, stream);
+    return true;
+  }
   switch (chain) {
-    case 0: return launch_flags<K, 0>(f, i, p, absorbing, track_y, stream);
-    case 1: return launch_flags<K, 1>(f, i, p, absorbing, track_y, stream);
-    case 2: return launch_flags<K, 2>(f, i, p, absorbing, track_y, stream);
-    case 3: return launch_flags<K, 3>(f, i, p, absorbing, track_y, stream);
+    case 0: launch_flags<K, 0, false, false>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 1: launch_flags<K, 1, false, false>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 2: launch_flags<K, 2, false, false>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 3: launch_flags<K, 3, false, false>(f, i, acc, p, absorbing, track_y, stream); break;
     default: return false;
   }
+  return true;
 }
 
 extern "C" {
 
 int i3rc_event_params_size(void) { return (int)sizeof(EventParams); }
 
-// Runs one K-event block in place on the given stream.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported K or CHAIN; the Python wrapper checks those first).
-int i3rc_fast_event_block(float* f, int* i, const EventParams* params, int K,
-                          int chain, int absorbing, int track_y, void* stream) {
+// Runs one K-event block in place on the given stream; with detectors it
+// adds their contributions to acc.  Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unsupported K, CHAIN or detector
+// count; the Python wrapper checks those first).
+int i3rc_fast_event_block(float* f, int* i, double* acc, const EventParams* params, int K,
+                          int chain, int absorbing, int track_y, int detectors,
+                          int iwabuchi, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const EventParams& p = *params;
   bool ok = false;
   switch (K) {
-    case 1: ok = launch_chain<1>(f, i, *params, chain, absorbing, track_y, st); break;
-    case 8: ok = launch_chain<8>(f, i, *params, chain, absorbing, track_y, st); break;
-    case 16: ok = launch_chain<16>(f, i, *params, chain, absorbing, track_y, st); break;
+    case 1:
+      ok = launch_variant<1>(f, i, acc, p, chain, absorbing, track_y, detectors, iwabuchi, st);
+      break;
+    case 8:
+      ok = launch_variant<8>(f, i, acc, p, chain, absorbing, track_y, detectors, iwabuchi, st);
+      break;
+    case 16:
+      ok = launch_variant<16>(f, i, acc, p, chain, absorbing, track_y, detectors, iwabuchi, st);
+      break;
     default: break;
   }
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -4,15 +4,15 @@ Port of ``i3rc_tpu/drivers/monte_carlo_driver.py:35-256``
 (Example-Drivers/monteCarloDriver.f95): reads the namelists from the file
 named on the command line, reads the domain, runs numBatches independent
 photon batches, accumulates first/second moments, and writes ASCII and/or
-netCDF flux results with standard errors through the JAX package's own
-writers.
+netCDF flux and radiance results with standard errors through the JAX
+package's own writers.
 
     python -m i3rc_tpu_torch.drivers.monte_carlo_driver [--device cuda] run.nml
 
 ``--device`` defaults to ``cuda``; a missing GPU raises instead of running
-on the CPU.  This slice covers flux transport with maximum cross-section
-(``useRayTracing = .false.``) over a black surface; namelists that ask for
-more raise NotImplementedError naming the ROADMAP item.
+on the CPU.  The port covers flux and radiance transport with maximum
+cross-section (``useRayTracing = .false.``) over a black surface; namelists
+that ask for more raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -73,10 +73,9 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     out_netcdf = str(_get(g, "filenames", "outputnetcdffile", ""))
 
     # Intensity directions: nonzero mus count (:151-154)
-    _, _, compute_intensity = intensity_directions(
+    mus, phis, compute_intensity = intensity_directions(
         intensity_mus, intensity_phis, bool(out_rad) or bool(out_netcdf))
-    for asked, what in ((compute_intensity, "radiance output: ROADMAP item 10"),
-                        (surface_albedo > 0.0, "surfaceAlbedo > 0: ROADMAP item 11"),
+    for asked, what in ((surface_albedo > 0.0, "surfaceAlbedo > 0: ROADMAP item 11"),
                         (polarized, "polarized transport: ROADMAP item 17"),
                         (use_ray_tracing, "useRayTracing = .true. (the general "
                                           "kernel): ROADMAP item 16")):
@@ -99,17 +98,21 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
         compute_volume_absorption=(report_volume or report_profile
                                    or bool(out_abs_prof) or bool(out_abs_vol)),
     )
-    integ = Integrator.create(domain, config=config, device=device)
+    integ = Integrator.create(domain, config=config, intensity_mus=mus,
+                              intensity_phis=phis, device=device)
     source = PhotonSource.directional(solar_mu, solar_azimuth)
     t_setup = time.perf_counter() - t0
     if not quiet:
         print(f"Setup time (secs, approx): {t_setup:.1f}")
 
     def derive(res):
-        return {"mean_flux_up": res.mean_flux_up,
-                "mean_flux_down": res.mean_flux_down,
-                "mean_flux_absorbed": res.mean_flux_absorbed,
-                "absorbed_profile": res.absorbed_profile}
+        out = {"mean_flux_up": res.mean_flux_up,
+               "mean_flux_down": res.mean_flux_down,
+               "mean_flux_absorbed": res.mean_flux_absorbed,
+               "absorbed_profile": res.absorbed_profile}
+        if compute_intensity:
+            out["mean_intensity"] = res.mean_intensity
+        return out
 
     stats = run_batches(integ, source, n_photons, n_batches, seed=iseed,
                         chunk_batches=2, derive=derive).scaled(solar_flux)
@@ -140,6 +143,8 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     flux_abs = (np_(res_m.flux_absorbed), np_(res_e.flux_absorbed))
     profile = (np_(der_m["absorbed_profile"]), np_(der_e["absorbed_profile"]))
     volume = (np_(res_m.volume_absorption), np_(res_e.volume_absorption))
+    radiance = ((np_(res_m.intensity), np_(res_e.intensity))
+                if compute_intensity else None)
     mean_stats = [(float(der_m[k]), float(der_e[k]))
                   for k in ("mean_flux_up", "mean_flux_down", "mean_flux_absorbed")]
 
@@ -151,24 +156,29 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     if out_abs_vol:
         results_io.write_volume_absorption_ascii(out_abs_vol, cfg, x_edges,
                                                  y_edges, z_edges, volume)
+    if out_rad and compute_intensity:
+        results_io.write_radiance_ascii(out_rad, cfg, x_edges, y_edges, z_edges,
+                                        mus, phis, radiance)
     if out_netcdf:
         results_io.write_results_netcdf(
             out_netcdf, cfg, x_edges, y_edges, z_edges,
             flux_up, flux_down, flux_abs,
             absorption_profile=profile if report_profile else None,
-            absorbed_volume=volume if report_volume else None)
+            absorbed_volume=volume if report_volume else None,
+            intensity=radiance, intensity_mus=mus, intensity_phis=phis)
     if not quiet:
         print("Wrote results")
 
     return {"cfg": cfg, "mean_stats": mean_stats, "flux_up": flux_up,
             "flux_down": flux_down, "flux_absorbed": flux_abs,
-            "absorbed_profile": profile, "volume": volume, "stats": stats}
+            "absorbed_profile": profile, "volume": volume, "radiance": radiance,
+            "stats": stats}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m i3rc_tpu_torch.drivers.monte_carlo_driver",
-        description="Namelist-driven 3-D Monte Carlo flux run on a PyTorch device.")
+        description="Namelist-driven 3-D Monte Carlo run on a PyTorch device.")
     parser.add_argument("namelist", nargs="?", help="namelist file")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; no CPU fallback)")

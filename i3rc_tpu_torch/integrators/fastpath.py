@@ -1,22 +1,25 @@
-"""Fused transport fastpath (flux, separable optics, HG phase) in PyTorch.
+"""Fused transport fastpath (separable optics, HG phase) in PyTorch.
 
-Port of ``i3rc_tpu/integrators/fastpath.py`` for the flux slice:
+Port of ``i3rc_tpu/integrators/fastpath.py`` for flux and radiance on a
+black surface:
 
   * the host-side planner (``StepFactor``, ``separable_factors``,
     ``detect_hg``, ``FastPlan``, ``fast_plan``) in numpy, with the
-    StepFactor where-chains also as torch functions;
+    StepFactor where-chains also as torch functions, and the constants of
+    the closed-form shadow trace (``shadow_constants``);
   * the trace loop (``make_fast_tracer``): per K-event block it renormalizes
     directions, flushes pending exits into float64 per-column tallies
     (``index_add_``), refills dead lanes in FIFO order (``cumsum``) and runs
     the event block (``kernels/event_block.py``: the CUDA kernel on a card,
-    its plain twin on the CPU).
+    its plain twin on the CPU), which also adds the radiance detectors'
+    local estimates to a float64 (n_cols, D) accumulator.
 
 Extinction is factorized as ext(x, y, z) = fx(x) * fy(y) * fz(z) with few-
 segment step functions; every photon keeps weight 1 and tallies once at its
 death (exit top, exit bottom, or Bernoulli absorption when ssa < 1).
 
-Plans the JAX package supports but this slice does not — radiance
-detectors, reflecting surfaces, the gas channel, column media, tabulated
+Plans the JAX package supports but the port does not yet — the marching
+shadow trace, reflecting surfaces, the gas channel, column media, tabulated
 phase functions — raise NotImplementedError naming their ROADMAP item;
 configurations the JAX planner rejects return None, as there.
 """
@@ -34,7 +37,7 @@ from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32, make_direction
 # hg_cosine is re-exported: the JAX package defines it in fastpath.
 from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
     ALIVE, BAD, EVCT, MAX_SEGMENTS, ORDERS, PK, TAU, UX, UY, UZ, X, Y, Z,
-    EventSpec, LaneState, event_block, hg_cosine,
+    DetectorSpec, EventSpec, LaneState, event_block, hg_cosine,
 )
 
 # Rows of the JAX package's one-hot read limit (i3rc_tpu/ops/gather.py):
@@ -49,8 +52,9 @@ def lane_width(n_photons: int, n_lanes: int | None = None) -> int:
     """The wavefront width: the caller's, else min(n_photons, DEFAULT_LANES)."""
     return int(n_lanes or min(n_photons, DEFAULT_LANES))
 
-# Features of the JAX fastpath outside this slice, by ROADMAP item number.
-_ITEM_DETECTORS = (10, "radiance detectors on the fastpath: ROADMAP item 10")
+# Features of the JAX fastpath not ported yet, by ROADMAP item number.
+_ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two varying "
+                        "horizontal factors): ROADMAP item 10b")
 _ITEM_SURFACE = (11, "reflecting surfaces and BRDFs on the fastpath: ROADMAP item 11")
 _ITEM_GAS = (13, "the gas channel: ROADMAP item 13")
 _ITEM_COLUMN = (14, "column-mode media: ROADMAP item 14")
@@ -206,6 +210,11 @@ class FastPlan:
     hg_g: float
     unroll: int
     ssa: float = 1.0
+    # (dx, dy, dz, |mu|) per radiance detector; closed_shadow: at most one
+    # horizontal factor varies and every detector leaves the z range, so the
+    # transmittance is closed-form (fastpath.py:602-606).
+    detectors: tuple = ()
+    closed_shadow: bool = False
 
 
 @dataclass(frozen=True)
@@ -277,14 +286,17 @@ def _gas_split(flat, geom):
             detect_hg(flat.forward_tables[cloud_idx]))
 
 
-def _shadow_eligible(fx, fy, fz, intensity, geom, gas: bool) -> bool:
-    """The JAX planner's detector checks (fastpath.py:592-631)."""
+def _detector_plan(fx, fy, fz, intensity, geom, gas: bool):
+    """The JAX planner's detectors and shadow-trace choice (fastpath.py:
+    592-631): (detectors, closed_shadow), or None where it declines."""
     dirs = np.asarray(intensity.directions, float)
-    if (fx.n_ops > 0) + (fy.n_ops > 0) <= 1 and all(abs(dirs[2, d]) > 1e-6
-                                                    for d in range(dirs.shape[1])):
-        return True
+    mus = np.asarray(intensity.abs_mu, float)
+    detectors = tuple((float(dirs[0, d]), float(dirs[1, d]), float(dirs[2, d]),
+                       float(mus[d])) for d in range(dirs.shape[1]))
+    if (fx.n_ops > 0) + (fy.n_ops > 0) <= 1 and all(abs(d[2]) > 1e-6 for d in detectors):
+        return detectors, True
     if gas:
-        return False
+        return None
     xe, ye, ze = (np.asarray(e.cpu(), float) for e in
                   (geom.x_edges, geom.y_edges, geom.z_edges))
 
@@ -292,8 +304,7 @@ def _shadow_eligible(fx, fy, fz, intensity, geom, gas: bool) -> bool:
         return float(np.diff(np.asarray([lo, *f.thresholds, hi])).min())
 
     shadow_steps = 0
-    for d in range(dirs.shape[1]):
-        dx_, dy_, dz_ = dirs[:, d]
+    for dx_, dy_, dz_, _ in detectors:
         path = (ze[-1] - ze[0]) / max(abs(dz_), 1e-6)
         steps = 2 + fz.n_ops + 1
         if fx.n_ops:
@@ -303,14 +314,14 @@ def _shadow_eligible(fx, fy, fz, intensity, geom, gas: bool) -> bool:
             steps += int(path * abs(dy_) / min_gap(fy, ye[0], ye[-1])) + 1
         steps += int(path * abs(dy_) / (ye[-1] - ye[0])) + 1
         shadow_steps = max(shadow_steps, steps)
-    return shadow_steps <= 24
+    return (detectors, False) if shadow_steps <= 24 else None
 
 
 def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> FastPlan | None:
     """Eligibility check + plan, decided as the JAX ``fast_plan`` decides.
 
     Returns None where the JAX planner returns None.  Where it would return
-    a plan that uses a feature outside this slice, raises
+    a plan that uses a feature the port lacks, raises
     NotImplementedError naming the ROADMAP item.
     """
     if not getattr(config, "use_fastpath", True) or config.use_ray_tracing:
@@ -380,20 +391,25 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
         return None
     else:
         fx, fy, fz = factors
+    detectors, closed_shadow = (), False
     if intensity is not None:
-        if not _shadow_eligible(fx, fy, fz, intensity, geom, gas):
+        det = _detector_plan(fx, fy, fz, intensity, geom, gas)
+        if det is None:
             return None
-        missing.append(_ITEM_DETECTORS)
+        detectors, closed_shadow = det
+        if not closed_shadow:
+            missing.append(_ITEM_MARCHING)
     if missing:
         raise NotImplementedError(f"fastpath plan needs {min(missing)[1]}")
     cfg_unroll = getattr(config, "fastpath_unroll", None)
     return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g,
-                    unroll=int(cfg_unroll) if cfg_unroll else 8, ssa=uniform_ssa)
+                    unroll=int(cfg_unroll) if cfg_unroll else 8, ssa=uniform_ssa,
+                    detectors=detectors, closed_shadow=closed_shadow)
 
 
 def plan_from_jax(plan) -> FastPlan:
     """The port's plan for a JAX ``FastPlan`` (host numpy already)."""
-    extras = {"detectors": _ITEM_DETECTORS, "surface_albedo": _ITEM_SURFACE,
+    extras = {"surface_albedo": _ITEM_SURFACE,
               "brdf_fn": _ITEM_SURFACE, "gas_factor": _ITEM_GAS, "gas_k": _ITEM_GAS,
               "column_data": _ITEM_COLUMN, "column_props": _ITEM_COLUMN,
               "cubic": _ITEM_TABLE, "fwd_cubic": _ITEM_TABLE}
@@ -401,9 +417,13 @@ def plan_from_jax(plan) -> FastPlan:
         v = getattr(plan, name, None)
         if v is not None and not (isinstance(v, (tuple, bool, float)) and not v):
             raise NotImplementedError(f"fastpath plan needs {item[1]}")
+    if plan.detectors and not plan.closed_shadow:
+        raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
     conv = lambda f: StepFactor(tuple(f.thresholds), tuple(f.values))
     return FastPlan(conv(plan.fx), conv(plan.fy), conv(plan.fz), float(plan.hg_g),
-                    int(plan.unroll), float(plan.ssa))
+                    int(plan.unroll), float(plan.ssa),
+                    detectors=tuple(tuple(float(v) for v in d) for d in plan.detectors),
+                    closed_shadow=bool(plan.closed_shadow))
 
 
 def state_from_numpy(st, device="cpu") -> LaneState:
@@ -430,6 +450,8 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
     # Face-push nudges: ~8 float32 ulps of the coordinate scale per axis.
     nudge = lambda lo, hi: f32(8 * 2.0 ** -23 * max(abs(lo), abs(hi)))
     chain = int(getattr(config, "fastpath_chain", -1))
+    # y drops out for slab-symmetric domains: nothing reads it.
+    track_y = not (geom.n_y == 1 and plan.fy.n_ops == 0)
     return EventSpec(
         fx=plan.fx, fy=plan.fy, fz=plan.fz,
         inv_fx=plan.fx.reciprocal(), inv_fy=plan.fy.reciprocal(),
@@ -440,10 +462,64 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         nudge_x=nudge(x0, x_max), nudge_y=nudge(y0, y_max), nudge_z=nudge(z0, z_max),
         g=f32(plan.hg_g), ssa=f32(plan.ssa), max_events=int(config.max_events),
         K=max(1, plan.unroll),
-        # Collision-chain depth: auto (-1) is 2 for cloud media.
-        chain=2 if chain < 0 else chain,
-        # y drops out for slab-symmetric domains: nothing reads it.
-        track_y=not (geom.n_y == 1 and plan.fy.n_ops == 0))
+        # Collision-chain depth: auto (-1) is 2 for cloud media.  Detectors
+        # need the shadow trace of every collision: no chaining with them.
+        chain=0 if plan.detectors else (2 if chain < 0 else chain),
+        track_y=track_y,
+        det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None)
+
+
+def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpec:
+    """Constants of the detector block and the closed-form shadow trace
+    (fastpath.py:890-895, :1140-1192), computed as the JAX package computes
+    them: in Python double, rounded to float32 at the point of use."""
+    if not plan.closed_shadow:
+        raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
+    fx, fy, fz = plan.fx, plan.fy, plan.fz
+    x0, y0, z0 = geom.x0, geom.y0, geom.z0
+    x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
+    if fx.n_ops:
+        h_f, h_lo, h_hi, h_axis = fx, x0, x_max, 0
+        c_other = float(fy.values[0])
+    elif fy.n_ops:
+        h_f, h_lo, h_hi, h_axis = fy, y0, y_max, 1
+        c_other = float(fx.values[0])
+    else:
+        h_f, h_lo, h_hi, h_axis = None, 0.0, 0.0, -1
+        c_other = float(fx.values[0]) * float(fy.values[0])
+    z_segs = tuple((f32(lo), f32(hi), f32(float(v) * c_other)) for lo, hi, v in
+                   zip((float(z0),) + fz.thresholds, fz.thresholds + (float(z_max),),
+                       fz.values) if float(v) * c_other > 0.0)
+    h_tot = h_w = h_inv_w = 0.0
+    h_cums = ()
+    if h_f is not None:
+        # FhP: cumulative integral of the horizontal factor at each threshold.
+        cums = [0.0]
+        for s_, e_, v_ in zip((float(h_lo),) + h_f.thresholds,
+                              h_f.thresholds + (float(h_hi),), h_f.values):
+            cums.append(cums[-1] + float(v_) * (e_ - s_))
+        h_tot, h_w, h_inv_w = f32(cums[-1]), f32(h_hi - h_lo), f32(1.0 / (h_hi - h_lo))
+        h_cums = tuple(f32(c) for c in cums[1:-1])
+    dhs = [(dx, dy)[h_axis] if h_axis >= 0 else 0.0 for dx, dy, _, _ in plan.detectors]
+    modes = tuple(0 if h_axis < 0 else (2 if abs(dh) > 1e-12 else 1) for dh in dhs)
+    col_y = track_y and geom.n_y > 1
+    zeta = f32(max(float(config.zeta_min), 1e-30))
+    return DetectorSpec(
+        dirs=tuple((f32(dx), f32(dy), f32(dz)) for dx, dy, dz, _ in plan.detectors),
+        inv_dz=tuple(f32(1.0 / d[2]) for d in plan.detectors),
+        dh=tuple(f32(dh) for dh in dhs),
+        inv_dh=tuple(f32(1.0 / dh) if m == 2 else 0.0 for dh, m in zip(dhs, modes)),
+        h_mode=modes,
+        norm=tuple(f32(1.0 / (4.0 * np.pi * d[3])) for d in plan.detectors),
+        z_segs=z_segs, h_axis=h_axis, h_lo=f32(h_lo), h_tot=h_tot, h_w=h_w,
+        h_inv_w=h_inv_w, h_cums=h_cums, z_top=f32(z_max), z_bot=f32(z0),
+        x0=f32(x0), inv_dx=f32(1.0 / geom.dx), wrap_wx=f32(x_max - x0),
+        wrap_inv_x=f32(1.0 / (x_max - x0)), n_x=geom.n_x, col_y=col_y,
+        y0=f32(y0), inv_dy=f32(1.0 / geom.dy) if col_y else 0.0,
+        wrap_wy=f32(y_max - y0) if col_y else 0.0,
+        wrap_inv_y=f32(1.0 / (y_max - y0)) if col_y else 0.0, n_y=geom.n_y,
+        iwabuchi=bool(getattr(config, "use_russian_roulette_for_intensity", False)),
+        zeta=zeta, zeta_pi=f32(zeta / np.pi))
 
 
 def launch_state(geom, batch, n_photons: int) -> LaneState:
@@ -484,6 +560,7 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
     # Global hang guard (counts K-event blocks): ~2x the event budget.
     max_blocks = -(-2 * config.max_events * (n_photons // L + 2) // K)
     n_cols = n_x * n_y
+    D = len(plan.detectors)
     absorbing = spec.absorbing
     vol_tally = bool(getattr(config, "compute_volume_absorption", False)) and absorbing
 
@@ -530,6 +607,9 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
                               device=dev)
         vol = torch.zeros(n_cols * n_z if vol_tally else 0, dtype=torch.float64,
                           device=dev)
+        # Detector contributions per (exit column, detector), added inside
+        # the event block.
+        acc = torch.zeros((n_cols, D), dtype=torch.float64, device=dev) if D else None
         kb = 0
         while kb < max_blocks:
             # The loop condition: one host sync per K-event block.
@@ -541,18 +621,24 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
             flush(columns, vol, st)
             if n_photons > L:
                 launched = refill(st, launched, key, source, kb)
-            event_block(spec, st, key, kb)
+            event_block(spec, st, key, kb, acc)
             kb += 1
         flush(columns, vol, st)
         # Lanes alive at the block cap vanish with their weight: count bad.
         n_bad = i[BAD].sum(dtype=torch.int64) + i[ALIVE].sum(dtype=torch.int64)
         zeros = lambda n: torch.zeros(n, dtype=torch.float64, device=dev)
+        # Radiance layout of fastpath.py:2126-2153 (no gas): (n_cols * D),
+        # and per component (n_cols * D, 2) with slot 0 the surface, which a
+        # black surface leaves at zero, and slot 1 the collisions.
+        coll = acc.reshape(-1) if D else zeros(0)
         return RawTallies(
             flux_up=columns[:, 0], flux_down=columns[:, 1],
             flux_absorbed=columns[:, 2] if absorbing else zeros(n_cols),
             volume_absorption=vol if vol_tally else zeros(n_cols * n_z),
-            intensity=zeros(0), intensity_by_component=zeros(0),
-            intensity_excess=zeros(0), n_photons=int(n_photons), n_bad=n_bad,
+            intensity=coll,
+            intensity_by_component=torch.stack([torch.zeros_like(coll), coll],
+                                               dim=1).reshape(-1),
+            intensity_excess=zeros(2 * D), n_photons=int(n_photons), n_bad=n_bad,
             n_iterations=kb * K,
             n_lane_events=i[EVCT].sum(dtype=torch.int64))
 

@@ -136,13 +136,15 @@ class Integrator:
         if cache_key not in cache:
             tracer = self.batch_tracer(n_photons, lanes)
             n_x, n_y, n_z = self.grid_shape
+            n_dirs = self.intensity.n_directions if self.intensity else 0
 
             @torch.inference_mode()
             def run(key: PhiloxKey) -> Results:
                 batch = source.sample(key, lanes, self.device)
                 raw = tracer(key, batch, source)
-                return normalize_tallies(raw, n_x, n_y, n_z, 0, self.optics.n_components,
-                                         self._col_weights, self._dz)
+                return normalize_tallies(raw, n_x, n_y, n_z, n_dirs,
+                                         self.optics.n_components, self._col_weights,
+                                         self._dz)
 
             cache[cache_key] = run
         return cache[cache_key]

@@ -60,9 +60,9 @@ class RawTallies:
     flux_down: torch.Tensor
     flux_absorbed: torch.Tensor
     volume_absorption: torch.Tensor  # (nx*ny*nz,)
-    intensity: torch.Tensor          # (0,): radiance is not ported yet
-    intensity_by_component: torch.Tensor
-    intensity_excess: torch.Tensor
+    intensity: torch.Tensor          # (nx*ny*D,) or (0,)
+    intensity_by_component: torch.Tensor  # (nx*ny*D*(ncomp+1),) or (0,)
+    intensity_excess: torch.Tensor        # (D*(ncomp+1),) or (0,)
     n_photons: int
     n_bad: torch.Tensor            # scalar int64
     n_iterations: int              # event-loop trips (diagnostic)

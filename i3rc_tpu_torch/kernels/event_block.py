@@ -3,10 +3,12 @@
 ``event_block`` is the wrapper the trace loop calls.  On a CUDA tensor it
 launches the hand-written Hopper kernel ``csrc/fast_event_block.cu`` (the
 port of the Pallas kernel ``_build_pallas_block``,
-i3rc_tpu/integrators/fastpath.py:665, flux variant) and raises if the build
-or the launch fails; on a CPU tensor it runs ``event_block_reference``, the
-plain PyTorch version, on the same Philox draws.  Both update the lane state
-in place.
+i3rc_tpu/integrators/fastpath.py:665, in its flux variant and its radiance
+detector variant ``n_detectors > 0``) and raises if the build or the launch
+fails; on a CPU tensor it runs ``event_block_reference``, the plain PyTorch
+version, on the same Philox draws.  Both update the lane state in place and
+add the detector contributions of the block to a float64 (n_cols, D)
+accumulator.
 
 The twin applies exactly the kernel's draw layout: event ``j`` of the block
 reads ``uniforms[j, i]`` for its draw ``i`` (``rng.philox_uniforms``).
@@ -24,13 +26,16 @@ import torch
 from i3rc_tpu_torch.core.rng import (
     STREAM_EVENT,
     PhiloxKey,
+    TINY,
     exponential_deviate,
     philox_uniforms,
 )
 from i3rc_tpu_torch.integrators.wavefront import f32, rotate_direction
 
 MAX_SEGMENTS = 24
+MAX_DETECTORS = 8
 HUGE = f32(3.0e38)
+PI = f32(np.pi)
 SUPPORTED_K = (1, 8, 16)
 SUPPORTED_CHAIN = (0, 1, 2, 3)
 
@@ -62,12 +67,73 @@ class LaneState:
 
 
 @dataclass(frozen=True)
+class DetectorSpec:
+    """Radiance detectors with the closed-form shadow trace
+    (i3rc_tpu/integrators/fastpath.py:1140-1247), as float32 constants in
+    Python floats (``fastpath.shadow_constants`` builds them).
+
+    Per detector: direction (dx, dy, dz), f32(1/dz), the horizontal
+    component dh along the varying axis and f32(1/dh), ``h_mode`` (0: no
+    horizontal factor, 1: the ray keeps its horizontal position, so the
+    factor is one chain value; 2: the cumulative integral FhP of the factor)
+    and ``norm`` = f32(1 / (4 pi |mu|)).  ``z_segs`` are the (lo, hi, value)
+    z segments with extinction > 0, value = fz * the constant other
+    horizontal factor.  ``h_axis`` (0 x, 1 y, -1 none) names the varying
+    horizontal factor; FhP's constants are ``h_lo``, ``h_tot``, ``h_w``,
+    ``h_inv_w`` and ``h_cums`` (the integral at each interior threshold).
+    The exit column wraps with ``wrap_w*`` / ``wrap_inv_*`` and bins with
+    ``x0``/``inv_dx`` (and y when ``col_y``).  ``iwabuchi`` turns on the
+    roulette of fastpath.py:1533-1550 with ``zeta`` and ``zeta_pi`` =
+    f32(zeta / pi).
+    """
+
+    dirs: tuple
+    inv_dz: tuple
+    dh: tuple
+    inv_dh: tuple
+    h_mode: tuple
+    norm: tuple
+    z_segs: tuple
+    h_axis: int
+    h_lo: float
+    h_tot: float
+    h_w: float
+    h_inv_w: float
+    h_cums: tuple
+    z_top: float
+    z_bot: float
+    x0: float
+    inv_dx: float
+    wrap_wx: float
+    wrap_inv_x: float
+    n_x: int
+    col_y: bool
+    y0: float
+    inv_dy: float
+    wrap_wy: float
+    wrap_inv_y: float
+    n_y: int
+    iwabuchi: bool
+    zeta: float
+    zeta_pi: float
+
+    @property
+    def n(self) -> int:
+        return len(self.dirs)
+
+    @property
+    def n_cols(self) -> int:
+        return self.n_x * (self.n_y if self.col_y else 1)
+
+
+@dataclass(frozen=True)
 class EventSpec:
     """Everything the event block needs besides the state and the draws.
 
     fx/fy/fz are fastpath.StepFactor chains; inv_* carry the reciprocal
     values (0 for zero segments).  Bounds, widths and nudges are float32
-    values held in Python floats.
+    values held in Python floats.  ``det`` holds the radiance detectors
+    (None: flux only); detectors imply chain depth 0 (fastpath.py:1286).
     """
 
     fx: object
@@ -93,6 +159,7 @@ class EventSpec:
     K: int
     chain: int
     track_y: bool
+    det: DetectorSpec | None = None
 
     @property
     def absorbing(self) -> bool:
@@ -104,7 +171,11 @@ class EventSpec:
 
     @property
     def n_draws(self) -> int:
-        return self.bonus_draws * (1 + self.chain)
+        """Draws per event: free path, cosine, azimuth (+ absorption), then
+        one Iwabuchi draw per detector (fastpath.py:890-895) or the chain's
+        bonus phases (detectors and chaining exclude each other)."""
+        iw = self.det.n if self.det is not None and self.det.iwabuchi else 0
+        return self.bonus_draws * (1 + self.chain) + iw
 
 
 def hg_cosine(g: float, u):
@@ -120,14 +191,115 @@ def hg_cosine(g: float, u):
     return torch.clamp(c, -1.0, 1.0)
 
 
+def hg_phase(g: float, cos_theta):
+    """HG phase value, normalized so integral over d(mu) is 2 (P_iso == 1).
+
+    fastpath.py:658-662 with rsqrt as an IEEE sqrt and reciprocal, as the
+    CUDA kernel computes it (torch's CUDA rsqrt is an approximation).
+    """
+    g = np.float32(g)
+    one = np.float32(1.0)
+    t = torch.clamp(float(one + g * g) - float(g + g) * cos_theta, min=f32(1e-12))
+    r = torch.sqrt(t).reciprocal()
+    return float(one - g * g) * r * r * r
+
+
+def _cum_h(spec: EventSpec, xu):
+    """FhP: the cumulative integral of the varying horizontal factor,
+    periodically extended (fastpath.py:1175-1186)."""
+    det = spec.det
+    hf = (spec.fx, spec.fy)[det.h_axis]
+    n = torch.floor((xu - det.h_lo) * det.h_inv_w)
+    r = xu - n * det.h_w
+    F = f32(hf.values[0]) * (r - det.h_lo)
+    for t, v, c in zip(hf.thresholds, hf.values[1:], det.h_cums):
+        F = torch.where(r >= f32(t), c + f32(v) * (r - f32(t)), F)
+    return n * det.h_tot + F
+
+
+def shadow_closed(spec: EventSpec, d: int, x, y, z):
+    """(optical depth to the z boundary, exit column) along detector d from
+    (x, y, z): the closed-form shadow trace (fastpath.py:1194-1247)."""
+    det = spec.det
+    dx, dy, dz = det.dirs[d]
+    inv_dz = det.inv_dz[d]
+    up = dz >= 0.0
+    ph = (x, y)[det.h_axis] if det.h_axis >= 0 else None
+    tau = torch.zeros_like(x)
+    for zl, zh, v in det.z_segs:
+        a, b = (zl, zh) if up else (zh, zl)
+        t_lo = torch.clamp((a - z) * inv_dz, min=0.0)
+        t_hi = torch.clamp((b - z) * inv_dz, min=0.0)
+        if det.h_mode[d] == 2:
+            dh = det.dh[d]
+            seg = (_cum_h(spec, ph + t_hi * dh) - _cum_h(spec, ph + t_lo * dh)) \
+                * det.inv_dh[d]
+        elif det.h_mode[d] == 1:
+            seg = (spec.fx, spec.fy)[det.h_axis](ph) * (t_hi - t_lo)
+        else:
+            seg = t_hi - t_lo
+        tau = tau + v * torch.clamp(seg, min=0.0)
+    t_ex = ((det.z_top if up else det.z_bot) - z) * inv_dz
+    xe = x + t_ex * dx
+    xe = xe - det.wrap_wx * torch.floor((xe - det.x0) * det.wrap_inv_x)
+    col = torch.clamp(((xe - det.x0) * det.inv_dx).to(torch.int64), 0, det.n_x - 1)
+    if det.col_y:
+        ye = y + t_ex * dy
+        ye = ye - det.wrap_wy * torch.floor((ye - det.y0) * det.wrap_inv_y)
+        iy = torch.clamp(((ye - det.y0) * det.inv_dy).to(torch.int64), 0, det.n_y - 1)
+        col = col * det.n_y + iy
+    return tau, col
+
+
+def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records) -> None:
+    """Local-estimate radiance of every collision (fastpath.py:1501-1571):
+    P(photon -> detector) / (4 pi |mu_d|) x exp(-tau to the boundary) at the
+    shadow ray's exit column, with Iwabuchi roulette when asked for.  ``pos``
+    is the collision point, ``dirs`` the direction before scattering."""
+    det = spec.det
+    x, y, z = pos
+    ux, uy, uz = dirs
+    for d, (dx, dy, dz) in enumerate(det.dirs):
+        proj = torch.clamp(ux * dx + uy * dy + uz * dz, -1.0, 1.0)
+        norm_pf = hg_phase(spec.g, proj) * det.norm[d]
+        tau, col = shadow_closed(spec, d, x, y, z)
+        if det.iwabuchi:
+            # Iwabuchi Eq 13/14 on the exact tau (monteCarloRadiativeTransfer
+            # .f95:1536-1596): pf_pi <= zeta contributes zeta / pi with
+            # probability (pf_pi / zeta) exp(-tau), the acceptance times the
+            # transmittance of the reference's trace; otherwise beyond tau_max
+            # the contribution survives with probability exp(tau_max - tau).
+            # The JAX fastpath (fastpath.py:1544) leaves exp(-tau) out of the
+            # first case and overestimates; the port does not copy that.
+            u_iw = u[spec.bonus_draws + d]
+            pf_pi = PI * norm_pf
+            tau_max = -torch.log(torch.full_like(pf_pi, det.zeta)
+                                 / torch.clamp(pf_pi, min=TINY))
+            c_small = torch.where(u_iw * det.zeta <= pf_pi * torch.exp(-tau),
+                                  det.zeta_pi, 0.0)
+            c_large = torch.where(
+                tau <= tau_max, norm_pf * torch.exp(-tau),
+                torch.where(u_iw < torch.exp(tau_max - tau), det.zeta_pi, 0.0))
+            contrib = torch.where(collided, torch.where(pf_pi <= det.zeta, c_small,
+                                                        c_large), 0.0)
+        else:
+            contrib = torch.where(collided, norm_pf * torch.exp(-tau), 0.0)
+        if acc is not None:
+            acc.view(-1).index_add_(0, col * det.n + d, contrib.to(torch.float64))
+        if records is not None:
+            records.append((contrib, col))
+
+
 def _wrap(v, lo: float, hi: float, w: float):
     """Periodic wrap for positions at most one event-step outside."""
     return torch.where(v >= hi, v - w, torch.where(v < lo, v + w, v))
 
 
-def _fast_event(spec: EventSpec, u, s: dict) -> None:
-    """One fast_event (fastpath.py:1291-1676 with D = 0, MARCH = 1) on the
-    lane tensors in ``s``; u is the (n_draws, L) draw block of the event."""
+def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
+    """One fast_event (fastpath.py:1291-1676 with MARCH = 1) on the lane
+    tensors in ``s``; u is the (n_draws, L) draw block of the event.
+    Detector contributions go into ``acc`` ((n_cols, D) float64) and, per
+    event and detector, as (contribution, column) pairs into ``records``."""
     x, y, z = s["x"], s["y"], s["z"]
     ux, uy, uz = s["ux"], s["uy"], s["uz"]
     alive, pk = s["alive"], s["pk"]
@@ -176,6 +348,8 @@ def _fast_event(spec: EventSpec, u, s: dict) -> None:
         die = collided & (u[3] >= f32(spec.ssa))
         pk = torch.where(die, 3, pk)
         collided = collided & ~die
+    if spec.det is not None:
+        _detector_block(spec, u, (x, y, z), (ux, uy, uz), collided, acc, records)
     nux, nuy, nuz = rotate_direction(ux, uy, uz, hg_cosine(spec.g, u[1]), u[2],
                                      renormalize=False)
     ux = torch.where(collided, nux, ux)
@@ -232,18 +406,21 @@ def _fast_event(spec: EventSpec, u, s: dict) -> None:
              alive=alive & (pk == 0) & ~over)
 
 
-def event_block_reference(spec: EventSpec, state: LaneState, uniforms) -> None:
+def event_block_reference(spec: EventSpec, state: LaneState, uniforms, acc=None,
+                          records=None) -> None:
     """Plain PyTorch version of the kernel: K events with the given draws.
 
     ``uniforms`` is (K, n_draws, L) float32 in the kernel's layout.  Updates
-    ``state`` in place.
+    ``state`` in place; with detectors, adds their contributions to ``acc``
+    ((n_cols, D) float64) and appends each event's per-detector
+    (contribution, column) pairs to the list ``records`` when given.
     """
     f, i = state.f, state.i
     s = {"x": f[X], "y": f[Y], "z": f[Z], "ux": f[UX], "uy": f[UY], "uz": f[UZ],
          "tau": f[TAU], "alive": i[ALIVE] != 0, "orders": i[ORDERS], "pk": i[PK],
          "bad": i[BAD], "evct": i[EVCT]}
     for j in range(spec.K):
-        _fast_event(spec, uniforms[j], s)
+        _fast_event(spec, uniforms[j], s, acc, records)
     state.f.copy_(torch.stack([s[k] for k in ("x", "y", "z", "ux", "uy", "uz", "tau")]))
     state.i.copy_(torch.stack([s["alive"].to(torch.int32), s["orders"], s["pk"],
                                s["bad"], s["evct"]]))
@@ -282,13 +459,30 @@ class _StepChain(ctypes.Structure):
                 ("iv", ctypes.c_float * (MAX_SEGMENTS + 1))]
 
 
+class _DetParams(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("n_bins", ctypes.c_int)] + [
+        (n, ctypes.c_float * MAX_DETECTORS)
+        for n in ("dx", "dy", "dz", "inv_dz", "dh", "inv_dh", "norm")] + [
+        ("mode", ctypes.c_int * MAX_DETECTORS), ("n_z", ctypes.c_int)] + [
+        (n, ctypes.c_float * (MAX_SEGMENTS + 1)) for n in ("z_lo", "z_hi", "z_v")] + [
+        ("h_axis", ctypes.c_int)] + [
+        (n, ctypes.c_float) for n in ("h_lo", "h_tot", "h_w", "h_inv_w")] + [
+        ("h_cum", ctypes.c_float * MAX_SEGMENTS)] + [
+        (n, ctypes.c_float) for n in ("z_top", "z_bot", "x0", "inv_dx", "wrap_wx",
+                                      "wrap_inv_x", "y0", "inv_dy", "wrap_wy",
+                                      "wrap_inv_y")] + [
+        (n, ctypes.c_int) for n in ("n_x", "n_y", "col_y")] + [
+        (n, ctypes.c_float) for n in ("zeta", "zeta_pi")]
+
+
 class _EventParams(ctypes.Structure):
     _fields_ = [("fx", _StepChain), ("fy", _StepChain), ("fz", _StepChain)] + [
         (n, ctypes.c_float) for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max",
                                       "wx", "wy", "nudge_x", "nudge_y", "nudge_z",
                                       "g", "ssa")] + [
         ("max_events", ctypes.c_int), ("key0", ctypes.c_uint32),
-        ("key1", ctypes.c_uint32), ("kb", ctypes.c_uint32), ("n_lanes", ctypes.c_int)]
+        ("key1", ctypes.c_uint32), ("kb", ctypes.c_uint32), ("n_lanes", ctypes.c_int),
+        ("det", _DetParams)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -298,6 +492,25 @@ def _step_chain(f, inv) -> _StepChain:
     c.v[:c.n + 1] = [f32(v) for v in f.values]
     c.iv[:c.n + 1] = [f32(v) for v in inv.values]
     return c
+
+
+def _det_params(det: DetectorSpec) -> _DetParams:
+    q = _DetParams()
+    q.n, q.n_bins = det.n, det.n_cols * det.n
+    for d, (dx, dy, dz) in enumerate(det.dirs):
+        q.dx[d], q.dy[d], q.dz[d] = dx, dy, dz
+        q.inv_dz[d], q.dh[d], q.inv_dh[d] = det.inv_dz[d], det.dh[d], det.inv_dh[d]
+        q.norm[d], q.mode[d] = det.norm[d], det.h_mode[d]
+    q.n_z = len(det.z_segs)
+    for k, (lo, hi, v) in enumerate(det.z_segs):
+        q.z_lo[k], q.z_hi[k], q.z_v[k] = lo, hi, v
+    q.h_axis = det.h_axis
+    q.h_cum[:len(det.h_cums)] = list(det.h_cums)
+    for n in ("h_lo", "h_tot", "h_w", "h_inv_w", "z_top", "z_bot", "x0", "inv_dx",
+              "wrap_wx", "wrap_inv_x", "y0", "inv_dy", "wrap_wy", "wrap_inv_y", "n_x",
+              "n_y", "col_y", "zeta", "zeta_pi"):
+        setattr(q, n, getattr(det, n))
+    return q
 
 
 @functools.lru_cache(maxsize=None)
@@ -310,7 +523,7 @@ def build():
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.i3rc_event_params_size.argtypes = []
     lib.i3rc_event_params_size.restype = ci
-    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.i3rc_fast_event_block.restype = ci
     lib.i3rc_philox_uniforms.argtypes = [vp, cu, cu, cu, cu, ci, ci, vp]
     lib.i3rc_philox_uniforms.restype = ci
@@ -330,7 +543,7 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int) -> None:
+def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> None:
     f, i = state.f, state.i
     L = state.n_lanes
     if f.device != i.device or i.device.type != "cuda":
@@ -344,6 +557,29 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int) -> None:
         raise NotImplementedError(
             f"event_block kernel is built for K in {SUPPORTED_K} and chain depth in "
             f"{SUPPORTED_CHAIN}; got K={spec.K}, chain={spec.chain}")
+    det = spec.det
+    if det is not None:
+        if det.n > MAX_DETECTORS or spec.chain:
+            raise NotImplementedError(
+                f"event_block kernel takes at most {MAX_DETECTORS} detectors at chain "
+                f"depth 0; got {det.n} at chain {spec.chain}")
+        if (acc.device != f.device or acc.dtype != torch.float64
+                or acc.shape != (det.n_cols, det.n) or not acc.is_contiguous()):
+            raise ValueError("event_block: acc must be a contiguous float64 "
+                             f"({det.n_cols}, {det.n}) tensor on the state's device")
+    p = event_params(spec, key, kb, L)
+    lib = build().lib
+    with torch.cuda.device(f.device):
+        rc = lib.i3rc_fast_event_block(
+            f.data_ptr(), i.data_ptr(), acc.data_ptr() if det is not None else None,
+            ctypes.byref(p), spec.K, spec.chain, int(spec.absorbing), int(spec.track_y),
+            int(det is not None), int(det is not None and det.iwabuchi),
+            _stream(f.device))
+    _check(rc, "fast_event_block launch")
+
+
+def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _EventParams:
+    """The kernel's by-value parameter block for one launch."""
     p = _EventParams()
     p.fx = _step_chain(spec.fx, spec.inv_fx)
     p.fy = _step_chain(spec.fy, spec.inv_fy)
@@ -354,33 +590,40 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int) -> None:
     p.max_events = spec.max_events
     p.key0, p.key1 = key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF
     p.kb = kb & 0xFFFFFFFF
-    p.n_lanes = L
-    lib = build().lib
-    with torch.cuda.device(f.device):
-        rc = lib.i3rc_fast_event_block(f.data_ptr(), i.data_ptr(), ctypes.byref(p),
-                                       spec.K, spec.chain, int(spec.absorbing),
-                                       int(spec.track_y), _stream(f.device))
-    _check(rc, "fast_event_block launch")
+    p.n_lanes = n_lanes
+    if spec.det is not None:
+        p.det = _det_params(spec.det)
+    return p
 
 
-def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int) -> None:
+def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
+                acc=None) -> None:
     """Advance every lane K events, in place, with the draws of block ``kb``.
 
-    CUDA tensors launch the kernel (counted in ``event_block.launches``);
-    CPU tensors run the plain twin on ``philox_uniforms`` draws.
+    With detectors (``spec.det``) their contributions are added to ``acc``,
+    a float64 (n_cols, D) tensor on the state's device.  CUDA tensors launch
+    the kernel (counted in ``event_block.launches`` for the flux variant and
+    ``event_block.detector_launches`` for the detector variant); CPU tensors
+    run the plain twin on ``philox_uniforms`` draws.
     """
+    if (spec.det is None) != (acc is None):
+        raise ValueError("event_block: acc is given exactly when the spec has detectors")
     device = state.f.device
     if device.type == "cuda":
-        _launch(spec, state, key, kb)
-        event_block.launches += 1
+        _launch(spec, state, key, kb, acc)
+        if spec.det is None:
+            event_block.launches += 1
+        else:
+            event_block.detector_launches += 1
     elif device.type == "cpu":
         u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, device)
-        event_block_reference(spec, state, u)
+        event_block_reference(spec, state, u, acc)
     else:
         raise NotImplementedError(f"event_block: no kernel for device {device}")
 
 
 event_block.launches = 0
+event_block.detector_launches = 0
 
 
 def kernel_philox_uniforms(key: PhiloxKey, kb: int, K: int, n_draws: int, n_lanes: int,

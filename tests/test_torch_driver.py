@@ -72,8 +72,8 @@ def test_driver_step_cloud_anchor(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(radiative="intensityMus = 1., intensityPhis = 0.",
-          files='outputRadFile = "rad.out"'), "item 10"),
+    (dict(radiative="surfaceAlbedo = 0.3, intensityMus = 1., intensityPhis = 0.",
+          files='outputRadFile = "rad.out"'), "item 11"),
     (dict(radiative="surfaceAlbedo = 0.3,"), "item 11"),
     (dict(algorithms="useRayTracing = .false., polarized = .true.,"), "item 17"),
     (dict(algorithms="useRayTracing = .true.,"), "item 16"),

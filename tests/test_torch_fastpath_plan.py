@@ -73,13 +73,15 @@ def test_non_separable_field_has_no_plan():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(intensity_mus=[1.0, 0.5], intensity_phis=[0.0, 0.0]), "item 10"),
+    # fx and fy both vary: the JAX planner takes the marching shadow trace.
+    (dict(intensity_mus=[1.0, 0.5], intensity_phis=[0.0, 0.0]), "item 10b"),
     (dict(surface_albedo=0.3), "item 11"),
 ])
 def test_out_of_slice_plans_raise(kwargs, item):
-    dom = make_step_cloud(1.0)
+    dom = separable_3d() if "intensity_mus" in kwargs else make_step_cloud(1.0)
     jplan = JaxIntegrator.create(dom, config=CFG, **kwargs)._fast_plan
     assert jplan is not None          # the JAX fastpath takes these
+    assert not getattr(jplan, "closed_shadow", False)
     integ = Integrator.create(dom, config=CFG, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match=item):
         integ._fast_plan
