@@ -12,13 +12,18 @@ Layer map:
   kernels/      hand-written CUDA kernels, their plain PyTorch twins, the build
   csrc/         CUDA C++ sources (built with nvcc for sm_90a at first use)
   parallel/     batch statistics
-  drivers/      the namelist driver (monteCarloDriver analog)
+  drivers/      the namelist drivers (monteCarloDriver analog, broadband)
 """
 
 __version__ = "0.1.0"
 
 _EXPORTS = {
     # JAX-free host layer shared with the JAX package.
+    "Domain": "i3rc_tpu.core.optics",
+    "PhaseFunction": "i3rc_tpu.core.phase_functions",
+    "PhaseFunctionTable": "i3rc_tpu.core.phase_functions",
+    "henyey_greenstein_coefficients": "i3rc_tpu.core.phase_functions",
+    "KDistribution": "i3rc_tpu.core.k_distribution",
     "IntegratorConfig": "i3rc_tpu.integrators.config",
     "make_step_cloud": "i3rc_tpu.models.step_cloud",
     "write_domains": "i3rc_tpu.models.step_cloud",
@@ -28,6 +33,8 @@ _EXPORTS = {
     "Integrator": "i3rc_tpu_torch.integrators.integrator",
     "Results": "i3rc_tpu_torch.integrators.results",
     "run_batches": "i3rc_tpu_torch.parallel.mesh",
+    "run_band": "i3rc_tpu_torch.integrators.spectral",
+    "run_broadband": "i3rc_tpu_torch.integrators.spectral",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -23,8 +23,13 @@ Layout (shared bit for bit with the CUDA kernel):
   * ``stream`` disjoint purpose ids: ``STREAM_EVENT`` (the event block's
                draws, fastpath.py:2075 in the JAX package),
                ``STREAM_REFILL`` (source samples for lanes refilled before
-               block ``kb``, fastpath.py:2027) and ``STREAM_LAUNCH`` (the
-               batch's initial photons, integrator.py:459-460).
+               block ``kb``, fastpath.py:2027), ``STREAM_LAUNCH`` (the
+               batch's initial photons, integrator.py:459-460) and
+               ``STREAM_GAS`` (the gas channel's optical-depth thresholds:
+               group 0 at block ``kb`` for the lanes refilled before block
+               ``kb``, fastpath.py:2037-2041, and at block
+               ``GAS_LAUNCH_BLOCK`` = 0xFFFFFFFF for the launch,
+               fastpath.py:2097-2106).
 
 Uniform conversion: ``u = (bits >> 8) * 2**-24``, exact in float32, in
 [0, 1 - 2**-24].
@@ -48,6 +53,8 @@ TINY = float(np.float32(1.1754944e-38))
 STREAM_EVENT = 0
 STREAM_REFILL = 1
 STREAM_LAUNCH = 2
+STREAM_GAS = 3
+GAS_LAUNCH_BLOCK = 0xFFFFFFFF
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M0 = 0xD2511F53
@@ -138,3 +145,9 @@ def exponential_deviate(u: torch.Tensor) -> torch.Tensor:
     guard against u == 0.
     """
     return -torch.log(torch.clamp(u, min=TINY))
+
+
+def gas_thresholds(key: PhiloxKey, block: int, n_lanes: int, device) -> torch.Tensor:
+    """(n_lanes,) exponential gas optical-depth thresholds drawn at ``block``
+    of ``STREAM_GAS`` (``GAS_LAUNCH_BLOCK`` for the launch)."""
+    return exponential_deviate(stream_uniforms(key, STREAM_GAS, block, 1, n_lanes, device)[0])

@@ -1,26 +1,30 @@
 """Fused transport fastpath (separable optics, HG phase) in PyTorch.
 
 Port of ``i3rc_tpu/integrators/fastpath.py`` for flux and radiance on a
-black surface:
+black surface, with or without the baked gas channel:
 
   * the host-side planner (``StepFactor``, ``separable_factors``,
     ``detect_hg``, ``FastPlan``, ``fast_plan``) in numpy, with the
     StepFactor where-chains also as torch functions, and the constants of
-    the closed-form shadow trace (``shadow_constants``);
+    the closed-form shadow trace (``shadow_constants``), and the cloud + gas
+    split of two-component domains (``_gas_split``);
   * the trace loop (``make_fast_tracer``): per K-event block it renormalizes
     directions, flushes pending exits into float64 per-column tallies
     (``index_add_``), refills dead lanes in FIFO order (``cumsum``) and runs
     the event block (``kernels/event_block.py``: the CUDA kernel on a card,
     its plain twin on the CPU), which also adds the radiance detectors'
-    local estimates to a float64 (n_cols, D) accumulator.
+    local estimates to a float64 (n_cols, D) accumulator.  A gas plan
+    draws each lane's exponential gas threshold at launch and at refill
+    (``rng.STREAM_GAS``).
 
 Extinction is factorized as ext(x, y, z) = fx(x) * fy(y) * fz(z) with few-
 segment step functions; every photon keeps weight 1 and tallies once at its
-death (exit top, exit bottom, or Bernoulli absorption when ssa < 1).
+death (exit top, exit bottom, or absorption: Bernoulli when ssa < 1, or the
+gas channel when its threshold runs out).
 
 Plans the JAX package supports but the port does not yet — the marching
-shadow trace, reflecting surfaces, the gas channel, column media, tabulated
-phase functions — raise NotImplementedError naming their ROADMAP item;
+shadow trace, reflecting surfaces, fused-k gas batching, column media,
+tabulated phase functions — raise NotImplementedError naming their ROADMAP item;
 configurations the JAX planner rejects return None, as there.
 """
 
@@ -32,11 +36,12 @@ import numpy as np
 import torch
 
 from i3rc_tpu_torch.core.illumination import PhotonSource
-from i3rc_tpu_torch.core.rng import STREAM_REFILL, PhiloxKey
+from i3rc_tpu_torch.core.rng import (GAS_LAUNCH_BLOCK, STREAM_REFILL, PhiloxKey,
+                                     gas_thresholds)
 from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32, make_direction_cosines
 # hg_cosine is re-exported: the JAX package defines it in fastpath.
 from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
-    ALIVE, BAD, EVCT, MAX_SEGMENTS, ORDERS, PK, TAU, UX, UY, UZ, X, Y, Z,
+    ALIVE, BAD, EVCT, MAX_SEGMENTS, ORDERS, PK, TAU, TGAS, UX, UY, UZ, X, Y, Z,
     DetectorSpec, EventSpec, LaneState, event_block, hg_cosine,
 )
 
@@ -56,7 +61,7 @@ def lane_width(n_photons: int, n_lanes: int | None = None) -> int:
 _ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two varying "
                         "horizontal factors): ROADMAP item 10b")
 _ITEM_SURFACE = (11, "reflecting surfaces and BRDFs on the fastpath: ROADMAP item 11")
-_ITEM_GAS = (13, "the gas channel: ROADMAP item 13")
+_ITEM_GAS_K = (13.5, "fused-k gas batching (GasKTables): ROADMAP item 13b")
 _ITEM_COLUMN = (14, "column-mode media: ROADMAP item 14")
 _ITEM_TABLE = (15, "tabulated (non-HG) phase functions on the fastpath: ROADMAP item 15")
 
@@ -215,6 +220,11 @@ class FastPlan:
     # transmittance is closed-form (fastpath.py:602-606).
     detectors: tuple = ()
     closed_shadow: bool = False
+    # Gas channel (fastpath.py:925-936): the horizontally uniform pure
+    # absorber of a cloud + gas domain as a StepFactor over z, and the gas
+    # component's index (the cloud is the other one).
+    gas_factor: StepFactor | None = None
+    gas_idx: int = -1
 
 
 @dataclass(frozen=True)
@@ -245,7 +255,8 @@ def optics_flags(flat) -> OpticsFlags:
 
 def _gas_split(flat, geom):
     """The JAX planner's cloud + gas decomposition (fastpath.py:440-491):
-    (cloud_idx, cloud_field, ssa, g) or None where it declines."""
+    (cloud_idx, cloud_field, ssa, g, gas_factor, gas_idx) or None where it
+    declines."""
     total = np.asarray(flat.total_ext, np.float64)
     cum = np.asarray(flat.cumulative_ext, np.float64)
     ssa_c = np.asarray(flat.ssa, np.float64)
@@ -280,10 +291,11 @@ def _gas_split(flat, geom):
     for i in range(1, gas_profile.size):
         if abs(gas_profile[i] - gas_profile[i - 1]) <= snap:
             gas_profile[i] = gas_profile[i - 1]
-    if _compress_factor(gas_profile, np.asarray(geom.z_edges.cpu())) is None:
+    gas_factor = _compress_factor(gas_profile, np.asarray(geom.z_edges.cpu()))
+    if gas_factor is None:
         return None
     return (cloud_idx, np.asarray(cloud_ext, np.float32), uniform_ssa,
-            detect_hg(flat.forward_tables[cloud_idx]))
+            detect_hg(flat.forward_tables[cloud_idx]), gas_factor, gas_idx)
 
 
 def _detector_plan(fx, fy, fz, intensity, geom, gas: bool):
@@ -344,12 +356,12 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
 
     gas = optics.n_components == 2
     per_col_props = False
+    gas_factor, gas_idx = None, -1
     if gas:
         split = _gas_split(flat, geom)
         if split is None:
             return None
-        cloud_idx, cloud_field, uniform_ssa, g = split
-        missing.append(_ITEM_GAS)
+        cloud_idx, cloud_field, uniform_ssa, g, gas_factor, gas_idx = split
     elif optics.n_components == 1 and optics.uniform_ssa is not None \
             and optics.uniform_phase_index is not None:
         if not (0.0 < optics.uniform_ssa <= 1.0):
@@ -404,13 +416,14 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
     cfg_unroll = getattr(config, "fastpath_unroll", None)
     return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g,
                     unroll=int(cfg_unroll) if cfg_unroll else 8, ssa=uniform_ssa,
-                    detectors=detectors, closed_shadow=closed_shadow)
+                    detectors=detectors, closed_shadow=closed_shadow,
+                    gas_factor=gas_factor, gas_idx=gas_idx)
 
 
 def plan_from_jax(plan) -> FastPlan:
     """The port's plan for a JAX ``FastPlan`` (host numpy already)."""
     extras = {"surface_albedo": _ITEM_SURFACE,
-              "brdf_fn": _ITEM_SURFACE, "gas_factor": _ITEM_GAS, "gas_k": _ITEM_GAS,
+              "brdf_fn": _ITEM_SURFACE, "gas_k": _ITEM_GAS_K,
               "column_data": _ITEM_COLUMN, "column_props": _ITEM_COLUMN,
               "cubic": _ITEM_TABLE, "fwd_cubic": _ITEM_TABLE}
     for name, item in extras.items():
@@ -420,20 +433,25 @@ def plan_from_jax(plan) -> FastPlan:
     if plan.detectors and not plan.closed_shadow:
         raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
     conv = lambda f: StepFactor(tuple(f.thresholds), tuple(f.values))
+    gas = plan.gas_factor
     return FastPlan(conv(plan.fx), conv(plan.fy), conv(plan.fz), float(plan.hg_g),
                     int(plan.unroll), float(plan.ssa),
                     detectors=tuple(tuple(float(v) for v in d) for d in plan.detectors),
-                    closed_shadow=bool(plan.closed_shadow))
+                    closed_shadow=bool(plan.closed_shadow),
+                    gas_factor=None if gas is None else conv(gas),
+                    gas_idx=int(plan.gas_idx))
 
 
 def state_from_numpy(st, device="cpu") -> LaneState:
     """Lane state from a JAX fast-event state tuple converted to numpy:
-    (alive, x, y, z, ux, uy, uz, tau, orders, pk, bad, evct, ...).  A scalar
-    y placeholder (untracked y) fills the y row."""
+    (alive, x, y, z, ux, uy, uz, tau, orders, pk, bad, evct, acc, tgas, ...).
+    A scalar y placeholder (untracked y) fills the y row; without ``tgas``
+    (no gas channel) the tgas row is zero."""
     alive, x, y, z, ux, uy, uz, tau, orders, pk, bad, evct = st[:12]
+    tgas = st[13] if len(st) > 13 else 0.0
     L = np.shape(x)[0]
     fl = np.stack([np.broadcast_to(np.asarray(a, np.float32), (L,))
-                   for a in (x, y, z, ux, uy, uz, tau)])
+                   for a in (x, y, z, ux, uy, uz, tau, tgas)])
     it = np.stack([np.asarray(a).astype(np.int32) for a in (alive, orders, pk, bad, evct)])
     return LaneState(torch.as_tensor(fl, device=device).contiguous(),
                      torch.as_tensor(it, device=device).contiguous())
@@ -452,6 +470,7 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
     chain = int(getattr(config, "fastpath_chain", -1))
     # y drops out for slab-symmetric domains: nothing reads it.
     track_y = not (geom.n_y == 1 and plan.fy.n_ops == 0)
+    gas = plan.gas_factor
     return EventSpec(
         fx=plan.fx, fy=plan.fy, fz=plan.fz,
         inv_fx=plan.fx.reciprocal(), inv_fy=plan.fy.reciprocal(),
@@ -462,17 +481,20 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         nudge_x=nudge(x0, x_max), nudge_y=nudge(y0, y_max), nudge_z=nudge(z0, z_max),
         g=f32(plan.hg_g), ssa=f32(plan.ssa), max_events=int(config.max_events),
         K=max(1, plan.unroll),
-        # Collision-chain depth: auto (-1) is 2 for cloud media.  Detectors
-        # need the shadow trace of every collision: no chaining with them.
-        chain=0 if plan.detectors else (2 if chain < 0 else chain),
+        # Collision-chain depth: auto (-1) is 2 for cloud media and 3 with
+        # the gas channel (fastpath.py:1283-1286).  Detectors need the shadow
+        # trace of every collision: no chaining with them.
+        chain=0 if plan.detectors else ((3 if gas else 2) if chain < 0 else chain),
         track_y=track_y,
-        det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None)
+        det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None,
+        gz=gas, inv_gz=None if gas is None else gas.reciprocal())
 
 
 def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpec:
     """Constants of the detector block and the closed-form shadow trace
-    (fastpath.py:890-895, :1140-1192), computed as the JAX package computes
-    them: in Python double, rounded to float32 at the point of use."""
+    (fastpath.py:890-895, :1140-1192, and the gas segments of :1160-1164),
+    computed as the JAX package computes them: in Python double, rounded to
+    float32 at the point of use."""
     if not plan.closed_shadow:
         raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
     fx, fy, fz = plan.fx, plan.fy, plan.fz
@@ -490,6 +512,11 @@ def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpe
     z_segs = tuple((f32(lo), f32(hi), f32(float(v) * c_other)) for lo, hi, v in
                    zip((float(z0),) + fz.thresholds, fz.thresholds + (float(z_max),),
                        fz.values) if float(v) * c_other > 0.0)
+    gf = plan.gas_factor
+    g_segs = () if gf is None else tuple(
+        (f32(lo), f32(hi), f32(v)) for lo, hi, v in
+        zip((float(z0),) + gf.thresholds, gf.thresholds + (float(z_max),), gf.values)
+        if float(v) > 0.0)
     h_tot = h_w = h_inv_w = 0.0
     h_cums = ()
     if h_f is not None:
@@ -519,21 +546,24 @@ def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpe
         wrap_wy=f32(y_max - y0) if col_y else 0.0,
         wrap_inv_y=f32(1.0 / (y_max - y0)) if col_y else 0.0, n_y=geom.n_y,
         iwabuchi=bool(getattr(config, "use_russian_roulette_for_intensity", False)),
-        zeta=zeta, zeta_pi=f32(zeta / np.pi))
+        zeta=zeta, zeta_pi=f32(zeta / np.pi), g_segs=g_segs)
 
 
-def launch_state(geom, batch, n_photons: int) -> LaneState:
+def launch_state(geom, batch, n_photons: int, gas_key: PhiloxKey | None = None) -> LaneState:
     """Lane state for a launch batch (positions in [0, 1] scaled to the
-    domain); lanes beyond the photon budget start dead."""
+    domain); lanes beyond the photon budget start dead.  With ``gas_key``
+    (a gas plan) the tgas row takes the launch's gas thresholds, else 0."""
     L = batch.n_photons
     dev = batch.x.device
-    f = torch.zeros((7, L), dtype=torch.float32, device=dev)
+    f = torch.zeros((8, L), dtype=torch.float32, device=dev)
     i = torch.zeros((5, L), dtype=torch.int32, device=dev)
     f[X] = geom.x0 + batch.x * (geom.x_max - geom.x0)
     f[Y] = geom.y0 + batch.y * (geom.y_max - geom.y0)
     f[Z] = geom.z0 + batch.z * (geom.z_max - geom.z0)
     f[UX], f[UY], f[UZ] = make_direction_cosines(batch.mu, batch.phi)
     i[ALIVE] = (torch.arange(L, device=dev) < n_photons).to(torch.int32)
+    if gas_key is not None:
+        f[TGAS] = gas_thresholds(gas_key, GAS_LAUNCH_BLOCK, L, dev)
     return LaneState(f, i)
 
 
@@ -562,7 +592,10 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
     n_cols = n_x * n_y
     D = len(plan.detectors)
     absorbing = spec.absorbing
-    vol_tally = bool(getattr(config, "compute_volume_absorption", False)) and absorbing
+    # Kind-3 deaths: Bernoulli absorption and the gas channel
+    # (fastpath.py:1731-1732, :1745-1746).
+    deaths = absorbing or spec.gas
+    vol_tally = bool(getattr(config, "compute_volume_absorption", False)) and deaths
 
     def flush(columns, vol, st: LaneState) -> None:
         """Tally pending exits at their frozen positions, then clear pk."""
@@ -572,7 +605,7 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
         if spec.track_y and n_y > 1:
             iy = torch.clamp(((y - y0) * inv_dy).to(torch.int64), 0, n_y - 1)
             col = col * n_y + iy
-        kinds = [pk == 1, pk == 2] + ([pk == 3] if absorbing else [])
+        kinds = [pk == 1, pk == 2] + ([pk == 3] if deaths else [])
         columns.index_add_(0, col, torch.stack(kinds, dim=1).to(torch.float64))
         if vol_tally:
             iz = torch.clamp(((z - z0) * inv_dz_cell).to(torch.int64), 0, n_z - 1)
@@ -593,6 +626,8 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
         for row, v in zip((UX, UY, UZ), make_direction_cosines(fresh.mu, fresh.phi)):
             f[row] = torch.where(take, v, f[row])
         f[TAU] = torch.where(take, 0.0, f[TAU])
+        if spec.gas:
+            f[TGAS] = torch.where(take, gas_thresholds(key, kb, L, f.device), f[TGAS])
         i[ORDERS] = torch.where(take, 0, i[ORDERS])
         i[ALIVE] = i[ALIVE] | take.to(torch.int32)
         return launched + take.sum()
@@ -600,10 +635,10 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
     @torch.inference_mode()
     def trace(key: PhiloxKey, batch, source: PhotonSource) -> RawTallies:
         dev = batch.x.device
-        st = launch_state(geom, batch, n_photons)
+        st = launch_state(geom, batch, n_photons, gas_key=key if spec.gas else None)
         f, i = st.f, st.i
         launched = torch.tensor(min(L, n_photons), dtype=torch.int64, device=dev)
-        columns = torch.zeros((n_cols, 3 if absorbing else 2), dtype=torch.float64,
+        columns = torch.zeros((n_cols, 3 if deaths else 2), dtype=torch.float64,
                               device=dev)
         vol = torch.zeros(n_cols * n_z if vol_tally else 0, dtype=torch.float64,
                           device=dev)
@@ -627,18 +662,22 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
         # Lanes alive at the block cap vanish with their weight: count bad.
         n_bad = i[BAD].sum(dtype=torch.int64) + i[ALIVE].sum(dtype=torch.int64)
         zeros = lambda n: torch.zeros(n, dtype=torch.float64, device=dev)
-        # Radiance layout of fastpath.py:2126-2153 (no gas): (n_cols * D),
-        # and per component (n_cols * D, 2) with slot 0 the surface, which a
-        # black surface leaves at zero, and slot 1 the collisions.
+        # Radiance layout of fastpath.py:2126-2153: (n_cols * D), and per
+        # component (n_cols * D, 1 + n_components) with slot 0 the surface,
+        # which a black surface leaves at zero.  The collisions are the
+        # cloud's: slot 1, or with a gas channel slot 1 + (1 - gas_idx), the
+        # gas (a pure absorber) keeping its slot at zero.
         coll = acc.reshape(-1) if D else zeros(0)
+        slots = [torch.zeros_like(coll)] * (3 if spec.gas else 2)
+        slots[1 + (1 - plan.gas_idx) if spec.gas else 1] = coll
         return RawTallies(
             flux_up=columns[:, 0], flux_down=columns[:, 1],
-            flux_absorbed=columns[:, 2] if absorbing else zeros(n_cols),
+            flux_absorbed=columns[:, 2] if deaths else zeros(n_cols),
             volume_absorption=vol if vol_tally else zeros(n_cols * n_z),
             intensity=coll,
-            intensity_by_component=torch.stack([torch.zeros_like(coll), coll],
-                                               dim=1).reshape(-1),
-            intensity_excess=zeros(2 * D), n_photons=int(n_photons), n_bad=n_bad,
+            intensity_by_component=torch.stack(slots, dim=1).reshape(-1),
+            intensity_excess=zeros(len(slots) * D), n_photons=int(n_photons),
+            n_bad=n_bad,
             n_iterations=kb * K,
             n_lane_events=i[EVCT].sum(dtype=torch.int64))
 

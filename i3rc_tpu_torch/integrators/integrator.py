@@ -61,6 +61,9 @@ class Integrator:
     _flat: FlatOptics
     _col_weights: np.ndarray
     _dz: np.ndarray
+    # The creation arguments the spectral loop re-uses for every k point.
+    _intensity_mus: np.ndarray | None = None
+    _intensity_phis: np.ndarray | None = None
 
     @staticmethod
     def create(domain: Domain, config: IntegratorConfig | None = None,
@@ -73,6 +76,7 @@ class Integrator:
         s.fail_if(not (0.0 <= surface_albedo <= 1.0), "surface albedo out of range")
         s.fail_if((intensity_mus is None) != (intensity_phis is None),
                   "both or neither of intensityMus and intensityPhis must be supplied")
+        ispec = mus = phis = None
         if intensity_mus is not None:
             mus = np.atleast_1d(np.asarray(intensity_mus, dtype=np.float64))
             phis = np.atleast_1d(np.asarray(intensity_phis, dtype=np.float64))
@@ -89,7 +93,6 @@ class Integrator:
         geom = GridGeometry.from_edges(domain.x_edges, domain.y_edges, domain.z_edges,
                                        domain.xy_regularly_spaced,
                                        domain.z_regularly_spaced, device=dev)
-        ispec = None
         if intensity_mus is not None:
             phis_rad = np.deg2rad(phis)
             sin_t = np.sqrt(np.maximum(1.0 - mus ** 2, 0.0))
@@ -104,7 +107,8 @@ class Integrator:
             surface=SurfaceSpec(albedo=float(surface_albedo)), intensity=ispec,
             config=config, device=dev, _flat=flat,
             _col_weights=column_weights(domain.x_edges, domain.y_edges),
-            _dz=np.diff(np.asarray(domain.z_edges, dtype=np.float64)).astype(np.float32))
+            _dz=np.diff(np.asarray(domain.z_edges, dtype=np.float64)).astype(np.float32),
+            _intensity_mus=mus, _intensity_phis=phis)
 
     @property
     def grid_shape(self):

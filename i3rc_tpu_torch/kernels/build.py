@@ -2,9 +2,10 @@
 
 Sources under ``i3rc_tpu_torch/csrc/`` are compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/`` at the repository root, at first use, and
-cached there by a hash of the sources and flags.  The library has a plain C
-interface and is loaded with ``ctypes``; nothing here includes PyTorch's
-headers, so a build takes seconds.
+cached there by a hash of the sources, the headers and the flags.  Each
+source compiles in its own ``nvcc`` process, all started together, and one
+more links the objects.  The library has a plain C interface and is loaded
+with ``ctypes``; nothing here includes PyTorch's headers.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -24,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # --fmad=false keeps float arithmetic identical to the PyTorch twins (no
 # contracted multiply-adds); -Xptxas -v reports registers and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -33,8 +35,8 @@ class Built:
 
     lib: ctypes.CDLL
     path: Path
-    seconds: float     # compile time; 0.0 when the cached library was reused
-    log: str           # nvcc / ptxas output of the compile ("" when cached)
+    seconds: float     # wall time of the build; 0.0 when the cached library was reused
+    log: str           # nvcc / ptxas output of the build ("" when cached)
 
 
 def _nvcc() -> str:
@@ -46,25 +48,47 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(cmds: list[list[str]], what: str) -> str:
+    """Run the commands in parallel; their joined output, or raise.  Each
+    writes to a file of its own, so no process waits on a full pipe."""
+    files = [tempfile.TemporaryFile(mode="w+") for _ in cmds]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT)
+             for c, f in zip(cmds, files)]
+    outs = []
+    for p, f in zip(procs, files):
+        p.wait()
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {what} (exit {p.returncode}):\n{out}")
+    return "".join(outs)
+
+
 def build(name: str, sources: tuple[str, ...]) -> Built:
     """Compile ``csrc/<sources>`` into ``build/kernels/<name>-<hash>.so``."""
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256()
-    for p in paths:
+    for p in paths + sorted(CSRC.glob("*.cuh")):
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in paths]
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)],
-                              capture_output=True, text=True)
+        try:
+            log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                        for p, o in zip(paths, objs)], name)
+            log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], name)
+            os.replace(tmp, out)
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed building {name} (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
     return Built(ctypes.CDLL(str(out)), out, seconds, log)

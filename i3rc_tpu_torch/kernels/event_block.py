@@ -1,12 +1,13 @@
 """The fast event block: K transport events per lane, kernel and plain twin.
 
 ``event_block`` is the wrapper the trace loop calls.  On a CUDA tensor it
-launches the hand-written Hopper kernel ``csrc/fast_event_block.cu`` (the
+launches the hand-written Hopper kernel ``csrc/fast_event_block.cuh`` (the
 port of the Pallas kernel ``_build_pallas_block``,
-i3rc_tpu/integrators/fastpath.py:665, in its flux variant and its radiance
-detector variant ``n_detectors > 0``) and raises if the build or the launch
-fails; on a CPU tensor it runs ``event_block_reference``, the plain PyTorch
-version, on the same Philox draws.  Both update the lane state in place and
+i3rc_tpu/integrators/fastpath.py:665, in its flux variant, its radiance
+detector variant ``n_detectors > 0`` and the gas-channel variant
+``gas=True`` of either) and raises if the build or the launch fails; on a
+CPU tensor it runs ``event_block_reference``, the plain PyTorch version, on
+the same Philox draws.  Both update the lane state in place and
 add the detector contributions of the block to a float64 (n_cols, D)
 accumulator.
 
@@ -40,7 +41,7 @@ SUPPORTED_K = (1, 8, 16)
 SUPPORTED_CHAIN = (0, 1, 2, 3)
 
 # Rows of LaneState.f and LaneState.i.
-X, Y, Z, UX, UY, UZ, TAU = range(7)
+X, Y, Z, UX, UY, UZ, TAU, TGAS = range(8)
 ALIVE, ORDERS, PK, BAD, EVCT = range(5)
 
 
@@ -48,11 +49,12 @@ ALIVE, ORDERS, PK, BAD, EVCT = range(5)
 class LaneState:
     """Per-lane wavefront state, one fixed layout for every plan.
 
-    ``f`` is (7, L) float32: x, y, z, ux, uy, uz, tau (remaining optical
-    depth; 0 = draw a fresh free path).  ``i`` is (5, L) int32: alive,
-    orders, pk (pending exit kind: 1 top, 2 bottom, 3 absorbed), bad,
-    evct.  The y row is always present; plans that do not track y leave it
-    untouched.
+    ``f`` is (8, L) float32: x, y, z, ux, uy, uz, tau (remaining optical
+    depth; 0 = draw a fresh free path), tgas (remaining gas optical depth
+    before a gas absorption).  ``i`` is (5, L) int32: alive, orders, pk
+    (pending exit kind: 1 top, 2 bottom, 3 absorbed), bad, evct.  The y and
+    tgas rows are always present; plans that do not track y, or have no gas
+    channel, leave them untouched.
     """
 
     f: torch.Tensor
@@ -84,7 +86,9 @@ class DetectorSpec:
     The exit column wraps with ``wrap_w*`` / ``wrap_inv_*`` and bins with
     ``x0``/``inv_dx`` (and y when ``col_y``).  ``iwabuchi`` turns on the
     roulette of fastpath.py:1533-1550 with ``zeta`` and ``zeta_pi`` =
-    f32(zeta / pi).
+    f32(zeta / pi).  ``g_segs`` are the (lo, hi, value) z segments of the
+    gas channel with value > 0 (fastpath.py:1160-1164), added to every
+    shadow ray without a horizontal factor.
     """
 
     dirs: tuple
@@ -116,6 +120,7 @@ class DetectorSpec:
     iwabuchi: bool
     zeta: float
     zeta_pi: float
+    g_segs: tuple = ()
 
     @property
     def n(self) -> int:
@@ -134,6 +139,8 @@ class EventSpec:
     values (0 for zero segments).  Bounds, widths and nudges are float32
     values held in Python floats.  ``det`` holds the radiance detectors
     (None: flux only); detectors imply chain depth 0 (fastpath.py:1286).
+    ``gz``/``inv_gz`` are the gas channel's StepFactor chain over z and its
+    reciprocal (None: no gas channel, fastpath.py:925-936).
     """
 
     fx: object
@@ -160,6 +167,12 @@ class EventSpec:
     chain: int
     track_y: bool
     det: DetectorSpec | None = None
+    gz: object = None
+    inv_gz: object = None
+
+    @property
+    def gas(self) -> bool:
+        return self.gz is not None
 
     @property
     def absorbing(self) -> bool:
@@ -239,6 +252,11 @@ def shadow_closed(spec: EventSpec, d: int, x, y, z):
         else:
             seg = t_hi - t_lo
         tau = tau + v * torch.clamp(seg, min=0.0)
+    for zl, zh, v in det.g_segs:
+        a, b = (zl, zh) if up else (zh, zl)
+        t_lo = torch.clamp((a - z) * inv_dz, min=0.0)
+        t_hi = torch.clamp((b - z) * inv_dz, min=0.0)
+        tau = tau + v * torch.clamp(t_hi - t_lo, min=0.0)
     t_ex = ((det.z_top if up else det.z_bot) - z) * inv_dz
     xe = x + t_ex * dx
     xe = xe - det.wrap_wx * torch.floor((xe - det.x0) * det.wrap_inv_x)
@@ -299,11 +317,12 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     """One fast_event (fastpath.py:1291-1676 with MARCH = 1) on the lane
     tensors in ``s``; u is the (n_draws, L) draw block of the event.
     Detector contributions go into ``acc`` ((n_cols, D) float64) and, per
-    event and detector, as (contribution, column) pairs into ``records``."""
+    event and detector, as (contribution, column) pairs into ``records``.
+    With a gas channel the lanes also carry ``s["tgas"]``."""
     x, y, z = s["x"], s["y"], s["z"]
     ux, uy, uz = s["ux"], s["uy"], s["uz"]
     alive, pk = s["alive"], s["pk"]
-    ty = spec.track_y
+    ty, gas = spec.track_y, spec.gas
     tau = torch.where(s["tau"] > 0.0, s["tau"], exponential_deviate(u[0]))
 
     up_x, up_z = ux >= 0.0, uz >= 0.0
@@ -313,6 +332,14 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     inv_ext = spec.inv_fx(x) * spec.inv_fz(z)
     face_x = spec.fx.next_face(x, up_x, spec.x0, spec.x_max)
     face_z = spec.fz.next_face(z, up_z, spec.z0, spec.z_max)
+    if gas:
+        # Steps also stop at the gas segment faces, so gz is constant along
+        # the step (fastpath.py:1361-1369).
+        tgas = s["tgas"]
+        gzv = spec.gz(z)
+        face_zg = spec.gz.next_face(z, up_z, spec.z0, spec.z_max)
+        face_z = torch.where(up_z, torch.minimum(face_z, face_zg),
+                             torch.maximum(face_z, face_zg))
     sx = torch.where(ux.abs() >= f32(2e-30), (face_x - x) / ux, HUGE)
     sz = torch.where(uz.abs() >= f32(2e-30), (face_z - z) / uz, HUGE)
     s_bnd = torch.minimum(sx, sz)
@@ -327,15 +354,27 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     s_bnd = torch.clamp(s_bnd, min=0.0)
     s_col = torch.where(ext > 0.0, tau * inv_ext, HUGE)
 
-    collide = alive & (s_col <= s_bnd)
-    cross = alive & ~collide
-    adv = torch.minimum(s_col, s_bnd)
+    if gas:
+        # The gas absorption competes as a third outcome; its optical depth
+        # is consumed along every step (fastpath.py:1383-1391).
+        s_gas = torch.where(gzv > 0.0, tgas * spec.inv_gz(z), HUGE)
+        collide = alive & (s_col <= s_bnd) & (s_col <= s_gas)
+        gas_die = alive & ~collide & (s_gas <= s_bnd)
+        cross = alive & ~collide & ~gas_die
+        adv = torch.minimum(torch.minimum(s_col, s_bnd), s_gas)
+        tgas = torch.where(alive, tgas - adv * gzv, tgas)
+    else:
+        collide = alive & (s_col <= s_bnd)
+        cross = alive & ~collide
+        adv = torch.minimum(s_col, s_bnd)
     nxp = torch.where(cross & (sx <= s_bnd), face_x + sign_x, x + ux * adv)
     nzp = torch.where(cross & (sz <= s_bnd), face_z + sign_z, z + uz * adv)
     nxp = _wrap(nxp, spec.x0, spec.x_max, spec.wx)
     exit_top = cross & (nzp >= spec.z_max)
     exit_bot = cross & ~exit_top & (nzp <= spec.z0)
     pk = torch.where(exit_top, 1, torch.where(exit_bot, 2, pk))
+    if gas:
+        pk = torch.where(gas_die, 3, pk)
     tau = torch.where(cross, tau - s_bnd * ext, torch.where(collide, 0.0, tau))
     x = torch.where(alive, nxp, x)
     z = torch.where(alive, nzp, z)
@@ -369,6 +408,12 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
             wy_lo = spec.fy.face_dn(y, spec.y0)
             wy_hi = spec.fy.face_up(y, spec.y_max)
             inv_c = inv_c * spec.inv_fy(y)
+        if gas:
+            # The box also ends at the gas faces; a candidate commits only
+            # while the gas threshold outlasts it (fastpath.py:1622-1652).
+            gzv_c = spec.gz(z)
+            wz_lo = torch.maximum(wz_lo, spec.gz.face_dn(z, spec.z0))
+            wz_hi = torch.minimum(wz_hi, spec.gz.face_up(z, spec.z_max))
         chain = collided
         for b in range(spec.chain):
             i0 = spec.bonus_draws * (1 + b)
@@ -380,12 +425,17 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
             if ty:
                 cy = y + uy * s_c
                 inside = inside & (cy > wy_lo) & (cy < wy_hi)
+            if gas:
+                gcost = s_c * gzv_c
+                inside = inside & (gcost < tgas)
             commit = chain & inside
             tau = torch.where(chain & ~inside, tau_new, tau)
             x = torch.where(commit, cx, x)
             z = torch.where(commit, cz, z)
             if ty:
                 y = torch.where(commit, cy, y)
+            if gas:
+                tgas = torch.where(commit, tgas - gcost, tgas)
             n_coll = n_coll + commit.to(torch.int32)
             if spec.absorbing:
                 die_c = commit & (u[i0 + 3] >= f32(spec.ssa))
@@ -404,6 +454,8 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
              bad=s["bad"] + over.to(torch.int32),
              evct=s["evct"] + alive.to(torch.int32),
              alive=alive & (pk == 0) & ~over)
+    if gas:
+        s["tgas"] = tgas
 
 
 def event_block_reference(spec: EventSpec, state: LaneState, uniforms, acc=None,
@@ -417,11 +469,12 @@ def event_block_reference(spec: EventSpec, state: LaneState, uniforms, acc=None,
     """
     f, i = state.f, state.i
     s = {"x": f[X], "y": f[Y], "z": f[Z], "ux": f[UX], "uy": f[UY], "uz": f[UZ],
-         "tau": f[TAU], "alive": i[ALIVE] != 0, "orders": i[ORDERS], "pk": i[PK],
-         "bad": i[BAD], "evct": i[EVCT]}
+         "tau": f[TAU], "tgas": f[TGAS], "alive": i[ALIVE] != 0, "orders": i[ORDERS],
+         "pk": i[PK], "bad": i[BAD], "evct": i[EVCT]}
     for j in range(spec.K):
         _fast_event(spec, uniforms[j], s, acc, records)
-    state.f.copy_(torch.stack([s[k] for k in ("x", "y", "z", "ux", "uy", "uz", "tau")]))
+    state.f.copy_(torch.stack([s[k] for k in ("x", "y", "z", "ux", "uy", "uz", "tau",
+                                              "tgas")]))
     state.i.copy_(torch.stack([s["alive"].to(torch.int32), s["orders"], s["pk"],
                                s["bad"], s["evct"]]))
 
@@ -430,7 +483,7 @@ def compare_states(spec: EventSpec, got: LaneState, ref: LaneState, rtol: float)
     """Lane-by-lane agreement of two states after the same event block.
 
     ``int_frac``: share of lanes whose five integer fields are equal.
-    ``float_frac``: share of those lanes whose seven float fields are all
+    ``float_frac``: share of those lanes whose eight float fields are all
     within rtol of ``ref`` relative to the field's magnitude, max(|ref|, 1)
     over the lanes (x and y compared on the periodic domain).
     ``max_abs_err``: largest float difference on those lanes.
@@ -472,7 +525,9 @@ class _DetParams(ctypes.Structure):
                                       "wrap_inv_x", "y0", "inv_dy", "wrap_wy",
                                       "wrap_inv_y")] + [
         (n, ctypes.c_int) for n in ("n_x", "n_y", "col_y")] + [
-        (n, ctypes.c_float) for n in ("zeta", "zeta_pi")]
+        (n, ctypes.c_float) for n in ("zeta", "zeta_pi")] + [
+        ("n_g", ctypes.c_int)] + [
+        (n, ctypes.c_float * (MAX_SEGMENTS + 1)) for n in ("g_lo", "g_hi", "g_v")]
 
 
 class _EventParams(ctypes.Structure):
@@ -482,7 +537,7 @@ class _EventParams(ctypes.Structure):
                                       "g", "ssa")] + [
         ("max_events", ctypes.c_int), ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32), ("kb", ctypes.c_uint32), ("n_lanes", ctypes.c_int),
-        ("det", _DetParams)]
+        ("det", _DetParams), ("gz", _StepChain)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -504,6 +559,9 @@ def _det_params(det: DetectorSpec) -> _DetParams:
     q.n_z = len(det.z_segs)
     for k, (lo, hi, v) in enumerate(det.z_segs):
         q.z_lo[k], q.z_hi[k], q.z_v[k] = lo, hi, v
+    q.n_g = len(det.g_segs)
+    for k, (lo, hi, v) in enumerate(det.g_segs):
+        q.g_lo[k], q.g_hi[k], q.g_v[k] = lo, hi, v
     q.h_axis = det.h_axis
     q.h_cum[:len(det.h_cums)] = list(det.h_cums)
     for n in ("h_lo", "h_tot", "h_w", "h_inv_w", "z_top", "z_bot", "x0", "inv_dx",
@@ -518,12 +576,12 @@ def build():
     """Compile (or reuse) the kernel library and declare its C interface."""
     from i3rc_tpu_torch.kernels.build import build as _build
 
-    built = _build("fast_event_block", ("fast_event_block.cu",))
+    built = _build("fast_event_block", ("fast_event_block.cu", "fast_event_block_gas.cu"))
     lib = built.lib
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.i3rc_event_params_size.argtypes = []
     lib.i3rc_event_params_size.restype = ci
-    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.i3rc_fast_event_block.restype = ci
     lib.i3rc_philox_uniforms.argtypes = [vp, cu, cu, cu, cu, ci, ci, vp]
     lib.i3rc_philox_uniforms.restype = ci
@@ -550,9 +608,9 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> 
         raise ValueError("event_block: state tensors must share one CUDA device")
     if f.dtype != torch.float32 or i.dtype != torch.int32:
         raise TypeError("event_block: state must be float32 (f) and int32 (i)")
-    if f.shape != (7, L) or i.shape != (5, L) or not (f.is_contiguous()
+    if f.shape != (8, L) or i.shape != (5, L) or not (f.is_contiguous()
                                                       and i.is_contiguous()):
-        raise ValueError("event_block: state must be contiguous (7, L) and (5, L)")
+        raise ValueError("event_block: state must be contiguous (8, L) and (5, L)")
     if spec.K not in SUPPORTED_K or spec.chain not in SUPPORTED_CHAIN:
         raise NotImplementedError(
             f"event_block kernel is built for K in {SUPPORTED_K} and chain depth in "
@@ -573,7 +631,7 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> 
         rc = lib.i3rc_fast_event_block(
             f.data_ptr(), i.data_ptr(), acc.data_ptr() if det is not None else None,
             ctypes.byref(p), spec.K, spec.chain, int(spec.absorbing), int(spec.track_y),
-            int(det is not None), int(det is not None and det.iwabuchi),
+            int(det is not None), int(det is not None and det.iwabuchi), int(spec.gas),
             _stream(f.device))
     _check(rc, "fast_event_block launch")
 
@@ -593,6 +651,8 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
     p.n_lanes = n_lanes
     if spec.det is not None:
         p.det = _det_params(spec.det)
+    if spec.gas:
+        p.gz = _step_chain(spec.gz, spec.inv_gz)
     return p
 
 
@@ -602,19 +662,18 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
 
     With detectors (``spec.det``) their contributions are added to ``acc``,
     a float64 (n_cols, D) tensor on the state's device.  CUDA tensors launch
-    the kernel (counted in ``event_block.launches`` for the flux variant and
-    ``event_block.detector_launches`` for the detector variant); CPU tensors
-    run the plain twin on ``philox_uniforms`` draws.
+    the kernel, counted per variant in ``event_block.launches`` (flux),
+    ``detector_launches`` (detectors), ``gas_launches`` (flux with the gas
+    channel) and ``gas_detector_launches`` (detectors with the gas channel);
+    CPU tensors run the plain twin on ``philox_uniforms`` draws.
     """
     if (spec.det is None) != (acc is None):
         raise ValueError("event_block: acc is given exactly when the spec has detectors")
     device = state.f.device
     if device.type == "cuda":
         _launch(spec, state, key, kb, acc)
-        if spec.det is None:
-            event_block.launches += 1
-        else:
-            event_block.detector_launches += 1
+        counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas)]
+        setattr(event_block, counter, getattr(event_block, counter) + 1)
     elif device.type == "cpu":
         u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, device)
         event_block_reference(spec, state, u, acc)
@@ -622,8 +681,17 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
         raise NotImplementedError(f"event_block: no kernel for device {device}")
 
 
-event_block.launches = 0
-event_block.detector_launches = 0
+# The launch counter of each kernel variant, by (detectors, gas).
+LAUNCH_COUNTERS = {(False, False): "launches", (True, False): "detector_launches",
+                   (False, True): "gas_launches", (True, True): "gas_detector_launches"}
+
+
+def reset_launch_counters() -> None:
+    for name in LAUNCH_COUNTERS.values():
+        setattr(event_block, name, 0)
+
+
+reset_launch_counters()
 
 
 def kernel_philox_uniforms(key: PhiloxKey, kb: int, K: int, n_draws: int, n_lanes: int,
