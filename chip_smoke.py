@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the CUDA kernel from i3rc_tpu_torch/csrc, checks its flux,
-radiance-detector and gas-channel variants against their plain PyTorch
-twin, then drives the port's paths — the I3RC step-cloud flux run, the
-step-cloud run with the three radiance detectors of
-examples/monteCarloDriver_stepCloud.nml, each through ``Integrator.batch_fn``
-and the namelist driver, the cloud + gas slab against the discrete-ordinates
-oracle, the broadband k-distribution loop and examples/broadbandDriver.nml
-through the broadband driver — and checks the physics.  Every phase prints
+Builds the CUDA kernels from i3rc_tpu_torch/csrc, checks the event block's
+flux, radiance-detector, gas-channel and column variants and the column-read
+probe against their plain PyTorch twins, then drives the port's paths — the
+I3RC step-cloud flux run, the step-cloud run with the three radiance
+detectors of examples/monteCarloDriver_stepCloud.nml, each through
+``Integrator.batch_fn`` and the namelist driver, the cloud + gas slab against
+the discrete-ordinates oracle, the broadband k-distribution loop and
+examples/broadbandDriver.nml through the broadband driver, the I3RC Landsat
+scene (flux, absorbing with heating rates, and through the namelist driver)
+and the column-read probe loop — and checks the physics.  Every phase prints
 one line; any failed check raises and the script exits nonzero.  Run from
 the repository root:
 
     python3 chip_smoke.py
 
 Needs a CUDA device (exits nonzero without one) and nvcc (CUDA_HOME or
-PATH).  Never imports jax.  The last line is a JSON object naming the device.
+PATH).  Imports nothing of jax or the JAX package.  The last line is a JSON
+object naming the device.
 """
 
 from __future__ import annotations
@@ -53,6 +56,48 @@ GAS_DET_MUS, GAS_DET_PHIS = [1.0, 0.5], [0.0, 0.0]
 # Broadband Fup of the JAX package on the bench row's configuration
 # (bench.py:274-337; BENCH_r05.json:5, baked mode; the fused mode gave 0.4039).
 ANCHOR_BROADBAND_FUP = 0.4040
+# Landsat case-4 flux (bench.py:168-190, BENCH_r05.json): a JAX-era Monte
+# Carlo figure over 2^23 photons, rounded to 4 digits.
+ANCHOR_LANDSAT_FUP = 0.5149
+LANDSAT_PHOTONS = 1 << 23
+PROBE_LANES = 1 << 17           # the TPU probe's L (benchmarks/column_read_probe.py:40)
+PROBE_LOOP = 16                 # its events per run: two launches of K = 8
+
+# The least time the card could take for a kernel's work (the bound in each
+# kernels entry): the larger of its bytes over the memory rate and its
+# operations over the peak rate of their unit.  H100 SXM: 3.35 TB/s, 67e12
+# FP32 operations/s (every integer and float instruction counted as one
+# operation at that rate, which only lowers the bound), and 4.18e12
+# special-function operations/s (16 per clock per SM x 132 SMs x 1.98 GHz:
+# the reciprocal, square root, log and exp steps of logf, expf, sqrtf and
+# IEEE division).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# Operations per alive lane-event, counted by hand from the kernel sources
+# (fast_event_block.cuh, column_read_probe.cu) for the variant each phase
+# times: (ALU operations, special-function operations).  A Philox4x32-10
+# call is ~100 integer operations; a rotation ~60 ALU and 5 SFU (two square
+# roots, one reciprocal square root, two divisions of the HG inverse); a
+# free path one logf; a face distance one division.
+OPS_PER_EVENT = {
+    "flux": (630, 21),             # K1, chain 2: 3 Philox calls, 3 rotations, 3 logf
+    "detectors": (650, 24),        # K3, 3 detectors with Iwabuchi, chain 0
+    "gas": (680, 27),              # K2 flux, chain 3: 3 Philox calls, 4 rotations
+    "gas_detectors": (450, 19),    # K2, 2 detectors, chain 0
+    "column": (640, 23),           # P1 in the event block, chain 2: + one row read
+    "probe": (120, 0),             # P1 probe: one Philox call and ~20 ALU per event
+}
+STATE_BYTES_PER_LANE = 2 * 13 * 4  # the 13 state rows, read once and written once
+
+
+def bound_ms(variant: str, lane_events: int, n_bytes: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for ``lane_events`` alive lane-events of the
+    variant that move ``n_bytes`` of device memory."""
+    alu, sfu = OPS_PER_EVENT[variant]
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(lane_events * alu / FP32_OPS_PER_S, lane_events * sfu / SFU_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def say(phase: str, **kv) -> None:
@@ -65,15 +110,19 @@ def check(cond: bool, what: str) -> None:
 
 
 def ptxas_by_variant(log: str) -> dict:
-    """Per kernel variant (flux, detectors, gas, gas_detectors): instantiations,
-    their most registers and their spill-store bytes, from ptxas -v."""
+    """Per kernel variant (flux, detectors, gas, gas_detectors, column_flux,
+    probe): instantiations, their most registers and their spill-store
+    bytes, from ptxas -v."""
     out = {}
     name = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*fast_event_block_kernelILi\d+ELi\d+"
-                      r"ELb\dELb\dELb(\d)ELb\dELb(\d)E", line)
-        if m:
-            name = ("gas_" if m[2] == "1" else "") + ("detectors" if m[1] == "1" else "flux")
+                      r"ELb\dELb\dELb(\d)ELb\dELb(\d)ELb(\d)E", line)
+        probe = "Compiling entry function" in line and "column_read_probe_kernel" in line
+        if m or probe:
+            name = "probe" if probe else (
+                ("gas_" if m[2] == "1" else "") + ("column_" if m[3] == "1" else "")
+                + ("detectors" if m[1] == "1" else "flux"))
             n, r, b = out.get(name, (0, 0, 0))
             out[name] = (n + 1, r, b)
         elif "Compiling entry function" in line:
@@ -106,15 +155,18 @@ def radiance_config():
                             use_russian_roulette_for_intensity=True, zeta_min=0.3)
 
 
-def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None):
+def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=None):
     """One K-event block from a mid-flight step-cloud state: kernel vs twin.
     With ``detectors`` the block runs the detector variant and the (n_cols,
     D) accumulators are compared too (relative to their largest bin).  With
     ``gas``, a gas extinction profile over the cloud's 32 layers, the scene
     carries that gas, at the planner's auto chain depth (3), or with the
-    two detectors GAS_DET_* and no roulette."""
+    two detectors GAS_DET_* and no roulette.  With ``chain`` (-1 for the
+    auto depth) the scene is the Landsat cloud, run by the column variant
+    at that chain depth.  Returns (agreement, kernel ms, twin ms, spec,
+    alive lane-events of the block, the two states as equal or not)."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
-                                make_step_cloud)
+                                make_landsat_cloud, make_step_cloud)
     from i3rc_tpu_torch.core.rng import philox_uniforms
     from i3rc_tpu_torch.integrators.fastpath import event_spec, launch_state, renormalize
     from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
@@ -131,13 +183,17 @@ def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None):
         integ = Integrator.create(make_step_cloud(ssa), radiance_config(),
                                   intensity_mus=DET_MUS, intensity_phis=DET_PHIS,
                                   device=dev)
+    elif chain is not None:
+        integ = Integrator.create(make_landsat_cloud(ssa),
+                                  IntegratorConfig(use_ray_tracing=False, max_events=500,
+                                                   fastpath_chain=chain), device=dev)
     else:
         integ = Integrator.create(make_step_cloud(ssa),
                                   IntegratorConfig(use_ray_tracing=False, max_events=500),
                                   device=dev)
     spec = event_spec(integ.geometry, integ._fast_plan, integ.config)
-    check(spec.gas == (gas is not None) and (spec.det is not None) == detectors,
-          f"spec {spec}")
+    check(spec.gas == (gas is not None) and (spec.det is not None) == detectors
+          and spec.col == (chain is not None), f"spec {spec}")
     new_acc = lambda: (torch.zeros((spec.det.n_cols, spec.det.n), dtype=torch.float64,
                                    device=dev) if detectors else None)
     key = batch_key(SEED, 7)
@@ -164,6 +220,8 @@ def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None):
     run_twin(ref, acc_t)
     torch.cuda.synchronize()
     agree = compare_states(spec, got, ref, rtol=1e-4)
+    bit_equal = torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i)
+    events = int((ref.i[4] - st.i[4]).sum())
     if detectors:
         check(float(acc_t.sum()) > 0.0, "the detector block contributed nothing")
         agree["acc_rel_err"] = float((acc_k - acc_t).abs().max() / acc_t.abs().max())
@@ -183,7 +241,7 @@ def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None):
 
     time_ms(run_kernel, 2)
     time_ms(run_twin, 1)
-    return agree, time_ms(run_kernel, 20), time_ms(run_twin, 5), spec
+    return agree, time_ms(run_kernel, 20), time_ms(run_twin, 5), spec, events, bit_equal
 
 
 def main() -> int:
@@ -231,16 +289,17 @@ def main() -> int:
     # 4. kernel vs twin on one K-event block at L = 2^18
     kernel_ms, plain_ms, max_err = None, None, 0.0
     for ssa in (1.0, 0.99):
-        agree, k_ms, p_ms, spec = kernel_vs_twin(ssa, dev)
+        agree, k_ms, p_ms, spec, events, _ = kernel_vs_twin(ssa, dev)
         check(agree["int_frac"] >= 0.999, f"ssa={ssa}: integer agreement {agree}")
         check(agree["float_frac"] == 1.0, f"ssa={ssa}: float agreement {agree}")
         max_err = max(max_err, agree["max_abs_err"])
         if kernel_ms is None:
             kernel_ms, plain_ms = k_ms, p_ms
+            flux_bound = bound_ms("flux", events, L_CHECK * STATE_BYTES_PER_LANE)
         say("4 kernel-vs-twin", ssa=ssa, lanes=L_CHECK, K=spec.K, chain=spec.chain,
             int_agree=f"{agree['int_frac']:.6f}", float_agree=f"{agree['float_frac']:.6f}",
-            max_abs_err=f"{agree['max_abs_err']:.3e}", kernel_ms=f"{k_ms:.4f}",
-            twin_ms=f"{p_ms:.4f}", card=json.dumps(card))
+            max_abs_err=f"{agree['max_abs_err']:.3e}", lane_events=events,
+            kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}", card=json.dumps(card))
 
     # 5. the slice: step cloud, 2^24 photons at 2^18 lanes
     cfg = IntegratorConfig(use_ray_tracing=False, max_events=500)
@@ -325,19 +384,22 @@ def main() -> int:
     # 8. detector variant vs twin: 3 detectors, Iwabuchi, one K-event block
     det_ms, det_plain_ms, det_err = None, None, 0.0
     for ssa in (1.0, 0.99):
-        agree, k_ms, p_ms, spec = kernel_vs_twin(ssa, dev, detectors=True)
+        agree, k_ms, p_ms, spec, events, _ = kernel_vs_twin(ssa, dev, detectors=True)
         check(agree["int_frac"] >= 0.999, f"detectors ssa={ssa}: integer agreement {agree}")
         check(agree["float_frac"] == 1.0, f"detectors ssa={ssa}: float agreement {agree}")
         check(agree["acc_rel_err"] <= 1e-9, f"detectors ssa={ssa}: accumulator {agree}")
         det_err = max(det_err, agree["max_abs_err"], agree["acc_abs_err"])
         if det_ms is None:
             det_ms, det_plain_ms = k_ms, p_ms
+            # + the (n_cols, D) float64 accumulator, read and written once.
+            det_bound = bound_ms("detectors", events, L_CHECK * STATE_BYTES_PER_LANE
+                                 + 2 * 8 * spec.det.n_cols * spec.det.n)
         say("8 detector-kernel-vs-twin", ssa=ssa, lanes=L_CHECK, K=spec.K, chain=spec.chain,
             detectors=spec.det.n, iwabuchi=spec.det.iwabuchi, n_draws=spec.n_draws,
             int_agree=f"{agree['int_frac']:.6f}", float_agree=f"{agree['float_frac']:.6f}",
             max_abs_err=f"{agree['max_abs_err']:.3e}",
-            acc_rel_err=f"{agree['acc_rel_err']:.3e}", kernel_ms=f"{k_ms:.4f}",
-            twin_ms=f"{p_ms:.4f}", card=json.dumps(card))
+            acc_rel_err=f"{agree['acc_rel_err']:.3e}", lane_events=events,
+            kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}", card=json.dumps(card))
 
     # 9. the radiance slice: step cloud + 3 detectors, 2^24 photons at 2^18 lanes
     eb.reset_launch_counters()
@@ -427,27 +489,53 @@ def main() -> int:
     # writes (its paths are relative)
     launches_gas_det = broadband_driver(out / "broadband", card)
 
-    # 15. results
+    # 15. column variant vs twin: one K-event block from a mid-flight Landsat
+    # state, ssa 1 at the auto chain depth (2), ssa 0.99 at depth 2 and 0
+    col_ms, col_plain_ms, col_bound = column_kernel_checks(dev, card)
+
+    # 16. the Landsat flux slice at full size (bench.py:168-190): 2^23
+    # photons at 2^18 lanes, median of 3 after a warm-up
+    launches_col = landsat_slice(card)
+
+    # 17. Landsat at ssa 0.99 with heating rates (1.95M-cell volume tally)
+    landsat_absorbing()
+
+    # 18. the Landsat domain file the port writes, through the namelist driver
+    landsat_driver(out / "landsat", card)
+
+    # 19. the column-read probe: its loop (two launches of K = 8 events at
+    # 2^17 lanes), then the kernel against its twin on the same draws
+    probe = probe_checks(dev, card)
+
+    # 20. results: every kernel with its launches on its path, its error
+    # against its twin, its time, the twin's and the least time the card
+    # could take.  No single PyTorch call computes a transport event or the
+    # probe's dependent read loop, so library_ms is null throughout.
     print(smi)
     source = "i3rc_tpu_torch/csrc/fast_event_block.cu"
     gas_source = "i3rc_tpu_torch/csrc/fast_event_block_gas.cu"
+    entry = lambda name, src, replaces, launches, err, ms, plain, bound: {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
     print(json.dumps({"kernels": [
-        {"name": "fast_event_block", "route": "cuda", "source": source,
-         "replaces": "i3rc_tpu/integrators/fastpath.py:665",
-         "launches": launches_slice, "max_abs_err": max_err,
-         "ms": kernel_ms, "plain_ms": plain_ms},
-        {"name": "fast_event_block_detectors", "route": "cuda", "source": source,
-         "replaces": "i3rc_tpu/integrators/fastpath.py:665 (n_detectors>0)",
-         "launches": launches_rad, "max_abs_err": det_err,
-         "ms": det_ms, "plain_ms": det_plain_ms},
-        {"name": "fast_event_block_gas", "route": "cuda", "source": gas_source,
-         "replaces": "i3rc_tpu/integrators/fastpath.py:665 (gas=True)",
-         "launches": bb_launches, "max_abs_err": gas_err[False],
-         "ms": gas_ms[False][0], "plain_ms": gas_ms[False][1]},
-        {"name": "fast_event_block_gas_detectors", "route": "cuda", "source": gas_source,
-         "replaces": "i3rc_tpu/integrators/fastpath.py:665 (gas=True)",
-         "launches": launches_gas_det, "max_abs_err": gas_err[True],
-         "ms": gas_ms[True][0], "plain_ms": gas_ms[True][1]}]}))
+        entry("fast_event_block", source, "i3rc_tpu/integrators/fastpath.py:665",
+              launches_slice, max_err, kernel_ms, plain_ms, flux_bound),
+        entry("fast_event_block_detectors", source,
+              "i3rc_tpu/integrators/fastpath.py:665 (n_detectors>0)", launches_rad, det_err,
+              det_ms, det_plain_ms, det_bound),
+        entry("fast_event_block_gas", gas_source,
+              "i3rc_tpu/integrators/fastpath.py:665 (gas=True)", bb_launches, gas_err[False],
+              *gas_ms[False]),
+        entry("fast_event_block_gas_detectors", gas_source,
+              "i3rc_tpu/integrators/fastpath.py:665 (gas=True)", launches_gas_det,
+              gas_err[True], *gas_ms[True]),
+        entry("fast_event_block_column", "i3rc_tpu_torch/csrc/fast_event_block_col.cu",
+              "benchmarks/column_read_probe.py:83 (in the column event of "
+              "i3rc_tpu/integrators/fastpath.py:1320)", launches_col, 0.0, col_ms,
+              col_plain_ms, col_bound),
+        entry("column_read_probe", "i3rc_tpu_torch/csrc/column_read_probe.cu",
+              "benchmarks/column_read_probe.py:83", *probe)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -455,8 +543,8 @@ def main() -> int:
 
 
 def gas_kernel_checks(dev, card: str):
-    """Phase 11; returns ({detectors: (kernel ms, twin ms)}, {detectors: max error})
-    with the times of the uniform gas at ssa 1."""
+    """Phase 11; returns ({detectors: (kernel ms, twin ms, bound)}, {detectors:
+    max error}) with the times of the uniform gas at ssa 1."""
     gas_ms = {}
     gas_err = {False: 0.0, True: 0.0}
     uniform = np.full(32, GAS_EXT)
@@ -464,7 +552,8 @@ def gas_kernel_checks(dev, card: str):
              (True, 0.99, "uniform"), (False, 0.99, "layered"), (True, 1.0, "layered")]
     for detectors, ssa, gas in cases:
         profile = uniform if gas == "uniform" else LAYERED_GAS
-        agree, k_ms, p_ms, spec = kernel_vs_twin(ssa, dev, detectors=detectors, gas=profile)
+        agree, k_ms, p_ms, spec, events, _ = kernel_vs_twin(ssa, dev, detectors=detectors,
+                                                          gas=profile)
         what = f"gas={gas} detectors={detectors} ssa={ssa}"
         check(spec.chain == (0 if detectors else 3), f"{what}: chain depth {spec.chain}")
         check(len(spec.gz.thresholds) == (0 if gas == "uniform" else 2),
@@ -476,15 +565,218 @@ def gas_kernel_checks(dev, card: str):
             check(agree["acc_rel_err"] <= 1e-9, f"{what}: accumulator {agree}")
             errs.append(agree["acc_abs_err"])
         gas_err[detectors] = max(gas_err[detectors], *errs)
-        gas_ms.setdefault(detectors, (k_ms, p_ms))
+        n_bytes = L_CHECK * STATE_BYTES_PER_LANE + (
+            2 * 8 * spec.det.n_cols * spec.det.n if detectors else 0)
+        gas_ms.setdefault(detectors, (k_ms, p_ms, bound_ms(
+            "gas_detectors" if detectors else "gas", events, n_bytes)))
         say("11 gas-kernel-vs-twin", gas=gas, gas_faces=len(spec.gz.thresholds),
             detectors=spec.det.n if detectors else 0, ssa=ssa, lanes=L_CHECK, K=spec.K,
             chain=spec.chain, n_draws=spec.n_draws,
             int_agree=f"{agree['int_frac']:.6f}", float_agree=f"{agree['float_frac']:.6f}",
             max_abs_err=f"{agree['max_abs_err']:.3e}",
             acc_rel_err=f"{agree['acc_rel_err']:.3e}" if detectors else "n/a",
-            kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}", card=json.dumps(card))
+            lane_events=events, kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}",
+            card=json.dumps(card))
     return gas_ms, gas_err
+
+
+def column_kernel_checks(dev, card: str):
+    """Phase 15; returns (kernel ms, twin ms, bound) of ssa 1 at the auto depth.
+    The column variant must equal its twin bit for bit on all 13 state rows."""
+    out = None
+    for ssa, chain in ((1.0, -1), (0.99, 2), (0.99, 0)):
+        agree, k_ms, p_ms, spec, events, bit_equal = kernel_vs_twin(ssa, dev, chain=chain)
+        what = f"column ssa={ssa} chain={spec.chain}"
+        check(spec.chain == (2 if chain < 0 else chain), f"{what}: chain depth")
+        check(bit_equal, f"{what}: kernel and twin differ {agree}")
+        if out is None:
+            # + the padded column table, read once.
+            out = (k_ms, p_ms, bound_ms("column", events, L_CHECK * STATE_BYTES_PER_LANE
+                                        + spec.column.numel() * 4))
+        say("15 column-kernel-vs-twin", ssa=ssa, lanes=L_CHECK, K=spec.K, chain=spec.chain,
+            n_draws=spec.n_draws, columns=spec.n_x * spec.n_y, bit_equal=bit_equal,
+            lane_events=events, kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}",
+            card=json.dumps(card))
+    return out
+
+
+def landsat_slice(card: str) -> int:
+    """Phase 16; returns the column-kernel launches of the three timed batches."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
+                                make_landsat_cloud)
+    from i3rc_tpu_torch.kernels import event_block as eb
+
+    cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                           compute_volume_absorption=False)
+    n = LANDSAT_PHOTONS
+    src = PhotonSource.directional(0.5, 0.0)
+    integ = Integrator.create(make_landsat_cloud(1.0), cfg, device="cuda")
+    fn = integ.batch_fn(src, n, n_lanes=L_CHECK)
+    # Warm-up: one batch through the raw tracer, for its event count.
+    key = batch_key(SEED, 500)
+    raw = integ.batch_tracer(n, L_CHECK)(key, src.sample(key, L_CHECK, "cuda"), src)
+    events = int(raw.n_lane_events) / n
+    torch.cuda.synchronize()
+    eb.reset_launch_counters()
+    fups, times = [], []
+    for b in range(3):
+        t0 = time.perf_counter()
+        res = fn(batch_key(SEED, 510 + b))
+        fup, fdn, n_bad = float(res.mean_flux_up), float(res.mean_flux_down), int(res.n_bad)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(abs(fup + fdn - 1.0) < 1e-5, f"Landsat closure Fup+Fdn={fup + fdn}")
+        check(n_bad < 1e-3 * n, f"Landsat n_bad={n_bad}")
+        fups.append(fup)
+    launches = eb.event_block.column_launches
+    check(launches > 0, "the Landsat slice launched no column kernel")
+    check(eb.event_block.launches == eb.event_block.detector_launches
+          == eb.event_block.gas_launches == eb.event_block.gas_detector_launches == 0,
+          "the Landsat slice launched a kernel other than the column kernel")
+    fup = sum(fups) / len(fups)
+    sigma_port = (fup * (1 - fup) / (3 * n)) ** 0.5
+    sigma_ref = (ANCHOR_LANDSAT_FUP * (1 - ANCHOR_LANDSAT_FUP) / n) ** 0.5
+    gate = 5 * (sigma_port ** 2 + sigma_ref ** 2) ** 0.5 + 5e-5
+    check(abs(fup - ANCHOR_LANDSAT_FUP) <= gate,
+          f"Landsat Fup {fup} vs {ANCHOR_LANDSAT_FUP} (gate {gate:.2e})")
+    t_med = sorted(times)[1]
+    blocks = launches / 3
+    say("16 landsat", photons=n, lanes=L_CHECK, fup=f"{fup:.6f}", anchor=ANCHOR_LANDSAT_FUP,
+        gate=f"{gate:.2e}", seconds=",".join(f"{t:.4f}" for t in times),
+        photons_per_s=f"{n / t_med:.4e}", blocks_per_batch=f"{blocks:.1f}",
+        ms_per_block=f"{1e3 * t_med / blocks:.3f}", events_per_photon=f"{events:.1f}",
+        launches=launches, card=json.dumps(card))
+    return launches
+
+
+def landsat_absorbing() -> None:
+    """Phase 17: the raw volume tally holds exactly the absorbed photons."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
+                                make_landsat_cloud)
+    from i3rc_tpu_torch.kernels import event_block as eb
+
+    cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                           compute_volume_absorption=True)
+    n = 1 << 22
+    src = PhotonSource.directional(0.5, 0.0)
+    key = batch_key(SEED, 600)
+    integ = Integrator.create(make_landsat_cloud(0.99), cfg, device="cuda")
+    eb.reset_launch_counters()
+    raw = integ.batch_tracer(n, L_CHECK)(key, src.sample(key, L_CHECK, "cuda"), src)
+    up, dn, ab = (float(v.sum()) for v in (raw.flux_up, raw.flux_down, raw.flux_absorbed))
+    vol = float(raw.volume_absorption.sum())
+    n_bad = int(raw.n_bad)
+    check(eb.event_block.column_launches > 0, "the absorbing Landsat run launched no kernel")
+    check(raw.volume_absorption.shape == (128 * 128 * 119,),
+          f"volume tally {tuple(raw.volume_absorption.shape)}")
+    check(vol == ab and ab > 0, f"volume tally {vol} vs absorbed {ab}")
+    check(abs((up + dn + ab) / n - 1.0) < 1e-5, f"absorbing Landsat closure {up, dn, ab}")
+    check(n_bad < 1e-3 * n, f"absorbing Landsat n_bad={n_bad}")
+    say("17 landsat-absorbing", photons=n, fup=f"{up / n:.6f}", fdn=f"{dn / n:.6f}",
+        fabs=f"{ab / n:.6f}", volume_sum=f"{vol:.0f}", absorbed_sum=f"{ab:.0f}",
+        launches=eb.event_block.column_launches)
+
+
+def landsat_driver(land_dir: Path, card: str) -> None:
+    """Phase 18: the shipped step-cloud namelist's flux settings, the domain
+    file swapped for the Landsat file the port writes, no radiance, 4 x
+    2^20 photons."""
+    from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.models.landsat_cloud import write_domains as write_landsat
+
+    land_dir.mkdir(parents=True, exist_ok=True)
+    write_landsat(str(land_dir))
+    text = (ROOT / "examples" / "monteCarloDriver_stepCloud.nml").read_text()
+    swaps = [("intensityMus = 1., .5, .5\n", ""), ("intensityPhis = 0., 0., 180.\n", ""),
+             ('outputRadFile = "stepCloudRads.out",\n', ""),
+             ("numPhotonsPerBatch = 100000", f"numPhotonsPerBatch = {1 << 20}"),
+             ("numBatches = 16", "numBatches = 4"),
+             ("StepCloud_NonAbsorbing.opt", "LandsatCloud_NonAbsorbing.opt"),
+             ("stepCloud", "landsat")]
+    for old, new in swaps:
+        check(old in text, f"namelist lacks {old!r}")
+        text = text.replace(old, new)
+    (land_dir / "landsat.nml").write_text(text)
+    outputs = ("landsatFluxes.out", "landsatAbsorption.out", "landsatOutput.nc")
+    for name in outputs:
+        (land_dir / name).unlink(missing_ok=True)
+    eb.reset_launch_counters()
+    cwd = os.getcwd()
+    os.chdir(land_dir)
+    try:
+        t0 = time.perf_counter()
+        drv = run_from_namelist("landsat.nml", quiet=True, device="cuda")
+        t_drv = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    for name in outputs:
+        check((land_dir / name).is_file(), f"Landsat driver did not write {name}")
+    (fup, fup_e), (fdn, _), _ = drv["mean_stats"]
+    check(abs(fup + fdn - 1.0) < 1e-5, f"Landsat driver closure {fup + fdn}")
+    n_drv = drv["cfg"]["num_photons"]
+    gate = 5 * (ANCHOR_LANDSAT_FUP * (1 - ANCHOR_LANDSAT_FUP) * (1 / n_drv + 1 / LANDSAT_PHOTONS)
+                ) ** 0.5 + 5e-5
+    check(abs(fup - ANCHOR_LANDSAT_FUP) <= gate, f"Landsat driver Fup {fup} (gate {gate:.2e})")
+    check(eb.event_block.column_launches > 0, "the Landsat driver launched no column kernel")
+    say("18 landsat-driver", batches=drv["cfg"]["num_batches"],
+        photons=drv["cfg"]["num_photons"], fup=f"{fup:.5f}", stderr=f"{fup_e:.1e}",
+        seconds=f"{t_drv:.2f}", launches=eb.event_block.column_launches,
+        card=json.dumps(card))
+
+
+def probe_checks(dev, card: str):
+    """Phase 19; returns (launches, max abs error, ms, twin ms, bound) of one
+    launch at 2^17 lanes."""
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.kernels import column_probe as cp
+
+    g = torch.Generator().manual_seed(SEED)
+    table = torch.rand((cp.N_SIDE ** 2, 4), generator=g).to(dev)
+    x0 = torch.rand(PROBE_LANES, generator=g).to(dev)
+    y0 = torch.rand(PROBE_LANES, generator=g).to(dev)
+    key = batch_key(SEED, 700)
+    # The probe's loop: LOOP events in launches of K.
+    cp.column_probe.launches = 0
+    x, y = x0.clone(), y0.clone()
+    for kb in range(PROBE_LOOP // cp.K):
+        acc = cp.column_probe(table, x, y, key, kb)
+    torch.cuda.synchronize()
+    launches = cp.column_probe.launches
+    check(launches == PROBE_LOOP // cp.K, f"probe launches {launches}")
+    check(bool(torch.isfinite(acc).all()) and float(acc.min()) >= 0.0, "probe acc")
+    # Kernel vs twin on the same draws.
+    kx, ky = x0.clone(), y0.clone()
+    kacc = cp.column_probe(table, kx, ky, key, 0)
+    tx, ty, tacc = cp.column_probe_reference(table, x0, y0,
+                                             cp.probe_uniforms(key, 0, PROBE_LANES, dev))
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in ((kx, tx), (ky, ty), (kacc, tacc)))
+    check(torch.equal(kx, tx) and torch.equal(ky, ty) and torch.equal(kacc, tacc),
+          f"probe kernel and twin differ (max abs error {err})")
+
+    def time_ms(fn, n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        xs, ys = x0.clone(), y0.clone()
+        fn(xs, ys)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(n):
+            fn(xs, ys)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
+    u = cp.probe_uniforms(key, 0, PROBE_LANES, dev)
+    k_ms = time_ms(lambda xs, ys: cp.column_probe(table, xs, ys, key, 0), 20)
+    p_ms = time_ms(lambda xs, ys: cp.column_probe_reference(table, xs, ys, u), 5)
+    lane_events = PROBE_LANES * cp.K
+    bound = bound_ms("probe", lane_events, PROBE_LANES * 5 * 4 + table.numel() * 4)
+    say("19 probe", lanes=PROBE_LANES, K=cp.K, loop=PROBE_LOOP, bit_equal=True,
+        kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}",
+        ns_per_lane_event=f"{1e6 * k_ms / lane_events:.4f}", launches=launches,
+        card=json.dumps(card))
+    return launches, err, k_ms, p_ms, bound
 
 
 def gas_slab_oracle(dev) -> None:

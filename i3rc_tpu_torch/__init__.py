@@ -2,11 +2,17 @@
 
 A port of ``i3rc_tpu`` (JAX/XLA/Pallas on a TPU) to PyTorch and hand-written
 CUDA on an NVIDIA Hopper GPU.  The JAX package stays the reference; this
-package reuses its JAX-free host modules (domains, phase tables, namelists,
-netCDF I/O, result writers) and never imports ``jax``.
+package keeps its own copies of the host modules it needs (domains, phase
+tables, namelists, netCDF I/O, result writers, the I3RC scenes; each under
+the JAX package's module path) and imports nothing of ``i3rc_tpu`` and never
+``jax``.
 
 Layer map:
-  core/         Philox random streams, photon sources
+  utils/        error policy, namelist reader
+  core/         Philox random streams, photon sources, domains, phase
+                functions, quadrature, k-distributions
+  io/           netCDF domain and phase-table files
+  models/       the I3RC step cloud and Landsat scenes
   ops/          grid geometry
   integrators/  the fastpath planner and trace loop, results, the Integrator
   kernels/      hand-written CUDA kernels, their plain PyTorch twins, the build
@@ -18,15 +24,16 @@ Layer map:
 __version__ = "0.1.0"
 
 _EXPORTS = {
-    # JAX-free host layer shared with the JAX package.
-    "Domain": "i3rc_tpu.core.optics",
-    "PhaseFunction": "i3rc_tpu.core.phase_functions",
-    "PhaseFunctionTable": "i3rc_tpu.core.phase_functions",
-    "henyey_greenstein_coefficients": "i3rc_tpu.core.phase_functions",
-    "KDistribution": "i3rc_tpu.core.k_distribution",
-    "IntegratorConfig": "i3rc_tpu.integrators.config",
-    "make_step_cloud": "i3rc_tpu.models.step_cloud",
-    "write_domains": "i3rc_tpu.models.step_cloud",
+    # The host layer: the port's copies of the JAX package's host modules.
+    "Domain": "i3rc_tpu_torch.core.optics",
+    "PhaseFunction": "i3rc_tpu_torch.core.phase_functions",
+    "PhaseFunctionTable": "i3rc_tpu_torch.core.phase_functions",
+    "henyey_greenstein_coefficients": "i3rc_tpu_torch.core.phase_functions",
+    "KDistribution": "i3rc_tpu_torch.core.k_distribution",
+    "IntegratorConfig": "i3rc_tpu_torch.integrators.config",
+    "make_step_cloud": "i3rc_tpu_torch.models.step_cloud",
+    "write_domains": "i3rc_tpu_torch.models.step_cloud",
+    "make_landsat_cloud": "i3rc_tpu_torch.models.landsat_cloud",
     # The port.
     "PhotonSource": "i3rc_tpu_torch.core.illumination",
     "batch_key": "i3rc_tpu_torch.core.rng",

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from i3rc_tpu.utils.errors import Status
+from i3rc_tpu_torch.utils.errors import Status
 from i3rc_tpu_torch.core.rng import STREAM_LAUNCH, PhiloxKey, stream_uniforms
 
 _TWO_PI = 2.0 * np.pi

@@ -10,18 +10,24 @@ extern "C" {
 int i3rc_event_params_size(void) { return (int)sizeof(EventParams); }
 
 // Runs one K-event block in place on the given stream; with detectors it
-// adds their contributions to acc.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unsupported K, CHAIN or detector
-// count; the Python wrapper checks those first).
-int i3rc_fast_event_block(float* f, int* i, double* acc, const EventParams* params, int K,
-                          int chain, int absorbing, int track_y, int detectors,
-                          int iwabuchi, int gas, void* stream) {
+// adds their contributions to acc; with a column table (col not null) it
+// runs the column variant.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported K, CHAIN, detector count or
+// column combination; the Python wrapper checks those first).
+int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
+                          const EventParams* params, int K, int chain, int absorbing,
+                          int track_y, int detectors, int iwabuchi, int gas, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const bool ok =
-      gas ? launch_block_gas(f, i, acc, *params, K, chain, absorbing, track_y, detectors,
-                             iwabuchi, st)
-          : launch_block<false>(f, i, acc, *params, K, chain, absorbing, track_y,
-                                detectors, iwabuchi, st);
+  bool ok;
+  if (col != nullptr)
+    ok = track_y && !detectors && !gas &&
+         launch_block_col(f, i, col, *params, K, chain, absorbing, st);
+  else if (gas)
+    ok = launch_block_gas(f, i, acc, *params, K, chain, absorbing, track_y, detectors,
+                          iwabuchi, st);
+  else
+    ok = launch_block<false>(f, i, acc, *params, K, chain, absorbing, track_y, detectors,
+                             iwabuchi, st);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

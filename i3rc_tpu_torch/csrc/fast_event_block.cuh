@@ -3,11 +3,16 @@
 // (i3rc_tpu/integrators/fastpath.py:665, pallas_call at :783), whose body runs
 // `fast_event` (fastpath.py:1291-1676), in its variants: flux (n_detectors =
 // 0), radiance detectors (n_detectors = D > 0, the closed-form shadow trace,
-// HG phase), and the gas channel (gas=True) of either; no column mode and no
-// table mode.  This header holds the device code and the kernel template;
+// HG phase), and the gas channel (gas=True) of either; and the column-mode
+// event of the XLA fastpath (fastpath.py:1320-1345, :1377-1379, :1607-1614)
+// in the design of the TPU column-read probe `pallas_column_loop`
+// (benchmarks/column_read_probe.py:83, pallas_call at :140): a K-event loop
+// whose every event reads one row of the (n_cols, M) column table.  No table
+// mode.  This header holds the device code and the kernel template;
 // fast_event_block.cu instantiates the variants without the gas channel and
-// holds the C interface, fast_event_block_gas.cu the gas variants.  The two
-// files compile in parallel.
+// holds the C interface, fast_event_block_gas.cu the gas variants and
+// fast_event_block_col.cu the column variants.  The three files compile in
+// parallel.
 //
 // One thread owns one photon lane.  It loads the lane's state once, runs K
 // events (free path, separable where-chain extinction, nearest segment face,
@@ -45,6 +50,24 @@
 // written once.  The design keeps every intermediate in registers and reads
 // the segment tables from the by-value parameter block (__grid_constant__),
 // so the kernel touches device memory only at its start and end.
+//
+// Column variant (COL, flux only, y tracked): the extinction is one
+// homogeneous layer [z_base, z_top) per (x, y) column.  Each event reads the
+// lane's row [v, z_base, z_top, 0] of the column table with one 16-byte
+// __ldg (row ix * n_y + iy; ix, iy truncated toward zero and clipped), steps
+// to the nearest x/y grid line (floor) or layer bound, and draws the
+// collision distance as tau / max(ext, TINY), a division as in the XLA
+// column path.  Chained collisions stay inside the x/y cell of the collision
+// point and the layer of the row read at the start of the event, with
+// 1 / max(v, TINY) as their inverse extinction.  The TPU probe read its table
+// from VMEM with two 128-wide one-hot contractions (a random row read costs
+// ~10 ns a lane there); on Hopper a row read is one cached load.  The table
+// is passed as a pointer, not in the by-value parameter block: the padded
+// Landsat table is 16384 x 16 B = 256 KB, above the 4 KB parameter limit.
+// It stays resident in the 50 MB L2.  A shared-memory copy is left to a
+// later design: 256 KB exceeds the 227 KB a block can use, so it would need
+// a 3-field table or bf16 packing.  The column variant adds what bounds it
+// least: one 16-byte L2 read per lane-event beside the ALU work.
 //
 // Differences from the TPU kernel:
 //  * RNG: counter-based Philox4x32-10 keyed (seed, batch) with counter
@@ -121,6 +144,8 @@ struct EventParams {
   int n_lanes;
   DetParams det;                // read by the detector variants only
   StepChain gz;                 // gas chain over z, read by the gas variants only
+  int n_x, n_y;                 // column grid, read by the column variants only
+  float inv_dx, inv_dy, dx, dy;
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -346,9 +371,10 @@ __device__ __forceinline__ float detector_contribution(const EventParams& p, int
 // absorption (when ABS), then CHAIN bonus phases of BD draws each, or with
 // DET && IW one Iwabuchi draw per detector.  DET adds the collision's
 // detector contributions to hist (shared or global, n_bins doubles).
-template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, int NU>
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, int NU>
 __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u)[NU],
-                                           Lane& s, double* hist) {
+                                           Lane& s, double* hist,
+                                           const float4* __restrict__ col) {
   constexpr int BD = ABS ? 4 : 3;
   const bool alive = s.alive != 0;
   float tau = s.tau > 0.0f ? s.tau : exponential_deviate(u[0]);
@@ -358,14 +384,30 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
   const float sign_y = up_y ? p.nudge_y : -p.nudge_y;
   const float sign_z = up_z ? p.nudge_z : -p.nudge_z;
 
-  float ext = chain_value(p.fx, p.fx.v, s.x) * chain_value(p.fz, p.fz.v, s.z);
-  float inv_ext = chain_value(p.fx, p.fx.iv, s.x) * chain_value(p.fz, p.fz.iv, s.z);
-  if (TY) {
-    ext = ext * chain_value(p.fy, p.fy.v, s.y);
-    inv_ext = inv_ext * chain_value(p.fy, p.fy.iv, s.y);
+  float ext, inv_ext = 0.0f, face_x, face_z;
+  float vcol = 0.0f, zb = 0.0f, zt = 0.0f;
+  if (COL) {
+    // The lane's column row (fastpath.py:1320-1345).
+    const int ix = min(max((int)((s.x - p.x0) * p.inv_dx), 0), p.n_x - 1);
+    const int iy = min(max((int)((s.y - p.y0) * p.inv_dy), 0), p.n_y - 1);
+    const float4 row = __ldg(col + (size_t)ix * p.n_y + iy);
+    vcol = row.x;
+    zb = row.y;
+    zt = row.z;
+    ext = (s.z >= zb && s.z < zt) ? vcol : 0.0f;
+    face_x = p.x0 + (floorf((s.x - p.x0) * p.inv_dx) + (up_x ? 1.0f : 0.0f)) * p.dx;
+    face_z = up_z ? (s.z < zb ? zb : (s.z < zt ? zt : p.z_max))
+                  : (s.z > zt ? zt : (s.z > zb ? zb : p.z0));
+  } else {
+    ext = chain_value(p.fx, p.fx.v, s.x) * chain_value(p.fz, p.fz.v, s.z);
+    inv_ext = chain_value(p.fx, p.fx.iv, s.x) * chain_value(p.fz, p.fz.iv, s.z);
+    if (TY) {
+      ext = ext * chain_value(p.fy, p.fy.v, s.y);
+      inv_ext = inv_ext * chain_value(p.fy, p.fy.iv, s.y);
+    }
+    face_x = up_x ? face_up(p.fx, s.x, p.x_max) : face_dn(p.fx, s.x, p.x0);
+    face_z = up_z ? face_up(p.fz, s.z, p.z_max) : face_dn(p.fz, s.z, p.z0);
   }
-  const float face_x = up_x ? face_up(p.fx, s.x, p.x_max) : face_dn(p.fx, s.x, p.x0);
-  float face_z = up_z ? face_up(p.fz, s.z, p.z_max) : face_dn(p.fz, s.z, p.z0);
   float gzv = 0.0f;
   if (GAS) {
     // The step also stops at the gas faces, so gz is constant along it.
@@ -378,12 +420,17 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
   float s_bnd = fminf(sx, sz);
   float face_y = 0.0f, sy = HUGE_F;
   if (TY) {
-    face_y = up_y ? face_up(p.fy, s.y, p.y_max) : face_dn(p.fy, s.y, p.y0);
+    if (COL)
+      face_y = p.y0 + (floorf((s.y - p.y0) * p.inv_dy) + (up_y ? 1.0f : 0.0f)) * p.dy;
+    else
+      face_y = up_y ? face_up(p.fy, s.y, p.y_max) : face_dn(p.fy, s.y, p.y0);
     sy = fabsf(s.uy) >= DIR_EPS_F ? (face_y - s.y) / s.uy : HUGE_F;
     s_bnd = fminf(s_bnd, sy);
   }
   s_bnd = fmaxf(s_bnd, 0.0f);
-  const float s_col = ext > 0.0f ? tau * inv_ext : HUGE_F;
+  // Column media divide (fastpath.py:1378-1379); separable media multiply by
+  // the inverse chain.
+  const float s_col = ext > 0.0f ? (COL ? tau / fmaxf(ext, TINY_F) : tau * inv_ext) : HUGE_F;
 
   bool collide, cross, gas_die = false;
   float adv;
@@ -450,15 +497,30 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
   if (CHAIN > 0) {
     // Segment box around the collision point: extinction is constant
     // inside it, so a candidate that stays strictly within commits as a
-    // physical collision; one that leaves defers its optical depth.
-    const float wx_lo = face_dn(p.fx, s.x, p.x0), wx_hi = face_up(p.fx, s.x, p.x_max);
-    float wz_lo = face_dn(p.fz, s.z, p.z0), wz_hi = face_up(p.fz, s.z, p.z_max);
-    float inv_c = chain_value(p.fx, p.fx.iv, s.x) * chain_value(p.fz, p.fz.iv, s.z);
-    float wy_lo = 0.0f, wy_hi = 0.0f;
-    if (TY) {
-      wy_lo = face_dn(p.fy, s.y, p.y0);
-      wy_hi = face_up(p.fy, s.y, p.y_max);
-      inv_c = inv_c * chain_value(p.fy, p.fy.iv, s.y);
+    // physical collision; one that leaves defers its optical depth.  In
+    // column media the box is the x/y cell of the collision point and the
+    // layer of the row read at the start of the event (fastpath.py:
+    // 1607-1614).
+    float wx_lo, wx_hi, wz_lo, wz_hi, inv_c, wy_lo = 0.0f, wy_hi = 0.0f;
+    if (COL) {
+      wx_lo = p.x0 + floorf((s.x - p.x0) * p.inv_dx) * p.dx;
+      wx_hi = wx_lo + p.dx;
+      wz_lo = zb;
+      wz_hi = zt;
+      inv_c = 1.0f / fmaxf(vcol, TINY_F);
+      wy_lo = p.y0 + floorf((s.y - p.y0) * p.inv_dy) * p.dy;
+      wy_hi = wy_lo + p.dy;
+    } else {
+      wx_lo = face_dn(p.fx, s.x, p.x0);
+      wx_hi = face_up(p.fx, s.x, p.x_max);
+      wz_lo = face_dn(p.fz, s.z, p.z0);
+      wz_hi = face_up(p.fz, s.z, p.z_max);
+      inv_c = chain_value(p.fx, p.fx.iv, s.x) * chain_value(p.fz, p.fz.iv, s.z);
+      if (TY) {
+        wy_lo = face_dn(p.fy, s.y, p.y0);
+        wy_hi = face_up(p.fy, s.y, p.y_max);
+        inv_c = inv_c * chain_value(p.fy, p.fy.iv, s.y);
+      }
     }
     float gzv_c = 0.0f;
     if (GAS) {
@@ -525,10 +587,12 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
 //   f: (8, L) float32 rows x, y, z, ux, uy, uz, tau, tgas
 //   i: (5, L) int32   rows alive, orders, pk, bad, evct
 // acc (DET): (n_cols, D) float64 detector accumulator, added to.
-template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS>
+// col (COL): (n_cols, 4) float32 column table [v, z_base, z_top, 0].
+template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL>
 __global__ void __launch_bounds__(256)
 fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
-                        int hist_in_smem, const __grid_constant__ EventParams p) {
+                        const float4* __restrict__ col, int hist_in_smem,
+                        const __grid_constant__ EventParams p) {
   extern __shared__ double smem_hist[];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t L = (size_t)p.n_lanes;
@@ -578,7 +642,7 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
           for (int k = 0; k < 4; ++k) u[4 * g + k] = 0.0f;
         }
       }
-      fast_event<CHAIN, ABS, TY, DET, IW, GAS>(p, u, s, hist);
+      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL>(p, u, s, hist, col);
     }
 
     f[0 * L + lane] = s.x;
@@ -603,15 +667,15 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
   }
 }
 
-template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS>
+template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL = false>
 static void launch(float* f, int* i, double* acc, const EventParams& p,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const float4* col = nullptr) {
   const int threads = 256;
   const int blocks = (p.n_lanes + threads - 1) / threads;
   const size_t hist_bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
   const int in_smem = hist_bytes <= SMEM_HIST_BYTES;
-  fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW, GAS>
-      <<<blocks, threads, in_smem ? hist_bytes : 0, stream>>>(f, i, acc, in_smem, p);
+  fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW, GAS, COL>
+      <<<blocks, threads, in_smem ? hist_bytes : 0, stream>>>(f, i, acc, col, in_smem, p);
 }
 
 template <int K, int CHAIN, bool DET, bool IW, bool GAS>
@@ -675,3 +739,7 @@ static bool launch_block(float* f, int* i, double* acc, const EventParams& p, in
 bool launch_block_gas(float* f, int* i, double* acc, const EventParams& p, int K,
                       int chain, bool absorbing, bool track_y, bool detectors,
                       bool iwabuchi, cudaStream_t stream);
+
+// The column variants (flux, y tracked), instantiated in fast_event_block_col.cu.
+bool launch_block_col(float* f, int* i, const float4* col, const EventParams& p, int K,
+                      int chain, bool absorbing, cudaStream_t stream);

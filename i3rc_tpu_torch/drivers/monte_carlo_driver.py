@@ -23,12 +23,12 @@ import time
 
 import numpy as np
 
-from i3rc_tpu.drivers import results_io
-from i3rc_tpu.drivers.nml_common import get as _get
-from i3rc_tpu.drivers.nml_common import intensity_directions
-from i3rc_tpu.integrators.config import IntegratorConfig
-from i3rc_tpu.io.netcdf import read_domain
-from i3rc_tpu.utils.namelist import read_namelist
+from i3rc_tpu_torch.drivers import results_io
+from i3rc_tpu_torch.drivers.nml_common import get as _get
+from i3rc_tpu_torch.drivers.nml_common import intensity_directions
+from i3rc_tpu_torch.integrators.config import IntegratorConfig
+from i3rc_tpu_torch.io.netcdf import read_domain
+from i3rc_tpu_torch.utils.namelist import read_namelist
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.integrators.integrator import Integrator
 from i3rc_tpu_torch.parallel.mesh import run_batches

@@ -1,13 +1,16 @@
-"""Fused transport fastpath (separable optics, HG phase) in PyTorch.
+"""Fused transport fastpath (separable or column optics, HG phase) in PyTorch.
 
 Port of ``i3rc_tpu/integrators/fastpath.py`` for flux and radiance on a
-black surface, with or without the baked gas channel:
+black surface, with or without the baked gas channel, and for flux in
+column media (one homogeneous layer per (x, y) column: the I3RC Landsat
+scene):
 
   * the host-side planner (``StepFactor``, ``separable_factors``,
     ``detect_hg``, ``FastPlan``, ``fast_plan``) in numpy, with the
     StepFactor where-chains also as torch functions, and the constants of
     the closed-form shadow trace (``shadow_constants``), and the cloud + gas
-    split of two-component domains (``_gas_split``);
+    split of two-component domains (``_gas_split``), and the column table of
+    column media (``column_structure``);
   * the trace loop (``make_fast_tracer``): per K-event block it renormalizes
     directions, flushes pending exits into float64 per-column tallies
     (``index_add_``), refills dead lanes in FIFO order (``cumsum``) and runs
@@ -18,13 +21,15 @@ black surface, with or without the baked gas channel:
     (``rng.STREAM_GAS``).
 
 Extinction is factorized as ext(x, y, z) = fx(x) * fy(y) * fz(z) with few-
-segment step functions; every photon keeps weight 1 and tallies once at its
-death (exit top, exit bottom, or absorption: Bernoulli when ssa < 1, or the
-gas channel when its threshold runs out).
+segment step functions, or read per event from the lane's row [v, z_base,
+z_top] of the column table; every photon keeps weight 1 and tallies once at
+its death (exit top, exit bottom, or absorption: Bernoulli when ssa < 1, or
+the gas channel when its threshold runs out).
 
 Plans the JAX package supports but the port does not yet — the marching
-shadow trace, reflecting surfaces, fused-k gas batching, column media,
-tabulated phase functions — raise NotImplementedError naming their ROADMAP item;
+shadow trace, reflecting surfaces, fused-k gas batching, tabulated phase
+functions (per-column properties included) — raise NotImplementedError
+naming their ROADMAP item;
 configurations the JAX planner rejects return None, as there.
 """
 
@@ -62,7 +67,6 @@ _ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two v
                         "horizontal factors): ROADMAP item 10b")
 _ITEM_SURFACE = (11, "reflecting surfaces and BRDFs on the fastpath: ROADMAP item 11")
 _ITEM_GAS_K = (13.5, "fused-k gas batching (GasKTables): ROADMAP item 13b")
-_ITEM_COLUMN = (14, "column-mode media: ROADMAP item 14")
 _ITEM_TABLE = (15, "tabulated (non-HG) phase functions on the fastpath: ROADMAP item 15")
 
 
@@ -225,6 +229,18 @@ class FastPlan:
     # component's index (the cloud is the other one).
     gas_factor: StepFactor | None = None
     gas_idx: int = -1
+    # Column media (fastpath.py:289-297): (n_cols, 3) float32 [v, z_base,
+    # z_top] per (x, y) column, row ix * n_y + iy; fx = fy = fz = 1.
+    column_data: np.ndarray | None = None
+
+    def __eq__(self, other):
+        if not isinstance(other, FastPlan):
+            return NotImplemented
+        a, b = self.column_data, other.column_data
+        same_cols = (a is None and b is None) or (
+            a is not None and b is not None and np.array_equal(a, b))
+        return same_cols and all(getattr(self, f) == getattr(other, f) for f in
+                                 self.__dataclass_fields__ if f != "column_data")
 
 
 @dataclass(frozen=True)
@@ -387,16 +403,18 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
                        (geom.x_edges, geom.y_edges, geom.z_edges)))
     if factors is not None and sum(f.n_ops for f in factors) > MAX_SEGMENTS:
         factors = None
+    column_data = None
     if factors is None:
         if intensity is not None or gas:
             return None
-        if column_structure(
-                flat.total_ext, np.asarray(geom.z_edges.cpu()),
-                ssa=np.asarray(flat.ssa)[..., 0] if per_col_props else None,
-                pfi=np.asarray(flat.phase_index)[..., 0] if per_col_props
-                else None) is None:
+        # Per-column ssa and phase index (5-field tables) need the tabulated
+        # inverse-CDF tables: item 15 is already in ``missing`` for them.
+        column_data = column_structure(
+            flat.total_ext, np.asarray(geom.z_edges.cpu()),
+            ssa=np.asarray(flat.ssa)[..., 0] if per_col_props else None,
+            pfi=np.asarray(flat.phase_index)[..., 0] if per_col_props else None)
+        if column_data is None:
             return None
-        missing.append(_ITEM_COLUMN)
         trivial = StepFactor((), (1.0,))
         fx = fy = fz = trivial
     elif per_col_props:
@@ -413,19 +431,22 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
             missing.append(_ITEM_MARCHING)
     if missing:
         raise NotImplementedError(f"fastpath plan needs {min(missing)[1]}")
+    # K = 8 for every plan: the JAX package's 32 for column plans
+    # (fastpath.py:633-635) is an XLA tuning, and the kernel takes K in
+    # SUPPORTED_K only.
     cfg_unroll = getattr(config, "fastpath_unroll", None)
     return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g,
                     unroll=int(cfg_unroll) if cfg_unroll else 8, ssa=uniform_ssa,
                     detectors=detectors, closed_shadow=closed_shadow,
-                    gas_factor=gas_factor, gas_idx=gas_idx)
+                    gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data)
 
 
 def plan_from_jax(plan) -> FastPlan:
     """The port's plan for a JAX ``FastPlan`` (host numpy already)."""
     extras = {"surface_albedo": _ITEM_SURFACE,
               "brdf_fn": _ITEM_SURFACE, "gas_k": _ITEM_GAS_K,
-              "column_data": _ITEM_COLUMN, "column_props": _ITEM_COLUMN,
-              "cubic": _ITEM_TABLE, "fwd_cubic": _ITEM_TABLE}
+              "column_props": _ITEM_TABLE, "cubic": _ITEM_TABLE,
+              "fwd_cubic": _ITEM_TABLE}
     for name, item in extras.items():
         v = getattr(plan, name, None)
         if v is not None and not (isinstance(v, (tuple, bool, float)) and not v):
@@ -439,7 +460,9 @@ def plan_from_jax(plan) -> FastPlan:
                     detectors=tuple(tuple(float(v) for v in d) for d in plan.detectors),
                     closed_shadow=bool(plan.closed_shadow),
                     gas_factor=None if gas is None else conv(gas),
-                    gas_idx=int(plan.gas_idx))
+                    gas_idx=int(plan.gas_idx),
+                    column_data=None if plan.column_data is None
+                    else np.asarray(plan.column_data, np.float32))
 
 
 def state_from_numpy(st, device="cpu") -> LaneState:
@@ -462,14 +485,21 @@ def state_from_numpy(st, device="cpu") -> LaneState:
 # ---------------------------------------------------------------------------
 
 def event_spec(geom, plan: FastPlan, config) -> EventSpec:
-    """Constants of the event block for one plan on one grid."""
+    """Constants of the event block for one plan on one grid; a column plan's
+    table moves to the grid's device here, once per tracer."""
     x0, y0, z0 = geom.x0, geom.y0, geom.z0
     x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
     # Face-push nudges: ~8 float32 ulps of the coordinate scale per axis.
     nudge = lambda lo, hi: f32(8 * 2.0 ** -23 * max(abs(lo), abs(hi)))
     chain = int(getattr(config, "fastpath_chain", -1))
-    # y drops out for slab-symmetric domains: nothing reads it.
-    track_y = not (geom.n_y == 1 and plan.fy.n_ops == 0)
+    column = None
+    if plan.column_data is not None:
+        cols = np.zeros((plan.column_data.shape[0], 4), np.float32)
+        cols[:, :3] = plan.column_data
+        column = torch.as_tensor(cols, device=geom.x_edges.device)
+    # y drops out for slab-symmetric domains: nothing reads it.  Column
+    # media always track it (fastpath.py:876).
+    track_y = column is not None or not (geom.n_y == 1 and plan.fy.n_ops == 0)
     gas = plan.gas_factor
     return EventSpec(
         fx=plan.fx, fy=plan.fy, fz=plan.fz,
@@ -487,7 +517,9 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         chain=0 if plan.detectors else ((3 if gas else 2) if chain < 0 else chain),
         track_y=track_y,
         det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None,
-        gz=gas, inv_gz=None if gas is None else gas.reciprocal())
+        gz=gas, inv_gz=None if gas is None else gas.reciprocal(),
+        column=column, n_x=geom.n_x, n_y=geom.n_y, inv_dx=f32(1.0 / geom.dx),
+        inv_dy=f32(1.0 / geom.dy), dx=f32(geom.dx), dy=f32(geom.dy))
 
 
 def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpec:

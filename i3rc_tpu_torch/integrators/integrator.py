@@ -20,9 +20,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from i3rc_tpu.core.optics import Domain, FlatOptics, flatten_optics
-from i3rc_tpu.integrators.config import IntegratorConfig
-from i3rc_tpu.utils.errors import Status
+from i3rc_tpu_torch.core.optics import Domain, FlatOptics, flatten_optics
+from i3rc_tpu_torch.integrators.config import IntegratorConfig
+from i3rc_tpu_torch.utils.errors import Status
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.core.rng import PhiloxKey
 from i3rc_tpu_torch.integrators.fastpath import (

@@ -31,9 +31,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from i3rc_tpu.core.k_distribution import KDistribution
-from i3rc_tpu.core.optics import Domain
-from i3rc_tpu.core.phase_functions import PhaseFunction, PhaseFunctionTable
+from i3rc_tpu_torch.core.k_distribution import KDistribution
+from i3rc_tpu_torch.core.optics import Domain
+from i3rc_tpu_torch.core.phase_functions import PhaseFunction, PhaseFunctionTable
 from i3rc_tpu_torch.integrators.integrator import Integrator
 from i3rc_tpu_torch.parallel.mesh import run_batches, tree_map
 

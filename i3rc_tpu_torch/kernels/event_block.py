@@ -5,7 +5,10 @@ launches the hand-written Hopper kernel ``csrc/fast_event_block.cuh`` (the
 port of the Pallas kernel ``_build_pallas_block``,
 i3rc_tpu/integrators/fastpath.py:665, in its flux variant, its radiance
 detector variant ``n_detectors > 0`` and the gas-channel variant
-``gas=True`` of either) and raises if the build or the launch fails; on a
+``gas=True`` of either; and the column-mode event of the XLA fastpath,
+fastpath.py:1320-1345, in the design of the column-read probe
+``pallas_column_loop``, benchmarks/column_read_probe.py:83) and raises if
+the build or the launch fails; on a
 CPU tensor it runs ``event_block_reference``, the plain PyTorch version, on
 the same Philox draws.  Both update the lane state in place and
 add the detector contributions of the block to a float64 (n_cols, D)
@@ -140,7 +143,12 @@ class EventSpec:
     values held in Python floats.  ``det`` holds the radiance detectors
     (None: flux only); detectors imply chain depth 0 (fastpath.py:1286).
     ``gz``/``inv_gz`` are the gas channel's StepFactor chain over z and its
-    reciprocal (None: no gas channel, fastpath.py:925-936).
+    reciprocal (None: no gas channel, fastpath.py:925-936).  ``column`` is
+    the column table of column media (fastpath.py:1320-1345) as an (n_cols,
+    4) float32 tensor on the state's device, rows [v, z_base, z_top, 0]
+    (padded so that a row is one 16-byte load), row ix * n_y + iy; the
+    column read bins x and y with ``inv_dx``/``inv_dy`` and the faces step
+    by ``dx``/``dy`` (float32 values in Python floats).
     """
 
     fx: object
@@ -169,10 +177,21 @@ class EventSpec:
     det: DetectorSpec | None = None
     gz: object = None
     inv_gz: object = None
+    column: torch.Tensor | None = None
+    n_x: int = 1
+    n_y: int = 1
+    inv_dx: float = 0.0
+    inv_dy: float = 0.0
+    dx: float = 0.0
+    dy: float = 0.0
 
     @property
     def gas(self) -> bool:
         return self.gz is not None
+
+    @property
+    def col(self) -> bool:
+        return self.column is not None
 
     @property
     def absorbing(self) -> bool:
@@ -328,10 +347,25 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     up_x, up_z = ux >= 0.0, uz >= 0.0
     sign_x = torch.where(up_x, spec.nudge_x, -spec.nudge_x)
     sign_z = torch.where(up_z, spec.nudge_z, -spec.nudge_z)
-    ext = spec.fx(x) * spec.fz(z)
-    inv_ext = spec.inv_fx(x) * spec.inv_fz(z)
-    face_x = spec.fx.next_face(x, up_x, spec.x0, spec.x_max)
-    face_z = spec.fz.next_face(z, up_z, spec.z0, spec.z_max)
+    if spec.col:
+        # The lane's column row [v, z_base, z_top] (fastpath.py:1320-1345):
+        # ix/iy truncate toward zero and clip; the faces are the x/y grid
+        # lines (floor) and the column's own layer bounds.
+        ix = torch.clamp(((x - spec.x0) * spec.inv_dx).to(torch.int64), 0, spec.n_x - 1)
+        iy = torch.clamp(((y - spec.y0) * spec.inv_dy).to(torch.int64), 0, spec.n_y - 1)
+        row = spec.column[ix * spec.n_y + iy]
+        vcol, zb, zt = row[:, 0], row[:, 1], row[:, 2]
+        ext = torch.where((z >= zb) & (z < zt), vcol, 0.0)
+        face_x = spec.x0 + (torch.floor((x - spec.x0) * spec.inv_dx)
+                            + up_x.to(torch.float32)) * spec.dx
+        face_z = torch.where(up_z,
+                             torch.where(z < zb, zb, torch.where(z < zt, zt, spec.z_max)),
+                             torch.where(z > zt, zt, torch.where(z > zb, zb, spec.z0)))
+    else:
+        ext = spec.fx(x) * spec.fz(z)
+        inv_ext = spec.inv_fx(x) * spec.inv_fz(z)
+        face_x = spec.fx.next_face(x, up_x, spec.x0, spec.x_max)
+        face_z = spec.fz.next_face(z, up_z, spec.z0, spec.z_max)
     if gas:
         # Steps also stop at the gas segment faces, so gz is constant along
         # the step (fastpath.py:1361-1369).
@@ -346,13 +380,21 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     if ty:
         up_y = uy >= 0.0
         sign_y = torch.where(up_y, spec.nudge_y, -spec.nudge_y)
-        ext = ext * spec.fy(y)
-        inv_ext = inv_ext * spec.inv_fy(y)
-        face_y = spec.fy.next_face(y, up_y, spec.y0, spec.y_max)
+        if spec.col:
+            face_y = spec.y0 + (torch.floor((y - spec.y0) * spec.inv_dy)
+                                + up_y.to(torch.float32)) * spec.dy
+        else:
+            ext = ext * spec.fy(y)
+            inv_ext = inv_ext * spec.inv_fy(y)
+            face_y = spec.fy.next_face(y, up_y, spec.y0, spec.y_max)
         sy = torch.where(uy.abs() >= f32(2e-30), (face_y - y) / uy, HUGE)
         s_bnd = torch.minimum(s_bnd, sy)
     s_bnd = torch.clamp(s_bnd, min=0.0)
-    s_col = torch.where(ext > 0.0, tau * inv_ext, HUGE)
+    if spec.col:
+        # A division here, tensor by tensor (fastpath.py:1378-1379).
+        s_col = torch.where(ext > 0.0, tau / torch.clamp(ext, min=TINY), HUGE)
+    else:
+        s_col = torch.where(ext > 0.0, tau * inv_ext, HUGE)
 
     if gas:
         # The gas absorption competes as a third outcome; its optical depth
@@ -398,16 +440,28 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
 
     if spec.chain:
         # Collision chaining inside the segment box of the collision point
-        # (fastpath.py:1598-1665).
-        wx_lo = spec.fx.face_dn(x, spec.x0)
-        wx_hi = spec.fx.face_up(x, spec.x_max)
-        wz_lo = spec.fz.face_dn(z, spec.z0)
-        wz_hi = spec.fz.face_up(z, spec.z_max)
-        inv_c = spec.inv_fx(x) * spec.inv_fz(z)
+        # (fastpath.py:1598-1665); in column media the box is the x/y cell
+        # of the collision point and the layer of the column read at the
+        # start of the event (:1607-1614).
+        if spec.col:
+            wx_lo = spec.x0 + torch.floor((x - spec.x0) * spec.inv_dx) * spec.dx
+            wx_hi = wx_lo + spec.dx
+            wz_lo, wz_hi = zb, zt
+            inv_c = torch.ones_like(vcol) / torch.clamp(vcol, min=TINY)
+        else:
+            wx_lo = spec.fx.face_dn(x, spec.x0)
+            wx_hi = spec.fx.face_up(x, spec.x_max)
+            wz_lo = spec.fz.face_dn(z, spec.z0)
+            wz_hi = spec.fz.face_up(z, spec.z_max)
+            inv_c = spec.inv_fx(x) * spec.inv_fz(z)
         if ty:
-            wy_lo = spec.fy.face_dn(y, spec.y0)
-            wy_hi = spec.fy.face_up(y, spec.y_max)
-            inv_c = inv_c * spec.inv_fy(y)
+            if spec.col:
+                wy_lo = spec.y0 + torch.floor((y - spec.y0) * spec.inv_dy) * spec.dy
+                wy_hi = wy_lo + spec.dy
+            else:
+                wy_lo = spec.fy.face_dn(y, spec.y0)
+                wy_hi = spec.fy.face_up(y, spec.y_max)
+                inv_c = inv_c * spec.inv_fy(y)
         if gas:
             # The box also ends at the gas faces; a candidate commits only
             # while the gas threshold outlasts it (fastpath.py:1622-1652).
@@ -537,7 +591,9 @@ class _EventParams(ctypes.Structure):
                                       "g", "ssa")] + [
         ("max_events", ctypes.c_int), ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32), ("kb", ctypes.c_uint32), ("n_lanes", ctypes.c_int),
-        ("det", _DetParams), ("gz", _StepChain)]
+        ("det", _DetParams), ("gz", _StepChain), ("n_x", ctypes.c_int),
+        ("n_y", ctypes.c_int)] + [
+        (n, ctypes.c_float) for n in ("inv_dx", "inv_dy", "dx", "dy")]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -573,20 +629,25 @@ def _det_params(det: DetectorSpec) -> _DetParams:
 
 @functools.lru_cache(maxsize=None)
 def build():
-    """Compile (or reuse) the kernel library and declare its C interface."""
+    """Compile (or reuse) the kernel library and declare its C interface: the
+    event block in its three sources and the column-read probe
+    (``kernels/column_probe.py``), four ``nvcc`` processes in parallel."""
     from i3rc_tpu_torch.kernels.build import build as _build
 
-    built = _build("fast_event_block", ("fast_event_block.cu", "fast_event_block_gas.cu"))
+    built = _build("fast_event_block", ("fast_event_block.cu", "fast_event_block_gas.cu",
+                                        "fast_event_block_col.cu", "column_read_probe.cu"))
     lib = built.lib
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.i3rc_event_params_size.argtypes = []
     lib.i3rc_event_params_size.restype = ci
-    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.i3rc_fast_event_block.restype = ci
     lib.i3rc_philox_uniforms.argtypes = [vp, cu, cu, cu, cu, ci, ci, vp]
     lib.i3rc_philox_uniforms.restype = ci
     lib.i3rc_philox_bits.argtypes = [vp, cu, cu, cu, cu, cu, ci, vp]
     lib.i3rc_philox_bits.restype = ci
+    lib.i3rc_column_read_probe.argtypes = [vp, vp, vp, vp, ci, cu, cu, cu, vp]
+    lib.i3rc_column_read_probe.restype = ci
     if lib.i3rc_event_params_size() != ctypes.sizeof(_EventParams):
         raise RuntimeError("EventParams layout differs between Python and CUDA")
     return built
@@ -616,6 +677,15 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> 
             f"event_block kernel is built for K in {SUPPORTED_K} and chain depth in "
             f"{SUPPORTED_CHAIN}; got K={spec.K}, chain={spec.chain}")
     det = spec.det
+    col = spec.column
+    if col is not None:
+        if det is not None or spec.gas or not spec.track_y:
+            raise NotImplementedError("event_block kernel runs column media for flux "
+                                      "without the gas channel, y tracked")
+        if (col.device != f.device or col.dtype != torch.float32
+                or col.shape != (spec.n_x * spec.n_y, 4) or not col.is_contiguous()):
+            raise ValueError("event_block: the column table must be a contiguous float32 "
+                             f"({spec.n_x * spec.n_y}, 4) tensor on the state's device")
     if det is not None:
         if det.n > MAX_DETECTORS or spec.chain:
             raise NotImplementedError(
@@ -630,6 +700,7 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> 
     with torch.cuda.device(f.device):
         rc = lib.i3rc_fast_event_block(
             f.data_ptr(), i.data_ptr(), acc.data_ptr() if det is not None else None,
+            col.data_ptr() if col is not None else None,
             ctypes.byref(p), spec.K, spec.chain, int(spec.absorbing), int(spec.track_y),
             int(det is not None), int(det is not None and det.iwabuchi), int(spec.gas),
             _stream(f.device))
@@ -653,6 +724,9 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
         p.det = _det_params(spec.det)
     if spec.gas:
         p.gz = _step_chain(spec.gz, spec.inv_gz)
+    p.n_x, p.n_y = spec.n_x, spec.n_y
+    for n in ("inv_dx", "inv_dy", "dx", "dy"):
+        setattr(p, n, getattr(spec, n))
     return p
 
 
@@ -664,15 +738,16 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
     a float64 (n_cols, D) tensor on the state's device.  CUDA tensors launch
     the kernel, counted per variant in ``event_block.launches`` (flux),
     ``detector_launches`` (detectors), ``gas_launches`` (flux with the gas
-    channel) and ``gas_detector_launches`` (detectors with the gas channel);
-    CPU tensors run the plain twin on ``philox_uniforms`` draws.
+    channel), ``gas_detector_launches`` (detectors with the gas channel) and
+    ``column_launches`` (flux in column media); CPU tensors run the plain
+    twin on ``philox_uniforms`` draws.
     """
     if (spec.det is None) != (acc is None):
         raise ValueError("event_block: acc is given exactly when the spec has detectors")
     device = state.f.device
     if device.type == "cuda":
         _launch(spec, state, key, kb, acc)
-        counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas)]
+        counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col)]
         setattr(event_block, counter, getattr(event_block, counter) + 1)
     elif device.type == "cpu":
         u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, device)
@@ -681,9 +756,12 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
         raise NotImplementedError(f"event_block: no kernel for device {device}")
 
 
-# The launch counter of each kernel variant, by (detectors, gas).
-LAUNCH_COUNTERS = {(False, False): "launches", (True, False): "detector_launches",
-                   (False, True): "gas_launches", (True, True): "gas_detector_launches"}
+# The launch counter of each kernel variant, by (detectors, gas, column).
+LAUNCH_COUNTERS = {(False, False, False): "launches",
+                   (True, False, False): "detector_launches",
+                   (False, True, False): "gas_launches",
+                   (True, True, False): "gas_detector_launches",
+                   (False, False, True): "column_launches"}
 
 
 def reset_launch_counters() -> None:

@@ -15,11 +15,16 @@ cloud).  The port contributes zeta / pi there with probability
 (pf_pi / zeta) exp(-tau), the law of the general kernel's trace
 (wavefront.py:1053-1061).  The event test rebuilds that rule from the JAX
 records of a run without roulette and compares the port with it.
+
+Each side builds its domain and configuration with its own classes from the
+same numpy arrays.
 """
 
+import importlib
 import shutil
 from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -28,19 +33,11 @@ import pytest
 import torch
 
 from i3rc_tpu.core.illumination import PhotonSource as JaxSource
-from i3rc_tpu.core.optics import Domain
-from i3rc_tpu.core.phase_functions import (
-    PhaseFunction,
-    PhaseFunctionTable,
-    henyey_greenstein_coefficients,
-)
 from i3rc_tpu.drivers.monte_carlo_driver import run_from_namelist as jax_run_from_namelist
 from i3rc_tpu.integrators import fastpath as jfast
-from i3rc_tpu.integrators.config import IntegratorConfig
 from i3rc_tpu.integrators.integrator import Integrator as JaxIntegrator
 from i3rc_tpu.integrators.results import normalize_tallies as jax_normalize
 from i3rc_tpu.integrators.wavefront import RawTallies as JaxRawTallies
-from i3rc_tpu.models.step_cloud import make_step_cloud, write_domains
 from i3rc_tpu_torch import Integrator, PhotonSource, batch_key
 from i3rc_tpu_torch.core.rng import philox_uniforms
 from i3rc_tpu_torch.drivers.monte_carlo_driver import main as torch_driver_main
@@ -55,8 +52,24 @@ from i3rc_tpu_torch.kernels.event_block import (
 )
 
 torch.set_num_threads(2)
-CFG = IntegratorConfig(use_ray_tracing=False, max_events=500,
-                       compute_volume_absorption=False)
+
+
+def host(pkg: str) -> SimpleNamespace:
+    """One side's host layer: the port keeps its copies under the JAX
+    package's module paths."""
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+    pf = mod("core.phase_functions")
+    step = mod("models.step_cloud")
+    return SimpleNamespace(
+        Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
+        PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
+        make_step_cloud=step.make_step_cloud, write_domains=step.write_domains,
+        cfg=mod("integrators.config").IntegratorConfig(
+            use_ray_tracing=False, max_events=500, compute_volume_absorption=False))
+
+
+JAX, PORT = host("i3rc_tpu"), host("i3rc_tpu_torch")
+CFG = PORT.cfg
 # The I3RC detector set of examples/monteCarloDriver_stepCloud.nml and its
 # anchors (BENCH_CASES.md case 2; tolerance of tests/test_fastpath.py:870).
 DET = dict(intensity_mus=[1.0, 0.5, 0.5], intensity_phis=[0.0, 0.0, 180.0])
@@ -65,29 +78,28 @@ L = 4096
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def y_axis_scene(ssa=1.0):
+def y_axis_scene(h, ssa=1.0):
     """Separable scene whose only varying horizontal factor is fy (n_y > 1),
     so the closed shadow trace integrates along y."""
     vx = np.ones(4)
     vy = np.array([1.0, 3.0, 1.0])
     vz = np.array([0.0, 0.02, 0.03, 0.0])
     ext = vx[:, None, None] * vy[None, :, None] * vz[None, None, :]
-    table = PhaseFunctionTable.from_phase_functions(
-        [PhaseFunction.from_legendre(henyey_greenstein_coefficients(0.85, 48))], key=[1.0])
-    dom = Domain.create(np.linspace(0, 300.0, 5), np.linspace(0, 200.0, 4),
-                        np.linspace(0, 100.0, 5))
+    table = h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(h.hg(0.85, 48))], key=[1.0])
+    dom = h.Domain.create(np.linspace(0, 300.0, 5), np.linspace(0, 200.0, 4),
+                          np.linspace(0, 100.0, 5))
     return dom.add_component("c", ext, np.full_like(ext, ssa),
                              np.zeros(ext.shape, np.int32), table)
 
 
-SCENES = {"step_cloud": make_step_cloud, "y_axis": y_axis_scene}
+SCENES = {"step_cloud": lambda h, ssa=1.0: h.make_step_cloud(ssa), "y_axis": y_axis_scene}
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_plan_matches_jax(scene):
-    dom = SCENES[scene]()
-    jplan = JaxIntegrator.create(dom, config=CFG, **DET)._fast_plan
-    tinteg = Integrator.create(dom, config=CFG, device="cpu", **DET)
+    jplan = JaxIntegrator.create(SCENES[scene](JAX), config=JAX.cfg, **DET)._fast_plan
+    tinteg = Integrator.create(SCENES[scene](PORT), config=CFG, device="cpu", **DET)
     tplan = tinteg._fast_plan
     assert jplan.closed_shadow and tplan.closed_shadow
     assert tplan.detectors == tuple(tuple(float(v) for v in d) for d in jplan.detectors)
@@ -101,7 +113,8 @@ def test_plan_matches_jax(scene):
 
 
 def _jax_fast_event(dom, cfg, monkeypatch):
-    """The JAX fast_event of the Pallas detector path, and its draw count."""
+    """The JAX fast_event of the Pallas detector path, and its draw count
+    (``dom`` and ``cfg`` of the JAX package)."""
     jinteg = JaxIntegrator.create(dom, config=cfg, **DET)
     captured = {}
 
@@ -175,14 +188,15 @@ def test_twin_matches_jax_detector_event(scene, ssa, iw, monkeypatch):
     state agrees and where either side contributes, the exit column is
     equal and the contribution within 1e-5 relative on >= 99.5% of them.
     """
-    dom = SCENES[scene](ssa)
+    jdom = SCENES[scene](JAX, ssa)
+    jcfg = replace(JAX.cfg, use_russian_roulette_for_intensity=iw, zeta_min=0.3)
     cfg = replace(CFG, use_russian_roulette_for_intensity=iw, zeta_min=0.3)
-    fe, n_draws = _jax_fast_event(dom, cfg, monkeypatch)
-    fe_exact = _jax_fast_event(dom, replace(cfg, use_russian_roulette_for_intensity=False),
+    fe, n_draws = _jax_fast_event(jdom, jcfg, monkeypatch)
+    fe_exact = _jax_fast_event(jdom, replace(jcfg, use_russian_roulette_for_intensity=False),
                                monkeypatch)[0] if iw else None
-    tinteg = Integrator.create(dom, config=cfg, device="cpu", **DET)
+    tinteg = Integrator.create(SCENES[scene](PORT, ssa), config=cfg, device="cpu", **DET)
     spec = event_spec(tinteg.geometry, plan_from_jax(
-        JaxIntegrator.create(dom, config=cfg, **DET)._fast_plan), cfg)
+        JaxIntegrator.create(jdom, config=jcfg, **DET)._fast_plan), cfg)
     assert spec.n_draws == n_draws == spec.bonus_draws + (3 if iw else 0)
     rng = np.random.default_rng(23)
     st0 = _random_state(spec, rng)
@@ -222,10 +236,12 @@ def test_slice_matches_jax():
     XLA fastpath and the anchors, rtol 0.12 (radiance noise at 2^14 photons
     is 2-3%, tests/test_fastpath.py:868-870)."""
     n, lanes = 1 << 14, 1 << 12
-    jres = JaxIntegrator.create(make_step_cloud(1.0), config=replace(CFG, fastpath_unroll=1),
+    jres = JaxIntegrator.create(JAX.make_step_cloud(1.0),
+                                config=replace(JAX.cfg, fastpath_unroll=1),
                                 **DET).batch_fn(JaxSource.directional(0.5, 0.0), n,
                                                 n_lanes=lanes)(jax.random.PRNGKey(35))
-    tres = Integrator.create(make_step_cloud(1.0), config=CFG, device="cpu", **DET).batch_fn(
+    tres = Integrator.create(PORT.make_step_cloud(1.0), config=CFG, device="cpu",
+                             **DET).batch_fn(
         PhotonSource.directional(0.5, 0.0), n, n_lanes=lanes)(batch_key(35, 0))
     got = tres.mean_intensity.numpy()
     np.testing.assert_allclose(got, np.asarray(jres.mean_intensity), rtol=0.12)
@@ -271,14 +287,15 @@ def test_normalize_matches_jax():
     assert tres.intensity.shape == (nx, ny, D)
 
 
-def _cut_namelist(dest: Path) -> Path:
-    """The shipped step-cloud namelist with 8 batches of 512 photons."""
+def _cut_namelist(dest: Path, h) -> Path:
+    """The shipped step-cloud namelist with 8 batches of 512 photons, beside
+    the domain files that side ``h`` writes."""
     text = (ROOT / "examples" / "monteCarloDriver_stepCloud.nml").read_text()
     cut = text.replace("numPhotonsPerBatch = 100000", "numPhotonsPerBatch = 512").replace(
         "numBatches = 16", "numBatches = 8")
     assert cut != text
     dest.mkdir()
-    write_domains(str(dest))
+    h.write_domains(str(dest))
     (dest / "run.nml").write_text(cut)
     return dest / "run.nml"
 
@@ -287,7 +304,7 @@ def test_driver_shipped_namelist(tmp_path, monkeypatch):
     """The shipped namelist (photon count cut) through the port's driver on
     the CPU writes stepCloudRads.out with the JAX driver's header and
     shape."""
-    port, ref = _cut_namelist(tmp_path / "port"), _cut_namelist(tmp_path / "jax")
+    port, ref = _cut_namelist(tmp_path / "port", PORT), _cut_namelist(tmp_path / "jax", JAX)
     monkeypatch.chdir(ref.parent)
     jax_run_from_namelist(ref.name, quiet=True)
     monkeypatch.chdir(port.parent)
@@ -317,7 +334,7 @@ def test_detector_kernel_matches_twin_on_gpu(ssa, iw):
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
     cfg = replace(CFG, use_russian_roulette_for_intensity=iw)
-    integ = Integrator.create(make_step_cloud(ssa), config=cfg, device=dev, **DET)
+    integ = Integrator.create(PORT.make_step_cloud(ssa), config=cfg, device=dev, **DET)
     spec = event_spec(integ.geometry, integ._fast_plan, cfg)
     st = state_from_numpy(_random_state(spec, np.random.default_rng(5)), device=dev)
     got, ref = st.clone(), st.clone()

@@ -6,8 +6,8 @@ import pytest
 import torch
 from scipy.io import netcdf_file
 
-from i3rc_tpu.models.step_cloud import write_domains
 from i3rc_tpu_torch.drivers.monte_carlo_driver import main, run_from_namelist
+from i3rc_tpu_torch.models.step_cloud import write_domains
 
 torch.set_num_threads(2)
 ANCHOR_FUP = 0.58054   # tests/test_external_validation.py:227

@@ -4,7 +4,9 @@ The JAX ``fast_event`` is captured from ``make_fast_tracer``: with
 ``use_pallas_fastpath=True`` it hands the function to
 ``_build_pallas_block``, which the test replaces with a recorder.  Both
 sides then run from the same random in-domain lane state on the same
-uniforms (numpy, seeded), one event and one K=8 block.
+uniforms (numpy, seeded), one event and one K=8 block.  Each side builds
+its domain and configuration with its own classes from the same numpy
+arrays.
 
 Tolerance: integer fields equal on >= 99.5% of lanes, and float fields
 within 1e-5 relative to each field's magnitude on >= 99.5% of those lanes.
@@ -15,23 +17,17 @@ difference in uz into ~3e-5 in the new direction, so a few lanes per ten
 thousand exceed 1e-5 after one event and a few per thousand after eight.
 """
 
+import importlib
 from dataclasses import replace
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from i3rc_tpu.core.optics import Domain
-from i3rc_tpu.core.phase_functions import (
-    PhaseFunction,
-    PhaseFunctionTable,
-    henyey_greenstein_coefficients,
-)
 from i3rc_tpu.integrators import fastpath as jfast
-from i3rc_tpu.integrators.config import IntegratorConfig
 from i3rc_tpu.integrators.integrator import Integrator as JaxIntegrator
-from i3rc_tpu.models.step_cloud import make_step_cloud
 from i3rc_tpu_torch.core.rng import batch_key, philox_uniforms
 from i3rc_tpu_torch.integrators.fastpath import event_spec, plan_from_jax, state_from_numpy
 from i3rc_tpu_torch.integrators.integrator import Integrator
@@ -42,27 +38,47 @@ from i3rc_tpu_torch.kernels.event_block import (
 )
 
 torch.set_num_threads(2)
-CFG = IntegratorConfig(use_ray_tracing=False, max_events=500)
 L = 4096
 
 
-def y_scene(ssa):
+def host(pkg: str) -> SimpleNamespace:
+    """One side's host layer: the port keeps its copies under the JAX
+    package's module paths."""
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+    pf = mod("core.phase_functions")
+    return SimpleNamespace(
+        Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
+        PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
+        make_step_cloud=mod("models.step_cloud").make_step_cloud,
+        cfg=mod("integrators.config").IntegratorConfig(use_ray_tracing=False,
+                                                        max_events=500))
+
+
+JAX, PORT = host("i3rc_tpu"), host("i3rc_tpu_torch")
+CFG = PORT.cfg
+
+
+def y_scene(h, ssa):
     """A separable scene with x, y and z structure (y is tracked)."""
     vx = np.array([1.0, 2.0, 2.0, 0.5])
     vy = np.array([1.0, 3.0, 1.0])
     vz = np.array([0.0, 0.02, 0.03, 0.0])
     ext = vx[:, None, None] * vy[None, :, None] * vz[None, None, :]
-    table = PhaseFunctionTable.from_phase_functions(
-        [PhaseFunction.from_legendre(henyey_greenstein_coefficients(0.85, 48))], key=[1.0])
-    dom = Domain.create(np.linspace(0, 300.0, 5), np.linspace(0, 200.0, 4),
-                        np.linspace(0, 100.0, 5))
+    table = h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(h.hg(0.85, 48))], key=[1.0])
+    dom = h.Domain.create(np.linspace(0, 300.0, 5), np.linspace(0, 200.0, 4),
+                          np.linspace(0, 100.0, 5))
     return dom.add_component("c", ext, np.full_like(ext, ssa),
                              np.zeros(ext.shape, np.int32), table)
 
 
-def _setup(dom, monkeypatch):
-    """(JAX fast_event, port EventSpec, JAX geometry) for one domain."""
-    jinteg = JaxIntegrator.create(dom, config=CFG)
+SCENES = {"step_cloud": lambda h, ssa: h.make_step_cloud(ssa), "y_scene": y_scene}
+
+
+def _setup(scene, ssa, monkeypatch):
+    """(JAX fast_event, port EventSpec) for one scene, each side's domain
+    built with its own classes."""
+    jinteg = JaxIntegrator.create(SCENES[scene](JAX, ssa), config=JAX.cfg)
     captured = {}
 
     def record(fast_event, track_y, L_, K, **kw):
@@ -71,8 +87,8 @@ def _setup(dom, monkeypatch):
 
     monkeypatch.setattr(jfast, "_build_pallas_block", record)
     jfast.make_fast_tracer(jinteg.geometry, jinteg._fast_plan,
-                           replace(CFG, use_pallas_fastpath=True), 1 << 14, L)
-    tinteg = Integrator.create(dom, config=CFG, device="cpu")
+                           replace(JAX.cfg, use_pallas_fastpath=True), 1 << 14, L)
+    tinteg = Integrator.create(SCENES[scene](PORT, ssa), config=CFG, device="cpu")
     spec = event_spec(tinteg.geometry, plan_from_jax(jinteg._fast_plan), CFG)
     assert spec.track_y == captured["track_y"] and spec.n_draws == captured["n_draws"]
     return captured["fe"], spec
@@ -99,8 +115,7 @@ def _random_state(spec, rng):
 @pytest.mark.parametrize("scene,ssa", [("step_cloud", 1.0), ("step_cloud", 0.99),
                                        ("y_scene", 1.0), ("y_scene", 0.99)])
 def test_twin_matches_jax_fast_event(scene, ssa, monkeypatch):
-    dom = make_step_cloud(ssa) if scene == "step_cloud" else y_scene(ssa)
-    fast_event, spec = _setup(dom, monkeypatch)
+    fast_event, spec = _setup(scene, ssa, monkeypatch)
     assert spec.track_y == (scene == "y_scene")
     rng = np.random.default_rng(11)
     st0 = _random_state(spec, rng)
@@ -128,7 +143,7 @@ def test_kernel_matches_twin_on_gpu(ssa):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
-    integ = Integrator.create(y_scene(ssa), config=CFG, device=dev)
+    integ = Integrator.create(y_scene(PORT, ssa), config=CFG, device=dev)
     spec = event_spec(integ.geometry, integ._fast_plan, CFG)
     st = state_from_numpy(_random_state(spec, np.random.default_rng(5)), device=dev)
     got, ref = st.clone(), st.clone()

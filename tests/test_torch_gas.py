@@ -18,7 +18,10 @@ estimates: fluxes within 4 sigma of the oracle or of the JAX run, radiances
 within 12% at 2^14 photons (tests/test_fastpath.py:868).
 """
 
+import importlib
+import os
 from dataclasses import replace
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -27,19 +30,10 @@ import pytest
 import torch
 
 from i3rc_tpu.core.illumination import PhotonSource as JaxSource
-from i3rc_tpu.core.optics import Domain
-from i3rc_tpu.core.phase_functions import (
-    PhaseFunction,
-    PhaseFunctionTable,
-    henyey_greenstein_coefficients,
-)
 from i3rc_tpu.integrators import fastpath as jfast
-from i3rc_tpu.integrators.config import IntegratorConfig
 from i3rc_tpu.integrators.integrator import Integrator as JaxIntegrator
 from i3rc_tpu.integrators.results import normalize_tallies as jax_normalize
 from i3rc_tpu.integrators.wavefront import RawTallies as JaxRawTallies
-from i3rc_tpu.models.radar_cloud import load_c1_tabulated
-from i3rc_tpu.models.step_cloud import make_step_cloud
 from i3rc_tpu_torch import Integrator, PhotonSource, batch_key
 from i3rc_tpu_torch.core.rng import (
     GAS_LAUNCH_BLOCK,
@@ -58,7 +52,6 @@ from i3rc_tpu_torch.integrators.fastpath import (
     state_from_numpy,
 )
 from i3rc_tpu_torch.integrators.results import column_weights, normalize_tallies
-from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
 from i3rc_tpu_torch.integrators.wavefront import RawTallies
 from i3rc_tpu_torch.kernels.event_block import (
     TGAS,
@@ -69,26 +62,44 @@ from i3rc_tpu_torch.kernels.event_block import (
 from tests.disort_oracle import hg_slab_fluxes
 
 torch.set_num_threads(2)
-CFG = IntegratorConfig(use_ray_tracing=False, max_events=500,
-                       compute_volume_absorption=False)
 DET = dict(intensity_mus=[1.0, 0.5], intensity_phis=[0.0, 0.0])
 L = 4096
 GAS_EXT = 3e-4          # tests/test_fastpath.py:883
+C1_PF = os.path.join(os.path.dirname(__file__), os.pardir, "i3rc_tpu", "models", "data",
+                     "C.1_PF")
 
 
-def _hg_table(g=0.85, n=64):
-    return PhaseFunctionTable.from_phase_functions(
-        [PhaseFunction.from_legendre(henyey_greenstein_coefficients(g, n))], key=[1.0])
+def host(pkg: str) -> SimpleNamespace:
+    """One side's host layer (the port keeps its copies under the JAX
+    package's module paths) and its gas-component helper."""
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+    pf = mod("core.phase_functions")
+    return SimpleNamespace(
+        Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
+        PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
+        make_step_cloud=mod("models.step_cloud").make_step_cloud,
+        gas=mod("integrators.spectral").domain_with_gas_component,
+        cfg=mod("integrators.config").IntegratorConfig(
+            use_ray_tracing=False, max_events=500, compute_volume_absorption=False))
 
 
-def gas_slab(tau_cloud=1.0, tau_gas=0.5, nz=8):
+JAX, PORT = host("i3rc_tpu"), host("i3rc_tpu_torch")
+CFG = PORT.cfg
+
+
+def _hg_table(h, g=0.85, n=64):
+    return h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(h.hg(g, n))], key=[1.0])
+
+
+def gas_slab(h, tau_cloud=1.0, tau_gas=0.5, nz=8):
     """Uniform HG cloud slab plus a uniform gas (tests/test_external_validation.py:
     138-148)."""
-    base = Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250, nz + 1))
+    base = h.Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250, nz + 1))
     ext = np.full((1, 1, nz), tau_cloud / 250.0)
     base = base.add_component("cloud", ext, np.ones_like(ext),
-                              np.zeros(ext.shape, np.int32), _hg_table())
-    return domain_with_gas_component(base, np.full(nz, tau_gas / 250.0))
+                              np.zeros(ext.shape, np.int32), _hg_table(h))
+    return h.gas(base, np.full(nz, tau_gas / 250.0))
 
 
 def layered_gas():
@@ -96,51 +107,50 @@ def layered_gas():
     return np.concatenate([np.full(16, 1e-3), np.full(8, 5e-4), np.full(8, 1e-4)])
 
 
-def step_gas(ssa=1.0, profile=None):
-    return domain_with_gas_component(make_step_cloud(ssa),
-                                     np.full(32, GAS_EXT) if profile is None else profile)
+def step_gas(h, ssa=1.0, profile=None):
+    return h.gas(h.make_step_cloud(ssa), np.full(32, GAS_EXT) if profile is None else profile)
 
 
-def gas_first(ssa=1.0):
+def gas_first(h, ssa=1.0):
     """The gas as component 0 and the cloud as component 1 (gas_idx 0)."""
-    dom = domain_with_gas_component(
-        Domain.create([0, 250.0, 500.0], [0, 500.0], np.linspace(0, 250, 5)), np.full(4, 1e-3))
+    dom = h.gas(h.Domain.create([0, 250.0, 500.0], [0, 500.0], np.linspace(0, 250, 5)),
+                np.full(4, 1e-3))
     ext = np.full((2, 1, 4), 2.0 / 250.0)
     ext[1] *= 0.5
     return dom.add_component("cloud", ext, np.full_like(ext, ssa),
-                             np.zeros(ext.shape, np.int32), _hg_table())
+                             np.zeros(ext.shape, np.int32), _hg_table(h))
 
 
-def y_scene_gas(ssa=0.99):
+def y_scene_gas(h, ssa=0.99):
     """Separable cloud varying along x, y and z (y is tracked) plus layered gas."""
     vx = np.array([1.0, 2.0, 2.0, 0.5])
     vy = np.array([1.0, 3.0, 1.0])
     vz = np.array([0.0, 0.02, 0.03, 0.0])
     ext = vx[:, None, None] * vy[None, :, None] * vz[None, None, :]
-    dom = Domain.create(np.linspace(0, 300.0, 5), np.linspace(0, 200.0, 4),
-                        np.linspace(0, 100.0, 5))
+    dom = h.Domain.create(np.linspace(0, 300.0, 5), np.linspace(0, 200.0, 4),
+                          np.linspace(0, 100.0, 5))
     dom = dom.add_component("c", ext, np.full_like(ext, ssa),
-                            np.zeros(ext.shape, np.int32), _hg_table(n=48))
-    return domain_with_gas_component(dom, np.array([2e-3, 2e-3, 5e-3, 1e-3]))
+                            np.zeros(ext.shape, np.int32), _hg_table(h, n=48))
+    return h.gas(dom, np.array([2e-3, 2e-3, 5e-3, 1e-3]))
 
 
-# name -> (domain, detector kwargs)
+# name -> (domain builder of one side, detector kwargs)
 GAS_DOMAINS = {
-    "slab": lambda: (gas_slab(), {}),
-    "step": lambda: (step_gas(), {}),
-    "step_absorbing_layered": lambda: (step_gas(0.99, layered_gas()), {}),
-    "gas_first": lambda: (gas_first(), {}),
-    "y_scene": lambda: (y_scene_gas(), {}),
-    "step_detectors": lambda: (step_gas(), DET),
-    "layered_detectors": lambda: (step_gas(1.0, layered_gas()), DET),
+    "slab": lambda h: (gas_slab(h), {}),
+    "step": lambda h: (step_gas(h), {}),
+    "step_absorbing_layered": lambda h: (step_gas(h, 0.99, layered_gas()), {}),
+    "gas_first": lambda h: (gas_first(h), {}),
+    "y_scene": lambda h: (y_scene_gas(h), {}),
+    "step_detectors": lambda h: (step_gas(h), DET),
+    "layered_detectors": lambda h: (step_gas(h, 1.0, layered_gas()), DET),
 }
 
 
 @pytest.mark.parametrize("name", sorted(GAS_DOMAINS))
 def test_gas_plan_matches_jax(name):
-    dom, det = GAS_DOMAINS[name]()
-    jplan = JaxIntegrator.create(dom, config=CFG, **det)._fast_plan
-    tinteg = Integrator.create(dom, config=CFG, device="cpu", **det)
+    jdom, det = GAS_DOMAINS[name](JAX)
+    jplan = JaxIntegrator.create(jdom, config=JAX.cfg, **det)._fast_plan
+    tinteg = Integrator.create(GAS_DOMAINS[name](PORT)[0], config=CFG, device="cpu", **det)
     tplan = tinteg._fast_plan
     assert jplan is not None and jplan.gas_factor is not None
     assert tplan.gas_factor.thresholds == jplan.gas_factor.thresholds
@@ -164,37 +174,45 @@ def test_gas_plan_matches_jax(name):
 def test_second_scatterer_has_no_plan():
     """A second component that scatters is not a gas: no fastpath plan on
     either side (tests/test_fastpath.py:483-488)."""
-    dom = Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250, 9))
-    ext = np.full((1, 1, 8), 1 / 250.0)
-    dom = dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
-                            _hg_table())
-    ext2 = np.linspace(1, 2, 8).reshape(1, 1, 8) / 250.0
-    dom = dom.add_component("cloud2", ext2, np.ones_like(ext2), np.zeros(ext2.shape, np.int32),
-                            _hg_table())
-    assert JaxIntegrator.create(dom, config=CFG)._fast_plan is None
-    assert Integrator.create(dom, config=CFG, device="cpu")._fast_plan is None
+    def two_clouds(h):
+        dom = h.Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250, 9))
+        ext = np.full((1, 1, 8), 1 / 250.0)
+        dom = dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
+                                _hg_table(h))
+        ext2 = np.linspace(1, 2, 8).reshape(1, 1, 8) / 250.0
+        return dom.add_component("cloud2", ext2, np.ones_like(ext2),
+                                 np.zeros(ext2.shape, np.int32), _hg_table(h))
+
+    assert JaxIntegrator.create(two_clouds(JAX), config=JAX.cfg)._fast_plan is None
+    assert Integrator.create(two_clouds(PORT), config=CFG, device="cpu")._fast_plan is None
 
 
 def test_tabulated_cloud_with_gas_raises():
     """Tabulated (C.1) cloud plus gas: the JAX fastpath takes it with its
-    cubic sampler; the port raises for ROADMAP item 15."""
-    table = PhaseFunctionTable.from_phase_functions([load_c1_tabulated()], key=[1.0])
-    dom = Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250, 5))
-    ext = np.full((1, 1, 4), 2.0 / 250.0)
-    dom = dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
-                            table)
-    dom = domain_with_gas_component(dom, np.full(4, 0.5 / 250.0))
-    jplan = JaxIntegrator.create(dom, config=CFG)._fast_plan
+    cubic sampler; the port raises for ROADMAP item 15.  The C.1 table is
+    read from its data file as i3rc_tpu/models/radar_cloud.py reads it."""
+    raw = np.loadtxt(C1_PF)
+
+    def c1_gas(h):
+        table = h.PhaseFunctionTable.from_phase_functions(
+            [h.PhaseFunction.from_tabulated(np.deg2rad(raw[:, 0]), raw[:, 1])], key=[1.0])
+        dom = h.Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250, 5))
+        ext = np.full((1, 1, 4), 2.0 / 250.0)
+        dom = dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
+                                table)
+        return h.gas(dom, np.full(4, 0.5 / 250.0))
+
+    jplan = JaxIntegrator.create(c1_gas(JAX), config=JAX.cfg)._fast_plan
     assert jplan is not None and jplan.gas_factor is not None and jplan.cubic is not None
     with pytest.raises(NotImplementedError, match="item 15"):
-        Integrator.create(dom, config=CFG, device="cpu")._fast_plan
+        Integrator.create(c1_gas(PORT), config=CFG, device="cpu")._fast_plan
     with pytest.raises(NotImplementedError, match="item 15"):
         plan_from_jax(jplan)
 
 
 def test_fused_k_plan_raises():
     """A JAX plan with fused-k tables (GasKTables) is ROADMAP item 13b."""
-    jplan = JaxIntegrator.create(step_gas(), config=CFG)._fast_plan
+    jplan = JaxIntegrator.create(step_gas(JAX), config=JAX.cfg)._fast_plan
     with pytest.raises(NotImplementedError, match="item 13b"):
         plan_from_jax(replace(jplan, gas_k=object()))
 
@@ -211,14 +229,15 @@ def test_gas_threshold_stream():
         assert float((other == u).float().mean()) < 1e-3
     assert not torch.equal(gas_thresholds(key, 0, n, "cpu"), tg)
     assert float(tg.mean()) == pytest.approx(1.0, abs=4 / n ** 0.5)
-    integ = Integrator.create(step_gas(), config=CFG, device="cpu")
+    integ = Integrator.create(step_gas(PORT), config=CFG, device="cpu")
     batch = PhotonSource.directional(0.5, 0.0).sample(key, n, "cpu")
     assert torch.equal(launch_state(integ.geometry, batch, n, gas_key=key).f[TGAS], tg)
     assert float(launch_state(integ.geometry, batch, n).f[TGAS].abs().max()) == 0.0
 
 
 def _jax_gas_event(dom, cfg, det, monkeypatch):
-    """The JAX fast_event of the Pallas gas path, and its draw count."""
+    """The JAX fast_event of the Pallas gas path, and its draw count (``dom``
+    and ``cfg`` of the JAX package)."""
     jinteg = JaxIntegrator.create(dom, config=cfg, **det)
     captured = {}
 
@@ -253,11 +272,11 @@ def _random_state(spec, rng):
 
 
 EVENT_CASES = {
-    "step": lambda ssa: (step_gas(ssa), {}),
-    "step_layered": lambda ssa: (step_gas(ssa, layered_gas()), {}),
-    "y_scene": lambda ssa: (y_scene_gas(ssa), {}),
-    "step_detectors": lambda ssa: (step_gas(ssa), DET),
-    "layered_detectors": lambda ssa: (step_gas(ssa, layered_gas()), DET),
+    "step": lambda h, ssa: (step_gas(h, ssa), {}),
+    "step_layered": lambda h, ssa: (step_gas(h, ssa, layered_gas()), {}),
+    "y_scene": lambda h, ssa: (y_scene_gas(h, ssa), {}),
+    "step_detectors": lambda h, ssa: (step_gas(h, ssa), DET),
+    "layered_detectors": lambda h, ssa: (step_gas(h, ssa, layered_gas()), DET),
 }
 
 
@@ -267,9 +286,10 @@ EVENT_CASES = {
 def test_twin_matches_jax_gas_event(case, ssa, monkeypatch):
     """One event and one K = 8 block on the same state (tgas included) and
     uniforms; with detectors, the (contribution, column) records too."""
-    dom, det = EVENT_CASES[case](ssa)
-    fe, n_draws, jplan = _jax_gas_event(dom, CFG, det, monkeypatch)
-    tinteg = Integrator.create(dom, config=CFG, device="cpu", **det)
+    jdom, det = EVENT_CASES[case](JAX, ssa)
+    fe, n_draws, jplan = _jax_gas_event(jdom, JAX.cfg, det, monkeypatch)
+    tinteg = Integrator.create(EVENT_CASES[case](PORT, ssa)[0], config=CFG, device="cpu",
+                               **det)
     spec = event_spec(tinteg.geometry, plan_from_jax(jplan), CFG)
     assert spec.gas and spec.n_draws == n_draws
     assert spec.chain == (0 if det else 3)
@@ -314,7 +334,7 @@ def test_gas_slab_matches_oracle():
     the port's twin against the discrete-ordinates oracle at 4 sigma."""
     n = 1 << 16
     cfg = replace(CFG, max_events=2000)
-    res = Integrator.create(gas_slab(), config=cfg, device="cpu").batch_fn(
+    res = Integrator.create(gas_slab(PORT), config=cfg, device="cpu").batch_fn(
         PhotonSource.directional(0.5, 0.0), n, n_lanes=1 << 14)(batch_key(11, 0))
     r_ex, t_ex = hg_slab_fluxes(1.5, 1.0 / 1.5, 0.85, 0.5, n_legendre=64)
     sigma = np.sqrt(max(r_ex * (1 - r_ex), t_ex * (1 - t_ex)) / n)
@@ -325,11 +345,13 @@ def test_gas_slab_matches_oracle():
     assert total == pytest.approx(1.0, abs=1e-5) and int(res.n_bad) == 0
 
 
-def _both(dom, det, n, lanes, seed):
-    """(JAX XLA fastpath results, port results) on the same scene."""
-    jres = JaxIntegrator.create(dom, config=replace(CFG, fastpath_unroll=1), **det).batch_fn(
+def _both(scene, det, n, lanes, seed):
+    """(JAX XLA fastpath results, port results) on the same scene, each side
+    built by ``scene(h)`` with its own classes."""
+    jres = JaxIntegrator.create(scene(JAX), config=replace(JAX.cfg, fastpath_unroll=1),
+                                **det).batch_fn(
         JaxSource.directional(0.5, 0.0), n, n_lanes=lanes)(jax.random.PRNGKey(seed))
-    tres = Integrator.create(dom, config=CFG, device="cpu", **det).batch_fn(
+    tres = Integrator.create(scene(PORT), config=CFG, device="cpu", **det).batch_fn(
         PhotonSource.directional(0.5, 0.0), n, n_lanes=lanes)(batch_key(seed, 0))
     return jres, tres
 
@@ -339,7 +361,7 @@ def test_gas_slice_matches_jax():
     Fabs of the port within 4 sigma of the JAX XLA fastpath (sigma of the
     difference, sqrt(2 * 0.25 / n)); closure to 1e-5."""
     n = 1 << 14
-    jres, tres = _both(step_gas(0.99, layered_gas()), {}, n, 1 << 12, 25)
+    jres, tres = _both(lambda h: step_gas(h, 0.99, layered_gas()), {}, n, 1 << 12, 25)
     sigma = np.sqrt(2 * 0.25 / n)
     for field in ("mean_flux_up", "mean_flux_down", "mean_flux_absorbed"):
         assert float(getattr(tres, field)) == pytest.approx(
@@ -355,7 +377,7 @@ def test_gas_radiance_slice_matches_jax():
     XLA fastpath at 2^14 photons (tests/test_fastpath.py:875-900), the
     three-slot component layout, and closure."""
     n = 1 << 14
-    jres, tres = _both(step_gas(1.0), DET, n, 1 << 12, 45)
+    jres, tres = _both(lambda h: step_gas(h, 1.0), DET, n, 1 << 12, 45)
     np.testing.assert_allclose(tres.mean_intensity.numpy(), np.asarray(jres.mean_intensity),
                                rtol=0.12)
     total = float(tres.mean_flux_up + tres.mean_flux_down + tres.mean_flux_absorbed)
@@ -407,7 +429,7 @@ def test_gas_kernel_matches_twin_on_gpu(case, ssa):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
-    dom, det = EVENT_CASES[case](ssa)
+    dom, det = EVENT_CASES[case](PORT, ssa)
     integ = Integrator.create(dom, config=CFG, device=dev, **det)
     spec = event_spec(integ.geometry, integ._fast_plan, CFG)
     st = state_from_numpy(_random_state(spec, np.random.default_rng(5)), device=dev)

@@ -3,9 +3,8 @@ deterministic slab oracle.
 
 The two packages draw from different generators (Philox vs Threefry), so
 agreement is statistical: each gate is a stated number of standard errors.
+Each side builds its domain and configuration with its own classes.
 """
-
-from dataclasses import replace
 
 import jax
 import numpy as np
@@ -13,13 +12,23 @@ import pytest
 import torch
 
 from i3rc_tpu.core.illumination import PhotonSource as JaxSource
-from i3rc_tpu.integrators.config import IntegratorConfig
+from i3rc_tpu.integrators.config import IntegratorConfig as JaxConfig
 from i3rc_tpu.integrators.integrator import Integrator as JaxIntegrator
-from i3rc_tpu.models.slab import make_slab_domain
-from i3rc_tpu.models.step_cloud import make_step_cloud
+from i3rc_tpu.models.step_cloud import make_step_cloud as jax_step_cloud
 from i3rc_tpu.parallel.mesh import default_mesh
 from i3rc_tpu.parallel.mesh import run_batches as jax_run_batches
-from i3rc_tpu_torch import Integrator, PhotonSource, batch_key, run_batches
+from i3rc_tpu_torch import (
+    Domain,
+    Integrator,
+    IntegratorConfig,
+    PhaseFunction,
+    PhaseFunctionTable,
+    PhotonSource,
+    batch_key,
+    henyey_greenstein_coefficients,
+    make_step_cloud,
+    run_batches,
+)
 from tests.disort_oracle import hg_slab_fluxes
 
 torch.set_num_threads(2)
@@ -27,13 +36,26 @@ CFG = IntegratorConfig(use_ray_tracing=False, max_events=500,
                        compute_volume_absorption=False)
 # The JAX reference runs one event per block (K=1) to keep its XLA compile
 # to seconds; K sets when deaths are tallied, not what is tallied.
-JAX_CFG = replace(CFG, fastpath_unroll=1)
+JAX_CFG = JaxConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False,
+                    fastpath_unroll=1)
 N, LANES = 1 << 14, 1 << 12
+
+
+def slab(tau):
+    """The HG slab of i3rc_tpu/models/slab.py (make_slab_domain(tau)): g
+    0.85 in 64 Legendre terms, 500 x 500 x 250, one cell."""
+    table = PhaseFunctionTable.from_phase_functions(
+        [PhaseFunction.from_legendre(henyey_greenstein_coefficients(0.85, 64))], key=[1.0])
+    dom = Domain.create(np.linspace(0.0, 500.0, 2), np.linspace(0.0, 500.0, 2),
+                        np.linspace(0.0, 250.0, 2))
+    ext = np.full((1, 1, 1), tau / 250.0)
+    return dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
+                             table)
 
 
 def test_step_cloud_matches_jax_fastpath():
     """Port vs the JAX XLA fastpath on the step cloud (test_fastpath.py:741)."""
-    jres = JaxIntegrator.create(make_step_cloud(1.0), config=JAX_CFG).batch_fn(
+    jres = JaxIntegrator.create(jax_step_cloud(1.0), config=JAX_CFG).batch_fn(
         JaxSource.directional(0.5, 0.0), N, n_lanes=LANES)(jax.random.PRNGKey(5))
     tres = Integrator.create(make_step_cloud(1.0), config=CFG, device="cpu").batch_fn(
         PhotonSource.directional(0.5, 0.0), N, n_lanes=LANES)(batch_key(5, 0))
@@ -65,7 +87,7 @@ def test_slab_vs_oracle():
     oracle (tests/disort_oracle.py) within 4 sigma."""
     n = 1 << 15
     r_ex, t_ex = hg_slab_fluxes(1.0, 1.0, 0.85, 0.5, n_legendre=64)
-    res = Integrator.create(make_slab_domain(1.0), config=CFG, device="cpu").batch_fn(
+    res = Integrator.create(slab(1.0), config=CFG, device="cpu").batch_fn(
         PhotonSource.directional(0.5, 0.0), n, n_lanes=LANES)(batch_key(7, 0))
     sigma = np.sqrt(r_ex * (1.0 - r_ex) / n)
     assert float(res.mean_flux_up) == pytest.approx(r_ex, abs=4 * sigma)
@@ -78,7 +100,7 @@ def test_run_batches_matches_jax():
     n, batches = 1 << 12, 8
     derive = lambda res: {"fup": res.mean_flux_up}
     jst = jax_run_batches(
-        JaxIntegrator.create(make_step_cloud(1.0), config=JAX_CFG),
+        JaxIntegrator.create(jax_step_cloud(1.0), config=JAX_CFG),
         JaxSource.directional(0.5, 0.0), n, batches, seed=3, derive=derive,
         derive_token="fup", n_lanes=LANES, mesh=default_mesh(jax.devices()[:1]))
     tinteg = Integrator.create(make_step_cloud(1.0), config=CFG, device="cpu")

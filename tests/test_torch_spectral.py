@@ -12,31 +12,25 @@ closed-form.  The fused-k and traced modes are not ported and raise.
 Tolerances: band and broadband fluxes within 4 sigma of the JAX run, sigma
 of the difference of two independent weighted means; the driver's
 transmission within 1e-2 relative of the closed form (~4 sigma at 2 x 20000
-photons per k point).
+photons per k point).  Each side builds its domains, k-distributions and
+configuration with its own classes from the same numpy arrays.
 """
 
+import importlib
 import os
 import subprocess
 import sys
 import textwrap
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from i3rc_tpu.core.illumination import PhotonSource as JaxSource
-from i3rc_tpu.core.k_distribution import KDistribution, write_k_distribution
-from i3rc_tpu.core.optics import Domain
-from i3rc_tpu.core.phase_functions import (
-    PhaseFunction,
-    PhaseFunctionTable,
-    henyey_greenstein_coefficients,
-)
 from i3rc_tpu.drivers.broadband_driver import run_from_namelist as jax_run_bb
 from i3rc_tpu.integrators import spectral as jspectral
-from i3rc_tpu.integrators.config import IntegratorConfig
-from i3rc_tpu.io.netcdf import write_domain
 from i3rc_tpu_torch import Integrator, PhotonSource, run_band, run_broadband
 from i3rc_tpu_torch.drivers.broadband_driver import main as bb_main
 from i3rc_tpu_torch.drivers.broadband_driver import run_from_namelist as run_bb
@@ -44,26 +38,45 @@ from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CFG = IntegratorConfig(use_ray_tracing=False, max_events=500,
-                       compute_volume_absorption=False)
 NZ, N, BATCHES, SEED = 4, 1 << 13, 2, 21
 Z = np.linspace(0, 250.0, NZ + 1)
-KDS = [KDistribution.create(Z, np.broadcast_to([[0.2 / 250, 1.0 / 250]], (NZ, 2)).copy(),
-                            [0.6, 0.4], wavelength_limits=(0.5, 0.7), spectral_fraction=0.7),
-       KDistribution.create(Z, np.broadcast_to([[0.05 / 250, 2.0 / 250]], (NZ, 2)).copy(),
-                            [0.5, 0.5], wavelength_limits=(1.5, 1.7), spectral_fraction=0.3)]
 
 
-def _table(n=64):
-    return PhaseFunctionTable.from_phase_functions(
-        [PhaseFunction.from_legendre(henyey_greenstein_coefficients(0.85, n))], key=[1.0])
+def host(pkg: str) -> SimpleNamespace:
+    """One side's host layer: the port keeps its copies under the JAX
+    package's module paths."""
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+    pf, kd = mod("core.phase_functions"), mod("core.k_distribution")
+    h = SimpleNamespace(
+        Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
+        PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
+        KDistribution=kd.KDistribution, write_k_distribution=kd.write_k_distribution,
+        write_domain=mod("io.netcdf").write_domain,
+        cfg=mod("integrators.config").IntegratorConfig(
+            use_ray_tracing=False, max_events=500, compute_volume_absorption=False))
+    h.kds = [h.KDistribution.create(
+                 Z, np.broadcast_to([[0.2 / 250, 1.0 / 250]], (NZ, 2)).copy(), [0.6, 0.4],
+                 wavelength_limits=(0.5, 0.7), spectral_fraction=0.7),
+             h.KDistribution.create(
+                 Z, np.broadcast_to([[0.05 / 250, 2.0 / 250]], (NZ, 2)).copy(), [0.5, 0.5],
+                 wavelength_limits=(1.5, 1.7), spectral_fraction=0.3)]
+    return h
 
 
-def cloud_slab():
-    dom = Domain.create([0, 500.0], [0, 500.0], Z)
+JAX, PORT = host("i3rc_tpu"), host("i3rc_tpu_torch")
+CFG, KDS = PORT.cfg, PORT.kds
+
+
+def _table(h, n=64):
+    return h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(h.hg(0.85, n))], key=[1.0])
+
+
+def cloud_slab(h=PORT):
+    dom = h.Domain.create([0, 500.0], [0, 500.0], Z)
     ext = np.full((1, 1, NZ), 2.0 / 250.0)
     return dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
-                             _table())
+                             _table(h))
 
 
 def means(res):
@@ -75,8 +88,8 @@ def means(res):
 def jax_broadband():
     """The JAX baked broadband loop over both bands (XLA fastpath, unroll 1)."""
     return jspectral.run_broadband(
-        cloud_slab(), KDS, JaxSource.directional(0.5, 0.0), N, BATCHES, seed=SEED,
-        config=replace(CFG, fastpath_unroll=1), bake_fastpath=True, derive=means)
+        cloud_slab(JAX), JAX.kds, JaxSource.directional(0.5, 0.0), N, BATCHES, seed=SEED,
+        config=replace(JAX.cfg, fastpath_unroll=1), bake_fastpath=True, derive=means)
 
 
 def _sigma(kds, n):
@@ -162,17 +175,17 @@ FRACTIONS = {0: 0.7, 1: 0.3}
 
 def _transparent_inputs(tmp_path, mode="auto", algorithms="useRayTracing = .false., "
                                                           "maxEvents = 100", photons=20000):
-    dom = Domain.create([0, 1.0], [0, 1.0], np.linspace(0, 1.0, 5))
+    dom = PORT.Domain.create([0, 1.0], [0, 1.0], np.linspace(0, 1.0, 5))
     ext = np.full((1, 1, 4), 1e-3)
     dom = dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
-                            _table(16))
-    write_domain(dom, str(tmp_path / "slab.dom"))
+                            _table(PORT, 16))
+    PORT.write_domain(dom, str(tmp_path / "slab.dom"))
     z = np.linspace(0.0, 1.0, 5)
     for b in (0, 1):
-        kd = KDistribution.create(z, np.broadcast_to(TAUS[b][None, :], (4, 2)).copy(),
-                                  WEIGHTS[b], wavelength_limits=(0.5 + b, 0.7 + b),
-                                  spectral_fraction=FRACTIONS[b])
-        write_k_distribution(kd, str(tmp_path / f"band{b}.kd"))
+        kd = PORT.KDistribution.create(z, np.broadcast_to(TAUS[b][None, :], (4, 2)).copy(),
+                                       WEIGHTS[b], wavelength_limits=(0.5 + b, 0.7 + b),
+                                       spectral_fraction=FRACTIONS[b])
+        PORT.write_k_distribution(kd, str(tmp_path / f"band{b}.kd"))
     nml = tmp_path / "bb.nml"
     nml.write_text(textwrap.dedent(f"""
     &radiativeTransfer
@@ -263,7 +276,7 @@ def test_spectral_modules_do_not_import_jax():
         import i3rc_tpu_torch.integrators.spectral
         import i3rc_tpu_torch.drivers.broadband_driver
         from i3rc_tpu_torch import run_band, run_broadband
-        print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")))
+        print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "i3rc_tpu")))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
