@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the CUDA kernels from i3rc_tpu_torch/csrc, checks the event block's
-flux, radiance-detector, gas-channel and column variants and the column-read
-probe against their plain PyTorch twins, then drives the port's paths — the
+Builds the CUDA kernels from i3rc_tpu_torch/csrc (printing ptxas registers,
+resident CTAs per SM and a SASS census), checks the event block's flux,
+radiance-detector, gas-channel and column variants bit for bit against their
+plain PyTorch twins on a full and a tail state, and the column-read probe,
+then drives the port's paths — the
 I3RC step-cloud flux run, the step-cloud run with the three radiance
 detectors of examples/monteCarloDriver_stepCloud.nml, each through
 ``Integrator.batch_fn`` and the namelist driver, the cloud + gas slab against
@@ -31,6 +33,7 @@ import subprocess
 import sys
 import textwrap
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -74,29 +77,52 @@ PROBE_LOOP = 16                 # its events per run: two launches of K = 8
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
-# Operations per alive lane-event, counted by hand from the kernel sources
-# (fast_event_block.cuh, column_read_probe.cu) for the variant each phase
-# times: (ALU operations, special-function operations).  A Philox4x32-10
-# call is ~100 integer operations; a rotation ~60 ALU and 5 SFU (two square
-# roots, one reciprocal square root, two divisions of the HG inverse); a
-# free path one logf; a face distance one division.
-OPS_PER_EVENT = {
-    "flux": (630, 21),             # K1, chain 2: 3 Philox calls, 3 rotations, 3 logf
-    "detectors": (650, 24),        # K3, 3 detectors with Iwabuchi, chain 0
-    "gas": (680, 27),              # K2 flux, chain 3: 3 Philox calls, 4 rotations
-    "gas_detectors": (450, 19),    # K2, 2 detectors, chain 0
-    "column": (640, 23),           # P1 in the event block, chain 2: + one row read
+# Operations that the data needs, counted by hand from the kernel sources
+# (fast_event_block.cuh, column_read_probe.cu): (ALU operations, special-
+# function operations) per alive lane-event and per collision (an `orders`
+# increment: the scattering draws, one Philox4x32-10 call of ~100 integer
+# operations, the HG inverse and rotation, ~70 ALU and 6 SFU, the next free
+# path's logf), plus per detector and collision the shadow ray and phase
+# value.  A crossing reads no draw: it carries its tau.  A face distance or
+# a collision distance in column media is one IEEE division (one SFU step).
+OPS_PER_EVENT = {                  # the step: where-chains, faces, distances
+    "flux": (120, 3),              # K1: x, z faces (1 x threshold)
+    "detectors": (120, 3),         # K3: the same step
+    "gas": (160, 3),               # K2: + the gas chain and its faces
+    "gas_detectors": (160, 3),
+    "column": (110, 5),            # P1 in the event block: row index, 3 faces, s_col
     "probe": (120, 0),             # P1 probe: one Philox call and ~20 ALU per event
 }
-STATE_BYTES_PER_LANE = 2 * 13 * 4  # the 13 state rows, read once and written once
+OPS_PER_COLLISION = {"flux": (180, 7), "detectors": (180, 7), "gas": (190, 7),
+                     "gas_detectors": (190, 7), "column": (180, 8), "probe": (0, 0)}
+OPS_PER_DETECTOR = (70, 4)         # HG phase value (1/sqrt), shadow z segments, exp, log
+STATE_ROWS = 13                    # x, y, z, ux, uy, uz, tau, tgas; alive, orders, pk, bad, evct
 
 
-def bound_ms(variant: str, lane_events: int, n_bytes: int) -> tuple[float, str]:
-    """(least ms, what bounds it) for ``lane_events`` alive lane-events of the
-    variant that move ``n_bytes`` of device memory."""
-    alu, sfu = OPS_PER_EVENT[variant]
+def state_bytes(spec, n_lanes: int, n_live: int) -> int:
+    """Bytes that one block needs to move: the alive flag and tau of every
+    lane read once; the rows a variant keeps (y and tgas only where it
+    tracks them) of each live lane read once and written once; the
+    detector accumulator read and written; the column table read once."""
+    rows = STATE_ROWS - (not spec.track_y) - (not spec.gas)
+    n = 8 * n_lanes + n_live * (2 * rows * 4 - 8)
+    if spec.det is not None:
+        n += 2 * 8 * spec.det.n_cols * spec.det.n
+    if spec.col:
+        n += spec.column.numel() * 4
+    return n
+
+
+def bound_ms(variant: str, lane_events: int, n_bytes: int, collisions: int = 0,
+             detectors: int = 0) -> tuple[float, str]:
+    """(least ms, what bounds it) for ``lane_events`` alive lane-events and
+    ``collisions`` collisions of the variant that move ``n_bytes`` of
+    device memory."""
+    (ea, es), (ca, cs) = OPS_PER_EVENT[variant], OPS_PER_COLLISION[variant]
+    alu = lane_events * ea + collisions * (ca + detectors * OPS_PER_DETECTOR[0])
+    sfu = lane_events * es + collisions * (cs + detectors * OPS_PER_DETECTOR[1])
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max(lane_events * alu / FP32_OPS_PER_S, lane_events * sfu / SFU_OPS_PER_S)
+    t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -109,10 +135,53 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def ctas_per_sm(registers: int, threads: int = 256) -> int:
+    """Resident CTAs of ``threads`` threads per SM that the registers allow
+    (65,536 per SM, allocated per warp in units of 256, at most 64 warps
+    and 2048 threads), the limit that binds these kernels."""
+    per_warp = -(-registers * 32 // 256) * 256
+    return min(65536 // per_warp, 64) // (threads // 32)
+
+
+# Event-block instantiations by template arguments (K, CHAIN, ABS, TY, DET,
+# IW, GAS, COL, SLICES), for the SASS census: the ones the main paths
+# launch, then the detector tally of more than 751 bins, which no phase runs.
+CENSUS = {"column_K32_chain2": "ILi32ELi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0E",
+          "detectors_K8_iwabuchi": "ILi8ELi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1E",
+          "gas_detectors_K8": "ILi8ELi0ELb0ELb0ELb1ELb0ELb1ELb0ELb1E",
+          "detectors_K8_iwabuchi_wide": "ILi8ELi0ELb0ELb0ELb1ELb1ELb0ELb0ELb0E"}
+SASS_OPS = ("MUFU", "IMAD.HI", "LDG", "ATOMS", "CAS", "SHFL", "MATCH", "BAR", "ATOMG", "RED")
+
+
+def sass_census(library: Path) -> dict:
+    """Per CENSUS instantiation, the count of each SASS_OPS opcode family in
+    ``cuobjdump -sass`` of the library; {"cuobjdump": "absent"} without it."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not tool.exists():
+        return {"cuobjdump": "absent"}
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = next((k for k, v in CENSUS.items()
+                         if f"fast_event_block_kernel{v}" in line), None)
+            if name:
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name and (m := re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                                      line)):
+            op = m[1]
+            for fam in SASS_OPS:
+                if op == fam or op.startswith(fam + ".") or (fam == "CAS" and "CAS" in op):
+                    counts[name][fam] += 1
+    return counts
+
+
 def ptxas_by_variant(log: str) -> dict:
     """Per kernel variant (flux, detectors, gas, gas_detectors, column_flux,
-    probe): instantiations, their most registers and their spill-store
-    bytes, from ptxas -v."""
+    probe): instantiations, their most registers, their stack-frame and
+    spill-store bytes and the resident CTAs per SM those registers allow,
+    from ptxas -v."""
     out = {}
     name = None
     for line in log.splitlines():
@@ -127,13 +196,14 @@ def ptxas_by_variant(log: str) -> dict:
             out[name] = (n + 1, r, b)
         elif "Compiling entry function" in line:
             name = None
-        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                                      line)):
             n, r, b = out[name]
-            out[name] = (n, r, b + int(m[1]))
+            out[name] = (n, r, b + int(m[1]) + int(m[2]))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             n, r, b = out[name]
             out[name] = (n, max(r, int(m[1])), b)
-    return {k: f"{n}x/{r}regs/{b}B" for k, (n, r, b) in sorted(out.items())}
+    return {k: f"{n}x/{r}regs/{b}B/{ctas_per_sm(r)}cta" for k, (n, r, b) in sorted(out.items())}
 
 
 def _load_tests_module(name: str):
@@ -155,23 +225,33 @@ def radiance_config():
                             use_russian_roulette_for_intensity=True, zeta_min=0.3)
 
 
-def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=None):
-    """One K-event block from a mid-flight step-cloud state: kernel vs twin.
-    With ``detectors`` the block runs the detector variant and the (n_cols,
-    D) accumulators are compared too (relative to their largest bin).  With
-    ``gas``, a gas extinction profile over the cloud's 32 layers, the scene
-    carries that gas, at the planner's auto chain depth (3), or with the
-    two detectors GAS_DET_* and no roulette.  With ``chain`` (-1 for the
-    auto depth) the scene is the Landsat cloud, run by the column variant
-    at that chain depth.  Returns (agreement, kernel ms, twin ms, spec,
-    alive lane-events of the block, the two states as equal or not)."""
+def variant(spec) -> str:
+    """The bound's name for the event-block variant a spec runs."""
+    if spec.col:
+        return "column"
+    if spec.gas:
+        return "gas_detectors" if spec.det is not None else "gas"
+    return "detectors" if spec.det is not None else "flux"
+
+
+def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None):
+    """Two lane states of a scene at L = 2^18 for timing one K-event block:
+    "full", a mid-flight state whose dead lanes took fresh photons as the
+    trace loop's refill gives them (every lane alive at entry), and "tail",
+    the same state advanced by the kernel without refill until at most 15%
+    of lanes are alive.  With ``detectors`` the scene carries the step
+    cloud's detectors.  With ``gas``, a gas extinction profile over the
+    cloud's 32 layers, the scene carries that gas, at the planner's auto
+    chain depth (3), or with the two detectors GAS_DET_* and no roulette.
+    With ``chain`` (-1 for the auto depth) the scene is the Landsat cloud,
+    run by the column variant at that chain depth and at ``K`` events per
+    block (None: the planner's).  Returns (spec, key, a maker of fresh
+    accumulators (None without detectors), [(name, state, block index)])."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
                                 make_landsat_cloud, make_step_cloud)
-    from i3rc_tpu_torch.core.rng import philox_uniforms
     from i3rc_tpu_torch.integrators.fastpath import event_spec, launch_state, renormalize
     from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
-    from i3rc_tpu_torch.kernels.event_block import (compare_states, event_block,
-                                                     event_block_reference)
+    from i3rc_tpu_torch.kernels.event_block import ALIVE, ORDERS, PK, event_block
 
     flux_cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
                                 compute_volume_absorption=False)
@@ -186,7 +266,8 @@ def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=Non
     elif chain is not None:
         integ = Integrator.create(make_landsat_cloud(ssa),
                                   IntegratorConfig(use_ray_tracing=False, max_events=500,
-                                                   fastpath_chain=chain), device=dev)
+                                                   fastpath_chain=chain, fastpath_unroll=K),
+                                  device=dev)
     else:
         integ = Integrator.create(make_step_cloud(ssa),
                                   IntegratorConfig(use_ray_tracing=False, max_events=500),
@@ -196,52 +277,189 @@ def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=Non
           and spec.col == (chain is not None), f"spec {spec}")
     new_acc = lambda: (torch.zeros((spec.det.n_cols, spec.det.n), dtype=torch.float64,
                                    device=dev) if detectors else None)
+    src = PhotonSource.directional(0.5, 0.0)
+    launch = lambda k: launch_state(integ.geometry, src.sample(k, L_CHECK, dev), L_CHECK,
+                                    gas_key=k if gas is not None else None)
     key = batch_key(SEED, 7)
-    st = launch_state(integ.geometry,
-                      PhotonSource.directional(0.5, 0.0).sample(key, L_CHECK, dev), L_CHECK,
-                      gas_key=key if gas is not None else None)
-    acc = new_acc()
-    for kb in range(4):            # advance to mid-flight with the kernel
+    st = launch(key)
+    scratch = new_acc()
+    kb = 0
+
+    def advance():
+        nonlocal kb
         renormalize(st)
-        event_block(spec, st, key, kb, acc)
+        event_block(spec, st, key, kb, scratch)
+        kb += 1
+
+    for _ in range(2):
+        advance()
+    full = st.clone()
+    fresh = launch(batch_key(SEED, 8))
+    dead = full.i[ALIVE] == 0
+    full.f[:, dead] = fresh.f[:, dead]
+    full.i[ALIVE, dead], full.i[ORDERS, dead] = 1, 0
+    full.i[PK] = 0
+    renormalize(full)
+    kb_full = kb
+    while float(st.i[ALIVE].float().mean()) > 0.15:
+        check(kb < 400, "the tail state never came below 15% alive")
+        advance()
     renormalize(st)
-    kb = 4
+    return spec, key, new_acc, [("full", full, kb_full), ("tail", st, kb)]
 
-    def run_kernel(s, a):
-        event_block(spec, s, key, kb, a)
 
-    def run_twin(s, a):
-        event_block_reference(spec, s, philox_uniforms(key, kb, spec.K, spec.n_draws,
-                                                       L_CHECK, dev), a)
+def time_block_ms(run, s0, new_acc, n: int) -> float:
+    """Mean CUDA-event time of ``run(state, acc)`` over n fresh copies of s0."""
+    total = 0.0
+    for _ in range(n):
+        s, acc_s = s0.clone(), new_acc()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(s, acc_s)
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / n
 
-    got, ref = st.clone(), st.clone()
-    acc_k, acc_t = new_acc(), new_acc()
-    run_kernel(got, acc_k)
-    run_twin(ref, acc_t)
-    torch.cuda.synchronize()
-    agree = compare_states(spec, got, ref, rtol=1e-4)
-    bit_equal = torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i)
-    events = int((ref.i[4] - st.i[4]).sum())
-    if detectors:
-        check(float(acc_t.sum()) > 0.0, "the detector block contributed nothing")
-        agree["acc_rel_err"] = float((acc_k - acc_t).abs().max() / acc_t.abs().max())
-        agree["acc_abs_err"] = float((acc_k - acc_t).abs().max())
 
-    def time_ms(fn, n):
-        total = 0.0
-        for _ in range(n):
-            s, acc_s = st.clone(), new_acc()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn(s, acc_s)
-            b.record()
+def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None):
+    """One K-event block, kernel vs twin, on the two states of block_states
+    (same arguments).  With ``detectors`` the (n_cols, D) accumulators are
+    compared too (relative to their largest bin).  Returns (spec, one dict
+    per state: alive share and live lanes at entry, lane-events and
+    collisions of the block, bit_equal, errors, kernel and twin ms, bound)."""
+    from i3rc_tpu_torch.core.rng import philox_uniforms
+    from i3rc_tpu_torch.kernels.event_block import (ALIVE, EVCT, ORDERS, event_block,
+                                                     event_block_reference)
+
+    spec, key, new_acc, states = block_states(ssa, dev, detectors, gas, chain, K)
+    n_twin = 5 if spec.K <= 8 else 2
+    out = []
+    for name, s0, kb_s in states:
+        def run_kernel(s, a):
+            event_block(spec, s, key, kb_s, a)
+
+        def run_twin(s, a):
+            event_block_reference(spec, s, philox_uniforms(key, kb_s, spec.K, spec.n_draws,
+                                                           L_CHECK, dev), a)
+
+        got, ref = s0.clone(), s0.clone()
+        acc_k, acc_t = new_acc(), new_acc()
+        run_kernel(got, acc_k)
+        run_twin(ref, acc_t)
+        torch.cuda.synchronize()
+        live = int(s0.i[ALIVE].sum())
+        r = {"state": name, "alive": live / L_CHECK, "live": live,
+             "lane_events": int((ref.i[EVCT] - s0.i[EVCT]).sum()),
+             "collisions": int((ref.i[ORDERS] - s0.i[ORDERS]).sum()),
+             "bit_equal": torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i),
+             "max_abs_err": float((got.f - ref.f).abs().max())}
+        if detectors:
+            check(name == "tail" or float(acc_t.sum()) > 0.0,
+                  "the detector block contributed nothing")
+            scale = float(acc_t.abs().max())
+            r["acc_abs_err"] = float((acc_k - acc_t).abs().max())
+            r["acc_rel_err"] = r["acc_abs_err"] / scale if scale > 0 else r["acc_abs_err"]
+
+        time_block_ms(run_kernel, s0, new_acc, 2)
+        r["kernel_ms"] = time_block_ms(run_kernel, s0, new_acc, 20)
+        r["twin_ms"] = time_block_ms(run_twin, s0, new_acc, n_twin)
+        r["bound"] = bound_ms(variant(spec), r["lane_events"], state_bytes(spec, L_CHECK, live),
+                              r["collisions"], spec.det.n if detectors else 0)
+        out.append(r)
+    return spec, out
+
+
+def check_block(what: str, r: dict) -> None:
+    """Every state row bit for bit; the detector accumulator within 1e-9
+    relative (only the order of its sum may differ)."""
+    check(r["bit_equal"], f"{what} {r['state']}: kernel and twin differ {r}")
+    if "acc_rel_err" in r:
+        check(r["acc_rel_err"] <= 1e-9, f"{what} {r['state']}: accumulator {r}")
+
+
+def block_fields(spec, r: dict, card: str) -> dict:
+    """The say() fields of one timed block."""
+    out = dict(state=r["state"], alive=f"{r['alive']:.4f}", live=r["live"], lanes=L_CHECK,
+               K=spec.K, chain=spec.chain, bit_equal=r["bit_equal"],
+               max_abs_err=f"{r['max_abs_err']:.3e}")
+    if "acc_rel_err" in r:
+        out["acc_rel_err"] = f"{r['acc_rel_err']:.3e}"
+    out.update(lane_events=r["lane_events"], collisions=r["collisions"],
+               kernel_ms=f"{r['kernel_ms']:.4f}", twin_ms=f"{r['twin_ms']:.4f}",
+               bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1], card=json.dumps(card))
+    return out
+
+
+def batch_fields(bk: dict, card: str) -> dict:
+    """The say() fields of batch_kernel_time's record."""
+    return dict(launches=bk["launches"], kernel_ms=f"{bk['kernel_ms']:.3f}",
+                kernel_ms_from=bk["kernel_ms_from"], events_ms=f"{bk['events_ms']:.3f}",
+                live_lanes=bk["live"],
+                lane_events=bk["lane_events"], collisions=bk["collisions"],
+                bound_ms=f"{bk['bound'][0]:.3f}", bound_by=bk["bound"][1],
+                card=json.dumps(card))
+
+
+# GPU clock cycles of the spin queued before each timed launch (~1 ms).
+SPIN_CYCLES = 2_000_000
+
+
+def batch_kernel_time(run_batch, profile: bool = True) -> dict:
+    """One batch: the event kernel's device time summed over the batch, from
+    torch.profiler key_averages() (``profile``; its post-processing grows
+    too slow for a batch of a thousand blocks and more), and from CUDA
+    events around each launch.  Each launch is queued behind a ~1 ms spin
+    kernel, so that the host's work between the first event and the launch
+    falls inside the spin, not between the events.  Also the launches, live
+    lanes at entry, collisions and, from the batch's
+    RawTallies.n_lane_events, lane-events; and the batch's bound.
+    ``kernel_ms`` is the profiler's sum where it shows device time, else the
+    events' sum."""
+    import i3rc_tpu_torch.integrators.fastpath as fp
+    from i3rc_tpu_torch.kernels.event_block import ALIVE, ORDERS
+
+    orig = fp.event_block
+    rec = []
+
+    def bracketed(spec, st, key, kb, acc=None):
+        live = st.i[ALIVE].sum(dtype=torch.int64)
+        orders = st.i[ORDERS].sum(dtype=torch.int64)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        orig(spec, st, key, kb, acc)
+        b.record()
+        rec.append((spec, a, b, live, st.i[ORDERS].sum(dtype=torch.int64) - orders,
+                    st.n_lanes))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fp.event_block = bracketed
+    try:
+        if profile:
+            with torch.profiler.profile(activities=acts) as prof:
+                raw = run_batch()
+                torch.cuda.synchronize()
+        else:
+            raw = run_batch()
             torch.cuda.synchronize()
-            total += a.elapsed_time(b)
-        return total / n
-
-    time_ms(run_kernel, 2)
-    time_ms(run_twin, 1)
-    return agree, time_ms(run_kernel, 20), time_ms(run_twin, 5), spec, events, bit_equal
+    finally:
+        fp.event_block = orig
+    prof_us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                  for e in prof.key_averages()
+                  if "fast_event_block_kernel" in e.key) if profile else 0
+    spec = rec[0][0]
+    lives = torch.stack([r[3] for r in rec]).tolist()
+    collisions = int(torch.stack([r[4] for r in rec]).sum())
+    events = int(raw.n_lane_events)
+    n_bytes = sum(state_bytes(spec, r[5], n) for r, n in zip(rec, lives))
+    events_ms = sum(r[1].elapsed_time(r[2]) for r in rec)
+    kernel_ms, source = (prof_us / 1e3, "profiler") if prof_us else (events_ms, "cuda-events")
+    return {"launches": len(rec), "kernel_ms": kernel_ms, "kernel_ms_from": source,
+            "events_ms": events_ms, "live": sum(lives), "collisions": collisions,
+            "lane_events": events,
+            "bound": bound_ms(variant(spec), events, n_bytes, collisions,
+                              spec.det.n if spec.det is not None else 0)}
 
 
 def main() -> int:
@@ -273,6 +491,16 @@ def main() -> int:
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
         max_registers=max(regs) if regs else "n/a", spill_store_bytes=spills,
         **ptxas_by_variant(built.log))
+    census = sass_census(built.path)
+    for name, ops in census.items():
+        say("2 sass", instantiation=name, **(ops if isinstance(ops, dict) else {"ops": ops}))
+    if "cuobjdump" not in census:
+        for name in CENSUS:
+            check(name in census, f"{name} not found in the cuobjdump listing")
+        for name in ("detectors_K8_iwabuchi", "gas_detectors_K8"):
+            # No compare-and-swap loop: no fp64 shared-memory atomic remains.
+            check(census[name]["CAS"] == 0 and census[name]["ATOMS"] == 0,
+                  f"{name}: SASS {census[name]}")
 
     # 3. Philox: known answer, and the kernel's draws equal the torch stream
     kat = eb.kernel_philox_bits(0, 0, 0, 0, 0, 1, dev)[0].tolist()
@@ -286,20 +514,16 @@ def main() -> int:
         check(torch.equal(ku, tu), f"kernel Philox draws differ from torch (n_draws={nd})")
     say("3 philox", known_answer="ok", bit_equal_draws=2 * 8 * L_CHECK)
 
-    # 4. kernel vs twin on one K-event block at L = 2^18
-    kernel_ms, plain_ms, max_err = None, None, 0.0
+    # 4. kernel vs twin on one K-event block at L = 2^18, on a full and a
+    # tail state: every state row bit for bit
+    flux_timed, max_err = None, 0.0
     for ssa in (1.0, 0.99):
-        agree, k_ms, p_ms, spec, events, _ = kernel_vs_twin(ssa, dev)
-        check(agree["int_frac"] >= 0.999, f"ssa={ssa}: integer agreement {agree}")
-        check(agree["float_frac"] == 1.0, f"ssa={ssa}: float agreement {agree}")
-        max_err = max(max_err, agree["max_abs_err"])
-        if kernel_ms is None:
-            kernel_ms, plain_ms = k_ms, p_ms
-            flux_bound = bound_ms("flux", events, L_CHECK * STATE_BYTES_PER_LANE)
-        say("4 kernel-vs-twin", ssa=ssa, lanes=L_CHECK, K=spec.K, chain=spec.chain,
-            int_agree=f"{agree['int_frac']:.6f}", float_agree=f"{agree['float_frac']:.6f}",
-            max_abs_err=f"{agree['max_abs_err']:.3e}", lane_events=events,
-            kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}", card=json.dumps(card))
+        spec, results = kernel_vs_twin(ssa, dev)
+        for r in results:
+            check_block(f"flux ssa={ssa}", r)
+            max_err = max(max_err, r["max_abs_err"])
+            say("4 kernel-vs-twin", ssa=ssa, **block_fields(spec, r, card))
+        flux_timed = flux_timed or results[0]
 
     # 5. the slice: step cloud, 2^24 photons at 2^18 lanes
     cfg = IntegratorConfig(use_ray_tracing=False, max_events=500)
@@ -381,31 +605,23 @@ def main() -> int:
         fup=f"{m:.6f}", stderr=f"{e:.2e}", seconds=f"{t_drv:.2f}",
         launches=eb.event_block.launches - before)
 
-    # 8. detector variant vs twin: 3 detectors, Iwabuchi, one K-event block
-    det_ms, det_plain_ms, det_err = None, None, 0.0
+    # 8. detector variant vs twin: 3 detectors, Iwabuchi, one K-event block on
+    # a full and a tail state, with and without absorption
+    det_timed, det_err = None, 0.0
     for ssa in (1.0, 0.99):
-        agree, k_ms, p_ms, spec, events, _ = kernel_vs_twin(ssa, dev, detectors=True)
-        check(agree["int_frac"] >= 0.999, f"detectors ssa={ssa}: integer agreement {agree}")
-        check(agree["float_frac"] == 1.0, f"detectors ssa={ssa}: float agreement {agree}")
-        check(agree["acc_rel_err"] <= 1e-9, f"detectors ssa={ssa}: accumulator {agree}")
-        det_err = max(det_err, agree["max_abs_err"], agree["acc_abs_err"])
-        if det_ms is None:
-            det_ms, det_plain_ms = k_ms, p_ms
-            # + the (n_cols, D) float64 accumulator, read and written once.
-            det_bound = bound_ms("detectors", events, L_CHECK * STATE_BYTES_PER_LANE
-                                 + 2 * 8 * spec.det.n_cols * spec.det.n)
-        say("8 detector-kernel-vs-twin", ssa=ssa, lanes=L_CHECK, K=spec.K, chain=spec.chain,
-            detectors=spec.det.n, iwabuchi=spec.det.iwabuchi, n_draws=spec.n_draws,
-            int_agree=f"{agree['int_frac']:.6f}", float_agree=f"{agree['float_frac']:.6f}",
-            max_abs_err=f"{agree['max_abs_err']:.3e}",
-            acc_rel_err=f"{agree['acc_rel_err']:.3e}", lane_events=events,
-            kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}", card=json.dumps(card))
+        spec, results = kernel_vs_twin(ssa, dev, detectors=True)
+        for r in results:
+            check_block(f"detectors ssa={ssa}", r)
+            det_err = max(det_err, r["max_abs_err"], r["acc_abs_err"])
+            say("8 detector-kernel-vs-twin", ssa=ssa, detectors=spec.det.n,
+                iwabuchi=spec.det.iwabuchi, n_draws=spec.n_draws, **block_fields(spec, r, card))
+        det_timed = det_timed or results[0]
 
     # 9. the radiance slice: step cloud + 3 detectors, 2^24 photons at 2^18 lanes
     eb.reset_launch_counters()
-    fn = Integrator.create(make_step_cloud(1.0), radiance_config(), intensity_mus=DET_MUS,
-                           intensity_phis=DET_PHIS, device="cuda").batch_fn(
-        src, SLICE_PHOTONS, n_lanes=L_CHECK)
+    rad_integ = Integrator.create(make_step_cloud(1.0), radiance_config(),
+                                  intensity_mus=DET_MUS, intensity_phis=DET_PHIS, device="cuda")
+    fn = rad_integ.batch_fn(src, SLICE_PHOTONS, n_lanes=L_CHECK)
     fn(batch_key(SEED, 300))
     torch.cuda.synchronize()
     intens, times = [], []
@@ -435,6 +651,11 @@ def main() -> int:
         sigma=",".join(f"{float(v):.1e}" for v in i_sigma),
         anchor=",".join(map(str, ANCHOR_I)), seconds=",".join(f"{t:.4f}" for t in times),
         photons_per_s=f"{rad_rate:.4e}", launches=launches_rad, card=json.dumps(card))
+    # The detector kernel's device time over one more whole batch, beside its bound.
+    key = batch_key(SEED, 320)
+    tracer = rad_integ.batch_tracer(SLICE_PHOTONS, L_CHECK)
+    say("9 radiance-batch-kernel", photons=SLICE_PHOTONS, **batch_fields(
+        batch_kernel_time(lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)), card))
 
     # 10. the driver on the shipped radiance namelist, unmodified, run from the
     # directory that holds the domain files (its paths are relative)
@@ -518,12 +739,13 @@ def main() -> int:
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    timed = lambda r: (r["kernel_ms"], r["twin_ms"], r["bound"])
     print(json.dumps({"kernels": [
         entry("fast_event_block", source, "i3rc_tpu/integrators/fastpath.py:665",
-              launches_slice, max_err, kernel_ms, plain_ms, flux_bound),
+              launches_slice, max_err, *timed(flux_timed)),
         entry("fast_event_block_detectors", source,
               "i3rc_tpu/integrators/fastpath.py:665 (n_detectors>0)", launches_rad, det_err,
-              det_ms, det_plain_ms, det_bound),
+              *timed(det_timed)),
         entry("fast_event_block_gas", gas_source,
               "i3rc_tpu/integrators/fastpath.py:665 (gas=True)", bb_launches, gas_err[False],
               *gas_ms[False]),
@@ -544,7 +766,7 @@ def main() -> int:
 
 def gas_kernel_checks(dev, card: str):
     """Phase 11; returns ({detectors: (kernel ms, twin ms, bound)}, {detectors:
-    max error}) with the times of the uniform gas at ssa 1."""
+    max error}) with the times of the uniform gas at ssa 1 on the full state."""
     gas_ms = {}
     gas_err = {False: 0.0, True: 0.0}
     uniform = np.full(32, GAS_EXT)
@@ -552,56 +774,47 @@ def gas_kernel_checks(dev, card: str):
              (True, 0.99, "uniform"), (False, 0.99, "layered"), (True, 1.0, "layered")]
     for detectors, ssa, gas in cases:
         profile = uniform if gas == "uniform" else LAYERED_GAS
-        agree, k_ms, p_ms, spec, events, _ = kernel_vs_twin(ssa, dev, detectors=detectors,
-                                                          gas=profile)
+        spec, results = kernel_vs_twin(ssa, dev, detectors=detectors, gas=profile)
         what = f"gas={gas} detectors={detectors} ssa={ssa}"
         check(spec.chain == (0 if detectors else 3), f"{what}: chain depth {spec.chain}")
         check(len(spec.gz.thresholds) == (0 if gas == "uniform" else 2),
               f"{what}: gas faces {spec.gz.thresholds}")
-        check(agree["int_frac"] >= 0.999, f"{what}: integer agreement {agree}")
-        check(agree["float_frac"] == 1.0, f"{what}: float agreement {agree}")
-        errs = [agree["max_abs_err"]]
-        if detectors:
-            check(agree["acc_rel_err"] <= 1e-9, f"{what}: accumulator {agree}")
-            errs.append(agree["acc_abs_err"])
-        gas_err[detectors] = max(gas_err[detectors], *errs)
-        n_bytes = L_CHECK * STATE_BYTES_PER_LANE + (
-            2 * 8 * spec.det.n_cols * spec.det.n if detectors else 0)
-        gas_ms.setdefault(detectors, (k_ms, p_ms, bound_ms(
-            "gas_detectors" if detectors else "gas", events, n_bytes)))
-        say("11 gas-kernel-vs-twin", gas=gas, gas_faces=len(spec.gz.thresholds),
-            detectors=spec.det.n if detectors else 0, ssa=ssa, lanes=L_CHECK, K=spec.K,
-            chain=spec.chain, n_draws=spec.n_draws,
-            int_agree=f"{agree['int_frac']:.6f}", float_agree=f"{agree['float_frac']:.6f}",
-            max_abs_err=f"{agree['max_abs_err']:.3e}",
-            acc_rel_err=f"{agree['acc_rel_err']:.3e}" if detectors else "n/a",
-            lane_events=events, kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}",
-            card=json.dumps(card))
+        for r in results:
+            check_block(what, r)
+            gas_err[detectors] = max(gas_err[detectors], r["max_abs_err"],
+                                     r.get("acc_abs_err", 0.0))
+            say("11 gas-kernel-vs-twin", gas=gas, gas_faces=len(spec.gz.thresholds),
+                detectors=spec.det.n if detectors else 0, ssa=ssa, n_draws=spec.n_draws,
+                **block_fields(spec, r, card))
+        gas_ms.setdefault(detectors, (results[0]["kernel_ms"], results[0]["twin_ms"],
+                                      results[0]["bound"]))
     return gas_ms, gas_err
 
 
 def column_kernel_checks(dev, card: str):
-    """Phase 15; returns (kernel ms, twin ms, bound) of ssa 1 at the auto depth.
-    The column variant must equal its twin bit for bit on all 13 state rows."""
+    """Phase 15; returns (kernel ms, twin ms, bound) of ssa 1 at the auto depth
+    and the planner's K (32) on the full state.  The column variant at chain
+    depth 2 and 0, K = 32 and 8, must equal its twin bit for bit on all 13
+    state rows on both states."""
     out = None
-    for ssa, chain in ((1.0, -1), (0.99, 2), (0.99, 0)):
-        agree, k_ms, p_ms, spec, events, bit_equal = kernel_vs_twin(ssa, dev, chain=chain)
-        what = f"column ssa={ssa} chain={spec.chain}"
+    for ssa, chain, K in ((1.0, -1, None), (0.99, 2, None), (0.99, 0, None), (1.0, 2, 8),
+                          (0.99, 0, 8)):
+        spec, results = kernel_vs_twin(ssa, dev, chain=chain, K=K)
+        what = f"column ssa={ssa} chain={spec.chain} K={spec.K}"
         check(spec.chain == (2 if chain < 0 else chain), f"{what}: chain depth")
-        check(bit_equal, f"{what}: kernel and twin differ {agree}")
-        if out is None:
-            # + the padded column table, read once.
-            out = (k_ms, p_ms, bound_ms("column", events, L_CHECK * STATE_BYTES_PER_LANE
-                                        + spec.column.numel() * 4))
-        say("15 column-kernel-vs-twin", ssa=ssa, lanes=L_CHECK, K=spec.K, chain=spec.chain,
-            n_draws=spec.n_draws, columns=spec.n_x * spec.n_y, bit_equal=bit_equal,
-            lane_events=events, kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}",
-            card=json.dumps(card))
+        check(spec.K == (K or 32), f"{what}: K")
+        for r in results:
+            check_block(what, r)
+            say("15 column-kernel-vs-twin", ssa=ssa, n_draws=spec.n_draws,
+                columns=spec.n_x * spec.n_y, **block_fields(spec, r, card))
+        out = out or (results[0]["kernel_ms"], results[0]["twin_ms"], results[0]["bound"])
     return out
 
 
 def landsat_slice(card: str) -> int:
-    """Phase 16; returns the column-kernel launches of the three timed batches."""
+    """Phase 16, at the planner's K (32); returns the column-kernel launches of
+    the three timed batches.  Then the kernel's device time over one more
+    batch, and three batches at K = 8 for the record."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
                                 make_landsat_cloud)
     from i3rc_tpu_torch.kernels import event_block as eb
@@ -611,23 +824,30 @@ def landsat_slice(card: str) -> int:
     n = LANDSAT_PHOTONS
     src = PhotonSource.directional(0.5, 0.0)
     integ = Integrator.create(make_landsat_cloud(1.0), cfg, device="cuda")
+    check(integ._fast_plan.unroll == 32, f"Landsat K {integ._fast_plan.unroll}")
     fn = integ.batch_fn(src, n, n_lanes=L_CHECK)
     # Warm-up: one batch through the raw tracer, for its event count.
     key = batch_key(SEED, 500)
     raw = integ.batch_tracer(n, L_CHECK)(key, src.sample(key, L_CHECK, "cuda"), src)
     events = int(raw.n_lane_events) / n
     torch.cuda.synchronize()
+
+    def timed_batches(fn, seed0: int):
+        """Three batches: their Fup and host seconds, each gated on closure."""
+        fups, times = [], []
+        for b in range(3):
+            t0 = time.perf_counter()
+            res = fn(batch_key(SEED, seed0 + b))
+            fup, fdn, n_bad = float(res.mean_flux_up), float(res.mean_flux_down), int(res.n_bad)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(abs(fup + fdn - 1.0) < 1e-5, f"Landsat closure Fup+Fdn={fup + fdn}")
+            check(n_bad < 1e-3 * n, f"Landsat n_bad={n_bad}")
+            fups.append(fup)
+        return fups, times
+
     eb.reset_launch_counters()
-    fups, times = [], []
-    for b in range(3):
-        t0 = time.perf_counter()
-        res = fn(batch_key(SEED, 510 + b))
-        fup, fdn, n_bad = float(res.mean_flux_up), float(res.mean_flux_down), int(res.n_bad)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(abs(fup + fdn - 1.0) < 1e-5, f"Landsat closure Fup+Fdn={fup + fdn}")
-        check(n_bad < 1e-3 * n, f"Landsat n_bad={n_bad}")
-        fups.append(fup)
+    fups, times = timed_batches(fn, 510)
     launches = eb.event_block.column_launches
     check(launches > 0, "the Landsat slice launched no column kernel")
     check(eb.event_block.launches == eb.event_block.detector_launches
@@ -645,7 +865,27 @@ def landsat_slice(card: str) -> int:
         gate=f"{gate:.2e}", seconds=",".join(f"{t:.4f}" for t in times),
         photons_per_s=f"{n / t_med:.4e}", blocks_per_batch=f"{blocks:.1f}",
         ms_per_block=f"{1e3 * t_med / blocks:.3f}", events_per_photon=f"{events:.1f}",
-        launches=launches, card=json.dumps(card))
+        K=integ._fast_plan.unroll, launches=launches, card=json.dumps(card))
+    key = batch_key(SEED, 520)
+    tracer = integ.batch_tracer(n, L_CHECK)
+    say("16 landsat-batch-kernel", photons=n, K=integ._fast_plan.unroll, **batch_fields(
+        batch_kernel_time(lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)), card))
+    # At K = 8, the column K before the planner took the JAX K, for the record:
+    # timed as at K = 32, median of 3 after a warm-up.
+    fn8 = Integrator.create(make_landsat_cloud(1.0), replace(cfg, fastpath_unroll=8),
+                            device="cuda").batch_fn(src, n, n_lanes=L_CHECK)
+    float(fn8(batch_key(SEED, 530)).mean_flux_up)
+    torch.cuda.synchronize()
+    before = eb.event_block.column_launches
+    fups8, times8 = timed_batches(fn8, 531)
+    fup8 = sum(fups8) / len(fups8)
+    check(abs(fup8 - ANCHOR_LANDSAT_FUP) <= gate, f"Landsat K=8 Fup {fup8} (gate {gate:.2e})")
+    blocks8 = (eb.event_block.column_launches - before) / 3
+    t8 = sorted(times8)[1]
+    say("16 landsat-k8", photons=n, K=8, fup=f"{fup8:.6f}",
+        seconds=",".join(f"{t:.4f}" for t in times8), photons_per_s=f"{n / t8:.4e}",
+        blocks_per_batch=f"{blocks8:.1f}", ms_per_block=f"{1e3 * t8 / blocks8:.3f}",
+        card=json.dumps(card))
     return launches
 
 

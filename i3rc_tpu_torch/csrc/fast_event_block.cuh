@@ -28,11 +28,12 @@
 // 1140-1247, plus the gas segments), the exit column, and with IW the
 // Iwabuchi roulette, and adds P / (4 pi |mu_d|) exp(-tau) to the (column, d)
 // bin.  The TPU kernel wrote K x D (contribution, column) record arrays that
-// XLA glue tallied; here each CTA tallies into an (n_cols x D) float64
-// histogram in shared memory and flushes it with atomicAdd into the global
-// accumulator at its end (global atomics directly when the histogram exceeds
-// SMEM_HIST_BYTES).  The sum is the same; its order differs from the twin's
-// index_add_.
+// XLA glue tallied; here the CTA tallies into float64 histograms in shared
+// memory, one private (n_cols x D) slice per warp, and adds their per-bin sum
+// to the global accumulator with one atomicAdd per nonzero bin at its end.
+// Past 751 bins the warps share one CTA histogram (up to 6144 bins), and
+// past that the global accumulator (hist_room).  The sum is the same; its
+// order differs from the twin's index_add_.
 //
 // Gas variant (GAS, fastpath.py:1361-1391, :1469-1470, :1622-1652): each lane
 // carries tgas, the gas optical depth left before a gas absorption (state row
@@ -43,13 +44,14 @@
 // point where tgas runs out.  Chained collisions stay inside the gas layer
 // too and commit only while their gas cost is below tgas.
 //
-// What bounds it: ALU work.  Each event costs ceil(n_draws/4) Philox4x32-10
-// calls (10 rounds of two 32x32 multiplies each) plus the where-chains over
-// the segment thresholds; device memory traffic is only 2 x 4 B x 11 arrays
-// per lane per K events (one more each for y and tgas), read once and
-// written once.  The design keeps every intermediate in registers and reads
-// the segment tables from the by-value parameter block (__grid_constant__),
-// so the kernel touches device memory only at its start and end.
+// What bounds it: ALU work on live lanes.  Each event costs ceil(n_draws/4)
+// Philox4x32-10 calls (10 rounds of two 32x32 multiplies each) plus the
+// where-chains over the segment thresholds; device memory traffic is only
+// 2 x 4 B x 11 arrays per lane per K events (one more each for y and tgas),
+// read once and written once.  Every intermediate stays in registers and
+// the segment tables come from the by-value parameter block
+// (__grid_constant__), so the kernel touches device memory only at its start
+// and end (and, in the column variant, one row read per event).
 //
 // Column variant (COL, flux only, y tracked): the extinction is one
 // homogeneous layer [z_base, z_top) per (x, y) column.  Each event reads the
@@ -64,18 +66,72 @@
 // ~10 ns a lane there); on Hopper a row read is one cached load.  The table
 // is passed as a pointer, not in the by-value parameter block: the padded
 // Landsat table is 16384 x 16 B = 256 KB, above the 4 KB parameter limit.
-// It stays resident in the 50 MB L2.  A shared-memory copy is left to a
-// later design: 256 KB exceeds the 227 KB a block can use, so it would need
-// a 3-field table or bf16 packing.  The column variant adds what bounds it
-// least: one 16-byte L2 read per lane-event beside the ALU work.
+// It stays resident in the 50 MB L2 as float4 rows.  No shared-memory copy:
+// even a 3-field copy (192 KB) would leave room for one CTA per SM, and its
+// fill at every launch (~25 MB of L2 reads over 132 CTAs) would cost what
+// the row reads it saves.
+//
+// What bounded each variant before the Hopper redesign, and what the design
+// does about it:
+//  * Dead lanes cost as much as live ones: every thread loaded its 13 rows,
+//    drew every Philox group of every event and ran the whole event under
+//    masks.  A per-lane early exit would not help: at the end of a Landsat
+//    batch 10% of lanes are alive but 95% of warps hold one.  So each CTA
+//    compacts its live lanes.  At entry a thread reads only its lane's alive
+//    flag and tau; a dead lane applies the dead-lane contract (below) and
+//    leaves; a shared-memory prefix sum packs the live lanes' ids onto the
+//    first ceil(n_live / 32) warps, which alone load state, run the K events
+//    and store.  Each thread keeps its lane's global id for the Philox
+//    counter and the stores.  A warp leaves the event loop once none of its
+//    lanes is alive, after the contract of the event that follows.  All
+//    variants share this loop.
+//  * The dead-lane contract of fast_event: a dead lane's only change is its
+//    free path, tau = -log(max(u0, TINY)) from word 0 of the event's group 0,
+//    taken when tau <= 0.  After one such draw tau > 0, so a lane dead at
+//    entry changes at most at event 0 and a lane that dies at event j at
+//    most at event j + 1.
+//  * COL drew 3 Philox groups and ran the HG inversion, three rotations and
+//    the chain under masks in every event, though on Landsat only 8% of live
+//    lane-events collide and 9% read any draw (a crossing carries its tau).
+//    Now (LAZY) group g of event j is drawn only when some lane of the warp
+//    reads one of its words (__any_sync), at the same counter, so the draws
+//    are bit-identical, and the collision work and the chain run under
+//    warp-uniform branches.  Against the eager loop on the same states
+//    (H100, PERF.md section 6): 0.88x per Landsat batch at chain depth 2,
+//    0.89x on its full block; but 1.07-1.08x at chain depth 0, where an
+//    event has one group to save, so only column plans with chaining draw
+//    lazily.  The other variants stay eager: on the step cloud 80-90% of
+//    live lane-events collide, so a warp reads nearly every group.  A
+//    prefetch of the next event's row (issued right after the step) was
+//    measured too and cost 1-8%, so the row is read at the start of the
+//    event.  Column plans run K = 32 events per launch, the JAX planner's K.
+//  * K3 added each detector contribution with a float64 atomicAdd into one
+//    CTA histogram shared by 256 threads, with only the colliding lanes of
+//    a warp active; on sm_90a that atomicAdd is a compare-and-swap loop
+//    (ATOMS.CAS in the SASS).  The detector loop now runs warp-convergent,
+//    entered when any lane collided, contribution 0 for the others; per
+//    detector __match_any_sync groups the lanes by bin, shuffles sum each
+//    group, and its lowest lane adds the sum to the warp's private slice
+//    with a plain load-add-store (no other warp writes the slice, one lane
+//    per bin does).  No shared-memory atomic remains in the event loop of
+//    the SLICES instantiations, which every scene up to 751 bins runs (the
+//    step cloud's 3 detectors: 96).  Larger histograms keep the aggregation
+//    but add each group's sum with an atomicAdd, into one CTA histogram or
+//    the global accumulator.  The gas variant with detectors and Iwabuchi's
+//    variant share this path.
+//  * What bounds them now (H100 runs of chip_smoke.py): a block whose lanes
+//    are nearly all dead is latency-bound, its few live warps spread over
+//    every CTA and the CTAs over two waves at 4 CTAs per SM (the register
+//    limit); a full block holds 32 warps per SM, too few to hide an event's
+//    dependent chains (Philox rounds, IEEE divisions, the row read).
 //
 // Differences from the TPU kernel:
 //  * RNG: counter-based Philox4x32-10 keyed (seed, batch) with counter
 //    (lane, kb, group, stream), the layout of i3rc_tpu_torch/core/rng.py; it
 //    replaces the TPU hardware PRNG.  Event j of the block reads group
 //    j * G + d / 4, word d % 4 for its draw d, G = ceil(n_draws / 4).
-//  * Layout: a 1-D grid over lanes with a masked tail instead of (R, 128)
-//    tiles in VMEM.
+//  * Layout: a 1-D grid over lanes, 256 to a CTA, live lanes compacted,
+//    instead of (R, 128) tiles in VMEM.
 //  * Segment data arrive in one parameter struct (<= MAX_SEGMENTS thresholds
 //    per axis); loops run to the runtime count, so one build serves every
 //    domain and every k point of a spectral band.  K, CHAIN, absorbing,
@@ -98,7 +154,15 @@
 #define MAX_SEGMENTS 24
 #define MAX_DETECTORS 8
 #define STREAM_EVENT 0u
-#define SMEM_HIST_BYTES (48 * 1024)
+#define CTA_THREADS 256
+#define CTA_WARPS (CTA_THREADS / 32)
+#define FULL_MASK 0xffffffffu
+// Shared memory of a CTA: the default budget without opting in, the static
+// arrays (lane ids and per-warp live counts), and the most that one CTA
+// detector histogram may take (see hist_room).
+#define SMEM_DEFAULT_BYTES (48 * 1024)
+#define SMEM_STATIC_BYTES ((CTA_THREADS + CTA_WARPS) * 4)
+#define SMEM_ONE_HIST_BYTES (48 * 1024)
 
 struct StepChain {
   int n;                        // number of interior thresholds
@@ -277,6 +341,96 @@ struct Lane {
   int alive, orders, pk, bad, evct;
 };
 
+// The draws of event j: group g is Philox4x32-10 at counter (lane, kb,
+// j * G + g, STREAM_EVENT).  Eager variants draw every group [0, G) before
+// the event (start_draws).  The lazy ones (LAZY: the column variant with
+// chaining, see the source note) draw a group the first time some lane of its converged warp
+// reads one of its words (want), at the same counter, so the words are the
+// same.
+struct Draws {
+  int lane, g0;                   // the lane, and j * G
+  unsigned have;                  // groups drawn so far (lazy; warp-uniform)
+};
+
+__device__ __forceinline__ void philox_group(const EventParams& p, const Draws& d, int g,
+                                             uint32_t w[4]) {
+  philox4x32_10((uint32_t)d.lane, p.kb, (uint32_t)(d.g0 + g), STREAM_EVENT, p.key0, p.key1,
+                w);
+}
+
+template <bool LAZY, int NU>
+__device__ __forceinline__ void start_draws(float (&u)[NU], const EventParams& p, Draws& d,
+                                            int G) {
+#pragma unroll
+  for (int g = 0; g < NU / 4; ++g) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (!LAZY && g < G) philox_group(p, d, g, w);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) u[4 * g + k] = (!LAZY && g < G) ? to_unit(w[k]) : 0.0f;
+  }
+  d.have = 0u;
+}
+
+// Lazy: group g, if some lane of the warp reads one of its words (pred) and
+// it is not drawn yet.  A no-op for eager variants.
+template <bool LAZY, int NU>
+__device__ __forceinline__ void want(float (&u)[NU], const EventParams& p, Draws& d, int g,
+                                     bool pred) {
+  if (!LAZY || ((d.have >> g) & 1u) || !__any_sync(FULL_MASK, pred)) return;
+  d.have |= 1u << g;
+  uint32_t w[4];
+  philox_group(p, d, g, w);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) u[4 * g + k] = to_unit(w[k]);
+}
+
+// A branch for the lanes with pred: the lazy variant takes it warp-
+// uniformly when any lane of the warp has pred (the others mask their
+// results), so that the draws inside stay warp-wide; eager ones per lane.
+template <bool LAZY>
+__device__ __forceinline__ bool warp_any(bool pred) {
+  return LAZY ? __any_sync(FULL_MASK, pred) : pred;
+}
+
+// The dead-lane contract's free path at event j: word 0 of group j * G.
+__device__ __forceinline__ float contract_tau(const EventParams& p, int lane, int j, int G) {
+  uint32_t w[4];
+  philox_group(p, Draws{lane, j * G, 0u}, 0, w);
+  return exponential_deviate(to_unit(w[0]));
+}
+
+// Adds c to detector bin `bin` of `hist`, from a converged warp: the lanes of
+// one bin are grouped by __match_any_sync and summed by a shuffle tree, and
+// the group's lowest lane adds the sum, with a plain load-add-store into the
+// warp's private slice (PLAIN), or with atomicAdd into a histogram that other
+// warps share (the CTA's one in shared memory, or the global accumulator).
+template <bool PLAIN>
+__device__ __forceinline__ void tally(double* hist, int bin, float c) {
+  const int key = c != 0.0f ? bin : -1;
+  if (!__any_sync(FULL_MASK, key >= 0)) return;
+  const unsigned peers = __match_any_sync(FULL_MASK, key);
+  const int wl = threadIdx.x & 31;
+  const unsigned below = (1u << wl) - 1u;
+  // Lanes without a contribution (key -1) take no part in the sums.
+  unsigned higher = key >= 0 ? peers & ~(below | (1u << wl)) : 0u;
+  int rank = __popc(peers & below);
+  double v = (double)c;
+  // Round r: each lane adds the partial sum of its next remaining higher
+  // peer; the lanes whose rank has bit r set are then done.
+  while (__any_sync(FULL_MASK, higher != 0u)) {
+    const int next = __ffs(higher);
+    const double t = __shfl_sync(FULL_MASK, v, next ? next - 1 : wl);
+    if (next) v += t;
+    higher &= ~__ballot_sync(FULL_MASK, rank & 1);
+    rank >>= 1;
+  }
+  if (key >= 0 && (peers & below) == 0u) {
+    if (PLAIN) hist[key] += v;
+    else atomicAdd(hist + key, v);
+  }
+  __syncwarp();
+}
+
 // u[i] of a register array with a runtime i, as selects (no local memory).
 template <int N>
 __device__ __forceinline__ float pick(const float (&u)[N], int i) {
@@ -369,14 +523,18 @@ __device__ __forceinline__ float detector_contribution(const EventParams& p, int
 // One fast_event (fastpath.py:1291-1676, MARCH = 1).  u holds the event's
 // draws: u[0] free path, u[1] scattering cosine, u[2] azimuth, u[3]
 // absorption (when ABS), then CHAIN bonus phases of BD draws each, or with
-// DET && IW one Iwabuchi draw per detector.  DET adds the collision's
-// detector contributions to hist (shared or global, n_bins doubles).
-template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, int NU>
-__device__ __forceinline__ void fast_event(const EventParams& p, const float (&u)[NU],
+// DET && IW one Iwabuchi draw per detector; with LAZY they are drawn as
+// they are read (want).  DET adds the collision's detector contributions to
+// hist (tally: the warp's private slice when SLICES, else a histogram the
+// warps share).  Called by every thread of a warp together.
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
+          bool LAZY, int NU>
+__device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU], Draws& dr,
                                            Lane& s, double* hist,
                                            const float4* __restrict__ col) {
   constexpr int BD = ABS ? 4 : 3;
   const bool alive = s.alive != 0;
+  want<LAZY>(u, p, dr, 0, !(s.tau > 0.0f));
   float tau = s.tau > 0.0f ? s.tau : exponential_deviate(u[0]);
 
   const bool up_x = s.ux >= 0.0f, up_y = s.uy >= 0.0f, up_z = s.uz >= 0.0f;
@@ -387,10 +545,11 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
   float ext, inv_ext = 0.0f, face_x, face_z;
   float vcol = 0.0f, zb = 0.0f, zt = 0.0f;
   if (COL) {
-    // The lane's column row (fastpath.py:1320-1345).
+    // The lane's column row (fastpath.py:1320-1345): ix, iy truncated
+    // toward zero and clipped.
     const int ix = min(max((int)((s.x - p.x0) * p.inv_dx), 0), p.n_x - 1);
     const int iy = min(max((int)((s.y - p.y0) * p.inv_dy), 0), p.n_y - 1);
-    const float4 row = __ldg(col + (size_t)ix * p.n_y + iy);
+    const float4 row = __ldg(col + ix * p.n_y + iy);
     vcol = row.x;
     zb = row.y;
     zt = row.z;
@@ -473,28 +632,34 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
 
   bool collided = collide;
   if (ABS) {
+    want<LAZY>(u, p, dr, 0, collide);
     const bool die = collided && (u[3] >= p.ssa);
     if (die) s.pk = 3;
     collided = collided && !die;
   }
-  if (DET && collided) {
+  if (DET && __any_sync(FULL_MASK, collided)) {
+    // Warp-convergent: the lanes that did not collide contribute 0.
 #pragma unroll 1
     for (int d = 0; d < p.det.n; ++d) {
-      int col;
-      const float c = detector_contribution<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &col);
-      if (c != 0.0f) atomicAdd(hist + col * p.det.n + d, (double)c);
+      int bin;
+      float c = detector_contribution<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin);
+      if (!collided) c = 0.0f;
+      tally<SLICES>(hist, bin * p.det.n + d, c);
     }
   }
-  if (collided) {
+  if (warp_any<LAZY>(collided)) {
+    want<LAZY>(u, p, dr, 0, collided);
     float nx, ny, nz;
     rotate_direction(s.ux, s.uy, s.uz, hg_cosine(p.g, u[1]), u[2], &nx, &ny, &nz);
-    s.ux = nx;
-    s.uy = ny;
-    s.uz = nz;
+    if (collided) {
+      s.ux = nx;
+      s.uy = ny;
+      s.uz = nz;
+    }
   }
   int n_coll = collided ? 1 : 0;
 
-  if (CHAIN > 0) {
+  if (CHAIN > 0 && (!LAZY || warp_any<LAZY>(collided))) {
     // Segment box around the collision point: extinction is constant
     // inside it, so a candidate that stays strictly within commits as a
     // physical collision; one that leaves defers its optical depth.  In
@@ -533,7 +698,9 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
     bool chain = collided;
 #pragma unroll
     for (int b = 0; b < CHAIN; ++b) {
+      if (LAZY && !warp_any<LAZY>(chain)) break;
       const int i0 = BD + b * BD;
+      want<LAZY>(u, p, dr, i0 / 4, chain);
       const float tau_new = exponential_deviate(u[i0]);
       const float s_c = tau_new * inv_c;
       const float cx = s.x + s.ux * s_c;
@@ -559,17 +726,22 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
         n_coll += 1;
       }
       if (ABS) {
+        want<LAZY>(u, p, dr, (i0 + 3) / 4, commit);
         const bool die_c = commit && (u[i0 + 3] >= p.ssa);
         if (die_c) s.pk = 3;
         commit = commit && !die_c;
       }
-      if (commit) {
+      if (warp_any<LAZY>(commit)) {
+        want<LAZY>(u, p, dr, (i0 + 1) / 4, commit);
+        want<LAZY>(u, p, dr, (i0 + 2) / 4, commit);
         float nx, ny, nz;
         rotate_direction(s.ux, s.uy, s.uz, hg_cosine(p.g, u[i0 + 1]), u[i0 + 2],
                          &nx, &ny, &nz);
-        s.ux = nx;
-        s.uy = ny;
-        s.uz = nz;
+        if (commit) {
+          s.ux = nx;
+          s.uy = ny;
+          s.uz = nz;
+        }
       }
       chain = commit;
     }
@@ -588,13 +760,21 @@ __device__ __forceinline__ void fast_event(const EventParams& p, const float (&u
 //   i: (5, L) int32   rows alive, orders, pk, bad, evct
 // acc (DET): (n_cols, D) float64 detector accumulator, added to.
 // col (COL): (n_cols, 4) float32 column table [v, z_base, z_top, 0].
-template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL>
-__global__ void __launch_bounds__(256)
+// The detector tally (DET) goes to one of three places, chosen per launch by
+// hist_room: with SLICES, CTA_WARPS private slices of n_bins doubles in
+// dynamic shared memory; without, one CTA histogram there (hist_in_smem), or
+// the global accumulator itself.
+template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL,
+          bool SLICES>
+__global__ void __launch_bounds__(CTA_THREADS)
 fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
                         const float4* __restrict__ col, int hist_in_smem,
                         const __grid_constant__ EventParams p) {
   extern __shared__ double smem_hist[];
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ int live_ids[CTA_THREADS];
+  __shared__ int warp_live[CTA_WARPS];
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const int lane0 = blockIdx.x * CTA_THREADS + t;
   const size_t L = (size_t)p.n_lanes;
   constexpr int BD = ABS ? 4 : 3;
   // Draw slots: with DET && IW the count depends on the runtime D, so the
@@ -602,80 +782,134 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
   constexpr int ND_MAX = DET ? (IW ? BD + MAX_DETECTORS : BD) : BD * (1 + CHAIN);
   constexpr int G_MAX = (ND_MAX + 3) / 4;
   const int G = (DET && IW) ? (BD + p.det.n + 3) / 4 : G_MAX;
+  const int n_bins = DET ? p.det.n_bins : 0;
+  const bool in_smem = DET && (SLICES || hist_in_smem);
+  const int n_slices = SLICES ? CTA_WARPS : 1;
+  // Draws as read, per warp, in the column variant with chaining only (see
+  // the source note).
+  constexpr bool LAZY = COL && CHAIN > 0;
 
-  double* hist = acc;
-  if (DET && hist_in_smem) {
-    hist = smem_hist;
-    for (int k = threadIdx.x; k < p.det.n_bins; k += blockDim.x) smem_hist[k] = 0.0;
-    __syncthreads();
+  if (in_smem)
+    for (int k = t; k < n_slices * n_bins; k += CTA_THREADS) smem_hist[k] = 0.0;
+
+  // Entry: a thread reads its lane's alive flag and tau only.  A dead lane's
+  // one change in the block is the contract's free-path draw at event 0.
+  int alive0 = 0;
+  if (lane0 < p.n_lanes) {
+    alive0 = iv[lane0];
+    if (!alive0 && !(f[6 * L + lane0] > 0.0f)) f[6 * L + lane0] = contract_tau(p, lane0, 0, G);
   }
+  // Compaction: a prefix sum over the CTA's live flags packs the live lanes'
+  // ids, in lane order, onto the first threads.
+  const unsigned live_mask = __ballot_sync(FULL_MASK, alive0 != 0);
+  if (wl == 0) warp_live[warp] = __popc(live_mask);
+  __syncthreads();
+  int base = 0, n_live = 0;
+#pragma unroll
+  for (int w = 0; w < CTA_WARPS; ++w) {
+    const int c = warp_live[w];
+    base += w < warp ? c : 0;
+    n_live += c;
+  }
+  if (alive0) live_ids[base + __popc(live_mask & ((1u << wl) - 1u))] = lane0;
+  __syncthreads();
 
-  if (lane < p.n_lanes) {
-    Lane s;
-    s.x = f[0 * L + lane];
-    s.y = TY ? f[1 * L + lane] : 0.0f;
-    s.z = f[2 * L + lane];
-    s.ux = f[3 * L + lane];
-    s.uy = f[4 * L + lane];
-    s.uz = f[5 * L + lane];
-    s.tau = f[6 * L + lane];
-    s.tgas = GAS ? f[7 * L + lane] : 0.0f;
-    s.alive = iv[0 * L + lane];
-    s.orders = iv[1 * L + lane];
-    s.pk = iv[2 * L + lane];
-    s.bad = iv[3 * L + lane];
-    s.evct = iv[4 * L + lane];
+  // The first ceil(n_live / 32) warps run the live lanes; threads past
+  // n_live in the last of them idle as dead lanes (alive 0, tau 1).
+  if (t < ((n_live + 31) & ~31)) {
+    const bool valid = t < n_live;
+    const int lane = valid ? live_ids[t] : 0;
+    Lane s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0, 0, 0, 0, 0};
+    if (valid) {
+      s.x = f[0 * L + lane];
+      s.y = TY ? f[1 * L + lane] : 0.0f;
+      s.z = f[2 * L + lane];
+      s.ux = f[3 * L + lane];
+      s.uy = f[4 * L + lane];
+      s.uz = f[5 * L + lane];
+      s.tau = f[6 * L + lane];
+      s.tgas = GAS ? f[7 * L + lane] : 0.0f;
+      s.alive = iv[0 * L + lane];
+      s.orders = iv[1 * L + lane];
+      s.pk = iv[2 * L + lane];
+      s.bad = iv[3 * L + lane];
+      s.evct = iv[4 * L + lane];
+    }
+    double* hist = SLICES ? smem_hist + warp * n_bins : (in_smem ? smem_hist : acc);
 
 #pragma unroll 1
     for (int j = 0; j < K; ++j) {
-      float u[4 * G_MAX];
-#pragma unroll
-      for (int g = 0; g < G_MAX; ++g) {
-        if (g < G) {
-          uint32_t w[4];
-          philox4x32_10((uint32_t)lane, p.kb, (uint32_t)(j * G + g), STREAM_EVENT,
-                        p.key0, p.key1, w);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) u[4 * g + k] = to_unit(w[k]);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) u[4 * g + k] = 0.0f;
-        }
+      if (!__any_sync(FULL_MASK, s.alive != 0)) {
+        // Every lane of the warp is dead: this event's only change is the
+        // contract's draw, for the lanes that died with tau <= 0.
+        if (!(s.tau > 0.0f)) s.tau = contract_tau(p, lane, j, G);
+        break;
       }
-      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL>(p, u, s, hist, col);
+      float u[4 * G_MAX];
+      Draws dr{lane, j * G, 0u};
+      start_draws<LAZY>(u, p, dr, G);
+      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, LAZY>(p, u, dr, s, hist, col);
     }
 
-    f[0 * L + lane] = s.x;
-    if (TY) f[1 * L + lane] = s.y;
-    f[2 * L + lane] = s.z;
-    f[3 * L + lane] = s.ux;
-    f[4 * L + lane] = s.uy;
-    f[5 * L + lane] = s.uz;
-    f[6 * L + lane] = s.tau;
-    if (GAS) f[7 * L + lane] = s.tgas;
-    iv[0 * L + lane] = s.alive;
-    iv[1 * L + lane] = s.orders;
-    iv[2 * L + lane] = s.pk;
-    iv[3 * L + lane] = s.bad;
-    iv[4 * L + lane] = s.evct;
+    if (valid) {
+      f[0 * L + lane] = s.x;
+      if (TY) f[1 * L + lane] = s.y;
+      f[2 * L + lane] = s.z;
+      f[3 * L + lane] = s.ux;
+      f[4 * L + lane] = s.uy;
+      f[5 * L + lane] = s.uz;
+      f[6 * L + lane] = s.tau;
+      if (GAS) f[7 * L + lane] = s.tgas;
+      iv[0 * L + lane] = s.alive;
+      iv[1 * L + lane] = s.orders;
+      iv[2 * L + lane] = s.pk;
+      iv[3 * L + lane] = s.bad;
+      iv[4 * L + lane] = s.evct;
+    }
   }
 
-  if (DET && hist_in_smem) {
+  if (in_smem) {
+    // One global atomicAdd per nonzero bin: the sum of the CTA's slices.
     __syncthreads();
-    for (int k = threadIdx.x; k < p.det.n_bins; k += blockDim.x)
-      if (smem_hist[k] != 0.0) atomicAdd(acc + k, smem_hist[k]);
+    for (int k = t; k < n_bins; k += CTA_THREADS) {
+      double v = 0.0;
+      for (int w = 0; w < n_slices; ++w) v += smem_hist[w * n_bins + k];
+      if (v != 0.0) atomicAdd(acc + k, v);
+    }
   }
+}
+
+// Where the detector tally of n_bins goes: CTA_WARPS private slices while
+// they fit, beside the lane ids, in the shared memory a CTA gets without
+// opting in (<= 751 bins); else one CTA histogram of up to 48 KB (<= 6144
+// bins), opting in past the default; else the global accumulator.
+enum HistRoom { HIST_GLOBAL, HIST_SHARED, HIST_SLICES };
+
+static HistRoom hist_room(int n_bins) {
+  const size_t bytes = (size_t)n_bins * sizeof(double);
+  if (CTA_WARPS * bytes + SMEM_STATIC_BYTES <= SMEM_DEFAULT_BYTES) return HIST_SLICES;
+  if (bytes <= SMEM_ONE_HIST_BYTES) return HIST_SHARED;
+  return HIST_GLOBAL;
 }
 
 template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL = false>
 static void launch(float* f, int* i, double* acc, const EventParams& p,
                    cudaStream_t stream, const float4* col = nullptr) {
-  const int threads = 256;
-  const int blocks = (p.n_lanes + threads - 1) / threads;
-  const size_t hist_bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
-  const int in_smem = hist_bytes <= SMEM_HIST_BYTES;
-  fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW, GAS, COL>
-      <<<blocks, threads, in_smem ? hist_bytes : 0, stream>>>(f, i, acc, col, in_smem, p);
+  const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
+  const HistRoom room = DET ? hist_room(p.det.n_bins) : HIST_GLOBAL;
+  const size_t bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
+  if constexpr (DET) {
+    if (room == HIST_SLICES) {
+      fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW, GAS, COL, true>
+          <<<blocks, CTA_THREADS, CTA_WARPS * bytes, stream>>>(f, i, acc, col, 1, p);
+      return;
+    }
+  }
+  const auto kernel = fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW, GAS, COL, false>;
+  const size_t smem = room == HIST_SHARED ? bytes : 0;
+  if (smem + SMEM_STATIC_BYTES > SMEM_DEFAULT_BYTES)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<blocks, CTA_THREADS, smem, stream>>>(f, i, acc, col, room == HIST_SHARED, p);
 }
 
 template <int K, int CHAIN, bool DET, bool IW, bool GAS>

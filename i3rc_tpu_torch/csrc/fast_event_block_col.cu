@@ -3,8 +3,11 @@
 // i3rc_tpu/integrators/fastpath.py:1320-1345, in the design of the TPU
 // column-read probe `pallas_column_loop`, benchmarks/column_read_probe.py:83;
 // see fast_event_block.cuh).  A source of its own so that nvcc builds these
-// 24 instantiations (K in {1, 8, 16}, chain depth 0-3, absorbing or not) in
-// parallel with the others.
+// 32 instantiations (K in {1, 8, 16, 32}, chain depth 0-3, absorbing or not)
+// in parallel with the others.  K = 32 is the column plans' default, the JAX
+// planner's (i3rc_tpu/integrators/fastpath.py:633-635): a lane that dies
+// early in a long block costs its warp nothing once the warp's lanes are all
+// dead, and the CTA's compaction drops it from the next launch.
 
 #include "fast_event_block.cuh"
 
@@ -35,6 +38,7 @@ bool launch_block_col(float* f, int* i, const float4* col, const EventParams& p,
     case 1: return launch_col_chain<1>(f, i, col, p, chain, absorbing, stream);
     case 8: return launch_col_chain<8>(f, i, col, p, chain, absorbing, stream);
     case 16: return launch_col_chain<16>(f, i, col, p, chain, absorbing, stream);
+    case 32: return launch_col_chain<32>(f, i, col, p, chain, absorbing, stream);
     default: return false;
   }
 }

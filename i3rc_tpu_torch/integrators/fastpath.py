@@ -431,12 +431,11 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
             missing.append(_ITEM_MARCHING)
     if missing:
         raise NotImplementedError(f"fastpath plan needs {min(missing)[1]}")
-    # K = 8 for every plan: the JAX package's 32 for column plans
-    # (fastpath.py:633-635) is an XLA tuning, and the kernel takes K in
-    # SUPPORTED_K only.
+    # K as the JAX planner gives it (fastpath.py:633-635): 32 for column
+    # plans, 8 for separable ones.
     cfg_unroll = getattr(config, "fastpath_unroll", None)
-    return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g,
-                    unroll=int(cfg_unroll) if cfg_unroll else 8, ssa=uniform_ssa,
+    unroll = int(cfg_unroll) if cfg_unroll else (32 if column_data is not None else 8)
+    return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g, unroll=unroll, ssa=uniform_ssa,
                     detectors=detectors, closed_shadow=closed_shadow,
                     gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data)
 

@@ -41,6 +41,7 @@ MAX_DETECTORS = 8
 HUGE = f32(3.0e38)
 PI = f32(np.pi)
 SUPPORTED_K = (1, 8, 16)
+COLUMN_K = SUPPORTED_K + (32,)     # the column variant also runs the JAX planner's 32
 SUPPORTED_CHAIN = (0, 1, 2, 3)
 
 # Rows of LaneState.f and LaneState.i.
@@ -672,12 +673,13 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> 
     if f.shape != (8, L) or i.shape != (5, L) or not (f.is_contiguous()
                                                       and i.is_contiguous()):
         raise ValueError("event_block: state must be contiguous (8, L) and (5, L)")
-    if spec.K not in SUPPORTED_K or spec.chain not in SUPPORTED_CHAIN:
-        raise NotImplementedError(
-            f"event_block kernel is built for K in {SUPPORTED_K} and chain depth in "
-            f"{SUPPORTED_CHAIN}; got K={spec.K}, chain={spec.chain}")
     det = spec.det
     col = spec.column
+    ks = COLUMN_K if col is not None else SUPPORTED_K
+    if spec.K not in ks or spec.chain not in SUPPORTED_CHAIN:
+        raise NotImplementedError(
+            f"event_block kernel is built for K in {ks} and chain depth in "
+            f"{SUPPORTED_CHAIN}; got K={spec.K}, chain={spec.chain}")
     if col is not None:
         if det is not None or spec.gas or not spec.track_y:
             raise NotImplementedError("event_block kernel runs column media for flux "

@@ -10,9 +10,10 @@ plain twin, the slice, the driver and the column-read probe (the TPU kernel
 the JAX package on the CPU.
 
 Each side builds its domain with its own classes from the same numpy
-arrays.  The JAX planner gives column plans K = 32 (an XLA tuning the port
-does not carry over; the kernel takes K in {1, 8, 16}), so every port-vs-JAX
-comparison passes ``fastpath_unroll`` to both sides.
+arrays.  Both planners give column plans K = 32; the comparisons here pass
+``fastpath_unroll`` = 8 to both sides (the JAX package's XLA fastpath
+unrolls its K events into one graph and compiles slowly at 32), except the
+slice, which runs once at the default K on both sides.
 
 The JAX ``fast_event`` of a column plan never reaches ``_build_pallas_block``
 (fastpath.py:1711), so the twin test takes it from the closure cells of the
@@ -33,6 +34,7 @@ import pytest
 import torch
 
 from i3rc_tpu.core.illumination import PhotonSource as JaxSource
+from i3rc_tpu.core.rng import exponential_deviate as jax_exponential_deviate
 from i3rc_tpu.integrators import fastpath as jfast
 from i3rc_tpu.integrators.integrator import Integrator as JaxIntegrator
 from i3rc_tpu.native import scalar_mc as native_mc
@@ -43,6 +45,8 @@ from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
 from i3rc_tpu_torch.integrators.fastpath import event_spec, plan_from_jax, state_from_numpy
 from i3rc_tpu_torch.kernels import column_probe as cp
 from i3rc_tpu_torch.kernels.event_block import (
+    COLUMN_K,
+    SUPPORTED_K,
     compare_states,
     event_block,
     event_block_reference,
@@ -151,12 +155,22 @@ def test_plan_matches_jax(scene):
 
 
 def test_default_unroll_is_the_kernels():
-    """Without fastpath_unroll the JAX planner picks K = 32 for column plans
-    (fastpath.py:633-635); the port keeps K = 8, which the kernel takes."""
-    jplan = JaxIntegrator.create(small_scene(JAX), config=cfg(JAX, fastpath_unroll=None))
-    tplan = Integrator.create(small_scene(PORT), config=cfg(PORT, fastpath_unroll=None),
-                              device="cpu")._fast_plan
-    assert jplan._fast_plan.unroll == 32 and tplan.unroll == 8
+    """Without fastpath_unroll the port's planner gives the JAX planner's K
+    (fastpath.py:633-635), which the kernel takes: 32 for column plans, 8
+    for separable ones."""
+    uniform = lambda h: h.Domain.create(np.linspace(0, 240, 3), np.linspace(0, 240, 3),
+                                        np.linspace(0, 120, 3)).add_component(
+        "c", np.full((2, 2, 2), 0.01), np.ones((2, 2, 2)), np.zeros((2, 2, 2), np.int32),
+        h.PhaseFunctionTable.from_phase_functions(
+            [h.PhaseFunction.from_legendre(h.hg(0.85, 32))], key=[1.0]))
+    for scene, K in ((small_scene, 32), (uniform, 8)):
+        jplan = JaxIntegrator.create(scene(JAX), config=cfg(JAX, fastpath_unroll=None))
+        tinteg = Integrator.create(scene(PORT), config=cfg(PORT, fastpath_unroll=None),
+                                   device="cpu")
+        assert (jplan._fast_plan.column_data is not None) == (K == 32)
+        assert jplan._fast_plan.unroll == tinteg._fast_plan.unroll == K
+        spec = event_spec(tinteg.geometry, tinteg._fast_plan, tinteg.config)
+        assert spec.K == K and K in (COLUMN_K if spec.col else SUPPORTED_K)
 
 
 def test_column_props_plans_raise_item_15():
@@ -255,15 +269,43 @@ def test_twin_matches_jax_fast_event(scene, ssa, chain):
     assert int(got.i[1].sum()) > int(torch.from_numpy(st0[8]).sum())   # collisions
 
 
+def test_dead_lane_contract_of_jax_column_event():
+    """One JAX column fast_event on the Landsat scene: a dead lane keeps
+    every field but tau, which becomes -log(max(u0, TINY)) where it was <= 0
+    (the contract the kernel's compaction of live lanes relies on;
+    tests/test_torch_event_block.py pins it on the twin)."""
+    jinteg, tinteg = integrators("landsat", 0.99)
+    jplan = jinteg._fast_plan
+    fast_event = _find(jfast.make_fast_tracer(jinteg.geometry, jplan, jinteg.config, 1 << 14, L),
+                       "fast_event")
+    spec = event_spec(tinteg.geometry, plan_from_jax(jplan), tinteg.config)
+    rng = np.random.default_rng(19)
+    st0 = _random_state(spec, rng, jplan.column_data)
+    U = rng.uniform(size=(spec.n_draws, L)).astype(np.float32)
+    jst = tuple(jnp.asarray(a) for a in st0) + (jnp.zeros((1, 1), jnp.float32),)
+    out = [np.asarray(a) for a in fast_event(jnp.asarray(U), jst)]
+    dead = ~st0[0]
+    assert int(dead.sum()) > 0 and int((dead & (st0[7] <= 0.0)).sum()) > 0
+    tau = np.asarray(jnp.where(jnp.asarray(st0[7]) > 0.0, jnp.asarray(st0[7]),
+                               jax_exponential_deviate(jnp.asarray(U[0]))))
+    for k in range(12):
+        want = tau if k == 7 else st0[k]
+        assert np.array_equal(out[k][dead], np.asarray(want)[dead]), k
+
+
 def test_slice_matches_jax_column_fastpath():
-    """The small scene, 2^15 photons on each side: Fup within 4 combined
-    sigma of the JAX XLA column fastpath (K = 1 there, to keep its compile
-    short), energy closed to 1e-5, no bad photons."""
+    """The small scene, 2^15 photons on each side, both at the planners'
+    default K (32): Fup within 4 combined sigma of the JAX XLA column
+    fastpath, energy closed to 1e-5, no bad photons."""
     n, lanes = 1 << 15, 1 << 12
-    jres = JaxIntegrator.create(small_scene(JAX), config=cfg(JAX, fastpath_unroll=1)).batch_fn(
-        JaxSource.directional(0.5, 0.0), n, n_lanes=lanes)(jax.random.PRNGKey(9))
-    tres = integrators("small", 1.0)[1].batch_fn(PhotonSource.directional(0.5, 0.0), n,
-                                                 n_lanes=lanes)(batch_key(9, 0))
+    jinteg = JaxIntegrator.create(small_scene(JAX), config=cfg(JAX, fastpath_unroll=None))
+    tinteg = Integrator.create(small_scene(PORT), config=cfg(PORT, fastpath_unroll=None),
+                               device="cpu")
+    assert jinteg._fast_plan.unroll == tinteg._fast_plan.unroll == 32
+    jres = jinteg.batch_fn(JaxSource.directional(0.5, 0.0), n, n_lanes=lanes)(
+        jax.random.PRNGKey(9))
+    tres = tinteg.batch_fn(PhotonSource.directional(0.5, 0.0), n,
+                           n_lanes=lanes)(batch_key(9, 0))
     jf, tf = float(jres.mean_flux_up), float(tres.mean_flux_up)
     sigma = np.sqrt(2 * jf * (1 - jf) / n)
     assert tf == pytest.approx(jf, abs=4 * sigma)

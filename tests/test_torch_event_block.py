@@ -10,6 +10,11 @@ arrays.
 
 Tolerance: integer fields equal on >= 99.5% of lanes, and float fields
 within 1e-5 relative to each field's magnitude on >= 99.5% of those lanes.
+
+The dead-lane contract that the kernel's compaction of live lanes relies on
+is pinned exactly, on the twin (a whole block) and on the JAX fast_event
+(one event): a dead lane's only change in an event is its free path, tau =
+-log(max(u0, TINY)), taken when tau <= 0.
 The two sides differ only in the last-ulp rounding of rsqrt and log (XLA's
 and torch's are each ~1 ulp accurate, but round differently).  Near the
 poles the rotation divides by sqrt(1 - uz^2), which turns a 1-ulp
@@ -26,9 +31,10 @@ import numpy as np
 import pytest
 import torch
 
+from i3rc_tpu.core.rng import exponential_deviate as jax_exponential_deviate
 from i3rc_tpu.integrators import fastpath as jfast
 from i3rc_tpu.integrators.integrator import Integrator as JaxIntegrator
-from i3rc_tpu_torch.core.rng import batch_key, philox_uniforms
+from i3rc_tpu_torch.core.rng import batch_key, exponential_deviate, philox_uniforms
 from i3rc_tpu_torch.integrators.fastpath import event_spec, plan_from_jax, state_from_numpy
 from i3rc_tpu_torch.integrators.integrator import Integrator
 from i3rc_tpu_torch.kernels.event_block import (
@@ -50,6 +56,7 @@ def host(pkg: str) -> SimpleNamespace:
         Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
         PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
         make_step_cloud=mod("models.step_cloud").make_step_cloud,
+        make_landsat_cloud=mod("models.landsat_cloud").make_landsat_cloud,
         cfg=mod("integrators.config").IntegratorConfig(use_ray_tracing=False,
                                                         max_events=500))
 
@@ -134,6 +141,68 @@ def test_twin_matches_jax_fast_event(scene, ssa, monkeypatch):
     pk = got.i[2]
     assert int((pk == 1).sum()) > 0 and int((pk == 2).sum()) > 0
     assert (int((pk == 3).sum()) > 0) == (ssa < 1.0)
+
+
+@pytest.mark.parametrize("scene", ["step_cloud", "landsat"])
+def test_dead_lane_contract_of_the_block(scene):
+    """A block on lanes dead at entry (tau <= 0 for some) and lanes that die
+    mid-block: a dead lane's rows change exactly as the contract says.  The
+    step cloud runs its separable plan at K = 8, Landsat its column plan at
+    the planner's K = 32."""
+    make = PORT.make_step_cloud if scene == "step_cloud" else PORT.make_landsat_cloud
+    integ = Integrator.create(make(0.99), config=CFG, device="cpu")
+    spec = event_spec(integ.geometry, integ._fast_plan, CFG)
+    assert spec.K == (8 if scene == "step_cloud" else 32) and spec.col == (scene == "landsat")
+    rng = np.random.default_rng(23)
+    st0 = state_from_numpy(_random_state(spec, rng))
+    U = torch.from_numpy(rng.uniform(size=(spec.K, spec.n_draws, L)).astype(np.float32))
+    # The state after each event: blocks of one event in a row.
+    snaps = [st0.clone()]
+    for j in range(spec.K):
+        snaps.append(snaps[-1].clone())
+        event_block_reference(replace(spec, K=1), snaps[-1], U[j:j + 1])
+    got = st0.clone()
+    event_block_reference(spec, got, U)
+    assert torch.equal(got.f, snaps[-1].f) and torch.equal(got.i, snaps[-1].i)
+
+    # Dead at entry: tau drawn at event 0 when tau <= 0, nothing else.
+    dead0 = st0.i[0] == 0
+    want = st0.clone()
+    tau = want.f[6]
+    want.f[6] = torch.where(tau > 0.0, tau, exponential_deviate(U[0, 0]))
+    assert int(dead0.sum()) > 0 and int((dead0 & (st0.f[6] <= 0.0)).sum()) > 0
+    assert torch.equal(got.f[:, dead0], want.f[:, dead0])
+    assert torch.equal(got.i[:, dead0], want.i[:, dead0])
+    # Died at event e - 1 (alive for e events): the state after e events, then
+    # the draw of event e when tau <= 0 and e < K.
+    events = (got.i[4] - st0.i[4]).tolist()
+    died = [lane for lane in range(L) if not dead0[lane] and got.i[0, lane] == 0]
+    assert len(died) > 100 and len({events[lane] for lane in died}) > 2
+    for lane in died:
+        e = events[lane]
+        f, i = snaps[e].f[:, lane].clone(), snaps[e].i[:, lane]
+        assert int(i[0]) == 0
+        if e < spec.K and not float(f[6]) > 0.0:
+            f[6] = exponential_deviate(U[e, 0, lane])
+        assert torch.equal(got.f[:, lane], f) and torch.equal(got.i[:, lane], i), lane
+
+
+def test_dead_lane_contract_of_jax_fast_event(monkeypatch):
+    """One JAX fast_event on the step cloud: a dead lane keeps every field
+    but tau, which becomes -log(max(u0, TINY)) where it was <= 0."""
+    fast_event, spec = _setup("step_cloud", 0.99, monkeypatch)
+    rng = np.random.default_rng(29)
+    st0 = _random_state(spec, rng)
+    U = rng.uniform(size=(spec.n_draws, L)).astype(np.float32)
+    jst = tuple(jnp.asarray(a) for a in st0) + (jnp.zeros((1, 1), jnp.float32),)
+    out = [np.asarray(a) for a in fast_event(jnp.asarray(U), jst)]
+    dead = ~st0[0]
+    assert int(dead.sum()) > 0 and int((dead & (st0[7] <= 0.0)).sum()) > 0
+    tau = np.asarray(jnp.where(jnp.asarray(st0[7]) > 0.0, jnp.asarray(st0[7]),
+                               jax_exponential_deviate(jnp.asarray(U[0]))))
+    for k in range(12):
+        want = tau if k == 7 else st0[k]
+        assert np.array_equal(out[k][dead], np.asarray(want)[dead]), k
 
 
 @pytest.mark.cuda
