@@ -14,30 +14,46 @@ process, it runs every build on identical inputs, alternating the builds
   and round the median of 21 launches on fresh copies of the state (CUDA
   events); each build's result must equal the plain twin's on every state
   row (detector accumulators within 1e-9 relative).
-* batches: the event kernel's device time summed over one whole batch
-  (``chip_smoke.batch_kernel_time``): the radiance batch (2^24 photons; by
-  the profiler and by CUDA events) and the Landsat batch (2^23) at K = 8
-  and 32 (by CUDA events).
+* batches: the block kernel's device time (prologue and events, one launch
+  per block) summed over one whole batch (``chip_smoke.batch_kernel_time``):
+  the flux, gas-flux and radiance batches (2^24 photons; by the profiler
+  and by CUDA events) and the Landsat batch (2^23) at K = 8 and 32 (by CUDA
+  events).
 * broadband: phase 13 of ``chip_smoke.py`` (``broadband_slice``) per build.
+* rates: the end-to-end photons/s of the four slices (step-cloud flux and
+  radiance, broadband, Landsat, timed as ``chip_smoke.py`` phases 5, 9, 13
+  and 16 time them) of this checkout and of each whole tree given with
+  ``--tree NAME=DIR`` (another commit unpacked with ``git archive``), each
+  measurement in a fresh process with that tree's own package and kernels,
+  the trees alternating (A B B A), since a rate drifts with a process's age.
 
-A build whose library lacks a variant (an older one without K = 32 for
-column media) is left out of that case.  Needs a CUDA device and nvcc.
-Writes every number to ``--out`` (``build/event_block_ab.json``).  Run
-from the repository root:
+The builds must share this checkout's C interface (a copy of ``csrc`` with
+the line under test changed); a build whose library refuses a variant, or
+whose block differs from the twin's (a constant K of 8 on a K = 32 plan),
+is left out of that block case.  The batches have no such check: give them
+only the builds that fit their cases (``--cases``).  The block times are
+CUDA-event times around the Python call, so they also hold the host's
+building of the parameter block, the same for every build; the batch times
+are the kernel's own.  Needs a CUDA device and nvcc.  Writes every number
+to ``--out`` (``build/event_block_ab.json``).  Run from the repository
+root:
 
-    python3 benchmarks/torch_event_block_ab.py --build parent=build/ab/parent/csrc
+    python3 benchmarks/torch_event_block_ab.py --build minctas=build/ab/minctas/csrc
+    python3 benchmarks/torch_event_block_ab.py --parts rates --tree parent=build/ab/parent
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,9 +65,10 @@ import i3rc_tpu_torch.kernels.event_block as eb  # noqa: E402
 
 ROUNDS = 4
 LAUNCHES = 21
-# (case, block_states arguments): K1 and K3 at the separable K, the column
+# (case, block_states arguments): K1, K2 and K3 at the separable K, the column
 # variant at the planner's K and at the K before it.
 BLOCK_CASES = [("flux_K8", dict(ssa=1.0)),
+               ("gas_K8", dict(ssa=1.0, gas=np.full(32, 3e-4))),
                ("detectors_K8", dict(ssa=1.0, detectors=True)),
                ("column_K32_chain2", dict(ssa=1.0, chain=2, K=32)),
                ("column_K32_chain0_ssa0.99", dict(ssa=0.99, chain=0, K=32)),
@@ -137,8 +154,14 @@ def block_ab(builds: dict, dev, card: str, cases) -> list:
                 if not runs(built, lambda: run(got, acc_k)):
                     continue
                 torch.cuda.synchronize()
-                cs.check(torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i),
-                         f"{case} {state}: build {name} differs from the twin")
+                same = torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i)
+                cs.check(same or name != "this", f"{case} {state}: differs from the twin")
+                if not same:
+                    # A build whose switch does not fit the case (a constant
+                    # K of 8 on a K = 32 plan) is left out of it.
+                    cs.say("ab block", case=case, state=state, build=name, bit_equal=False,
+                           note="left out of this case")
+                    continue
                 if acc_t is not None:
                     err = float((acc_k - acc_t).abs().max() / acc_t.abs().max().clamp(min=1e-300))
                     cs.check(err <= 1e-9, f"{case} {state}: build {name} accumulator {err}")
@@ -174,9 +197,16 @@ def batch_ab(builds: dict, card: str, cases) -> list:
                             compute_volume_absorption=False)
     land = {K: Integrator.create(make_landsat_cloud(1.0), replace(flux, fastpath_unroll=K),
                                  device="cuda") for K in (8, 32)}
-    # The profiler also times the radiance batch (269 blocks), beside the
-    # CUDA events; a Landsat batch at K = 8 (1600 blocks) is too many for it.
-    batch_cases = [c for c in [("radiance_K8", rad, cs.SLICE_PHOTONS, 320, True),
+    from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
+
+    step = Integrator.create(make_step_cloud(1.0), flux, device="cuda")
+    gas = Integrator.create(domain_with_gas_component(make_step_cloud(1.0), np.full(32, 4e-4)),
+                            flux, device="cuda")
+    # The profiler also times the step-cloud batches (88-269 blocks), beside
+    # the CUDA events; a Landsat batch at K = 8 (1600 blocks) is too many for it.
+    batch_cases = [c for c in [("flux_K8", step, cs.SLICE_PHOTONS, 110, True),
+                               ("gas_K8", gas, cs.SLICE_PHOTONS, 420, True),
+                               ("radiance_K8", rad, cs.SLICE_PHOTONS, 320, True),
                                ("landsat_K8", land[8], cs.LANDSAT_PHOTONS, 520, False),
                                ("landsat_K32", land[32], cs.LANDSAT_PHOTONS, 520, False)]
                    if not cases or c[0] in cases]
@@ -216,8 +246,93 @@ def broadband_ab(builds: dict, dev, card: str) -> list:
         for name in order(names, r):
             use(builds[name])
             cs.say("ab broadband", build=name, round=r)
-            out.append({"build": name, "launches": cs.broadband_slice(dev, card)})
+            out.append({"build": name, "launches": cs.broadband_slice(dev, card)[0]})
     use(builds["this"])
+    return out
+
+
+# One fresh process per measurement: the four slices' photons/s, with the
+# package and the kernels of the tree the process runs in.
+_RATES = r"""
+import json, statistics, time
+import numpy as np, torch
+from i3rc_tpu_torch import (Integrator, IntegratorConfig, KDistribution, PhotonSource,
+                            batch_key, make_landsat_cloud, make_step_cloud, run_band)
+from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
+
+L, N, SEED = 1 << 18, 1 << 24, 2024
+src = PhotonSource.directional(0.5, 0.0)
+flux = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False)
+
+def median_rate(fn, n, warm, seed0):
+    for w in range(warm):
+        float(fn(batch_key(SEED, seed0 + 100 + w)).mean_flux_up)
+    torch.cuda.synchronize()
+    times, fups = [], []
+    for b in range(3):
+        t0 = time.perf_counter()
+        fups.append(float(fn(batch_key(SEED, seed0 + b)).mean_flux_up))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"photons_per_s": n / statistics.median(times), "seconds": times,
+            "fup": sum(fups) / 3}
+
+out = {}
+t0 = time.perf_counter()
+out["flux"] = median_rate(Integrator.create(make_step_cloud(1.0), IntegratorConfig(
+    use_ray_tracing=False, max_events=500), device="cuda").batch_fn(src, N, n_lanes=L), N, 2, 0)
+out["first_batch_after_s"] = time.perf_counter() - t0
+rad = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False,
+                       use_russian_roulette_for_intensity=True, zeta_min=0.3)
+out["radiance"] = median_rate(Integrator.create(
+    make_step_cloud(1.0), rad, intensity_mus=[1.0, 0.5, 0.5], intensity_phis=[0.0, 0.0, 180.0],
+    device="cuda").batch_fn(src, N, n_lanes=L), N, 1, 310)
+dom = make_step_cloud(1.0)
+z = np.asarray(dom.z_edges)
+kd = KDistribution.create(z, np.broadcast_to([[4e-4, 4e-3]], (32, 2)).copy(), [0.7, 0.3],
+                          wavelength_limits=(2.6, 2.8), spectral_fraction=1.0)
+cfg = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False,
+                       majorant_block_size=16)
+integ = Integrator.create(domain_with_gas_component(dom, kd.absorption_profiles_on(z)[:, 0]),
+                          cfg, device="cuda")
+cache = {}
+run = lambda seed: run_band(integ, dom, kd, src, N, 2, seed=seed,
+                            derive=lambda r: {"fup": r.mean_flux_up}, integrator_cache=cache,
+                            n_lanes=L)
+float(run(5).mean["derived"]["fup"])
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+fup = float(run(6).mean["derived"]["fup"])
+dt = time.perf_counter() - t0
+out["broadband"] = {"photons_per_s": 2 * 2 * N / dt, "seconds": [dt], "fup": fup}
+n_land = 1 << 23
+out["landsat"] = median_rate(Integrator.create(make_landsat_cloud(1.0), flux, device="cuda")
+                             .batch_fn(src, n_land, n_lanes=L), n_land, 1, 510)
+print("RATES " + json.dumps(out))
+"""
+
+
+def rates_ab(trees: dict, card: str) -> list:
+    """Each tree's four rates from a fresh process, twice, alternating."""
+    names = list(trees)
+    out = []
+    for r in range(2):
+        for name in order(names, r):
+            env = dict(os.environ, PYTHONPATH=str(trees[name]))
+            done = subprocess.run([sys.executable, "-c", _RATES], cwd=trees[name], env=env,
+                                  capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"rates of tree {name} failed:\n{done.stderr[-4000:]}")
+            line = next(ln for ln in done.stdout.splitlines() if ln.startswith("RATES "))
+            rec = json.loads(line[len("RATES "):])
+            out.append({"tree": name, "round": r, **rec})
+            cs.say("ab rates", tree=name, round=r,
+                   **{f"{k}_photons_per_s": f"{v['photons_per_s']:.4e}"
+                      for k, v in rec.items() if isinstance(v, dict)},
+                   **{f"{k}_fup": f"{v['fup']:.6f}" for k, v in rec.items()
+                      if isinstance(v, dict)},
+                   first_batch_after_s=f"{rec['first_batch_after_s']:.1f}",
+                   card=json.dumps(card))
     return out
 
 
@@ -225,8 +340,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build", action="append", default=[], metavar="NAME=DIR",
                     help="another csrc directory to build and compare")
+    ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
+                    help="another checkout's root, for the rates part")
     ap.add_argument("--parts", default="blocks,batches,broadband",
-                    help="comma-separated subset of blocks, batches, broadband")
+                    help="comma-separated subset of blocks, batches, broadband, rates")
     ap.add_argument("--cases", default="",
                     help="comma-separated block and batch case names (default: all)")
     ap.add_argument("--out", default=str(ROOT / "build" / "event_block_ab.json"),
@@ -239,12 +356,17 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    builds = build_all(dirs)
-    cs.say("ab builds", builds=",".join(builds), card=json.dumps(card))
-    dev = torch.device("cuda", 0)
     parts = args.parts.split(",")
-    cases = set(filter(None, args.cases.split(",")))
     result = {"card": card, "builds": {k: str(v) for k, v in dirs.items()}}
+    if "rates" in parts:
+        trees = {"this": ROOT, **{k: Path(v).resolve()
+                                  for k, v in (t.split("=", 1) for t in args.tree)}}
+        result["rates"] = rates_ab(trees, card)
+    if set(parts) & {"blocks", "batches", "broadband"}:
+        builds = build_all(dirs)
+        cs.say("ab builds", builds=",".join(builds), card=json.dumps(card))
+    dev = torch.device("cuda", 0)
+    cases = set(filter(None, args.cases.split(",")))
     if "blocks" in parts:
         result["blocks"] = block_ab(builds, dev, card, cases)
     if "batches" in parts:

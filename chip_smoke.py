@@ -4,8 +4,11 @@
 Builds the CUDA kernels from i3rc_tpu_torch/csrc (printing ptxas registers,
 resident CTAs per SM and a SASS census), checks the event block's flux,
 radiance-detector, gas-channel and column variants bit for bit against their
-plain PyTorch twins on a full and a tail state, and the column-read probe,
-then drives the port's paths — the
+plain PyTorch twins on a full and a tail state, the whole block of the trace
+loop (prologue + events, one launch) against its plain version on mid-flight
+states of every variant and source kind, plans past the old reach of the
+kernel (9 detectors, K = 4), and the column-read probe, then drives the
+port's paths — the
 I3RC step-cloud flux run, the step-cloud run with the three radiance
 detectors of examples/monteCarloDriver_stepCloud.nml, each through
 ``Integrator.batch_fn`` and the namelist driver, the cloud + gas slab against
@@ -143,14 +146,22 @@ def ctas_per_sm(registers: int, threads: int = 256) -> int:
     return min(65536 // per_warp, 64) // (threads // 32)
 
 
-# Event-block instantiations by template arguments (K, CHAIN, ABS, TY, DET,
-# IW, GAS, COL, SLICES), for the SASS census: the ones the main paths
-# launch, then the detector tally of more than 751 bins, which no phase runs.
-CENSUS = {"column_K32_chain2": "ILi32ELi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0E",
-          "detectors_K8_iwabuchi": "ILi8ELi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1E",
-          "gas_detectors_K8": "ILi8ELi0ELb0ELb0ELb1ELb0ELb1ELb0ELb1E",
-          "detectors_K8_iwabuchi_wide": "ILi8ELi0ELb0ELb0ELb1ELb1ELb0ELb0ELb0E"}
-SASS_OPS = ("MUFU", "IMAD.HI", "LDG", "ATOMS", "CAS", "SHFL", "MATCH", "BAR", "ATOMG", "RED")
+# Event-block instantiations by template arguments (CHAIN, ABS, TY, DET, IW,
+# GAS, COL, SLICES, DCAP), for the SASS census: the ones the main paths
+# launch, then the detector tally of more than 751 bins and the Iwabuchi
+# variant sized for 16 detectors, which only the checks run.
+CENSUS = {"flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8EE",
+          "gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8EE",
+          "column_chain2": "ILi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0ELi8EE",
+          "detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8EE",
+          "gas_detectors": "ILi0ELb0ELb0ELb1ELb0ELb1ELb0ELb1ELi8EE",
+          "detectors_iwabuchi_wide": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb0ELi8EE",
+          "detectors_iwabuchi_16": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi16EE"}
+# Opcode families counted per instantiation (static counts of the listing,
+# not of a run): "all" is every instruction; IMAD.HI and IMAD.WIDE are the
+# 32 x 32 -> 64 bit multiplies of Philox, which issue at half the FP32 rate.
+SASS_OPS = ("all", "MUFU", "IMAD", "IMAD.HI", "IMAD.WIDE", "FFMA", "FMUL", "FADD", "LDG",
+            "ATOMS", "CAS", "SHFL", "MATCH", "BAR", "ATOMG", "RED")
 
 
 def sass_census(library: Path) -> dict:
@@ -172,7 +183,8 @@ def sass_census(library: Path) -> dict:
                                       line)):
             op = m[1]
             for fam in SASS_OPS:
-                if op == fam or op.startswith(fam + ".") or (fam == "CAS" and "CAS" in op):
+                if (fam == "all" or op == fam or op.startswith(fam + ".")
+                        or (fam == "CAS" and "CAS" in op)):
                     counts[name][fam] += 1
     return counts
 
@@ -185,7 +197,7 @@ def ptxas_by_variant(log: str) -> dict:
     out = {}
     name = None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*fast_event_block_kernelILi\d+ELi\d+"
+        m = re.search(r"Compiling entry function '\w*fast_event_block_kernelILi\d+"
                       r"ELb\dELb\dELb(\d)ELb\dELb(\d)ELb(\d)E", line)
         probe = "Compiling entry function" in line and "column_read_probe_kernel" in line
         if m or probe:
@@ -204,6 +216,25 @@ def ptxas_by_variant(log: str) -> dict:
             n, r, b = out[name]
             out[name] = (n, max(r, int(m[1])), b)
     return {k: f"{n}x/{r}regs/{b}B/{ctas_per_sm(r)}cta" for k, (n, r, b) in sorted(out.items())}
+
+
+def ptxas_of_census(log: str) -> dict:
+    """Per CENSUS instantiation: its registers, the resident CTAs per SM they
+    allow, and its stack-frame and spill-store bytes, from ptxas -v."""
+    out = {}
+    lines = log.splitlines()
+    for name, mangled in CENSUS.items():
+        at = next((k for k, ln in enumerate(lines) if "Compiling entry function" in ln
+                   and f"fast_event_block_kernel{mangled}" in ln), None)
+        if at is None:
+            continue
+        text = "\n".join(lines[at:at + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", text)
+        if regs and frame:
+            out[name] = dict(registers=int(regs[1]), ctas_per_sm=ctas_per_sm(int(regs[1])),
+                             stack_bytes=int(frame[1]), spill_store_bytes=int(frame[2]))
+    return out
 
 
 def _load_tests_module(name: str):
@@ -234,7 +265,8 @@ def variant(spec) -> str:
     return "detectors" if spec.det is not None else "flux"
 
 
-def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None):
+def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None,
+                 n_detectors: int = 0):
     """Two lane states of a scene at L = 2^18 for timing one K-event block:
     "full", a mid-flight state whose dead lanes took fresh photons as the
     trace loop's refill gives them (every lane alive at entry), and "tail",
@@ -245,7 +277,9 @@ def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None,
     chain depth (3), or with the two detectors GAS_DET_* and no roulette.
     With ``chain`` (-1 for the auto depth) the scene is the Landsat cloud,
     run by the column variant at that chain depth and at ``K`` events per
-    block (None: the planner's).  Returns (spec, key, a maker of fresh
+    block (None: the planner's).  With ``n_detectors`` the step cloud
+    carries that many detectors, an azimuth scan at mu = 0.5 with the
+    roulette; without ``chain``, ``K`` is the separable plan's K.  Returns (spec, key, a maker of fresh
     accumulators (None without detectors), [(name, state, block index)])."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
                                 make_landsat_cloud, make_step_cloud)
@@ -260,9 +294,12 @@ def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None,
         det = dict(intensity_mus=GAS_DET_MUS, intensity_phis=GAS_DET_PHIS) if detectors else {}
         integ = Integrator.create(dom, flux_cfg, device=dev, **det)
     elif detectors:
+        mus, phis = DET_MUS, DET_PHIS
+        if n_detectors:
+            mus = [0.5] * n_detectors
+            phis = [360.0 * d / n_detectors for d in range(n_detectors)]
         integ = Integrator.create(make_step_cloud(ssa), radiance_config(),
-                                  intensity_mus=DET_MUS, intensity_phis=DET_PHIS,
-                                  device=dev)
+                                  intensity_mus=mus, intensity_phis=phis, device=dev)
     elif chain is not None:
         integ = Integrator.create(make_landsat_cloud(ssa),
                                   IntegratorConfig(use_ray_tracing=False, max_events=500,
@@ -270,7 +307,8 @@ def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None,
                                   device=dev)
     else:
         integ = Integrator.create(make_step_cloud(ssa),
-                                  IntegratorConfig(use_ray_tracing=False, max_events=500),
+                                  IntegratorConfig(use_ray_tracing=False, max_events=500,
+                                                   fastpath_unroll=K),
                                   device=dev)
     spec = event_spec(integ.geometry, integ._fast_plan, integ.config)
     check(spec.gas == (gas is not None) and (spec.det is not None) == detectors
@@ -309,7 +347,9 @@ def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None,
 
 
 def time_block_ms(run, s0, new_acc, n: int) -> float:
-    """Mean CUDA-event time of ``run(state, acc)`` over n fresh copies of s0."""
+    """Mean CUDA-event time of ``run(state, acc)`` over n fresh copies of s0
+    (``new_acc`` makes the second argument: an accumulator, or the buffers
+    of a whole block)."""
     total = 0.0
     for _ in range(n):
         s, acc_s = s0.clone(), new_acc()
@@ -322,17 +362,41 @@ def time_block_ms(run, s0, new_acc, n: int) -> float:
     return total / n
 
 
-def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None):
+def device_block_ms(run, s0, new_acc, n: int) -> float:
+    """Mean device time of the block kernel in ``run(state, acc)`` over n
+    fresh copies of s0, from torch.profiler: the kernel's own time, without
+    the host's work between the first event and the launch (building the
+    parameter block), which the CUDA-event time of time_block_ms includes
+    on an idle device."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # The profiler now and then drops device records of a trace: take the
+    # mean over the launches it shows, from a trace that shows half of them.
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                run(s0.clone(), new_acc())
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if "fast_event_block_kernel" in e.key]
+        launches = sum(e.count for e in found)
+        if 2 * launches >= n:
+            break
+    check(0 < launches <= n, f"the profiler shows {launches} block kernels for {n} launches")
+    return sum(e.self_device_time_total for e in found) / launches / 1e3
+
+
+def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None,
+                   n_detectors: int = 0):
     """One K-event block, kernel vs twin, on the two states of block_states
     (same arguments).  With ``detectors`` the (n_cols, D) accumulators are
     compared too (relative to their largest bin).  Returns (spec, one dict
     per state: alive share and live lanes at entry, lane-events and
-    collisions of the block, bit_equal, errors, kernel and twin ms, bound)."""
+    collisions of the block, bit_equal, errors, kernel ms by CUDA events and
+    by the profiler (device_ms), twin ms, bound)."""
     from i3rc_tpu_torch.core.rng import philox_uniforms
     from i3rc_tpu_torch.kernels.event_block import (ALIVE, EVCT, ORDERS, event_block,
                                                      event_block_reference)
 
-    spec, key, new_acc, states = block_states(ssa, dev, detectors, gas, chain, K)
+    spec, key, new_acc, states = block_states(ssa, dev, detectors, gas, chain, K, n_detectors)
     n_twin = 5 if spec.K <= 8 else 2
     out = []
     for name, s0, kb_s in states:
@@ -363,6 +427,7 @@ def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=Non
 
         time_block_ms(run_kernel, s0, new_acc, 2)
         r["kernel_ms"] = time_block_ms(run_kernel, s0, new_acc, 20)
+        r["device_ms"] = device_block_ms(run_kernel, s0, new_acc, 20)
         r["twin_ms"] = time_block_ms(run_twin, s0, new_acc, n_twin)
         r["bound"] = bound_ms(variant(spec), r["lane_events"], state_bytes(spec, L_CHECK, live),
                               r["collisions"], spec.det.n if detectors else 0)
@@ -386,7 +451,8 @@ def block_fields(spec, r: dict, card: str) -> dict:
     if "acc_rel_err" in r:
         out["acc_rel_err"] = f"{r['acc_rel_err']:.3e}"
     out.update(lane_events=r["lane_events"], collisions=r["collisions"],
-               kernel_ms=f"{r['kernel_ms']:.4f}", twin_ms=f"{r['twin_ms']:.4f}",
+               kernel_ms=f"{r['kernel_ms']:.4f}", kernel_device_ms=f"{r['device_ms']:.4f}",
+               twin_ms=f"{r['twin_ms']:.4f}",
                bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1], card=json.dumps(card))
     return out
 
@@ -398,43 +464,56 @@ def batch_fields(bk: dict, card: str) -> dict:
                 live_lanes=bk["live"],
                 lane_events=bk["lane_events"], collisions=bk["collisions"],
                 bound_ms=f"{bk['bound'][0]:.3f}", bound_by=bk["bound"][1],
-                card=json.dumps(card))
+                blocks=bk["blocks"], budget_spent_at_block=bk["spent_at"],
+                drain_blocks=bk["blocks"] - bk["spent_at"], card=json.dumps(card))
 
 
 # GPU clock cycles of the spin queued before each timed launch (~1 ms).
 SPIN_CYCLES = 2_000_000
+# What the prologue moves per lane besides the event loop's rows: alive, pk
+# and the direction read, the direction written.
+PROLOGUE_BYTES_PER_LANE = 8 * 4
 
 
 def batch_kernel_time(run_batch, profile: bool = True) -> dict:
-    """One batch: the event kernel's device time summed over the batch, from
-    torch.profiler key_averages() (``profile``; its post-processing grows
-    too slow for a batch of a thousand blocks and more), and from CUDA
-    events around each launch.  Each launch is queued behind a ~1 ms spin
-    kernel, so that the host's work between the first event and the launch
-    falls inside the spin, not between the events.  Also the launches, live
-    lanes at entry, collisions and, from the batch's
-    RawTallies.n_lane_events, lane-events; and the batch's bound.
+    """One batch: the block kernel's device time (prologue and events, one
+    launch per block) summed over the batch, from torch.profiler
+    key_averages() (``profile``; its post-processing grows too slow for a
+    batch of a thousand blocks and more), and from CUDA events around each
+    launch.  Each launch is queued behind a ~1 ms spin kernel, so that the
+    host's work between the first event and the launch falls inside the
+    spin, not between the events.  Also the launches, the blocks of the
+    trace and the block at whose entry the budget was spent (the rest is the
+    drain), the lanes alive after each refill, and, from the batch's
+    RawTallies.n_lane_events, lane-events; collisions (the growth of
+    ``orders``, with the refills' resets added back: exact but for the one
+    block in which the budget runs out); and the batch's bound.
     ``kernel_ms`` is the profiler's sum where it shows device time, else the
     events' sum."""
     import i3rc_tpu_torch.integrators.fastpath as fp
-    from i3rc_tpu_torch.kernels.event_block import ALIVE, ORDERS
+    from i3rc_tpu_torch.kernels.event_block import ALIVE, DONE, ORDERS, SPENT
 
-    orig = fp.event_block
+    orig = fp.fused_block
     rec = []
 
-    def bracketed(spec, st, key, kb, acc=None):
-        live = st.i[ALIVE].sum(dtype=torch.int64)
+    def bracketed(spec, pro, st, buf, key, source, kb):
+        dead = st.i[ALIVE] == 0
+        n_dead = dead.sum(dtype=torch.int64)
+        dead_orders = (st.i[ORDERS] * dead).sum(dtype=torch.int64)
         orders = st.i[ORDERS].sum(dtype=torch.int64)
+        launched = buf.ctl[kb & 1].clone()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         a.record()
-        orig(spec, st, key, kb, acc)
+        orig(spec, pro, st, buf, key, source, kb)
         b.record()
-        rec.append((spec, a, b, live, st.i[ORDERS].sum(dtype=torch.int64) - orders,
-                    st.n_lanes))
+        taken = buf.ctl[(kb + 1) & 1] - launched
+        reset = dead_orders * taken // n_dead.clamp(min=1)
+        rec.append((spec, a, b, st.n_lanes - n_dead + taken,
+                    st.i[ORDERS].sum(dtype=torch.int64) - orders + reset, st.n_lanes, buf))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    fp.event_block = bracketed
+    fp.fused_block = bracketed
     try:
         if profile:
             with torch.profiler.profile(activities=acts) as prof:
@@ -444,22 +523,239 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
             raw = run_batch()
             torch.cuda.synchronize()
     finally:
-        fp.event_block = orig
-    prof_us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-                  for e in prof.key_averages()
+        fp.fused_block = orig
+    prof_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if "fast_event_block_kernel" in e.key) if profile else 0
     spec = rec[0][0]
     lives = torch.stack([r[3] for r in rec]).tolist()
     collisions = int(torch.stack([r[4] for r in rec]).sum())
     events = int(raw.n_lane_events)
-    n_bytes = sum(state_bytes(spec, r[5], n) for r, n in zip(rec, lives))
+    n_bytes = sum(state_bytes(spec, r[5], n) + PROLOGUE_BYTES_PER_LANE * r[5]
+                  for r, n in zip(rec, lives))
     events_ms = sum(r[1].elapsed_time(r[2]) for r in rec)
     kernel_ms, source = (prof_us / 1e3, "profiler") if prof_us else (events_ms, "cuda-events")
+    ctl = rec[-1][6].ctl.tolist()
     return {"launches": len(rec), "kernel_ms": kernel_ms, "kernel_ms_from": source,
             "events_ms": events_ms, "live": sum(lives), "collisions": collisions,
-            "lane_events": events,
+            "lane_events": events, "blocks": raw.n_iterations // spec.K,
+            "spent_at": ctl[SPENT] if ctl[SPENT] >= 0 else ctl[DONE],
             "bound": bound_ms(variant(spec), events, n_bytes, collisions,
                               spec.det.n if spec.det is not None else 0)}
+
+
+def profile_batch(run_batch) -> dict:
+    """One batch under torch.profiler with nothing else in its way: the host
+    time to a synchronize, the device's busy time (every kernel's own time)
+    and idle share over the batch; and over the trace loop alone, from the
+    first block kernel's start to the last one's end on the device's
+    timeline (the batch's set-up, the launch sample in torch, lies before
+    it): the device kernels in that span, per block launch, and the
+    device's idle share there."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        raw = run_batch()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end
+               > e.time_range.start and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    blocks = [e for e in kernels if "fast_event_block_kernel" in e.name]
+    check(len(blocks) > 0, "the profiler shows no block kernel on the device")
+    us = lambda es: sum(e.time_range.end - e.time_range.start for e in es)
+    start, end = min(e.time_range.start for e in blocks), max(e.time_range.end for e in blocks)
+    loop = [e for e in kernels if start <= e.time_range.start <= end]
+    return {"raw": raw, "wall_ms": wall_ms, "busy_ms": us(kernels) / 1e3,
+            "idle_share": 1.0 - us(kernels) / 1e3 / wall_ms, "kernels": len(kernels),
+            "block_ms": us(blocks) / 1e3, "block_launches": len(blocks),
+            "loop_ms": (end - start) / 1e3, "loop_kernels": len(loop),
+            "loop_idle_share": 1.0 - us(loop) / (end - start)}
+
+
+def profile_fields(pb: dict, K: int, card: str) -> dict:
+    """The say() fields of profile_batch's record."""
+    n = pb["block_launches"]
+    return dict(blocks=pb["raw"].n_iterations // K, block_launches=n,
+                device_kernels=pb["kernels"], setup_kernels=pb["kernels"] - pb["loop_kernels"],
+                loop_kernels_per_block=f"{pb['loop_kernels'] / n:.3f}",
+                host_ms=f"{pb['wall_ms']:.3f}", host_ms_per_block=f"{pb['wall_ms'] / n:.4f}",
+                device_busy_ms=f"{pb['busy_ms']:.3f}", block_kernel_ms=f"{pb['block_ms']:.3f}",
+                device_idle_share=f"{pb['idle_share']:.4f}", loop_ms=f"{pb['loop_ms']:.3f}",
+                loop_device_idle_share=f"{pb['loop_idle_share']:.4f}", card=json.dumps(card))
+
+
+# ---------------------------------------------------------------------------
+# The whole block (prologue + events) against its plain version
+
+SOURCE_KINDS = ("directional", "random_azimuth", "flux_weighted", "spotlight",
+                "internal_flux", "internal_intensity")
+
+
+def photon_source(kind: str):
+    from i3rc_tpu_torch import PhotonSource
+
+    return {"directional": lambda: PhotonSource.directional(0.5, 0.0),
+            "random_azimuth": lambda: PhotonSource.random_azimuth(0.6),
+            "flux_weighted": PhotonSource.flux_weighted,
+            "spotlight": lambda: PhotonSource.spotlight(0.5, 30.0, 0.3, 0.6),
+            "internal_flux": lambda: PhotonSource.internal_flux(0.4, 0.5, 0.7, False,
+                                                                delta_x=0.2, delta_y=0.1),
+            "internal_intensity": lambda: PhotonSource.internal_intensity(
+                0.4, 0.5, 0.7, -0.8, 45.0)}[kind]()
+
+
+def fused_vs_reference(name: str, integ, source, dev, card: str, timed: bool = False):
+    """One whole block of the trace loop, kernel against plain version, at
+    L = 2^18 on a state two blocks into a trace (pending exits of every kind
+    the plan has, dead lanes) with a budget that covers half of the dead
+    lanes, so that the FIFO rank decides which of them take a photon.  All
+    13 state rows, the flux and volume tallies, the control state (launched,
+    loop end, budget) and the next block's dead counts must be equal bit
+    for bit, the detector accumulator within 1e-9 relative.  Returns a dict
+    with the check's counts and, when ``timed``, the fused kernel's ms, the
+    kernel's ms for the K events alone on the same lanes, the plain version's
+    ms (CUDA events, fresh copies) and the bound."""
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.integrators.fastpath import event_spec, launch_state, prologue_spec
+    from i3rc_tpu_torch.kernels.event_block import (ALIVE, EVCT, ORDERS, PK, block_buffers,
+                                                     event_block, flush, fused_block,
+                                                     fused_block_reference, refill,
+                                                     renormalize)
+
+    geom, cfg = integ.geometry, integ.config
+    spec = event_spec(geom, integ._fast_plan, cfg)
+    key = batch_key(SEED, 40)
+    st = launch_state(geom, source.sample(key, L_CHECK, dev), L_CHECK,
+                      gas_key=key if spec.gas else None)
+    pro = prologue_spec(geom, spec, cfg, 100 * L_CHECK)
+    buf = block_buffers(spec, pro, st, L_CHECK)
+    kb = 2
+    for k in range(kb):
+        fused_block(spec, pro, st, buf, key, source, k)
+    launched = int(buf.ctl[kb & 1])
+    dead0 = st.i[ALIVE] == 0
+    n_dead = int(dead0.sum())
+    pending = {k: int((st.i[PK] == k).sum()) for k in (1, 2, 3)}
+    check(n_dead > 1000 and pending[1] + pending[2] > 0
+          and (pending[3] > 0) == pro.deaths, f"{name}: state {n_dead} dead, pending {pending}")
+    pro = replace(pro, n_photons=launched + n_dead // 2)
+    buf = block_buffers(spec, pro, st, launched, kb)
+
+    run_kernel = lambda s, b: fused_block(spec, pro, s, b, key, source, kb)
+    run_plain = lambda s, b: fused_block_reference(spec, pro, s, b, key, source, kb)
+    got_st, got, ref_st, ref = st.clone(), buf.clone(), st.clone(), buf.clone()
+    run_kernel(got_st, got)
+    run_plain(ref_st, ref)
+    torch.cuda.synchronize()
+    slot = (kb + 1) & 1
+    taken = int(ref.ctl[slot]) - launched
+    same = {"f": torch.equal(got_st.f, ref_st.f), "i": torch.equal(got_st.i, ref_st.i),
+            "columns": torch.equal(got.columns, ref.columns),
+            "vol": torch.equal(got.vol, ref.vol), "ctl": torch.equal(got.ctl, ref.ctl),
+            "dead": torch.equal(got.dead[slot], ref.dead[slot])}
+    err = float((got_st.f - ref_st.f).abs().max())
+    acc_rel = 0.0
+    if ref.acc is not None:
+        acc_rel = float((got.acc - ref.acc).abs().max() / ref.acc.abs().max())
+        check(float(ref.acc.sum()) > 0 and acc_rel <= 1e-9, f"{name}: accumulator {acc_rel}")
+    check(all(same.values()), f"{name}: fused kernel and plain version differ: {same}, "
+                              f"max abs error {err}")
+    check(taken == n_dead // 2 and float(ref.columns.sum()) == sum(
+        pending[k] for k in range(1, pro.n_kinds + 1)), f"{name}: taken {taken}")
+    check(not pro.vol_tally or float(ref.vol.sum()) == pending[3], f"{name}: volume tally")
+    ran = ref_st.i[EVCT] > st.i[EVCT]
+    r = {"name": name, "max_abs_err": err, "lane_events": int((ref_st.i[EVCT] - st.i[EVCT]).sum()),
+         "collisions": int((ref_st.i[ORDERS] - torch.where(dead0 & ran, 0, st.i[ORDERS])).sum()),
+         "live": int((~dead0).sum()) + taken}
+    fields = dict(case=name, source=source.kind, lanes=L_CHECK, K=spec.K, chain=spec.chain,
+                  dead_at_entry=n_dead, taken=taken,
+                  flushed=",".join(str(pending[k]) for k in (1, 2, 3)),
+                  volume_tally=pro.vol_tally, bit_equal=True, max_abs_err=f"{err:.3e}")
+    if ref.acc is not None:
+        fields["acc_rel_err"] = f"{acc_rel:.3e}"
+    if timed:
+        ms = lambda run, n, s0=st: time_block_ms(run, s0, buf.clone, n)
+        ms(run_kernel, 2)
+        r["kernel_ms"], r["twin_ms"] = ms(run_kernel, 20), ms(run_plain, 3)
+        # The K events alone on the same lanes (the state after the plain
+        # prologue, prologue off): the difference is the prologue's cost.
+        after, spare = st.clone(), buf.clone()
+        renormalize(after)
+        flush(pro, spare.columns, spare.vol, after)
+        refill(spec, pro, after, spare.ctl[kb & 1].clone(), key, source, kb)
+        events_only = lambda s, b: event_block(spec, s, key, kb, b.acc)
+        ms(events_only, 2, after)
+        r["events_ms"] = ms(events_only, 20, after)
+        r["device_ms"] = device_block_ms(run_kernel, st, buf.clone, 20)
+        r["events_device_ms"] = device_block_ms(events_only, after, buf.clone, 20)
+        n_bytes = state_bytes(spec, L_CHECK, r["live"]) + PROLOGUE_BYTES_PER_LANE * L_CHECK
+        r["bound"] = bound_ms(variant(spec), r["lane_events"], n_bytes, r["collisions"],
+                              spec.det.n if spec.det is not None else 0)
+        fields.update(lane_events=r["lane_events"], collisions=r["collisions"],
+                      fused_kernel_ms=f"{r['kernel_ms']:.4f}",
+                      events_only_ms=f"{r['events_ms']:.4f}",
+                      fused_device_ms=f"{r['device_ms']:.4f}",
+                      events_only_device_ms=f"{r['events_device_ms']:.4f}",
+                      plain_ms=f"{r['twin_ms']:.4f}",
+                      bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+    say("4b fused-block-vs-plain", **fields, card=json.dumps(card))
+    return r
+
+
+def fused_block_checks(dev, card: str) -> dict:
+    """Phase 4b: the fused block of every variant, with and without the
+    volume tally, and of every source kind; returns the timed records by
+    variant name."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, make_landsat_cloud, make_step_cloud
+    from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
+
+    flux = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                            compute_volume_absorption=False)
+    vol = replace(flux, compute_volume_absorption=True)
+    make = lambda dom, cfg, **kw: Integrator.create(dom, cfg, device=dev, **kw)
+    directional = photon_source("directional")
+    timed = {}
+    timed["flux"] = fused_vs_reference("flux", make(make_step_cloud(1.0), flux), directional,
+                                       dev, card, timed=True)
+    for kind in SOURCE_KINDS[1:]:
+        fused_vs_reference(f"flux-absorbing-volume-{kind}", make(make_step_cloud(0.9), vol),
+                           photon_source(kind), dev, card)
+    uniform = domain_with_gas_component(make_step_cloud(1.0), np.full(32, GAS_EXT))
+    timed["gas"] = fused_vs_reference("gas", make(uniform, flux), directional, dev, card,
+                                      timed=True)
+    layered = domain_with_gas_component(make_step_cloud(0.99), LAYERED_GAS)
+    fused_vs_reference("gas-layered-volume", make(layered, vol), photon_source("flux_weighted"),
+                       dev, card)
+    timed["detectors"] = fused_vs_reference(
+        "detectors", make(make_step_cloud(1.0), radiance_config(), intensity_mus=DET_MUS,
+                          intensity_phis=DET_PHIS), directional, dev, card, timed=True)
+    timed["gas_detectors"] = fused_vs_reference(
+        "gas-detectors", make(uniform, flux, intensity_mus=GAS_DET_MUS,
+                              intensity_phis=GAS_DET_PHIS), directional, dev, card, timed=True)
+    timed["column"] = fused_vs_reference("column", make(make_landsat_cloud(1.0), flux),
+                                         directional, dev, card, timed=True)
+    fused_vs_reference("column-absorbing-volume", make(make_landsat_cloud(0.99), vol),
+                       photon_source("random_azimuth"), dev, card)
+    return timed
+
+
+def reach_checks(dev, card: str) -> None:
+    """Phase 4c: plans the card used to refuse, each against its twin on the
+    full and tail states: 9 detectors with the roulette (the variant sized
+    for 16), and K = 4 on the separable flux plan."""
+    spec, results = kernel_vs_twin(1.0, dev, detectors=True, n_detectors=9)
+    check(spec.det.n == 9 and spec.det.iwabuchi, f"detector count {spec.det.n}")
+    for r in results:
+        check_block("9 detectors", r)
+        say("4c reach", detectors=spec.det.n, iwabuchi=True, n_draws=spec.n_draws,
+            **block_fields(spec, r, card))
+    spec, results = kernel_vs_twin(0.99, dev, K=4)
+    check(spec.K == 4 and spec.chain == 2, f"K {spec.K}")
+    for r in results:
+        check_block("K = 4", r)
+        say("4c reach", **block_fields(spec, r, card))
 
 
 def main() -> int:
@@ -491,15 +787,22 @@ def main() -> int:
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
         max_registers=max(regs) if regs else "n/a", spill_store_bytes=spills,
         **ptxas_by_variant(built.log))
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "ptxas.log").write_text(built.log)
     census = sass_census(built.path)
+    ptxas = ptxas_of_census(built.log)
     for name, ops in census.items():
-        say("2 sass", instantiation=name, **(ops if isinstance(ops, dict) else {"ops": ops}))
+        say("2 sass", instantiation=name, **ptxas.get(name, {}),
+            **(ops if isinstance(ops, dict) else {"ops": ops}))
     if "cuobjdump" not in census:
         for name in CENSUS:
             check(name in census, f"{name} not found in the cuobjdump listing")
-        for name in ("detectors_K8_iwabuchi", "gas_detectors_K8"):
-            # No compare-and-swap loop: no fp64 shared-memory atomic remains.
-            check(census[name]["CAS"] == 0 and census[name]["ATOMS"] == 0,
+        for name in ("detectors_iwabuchi", "gas_detectors", "detectors_iwabuchi_16"):
+            # No compare-and-swap loop: the detector tally has no fp64 shared-
+            # memory atomic.  What shared atomics there are, are the
+            # prologue's int32 counts, which the flux variant has too.
+            check(all(census[name][op] == census["flux_chain2"][op] for op in ("CAS", "ATOMS")),
                   f"{name}: SASS {census[name]}")
 
     # 3. Philox: known answer, and the kernel's draws equal the torch stream
@@ -525,12 +828,19 @@ def main() -> int:
             say("4 kernel-vs-twin", ssa=ssa, **block_fields(spec, r, card))
         flux_timed = flux_timed or results[0]
 
+    # 4b. the whole block of the trace loop (prologue + K events, one launch)
+    # against its plain version, every variant and source kind
+    fused = fused_block_checks(dev, card)
+
+    # 4c. plans past the kernel's old reach: 9 detectors, K = 4
+    reach_checks(dev, card)
+
     # 5. the slice: step cloud, 2^24 photons at 2^18 lanes
     cfg = IntegratorConfig(use_ray_tracing=False, max_events=500)
     src = PhotonSource.directional(0.5, 0.0)
     eb.reset_launch_counters()
-    fn = Integrator.create(make_step_cloud(1.0), cfg, device="cuda").batch_fn(
-        src, SLICE_PHOTONS, n_lanes=L_CHECK)
+    flux_integ = Integrator.create(make_step_cloud(1.0), cfg, device="cuda")
+    fn = flux_integ.batch_fn(src, SLICE_PHOTONS, n_lanes=L_CHECK)
     for w in range(2):
         fn(batch_key(SEED, 100 + w))
     torch.cuda.synchronize()
@@ -554,6 +864,16 @@ def main() -> int:
         anchor=ANCHOR_FUP, sigma=f"{sigma:.2e}",
         seconds=",".join(f"{t:.4f}" for t in times), photons_per_s=f"{rate:.4e}",
         launches=launches_slice, card=json.dumps(card))
+    # One more batch under the profiler alone (launches per block, the
+    # device's idle share), and one with each launch timed (the kernel's
+    # device time over the batch beside its bound).
+    key = batch_key(SEED, 110)
+    tracer = flux_integ.batch_tracer(SLICE_PHOTONS, L_CHECK)
+    flux_batch = lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)
+    say("5 slice-profile", photons=SLICE_PHOTONS, **profile_fields(profile_batch(flux_batch),
+                                                                  8, card))
+    flux_bk = batch_kernel_time(flux_batch)
+    say("5 slice-batch-kernel", photons=SLICE_PHOTONS, **batch_fields(flux_bk, card))
 
     # 6. absorbing variant: closure with the absorbed flux
     before = eb.event_block.launches
@@ -568,8 +888,6 @@ def main() -> int:
         fabs=f"{parts[2]:.6f}", launches=eb.event_block.launches - before)
 
     # 7. the driver on a flux-only namelist
-    out = ROOT / "build" / "chip_smoke"
-    out.mkdir(parents=True, exist_ok=True)
     write_domains(str(out))
     nml = out / "stepcloud_flux.nml"
     nml.write_text(textwrap.dedent(f"""
@@ -654,8 +972,11 @@ def main() -> int:
     # The detector kernel's device time over one more whole batch, beside its bound.
     key = batch_key(SEED, 320)
     tracer = rad_integ.batch_tracer(SLICE_PHOTONS, L_CHECK)
-    say("9 radiance-batch-kernel", photons=SLICE_PHOTONS, **batch_fields(
-        batch_kernel_time(lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)), card))
+    rad_batch = lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)
+    say("9 radiance-profile", photons=SLICE_PHOTONS, **profile_fields(profile_batch(rad_batch),
+                                                                     8, card))
+    rad_bk = batch_kernel_time(rad_batch)
+    say("9 radiance-batch-kernel", photons=SLICE_PHOTONS, **batch_fields(rad_bk, card))
 
     # 10. the driver on the shipped radiance namelist, unmodified, run from the
     # directory that holds the domain files (its paths are relative)
@@ -703,7 +1024,7 @@ def main() -> int:
     # 13. the broadband slice at the bench row's size (bench.py:274-337): step
     # cloud, one band of k = 4e-4 and 4e-3 (weights 0.7 / 0.3), baked mode,
     # 2 batches of 2^24 photons per k point
-    bb_launches = broadband_slice(dev, card)
+    bb_launches, gas_bk = broadband_slice(dev, card)
 
     # 14. examples/broadbandDriver.nml, unmodified, through the port's driver
     # from a directory holding the inputs that examples/make_broadband_inputs.py
@@ -712,11 +1033,11 @@ def main() -> int:
 
     # 15. column variant vs twin: one K-event block from a mid-flight Landsat
     # state, ssa 1 at the auto chain depth (2), ssa 0.99 at depth 2 and 0
-    col_ms, col_plain_ms, col_bound = column_kernel_checks(dev, card)
+    col_timed = column_kernel_checks(dev, card)
 
     # 16. the Landsat flux slice at full size (bench.py:168-190): 2^23
     # photons at 2^18 lanes, median of 3 after a warm-up
-    launches_col = landsat_slice(card)
+    launches_col, col_bk = landsat_slice(card)
 
     # 17. Landsat at ssa 0.99 with heating rates (1.95M-cell volume tally)
     landsat_absorbing()
@@ -729,33 +1050,53 @@ def main() -> int:
     probe = probe_checks(dev, card)
 
     # 20. results: every kernel with its launches on its path, its error
-    # against its twin, its time, the twin's and the least time the card
-    # could take.  No single PyTorch call computes a transport event or the
-    # probe's dependent read loop, so library_ms is null throughout.
+    # against its twin, its device time from the profiler (one block of K
+    # events, prologue off, on the full state; events_ms is the CUDA-event
+    # time of the same launch, which on an idle device includes the host's
+    # building of the parameter block), the twin's and the least time the
+    # card could take; beside them the whole block's device time on a
+    # mid-flight state (fused_ms, with the K events alone on the same lanes,
+    # its plain version's and its bound) and the kernel's device time over one
+    # batch of the main path with that batch's bound.  No single PyTorch
+    # call computes a transport event or the probe's dependent read loop,
+    # so library_ms is null throughout.
     print(smi)
     source = "i3rc_tpu_torch/csrc/fast_event_block.cu"
     gas_source = "i3rc_tpu_torch/csrc/fast_event_block_gas.cu"
-    entry = lambda name, src, replaces, launches, err, ms, plain, bound: {
-        "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
-    timed = lambda r: (r["kernel_ms"], r["twin_ms"], r["bound"])
+
+    def entry(name, src, replaces, launches, err, ms, plain, bound, events_ms, whole=None,
+              batch=None):
+        e = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+             "events_ms": events_ms}
+        if whole is not None:
+            e.update(fused_ms=whole["device_ms"], fused_events_only_ms=whole["events_device_ms"],
+                     fused_plain_ms=whole["twin_ms"],
+                     fused_bound_ms=whole["bound"][0],
+                     max_abs_err=max(err, whole["max_abs_err"]))
+        if batch is not None:
+            e.update(batch_ms=batch["kernel_ms"], batch_launches=batch["launches"],
+                     batch_bound_ms=batch["bound"][0])
+        return e
+
+    timed = lambda r: (r["device_ms"], r["twin_ms"], r["bound"], r["kernel_ms"])
     print(json.dumps({"kernels": [
         entry("fast_event_block", source, "i3rc_tpu/integrators/fastpath.py:665",
-              launches_slice, max_err, *timed(flux_timed)),
+              launches_slice, max_err, *timed(flux_timed), fused["flux"], flux_bk),
         entry("fast_event_block_detectors", source,
               "i3rc_tpu/integrators/fastpath.py:665 (n_detectors>0)", launches_rad, det_err,
-              *timed(det_timed)),
+              *timed(det_timed), fused["detectors"], rad_bk),
         entry("fast_event_block_gas", gas_source,
               "i3rc_tpu/integrators/fastpath.py:665 (gas=True)", bb_launches, gas_err[False],
-              *gas_ms[False]),
+              *gas_ms[False], fused["gas"], gas_bk),
         entry("fast_event_block_gas_detectors", gas_source,
               "i3rc_tpu/integrators/fastpath.py:665 (gas=True)", launches_gas_det,
-              gas_err[True], *gas_ms[True]),
+              gas_err[True], *gas_ms[True], fused["gas_detectors"]),
         entry("fast_event_block_column", "i3rc_tpu_torch/csrc/fast_event_block_col.cu",
               "benchmarks/column_read_probe.py:83 (in the column event of "
-              "i3rc_tpu/integrators/fastpath.py:1320)", launches_col, 0.0, col_ms,
-              col_plain_ms, col_bound),
+              "i3rc_tpu/integrators/fastpath.py:1320)", launches_col, 0.0, *col_timed,
+              fused["column"], col_bk),
         entry("column_read_probe", "i3rc_tpu_torch/csrc/column_read_probe.cu",
               "benchmarks/column_read_probe.py:83", *probe)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -765,8 +1106,9 @@ def main() -> int:
 
 
 def gas_kernel_checks(dev, card: str):
-    """Phase 11; returns ({detectors: (kernel ms, twin ms, bound)}, {detectors:
-    max error}) with the times of the uniform gas at ssa 1 on the full state."""
+    """Phase 11; returns ({detectors: (kernel device ms, twin ms, bound, kernel
+    event ms)}, {detectors: max error}) with the times of the uniform gas at
+    ssa 1 on the full state."""
     gas_ms = {}
     gas_err = {False: 0.0, True: 0.0}
     uniform = np.full(32, GAS_EXT)
@@ -786,14 +1128,14 @@ def gas_kernel_checks(dev, card: str):
             say("11 gas-kernel-vs-twin", gas=gas, gas_faces=len(spec.gz.thresholds),
                 detectors=spec.det.n if detectors else 0, ssa=ssa, n_draws=spec.n_draws,
                 **block_fields(spec, r, card))
-        gas_ms.setdefault(detectors, (results[0]["kernel_ms"], results[0]["twin_ms"],
-                                      results[0]["bound"]))
+        gas_ms.setdefault(detectors, (results[0]["device_ms"], results[0]["twin_ms"],
+                                      results[0]["bound"], results[0]["kernel_ms"]))
     return gas_ms, gas_err
 
 
 def column_kernel_checks(dev, card: str):
-    """Phase 15; returns (kernel ms, twin ms, bound) of ssa 1 at the auto depth
-    and the planner's K (32) on the full state.  The column variant at chain
+    """Phase 15; returns (kernel device ms, twin ms, bound, kernel event ms) of
+    ssa 1 at the auto depth and the planner's K (32) on the full state.  The column variant at chain
     depth 2 and 0, K = 32 and 8, must equal its twin bit for bit on all 13
     state rows on both states."""
     out = None
@@ -807,14 +1149,16 @@ def column_kernel_checks(dev, card: str):
             check_block(what, r)
             say("15 column-kernel-vs-twin", ssa=ssa, n_draws=spec.n_draws,
                 columns=spec.n_x * spec.n_y, **block_fields(spec, r, card))
-        out = out or (results[0]["kernel_ms"], results[0]["twin_ms"], results[0]["bound"])
+        out = out or (results[0]["device_ms"], results[0]["twin_ms"], results[0]["bound"],
+                      results[0]["kernel_ms"])
     return out
 
 
-def landsat_slice(card: str) -> int:
+def landsat_slice(card: str) -> tuple[int, dict]:
     """Phase 16, at the planner's K (32); returns the column-kernel launches of
-    the three timed batches.  Then the kernel's device time over one more
-    batch, and three batches at K = 8 for the record."""
+    the three timed batches and the record of the kernel's device time over
+    one more batch (after one under the profiler alone); then three batches
+    at K = 8 for the record."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
                                 make_landsat_cloud)
     from i3rc_tpu_torch.kernels import event_block as eb
@@ -868,8 +1212,12 @@ def landsat_slice(card: str) -> int:
         K=integ._fast_plan.unroll, launches=launches, card=json.dumps(card))
     key = batch_key(SEED, 520)
     tracer = integ.batch_tracer(n, L_CHECK)
-    say("16 landsat-batch-kernel", photons=n, K=integ._fast_plan.unroll, **batch_fields(
-        batch_kernel_time(lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)), card))
+    land_batch = lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)
+    say("16 landsat-profile", photons=n, **profile_fields(profile_batch(land_batch),
+                                                         integ._fast_plan.unroll, card))
+    col_bk = batch_kernel_time(land_batch)
+    say("16 landsat-batch-kernel", photons=n, K=integ._fast_plan.unroll,
+        **batch_fields(col_bk, card))
     # At K = 8, the column K before the planner took the JAX K, for the record:
     # timed as at K = 32, median of 3 after a warm-up.
     fn8 = Integrator.create(make_landsat_cloud(1.0), replace(cfg, fastpath_unroll=8),
@@ -886,7 +1234,7 @@ def landsat_slice(card: str) -> int:
         seconds=",".join(f"{t:.4f}" for t in times8), photons_per_s=f"{n / t8:.4e}",
         blocks_per_batch=f"{blocks8:.1f}", ms_per_block=f"{1e3 * t8 / blocks8:.3f}",
         card=json.dumps(card))
-    return launches
+    return launches, col_bk
 
 
 def landsat_absorbing() -> None:
@@ -966,8 +1314,9 @@ def landsat_driver(land_dir: Path, card: str) -> None:
 
 
 def probe_checks(dev, card: str):
-    """Phase 19; returns (launches, max abs error, ms, twin ms, bound) of one
-    launch at 2^17 lanes."""
+    """Phase 19; returns (launches, max abs error, ms, twin ms, bound, ms) of
+    one launch at 2^17 lanes (CUDA events around 20 queued launches: no host
+    work falls between them, so the event time is the device's)."""
     from i3rc_tpu_torch import batch_key
     from i3rc_tpu_torch.kernels import column_probe as cp
 
@@ -1016,7 +1365,7 @@ def probe_checks(dev, card: str):
         kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}",
         ns_per_lane_event=f"{1e6 * k_ms / lane_events:.4f}", launches=launches,
         card=json.dumps(card))
-    return launches, err, k_ms, p_ms, bound
+    return launches, err, k_ms, p_ms, bound, k_ms
 
 
 def gas_slab_oracle(dev) -> None:
@@ -1056,8 +1405,10 @@ def gas_slab_oracle(dev) -> None:
         sigma=f"{sigma:.2e}", launches=eb.event_block.gas_launches)
 
 
-def broadband_slice(dev, card: str) -> int:
-    """Phase 13; returns the gas-kernel launches of the timed run."""
+def broadband_slice(dev, card: str) -> tuple[int, dict]:
+    """Phase 13; returns the gas-kernel launches of the timed run and the
+    record of the gas kernel's device time over one more batch of the first
+    k point (after one under the profiler alone)."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, KDistribution, PhotonSource,
                                 make_step_cloud, run_band)
     from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
@@ -1107,7 +1458,17 @@ def broadband_slice(dev, card: str) -> int:
         sigma=f"{sigma:.2e}", seconds=f"{dt:.4f}", photons_per_s=f"{rate:.4e}",
         blocks_per_batch=f"{launches / (kd.n_k * n_batches):.1f}", launches=launches,
         card=json.dumps(card))
-    return launches
+    from i3rc_tpu_torch import batch_key
+
+    key = batch_key(SEED, 420)
+    tracer = integ.batch_tracer(SLICE_PHOTONS, L_CHECK)
+    gas_batch = lambda: tracer(key, src.sample(key, L_CHECK, dev), src)
+    say("13 broadband-profile", photons=SLICE_PHOTONS, k_point=0,
+        **profile_fields(profile_batch(gas_batch), 8, card))
+    gas_bk = batch_kernel_time(gas_batch)
+    say("13 broadband-batch-kernel", photons=SLICE_PHOTONS, k_point=0,
+        **batch_fields(gas_bk, card))
+    return launches, gas_bk
 
 
 def broadband_driver(bb_dir: Path, card: str) -> int:

@@ -9,24 +9,27 @@ extern "C" {
 
 int i3rc_event_params_size(void) { return (int)sizeof(EventParams); }
 
-// Runs one K-event block in place on the given stream; with detectors it
-// adds their contributions to acc; with a column table (col not null) it
-// runs the column variant.  Returns cudaGetLastError() after the launch
+int i3rc_cta_threads(void) { return CTA_THREADS; }
+
+// Runs one block of params->K events in place on the given stream, after
+// the block's prologue when params->pro.on; with detectors it adds their
+// contributions to acc; with a column table (col not null) it runs the
+// column variant.  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported K, CHAIN, detector count or
 // column combination; the Python wrapper checks those first).
 int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
-                          const EventParams* params, int K, int chain, int absorbing,
+                          const EventParams* params, int chain, int absorbing,
                           int track_y, int detectors, int iwabuchi, int gas, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   bool ok;
   if (col != nullptr)
     ok = track_y && !detectors && !gas &&
-         launch_block_col(f, i, col, *params, K, chain, absorbing, st);
+         launch_block_col(f, i, col, *params, chain, absorbing, st);
   else if (gas)
-    ok = launch_block_gas(f, i, acc, *params, K, chain, absorbing, track_y, detectors,
+    ok = launch_block_gas(f, i, acc, *params, chain, absorbing, track_y, detectors,
                           iwabuchi, st);
   else
-    ok = launch_block<false>(f, i, acc, *params, K, chain, absorbing, track_y, detectors,
+    ok = launch_block<false>(f, i, acc, *params, chain, absorbing, track_y, detectors,
                              iwabuchi, st);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -119,6 +119,14 @@
 //    but add each group's sum with an atomicAdd, into one CTA histogram or
 //    the global accumulator.  The gas variant with detectors and Iwabuchi's
 //    variant share this path.
+//  * The TPU design left the block's prologue (renormalize, flush, FIFO
+//    refill) to XLA, which fused it around the Pallas call.  Carried over
+//    as torch ops it was some dozens of small kernels, a Philox source
+//    sample of every lane and a host round trip per block, around an event
+//    kernel of 1-3% of the block's time.  It is per-lane work on state the
+//    kernel loads anyway, so it is a stage of this kernel (see the note at
+//    the kernel): a block of the trace loop is one launch, and the host
+//    reads the loop's end from a device flag every few blocks.
 //  * What bounds them now (H100 runs of chip_smoke.py): a block whose lanes
 //    are nearly all dead is latency-bound, its few live warps spread over
 //    every CTA and the CTAs over two waves at 4 CTAs per SM (the register
@@ -134,10 +142,11 @@
 //    instead of (R, 128) tiles in VMEM.
 //  * Segment data arrive in one parameter struct (<= MAX_SEGMENTS thresholds
 //    per axis); loops run to the runtime count, so one build serves every
-//    domain and every k point of a spectral band.  K, CHAIN, absorbing,
+//    domain and every k point of a spectral band.  CHAIN, absorbing,
 //    track_y, detectors, Iwabuchi and the gas channel are template
-//    parameters; the detector count (<= MAX_DETECTORS) and the shadow-trace
-//    segments are runtime loops.
+//    parameters; K (any K >= 1: the event loop is not unrolled), the
+//    detector count (<= MAX_DETECTORS) and the shadow-trace segments are
+//    runtime values.
 //  * Iwabuchi's small-phase case keeps the transmittance: it contributes
 //    zeta/pi with probability (pf_pi/zeta) exp(-tau), the law of the
 //    reference's trace; the JAX fastpath drops exp(-tau) there.
@@ -152,16 +161,22 @@
 #include <stdint.h>
 
 #define MAX_SEGMENTS 24
-#define MAX_DETECTORS 8
+// Detectors a plan may carry.  The Iwabuchi variants hold one draw per
+// detector in registers: their instantiations are sized for DET_DRAWS_SMALL
+// detectors, and a second set, launched only past that, for MAX_DETECTORS.
+#define MAX_DETECTORS 16
+#define DET_DRAWS_SMALL 8
 #define STREAM_EVENT 0u
+#define STREAM_REFILL 1u
+#define STREAM_GAS 3u
 #define CTA_THREADS 256
 #define CTA_WARPS (CTA_THREADS / 32)
 #define FULL_MASK 0xffffffffu
 // Shared memory of a CTA: the default budget without opting in, the static
-// arrays (lane ids and per-warp live counts), and the most that one CTA
-// detector histogram may take (see hist_room).
+// arrays (lane ids, per-warp counts and two CTA sums), and the most that one
+// CTA detector histogram may take (see hist_room).
 #define SMEM_DEFAULT_BYTES (48 * 1024)
-#define SMEM_STATIC_BYTES ((CTA_THREADS + CTA_WARPS) * 4)
+#define SMEM_STATIC_BYTES ((CTA_THREADS + CTA_WARPS + 2) * 4)
 #define SMEM_ONE_HIST_BYTES (48 * 1024)
 
 struct StepChain {
@@ -195,6 +210,36 @@ struct DetParams {
   float g_lo[MAX_SEGMENTS + 1], g_hi[MAX_SEGMENTS + 1], g_v[MAX_SEGMENTS + 1];
 };
 
+// The photon source of the refill (i3rc_tpu_torch/core/illumination.py
+// PhotonSource.sample and wavefront.make_direction_cosines), every constant
+// the float32 value the plain version uses.
+struct SourceParams {
+  int uniform_xy;               // x, y uniform over the domain (else px, py)
+  int mu_mode;                  // 0 constant mu; 1 -sqrt(u); 2 max(sqrt(u), min_mu); 3 its negative
+  int phi_random;               // azimuth two_pi * u (else the constant direction dir)
+  float px, py, pz;             // normalized position constants
+  float delta_x, delta_y;       // finite detector extents (> 0: a second draw group)
+  float mu, min_mu, two_pi;
+  float dir[3];                 // direction cosines of a constant (mu, phi)
+  float x0, wx, y0, wy, z0, wz; // domain scaling: x0 + x * wx
+};
+
+// The block's prologue (renormalize, flush, FIFO refill) and the buffers it
+// works on.  on = 0: the event loop alone.
+struct Prologue {
+  int on;
+  int n_kinds;                  // columns of the flux tally: up, down (, absorbed)
+  int col_y;                    // the exit column bins y too
+  int vol_on, n_z;              // volume tally of kind-3 deaths
+  float inv_dz_cell;
+  long long n_photons;          // the batch's photon budget
+  double* columns;              // (n_cols, n_kinds) float64 counts
+  double* vol;                  // (n_cols * n_z) float64 counts
+  long long* ctl;               // launched (kb even), launched (kb odd), done, spent
+  int* dead;                    // (2, n_ctas): dead lanes per CTA at entry of even / odd kb
+  SourceParams src;
+};
+
 struct EventParams {
   StepChain fx, fy, fz;
   float x0, y0, z0, x_max, y_max, z_max;
@@ -206,10 +251,12 @@ struct EventParams {
   unsigned int key0, key1;      // Philox key (seed, batch)
   unsigned int kb;              // K-event block index
   int n_lanes;
+  int K;                        // events per launch
   DetParams det;                // read by the detector variants only
   StepChain gz;                 // gas chain over z, read by the gas variants only
-  int n_x, n_y;                 // column grid, read by the column variants only
+  int n_x, n_y;                 // column grid: the column variants and the flush
   float inv_dx, inv_dy, dx, dy;
+  Prologue pro;
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -755,6 +802,154 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
   s.alive = (alive && s.pk == 0 && !over) ? 1 : 0;
 }
 
+// One count into a float64 tally in device memory, with no value returned.
+// Spelled as the global-space reduction: in the out-of-line prologue the
+// tallies' pointers are generic, and a generic atomicAdd(double*) compiles to
+// a test for shared memory with a compare-and-swap loop beside the add.
+__device__ __forceinline__ void tally_add(double* addr, double v) {
+  asm volatile("red.global.add.f64 [%0], %1;" ::"l"(__cvta_generic_to_global(addr)), "d"(v)
+               : "memory");
+}
+
+// One source sample of the refill for `lane` at block p.kb: position scaled
+// to the domain and direction cosines, out = x, y, z, ux, uy, uz
+// (PhotonSource.sample at (lane, kb, group, STREAM_REFILL), then
+// launch_state's scaling and make_direction_cosines).  Not inlined: its
+// registers and the stack of sinf/cosf stay out of the event loop's budget.
+static __device__ __noinline__ void sample_source(const EventParams& p, int lane, float out[6]) {
+  const SourceParams& s = p.pro.src;
+  uint32_t w[4];
+  philox4x32_10((uint32_t)lane, p.kb, 0u, STREAM_REFILL, p.key0, p.key1, w);
+  float x = s.uniform_xy ? to_unit(w[0]) : s.px;
+  float y = s.uniform_xy ? to_unit(w[1]) : s.py;
+  const float u_mu = to_unit(w[2]), u_phi = to_unit(w[3]);
+  if (s.delta_x > 0.0f || s.delta_y > 0.0f) {
+    philox4x32_10((uint32_t)lane, p.kb, 1u, STREAM_REFILL, p.key0, p.key1, w);
+    if (s.delta_x > 0.0f) x = x + s.delta_x * (1.0f - 0.5f * to_unit(w[0]));
+    if (s.delta_y > 0.0f) y = y + s.delta_y * (1.0f - 0.5f * to_unit(w[1]));
+  }
+  out[0] = s.x0 + x * s.wx;
+  out[1] = s.y0 + y * s.wy;
+  out[2] = s.z0 + s.pz * s.wz;
+  if (!s.phi_random) {
+    out[3] = s.dir[0];
+    out[4] = s.dir[1];
+    out[5] = s.dir[2];
+    return;
+  }
+  float mu = s.mu;
+  if (s.mu_mode == 1) mu = -sqrtf(u_mu);
+  else if (s.mu_mode >= 2) mu = fmaxf(sqrtf(u_mu), s.min_mu);
+  if (s.mu_mode == 3) mu = -mu;
+  const float sin_theta = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+  const float phi = u_phi * s.two_pi;
+  out[3] = sin_theta * cosf(phi);
+  out[4] = sin_theta * sinf(phi);
+  out[5] = mu;
+}
+
+// The prologue of one block of the trace loop for the calling thread's own
+// lane (see the note at the kernel): renormalize, flush, refill; returns the
+// lane's alive flag after the refill.  Every thread of the CTA calls it.
+// Not inlined, so that its registers do not add to the event loop's (inline
+// it cost the column variant a resident CTA: 64 registers for 48).
+static __device__ __noinline__ int block_prologue(const EventParams& p, float* f, int* iv,
+                                                  bool gas, int* live_ids, int* warp_live,
+                                                  int* cta_sum) {
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const int lane0 = blockIdx.x * CTA_THREADS + t;
+  const size_t L = (size_t)p.n_lanes;
+  int alive0 = 0;
+  const Prologue& q = p.pro;
+  const int n_fbins = q.n_kinds * p.n_x * (q.col_y ? p.n_y : 1);
+  const bool flush_smem = n_fbins <= CTA_THREADS;
+  if (t == 0) cta_sum[0] = cta_sum[1] = 0;
+  if (flush_smem) live_ids[t] = 0;
+  __syncthreads();
+  const bool in_range = lane0 < p.n_lanes;
+  if (in_range) {
+    alive0 = iv[lane0];
+    const int pk = iv[2 * L + lane0];
+    const float ux = f[3 * L + lane0], uy = f[4 * L + lane0], uz = f[5 * L + lane0];
+    const float scale = rsqrtf(fmaxf(ux * ux + uy * uy + uz * uz, EPS12_F));
+    f[3 * L + lane0] = ux * scale;
+    f[4 * L + lane0] = uy * scale;
+    f[5 * L + lane0] = uz * scale;
+    if (pk != 0) {
+      int c = min(max((int)((f[lane0] - p.x0) * p.inv_dx), 0), p.n_x - 1);
+      if (q.col_y)
+        c = c * p.n_y + min(max((int)((f[L + lane0] - p.y0) * p.inv_dy), 0), p.n_y - 1);
+      if (pk <= q.n_kinds) {
+        if (flush_smem) atomicAdd(&live_ids[c * q.n_kinds + pk - 1], 1);
+        else tally_add(q.columns + (size_t)c * q.n_kinds + (pk - 1), 1.0);
+      }
+      if (q.vol_on && pk == 3) {
+        const int iz =
+            min(max((int)((f[2 * L + lane0] - p.z0) * q.inv_dz_cell), 0), q.n_z - 1);
+        tally_add(q.vol + (size_t)c * q.n_z + iz, 1.0);
+      }
+      iv[2 * L + lane0] = 0;
+    }
+  }
+  // The FIFO rank: dead lanes below this one in the CTA, and (while the
+  // budget lasts, or in the last CTA) in the CTAs below.
+  const long long launched = q.ctl[p.kb & 1u];
+  const bool budget = launched < q.n_photons;
+  const bool last = blockIdx.x == gridDim.x - 1;
+  const bool dead = in_range && !alive0;
+  const unsigned dead_mask = __ballot_sync(FULL_MASK, dead);
+  if (wl == 0) warp_live[warp] = __popc(dead_mask);
+  if (budget || last) {
+    const int* dead_in = q.dead + (size_t)(p.kb & 1u) * gridDim.x;
+    int below = 0;
+    for (int k = t; k < (int)blockIdx.x; k += CTA_THREADS) below += dead_in[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) below += __shfl_xor_sync(FULL_MASK, below, o);
+    if (wl == 0 && below) atomicAdd(&cta_sum[0], below);
+  }
+  __syncthreads();
+  if (flush_smem && t < n_fbins && live_ids[t]) tally_add(q.columns + t, (double)live_ids[t]);
+  int rank = __popc(dead_mask & ((1u << wl) - 1u)), cta_dead = 0;
+#pragma unroll
+  for (int w = 0; w < CTA_WARPS; ++w) {
+    const int c = warp_live[w];
+    rank += w < warp ? c : 0;
+    cta_dead += c;
+  }
+  const long long base = launched + cta_sum[0];
+  if (last && t == 0) {
+    const long long total_dead = (long long)cta_sum[0] + cta_dead;
+    const long long room = q.n_photons - launched;
+    q.ctl[(p.kb + 1u) & 1u] = launched + (budget ? (total_dead < room ? total_dead : room) : 0);
+    if (!budget && q.ctl[3] < 0) q.ctl[3] = (long long)p.kb;
+    if (!budget && total_dead == (long long)p.n_lanes && q.ctl[2] < 0)
+      q.ctl[2] = (long long)p.kb;
+  }
+  if (dead && budget && base + rank < q.n_photons) {
+    float v[6];
+    sample_source(p, lane0, v);
+    f[lane0] = v[0];
+    f[L + lane0] = v[1];
+    f[2 * L + lane0] = v[2];
+    f[3 * L + lane0] = v[3];
+    f[4 * L + lane0] = v[4];
+    f[5 * L + lane0] = v[5];
+    f[6 * L + lane0] = 0.0f;
+    if (gas) {
+      uint32_t w[4];
+      philox4x32_10((uint32_t)lane0, p.kb, 0u, STREAM_GAS, p.key0, p.key1, w);
+      f[7 * L + lane0] = exponential_deviate(to_unit(w[0]));
+    }
+    iv[L + lane0] = 0;
+    iv[lane0] = 1;
+    alive0 = 1;
+  }
+  // The refilled rows are read below by other threads of the CTA, and the
+  // shared arrays are used again.
+  __syncthreads();
+  return alive0;
+}
+
 // State layout (i3rc_tpu_torch/kernels/event_block.py LaneState):
 //   f: (8, L) float32 rows x, y, z, ux, uy, uz, tau, tgas
 //   i: (5, L) int32   rows alive, orders, pk, bad, evct
@@ -764,8 +959,33 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
 // hist_room: with SLICES, CTA_WARPS private slices of n_bins doubles in
 // dynamic shared memory; without, one CTA histogram there (hist_in_smem), or
 // the global accumulator itself.
-template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL,
-          bool SLICES>
+//
+// With p.pro.on the launch is one whole block of the trace loop: before the
+// events each thread, for its own lane and in the loop's order,
+//  * rescales the direction to unit length (every lane, dead ones too, as
+//    the plain version does);
+//  * flushes a pending exit (pk != 0) at the lane's frozen position: one
+//    count into columns[col, pk - 1], and into vol[col * n_z + iz] for a
+//    kind-3 death when the volume tally is on, then pk = 0.  The counts are
+//    float64 ones, so the order of the adds does not show.  Up to
+//    CTA_THREADS bins (the step cloud: 64 or 96) the CTA counts in shared
+//    int32 first (the lane-id array, not yet in use) and adds its nonzero
+//    bins; wider tallies (Landsat: 32768 bins) add straight to device memory;
+//  * refills: dead lane l takes photon launched + rank(l), rank its
+//    exclusive count of dead lanes over the grid, while that id is below
+//    the budget: a source sample at (lane, kb, group, STREAM_REFILL), tau 0,
+//    orders 0, alive, and with GAS the gas threshold at (lane, kb, 0,
+//    STREAM_GAS).  Only a lane that takes draws.  The rank needs no scan
+//    kernel: every launch leaves its CTAs' dead counts at exit in
+//    dead[(kb + 1) & 1], and CTA c of the next sums the entries below c.
+//    Launch kb reads slot kb & 1 of `dead` and of `launched` and writes the
+//    other, so no CTA reads what another has replaced.  The last CTA, whose
+//    sum is the grid's, writes the new `launched`; it also records the
+//    first kb at whose entry the budget was spent (ctl[3]) and, for the
+//    host's loop check, the first at whose entry no lane was alive either
+//    (ctl[2]).  Once the budget is spent only the last CTA sums.
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
+          int DCAP>
 __global__ void __launch_bounds__(CTA_THREADS)
 fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
                         const float4* __restrict__ col, int hist_in_smem,
@@ -773,13 +993,14 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
   extern __shared__ double smem_hist[];
   __shared__ int live_ids[CTA_THREADS];
   __shared__ int warp_live[CTA_WARPS];
+  __shared__ int cta_sum[2];      // dead lanes below this CTA; lanes alive at exit
   const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
   const int lane0 = blockIdx.x * CTA_THREADS + t;
   const size_t L = (size_t)p.n_lanes;
   constexpr int BD = ABS ? 4 : 3;
   // Draw slots: with DET && IW the count depends on the runtime D, so the
-  // register array is sized for MAX_DETECTORS and only G groups are drawn.
-  constexpr int ND_MAX = DET ? (IW ? BD + MAX_DETECTORS : BD) : BD * (1 + CHAIN);
+  // register array is sized for DCAP detectors and only G groups are drawn.
+  constexpr int ND_MAX = DET ? (IW ? BD + DCAP : BD) : BD * (1 + CHAIN);
   constexpr int G_MAX = (ND_MAX + 3) / 4;
   const int G = (DET && IW) ? (BD + p.det.n + 3) / 4 : G_MAX;
   const int n_bins = DET ? p.det.n_bins : 0;
@@ -788,17 +1009,22 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
   // Draws as read, per warp, in the column variant with chaining only (see
   // the source note).
   constexpr bool LAZY = COL && CHAIN > 0;
+  const bool pro = p.pro.on != 0;
 
   if (in_smem)
     for (int k = t; k < n_slices * n_bins; k += CTA_THREADS) smem_hist[k] = 0.0;
 
-  // Entry: a thread reads its lane's alive flag and tau only.  A dead lane's
-  // one change in the block is the contract's free-path draw at event 0.
   int alive0 = 0;
-  if (lane0 < p.n_lanes) {
+  if (pro) {
+    alive0 = block_prologue(p, f, iv, GAS, live_ids, warp_live, cta_sum);
+  } else if (lane0 < p.n_lanes) {
     alive0 = iv[lane0];
-    if (!alive0 && !(f[6 * L + lane0] > 0.0f)) f[6 * L + lane0] = contract_tau(p, lane0, 0, G);
   }
+
+  // Entry: a thread needs its lane's alive flag and tau only.  A dead lane's
+  // one change in the block is the contract's free-path draw at event 0.
+  if (lane0 < p.n_lanes && !alive0 && !(f[6 * L + lane0] > 0.0f))
+    f[6 * L + lane0] = contract_tau(p, lane0, 0, G);
   // Compaction: a prefix sum over the CTA's live flags packs the live lanes'
   // ids, in lane order, onto the first threads.
   const unsigned live_mask = __ballot_sync(FULL_MASK, alive0 != 0);
@@ -838,7 +1064,7 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
     double* hist = SLICES ? smem_hist + warp * n_bins : (in_smem ? smem_hist : acc);
 
 #pragma unroll 1
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; j < p.K; ++j) {
       if (!__any_sync(FULL_MASK, s.alive != 0)) {
         // Every lane of the warp is dead: this event's only change is the
         // contract's draw, for the lanes that died with tau <= 0.
@@ -866,11 +1092,20 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
       iv[3 * L + lane] = s.bad;
       iv[4 * L + lane] = s.evct;
     }
+    if (pro) {
+      const int n_alive = __popc(__ballot_sync(FULL_MASK, valid && s.alive != 0));
+      if (wl == 0 && n_alive) atomicAdd(&cta_sum[1], n_alive);
+    }
   }
 
+  if (in_smem || pro) __syncthreads();
+  if (pro && t == 0) {
+    // The CTA's dead lanes at exit: the next launch's FIFO ranks.
+    const int n_here = min(CTA_THREADS, p.n_lanes - (int)blockIdx.x * CTA_THREADS);
+    p.pro.dead[(size_t)((p.kb + 1u) & 1u) * gridDim.x + blockIdx.x] = n_here - cta_sum[1];
+  }
   if (in_smem) {
     // One global atomicAdd per nonzero bin: the sum of the CTA's slices.
-    __syncthreads();
     for (int k = t; k < n_bins; k += CTA_THREADS) {
       double v = 0.0;
       for (int w = 0; w < n_slices; ++w) v += smem_hist[w * n_bins + k];
@@ -880,7 +1115,7 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
 }
 
 // Where the detector tally of n_bins goes: CTA_WARPS private slices while
-// they fit, beside the lane ids, in the shared memory a CTA gets without
+// they fit, beside the static arrays, in the shared memory a CTA gets without
 // opting in (<= 751 bins); else one CTA histogram of up to 48 KB (<= 6144
 // bins), opting in past the default; else the global accumulator.
 enum HistRoom { HIST_GLOBAL, HIST_SHARED, HIST_SLICES };
@@ -892,7 +1127,8 @@ static HistRoom hist_room(int n_bins) {
   return HIST_GLOBAL;
 }
 
-template <int K, int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL = false>
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL = false,
+          int DCAP = DET_DRAWS_SMALL>
 static void launch(float* f, int* i, double* acc, const EventParams& p,
                    cudaStream_t stream, const float4* col = nullptr) {
   const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
@@ -900,80 +1136,66 @@ static void launch(float* f, int* i, double* acc, const EventParams& p,
   const size_t bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
   if constexpr (DET) {
     if (room == HIST_SLICES) {
-      fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW, GAS, COL, true>
+      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, true, DCAP>
           <<<blocks, CTA_THREADS, CTA_WARPS * bytes, stream>>>(f, i, acc, col, 1, p);
       return;
     }
   }
-  const auto kernel = fast_event_block_kernel<K, CHAIN, ABS, TY, DET, IW, GAS, COL, false>;
+  const auto kernel = fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, false, DCAP>;
   const size_t smem = room == HIST_SHARED ? bytes : 0;
   if (smem + SMEM_STATIC_BYTES > SMEM_DEFAULT_BYTES)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, CTA_THREADS, smem, stream>>>(f, i, acc, col, room == HIST_SHARED, p);
 }
 
-template <int K, int CHAIN, bool DET, bool IW, bool GAS>
+template <int CHAIN, bool DET, bool IW, bool GAS, int DCAP = DET_DRAWS_SMALL>
 static void launch_flags(float* f, int* i, double* acc, const EventParams& p,
                          bool absorbing, bool track_y, cudaStream_t stream) {
   if (absorbing) {
-    if (track_y) launch<K, CHAIN, true, true, DET, IW, GAS>(f, i, acc, p, stream);
-    else launch<K, CHAIN, true, false, DET, IW, GAS>(f, i, acc, p, stream);
+    if (track_y) launch<CHAIN, true, true, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
+    else launch<CHAIN, true, false, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
   } else {
-    if (track_y) launch<K, CHAIN, false, true, DET, IW, GAS>(f, i, acc, p, stream);
-    else launch<K, CHAIN, false, false, DET, IW, GAS>(f, i, acc, p, stream);
+    if (track_y) launch<CHAIN, false, true, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
+    else launch<CHAIN, false, false, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
   }
 }
 
-// Only the variants the planner asks for: flux at chain depth 0-3, and the
-// detector variant (always chain depth 0) with or without Iwabuchi.
-template <int K, bool GAS>
-static bool launch_variant(float* f, int* i, double* acc, const EventParams& p,
-                           int chain, bool absorbing, bool track_y, bool detectors,
-                           bool iwabuchi, cudaStream_t stream) {
+// One block (p.K events, any K >= 1) of the variant the flags name, with the
+// gas channel (GAS = true) or without it: flux at chain depth 0-3, or the
+// detector variant (always chain depth 0, up to MAX_DETECTORS detectors) with
+// or without Iwabuchi.  False for a chain depth or a detector count that is
+// not built; the Python wrapper refuses those first (launch_refusal).
+template <bool GAS>
+static bool launch_block(float* f, int* i, double* acc, const EventParams& p, int chain,
+                         bool absorbing, bool track_y, bool detectors, bool iwabuchi,
+                         cudaStream_t stream) {
+  if (p.K < 1) return false;
   if (detectors) {
     if (chain != 0 || p.det.n < 1 || p.det.n > MAX_DETECTORS || acc == nullptr)
       return false;
-    if (iwabuchi) launch_flags<K, 0, true, true, GAS>(f, i, acc, p, absorbing, track_y, stream);
-    else launch_flags<K, 0, true, false, GAS>(f, i, acc, p, absorbing, track_y, stream);
+    if (!iwabuchi)
+      launch_flags<0, true, false, GAS>(f, i, acc, p, absorbing, track_y, stream);
+    else if (p.det.n <= DET_DRAWS_SMALL)
+      launch_flags<0, true, true, GAS>(f, i, acc, p, absorbing, track_y, stream);
+    else
+      launch_flags<0, true, true, GAS, MAX_DETECTORS>(f, i, acc, p, absorbing, track_y, stream);
     return true;
   }
   switch (chain) {
-    case 0: launch_flags<K, 0, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 1: launch_flags<K, 1, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 2: launch_flags<K, 2, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 3: launch_flags<K, 3, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 0: launch_flags<0, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 1: launch_flags<1, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 2: launch_flags<2, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 3: launch_flags<3, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
     default: return false;
   }
   return true;
 }
 
-// One K-event block of the variant the flags name, with the gas channel
-// (GAS = true) or without it; false for an unsupported K, chain depth or
-// detector count.
-template <bool GAS>
-static bool launch_block(float* f, int* i, double* acc, const EventParams& p, int K, int chain,
-                  bool absorbing, bool track_y, bool detectors, bool iwabuchi,
-                  cudaStream_t stream) {
-  switch (K) {
-    case 1:
-      return launch_variant<1, GAS>(f, i, acc, p, chain, absorbing, track_y, detectors,
-                                    iwabuchi, stream);
-    case 8:
-      return launch_variant<8, GAS>(f, i, acc, p, chain, absorbing, track_y, detectors,
-                                    iwabuchi, stream);
-    case 16:
-      return launch_variant<16, GAS>(f, i, acc, p, chain, absorbing, track_y, detectors,
-                                     iwabuchi, stream);
-    default:
-      return false;
-  }
-}
-
 // The gas variants, instantiated in fast_event_block_gas.cu.
-bool launch_block_gas(float* f, int* i, double* acc, const EventParams& p, int K,
-                      int chain, bool absorbing, bool track_y, bool detectors,
-                      bool iwabuchi, cudaStream_t stream);
+bool launch_block_gas(float* f, int* i, double* acc, const EventParams& p, int chain,
+                      bool absorbing, bool track_y, bool detectors, bool iwabuchi,
+                      cudaStream_t stream);
 
 // The column variants (flux, y tracked), instantiated in fast_event_block_col.cu.
-bool launch_block_col(float* f, int* i, const float4* col, const EventParams& p, int K,
-                      int chain, bool absorbing, cudaStream_t stream);
+bool launch_block_col(float* f, int* i, const float4* col, const EventParams& p, int chain,
+                      bool absorbing, cudaStream_t stream);

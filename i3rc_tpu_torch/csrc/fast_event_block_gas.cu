@@ -5,9 +5,9 @@
 
 #include "fast_event_block.cuh"
 
-bool launch_block_gas(float* f, int* i, double* acc, const EventParams& p, int K,
-                      int chain, bool absorbing, bool track_y, bool detectors,
-                      bool iwabuchi, cudaStream_t stream) {
-  return launch_block<true>(f, i, acc, p, K, chain, absorbing, track_y, detectors,
-                            iwabuchi, stream);
+bool launch_block_gas(float* f, int* i, double* acc, const EventParams& p, int chain,
+                      bool absorbing, bool track_y, bool detectors, bool iwabuchi,
+                      cudaStream_t stream) {
+  return launch_block<true>(f, i, acc, p, chain, absorbing, track_y, detectors, iwabuchi,
+                            stream);
 }

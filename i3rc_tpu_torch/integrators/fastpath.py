@@ -11,14 +11,15 @@ scene):
     the closed-form shadow trace (``shadow_constants``), and the cloud + gas
     split of two-component domains (``_gas_split``), and the column table of
     column media (``column_structure``);
-  * the trace loop (``make_fast_tracer``): per K-event block it renormalizes
-    directions, flushes pending exits into float64 per-column tallies
-    (``index_add_``), refills dead lanes in FIFO order (``cumsum``) and runs
-    the event block (``kernels/event_block.py``: the CUDA kernel on a card,
-    its plain twin on the CPU), which also adds the radiance detectors'
-    local estimates to a float64 (n_cols, D) accumulator.  A gas plan
-    draws each lane's exponential gas threshold at launch and at refill
-    (``rng.STREAM_GAS``).
+  * the trace loop (``make_fast_tracer``): one ``fused_block`` per K-event
+    block (``kernels/event_block.py``: on a card one launch of the CUDA
+    kernel, on the CPU its plain version), which renormalizes directions,
+    flushes pending exits into float64 per-column tallies, refills dead
+    lanes in FIFO order, runs the K events and adds the radiance detectors'
+    local estimates to a float64 (n_cols, D) accumulator.  The loop's end
+    is a flag the block keeps on the device; the host reads it every
+    ``CHECK_EVERY`` blocks.  A gas plan draws each lane's exponential gas
+    threshold at launch and at refill (``rng.STREAM_GAS``).
 
 Extinction is factorized as ext(x, y, z) = fx(x) * fy(y) * fz(z) with few-
 segment step functions, or read per event from the lane's row [v, z_base,
@@ -41,13 +42,14 @@ import numpy as np
 import torch
 
 from i3rc_tpu_torch.core.illumination import PhotonSource
-from i3rc_tpu_torch.core.rng import (GAS_LAUNCH_BLOCK, STREAM_REFILL, PhiloxKey,
-                                     gas_thresholds)
+from i3rc_tpu_torch.core.rng import GAS_LAUNCH_BLOCK, PhiloxKey, gas_thresholds
 from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32, make_direction_cosines
-# hg_cosine is re-exported: the JAX package defines it in fastpath.
+# hg_cosine is re-exported (the JAX package defines it in fastpath), and
+# renormalize for callers that step a state by hand.
 from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
-    ALIVE, BAD, EVCT, MAX_SEGMENTS, ORDERS, PK, TAU, TGAS, UX, UY, UZ, X, Y, Z,
-    DetectorSpec, EventSpec, LaneState, event_block, hg_cosine,
+    ALIVE, BAD, DONE, EVCT, ITEM_REACH, MAX_DETECTORS, MAX_SEGMENTS, SUPPORTED_CHAIN, TGAS,
+    UX, UY, UZ, X, Y, Z, DetectorSpec, EventSpec, LaneState, PrologueSpec, block_buffers,
+    flush, fused_block, hg_cosine, launch_refusal, renormalize,
 )
 
 # Rows of the JAX package's one-hot read limit (i3rc_tpu/ops/gather.py):
@@ -56,6 +58,12 @@ ONEHOT_MAX_ROWS = 1 << 18
 
 # Lanes per wavefront when the caller gives none (not tuned on the GPU yet).
 DEFAULT_LANES = 1 << 20
+
+# The trace loop reads its end flag from the device once in this many
+# blocks: the blocks between queue without a host round trip, and at most
+# this many minus one run past the end (on dead lanes and a spent budget
+# they change no tally).
+CHECK_EVERY = 8
 
 
 def lane_width(n_photons: int, n_lanes: int | None = None) -> int:
@@ -68,6 +76,7 @@ _ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two v
 _ITEM_SURFACE = (11, "reflecting surfaces and BRDFs on the fastpath: ROADMAP item 11")
 _ITEM_GAS_K = (13.5, "fused-k gas batching (GasKTables): ROADMAP item 13b")
 _ITEM_TABLE = (15, "tabulated (non-HG) phase functions on the fastpath: ROADMAP item 15")
+_ITEM_REACH = (22, ITEM_REACH)
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +438,10 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
         detectors, closed_shadow = det
         if not closed_shadow:
             missing.append(_ITEM_MARCHING)
+    # What the event block is not built for is refused here, on every device.
+    if len(detectors) > MAX_DETECTORS or (
+            not detectors and _chain_depth(config, detectors, gas) not in SUPPORTED_CHAIN):
+        missing.append(_ITEM_REACH)
     if missing:
         raise NotImplementedError(f"fastpath plan needs {min(missing)[1]}")
     # K as the JAX planner gives it (fastpath.py:633-635): 32 for column
@@ -438,6 +451,14 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
     return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g, unroll=unroll, ssa=uniform_ssa,
                     detectors=detectors, closed_shadow=closed_shadow,
                     gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data)
+
+
+def _chain_depth(config, detectors, gas: bool) -> int:
+    """Collision-chain depth: auto (-1) is 2 for cloud media and 3 with the
+    gas channel (fastpath.py:1283-1286).  Detectors need the shadow trace of
+    every collision: no chaining with them."""
+    chain = int(getattr(config, "fastpath_chain", -1))
+    return 0 if detectors else ((3 if gas else 2) if chain < 0 else chain)
 
 
 def plan_from_jax(plan) -> FastPlan:
@@ -490,7 +511,6 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
     x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
     # Face-push nudges: ~8 float32 ulps of the coordinate scale per axis.
     nudge = lambda lo, hi: f32(8 * 2.0 ** -23 * max(abs(lo), abs(hi)))
-    chain = int(getattr(config, "fastpath_chain", -1))
     column = None
     if plan.column_data is not None:
         cols = np.zeros((plan.column_data.shape[0], 4), np.float32)
@@ -500,7 +520,7 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
     # media always track it (fastpath.py:876).
     track_y = column is not None or not (geom.n_y == 1 and plan.fy.n_ops == 0)
     gas = plan.gas_factor
-    return EventSpec(
+    spec = EventSpec(
         fx=plan.fx, fy=plan.fy, fz=plan.fz,
         inv_fx=plan.fx.reciprocal(), inv_fy=plan.fy.reciprocal(),
         inv_fz=plan.fz.reciprocal(),
@@ -510,15 +530,17 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         nudge_x=nudge(x0, x_max), nudge_y=nudge(y0, y_max), nudge_z=nudge(z0, z_max),
         g=f32(plan.hg_g), ssa=f32(plan.ssa), max_events=int(config.max_events),
         K=max(1, plan.unroll),
-        # Collision-chain depth: auto (-1) is 2 for cloud media and 3 with
-        # the gas channel (fastpath.py:1283-1286).  Detectors need the shadow
-        # trace of every collision: no chaining with them.
-        chain=0 if plan.detectors else ((3 if gas else 2) if chain < 0 else chain),
+        chain=_chain_depth(config, plan.detectors, gas is not None),
         track_y=track_y,
         det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None,
         gz=gas, inv_gz=None if gas is None else gas.reciprocal(),
         column=column, n_x=geom.n_x, n_y=geom.n_y, inv_dx=f32(1.0 / geom.dx),
         inv_dy=f32(1.0 / geom.dy), dx=f32(geom.dx), dy=f32(geom.dy))
+    # The twin and the card accept exactly the same plans.
+    why = launch_refusal(spec)
+    if why:
+        raise NotImplementedError(why)
+    return spec
 
 
 def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpec:
@@ -598,98 +620,53 @@ def launch_state(geom, batch, n_photons: int, gas_key: PhiloxKey | None = None) 
     return LaneState(f, i)
 
 
-def renormalize(st: LaneState) -> None:
-    """Rescale directions to unit length in place: the event block skips the
-    per-rotation rescale, so the trace loop does it once per block."""
-    ux, uy, uz = st.f[UX], st.f[UY], st.f[UZ]
-    st.f[UX:UZ + 1] *= torch.rsqrt(torch.clamp(ux * ux + uy * uy + uz * uz,
-                                               min=f32(1e-12)))
+def prologue_spec(geom, spec: EventSpec, config, n_photons: int) -> PrologueSpec:
+    """Constants of the block's prologue for one tracer."""
+    # Kind-3 deaths: Bernoulli absorption and the gas channel
+    # (fastpath.py:1731-1732, :1745-1746).
+    deaths = spec.absorbing or spec.gas
+    return PrologueSpec(
+        n_photons=int(n_photons), n_x=geom.n_x, n_y=geom.n_y, n_z=geom.n_z,
+        x0=geom.x0, y0=geom.y0, z0=geom.z0, x_max=geom.x_max, y_max=geom.y_max,
+        z_max=geom.z_max, inv_dx=1.0 / geom.dx, inv_dy=1.0 / geom.dy,
+        inv_dz_cell=f32(geom.n_z / (geom.z_max - geom.z0)),
+        col_y=spec.track_y and geom.n_y > 1, deaths=deaths,
+        vol_tally=bool(getattr(config, "compute_volume_absorption", False)) and deaths)
 
 
 def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
                      n_lanes: int | None = None):
     """Build trace(key, batch, source) -> RawTallies for the fast plan; the
     trace runs on the device of the launch batch's tensors."""
-    n_x, n_y, n_z = geom.n_x, geom.n_y, geom.n_z
+    n_z = geom.n_z
     L = lane_width(n_photons, n_lanes)
     spec = event_spec(geom, plan, config)
+    pro = prologue_spec(geom, spec, config, n_photons)
     K = spec.K
-    x0, y0, z0 = geom.x0, geom.y0, geom.z0
-    x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
-    inv_dx, inv_dy = 1.0 / geom.dx, 1.0 / geom.dy
-    inv_dz_cell = f32(n_z / (z_max - z0))
     # Global hang guard (counts K-event blocks): ~2x the event budget.
     max_blocks = -(-2 * config.max_events * (n_photons // L + 2) // K)
-    n_cols = n_x * n_y
+    n_cols = pro.n_cols
     D = len(plan.detectors)
-    absorbing = spec.absorbing
-    # Kind-3 deaths: Bernoulli absorption and the gas channel
-    # (fastpath.py:1731-1732, :1745-1746).
-    deaths = absorbing or spec.gas
-    vol_tally = bool(getattr(config, "compute_volume_absorption", False)) and deaths
-
-    def flush(columns, vol, st: LaneState) -> None:
-        """Tally pending exits at their frozen positions, then clear pk."""
-        x, y, z = st.f[X], st.f[Y], st.f[Z]
-        pk = st.i[PK]
-        col = torch.clamp(((x - x0) * inv_dx).to(torch.int64), 0, n_x - 1)
-        if spec.track_y and n_y > 1:
-            iy = torch.clamp(((y - y0) * inv_dy).to(torch.int64), 0, n_y - 1)
-            col = col * n_y + iy
-        kinds = [pk == 1, pk == 2] + ([pk == 3] if deaths else [])
-        columns.index_add_(0, col, torch.stack(kinds, dim=1).to(torch.float64))
-        if vol_tally:
-            iz = torch.clamp(((z - z0) * inv_dz_cell).to(torch.int64), 0, n_z - 1)
-            vol.index_add_(0, col * n_z + iz, (pk == 3).to(torch.float64))
-        pk.zero_()
-
-    def refill(st: LaneState, launched, key: PhiloxKey, source: PhotonSource, kb: int):
-        """Dead lanes take the next photons of the budget, in lane order."""
-        dead = st.i[ALIVE] == 0
-        dead_i = dead.to(torch.int64)
-        new_id = launched + torch.cumsum(dead_i, 0) - dead_i
-        take = dead & (new_id < n_photons)
-        fresh = source.sample(key, L, st.f.device, stream=STREAM_REFILL, block=kb)
-        f, i = st.f, st.i
-        f[X] = torch.where(take, x0 + fresh.x * (x_max - x0), f[X])
-        f[Y] = torch.where(take, y0 + fresh.y * (y_max - y0), f[Y])
-        f[Z] = torch.where(take, z0 + fresh.z * (z_max - z0), f[Z])
-        for row, v in zip((UX, UY, UZ), make_direction_cosines(fresh.mu, fresh.phi)):
-            f[row] = torch.where(take, v, f[row])
-        f[TAU] = torch.where(take, 0.0, f[TAU])
-        if spec.gas:
-            f[TGAS] = torch.where(take, gas_thresholds(key, kb, L, f.device), f[TGAS])
-        i[ORDERS] = torch.where(take, 0, i[ORDERS])
-        i[ALIVE] = i[ALIVE] | take.to(torch.int32)
-        return launched + take.sum()
 
     @torch.inference_mode()
     def trace(key: PhiloxKey, batch, source: PhotonSource) -> RawTallies:
         dev = batch.x.device
         st = launch_state(geom, batch, n_photons, gas_key=key if spec.gas else None)
-        f, i = st.f, st.i
-        launched = torch.tensor(min(L, n_photons), dtype=torch.int64, device=dev)
-        columns = torch.zeros((n_cols, 3 if deaths else 2), dtype=torch.float64,
-                              device=dev)
-        vol = torch.zeros(n_cols * n_z if vol_tally else 0, dtype=torch.float64,
-                          device=dev)
-        # Detector contributions per (exit column, detector), added inside
-        # the event block.
-        acc = torch.zeros((n_cols, D), dtype=torch.float64, device=dev) if D else None
-        kb = 0
-        while kb < max_blocks:
-            # The loop condition: one host sync per K-event block.
-            any_alive, n_launched = torch.stack(
-                [i[ALIVE].any().to(torch.int64), launched]).tolist()
-            if not (any_alive or n_launched < n_photons):
-                break
-            renormalize(st)
-            flush(columns, vol, st)
-            if n_photons > L:
-                launched = refill(st, launched, key, source, kb)
-            event_block(spec, st, key, kb, acc)
+        buf = block_buffers(spec, pro, st, min(L, n_photons))
+        # The loop ends at the first block at whose entry no lane is alive
+        # and the budget is spent: the block itself records that, and the
+        # host reads it every CHECK_EVERY blocks.
+        kb, done = 0, -1
+        while kb < max_blocks and done < 0:
+            fused_block(spec, pro, st, buf, key, source, kb)
             kb += 1
-        flush(columns, vol, st)
+            if kb % CHECK_EVERY == 0 or kb == max_blocks:
+                done = int(buf.ctl[DONE])
+        if done < 0:
+            # The block cap: pending exits still wait for their tally.
+            flush(pro, buf.columns, buf.vol, st)
+        n_blocks = done if done >= 0 else kb
+        i, columns, acc = st.i, buf.columns, buf.acc
         # Lanes alive at the block cap vanish with their weight: count bad.
         n_bad = i[BAD].sum(dtype=torch.int64) + i[ALIVE].sum(dtype=torch.int64)
         zeros = lambda n: torch.zeros(n, dtype=torch.float64, device=dev)
@@ -703,13 +680,13 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
         slots[1 + (1 - plan.gas_idx) if spec.gas else 1] = coll
         return RawTallies(
             flux_up=columns[:, 0], flux_down=columns[:, 1],
-            flux_absorbed=columns[:, 2] if deaths else zeros(n_cols),
-            volume_absorption=vol if vol_tally else zeros(n_cols * n_z),
+            flux_absorbed=columns[:, 2] if pro.deaths else zeros(n_cols),
+            volume_absorption=buf.vol if pro.vol_tally else zeros(n_cols * n_z),
             intensity=coll,
             intensity_by_component=torch.stack(slots, dim=1).reshape(-1),
             intensity_excess=zeros(len(slots) * D), n_photons=int(n_photons),
             n_bad=n_bad,
-            n_iterations=kb * K,
+            n_iterations=n_blocks * K,
             n_lane_events=i[EVCT].sum(dtype=torch.int64))
 
     return trace

@@ -1,6 +1,9 @@
 """The fast event block: K transport events per lane, kernel and plain twin.
 
-``event_block`` is the wrapper the trace loop calls.  On a CUDA tensor it
+``fused_block`` is the wrapper the trace loop calls: one whole block of the
+loop, the prologue (renormalize, flush of pending exits into the float64
+tallies, FIFO refill of dead lanes from the photon budget) and then the K
+events.  ``event_block`` is the K events alone.  On a CUDA tensor each
 launches the hand-written Hopper kernel ``csrc/fast_event_block.cuh`` (the
 port of the Pallas kernel ``_build_pallas_block``,
 i3rc_tpu/integrators/fastpath.py:665, in its flux variant, its radiance
@@ -8,11 +11,13 @@ detector variant ``n_detectors > 0`` and the gas-channel variant
 ``gas=True`` of either; and the column-mode event of the XLA fastpath,
 fastpath.py:1320-1345, in the design of the column-read probe
 ``pallas_column_loop``, benchmarks/column_read_probe.py:83) and raises if
-the build or the launch fails; on a
-CPU tensor it runs ``event_block_reference``, the plain PyTorch version, on
-the same Philox draws.  Both update the lane state in place and
-add the detector contributions of the block to a float64 (n_cols, D)
-accumulator.
+the build or the launch fails (one launch either way: with the prologue it
+is a stage of the same kernel); on a CPU tensor ``event_block`` runs
+``event_block_reference`` and ``fused_block`` ``fused_block_reference``, the
+plain PyTorch versions, on the same Philox draws.  All update the lane
+state in place and add the detector contributions of the block to a
+float64 (n_cols, D) accumulator.  The kernel takes every K >= 1, chain depth
+0-3 and up to 16 detectors; ``launch_refusal`` names what it does not.
 
 The twin applies exactly the kernel's draw layout: event ``j`` of the block
 reads ``uniforms[j, i]`` for its draw ``i`` (``rng.philox_uniforms``).
@@ -27,22 +32,29 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from i3rc_tpu_torch.core.illumination import _MIN_MU, _TWO_PI, PhotonSource
 from i3rc_tpu_torch.core.rng import (
     STREAM_EVENT,
+    STREAM_REFILL,
     PhiloxKey,
     TINY,
     exponential_deviate,
+    gas_thresholds,
     philox_uniforms,
 )
-from i3rc_tpu_torch.integrators.wavefront import f32, rotate_direction
+from i3rc_tpu_torch.integrators.wavefront import f32, make_direction_cosines, rotate_direction
 
 MAX_SEGMENTS = 24
-MAX_DETECTORS = 8
+MAX_DETECTORS = 16                 # the kernel's parameter block holds this many
 HUGE = f32(3.0e38)
 PI = f32(np.pi)
-SUPPORTED_K = (1, 8, 16)
-COLUMN_K = SUPPORTED_K + (32,)     # the column variant also runs the JAX planner's 32
-SUPPORTED_CHAIN = (0, 1, 2, 3)
+SUPPORTED_CHAIN = (0, 1, 2, 3)     # chain depths the kernel is built for
+CTA_THREADS = 256                  # lanes per CTA of the kernel (BlockBuffers.dead)
+# What the kernel does not run, for the refusals (launch_refusal, fast_plan).
+ITEM_REACH = ("more than 16 radiance detectors, or a collision-chain depth above 3, in "
+              "the event block: ROADMAP item 22")
+# Entries of BlockBuffers.ctl: launched has one slot for even and one for odd kb.
+LAUNCHED, DONE, SPENT = 0, 2, 3
 
 # Rows of LaneState.f and LaneState.i.
 X, Y, Z, UX, UY, UZ, TAU, TGAS = range(8)
@@ -558,6 +570,192 @@ def compare_states(spec: EventSpec, got: LaneState, ref: LaneState, rtol: float)
 
 
 # ---------------------------------------------------------------------------
+# The block's prologue: renormalize, flush, FIFO refill
+
+@dataclass(frozen=True)
+class PrologueSpec:
+    """Constants of a block's prologue for one tracer: the photon budget,
+    the tally grid as the trace loop bins it (``col_y``: the exit column
+    bins y too; ``deaths``: a third tally column for kind-3 deaths;
+    ``vol_tally``: those also count into their (column, z cell)), and the
+    domain bounds as the geometry holds them (Python doubles: torch rounds
+    each to float32 where it meets a tensor, and the kernel gets those
+    float32 values)."""
+
+    n_photons: int
+    n_x: int
+    n_y: int
+    n_z: int
+    x0: float
+    y0: float
+    z0: float
+    x_max: float
+    y_max: float
+    z_max: float
+    inv_dx: float
+    inv_dy: float
+    inv_dz_cell: float
+    col_y: bool
+    deaths: bool
+    vol_tally: bool
+
+    @property
+    def n_cols(self) -> int:
+        return self.n_x * self.n_y
+
+    @property
+    def n_kinds(self) -> int:
+        return 3 if self.deaths else 2
+
+
+@dataclass
+class BlockBuffers:
+    """What a trace carries from block to block besides the lane state.
+
+    ``columns`` (n_cols, 2 or 3) and ``vol`` (n_cols * n_z, or empty) are the
+    float64 flux and volume tallies, ``acc`` the (n_cols, D) detector
+    accumulator (None without detectors).  ``ctl`` is int64 (4,): photons
+    launched so far as block ``kb`` reads it at ``kb & 1`` and leaves it for
+    the next at ``(kb + 1) & 1``; ``DONE``, the first ``kb`` at whose entry no
+    lane was alive and the budget was spent (-1 until then: the trace loop's
+    end); ``SPENT``, the first at whose entry the budget was spent.  ``dead``
+    is int32 (2, n_ctas): dead lanes per ``CTA_THREADS`` lanes at the entry
+    of block ``kb`` in row ``kb & 1``, which the kernel's FIFO rank reads."""
+
+    columns: torch.Tensor
+    vol: torch.Tensor
+    acc: torch.Tensor | None
+    ctl: torch.Tensor
+    dead: torch.Tensor
+
+    def clone(self) -> "BlockBuffers":
+        return BlockBuffers(self.columns.clone(), self.vol.clone(),
+                            None if self.acc is None else self.acc.clone(),
+                            self.ctl.clone(), self.dead.clone())
+
+
+def cta_dead_counts(alive) -> torch.Tensor:
+    """(n_ctas,) int32: dead lanes in each run of CTA_THREADS lanes."""
+    L = alive.shape[0]
+    n_ctas = -(-L // CTA_THREADS)
+    dead = torch.zeros(n_ctas * CTA_THREADS, dtype=torch.int32, device=alive.device)
+    dead[:L] = (alive == 0).to(torch.int32)
+    return dead.view(n_ctas, CTA_THREADS).sum(dim=1, dtype=torch.int32)
+
+
+def block_buffers(spec: EventSpec, pro: PrologueSpec, state: LaneState, launched: int,
+                  kb: int = 0) -> BlockBuffers:
+    """Zeroed tallies and the loop's control state for a trace that enters
+    block ``kb`` on ``state`` with ``launched`` photons launched."""
+    dev = state.f.device
+    f64 = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
+    ctl = torch.tensor([0, 0, -1, -1], dtype=torch.int64, device=dev)
+    ctl[kb & 1] = launched
+    dead = torch.zeros((2, -(-state.n_lanes // CTA_THREADS)), dtype=torch.int32, device=dev)
+    dead[kb & 1] = cta_dead_counts(state.i[ALIVE])
+    return BlockBuffers(
+        columns=f64(pro.n_cols, pro.n_kinds),
+        vol=f64(pro.n_cols * pro.n_z if pro.vol_tally else 0),
+        acc=f64(spec.det.n_cols, spec.det.n) if spec.det is not None else None,
+        ctl=ctl, dead=dead)
+
+
+def renormalize(st: LaneState) -> None:
+    """Rescale directions to unit length in place: the event block skips the
+    per-rotation rescale, so the prologue does it once per block."""
+    ux, uy, uz = st.f[UX], st.f[UY], st.f[UZ]
+    st.f[UX:UZ + 1] *= torch.rsqrt(torch.clamp(ux * ux + uy * uy + uz * uz,
+                                               min=f32(1e-12)))
+
+
+def flush(pro: PrologueSpec, columns, vol, st: LaneState) -> None:
+    """Tally pending exits at their frozen positions, then clear pk."""
+    x, y, z = st.f[X], st.f[Y], st.f[Z]
+    pk = st.i[PK]
+    col = torch.clamp(((x - pro.x0) * pro.inv_dx).to(torch.int64), 0, pro.n_x - 1)
+    if pro.col_y:
+        iy = torch.clamp(((y - pro.y0) * pro.inv_dy).to(torch.int64), 0, pro.n_y - 1)
+        col = col * pro.n_y + iy
+    kinds = [pk == 1, pk == 2] + ([pk == 3] if pro.deaths else [])
+    columns.index_add_(0, col, torch.stack(kinds, dim=1).to(torch.float64))
+    if pro.vol_tally:
+        iz = torch.clamp(((z - pro.z0) * pro.inv_dz_cell).to(torch.int64), 0, pro.n_z - 1)
+        vol.index_add_(0, col * pro.n_z + iz, (pk == 3).to(torch.float64))
+    pk.zero_()
+
+
+def refill(spec: EventSpec, pro: PrologueSpec, st: LaneState, launched, key: PhiloxKey,
+           source: PhotonSource, kb: int):
+    """Dead lanes take the next photons of the budget, in lane order;
+    returns the new count of photons launched."""
+    L = st.n_lanes
+    dead = st.i[ALIVE] == 0
+    dead_i = dead.to(torch.int64)
+    new_id = launched + torch.cumsum(dead_i, 0) - dead_i
+    take = dead & (new_id < pro.n_photons)
+    fresh = source.sample(key, L, st.f.device, stream=STREAM_REFILL, block=kb)
+    f, i = st.f, st.i
+    f[X] = torch.where(take, pro.x0 + fresh.x * (pro.x_max - pro.x0), f[X])
+    f[Y] = torch.where(take, pro.y0 + fresh.y * (pro.y_max - pro.y0), f[Y])
+    f[Z] = torch.where(take, pro.z0 + fresh.z * (pro.z_max - pro.z0), f[Z])
+    for row, v in zip((UX, UY, UZ), make_direction_cosines(fresh.mu, fresh.phi)):
+        f[row] = torch.where(take, v, f[row])
+    f[TAU] = torch.where(take, 0.0, f[TAU])
+    if spec.gas:
+        f[TGAS] = torch.where(take, gas_thresholds(key, kb, L, f.device), f[TGAS])
+    i[ORDERS] = torch.where(take, 0, i[ORDERS])
+    i[ALIVE] = i[ALIVE] | take.to(torch.int32)
+    return launched + take.sum()
+
+
+def fused_block_reference(spec: EventSpec, pro: PrologueSpec, state: LaneState,
+                          buf: BlockBuffers, key: PhiloxKey, source: PhotonSource,
+                          kb: int) -> None:
+    """Plain PyTorch version of one whole block of the trace loop: the loop's
+    end condition as seen at entry, then renormalize, flush, refill (while
+    the batch has more photons than lanes) and the K events of
+    ``event_block_reference``, all in place on ``state`` and ``buf``."""
+    ctl = buf.ctl
+    launched = ctl[kb & 1].clone()
+    spent = launched >= pro.n_photons
+    none_alive = ~state.i[ALIVE].any()
+    ctl[SPENT] = torch.where(spent & (ctl[SPENT] < 0), kb, ctl[SPENT])
+    ctl[DONE] = torch.where(spent & none_alive & (ctl[DONE] < 0), kb, ctl[DONE])
+    renormalize(state)
+    flush(pro, buf.columns, buf.vol, state)
+    if pro.n_photons > state.n_lanes:
+        launched = refill(spec, pro, state, launched, key, source, kb)
+    ctl[(kb + 1) & 1] = launched
+    u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, state.f.device)
+    event_block_reference(spec, state, u, buf.acc)
+    buf.dead[(kb + 1) & 1] = cta_dead_counts(state.i[ALIVE])
+
+
+@functools.lru_cache(maxsize=64)
+def source_constants(source: PhotonSource, device: torch.device) -> dict:
+    """The kernel's SourceParams fields for a source: how each coordinate of
+    ``PhotonSource.sample`` arises, with every constant as the float32 the
+    plain version computes on ``device`` (one sampled lane gives the
+    constant height and, for a fixed (mu, phi), the direction cosines, by
+    the plain version's own operations)."""
+    one = source.sample(PhiloxKey(0, 0), 1, device)
+    internal = source.kind in ("internal_flux", "internal_intensity")
+    fixed_xy = internal or source.kind == "spotlight"
+    mu_mode = {"flux_weighted": 1,
+               "internal_flux": 2 if source.detector_points_up else 3}.get(source.kind, 0)
+    phi_random = source.kind in ("random_azimuth", "flux_weighted", "internal_flux")
+    dirs = [float(v[0]) for v in make_direction_cosines(one.mu, one.phi)]
+    return dict(
+        uniform_xy=int(not fixed_xy), mu_mode=mu_mode, phi_random=int(phi_random),
+        px=f32(source.detector_x if internal else source.solar_x),
+        py=f32(source.detector_y if internal else source.solar_y), pz=float(one.z[0]),
+        delta_x=f32(source.delta_x) if internal else 0.0,
+        delta_y=f32(source.delta_y) if internal else 0.0,
+        mu=float(one.mu[0]) if mu_mode == 0 else 0.0, min_mu=_MIN_MU, two_pi=f32(_TWO_PI),
+        dir=dirs if not phi_random else [0.0, 0.0, 0.0])
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernel
 
 class _StepChain(ctypes.Structure):
@@ -585,6 +783,21 @@ class _DetParams(ctypes.Structure):
         (n, ctypes.c_float * (MAX_SEGMENTS + 1)) for n in ("g_lo", "g_hi", "g_v")]
 
 
+class _SourceParams(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in ("uniform_xy", "mu_mode", "phi_random")] + [
+        (n, ctypes.c_float) for n in ("px", "py", "pz", "delta_x", "delta_y", "mu",
+                                      "min_mu", "two_pi")] + [
+        ("dir", ctypes.c_float * 3)] + [
+        (n, ctypes.c_float) for n in ("x0", "wx", "y0", "wy", "z0", "wz")]
+
+
+class _Prologue(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in ("on", "n_kinds", "col_y", "vol_on", "n_z")] + [
+        ("inv_dz_cell", ctypes.c_float), ("n_photons", ctypes.c_longlong)] + [
+        (n, ctypes.c_void_p) for n in ("columns", "vol", "ctl", "dead")] + [
+        ("src", _SourceParams)]
+
+
 class _EventParams(ctypes.Structure):
     _fields_ = [("fx", _StepChain), ("fy", _StepChain), ("fz", _StepChain)] + [
         (n, ctypes.c_float) for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max",
@@ -592,9 +805,11 @@ class _EventParams(ctypes.Structure):
                                       "g", "ssa")] + [
         ("max_events", ctypes.c_int), ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32), ("kb", ctypes.c_uint32), ("n_lanes", ctypes.c_int),
+        ("K", ctypes.c_int),
         ("det", _DetParams), ("gz", _StepChain), ("n_x", ctypes.c_int),
         ("n_y", ctypes.c_int)] + [
-        (n, ctypes.c_float) for n in ("inv_dx", "inv_dy", "dx", "dy")]
+        (n, ctypes.c_float) for n in ("inv_dx", "inv_dy", "dx", "dy")] + [
+        ("pro", _Prologue)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -639,9 +854,10 @@ def build():
                                         "fast_event_block_col.cu", "column_read_probe.cu"))
     lib = built.lib
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.i3rc_event_params_size.argtypes = []
-    lib.i3rc_event_params_size.restype = ci
-    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+    for fn in (lib.i3rc_event_params_size, lib.i3rc_cta_threads):
+        fn.argtypes = []
+        fn.restype = ci
+    lib.i3rc_fast_event_block.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.i3rc_fast_event_block.restype = ci
     lib.i3rc_philox_uniforms.argtypes = [vp, cu, cu, cu, cu, ci, ci, vp]
     lib.i3rc_philox_uniforms.restype = ci
@@ -651,6 +867,8 @@ def build():
     lib.i3rc_column_read_probe.restype = ci
     if lib.i3rc_event_params_size() != ctypes.sizeof(_EventParams):
         raise RuntimeError("EventParams layout differs between Python and CUDA")
+    if lib.i3rc_cta_threads() != CTA_THREADS:
+        raise RuntimeError("CTA_THREADS differs between Python and CUDA")
     return built
 
 
@@ -663,7 +881,36 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> None:
+def launch_refusal(spec: EventSpec) -> str | None:
+    """Why the CUDA kernel does not run ``spec``, or None when it does: a
+    pure function of the spec, so that the planner refuses on every device
+    exactly what the card would (``fastpath.event_spec`` raises it)."""
+    det = spec.det
+    if spec.K < 1:
+        return f"the event block needs K >= 1 events per launch; got K={spec.K}"
+    if spec.chain not in SUPPORTED_CHAIN or (det is not None and det.n > MAX_DETECTORS):
+        return (f"fastpath plan needs {ITEM_REACH} (got "
+                f"{det.n if det is not None else 0} detectors, chain depth {spec.chain})")
+    if det is not None and spec.chain:
+        return f"the event block runs detectors at chain depth 0; got chain {spec.chain}"
+    if spec.col and (det is not None or spec.gas or not spec.track_y):
+        return ("the event block runs column media for flux without the gas channel, "
+                "y tracked")
+    return None
+
+
+def _need(t, device, dtype, shape, what: str) -> None:
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
+        raise ValueError(f"event_block: {what} must be a contiguous {dtype} "
+                         f"{tuple(shape)} tensor on the state's device")
+
+
+def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
+            pro: PrologueSpec | None = None, buf: BlockBuffers | None = None,
+            source: PhotonSource | None = None) -> None:
+    """Check the arguments and launch the kernel: the K events alone, or with
+    ``pro``, ``buf`` and ``source`` the whole block."""
     f, i = state.f, state.i
     L = state.n_lanes
     if f.device != i.device or i.device.type != "cuda":
@@ -673,44 +920,68 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc) -> 
     if f.shape != (8, L) or i.shape != (5, L) or not (f.is_contiguous()
                                                       and i.is_contiguous()):
         raise ValueError("event_block: state must be contiguous (8, L) and (5, L)")
+    why = launch_refusal(spec)
+    if why:
+        raise NotImplementedError(why)
     det = spec.det
     col = spec.column
-    ks = COLUMN_K if col is not None else SUPPORTED_K
-    if spec.K not in ks or spec.chain not in SUPPORTED_CHAIN:
-        raise NotImplementedError(
-            f"event_block kernel is built for K in {ks} and chain depth in "
-            f"{SUPPORTED_CHAIN}; got K={spec.K}, chain={spec.chain}")
     if col is not None:
-        if det is not None or spec.gas or not spec.track_y:
-            raise NotImplementedError("event_block kernel runs column media for flux "
-                                      "without the gas channel, y tracked")
-        if (col.device != f.device or col.dtype != torch.float32
-                or col.shape != (spec.n_x * spec.n_y, 4) or not col.is_contiguous()):
-            raise ValueError("event_block: the column table must be a contiguous float32 "
-                             f"({spec.n_x * spec.n_y}, 4) tensor on the state's device")
+        _need(col, f.device, torch.float32, (spec.n_x * spec.n_y, 4), "the column table")
     if det is not None:
-        if det.n > MAX_DETECTORS or spec.chain:
-            raise NotImplementedError(
-                f"event_block kernel takes at most {MAX_DETECTORS} detectors at chain "
-                f"depth 0; got {det.n} at chain {spec.chain}")
-        if (acc.device != f.device or acc.dtype != torch.float64
-                or acc.shape != (det.n_cols, det.n) or not acc.is_contiguous()):
-            raise ValueError("event_block: acc must be a contiguous float64 "
-                             f"({det.n_cols}, {det.n}) tensor on the state's device")
-    p = event_params(spec, key, kb, L)
+        _need(acc, f.device, torch.float64, (det.n_cols, det.n), "acc")
+    # The parameter block is built once per trace (the same buffers, key and
+    # plan objects); later blocks change its block index only.
+    tag = (key, L, spec, pro, source)
+    cached = getattr(buf, "_params", None)
+    if cached is not None and cached[0][:2] == tag[:2] and all(
+            a is b for a, b in zip(cached[0][2:], tag[2:])):
+        p = cached[1]
+        p.kb = kb & 0xFFFFFFFF
+    else:
+        p = event_params(spec, key, kb, L)
+        if buf is not None:
+            _need(buf.columns, f.device, torch.float64, (pro.n_cols, pro.n_kinds), "columns")
+            _need(buf.vol, f.device, torch.float64,
+                  (pro.n_cols * pro.n_z if pro.vol_tally else 0,), "vol")
+            _need(buf.ctl, f.device, torch.int64, (4,), "ctl")
+            _need(buf.dead, f.device, torch.int32, (2, -(-L // CTA_THREADS)), "dead")
+            if (spec.n_x, spec.n_y) != (pro.n_x, pro.n_y):
+                raise ValueError("event_block: the prologue's grid differs from the spec's")
+            p.pro = _prologue_params(pro, buf, source_constants(source, f.device))
+            buf._params = (tag, p)
     lib = build().lib
     with torch.cuda.device(f.device):
         rc = lib.i3rc_fast_event_block(
             f.data_ptr(), i.data_ptr(), acc.data_ptr() if det is not None else None,
             col.data_ptr() if col is not None else None,
-            ctypes.byref(p), spec.K, spec.chain, int(spec.absorbing), int(spec.track_y),
+            ctypes.byref(p), spec.chain, int(spec.absorbing), int(spec.track_y),
             int(det is not None), int(det is not None and det.iwabuchi), int(spec.gas),
             _stream(f.device))
     _check(rc, "fast_event_block launch")
 
 
+def _prologue_params(pro: PrologueSpec, buf: BlockBuffers, src: dict) -> _Prologue:
+    q = _Prologue()
+    q.on, q.n_kinds, q.col_y = 1, pro.n_kinds, int(pro.col_y)
+    q.vol_on, q.n_z, q.inv_dz_cell = int(pro.vol_tally), pro.n_z, pro.inv_dz_cell
+    q.n_photons = pro.n_photons
+    q.columns, q.ctl, q.dead = buf.columns.data_ptr(), buf.ctl.data_ptr(), buf.dead.data_ptr()
+    q.vol = buf.vol.data_ptr() if pro.vol_tally else None
+    s = q.src
+    for n, v in src.items():
+        if n == "dir":
+            s.dir[:] = v
+        else:
+            setattr(s, n, v)
+    # launch_state's and refill's scaling: f32(lo) + u * f32(hi - lo).
+    s.x0, s.wx = pro.x0, pro.x_max - pro.x0
+    s.y0, s.wy = pro.y0, pro.y_max - pro.y0
+    s.z0, s.wz = pro.z0, pro.z_max - pro.z0
+    return q
+
+
 def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _EventParams:
-    """The kernel's by-value parameter block for one launch."""
+    """The kernel's by-value parameter block for one launch (prologue off)."""
     p = _EventParams()
     p.fx = _step_chain(spec.fx, spec.inv_fx)
     p.fy = _step_chain(spec.fy, spec.inv_fy)
@@ -722,6 +993,7 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
     p.key0, p.key1 = key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF
     p.kb = kb & 0xFFFFFFFF
     p.n_lanes = n_lanes
+    p.K = spec.K
     if spec.det is not None:
         p.det = _det_params(spec.det)
     if spec.gas:
@@ -730,6 +1002,11 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
     for n in ("inv_dx", "inv_dy", "dx", "dy"):
         setattr(p, n, getattr(spec, n))
     return p
+
+
+def _count_launch(spec: EventSpec) -> None:
+    counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col)]
+    setattr(event_block, counter, getattr(event_block, counter) + 1)
 
 
 def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
@@ -749,13 +1026,31 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
     device = state.f.device
     if device.type == "cuda":
         _launch(spec, state, key, kb, acc)
-        counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col)]
-        setattr(event_block, counter, getattr(event_block, counter) + 1)
+        _count_launch(spec)
     elif device.type == "cpu":
         u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, device)
         event_block_reference(spec, state, u, acc)
     else:
         raise NotImplementedError(f"event_block: no kernel for device {device}")
+
+
+def fused_block(spec: EventSpec, pro: PrologueSpec, state: LaneState, buf: BlockBuffers,
+                key: PhiloxKey, source: PhotonSource, kb: int) -> None:
+    """One whole block ``kb`` of the trace loop, in place on ``state`` and
+    ``buf``: renormalize, flush, refill, K events, and the loop's control
+    state (``BlockBuffers``).  On CUDA tensors this is one launch of the
+    kernel, counted as ``event_block`` counts its launches, and nothing
+    else; CPU tensors run ``fused_block_reference``."""
+    if (spec.det is None) != (buf.acc is None):
+        raise ValueError("fused_block: buf.acc is given exactly when the spec has detectors")
+    device = state.f.device
+    if device.type == "cuda":
+        _launch(spec, state, key, kb, buf.acc, pro, buf, source)
+        _count_launch(spec)
+    elif device.type == "cpu":
+        fused_block_reference(spec, pro, state, buf, key, source, kb)
+    else:
+        raise NotImplementedError(f"fused_block: no kernel for device {device}")
 
 
 # The launch counter of each kernel variant, by (detectors, gas, column).

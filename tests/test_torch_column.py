@@ -45,11 +45,10 @@ from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
 from i3rc_tpu_torch.integrators.fastpath import event_spec, plan_from_jax, state_from_numpy
 from i3rc_tpu_torch.kernels import column_probe as cp
 from i3rc_tpu_torch.kernels.event_block import (
-    COLUMN_K,
-    SUPPORTED_K,
     compare_states,
     event_block,
     event_block_reference,
+    launch_refusal,
 )
 
 torch.set_num_threads(2)
@@ -170,7 +169,7 @@ def test_default_unroll_is_the_kernels():
         assert (jplan._fast_plan.column_data is not None) == (K == 32)
         assert jplan._fast_plan.unroll == tinteg._fast_plan.unroll == K
         spec = event_spec(tinteg.geometry, tinteg._fast_plan, tinteg.config)
-        assert spec.K == K and K in (COLUMN_K if spec.col else SUPPORTED_K)
+        assert spec.K == K and launch_refusal(spec) is None
 
 
 def test_column_props_plans_raise_item_15():
