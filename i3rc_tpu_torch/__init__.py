@@ -9,8 +9,8 @@ the JAX package's module path) and imports nothing of ``i3rc_tpu`` and never
 
 Layer map:
   utils/        error policy, namelist reader
-  core/         Philox random streams, photon sources, domains, phase
-                functions, quadrature, k-distributions
+  core/         Philox random streams, photon sources, surfaces and BRDFs,
+                domains, phase functions, quadrature, k-distributions
   io/           netCDF domain and phase-table files
   models/       the I3RC step cloud and Landsat scenes
   ops/          grid geometry
@@ -36,6 +36,7 @@ _EXPORTS = {
     "make_landsat_cloud": "i3rc_tpu_torch.models.landsat_cloud",
     # The port.
     "PhotonSource": "i3rc_tpu_torch.core.illumination",
+    "SurfaceDescription": "i3rc_tpu_torch.core.surface",
     "batch_key": "i3rc_tpu_torch.core.rng",
     "Integrator": "i3rc_tpu_torch.integrators.integrator",
     "Results": "i3rc_tpu_torch.integrators.results",

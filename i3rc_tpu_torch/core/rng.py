@@ -29,7 +29,12 @@ Layout (shared bit for bit with the CUDA kernel):
                group 0 at block ``kb`` for the lanes refilled before block
                ``kb``, fastpath.py:2037-2041, and at block
                ``GAS_LAUNCH_BLOCK`` = 0xFFFFFFFF for the launch,
-               fastpath.py:2097-2106).
+               fastpath.py:2097-2106); ``STREAM_SURFACE`` (the surface
+               bounce of the lanes that hit a reflecting bottom in block
+               ``kb``: group 0 holds the revive test, the outgoing cosine
+               and azimuth, fastpath.py:1884-1886) and ``STREAM_SURFACE_IW``
+               (their Iwabuchi draws, one per detector, fastpath.py:
+               1916-1919).
 
 Uniform conversion: ``u = (bits >> 8) * 2**-24``, exact in float32, in
 [0, 1 - 2**-24].
@@ -54,6 +59,8 @@ STREAM_EVENT = 0
 STREAM_REFILL = 1
 STREAM_LAUNCH = 2
 STREAM_GAS = 3
+STREAM_SURFACE = 4
+STREAM_SURFACE_IW = 5
 GAS_LAUNCH_BLOCK = 0xFFFFFFFF
 
 _M32 = 0xFFFFFFFF

@@ -1,9 +1,149 @@
-// Fast event block, the variants without the gas channel, and the C
-// interface of the library (see fast_event_block.cuh for the kernel: the
-// Hopper port of the Pallas kernel `_build_pallas_block`,
-// i3rc_tpu/integrators/fastpath.py:665).
+// Fast event block, the variants without the gas channel, the surface stage
+// that follows a block over a reflecting surface, and the C interface of the
+// library (see fast_event_block.cuh for the kernel: the Hopper port of the
+// Pallas kernel `_build_pallas_block`, i3rc_tpu/integrators/fastpath.py:665).
 
 #include "fast_event_block.cuh"
+
+// The surface stage of a block over a reflecting surface: one launch after
+// the event kernel's, on its stream, over the same CTA_THREADS-lane tiles,
+// one thread per lane (fastpath.py:1871-1981, and the flush of
+// :1735-1778 for this block's exits).  Each thread with a pending exit
+// (pk != 0) of its lane:
+//  * tallies it at the frozen position with the lane's weight (1 but on a
+//    BRDF plan): columns[col, pk - 1], and for a kind-3 death with the
+//    volume tally vol[col * n_z + iz].  The column adds are warp-aggregated
+//    (warp_red): the glint scene has one column;
+//  * for a bottom hit (pk == 2) draws group 0 of STREAM_SURFACE at (lane,
+//    kb): u0 the revive test, u1 the outgoing cosine mu_r = max(sqrt(u1),
+//    1e-6), u2 the azimuth.  The lane is revived when u0 < albedo, or under a
+//    BRDF when u0 < min(R, 1), R = max(brdf(uz, mu_r, atan2(uy, ux),
+//    2 pi u2), 0).  With detectors (p.srf.acc) each upward detector d gets
+//    the surface radiance, from every hit under a BRDF (R(in -> d) / pi times
+//    the pre-reflection weight), from the revived lanes of an albedo (1 /
+//    pi), times exp(-tau) of the shadow ray from z0 + nudge_z (Iwabuchi as
+//    for collisions: word d % 4 of group d / 4 of STREAM_SURFACE_IW).  A
+//    revived lane takes the direction (sin_r cos, sin_r sin, mu_r) of
+//    azimuth 2 pi u2, z = z0 + nudge_z, orders + 1, its weight times
+//    max(R, 1), and is alive; it keeps tau and tgas;
+//  * clears pk; a lane that stays dead gets weight 1 for its refill.
+// Then the CTA's dead count replaces the one the event kernel left for the
+// next launch's FIFO rank: a revived lane counts alive, so `launched` skips
+// no photon id, and the loop's end sees it.  (On the TPU the bounce came at
+// the next block's flush, after the counts; the law is the same: there too
+// a hit lane idled for the rest of its block.)  Every exit of a reflecting
+// plan is tallied here, so the next prologue finds none pending.
+//
+// Why a kernel of its own: as a stage of the event kernel (a __noinline__
+// call after the K events) it raised the registers of every one of the 89
+// instantiations to 64 (K1 from 48: 4 resident CTAs per SM for 5), since
+// ptxas sizes a kernel's registers by its call tree; a launch costs a few
+// microseconds of a block's ~0.1 ms and leaves the event kernels as they
+// were.
+__global__ void __launch_bounds__(CTA_THREADS)
+fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
+                                const __grid_constant__ EventParams p) {
+  __shared__ int n_alive;
+  const int t = threadIdx.x, wl = t & 31;
+  const int lane = blockIdx.x * CTA_THREADS + t;
+  const size_t L = (size_t)p.n_lanes;
+  const SurfaceParams& sp = p.srf;
+  const DetParams& q = p.det;
+  const Prologue& pr = p.pro;
+  if (t == 0) n_alive = 0;
+  __syncthreads();
+  const bool in_range = lane < p.n_lanes;
+  const int pk = in_range ? iv[2 * L + lane] : 0;
+  const bool hit = pk == 2, brdf = sp.kind != SURFACE_ALBEDO;
+  float x = 0.0f, y = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f, w = 1.0f;
+  float u0 = 1.0f, u1 = 0.0f, u2 = 0.0f;
+  int key = -1;
+  if (pk != 0) {
+    x = f[lane];
+    y = f[L + lane];
+    if (sp.w) w = sp.w[lane];
+    int c = min(max((int)((x - p.x0) * p.inv_dx), 0), p.n_x - 1);
+    if (pr.col_y) c = c * p.n_y + min(max((int)((y - p.y0) * p.inv_dy), 0), p.n_y - 1);
+    if (pk <= pr.n_kinds) key = c * pr.n_kinds + pk - 1;
+    if (pr.vol_on && pk == 3) {
+      const int iz = min(max((int)((f[2 * L + lane] - p.z0) * pr.inv_dz_cell), 0), pr.n_z - 1);
+      tally_add(pr.vol + (size_t)c * pr.n_z + iz, (double)w);
+    }
+  }
+  warp_red(pr.columns, key, (double)w);
+  if (hit) {
+    ux = f[3 * L + lane];
+    uy = f[4 * L + lane];
+    uz = f[5 * L + lane];
+    uint32_t r[4];
+    philox4x32_10((uint32_t)lane, p.kb, 0u, STREAM_SURFACE, p.key0, p.key1, r);
+    u0 = to_unit(r[0]);
+    u1 = to_unit(r[1]);
+    u2 = to_unit(r[2]);
+  }
+  const float mu_r = fmaxf(sqrtf(u1), EPS6_F);
+  const float sin_r = sqrtf(fmaxf(1.0f - u1, 0.0f));
+  float phi_in = 0.0f, refl = 0.0f;
+  if (brdf && hit) {
+    phi_in = atan2f(uy, ux);
+    refl = fmaxf(brdf_reflectance(sp, uz, mu_r, phi_in, TWO_PI_F * u2), 0.0f);
+  }
+  const bool revive = hit && u0 < (brdf ? fminf(refl, 1.0f) : sp.albedo);
+  if (sp.acc != nullptr) {
+    const bool emit = brdf ? hit : revive;
+    const float zs = p.z0 + p.nudge_z;
+    uint32_t r[4] = {0u, 0u, 0u, 0u};
+    int have = -1;
+#pragma unroll 1
+    for (int d = 0; d < q.n; ++d) {
+      if (!(q.dz[d] > 0.0f)) continue;      // a surface emits upward only
+      float c = 0.0f;
+      int bin = -1;
+      if (emit) {
+        int col;
+        const float tau = shadow_closed(p, d, x, y, zs, &col);
+        const float npf = brdf
+            ? fmaxf(brdf_reflectance(sp, uz, q.dz[d], phi_in, sp.det_phi[d]), 0.0f) * INV_PI_F
+            : INV_PI_F;
+        if (sp.iw) {
+          if ((d >> 2) != have) {
+            have = d >> 2;
+            philox4x32_10((uint32_t)lane, p.kb, (uint32_t)have, STREAM_SURFACE_IW, p.key0,
+                          p.key1, r);
+          }
+          c = iwabuchi(q, npf, tau, to_unit(r[d & 3]));
+        } else {
+          c = npf * expf(-tau);
+        }
+        c = c * w;                           // the pre-reflection weight
+        bin = col * q.n + d;
+      }
+      warp_red(sp.acc, c != 0.0f ? bin : -1, (double)c);
+    }
+  }
+  if (revive) {
+    float sin_az, cos_az;
+    sincos_2pi(u2, &sin_az, &cos_az);
+    f[2 * L + lane] = p.z0 + p.nudge_z;
+    f[3 * L + lane] = sin_r * cos_az;
+    f[4 * L + lane] = sin_r * sin_az;
+    f[5 * L + lane] = mu_r;
+    iv[L + lane] += 1;
+    iv[lane] = 1;
+    if (sp.w) sp.w[lane] = w * fmaxf(refl, 1.0f);
+  } else if (pk != 0 && sp.w) {
+    sp.w[lane] = 1.0f;
+  }
+  if (pk != 0) iv[2 * L + lane] = 0;
+  const int alive = in_range && iv[lane] != 0;
+  const int n_warp = __popc(__ballot_sync(FULL_MASK, alive));
+  if (wl == 0 && n_warp) atomicAdd(&n_alive, n_warp);
+  __syncthreads();
+  if (t == 0) {
+    const int n_here = min(CTA_THREADS, p.n_lanes - (int)blockIdx.x * CTA_THREADS);
+    pr.dead[(size_t)((p.kb + 1u) & 1u) * gridDim.x + blockIdx.x] = n_here - n_alive;
+  }
+}
 
 extern "C" {
 
@@ -14,9 +154,11 @@ int i3rc_cta_threads(void) { return CTA_THREADS; }
 // Runs one block of params->K events in place on the given stream, after
 // the block's prologue when params->pro.on; with detectors it adds their
 // contributions to acc; with a column table (col not null) it runs the
-// column variant.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported K, CHAIN, detector count or
-// column combination; the Python wrapper checks those first).
+// column variant; over a reflecting surface (params->srf.kind) with the
+// prologue on, the surface stage follows on the stream.  Returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for an
+// unsupported K, CHAIN, detector count or column combination; the Python
+// wrapper checks those first).
 int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
                           const EventParams* params, int chain, int absorbing,
                           int track_y, int detectors, int iwabuchi, int gas, void* stream) {
@@ -32,14 +174,17 @@ int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
     ok = launch_block<false>(f, i, acc, *params, chain, absorbing, track_y, detectors,
                              iwabuchi, st);
   if (!ok) return (int)cudaErrorInvalidValue;
+  if (params->pro.on && params->srf.kind != SURFACE_BLACK)
+    fast_event_block_surface_kernel<<<(params->n_lanes + CTA_THREADS - 1) / CTA_THREADS,
+                                      CTA_THREADS, 0, st>>>(f, i, *params);
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Test entries: the kernel's Philox stream, exposed for bit-for-bit checks
-// against i3rc_tpu_torch/core/rng.py.
+// Test entries: the kernel's Philox stream and BRDFs, exposed for checks
+// against i3rc_tpu_torch/core/rng.py and core/surface.py.
 
 __global__ void philox_uniforms_kernel(float* out, uint32_t k0, uint32_t k1,
                                        uint32_t block, uint32_t stream, int n_groups,
@@ -51,6 +196,13 @@ __global__ void philox_uniforms_kernel(float* out, uint32_t k0, uint32_t k1,
     philox4x32_10((uint32_t)lane, block, (uint32_t)g, stream, k0, k1, w);
     for (int k = 0; k < 4; ++k) out[(size_t)(4 * g + k) * n_lanes + lane] = to_unit(w[k]);
   }
+}
+
+__global__ void brdf_reflectance_kernel(float* out, const float* mu_in, const float* mu_out,
+                                        const float* phi_in, const float* phi_out, int n,
+                                        const SurfaceParams sp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = brdf_reflectance(sp, mu_in[i], mu_out[i], phi_in[i], phi_out[i]);
 }
 
 __global__ void philox_bits_kernel(uint32_t* out, uint32_t k0, uint32_t k1, uint32_t c1,
@@ -71,6 +223,17 @@ int i3rc_philox_uniforms(float* out, unsigned int k0, unsigned int k1, unsigned 
   philox_uniforms_kernel<<<(n_lanes + threads - 1) / threads, threads, 0,
                            (cudaStream_t)stream>>>(out, k0, k1, block, stream_id,
                                                    n_groups, n_lanes);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = R of the surface params->kind (a BRDF kind) at the angles of i,
+// through the kernel's own brdf_reflectance.
+int i3rc_brdf_reflectance(float* out, const float* mu_in, const float* mu_out,
+                          const float* phi_in, const float* phi_out, int n,
+                          const SurfaceParams* params, void* stream) {
+  const int threads = 256;
+  brdf_reflectance_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      out, mu_in, mu_out, phi_in, phi_out, n, *params);
   return (int)cudaGetLastError();
 }
 

@@ -149,7 +149,18 @@
 //    runtime values.
 //  * Iwabuchi's small-phase case keeps the transmittance: it contributes
 //    zeta/pi with probability (pf_pi/zeta) exp(-tau), the law of the
-//    reference's trace; the JAX fastpath drops exp(-tau) there.
+//    reference's trace; the JAX fastpath drops exp(-tau) there (for
+//    collisions and for surface radiance alike).
+//  * A reflecting surface (a Lambertian albedo, or a uniform lambertian,
+//    RPV, Cox-Munk or Ross-Li BRDF; fastpath.py:896-924, :1874-1981) was
+//    XLA glue at the TPU's flush, one block after the hit.  Here the block
+//    ends with a surface stage (fast_event_block_surface_kernel, launched
+//    by the same call right after the events) that bounces the block's
+//    bottom hits and only then takes the CTA's dead count, so that the next
+//    launch's FIFO rank sees a revived lane alive: counted dead at exit and
+//    revived at the next prologue, it would skip photon ids.  The kind of
+//    surface is a runtime value; the 89 event-kernel instantiations are
+//    those of a black surface but for DET's weight (see the note there).
 //
 // Float arithmetic follows the JAX reference and the PyTorch twin operation
 // by operation; the library is built with --fmad=false so that no multiply-
@@ -169,6 +180,16 @@
 #define STREAM_EVENT 0u
 #define STREAM_REFILL 1u
 #define STREAM_GAS 3u
+#define STREAM_SURFACE 4u
+#define STREAM_SURFACE_IW 5u
+#define MAX_BRDF_PARAMS 4
+// Surface kinds (SurfaceParams.kind; kernels/event_block.py BRDF_KINDS).
+#define SURFACE_BLACK 0
+#define SURFACE_ALBEDO 1
+#define BRDF_LAMBERTIAN 2
+#define BRDF_RPV 3
+#define BRDF_COX_MUNK 4
+#define BRDF_ROSS_LI 5
 #define CTA_THREADS 256
 #define CTA_WARPS (CTA_THREADS / 32)
 #define FULL_MASK 0xffffffffu
@@ -240,6 +261,18 @@ struct Prologue {
   SourceParams src;
 };
 
+// A reflecting bottom (kernels/event_block.py SurfaceLaw), resolved at the
+// end of a launch with the prologue on.  kind SURFACE_BLACK: none.
+struct SurfaceParams {
+  int kind;
+  int iw;                       // Iwabuchi roulette for surface radiance
+  float albedo;                 // SURFACE_ALBEDO: the revive probability
+  float params[MAX_BRDF_PARAMS];// the BRDF's parameters
+  float det_phi[MAX_DETECTORS]; // outgoing azimuth of each detector
+  float* w;                     // (L,) lane weight of a BRDF plan, else nullptr
+  double* acc;                  // (n_cols, D) surface radiance, or nullptr
+};
+
 struct EventParams {
   StepChain fx, fy, fz;
   float x0, y0, z0, x_max, y_max, z_max;
@@ -257,6 +290,7 @@ struct EventParams {
   int n_x, n_y;                 // column grid: the column variants and the flush
   float inv_dx, inv_dy, dx, dy;
   Prologue pro;
+  SurfaceParams srf;
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -276,6 +310,11 @@ struct EventParams {
 #define C3 -0x1.550d82p-6f
 #define C4 0x1.c39082p-11f
 #define PI_F 0x1.921fb6p+1f
+#define INV_PI_F 0x1.45f306p-2f     // 1/pi
+#define TWO_PI_F 0x1.921fb6p+2f
+#define HALF_PI_F 0x1.921fb6p+0f
+#define QUARTER_PI_F 0x1.921fb6p-1f
+#define SQRT_PI_F 0x1.c5bf8ap+0f    // sqrt(f32(pi)) in float32
 
 // ---------------------------------------------------------------------------
 // Philox4x32-10 (Salmon et al. 2011), four uniforms per call.
@@ -501,30 +540,22 @@ __device__ __forceinline__ float cum_h(const EventParams& p, float xu) {
   return n * q.h_tot + F;
 }
 
-// Local estimate of detector d from a collision at s (direction before the
-// scattering): the contribution and its exit column (fastpath.py:1501-1571
-// with shadow_closed, :1194-1247; the gas segments, :1219-1233, are empty
-// without a gas channel).
-template <bool IW>
-__device__ __forceinline__ float detector_contribution(const EventParams& p, int d,
-                                                       const Lane& s, float u_iw,
-                                                       int* col_out) {
+// The closed-form shadow trace of detector d from (x, y, z): the optical
+// depth to the z boundary, and the exit column in *col_out (shadow_closed,
+// fastpath.py:1194-1247; the gas segments, :1219-1233, are empty without a
+// gas channel).
+__device__ __forceinline__ float shadow_closed(const EventParams& p, int d, float x, float y,
+                                               float z, int* col_out) {
   const DetParams& q = p.det;
-  const float proj =
-      fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
-  const float r =
-      1.0f / sqrtf(fmaxf((1.0f + p.g * p.g) - (p.g + p.g) * proj, EPS12_F));
-  const float norm_pf = (1.0f - p.g * p.g) * r * r * r * q.norm[d];
-
   const float inv_dz = q.inv_dz[d];
   const bool up = q.dz[d] >= 0.0f;
-  const float ph = q.h_axis == 0 ? s.x : s.y;
+  const float ph = q.h_axis == 0 ? x : y;
   float tau = 0.0f;
   for (int k = 0; k < q.n_z; ++k) {
     const float a = up ? q.z_lo[k] : q.z_hi[k];
     const float b = up ? q.z_hi[k] : q.z_lo[k];
-    const float t_lo = fmaxf((a - s.z) * inv_dz, 0.0f);
-    const float t_hi = fmaxf((b - s.z) * inv_dz, 0.0f);
+    const float t_lo = fmaxf((a - z) * inv_dz, 0.0f);
+    const float t_hi = fmaxf((b - z) * inv_dz, 0.0f);
     float seg;
     if (q.mode[d] == 2) {
       seg = (cum_h(p, ph + t_hi * q.dh[d]) - cum_h(p, ph + t_lo * q.dh[d])) * q.inv_dh[d];
@@ -539,31 +570,50 @@ __device__ __forceinline__ float detector_contribution(const EventParams& p, int
   for (int k = 0; k < q.n_g; ++k) {
     const float a = up ? q.g_lo[k] : q.g_hi[k];
     const float b = up ? q.g_hi[k] : q.g_lo[k];
-    const float t_lo = fmaxf((a - s.z) * inv_dz, 0.0f);
-    const float t_hi = fmaxf((b - s.z) * inv_dz, 0.0f);
+    const float t_lo = fmaxf((a - z) * inv_dz, 0.0f);
+    const float t_hi = fmaxf((b - z) * inv_dz, 0.0f);
     tau = tau + q.g_v[k] * fmaxf(t_hi - t_lo, 0.0f);
   }
 
-  const float t_ex = ((up ? q.z_top : q.z_bot) - s.z) * inv_dz;
-  float xe = s.x + t_ex * q.dx[d];
+  const float t_ex = ((up ? q.z_top : q.z_bot) - z) * inv_dz;
+  float xe = x + t_ex * q.dx[d];
   xe = xe - q.wrap_wx * floorf((xe - q.x0) * q.wrap_inv_x);
   int col = min(max((int)((xe - q.x0) * q.inv_dx), 0), q.n_x - 1);
   if (q.col_y) {
-    float ye = s.y + t_ex * q.dy[d];
+    float ye = y + t_ex * q.dy[d];
     ye = ye - q.wrap_wy * floorf((ye - q.y0) * q.wrap_inv_y);
     col = col * q.n_y + min(max((int)((ye - q.y0) * q.inv_dy), 0), q.n_y - 1);
   }
   *col_out = col;
+  return tau;
+}
 
-  if (IW) {
-    // Iwabuchi Eq 13/14 on the exact tau; the small-phase case accepts with
-    // probability (pf_pi / zeta) exp(-tau) (see the header).
-    const float pf_pi = PI_F * norm_pf;
-    const float tau_max = -logf(q.zeta / fmaxf(pf_pi, TINY_F));
-    if (pf_pi <= q.zeta) return (u_iw * q.zeta <= pf_pi * expf(-tau)) ? q.zeta_pi : 0.0f;
-    if (tau <= tau_max) return norm_pf * expf(-tau);
-    return (u_iw < expf(tau_max - tau)) ? q.zeta_pi : 0.0f;
-  }
+// Iwabuchi Eq 13/14 on the exact tau, for a normalized phase value npf;
+// the small-phase case accepts with probability (pf_pi / zeta) exp(-tau)
+// (see the header).
+__device__ __forceinline__ float iwabuchi(const DetParams& q, float npf, float tau,
+                                          float u_iw) {
+  const float pf_pi = PI_F * npf;
+  const float tau_max = -logf(q.zeta / fmaxf(pf_pi, TINY_F));
+  if (pf_pi <= q.zeta) return (u_iw * q.zeta <= pf_pi * expf(-tau)) ? q.zeta_pi : 0.0f;
+  if (tau <= tau_max) return npf * expf(-tau);
+  return (u_iw < expf(tau_max - tau)) ? q.zeta_pi : 0.0f;
+}
+
+// Local estimate of detector d from a collision at s (direction before the
+// scattering): the contribution and its exit column (fastpath.py:1501-1571).
+template <bool IW>
+__device__ __forceinline__ float detector_contribution(const EventParams& p, int d,
+                                                       const Lane& s, float u_iw,
+                                                       int* col_out) {
+  const DetParams& q = p.det;
+  const float proj =
+      fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
+  const float r =
+      1.0f / sqrtf(fmaxf((1.0f + p.g * p.g) - (p.g + p.g) * proj, EPS12_F));
+  const float norm_pf = (1.0f - p.g * p.g) * r * r * r * q.norm[d];
+  const float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
   return norm_pf * expf(-tau);
 }
 
@@ -691,6 +741,8 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
       int bin;
       float c = detector_contribution<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin);
       if (!collided) c = 0.0f;
+      // A BRDF plan's lane weight, read where it scales (constant in the block).
+      if (p.srf.w) c = c * p.srf.w[dr.lane];
       tally<SLICES>(hist, bin * p.det.n + d, c);
     }
   }
@@ -809,6 +861,29 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
 __device__ __forceinline__ void tally_add(double* addr, double v) {
   asm volatile("red.global.add.f64 [%0], %1;" ::"l"(__cvta_generic_to_global(addr)), "d"(v)
                : "memory");
+}
+
+// Adds v to base[key] for the lanes with key >= 0, from a converged warp:
+// the lanes of one key are grouped by __match_any_sync and summed by a
+// shuffle tree (as in tally), and the group's lowest lane adds the sum with
+// tally_add.  The weighted flux counts and the surface radiance, whose
+// lanes crowd onto few bins (the glint scene has one column).
+__device__ __forceinline__ void warp_red(double* base, int key, double v) {
+  if (!__any_sync(FULL_MASK, key >= 0)) return;
+  const unsigned peers = __match_any_sync(FULL_MASK, key);
+  const int wl = threadIdx.x & 31;
+  const unsigned below = (1u << wl) - 1u;
+  unsigned higher = key >= 0 ? peers & ~(below | (1u << wl)) : 0u;
+  int rank = __popc(peers & below);
+  while (__any_sync(FULL_MASK, higher != 0u)) {
+    const int next = __ffs(higher);
+    const double t = __shfl_sync(FULL_MASK, v, next ? next - 1 : wl);
+    if (next) v += t;
+    higher &= ~__ballot_sync(FULL_MASK, rank & 1);
+    rank >>= 1;
+  }
+  if (key >= 0 && (peers & below) == 0u) tally_add(base + key, v);
+  __syncwarp();
 }
 
 // One source sample of the refill for `lane` at block p.kb: position scaled
@@ -950,6 +1025,97 @@ static __device__ __noinline__ int block_prologue(const EventParams& p, float* f
   return alive0;
 }
 
+// The BRDFs of i3rc_tpu_torch/core/surface.py (and of the JAX package's
+// core/surface.py), operation by operation in their order: integer powers
+// as products ((x*x)*(x*x) for x**4), float powers with powf, Smith's
+// Lambda with erfcf, the clamps where the reference puts them.  Returns R
+// for an arrival direction of z cosine mu_in and azimuth phi_in and an
+// outgoing one (mu_out, phi_out).  Not inlined: called once per bottom hit
+// and once per detector, out of the event loop's register budget.
+static __device__ __noinline__ float brdf_reflectance(const SurfaceParams& sp, float mu_in,
+                                                      float mu_out, float phi_in,
+                                                      float phi_out) {
+  const float* a = sp.params;
+  if (sp.kind == BRDF_RPV) {
+    const float rho0 = a[0], k = a[1], theta = a[2];
+    const float mu_i = fabsf(mu_in), mu_r = fabsf(mu_out);
+    const float sin_i = sqrtf(fmaxf(1.0f - mu_i * mu_i, 0.0f));
+    const float sin_r = sqrtf(fmaxf(1.0f - mu_r * mu_r, 0.0f));
+    const float cos_dphi = cosf(phi_in - phi_out);
+    const float cos_g = mu_i * mu_r + sin_i * sin_r * cos_dphi;
+    const float g_hg =
+        (1.0f - theta * theta) / powf(1.0f + theta * theta + 2.0f * theta * cos_g, 1.5f);
+    const float tan_i = sin_i / fmaxf(mu_i, EPS6_F);
+    const float tan_r = sin_r / fmaxf(mu_r, EPS6_F);
+    const float big_g =
+        sqrtf(fmaxf(tan_i * tan_i + tan_r * tan_r - 2.0f * tan_i * tan_r * cos_dphi, 0.0f));
+    const float hot = 1.0f + (1.0f - rho0) / (1.0f + big_g);
+    const float m = powf(mu_i * mu_r * (mu_i + mu_r), k - 1.0f);
+    return rho0 * m * g_hg * hot;
+  }
+  if (sp.kind == BRDF_COX_MUNK) {
+    const float wind = a[0], n_re = a[1];
+    const float mu_i = fmaxf(fabsf(mu_in), 0x1.0624dep-10f);     // 1e-3
+    const float mu_r = fmaxf(fabsf(mu_out), 0x1.0624dep-10f);
+    const float sin_i = sqrtf(fmaxf(1.0f - mu_i * mu_i, 0.0f));
+    const float sin_r = sqrtf(fmaxf(1.0f - mu_r * mu_r, 0.0f));
+    const float cos_dphi = cosf(phi_out - phi_in);
+    const float dot_ir = sin_i * sin_r * cos_dphi - mu_i * mu_r;
+    const float v_norm = sqrtf(fmaxf(2.0f - 2.0f * dot_ir, EPS12_F));
+    const float cos_beta = fminf(fmaxf((mu_i + mu_r) / v_norm, 0x1.0624dep-10f), 1.0f);
+    const float cos_w = fminf(fmaxf(0.5f * v_norm, EPS6_F), 1.0f);
+    const float cb2 = cos_beta * cos_beta;
+    const float tan2_beta = (1.0f - cb2) / cb2;
+    const float sigma2 = 0x1.89374cp-9f + 0x1.4f8b58p-8f * wind;    // 0.003 + 0.00512 W
+    const float slope_pdf = expf(-tan2_beta / sigma2) / (PI_F * sigma2);
+    const float sin_w = sqrtf(fmaxf(1.0f - cos_w * cos_w, 0.0f));
+    const float sin_t = fminf(fmaxf(sin_w / n_re, 0.0f), 1.0f);
+    const float cos_t = sqrtf(fmaxf(1.0f - sin_t * sin_t, 0.0f));
+    const float r_s = (cos_w - n_re * cos_t) / (cos_w + n_re * cos_t);
+    const float r_p = (n_re * cos_w - cos_t) / (n_re * cos_w + cos_t);
+    const float fresnel = 0.5f * (r_s * r_s + r_p * r_p);
+    const float f_r = slope_pdf * fresnel / (4.0f * mu_i * mu_r * (cb2 * cb2));
+    // Smith's shadowing for the same slopes: Lambda(a), a = cot / sigma.
+    const float sigma = sqrtf(sigma2);
+    float lam[2];
+    const float mus[2] = {mu_i, mu_r};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float sin_th = sqrtf(fmaxf(1.0f - mus[k] * mus[k], EPS12_F));
+      const float s_a = fmaxf(mus[k] / (sin_th * sigma), 0x1.a36e2ep-14f);   // 1e-4
+      lam[k] = 0.5f * (expf(-s_a * s_a) / (s_a * SQRT_PI_F) - erfcf(s_a));
+    }
+    const float shadow = 1.0f / (1.0f + lam[0] + lam[1]);
+    return PI_F * f_r * shadow;
+  }
+  if (sp.kind == BRDF_ROSS_LI) {
+    const float f_iso = a[0], f_vol = a[1], f_geo = a[2];
+    const float mu_i = fmaxf(fabsf(mu_in), 0x1.0624dep-10f);
+    const float mu_r = fmaxf(fabsf(mu_out), 0x1.0624dep-10f);
+    const float sin_i = sqrtf(fmaxf(1.0f - mu_i * mu_i, 0.0f));
+    const float sin_r = sqrtf(fmaxf(1.0f - mu_r * mu_r, 0.0f));
+    const float cos_rel = -cosf(phi_out - phi_in);
+    const float sin_rel = sinf(phi_out - phi_in);
+    const float cos_xi = fminf(fmaxf(mu_i * mu_r + sin_i * sin_r * cos_rel, -1.0f), 1.0f);
+    const float xi = acosf(cos_xi);
+    const float k_vol = ((HALF_PI_F - xi) * cos_xi + sinf(xi)) / (mu_i + mu_r) - QUARTER_PI_F;
+    const float tan_i = sin_i / mu_i;
+    const float tan_r = sin_r / mu_r;
+    const float sec_i = 1.0f / mu_i;
+    const float sec_r = 1.0f / mu_r;
+    const float d2 =
+        fmaxf(tan_i * tan_i + tan_r * tan_r - 2.0f * tan_i * tan_r * cos_rel, 0.0f);
+    const float tts = tan_i * tan_r * sin_rel;
+    const float cos_t =
+        fminf(fmaxf(2.0f * sqrtf(d2 + tts * tts) / (sec_i + sec_r), -1.0f), 1.0f);
+    const float t_ov = acosf(cos_t);
+    const float overlap = (t_ov - sinf(t_ov) * cos_t) * (sec_i + sec_r) / PI_F;
+    const float k_geo = overlap - sec_i - sec_r + 0.5f * (1.0f + cos_xi) * sec_i * sec_r;
+    return fmaxf(f_iso + f_vol * k_vol + f_geo * k_geo, 0.0f);
+  }
+  return a[0];                    // BRDF_LAMBERTIAN
+}
+
 // State layout (i3rc_tpu_torch/kernels/event_block.py LaneState):
 //   f: (8, L) float32 rows x, y, z, ux, uy, uz, tau, tgas
 //   i: (5, L) int32   rows alive, orders, pk, bad, evct
@@ -984,6 +1150,10 @@ static __device__ __noinline__ int block_prologue(const EventParams& p, float* f
 //    first kb at whose entry the budget was spent (ctl[3]) and, for the
 //    host's loop check, the first at whose entry no lane was alive either
 //    (ctl[2]).  Once the budget is spent only the last CTA sums.
+// Over a reflecting surface the launch is followed on its stream by
+// fast_event_block_surface_kernel (fast_event_block.cu), which rewrites each
+// CTA's dead count after the bounce; a BRDF plan's weight (p.srf.w) scales
+// DET's contributions.
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
           int DCAP>
 __global__ void __launch_bounds__(CTA_THREADS)

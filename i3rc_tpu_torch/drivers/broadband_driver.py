@@ -23,7 +23,10 @@ point (a k point changes only the event kernel's parameter block, so there
 is no compile to amortize); "fused" raises NotImplementedError naming
 ROADMAP item 13b, and "traced", like "auto" on a workload without a
 fastpath plan, names item 16.  ``--device`` defaults to ``cuda``; a missing
-GPU raises instead of running on the CPU.
+GPU raises instead of running on the CPU.  The surface is the namelist's
+``surfaceAlbedo``, or a ``SurfaceDescription`` that a caller of
+``run_from_namelist`` passes as ``surface`` (the namelist has no BRDF
+entry; the albedo must then be 0).
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def _listify(v):
     return [str(v)]
 
 
-def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") -> dict:
+def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda",
+                      surface=None) -> dict:
     """Execute the broadband driver; returns a dict for programmatic use."""
     t0 = time.perf_counter()
     g = read_namelist(namelist_path)
@@ -125,7 +129,8 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
 
     broadband, bands = run_broadband(
         base_domain, kds, source, n_photons, n_batches, seed=iseed, config=config,
-        surface_albedo=surface_albedo, intensity_mus=mus, intensity_phis=phis,
+        surface_albedo=surface_albedo, surface=surface, intensity_mus=mus,
+        intensity_phis=phis,
         band_domains=band_domains, derive=derive, mode=mode, integrator_cache={},
         device=device)
     bb_res, bb_der = broadband["results"], broadband["derived"]

@@ -11,8 +11,9 @@ package's own writers.
 
 ``--device`` defaults to ``cuda``; a missing GPU raises instead of running
 on the CPU.  The port covers flux and radiance transport with maximum
-cross-section (``useRayTracing = .false.``) over a black surface; namelists
-that ask for more raise NotImplementedError naming the ROADMAP item.
+cross-section (``useRayTracing = .false.``) over a black or Lambertian
+(``surfaceAlbedo``) surface; namelists that ask for more raise
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -75,8 +76,7 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     # Intensity directions: nonzero mus count (:151-154)
     mus, phis, compute_intensity = intensity_directions(
         intensity_mus, intensity_phis, bool(out_rad) or bool(out_netcdf))
-    for asked, what in ((surface_albedo > 0.0, "surfaceAlbedo > 0: ROADMAP item 11"),
-                        (polarized, "polarized transport: ROADMAP item 17"),
+    for asked, what in ((polarized, "polarized transport: ROADMAP item 17"),
                         (use_ray_tracing, "useRayTracing = .true. (the general "
                                           "kernel): ROADMAP item 16")):
         if asked:
@@ -98,8 +98,8 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
         compute_volume_absorption=(report_volume or report_profile
                                    or bool(out_abs_prof) or bool(out_abs_vol)),
     )
-    integ = Integrator.create(domain, config=config, intensity_mus=mus,
-                              intensity_phis=phis, device=device)
+    integ = Integrator.create(domain, config=config, surface_albedo=surface_albedo,
+                              intensity_mus=mus, intensity_phis=phis, device=device)
     source = PhotonSource.directional(solar_mu, solar_azimuth)
     t_setup = time.perf_counter() - t0
     if not quiet:

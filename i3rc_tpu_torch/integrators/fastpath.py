@@ -1,9 +1,9 @@
 """Fused transport fastpath (separable or column optics, HG phase) in PyTorch.
 
-Port of ``i3rc_tpu/integrators/fastpath.py`` for flux and radiance on a
-black surface, with or without the baked gas channel, and for flux in
-column media (one homogeneous layer per (x, y) column: the I3RC Landsat
-scene):
+Port of ``i3rc_tpu/integrators/fastpath.py`` for flux and radiance over a
+black, Lambertian or uniform-BRDF surface, with or without the baked gas
+channel, and for flux in column media (one homogeneous layer per (x, y)
+column: the I3RC Landsat scene):
 
   * the host-side planner (``StepFactor``, ``separable_factors``,
     ``detect_hg``, ``FastPlan``, ``fast_plan``) in numpy, with the
@@ -19,18 +19,23 @@ scene):
     local estimates to a float64 (n_cols, D) accumulator.  The loop's end
     is a flag the block keeps on the device; the host reads it every
     ``CHECK_EVERY`` blocks.  A gas plan draws each lane's exponential gas
-    threshold at launch and at refill (``rng.STREAM_GAS``).
+    threshold at launch and at refill (``rng.STREAM_GAS``).  Over a
+    reflecting surface the block ends with the bounce of the lanes that hit
+    the bottom in it (``kernels/event_block.py`` ``resolve_surface``), and a
+    BRDF plan carries a lane weight.
 
 Extinction is factorized as ext(x, y, z) = fx(x) * fy(y) * fz(z) with few-
 segment step functions, or read per event from the lane's row [v, z_base,
-z_top] of the column table; every photon keeps weight 1 and tallies once at
-its death (exit top, exit bottom, or absorption: Bernoulli when ssa < 1, or
-the gas channel when its threshold runs out).
+z_top] of the column table; a photon tallies at every exit (top, bottom,
+or absorption: Bernoulli when ssa < 1, or the gas channel when its
+threshold runs out), with weight 1 except over a BRDF surface, and a
+bottom hit over a reflecting surface revives it with the surface's
+probability.
 
 Plans the JAX package supports but the port does not yet — the marching
-shadow trace, reflecting surfaces, fused-k gas batching, tabulated phase
-functions (per-column properties included) — raise NotImplementedError
-naming their ROADMAP item;
+shadow trace, fused-k gas batching, tabulated phase functions (per-column
+properties included) — raise NotImplementedError naming their ROADMAP
+item;
 configurations the JAX planner rejects return None, as there.
 """
 
@@ -47,9 +52,10 @@ from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32, make_direction
 # hg_cosine is re-exported (the JAX package defines it in fastpath), and
 # renormalize for callers that step a state by hand.
 from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
-    ALIVE, BAD, DONE, EVCT, ITEM_REACH, MAX_DETECTORS, MAX_SEGMENTS, SUPPORTED_CHAIN, TGAS,
-    UX, UY, UZ, X, Y, Z, DetectorSpec, EventSpec, LaneState, PrologueSpec, block_buffers,
-    flush, fused_block, hg_cosine, launch_refusal, renormalize,
+    ALBEDO, ALIVE, BAD, BRDF_KINDS, DONE, EVCT, ITEM_REACH, MAX_DETECTORS, MAX_SEGMENTS, PK,
+    SUPPORTED_CHAIN, TGAS, UX, UY, UZ, X, Y, Z, DetectorSpec, EventSpec, LaneState,
+    PrologueSpec, SurfaceLaw, block_buffers, flush, fused_block, hg_cosine, launch_refusal,
+    renormalize,
 )
 
 # Rows of the JAX package's one-hot read limit (i3rc_tpu/ops/gather.py):
@@ -73,7 +79,6 @@ def lane_width(n_photons: int, n_lanes: int | None = None) -> int:
 # Features of the JAX fastpath not ported yet, by ROADMAP item number.
 _ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two varying "
                         "horizontal factors): ROADMAP item 10b")
-_ITEM_SURFACE = (11, "reflecting surfaces and BRDFs on the fastpath: ROADMAP item 11")
 _ITEM_GAS_K = (13.5, "fused-k gas batching (GasKTables): ROADMAP item 13b")
 _ITEM_TABLE = (15, "tabulated (non-HG) phase functions on the fastpath: ROADMAP item 15")
 _ITEM_REACH = (22, ITEM_REACH)
@@ -241,6 +246,12 @@ class FastPlan:
     # Column media (fastpath.py:289-297): (n_cols, 3) float32 [v, z_base,
     # z_top] per (x, y) column, row ix * n_y + iy; fx = fy = fz = 1.
     column_data: np.ndarray | None = None
+    # A reflecting surface (fastpath.py:326-372): a Lambertian albedo > 0,
+    # or a uniform BRDF by its core/surface.py registry name with its
+    # parameters (float32 values; the albedo is then 0).
+    surface_albedo: float = 0.0
+    brdf: str | None = None
+    brdf_params: tuple = ()
 
     def __eq__(self, other):
         if not isinstance(other, FastPlan):
@@ -367,15 +378,18 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
                                   or config.limit_intensity_contributions):
         return None
     missing = []
+    brdf, brdf_params, surface_albedo = None, (), 0.0
     if surface.uses_brdf:
+        # Uniform-parameter BRDFs only (fastpath.py:414-430); a gridded
+        # field takes the general kernel (item 16).
         if not (surface.n_xs == 1 and surface.n_ys == 1):
             return None
-        missing.append(_ITEM_SURFACE)
+        brdf = surface.brdf_name
+        brdf_params = tuple(float(v) for v in np.asarray(surface.params, np.float32).ravel())
     else:
-        if not (0.0 <= float(surface.albedo) <= 1.0):
+        surface_albedo = float(surface.albedo)
+        if not (0.0 <= surface_albedo <= 1.0):
             return None
-        if float(surface.albedo) > 0.0:
-            missing.append(_ITEM_SURFACE)
     if not (geom.xy_regular and geom.z_regular):
         return None
 
@@ -450,7 +464,8 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
     unroll = int(cfg_unroll) if cfg_unroll else (32 if column_data is not None else 8)
     return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g, unroll=unroll, ssa=uniform_ssa,
                     detectors=detectors, closed_shadow=closed_shadow,
-                    gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data)
+                    gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data,
+                    surface_albedo=surface_albedo, brdf=brdf, brdf_params=brdf_params)
 
 
 def _chain_depth(config, detectors, gas: bool) -> int:
@@ -462,10 +477,10 @@ def _chain_depth(config, detectors, gas: bool) -> int:
 
 
 def plan_from_jax(plan) -> FastPlan:
-    """The port's plan for a JAX ``FastPlan`` (host numpy already)."""
-    extras = {"surface_albedo": _ITEM_SURFACE,
-              "brdf_fn": _ITEM_SURFACE, "gas_k": _ITEM_GAS_K,
-              "column_props": _ITEM_TABLE, "cubic": _ITEM_TABLE,
+    """The port's plan for a JAX ``FastPlan`` (host numpy already); its BRDF
+    kernel maps to the registry name its function carries
+    (``cox_munk_brdf`` -> "cox_munk")."""
+    extras = {"gas_k": _ITEM_GAS_K, "column_props": _ITEM_TABLE, "cubic": _ITEM_TABLE,
               "fwd_cubic": _ITEM_TABLE}
     for name, item in extras.items():
         v = getattr(plan, name, None)
@@ -482,7 +497,12 @@ def plan_from_jax(plan) -> FastPlan:
                     gas_factor=None if gas is None else conv(gas),
                     gas_idx=int(plan.gas_idx),
                     column_data=None if plan.column_data is None
-                    else np.asarray(plan.column_data, np.float32))
+                    else np.asarray(plan.column_data, np.float32),
+                    surface_albedo=float(plan.surface_albedo),
+                    brdf=None if plan.brdf_fn is None
+                    else plan.brdf_fn.__name__.removesuffix("_brdf"),
+                    brdf_params=() if plan.brdf_params is None
+                    else tuple(float(v) for v in np.asarray(plan.brdf_params, np.float32)))
 
 
 def state_from_numpy(st, device="cpu") -> LaneState:
@@ -520,6 +540,16 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
     # media always track it (fastpath.py:876).
     track_y = column is not None or not (geom.n_y == 1 and plan.fy.n_ops == 0)
     gas = plan.gas_factor
+    surface = None
+    if plan.brdf is not None:
+        # The surface radiance's outgoing azimuth per detector (fastpath.py:
+        # 922-923), from the plan's float32 direction cosines.
+        surface = SurfaceLaw(kind=BRDF_KINDS[plan.brdf],
+                             params=tuple(f32(v) for v in plan.brdf_params),
+                             det_phi=tuple(f32(np.arctan2(dy, dx))
+                                           for dx, dy, _, _ in plan.detectors))
+    elif plan.surface_albedo > 0.0:
+        surface = SurfaceLaw(kind=ALBEDO, albedo=f32(plan.surface_albedo))
     spec = EventSpec(
         fx=plan.fx, fy=plan.fy, fz=plan.fz,
         inv_fx=plan.fx.reciprocal(), inv_fy=plan.fy.reciprocal(),
@@ -535,7 +565,7 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None,
         gz=gas, inv_gz=None if gas is None else gas.reciprocal(),
         column=column, n_x=geom.n_x, n_y=geom.n_y, inv_dx=f32(1.0 / geom.dx),
-        inv_dy=f32(1.0 / geom.dy), dx=f32(geom.dx), dy=f32(geom.dy))
+        inv_dy=f32(1.0 / geom.dy), dx=f32(geom.dx), dy=f32(geom.dy), surface=surface)
     # The twin and the card accept exactly the same plans.
     why = launch_refusal(spec)
     if why:
@@ -602,10 +632,12 @@ def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpe
         zeta=zeta, zeta_pi=f32(zeta / np.pi), g_segs=g_segs)
 
 
-def launch_state(geom, batch, n_photons: int, gas_key: PhiloxKey | None = None) -> LaneState:
+def launch_state(geom, batch, n_photons: int, gas_key: PhiloxKey | None = None,
+                 weighted: bool = False) -> LaneState:
     """Lane state for a launch batch (positions in [0, 1] scaled to the
     domain); lanes beyond the photon budget start dead.  With ``gas_key``
-    (a gas plan) the tgas row takes the launch's gas thresholds, else 0."""
+    (a gas plan) the tgas row takes the launch's gas thresholds, else 0.
+    ``weighted`` (a BRDF plan): every lane's weight starts at 1."""
     L = batch.n_photons
     dev = batch.x.device
     f = torch.zeros((8, L), dtype=torch.float32, device=dev)
@@ -617,7 +649,8 @@ def launch_state(geom, batch, n_photons: int, gas_key: PhiloxKey | None = None) 
     i[ALIVE] = (torch.arange(L, device=dev) < n_photons).to(torch.int32)
     if gas_key is not None:
         f[TGAS] = gas_thresholds(gas_key, GAS_LAUNCH_BLOCK, L, dev)
-    return LaneState(f, i)
+    w = torch.ones(L, dtype=torch.float32, device=dev) if weighted else None
+    return LaneState(f, i, w)
 
 
 def prologue_spec(geom, spec: EventSpec, config, n_photons: int) -> PrologueSpec:
@@ -651,7 +684,8 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
     @torch.inference_mode()
     def trace(key: PhiloxKey, batch, source: PhotonSource) -> RawTallies:
         dev = batch.x.device
-        st = launch_state(geom, batch, n_photons, gas_key=key if spec.gas else None)
+        st = launch_state(geom, batch, n_photons, gas_key=key if spec.gas else None,
+                          weighted=spec.weighted)
         buf = block_buffers(spec, pro, st, min(L, n_photons))
         # The loop ends at the first block at whose entry no lane is alive
         # and the budget is spent: the block itself records that, and the
@@ -662,27 +696,33 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
             kb += 1
             if kb % CHECK_EVERY == 0 or kb == max_blocks:
                 done = int(buf.ctl[DONE])
+        i, columns, acc = st.i, buf.columns, buf.acc
+        # Lanes alive at the block cap vanish with their weight: count bad;
+        # over a reflecting surface so would a bottom hit still pending
+        # (fastpath.py:2118-2122), though every block bounces its own.
+        n_bad = i[BAD].sum(dtype=torch.int64) + i[ALIVE].sum(dtype=torch.int64)
+        if spec.reflecting:
+            n_bad = n_bad + (i[PK] == 2).sum(dtype=torch.int64)
         if done < 0:
             # The block cap: pending exits still wait for their tally.
             flush(pro, buf.columns, buf.vol, st)
         n_blocks = done if done >= 0 else kb
-        i, columns, acc = st.i, buf.columns, buf.acc
-        # Lanes alive at the block cap vanish with their weight: count bad.
-        n_bad = i[BAD].sum(dtype=torch.int64) + i[ALIVE].sum(dtype=torch.int64)
         zeros = lambda n: torch.zeros(n, dtype=torch.float64, device=dev)
         # Radiance layout of fastpath.py:2126-2153: (n_cols * D), and per
-        # component (n_cols * D, 1 + n_components) with slot 0 the surface,
-        # which a black surface leaves at zero.  The collisions are the
-        # cloud's: slot 1, or with a gas channel slot 1 + (1 - gas_idx), the
-        # gas (a pure absorber) keeping its slot at zero.
+        # component (n_cols * D, 1 + n_components) with slot 0 the surface
+        # (zero over a black one), intensity the sum of the slots.  The
+        # collisions are the cloud's: slot 1, or with a gas channel slot
+        # 1 + (1 - gas_idx), the gas (a pure absorber) keeping its slot at
+        # zero.
         coll = acc.reshape(-1) if D else zeros(0)
-        slots = [torch.zeros_like(coll)] * (3 if spec.gas else 2)
+        srf = buf.srf.reshape(-1) if buf.srf is not None else torch.zeros_like(coll)
+        slots = [srf] + [torch.zeros_like(coll)] * (2 if spec.gas else 1)
         slots[1 + (1 - plan.gas_idx) if spec.gas else 1] = coll
         return RawTallies(
             flux_up=columns[:, 0], flux_down=columns[:, 1],
             flux_absorbed=columns[:, 2] if pro.deaths else zeros(n_cols),
             volume_absorption=buf.vol if pro.vol_tally else zeros(n_cols * n_z),
-            intensity=coll,
+            intensity=coll + srf if buf.srf is not None else coll,
             intensity_by_component=torch.stack(slots, dim=1).reshape(-1),
             intensity_excess=zeros(len(slots) * D), n_photons=int(n_photons),
             n_bad=n_bad,

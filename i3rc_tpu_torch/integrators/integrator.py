@@ -6,6 +6,11 @@ slice:
     integ = Integrator.create(domain, config=..., device="cuda")
     results = integ.compute(batch_key(seed, batch), source, n_photons)
 
+The surface is black by default, a Lambertian albedo with
+``surface_albedo=A``, or a ``SurfaceDescription`` with ``surface=``
+(a uniform lambertian, rpv, cox_munk or ross_li BRDF takes the fastpath;
+a gridded one would need the general kernel, item 16).
+
 ``create`` flattens the domain once (host numpy, shared with the JAX
 package) and validates the arguments; ``batch_fn`` builds the fastpath
 tracer for one (source, photon count, lane count) and caches it.  Workloads
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from i3rc_tpu_torch.core.optics import Domain, FlatOptics, flatten_optics
+from i3rc_tpu_torch.core.surface import BRDF_REGISTRY, SurfaceDescription
 from i3rc_tpu_torch.integrators.config import IntegratorConfig
 from i3rc_tpu_torch.utils.errors import Status
 from i3rc_tpu_torch.core.illumination import PhotonSource
@@ -64,15 +70,18 @@ class Integrator:
     # The creation arguments the spectral loop re-uses for every k point.
     _intensity_mus: np.ndarray | None = None
     _intensity_phis: np.ndarray | None = None
+    _surface_arg: SurfaceDescription | None = None
 
     @staticmethod
     def create(domain: Domain, config: IntegratorConfig | None = None,
-               surface_albedo: float = 0.0, intensity_mus=None, intensity_phis=None,
-               device="cuda") -> "Integrator":
+               surface_albedo: float = 0.0, surface: SurfaceDescription | None = None,
+               intensity_mus=None, intensity_phis=None, device="cuda") -> "Integrator":
         """new_Integrator + specifyParameters in one constructor."""
         dev = resolve_device(device)
         config = (config or IntegratorConfig()).validate()
         s = Status()
+        s.fail_if(surface is not None and surface_albedo != 0.0,
+                  "only one surface specification can be provided")
         s.fail_if(not (0.0 <= surface_albedo <= 1.0), "surface albedo out of range")
         s.fail_if((intensity_mus is None) != (intensity_phis is None),
                   "both or neither of intensityMus and intensityPhis must be supplied")
@@ -102,13 +111,20 @@ class Integrator:
                 abs_mu=np.abs(mus).astype(np.float32),
                 exit_status=np.where(mus > 0, _EXIT_TOP, _EXIT_BOT).astype(np.int32),
                 n_directions=mus.size)
+        if surface is not None:
+            sspec = SurfaceSpec(
+                brdf_fn=BRDF_REGISTRY[surface.brdf_name], brdf_name=surface.brdf_name,
+                params=surface.parameters.reshape(-1, surface.n_parameters),
+                x_edges=surface.x_edges, y_edges=surface.y_edges,
+                n_xs=surface.parameters.shape[0], n_ys=surface.parameters.shape[1])
+        else:
+            sspec = SurfaceSpec(albedo=float(surface_albedo))
         return Integrator(
-            geometry=geom, optics=optics_flags(flat),
-            surface=SurfaceSpec(albedo=float(surface_albedo)), intensity=ispec,
+            geometry=geom, optics=optics_flags(flat), surface=sspec, intensity=ispec,
             config=config, device=dev, _flat=flat,
             _col_weights=column_weights(domain.x_edges, domain.y_edges),
             _dz=np.diff(np.asarray(domain.z_edges, dtype=np.float64)).astype(np.float32),
-            _intensity_mus=mus, _intensity_phis=phis)
+            _intensity_mus=mus, _intensity_phis=phis, _surface_arg=surface)
 
     @property
     def grid_shape(self):

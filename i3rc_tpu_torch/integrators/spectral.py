@@ -97,7 +97,7 @@ def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, 
             integ = Integrator.create(
                 domain_with_gas_component(base_domain, profiles[:, k]),
                 config=integrator.config, surface_albedo=integrator.surface.albedo,
-                intensity_mus=integrator._intensity_mus,
+                surface=integrator._surface_arg, intensity_mus=integrator._intensity_mus,
                 intensity_phis=integrator._intensity_phis, device=integrator.device)
             cache[ckey] = (integ, kdist, base_domain)
         return cache[ckey][0]
@@ -121,13 +121,15 @@ def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, 
 
 def run_broadband(base_domain: Domain, k_distributions, source, n_photons_per_batch: int,
                   n_batches: int, seed: int = 10, config=None, surface_albedo: float = 0.0,
-                  intensity_mus=None, intensity_phis=None, band_domains=None, derive=None,
+                  surface=None, intensity_mus=None, intensity_phis=None, band_domains=None,
+                  derive=None,
                   mode: str = "baked", integrator_cache: dict | None = None,
                   device="cuda", n_lanes: int | None = None):
     """The spectral loop over bands and their k points.
 
     ``band_domains`` optionally gives each band its own domain (per-band
-    cloud optics); otherwise every band uses ``base_domain``.  Band b runs
+    cloud optics); otherwise every band uses ``base_domain``.  The surface
+    is ``surface_albedo`` or the ``SurfaceDescription`` ``surface``.  Band b runs
     with seed ``seed + 100000 * b``.  Returns (broadband mean tree, [BandResult
     per band]); the broadband tree is the spectral-fraction-weighted sum of
     the band means.
@@ -139,8 +141,8 @@ def run_broadband(base_domain: Domain, k_distributions, source, n_photons_per_ba
         integ = Integrator.create(
             domain_with_gas_component(
                 dom_b, kdist.absorption_profiles_on(np.asarray(dom_b.z_edges))[:, 0]),
-            config=config, surface_albedo=surface_albedo, intensity_mus=intensity_mus,
-            intensity_phis=intensity_phis, device=device)
+            config=config, surface_albedo=surface_albedo, surface=surface,
+            intensity_mus=intensity_mus, intensity_phis=intensity_phis, device=device)
         band = run_band(integ, dom_b, kdist, source, n_photons_per_batch, n_batches,
                         seed=seed + 100000 * b, derive=derive, mode=mode,
                         integrator_cache=integrator_cache, n_lanes=n_lanes)

@@ -29,10 +29,13 @@ def f32(v) -> float:
 
 @dataclass(frozen=True)
 class SurfaceSpec:
-    """Either a scalar Lambertian albedo or a gridded BRDF (host data)."""
+    """Either a scalar Lambertian albedo or a gridded BRDF (host data):
+    ``brdf_fn`` the torch kernel of ``core/surface.py`` registered as
+    ``brdf_name``."""
 
     albedo: float = 0.0
     brdf_fn: object = None
+    brdf_name: str | None = None
     params: object = None     # np.ndarray (nxs*nys, n_params)
     x_edges: object = None
     y_edges: object = None

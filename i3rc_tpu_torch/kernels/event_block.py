@@ -16,7 +16,10 @@ is a stage of the same kernel); on a CPU tensor ``event_block`` runs
 ``event_block_reference`` and ``fused_block`` ``fused_block_reference``, the
 plain PyTorch versions, on the same Philox draws.  All update the lane
 state in place and add the detector contributions of the block to a
-float64 (n_cols, D) accumulator.  The kernel takes every K >= 1, chain depth
+float64 (n_cols, D) accumulator.  Over a reflecting surface (a Lambertian
+albedo or a uniform BRDF, ``SurfaceLaw``) the whole block ends with the
+surface stage (``resolve_surface``; on the card a second hand-written
+kernel, ``fast_event_block_surface_kernel``, launched by the same call).  The kernel takes every K >= 1, chain depth
 0-3 and up to 16 detectors; ``launch_refusal`` names what it does not.
 
 The twin applies exactly the kernel's draw layout: event ``j`` of the block
@@ -36,18 +39,29 @@ from i3rc_tpu_torch.core.illumination import _MIN_MU, _TWO_PI, PhotonSource
 from i3rc_tpu_torch.core.rng import (
     STREAM_EVENT,
     STREAM_REFILL,
+    STREAM_SURFACE,
+    STREAM_SURFACE_IW,
     PhiloxKey,
     TINY,
     exponential_deviate,
     gas_thresholds,
     philox_uniforms,
+    stream_uniforms,
 )
-from i3rc_tpu_torch.integrators.wavefront import f32, make_direction_cosines, rotate_direction
+from i3rc_tpu_torch.core.surface import BRDF_REGISTRY
+from i3rc_tpu_torch.integrators.wavefront import (
+    _sincos_2pi,
+    f32,
+    make_direction_cosines,
+    rotate_direction,
+)
 
 MAX_SEGMENTS = 24
 MAX_DETECTORS = 16                 # the kernel's parameter block holds this many
 HUGE = f32(3.0e38)
 PI = f32(np.pi)
+INV_PI = f32(1.0 / np.pi)
+TWO_PI = f32(2.0 * np.pi)
 SUPPORTED_CHAIN = (0, 1, 2, 3)     # chain depths the kernel is built for
 CTA_THREADS = 256                  # lanes per CTA of the kernel (BlockBuffers.dead)
 # What the kernel does not run, for the refusals (launch_refusal, fast_plan).
@@ -70,18 +84,22 @@ class LaneState:
     before a gas absorption).  ``i`` is (5, L) int32: alive, orders, pk
     (pending exit kind: 1 top, 2 bottom, 3 absorbed), bad, evct.  The y and
     tgas rows are always present; plans that do not track y, or have no gas
-    channel, leave them untouched.
+    channel, leave them untouched.  ``w`` is the (L,) float32 lane weight of
+    a BRDF surface (fastpath.py:908-917: 1 at launch and refill, times
+    max(R, 1) at each bounce), None on every other plan.
     """
 
     f: torch.Tensor
     i: torch.Tensor
+    w: torch.Tensor | None = None
 
     @property
     def n_lanes(self) -> int:
         return self.f.shape[1]
 
     def clone(self) -> "LaneState":
-        return LaneState(self.f.clone(), self.i.clone())
+        return LaneState(self.f.clone(), self.i.clone(),
+                         None if self.w is None else self.w.clone())
 
 
 @dataclass(frozen=True)
@@ -147,6 +165,37 @@ class DetectorSpec:
         return self.n_x * (self.n_y if self.col_y else 1)
 
 
+# Surface kinds of the event block: 0 black (no SurfaceLaw), 1 a Lambertian
+# albedo, then the uniform BRDFs of core/surface.py by registry name.
+ALBEDO = 1
+BRDF_KINDS = {"lambertian": 2, "rpv": 3, "cox_munk": 4, "ross_li": 5}
+MAX_BRDF_PARAMS = 4                # the kernel's parameter block holds this many
+
+
+@dataclass(frozen=True)
+class SurfaceLaw:
+    """A reflecting bottom (fastpath.py:896-924): ``kind`` ALBEDO revives a
+    lane that hit the bottom with probability ``albedo``; a BRDF kind with
+    probability min(R, 1), R = max(brdf(params, uz, mu_r, atan2(uy, ux),
+    2 pi u2), 0), and carries max(R, 1) on the lane weight.  ``params``
+    (the BRDF's, float32 values) and ``det_phi`` (f32(atan2(dy, dx)) per
+    detector, the outgoing azimuth of surface radiance) are Python floats."""
+
+    kind: int
+    albedo: float = 0.0
+    params: tuple = ()
+    det_phi: tuple = ()
+
+    @property
+    def brdf(self) -> bool:
+        return self.kind != ALBEDO
+
+
+def brdf_function(law: SurfaceLaw):
+    """The torch BRDF kernel of a BRDF surface kind."""
+    return BRDF_REGISTRY[next(n for n, k in BRDF_KINDS.items() if k == law.kind)]
+
+
 @dataclass(frozen=True)
 class EventSpec:
     """Everything the event block needs besides the state and the draws.
@@ -161,7 +210,8 @@ class EventSpec:
     4) float32 tensor on the state's device, rows [v, z_base, z_top, 0]
     (padded so that a row is one 16-byte load), row ix * n_y + iy; the
     column read bins x and y with ``inv_dx``/``inv_dy`` and the faces step
-    by ``dx``/``dy`` (float32 values in Python floats).
+    by ``dx``/``dy`` (float32 values in Python floats).  ``surface`` is the
+    reflecting bottom (None: black).
     """
 
     fx: object
@@ -197,6 +247,7 @@ class EventSpec:
     inv_dy: float = 0.0
     dx: float = 0.0
     dy: float = 0.0
+    surface: SurfaceLaw | None = None
 
     @property
     def gas(self) -> bool:
@@ -209,6 +260,15 @@ class EventSpec:
     @property
     def absorbing(self) -> bool:
         return self.ssa < 1.0
+
+    @property
+    def reflecting(self) -> bool:
+        return self.surface is not None
+
+    @property
+    def weighted(self) -> bool:
+        """A BRDF surface: the lanes carry a weight."""
+        return self.surface is not None and self.surface.brdf
 
     @property
     def bonus_draws(self) -> int:
@@ -301,11 +361,30 @@ def shadow_closed(spec: EventSpec, d: int, x, y, z):
     return tau, col
 
 
-def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records) -> None:
+def _iwabuchi(det: DetectorSpec, norm_pf, tau, u_iw):
+    """Iwabuchi Eq 13/14 on the exact tau (monteCarloRadiativeTransfer.f95:
+    1536-1596): pf_pi <= zeta contributes zeta / pi with probability
+    (pf_pi / zeta) exp(-tau), the acceptance times the transmittance of the
+    reference's trace; otherwise beyond tau_max the contribution survives
+    with probability exp(tau_max - tau).  The JAX fastpath (fastpath.py:1544
+    for collisions, :1950-1951 for the surface) leaves exp(-tau) out of the
+    first case and overestimates; the port does not copy that."""
+    pf_pi = PI * norm_pf
+    tau_max = -torch.log(torch.full_like(pf_pi, det.zeta) / torch.clamp(pf_pi, min=TINY))
+    c_small = torch.where(u_iw * det.zeta <= pf_pi * torch.exp(-tau), det.zeta_pi, 0.0)
+    c_large = torch.where(
+        tau <= tau_max, norm_pf * torch.exp(-tau),
+        torch.where(u_iw < torch.exp(tau_max - tau), det.zeta_pi, 0.0))
+    return torch.where(pf_pi <= det.zeta, c_small, c_large)
+
+
+def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records, w=None) -> None:
     """Local-estimate radiance of every collision (fastpath.py:1501-1571):
     P(photon -> detector) / (4 pi |mu_d|) x exp(-tau to the boundary) at the
-    shadow ray's exit column, with Iwabuchi roulette when asked for.  ``pos``
-    is the collision point, ``dirs`` the direction before scattering."""
+    shadow ray's exit column, with Iwabuchi roulette when asked for, times
+    the lane weight ``w`` of a BRDF surface (fastpath.py:1553-1556).
+    ``pos`` is the collision point, ``dirs`` the direction before
+    scattering."""
     det = spec.det
     x, y, z = pos
     ux, uy, uz = dirs
@@ -314,26 +393,12 @@ def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records) -> No
         norm_pf = hg_phase(spec.g, proj) * det.norm[d]
         tau, col = shadow_closed(spec, d, x, y, z)
         if det.iwabuchi:
-            # Iwabuchi Eq 13/14 on the exact tau (monteCarloRadiativeTransfer
-            # .f95:1536-1596): pf_pi <= zeta contributes zeta / pi with
-            # probability (pf_pi / zeta) exp(-tau), the acceptance times the
-            # transmittance of the reference's trace; otherwise beyond tau_max
-            # the contribution survives with probability exp(tau_max - tau).
-            # The JAX fastpath (fastpath.py:1544) leaves exp(-tau) out of the
-            # first case and overestimates; the port does not copy that.
-            u_iw = u[spec.bonus_draws + d]
-            pf_pi = PI * norm_pf
-            tau_max = -torch.log(torch.full_like(pf_pi, det.zeta)
-                                 / torch.clamp(pf_pi, min=TINY))
-            c_small = torch.where(u_iw * det.zeta <= pf_pi * torch.exp(-tau),
-                                  det.zeta_pi, 0.0)
-            c_large = torch.where(
-                tau <= tau_max, norm_pf * torch.exp(-tau),
-                torch.where(u_iw < torch.exp(tau_max - tau), det.zeta_pi, 0.0))
-            contrib = torch.where(collided, torch.where(pf_pi <= det.zeta, c_small,
-                                                        c_large), 0.0)
+            contrib = torch.where(collided, _iwabuchi(det, norm_pf, tau,
+                                                      u[spec.bonus_draws + d]), 0.0)
         else:
             contrib = torch.where(collided, norm_pf * torch.exp(-tau), 0.0)
+        if w is not None:
+            contrib = contrib * w
         if acc is not None:
             acc.view(-1).index_add_(0, col * det.n + d, contrib.to(torch.float64))
         if records is not None:
@@ -443,7 +508,7 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
         pk = torch.where(die, 3, pk)
         collided = collided & ~die
     if spec.det is not None:
-        _detector_block(spec, u, (x, y, z), (ux, uy, uz), collided, acc, records)
+        _detector_block(spec, u, (x, y, z), (ux, uy, uz), collided, acc, records, s.get("w"))
     nux, nuy, nuz = rotate_direction(ux, uy, uz, hg_cosine(spec.g, u[1]), u[2],
                                      renormalize=False)
     ux = torch.where(collided, nux, ux)
@@ -532,12 +597,13 @@ def event_block_reference(spec: EventSpec, state: LaneState, uniforms, acc=None,
     ``uniforms`` is (K, n_draws, L) float32 in the kernel's layout.  Updates
     ``state`` in place; with detectors, adds their contributions to ``acc``
     ((n_cols, D) float64) and appends each event's per-detector
-    (contribution, column) pairs to the list ``records`` when given.
+    (contribution, column) pairs to the list ``records`` when given.  The
+    lane weight ``state.w`` (a BRDF surface) scales the contributions.
     """
     f, i = state.f, state.i
     s = {"x": f[X], "y": f[Y], "z": f[Z], "ux": f[UX], "uy": f[UY], "uz": f[UZ],
          "tau": f[TAU], "tgas": f[TGAS], "alive": i[ALIVE] != 0, "orders": i[ORDERS],
-         "pk": i[PK], "bad": i[BAD], "evct": i[EVCT]}
+         "pk": i[PK], "bad": i[BAD], "evct": i[EVCT], "w": state.w}
     for j in range(spec.K):
         _fast_event(spec, uniforms[j], s, acc, records)
     state.f.copy_(torch.stack([s[k] for k in ("x", "y", "z", "ux", "uy", "uz", "tau",
@@ -614,7 +680,9 @@ class BlockBuffers:
 
     ``columns`` (n_cols, 2 or 3) and ``vol`` (n_cols * n_z, or empty) are the
     float64 flux and volume tallies, ``acc`` the (n_cols, D) detector
-    accumulator (None without detectors).  ``ctl`` is int64 (4,): photons
+    accumulator (None without detectors), ``srf`` the (n_cols, D) surface
+    radiance accumulator (None without detectors or a reflecting surface:
+    component slot 0 of the radiance).  ``ctl`` is int64 (4,): photons
     launched so far as block ``kb`` reads it at ``kb & 1`` and leaves it for
     the next at ``(kb + 1) & 1``; ``DONE``, the first ``kb`` at whose entry no
     lane was alive and the budget was spent (-1 until then: the trace loop's
@@ -627,11 +695,12 @@ class BlockBuffers:
     acc: torch.Tensor | None
     ctl: torch.Tensor
     dead: torch.Tensor
+    srf: torch.Tensor | None = None
 
     def clone(self) -> "BlockBuffers":
-        return BlockBuffers(self.columns.clone(), self.vol.clone(),
-                            None if self.acc is None else self.acc.clone(),
-                            self.ctl.clone(), self.dead.clone())
+        opt = lambda t: None if t is None else t.clone()
+        return BlockBuffers(self.columns.clone(), self.vol.clone(), opt(self.acc),
+                            self.ctl.clone(), self.dead.clone(), opt(self.srf))
 
 
 def cta_dead_counts(alive) -> torch.Tensor:
@@ -653,11 +722,13 @@ def block_buffers(spec: EventSpec, pro: PrologueSpec, state: LaneState, launched
     ctl[kb & 1] = launched
     dead = torch.zeros((2, -(-state.n_lanes // CTA_THREADS)), dtype=torch.int32, device=dev)
     dead[kb & 1] = cta_dead_counts(state.i[ALIVE])
+    radiance = spec.det is not None
     return BlockBuffers(
         columns=f64(pro.n_cols, pro.n_kinds),
         vol=f64(pro.n_cols * pro.n_z if pro.vol_tally else 0),
-        acc=f64(spec.det.n_cols, spec.det.n) if spec.det is not None else None,
-        ctl=ctl, dead=dead)
+        acc=f64(spec.det.n_cols, spec.det.n) if radiance else None,
+        ctl=ctl, dead=dead,
+        srf=f64(spec.det.n_cols, spec.det.n) if radiance and spec.reflecting else None)
 
 
 def renormalize(st: LaneState) -> None:
@@ -668,19 +739,30 @@ def renormalize(st: LaneState) -> None:
                                                min=f32(1e-12)))
 
 
-def flush(pro: PrologueSpec, columns, vol, st: LaneState) -> None:
-    """Tally pending exits at their frozen positions, then clear pk."""
-    x, y, z = st.f[X], st.f[Y], st.f[Z]
-    pk = st.i[PK]
+def flux_column(pro: PrologueSpec, x, y):
+    """The tally column of a frozen exit position."""
     col = torch.clamp(((x - pro.x0) * pro.inv_dx).to(torch.int64), 0, pro.n_x - 1)
     if pro.col_y:
         iy = torch.clamp(((y - pro.y0) * pro.inv_dy).to(torch.int64), 0, pro.n_y - 1)
         col = col * pro.n_y + iy
+    return col
+
+
+def flush(pro: PrologueSpec, columns, vol, st: LaneState) -> None:
+    """Tally pending exits at their frozen positions, each with its lane
+    weight on a BRDF surface (fastpath.py:1748-1749, :1758-1759), then
+    clear pk."""
+    x, z = st.f[X], st.f[Z]
+    pk = st.i[PK]
+    col = flux_column(pro, x, st.f[Y])
+    w = None if st.w is None else st.w.to(torch.float64)
     kinds = [pk == 1, pk == 2] + ([pk == 3] if pro.deaths else [])
-    columns.index_add_(0, col, torch.stack(kinds, dim=1).to(torch.float64))
+    vals = torch.stack(kinds, dim=1).to(torch.float64)
+    columns.index_add_(0, col, vals if w is None else vals * w[:, None])
     if pro.vol_tally:
         iz = torch.clamp(((z - pro.z0) * pro.inv_dz_cell).to(torch.int64), 0, pro.n_z - 1)
-        vol.index_add_(0, col * pro.n_z + iz, (pk == 3).to(torch.float64))
+        dead = (pk == 3).to(torch.float64)
+        vol.index_add_(0, col * pro.n_z + iz, dead if w is None else dead * w)
     pk.zero_()
 
 
@@ -708,13 +790,94 @@ def refill(spec: EventSpec, pro: PrologueSpec, st: LaneState, launched, key: Phi
     return launched + take.sum()
 
 
+def surface_uniforms(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int, device):
+    """The surface bounce's draws of block ``kb``: (3, L) from group 0 of
+    STREAM_SURFACE (revive test, outgoing cosine, azimuth) and, with the
+    Iwabuchi roulette, (D, L) from STREAM_SURFACE_IW (draw d: word d % 4 of
+    group d // 4), else None."""
+    u = stream_uniforms(key, STREAM_SURFACE, kb, 1, n_lanes, device)[:3]
+    det = spec.det
+    if det is None or not det.iwabuchi:
+        return u, None
+    return u, stream_uniforms(key, STREAM_SURFACE_IW, kb, -(-det.n // 4), n_lanes,
+                              device)[:det.n]
+
+
+def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: BlockBuffers,
+                    u, u_iw=None) -> None:
+    """The surface stage that ends a block over a reflecting surface, on the
+    draws ``u`` (3, L) and ``u_iw`` (D, L) of ``surface_uniforms``
+    (fastpath.py:1871-1981): every exit of the block tallied with its lane
+    weight (``flush``: Fdn of a bottom hit at its frozen column); for the
+    bottom hits (pk == 2) the revive test (u0 < albedo, or u0 < min(R, 1)
+    under a BRDF), the surface radiance into ``buf.srf`` (every hit under a
+    BRDF with R(in -> d) / pi times the weight, the revived lanes of an
+    albedo with 1 / pi; upward detectors only, shadow ray from z0 +
+    nudge_z; the Iwabuchi rule of the collisions, exp(-tau) kept); then a
+    revived lane takes the cosine-weighted direction (max(sqrt(u1), 1e-6),
+    azimuth 2 pi u2), z0 + nudge_z, orders + 1, its weight times max(R, 1),
+    and is alive; it keeps its tau.  A lane that exited and stays dead gets
+    weight 1 for its refill."""
+    law, det = spec.surface, spec.det
+    f, i = st.f, st.i
+    x, y, ux, uy, uz = f[X], f[Y], f[UX], f[UY], f[UZ]
+    exited = i[PK] != 0
+    hit = i[PK] == 2
+    w = st.w
+    flush(pro, buf.columns, buf.vol, st)
+    mu_r = torch.clamp(torch.sqrt(u[1]), min=f32(1e-6))
+    sin_r = torch.sqrt(torch.clamp(1.0 - u[1], min=0.0))
+    z_surf = f32(np.float32(spec.z0) + np.float32(spec.nudge_z))
+    if law.brdf:
+        brdf = brdf_function(law)
+        phi_in = torch.atan2(uy, ux)
+        refl = torch.clamp(brdf(law.params, uz, mu_r, phi_in, TWO_PI * u[2]), min=0.0)
+        revive = hit & (u[0] < torch.clamp(refl, max=1.0))
+    else:
+        revive = hit & (u[0] < law.albedo)
+    if buf.srf is not None:
+        emit = hit if law.brdf else revive
+        zs = torch.full_like(x, z_surf)
+        for d, (_, _, dz) in enumerate(det.dirs):
+            if dz <= 0.0:
+                continue            # a surface emits upward only
+            tau, col = shadow_closed(spec, d, x, y, zs)
+            if law.brdf:
+                npf = torch.clamp(brdf(law.params, uz, torch.full_like(uz, dz), phi_in,
+                                       torch.full_like(uz, law.det_phi[d])), min=0.0) * INV_PI
+            else:
+                npf = torch.full_like(x, INV_PI)
+            if det.iwabuchi:
+                contrib = _iwabuchi(det, npf, tau, u_iw[d])
+            else:
+                contrib = npf * torch.exp(-tau)
+            contrib = torch.where(emit, contrib, 0.0)
+            if w is not None:
+                contrib = contrib * w
+            buf.srf.view(-1).index_add_(0, col * det.n + d, contrib.to(torch.float64))
+    if w is not None:
+        w.copy_(torch.where(revive, w * torch.clamp(refl, min=1.0),
+                            torch.where(exited, 1.0, w)))
+    sin_az, cos_az = _sincos_2pi(u[2])
+    f[UX] = torch.where(revive, sin_r * cos_az, ux)
+    f[UY] = torch.where(revive, sin_r * sin_az, uy)
+    f[UZ] = torch.where(revive, mu_r, uz)
+    f[Z] = torch.where(revive, z_surf, f[Z])
+    i[ORDERS] = torch.where(revive, i[ORDERS] + 1, i[ORDERS])
+    i[ALIVE] = i[ALIVE] | revive.to(torch.int32)
+
+
 def fused_block_reference(spec: EventSpec, pro: PrologueSpec, state: LaneState,
                           buf: BlockBuffers, key: PhiloxKey, source: PhotonSource,
                           kb: int) -> None:
     """Plain PyTorch version of one whole block of the trace loop: the loop's
     end condition as seen at entry, then renormalize, flush, refill (while
-    the batch has more photons than lanes) and the K events of
-    ``event_block_reference``, all in place on ``state`` and ``buf``."""
+    the batch has more photons than lanes), the K events of
+    ``event_block_reference`` and, over a reflecting surface, the surface
+    stage (``resolve_surface``: the block's exits and the bounce of its
+    bottom hits, before the next block's dead counts are taken, so that its
+    FIFO rank sees a revived lane alive), all in place on ``state`` and
+    ``buf``."""
     ctl = buf.ctl
     launched = ctl[kb & 1].clone()
     spent = launched >= pro.n_photons
@@ -728,6 +891,9 @@ def fused_block_reference(spec: EventSpec, pro: PrologueSpec, state: LaneState,
     ctl[(kb + 1) & 1] = launched
     u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, state.f.device)
     event_block_reference(spec, state, u, buf.acc)
+    if spec.reflecting:
+        resolve_surface(spec, pro, state, buf,
+                        *surface_uniforms(spec, key, kb, state.n_lanes, state.f.device))
     buf.dead[(kb + 1) & 1] = cta_dead_counts(state.i[ALIVE])
 
 
@@ -798,6 +964,13 @@ class _Prologue(ctypes.Structure):
         ("src", _SourceParams)]
 
 
+class _SurfaceParams(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int), ("iw", ctypes.c_int), ("albedo", ctypes.c_float),
+                ("params", ctypes.c_float * MAX_BRDF_PARAMS),
+                ("det_phi", ctypes.c_float * MAX_DETECTORS),
+                ("w", ctypes.c_void_p), ("acc", ctypes.c_void_p)]
+
+
 class _EventParams(ctypes.Structure):
     _fields_ = [("fx", _StepChain), ("fy", _StepChain), ("fz", _StepChain)] + [
         (n, ctypes.c_float) for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max",
@@ -809,7 +982,7 @@ class _EventParams(ctypes.Structure):
         ("det", _DetParams), ("gz", _StepChain), ("n_x", ctypes.c_int),
         ("n_y", ctypes.c_int)] + [
         (n, ctypes.c_float) for n in ("inv_dx", "inv_dy", "dx", "dy")] + [
-        ("pro", _Prologue)]
+        ("pro", _Prologue), ("srf", _SurfaceParams)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -863,6 +1036,8 @@ def build():
     lib.i3rc_philox_uniforms.restype = ci
     lib.i3rc_philox_bits.argtypes = [vp, cu, cu, cu, cu, cu, ci, vp]
     lib.i3rc_philox_bits.restype = ci
+    lib.i3rc_brdf_reflectance.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp]
+    lib.i3rc_brdf_reflectance.restype = ci
     lib.i3rc_column_read_probe.argtypes = [vp, vp, vp, vp, ci, cu, cu, cu, vp]
     lib.i3rc_column_read_probe.restype = ci
     if lib.i3rc_event_params_size() != ctypes.sizeof(_EventParams):
@@ -893,6 +1068,8 @@ def launch_refusal(spec: EventSpec) -> str | None:
                 f"{det.n if det is not None else 0} detectors, chain depth {spec.chain})")
     if det is not None and spec.chain:
         return f"the event block runs detectors at chain depth 0; got chain {spec.chain}"
+    if spec.weighted and len(spec.surface.params) > MAX_BRDF_PARAMS:
+        return f"the event block holds {MAX_BRDF_PARAMS} BRDF parameters"
     if spec.col and (det is not None or spec.gas or not spec.track_y):
         return ("the event block runs column media for flux without the gas channel, "
                 "y tracked")
@@ -929,16 +1106,22 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
         _need(col, f.device, torch.float32, (spec.n_x * spec.n_y, 4), "the column table")
     if det is not None:
         _need(acc, f.device, torch.float64, (det.n_cols, det.n), "acc")
+    if (state.w is not None) != spec.weighted:
+        raise ValueError("event_block: the state carries a lane weight exactly on a BRDF plan")
+    if state.w is not None:
+        _need(state.w, f.device, torch.float32, (L,), "the lane weight")
     # The parameter block is built once per trace (the same buffers, key and
     # plan objects); later blocks change its block index only.
-    tag = (key, L, spec, pro, source)
+    w_ptr = state.w.data_ptr() if state.w is not None else None
+    tag = (key, L, w_ptr, spec, pro, source)
     cached = getattr(buf, "_params", None)
-    if cached is not None and cached[0][:2] == tag[:2] and all(
-            a is b for a, b in zip(cached[0][2:], tag[2:])):
+    if cached is not None and cached[0][:3] == tag[:3] and all(
+            a is b for a, b in zip(cached[0][3:], tag[3:])):
         p = cached[1]
         p.kb = kb & 0xFFFFFFFF
     else:
         p = event_params(spec, key, kb, L)
+        p.srf.w = w_ptr
         if buf is not None:
             _need(buf.columns, f.device, torch.float64, (pro.n_cols, pro.n_kinds), "columns")
             _need(buf.vol, f.device, torch.float64,
@@ -948,6 +1131,9 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
             if (spec.n_x, spec.n_y) != (pro.n_x, pro.n_y):
                 raise ValueError("event_block: the prologue's grid differs from the spec's")
             p.pro = _prologue_params(pro, buf, source_constants(source, f.device))
+            if buf.srf is not None:
+                _need(buf.srf, f.device, torch.float64, (det.n_cols, det.n), "srf")
+                p.srf.acc = buf.srf.data_ptr()
             buf._params = (tag, p)
     lib = build().lib
     with torch.cuda.device(f.device):
@@ -998,14 +1184,20 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
         p.det = _det_params(spec.det)
     if spec.gas:
         p.gz = _step_chain(spec.gz, spec.inv_gz)
+    if spec.reflecting:
+        law, q = spec.surface, p.srf
+        q.kind, q.albedo = law.kind, law.albedo
+        q.iw = int(spec.det is not None and spec.det.iwabuchi)
+        q.params[:len(law.params)] = list(law.params)
+        q.det_phi[:len(law.det_phi)] = list(law.det_phi)
     p.n_x, p.n_y = spec.n_x, spec.n_y
     for n in ("inv_dx", "inv_dy", "dx", "dy"):
         setattr(p, n, getattr(spec, n))
     return p
 
 
-def _count_launch(spec: EventSpec) -> None:
-    counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col)]
+def _count_launch(spec: EventSpec, surface: bool = False) -> None:
+    counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col, surface)]
     setattr(event_block, counter, getattr(event_block, counter) + 1)
 
 
@@ -1019,7 +1211,9 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
     ``detector_launches`` (detectors), ``gas_launches`` (flux with the gas
     channel), ``gas_detector_launches`` (detectors with the gas channel) and
     ``column_launches`` (flux in column media); CPU tensors run the plain
-    twin on ``philox_uniforms`` draws.
+    twin on ``philox_uniforms`` draws.  The K events carry no surface bounce
+    (that is a stage of the whole block); a BRDF plan's lane weight
+    ``state.w`` scales the detector contributions.
     """
     if (spec.det is None) != (acc is None):
         raise ValueError("event_block: acc is given exactly when the spec has detectors")
@@ -1038,27 +1232,36 @@ def fused_block(spec: EventSpec, pro: PrologueSpec, state: LaneState, buf: Block
                 key: PhiloxKey, source: PhotonSource, kb: int) -> None:
     """One whole block ``kb`` of the trace loop, in place on ``state`` and
     ``buf``: renormalize, flush, refill, K events, and the loop's control
-    state (``BlockBuffers``).  On CUDA tensors this is one launch of the
-    kernel, counted as ``event_block`` counts its launches, and nothing
-    else; CPU tensors run ``fused_block_reference``."""
+    state (``BlockBuffers``), and over a reflecting surface the bounce of
+    the lanes that hit the bottom.  On CUDA tensors this is one launch of
+    the kernel, counted as ``event_block`` counts its launches (over a
+    reflecting surface in the ``*surface_launches`` counter of the
+    variant, e.g. ``surface_launches``, ``detector_surface_launches``), and
+    nothing else; CPU tensors run ``fused_block_reference``."""
     if (spec.det is None) != (buf.acc is None):
         raise ValueError("fused_block: buf.acc is given exactly when the spec has detectors")
+    if (buf.srf is not None) != (spec.det is not None and spec.reflecting):
+        raise ValueError("fused_block: buf.srf is given exactly for detectors over a "
+                         "reflecting surface")
     device = state.f.device
     if device.type == "cuda":
         _launch(spec, state, key, kb, buf.acc, pro, buf, source)
-        _count_launch(spec)
+        _count_launch(spec, spec.reflecting)
     elif device.type == "cpu":
         fused_block_reference(spec, pro, state, buf, key, source, kb)
     else:
         raise NotImplementedError(f"fused_block: no kernel for device {device}")
 
 
-# The launch counter of each kernel variant, by (detectors, gas, column).
-LAUNCH_COUNTERS = {(False, False, False): "launches",
-                   (True, False, False): "detector_launches",
-                   (False, True, False): "gas_launches",
-                   (True, True, False): "gas_detector_launches",
-                   (False, False, True): "column_launches"}
+# The launch counter of each kernel variant, by (detectors, gas, column,
+# the whole block over a reflecting surface).
+_COUNTERS = {(False, False, False): "launches",
+             (True, False, False): "detector_launches",
+             (False, True, False): "gas_launches",
+             (True, True, False): "gas_detector_launches",
+             (False, False, True): "column_launches"}
+LAUNCH_COUNTERS = {k + (srf,): name.replace("launches", "surface_launches") if srf else name
+                   for k, name in _COUNTERS.items() for srf in (False, True)}
 
 
 def reset_launch_counters() -> None:
@@ -1081,6 +1284,23 @@ def kernel_philox_uniforms(key: PhiloxKey, kb: int, K: int, n_draws: int, n_lane
             kb & 0xFFFFFFFF, STREAM_EVENT, K * G, n_lanes, _stream(out.device))
     _check(rc, "philox_uniforms launch")
     return out.reshape(K, 4 * G, n_lanes)[:, :n_draws]
+
+
+def kernel_brdf_reflectance(law: SurfaceLaw, mu_in, mu_out, phi_in, phi_out) -> torch.Tensor:
+    """R of a BRDF surface law at each element of four float32 CUDA tensors
+    of one shape, through the kernel's own BRDF (the test entry of the
+    library, for checks against core/surface.py)."""
+    q = _SurfaceParams()
+    q.kind = law.kind
+    q.params[:len(law.params)] = list(law.params)
+    args = [t.contiguous() for t in (mu_in, mu_out, phi_in, phi_out)]
+    out = torch.empty_like(args[0])
+    with torch.cuda.device(out.device):
+        rc = build().lib.i3rc_brdf_reflectance(out.data_ptr(), *(t.data_ptr() for t in args),
+                                               out.numel(), ctypes.byref(q),
+                                               _stream(out.device))
+    _check(rc, "brdf_reflectance launch")
+    return out
 
 
 def kernel_philox_bits(k0: int, k1: int, c1: int, c2: int, c3: int, n_lanes: int,

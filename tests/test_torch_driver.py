@@ -2,6 +2,7 @@
 
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 from scipy.io import netcdf_file
@@ -71,10 +72,26 @@ def test_driver_step_cloud_anchor(tmp_path):
     assert fup + fdn == pytest.approx(2.0, abs=1e-4) and fabs == 0.0
 
 
+@pytest.mark.parametrize("radiance", [False, True])
+def test_driver_surface_albedo(tmp_path, radiance):
+    """surfaceAlbedo > 0 runs, with and without radiance detectors: the flux
+    file (and the radiance file) written, Fup above the black surface's
+    anchor, the upward radiance finite and positive."""
+    write_domains(str(tmp_path))
+    rad = ("intensityMus = 1., .5, intensityPhis = 0., 180.," if radiance else "")
+    files = f'outputFluxFile = "{tmp_path}/fluxes.out",' + (
+        f' outputRadFile = "{tmp_path}/rad.out"' if radiance else "")
+    out = run_from_namelist(_namelist(tmp_path, radiative=f"surfaceAlbedo = 0.3, {rad}",
+                                      files=files), quiet=True, device="cpu")
+    assert (tmp_path / "fluxes.out").is_file() and (tmp_path / "rad.out").is_file() == radiance
+    (fup, fup_e), (fdn, _), (fabs, _) = out["mean_stats"]
+    assert out["cfg"]["surface_albedo"] == 0.3 and fabs == 0.0
+    assert fup / 2 > ANCHOR_FUP + 0.02 and fdn / 2 > 1.0 - ANCHOR_FUP
+    if radiance:
+        assert np.isfinite(out["radiance"][0]).all() and float(out["radiance"][0].min()) > 0.0
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(radiative="surfaceAlbedo = 0.3, intensityMus = 1., intensityPhis = 0.",
-          files='outputRadFile = "rad.out"'), "item 11"),
-    (dict(radiative="surfaceAlbedo = 0.3,"), "item 11"),
     (dict(algorithms="useRayTracing = .false., polarized = .true.,"), "item 17"),
     (dict(algorithms="useRayTracing = .true.,"), "item 16"),
     (dict(algorithms=""), "item 16"),    # the reference default is ray tracing

@@ -23,7 +23,7 @@ def host(pkg: str) -> SimpleNamespace:
     mod = lambda name: importlib.import_module(f"{pkg}.{name}")
     pf = mod("core.phase_functions")
     return SimpleNamespace(
-        Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
+        pkg=pkg, Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
         PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
         make_step_cloud=mod("models.step_cloud").make_step_cloud,
         cfg=mod("integrators.config").IntegratorConfig(use_ray_tracing=False,
@@ -89,10 +89,55 @@ def test_non_separable_field_has_no_plan():
         integ.batch_tracer(1024)
 
 
+SURFACES = {"albedo": dict(surface_albedo=0.3)} | {
+    name: dict(surface=(name, params)) for name, params in (
+        ("lambertian", [0.3]), ("rpv", [0.2, 0.8, -0.1]), ("cox_munk", [8.0, 1.34]),
+        ("ross_li", [0.2, 0.05, 0.02]))}
+
+
+@pytest.mark.parametrize("name", sorted(SURFACES))
+def test_surface_plans_match_jax(name):
+    """A Lambertian albedo and each uniform BRDF take the fastpath, with the
+    JAX planner's surface fields (fastpath.py:414-434); a gridded BRDF has
+    no plan on either side, and its batch tracer names item 16."""
+    kw = dict(SURFACES[name])
+
+    def create(h, pkg_integrator, **extra):
+        k = dict(kw)
+        if "surface" in k:
+            brdf, params = k["surface"]
+            k["surface"] = importlib.import_module(f"{h.pkg}.core.surface").SurfaceDescription \
+                .uniform(params, brdf_name=brdf)
+        return pkg_integrator.create(h.make_step_cloud(1.0), config=h.cfg, **k, **extra)
+
+    jplan = create(JAX, JaxIntegrator)._fast_plan
+    tplan = create(PORT, Integrator, device="cpu")._fast_plan
+    assert jplan is not None and tplan is not None
+    assert tplan.surface_albedo == jplan.surface_albedo
+    if "surface" in kw:
+        assert tplan.brdf == kw["surface"][0] == jplan.brdf_fn.__name__.removesuffix("_brdf")
+        assert tplan.brdf_params == tuple(float(v) for v in jplan.brdf_params)
+    else:
+        assert tplan.brdf is None and jplan.brdf_fn is None and tplan.surface_albedo == 0.3
+    assert plan_from_jax(jplan) == tplan
+    if name == "rpv":
+        surf = importlib.import_module("i3rc_tpu_torch.core.surface").SurfaceDescription
+        grid = surf.create(np.full((2, 1, 3), [0.2, 0.8, -0.1]), [0.0, 1.0, 2.0], [0.0, 1.0],
+                           brdf_name="rpv")
+        jgrid = importlib.import_module("i3rc_tpu.core.surface").SurfaceDescription.create(
+            np.full((2, 1, 3), [0.2, 0.8, -0.1]), [0.0, 1.0, 2.0], [0.0, 1.0], brdf_name="rpv")
+        assert JaxIntegrator.create(JAX.make_step_cloud(1.0), config=JAX.cfg,
+                                    surface=jgrid)._fast_plan is None
+        integ = Integrator.create(PORT.make_step_cloud(1.0), config=PORT.cfg, surface=grid,
+                                  device="cpu")
+        assert integ._fast_plan is None
+        with pytest.raises(NotImplementedError, match="item 16"):
+            integ.batch_tracer(1024)
+
+
 @pytest.mark.parametrize("kwargs,item", [
     # fx and fy both vary: the JAX planner takes the marching shadow trace.
     (dict(intensity_mus=[1.0, 0.5], intensity_phis=[0.0, 0.0]), "item 10b"),
-    (dict(surface_albedo=0.3), "item 11"),
 ])
 def test_out_of_slice_plans_raise(kwargs, item):
     dom = separable_3d if "intensity_mus" in kwargs else lambda h: h.make_step_cloud(1.0)

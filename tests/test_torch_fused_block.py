@@ -22,8 +22,8 @@ and then the K events.  On the CPU ``fused_block`` runs
   at the plan, naming its ROADMAP item.
 
 The CUDA cases (marker ``cuda``) repeat the bit-for-bit check against the
-kernel itself and run the plans the card used to refuse (D = 9 and 16,
-K = 4 and 32).  Only the comparison with the JAX package imports it, inside
+kernel itself, over reflecting surfaces too, and run the plans the card
+used to refuse (D = 9 and 16, K = 4 and 32).  Only the comparison with the JAX package imports it, inside
 its test, so that the file also runs on a machine with a card and no JAX
 (``python -m pytest --noconftest tests/test_torch_fused_block.py -m cuda``).
 """
@@ -41,6 +41,7 @@ from i3rc_tpu_torch import (
     PhaseFunction,
     PhaseFunctionTable,
     PhotonSource,
+    SurfaceDescription,
     batch_key,
     henyey_greenstein_coefficients,
     make_step_cloud,
@@ -437,6 +438,61 @@ def test_fused_kernel_matches_reference_on_gpu(case):
         assert float((buf.acc - ref.acc).abs().max() / ref.acc.abs().max()) <= 1e-9
         buf.acc.copy_(ref.acc)
     assert_same_block(st, buf, ref_st, ref, (kb + 1) & 1)
+
+
+# Reflecting surfaces: the block ends with the surface stage (a second
+# kernel of the same call on the card).  name -> (domain, config, keywords).
+SURFACED = {
+    "albedo_flux": (lambda: make_step_cloud(0.99), replace(CFG, compute_volume_absorption=True),
+                    dict(surface_albedo=0.3)),
+    "albedo_detectors": (lambda: make_step_cloud(1.0), IWABUCHI,
+                         dict(surface_albedo=0.3, **DET3)),
+    "albedo_gas": (lambda: domain_with_gas_component(make_step_cloud(0.99), GAS), CFG,
+                   dict(surface_albedo=0.2)),
+    "albedo_column": (lambda: column_scene(1.0), CFG, dict(surface_albedo=0.2)),
+    "cox_munk_flux": (lambda: make_step_cloud(1.0), CFG,
+                      dict(surface=SurfaceDescription.uniform([8.0, 1.34], "cox_munk"))),
+    "rpv_detectors": (lambda: make_step_cloud(1.0), CFG,
+                      dict(surface=SurfaceDescription.uniform([0.2, 0.8, -0.1], "rpv"),
+                           intensity_mus=[0.5, -0.5], intensity_phis=[40.0, 0.0])),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SURFACED))
+def test_surfaced_block_matches_reference_on_gpu(name):
+    """The whole block over a reflecting surface, kernel against plain
+    version, two blocks into a trace: every state row (and the lane weight),
+    the control state and dead counts bit for bit; the flux tallies bit for
+    bit over an albedo (unit counts), within 1e-6 relative under a BRDF
+    (weights summed in another order; chip_smoke.py phase 4d states the rule
+    for a BRDF's libdevice rounding); the accumulators within 1e-9."""
+    dev = need_card()
+    make, cfg, kw = SURFACED[name]
+    integ = Integrator.create(make(), config=cfg, device=dev, **kw)
+    spec = event_spec(integ.geometry, integ._fast_plan, cfg)
+    key = batch_key(17, 4)
+    lanes = (1 << 14) + 77
+    st = launch_state(integ.geometry, DIRECTIONAL.sample(key, lanes, dev), lanes,
+                      gas_key=key if spec.gas else None, weighted=spec.weighted)
+    pro = prologue_spec(integ.geometry, spec, cfg, 4 * lanes)
+    buf = block_buffers(spec, pro, st, lanes)
+    for kb in range(2):
+        fused_block_reference(spec, pro, st, buf, key, DIRECTIONAL, kb)
+    ref_st, ref = st.clone(), buf.clone()
+    fused_block_reference(spec, pro, ref_st, ref, key, DIRECTIONAL, 2)
+    fused_block(spec, pro, st, buf, key, DIRECTIONAL, 2)
+    for a, b in ((buf.acc, ref.acc), (buf.srf, ref.srf)):
+        if b is not None:
+            assert float((a - b).abs().max() / b.abs().max().clamp(min=1e-300)) <= 1e-9
+    if spec.weighted:
+        assert float((buf.columns - ref.columns).abs().max() / ref.columns.abs().max()) <= 1e-6
+        buf.columns.copy_(ref.columns)
+        assert torch.equal(st.w, ref_st.w)
+    for t in (buf.acc, buf.srf):
+        if t is not None:
+            t.copy_(ref.acc if t is buf.acc else ref.srf)
+    assert_same_block(st, buf, ref_st, ref, 1)
 
 
 @pytest.mark.cuda
