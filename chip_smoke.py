@@ -19,9 +19,18 @@ the column-read probe loop, and reflecting surfaces (the glint row's
 Cox-Munk ocean under thin cirrus, the step cloud over an albedo and over RPV
 with detectors, the 13-detector ocean-glint scan, an albedo through the
 namelist driver; each BRDF and the whole block with the surface stage
-against their plain versions first) — and checks the physics.  Every phase prints
-one line; any failed check raises and the script exits nonzero.  Run from
-the repository root:
+against their plain versions first), and the general kernel (its block
+against its plain version on every scene its paths run, at their photons
+and lanes, which together launch every instantiation: ray tracing, maximum
+cross-section and Woodcock, one and two components, black, albedo and
+gridded BRDF surfaces and the weight-1 class; then the step cloud through
+the default configuration, Landsat with the fastpath off against the
+Landsat fastpath, Beer-Lambert, the slab oracle and the closed forms of
+tests/general_oracles.py (a slab over an albedo, two components in the
+same cells, a gridded BRDF under a clear sky), the ray-tracing namelist
+through the driver and a traced spectral band) — and checks the physics.
+Every phase prints one line; any failed check raises and the script exits
+nonzero.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -42,6 +51,7 @@ import textwrap
 import time
 from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -295,7 +305,8 @@ def ptxas_of_census(log: str) -> dict:
 
 
 def _load_tests_module(name: str):
-    """A numpy-only helper module of tests/, loaded by path."""
+    """A helper module of tests/ that imports neither jax nor the JAX
+    package, loaded by path."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(name, ROOT / "tests" / f"{name}.py")
@@ -608,7 +619,7 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
                               **bounce_work(spec, rec[0][5] * len(rec), hits))}
 
 
-def profile_batch(run_batch) -> dict:
+def profile_batch(run_batch, block_name: str = "fast_event_block_kernel") -> dict:
     """One batch under torch.profiler with nothing else in its way: the host
     time to a synchronize, the device's busy time (every kernel's own time)
     and idle share over the batch; and over the trace loop alone, from the
@@ -627,7 +638,7 @@ def profile_batch(run_batch) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end
                > e.time_range.start and "memcpy" not in e.name.lower()
                and "memset" not in e.name.lower()]
-    blocks = [e for e in kernels if "fast_event_block_kernel" in e.name]
+    blocks = [e for e in kernels if block_name in e.name]
     surface = [e for e in kernels if "fast_event_block_surface_kernel" in e.name]
     check(len(blocks) > 0, "the profiler shows no block kernel on the device")
     us = lambda es: sum(e.time_range.end - e.time_range.start for e in es)
@@ -1211,8 +1222,21 @@ def main() -> int:
     say("1 card", torch=torch.__version__, cuda=torch.version.cuda,
         device=json.dumps(torch.cuda.get_device_name(0)), smi=json.dumps(smi))
 
-    # 2. build
-    built = eb.build()
+    # 2. build: the fast and the general libraries, every nvcc process together
+    from concurrent.futures import ThreadPoolExecutor
+
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    with ThreadPoolExecutor(1) as pool:
+        general_built = pool.submit(gb.build)
+        built = eb.build()
+        gbuilt = general_built.result()
+    gptx = ptxas_general(gbuilt.log)
+    check(len(gptx) == 13, f"general kernel instantiations {sorted(gptx)}")
+    say("2 build-general", seconds=f"{gbuilt.seconds:.1f}", library=gbuilt.path.name,
+        instantiations=len(gptx),
+        **{k: "{registers}regs/{stack_bytes}B/{ctas_per_sm}cta".format(**v)
+           for k, v in sorted(gptx.items())})
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", built.log)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", built.log))
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
@@ -1220,7 +1244,7 @@ def main() -> int:
         **ptxas_by_variant(built.log))
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "ptxas.log").write_text(built.log)
+    (out / "ptxas.log").write_text(built.log + gbuilt.log)
     census = sass_census(built.path)
     ptxas = ptxas_of_census(built.log)
     for name, ops in census.items():
@@ -1491,6 +1515,11 @@ def main() -> int:
     # scan, and the albedo through the namelist driver
     surf_paths = surface_paths(out, card)
 
+    # 26-31. the general kernel: against its plain version on every
+    # transport mode, optics, surface and the weight-1 class, then its paths
+    g_timed, g_err = general_kernel_vs_twin(dev, card, gptx)
+    g_rec = general_paths(out, card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -1546,7 +1575,8 @@ def main() -> int:
               "benchmarks/column_read_probe.py:83", *probe)] + [
         surface_entry(f"fast_event_block{sfx}_surface", source, kind, surf_paths[kind],
                       surf_timed[kind], surf_err[kind], brdf_diff)
-        for sfx, kind in (("", "flux"), ("_detectors", "detectors"))]}))
+        for sfx, kind in (("", "flux"), ("_detectors", "detectors"))] + [
+        general_entry(g_timed, g_err, g_rec)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1978,6 +2008,655 @@ def broadband_driver(bb_dir: Path, card: str) -> int:
         intensity=",".join(f"{float(v):.5f}" for v in rad.mean(axis=(0, 1))),
         seconds=f"{t_drv:.2f}", launches=launches_gas_det, card=json.dumps(card))
     return launches_gas_det
+
+
+# ---------------------------------------------------------------------------
+# The general kernel G (csrc/general_event_block.cuh): ray tracing, maximum
+# cross-section and Woodcock, against its plain version and on its paths
+
+GENERAL_PHOTONS = 1 << 24           # the step cloud through the default config
+GENERAL_LANES = 1 << 20             # the default wavefront width (fastpath.DEFAULT_LANES)
+LANDSAT_GENERAL_PHOTONS = 1 << 21   # bench.py:193-215's row
+GENERAL_SLAB_PHOTONS = 1 << 20
+# Operations per DDA step (face distances, the extinction load, the overshoot
+# test, the corner guard, the wraps), per lane-event (Philox groups of the
+# draws, the free path's logf, the classification), per collision (the
+# component pick, the cubic inverse CDF, the rotation and its renormalization:
+# two square roots, a reciprocal, an rsqrt, and the acceptance's division).
+OPS_PER_GSTEP = (45, 0)
+OPS_PER_GEVENT = (260, 2)
+OPS_PER_GCOLLISION = (120, 6)
+GSTATE_ROWS = 15                    # x, y, z, ux, uy, uz, w; alive, ix, iy, iz, order, bad, evct, xing
+
+
+def general_bound(steps: int, lane_events: int, collisions: int, n_bytes: int):
+    """(least ms, what bounds it) of general-kernel work: DDA steps,
+    lane-events and collisions, and ``n_bytes`` of device memory."""
+    alu = steps * OPS_PER_GSTEP[0] + lane_events * OPS_PER_GEVENT[0] \
+        + collisions * OPS_PER_GCOLLISION[0]
+    sfu = steps * OPS_PER_GSTEP[1] + lane_events * OPS_PER_GEVENT[1] \
+        + collisions * OPS_PER_GCOLLISION[1]
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def general_table_bytes(integ, tracer) -> int:
+    """The optics and tables one block reads at least once: the extinction,
+    the packed rows (general optics), the majorants, the cubic table."""
+    opt, spec = integ.device_optics, tracer.spec
+    n = opt.total_ext.numel() * 4 + opt.block_majorant.numel() * 4
+    if not opt.uniform:
+        n += opt.cell_matrix.numel() * 4
+    n += integ.tables.inverse_cubic.numel() * 4
+    return n + 2 * 8 * 3 * spec.geom.n_x * spec.geom.n_y
+
+
+def ptxas_general(log: str) -> dict:
+    """Per general-kernel instantiation (mode, uniform, reflecting, weight-1):
+    registers, stack and spill bytes and CTAs per SM, from ptxas -v."""
+    out, name = {}, None
+    modes = {"0": "rt", "1": "maxcs", "2": "woodcock"}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*general_event_block_kernelILi(\d)"
+                      r"ELb(\d)ELb(\d)ELb(\d)E", line)
+        if m:
+            name = (modes[m[1]] + ("_uniform" if m[2] == "1" else "_general")
+                    + ("_reflecting" if m[3] == "1" else "") + ("_weight1" if m[4] == "1" else ""))
+            out[name] = {}
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                                      line)):
+            out[name].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name].update(registers=int(m[1]), ctas_per_sm=ctas_per_sm(int(m[1])))
+    return out
+
+
+def general_instantiation(spec, var) -> str:
+    """The kernel instantiation a (spec, variant) launches, named as
+    ptxas_general names it."""
+    return ({0: "rt", 1: "maxcs", 2: "woodcock"}[spec.mode]
+            + ("_uniform" if var.uniform else "_general")
+            + ("_reflecting" if spec.surface_kind else "") + ("_weight1" if var.bernoulli else ""))
+
+
+def two_component_domain():
+    """A seeded random 3-D field of two components: an HG cloud and a
+    tabulated non-HG (Rayleigh-like) component, ssa < 1, irregular x and z
+    (faces and cells from the edge arrays)."""
+    from i3rc_tpu_torch import (Domain, PhaseFunction, PhaseFunctionTable,
+                                henyey_greenstein_coefficients)
+
+    rng = np.random.default_rng(5)
+    nx, ny, nz = 12, 10, 14
+    ext1 = rng.uniform(0.0, 0.08, (nx, ny, nz)) * (rng.uniform(size=(nx, ny, nz)) > 0.3)
+    ext2 = rng.uniform(0.002, 0.02, (nx, ny, nz))
+    hg = PhaseFunctionTable.from_phase_functions(
+        [PhaseFunction.from_legendre(henyey_greenstein_coefficients(g, 64))
+         for g in (0.85, 0.6)], key=[1.0, 2.0])
+    ang = np.linspace(0.0, np.pi, 181)
+    ray = PhaseFunctionTable.from_phase_functions(
+        [PhaseFunction.from_tabulated(ang, 0.75 * (1 + np.cos(ang) ** 2))], key=[0.0])
+    z = np.concatenate([[0.0], np.cumsum(rng.uniform(10.0, 30.0, nz))])
+    x = np.concatenate([[0.0], np.cumsum(rng.uniform(30.0, 70.0, nx))])
+    dom = Domain.create(x, np.linspace(0, 500.0, ny + 1), z)
+    check(not dom.xy_regularly_spaced and not dom.z_regularly_spaced, "irregular grid")
+    dom = dom.add_component("cloud", ext1, rng.uniform(0.95, 1.0, ext1.shape),
+                            rng.integers(0, 2, ext1.shape).astype(np.int32), hg)
+    return dom.add_component("haze", ext2, np.full(ext2.shape, 0.9),
+                             np.zeros(ext2.shape, np.int32), ray)
+
+
+# The closed forms of phase 29 (tests/general_oracles.py): a slab over a
+# Lambertian albedo, two components in the same cells over black and over
+# the albedo, a gridded RPV surface under a transparent atmosphere.
+ORACLE_ALBEDO = 0.6
+ORACLE_MODES = {"rt": dict(use_ray_tracing=True), "maxcs": dict(use_ray_tracing=False),
+                "woodcock": dict(use_ray_tracing=False, majorant_block_size=16)}
+
+
+def traced_band(dev):
+    """Phase 31's band: band 0 of examples/broadbandDriver.nml's inputs
+    (examples/make_broadband_inputs.py: k = 2e-4, 2e-3, weights 0.8, 0.2)
+    over the step cloud, flux only.  Returns (cloud domain, k-distribution,
+    the integrator of k point 0, the device optics of k point 1)."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, KDistribution, make_step_cloud
+    from i3rc_tpu_torch.core.optics import flatten_optics
+    from i3rc_tpu_torch.integrators.integrator import device_optics_from_flat
+    from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
+
+    dom = make_step_cloud(1.0)
+    z = np.asarray(dom.z_edges)
+    kd = KDistribution.create(z, np.broadcast_to([[2e-4, 2e-3]], (32, 2)).copy(), [0.8, 0.2],
+                              wavelength_limits=(0.5, 0.7), spectral_fraction=0.9)
+    cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                           compute_volume_absorption=False, majorant_block_size=16)
+    profiles = kd.absorption_profiles_on(z)
+    integ = Integrator.create(domain_with_gas_component(dom, profiles[:, 0]), cfg, device=dev)
+    optics_k1 = device_optics_from_flat(
+        flatten_optics(domain_with_gas_component(dom, profiles[:, 1])),
+        cfg.majorant_block_size, dev)
+    return dom, kd, integ, optics_k1
+
+
+def general_scene(name: str, dev) -> SimpleNamespace:
+    """(integ, src, n, lanes, optics) of one general-kernel scene: the rows
+    of phase 26, which include every scene that phases 27-31 drive, built
+    here for both (``optics``: an override of the integrator's optics)."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource,
+                                SurfaceDescription, make_landsat_cloud, make_step_cloud)
+
+    oracles = _load_tests_module("general_oracles")
+    port = oracles.host("i3rc_tpu_torch")
+    src = PhotonSource.directional(0.5, 0.0)
+    L = L_CHECK
+    scene = lambda integ, n, lanes, src=src, optics=None: SimpleNamespace(
+        integ=integ, src=src, n=n, lanes=lanes, optics=optics)
+    mode = name.split("_")[0]
+    if name == "rt_step_cloud":
+        # phases 27 and 30: the default configuration (ray tracing)
+        return scene(Integrator.create(make_step_cloud(1.0), device=dev), 4 * GENERAL_LANES,
+                     GENERAL_LANES)
+    if name.endswith("two_comp"):
+        cfg = IntegratorConfig(use_ray_tracing=mode == "rt", use_fastpath=False, max_events=500,
+                               majorant_block_size=2 if mode == "woodcock" else 0)
+        return scene(Integrator.create(two_component_domain(), cfg, device=dev), 4 * L, L)
+    if name == "maxcs_albedo":
+        cfg = IntegratorConfig(use_ray_tracing=False, use_fastpath=False, max_events=500,
+                               compute_volume_absorption=False)
+        return scene(Integrator.create(make_step_cloud(0.99), cfg, surface_albedo=0.2,
+                                       device=dev), 4 * L, L)
+    if name == "rt_rpv_grid":
+        params = np.array([[[0.1, 0.8, -0.1], [0.3, 0.7, 0.1]],
+                           [[0.2, 0.9, 0.0], [0.05, 0.6, -0.2]]], np.float32)
+        srf = SurfaceDescription.create(params, [0.0, 250.0, 500.0], [0.0, 0.5, 1.0],
+                                        brdf_name="rpv")
+        return scene(Integrator.create(make_step_cloud(1.0), IntegratorConfig(max_events=500),
+                                       surface=srf, device=dev), 4 * L, L)
+    if name == "woodcock_weight1":
+        cfg = IntegratorConfig(use_ray_tracing=False, use_fastpath=False, max_events=500,
+                               compute_volume_absorption=False, majorant_block_size=8)
+        return scene(Integrator.create(make_landsat_cloud(0.99), cfg, device=dev), 4 * L, L)
+    if name == "woodcock_landsat":
+        # phase 28: bench.py:193-215's row (fastpath off, 2^21 photons);
+        # block majorants on 8-cell super-voxels by the create-time rule
+        cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                               compute_volume_absorption=False, use_fastpath=False)
+        n = LANDSAT_GENERAL_PHOTONS
+        return scene(Integrator.create(make_landsat_cloud(1.0), cfg, device=dev), n,
+                     min(n, GENERAL_LANES))
+    n = GENERAL_SLAB_PHOTONS
+    if name == "maxcs_beer_lambert":
+        # phase 29: bench.py:396-420's ssa 0 slab
+        cfg = IntegratorConfig(use_ray_tracing=False, max_events=100)
+        return scene(Integrator.create(oracles.hg_slab(port, 1.0, 0.0), cfg, device=dev), n, n,
+                     src=PhotonSource.directional(0.8, 0.0))
+    if name in ("rt_slab", "woodcock_slab"):
+        # phase 29: the slab oracle, conservative tau 1 in ray tracing, tau 2
+        # at ssa 0.99 on 16-cell super-voxels
+        tau, ssa = (1.0, 1.0) if mode == "rt" else (2.0, 0.99)
+        cfg = IntegratorConfig(max_events=2000, compute_volume_absorption=False,
+                               use_fastpath=False, **ORACLE_MODES[mode])
+        return scene(Integrator.create(oracles.hg_slab(port, tau, ssa, 1), cfg,
+                                       device=dev), n, n)
+    cfg = IntegratorConfig(max_events=2000, compute_volume_absorption=False,
+                           use_fastpath=False, **ORACLE_MODES[mode])
+    if name == "woodcock_albedo_slab":
+        return scene(Integrator.create(oracles.hg_slab(port, 1.0, 0.9), cfg,
+                                       surface_albedo=ORACLE_ALBEDO, device=dev), n, n)
+    if name.endswith(("_mixture", "_mixture_albedo")):
+        albedo = ORACLE_ALBEDO if name.endswith("albedo") else 0.0
+        return scene(Integrator.create(oracles.mixture_slab(port)[0], cfg, surface_albedo=albedo,
+                                       device=dev), n, n)
+    if name == "maxcs_rpv_clear":
+        dom, srf = oracles.clear_sky(port)
+        return scene(Integrator.create(dom, cfg, surface=srf, device=dev), n, n)
+    if name == "woodcock_band_k1":
+        # phase 31: the traced band's second k point, through the optics
+        # override
+        _, _, integ, optics_k1 = traced_band(dev)
+        return scene(integ, 1 << 22, GENERAL_LANES, optics=optics_k1)
+    raise ValueError(name)
+
+
+# Phase 26's rows and the instantiation each launches: the scenes of
+# phases 27-31 and the oracle scenes, together every instantiation.
+GENERAL_ROWS = {
+    "rt_step_cloud": "rt_uniform", "maxcs_two_comp": "maxcs_general",
+    "woodcock_two_comp": "woodcock_general", "rt_two_comp": "rt_general",
+    "maxcs_albedo": "maxcs_uniform_reflecting", "rt_rpv_grid": "rt_uniform_reflecting",
+    "woodcock_weight1": "woodcock_uniform_weight1",
+    "woodcock_landsat": "woodcock_uniform_weight1", "maxcs_beer_lambert": "maxcs_uniform",
+    "rt_slab": "rt_uniform", "woodcock_slab": "woodcock_uniform",
+    "woodcock_albedo_slab": "woodcock_uniform_reflecting", "rt_mixture": "rt_general",
+    "rt_mixture_albedo": "rt_general_reflecting",
+    "maxcs_mixture_albedo": "maxcs_general_reflecting",
+    "woodcock_mixture_albedo": "woodcock_general_reflecting",
+    "maxcs_rpv_clear": "maxcs_general_reflecting", "woodcock_band_k1": "woodcock_general"}
+
+
+def general_kernel_vs_twin(dev, card: str, built: dict) -> tuple[dict, float]:
+    """Phase 26: one block of G against general_block_reference on the
+    launch state (every lane alive, the first block), a mid-flight state
+    (refills running; rows of more photons than lanes) and a tail state
+    (budget spent, at most 15% of lanes alive) of every row of
+    GENERAL_ROWS, at the photons and lanes its path runs: the lane state,
+    the control state and the dead counts bit for bit, the float64 tallies
+    within 1e-9 of their largest entry.  Every instantiation of ``built`` is a row's.  The mid-flight
+    block of the first row is timed (profiler device time, CUDA events; the
+    twin by CUDA events).  Returns (timing of the main-path row, the largest
+    tally difference)."""
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    check(set(GENERAL_ROWS.values()) == set(built),
+          f"rows miss instantiations {sorted(set(built) - set(GENERAL_ROWS.values()))}")
+    timed, worst = None, 0.0
+    for row, (name, inst) in enumerate(GENERAL_ROWS.items()):
+        sc = general_scene(name, dev)
+        integ, src, n, L = sc.integ, sc.src, sc.n, sc.lanes
+        tracer = integ.general_tracer(n, L)
+        spec, tables = tracer.spec, integ.tables
+        opt = integ.device_optics if sc.optics is None else sc.optics
+        var = gb.variant(spec, opt)
+        check(general_instantiation(spec, var) == inst,
+              f"{name}: launches {general_instantiation(spec, var)}, not {inst}")
+        key = batch_key(SEED, 600 + row)
+        st = gb.launch_state(spec, src.sample(key, L, dev), n)
+        buf = gb.general_buffers(spec, st, min(L, n))
+        kb = 0
+
+        def advance():
+            nonlocal kb
+            gb.general_block(spec, var, opt, tables, st, buf, key, src, kb)
+            kb += 1
+
+        states = [("first", st.clone(), buf.clone(), kb)]
+        advance()
+        if n > L:
+            states.append(("mid", st.clone(), buf.clone(), kb))
+        while not (int(buf.ctl[kb & 1]) >= n
+                   and float(st.i[gb.ALIVE].float().mean()) <= 0.15):
+            check(kb < 600, f"{name}: the tail state never came")
+            advance()
+        states.append(("tail", st.clone(), buf.clone(), kb))
+        for state, s0, b0, kb_s in states:
+            sk, bk, sr, br = s0.clone(), b0.clone(), s0.clone(), b0.clone()
+            gb.general_block(spec, var, opt, tables, sk, bk, key, src, kb_s)
+            t0 = time.perf_counter()
+            gb.general_block_reference(spec, var, opt, tables, sr, br, key, src, kb_s)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t0
+            scale = max(float(br.columns.abs().max()), 1.0)
+            err = float((bk.columns - br.columns).abs().max()) / scale
+            if spec.vol:
+                err = max(err, float((bk.vol - br.vol).abs().max())
+                          / max(float(br.vol.abs().max()), 1.0))
+            bit = (torch.equal(sk.f, sr.f) and torch.equal(sk.i, sr.i)
+                   and torch.equal(bk.ctl, br.ctl) and torch.equal(bk.dead, br.dead))
+            n_diff = int(((sk.f != sr.f).any(0) | (sk.i != sr.i).any(0)).sum())
+            check(bit and err <= 1e-9,
+                  f"G {name} {state}: kernel and twin differ on {n_diff} lanes, tallies {err:.2e}"
+                  f" ctl {bk.ctl.tolist()} {br.ctl.tolist()}")
+            worst = max(worst, err)
+            live = int(s0.i[gb.ALIVE].sum())
+            d = lambda r: int((sr.i[r] - s0.i[r]).sum())
+            steps, events = d(gb.XING), d(gb.EVCT)
+            # Collisions: every lane-event that did not end its photon.
+            taken = int(br.ctl[(kb_s + 1) & 1] - b0.ctl[kb_s & 1])
+            ended = live + taken - int(sr.i[gb.ALIVE].sum())
+            n_bytes = 8 * L + (live + taken) * 2 * GSTATE_ROWS * 4 \
+                + general_table_bytes(integ, tracer)
+            bound = general_bound(steps, events, max(events - ended, 0), n_bytes)
+            fields = dict(scene=name, instantiation=inst, state=state, photons=n, lanes=L,
+                          alive=f"{live / L:.4f}", n_draws=var.n_draws, bit_equal=bit,
+                          tally_rel_err=f"{err:.2e}", lane_events=events, dda_steps=steps,
+                          twin_ms=f"{1e3 * twin_s:.3f}", bound_ms=f"{bound[0]:.4f}",
+                          bound_by=bound[1])
+            if row == 0 and state == "mid":
+                run = lambda s, b: gb.general_block(spec, var, opt, tables, s, b, key, src, kb_s)
+                new = lambda: (s0.clone(), b0.clone())
+                ms = general_block_ms(run, new, 10)
+                fields.update(kernel_ms=f"{ms[0]:.4f}", kernel_device_ms=f"{ms[1]:.4f}")
+                timed = {"device_ms": ms[1], "events_ms": ms[0], "twin_ms": 1e3 * twin_s,
+                         "bound": bound}
+            say("26 general-kernel-vs-twin", **fields, card=json.dumps(card))
+    return timed, worst
+
+
+def general_block_ms(run, new, n: int) -> tuple[float, float]:
+    """(CUDA-event ms, profiler device ms) of one G launch, mean of n on fresh
+    copies made by ``new``."""
+    total = 0.0
+    for k in range(n + 1):
+        s, b = new()
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(s, b)
+        e.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(e) if k else 0.0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    copies = [new() for _ in range(n)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for s, b in copies:
+            run(s, b)
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if "general_event_block_kernel" in e.key]
+    launches = sum(e.count for e in found)
+    dev_ms = sum(e.self_device_time_total for e in found) / max(launches, 1) / 1e3
+    return total / n, dev_ms if launches else float("nan")
+
+
+def general_batch_record(integ, src, n: int, lanes: int, seed: int, card: str, tag: str,
+                         profile: bool = True, optics=None) -> dict:
+    """One more batch of a general path: its device kernels under the
+    profiler (G's time summed over the batch, launches, idle share) and the
+    bound of the batch's work (DDA steps, lane-events, collisions counted
+    from the batch's tallies).  ``optics``: the batch runs those optics
+    through the general kernel (the traced spectral mode)."""
+    from i3rc_tpu_torch import batch_key
+
+    key = batch_key(SEED, seed)
+    tracer = integ.general_tracer(n, lanes)
+    run_batch = lambda: (tracer(key, src.sample(key, lanes, "cuda"), src) if optics is None
+                         else tracer(key, src.sample(key, lanes, "cuda"), src, optics))
+    pb = profile_batch(run_batch, "general_event_block_kernel") if profile else None
+    if pb is None:
+        raw = run_batch()
+        torch.cuda.synchronize()
+    else:
+        raw = pb["raw"]
+    steps = int(raw.n_dda_steps)
+    events = int(raw.n_lane_events)
+    launches = raw.n_iterations // tracer.spec.K
+    n_bytes = n * 2 * GSTATE_ROWS * 4 + 8 * lanes * launches
+    bound = general_bound(steps, events, max(events - n, 0), n_bytes)
+    rec = {"bound": bound, "launches": launches, "raw": raw, "steps": steps, "events": events}
+    fields = dict(photons=n, lanes=lanes, blocks=launches, lane_events=events, dda_steps=steps,
+                  bound_ms=f"{bound[0]:.3f}", bound_by=bound[1])
+    if pb is not None:
+        rec.update(kernel_ms=pb["block_ms"], idle=pb["idle_share"])
+        fields.update(block_launches=pb["block_launches"],
+                      kernel_ms_per_batch=f"{pb['block_ms']:.3f}",
+                      kernel_ms_per_block=f"{pb['block_ms'] / max(pb['block_launches'], 1):.4f}",
+                      host_ms=f"{pb['wall_ms']:.3f}", device_kernels=pb["kernels"],
+                      device_idle_share=f"{pb['idle_share']:.4f}",
+                      loop_device_idle_share=f"{pb['loop_idle_share']:.4f}")
+    say(f"{tag}-batch", **fields, card=json.dumps(card))
+    return rec
+
+
+def timed_general_batches(fn, n: int, seed0: int, n_batches: int, closure: bool = True,
+                          bad_max: int = 0):
+    """Batches of a general path: their Results, host seconds, each gated on
+    finite fields, n_bad and (``closure``: conservative) Fup + Fdn = 1."""
+    out, times = [], []
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        res = fn(batch_key_(seed0 + b))
+        fup, fdn, n_bad = float(res.mean_flux_up), float(res.mean_flux_down), int(res.n_bad)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(all(bool(torch.isfinite(t).all()) for t in (res.flux_up, res.flux_down,
+                                                          res.flux_absorbed)),
+              "general path: non-finite fluxes")
+        if closure:
+            # A bad photon leaves the budget unclosed by its weight (1).
+            check(abs(fup + fdn - 1.0) < 1e-5 + n_bad / n, f"general closure Fup+Fdn={fup + fdn}")
+        check(n_bad <= bad_max, f"general n_bad={n_bad} (limit {bad_max})")
+        out.append(res)
+    return out, times
+
+
+def batch_key_(b: int):
+    from i3rc_tpu_torch import batch_key
+
+    return batch_key(SEED, b)
+
+
+def general_oracle_checks() -> list[str]:
+    """Phase 29's closed forms (tests/general_oracles.py), 8 batches of
+    GENERAL_SLAB_PHOTONS each: a slab over a Lambertian albedo (Woodcock),
+    two components in the same cells over black (ray tracing) and over the
+    albedo (every mode), each flux within 4 standard errors of the batch
+    means; then one batch of the gridded RPV surface under a clear sky
+    (maximum cross-section, whose exits come from a 1e30 m jump there): Fup
+    within 5 sigma of the closed form, sigma from its per-photon variance,
+    and Fdn = 1.  Returns the result fields."""
+    from i3rc_tpu_torch.core.surface import rpv_brdf
+
+    oracles = _load_tests_module("general_oracles")
+    _, (ext, omega, chi) = oracles.mixture_slab(oracles.host("i3rc_tpu_torch"))
+    out = []
+    for row, name in enumerate(("woodcock_albedo_slab", "rt_mixture", "rt_mixture_albedo",
+                                "maxcs_mixture_albedo", "woodcock_mixture_albedo")):
+        sc = general_scene(name, "cuda")
+        albedo = ORACLE_ALBEDO if "albedo" in name else 0.0
+        r, d = (oracles.slab_over_albedo(1.0, 0.9, oracles.HG_CHI, 0.5, albedo)
+                if name == "woodcock_albedo_slab"
+                else oracles.slab_over_albedo(ext, omega, chi, 0.5, albedo))
+        expect = (r, d, 1.0 - r - (1.0 - albedo) * d)
+        fn = sc.integ.batch_fn(sc.src, sc.n)
+        vals = []
+        for b in range(8):
+            res = fn(batch_key_(770 + 10 * row + b))
+            check(int(res.n_bad) <= 1e-3 * sc.n, f"{name} n_bad {int(res.n_bad)}")
+            vals.append([float(res.mean_flux_up), float(res.mean_flux_down),
+                         float(res.mean_flux_absorbed)])
+        vals = np.array(vals)
+        se = vals.std(axis=0, ddof=1) / 8 ** 0.5
+        for k, what in enumerate(("Fup", "Fdn", "Fabs")):
+            check(abs(vals[:, k].mean() - expect[k]) <= 4 * se[k],
+                  f"{name} {what} {vals[:, k].mean()} vs {expect[k]} (se {se[k]:.2e})")
+        out.append(f"{name}=" + ",".join(f"{v:.6f}" for v in vals.mean(0)) + "/"
+                   + ",".join(f"{v:.6f}" for v in expect) + "(se "
+                   + ",".join(f"{v:.1e}" for v in se) + ")")
+    sc = general_scene("maxcs_rpv_clear", "cuda")
+    mean, var = oracles.clear_sky_brdf(rpv_brdf, oracles.RPV_PARAMS, oracles.RPV_X,
+                                       oracles.RPV_Y, -0.5, 0.0)
+    res = sc.integ.batch_fn(sc.src, sc.n)(batch_key_(790))
+    sigma = (var / sc.n) ** 0.5
+    fup, fdn = float(res.mean_flux_up), float(res.mean_flux_down)
+    check(abs(fup - mean) <= 5 * sigma and abs(fdn - 1.0) <= 1e-9,
+          f"clear-sky RPV Fup {fup} vs {mean} (sigma {sigma:.2e}), Fdn {fdn}")
+    return out + [f"maxcs_rpv_clear={fup:.6f}/{mean:.6f}(sigma {sigma:.1e})"]
+
+
+def general_paths(out: Path, card: str) -> dict:
+    """Phases 27-31: the general kernel's paths, each driven with the launch
+    counts set to 0 just before it and read just after.  Returns the
+    launches and the batch record of the step-cloud path."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, make_landsat_cloud,
+                                run_band)
+    from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    src = PhotonSource.directional(0.5, 0.0)
+    rec = {}
+
+    # 27. the step cloud through the default config (ray tracing), 2^24
+    # photons at the default width, median of 3 after a warm-up
+    integ = general_scene("rt_step_cloud", "cuda").integ
+    check(integ._fast_plan is None and integ.config.use_ray_tracing, "default config")
+    fn = integ.batch_fn(src, GENERAL_PHOTONS)
+    fn(batch_key_(700))
+    torch.cuda.synchronize()
+    gb.reset_launch_counters()
+    eb.reset_launch_counters()
+    # Ray tracing loses ~4e-5 of its photons to a non-positive DDA step (a
+    # collision point that rounds onto a face), as the JAX package does
+    # (4.2e-5 on the CPU): the reference's rule, counted in n_bad.
+    res, times = timed_general_batches(fn, GENERAL_PHOTONS, 701, 3,
+                                       bad_max=int(1e-3 * GENERAL_PHOTONS))
+    launches = gb.general_block.launches
+    check(launches > 0 and gb.general_block.mode_launches["ray_tracing"] == launches,
+          f"the step cloud ran {gb.general_block.mode_launches}")
+    check(eb.event_block.launches == 0, "the general path launched the fast kernel")
+    fup = sum(float(r.mean_flux_up) for r in res) / 3
+    sigma = (ANCHOR_FUP * (1 - ANCHOR_FUP) / (3 * GENERAL_PHOTONS)) ** 0.5
+    check(abs(fup - ANCHOR_FUP) <= max(5 * sigma, 1e-3), f"general step-cloud Fup {fup}")
+    t = sorted(times)[1]
+    say("27 general-step-cloud", photons=GENERAL_PHOTONS, lanes=GENERAL_LANES, mode="ray_tracing",
+        fup=f"{fup:.6f}", anchor=ANCHOR_FUP, sigma=f"{sigma:.2e}",
+        n_bad=",".join(str(int(r.n_bad)) for r in res),
+        seconds=",".join(f"{x:.4f}" for x in times), photons_per_s=f"{GENERAL_PHOTONS / t:.4e}",
+        launches=launches, blocks_per_batch=f"{launches / 3:.1f}", card=json.dumps(card))
+    rec["step_cloud"] = general_batch_record(integ, src, GENERAL_PHOTONS, GENERAL_LANES, 710,
+                                             card, "27 general-step-cloud")
+    rec["launches"] = launches
+
+    # 28. Landsat through the general kernel (bench.py:193-215: fastpath off,
+    # 2^21 photons): Woodcock on 8-cell super-voxels, the weight-1 class;
+    # against the port's own Landsat fastpath on the card
+    sc = general_scene("woodcock_landsat", "cuda")
+    integ, n = sc.integ, sc.n
+    check(integ.config.majorant_block_size == 8, "Landsat block majorants")
+    fn = integ.batch_fn(src, n)
+    fn(batch_key_(720))
+    torch.cuda.synchronize()
+    gb.reset_launch_counters()
+    res, times = timed_general_batches(fn, n, 721, 4, bad_max=int(1e-3 * n))
+    launches = gb.general_block.launches
+    check(launches > 0 and gb.general_block.mode_launches["woodcock"] == launches,
+          f"Landsat general ran {gb.general_block.mode_launches}")
+    fups = np.array([float(r.mean_flux_up) for r in res])
+    fast_cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                                compute_volume_absorption=False)
+    fast_fn = Integrator.create(make_landsat_cloud(1.0), fast_cfg, device="cuda").batch_fn(
+        src, n, n_lanes=L_CHECK)
+    fast = np.array([float(fast_fn(batch_key_(730 + b)).mean_flux_up) for b in range(4)])
+    se = (fups.var(ddof=1) / 4 + fast.var(ddof=1) / 4) ** 0.5
+    check(abs(fups.mean() - fast.mean()) <= 5 * se,
+          f"Landsat general Fup {fups.mean()} vs fastpath {fast.mean()} (se {se:.2e})")
+    t = sorted(times)[1]
+    say("28 general-landsat", photons=n, lanes=sc.lanes, mode="woodcock",
+        weight1=True, fup=f"{fups.mean():.6f}", fastpath_fup=f"{fast.mean():.6f}",
+        combined_se=f"{se:.2e}", n_bad=",".join(str(int(r.n_bad)) for r in res),
+        seconds=",".join(f"{x:.4f}" for x in times), photons_per_s=f"{n / t:.4e}",
+        launches=launches, blocks_per_batch=f"{launches / 4:.1f}", card=json.dumps(card))
+    rec["landsat"] = general_batch_record(integ, src, n, sc.lanes, 740, card,
+                                          "28 general-landsat")
+
+    # 29. Beer-Lambert through the general kernel (bench.py:396-420: an
+    # ssa 0 slab, maximum cross-section), the slab oracle in ray tracing
+    # (conservative, tau 1) and on 16-cell super-voxels (tau 2, ssa 0.99),
+    # then the closed forms of tests/general_oracles.py
+    oracle = _load_tests_module("disort_oracle")
+    gb.reset_launch_counters()
+    sc = general_scene("maxcs_beer_lambert", "cuda")
+    r = sc.integ.batch_fn(sc.src, sc.n)(batch_key_(750))
+    n = sc.n
+    expect = float(np.exp(-1.0 / 0.8))
+    sig = (expect * (1 - expect) / n) ** 0.5
+    check(abs(float(r.mean_flux_down) - expect) <= 5 * sig,
+          f"Beer-Lambert Fdn {float(r.mean_flux_down)} vs {expect}")
+    slab_out = [f"beer_lambert={float(r.mean_flux_down):.6f}/{expect:.6f}"]
+    for name, tau, ssa in (("rt_slab", 1.0, 1.0), ("woodcock_slab", 2.0, 0.99)):
+        sc = general_scene(name, "cuda")
+        r = sc.integ.batch_fn(sc.src, n)(batch_key_(751))
+        r_ex, t_ex = oracle.hg_slab_fluxes(tau, ssa, 0.85, 0.5, n_legendre=64)
+        sig = (max(r_ex * (1 - r_ex), t_ex * (1 - t_ex)) / n) ** 0.5
+        got = (float(r.mean_flux_up), float(r.mean_flux_down), float(r.mean_flux_absorbed))
+        for g_, w_, what in zip(got, (r_ex, t_ex, 1 - r_ex - t_ex), ("Fup", "Fdn", "Fabs")):
+            check(abs(g_ - w_) <= 4 * sig, f"slab tau={tau} ssa={ssa} {what} {g_} vs {w_}")
+        check(int(r.n_bad) <= 1e-3 * n, f"slab n_bad {int(r.n_bad)}")
+        slab_out.append(f"tau{tau}_ssa{ssa}={got[0]:.6f},{got[1]:.6f},{got[2]:.6f}/"
+                        f"{r_ex:.6f},{t_ex:.6f},{1 - r_ex - t_ex:.6f}")
+    slab_sc = sc
+    slab_out += general_oracle_checks()
+    modes = gb.general_block.mode_launches
+    check(min(modes.values()) > 0, f"the slabs ran {modes}")
+    say("29 general-slabs", photons=n, results=";".join(slab_out), launches=json.dumps(modes))
+    general_batch_record(slab_sc.integ, src, n, slab_sc.lanes, 752, card,
+                         "29 general-slab-woodcock")
+
+    # 30. the step-cloud flux namelist with useRayTracing = .true. through the driver
+    nml = out / "stepcloud_raytracing.nml"
+    nml.write_text(textwrap.dedent(f"""
+    &radiativeTransfer
+      solarFlux = 1., solarMu = 0.5, solarAzimuth = 0., surfaceAlbedo = 0.
+    /
+    &monteCarlo
+      numPhotonsPerBatch = {1 << 20}, numBatches = 8, iseed = 10
+    /
+    &algorithms
+      useRayTracing = .true.
+    /
+    &fileNames
+      domainFileName = "{out}/StepCloud_NonAbsorbing.opt",
+      outputFluxFile = "{out}/stepCloudRTFluxes.out",
+      outputAbsProfFile = "{out}/stepCloudRTAbsorption.out",
+      outputNetcdfFile = "{out}/stepCloudRTOutput.nc"
+    /
+    &output
+      reportAbsorptionProfile = .true.
+    /
+    """))
+    gb.reset_launch_counters()
+    t0 = time.perf_counter()
+    drv = run_from_namelist(str(nml), quiet=True, device="cuda")
+    t_drv = time.perf_counter() - t0
+    m, e = drv["mean_stats"][0]
+    check(abs(m - ANCHOR_FUP) <= 5 * e + 1e-3, f"ray-tracing driver Fup {m} +- {e}")
+    check(gb.general_block.mode_launches["ray_tracing"] > 0, "the driver ran no G kernel")
+    nc = out / "stepCloudRTOutput.nc"
+    check(nc.is_file() and b"Ray_tracing" in nc.read_bytes(), "netCDF Algorithm attribute")
+    say("30 general-driver", batches=drv["cfg"]["num_batches"], photons=drv["cfg"]["num_photons"],
+        fup=f"{m:.6f}", stderr=f"{e:.2e}", seconds=f"{t_drv:.2f}",
+        photons_per_s=f"{drv['cfg']['num_photons'] / t_drv:.4e}",
+        launches=gb.general_block.launches,
+        launches_per_batch=f"{gb.general_block.launches / drv['cfg']['num_batches']:.1f}",
+        card=json.dumps(card))
+
+    # 31. run_band(mode="traced") on band 0 of examples/broadbandDriver.nml's
+    # inputs over the step cloud, flux only: per-k optics through one tracer
+    dom, kd, band_integ, optics_k1 = traced_band("cuda")
+    derive = lambda r: {"fup": r.mean_flux_up, "fdn": r.mean_flux_down,
+                        "fabs": r.mean_flux_absorbed}
+    gb.reset_launch_counters()
+    eb.reset_launch_counters()
+    t0 = time.perf_counter()
+    band = run_band(band_integ, dom, kd, src, 1 << 22, 2, seed=12, derive=derive, mode="traced")
+    mb = {k: float(v) for k, v in band.mean["derived"].items()}
+    dt = time.perf_counter() - t0
+    check(gb.general_block.launches > 0 and eb.event_block.gas_launches == 0,
+          "the traced band ran no G kernel, or the gas kernel")
+    check(abs(sum(mb.values()) - 1.0) < 1e-3, f"traced band closure {mb}")
+    baked = run_band(band_integ, dom, kd, src, 1 << 22, 2, seed=13, derive=derive,
+                     mode="baked")
+    fb = float(baked.mean["derived"]["fup"])
+    se = (float(band.stderr["derived"]["fup"]) ** 2
+          + float(baked.stderr["derived"]["fup"]) ** 2) ** 0.5
+    check(abs(mb["fup"] - fb) <= 5 * se + 5e-4, f"traced band Fup {mb['fup']} vs baked {fb}")
+    n_band = 2 * 2 * (1 << 22)
+    say("31 general-traced-band", photons=n_band, fup=f"{mb['fup']:.6f}",
+        fdn=f"{mb['fdn']:.6f}", fabs=f"{mb['fabs']:.6f}", baked_fup=f"{fb:.6f}",
+        seconds=f"{dt:.3f}", photons_per_s=f"{n_band / dt:.4e}",
+        launches=gb.general_block.launches, card=json.dumps(card))
+    general_batch_record(band_integ, src, 1 << 22, GENERAL_LANES, 760, card,
+                         "31 general-traced-band-k1", optics=optics_k1)
+    return rec
+
+
+def general_entry(timed: dict, err: float, rec: dict) -> dict:
+    """The kernels-line entry of G: launches on the phase-27 path, its
+    largest tally difference to the plain version (the lane state is bit-
+    equal), one mid-flight block's device time beside the twin's and the
+    bound (phase 26), and the step-cloud batch's kernel time and bound."""
+    sc = rec["step_cloud"]
+    return {"name": "general_event_block", "route": "cuda",
+            "source": "i3rc_tpu_torch/csrc/general_event_block.cu",
+            "replaces": "none: XLA in i3rc_tpu/integrators/wavefront.py:657 (no TPU kernel)",
+            "launches": rec["launches"], "max_abs_err": err, "ms": timed["device_ms"],
+            "plain_ms": timed["twin_ms"], "bound_ms": timed["bound"][0],
+            "bound_by": timed["bound"][1], "library_ms": None,
+            "events_ms": timed["events_ms"], "batch_ms": sc.get("kernel_ms"),
+            "batch_launches": sc["launches"], "batch_bound_ms": sc["bound"][0]}
 
 
 if __name__ == "__main__":

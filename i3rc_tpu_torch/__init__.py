@@ -13,8 +13,9 @@ Layer map:
                 domains, phase functions, quadrature, k-distributions
   io/           netCDF domain and phase-table files
   models/       the I3RC step cloud and Landsat scenes
-  ops/          grid geometry
-  integrators/  the fastpath planner and trace loop, results, the Integrator
+  ops/          grid geometry and the voxel traversal (DDA)
+  integrators/  the fastpath planner and trace loop, the general kernel's
+                trace loop and event, tables, results, the Integrator
   kernels/      hand-written CUDA kernels, their plain PyTorch twins, the build
   csrc/         CUDA C++ sources (built with nvcc for sm_90a at first use)
   parallel/     batch statistics

@@ -886,20 +886,23 @@ __device__ __forceinline__ void warp_red(double* base, int key, double v) {
   __syncwarp();
 }
 
-// One source sample of the refill for `lane` at block p.kb: position scaled
-// to the domain and direction cosines, out = x, y, z, ux, uy, uz
-// (PhotonSource.sample at (lane, kb, group, STREAM_REFILL), then
-// launch_state's scaling and make_direction_cosines).  Not inlined: its
-// registers and the stack of sinf/cosf stay out of the event loop's budget.
-static __device__ __noinline__ void sample_source(const EventParams& p, int lane, float out[6]) {
-  const SourceParams& s = p.pro.src;
+// One source sample of the refill for `lane` at block kb under the key
+// (k0, k1): position scaled to the domain and direction cosines, out = x, y,
+// z, ux, uy, uz (PhotonSource.sample at (lane, kb, group, STREAM_REFILL),
+// then launch_state's scaling and make_direction_cosines).  Shared by the
+// fast and the general event blocks (general_event_block.cuh).  Not
+// inlined: its registers and the stack of sinf/cosf stay out of the event
+// loop's budget.
+static __device__ __noinline__ void source_sample(const SourceParams& s, uint32_t kb,
+                                                  uint32_t k0, uint32_t k1, int lane,
+                                                  float out[6]) {
   uint32_t w[4];
-  philox4x32_10((uint32_t)lane, p.kb, 0u, STREAM_REFILL, p.key0, p.key1, w);
+  philox4x32_10((uint32_t)lane, kb, 0u, STREAM_REFILL, k0, k1, w);
   float x = s.uniform_xy ? to_unit(w[0]) : s.px;
   float y = s.uniform_xy ? to_unit(w[1]) : s.py;
   const float u_mu = to_unit(w[2]), u_phi = to_unit(w[3]);
   if (s.delta_x > 0.0f || s.delta_y > 0.0f) {
-    philox4x32_10((uint32_t)lane, p.kb, 1u, STREAM_REFILL, p.key0, p.key1, w);
+    philox4x32_10((uint32_t)lane, kb, 1u, STREAM_REFILL, k0, k1, w);
     if (s.delta_x > 0.0f) x = x + s.delta_x * (1.0f - 0.5f * to_unit(w[0]));
     if (s.delta_y > 0.0f) y = y + s.delta_y * (1.0f - 0.5f * to_unit(w[1]));
   }
@@ -921,6 +924,11 @@ static __device__ __noinline__ void sample_source(const EventParams& p, int lane
   out[3] = sin_theta * cosf(phi);
   out[4] = sin_theta * sinf(phi);
   out[5] = mu;
+}
+
+static __device__ __forceinline__ void sample_source(const EventParams& p, int lane,
+                                                     float out[6]) {
+  source_sample(p.pro.src, p.kb, p.key0, p.key1, lane, out);
 }
 
 // The prologue of one block of the trace loop for the calling thread's own

@@ -1,0 +1,530 @@
+// General event block: K events of the general transport kernel's flux path
+// per lane, state in registers.  Hopper (sm_90a) kernel for what the JAX
+// package runs as XLA: `make_batch_tracer`'s event_step, flux branch
+// (i3rc_tpu/integrators/wavefront.py:657, :1144-1540), a masked
+// lax.while_loop over events with a nested while_loop for the DDA
+// (i3rc_tpu/ops/dda.py:241-275).  It has no TPU kernel: there the loop's
+// masks keep every lane in step with the slowest, and a host-side port as
+// torch ops would pay a kernel launch per crossing and a host sync per
+// crossing loop.  Here one thread owns one photon lane and runs its own
+// loops: no lane waits for another.
+//
+// A launch is one block of the trace loop (kernels/general_block.py):
+//  * the refill: dead lane l takes photon launched + rank(l), rank its
+//    exclusive count of dead lanes over the grid, while that id is below the
+//    budget (the FIFO rank of fast_event_block.cuh's prologue: each launch
+//    leaves its CTAs' dead counts at exit in dead[(kb + 1) & 1], and CTA c
+//    of the next sums the entries below c), with the source sample of the
+//    fast block (source_sample: (lane, kb, group, STREAM_REFILL)), weight 1,
+//    order 0 and, in ray-tracing mode, its cell located.  Refilling per
+//    block instead of per event changes which photon a lane carries when,
+//    not what a photon does;
+//  * K events, each (wavefront.py:1184-1540): the draws of event j (group
+//    j * G + d / 4 at (lane, kb, ., STREAM_EVENT), word d % 4, only those the
+//    variant consumes), a free path, then
+//      MODE_RT   the DDA over the fine grid until the free path's optical
+//                depth is spent (a collision) or the lane leaves through the
+//                top or the bottom, reading total_ext per crossing;
+//      MODE_MAX  the jump of tau / ext_max, exits traced back to the boundary
+//                plane and wrapped in x/y, the cell located from the point;
+//      MODE_WOOD the same DDA over the block-majorant grid, the fine cell
+//                located from the stop position (not the stale indices the
+//                reference reuses, wavefront.py:40-43),
+//    the Woodcock / maximum cross-section acceptance against the cell's
+//    extinction, the surface (albedo or the gridded BRDF of the surface
+//    cell: the weight times R, a cosine-weighted direction), the component
+//    pick by cumulative fractions and the co-albedo and phase index of the
+//    packed cell row, the absorbed weight, Russian roulette, the scattering
+//    cosine from the piecewise-cubic inverse CDF (one float4 row) and the
+//    rotation (renormalized), and the event and crossing budgets (bad).
+//    BERN is the weight-1 class of make_chained_flux_tracer
+//    (wavefront.py:264): uniform single-component optics over a black
+//    surface, absorption by survival with probability ssa, every exit and
+//    death a count.
+//  Exits and absorption add their weights to the float64 column tallies
+//  (up, down, absorbed) and the volume tally straight away with
+//  red.global.add.f64 (tally_add).
+//
+// What bounds it: the dependent chain of a lane's events (the DDA's per-
+// crossing load of total_ext and IEEE divisions, the Philox rounds, logf,
+// the rotation), at one lane per thread with no compaction of the dead
+// lanes: a simple kernel first.  Device memory traffic is the lane state
+// (15 rows) once in and out per launch, one 4-byte extinction read per
+// crossing, one packed row and one 16-byte cubic row per collision, and
+// the tallies.  Tables are read through the read-only path (__ldg) from L2:
+// the step cloud's extinction is 4 KB, Landsat's 7.8 MB, the cubic table
+// 4 KB per phase entry.
+//
+// Float arithmetic follows the JAX reference and the PyTorch twin
+// (wavefront.general_event, ops/dda.py) operation by operation, built with
+// --fmad=false; divisions by grid constants are true divisions.
+
+#pragma once
+
+#include "fast_event_block.cuh"
+
+#define MODE_RT 0
+#define MODE_MAX 1
+#define MODE_WOOD 2
+#define GEN_MAX_DRAWS 8
+#define STATUS_TRACING 0
+#define STATUS_SCATTER 1
+#define STATUS_EXIT_TOP 2
+#define STATUS_EXIT_BOT 3
+#define STATUS_BAD 4
+#define SPACING_EPS_F 0x1p-23f      // 2^-23
+#define EPS20_F 0x1.79ca10p-67f     // 1e-20
+#define EXT_EPS_F 0x1.4484c0p-100f  // 1e-30
+
+// One grid of the DDA (ops/dda.py GridGeometry): regular axes by
+// arithmetic, irregular ones from the edge arrays.
+struct Grid {
+  int nx, ny, nz, xy_regular, z_regular;
+  float x0, y0, z0, x_max, y_max, z_max, dx, dy, dz;
+  float wx, wy;                 // float32 periodic widths x_max - x0, y_max - y0
+  const float* xe;              // (nx + 1) edges
+  const float* ye;
+  const float* ze;
+};
+
+// kernels/general_block.py _GeneralParams.
+struct GeneralParams {
+  Grid fine, coarse;
+  const float* total_ext;       // (n_cells) fine extinction
+  const float* cell;            // (n_cells, 1 + 3 n_comp) packed row
+  const float* majorant;        // (n_blocks) block majorants (MODE_WOOD)
+  const float4* cubic;          // (n_comp * max_entries * n_segments) cubic rows
+  int n_comp, n_segments, max_entries, uniform_pf;
+  int absorbing;                // BERN: survival draws (ssa < 1)
+  int rr;                       // Russian roulette active
+  float uniform_coalb, ssa, inv_max_ext, rr_w, rr_half;
+  int max_crossings, max_events, n_draws;
+  int d_accept, d_srf_mu, d_srf_phi, d_comp, d_extra;   // draw slots, -1 absent
+  int srf_kind, n_xs, n_ys, n_params;
+  float albedo;
+  const float* srf_params;      // (n_xs * n_ys, n_params) BRDF parameters
+  const float* srf_xe;          // (n_xs + 1) surface x edges
+  const float* srf_ye;
+  float srf_x0, srf_wx, srf_y0, srf_wy;
+  double* columns;              // (n_cols, 3) float64: up, down, absorbed
+  double* vol;                  // (n_cells) float64, or null
+  long long n_photons;
+  long long* ctl;               // launched (kb even), launched (kb odd), done, spent
+  int* dead;                    // (2, n_ctas) dead lanes per CTA at entry of even / odd kb
+  SourceParams src;
+  unsigned int key0, key1, kb;
+  int n_lanes, K;
+};
+
+struct GLane {
+  float x, y, z, ux, uy, uz, w;
+  int alive, ix, iy, iz, order, bad, evct, xing;
+};
+
+// Cell index of v on one axis (locate_x/y/z): floor of a true division on a
+// regular axis, searchsorted(side="right") - 1 on an irregular one; clipped.
+__device__ __forceinline__ int locate(float v, float lo, float d, const float* edges, int n,
+                                      bool regular) {
+  int i;
+  if (regular) {
+    i = (int)floorf((v - lo) / d);
+  } else {
+    int a = 0, b = n + 1;       // first edge > v
+    while (a < b) {
+      const int m = (a + b) >> 1;
+      if (__ldg(edges + m) <= v) a = m + 1;
+      else b = m;
+    }
+    i = a - 1;
+  }
+  return min(max(i, 0), n - 1);
+}
+
+// jnp.mod(a, b) for b > 0, as fmod moved into [0, b) (ops/dda.py fmod_positive).
+__device__ __forceinline__ float fmod_positive(float a, float b) {
+  const float m = fmodf(a, b);
+  return (m != 0.0f && m < 0.0f) ? m + b : m;
+}
+
+__device__ __forceinline__ float wrap_periodic(float v, float lo, float hi, float w) {
+  const float out = lo + fmod_positive(v - lo, w);
+  return out >= hi ? lo : out;
+}
+
+// The DDA (make_crossing_stepper and trace_extinction): from (x, y, z) in
+// cell (ix, iy, iz) along u until `target` optical depth of `ext` is spent
+// (STATUS_SCATTER, the point inside the cell), the lane leaves through the
+// top or the bottom (STATUS_EXIT_*, z on the boundary, iz clipped), a step is
+// not positive, or max_crossings crossings are used (STATUS_BAD).
+__device__ __forceinline__ int trace_extinction(const Grid& g, const float* __restrict__ ext,
+                                                float& x, float& y, float& z, int& ix,
+                                                int& iy, int& iz, float ux, float uy,
+                                                float uz, float target, int max_crossings,
+                                                int& steps) {
+  const int side_x = ux >= 0.0f, side_y = uy >= 0.0f, side_z = uz >= 0.0f;
+  const int inc_x = 2 * side_x - 1, inc_y = 2 * side_y - 1, inc_z = 2 * side_z - 1;
+  const bool mx = fabsf(ux) >= DIR_EPS_F, my = fabsf(uy) >= DIR_EPS_F,
+             mz = fabsf(uz) >= DIR_EPS_F;
+  const float inv_ux = mx ? 1.0f / ux : HUGE_F;
+  const float inv_uy = my ? 1.0f / uy : HUGE_F;
+  const float inv_uz = mz ? 1.0f / uz : HUGE_F;
+  const int n_flat = g.nx * g.ny * g.nz;
+  float tau = 0.0f;
+#pragma unroll 1
+  for (int it = 0; it < max_crossings; ++it) {
+    ++steps;
+    const float ex = g.xy_regular ? g.x0 + (float)(ix + side_x) * g.dx
+                                  : __ldg(g.xe + min(max(ix + side_x, 0), g.nx));
+    const float ey = g.xy_regular ? g.y0 + (float)(iy + side_y) * g.dy
+                                  : __ldg(g.ye + min(max(iy + side_y, 0), g.ny));
+    const float ez = g.z_regular ? g.z0 + (float)(iz + side_z) * g.dz
+                                 : __ldg(g.ze + min(max(iz + side_z, 0), g.nz));
+    const float sx = mx ? (ex - x) * inv_ux : HUGE_F;
+    const float sy = my ? (ey - y) * inv_uy : HUGE_F;
+    const float sz = mz ? (ez - z) * inv_uz : HUGE_F;
+    const float s = fminf(fminf(sx, sy), sz);
+    if (s <= 0.0f) return STATUS_BAD;                              // :1711-1714
+    const int flat = min(max((ix * g.ny + iy) * g.nz + iz, 0), n_flat - 1);
+    const float ce = __ldg(ext + flat);
+    if (tau + s * ce > target) {                                   // :1721-1731
+      const float partial = ce > 0.0f ? (target - tau) / fmaxf(ce, EXT_EPS_F) : 0.0f;
+      x = x + partial * ux;
+      y = y + partial * uy;
+      z = z + partial * uz;
+      return STATUS_SCATTER;
+    }
+    // A full crossing to the closest face, with the near-corner guard.
+    const float nx_ = x + s * ux, ny_ = y + s * uy, nz_ = z + s * uz;
+    const bool cx = (sx <= s) || (fabsf(ex - nx_) <= 2.0f * (SPACING_EPS_F * fmaxf(fabsf(nx_), EPS20_F)));
+    const bool cy = (sy <= s) || (fabsf(ey - ny_) <= 2.0f * (SPACING_EPS_F * fmaxf(fabsf(ny_), EPS20_F)));
+    const bool cz = (sz <= s) || (fabsf(ez - nz_) <= 2.0f * (SPACING_EPS_F * fmaxf(fabsf(nz_), EPS20_F)));
+    x = cx ? ex : nx_;
+    y = cy ? ey : ny_;
+    z = cz ? ez : nz_;
+    if (cx) ix += inc_x;
+    if (cy) iy += inc_y;
+    if (cz) iz += inc_z;
+    tau = tau + s * ce;
+    // Periodic x/y (:1774-1788): exact edge reassignment.
+    if (ix < 0) { ix = g.nx - 1; x = g.x_max; }
+    else if (ix >= g.nx) { ix = 0; x = g.x0; }
+    if (iy < 0) { iy = g.ny - 1; y = g.y_max; }
+    else if (iy >= g.ny) { iy = 0; y = g.y0; }
+    // Vertical exits (:1793-1804).
+    if (iz >= g.nz) { iz = g.nz - 1; z = g.z_max; return STATUS_EXIT_TOP; }
+    if (iz < 0) { iz = 0; z = g.z0; return STATUS_EXIT_BOT; }
+  }
+  return STATUS_BAD;            // the crossing budget (grazing trajectories)
+}
+
+// The surface's reflectance at (x, y) for an arrival (mu_in, phi_in) and an
+// outgoing (mu_out, phi_out): the albedo, or the BRDF of the surface cell
+// holding the periodically wrapped point (wavefront.py:783-796).  Not
+// inlined: the BRDFs stay out of the event loop's registers.
+static __device__ __noinline__ float surface_reflectance(const GeneralParams& p, float x,
+                                                         float y, float mu_in, float mu_out,
+                                                         float phi_in, float phi_out) {
+  if (p.srf_kind == SURFACE_ALBEDO) return p.albedo;
+  const float xp = p.srf_x0 + fmod_positive(x - p.srf_x0, p.srf_wx);
+  const float yp = p.srf_y0 + fmod_positive(y - p.srf_y0, p.srf_wy);
+  const int ixs = locate(xp, 0.0f, 1.0f, p.srf_xe, p.n_xs, false);
+  const int iys = locate(yp, 0.0f, 1.0f, p.srf_ye, p.n_ys, false);
+  SurfaceParams sp;
+  sp.kind = p.srf_kind;
+  const float* a = p.srf_params + (size_t)(ixs * p.n_ys + iys) * p.n_params;
+#pragma unroll
+  for (int k = 0; k < MAX_BRDF_PARAMS; ++k) sp.params[k] = k < p.n_params ? __ldg(a + k) : 0.0f;
+  return brdf_reflectance(sp, mu_in, mu_out, phi_in, phi_out);
+}
+
+// One event_step, flux branch (wavefront.py:1144-1540), for a live lane.
+template <int MODE, bool UNI, bool REFL, bool BERN>
+__device__ __forceinline__ void general_event(const GeneralParams& p, const float (&u)[GEN_MAX_DRAWS],
+                                              GLane& s) {
+  const Grid& g = p.fine;
+  const float tau = exponential_deviate(u[0]);
+  float rx = s.x, ry = s.y, rz = s.z;
+  int rix = s.ix, riy = s.iy, riz = s.iz;
+  bool exit_top, exit_bot, collide, bad = false;
+  float inv_maj = 0.0f;
+  if (MODE == MODE_MAX) {
+    // Maximum cross-section jump (:492-497); exits placed on the boundary
+    // plane from the lane's position for the tally column (:504-527; the
+    // jump's end loses x and y when the majorant is near 0).
+    const float step = tau * p.inv_max_ext;
+    const float px = s.x + s.ux * step, py = s.y + s.uy * step, pz = s.z + s.uz * step;
+    exit_top = pz >= g.z_max;
+    exit_bot = !exit_top && pz <= g.z0;
+    collide = !exit_top && !exit_bot;
+    const float safe_uz = fabsf(s.uz) > EXT_EPS_F ? s.uz : 1.0f;
+    const float dist = fabsf(exit_top ? (g.z_max - s.z) / safe_uz : (g.z0 - s.z) / safe_uz);
+    const bool hit = exit_top || exit_bot;
+    rx = wrap_periodic(hit ? s.x + s.ux * dist : px, g.x0, g.x_max, g.wx);
+    ry = wrap_periodic(hit ? s.y + s.uy * dist : py, g.y0, g.y_max, g.wy);
+    rz = exit_top ? g.z_max : (exit_bot ? g.z0 : pz);
+  } else {
+    int status;
+    if (MODE == MODE_RT) {
+      status = trace_extinction(g, p.total_ext, rx, ry, rz, rix, riy, riz, s.ux, s.uy, s.uz,
+                                tau, p.max_crossings, s.xing);
+    } else {
+      const Grid& c = p.coarse;
+      int bx = locate(s.x, c.x0, c.dx, c.xe, c.nx, c.xy_regular);
+      int by = locate(s.y, c.y0, c.dy, c.ye, c.ny, c.xy_regular);
+      int bz = locate(s.z, c.z0, c.dz, c.ze, c.nz, c.z_regular);
+      status = trace_extinction(c, p.majorant, rx, ry, rz, bx, by, bz, s.ux, s.uy, s.uz, tau,
+                                p.max_crossings, s.xing);
+      const float maj = __ldg(p.majorant + (bx * c.ny + by) * c.nz + bz);
+      inv_maj = 1.0f / fmaxf(maj, EXT_EPS_F);
+    }
+    exit_top = status == STATUS_EXIT_TOP;
+    exit_bot = status == STATUS_EXIT_BOT;
+    collide = status == STATUS_SCATTER;
+    bad = status == STATUS_BAD;
+  }
+  if (MODE != MODE_RT) {
+    rix = locate(rx, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+    riy = locate(ry, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+    riz = locate(rz, g.z0, g.dz, g.ze, g.nz, g.z_regular);
+  }
+  const int flat = (rix * g.ny + riy) * g.nz + riz;
+  const int col = rix * g.ny + riy;
+
+  // The cell's optics, read by collisions only: the extinction (and the
+  // acceptance), the component pick, co-albedo and phase index.
+  bool physical = false;
+  int comp = 0, pf = p.uniform_pf;
+  float coalb = p.uniform_coalb;
+  if (collide) {
+    const float* row = p.cell + (size_t)flat * (1 + 3 * p.n_comp);
+    const float ce = UNI ? __ldg(p.total_ext + flat) : __ldg(row);
+    if (MODE == MODE_RT) physical = true;
+    else if (MODE == MODE_WOOD) physical = pick(u, p.d_accept) < ce * inv_maj;
+    else physical = pick(u, p.d_accept) < ce * p.inv_max_ext;
+    if (!UNI && physical) {
+      const float uc = pick(u, p.d_comp);
+      for (int k = 0; k < p.n_comp; ++k) comp += uc >= __ldg(row + 1 + k) ? 1 : 0;
+      comp = min(max(comp, 0), p.n_comp - 1);
+      coalb = __ldg(row + 1 + p.n_comp + comp);
+      pf = (int)__ldg(row + 1 + 2 * p.n_comp + comp);
+    }
+  }
+
+  // The surface (:1315-1330): the weight times R, a cosine-weighted direction.
+  bool surf_alive = false;
+  float w_srf = 0.0f, sux = 0.0f, suy = 0.0f, suz = 0.0f;
+  if (REFL && exit_bot) {
+    const float mu_s = fmaxf(sqrtf(pick(u, p.d_srf_mu)), EPS6_F);
+    const float phi_s = TWO_PI_F * pick(u, p.d_srf_phi);
+    const float refl = surface_reflectance(p, rx, ry, s.uz, mu_s, atan2f(s.uy, s.ux), phi_s);
+    w_srf = s.w * refl;
+    surf_alive = w_srf > TINY_F;
+    const float sin_t = sqrtf(fmaxf(1.0f - mu_s * mu_s, 0.0f));
+    sux = sin_t * cosf(phi_s);
+    suy = sin_t * sinf(phi_s);
+    suz = mu_s;
+  }
+
+  // Absorption and the tallies.
+  float w_sc;
+  int order_next;
+  if (BERN) {
+    const bool died = physical && p.absorbing && pick(u, p.d_extra) >= p.ssa;
+    w_sc = died ? 0.0f : s.w;
+    order_next = s.order + (physical ? 1 : 0);
+    if (died) tally_add(p.columns + (size_t)col * 3 + 2, 1.0);
+  } else {
+    const float absorbed = s.w * coalb;
+    w_sc = s.w * (1.0f - coalb);
+    order_next = s.order + ((physical || exit_bot) ? 1 : 0);
+    if (physical && absorbed != 0.0f) {
+      tally_add(p.columns + (size_t)col * 3 + 2, (double)absorbed);
+      if (p.vol) tally_add(p.vol + flat, (double)absorbed);
+    }
+  }
+  if (exit_top) tally_add(p.columns + (size_t)col * 3 + 0, (double)s.w);
+  if (exit_bot) tally_add(p.columns + (size_t)col * 3 + 1, (double)s.w);
+  const bool math_move = MODE != MODE_RT && collide && !physical;
+
+  // Russian roulette (:1499-1505).
+  if (!BERN && p.rr && physical && w_sc < p.rr_half)
+    w_sc = (pick(u, p.d_extra) >= w_sc / p.rr_w) ? 0.0f : p.rr_w;
+  const bool scat_alive = physical && w_sc > TINY_F;
+
+  // The scattering angle from the cubic inverse CDF, and the rotation.
+  if (scat_alive) {
+    const int S = p.n_segments;
+    const float pos = fminf(fmaxf(u[1], 0.0f), 1.0f) * (float)S;
+    const int seg = min(max((int)pos, 0), S - 1);
+    const float t = pos - (float)seg;
+    const float4 c = __ldg(p.cubic + ((comp * p.max_entries + pf) * S + seg));
+    const float mu = fminf(fmaxf(((c.w * t + c.z) * t + c.y) * t + c.x, -1.0f), 1.0f);
+    float nx, ny, nz;
+    rotate_direction(s.ux, s.uy, s.uz, mu, u[2], &nx, &ny, &nz);
+    const float norm = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, EPS12_F));
+    s.ux = nx * norm;
+    s.uy = ny * norm;
+    s.uz = nz * norm;
+  } else if (surf_alive) {
+    s.ux = sux;
+    s.uy = suy;
+    s.uz = suz;
+  }
+  const bool over = (scat_alive || surf_alive) && order_next >= p.max_events;
+  const bool moved = scat_alive || surf_alive || math_move;
+  if (moved) {
+    s.x = rx;
+    s.y = ry;
+    s.z = surf_alive ? g.z0 : rz;
+    if (MODE == MODE_RT) {
+      s.ix = rix;
+      s.iy = riy;
+      s.iz = surf_alive ? 0 : riz;
+    }
+  }
+  if (physical) s.w = w_sc;
+  else if (exit_bot) s.w = w_srf;
+  s.order = order_next;
+  s.alive = (moved && !over) ? 1 : 0;
+  s.bad += (bad || over) ? 1 : 0;
+  s.evct += (exit_top || exit_bot || collide) ? 1 : 0;
+}
+
+// The block's refill for the calling thread's lane (see the header): the
+// FIFO rank, the loop's control state, and a fresh photon in a dead lane
+// that the budget still covers.  Returns the lane's alive flag.  Every
+// thread of the CTA calls it.
+static __device__ __noinline__ int general_refill(const GeneralParams& p, float* f, int* iv,
+                                                  bool locate_cell, int* warp_dead,
+                                                  int* cta_sum) {
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const int lane0 = blockIdx.x * CTA_THREADS + t;
+  const size_t L = (size_t)p.n_lanes;
+  if (t == 0) cta_sum[0] = 0;
+  __syncthreads();
+  const bool in_range = lane0 < p.n_lanes;
+  int alive0 = in_range ? iv[lane0] : 0;
+  const long long launched = p.ctl[p.kb & 1u];
+  const bool budget = launched < p.n_photons;
+  const bool last = blockIdx.x == gridDim.x - 1;
+  const bool dead = in_range && !alive0;
+  const unsigned dead_mask = __ballot_sync(FULL_MASK, dead);
+  if (wl == 0) warp_dead[warp] = __popc(dead_mask);
+  if (budget || last) {
+    const int* dead_in = p.dead + (size_t)(p.kb & 1u) * gridDim.x;
+    int below = 0;
+    for (int k = t; k < (int)blockIdx.x; k += CTA_THREADS) below += dead_in[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) below += __shfl_xor_sync(FULL_MASK, below, o);
+    if (wl == 0 && below) atomicAdd(&cta_sum[0], below);
+  }
+  __syncthreads();
+  int rank = __popc(dead_mask & ((1u << wl) - 1u)), cta_dead = 0;
+#pragma unroll
+  for (int w = 0; w < CTA_WARPS; ++w) {
+    const int c = warp_dead[w];
+    rank += w < warp ? c : 0;
+    cta_dead += c;
+  }
+  const long long base = launched + cta_sum[0];
+  if (last && t == 0) {
+    const long long total_dead = (long long)cta_sum[0] + cta_dead;
+    const long long room = p.n_photons - launched;
+    p.ctl[(p.kb + 1u) & 1u] = launched + (budget ? (total_dead < room ? total_dead : room) : 0);
+    if (!budget && p.ctl[3] < 0) p.ctl[3] = (long long)p.kb;
+    if (!budget && total_dead == (long long)p.n_lanes && p.ctl[2] < 0)
+      p.ctl[2] = (long long)p.kb;
+  }
+  if (dead && budget && base + rank < p.n_photons) {
+    float v[6];
+    source_sample(p.src, p.kb, p.key0, p.key1, lane0, v);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) f[k * L + lane0] = v[k];
+    f[6 * L + lane0] = 1.0f;
+    iv[4 * L + lane0] = 0;
+    if (locate_cell) {
+      const Grid& g = p.fine;
+      iv[1 * L + lane0] = locate(v[0], g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+      iv[2 * L + lane0] = locate(v[1], g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+      iv[3 * L + lane0] = locate(v[2], g.z0, g.dz, g.ze, g.nz, g.z_regular);
+    }
+    iv[lane0] = 1;
+    alive0 = 1;
+  }
+  return alive0;
+}
+
+// State layout (kernels/general_block.py GeneralState), updated in place:
+//   f: (7, L) float32 rows x, y, z, ux, uy, uz, w
+//   i: (8, L) int32   rows alive, ix, iy, iz, order, bad, evct, xing (DDA steps)
+template <int MODE, bool UNI, bool REFL, bool BERN>
+__global__ void __launch_bounds__(CTA_THREADS)
+general_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
+                           const __grid_constant__ GeneralParams p) {
+  __shared__ int warp_dead[CTA_WARPS];
+  __shared__ int cta_sum[2];      // dead lanes below this CTA; lanes alive at exit
+  const int t = threadIdx.x, wl = t & 31;
+  const int lane = blockIdx.x * CTA_THREADS + t;
+  const size_t L = (size_t)p.n_lanes;
+  const int alive0 = general_refill(p, f, iv, MODE == MODE_RT, warp_dead, cta_sum);
+  if (t == 0) cta_sum[1] = 0;
+  __syncthreads();
+  int alive_out = 0;
+  if (alive0) {
+    GLane s;
+    s.x = f[lane];
+    s.y = f[L + lane];
+    s.z = f[2 * L + lane];
+    s.ux = f[3 * L + lane];
+    s.uy = f[4 * L + lane];
+    s.uz = f[5 * L + lane];
+    s.w = f[6 * L + lane];
+    s.alive = 1;
+    s.ix = iv[L + lane];
+    s.iy = iv[2 * L + lane];
+    s.iz = iv[3 * L + lane];
+    s.order = iv[4 * L + lane];
+    s.bad = iv[5 * L + lane];
+    s.evct = iv[6 * L + lane];
+    s.xing = iv[7 * L + lane];
+    const int G = (p.n_draws + 3) / 4;
+#pragma unroll 1
+    for (int j = 0; j < p.K && s.alive; ++j) {
+      float u[GEN_MAX_DRAWS];
+#pragma unroll
+      for (int g = 0; g < GEN_MAX_DRAWS / 4; ++g) {
+        uint32_t w4[4] = {0u, 0u, 0u, 0u};
+        if (g < G)
+          philox4x32_10((uint32_t)lane, p.kb, (uint32_t)(j * G + g), STREAM_EVENT, p.key0,
+                        p.key1, w4);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) u[4 * g + k] = to_unit(w4[k]);
+      }
+      general_event<MODE, UNI, REFL, BERN>(p, u, s);
+    }
+    f[lane] = s.x;
+    f[L + lane] = s.y;
+    f[2 * L + lane] = s.z;
+    f[3 * L + lane] = s.ux;
+    f[4 * L + lane] = s.uy;
+    f[5 * L + lane] = s.uz;
+    f[6 * L + lane] = s.w;
+    iv[lane] = s.alive;
+    iv[L + lane] = s.ix;
+    iv[2 * L + lane] = s.iy;
+    iv[3 * L + lane] = s.iz;
+    iv[4 * L + lane] = s.order;
+    iv[5 * L + lane] = s.bad;
+    iv[6 * L + lane] = s.evct;
+    iv[7 * L + lane] = s.xing;
+    alive_out = s.alive;
+  }
+  const int n_alive = __popc(__ballot_sync(FULL_MASK, alive_out != 0));
+  if (wl == 0 && n_alive) atomicAdd(&cta_sum[1], n_alive);
+  __syncthreads();
+  if (t == 0) {
+    // The CTA's dead lanes at exit: the next launch's FIFO ranks.
+    const int n_here = min(CTA_THREADS, p.n_lanes - (int)blockIdx.x * CTA_THREADS);
+    p.dead[(size_t)((p.kb + 1u) & 1u) * gridDim.x + blockIdx.x] = n_here - cta_sum[1];
+  }
+}

@@ -20,9 +20,10 @@ algorithms, output, fileNames) plus
 
 On the port "auto" and "baked" run one baked gas-channel integrator per k
 point (a k point changes only the event kernel's parameter block, so there
-is no compile to amortize); "fused" raises NotImplementedError naming
-ROADMAP item 13b, and "traced", like "auto" on a workload without a
-fastpath plan, names item 16.  ``--device`` defaults to ``cuda``; a missing
+is no compile to amortize); "traced", like "auto" on a workload without a
+fastpath plan, swaps each k point's optics into the band integrator's
+general kernel; "fused" raises NotImplementedError naming ROADMAP item
+13b.  ``--device`` defaults to ``cuda``; a missing
 GPU raises instead of running on the CPU.  The surface is the namelist's
 ``surfaceAlbedo``, or a ``SurfaceDescription`` that a caller of
 ``run_from_namelist`` passes as ``surface`` (the namelist has no BRDF

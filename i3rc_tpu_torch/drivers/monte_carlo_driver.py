@@ -10,10 +10,12 @@ package's own writers.
     python -m i3rc_tpu_torch.drivers.monte_carlo_driver [--device cuda] run.nml
 
 ``--device`` defaults to ``cuda``; a missing GPU raises instead of running
-on the CPU.  The port covers flux and radiance transport with maximum
-cross-section (``useRayTracing = .false.``) over a black or Lambertian
-(``surfaceAlbedo``) surface; namelists that ask for more raise
-NotImplementedError naming the ROADMAP item.
+on the CPU.  The port covers flux transport with ray tracing
+(``useRayTracing = .true.``, the reference's default: the general kernel)
+or maximum cross-section, and radiance on the fastpath's workloads, over a
+black or Lambertian (``surfaceAlbedo``) surface; namelists that ask for
+more (polarized transport; radiance on a workload without a fastpath plan,
+ray tracing included) raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -76,11 +78,8 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     # Intensity directions: nonzero mus count (:151-154)
     mus, phis, compute_intensity = intensity_directions(
         intensity_mus, intensity_phis, bool(out_rad) or bool(out_netcdf))
-    for asked, what in ((polarized, "polarized transport: ROADMAP item 17"),
-                        (use_ray_tracing, "useRayTracing = .true. (the general "
-                                          "kernel): ROADMAP item 16")):
-        if asked:
-            raise NotImplementedError(f"monte_carlo_driver: {what}")
+    if polarized:
+        raise NotImplementedError("monte_carlo_driver: polarized transport: ROADMAP item 17")
 
     # --- domain + integrator ------------------------------------------------
     domain = read_domain(domain_file)

@@ -13,6 +13,13 @@ TPU-specific additions: the event and cell-crossing budgets that bound the
 kernel's while_loops (the reference loops unboundedly and can hang on
 grazing trajectories; we cap and count them in n_bad), and the wavefront
 width (photon lanes stepped together).
+
+On the port, ``general_chain`` and ``general_dda_steps`` are TPU
+scheduling, not physics: the port accepts them, and ``general_chain``
+(with the JAX package's auto rule) still picks the weight-1 estimator of
+the chained tracer (Bernoulli absorption, counts for exits and deaths),
+but its general event block (kernels/general_block.py) schedules its own
+way: every flight runs to its end in one thread, K events per launch.
 """
 
 from __future__ import annotations

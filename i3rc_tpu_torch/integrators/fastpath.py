@@ -48,7 +48,12 @@ import torch
 
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.core.rng import GAS_LAUNCH_BLOCK, PhiloxKey, gas_thresholds
-from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32, make_direction_cosines
+from i3rc_tpu_torch.integrators.wavefront import (
+    ONEHOT_MAX_ROWS,
+    RawTallies,
+    f32,
+    make_direction_cosines,
+)
 # hg_cosine is re-exported (the JAX package defines it in fastpath), and
 # renormalize for callers that step a state by hand.
 from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
@@ -57,10 +62,6 @@ from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
     PrologueSpec, SurfaceLaw, block_buffers, flush, fused_block, hg_cosine, launch_refusal,
     renormalize,
 )
-
-# Rows of the JAX package's one-hot read limit (i3rc_tpu/ops/gather.py):
-# column media beyond it are not eligible there either.
-ONEHOT_MAX_ROWS = 1 << 18
 
 # Lanes per wavefront when the caller gives none (not tuned on the GPU yet).
 DEFAULT_LANES = 1 << 20
@@ -381,7 +382,7 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
     brdf, brdf_params, surface_albedo = None, (), 0.0
     if surface.uses_brdf:
         # Uniform-parameter BRDFs only (fastpath.py:414-430); a gridded
-        # field takes the general kernel (item 16).
+        # field takes the general kernel.
         if not (surface.n_xs == 1 and surface.n_ys == 1):
             return None
         brdf = surface.brdf_name

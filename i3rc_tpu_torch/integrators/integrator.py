@@ -1,26 +1,26 @@
 """The user-facing Monte Carlo integrator, on a PyTorch device.
 
-Port of ``i3rc_tpu/integrators/integrator.py:155-476`` for the fastpath
-slice:
+Port of ``i3rc_tpu/integrators/integrator.py:155-476``:
 
     integ = Integrator.create(domain, config=..., device="cuda")
     results = integ.compute(batch_key(seed, batch), source, n_photons)
 
 The surface is black by default, a Lambertian albedo with
-``surface_albedo=A``, or a ``SurfaceDescription`` with ``surface=``
-(a uniform lambertian, rpv, cox_munk or ross_li BRDF takes the fastpath;
-a gridded one would need the general kernel, item 16).
+``surface_albedo=A``, or a ``SurfaceDescription`` with ``surface=`` (a
+uniform lambertian, rpv, cox_munk or ross_li BRDF, or a gridded one).
 
 ``create`` flattens the domain once (host numpy, shared with the JAX
-package) and validates the arguments; ``batch_fn`` builds the fastpath
-tracer for one (source, photon count, lane count) and caches it.  Workloads
-the fastpath cannot express would need the general wavefront kernel, which
-is not ported yet: they raise NotImplementedError instead of falling back.
+package), validates the arguments and, as the JAX package does, turns on
+super-voxel majorants of 8 cells on domains above 2^18 cells.
+``batch_tracer`` dispatches as the JAX package does: the fastpath when it
+has a plan, else the general kernel (``wavefront.make_batch_tracer``; its
+packed optics and inverse-CDF tables are built at first use).  Radiance
+detectors on a workload without a fastpath plan are ROADMAP item 16b.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -39,11 +39,76 @@ from i3rc_tpu_torch.integrators.fastpath import (
     optics_flags,
 )
 from i3rc_tpu_torch.integrators.results import Results, column_weights, normalize_tallies
-from i3rc_tpu_torch.integrators.wavefront import IntensitySpec, SurfaceSpec
+from i3rc_tpu_torch.integrators.tables import build_inverse_cubic
+from i3rc_tpu_torch.integrators.wavefront import (
+    ONEHOT_MAX_ROWS,
+    DeviceOptics,
+    DeviceTables,
+    IntensitySpec,
+    SurfaceSpec,
+    make_batch_tracer,
+)
+from i3rc_tpu_torch.ops.dda import EXIT_BOT as _EXIT_BOT
+from i3rc_tpu_torch.ops.dda import EXIT_TOP as _EXIT_TOP
 from i3rc_tpu_torch.ops.dda import GridGeometry
 
-# ops/dda.py status codes of the exit directions.
-_EXIT_TOP, _EXIT_BOT = 2, 3
+
+def majorant_block_shape(grid_shape, block_size: int):
+    """Per-axis block sizes: the largest divisor of each axis <= block_size;
+    None for block_size 0 (one global majorant, :439)."""
+    if block_size <= 0:
+        return None
+
+    def best_divisor(n):
+        b = min(block_size, n)
+        while n % b:
+            b -= 1
+        return b
+
+    return tuple(best_divisor(n) for n in grid_shape)
+
+
+def block_majorants(total_ext: np.ndarray, blocks) -> np.ndarray:
+    """Per-super-voxel maximum extinction, flattened C-order."""
+    nx, ny, nz = total_ext.shape
+    bx, by, bz = blocks
+    r = total_ext.reshape(nx // bx, bx, ny // by, by, nz // bz, bz)
+    return r.max(axis=(1, 3, 5)).ravel()
+
+
+def device_optics_from_flat(flat: FlatOptics, majorant_block_size: int = 0,
+                            device="cpu") -> DeviceOptics:
+    """Pack FlatOptics into the general kernel's device optics (JAX
+    integrator.py:75-119): the packed per-cell row with the co-albedo, the
+    block majorants, and the single-component uniformity flags (only cells
+    with extinction count)."""
+    n_cells = flat.total_ext.size
+    n_comp = flat.n_components
+    cell_matrix = np.concatenate([
+        flat.total_ext.reshape(n_cells, 1),
+        flat.cumulative_ext.reshape(n_cells, n_comp),
+        1.0 - flat.ssa.reshape(n_cells, n_comp),
+        flat.phase_index.reshape(n_cells, n_comp).astype(np.float32),
+    ], axis=1).astype(np.float32)
+    blocks = majorant_block_shape(flat.total_ext.shape, majorant_block_size)
+    majorant = (block_majorants(flat.total_ext, blocks) if blocks
+                else np.zeros(0, np.float32))
+    flags = optics_flags(flat)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+    return DeviceOptics(
+        cell_matrix=t(cell_matrix), total_ext=t(flat.total_ext.ravel()),
+        max_extinction=float(np.float32(flat.max_extinction)),
+        block_majorant=t(majorant), n_components=n_comp,
+        uniform_ssa=flags.uniform_ssa, uniform_phase_index=flags.uniform_phase_index)
+
+
+def coarse_geometry(domain: Domain, blocks, device="cpu") -> GridGeometry:
+    """Super-voxel grid geometry: every (bx, by, bz)-th fine edge."""
+    bx, by, bz = blocks
+    return GridGeometry.from_edges(
+        np.asarray(domain.x_edges)[::bx], np.asarray(domain.y_edges)[::by],
+        np.asarray(domain.z_edges)[::bz], domain.xy_regularly_spaced,
+        domain.z_regularly_spaced, device=device)
 
 
 def resolve_device(device) -> torch.device:
@@ -71,6 +136,8 @@ class Integrator:
     _intensity_mus: np.ndarray | None = None
     _intensity_phis: np.ndarray | None = None
     _surface_arg: SurfaceDescription | None = None
+    # The super-voxel grid of Woodcock transport (majorant_block_size > 0).
+    coarse_geometry: GridGeometry | None = None
 
     @staticmethod
     def create(domain: Domain, config: IntegratorConfig | None = None,
@@ -102,6 +169,12 @@ class Integrator:
         geom = GridGeometry.from_edges(domain.x_edges, domain.y_edges, domain.z_edges,
                                        domain.xy_regularly_spaced,
                                        domain.z_regularly_spaced, device=dev)
+        # Domains above the one-hot read regime default to super-voxel
+        # Woodcock transport with blocks of 8 cells (JAX integrator.py:
+        # 211-218); an explicit majorant_block_size wins.
+        if config.majorant_block_size == 0 and flat.total_ext.size > ONEHOT_MAX_ROWS:
+            config = replace(config, majorant_block_size=8)
+        blocks = majorant_block_shape(flat.total_ext.shape, config.majorant_block_size)
         if intensity_mus is not None:
             phis_rad = np.deg2rad(phis)
             sin_t = np.sqrt(np.maximum(1.0 - mus ** 2, 0.0))
@@ -124,7 +197,8 @@ class Integrator:
             config=config, device=dev, _flat=flat,
             _col_weights=column_weights(domain.x_edges, domain.y_edges),
             _dz=np.diff(np.asarray(domain.z_edges, dtype=np.float64)).astype(np.float32),
-            _intensity_mus=mus, _intensity_phis=phis, _surface_arg=surface)
+            _intensity_mus=mus, _intensity_phis=phis, _surface_arg=surface,
+            coarse_geometry=coarse_geometry(domain, blocks, dev) if blocks else None)
 
     @property
     def grid_shape(self):
@@ -139,17 +213,60 @@ class Integrator:
                 self.intensity, self.config)
         return self.__dict__["_fast_plan_cache"]
 
+    def _cached(self, name: str, build):
+        if name not in self.__dict__:
+            self.__dict__[name] = build()
+        return self.__dict__[name]
+
+    @property
+    def device_optics(self) -> DeviceOptics:
+        """The general kernel's packed optics, built at first use."""
+        return self._cached("_device_optics", lambda: device_optics_from_flat(
+            self._flat, self.config.majorant_block_size, self.device))
+
+    @property
+    def tables(self) -> DeviceTables:
+        """The inverse-CDF cubic tables of every component, built at first use."""
+        def build():
+            cubic = build_inverse_cubic(self._flat)
+            return DeviceTables(
+                inverse_cubic=torch.as_tensor(cubic.reshape(-1, 4), device=self.device),
+                n_segments=cubic.shape[2], max_entries=cubic.shape[1])
+        return self._cached("_tables", build)
+
+    def general_tracer(self, n_photons: int, n_lanes: int | None = None):
+        """The general kernel's (key, PhotonBatch, source, optics_override)
+        -> RawTallies function, whether or not a fastpath plan exists."""
+        return make_batch_tracer(self.geometry, self.device_optics, self.tables,
+                                 self.surface, self.intensity, self.config, n_photons,
+                                 n_lanes, coarse_geom=self.coarse_geometry)
+
     def batch_tracer(self, n_photons: int, n_lanes: int | None = None):
-        """The raw (key, PhotonBatch, source) -> RawTallies function."""
+        """The raw (key, PhotonBatch, source[, optics_override]) -> RawTallies
+        function: the fastpath when it has a plan, else the general kernel
+        (JAX integrator.py:334-390); an optics override (the spectral loop's
+        traced mode) always takes the general kernel."""
         plan = self._fast_plan
         if plan is None:
-            raise NotImplementedError(
-                "this workload needs the general wavefront kernel: ROADMAP item 16")
-        return make_fast_tracer(self.geometry, plan, self.config, n_photons, n_lanes)
+            return self.general_tracer(n_photons, n_lanes)
+        fast = make_fast_tracer(self.geometry, plan, self.config, n_photons, n_lanes)
+        general = []
+
+        def trace(key, batch, source, optics_override=None):
+            if optics_override is None:
+                return fast(key, batch, source)
+            if not general:
+                general.append(self.general_tracer(n_photons, n_lanes))
+            return general[0](key, batch, source, optics_override)
+
+        return trace
 
     def batch_fn(self, source: PhotonSource, n_photons: int,
                  n_lanes: int | None = None):
-        """key -> Results for one batch; cached per (source, sizes)."""
+        """(key[, optics_override]) -> Results for one batch; cached per
+        (source, sizes).  The override swaps in other optics of the same
+        shape (``device_optics_from_flat``) through the general kernel: the
+        spectral loop's traced mode."""
         cache = self.__dict__.setdefault("_batch_fn_cache", {})
         lanes = lane_width(n_photons, n_lanes)
         cache_key = (source, int(n_photons), lanes)
@@ -159,9 +276,10 @@ class Integrator:
             n_dirs = self.intensity.n_directions if self.intensity else 0
 
             @torch.inference_mode()
-            def run(key: PhiloxKey) -> Results:
+            def run(key: PhiloxKey, optics_override: DeviceOptics | None = None) -> Results:
                 batch = source.sample(key, lanes, self.device)
-                raw = tracer(key, batch, source)
+                raw = (tracer(key, batch, source) if optics_override is None
+                       else tracer(key, batch, source, optics_override))
                 return normalize_tallies(raw, n_x, n_y, n_z, n_dirs,
                                          self.optics.n_components, self._col_weights,
                                          self._dz)

@@ -18,10 +18,13 @@ is a fastpath plan.
 
 The JAX package's two switches ``bake_fastpath`` and ``fuse_k`` become one
 ``mode`` argument, the broadband namelist's ``spectralMode``: "baked" (the
-default), "auto", "fused" or "traced".  Not ported yet, raising
-NotImplementedError: the fused-k mode (every k point in one dispatch:
-ROADMAP item 13b) and the traced mode (per-k optics through the general
-kernel, and "auto" on workloads without a fastpath plan: ROADMAP item 16).
+default), "auto", "fused" or "traced".  The traced mode (and "auto" on a
+workload without a fastpath plan) runs every k point through the band
+integrator's general-kernel tracer with that k point's optics swapped in
+(``device_optics_from_flat`` of the domain with the k point's gas, the
+JAX package's optics override, spectral.py:273-280).  Not ported yet,
+raising NotImplementedError: the fused-k mode (every k point in one
+dispatch: ROADMAP item 13b).
 """
 
 from __future__ import annotations
@@ -32,15 +35,14 @@ import numpy as np
 import torch
 
 from i3rc_tpu_torch.core.k_distribution import KDistribution
-from i3rc_tpu_torch.core.optics import Domain
+from i3rc_tpu_torch.core.optics import Domain, flatten_optics
 from i3rc_tpu_torch.core.phase_functions import PhaseFunction, PhaseFunctionTable
-from i3rc_tpu_torch.integrators.integrator import Integrator
+from i3rc_tpu_torch.integrators.integrator import Integrator, device_optics_from_flat
 from i3rc_tpu_torch.parallel.mesh import run_batches, tree_map
 
 GAS_COMPONENT_NAME = "Gas absorption"
 MODES = ("auto", "baked", "fused", "traced")
 _FUSED = "fused-k spectral batching (GasKTables): ROADMAP item 13b"
-_TRACED = "the traced spectral mode (per-k optics through the general kernel): ROADMAP item 16"
 
 
 def domain_with_gas_component(domain: Domain, profile: np.ndarray) -> Domain:
@@ -71,15 +73,17 @@ def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, 
              n_photons_per_batch: int, n_batches: int, seed: int = 10, derive=None,
              mode: str = "baked", integrator_cache: dict | None = None,
              n_lanes: int | None = None) -> BandResult:
-    """All k points of one band, each through its own baked integrator.
+    """All k points of one band, each through its own baked integrator, or
+    (``mode="traced"``) through ``integrator``'s general kernel with the k
+    point's optics.
 
     ``integrator`` supplies the configuration, surface, detectors and
-    device; ``base_domain`` is the domain without gas.  K point k runs
+    device (and, traced, the domain shape: ``base_domain`` plus a gas
+    component); ``base_domain`` is the domain without gas.  K point k runs
     ``n_batches`` batches of ``n_photons_per_batch`` photons with seed
     ``seed + 1000 * k``.  ``integrator_cache`` keeps the per-k integrators
     (and their tracers) across band runs.  ``mode`` is one of ``MODES``;
-    "fused" and "traced" raise NotImplementedError (see the module
-    docstring).
+    "fused" raises NotImplementedError (see the module docstring).
     """
     if mode not in MODES:
         raise ValueError(f"spectral mode must be one of {MODES}, got {mode!r}")
@@ -102,12 +106,22 @@ def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, 
             cache[ckey] = (integ, kdist, base_domain)
         return cache[ckey][0]
 
-    if mode == "traced" or (mode == "auto" and k_integrator(0)._fast_plan is None):
-        raise NotImplementedError(f"spectral: {_TRACED}")
+    traced = mode == "traced" or (mode == "auto" and k_integrator(0)._fast_plan is None)
+
+    def k_stats(k: int):
+        if not traced:
+            return run_batches(k_integrator(k), source, n_photons_per_batch, n_batches,
+                               seed=seed + 1000 * k, derive=derive, n_lanes=n_lanes)
+        optics_k = device_optics_from_flat(
+            flatten_optics(domain_with_gas_component(base_domain, profiles[:, k])),
+            integrator.config.majorant_block_size, integrator.device)
+        return run_batches(integrator, source, n_photons_per_batch, n_batches,
+                           seed=seed + 1000 * k, derive=derive, n_lanes=n_lanes,
+                           optics_override=optics_k)
+
     per_k, mean, var = [], None, None
     for k in range(kdist.n_k):
-        stats = run_batches(k_integrator(k), source, n_photons_per_batch, n_batches,
-                            seed=seed + 1000 * k, derive=derive, n_lanes=n_lanes)
+        stats = k_stats(k)
         per_k.append(stats)
         w = float(kdist.weights[k])
         m_k = tree_map(lambda a: a * w, stats.mean)

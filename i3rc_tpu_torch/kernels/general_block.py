@@ -1,0 +1,525 @@
+"""The general event block: K general transport events per lane, kernel and twin.
+
+``general_block`` is the wrapper the general trace loop
+(``integrators/wavefront.py`` ``make_batch_tracer``) calls for one block:
+the FIFO refill of dead lanes from the photon budget (source sampled in
+the kernel), then K events of the general kernel's flux path
+(``wavefront.general_event``).  On a CUDA tensor it launches the
+hand-written Hopper kernel ``csrc/general_event_block.cuh`` once and raises
+if the build or the launch fails; on a CPU tensor it runs
+``general_block_reference``, the plain PyTorch version, on the same Philox
+draws.  The JAX package runs this path as XLA (a masked ``lax.while_loop``
+over events, ``i3rc_tpu/integrators/wavefront.py:657``, with a nested
+``while_loop`` for the DDA, ``i3rc_tpu/ops/dda.py:241``); it has no TPU
+kernel.
+
+Draw layout: event ``j`` of block ``kb`` reads ``philox_uniforms(key, kb,
+K, n_draws, L)[j, d]`` for its draw ``d`` (``rng.STREAM_EVENT``; a trace
+runs either the fastpath or the general kernel, so the stream is not
+shared), in the order of ``Variant.draws``: free path, cosine, azimuth,
+then the Woodcock / maximum cross-section acceptance, the surface's two
+draws, the component pick and the roulette (or, in the weight-1 class, the
+survival draw), each only where the variant consumes it
+(wavefront.py:1184-1199).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from i3rc_tpu_torch.core.illumination import PhotonSource
+from i3rc_tpu_torch.core.rng import STREAM_REFILL, PhiloxKey, philox_uniforms
+from i3rc_tpu_torch.integrators.wavefront import (
+    MAXCS,
+    ONEHOT_MAX_ROWS,
+    RT,
+    WOODCOCK,
+    DeviceOptics,
+    DeviceTables,
+    f32,
+    general_event,
+    make_direction_cosines,
+)
+from i3rc_tpu_torch.kernels.event_block import (
+    BRDF_KINDS,
+    CTA_THREADS,
+    DONE,
+    SPENT,
+    _SourceParams,
+    cta_dead_counts,
+    source_constants,
+)
+from i3rc_tpu_torch.ops.dda import GridGeometry
+
+MODE_NAMES = {RT: "ray_tracing", MAXCS: "max_cross_section", WOODCOCK: "woodcock"}
+ALBEDO = 1                       # surface kinds: 0 black, 1 albedo, then BRDF_KINDS
+MAX_BRDF_PARAMS = 4
+GENERAL_K = 8                    # events per launch
+MAX_DRAWS = 8                    # the kernel's draw registers per event
+
+# Rows of GeneralState.f and GeneralState.i.
+X, Y, Z, UX, UY, UZ, W = range(7)
+ALIVE, IX, IY, IZ, ORDER, BAD, EVCT, XING = range(8)
+
+
+@dataclass(frozen=True)
+class GeneralSpec:
+    """What the block needs besides the optics, the tables and the state:
+    the transport mode, the fine grid (``geom``) and the block-majorant grid
+    (``coarse``, Woodcock only), the surface (kind 0 black, ALBEDO, or a
+    BRDF kind with its (n_xs * n_ys, n_params) float32 parameter grid and
+    edge tensors; ``srf_x0`` / ``srf_wx`` etc. are the grid's origin and
+    float32 width), the roulette, the event and crossing budgets (the
+    crossing budget of the grid the DDA walks), the volume tally, K, and
+    ``chained``: the weight-1 class applies to uniform single-component
+    optics (integrators/wavefront.py ``variant``)."""
+
+    mode: int
+    geom: GridGeometry
+    coarse: GridGeometry | None
+    surface_kind: int
+    albedo: float
+    brdf_fn: object
+    srf_params: torch.Tensor | None
+    srf_x_edges: torch.Tensor | None
+    srf_y_edges: torch.Tensor | None
+    n_xs: int
+    n_ys: int
+    srf_x0: float
+    srf_wx: float
+    srf_y0: float
+    srf_wy: float
+    use_rr: bool
+    rr_w: float
+    max_events: int
+    max_crossings: int
+    vol: bool
+    chained: bool
+    K: int
+    n_photons: int
+
+
+@dataclass(frozen=True)
+class Variant:
+    """The static specialization of one (spec, optics) pair
+    (wavefront.py:1170-1199): ``uniform`` single-component optics (``coalb``
+    = f32(1 - ssa)), the weight-1 class (``bernoulli``, ``absorbing`` when
+    ssa < 1, survival test ``u >= ssa``), the roulette (``rr`` with its
+    float32 half weight), f32(1 / max(ext_max, 1e-30)) and the names of the
+    event's draws in their order."""
+
+    uniform: bool
+    bernoulli: bool
+    absorbing: bool
+    ssa: float
+    coalb: float
+    rr: bool
+    rr_half: float
+    inv_max_ext: float
+    draws: tuple
+
+    @property
+    def n_draws(self) -> int:
+        return len(self.draws)
+
+
+def general_spec(geom: GridGeometry, coarse: GridGeometry | None, surface, config,
+                 n_photons: int) -> GeneralSpec:
+    """The block's constants for one tracer, decided as make_batch_tracer
+    decides (wavefront.py:671-709)."""
+    n_x, n_y, n_z = geom.n_x, geom.n_y, geom.n_z
+    if config.use_ray_tracing:
+        mode, coarse = RT, None
+        budget = config.max_crossings or max(1024, 8 * (n_x + n_y + n_z))
+    elif coarse is not None:
+        mode = WOODCOCK
+        budget = max(64, 4 * (coarse.n_x + coarse.n_y + coarse.n_z))
+    else:
+        mode, budget = MAXCS, 0
+    dev = geom.x_edges.device
+    kind, albedo, brdf = 0, 0.0, None
+    params = xe = ye = None
+    n_xs = n_ys = 1
+    sx0 = swx = sy0 = swy = 0.0
+    if surface.uses_brdf:
+        kind, brdf = BRDF_KINDS[surface.brdf_name], surface.brdf_fn
+        params = torch.as_tensor(np.asarray(surface.params, np.float32), device=dev)
+        xe32 = np.asarray(surface.x_edges, np.float32)
+        ye32 = np.asarray(surface.y_edges, np.float32)
+        xe, ye = torch.as_tensor(xe32, device=dev), torch.as_tensor(ye32, device=dev)
+        n_xs, n_ys = int(surface.n_xs), int(surface.n_ys)
+        sx0, swx = float(xe32[0]), float(xe32[-1] - xe32[0])
+        sy0, swy = float(ye32[0]), float(ye32[-1] - ye32[0])
+    elif float(surface.albedo) > 0.0:
+        kind, albedo = ALBEDO, f32(surface.albedo)
+    black = kind == 0
+    vol = bool(config.compute_volume_absorption)
+    # The weight-1 class (wavefront.py:688-709) with the one-hot read regime
+    # read as "cells <= 2^18": auto chain 6 above it, 1 (off) below.
+    chain = int(config.general_chain) or (6 if geom.n_cells > ONEHOT_MAX_ROWS else 1)
+    chained = chain > 1 and mode == WOODCOCK and black and not vol
+    return GeneralSpec(
+        mode=mode, geom=geom, coarse=coarse, surface_kind=kind, albedo=albedo, brdf_fn=brdf,
+        srf_params=params, srf_x_edges=xe, srf_y_edges=ye, n_xs=n_xs, n_ys=n_ys,
+        srf_x0=sx0, srf_wx=swx, srf_y0=sy0, srf_wy=swy,
+        use_rr=bool(config.use_russian_roulette), rr_w=f32(config.russian_roulette_w),
+        max_events=int(config.max_events), max_crossings=int(budget), vol=vol,
+        chained=chained, K=GENERAL_K, n_photons=int(n_photons))
+
+
+def variant(spec: GeneralSpec, opt: DeviceOptics) -> Variant:
+    """The specialization the kernel and its twin run for these optics."""
+    uniform = opt.uniform
+    bernoulli = spec.chained and uniform
+    ssa = f32(opt.uniform_ssa) if uniform else 1.0
+    absorbing = bernoulli and ssa < 1.0
+    black = spec.surface_kind == 0
+    conservative = uniform and opt.uniform_ssa == 1.0
+    rr = spec.use_rr and not bernoulli and not (conservative and black)
+    names = ["tau", "scat", "chi"]
+    if spec.mode != RT:
+        names.append("accept")
+    if not black:
+        names += ["srf_mu", "srf_phi"]
+    if not uniform:
+        names.append("comp")
+    if absorbing:
+        names.append("abs")
+    if rr:
+        names.append("rr")
+    max_ext = np.maximum(np.float32(opt.max_extinction), np.float32(1e-30))
+    return Variant(uniform=uniform, bernoulli=bernoulli, absorbing=absorbing, ssa=ssa,
+                   coalb=f32(1.0 - opt.uniform_ssa) if uniform else 0.0, rr=rr,
+                   rr_half=f32(float(spec.rr_w) / 2.0),
+                   inv_max_ext=float(np.float32(1.0) / max_ext), draws=tuple(names))
+
+
+@dataclass
+class GeneralState:
+    """Per-lane state of the general kernel: ``f`` (7, L) float32 rows x, y,
+    z, ux, uy, uz, w (the photon weight); ``i`` (8, L) int32 rows alive, ix,
+    iy, iz (the cell, kept in ray-tracing mode only), order (scattering
+    order), bad (lane's bad count), evct (lane-events), xing (DDA steps:
+    the cell crossings and stops of every trace)."""
+
+    f: torch.Tensor
+    i: torch.Tensor
+
+    @property
+    def n_lanes(self) -> int:
+        return self.f.shape[1]
+
+    def clone(self) -> "GeneralState":
+        return GeneralState(self.f.clone(), self.i.clone())
+
+
+@dataclass
+class GeneralBuffers:
+    """What a trace carries between blocks besides the lane state: the
+    float64 ``columns`` (n_cols, 3: up, down, absorbed) and ``vol``
+    (n_cells, or empty) tallies, and the loop control of
+    ``event_block.BlockBuffers``: ``ctl`` int64 (4,) (launched at kb & 1,
+    DONE, SPENT) and ``dead`` int32 (2, n_ctas)."""
+
+    columns: torch.Tensor
+    vol: torch.Tensor
+    ctl: torch.Tensor
+    dead: torch.Tensor
+
+    def clone(self) -> "GeneralBuffers":
+        return GeneralBuffers(self.columns.clone(), self.vol.clone(), self.ctl.clone(),
+                              self.dead.clone())
+
+
+def _place(spec: GeneralSpec, x, y, z, mu, phi, f, i, take) -> None:
+    """Lanes ``take`` start a photon at the normalized (x, y, z) with
+    direction (mu, phi) (the domain scaling of wavefront.py:1213-1219)."""
+    g = spec.geom
+    f[X] = torch.where(take, g.x0 + x * (g.x_max - g.x0), f[X])
+    f[Y] = torch.where(take, g.y0 + y * (g.y_max - g.y0), f[Y])
+    f[Z] = torch.where(take, g.z0 + z * (g.z_max - g.z0), f[Z])
+    for row, v in zip((UX, UY, UZ), make_direction_cosines(mu, phi)):
+        f[row] = torch.where(take, v, f[row])
+    f[W] = torch.where(take, 1.0, f[W])
+    i[ORDER] = torch.where(take, 0, i[ORDER])
+    if spec.mode == RT:
+        for row, loc, v in ((IX, g.locate_x, f[X]), (IY, g.locate_y, f[Y]),
+                            (IZ, g.locate_z, f[Z])):
+            i[row] = torch.where(take, loc(v), i[row])
+
+
+def launch_state(spec: GeneralSpec, batch, n_photons: int) -> GeneralState:
+    """Lane state for a launch batch; lanes beyond the budget start dead."""
+    L = batch.n_photons
+    dev = batch.x.device
+    f = torch.zeros((7, L), dtype=torch.float32, device=dev)
+    i = torch.zeros((8, L), dtype=torch.int32, device=dev)
+    take = torch.arange(L, device=dev) < n_photons
+    _place(spec, batch.x, batch.y, batch.z, batch.mu, batch.phi, f, i, take)
+    i[ALIVE] = take.to(torch.int32)
+    return GeneralState(f, i)
+
+
+def general_buffers(spec: GeneralSpec, state: GeneralState, launched: int,
+                    kb: int = 0) -> GeneralBuffers:
+    """Zeroed tallies and the loop's control state for a trace that enters
+    block ``kb`` on ``state`` with ``launched`` photons launched."""
+    dev = state.f.device
+    g = spec.geom
+    ctl = torch.tensor([0, 0, -1, -1], dtype=torch.int64, device=dev)
+    ctl[kb & 1] = launched
+    dead = torch.zeros((2, -(-state.n_lanes // CTA_THREADS)), dtype=torch.int32, device=dev)
+    dead[kb & 1] = cta_dead_counts(state.i[ALIVE])
+    return GeneralBuffers(
+        columns=torch.zeros((g.n_x * g.n_y, 3), dtype=torch.float64, device=dev),
+        vol=torch.zeros(g.n_cells if spec.vol else 0, dtype=torch.float64, device=dev),
+        ctl=ctl, dead=dead)
+
+
+def general_block_reference(spec: GeneralSpec, var: Variant, opt: DeviceOptics,
+                            tables: DeviceTables, state: GeneralState, buf: GeneralBuffers,
+                            key: PhiloxKey, source: PhotonSource, kb: int) -> None:
+    """Plain PyTorch version of one block: the loop's end condition as seen
+    at entry, the FIFO refill (while the batch has more photons than
+    lanes: dead lane l takes photon launched + its rank among the dead
+    lanes, with the source sample at (l, kb, group, STREAM_REFILL)), then the
+    K events of ``wavefront.general_event`` and the next block's CTA dead
+    counts, all in place on ``state`` and ``buf``."""
+    ctl = buf.ctl
+    f, i = state.f, state.i
+    L = state.n_lanes
+    launched = ctl[kb & 1].clone()
+    spent = launched >= spec.n_photons
+    ctl[SPENT] = torch.where(spent & (ctl[SPENT] < 0), kb, ctl[SPENT])
+    ctl[DONE] = torch.where(spent & ~i[ALIVE].any() & (ctl[DONE] < 0), kb, ctl[DONE])
+    if spec.n_photons > L:
+        dead = i[ALIVE] == 0
+        dead_i = dead.to(torch.int64)
+        take = dead & (launched + torch.cumsum(dead_i, 0) - dead_i < spec.n_photons)
+        fresh = source.sample(key, L, f.device, stream=STREAM_REFILL, block=kb)
+        _place(spec, fresh.x, fresh.y, fresh.z, fresh.mu, fresh.phi, f, i, take)
+        i[ALIVE] = i[ALIVE] | take.to(torch.int32)
+        launched = launched + take.sum()
+    ctl[(kb + 1) & 1] = launched
+    u = philox_uniforms(key, kb, spec.K, var.n_draws, L, f.device)
+    names = ("x", "y", "z", "ux", "uy", "uz", "w")
+    s = {n: f[r] for r, n in enumerate(names)}
+    s.update(alive=i[ALIVE] != 0, ix=i[IX], iy=i[IY], iz=i[IZ], order=i[ORDER], bad=i[BAD],
+             evct=i[EVCT], xing=i[XING].clone())
+    for j in range(spec.K):
+        general_event(spec, var, opt, tables, u[j], s, buf.columns, buf.vol)
+    f.copy_(torch.stack([s[n] for n in names]))
+    i.copy_(torch.stack([s["alive"].to(torch.int32), s["ix"], s["iy"], s["iz"], s["order"],
+                         s["bad"], s["evct"], s["xing"]]))
+    buf.dead[(kb + 1) & 1] = cta_dead_counts(i[ALIVE])
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+
+class _Grid(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in ("nx", "ny", "nz", "xy_regular", "z_regular")] + [
+        (n, ctypes.c_float) for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max", "dx", "dy",
+                                      "dz", "wx", "wy")] + [
+        (n, ctypes.c_void_p) for n in ("xe", "ye", "ze")]
+
+
+class _GeneralParams(ctypes.Structure):
+    _fields_ = [("fine", _Grid), ("coarse", _Grid)] + [
+        (n, ctypes.c_void_p) for n in ("total_ext", "cell", "majorant", "cubic")] + [
+        (n, ctypes.c_int) for n in ("n_comp", "n_segments", "max_entries", "uniform_pf",
+                                    "absorbing", "rr")] + [
+        (n, ctypes.c_float) for n in ("uniform_coalb", "ssa", "inv_max_ext", "rr_w",
+                                      "rr_half")] + [
+        (n, ctypes.c_int) for n in ("max_crossings", "max_events", "n_draws", "d_accept",
+                                    "d_srf_mu", "d_srf_phi", "d_comp", "d_extra",
+                                    "srf_kind", "n_xs", "n_ys", "n_params")] + [
+        ("albedo", ctypes.c_float),
+        ("srf_params", ctypes.c_void_p), ("srf_xe", ctypes.c_void_p),
+        ("srf_ye", ctypes.c_void_p)] + [
+        (n, ctypes.c_float) for n in ("srf_x0", "srf_wx", "srf_y0", "srf_wy")] + [
+        ("columns", ctypes.c_void_p), ("vol", ctypes.c_void_p),
+        ("n_photons", ctypes.c_longlong), ("ctl", ctypes.c_void_p), ("dead", ctypes.c_void_p),
+        ("src", _SourceParams)] + [
+        (n, ctypes.c_uint32) for n in ("key0", "key1", "kb")] + [
+        ("n_lanes", ctypes.c_int), ("K", ctypes.c_int)]
+
+
+def _grid(g: GridGeometry | None) -> _Grid:
+    q = _Grid()
+    if g is None:
+        return q
+    q.nx, q.ny, q.nz = g.n_x, g.n_y, g.n_z
+    q.xy_regular, q.z_regular = int(g.xy_regular), int(g.z_regular)
+    for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max", "dx", "dy", "dz"):
+        setattr(q, n, getattr(g, n))
+    q.wx = float(np.float32(g.x_max - g.x0))
+    q.wy = float(np.float32(g.y_max - g.y0))
+    q.xe, q.ye, q.ze = (e.data_ptr() for e in (g.x_edges, g.y_edges, g.z_edges))
+    return q
+
+
+@functools.lru_cache(maxsize=None)
+def build():
+    """Compile (or reuse) the general kernel's library and declare its C
+    interface (``csrc/general_event_block.cu``, one ``nvcc`` process)."""
+    from i3rc_tpu_torch.kernels.build import build as _build
+
+    built = _build("general_event_block", ("general_event_block.cu",))
+    lib = built.lib
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.i3rc_general_params_size.argtypes = []
+    lib.i3rc_general_params_size.restype = ci
+    lib.i3rc_general_event_block.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.i3rc_general_event_block.restype = ci
+    if lib.i3rc_general_params_size() != ctypes.sizeof(_GeneralParams):
+        raise RuntimeError("GeneralParams layout differs between Python and CUDA")
+    return built
+
+
+def launch_refusal(spec: GeneralSpec, var: Variant, opt: DeviceOptics) -> str | None:
+    """Why the CUDA kernel does not run this block, or None when it does: a
+    pure function of the spec, the variant and the optics' shapes."""
+    if spec.K < 1:
+        return f"the general block needs K >= 1 events per launch; got K={spec.K}"
+    if var.n_draws > MAX_DRAWS:
+        return f"the general block holds {MAX_DRAWS} draws per event; got {var.n_draws}"
+    if spec.surface_kind > ALBEDO and spec.srf_params.shape[1] > MAX_BRDF_PARAMS:
+        return f"the general block holds {MAX_BRDF_PARAMS} BRDF parameters"
+    if var.bernoulli and spec.mode != WOODCOCK:
+        return "the weight-1 class runs on Woodcock transport only"
+    return None
+
+
+def _need(t, device, dtype, shape, what: str) -> None:
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
+        raise ValueError(f"general_block: {what} must be a contiguous {dtype} "
+                         f"{tuple(shape)} tensor on the state's device")
+
+
+def general_params(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: DeviceTables,
+                   state: GeneralState, buf: GeneralBuffers, key: PhiloxKey,
+                   source: PhotonSource, kb: int) -> _GeneralParams:
+    """The kernel's by-value parameter block for one launch."""
+    p = _GeneralParams()
+    p.fine, p.coarse = _grid(spec.geom), _grid(spec.coarse)
+    p.total_ext, p.cell = opt.total_ext.data_ptr(), opt.cell_matrix.data_ptr()
+    p.majorant = opt.block_majorant.data_ptr() if opt.block_majorant.numel() else None
+    p.cubic = tables.inverse_cubic.data_ptr()
+    p.n_comp, p.n_segments, p.max_entries = opt.n_components, tables.n_segments, \
+        tables.max_entries
+    p.uniform_pf = int(opt.uniform_phase_index) if var.uniform else 0
+    p.absorbing, p.rr = int(var.absorbing), int(var.rr)
+    p.uniform_coalb, p.ssa, p.inv_max_ext = var.coalb, var.ssa, var.inv_max_ext
+    p.rr_w, p.rr_half = spec.rr_w, var.rr_half
+    p.max_crossings, p.max_events, p.n_draws = spec.max_crossings, spec.max_events, var.n_draws
+    slot = lambda n: var.draws.index(n) if n in var.draws else -1
+    p.d_accept, p.d_srf_mu, p.d_srf_phi, p.d_comp = (slot(n) for n in ("accept", "srf_mu",
+                                                                       "srf_phi", "comp"))
+    p.d_extra = slot("abs") if var.bernoulli else slot("rr")
+    p.srf_kind, p.albedo = spec.surface_kind, spec.albedo
+    p.n_xs, p.n_ys = spec.n_xs, spec.n_ys
+    if spec.srf_params is not None:
+        p.n_params = spec.srf_params.shape[1]
+        p.srf_params = spec.srf_params.data_ptr()
+        p.srf_xe, p.srf_ye = spec.srf_x_edges.data_ptr(), spec.srf_y_edges.data_ptr()
+        p.srf_x0, p.srf_wx, p.srf_y0, p.srf_wy = (spec.srf_x0, spec.srf_wx, spec.srf_y0,
+                                                  spec.srf_wy)
+    p.columns = buf.columns.data_ptr()
+    p.vol = buf.vol.data_ptr() if spec.vol else None
+    p.n_photons = spec.n_photons
+    p.ctl, p.dead = buf.ctl.data_ptr(), buf.dead.data_ptr()
+    for n, v in source_constants(source, state.f.device).items():
+        if n == "dir":
+            p.src.dir[:] = v
+        else:
+            setattr(p.src, n, v)
+    g = spec.geom
+    p.src.x0, p.src.wx = g.x0, g.x_max - g.x0
+    p.src.y0, p.src.wy = g.y0, g.y_max - g.y0
+    p.src.z0, p.src.wz = g.z0, g.z_max - g.z0
+    p.key0, p.key1 = key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF
+    p.kb = kb & 0xFFFFFFFF
+    p.n_lanes, p.K = state.n_lanes, spec.K
+    return p
+
+
+def _launch(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: DeviceTables,
+            state: GeneralState, buf: GeneralBuffers, key: PhiloxKey, source: PhotonSource,
+            kb: int) -> None:
+    """Check the arguments and launch the kernel for block ``kb``."""
+    f, i = state.f, state.i
+    L, dev = state.n_lanes, f.device
+    if i.device != dev or dev.type != "cuda":
+        raise ValueError("general_block: state tensors must share one CUDA device")
+    _need(f, dev, torch.float32, (7, L), "the state's f")
+    _need(i, dev, torch.int32, (8, L), "the state's i")
+    why = launch_refusal(spec, var, opt)
+    if why:
+        raise NotImplementedError(why)
+    g = spec.geom
+    # The parameter block is built once per trace (the same buffers, key,
+    # optics and source objects); later blocks change its block index only.
+    tag = (key, L, spec, var, opt, tables, source)
+    cached = getattr(buf, "_params", None)
+    if cached is not None and cached[0][:2] == tag[:2] and all(
+            a is b for a, b in zip(cached[0][2:], tag[2:])):
+        p = cached[1]
+        p.kb = kb & 0xFFFFFFFF
+    else:
+        n = opt.n_components
+        _need(opt.total_ext, dev, torch.float32, (g.n_cells,), "total_ext")
+        _need(opt.cell_matrix, dev, torch.float32, (g.n_cells, 1 + 3 * n), "cell_matrix")
+        if spec.mode == WOODCOCK:
+            c = spec.coarse
+            _need(opt.block_majorant, dev, torch.float32, (c.n_x * c.n_y * c.n_z,),
+                  "block_majorant")
+        _need(tables.inverse_cubic, dev, torch.float32,
+              (n * tables.max_entries * tables.n_segments, 4), "inverse_cubic")
+        _need(buf.columns, dev, torch.float64, (g.n_x * g.n_y, 3), "columns")
+        _need(buf.vol, dev, torch.float64, (g.n_cells if spec.vol else 0,), "vol")
+        _need(buf.ctl, dev, torch.int64, (4,), "ctl")
+        _need(buf.dead, dev, torch.int32, (2, -(-L // CTA_THREADS)), "dead")
+        p = general_params(spec, var, opt, tables, state, buf, key, source, kb)
+        buf._params = (tag, p)
+    lib = build().lib
+    with torch.cuda.device(dev):
+        rc = lib.i3rc_general_event_block(
+            f.data_ptr(), i.data_ptr(), ctypes.byref(p), spec.mode, int(var.uniform),
+            int(spec.surface_kind != 0), int(var.bernoulli),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"general_event_block launch: CUDA error {rc}")
+
+
+def general_block(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: DeviceTables,
+                  state: GeneralState, buf: GeneralBuffers, key: PhiloxKey,
+                  source: PhotonSource, kb: int) -> None:
+    """One block ``kb`` of the general trace loop, in place on ``state`` and
+    ``buf``: the refill, K events, the loop's control state.  On CUDA
+    tensors one launch of the kernel, counted in ``general_block.launches``
+    (and per transport mode in ``general_block.mode_launches``), and nothing
+    else; on CPU tensors ``general_block_reference``."""
+    dev = state.f.device
+    if dev.type == "cuda":
+        _launch(spec, var, opt, tables, state, buf, key, source, kb)
+        general_block.launches += 1
+        general_block.mode_launches[MODE_NAMES[spec.mode]] += 1
+    elif dev.type == "cpu":
+        general_block_reference(spec, var, opt, tables, state, buf, key, source, kb)
+    else:
+        raise NotImplementedError(f"general_block: no kernel for device {dev}")
+
+
+def reset_launch_counters() -> None:
+    general_block.launches = 0
+    general_block.mode_launches = {name: 0 for name in MODE_NAMES.values()}
+
+
+reset_launch_counters()

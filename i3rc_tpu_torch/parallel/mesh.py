@@ -46,7 +46,7 @@ class BatchStats:
 
 def run_batches(integrator, source, n_photons_per_batch: int, n_batches: int,
                 seed: int = 10, derive=None, n_lanes: int | None = None,
-                chunk_batches: int | None = None) -> BatchStats:
+                chunk_batches: int | None = None, optics_override=None) -> BatchStats:
     """Run independent photon batches and reduce their moments.
 
     ``derive``, if given, maps a per-batch Results to an extra tree whose
@@ -56,7 +56,9 @@ def run_batches(integrator, source, n_photons_per_batch: int, n_batches: int,
 
     ``chunk_batches`` bounds how many batches run between host reductions:
     each chunk's moments are copied to the host and summed there in float64,
-    which gives the same sums as one pass.
+    which gives the same sums as one pass.  ``optics_override`` (general-
+    kernel optics of the integrator's shape) runs every batch with those
+    optics: the spectral loop's traced mode.
     """
     n_batches = max(int(n_batches), 2)
     fn = integrator.batch_fn(source, n_photons_per_batch, n_lanes=n_lanes)
@@ -65,7 +67,8 @@ def run_batches(integrator, source, n_photons_per_batch: int, n_batches: int,
     for start in range(0, n_batches, chunk):
         c1 = c2 = None
         for b in range(start, min(start + chunk, n_batches)):
-            res = fn(batch_key(seed, b))
+            res = (fn(batch_key(seed, b)) if optics_override is None
+                   else fn(batch_key(seed, b), optics_override))
             out = res if derive is None else {"results": res, "derived": derive(res)}
             x = tree_map(lambda a: a.to(torch.float64), out)
             sq = tree_map(torch.square, x)

@@ -91,11 +91,17 @@ def test_driver_surface_albedo(tmp_path, radiance):
         assert np.isfinite(out["radiance"][0]).all() and float(out["radiance"][0].min()) > 0.0
 
 
+# Ray tracing runs (the general kernel); radiance on it is item 16b.
+_RADIANCE = dict(radiative="intensityMus = 1., intensityPhis = 0.,",
+                 files='outputRadFile = "rad.out"')
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(algorithms="useRayTracing = .false., polarized = .true.,"), "item 17"),
-    (dict(algorithms="useRayTracing = .true.,"), "item 16"),
-    (dict(algorithms=""), "item 16"),    # the reference default is ray tracing
+    (dict(algorithms="useRayTracing = .true.,", **_RADIANCE), "item 16"),
+    (dict(algorithms="", **_RADIANCE), "item 16"),    # the reference default is ray tracing
 ])
 def test_driver_rejects_out_of_slice(tmp_path, kwargs, item):
+    write_domains(str(tmp_path))
     with pytest.raises(NotImplementedError, match=item):
         run_from_namelist(_namelist(tmp_path, **kwargs), quiet=True, device="cpu")

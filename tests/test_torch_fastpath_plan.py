@@ -85,8 +85,8 @@ def test_non_separable_field_has_no_plan():
     assert JaxIntegrator.create(_hg_domain(JAX, ext), config=JAX.cfg)._fast_plan is None
     integ = Integrator.create(_hg_domain(PORT, ext), config=PORT.cfg, device="cpu")
     assert integ._fast_plan is None
-    with pytest.raises(NotImplementedError, match="item 16"):
-        integ.batch_tracer(1024)
+    # Both packages take the general kernel (maximum cross-section here).
+    assert integ.batch_tracer(1024).spec.mode == 1
 
 
 SURFACES = {"albedo": dict(surface_albedo=0.3)} | {
@@ -99,7 +99,7 @@ SURFACES = {"albedo": dict(surface_albedo=0.3)} | {
 def test_surface_plans_match_jax(name):
     """A Lambertian albedo and each uniform BRDF take the fastpath, with the
     JAX planner's surface fields (fastpath.py:414-434); a gridded BRDF has
-    no plan on either side, and its batch tracer names item 16."""
+    no plan on either side, and its batch tracer is the general kernel's."""
     kw = dict(SURFACES[name])
 
     def create(h, pkg_integrator, **extra):
@@ -131,8 +131,8 @@ def test_surface_plans_match_jax(name):
         integ = Integrator.create(PORT.make_step_cloud(1.0), config=PORT.cfg, surface=grid,
                                   device="cpu")
         assert integ._fast_plan is None
-        with pytest.raises(NotImplementedError, match="item 16"):
-            integ.batch_tracer(1024)
+        spec = integ.batch_tracer(1024).spec
+        assert spec.brdf_fn.__name__ == "rpv_brdf" and (spec.n_xs, spec.n_ys) == (2, 1)
 
 
 @pytest.mark.parametrize("kwargs,item", [

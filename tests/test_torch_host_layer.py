@@ -150,3 +150,28 @@ def test_domain_files_cross_read(tmp_path, writer, reader):
     assert np.array_equal(c.table.key, b.table.key)
     assert np.array_equal(c.table.phase_functions[0].legendre_coefficients,
                           b.table.phase_functions[0].legendre_coefficients)
+
+
+def test_phase_function_tables_equal_the_originals():
+    """The copies of integrators/tables.py and core/inverse_phase.py give the
+    originals' tables on the same optics (the step cloud's HG entry and a
+    tabulated Rayleigh entry): the inverse angle tables, the forward tables
+    and their hybrid, and the cubic fits."""
+    outs = []
+    for pkg in SIDES:
+        pf, o = side(pkg, "core.phase_functions"), side(pkg, "core.optics")
+        ang = np.linspace(0.0, np.pi, 91)
+        table = pf.PhaseFunctionTable.from_phase_functions(
+            [pf.PhaseFunction.from_legendre(pf.henyey_greenstein_coefficients(0.85, 64)),
+             pf.PhaseFunction.from_tabulated(ang, 0.75 * (1 + np.cos(ang) ** 2))],
+            key=[1.0, 2.0])
+        ext = np.full((2, 1, 2), 0.01)
+        dom = o.Domain.create([0.0, 1.0, 2.0], [0.0, 1.0], [0.0, 1.0, 2.0]).add_component(
+            "c", ext, np.ones_like(ext), np.array([[[0, 1]], [[1, 0]]], np.int32), table)
+        flat = o.flatten_optics(dom)
+        t = side(pkg, "integrators.tables")
+        fwd = t.build_forward_tables(flat, 1801)
+        outs.append([t.build_inverse_tables(flat, 1801), fwd, t.hybridize(fwd, 7.0),
+                     t.build_inverse_cubic(flat), t.build_forward_cubic(flat)])
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and np.array_equal(a, b)

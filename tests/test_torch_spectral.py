@@ -156,14 +156,20 @@ def test_unported_modes_raise():
     src = PhotonSource.directional(0.5, 0.0)
     with pytest.raises(NotImplementedError, match="item 13b"):
         run_band(integ, cloud_slab(), kd, src, 64, 2, mode="fused")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_band(integ, cloud_slab(), kd, src, 64, 2, mode="traced")
     with pytest.raises(ValueError, match="spectral mode"):
         run_band(integ, cloud_slab(), kd, src, 64, 2, mode="warp")
-    # "auto" on a workload without a fastpath plan lands on the traced mode.
+    # The traced mode runs the general kernel, which takes no radiance
+    # detectors yet (item 16b); "auto" on a workload without a fastpath plan
+    # lands on the traced mode.
+    det = dict(intensity_mus=[1.0], intensity_phis=[0.0])
+    traced = Integrator.create(domain_with_gas_component(cloud_slab(),
+                                                         kd.absorption_profiles_on(Z)[:, 0]),
+                               config=CFG, device="cpu", **det)
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        run_band(traced, cloud_slab(), kd, src, 64, 2, mode="traced")
     ray = Integrator.create(cloud_slab(), config=replace(CFG, use_ray_tracing=True),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+                            device="cpu", **det)
+    with pytest.raises(NotImplementedError, match="item 16b"):
         run_band(ray, cloud_slab(), kd, src, 64, 2, mode="auto")
 
 
