@@ -20,12 +20,22 @@ process, it runs every build on identical inputs, alternating the builds
   and by CUDA events) and the Landsat batch (2^23) at K = 8 and 32 (by CUDA
   events).
 * broadband: phase 13 of ``chip_smoke.py`` (``broadband_slice``) per build.
+* general: the general event block G (``general_event_block.cu``) of each
+  build on the mid-flight and tail states of ``chip_smoke.py`` phase 26's
+  step-cloud and Landsat-general rows (device ms per launch, each build
+  bit-equal to the twin), then G's device time summed over one batch of
+  phase 27 (the step cloud by ray tracing, 2^24 photons at 2^20 lanes) and
+  of phase 28 (Landsat general, 2^21), by the profiler.
 * rates: the end-to-end photons/s of the four slices (step-cloud flux and
   radiance, broadband, Landsat, timed as ``chip_smoke.py`` phases 5, 9, 13
-  and 16 time them) of this checkout and of each whole tree given with
-  ``--tree NAME=DIR`` (another commit unpacked with ``git archive``), each
-  measurement in a fresh process with that tree's own package and kernels,
-  the trees alternating (A B B A), since a rate drifts with a process's age.
+  and 16 time them) and of the two general paths (phases 27 and 28, with
+  G's device ms over one more batch of each by the profiler) of this
+  checkout and of each whole tree given with ``--tree NAME=DIR`` (another
+  commit unpacked with ``git archive``), each measurement in a fresh
+  process with that tree's own package and kernels, the trees alternating
+  (A B B A), since a rate drifts with a process's age.  ``--cases`` picks
+  rates by name too (flux, radiance, broadband, landsat,
+  general_step_cloud, general_landsat).
 
 The builds must share this checkout's C interface (a copy of ``csrc`` with
 the line under test changed); a build whose library refuses a variant, or
@@ -40,6 +50,7 @@ root:
 
     python3 benchmarks/torch_event_block_ab.py --build minctas=build/ab/minctas/csrc
     python3 benchmarks/torch_event_block_ab.py --parts rates --tree parent=build/ab/parent
+    python3 benchmarks/torch_event_block_ab.py --parts general --build compact=build/ab/compact/csrc
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 import i3rc_tpu_torch.kernels.build as kbuild  # noqa: E402
 import i3rc_tpu_torch.kernels.event_block as eb  # noqa: E402
+import i3rc_tpu_torch.kernels.general_block as gb  # noqa: E402
 
 ROUNDS = 4
 LAUNCHES = 21
@@ -76,15 +88,18 @@ BLOCK_CASES = [("flux_K8", dict(ssa=1.0)),
 
 _BUILD_ONE = ("import sys; from pathlib import Path; "
               "import i3rc_tpu_torch.kernels.build as kb; kb.CSRC = Path(sys.argv[1]); "
-              "import i3rc_tpu_torch.kernels.event_block as eb; eb.build()")
+              "import i3rc_tpu_torch.kernels.{0} as m; m.build()")
+_BUILD_FNS = {"event_block": eb.build, "general_block": gb.build}
 
 
-def build_all(dirs: dict) -> dict:
-    """{name: Built}: this checkout's library and one per source directory,
-    the others compiled in child processes while this one compiles."""
-    procs = {name: subprocess.Popen([sys.executable, "-c", _BUILD_ONE, str(d)], cwd=ROOT)
-             for name, d in dirs.items()}
-    built = {"this": eb.build()}
+def build_all(dirs: dict, module: str = "event_block") -> dict:
+    """{name: Built}: this checkout's library of ``module`` (event_block or
+    general_block) and one per source directory, the others compiled in
+    child processes while this one compiles."""
+    procs = {name: subprocess.Popen([sys.executable, "-c", _BUILD_ONE.format(module), str(d)],
+                                    cwd=ROOT) for name, d in dirs.items()}
+    build_fn = _BUILD_FNS[module]
+    built = {"this": build_fn()}
     for name, p in procs.items():
         if p.wait() != 0:
             raise RuntimeError(f"build {name} failed")
@@ -92,15 +107,16 @@ def build_all(dirs: dict) -> dict:
     for name, d in dirs.items():
         kbuild.CSRC = Path(d)
         try:
-            built[name] = eb.build.__wrapped__()      # the cached library of that build
+            built[name] = build_fn.__wrapped__()      # the cached library of that build
         finally:
             kbuild.CSRC = own
     return built
 
 
-def use(built) -> None:
-    """Make ``event_block`` launch through the given library."""
-    eb.build = lambda: built
+def use(built, module=eb) -> None:
+    """Make ``event_block`` (or ``general_block``) launch through the given
+    library."""
+    module.build = lambda: built
 
 
 def runs(built, make) -> bool:
@@ -251,16 +267,97 @@ def broadband_ab(builds: dict, dev, card: str) -> list:
     return out
 
 
-# One fresh process per measurement: the four slices' photons/s, with the
+def general_ab(builds: dict, dev, card: str, cases) -> dict:
+    """G of each build: blocks on phase 26's mid-flight and tail states of
+    the step cloud and Landsat general, then one batch of each path, the
+    builds alternating."""
+    from i3rc_tpu_torch import batch_key
+
+    out = {"blocks": [], "batches": []}
+    names = list(builds)
+    for row, name in enumerate(cs.GENERAL_TIMED):
+        if cases and name not in cases:
+            continue
+        use(builds["this"], gb)
+        sc = cs.general_scene(name, dev)
+        integ, src, n, L = sc.integ, sc.src, sc.n, sc.lanes
+        tracer = integ.general_tracer(n, L)
+        spec, tables, opt = tracer.spec, integ.tables, integ.device_optics
+        var = gb.variant(spec, opt)
+        key = batch_key(cs.SEED, 900 + row)
+        st = gb.launch_state(spec, src.sample(key, L, dev), n)
+        buf = gb.general_buffers(spec, st, min(L, n))
+        gb.general_block(spec, var, opt, tables, st, buf, key, src, 0)
+        states, kb = [("mid", st.clone(), buf.clone(), 1)], 1
+        while not (int(buf.ctl[kb & 1]) >= n and float(st.i[gb.ALIVE].float().mean()) <= 0.15):
+            gb.general_block(spec, var, opt, tables, st, buf, key, src, kb)
+            kb += 1
+        states.append(("tail", st.clone(), buf.clone(), kb))
+        for state, s0, b0, kb_s in states:
+            sr, br = s0.clone(), b0.clone()
+            gb.general_block_reference(spec, var, opt, tables, sr, br, key, src, kb_s)
+            run = lambda s, b: gb.general_block(spec, var, opt, tables, s, b, key, src, kb_s)
+            for bname in names:
+                use(builds[bname], gb)
+                sk, bk = s0.clone(), b0.clone()
+                run(sk, bk)
+                torch.cuda.synchronize()
+                cs.check(torch.equal(sk.f, sr.f) and torch.equal(sk.i, sr.i)
+                         and torch.equal(bk.dead, br.dead) and torch.equal(bk.ctl, br.ctl),
+                         f"G {name} {state}: build {bname} differs from the twin")
+            ms = {b: [] for b in names}
+            for r in range(ROUNDS):
+                for bname in order(names, r):
+                    use(builds[bname], gb)
+                    ms[bname].append(cs.general_block_ms(run, lambda: (s0.clone(), b0.clone()),
+                                                         10)[1])
+            out["blocks"].append({"scene": name, "state": state, "ms": ms,
+                                  "alive": float(s0.i[gb.ALIVE].float().mean())})
+            for bname in names:
+                cs.say("ab general-block", scene=name, state=state, build=bname,
+                       alive=f"{out['blocks'][-1]['alive']:.4f}", bit_equal=True,
+                       device_ms=",".join(f"{t:.4f}" for t in ms[bname]),
+                       device_ms_median=f"{statistics.median(ms[bname]):.4f}",
+                       card=json.dumps(card))
+        # One batch of the path (phase 27 or 28) per build and round.
+        bn = cs.GENERAL_PHOTONS if name == "rt_step_cloud" else cs.LANDSAT_GENERAL_PHOTONS
+        bkey = batch_key(cs.SEED, 910 + row)
+        tracer = integ.general_tracer(bn, cs.GENERAL_LANES)
+        batch = lambda: tracer(bkey, src.sample(bkey, cs.GENERAL_LANES, "cuda"), src)
+        batch()
+        torch.cuda.synchronize()
+        recs = {b: [] for b in names}
+        for r in range(2):
+            for bname in order(names, r):
+                use(builds[bname], gb)
+                pb = cs.profile_batch(batch, "general_event_block_kernel")
+                recs[bname].append({"block_ms": pb["block_ms"],
+                                    "launches": pb["block_launches"], "host_ms": pb["wall_ms"],
+                                    "fup": float(pb["raw"].flux_up.sum()) / bn})
+        for bname in names:
+            out["batches"].append({"scene": name, "build": bname, "photons": bn,
+                                   "batches": recs[bname]})
+            cs.say("ab general-batch", scene=name, build=bname, photons=bn,
+                   kernel_ms=",".join(f"{r['block_ms']:.3f}" for r in recs[bname]),
+                   launches=recs[bname][0]["launches"],
+                   host_ms=",".join(f"{r['host_ms']:.3f}" for r in recs[bname]),
+                   fup=",".join(f"{r['fup']:.6f}" for r in recs[bname]), card=json.dumps(card))
+    use(builds["this"], gb)
+    return out
+
+
+# One fresh process per measurement: the slices' photons/s, with the
 # package and the kernels of the tree the process runs in.
 _RATES = r"""
-import json, statistics, time
+import json, statistics, sys, time
 import numpy as np, torch
 from i3rc_tpu_torch import (Integrator, IntegratorConfig, KDistribution, PhotonSource,
                             batch_key, make_landsat_cloud, make_step_cloud, run_band)
 from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
 
 L, N, SEED = 1 << 18, 1 << 24, 2024
+CASES = set(filter(None, sys.argv[1].split(","))) if len(sys.argv) > 1 else set()
+want = lambda case: not CASES or case in CASES
 src = PhotonSource.directional(0.5, 0.0)
 flux = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False)
 
@@ -277,50 +374,78 @@ def median_rate(fn, n, warm, seed0):
     return {"photons_per_s": n / statistics.median(times), "seconds": times,
             "fup": sum(fups) / 3}
 
+def general_ms(fn, seed):
+    # G's device time summed over one batch, by the profiler.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        float(fn(batch_key(SEED, seed)).mean_flux_up)
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if "general_event_block_kernel" in e.key]
+    return sum(e.self_device_time_total for e in found) / 1e3, sum(e.count for e in found)
+
 out = {}
 t0 = time.perf_counter()
-out["flux"] = median_rate(Integrator.create(make_step_cloud(1.0), IntegratorConfig(
-    use_ray_tracing=False, max_events=500), device="cuda").batch_fn(src, N, n_lanes=L), N, 2, 0)
+if want("flux"):
+    out["flux"] = median_rate(Integrator.create(make_step_cloud(1.0), IntegratorConfig(
+        use_ray_tracing=False, max_events=500), device="cuda").batch_fn(src, N, n_lanes=L),
+        N, 2, 0)
 out["first_batch_after_s"] = time.perf_counter() - t0
-rad = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False,
-                       use_russian_roulette_for_intensity=True, zeta_min=0.3)
-out["radiance"] = median_rate(Integrator.create(
-    make_step_cloud(1.0), rad, intensity_mus=[1.0, 0.5, 0.5], intensity_phis=[0.0, 0.0, 180.0],
-    device="cuda").batch_fn(src, N, n_lanes=L), N, 1, 310)
-dom = make_step_cloud(1.0)
-z = np.asarray(dom.z_edges)
-kd = KDistribution.create(z, np.broadcast_to([[4e-4, 4e-3]], (32, 2)).copy(), [0.7, 0.3],
-                          wavelength_limits=(2.6, 2.8), spectral_fraction=1.0)
-cfg = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False,
-                       majorant_block_size=16)
-integ = Integrator.create(domain_with_gas_component(dom, kd.absorption_profiles_on(z)[:, 0]),
-                          cfg, device="cuda")
-cache = {}
-run = lambda seed: run_band(integ, dom, kd, src, N, 2, seed=seed,
-                            derive=lambda r: {"fup": r.mean_flux_up}, integrator_cache=cache,
-                            n_lanes=L)
-float(run(5).mean["derived"]["fup"])
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-fup = float(run(6).mean["derived"]["fup"])
-dt = time.perf_counter() - t0
-out["broadband"] = {"photons_per_s": 2 * 2 * N / dt, "seconds": [dt], "fup": fup}
-n_land = 1 << 23
-out["landsat"] = median_rate(Integrator.create(make_landsat_cloud(1.0), flux, device="cuda")
-                             .batch_fn(src, n_land, n_lanes=L), n_land, 1, 510)
+if want("radiance"):
+    rad = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                           compute_volume_absorption=False,
+                           use_russian_roulette_for_intensity=True, zeta_min=0.3)
+    out["radiance"] = median_rate(Integrator.create(
+        make_step_cloud(1.0), rad, intensity_mus=[1.0, 0.5, 0.5],
+        intensity_phis=[0.0, 0.0, 180.0], device="cuda").batch_fn(src, N, n_lanes=L), N, 1, 310)
+if want("broadband"):
+    dom = make_step_cloud(1.0)
+    z = np.asarray(dom.z_edges)
+    kd = KDistribution.create(z, np.broadcast_to([[4e-4, 4e-3]], (32, 2)).copy(), [0.7, 0.3],
+                              wavelength_limits=(2.6, 2.8), spectral_fraction=1.0)
+    cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                           compute_volume_absorption=False, majorant_block_size=16)
+    integ = Integrator.create(domain_with_gas_component(dom, kd.absorption_profiles_on(z)[:, 0]),
+                              cfg, device="cuda")
+    cache = {}
+    run = lambda seed: run_band(integ, dom, kd, src, N, 2, seed=seed,
+                                derive=lambda r: {"fup": r.mean_flux_up}, integrator_cache=cache,
+                                n_lanes=L)
+    float(run(5).mean["derived"]["fup"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fup = float(run(6).mean["derived"]["fup"])
+    dt = time.perf_counter() - t0
+    out["broadband"] = {"photons_per_s": 2 * 2 * N / dt, "seconds": [dt], "fup": fup}
+if want("landsat"):
+    n_land = 1 << 23
+    out["landsat"] = median_rate(Integrator.create(make_landsat_cloud(1.0), flux, device="cuda")
+                                 .batch_fn(src, n_land, n_lanes=L), n_land, 1, 510)
+# The general kernel's paths (chip_smoke.py phases 27 and 28) at the default
+# width: the step cloud through IntegratorConfig() (ray tracing), Landsat
+# with the fastpath off (Woodcock on 8-cell super-voxels, weight-1 class).
+general = {"general_step_cloud": (Integrator.create(make_step_cloud(1.0), device="cuda"), N),
+           "general_landsat": (Integrator.create(make_landsat_cloud(1.0), IntegratorConfig(
+               use_ray_tracing=False, max_events=500, compute_volume_absorption=False,
+               use_fastpath=False), device="cuda"), 1 << 21)}
+for case, (integ, n) in general.items():
+    if want(case):
+        fn = integ.batch_fn(src, n)
+        out[case] = median_rate(fn, n, 1, 700)
+        ms = [general_ms(fn, 720 + k) for k in range(2)]
+        out[case].update(g_ms=[m[0] for m in ms], g_launches=[m[1] for m in ms])
 print("RATES " + json.dumps(out))
 """
 
 
-def rates_ab(trees: dict, card: str) -> list:
-    """Each tree's four rates from a fresh process, twice, alternating."""
+def rates_ab(trees: dict, card: str, cases) -> list:
+    """Each tree's rates from a fresh process, twice, alternating."""
     names = list(trees)
     out = []
     for r in range(2):
         for name in order(names, r):
             env = dict(os.environ, PYTHONPATH=str(trees[name]))
-            done = subprocess.run([sys.executable, "-c", _RATES], cwd=trees[name], env=env,
-                                  capture_output=True, text=True)
+            done = subprocess.run([sys.executable, "-c", _RATES, ",".join(sorted(cases))],
+                                  cwd=trees[name], env=env, capture_output=True, text=True)
             if done.returncode != 0:
                 raise RuntimeError(f"rates of tree {name} failed:\n{done.stderr[-4000:]}")
             line = next(ln for ln in done.stdout.splitlines() if ln.startswith("RATES "))
@@ -331,6 +456,8 @@ def rates_ab(trees: dict, card: str) -> list:
                       for k, v in rec.items() if isinstance(v, dict)},
                    **{f"{k}_fup": f"{v['fup']:.6f}" for k, v in rec.items()
                       if isinstance(v, dict)},
+                   **{f"{k}_g_ms": ",".join(f"{m:.3f}" for m in v["g_ms"])
+                      for k, v in rec.items() if isinstance(v, dict) and "g_ms" in v},
                    first_batch_after_s=f"{rec['first_batch_after_s']:.1f}",
                    card=json.dumps(card))
     return out
@@ -343,7 +470,7 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="another checkout's root, for the rates part")
     ap.add_argument("--parts", default="blocks,batches,broadband",
-                    help="comma-separated subset of blocks, batches, broadband, rates")
+                    help="comma-separated subset of blocks, batches, broadband, general, rates")
     ap.add_argument("--cases", default="",
                     help="comma-separated block and batch case names (default: all)")
     ap.add_argument("--out", default=str(ROOT / "build" / "event_block_ab.json"),
@@ -358,15 +485,19 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     parts = args.parts.split(",")
     result = {"card": card, "builds": {k: str(v) for k, v in dirs.items()}}
+    cases = set(filter(None, args.cases.split(",")))
     if "rates" in parts:
         trees = {"this": ROOT, **{k: Path(v).resolve()
                                   for k, v in (t.split("=", 1) for t in args.tree)}}
-        result["rates"] = rates_ab(trees, card)
+        result["rates"] = rates_ab(trees, card, cases)
     if set(parts) & {"blocks", "batches", "broadband"}:
         builds = build_all(dirs)
         cs.say("ab builds", builds=",".join(builds), card=json.dumps(card))
     dev = torch.device("cuda", 0)
-    cases = set(filter(None, args.cases.split(",")))
+    if "general" in parts:
+        gbuilds = build_all(dirs, "general_block")
+        cs.say("ab general builds", builds=",".join(gbuilds), card=json.dumps(card))
+        result["general"] = general_ab(gbuilds, dev, card, cases)
     if "blocks" in parts:
         result["blocks"] = block_ab(builds, dev, card, cases)
     if "batches" in parts:

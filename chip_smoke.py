@@ -609,7 +609,8 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
     # (exact over an albedo; weighted, so an upper estimate, under a BRDF).
     # Their revivals grow `orders` too: the collision count holds them.
     hits = int(raw.flux_down.sum()) if spec.reflecting else 0
-    return {"launches": len(rec), "kernel_ms": kernel_ms, "kernel_ms_from": source,
+    return {"spec": spec, "launches": len(rec), "kernel_ms": kernel_ms,
+            "kernel_ms_from": source,
             "events_ms": events_ms, "live": sum(lives), "collisions": collisions,
             "lane_events": events, "blocks": raw.n_iterations // spec.K,
             "spent_at": ctl[SPENT] if ctl[SPENT] >= 0 else ctl[DONE], "hits": hits,
@@ -1065,10 +1066,21 @@ def surface_path(tag: str, integ, src, n: int, card: str, seed0: int, counter: s
     tracer = integ.batch_tracer(n, L_CHECK)
     batch = lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src)
     K = integ._fast_plan.unroll
-    say(f"{tag}-profile", photons=n, **profile_fields(profile_batch(batch), K, card))
+    pb = profile_batch(batch)
+    say(f"{tag}-profile", photons=n, **profile_fields(pb, K, card))
     bk = batch_kernel_time(batch, profile=profile_kernels)
     check(bk["launched"] == n, f"{tag}: the timed batch launched {bk['launched']} of {n}")
     say(f"{tag}-batch-kernel", photons=n, hits=bk["hits"], **batch_fields(bk, card))
+    # The surface stage on its own: its device time over the profiled batch
+    # (the same key, so the same photons) beside the bound of its work alone,
+    # the bottom hits' bytes and operations (bounce_work).
+    spec = bk["spec"]
+    stage = bound_ms(variant(spec), 0, 0, **bounce_work(spec, L_CHECK * pb["surface_launches"],
+                                                         bk["hits"]))
+    bk["stage"] = {"ms": pb["surface_ms"], "launches": pb["surface_launches"], "bound": stage}
+    say(f"{tag}-surface-stage", photons=n, launches=pb["surface_launches"],
+        kernel_ms_per_batch=f"{pb['surface_ms']:.3f}", hits=bk["hits"],
+        bound_ms=f"{stage[0]:.4f}", bound_by=stage[1], card=json.dumps(card))
     rate = n / sorted(times)[1]
     return results, launches, bk, dict(seconds=",".join(f"{t:.4f}" for t in times),
                                        photons_per_s=f"{rate:.4e}")
@@ -1237,6 +1249,10 @@ def main() -> int:
         instantiations=len(gptx),
         **{k: "{registers}regs/{stack_bytes}B/{ctas_per_sm}cta".format(**v)
            for k, v in sorted(gptx.items())})
+    # <= 64 registers keeps 4 CTAs of 256 threads on an SM.
+    for name, v in gptx.items():
+        check(v.get("registers", 256) <= 64 and v.get("spill_store_bytes", 1) == 0,
+              f"general {name}: {v}")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", built.log)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", built.log))
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
@@ -1600,6 +1616,9 @@ def surface_entry(name: str, source: str, kind: str, path: tuple, whole: dict, e
             "events_ms": whole["kernel_ms"], "fused_events_only_ms": whole["events_device_ms"],
             "tail_ms": whole["tail_ms"], "batch_ms": bk["kernel_ms"],
             "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
+            "surface_stage_ms": bk["stage"]["ms"],
+            "surface_stage_launches": bk["stage"]["launches"],
+            "surface_stage_bound_ms": bk["stage"]["bound"][0],
             "brdf_values_differing": {k: v[0] for k, v in brdf_diff.items()}}
 
 
@@ -2237,23 +2256,79 @@ GENERAL_ROWS = {
     "maxcs_rpv_clear": "maxcs_general_reflecting", "woodcock_band_k1": "woodcock_general"}
 
 
+# Phase 26's rows whose mid-flight and tail blocks are timed and censused
+# (the paths of phases 27 and 28), and the row of each transport mode whose
+# mid-flight state gives the sparse states.
+GENERAL_TIMED = ("rt_step_cloud", "woodcock_landsat")
+GENERAL_SPARSE = ("rt_step_cloud", "maxcs_two_comp", "woodcock_landsat")
+# Live lanes of a sparse state's tiles of 256 lanes, tile c taking entry
+# c % 7; the last tile, 156 lanes, is partial.
+SPARSE_LIVE = (0, 1, 31, 32, 33, 256, 97)
+SPARSE_CUT = 100
+
+
+def sparse_state(spec, mid, launch, launched: int, kb: int, seed: int):
+    """(state, buffers) built by hand from a mid-flight state ``mid``: its
+    first L - SPARSE_CUT lanes, tile c with SPARSE_LIVE[c % 7] live lanes at
+    seeded random slots (at most the tile's lanes), a slot made live whose
+    lane is dead in ``mid`` taking its photon from the launch state
+    ``launch``; ``launched`` photons launched at entry of block ``kb``."""
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    L = mid.n_lanes - SPARSE_CUT
+    rng = np.random.default_rng(seed)
+    live = np.zeros(L, bool)
+    for c in range(-(-L // gb.CTA_THREADS)):
+        lo, hi = c * gb.CTA_THREADS, min(L, (c + 1) * gb.CTA_THREADS)
+        k = min(SPARSE_LIVE[c % len(SPARSE_LIVE)], hi - lo)
+        live[lo + rng.choice(hi - lo, k, replace=False)] = True
+    live_t = torch.as_tensor(live, device=mid.f.device)
+    f, i = mid.f[:, :L].clone(), mid.i[:, :L].clone()
+    fresh = live_t & (i[gb.ALIVE] == 0)
+    f[:, fresh] = launch.f[:, :L][:, fresh]
+    for r in (gb.IX, gb.IY, gb.IZ, gb.ORDER):
+        i[r] = torch.where(fresh, launch.i[r, :L], i[r])
+    i[gb.ALIVE] = live_t.to(torch.int32)
+    st = gb.GeneralState(f.contiguous(), i.contiguous())
+    return st, gb.general_buffers(spec, st, launched, kb)
+
+
+def census_fields(spec, opt, rec: dict) -> dict:
+    """say() fields of the warp census of one recorded block: the identity
+    order of the first design, the compaction per tile, the grouped order
+    and, on a block under half alive, the compaction over the kernel's
+    tiles (kernels/general_block.py census_orders)."""
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    out = {}
+    for order, c in gb.census_orders(spec, opt, rec, buckets=(gb.KEY_BUCKETS,)).items():
+        out[f"census_{order}"] = (f"trips={c['trips']},warp_steps={c['warp_steps']},"
+                                  f"dda_eff={c['dda_efficiency']:.4f},"
+                                  f"event_eff={c['event_efficiency']:.4f},"
+                                  f"sparse={c['sparse_share']:.4f}")
+    return out
+
+
 def general_kernel_vs_twin(dev, card: str, built: dict) -> tuple[dict, float]:
     """Phase 26: one block of G against general_block_reference on the
     launch state (every lane alive, the first block), a mid-flight state
     (refills running; rows of more photons than lanes) and a tail state
     (budget spent, at most 15% of lanes alive) of every row of
-    GENERAL_ROWS, at the photons and lanes its path runs: the lane state,
-    the control state and the dead counts bit for bit, the float64 tallies
-    within 1e-9 of their largest entry.  Every instantiation of ``built`` is a row's.  The mid-flight
-    block of the first row is timed (profiler device time, CUDA events; the
-    twin by CUDA events).  Returns (timing of the main-path row, the largest
-    tally difference)."""
+    GENERAL_ROWS, at the photons and lanes its path runs, and on two sparse
+    states per transport mode (``sparse_state``: tiles of 0 to 256 live
+    lanes and a partial last tile, with the budget spent and with 300
+    photons left): the lane state, the control state and the dead counts
+    bit for bit, the float64 tallies within 1e-9 of their largest entry.
+    Every instantiation of ``built`` is a row's.  The mid-flight and tail
+    blocks of the GENERAL_TIMED rows are timed (profiler device time, CUDA
+    events; the twin by CUDA events) and their warp census printed.
+    Returns ({"<row> <state>": timing}, the largest tally difference)."""
     from i3rc_tpu_torch import batch_key
     from i3rc_tpu_torch.kernels import general_block as gb
 
     check(set(GENERAL_ROWS.values()) == set(built),
           f"rows miss instantiations {sorted(set(built) - set(GENERAL_ROWS.values()))}")
-    timed, worst = None, 0.0
+    timed, worst = {}, 0.0
     for row, (name, inst) in enumerate(GENERAL_ROWS.items()):
         sc = general_scene(name, dev)
         integ, src, n, L = sc.integ, sc.src, sc.n, sc.lanes
@@ -2277,6 +2352,10 @@ def general_kernel_vs_twin(dev, card: str, built: dict) -> tuple[dict, float]:
         advance()
         if n > L:
             states.append(("mid", st.clone(), buf.clone(), kb))
+            if name in GENERAL_SPARSE:
+                for tag, left in (("sparse", 0), ("sparse_refill", 300)):
+                    states.append((tag, *sparse_state(spec, states[1][1], states[0][1],
+                                                      n - left, kb, 610 + row), kb))
         while not (int(buf.ctl[kb & 1]) >= n
                    and float(st.i[gb.ALIVE].float().mean()) <= 0.15):
             check(kb < 600, f"{name}: the tail state never came")
@@ -2307,21 +2386,25 @@ def general_kernel_vs_twin(dev, card: str, built: dict) -> tuple[dict, float]:
             # Collisions: every lane-event that did not end its photon.
             taken = int(br.ctl[(kb_s + 1) & 1] - b0.ctl[kb_s & 1])
             ended = live + taken - int(sr.i[gb.ALIVE].sum())
-            n_bytes = 8 * L + (live + taken) * 2 * GSTATE_ROWS * 4 \
+            n_bytes = 8 * s0.n_lanes + (live + taken) * 2 * GSTATE_ROWS * 4 \
                 + general_table_bytes(integ, tracer)
             bound = general_bound(steps, events, max(events - ended, 0), n_bytes)
-            fields = dict(scene=name, instantiation=inst, state=state, photons=n, lanes=L,
-                          alive=f"{live / L:.4f}", n_draws=var.n_draws, bit_equal=bit,
-                          tally_rel_err=f"{err:.2e}", lane_events=events, dda_steps=steps,
-                          twin_ms=f"{1e3 * twin_s:.3f}", bound_ms=f"{bound[0]:.4f}",
-                          bound_by=bound[1])
-            if row == 0 and state == "mid":
+            fields = dict(scene=name, instantiation=inst, state=state, photons=n,
+                          lanes=s0.n_lanes, alive=f"{live / s0.n_lanes:.4f}",
+                          n_draws=var.n_draws, bit_equal=bit, tally_rel_err=f"{err:.2e}",
+                          lane_events=events, dda_steps=steps, twin_ms=f"{1e3 * twin_s:.3f}",
+                          bound_ms=f"{bound[0]:.4f}", bound_by=bound[1])
+            if name in GENERAL_TIMED and state in ("mid", "tail"):
                 run = lambda s, b: gb.general_block(spec, var, opt, tables, s, b, key, src, kb_s)
                 new = lambda: (s0.clone(), b0.clone())
                 ms = general_block_ms(run, new, 10)
                 fields.update(kernel_ms=f"{ms[0]:.4f}", kernel_device_ms=f"{ms[1]:.4f}")
-                timed = {"device_ms": ms[1], "events_ms": ms[0], "twin_ms": 1e3 * twin_s,
-                         "bound": bound}
+                timed[f"{name} {state}"] = {"device_ms": ms[1], "events_ms": ms[0],
+                                            "twin_ms": 1e3 * twin_s, "bound": bound}
+                rec = {}
+                gb.general_block_reference(spec, var, opt, tables, s0.clone(), b0.clone(), key,
+                                           src, kb_s, record=rec)
+                fields.update(census_fields(spec, opt, rec))
             say("26 general-kernel-vs-twin", **fields, card=json.dumps(card))
     return timed, worst
 
@@ -2646,17 +2729,23 @@ def general_paths(out: Path, card: str) -> dict:
 def general_entry(timed: dict, err: float, rec: dict) -> dict:
     """The kernels-line entry of G: launches on the phase-27 path, its
     largest tally difference to the plain version (the lane state is bit-
-    equal), one mid-flight block's device time beside the twin's and the
-    bound (phase 26), and the step-cloud batch's kernel time and bound."""
-    sc = rec["step_cloud"]
+    equal), the step cloud's mid-flight block's device time beside the
+    twin's and the bound (phase 26), the tail's and Landsat general's
+    blocks, and the step-cloud and Landsat batches' kernel time and
+    bound."""
+    sc, land = rec["step_cloud"], rec["landsat"]
+    mid = timed["rt_step_cloud mid"]
+    blocks = {k.replace(" ", "_") + "_ms": v["device_ms"] for k, v in timed.items()}
     return {"name": "general_event_block", "route": "cuda",
             "source": "i3rc_tpu_torch/csrc/general_event_block.cu",
             "replaces": "none: XLA in i3rc_tpu/integrators/wavefront.py:657 (no TPU kernel)",
-            "launches": rec["launches"], "max_abs_err": err, "ms": timed["device_ms"],
-            "plain_ms": timed["twin_ms"], "bound_ms": timed["bound"][0],
-            "bound_by": timed["bound"][1], "library_ms": None,
-            "events_ms": timed["events_ms"], "batch_ms": sc.get("kernel_ms"),
-            "batch_launches": sc["launches"], "batch_bound_ms": sc["bound"][0]}
+            "launches": rec["launches"], "max_abs_err": err, "ms": mid["device_ms"],
+            "plain_ms": mid["twin_ms"], "bound_ms": mid["bound"][0],
+            "bound_by": mid["bound"][1], "library_ms": None,
+            "events_ms": mid["events_ms"], **blocks, "batch_ms": sc.get("kernel_ms"),
+            "batch_launches": sc["launches"], "batch_bound_ms": sc["bound"][0],
+            "landsat_batch_ms": land.get("kernel_ms"), "landsat_batch_launches": land["launches"],
+            "landsat_batch_bound_ms": land["bound"][0]}
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@
 
 #include "general_event_block.cuh"
 
+// One CTA per tile of CTA_THREADS lanes; with T > 1 tiles a CTA the CTAs
+// that do not work return after the prologue's density estimate.
 template <int MODE, bool UNI, bool REFL, bool BERN>
 static void launch_general(float* f, int* i, const GeneralParams& p, cudaStream_t stream) {
   const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;

@@ -6,15 +6,17 @@
 // (i3rc_tpu/ops/dda.py:241-275).  It has no TPU kernel: there the loop's
 // masks keep every lane in step with the slowest, and a host-side port as
 // torch ops would pay a kernel launch per crossing and a host sync per
-// crossing loop.  Here one thread owns one photon lane and runs its own
-// loops: no lane waits for another.
+// crossing loop.  Here one thread runs one photon lane's own loops, the
+// live lanes packed onto the working CTAs' warps: a lane waits only for the
+// lanes of its warp (see "What bounds it").
 //
 // A launch is one block of the trace loop (kernels/general_block.py):
 //  * the refill: dead lane l takes photon launched + rank(l), rank its
 //    exclusive count of dead lanes over the grid, while that id is below the
 //    budget (the FIFO rank of fast_event_block.cuh's prologue: each launch
-//    leaves its CTAs' dead counts at exit in dead[(kb + 1) & 1], and CTA c
-//    of the next sums the entries below c), with the source sample of the
+//    leaves the dead counts at exit of its tiles of CTA_THREADS lanes in
+//    dead[(kb + 1) & 1], and the CTA that runs tile c in the next sums the
+//    entries below c), with the source sample of the
 //    fast block (source_sample: (lane, kb, group, STREAM_REFILL)), weight 1,
 //    order 0 and, in ray-tracing mode, its cell located.  Refilling per
 //    block instead of per event changes which photon a lane carries when,
@@ -45,15 +47,49 @@
 //  (up, down, absorbed) and the volume tally straight away with
 //  red.global.add.f64 (tally_add).
 //
-// What bounds it: the dependent chain of a lane's events (the DDA's per-
-// crossing load of total_ext and IEEE divisions, the Philox rounds, logf,
-// the rotation), at one lane per thread with no compaction of the dead
-// lanes: a simple kernel first.  Device memory traffic is the lane state
-// (15 rows) once in and out per launch, one 4-byte extinction read per
-// crossing, one packed row and one 16-byte cubic row per collision, and
-// the tallies.  Tables are read through the read-only path (__ldg) from L2:
-// the step cloud's extinction is 4 KB, Landsat's 7.8 MB, the cubic table
-// 4 KB per phase entry.
+// What bounds it.  Device memory traffic is the lane state (15 rows) once
+// in and out per launch, one 4-byte extinction read per crossing, one
+// packed row and one 16-byte cubic row per collision, and the tallies;
+// tables are read through the read-only path (__ldg) from L2 (the step
+// cloud's extinction is 4 KB, Landsat's 7.8 MB, the cubic table 4 KB per
+// phase entry).  The work is the dependent chain of a lane's events (the
+// DDA's per-crossing load of total_ext and IEEE divisions, the Philox
+// rounds, logf, the rotation): latency, not bytes or issue slots.  The
+// first design ran thread l on lane l, 4096 CTAs at 2^20 lanes.  A warp
+// census of the twin's per-event DDA steps (kernels/general_block.py
+// warp_census, benchmarks/torch_general_census.py) found two wastes: dead
+// lanes (live lanes fill 77% of a step-cloud batch's warp-event trips, 41%
+// of a Landsat-general batch's, 10-13% in a tail block) and the slowest
+// lane's DDA (17-22% of a warp's DDA lane-steps are live).  On the H100
+// (PERF.md, section 6) neither set the time.  Compacting a CTA's 256 lanes left
+// a sparse launch as slow as before: its 4096 CTAs still ran in ~8 waves of
+// 528 slots (4 CTAs per SM), each CTA as long as its slowest warp's chain
+// of 8 events, the rest of the SM idle.  What the design does about it:
+//  * One CTA per tile of CTA_THREADS lanes, and each CTA computes T, the
+//    tiles a working CTA takes, from the launch's expected density: about
+//    CTA_THREADS live lanes after the refill (general_prologue).  Dense
+//    blocks keep T = 1 and the hardware's scheduling of 4096 short CTAs; in
+//    the drain CTA c runs tiles [c, c + T) when T divides c, the others
+//    return at once, so the live lanes fill the working CTAs' warps and the
+//    launch is about one wave.  A tail block (11-14% alive) runs in 0.156-
+//    0.186 ms against the first design's 0.325-0.344.
+//  * The live lanes are compacted, tile by tile in lane order, onto a list;
+//    a lane keeps its global id for the Philox counter and the stores, so
+//    every lane draws and computes as before, and each tile's dead count
+//    at exit (the next launch's FIFO rank) is the first design's.  A dead
+//    lane changes nothing in this kernel: no dead-lane contract is needed.
+//  * In ray tracing with one tile the list is ordered by the key bucket of
+//    the lane's cell (rt_bucket), so a warp holds lanes of like
+//    extinction: 3% off a dense step-cloud block.  The same grouping by the
+//    coarse block's majorant cost Landsat general 7% per batch and is not
+//    built; a Woodcock or maximum cross-section list is in lane order.
+//  * The T = 1 path runs thread t on list entry t; with T > 1 warps take
+//    chunks of 32 entries from a shared counter.  Two call sites of
+//    general_lane keep the loop's registers out of the dense blocks' code.
+// Against the first design in one process on the same batches (PERF.md):
+// 0.96x per step-cloud batch (ray tracing, 2^24 photons), 0.85x per
+// Landsat-general batch (Woodcock, 2^21), 1.05x on a dense Landsat block.
+// The slowest lane's DDA is left: a re-sort per event would address it.
 //
 // Float arithmetic follows the JAX reference and the PyTorch twin
 // (wavefront.general_event, ops/dda.py) operation by operation, built with
@@ -75,6 +111,13 @@
 #define SPACING_EPS_F 0x1p-23f      // 2^-23
 #define EPS20_F 0x1.79ca10p-67f     // 1e-20
 #define EXT_EPS_F 0x1.4484c0p-100f  // 1e-30
+// A CTA runs up to GEN_MAX_TILES tiles of CTA_THREADS lanes
+// (general_prologue); GEN_CTAS_PER_SM CTAs fit on an SM.
+#define GEN_MAX_TILES 16
+#define GEN_CTAS_PER_SM 4
+// Buckets of the ray-tracing lane order's key (kernels/general_block.py
+// KEY_BUCKETS).
+#define GEN_KEY_BUCKETS 4
 
 // One grid of the DDA (ops/dda.py GridGeometry): regular axes by
 // arithmetic, irregular ones from the edge arrays.
@@ -110,7 +153,7 @@ struct GeneralParams {
   double* vol;                  // (n_cells) float64, or null
   long long n_photons;
   long long* ctl;               // launched (kb even), launched (kb odd), done, spent
-  int* dead;                    // (2, n_ctas) dead lanes per CTA at entry of even / odd kb
+  int* dead;                    // (2, n_tiles) dead lanes per tile at entry of even / odd kb
   SourceParams src;
   unsigned int key0, key1, kb;
   int n_lanes, K;
@@ -390,141 +433,304 @@ __device__ __forceinline__ void general_event(const GeneralParams& p, const floa
   s.evct += (exit_top || exit_bot || collide) ? 1 : 0;
 }
 
-// The block's refill for the calling thread's lane (see the header): the
-// FIFO rank, the loop's control state, and a fresh photon in a dead lane
-// that the budget still covers.  Returns the lane's alive flag.  Every
-// thread of the CTA calls it.
-static __device__ __noinline__ int general_refill(const GeneralParams& p, float* f, int* iv,
-                                                  bool locate_cell, int* warp_dead,
-                                                  int* cta_sum) {
-  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
-  const int lane0 = blockIdx.x * CTA_THREADS + t;
+// The key bucket of a live lane in ray tracing (kernels/general_block.py
+// lane_keys): the extinction e of its cell, r = e * (inv_max_ext * (1 +
+// 2^-10)) (the factor lifts the largest e, whose r may round below 1, into
+// bucket 0), bucket min(-floor(log2 r), GEN_KEY_BUCKETS - 1) from r's float32
+// exponent (r = 0 and subnormals land in the last).  A thick cell's free
+// path crosses few cells, a thin one's many.
+__device__ __forceinline__ int rt_bucket(const GeneralParams& p, const int* iv, int lane) {
   const size_t L = (size_t)p.n_lanes;
-  if (t == 0) cta_sum[0] = 0;
-  __syncthreads();
-  const bool in_range = lane0 < p.n_lanes;
-  int alive0 = in_range ? iv[lane0] : 0;
+  const Grid& g = p.fine;
+  const int flat = (iv[L + lane] * g.ny + iv[2 * L + lane]) * g.nz + iv[3 * L + lane];
+  const float e = __ldg(p.total_ext + min(max(flat, 0), g.nx * g.ny * g.nz - 1));
+  const float scale = p.inv_max_ext * 0x1.004p+0f;
+  const int exponent = (int)((__float_as_uint(e * scale) >> 23) & 0xffu) - 127;
+  return min(max(-exponent, 0), GEN_KEY_BUCKETS - 1);
+}
+
+// A CTA's work: T consecutive tiles of CTA_THREADS lanes, whose per-tile
+// dead counts are the FIFO ranks' unit as before.  Every CTA computes the
+// same T from the launch's expected density; CTA c runs the tiles [c, c +
+// T) when T divides c and returns at once otherwise.  Shared memory of the
+// prologue and the exit count.
+struct GenShared {
+  int live_ids[GEN_MAX_TILES * CTA_THREADS];   // the CTA's live lanes, in run order
+  int dead_cnt[GEN_MAX_TILES][CTA_WARPS];      // dead lanes at entry per (tile, warp)
+  int live_cnt[GEN_MAX_TILES][CTA_WARPS];      // live lanes after the refill per (tile, warp)
+  int tile_alive[GEN_MAX_TILES];               // lanes alive at exit per tile
+  int below[CTA_WARPS];                        // dead lanes in the tiles below the CTA's
+  int sample[CTA_WARPS];                       // sampled dead counts
+  int bucket_cnt[CTA_WARPS][GEN_KEY_BUCKETS];  // live lanes per (warp, key bucket), T = 1
+  int tiles;                                   // T
+  int n_live;                                  // live lanes after the refill
+  int next_chunk;                              // the next chunk of 32 live lanes to run
+};
+
+// The block's prologue for the CTA (see the header).  First T, the same in
+// every CTA: about CTA_THREADS live lanes a working CTA after the refill,
+// T = n_lanes / n_live clipped to [1, GEN_MAX_TILES], n_live estimated from
+// the last launch's dead counts of up to CTA_THREADS tiles spread over the
+// grid (each thread reads one) and the refill's share of the budget.  T
+// changes which thread runs a lane, never what the lane computes.  Then,
+// for a working CTA's tiles [tile0, tile0 + nt): the FIFO rank, the loop's
+// control state, a fresh photon in each dead lane that the budget still
+// covers, and the compaction: the live lanes' ids, tile by tile and in lane
+// order within a tile, onto sh.live_ids[0, sh.n_live); in ray tracing with
+// one tile (rt), ordered by the key bucket of the lane's cell
+// (rt_bucket) and by lane id within a bucket.  Returns nt, 0 for a CTA
+// that does not work.  Every thread of the CTA calls it.  Not inlined: its
+// registers stay out of the event loop's.
+static __device__ __noinline__ int general_prologue(const GeneralParams& p, float* f, int* iv,
+                                                   bool rt, GenShared& sh) {
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const unsigned below_me = (1u << wl) - 1u;
+  const size_t L = (size_t)p.n_lanes;
+  const int n_tiles = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
+  const int tile0 = blockIdx.x;
   const long long launched = p.ctl[p.kb & 1u];
+  const int* dead_in = p.dead + (size_t)(p.kb & 1u) * n_tiles;
+  // The first tile's alive flag and the density sample, read together.
+  const int lane0 = tile0 * CTA_THREADS + t;
+  const int first_alive = lane0 < p.n_lanes ? iv[lane0] : 0;
+  const int n_sample = min(n_tiles, CTA_THREADS);
+  int d = t < n_sample ? dead_in[(int)(((long long)t * n_tiles) / n_sample)] : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(FULL_MASK, d, o);
+  if (wl == 0) sh.sample[warp] = d;
+  __syncthreads();
+  if (t == 0) {
+    long long sampled = 0;
+#pragma unroll
+    for (int w = 0; w < CTA_WARPS; ++w) sampled += sh.sample[w];
+    const long long dead = sampled * n_tiles / n_sample;
+    const long long room = p.n_photons - launched;
+    const long long refill = room > 0 ? (dead < room ? dead : room) : 0;
+    const long long live = (long long)p.n_lanes - dead + refill;
+    const long long tiles = live > 0 ? (long long)p.n_lanes / live : GEN_MAX_TILES;
+    sh.tiles = (int)(tiles < 1 ? 1 : (tiles > GEN_MAX_TILES ? GEN_MAX_TILES : tiles));
+  }
+  __syncthreads();
+  if (tile0 % sh.tiles != 0) return 0;
+  const int nt = min(sh.tiles, n_tiles - tile0);
+  const bool last = tile0 + nt == n_tiles;
   const bool budget = launched < p.n_photons;
-  const bool last = blockIdx.x == gridDim.x - 1;
-  const bool dead = in_range && !alive0;
-  const unsigned dead_mask = __ballot_sync(FULL_MASK, dead);
-  if (wl == 0) warp_dead[warp] = __popc(dead_mask);
+  if (t < GEN_MAX_TILES) sh.tile_alive[t] = 0;
+  if (t == 0) sh.next_chunk = 0;
+  // The alive flags of the thread's slot in each tile, one bit per tile.
+  unsigned alive_bits = 0, range_bits = 0;
+  for (int j = 0; j < nt; ++j) {
+    const int lane = (tile0 + j) * CTA_THREADS + t;
+    const bool in_range = lane < p.n_lanes;
+    const bool a = in_range && (j == 0 ? first_alive : iv[lane]) != 0;
+    alive_bits |= (a ? 1u : 0u) << j;
+    range_bits |= (in_range ? 1u : 0u) << j;
+    const unsigned dm = __ballot_sync(FULL_MASK, in_range && !a);
+    if (wl == 0) sh.dead_cnt[j][warp] = __popc(dm);
+  }
+  // The dead lanes below the CTA's tiles, from the last launch's counts
+  // (once the budget is spent only the last CTA needs them).
+  int below = 0;
   if (budget || last) {
-    const int* dead_in = p.dead + (size_t)(p.kb & 1u) * gridDim.x;
-    int below = 0;
-    for (int k = t; k < (int)blockIdx.x; k += CTA_THREADS) below += dead_in[k];
+    for (int k = t; k < tile0; k += CTA_THREADS) below += dead_in[k];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) below += __shfl_xor_sync(FULL_MASK, below, o);
-    if (wl == 0 && below) atomicAdd(&cta_sum[0], below);
   }
+  if (wl == 0) sh.below[warp] = below;
   __syncthreads();
-  int rank = __popc(dead_mask & ((1u << wl) - 1u)), cta_dead = 0;
+  // Refill: the dead lane in slot t of tile j takes photon launched + its
+  // rank among the grid's dead lanes.
+  long long base = launched;
 #pragma unroll
-  for (int w = 0; w < CTA_WARPS; ++w) {
-    const int c = warp_dead[w];
-    rank += w < warp ? c : 0;
-    cta_dead += c;
+  for (int w = 0; w < CTA_WARPS; ++w) base += sh.below[w];
+  for (int j = 0; j < nt; ++j) {
+    int rank = 0, tile_dead = 0;
+#pragma unroll
+    for (int w = 0; w < CTA_WARPS; ++w) {
+      const int c = sh.dead_cnt[j][w];
+      rank += w < warp ? c : 0;
+      tile_dead += c;
+    }
+    const bool dead = ((range_bits & ~alive_bits) >> j) & 1u;
+    const unsigned dm = __ballot_sync(FULL_MASK, dead);
+    rank += __popc(dm & below_me);
+    if (dead && budget && base + rank < p.n_photons) {
+      const int lane = (tile0 + j) * CTA_THREADS + t;
+      float v[6];
+      source_sample(p.src, p.kb, p.key0, p.key1, lane, v);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) f[k * L + lane] = v[k];
+      f[6 * L + lane] = 1.0f;
+      iv[4 * L + lane] = 0;
+      if (rt) {
+        const Grid& g = p.fine;
+        iv[1 * L + lane] = locate(v[0], g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+        iv[2 * L + lane] = locate(v[1], g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+        iv[3 * L + lane] = locate(v[2], g.z0, g.dz, g.ze, g.nz, g.z_regular);
+      }
+      iv[lane] = 1;
+      alive_bits |= 1u << j;
+    }
+    base += tile_dead;
+    const unsigned lm = __ballot_sync(FULL_MASK, (alive_bits >> j) & 1u);
+    if (wl == 0) sh.live_cnt[j][warp] = __popc(lm);
   }
-  const long long base = launched + cta_sum[0];
   if (last && t == 0) {
-    const long long total_dead = (long long)cta_sum[0] + cta_dead;
+    // base - launched: the grid's dead lanes at entry.
+    const long long total_dead = base - launched;
     const long long room = p.n_photons - launched;
     p.ctl[(p.kb + 1u) & 1u] = launched + (budget ? (total_dead < room ? total_dead : room) : 0);
     if (!budget && p.ctl[3] < 0) p.ctl[3] = (long long)p.kb;
     if (!budget && total_dead == (long long)p.n_lanes && p.ctl[2] < 0)
       p.ctl[2] = (long long)p.kb;
   }
-  if (dead && budget && base + rank < p.n_photons) {
-    float v[6];
-    source_sample(p.src, p.kb, p.key0, p.key1, lane0, v);
+  __syncthreads();
+  if (rt && nt == 1) {
+    // One tile in ray tracing: a counting sort of the live lanes by bucket.
+    const int lane = tile0 * CTA_THREADS + t;
+    const bool live = alive_bits & 1u;
+    const int b = live ? rt_bucket(p, iv, lane) : 0;
+    int rank = 0;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) f[k * L + lane0] = v[k];
-    f[6 * L + lane0] = 1.0f;
-    iv[4 * L + lane0] = 0;
-    if (locate_cell) {
-      const Grid& g = p.fine;
-      iv[1 * L + lane0] = locate(v[0], g.x0, g.dx, g.xe, g.nx, g.xy_regular);
-      iv[2 * L + lane0] = locate(v[1], g.y0, g.dy, g.ye, g.ny, g.xy_regular);
-      iv[3 * L + lane0] = locate(v[2], g.z0, g.dz, g.ze, g.nz, g.z_regular);
+    for (int k = 0; k < GEN_KEY_BUCKETS; ++k) {
+      const unsigned m = __ballot_sync(FULL_MASK, live && b == k);
+      if (wl == 0) sh.bucket_cnt[warp][k] = __popc(m);
+      if (b == k) rank = __popc(m & below_me);
     }
-    iv[lane0] = 1;
-    alive0 = 1;
+    __syncthreads();
+    int n_live = 0;
+#pragma unroll
+    for (int w = 0; w < CTA_WARPS; ++w) {
+#pragma unroll
+      for (int k = 0; k < GEN_KEY_BUCKETS; ++k) {
+        const int c = sh.bucket_cnt[w][k];
+        n_live += c;
+        rank += (k < b || (k == b && w < warp)) ? c : 0;
+      }
+    }
+    if (live) sh.live_ids[rank] = lane;
+    if (t == 0) sh.n_live = n_live;
+    __syncthreads();
+    return nt;
   }
-  return alive0;
+  // Compaction: the slot of a live lane among the CTA's live lanes.
+  int pos = 0;
+  for (int j = 0; j < nt; ++j) {
+    int before = 0, in_tile = 0;
+#pragma unroll
+    for (int w = 0; w < CTA_WARPS; ++w) {
+      const int c = sh.live_cnt[j][w];
+      before += w < warp ? c : 0;
+      in_tile += c;
+    }
+    const bool live = (alive_bits >> j) & 1u;
+    const unsigned lm = __ballot_sync(FULL_MASK, live);
+    if (live) sh.live_ids[pos + before + __popc(lm & below_me)] = (tile0 + j) * CTA_THREADS + t;
+    pos += in_tile;
+  }
+  if (t == 0) sh.n_live = pos;
+  __syncthreads();
+  return nt;
+}
+
+// One lane's K events: its state loaded, the events run, the state stored,
+// and the lane counted in its tile's survivors.  Inlined at both of the
+// kernel's call sites.
+template <int MODE, bool UNI, bool REFL, bool BERN>
+__device__ __forceinline__ void general_lane(const GeneralParams& p, float* __restrict__ f,
+                                             int* __restrict__ iv, int lane, GenShared& sh) {
+  const size_t L = (size_t)p.n_lanes;
+  GLane s;
+  s.x = f[lane];
+  s.y = f[L + lane];
+  s.z = f[2 * L + lane];
+  s.ux = f[3 * L + lane];
+  s.uy = f[4 * L + lane];
+  s.uz = f[5 * L + lane];
+  s.w = f[6 * L + lane];
+  s.alive = 1;
+  s.ix = iv[L + lane];
+  s.iy = iv[2 * L + lane];
+  s.iz = iv[3 * L + lane];
+  s.order = iv[4 * L + lane];
+  s.bad = iv[5 * L + lane];
+  s.evct = iv[6 * L + lane];
+  s.xing = iv[7 * L + lane];
+  const int G = (p.n_draws + 3) / 4;
+#pragma unroll 1
+  for (int j = 0; j < p.K && s.alive; ++j) {
+    float u[GEN_MAX_DRAWS];
+#pragma unroll
+    for (int g = 0; g < GEN_MAX_DRAWS / 4; ++g) {
+      uint32_t w4[4] = {0u, 0u, 0u, 0u};
+      if (g < G)
+        philox4x32_10((uint32_t)lane, p.kb, (uint32_t)(j * G + g), STREAM_EVENT, p.key0,
+                      p.key1, w4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u[4 * g + q] = to_unit(w4[q]);
+    }
+    general_event<MODE, UNI, REFL, BERN>(p, u, s);
+  }
+  f[lane] = s.x;
+  f[L + lane] = s.y;
+  f[2 * L + lane] = s.z;
+  f[3 * L + lane] = s.ux;
+  f[4 * L + lane] = s.uy;
+  f[5 * L + lane] = s.uz;
+  f[6 * L + lane] = s.w;
+  iv[lane] = s.alive;
+  iv[L + lane] = s.ix;
+  iv[2 * L + lane] = s.iy;
+  iv[3 * L + lane] = s.iz;
+  iv[4 * L + lane] = s.order;
+  iv[5 * L + lane] = s.bad;
+  iv[6 * L + lane] = s.evct;
+  iv[7 * L + lane] = s.xing;
+  if (s.alive) atomicAdd(&sh.tile_alive[lane / CTA_THREADS - (int)blockIdx.x], 1);
 }
 
 // State layout (kernels/general_block.py GeneralState), updated in place:
 //   f: (7, L) float32 rows x, y, z, ux, uy, uz, w
 //   i: (8, L) int32   rows alive, ix, iy, iz, order, bad, evct, xing (DDA steps)
+// One CTA per tile.  After the prologue a working CTA runs its list's live
+// lanes through their K events: with one tile (T = 1, at most CTA_THREADS
+// live lanes) thread t runs lane t of the list; with more, each warp takes
+// the next chunk of 32 live lanes from a shared counter until none is left
+// (about one a warp: T is chosen so).  Two call sites of general_lane: the
+// loop's registers stay out of the dense blocks' code.  The refill's stores
+// of a revived lane reach the thread that runs it through the prologue's
+// __syncthreads.  4 CTAs per SM: without the bound the ray-tracing
+// instantiations over a reflecting surface take 73-79 registers since the
+// lanes are compacted (3 CTAs); with it every one takes <= 64 and spills
+// nothing (ptxas, H100 build).
 template <int MODE, bool UNI, bool REFL, bool BERN>
-__global__ void __launch_bounds__(CTA_THREADS)
+__global__ void __launch_bounds__(CTA_THREADS, GEN_CTAS_PER_SM)
 general_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
                            const __grid_constant__ GeneralParams p) {
-  __shared__ int warp_dead[CTA_WARPS];
-  __shared__ int cta_sum[2];      // dead lanes below this CTA; lanes alive at exit
+  __shared__ GenShared sh;
   const int t = threadIdx.x, wl = t & 31;
-  const int lane = blockIdx.x * CTA_THREADS + t;
-  const size_t L = (size_t)p.n_lanes;
-  const int alive0 = general_refill(p, f, iv, MODE == MODE_RT, warp_dead, cta_sum);
-  if (t == 0) cta_sum[1] = 0;
-  __syncthreads();
-  int alive_out = 0;
-  if (alive0) {
-    GLane s;
-    s.x = f[lane];
-    s.y = f[L + lane];
-    s.z = f[2 * L + lane];
-    s.ux = f[3 * L + lane];
-    s.uy = f[4 * L + lane];
-    s.uz = f[5 * L + lane];
-    s.w = f[6 * L + lane];
-    s.alive = 1;
-    s.ix = iv[L + lane];
-    s.iy = iv[2 * L + lane];
-    s.iz = iv[3 * L + lane];
-    s.order = iv[4 * L + lane];
-    s.bad = iv[5 * L + lane];
-    s.evct = iv[6 * L + lane];
-    s.xing = iv[7 * L + lane];
-    const int G = (p.n_draws + 3) / 4;
+  if (general_prologue(p, f, iv, MODE == MODE_RT, sh) == 0) return;
+  // n_live, T and the CTA's tiles are read from shared memory and the
+  // parameters where they are used: no register holds them over the events.
+  if (sh.tiles == 1) {
+    if (t < sh.n_live) general_lane<MODE, UNI, REFL, BERN>(p, f, iv, sh.live_ids[t], sh);
+  } else {
 #pragma unroll 1
-    for (int j = 0; j < p.K && s.alive; ++j) {
-      float u[GEN_MAX_DRAWS];
-#pragma unroll
-      for (int g = 0; g < GEN_MAX_DRAWS / 4; ++g) {
-        uint32_t w4[4] = {0u, 0u, 0u, 0u};
-        if (g < G)
-          philox4x32_10((uint32_t)lane, p.kb, (uint32_t)(j * G + g), STREAM_EVENT, p.key0,
-                        p.key1, w4);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) u[4 * g + k] = to_unit(w4[k]);
-      }
-      general_event<MODE, UNI, REFL, BERN>(p, u, s);
+    for (;;) {
+      int chunk = 0;
+      if (wl == 0) chunk = atomicAdd(&sh.next_chunk, 1);
+      chunk = __shfl_sync(FULL_MASK, chunk, 0);
+      if (chunk * 32 >= sh.n_live) break;
+      const int k = chunk * 32 + wl;
+      if (k < sh.n_live) general_lane<MODE, UNI, REFL, BERN>(p, f, iv, sh.live_ids[k], sh);
     }
-    f[lane] = s.x;
-    f[L + lane] = s.y;
-    f[2 * L + lane] = s.z;
-    f[3 * L + lane] = s.ux;
-    f[4 * L + lane] = s.uy;
-    f[5 * L + lane] = s.uz;
-    f[6 * L + lane] = s.w;
-    iv[lane] = s.alive;
-    iv[L + lane] = s.ix;
-    iv[2 * L + lane] = s.iy;
-    iv[3 * L + lane] = s.iz;
-    iv[4 * L + lane] = s.order;
-    iv[5 * L + lane] = s.bad;
-    iv[6 * L + lane] = s.evct;
-    iv[7 * L + lane] = s.xing;
-    alive_out = s.alive;
   }
-  const int n_alive = __popc(__ballot_sync(FULL_MASK, alive_out != 0));
-  if (wl == 0 && n_alive) atomicAdd(&cta_sum[1], n_alive);
   __syncthreads();
-  if (t == 0) {
-    // The CTA's dead lanes at exit: the next launch's FIFO ranks.
-    const int n_here = min(CTA_THREADS, p.n_lanes - (int)blockIdx.x * CTA_THREADS);
-    p.dead[(size_t)((p.kb + 1u) & 1u) * gridDim.x + blockIdx.x] = n_here - cta_sum[1];
+  const int n_tiles = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
+  if ((int)threadIdx.x < min(sh.tiles, n_tiles - (int)blockIdx.x)) {
+    // Each tile's dead lanes at exit: the next launch's FIFO ranks.
+    const int tile = blockIdx.x + threadIdx.x;
+    const int n_here = min(CTA_THREADS, p.n_lanes - tile * CTA_THREADS);
+    p.dead[(size_t)((p.kb + 1u) & 1u) * n_tiles + tile] = n_here - sh.tile_alive[threadIdx.x];
   }
 }

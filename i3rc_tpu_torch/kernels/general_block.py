@@ -61,6 +61,9 @@ ALBEDO = 1                       # surface kinds: 0 black, 1 albedo, then BRDF_K
 MAX_BRDF_PARAMS = 4
 GENERAL_K = 8                    # events per launch
 MAX_DRAWS = 8                    # the kernel's draw registers per event
+MAX_TILES = 16                   # the kernel's GEN_MAX_TILES: tiles of CTA_THREADS lanes a CTA
+KEY_BUCKETS = 4                  # the kernel's GEN_KEY_BUCKETS: buckets of the key (lane_keys)
+KEY_LIFT = 1.0 + 2.0 ** -10      # the key's scale over inv_max_ext (lane_keys)
 
 # Rows of GeneralState.f and GeneralState.i.
 X, Y, Z, UX, UY, UZ, W = range(7)
@@ -222,9 +225,10 @@ class GeneralState:
 class GeneralBuffers:
     """What a trace carries between blocks besides the lane state: the
     float64 ``columns`` (n_cols, 3: up, down, absorbed) and ``vol``
-    (n_cells, or empty) tallies, and the loop control of
+    (n_cells, or empty) tallies, the loop control of
     ``event_block.BlockBuffers``: ``ctl`` int64 (4,) (launched at kb & 1,
-    DONE, SPENT) and ``dead`` int32 (2, n_ctas)."""
+    DONE, SPENT) and ``dead`` int32 (2, n_tiles) (dead lanes per tile of
+    CTA_THREADS lanes)."""
 
     columns: torch.Tensor
     vol: torch.Tensor
@@ -283,13 +287,18 @@ def general_buffers(spec: GeneralSpec, state: GeneralState, launched: int,
 
 def general_block_reference(spec: GeneralSpec, var: Variant, opt: DeviceOptics,
                             tables: DeviceTables, state: GeneralState, buf: GeneralBuffers,
-                            key: PhiloxKey, source: PhotonSource, kb: int) -> None:
+                            key: PhiloxKey, source: PhotonSource, kb: int,
+                            record: dict | None = None) -> None:
     """Plain PyTorch version of one block: the loop's end condition as seen
     at entry, the FIFO refill (while the batch has more photons than
     lanes: dead lane l takes photon launched + its rank among the dead
     lanes, with the source sample at (l, kb, group, STREAM_REFILL)), then the
     K events of ``wavefront.general_event`` and the next block's CTA dead
-    counts, all in place on ``state`` and ``buf``."""
+    counts, all in place on ``state`` and ``buf``.  ``record``, a dict,
+    receives what ``warp_census`` reads: ``entry``, a copy of the state
+    after the refill, and per event the lanes alive at its start
+    (``alive``, (K, L) bool) and the DDA steps each lane took in it
+    (``steps``, (K, L) int32)."""
     ctl = buf.ctl
     f, i = state.f, state.i
     L = state.n_lanes
@@ -311,12 +320,157 @@ def general_block_reference(spec: GeneralSpec, var: Variant, opt: DeviceOptics,
     s = {n: f[r] for r, n in enumerate(names)}
     s.update(alive=i[ALIVE] != 0, ix=i[IX], iy=i[IY], iz=i[IZ], order=i[ORDER], bad=i[BAD],
              evct=i[EVCT], xing=i[XING].clone())
+    if record is not None:
+        record["entry"] = state.clone()
+        alive_rows, step_rows = [], []
     for j in range(spec.K):
+        if record is not None:
+            alive_rows.append(s["alive"].clone())
+            xing0 = s["xing"].clone()
         general_event(spec, var, opt, tables, u[j], s, buf.columns, buf.vol)
+        if record is not None:
+            step_rows.append(s["xing"] - xing0)
+    if record is not None:
+        record["alive"], record["steps"] = torch.stack(alive_rows), torch.stack(step_rows)
     f.copy_(torch.stack([s[n] for n in names]))
     i.copy_(torch.stack([s["alive"].to(torch.int32), s["ix"], s["iy"], s["iz"], s["order"],
                          s["bad"], s["evct"], s["xing"]]))
     buf.dead[(kb + 1) & 1] = cta_dead_counts(i[ALIVE])
+
+
+# ---------------------------------------------------------------------------
+# The kernel's lane order, and the warp census of an order
+
+def cta_tiles(n_lanes: int, n_live: int) -> int:
+    """T, the tiles of CTA_THREADS lanes a working CTA of the kernel runs
+    (``general_prologue`` in csrc/general_event_block.cuh), for ``n_live``
+    lanes alive after the refill: about CTA_THREADS live lanes a CTA,
+    n_lanes // n_live within [1, MAX_TILES].  The kernel estimates n_live
+    from a sample of the tiles' dead counts; here it is exact."""
+    return min(max(n_lanes // n_live, 1), MAX_TILES) if n_live > 0 else MAX_TILES
+
+
+def lane_keys(spec: GeneralSpec, opt: DeviceOptics, state: GeneralState,
+              n_buckets: int = KEY_BUCKETS) -> torch.Tensor:
+    """int32 (L,): the bucket of each lane's expected DDA length at block
+    entry, the key of the census's grouped order and, in ray tracing, of the
+    kernel's order on one tile (``rt_bucket``; the Woodcock key cost the
+    card 7% per Landsat batch and is not built, PERF.md): the extinction of
+    the lane's cell (ray tracing) or the majorant of its coarse block
+    (Woodcock), r = e * (inv_max_ext * (1 + 2^-10)) in float32 (the factor
+    lifts the largest e, whose r may round below 1, into bucket 0), bucket
+    min(-floor(log2 r), n_buckets - 1) from r's float32 exponent (0 for the
+    densest, n_buckets - 1 for r < 2^-(n_buckets - 1) and r = 0); every
+    lane 0 under maximum cross-section (no DDA) and with one bucket."""
+    L = state.n_lanes
+    if spec.mode == MAXCS or n_buckets == 1:
+        return torch.zeros(L, dtype=torch.int32, device=state.f.device)
+    inv_max_ext = variant(spec, opt).inv_max_ext
+    if spec.mode == RT:
+        g = spec.geom
+        flat = ((state.i[IX] * g.n_y + state.i[IY]) * g.n_z + state.i[IZ]).clamp(0, g.n_cells - 1)
+        e = opt.total_ext[flat.long()]
+    else:
+        c = spec.coarse
+        flat = (c.locate_x(state.f[X]) * c.n_y + c.locate_y(state.f[Y])) * c.n_z \
+            + c.locate_z(state.f[Z])
+        e = opt.block_majorant[flat.long()]
+    scale = torch.tensor(inv_max_ext, dtype=torch.float32) * torch.tensor(KEY_LIFT,
+                                                                         dtype=torch.float32)
+    r = e * scale.to(e.device)
+    exponent = ((r.view(torch.int32) >> 23) & 0xFF) - 127
+    return (-exponent).clamp(0, n_buckets - 1).to(torch.int32)
+
+
+def lane_order(alive: torch.Tensor, bucket: torch.Tensor | None = None,
+               n_buckets: int = 1, tiles: int = 1) -> torch.Tensor:
+    """int64 (n_ctas * tiles * CTA_THREADS,): the lane in each slot of the
+    CTAs' live-lane lists, -1 for an empty slot; slots 32k to 32k + 31 of a
+    CTA are the chunk one warp runs.  A CTA holds ``tiles`` tiles of
+    CTA_THREADS lanes, its live lanes packed onto its first slots in lane
+    order or, with ``bucket``, ordered by bucket (a counting sort into
+    ``n_buckets``) and by lane id within one.  The kernel's order is the
+    grouped one in ray tracing on one tile, else the compaction over
+    ``cta_tiles`` tiles."""
+    L = alive.shape[0]
+    dev = alive.device
+    span = tiles * CTA_THREADS
+    n_slots = -(-L // span) * span
+    live = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    live[:L] = alive.bool()
+    b = torch.zeros(n_slots, dtype=torch.int64, device=dev)
+    if bucket is not None:
+        b[:L] = bucket.long().clamp(0, n_buckets - 1)
+    lanes = torch.arange(n_slots, device=dev)
+    rank = (lanes // span) * (n_buckets + 1) + torch.where(live, b, n_buckets)
+    _, perm = torch.sort(rank, stable=True)
+    return torch.where(live[perm], perm, -1)
+
+
+def identity_order(L: int, device=None) -> torch.Tensor:
+    """The thread slots of the first design: thread l runs lane l."""
+    n_slots = -(-L // CTA_THREADS) * CTA_THREADS
+    lanes = torch.arange(n_slots, device=device)
+    return torch.where(lanes < L, lanes, -1)
+
+
+def warp_census(steps: torch.Tensor, alive: torch.Tensor, order: torch.Tensor,
+                sparse_lanes: int = 8) -> dict:
+    """How well the warps of an order use their lanes over one block's
+    events.  ``steps`` (K, L) DDA steps per lane and event, ``alive`` (K, L)
+    the lanes alive at each event's start (``general_block_reference``'s
+    record), ``order`` the lane of each thread slot (-1 idle).  A warp
+    makes an event's trip while any of its lanes is alive, and its DDA loop
+    runs as long as its longest lane's.  Returns ``trips`` (warp-event
+    trips), ``warp_steps`` (the sum over trips of the longest lane's
+    steps), ``lane_steps`` and ``lane_events`` (the sums over lanes),
+    ``dda_efficiency`` = lane_steps / (32 warp_steps),
+    ``event_efficiency`` = lane_events / (32 trips), and ``sparse_share``,
+    the share of trips with at most ``sparse_lanes`` live lanes."""
+    valid = order >= 0
+    idx = order.clamp(min=0)
+    a = alive[:, idx] & valid                                  # (K, n_slots)
+    st = torch.where(a, steps[:, idx], 0)
+    K = a.shape[0]
+    a = a.view(K, -1, 32)
+    st = st.view(K, -1, 32)
+    live = a.sum(dim=2)
+    trip = live > 0
+    trips = int(trip.sum())
+    warp_steps = int(st.max(dim=2).values.sum())
+    lane_steps = int(st.sum())
+    lane_events = int(live.sum())
+    return {"trips": trips, "warp_steps": warp_steps, "lane_steps": lane_steps,
+            "lane_events": lane_events,
+            "dda_efficiency": lane_steps / (32 * warp_steps) if warp_steps else float("nan"),
+            "event_efficiency": lane_events / (32 * trips) if trips else float("nan"),
+            "sparse_share": int((trip & (live <= sparse_lanes)).sum()) / trips
+            if trips else float("nan")}
+
+
+def census_orders(spec: GeneralSpec, opt: DeviceOptics, record: dict,
+                  buckets=(2, KEY_BUCKETS, 8), tiles: int | None = None) -> dict:
+    """``warp_census`` of one recorded block under (a) the first design's
+    identity order (``identity``), (b) the compaction within each tile of
+    CTA_THREADS lanes (``compact``), (c) (b) grouped by ``lane_keys``
+    (``grouped_<n>`` for each bucket count n; not under maximum cross-
+    section, which has no key), and the kernel's order, the compaction over
+    groups of ``tiles`` tiles (``compact_tiles``; default ``cta_tiles`` of
+    the block; only when more than one)."""
+    entry = record["entry"]
+    alive0 = entry.i[ALIVE] != 0
+    steps, alive = record["steps"], record["alive"]
+    if tiles is None:
+        tiles = cta_tiles(entry.n_lanes, int(alive0.sum()))
+    out = {"identity": warp_census(steps, alive, identity_order(entry.n_lanes, alive0.device)),
+           "compact": warp_census(steps, alive, lane_order(alive0))}
+    if tiles > 1:
+        out["compact_tiles"] = warp_census(steps, alive, lane_order(alive0, tiles=tiles))
+    if spec.mode != MAXCS:
+        for n in buckets:
+            out[f"grouped_{n}"] = warp_census(
+                steps, alive, lane_order(alive0, lane_keys(spec, opt, entry, n), n))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -194,12 +194,36 @@ def need_card():
     return torch.device("cuda")
 
 
+# Live lanes of a sparse state's tiles of 256 lanes, tile c taking entry c % 7.
+SPARSE_LIVE = (0, 1, 31, 32, 33, 256, 97)
+
+
+def sparse(spec, st, launched: int, kb: int):
+    """A state built from ``st``: tile c of 256 lanes keeps SPARSE_LIVE[c %
+    7] of its lanes alive at seeded slots (the last tile is partial), the
+    others dead; its buffers with ``launched`` photons launched."""
+    L = st.n_lanes
+    rng = np.random.default_rng(7)
+    live = np.zeros(L, bool)
+    for c in range(-(-L // 256)):
+        lo, hi = 256 * c, min(L, 256 * (c + 1))
+        live[lo + rng.choice(hi - lo, min(SPARSE_LIVE[c % 7], hi - lo), replace=False)] = True
+    out = st.clone()
+    out.i[gb.ALIVE] = torch.as_tensor(live, device=st.f.device).to(torch.int32)
+    return out, gb.general_buffers(spec, out, launched, kb)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("state", ["mid", "sparse", "sparse_refill"])
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_general_kernel_matches_reference_on_gpu(mode):
+def test_general_kernel_matches_reference_on_gpu(mode, state):
     """One block of the CUDA kernel against its plain version, two blocks
-    into a trace of the absorbing step cloud over an albedo: the lane state,
-    control state and dead counts bit for bit, the tallies within 1e-9."""
+    into a trace of the absorbing step cloud over an albedo (``mid``), and
+    on that state made sparse: tiles of 0, 1, 31, 32, 33, 256 and 97 live
+    lanes and a partial last tile, with the budget spent (the kernel runs
+    several tiles a CTA) and with 300 photons left to refill.  The lane
+    state, control state and dead counts bit for bit, the tallies within
+    1e-9."""
     dev = need_card()
     cfg = IntegratorConfig(max_events=500, use_fastpath=False, **MODES[mode])
     integ = Integrator.create(make_step_cloud(0.99), cfg, surface_albedo=0.2, device=dev)
@@ -212,6 +236,8 @@ def test_general_kernel_matches_reference_on_gpu(mode):
     buf = gb.general_buffers(spec, st, L)
     for kb in range(2):
         gb.general_block(spec, var, opt, tables, st, buf, key, SRC, kb)
+    if state != "mid":
+        st, buf = sparse(spec, st, 4 * L - (300 if state == "sparse_refill" else 0), 2)
     ref_st, ref_buf = st.clone(), buf.clone()
     gb.general_block(spec, var, opt, tables, st, buf, key, SRC, 2)
     gb.general_block_reference(spec, var, opt, tables, ref_st, ref_buf, key, SRC, 2)
