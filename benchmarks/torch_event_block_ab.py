@@ -25,7 +25,22 @@ process, it runs every build on identical inputs, alternating the builds
   step-cloud and Landsat-general rows (device ms per launch, each build
   bit-equal to the twin), then G's device time summed over one batch of
   phase 27 (the step cloud by ray tracing, 2^24 photons at 2^20 lanes) and
-  of phase 28 (Landsat general, 2^21), by the profiler.
+  of phase 28 (Landsat general, 2^21), by the profiler.  A build of
+  another commit's ``csrc`` (PR 9's, without the detector set) runs here if
+  its parameter block is a prefix of this checkout's (the detectors'
+  fields were appended): its library is built from the sources it has and
+  given the flux cases only.
+* estimate: G with detectors (its ``general_estimate`` stage) of each
+  build on ``chip_smoke.py`` phase 32's path (a) scene (the step cloud
+  through the default configuration with the I3RC detectors, 2^22 photons
+  at 2^20 lanes): its mid-flight and tail blocks (device ms per launch,
+  each build's state bit-equal to the twin's; the tallies too for this
+  checkout's build) and one batch by the profiler.  A copy of ``csrc``
+  whose estimate stage adds nothing to the tallies (the ``tally_add``
+  calls of ``general_estimate`` removed: a build for this measurement
+  only) gives the tally's share.  The other builds' lane state and
+  estimate steps are held to the twin's; their tallies and ray counts are
+  not (an earlier commit's build has no ray counts).
 * rates: the end-to-end photons/s of the four slices (step-cloud flux and
   radiance, broadband, Landsat, timed as ``chip_smoke.py`` phases 5, 9, 13
   and 16 time them) and of the two general paths (phases 27 and 28, with
@@ -51,6 +66,7 @@ root:
     python3 benchmarks/torch_event_block_ab.py --build minctas=build/ab/minctas/csrc
     python3 benchmarks/torch_event_block_ab.py --parts rates --tree parent=build/ab/parent
     python3 benchmarks/torch_event_block_ab.py --parts general --build compact=build/ab/compact/csrc
+    python3 benchmarks/torch_event_block_ab.py --parts estimate --build notally=build/ab/notally/csrc
 """
 
 from __future__ import annotations
@@ -86,28 +102,49 @@ BLOCK_CASES = [("flux_K8", dict(ssa=1.0)),
                ("column_K32_chain0_ssa0.99", dict(ssa=0.99, chain=0, K=32)),
                ("column_K8_chain2", dict(ssa=1.0, chain=2, K=8))]
 
-_BUILD_ONE = ("import sys; from pathlib import Path; "
+_GENERAL_SOURCES = ("general_event_block.cu", "general_event_block_det.cu")
+
+
+def general_library():
+    """The general library of ``kbuild.CSRC`` from the sources it has, its C
+    function declared as ``general_block.build`` declares it; another
+    commit's parameter block must be a prefix of this checkout's."""
+    import ctypes
+
+    built = kbuild.build("general_event_block",
+                         tuple(s for s in _GENERAL_SOURCES if (kbuild.CSRC / s).exists()))
+    lib, vp, ci = built.lib, ctypes.c_void_p, ctypes.c_int
+    lib.i3rc_general_params_size.restype = ci
+    lib.i3rc_general_event_block.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.i3rc_general_event_block.restype = ci
+    if lib.i3rc_general_params_size() > ctypes.sizeof(gb._GeneralParams):
+        raise RuntimeError(f"{kbuild.CSRC}: its GeneralParams is not a prefix of this one")
+    return built
+
+
+_BUILD_FNS = {"event_block": eb.build, "general_block": general_library}
+_BUILD_ONE = ("import sys; from pathlib import Path; sys.path.insert(0, {root!r}); "
               "import i3rc_tpu_torch.kernels.build as kb; kb.CSRC = Path(sys.argv[1]); "
-              "import i3rc_tpu_torch.kernels.{0} as m; m.build()")
-_BUILD_FNS = {"event_block": eb.build, "general_block": gb.build}
+              "import benchmarks.torch_event_block_ab as ab; ab._BUILD_FNS[{module!r}]()")
 
 
 def build_all(dirs: dict, module: str = "event_block") -> dict:
     """{name: Built}: this checkout's library of ``module`` (event_block or
     general_block) and one per source directory, the others compiled in
     child processes while this one compiles."""
-    procs = {name: subprocess.Popen([sys.executable, "-c", _BUILD_ONE.format(module), str(d)],
+    code = _BUILD_ONE.format(root=str(ROOT), module=module)
+    procs = {name: subprocess.Popen([sys.executable, "-c", code, str(Path(d).resolve())],
                                     cwd=ROOT) for name, d in dirs.items()}
-    build_fn = _BUILD_FNS[module]
-    built = {"this": build_fn()}
+    built = {"this": eb.build() if module == "event_block" else gb.build()}
     for name, p in procs.items():
         if p.wait() != 0:
             raise RuntimeError(f"build {name} failed")
     own = kbuild.CSRC
     for name, d in dirs.items():
-        kbuild.CSRC = Path(d)
+        kbuild.CSRC = Path(d).resolve()
         try:
-            built[name] = build_fn.__wrapped__()      # the cached library of that build
+            # The cached library of that build.
+            built[name] = eb.build.__wrapped__() if module == "event_block" else general_library()
         finally:
             kbuild.CSRC = own
     return built
@@ -346,6 +383,83 @@ def general_ab(builds: dict, dev, card: str, cases) -> dict:
     return out
 
 
+def estimate_ab(builds: dict, dev, card: str) -> dict:
+    """G with detectors of each build: path (a)'s mid-flight and tail blocks
+    (chip_smoke.py phase 32's scene), then one batch of path (a), the
+    builds alternating; every build's lane state bit-equal to the twin's,
+    this checkout's tallies within 1e-9 of the twin's too."""
+    from i3rc_tpu_torch import Integrator, PhotonSource, batch_key, make_step_cloud
+
+    out = {"blocks": [], "batches": []}
+    names = list(builds)
+    use(builds["this"], gb)
+    src = PhotonSource.directional(0.5, 0.0)
+    n, L = cs.RAD_GENERAL_PHOTONS, cs.GENERAL_LANES
+    integ = Integrator.create(make_step_cloud(1.0), device=dev, intensity_mus=cs.DET_MUS,
+                              intensity_phis=cs.DET_PHIS)
+    tracer = integ.general_tracer(n, L)
+    spec, tables, opt = tracer.spec, integ.tables, integ.device_optics
+    var = gb.variant(spec, opt)
+    key = batch_key(cs.SEED, 990)
+    st = gb.launch_state(spec, src.sample(key, L, dev), n)
+    buf = gb.general_buffers(spec, st, min(L, n))
+    gb.general_block(spec, var, opt, tables, st, buf, key, src, 0)
+    states, kb = [("mid", st.clone(), buf.clone(), 1)], 1
+    while not (int(buf.ctl[kb & 1]) >= n and float(st.i[gb.ALIVE].float().mean()) <= 0.15):
+        gb.general_block(spec, var, opt, tables, st, buf, key, src, kb)
+        kb += 1
+    states.append(("tail", st.clone(), buf.clone(), kb))
+    for state, s0, b0, kb_s in states:
+        sr, br = s0.clone(), b0.clone()
+        gb.general_block_reference(spec, var, opt, tables, sr, br, key, src, kb_s)
+        run = lambda s, b: gb.general_block(spec, var, opt, tables, s, b, key, src, kb_s)
+        for bname in names:
+            use(builds[bname], gb)
+            sk, bk = s0.clone(), b0.clone()
+            run(sk, bk)
+            torch.cuda.synchronize()
+            cs.check(torch.equal(sk.f, sr.f) and torch.equal(sk.i, sr.i)
+                     and torch.equal(bk.int_steps, br.int_steps),
+                     f"G+estimate {state}: build {bname} differs from the twin")
+            if bname == "this":
+                err = float((bk.intensity - br.intensity).abs().max()) / float(br.intensity.max())
+                cs.check(err <= 1e-9 and torch.equal(bk.int_rays, br.int_rays),
+                         f"G+estimate {state}: tallies {err:.2e} or ray counts differ")
+        ms = {b: [] for b in names}
+        for r in range(ROUNDS):
+            for bname in order(names, r):
+                use(builds[bname], gb)
+                ms[bname].append(cs.general_block_ms(run, lambda: (s0.clone(), b0.clone()),
+                                                     10)[1])
+        out["blocks"].append({"state": state, "ms": ms,
+                              "alive": float(s0.i[gb.ALIVE].float().mean())})
+        for bname in names:
+            cs.say("ab estimate-block", state=state, build=bname,
+                   alive=f"{out['blocks'][-1]['alive']:.4f}",
+                   device_ms=",".join(f"{t:.4f}" for t in ms[bname]),
+                   device_ms_median=f"{statistics.median(ms[bname]):.4f}", card=json.dumps(card))
+    bkey = batch_key(cs.SEED, 995)
+    batch = lambda: tracer(bkey, src.sample(bkey, L, "cuda"), src)
+    batch()
+    torch.cuda.synchronize()
+    recs = {b: [] for b in names}
+    for r in range(2):
+        for bname in order(names, r):
+            use(builds[bname], gb)
+            pb = cs.profile_batch(batch, "general_event_block_kernel")
+            recs[bname].append({"block_ms": pb["block_ms"], "launches": pb["block_launches"],
+                                "host_ms": pb["wall_ms"]})
+    for bname in names:
+        out["batches"].append({"build": bname, "photons": n, "batches": recs[bname]})
+        cs.say("ab estimate-batch", build=bname, photons=n,
+               kernel_ms=",".join(f"{r['block_ms']:.3f}" for r in recs[bname]),
+               launches=recs[bname][0]["launches"],
+               host_ms=",".join(f"{r['host_ms']:.3f}" for r in recs[bname]),
+               card=json.dumps(card))
+    use(builds["this"], gb)
+    return out
+
+
 # One fresh process per measurement: the slices' photons/s, with the
 # package and the kernels of the tree the process runs in.
 _RATES = r"""
@@ -470,7 +584,8 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="another checkout's root, for the rates part")
     ap.add_argument("--parts", default="blocks,batches,broadband",
-                    help="comma-separated subset of blocks, batches, broadband, general, rates")
+                    help="comma-separated subset of blocks, batches, broadband, general, "
+                         "estimate, rates")
     ap.add_argument("--cases", default="",
                     help="comma-separated block and batch case names (default: all)")
     ap.add_argument("--out", default=str(ROOT / "build" / "event_block_ab.json"),
@@ -494,10 +609,13 @@ def main() -> int:
         builds = build_all(dirs)
         cs.say("ab builds", builds=",".join(builds), card=json.dumps(card))
     dev = torch.device("cuda", 0)
-    if "general" in parts:
+    if set(parts) & {"general", "estimate"}:
         gbuilds = build_all(dirs, "general_block")
         cs.say("ab general builds", builds=",".join(gbuilds), card=json.dumps(card))
+    if "general" in parts:
         result["general"] = general_ab(gbuilds, dev, card, cases)
+    if "estimate" in parts:
+        result["estimate"] = estimate_ab(gbuilds, dev, card)
     if "blocks" in parts:
         result["blocks"] = block_ab(builds, dev, card, cases)
     if "batches" in parts:

@@ -28,7 +28,13 @@ the default configuration, Landsat with the fastpath off against the
 Landsat fastpath, Beer-Lambert, the slab oracle and the closed forms of
 tests/general_oracles.py (a slab over an albedo, two components in the
 same cells, a gridded BRDF under a clear sky), the ray-tracing namelist
-through the driver and a traced spectral band) — and checks the physics.
+through the driver and a traced spectral band), and radiance on the
+general kernel (its local-estimate stage against its plain version on every
+estimator x mode x surface and the weight-1 class, then the step cloud's
+detectors through the default configuration, exact and with Iwabuchi
+roulette, bench.py's Woodcock radiance row, Landsat with 2 detectors by
+ratio tracking, vacuum over Cox-Munk and the radiance namelist with ray
+tracing) — and checks the physics.
 Every phase prints one line; any failed check raises and the script exits
 nonzero.  Run from the repository root:
 
@@ -1234,7 +1240,8 @@ def main() -> int:
     say("1 card", torch=torch.__version__, cuda=torch.version.cuda,
         device=json.dumps(torch.cuda.get_device_name(0)), smi=json.dumps(smi))
 
-    # 2. build: the fast and the general libraries, every nvcc process together
+    # 2. build: the fast and the general libraries, every nvcc process together,
+    # from the checkout's sources (a cached library brings its build's log)
     from concurrent.futures import ThreadPoolExecutor
 
     from i3rc_tpu_torch.kernels import general_block as gb
@@ -1244,15 +1251,18 @@ def main() -> int:
         built = eb.build()
         gbuilt = general_built.result()
     gptx = ptxas_general(gbuilt.log)
-    check(len(gptx) == 13, f"general kernel instantiations {sorted(gptx)}")
+    check(len(gptx) == 26, f"general kernel instantiations {sorted(gptx)}")
     say("2 build-general", seconds=f"{gbuilt.seconds:.1f}", library=gbuilt.path.name,
         instantiations=len(gptx),
-        **{k: "{registers}regs/{stack_bytes}B/{ctas_per_sm}cta".format(**v)
-           for k, v in sorted(gptx.items())})
-    # <= 64 registers keeps 4 CTAs of 256 threads on an SM.
+        **{k: "{registers}regs/{stack_bytes}Bstack/{spill_store_bytes}Bspill/{ctas_per_sm}cta"
+           .format(**v) for k, v in sorted(gptx.items())})
+    # <= 64 registers keeps 4 CTAs of 256 threads on an SM; the flux
+    # instantiations spill nothing.
     for name, v in gptx.items():
-        check(v.get("registers", 256) <= 64 and v.get("spill_store_bytes", 1) == 0,
+        check(v.get("registers", 256) <= 64 and v.get("ctas_per_sm", 0) == 4,
               f"general {name}: {v}")
+        if not name.endswith("_det"):
+            check(v.get("spill_store_bytes", 1) == 0, f"general {name} spills: {v}")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", built.log)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", built.log))
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
@@ -1536,6 +1546,14 @@ def main() -> int:
     g_timed, g_err = general_kernel_vs_twin(dev, card, gptx)
     g_rec = general_paths(out, card)
 
+    # 32-37. the general kernel's local estimate: against its plain version
+    # on every estimator x mode x surface and the weight-1 class (f), then
+    # the default configuration's radiance (a), bench.py's Woodcock radiance
+    # row (b), Landsat with 2 detectors (c), vacuum over Cox-Munk (d) and the
+    # shipped radiance namelist with ray tracing through the driver (e)
+    e_timed, e_err = radiance_kernel_vs_twin(dev, card, gptx)
+    e_rec = radiance_paths(out, card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -1592,7 +1610,8 @@ def main() -> int:
         surface_entry(f"fast_event_block{sfx}_surface", source, kind, surf_paths[kind],
                       surf_timed[kind], surf_err[kind], brdf_diff)
         for sfx, kind in (("", "flux"), ("_detectors", "detectors"))] + [
-        general_entry(g_timed, g_err, g_rec)]}))
+        general_entry(g_timed, g_err, g_rec), estimate_entry(e_timed, e_err, e_rec)]},
+        allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -2048,13 +2067,15 @@ OPS_PER_GCOLLISION = (120, 6)
 GSTATE_ROWS = 15                    # x, y, z, ux, uy, uz, w; alive, ix, iy, iz, order, bad, evct, xing
 
 
-def general_bound(steps: int, lane_events: int, collisions: int, n_bytes: int):
-    """(least ms, what bounds it) of general-kernel work: DDA steps,
-    lane-events and collisions, and ``n_bytes`` of device memory."""
+def general_bound(steps: int, lane_events: int, collisions: int, n_bytes: int, rays: int = 0):
+    """(least ms, what bounds it) of general-kernel work: DDA steps (the
+    estimate's rays' included), lane-events, collisions, the estimate's
+    rays (collision x detector; OPS_PER_GRAY) and ``n_bytes`` of device
+    memory."""
     alu = steps * OPS_PER_GSTEP[0] + lane_events * OPS_PER_GEVENT[0] \
-        + collisions * OPS_PER_GCOLLISION[0]
+        + collisions * OPS_PER_GCOLLISION[0] + rays * OPS_PER_GRAY[0]
     sfu = steps * OPS_PER_GSTEP[1] + lane_events * OPS_PER_GEVENT[1] \
-        + collisions * OPS_PER_GCOLLISION[1]
+        + collisions * OPS_PER_GCOLLISION[1] + rays * OPS_PER_GRAY[1]
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -2072,21 +2093,28 @@ def general_table_bytes(integ, tracer) -> int:
 
 
 def ptxas_general(log: str) -> dict:
-    """Per general-kernel instantiation (mode, uniform, reflecting, weight-1):
-    registers, stack and spill bytes and CTAs per SM, from ptxas -v."""
-    out, name = {}, None
+    """Per general-kernel instantiation (mode, uniform, reflecting, weight-1,
+    detectors): registers, stack and spill bytes and CTAs per SM, from
+    ptxas -v.  ptxas prints a kernel's own "Function properties" (its stack
+    frame and spills) right after "Compiling entry function", then its
+    registers, then the properties of the noinline functions it calls; only
+    the kernel's own are read."""
+    out, name, own = {}, None, False
     modes = {"0": "rt", "1": "maxcs", "2": "woodcock"}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*general_event_block_kernelILi(\d)"
-                      r"ELb(\d)ELb(\d)ELb(\d)E", line)
+                      r"ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
         if m:
             name = (modes[m[1]] + ("_uniform" if m[2] == "1" else "_general")
-                    + ("_reflecting" if m[3] == "1" else "") + ("_weight1" if m[4] == "1" else ""))
-            out[name] = {}
+                    + ("_reflecting" if m[3] == "1" else "") + ("_weight1" if m[4] == "1" else "")
+                    + ("_det" if m[5] == "1" else ""))
+            out[name], own = {}, False
         elif "Compiling entry function" in line:
             name = None
-        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
-                                      line)):
+        elif name and "Function properties for" in line:
+            own = "general_event_block_kernel" in line
+        elif name and own and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                              r"stores", line)):
             out[name].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out[name].update(registers=int(m[1]), ctas_per_sm=ctas_per_sm(int(m[1])))
@@ -2098,7 +2126,8 @@ def general_instantiation(spec, var) -> str:
     ptxas_general names it."""
     return ({0: "rt", 1: "maxcs", 2: "woodcock"}[spec.mode]
             + ("_uniform" if var.uniform else "_general")
-            + ("_reflecting" if spec.surface_kind else "") + ("_weight1" if var.bernoulli else ""))
+            + ("_reflecting" if spec.surface_kind else "") + ("_weight1" if var.bernoulli else "")
+            + ("_det" if spec.det is not None else ""))
 
 
 def two_component_domain():
@@ -2326,8 +2355,9 @@ def general_kernel_vs_twin(dev, card: str, built: dict) -> tuple[dict, float]:
     from i3rc_tpu_torch import batch_key
     from i3rc_tpu_torch.kernels import general_block as gb
 
-    check(set(GENERAL_ROWS.values()) == set(built),
-          f"rows miss instantiations {sorted(set(built) - set(GENERAL_ROWS.values()))}")
+    flux_built = {k for k in built if not k.endswith("_det")}
+    check(set(GENERAL_ROWS.values()) == flux_built,
+          f"rows miss instantiations {sorted(flux_built - set(GENERAL_ROWS.values()))}")
     timed, worst = {}, 0.0
     for row, (name, inst) in enumerate(GENERAL_ROWS.items()):
         sc = general_scene(name, dev)
@@ -2422,16 +2452,22 @@ def general_block_ms(run, new, n: int) -> tuple[float, float]:
         torch.cuda.synchronize()
         total += a.elapsed_time(e) if k else 0.0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    copies = [new() for _ in range(n)]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for s, b in copies:
-            run(s, b)
+    # The profiler now and then drops a trace's device records (as in
+    # device_block_ms): the mean over the launches shown, from a trace that
+    # shows half of them.
+    for _ in range(3):
+        copies = [new() for _ in range(n)]
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if "general_event_block_kernel" in e.key]
-    launches = sum(e.count for e in found)
-    dev_ms = sum(e.self_device_time_total for e in found) / max(launches, 1) / 1e3
-    return total / n, dev_ms if launches else float("nan")
+        with torch.profiler.profile(activities=acts) as prof:
+            for s, b in copies:
+                run(s, b)
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if "general_event_block_kernel" in e.key]
+        launches = sum(e.count for e in found)
+        if 2 * launches >= n:
+            break
+    check(0 < launches <= n, f"the profiler shows {launches} G launches for {n}")
+    return total / n, sum(e.self_device_time_total for e in found) / launches / 1e3
 
 
 def general_batch_record(integ, src, n: int, lanes: int, seed: int, card: str, tag: str,
@@ -2457,10 +2493,19 @@ def general_batch_record(integ, src, n: int, lanes: int, seed: int, card: str, t
     events = int(raw.n_lane_events)
     launches = raw.n_iterations // tracer.spec.K
     n_bytes = n * 2 * GSTATE_ROWS * 4 + 8 * lanes * launches
-    bound = general_bound(steps, events, max(events - n, 0), n_bytes)
-    rec = {"bound": bound, "launches": launches, "raw": raw, "steps": steps, "events": events}
+    # With detectors: the estimate's DDA steps and rays (D per physical
+    # collision and estimating surface event, counted per lane), the two
+    # per-lane counters and the radiance tallies.
+    det = tracer.spec.det
+    int_steps = int(raw.n_int_steps) if det is not None else 0
+    rays = int(raw.n_int_rays) if det is not None else 0
+    if det is not None:
+        n_bytes += 16 * lanes * launches + 16 * raw.intensity.numel()
+    bound = general_bound(steps + int_steps, events, max(events - n, 0), n_bytes, rays)
+    rec = {"bound": bound, "launches": launches, "raw": raw, "steps": steps, "events": events,
+           "int_steps": int_steps, "rays": rays}
     fields = dict(photons=n, lanes=lanes, blocks=launches, lane_events=events, dda_steps=steps,
-                  bound_ms=f"{bound[0]:.3f}", bound_by=bound[1])
+                  estimate_steps=int_steps, estimate_rays=rays, bound_ms=f"{bound[0]:.3f}", bound_by=bound[1])
     if pb is not None:
         rec.update(kernel_ms=pb["block_ms"], idle=pb["idle_share"])
         fields.update(block_launches=pb["block_launches"],
@@ -2746,6 +2791,433 @@ def general_entry(timed: dict, err: float, rec: dict) -> dict:
             "batch_launches": sc["launches"], "batch_bound_ms": sc["bound"][0],
             "landsat_batch_ms": land.get("kernel_ms"), "landsat_batch_launches": land["launches"],
             "landsat_batch_bound_ms": land["bound"][0]}
+
+
+# ---------------------------------------------------------------------------
+# The general kernel's local estimate: G's general_estimate stage (the DET
+# instantiations, csrc/general_event_block_det.cu) against its plain version,
+# and its paths
+
+RAD_GENERAL_PHOTONS = 1 << 22       # paths (a) and (b)
+LANDSAT_RAD_PHOTONS = 1 << 21       # bench.py:218-246's row
+LANDSAT_DET_MUS, LANDSAT_DET_PHIS = [1.0, 0.5], [0.0, 0.0]
+# Absorbing Landsat's fluxes on the fastpath (phase 17, one batch of 2^22
+# photons; PERF.md section 6): path (c)'s flux gate.
+ANCHOR_LANDSAT_ABS = (0.424425, 0.404671, 0.170904)
+ANCHOR_LANDSAT_ABS_PHOTONS = 1 << 22
+# Operations per ray of the estimate (one collision x detector): the
+# projection, acosf (~15 ALU, a square root), the division by pi, the
+# linear lookup, the phase over 4 pi |mu_d|, expf, the tally's two
+# red.global.add.f64; a ray's DDA steps count as OPS_PER_GSTEP each.
+OPS_PER_GRAY = (60, 4)
+# Phase 32's radiance cases (tests/general_scenes.py RADIANCE_CASES, every
+# DET instantiation) run at RAD_CASE_LANES lanes and 4x the photons.
+RAD_CASE_LANES = 1 << 16
+RAD_WOODCOCK_LANES = 1 << 16        # path (b): bench.py:249-271's wavefront
+COX_MUNK_PHOTONS = 1 << 20          # path (d)
+# Path (c) may lose this share of its photons (n_bad): the chained class
+# counts a bad or over-long estimate ray as well as a bad flight.
+LANDSAT_RAD_BAD_SHARE = 1e-3
+
+
+def step_cloud_radiance(dev, cfg=None):
+    """Paths (a) and (b): the 32 x 1 x 32 step cloud with the I3RC
+    detectors under ``cfg`` (default: IntegratorConfig())."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, make_step_cloud
+
+    return Integrator.create(make_step_cloud(1.0), cfg or IntegratorConfig(), device=dev,
+                             intensity_mus=DET_MUS, intensity_phis=DET_PHIS)
+
+
+def woodcock_bench_config():
+    """Path (b), bench.py:249-271: the fastpath off, 16-cell super-voxels
+    (Woodcock), the exact trace."""
+    from i3rc_tpu_torch import IntegratorConfig
+
+    return IntegratorConfig(use_ray_tracing=False, max_events=500,
+                            compute_volume_absorption=False, use_fastpath=False,
+                            majorant_block_size=16)
+
+
+def landsat_radiance(dev, iwabuchi: bool = False):
+    """Path (c), bench.py:218-246: Landsat at ssa 0.99 with 2 detectors
+    (the create-time rule turns ratio tracking on: the weight-1 class), or
+    with Iwabuchi roulette (the exact trace, not chained)."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, make_landsat_cloud
+
+    cfg = dict(use_ray_tracing=False, max_events=500, compute_volume_absorption=False)
+    if iwabuchi:
+        cfg["use_russian_roulette_for_intensity"] = True
+    return Integrator.create(make_landsat_cloud(0.99), IntegratorConfig(**cfg), device=dev,
+                             intensity_mus=LANDSAT_DET_MUS, intensity_phis=LANDSAT_DET_PHIS)
+
+
+def cox_munk_vacuum():
+    """Path (d), tests/test_misc_features.py:184-227: a vacuum over a
+    uniform Cox-Munk surface (wind 7 m/s, n 1.34), the sun at mu0 0.707 and
+    30 degrees, four detectors.  Returns (make(mode, dev), source, the
+    closed form R(sun -> detector)/pi and 0 for the downward one)."""
+    from i3rc_tpu_torch import (Domain, Integrator, IntegratorConfig, PhaseFunction,
+                                PhaseFunctionTable, PhotonSource, SurfaceDescription,
+                                henyey_greenstein_coefficients)
+    from i3rc_tpu_torch.core.surface import cox_munk_brdf
+
+    mu0, az0, wind, n_refr = 0.707, 30.0, 7.0, 1.34
+    mus, phis = [0.707, 0.5, 0.9, -0.5], [30.0, 210.0, 75.0, 0.0]
+    dom = Domain.create([0, 500.0], [0, 500.0], [0.0, 250.0])
+    ext = np.full((1, 1, 1), 1e-12)
+    table = PhaseFunctionTable.from_phase_functions(
+        [PhaseFunction.from_legendre(henyey_greenstein_coefficients(0.85, 64))], key=[1.0])
+    dom = dom.add_component("vac", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32), table)
+    f32 = lambda v: torch.tensor([v], dtype=torch.float32)
+    want = np.array([float(cox_munk_brdf([f32(wind), f32(n_refr)], f32(-mu0), f32(m),
+                                         f32(np.deg2rad(az0)), f32(np.deg2rad(p)))[0]) / np.pi
+                     if m > 0 else 0.0 for m, p in zip(mus, phis)])
+    make = lambda mode, dev: Integrator.create(
+        dom, IntegratorConfig(use_fastpath=False, **ORACLE_MODES[mode]), device=dev,
+        surface=SurfaceDescription.uniform([wind, n_refr], brdf_name="cox_munk"),
+        intensity_mus=mus, intensity_phis=phis)
+    return make, PhotonSource.directional(mu0, az0), want
+
+
+def radiance_kernel_vs_twin(dev, card: str, built: dict) -> tuple[dict, float]:
+    """Phase 32 (f): one block of G with detectors against
+    general_block_reference on the launch, a mid-flight and a tail state of
+    every case of tests/general_scenes.py RADIANCE_CASES (every estimator in
+    every mode that has it over black, albedo and gridded RPV surfaces,
+    hybrid phases, clipping, the weight-1 class) at RAD_CASE_LANES lanes,
+    and of each radiance path's own scene, built as the path builds it, at
+    its photons and lanes: (a) the step cloud through the default
+    configuration with the I3RC detectors, 2^22 photons at 2^20 lanes; (b)
+    its Woodcock bench row at 2^16 lanes; (c) Landsat's chained ratio
+    tracking, 2^21 photons at 2^20 lanes; (d) the vacuum over Cox-Munk in
+    each mode, 2^20 photons.  The lane state, the control state, the dead
+    counts and the estimate steps and rays bit for bit, the float64 tallies
+    within 1e-9 of their largest entry.  The instantiations
+    launched are checked by name against ``built`` (ptxas: every DET one).
+    Path (a)'s mid-flight and tail blocks are timed (profiler device time,
+    CUDA events; the twin by CUDA events).  Returns ({"<state>": timing} of
+    path (a)'s scene, the largest tally difference)."""
+    from i3rc_tpu_torch import PhotonSource, batch_key
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    scenes = _load_tests_module("general_scenes")
+    port = scenes.host("i3rc_tpu_torch")
+    sun = PhotonSource.directional(0.5, 0.0)
+    rows = {"path_a": (lambda: step_cloud_radiance(dev), RAD_GENERAL_PHOTONS, GENERAL_LANES, sun)}
+    rows.update({name: (lambda name=name: scenes.radiance_case(port, name, dev),
+                        4 * RAD_CASE_LANES, RAD_CASE_LANES, sun)
+                 for name in scenes.RADIANCE_CASES})
+    rows["path_b"] = (lambda: step_cloud_radiance(dev, woodcock_bench_config()),
+                      RAD_GENERAL_PHOTONS, RAD_WOODCOCK_LANES, sun)
+    rows["path_c"] = (lambda: landsat_radiance(dev), LANDSAT_RAD_PHOTONS,
+                      min(LANDSAT_RAD_PHOTONS, GENERAL_LANES), sun)
+    make_cm, cm_src, _ = cox_munk_vacuum()
+    for mode in ORACLE_MODES:
+        rows[f"path_d_{mode}"] = (lambda mode=mode: make_cm(mode, dev), COX_MUNK_PHOTONS,
+                                  COX_MUNK_PHOTONS, cm_src)
+    seen, timed, worst = set(), {}, 0.0
+    for row, (name, (make, n, L, src)) in enumerate(rows.items()):
+        integ = make()
+        tracer = integ.general_tracer(n, L)
+        spec, opt, tables = tracer.spec, integ.device_optics, integ.tables
+        var = gb.variant(spec, opt)
+        inst = general_instantiation(spec, var)
+        check(inst in built, f"{name}: {inst} is not in the ptxas list")
+        seen.add(inst)
+        key = batch_key(SEED, 800 + row)
+        st = gb.launch_state(spec, src.sample(key, L, dev), n)
+        buf = gb.general_buffers(spec, st, min(L, n))
+        kb = 0
+        states = [("launch", st.clone(), buf.clone(), kb)]
+        gb.general_block(spec, var, opt, tables, st, buf, key, src, kb)
+        kb += 1
+        states.append(("mid", st.clone(), buf.clone(), kb))
+        while not (int(buf.ctl[kb & 1]) >= n and float(st.i[gb.ALIVE].float().mean()) <= 0.15):
+            check(kb < 800, f"{name}: the tail state never came")
+            gb.general_block(spec, var, opt, tables, st, buf, key, src, kb)
+            kb += 1
+        states.append(("tail", st.clone(), buf.clone(), kb))
+        for state, s0, b0, kb_s in states:
+            sk, bk, sr, br = s0.clone(), b0.clone(), s0.clone(), b0.clone()
+            gb.general_block(spec, var, opt, tables, sk, bk, key, src, kb_s)
+            t0 = time.perf_counter()
+            gb.general_block_reference(spec, var, opt, tables, sr, br, key, src, kb_s)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t0
+            err = 0.0
+            for what in ("columns", "vol", "intensity", "by_component", "excess"):
+                a, b = getattr(bk, what), getattr(br, what)
+                if b.numel():
+                    err = max(err, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300))
+            bit = (torch.equal(sk.f, sr.f) and torch.equal(sk.i, sr.i)
+                   and torch.equal(bk.ctl, br.ctl) and torch.equal(bk.dead, br.dead)
+                   and torch.equal(bk.int_steps, br.int_steps)
+                   and torch.equal(bk.int_rays, br.int_rays))
+            n_diff = int(((sk.f != sr.f).any(0) | (sk.i != sr.i).any(0)).sum())
+            check(bit and err <= 1e-9,
+                  f"G+estimate {name} {state}: kernel and twin differ on {n_diff} lanes, "
+                  f"tallies {err:.2e}")
+            worst = max(worst, err)
+            live = int(s0.i[gb.ALIVE].sum())
+            d = lambda r: int((sr.i[r] - s0.i[r]).sum())
+            steps, events = d(gb.XING), d(gb.EVCT)
+            int_steps = int((br.int_steps - b0.int_steps).sum())
+            rays = int((br.int_rays - b0.int_rays).sum())
+            taken = int(br.ctl[(kb_s + 1) & 1] - b0.ctl[kb_s & 1])
+            collisions = max(events - (live + taken - int(sr.i[gb.ALIVE].sum())), 0)
+            # the dead counts, the live lanes' state in and out, the per-lane
+            # estimate steps and rays in and out, the tables
+            n_bytes = 8 * s0.n_lanes + (live + taken) * 2 * GSTATE_ROWS * 4 \
+                + 16 * s0.n_lanes + general_table_bytes(integ, tracer)
+            bound = general_bound(steps + int_steps, events, collisions, n_bytes, rays=rays)
+            fields = dict(case=name, instantiation=inst, estimator=gb.EST_NAMES[spec.det.est],
+                          state=state, lanes=s0.n_lanes, alive=f"{live / s0.n_lanes:.4f}",
+                          bit_equal=bit, tally_rel_err=f"{err:.2e}", lane_events=events,
+                          dda_steps=steps, estimate_steps=int_steps, estimate_rays=rays,
+                          twin_ms=f"{1e3 * twin_s:.3f}", bound_ms=f"{bound[0]:.4f}",
+                          bound_by=bound[1])
+            if name == "path_a" and state in ("mid", "tail"):
+                run = lambda s, b: gb.general_block(spec, var, opt, tables, s, b, key, src, kb_s)
+                ms = general_block_ms(run, lambda: (s0.clone(), b0.clone()), 10)
+                fields.update(kernel_ms=f"{ms[0]:.4f}", kernel_device_ms=f"{ms[1]:.4f}")
+                timed[state] = {"device_ms": ms[1], "events_ms": ms[0],
+                                "twin_ms": 1e3 * twin_s, "bound": bound}
+            say("32 general-estimate-vs-twin", **fields, card=json.dumps(card))
+    det_built = {k for k in built if k.endswith("_det")}
+    check(seen == det_built, f"phase 32 misses instantiations {sorted(det_built - seen)}")
+    return timed, worst
+
+
+def radiance_batches(fn, n: int, seed0: int, n_batches: int, closure: bool, bad_max: int):
+    """Batches of a radiance path: per batch the mean radiances (host numpy)
+    and fluxes, the host seconds and n_bad, each gated on finite fields and
+    n_bad (and, for ``closure``, on Fup + Fdn = 1 less the bad photons)."""
+    intens, fluxes, times, bads = [], [], [], []
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        res = fn(batch_key_(seed0 + b))
+        i_b = res.mean_intensity.double().cpu().numpy()
+        f_b = [float(res.mean_flux_up), float(res.mean_flux_down), float(res.mean_flux_absorbed)]
+        n_bad = int(res.n_bad)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(res.intensity).all()) and np.isfinite(f_b).all(),
+              "radiance path: non-finite fields")
+        check(n_bad <= bad_max, f"radiance path n_bad={n_bad} (limit {bad_max})")
+        if closure:
+            check(abs(f_b[0] + f_b[1] - 1.0) < 1e-5 + n_bad / n, f"radiance closure {f_b}")
+        intens.append(i_b)
+        fluxes.append(f_b)
+        bads.append(n_bad)
+    return np.array(intens), np.array(fluxes), times, bads
+
+
+def gate_step_cloud_radiance(tag: str, intens: np.ndarray) -> tuple:
+    """The I3RC anchors within 1% + 5 sigma (phase 9's gate), sigma from the
+    batches' spread."""
+    mean, sigma = intens.mean(0), intens.std(0, ddof=1) / intens.shape[0] ** 0.5
+    for d, anchor in enumerate(ANCHOR_I):
+        check(abs(mean[d] - anchor) <= 0.01 * anchor + 5 * sigma[d],
+              f"{tag} detector {d}: I = {mean[d]} +- {sigma[d]}, anchor {anchor}")
+    return mean, sigma
+
+
+def radiance_paths(out: Path, card: str) -> dict:
+    """Phases 33-37, the general kernel's radiance paths, each driven with
+    the launch counts set to 0 just before it and read just after.  Returns
+    the launches and batch record of path (a)."""
+    from i3rc_tpu_torch import IntegratorConfig, PhotonSource
+    from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
+    from i3rc_tpu_torch.integrators.wavefront import EXACT, IWABUCHI, RATIO
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    src = PhotonSource.directional(0.5, 0.0)
+    n = RAD_GENERAL_PHOTONS
+    rec = {}
+
+    # 33 (a). the default configuration's radiance: the step cloud through
+    # IntegratorConfig() (ray tracing, the exact trace), 2^22 photons at the
+    # default 2^20 lanes, 3 batches after a warm-up; then with the shipped
+    # namelist's Iwabuchi roulette (zeta_min 0.3)
+    for tag, cfg in (("exact", IntegratorConfig()),
+                     ("iwabuchi", IntegratorConfig(use_russian_roulette_for_intensity=True,
+                                                   zeta_min=0.3))):
+        integ = step_cloud_radiance("cuda", cfg)
+        spec = integ.general_tracer(n).spec
+        check(integ._fast_plan is None and spec.mode == 0
+              and spec.det.est == (EXACT if tag == "exact" else IWABUCHI), f"(a) {tag} plan")
+        fn = integ.batch_fn(src, n)
+        fn(batch_key_(900))
+        torch.cuda.synchronize()
+        gb.reset_launch_counters()
+        eb.reset_launch_counters()
+        intens, fl, times, bads = radiance_batches(fn, n, 901, 3, True, int(1e-3 * n))
+        launches = gb.general_block.det_launches
+        check(launches > 0 and launches == gb.general_block.launches
+              and gb.general_block.mode_launches["ray_tracing"] == launches
+              and eb.event_block.launches + eb.event_block.detector_launches == 0,
+              f"path (a) {tag} ran {gb.general_block.mode_launches}")
+        mean, sigma = gate_step_cloud_radiance(f"(a) {tag}", intens)
+        t = sorted(times)[1]
+        say(f"33 radiance-default-{tag}", photons=n, lanes=GENERAL_LANES,
+            intensity=",".join(f"{v:.5f}" for v in mean),
+            sigma=",".join(f"{v:.1e}" for v in sigma), anchor=",".join(map(str, ANCHOR_I)),
+            fup=f"{fl[:, 0].mean():.6f}", n_bad=",".join(map(str, bads)),
+            seconds=",".join(f"{x:.4f}" for x in times),
+            photons_per_s=f"{n / t:.4e}", launches=launches,
+            blocks_per_batch=f"{launches / 3:.1f}", card=json.dumps(card))
+        r = general_batch_record(integ, src, n, GENERAL_LANES, 910, card,
+                                 f"33 radiance-default-{tag}")
+        if tag == "exact":
+            rec["a"], rec["launches"] = r, launches
+        else:
+            rec["a_iwabuchi"] = r
+
+    # 34 (b). bench.py:249-271: the step cloud with the fastpath off on
+    # 16-cell super-voxels (Woodcock, the exact trace), 3 detectors
+    integ = step_cloud_radiance("cuda", woodcock_bench_config())
+    check(integ.general_tracer(n).spec.mode == 2, "(b) Woodcock")
+    fn = integ.batch_fn(src, n, n_lanes=RAD_WOODCOCK_LANES)
+    fn(batch_key_(920))
+    torch.cuda.synchronize()
+    gb.reset_launch_counters()
+    # Woodcock loses ~3e-6 of its photons to a tentative collision that
+    # rounds onto a block face (a non-positive DDA step), as ray tracing does.
+    intens, fl, times, bads = radiance_batches(fn, n, 921, 3, True, int(1e-3 * n))
+    launches = gb.general_block.det_launches
+    check(launches > 0 and gb.general_block.mode_launches["woodcock"] == launches,
+          f"path (b) ran {gb.general_block.mode_launches}")
+    mean, sigma = gate_step_cloud_radiance("(b)", intens)
+    say("34 radiance-woodcock-bench", photons=n, lanes=RAD_WOODCOCK_LANES,
+        intensity=",".join(f"{v:.5f}" for v in mean), sigma=",".join(f"{v:.1e}" for v in sigma),
+        n_bad=",".join(map(str, bads)),
+        seconds=",".join(f"{x:.4f}" for x in times),
+        photons_per_s=f"{n / sorted(times)[1]:.4e}", launches=launches, card=json.dumps(card))
+    rec["b"] = general_batch_record(integ, src, n, RAD_WOODCOCK_LANES, 930, card,
+                                    "34 radiance-woodcock-bench")
+
+    # 35 (c). bench.py:218-246: Landsat at ssa 0.99 with 2 detectors: the
+    # create-time rule turns ratio tracking on, the weight-1 class runs;
+    # fluxes against the fastpath's absorbing Landsat, radiances against the
+    # same scene with Iwabuchi roulette (an independent estimator: exact
+    # trace, not chained)
+    nl = LANDSAT_RAD_PHOTONS
+    bad_max = int(LANDSAT_RAD_BAD_SHARE * nl)
+    integ = landsat_radiance("cuda")
+    spec = integ.general_tracer(nl).spec
+    check(integ.config.use_ratio_tracking_for_intensity and spec.det.est == RATIO
+          and spec.chained, "(c) ratio tracking, the weight-1 class")
+    fn = integ.batch_fn(src, nl)
+    fn(batch_key_(940))
+    torch.cuda.synchronize()
+    gb.reset_launch_counters()
+    intens, fl, times, bads = radiance_batches(fn, nl, 941, 4, False, bad_max)
+    launches = gb.general_block.det_launches
+    check(launches > 0 and gb.general_block.mode_launches["woodcock"] == launches,
+          f"path (c) ran {gb.general_block.mode_launches}")
+    f_mean, f_se = fl.mean(0), fl.std(0, ddof=1) / 2.0
+    for k, what in enumerate(("Fup", "Fdn", "Fabs")):
+        a = ANCHOR_LANDSAT_ABS[k]
+        se = (f_se[k] ** 2 + a * (1 - a) / ANCHOR_LANDSAT_ABS_PHOTONS) ** 0.5
+        check(abs(f_mean[k] - a) <= 5 * se, f"(c) {what} {f_mean[k]} vs {a} (se {se:.2e})")
+    iw = landsat_radiance("cuda", iwabuchi=True)
+    check(not iw.general_tracer(nl).spec.chained and iw.general_tracer(nl).spec.det.est == IWABUCHI,
+          "(c) Iwabuchi reference")
+    iw_int, _, iw_times, iw_bads = radiance_batches(iw.batch_fn(src, nl), nl, 951, 4, False,
+                                                    bad_max)
+    i_mean, i_se = intens.mean(0), intens.std(0, ddof=1) / 2.0
+    w_mean, w_se = iw_int.mean(0), iw_int.std(0, ddof=1) / 2.0
+    for d in range(2):
+        se = (i_se[d] ** 2 + w_se[d] ** 2) ** 0.5
+        check(abs(i_mean[d] - w_mean[d]) <= 5 * se,
+              f"(c) detector {d}: ratio {i_mean[d]} vs Iwabuchi {w_mean[d]} (se {se:.2e})")
+    say("35 radiance-landsat", photons=nl, lanes=min(nl, GENERAL_LANES), estimator="ratio",
+        weight1=True, fluxes=",".join(f"{v:.6f}" for v in f_mean),
+        flux_se=",".join(f"{v:.1e}" for v in f_se),
+        anchor=",".join(map(str, ANCHOR_LANDSAT_ABS)),
+        intensity=",".join(f"{v:.5f}" for v in i_mean), se=",".join(f"{v:.1e}" for v in i_se),
+        iwabuchi_intensity=",".join(f"{v:.5f}" for v in w_mean),
+        iwabuchi_se=",".join(f"{v:.1e}" for v in w_se), n_bad=",".join(map(str, bads)),
+        iwabuchi_n_bad=",".join(map(str, iw_bads)), n_bad_limit=bad_max,
+        seconds=",".join(f"{x:.4f}" for x in times),
+        photons_per_s=f"{nl / sorted(times)[1]:.4e}",
+        iwabuchi_photons_per_s=f"{nl / sorted(iw_times)[1]:.4e}", launches=launches,
+        card=json.dumps(card))
+    rec["c"] = general_batch_record(integ, src, nl, min(nl, GENERAL_LANES), 960, card,
+                                    "35 radiance-landsat")
+
+    # 36 (d). vacuum over Cox-Munk (tests/test_misc_features.py:184-227):
+    # I = R(sun -> detector)/pi exactly, 0 downward, in every mode
+    make_cm, cm_src, want = cox_munk_vacuum()
+    got_modes = []
+    gb.reset_launch_counters()
+    for mode in ORACLE_MODES:
+        got = make_cm(mode, "cuda").batch_fn(cm_src, COX_MUNK_PHOTONS)(batch_key_(970))
+        got = got.mean_intensity.double().cpu().numpy()
+        check(np.allclose(got, want, rtol=2e-3, atol=1e-7), f"(d) {mode}: {got} vs {want}")
+        got_modes.append(f"{mode}=" + ",".join(f"{v:.6f}" for v in got))
+    check(min(gb.general_block.mode_launches.values()) > 0
+          and gb.general_block.det_launches == gb.general_block.launches,
+          f"(d) ran {gb.general_block.mode_launches}")
+    say("36 radiance-vacuum-cox-munk", photons=COX_MUNK_PHOTONS,
+        want=",".join(f"{v:.6f}" for v in want), results=";".join(got_modes), launches=gb.general_block.det_launches)
+
+    # 37 (e). the shipped step-cloud namelist with useRayTracing = .true.
+    # through the driver, from the directory holding the domain files
+    shipped = ROOT / "examples" / "monteCarloDriver_stepCloud.nml"
+    text = shipped.read_text()
+    check("useRayTracing = .false." in text, "the shipped namelist's algorithm line")
+    nml = out / "monteCarloDriver_stepCloud_raytracing.nml"
+    nml.write_text(text.replace("useRayTracing = .false.", "useRayTracing = .true.").replace(
+        '"stepCloud', '"stepCloudRT'))
+    gb.reset_launch_counters()
+    cwd = os.getcwd()
+    os.chdir(out)
+    try:
+        t0 = time.perf_counter()
+        drv = run_from_namelist(nml.name, quiet=True, device="cuda")
+        t_drv = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    for name in ("stepCloudRTRads.out", "stepCloudRTOutput.nc"):
+        check((out / name).is_file(), f"driver did not write {name}")
+    i_m = drv["stats"].mean["derived"]["mean_intensity"]
+    i_e = drv["stats"].stderr["derived"]["mean_intensity"]
+    for d, anchor in enumerate(ANCHOR_I):
+        check(abs(float(i_m[d]) - anchor) <= 0.01 * anchor + 5 * float(i_e[d]),
+              f"(e) detector {d}: I = {float(i_m[d])} +- {float(i_e[d])}")
+    check(gb.general_block.det_launches > 0
+          and gb.general_block.mode_launches["ray_tracing"] == gb.general_block.launches,
+          "the ray-tracing radiance driver ran no G estimate")
+    check(b"Ray_tracing" in (out / "stepCloudRTOutput.nc").read_bytes(), "netCDF Algorithm")
+    say("37 radiance-driver-raytracing", batches=drv["cfg"]["num_batches"],
+        photons=drv["cfg"]["num_photons"], intensity=",".join(f"{float(v):.5f}" for v in i_m),
+        stderr=",".join(f"{float(v):.1e}" for v in i_e), seconds=f"{t_drv:.2f}",
+        launches=gb.general_block.det_launches, card=json.dumps(card))
+    return rec
+
+
+def estimate_entry(timed: dict, err: float, rec: dict) -> dict:
+    """The kernels-line entry of G with the estimate stage: launches on path
+    (a) (exact trace), its largest tally difference to the plain version
+    (the lane state is bit-equal), path (a)'s mid-flight block's device time
+    beside the twin's and the bound (phase 32), its tail block, and the
+    batches' kernel time and bound of paths (a), (b) and (c)."""
+    mid = timed["mid"]
+    a = rec["a"]
+    return {"name": "general_event_block_estimate", "route": "cuda",
+            "source": "i3rc_tpu_torch/csrc/general_event_block_det.cu",
+            "replaces": "none: XLA in i3rc_tpu/integrators/wavefront.py:884 "
+                        "(intensity_contribution; no TPU kernel)",
+            "launches": rec["launches"], "max_abs_err": err, "ms": mid["device_ms"],
+            "plain_ms": mid["twin_ms"], "bound_ms": mid["bound"][0],
+            "bound_by": mid["bound"][1], "library_ms": None, "events_ms": mid["events_ms"],
+            "tail_ms": timed["tail"]["device_ms"], "batch_ms": a.get("kernel_ms"),
+            "batch_launches": a["launches"], "batch_bound_ms": a["bound"][0],
+            **{f"{k}_batch_ms": rec[k].get("kernel_ms") for k in ("a_iwabuchi", "b", "c")},
+            **{f"{k}_batch_bound_ms": rec[k]["bound"][0] for k in ("a_iwabuchi", "b", "c")}}
 
 
 if __name__ == "__main__":

@@ -34,7 +34,10 @@ Layout (shared bit for bit with the CUDA kernel):
                ``kb``: group 0 holds the revive test, the outgoing cosine
                and azimuth, fastpath.py:1884-1886) and ``STREAM_SURFACE_IW``
                (their Iwabuchi draws, one per detector, fastpath.py:
-               1916-1919).
+               1916-1919); ``STREAM_INTENSITY`` (the local estimate's draws
+               in the general event block: event ``j`` of block ``kb``,
+               detector ``d``, round pair ``q`` read group ``j + K * (d + D *
+               q)``; ``intensity_group``).
 
 Uniform conversion: ``u = (bits >> 8) * 2**-24``, exact in float32, in
 [0, 1 - 2**-24].
@@ -61,6 +64,7 @@ STREAM_LAUNCH = 2
 STREAM_GAS = 3
 STREAM_SURFACE = 4
 STREAM_SURFACE_IW = 5
+STREAM_INTENSITY = 6
 GAS_LAUNCH_BLOCK = 0xFFFFFFFF
 
 _M32 = 0xFFFFFFFF
@@ -143,6 +147,24 @@ def philox_uniforms(key: PhiloxKey, kb: int, K: int, n_draws: int, n_lanes: int,
     G = groups_per_event(n_draws)
     u = stream_uniforms(key, STREAM_EVENT, kb, K * G, n_lanes, device)
     return u.reshape(K, 4 * G, n_lanes)[:, :n_draws]
+
+
+def intensity_group(j, d, pair, K: int, D: int):
+    """Philox group of the local estimate's draws for event ``j`` of a block
+    of K events, detector ``d`` of D and round pair ``pair`` (Iwabuchi
+    roulette reads words 0-1 of pair 0; ratio tracking's round r reads
+    words 2 (r % 2) and 2 (r % 2) + 1 of pair r // 2)."""
+    return j + K * (d + D * pair)
+
+
+def intensity_uniforms(key: PhiloxKey, kb: int, lane: torch.Tensor,
+                       group: torch.Tensor) -> torch.Tensor:
+    """(4, n) float32 uniforms of ``STREAM_INTENSITY`` at block ``kb`` for
+    the (lane, group) pairs of two int64 tensors of n entries."""
+    c1 = torch.full_like(lane, int(kb) & _M32)
+    c3 = torch.full_like(lane, STREAM_INTENSITY)
+    words = philox4x32(lane, c1, group & _M32, c3, key.seed, key.batch)
+    return bits_to_unit(torch.stack(words))
 
 
 def exponential_deviate(u: torch.Tensor) -> torch.Tensor:

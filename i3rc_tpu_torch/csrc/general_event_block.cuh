@@ -1,5 +1,5 @@
-// General event block: K events of the general transport kernel's flux path
-// per lane, state in registers.  Hopper (sm_90a) kernel for what the JAX
+// General event block: K events of the general transport kernel per lane,
+// state in registers, with radiance detectors each event's local estimate.  Hopper (sm_90a) kernel for what the JAX
 // package runs as XLA: `make_batch_tracer`'s event_step, flux branch
 // (i3rc_tpu/integrators/wavefront.py:657, :1144-1540), a masked
 // lax.while_loop over events with a nested while_loop for the DDA
@@ -46,6 +46,25 @@
 //  Exits and absorption add their weights to the float64 column tallies
 //  (up, down, absorbed) and the volume tally straight away with
 //  red.global.add.f64 (tally_add).
+//  DET (radiance detectors): after the absorption and before the roulette
+//    and the rotation, a physical collision (with the post-absorption
+//    weight) and a surface event (an albedo's live reflection with its
+//    post-reflection weight, a BRDF's every bottom hit with the pre-
+//    reflection weight) make the local estimate (wavefront.py:884-1003,
+//    :1487-1497) in general_estimate: per detector the phase value at the
+//    photon-to-detector angle from the forward table (the original one for
+//    orders <= n_orig under hybrid phases) over 4 pi |mu_d|, or 1/pi, or
+//    R(in -> detector)/pi, then the transmittance to the boundary: the DDA
+//    on the fine grid to the end (EST_EXACT), Iwabuchi roulette on it
+//    (EST_IWABUCHI), or ratio tracking over the block majorants (EST_RATIO;
+//    in the weight-1 class the chained tracer's estimator, prefactor ssa P /
+//    (4 pi |mu_d|), a bad or over-long ray counted bad).  A ray that leaves
+//    through its detector's side adds its contribution (clipped at the cap,
+//    the excess kept) to the float64 radiance tallies, summed first over
+//    the lanes of the warp that tally the same bin together (active_red).  The
+//    thread that collided traces its D rays to their end: the JAX package
+//    queued them on the TPU (use_queued_intensity), whose persistent ray
+//    slots have the inline estimator's expectations.
 //
 // What bounds it.  Device memory traffic is the lane state (15 rows) once
 // in and out per launch, one 4-byte extinction read per crossing, one
@@ -102,6 +121,13 @@
 #define MODE_RT 0
 #define MODE_MAX 1
 #define MODE_WOOD 2
+#define EST_EXACT 0
+#define EST_IWABUCHI 1
+#define EST_RATIO 2
+#define STREAM_INTENSITY 6u
+#define FOUR_PI_F 0x1.921fb6p+3f    // float32(4 pi)
+#define INV_PI_F 0x1.45f306p-2f     // float32(1 / pi)
+#define TRACE_TARGET_F 0x1.c363ccp+127f  // 3e38: the exact trace runs to the boundary
 #define GEN_MAX_DRAWS 8
 #define STATUS_TRACING 0
 #define STATUS_SCATTER 1
@@ -157,6 +183,20 @@ struct GeneralParams {
   SourceParams src;
   unsigned int key0, key1, kb;
   int n_lanes, K;
+  // Local estimation (DET instantiations; n_dirs = 0 without detectors).
+  int n_dirs, est, n_orig, clip, max_int_crossings, ratio_crossings, n_fwd;
+  float zeta, zeta_ratio, cap;
+  const float* dirs;            // (3, n_dirs) unit directions
+  const float* abs_mu;          // (n_dirs)
+  const int* exit_status;       // (n_dirs) STATUS_EXIT_TOP / _BOT
+  const float* det_phi;         // (n_dirs) atan2(dir_y, dir_x)
+  const float* forward;         // (n_comp * max_entries * n_fwd) phase values (hybrid)
+  const float* forward_orig;    // the original values
+  double* intensity;            // (n_cols * n_dirs) float64
+  double* by_comp;              // (n_cols * n_dirs * (n_comp + 1)) float64
+  double* excess;               // (n_dirs * (n_comp + 1)) float64
+  int* int_steps;               // (n_lanes) the lane's estimate DDA steps
+  int* int_rays;                // (n_lanes) the lane's estimate rays
 };
 
 struct GLane {
@@ -198,12 +238,13 @@ __device__ __forceinline__ float wrap_periodic(float v, float lo, float hi, floa
 // cell (ix, iy, iz) along u until `target` optical depth of `ext` is spent
 // (STATUS_SCATTER, the point inside the cell), the lane leaves through the
 // top or the bottom (STATUS_EXIT_*, z on the boundary, iz clipped), a step is
-// not positive, or max_crossings crossings are used (STATUS_BAD).
+// not positive, or max_crossings crossings are used (STATUS_BAD).  With
+// tau_out, the optical depth accumulated (target at a scatter).
 __device__ __forceinline__ int trace_extinction(const Grid& g, const float* __restrict__ ext,
                                                 float& x, float& y, float& z, int& ix,
                                                 int& iy, int& iz, float ux, float uy,
                                                 float uz, float target, int max_crossings,
-                                                int& steps) {
+                                                int& steps, float* tau_out = nullptr) {
   const int side_x = ux >= 0.0f, side_y = uy >= 0.0f, side_z = uz >= 0.0f;
   const int inc_x = 2 * side_x - 1, inc_y = 2 * side_y - 1, inc_z = 2 * side_z - 1;
   const bool mx = fabsf(ux) >= DIR_EPS_F, my = fabsf(uy) >= DIR_EPS_F,
@@ -234,6 +275,7 @@ __device__ __forceinline__ int trace_extinction(const Grid& g, const float* __re
       x = x + partial * ux;
       y = y + partial * uy;
       z = z + partial * uz;
+      if (tau_out) *tau_out = target;
       return STATUS_SCATTER;
     }
     // A full crossing to the closest face, with the near-corner guard.
@@ -254,8 +296,18 @@ __device__ __forceinline__ int trace_extinction(const Grid& g, const float* __re
     if (iy < 0) { iy = g.ny - 1; y = g.y_max; }
     else if (iy >= g.ny) { iy = 0; y = g.y0; }
     // Vertical exits (:1793-1804).
-    if (iz >= g.nz) { iz = g.nz - 1; z = g.z_max; return STATUS_EXIT_TOP; }
-    if (iz < 0) { iz = 0; z = g.z0; return STATUS_EXIT_BOT; }
+    if (iz >= g.nz) {
+      iz = g.nz - 1;
+      z = g.z_max;
+      if (tau_out) *tau_out = tau;
+      return STATUS_EXIT_TOP;
+    }
+    if (iz < 0) {
+      iz = 0;
+      z = g.z0;
+      if (tau_out) *tau_out = tau;
+      return STATUS_EXIT_BOT;
+    }
   }
   return STATUS_BAD;            // the crossing budget (grazing trajectories)
 }
@@ -280,11 +332,213 @@ static __device__ __noinline__ float surface_reflectance(const GeneralParams& p,
   return brdf_reflectance(sp, mu_in, mu_out, phi_in, phi_out);
 }
 
-// One event_step, flux branch (wavefront.py:1144-1540), for a live lane.
-template <int MODE, bool UNI, bool REFL, bool BERN>
-__device__ __forceinline__ void general_event(const GeneralParams& p, const float (&u)[GEN_MAX_DRAWS],
-                                              GLane& s) {
+// The slots of an event's draws in kernels/general_block.py variant's order:
+// the free path, the cosine, the azimuth, then the acceptance (MODE_MAX,
+// MODE_WOOD), the surface's two (REFL), the component pick (general
+// optics), and the extra draw (the weight-1 class's survival or the
+// roulette).  -1 where the instantiation has no such draw.
+__host__ __device__ constexpr int slot_accept(int mode) { return mode != MODE_RT ? 3 : -1; }
+__host__ __device__ constexpr int slot_srf(int mode, bool refl) {
+  return refl ? 3 + (mode != MODE_RT) : -1;
+}
+__host__ __device__ constexpr int slot_comp(int mode, bool uni, bool refl) {
+  return uni ? -1 : 3 + (mode != MODE_RT) + 2 * refl;
+}
+__host__ __device__ constexpr int slot_extra(int mode, bool uni, bool refl) {
+  return 3 + (mode != MODE_RT) + 2 * refl + !uni;
+}
+
+// Linear interpolation at position in [0, 1] into a table row of n values
+// at i / (n - 1) (wavefront.table_lookup).
+__device__ __forceinline__ float table_lookup(const float* __restrict__ row, float position,
+                                              int n) {
+  const float pos = fminf(fmaxf(position, 0.0f), 1.0f) * (float)(n - 1);
+  const int i0 = min(max((int)pos, 0), n - 2);
+  const float frac = pos - (float)i0;
+  return (1.0f - frac) * __ldg(row + i0) + frac * __ldg(row + i0 + 1);
+}
+
+// Ratio tracking of one ray to the boundary over the block majorants
+// (wavefront.ratio_transmittance): free paths against the majorants of the
+// block grid, each tentative collision multiplying T by clip(1 - ext /
+// majorant, 0, 1), roulette of T at zeta_ratio; round r reads words
+// 2 (r % 2), 2 (r % 2) + 1 of the Philox call of pair r / 2.  Returns 1 for
+// a bad ray (a bad flight, or alive after `rounds` rounds); T, the exit
+// column and whether it left through the detector's side by reference.
+__device__ __forceinline__ int ratio_track(const GeneralParams& p, int lane, int j, int d,
+                                           float x, float y, float z, float dx, float dy,
+                                           float dz, int rounds, int exit_d, float& T,
+                                           int& fix, int& fiy, bool& esc, int& steps) {
   const Grid& g = p.fine;
+  const Grid& c = p.coarse;
+  T = 1.0f;
+  fix = fiy = 0;
+  esc = false;
+  uint32_t w4[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    if ((r & 1) == 0)
+      philox4x32_10((uint32_t)lane, p.kb,
+                    (uint32_t)j + (uint32_t)p.K * ((uint32_t)d + (uint32_t)p.n_dirs * (uint32_t)(r >> 1)),
+                    STREAM_INTENSITY, p.key0, p.key1, w4);
+    const float u_free = to_unit(w4[2 * (r & 1)]);
+    const float u_kill = to_unit(w4[2 * (r & 1) + 1]);
+    float rx = x, ry = y, rz = z;
+    int bx = locate(x, c.x0, c.dx, c.xe, c.nx, c.xy_regular);
+    int by = locate(y, c.y0, c.dy, c.ye, c.ny, c.xy_regular);
+    int bz = locate(z, c.z0, c.dz, c.ze, c.nz, c.z_regular);
+    const int status = trace_extinction(c, p.majorant, rx, ry, rz, bx, by, bz, dx, dy, dz,
+                                        exponential_deviate(u_free), p.ratio_crossings, steps);
+    if (status == exit_d) {
+      esc = true;
+      fix = locate(rx, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+      fiy = locate(ry, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+      return 0;
+    }
+    if (status != STATUS_SCATTER) return status == STATUS_BAD ? 1 : 0;
+    const int fx = locate(rx, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+    const int fy = locate(ry, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+    const int fz = locate(rz, g.z0, g.dz, g.ze, g.nz, g.z_regular);
+    const float ext = __ldg(p.total_ext + (fx * g.ny + fy) * g.nz + fz);
+    const float maj = __ldg(p.majorant + (bx * c.ny + by) * c.nz + bz);
+    T = T * fminf(fmaxf(1.0f - ext / fmaxf(maj, EXT_EPS_F), 0.0f), 1.0f);
+    if (T < p.zeta_ratio) T = (u_kill >= T / p.zeta_ratio) ? 0.0f : p.zeta_ratio;
+    if (!(T > 0.0f)) return 0;
+    x = rx;
+    y = ry;
+    z = rz;
+  }
+  return 1;
+}
+
+// Adds v to base[key] for the lanes of the active mask with key >= 0: the
+// lanes of one key grouped by __match_any_sync over __activemask(), summed
+// by warp_red's shuffle tree (fast_event_block.cuh), the group's lowest lane
+// adding the sum with tally_add.  G's lanes diverge per thread (a lane that
+// makes no estimate this event is elsewhere), so the warp-wide warp_red
+// (FULL_MASK) cannot run here; the lanes that reached this point together
+// can.  Against one red.global.add.f64 a lane: 25% off a dense step-cloud
+// block of chip_smoke.py's path (a) (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+__device__ __forceinline__ void active_red(double* base, int key, double v) {
+  const unsigned act = __activemask();
+  const unsigned peers = __match_any_sync(act, key);
+  const int wl = threadIdx.x & 31;
+  const unsigned below = (1u << wl) - 1u;
+  unsigned higher = peers & ~(below | (1u << wl));
+  int rank = __popc(peers & below);
+  while (__any_sync(act, higher != 0u)) {
+    const int next = __ffs(higher);
+    const double t = __shfl_sync(act, v, next ? next - 1 : wl);
+    if (next) v += t;
+    higher &= ~__ballot_sync(act, rank & 1);
+    rank >>= 1;
+  }
+  if (key >= 0 && (peers & below) == 0u) tally_add(base + key, v);
+}
+
+// The local estimate of one event toward every detector
+// (wavefront.intensity_estimate; see the header): at (x, y, z) in cell (ix,
+// iy, iz), incoming direction u, the event's weight (post-absorption, or a
+// surface's), its component, phase index and order; `surface` for a bottom
+// hit, `bern` the weight-1 class.  The contributions go to the float64
+// tallies (active_red over the lanes that tally together), the rays' DDA
+// steps to int_steps[lane] and their number to int_rays[lane].  Returns the
+// bad rays that the weight-1 class counts.  Not inlined: the DET
+// instantiations keep its registers out of the event loop's.
+static __device__ __noinline__ int general_estimate(const GeneralParams& p, int lane, int j,
+                                                    bool surface, float x, float y, float z,
+                                                    int ix, int iy, int iz, float ux, float uy,
+                                                    float uz, float weight, int comp, int pf,
+                                                    int order, bool bern) {
+  const Grid& g = p.fine;
+  const int D = p.n_dirs;
+  const int n1 = p.n_comp + 1;
+  const int slot = surface ? 0 : comp + 1;
+  const float* row = (p.n_orig > 0 && order <= p.n_orig ? p.forward_orig : p.forward)
+                     + (size_t)((comp * p.max_entries + pf) * p.n_fwd);
+  const bool brdf = surface && p.srf_kind > SURFACE_ALBEDO;
+  const float phi_in = brdf ? atan2f(uy, ux) : 0.0f;
+  int bad = 0, steps = 0;
+#pragma unroll 1
+  for (int d = 0; d < D; ++d) {
+    const float dx = __ldg(p.dirs + d), dy = __ldg(p.dirs + D + d), dz = __ldg(p.dirs + 2 * D + d);
+    const int exit_d = __ldg(p.exit_status + d);
+    const float proj = fminf(fmaxf(ux * dx + uy * dy + uz * dz, -1.0f), 1.0f);
+    const float pfv = table_lookup(row, acosf(proj) / PI_F, p.n_fwd);
+    const float amu = __ldg(p.abs_mu + d);
+    float norm_pf;
+    if (bern) norm_pf = pfv * p.ssa / (FOUR_PI_F * amu);   // the weight-1 class's prefactor
+    else if (!surface) norm_pf = pfv / (FOUR_PI_F * amu);
+    else if (brdf)
+      norm_pf = dz > 0.0f
+          ? surface_reflectance(p, x, y, uz, dz, phi_in, __ldg(p.det_phi + d)) / PI_F : 0.0f;
+    else norm_pf = INV_PI_F;
+    float contrib = 0.0f;
+    int fix, fiy;
+    bool esc;
+    if (p.est == EST_RATIO) {
+      float T;
+      const int ray_bad = ratio_track(p, lane, j, d, x, y, z, dx, dy, dz,
+                                      bern ? 4 * p.max_int_crossings : p.max_int_crossings,
+                                      exit_d, T, fix, fiy, esc, steps);
+      if (esc) contrib = bern ? norm_pf * T : weight * norm_pf * T;
+      if (bern) bad += ray_bad;
+    } else {
+      float target = TRACE_TARGET_F, u_accept = 0.0f, pn = 0.0f, tau_max = 0.0f;
+      bool small = false;
+      if (p.est == EST_IWABUCHI) {
+        uint32_t w4[4];
+        philox4x32_10((uint32_t)lane, p.kb, (uint32_t)j + (uint32_t)p.K * (uint32_t)d,
+                      STREAM_INTENSITY, p.key0, p.key1, w4);
+        const float tau_free = exponential_deviate(to_unit(w4[0]));
+        u_accept = to_unit(w4[1]);
+        pn = PI_F * norm_pf;
+        small = pn <= p.zeta;
+        tau_max = -logf(p.zeta / fmaxf(pn, TINY_F));
+        target = small ? tau_free : tau_max + tau_free;
+      }
+      float tx = x, ty = y, tz = z, tau = 0.0f;
+      int tiz = iz;
+      fix = ix;
+      fiy = iy;
+      const int status = trace_extinction(g, p.total_ext, tx, ty, tz, fix, fiy, tiz, dx, dy, dz,
+                                          target, p.max_int_crossings, steps, &tau);
+      esc = status == exit_d;
+      if (esc) {
+        if (p.est == EST_IWABUCHI) {
+          const float flat = weight * p.zeta / PI_F;
+          if (small) contrib = u_accept <= pn / p.zeta ? flat : 0.0f;
+          else contrib = tau <= tau_max ? weight * norm_pf * expf(-tau) : flat;
+        } else {
+          contrib = weight * norm_pf * expf(-tau);
+        }
+      }
+    }
+    if (p.clip) {
+      const float over = fmaxf(contrib - p.cap, 0.0f);
+      contrib = fminf(contrib, p.cap);
+      if (over > 0.0f) tally_add(p.excess + d * n1 + slot, (double)over);
+    }
+    const int bin = (fix * g.ny + fiy) * D + d;
+    active_red(p.intensity, contrib != 0.0f ? bin : -1, (double)contrib);
+    active_red(p.by_comp, contrib != 0.0f ? bin * n1 + slot : -1, (double)contrib);
+  }
+  p.int_steps[lane] += steps;
+  p.int_rays[lane] += D;
+  return bad;
+}
+
+// One event_step (wavefront.py:1144-1540, the inline branch), for a live
+// lane: lane and event j of the block key the estimate's draws (DET).
+template <int MODE, bool UNI, bool REFL, bool BERN, bool DET>
+__device__ __forceinline__ void general_event(const GeneralParams& p, const float (&u)[GEN_MAX_DRAWS],
+                                              GLane& s, int lane, int j) {
+  const Grid& g = p.fine;
+  // The draws' slots are constants of the instantiation: a draw it does not
+  // read is not held over the DDA, and no select chain picks it.
+  constexpr int DA = slot_accept(MODE), DS = slot_srf(MODE, REFL), DC = slot_comp(MODE, UNI, REFL),
+                DX = slot_extra(MODE, UNI, REFL);
+#define DRAW(k) u[(k) < 0 ? 0 : (k)]
   const float tau = exponential_deviate(u[0]);
   float rx = s.x, ry = s.y, rz = s.z;
   int rix = s.ix, riy = s.iy, riz = s.iz;
@@ -342,10 +596,10 @@ __device__ __forceinline__ void general_event(const GeneralParams& p, const floa
     const float* row = p.cell + (size_t)flat * (1 + 3 * p.n_comp);
     const float ce = UNI ? __ldg(p.total_ext + flat) : __ldg(row);
     if (MODE == MODE_RT) physical = true;
-    else if (MODE == MODE_WOOD) physical = pick(u, p.d_accept) < ce * inv_maj;
-    else physical = pick(u, p.d_accept) < ce * p.inv_max_ext;
+    else if (MODE == MODE_WOOD) physical = DRAW(DA) < ce * inv_maj;
+    else physical = DRAW(DA) < ce * p.inv_max_ext;
     if (!UNI && physical) {
-      const float uc = pick(u, p.d_comp);
+      const float uc = DRAW(DC);
       for (int k = 0; k < p.n_comp; ++k) comp += uc >= __ldg(row + 1 + k) ? 1 : 0;
       comp = min(max(comp, 0), p.n_comp - 1);
       coalb = __ldg(row + 1 + p.n_comp + comp);
@@ -355,24 +609,20 @@ __device__ __forceinline__ void general_event(const GeneralParams& p, const floa
 
   // The surface (:1315-1330): the weight times R, a cosine-weighted direction.
   bool surf_alive = false;
-  float w_srf = 0.0f, sux = 0.0f, suy = 0.0f, suz = 0.0f;
+  float w_srf = 0.0f;
   if (REFL && exit_bot) {
-    const float mu_s = fmaxf(sqrtf(pick(u, p.d_srf_mu)), EPS6_F);
-    const float phi_s = TWO_PI_F * pick(u, p.d_srf_phi);
+    const float mu_s = fmaxf(sqrtf(DRAW(DS)), EPS6_F);
+    const float phi_s = TWO_PI_F * DRAW(DS + 1);
     const float refl = surface_reflectance(p, rx, ry, s.uz, mu_s, atan2f(s.uy, s.ux), phi_s);
     w_srf = s.w * refl;
     surf_alive = w_srf > TINY_F;
-    const float sin_t = sqrtf(fmaxf(1.0f - mu_s * mu_s, 0.0f));
-    sux = sin_t * cosf(phi_s);
-    suy = sin_t * sinf(phi_s);
-    suz = mu_s;
   }
 
   // Absorption and the tallies.
   float w_sc;
   int order_next;
   if (BERN) {
-    const bool died = physical && p.absorbing && pick(u, p.d_extra) >= p.ssa;
+    const bool died = physical && p.absorbing && DRAW(DX) >= p.ssa;
     w_sc = died ? 0.0f : s.w;
     order_next = s.order + (physical ? 1 : 0);
     if (died) tally_add(p.columns + (size_t)col * 3 + 2, 1.0);
@@ -389,9 +639,18 @@ __device__ __forceinline__ void general_event(const GeneralParams& p, const floa
   if (exit_bot) tally_add(p.columns + (size_t)col * 3 + 1, (double)s.w);
   const bool math_move = MODE != MODE_RT && collide && !physical;
 
+  // The local estimate (:1487-1497), before the roulette and the rotation.
+  if (DET) {
+    const bool brdf = REFL && p.srf_kind > SURFACE_ALBEDO;
+    if (physical || (brdf ? exit_bot : surf_alive))
+      s.bad += general_estimate(p, lane, j, exit_bot, rx, ry, rz, rix, riy, riz, s.ux, s.uy,
+                                s.uz, exit_bot ? (brdf ? s.w : w_srf) : w_sc, comp, pf,
+                                order_next, BERN);
+  }
+
   // Russian roulette (:1499-1505).
   if (!BERN && p.rr && physical && w_sc < p.rr_half)
-    w_sc = (pick(u, p.d_extra) >= w_sc / p.rr_w) ? 0.0f : p.rr_w;
+    w_sc = (DRAW(DX) >= w_sc / p.rr_w) ? 0.0f : p.rr_w;
   const bool scat_alive = physical && w_sc > TINY_F;
 
   // The scattering angle from the cubic inverse CDF, and the rotation.
@@ -409,9 +668,14 @@ __device__ __forceinline__ void general_event(const GeneralParams& p, const floa
     s.uy = ny * norm;
     s.uz = nz * norm;
   } else if (surf_alive) {
-    s.ux = sux;
-    s.uy = suy;
-    s.uz = suz;
+    // The reflected direction, from the surface's draws again here: its
+    // three values are not held over the estimate and the roulette.
+    const float mu_s = fmaxf(sqrtf(DRAW(DS)), EPS6_F);
+    const float phi_s = TWO_PI_F * DRAW(DS + 1);
+    const float sin_t = sqrtf(fmaxf(1.0f - mu_s * mu_s, 0.0f));
+    s.ux = sin_t * cosf(phi_s);
+    s.uy = sin_t * sinf(phi_s);
+    s.uz = mu_s;
   }
   const bool over = (scat_alive || surf_alive) && order_next >= p.max_events;
   const bool moved = scat_alive || surf_alive || math_move;
@@ -431,6 +695,7 @@ __device__ __forceinline__ void general_event(const GeneralParams& p, const floa
   s.alive = (moved && !over) ? 1 : 0;
   s.bad += (bad || over) ? 1 : 0;
   s.evct += (exit_top || exit_bot || collide) ? 1 : 0;
+#undef DRAW
 }
 
 // The key bucket of a live lane in ray tracing (kernels/general_block.py
@@ -636,7 +901,7 @@ static __device__ __noinline__ int general_prologue(const GeneralParams& p, floa
 // One lane's K events: its state loaded, the events run, the state stored,
 // and the lane counted in its tile's survivors.  Inlined at both of the
 // kernel's call sites.
-template <int MODE, bool UNI, bool REFL, bool BERN>
+template <int MODE, bool UNI, bool REFL, bool BERN, bool DET>
 __device__ __forceinline__ void general_lane(const GeneralParams& p, float* __restrict__ f,
                                              int* __restrict__ iv, int lane, GenShared& sh) {
   const size_t L = (size_t)p.n_lanes;
@@ -669,8 +934,15 @@ __device__ __forceinline__ void general_lane(const GeneralParams& p, float* __re
 #pragma unroll
       for (int q = 0; q < 4; ++q) u[4 * g + q] = to_unit(w4[q]);
     }
-    general_event<MODE, UNI, REFL, BERN>(p, u, s);
+    general_event<MODE, UNI, REFL, BERN, DET>(p, u, s, lane, j);
   }
+  // The flux set forms the stores' addresses from a lane the compiler
+  // cannot see through: it would otherwise keep the loads' 15 row addresses
+  // over the events, which under 64 registers spills them (24-72 B, ptxas
+  // of the H100 build).  The DET set, which spills around its noinline
+  // estimate call anyway, ran 4% slower per radiance batch with it
+  // (PERF.md section 6).
+  if (!DET) asm volatile("" : "+r"(lane));
   f[lane] = s.x;
   f[L + lane] = s.y;
   f[2 * L + lane] = s.z;
@@ -701,9 +973,12 @@ __device__ __forceinline__ void general_lane(const GeneralParams& p, float* __re
 // of a revived lane reach the thread that runs it through the prologue's
 // __syncthreads.  4 CTAs per SM: without the bound the ray-tracing
 // instantiations over a reflecting surface take 73-79 registers since the
-// lanes are compacted (3 CTAs); with it every one takes <= 64 and spills
-// nothing (ptxas, H100 build).
-template <int MODE, bool UNI, bool REFL, bool BERN>
+// lanes are compacted (3 CTAs); with it every one takes <= 64 registers.
+// The flux set spills nothing (the draws' slots are constants, the stores'
+// addresses are formed at the stores); the DET set spills around its
+// noinline estimate call (2 or 3 CTAs per SM did not pay: PERF.md).
+// chip_smoke.py phase 2 reads each from ptxas.
+template <int MODE, bool UNI, bool REFL, bool BERN, bool DET>
 __global__ void __launch_bounds__(CTA_THREADS, GEN_CTAS_PER_SM)
 general_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
                            const __grid_constant__ GeneralParams p) {
@@ -713,7 +988,7 @@ general_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
   // n_live, T and the CTA's tiles are read from shared memory and the
   // parameters where they are used: no register holds them over the events.
   if (sh.tiles == 1) {
-    if (t < sh.n_live) general_lane<MODE, UNI, REFL, BERN>(p, f, iv, sh.live_ids[t], sh);
+    if (t < sh.n_live) general_lane<MODE, UNI, REFL, BERN, DET>(p, f, iv, sh.live_ids[t], sh);
   } else {
 #pragma unroll 1
     for (;;) {
@@ -722,7 +997,7 @@ general_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
       chunk = __shfl_sync(FULL_MASK, chunk, 0);
       if (chunk * 32 >= sh.n_live) break;
       const int k = chunk * 32 + wl;
-      if (k < sh.n_live) general_lane<MODE, UNI, REFL, BERN>(p, f, iv, sh.live_ids[k], sh);
+      if (k < sh.n_live) general_lane<MODE, UNI, REFL, BERN, DET>(p, f, iv, sh.live_ids[k], sh);
     }
   }
   __syncthreads();

@@ -22,7 +22,8 @@ On the port "auto" and "baked" run one baked gas-channel integrator per k
 point (a k point changes only the event kernel's parameter block, so there
 is no compile to amortize); "traced", like "auto" on a workload without a
 fastpath plan, swaps each k point's optics into the band integrator's
-general kernel; "fused" raises NotImplementedError naming ROADMAP item
+general kernel (radiance detectors included: its local estimate); "fused"
+raises NotImplementedError naming ROADMAP item
 13b.  ``--device`` defaults to ``cuda``; a missing
 GPU raises instead of running on the CPU.  The surface is the namelist's
 ``surfaceAlbedo``, or a ``SurfaceDescription`` that a caller of

@@ -10,12 +10,13 @@ package's own writers.
     python -m i3rc_tpu_torch.drivers.monte_carlo_driver [--device cuda] run.nml
 
 ``--device`` defaults to ``cuda``; a missing GPU raises instead of running
-on the CPU.  The port covers flux transport with ray tracing
-(``useRayTracing = .true.``, the reference's default: the general kernel)
-or maximum cross-section, and radiance on the fastpath's workloads, over a
-black or Lambertian (``surfaceAlbedo``) surface; namelists that ask for
-more (polarized transport; radiance on a workload without a fastpath plan,
-ray tracing included) raise NotImplementedError naming the ROADMAP item.
+on the CPU.  The port covers flux and radiance with ray tracing
+(``useRayTracing = .true.``, the reference's default: the general kernel,
+its local estimate with the namelist's Iwabuchi roulette and ``zetaMin``,
+hybrid phase functions and contribution clipping) or maximum cross-section
+(the fastpath where it has a plan, else the general kernel), over a black
+or Lambertian (``surfaceAlbedo``) surface; polarized transport raises
+NotImplementedError naming ROADMAP item 17.
 """
 
 from __future__ import annotations

@@ -19,7 +19,11 @@ scheduling, not physics: the port accepts them, and ``general_chain``
 (with the JAX package's auto rule) still picks the weight-1 estimator of
 the chained tracer (Bernoulli absorption, counts for exits and deaths),
 but its general event block (kernels/general_block.py) schedules its own
-way: every flight runs to its end in one thread, K events per launch.
+way: every flight runs to its end in one thread, K events per launch.  So
+are ``use_queued_intensity`` and ``intensity_ray_steps`` (persistent ray
+slots with the inline estimator's expectations): the port accepts them and
+runs the inline local estimate, each ray traced to its end by the thread
+that collided.
 """
 
 from __future__ import annotations

@@ -11,15 +11,18 @@ uniform lambertian, rpv, cox_munk or ross_li BRDF, or a gridded one).
 
 ``create`` flattens the domain once (host numpy, shared with the JAX
 package), validates the arguments and, as the JAX package does, turns on
-super-voxel majorants of 8 cells on domains above 2^18 cells.
-``batch_tracer`` dispatches as the JAX package does: the fastpath when it
-has a plan, else the general kernel (``wavefront.make_batch_tracer``; its
-packed optics and inverse-CDF tables are built at first use).  Radiance
-detectors on a workload without a fastpath plan are ROADMAP item 16b.
+super-voxel majorants of 8 cells on domains above 2^18 cells, and there,
+with radiance detectors and no estimator chosen, ratio-tracking
+transmittance (with the JAX package's I3RCWarning).  ``batch_tracer``
+dispatches as the JAX package does: the fastpath when it has a plan, else
+the general kernel (``wavefront.make_batch_tracer``; its packed optics,
+inverse-CDF and, with detectors, forward phase tables are built at first
+use).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -28,7 +31,7 @@ import torch
 from i3rc_tpu_torch.core.optics import Domain, FlatOptics, flatten_optics
 from i3rc_tpu_torch.core.surface import BRDF_REGISTRY, SurfaceDescription
 from i3rc_tpu_torch.integrators.config import IntegratorConfig
-from i3rc_tpu_torch.utils.errors import Status
+from i3rc_tpu_torch.utils.errors import I3RCWarning, Status
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.core.rng import PhiloxKey
 from i3rc_tpu_torch.integrators.fastpath import (
@@ -39,7 +42,11 @@ from i3rc_tpu_torch.integrators.fastpath import (
     optics_flags,
 )
 from i3rc_tpu_torch.integrators.results import Results, column_weights, normalize_tallies
-from i3rc_tpu_torch.integrators.tables import build_inverse_cubic
+from i3rc_tpu_torch.integrators.tables import (
+    build_forward_tables,
+    build_inverse_cubic,
+    hybridize,
+)
 from i3rc_tpu_torch.integrators.wavefront import (
     ONEHOT_MAX_ROWS,
     DeviceOptics,
@@ -174,6 +181,18 @@ class Integrator:
         # 211-218); an explicit majorant_block_size wins.
         if config.majorant_block_size == 0 and flat.total_ext.size > ONEHOT_MAX_ROWS:
             config = replace(config, majorant_block_size=8)
+        if (intensity_mus is not None and flat.total_ext.size > ONEHOT_MAX_ROWS
+                and config.majorant_block_size > 0
+                and not config.use_ratio_tracking_for_intensity
+                and not config.use_russian_roulette_for_intensity):
+            # Local estimation on large domains: ratio tracking unless an
+            # estimator was chosen (JAX integrator.py:219-239).
+            warnings.warn(
+                "large domain with radiance detectors: enabling ratio-"
+                "tracking transmittance (unbiased; set "
+                "use_russian_roulette_for_intensity for the Iwabuchi "
+                "estimator instead)", I3RCWarning, stacklevel=2)
+            config = replace(config, use_ratio_tracking_for_intensity=True)
         blocks = majorant_block_shape(flat.total_ext.shape, config.majorant_block_size)
         if intensity_mus is not None:
             phis_rad = np.deg2rad(phis)
@@ -226,12 +245,28 @@ class Integrator:
 
     @property
     def tables(self) -> DeviceTables:
-        """The inverse-CDF cubic tables of every component, built at first use."""
+        """The inverse-CDF cubic tables of every component and, with
+        detectors, the forward phase tables (hybridized when the config
+        asks for hybrid phase functions; JAX integrator.py:248-265), built
+        at first use."""
         def build():
             cubic = build_inverse_cubic(self._flat)
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32).ravel(),
+                                          device=self.device)
+            fwd = fwd_orig = None
+            n_fwd = 0
+            if self.intensity is not None:
+                cfg = self.config
+                n_fwd = cfg.min_forward_table_size
+                orig = build_forward_tables(self._flat, n_fwd)
+                hybrid = (hybridize(orig, cfg.hybrid_phase_fun_width)
+                          if cfg.use_hybrid_phase_funs and cfg.hybrid_phase_fun_width > 0.0
+                          else orig)
+                fwd, fwd_orig = t(hybrid), t(orig)
             return DeviceTables(
                 inverse_cubic=torch.as_tensor(cubic.reshape(-1, 4), device=self.device),
-                n_segments=cubic.shape[2], max_entries=cubic.shape[1])
+                n_segments=cubic.shape[2], max_entries=cubic.shape[1], forward=fwd,
+                forward_orig=fwd_orig, n_forward_steps=n_fwd)
         return self._cached("_tables", build)
 
     def general_tracer(self, n_photons: int, n_lanes: int | None = None):

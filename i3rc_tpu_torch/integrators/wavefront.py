@@ -1,28 +1,41 @@
-"""Transport primitives and the general transport kernel's flux path.
+"""Transport primitives and the general transport kernel (flux and radiance).
 
 Port of ``i3rc_tpu/integrators/wavefront.py``: the raw tally record, the
 direction helpers, the surface and intensity specs, and the general
-wavefront kernel (``make_batch_tracer``, wavefront.py:657) for flux:
-voxel ray tracing, maximum cross-section against the global majorant and
+wavefront kernel (``make_batch_tracer``, wavefront.py:657): voxel ray
+tracing, maximum cross-section against the global majorant and
 super-voxel Woodcock against block majorants; any number of components
 with per-cell ssa and phase index sampled from the piecewise-cubic inverse
 CDF; weight-carrying absorption with Russian roulette, or the weight-1
 class of ``make_chained_flux_tracer`` (Bernoulli absorption); black,
 Lambertian-albedo and gridded BRDF surfaces; flux up, down and absorbed per
-column and the volume absorption.  ``general_event`` is one ``event_step``
-(wavefront.py:1144-1540, flux branch) as torch ops on (L,) lane tensors:
-the plain version of the CUDA event block (``kernels/general_block.py``).
+column, the volume absorption, and local-estimate radiance toward each
+detector direction (``intensity_estimate``: the phase value at the
+photon-to-detector angle from the forward tables, hybrid or original by
+order, the surface's 1/pi or BRDF value, and the transmittance to the
+boundary by the exact trace, Iwabuchi roulette or ratio tracking, with
+optional clipping).  ``general_event`` is one ``event_step``
+(wavefront.py:1144-1540) as torch ops on (L,) lane tensors: the plain
+version of the CUDA event block (``kernels/general_block.py``).
 
 Differences from the JAX kernel, none of them in the estimator:
   * dead lanes are refilled at the start of a K-event block, in FIFO order
     from the photon budget, not before every event: that changes the random
     stream (which photon a lane carries when), not what a photon does;
   * draws come from the port's Philox stream (``core/rng.py``), event j of
-    block kb reading group j * G + d // 4, word d % 4 for its draw d;
+    block kb reading group j * G + d // 4, word d % 4 for its draw d; the
+    local estimate's from ``rng.STREAM_INTENSITY`` (``rng.intensity_group``);
   * the chained tracer's schedule (``general_chain`` cycles of
     ``general_dda_steps`` crossings per iteration) is TPU scheduling: the
     port keeps its estimator (weight 1, Bernoulli survival, exits and
-    deaths as counts) and traces each flight to its end;
+    deaths as counts; with detectors the prefactor ssa P / (4 pi |mu_d|)
+    at every physical collision and ratio-tracked rays, a bad or over-long
+    ray counted bad) and traces each flight and each ray to its end;
+  * so is the queued local estimation (``use_queued_intensity``,
+    ``intensity_ray_steps``: persistent ray slots and frozen lanes, whose
+    expectations are the inline estimator's, wavefront.py:1387-1394): the
+    port accepts both fields and runs the inline estimator, every ray of a
+    collision traced to its end by the thread that collided;
   * tallies are float64 sums, added as the events happen (no one-hot
     matmul: the card reads and adds by index);
   * a maximum cross-section exit is placed on the boundary plane from the
@@ -44,12 +57,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from i3rc_tpu_torch.core.rng import TINY, exponential_deviate
+from i3rc_tpu_torch.core.rng import (
+    TINY,
+    exponential_deviate,
+    intensity_group,
+    intensity_uniforms,
+)
 from i3rc_tpu_torch.ops.dda import (
     BAD,
     EXIT_BOT,
     EXIT_TOP,
     SCATTER,
+    _div,
     fmod_positive,
     trace_extinction,
 )
@@ -108,6 +127,8 @@ class RawTallies:
     n_iterations: int              # event-loop trips (diagnostic)
     n_lane_events: torch.Tensor    # scalar: total live lane-events (diagnostic)
     n_dda_steps: torch.Tensor | None = None  # scalar: DDA crossings (general kernel; diagnostic)
+    n_int_steps: torch.Tensor | None = None  # scalar: the local estimate's DDA steps (diagnostic)
+    n_int_rays: torch.Tensor | None = None   # scalar: the local estimate's rays (diagnostic)
 
 
 def make_direction_cosines(mu, phi):
@@ -232,11 +253,18 @@ class DeviceOptics:
 class DeviceTables:
     """The piecewise-cubic inverse CDF of every (component, phase entry):
     ``inverse_cubic`` (n_components * max_entries * n_segments, 4) float32
-    (tables.build_inverse_cubic)."""
+    (tables.build_inverse_cubic); with radiance detectors the phase values
+    on ``n_forward_steps`` equally spaced angles of [0, pi], ``forward``
+    (n_components * max_entries * n_forward_steps,) float32, hybridized when
+    the config asks for hybrid phase functions, and ``forward_orig``, the
+    original values (tables.build_forward_tables; wavefront.py:121-127)."""
 
     inverse_cubic: torch.Tensor
     n_segments: int
     max_entries: int
+    forward: torch.Tensor | None = None
+    forward_orig: torch.Tensor | None = None
+    n_forward_steps: int = 0
 
 
 def sample_cos_scat(tables: DeviceTables, comp, pf_idx, u):
@@ -250,6 +278,217 @@ def sample_cos_scat(tables: DeviceTables, comp, pf_idx, u):
     c = tables.inverse_cubic[row.long()]
     mu = ((c[:, 3] * t + c[:, 2]) * t + c[:, 1]) * t + c[:, 0]
     return torch.clamp(mu, -1.0, 1.0)
+
+
+def table_lookup(flat_table, row_base, position, n_steps: int):
+    """Linear interpolation into rows of a flattened (rows, n_steps) table,
+    grid points at i / (n_steps - 1) of ``position`` in [0, 1]
+    (_table_lookup, wavefront.py:251-261)."""
+    pos = torch.clamp(position, 0.0, 1.0) * float(n_steps - 1)
+    i0 = torch.clamp(pos.to(torch.int32), 0, n_steps - 2)
+    frac = pos - i0.to(pos.dtype)
+    idx = (row_base + i0).long()
+    return (1.0 - frac) * flat_table[idx] + frac * flat_table[idx + 1]
+
+
+# ---------------------------------------------------------------------------
+# Local estimation (radiance detectors) of the general kernel
+
+# Estimators of the transmittance to the boundary (DetectorSet.est): the
+# exact trace on the fine grid, Iwabuchi (2006) roulette on it, ratio
+# tracking over the block majorants (wavefront.py:933-982).
+EXACT, IWABUCHI, RATIO = 0, 1, 2
+_PI = f32(np.pi)
+_FOUR_PI = f32(4.0 * np.pi)
+_INV_PI = f32(1.0 / np.pi)
+_TRACE_TARGET = f32(3.0e38)
+
+
+@dataclass(frozen=True)
+class DetectorSet:
+    """The detectors of a general-kernel tracer, on its device: D (``n``)
+    unit ``dirs`` (3, D) float32, the optics' ``n_comp`` components (the
+    radiance by component has n_comp + 1 slots), ``abs_mu`` (D,) float32,
+    ``exit_status`` (D,) int32 (EXIT_TOP for up-going directions), ``phi``
+    (D,) float32
+    atan2(dir_y, dir_x) (the BRDF's outgoing azimuth); the estimator
+    ``est``, float32 ``zeta`` (zeta_min) and ``zeta_ratio`` (max(zeta_min,
+    1e-3), ratio tracking's roulette), ``n_orig`` (orders <= n_orig read the
+    original phase table under hybrid phase functions; 0 never), the clip
+    ``cap`` (``clip`` on), ``max_crossings`` (the fine trace's crossing
+    budget, ratio tracking's round budget) and ``ratio_crossings`` (the
+    crossing budget of one ratio-tracking flight on the block grid)."""
+
+    n: int
+    n_comp: int
+    dirs: torch.Tensor
+    abs_mu: torch.Tensor
+    exit_status: torch.Tensor
+    phi: torch.Tensor
+    est: int
+    zeta: float
+    zeta_ratio: float
+    n_orig: int
+    clip: bool
+    cap: float
+    max_crossings: int
+    ratio_crossings: int
+
+
+def ratio_transmittance(spec, opt: DeviceOptics, key, kb: int, j: int, lane, d, px, py, pz,
+                        dx, dy, dz, steps, rounds: int):
+    """Ratio tracking to the boundary over the block majorants
+    (ratio_transmittance, wavefront.py:798-855) of the (lane, detector)
+    rays: free paths against the majorants of ``spec.coarse``, each
+    tentative collision multiplying T by clip(1 - ext / majorant, 0, 1),
+    roulette of T at ``zeta_ratio``; round r draws words 2 (r % 2) and 2 (r
+    % 2) + 1 of pair r // 2.  At most ``rounds`` rounds.  Returns (T, exit
+    column index x, y, escaped through the detector's side, the ray ended
+    bad: a bad flight or alive after the last round); ``steps`` counts each
+    ray's DDA steps in place."""
+    det, cg, g = spec.det, spec.coarse, spec.geom
+    n = px.shape[0]
+    T = torch.ones(n, dtype=torch.float32, device=px.device)
+    fix = torch.zeros(n, dtype=torch.int32, device=px.device)
+    fiy = torch.zeros_like(fix)
+    esc = torch.zeros(n, dtype=torch.bool, device=px.device)
+    bad = torch.zeros_like(esc)
+    live = torch.ones_like(esc)
+    exit_d = det.exit_status[d]
+    for r in range(rounds):
+        idx = torch.nonzero(live).flatten()
+        if idx.numel() == 0:
+            break
+        group = intensity_group(j, d[idx].long(), r >> 1, spec.K, det.n)
+        u = intensity_uniforms(key, kb, lane[idx].long(), group)
+        w0 = 2 * (r & 1)
+        u_free, u_kill = u[w0], u[w0 + 1]
+        x0, y0, z0 = px[idx], py[idx], pz[idx]
+        st = torch.zeros(idx.numel(), dtype=torch.int32, device=px.device)
+        rx, ry, rz, fbx, fby, fbz, _, status = trace_extinction(
+            cg, opt.block_majorant, x0, y0, z0, cg.locate_x(x0), cg.locate_y(y0),
+            cg.locate_z(z0), dx[idx], dy[idx], dz[idx], exponential_deviate(u_free),
+            torch.ones_like(st, dtype=torch.bool), det.ratio_crossings, steps=st)
+        steps.index_add_(0, idx, st)
+        good = status == exit_d[idx]
+        esc[idx] = good
+        fix[idx] = torch.where(good, g.locate_x(rx), 0)
+        fiy[idx] = torch.where(good, g.locate_y(ry), 0)
+        bad[idx] = status == BAD
+        collided = status == SCATTER
+        flat = ((g.locate_x(rx) * g.n_y + g.locate_y(ry)) * g.n_z + g.locate_z(rz)).long()
+        maj = opt.block_majorant[((fbx * cg.n_y + fby) * cg.n_z + fbz).long()]
+        ratio = torch.clamp(1.0 - opt.total_ext[flat] / torch.clamp(maj, min=f32(1e-30)),
+                            0.0, 1.0)
+        t = torch.where(collided, T[idx] * ratio, T[idx])
+        rr = collided & (t < det.zeta_ratio)
+        killed = rr & (u_kill >= _div(t, det.zeta_ratio))
+        t = torch.where(rr, torch.where(killed, 0.0, det.zeta_ratio), t)
+        T[idx] = t
+        go = collided & (t > 0.0)
+        live[idx] = go
+        px[idx], py[idx], pz[idx] = (torch.where(go, a, b) for a, b in ((rx, x0), (ry, y0),
+                                                                       (rz, z0)))
+    return T, fix, fiy, esc, bad | live
+
+
+def intensity_estimate(spec, var, opt: DeviceOptics, tables: DeviceTables, key, kb: int, j: int,
+                       est, is_surface, x, y, z, ix, iy, iz, ux, uy, uz, weight, comp, pf_idx,
+                       order, buf) -> torch.Tensor:
+    """Local estimation toward each detector (intensity_contribution,
+    wavefront.py:884-1003; in the weight-1 class the chained tracer's,
+    :485-503 and :532-603) for the lanes ``est`` of an event, at (x, y, z)
+    in cell (ix, iy, iz) with the incoming direction u: the phase value at
+    the photon-to-detector angle over 4 pi |mu_d| (the original table for
+    orders <= n_orig), 1/pi at a Lambertian surface or R(in -> detector)/pi
+    at a BRDF surface (0 for a downward detector), times ``weight`` (the
+    weight-1 class: ssa), times the transmittance to the boundary, counted
+    only through the detector's side; clipped at the cap with the excess
+    kept.  Adds to ``buf.intensity`` (column of the exit * D + d),
+    ``buf.by_component`` (slot 0 the surface, comp + 1 otherwise),
+    ``buf.excess``, ``buf.int_steps`` (the rays' DDA steps per lane) and
+    ``buf.int_rays`` (the rays per lane).
+    Returns the lanes' bad rays (the weight-1 class counts them; (L,)
+    int32)."""
+    det, g = spec.det, spec.geom
+    D = det.n
+    L = est.shape[0]
+    dev = est.device
+    bad_lane = torch.zeros(L, dtype=torch.int32, device=dev)
+    sel = torch.nonzero(est).flatten()
+    if sel.numel() == 0:
+        return bad_lane
+    lane = sel.repeat_interleave(D)                      # (lane, detector) rays, lane-major
+    d = torch.arange(D, device=dev).repeat(sel.numel())
+    dx, dy, dz = det.dirs[0][d], det.dirs[1][d], det.dirs[2][d]
+    uxl, uyl, uzl = ux[lane], uy[lane], uz[lane]
+    proj = torch.clamp(uxl * dx + uyl * dy + uzl * dz, -1.0, 1.0)
+    pos = _div(torch.acos(proj), _PI)
+    n_fwd = tables.n_forward_steps
+    row = (comp[lane] * tables.max_entries + pf_idx[lane]) * n_fwd
+    pf = table_lookup(tables.forward, row, pos, n_fwd)
+    if det.n_orig > 0:
+        pf = torch.where(order[lane] <= det.n_orig,
+                         table_lookup(tables.forward_orig, row, pos, n_fwd), pf)
+    surf = is_surface[lane]
+    if var.bernoulli:
+        pre = pf * var.ssa / (_FOUR_PI * det.abs_mu[d])
+    else:
+        norm_pf = pf / (_FOUR_PI * det.abs_mu[d])
+        if spec.surface_kind > 1:          # a BRDF (kernels/general_block.py ALBEDO = 1)
+            phi_in = torch.atan2(uyl, uxl)
+            refl = surface_reflectance(spec, x[lane], y[lane], uzl, dz, phi_in, det.phi[d])
+            srf_pf = torch.where(dz > 0.0, _div(refl, _PI), 0.0)
+            norm_pf = torch.where(surf, srf_pf, norm_pf)
+        else:
+            norm_pf = torch.where(surf, _INV_PI, norm_pf)
+        w = weight[lane]
+    steps = torch.zeros(lane.shape[0], dtype=torch.int32, device=dev)
+    if det.est == RATIO:
+        rounds = 4 * det.max_crossings if var.bernoulli else det.max_crossings
+        T, fix, fiy, esc, bad = ratio_transmittance(
+            spec, opt, key, kb, j, lane, d, x[lane].clone(), y[lane].clone(), z[lane].clone(),
+            dx, dy, dz, steps, rounds)
+        if var.bernoulli:
+            contrib = torch.where(esc, pre * T, 0.0)
+            bad_lane.index_add_(0, lane, bad.to(torch.int32))
+        else:
+            contrib = torch.where(esc, w * norm_pf * T, 0.0)
+    else:
+        if det.est == IWABUCHI:
+            u = intensity_uniforms(key, kb, lane, intensity_group(j, d, 0, spec.K, D))
+            u_free, u_accept = u[0], u[1]
+            tau_free = exponential_deviate(u_free)
+            pn = _PI * norm_pf
+            small = pn <= det.zeta
+            tau_max = -torch.log(torch.full_like(pn, det.zeta) / torch.clamp(pn, min=TINY))
+            target = torch.where(small, tau_free, tau_max + tau_free)
+        else:
+            target = torch.full_like(dx, _TRACE_TARGET)
+        _, _, _, fix, fiy, _, tau, status = trace_extinction(
+            g, opt.total_ext, x[lane], y[lane], z[lane], ix[lane], iy[lane], iz[lane], dx, dy,
+            dz, target, torch.ones_like(surf), det.max_crossings, steps=steps)
+        esc = status == det.exit_status[d]
+        if det.est == IWABUCHI:
+            flat = _div(w * det.zeta, _PI)
+            c_small = torch.where(esc & (u_accept <= _div(pn, det.zeta)), flat, 0.0)
+            c_large = torch.where(esc & (tau <= tau_max), w * norm_pf * torch.exp(-tau),
+                                  torch.where(esc, flat, 0.0))
+            contrib = torch.where(small, c_small, c_large)
+        else:
+            contrib = torch.where(esc, w * norm_pf * torch.exp(-tau), 0.0)
+    buf.int_steps.index_add_(0, lane, steps)
+    buf.int_rays.index_add_(0, lane, torch.ones_like(steps))
+    n1 = det.n_comp + 1
+    slot = torch.where(surf, 0, comp[lane] + 1).long()
+    if det.clip:
+        excess = torch.clamp(contrib - det.cap, min=0.0)
+        contrib = torch.minimum(contrib, torch.full_like(contrib, det.cap))
+        buf.excess.index_add_(0, d * n1 + slot, excess.to(torch.float64))
+    bin_ = ((fix * g.n_y + fiy).long() * D + d)
+    buf.intensity.index_add_(0, bin_, contrib.to(torch.float64))
+    buf.by_component.index_add_(0, bin_ * n1 + slot, contrib.to(torch.float64))
+    return bad_lane
 
 
 def surface_reflectance(spec, x, y, mu_in, mu_out, phi_in, phi_out):
@@ -270,17 +509,18 @@ def surface_reflectance(spec, x, y, mu_in, mu_out, phi_in, phi_out):
                         mu_in, mu_out, phi_in, phi_out)
 
 
-def general_event(spec, var, opt: DeviceOptics, tables: DeviceTables, u, s: dict,
-                  columns, vol) -> None:
-    """One ``event_step`` (wavefront.py:1144-1540, the flux branch) on the lane
-    tensors in ``s``, in place: free path, transport (DDA, maximum cross-
-    section jump or Woodcock on the block majorants), exits, the surface,
-    the collision (component pick, absorption by weight or, in the weight-1
-    class, by survival; roulette; the inverse-CDF angle and rotation) and
-    the budgets.  ``u`` is the event's (n_draws, L) draws in the order of
-    ``var.draws``; exits and absorption add float64 weights to ``columns``
-    ((n_cols, 3): up, down, absorbed) and, with the volume tally, ``vol``
-    ((n_cells,))."""
+def general_event(spec, var, opt: DeviceOptics, tables: DeviceTables, u, s: dict, buf,
+                  key=None, kb: int = 0, j: int = 0) -> None:
+    """One ``event_step`` (wavefront.py:1144-1540, the inline branch) on the
+    lane tensors in ``s``, in place: free path, transport (DDA, maximum
+    cross-section jump or Woodcock on the block majorants), exits, the
+    surface, the collision (component pick, absorption by weight or, in the
+    weight-1 class, by survival), with detectors the local estimate
+    (``intensity_estimate``, draws at (key, kb, event j)), roulette, the
+    inverse-CDF angle and rotation, and the budgets.  ``u`` is the event's
+    (n_draws, L) draws in the order of ``var.draws``; exits and absorption
+    add float64 weights to ``buf.columns`` ((n_cols, 3): up, down,
+    absorbed) and, with the volume tally, ``buf.vol`` ((n_cells,))."""
     d = {n: u[k] for k, n in enumerate(var.draws)}
     geom = spec.geom
     alive = s["alive"]
@@ -378,12 +618,23 @@ def general_event(spec, var, opt: DeviceOptics, tables: DeviceTables, u, s: dict
         absorbed = torch.where(physical, w * coalb, 0.0)
         w_sc = w * (1.0 - coalb)
         order_next = s["order"] + (physical | exit_bot).to(torch.int32)
-    columns.index_add_(0, col, torch.stack([torch.where(exit_top, w, 0.0),
-                                            torch.where(exit_bot, w, 0.0),
-                                            absorbed], dim=1).to(torch.float64))
+    buf.columns.index_add_(0, col, torch.stack([torch.where(exit_top, w, 0.0),
+                                                torch.where(exit_bot, w, 0.0),
+                                                absorbed], dim=1).to(torch.float64))
     if spec.vol:
-        vol.index_add_(0, flat, absorbed.to(torch.float64))
+        buf.vol.index_add_(0, flat, absorbed.to(torch.float64))
     math_move = collide & ~physical if spec.mode != RT else zeros_b
+
+    # Local estimation (:1487-1497): every physical collision with the
+    # post-absorption weight, and the surface: a BRDF's every bottom hit with
+    # the pre-reflection weight, an albedo's live reflections with w_srf.
+    if spec.det is not None:
+        brdf = spec.surface_kind > 1           # kinds above ALBEDO are BRDFs
+        est = physical | (exit_bot if brdf else surf_alive)
+        w_event = torch.where(exit_bot, w if brdf else w_srf, w_sc)
+        s["bad"] = s["bad"] + intensity_estimate(
+            spec, var, opt, tables, key, kb, j, est, exit_bot, rx, ry, rz, rix, riy, riz,
+            ux, uy, uz, w_event, comp, pf_idx, order_next, buf)
 
     # Russian roulette (:1499-1505).
     if var.rr:
@@ -422,16 +673,17 @@ def make_batch_tracer(geom, optics: DeviceOptics, tables: DeviceTables, surface,
     for the general kernel (wavefront.py:657): one ``general_block`` per
     K-event block (on a card one launch of the CUDA kernel, on the CPU its
     plain version), the loop's end a device flag read every
-    ``fastpath.CHECK_EVERY`` blocks.  Radiance detectors on the general
-    kernel are ROADMAP item 16b."""
-    if intensity is not None:
-        raise NotImplementedError(
-            "radiance detectors on the general kernel (no fastpath plan): ROADMAP item 16b")
+    ``fastpath.CHECK_EVERY`` blocks.  With ``intensity`` the blocks make
+    the local estimate of every collision and surface event (the inline
+    estimator: ``use_queued_intensity`` and ``intensity_ray_steps`` are TPU
+    scheduling, module docstring); the tallies carry the radiance,
+    ``n_int_steps`` and ``n_int_rays``."""
     from i3rc_tpu_torch.integrators.fastpath import CHECK_EVERY, lane_width
     from i3rc_tpu_torch.kernels import general_block as gb
 
     L = lane_width(n_photons, n_lanes)
-    spec = gb.general_spec(geom, coarse_geom, surface, config, n_photons)
+    spec = gb.general_spec(geom, coarse_geom, surface, config, n_photons, intensity,
+                           optics.n_components)
     # Global hang guard (counts K-event blocks): the JAX kernel's event cap,
     # max_events * (n_photons // L + 2) events.
     max_blocks = -(-config.max_events * (n_photons // L + 2) // spec.K)
@@ -460,10 +712,13 @@ def make_batch_tracer(geom, optics: DeviceOptics, tables: DeviceTables, surface,
             flux_up=buf.columns[:, 0], flux_down=buf.columns[:, 1],
             flux_absorbed=buf.columns[:, 2],
             volume_absorption=buf.vol if spec.vol else zeros(n_cols * geom.n_z),
-            intensity=zeros(0), intensity_by_component=zeros(0), intensity_excess=zeros(0),
+            intensity=buf.intensity, intensity_by_component=buf.by_component,
+            intensity_excess=buf.excess,
             n_photons=int(n_photons), n_bad=n_bad, n_iterations=n_blocks * spec.K,
             n_lane_events=i[gb.EVCT].sum(dtype=torch.int64),
-            n_dda_steps=i[gb.XING].sum(dtype=torch.int64))
+            n_dda_steps=i[gb.XING].sum(dtype=torch.int64),
+            n_int_steps=buf.int_steps.sum(dtype=torch.int64),
+            n_int_rays=buf.int_rays.sum(dtype=torch.int64))
 
     trace.spec = spec
     return trace

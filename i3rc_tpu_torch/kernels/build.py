@@ -2,7 +2,8 @@
 
 Sources under ``i3rc_tpu_torch/csrc/`` are compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/`` at the repository root, at first use, and
-cached there by a hash of the sources, the headers and the flags.  Each
+cached there by a hash of the sources, the headers and the flags, with
+the build's nvcc / ptxas output beside the library (``<name>-<hash>.log``).  Each
 source compiles in its own ``nvcc`` process, all started together, and one
 more links the objects.  The library has a plain C interface and is loaded
 with ``ctypes``; nothing here includes PyTorch's headers.
@@ -36,7 +37,7 @@ class Built:
     lib: ctypes.CDLL
     path: Path
     seconds: float     # wall time of the build; 0.0 when the cached library was reused
-    log: str           # nvcc / ptxas output of the build ("" when cached)
+    log: str           # nvcc / ptxas output of the build that made the library
 
 
 def _nvcc() -> str:
@@ -74,21 +75,26 @@ def build(name: str, sources: tuple[str, ...]) -> Built:
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
+    if out.exists() and log_path.exists():
+        log = log_path.read_text()
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{out.stem}.{os.getpid()}"
         objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in paths]
-        tmp = BUILD_DIR / f"{tag}.tmp"
+        tmp, tmp_log = BUILD_DIR / f"{tag}.tmp", BUILD_DIR / f"{tag}.log.tmp"
         nvcc = _nvcc()
         t0 = time.perf_counter()
         try:
             log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
                         for p, o in zip(paths, objs)], name)
             log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], name)
+            tmp_log.write_text(log)
+            os.replace(tmp_log, log_path)
             os.replace(tmp, out)
         finally:
-            for f in (*objs, tmp):
+            for f in (*objs, tmp, tmp_log):
                 f.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
     return Built(ctypes.CDLL(str(out)), out, seconds, log)

@@ -3,8 +3,10 @@
 ``general_block`` is the wrapper the general trace loop
 (``integrators/wavefront.py`` ``make_batch_tracer``) calls for one block:
 the FIFO refill of dead lanes from the photon budget (source sampled in
-the kernel), then K events of the general kernel's flux path
-(``wavefront.general_event``).  On a CUDA tensor it launches the
+the kernel), then K events of the general kernel
+(``wavefront.general_event``), with radiance detectors each event's local
+estimate (``wavefront.intensity_estimate``; the kernel's noinline
+``general_estimate`` stage).  On a CUDA tensor it launches the
 hand-written Hopper kernel ``csrc/general_event_block.cuh`` once and raises
 if the build or the launch fails; on a CPU tensor it runs
 ``general_block_reference``, the plain PyTorch version, on the same Philox
@@ -20,7 +22,10 @@ shared), in the order of ``Variant.draws``: free path, cosine, azimuth,
 then the Woodcock / maximum cross-section acceptance, the surface's two
 draws, the component pick and the roulette (or, in the weight-1 class, the
 survival draw), each only where the variant consumes it
-(wavefront.py:1184-1199).
+(wavefront.py:1184-1199).  The local estimate draws from
+``rng.STREAM_INTENSITY`` at (lane, kb, ``rng.intensity_group(j, d,
+pair)``): Iwabuchi roulette words 0-1 of pair 0 per detector, ratio
+tracking two words a round, one Philox call every two rounds.
 """
 
 from __future__ import annotations
@@ -35,10 +40,14 @@ import torch
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.core.rng import STREAM_REFILL, PhiloxKey, philox_uniforms
 from i3rc_tpu_torch.integrators.wavefront import (
+    EXACT,
+    IWABUCHI,
     MAXCS,
     ONEHOT_MAX_ROWS,
+    RATIO,
     RT,
     WOODCOCK,
+    DetectorSet,
     DeviceOptics,
     DeviceTables,
     f32,
@@ -57,6 +66,7 @@ from i3rc_tpu_torch.kernels.event_block import (
 from i3rc_tpu_torch.ops.dda import GridGeometry
 
 MODE_NAMES = {RT: "ray_tracing", MAXCS: "max_cross_section", WOODCOCK: "woodcock"}
+EST_NAMES = {EXACT: "exact", IWABUCHI: "iwabuchi", RATIO: "ratio"}
 ALBEDO = 1                       # surface kinds: 0 black, 1 albedo, then BRDF_KINDS
 MAX_BRDF_PARAMS = 4
 GENERAL_K = 8                    # events per launch
@@ -74,13 +84,15 @@ ALIVE, IX, IY, IZ, ORDER, BAD, EVCT, XING = range(8)
 class GeneralSpec:
     """What the block needs besides the optics, the tables and the state:
     the transport mode, the fine grid (``geom``) and the block-majorant grid
-    (``coarse``, Woodcock only), the surface (kind 0 black, ALBEDO, or a
+    (``coarse``: Woodcock transport or ratio-tracking estimates), the
+    detectors (``det``, None without), the surface (kind 0 black, ALBEDO, or a
     BRDF kind with its (n_xs * n_ys, n_params) float32 parameter grid and
     edge tensors; ``srf_x0`` / ``srf_wx`` etc. are the grid's origin and
     float32 width), the roulette, the event and crossing budgets (the
     crossing budget of the grid the DDA walks), the volume tally, K, and
     ``chained``: the weight-1 class applies to uniform single-component
-    optics (integrators/wavefront.py ``variant``)."""
+    optics (integrators/wavefront.py ``variant``; with detectors only under
+    ratio tracking without hybrid phases or clipping, wavefront.py:697-705)."""
 
     mode: int
     geom: GridGeometry
@@ -105,6 +117,7 @@ class GeneralSpec:
     chained: bool
     K: int
     n_photons: int
+    det: DetectorSet | None = None
 
 
 @dataclass(frozen=True)
@@ -131,20 +144,50 @@ class Variant:
         return len(self.draws)
 
 
+def detector_set(intensity, config, geom: GridGeometry, coarse: GridGeometry | None,
+                 n_components: int, dev) -> DetectorSet:
+    """The detectors and the local estimator of a tracer, decided as
+    make_batch_tracer decides (wavefront.py:672-674, :906-933): ratio
+    tracking when the config asks for it and block majorants exist, else
+    Iwabuchi roulette or the exact trace."""
+    if config.use_ratio_tracking_for_intensity and coarse is not None:
+        est = RATIO
+    else:
+        est = IWABUCHI if config.use_russian_roulette_for_intensity else EXACT
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(np.asarray(a, dt)), device=dev)
+    dirs = t(intensity.directions, np.float32)
+    hybrid = config.use_hybrid_phase_funs and config.num_orders_orig_phase_fun > 0
+    return DetectorSet(
+        n=int(intensity.n_directions), n_comp=int(n_components), dirs=dirs,
+        abs_mu=t(intensity.abs_mu, np.float32), exit_status=t(intensity.exit_status, np.int32),
+        phi=torch.atan2(dirs[1], dirs[0]).contiguous(), est=est, zeta=f32(config.zeta_min),
+        zeta_ratio=f32(max(config.zeta_min, 1e-3)),
+        n_orig=int(config.num_orders_orig_phase_fun) if hybrid else 0,
+        clip=bool(config.limit_intensity_contributions),
+        cap=f32(config.max_intensity_contribution),
+        max_crossings=int(config.max_intensity_crossings
+                          or max(1024, 8 * (geom.n_x + geom.n_y + geom.n_z))),
+        ratio_crossings=max(64, 4 * (coarse.n_x + coarse.n_y + coarse.n_z)) if coarse else 0)
+
+
 def general_spec(geom: GridGeometry, coarse: GridGeometry | None, surface, config,
-                 n_photons: int) -> GeneralSpec:
+                 n_photons: int, intensity=None, n_components: int = 1) -> GeneralSpec:
     """The block's constants for one tracer, decided as make_batch_tracer
-    decides (wavefront.py:671-709)."""
+    decides (wavefront.py:671-709); ``n_components`` sizes the radiance by
+    component."""
     n_x, n_y, n_z = geom.n_x, geom.n_y, geom.n_z
+    dev = geom.x_edges.device
+    det = None if intensity is None else detector_set(intensity, config, geom, coarse,
+                                                      n_components, dev)
+    ratio = det is not None and det.est == RATIO
     if config.use_ray_tracing:
-        mode, coarse = RT, None
+        mode, coarse = RT, coarse if ratio else None
         budget = config.max_crossings or max(1024, 8 * (n_x + n_y + n_z))
     elif coarse is not None:
         mode = WOODCOCK
         budget = max(64, 4 * (coarse.n_x + coarse.n_y + coarse.n_z))
     else:
         mode, budget = MAXCS, 0
-    dev = geom.x_edges.device
     kind, albedo, brdf = 0, 0.0, None
     params = xe = ye = None
     n_xs = n_ys = 1
@@ -165,14 +208,16 @@ def general_spec(geom: GridGeometry, coarse: GridGeometry | None, surface, confi
     # The weight-1 class (wavefront.py:688-709) with the one-hot read regime
     # read as "cells <= 2^18": auto chain 6 above it, 1 (off) below.
     chain = int(config.general_chain) or (6 if geom.n_cells > ONEHOT_MAX_ROWS else 1)
-    chained = chain > 1 and mode == WOODCOCK and black and not vol
+    chained = (chain > 1 and mode == WOODCOCK and black and not vol
+               and (det is None or (ratio and not config.use_hybrid_phase_funs
+                                    and not config.limit_intensity_contributions)))
     return GeneralSpec(
         mode=mode, geom=geom, coarse=coarse, surface_kind=kind, albedo=albedo, brdf_fn=brdf,
         srf_params=params, srf_x_edges=xe, srf_y_edges=ye, n_xs=n_xs, n_ys=n_ys,
         srf_x0=sx0, srf_wx=swx, srf_y0=sy0, srf_wy=swy,
         use_rr=bool(config.use_russian_roulette), rr_w=f32(config.russian_roulette_w),
         max_events=int(config.max_events), max_crossings=int(budget), vol=vol,
-        chained=chained, K=GENERAL_K, n_photons=int(n_photons))
+        chained=chained, K=GENERAL_K, n_photons=int(n_photons), det=det)
 
 
 def variant(spec: GeneralSpec, opt: DeviceOptics) -> Variant:
@@ -228,16 +273,26 @@ class GeneralBuffers:
     (n_cells, or empty) tallies, the loop control of
     ``event_block.BlockBuffers``: ``ctl`` int64 (4,) (launched at kb & 1,
     DONE, SPENT) and ``dead`` int32 (2, n_tiles) (dead lanes per tile of
-    CTA_THREADS lanes)."""
+    CTA_THREADS lanes); with D detectors the float64 radiance tallies
+    ``intensity`` (n_cols * D,), ``by_component`` (n_cols * D * (n_comp +
+    1),) and ``excess`` (D * (n_comp + 1),) and the int32 ``int_steps``
+    and ``int_rays`` (L,), each lane's estimate DDA steps and rays (D per
+    estimating event; all empty without detectors)."""
 
     columns: torch.Tensor
     vol: torch.Tensor
     ctl: torch.Tensor
     dead: torch.Tensor
+    intensity: torch.Tensor
+    by_component: torch.Tensor
+    excess: torch.Tensor
+    int_steps: torch.Tensor
+    int_rays: torch.Tensor
 
     def clone(self) -> "GeneralBuffers":
-        return GeneralBuffers(self.columns.clone(), self.vol.clone(), self.ctl.clone(),
-                              self.dead.clone())
+        return GeneralBuffers(*(t.clone() for t in (
+            self.columns, self.vol, self.ctl, self.dead, self.intensity, self.by_component,
+            self.excess, self.int_steps, self.int_rays)))
 
 
 def _place(spec: GeneralSpec, x, y, z, mu, phi, f, i, take) -> None:
@@ -275,14 +330,20 @@ def general_buffers(spec: GeneralSpec, state: GeneralState, launched: int,
     block ``kb`` on ``state`` with ``launched`` photons launched."""
     dev = state.f.device
     g = spec.geom
+    D = spec.det.n if spec.det is not None else 0
+    n1 = spec.det.n_comp + 1 if spec.det is not None else 1
+    f64 = lambda m: torch.zeros(m, dtype=torch.float64, device=dev)
     ctl = torch.tensor([0, 0, -1, -1], dtype=torch.int64, device=dev)
     ctl[kb & 1] = launched
     dead = torch.zeros((2, -(-state.n_lanes // CTA_THREADS)), dtype=torch.int32, device=dev)
     dead[kb & 1] = cta_dead_counts(state.i[ALIVE])
     return GeneralBuffers(
         columns=torch.zeros((g.n_x * g.n_y, 3), dtype=torch.float64, device=dev),
-        vol=torch.zeros(g.n_cells if spec.vol else 0, dtype=torch.float64, device=dev),
-        ctl=ctl, dead=dead)
+        vol=f64(g.n_cells if spec.vol else 0), ctl=ctl, dead=dead,
+        intensity=f64(g.n_x * g.n_y * D), by_component=f64(g.n_x * g.n_y * D * n1),
+        excess=f64(D * n1),
+        int_steps=torch.zeros(state.n_lanes if D else 0, dtype=torch.int32, device=dev),
+        int_rays=torch.zeros(state.n_lanes if D else 0, dtype=torch.int32, device=dev))
 
 
 def general_block_reference(spec: GeneralSpec, var: Variant, opt: DeviceOptics,
@@ -327,7 +388,7 @@ def general_block_reference(spec: GeneralSpec, var: Variant, opt: DeviceOptics,
         if record is not None:
             alive_rows.append(s["alive"].clone())
             xing0 = s["xing"].clone()
-        general_event(spec, var, opt, tables, u[j], s, buf.columns, buf.vol)
+        general_event(spec, var, opt, tables, u[j], s, buf, key, kb, j)
         if record is not None:
             step_rows.append(s["xing"] - xing0)
     if record is not None:
@@ -501,7 +562,13 @@ class _GeneralParams(ctypes.Structure):
         ("n_photons", ctypes.c_longlong), ("ctl", ctypes.c_void_p), ("dead", ctypes.c_void_p),
         ("src", _SourceParams)] + [
         (n, ctypes.c_uint32) for n in ("key0", "key1", "kb")] + [
-        ("n_lanes", ctypes.c_int), ("K", ctypes.c_int)]
+        ("n_lanes", ctypes.c_int), ("K", ctypes.c_int)] + [
+        (n, ctypes.c_int) for n in ("n_dirs", "est", "n_orig", "clip", "max_int_crossings",
+                                    "ratio_crossings", "n_fwd")] + [
+        (n, ctypes.c_float) for n in ("zeta", "zeta_ratio", "cap")] + [
+        (n, ctypes.c_void_p) for n in ("dirs", "abs_mu", "exit_status", "det_phi", "forward",
+                                       "forward_orig", "intensity", "by_comp", "excess",
+                                       "int_steps", "int_rays")]
 
 
 def _grid(g: GridGeometry | None) -> _Grid:
@@ -521,10 +588,12 @@ def _grid(g: GridGeometry | None) -> _Grid:
 @functools.lru_cache(maxsize=None)
 def build():
     """Compile (or reuse) the general kernel's library and declare its C
-    interface (``csrc/general_event_block.cu``, one ``nvcc`` process)."""
+    interface (``csrc/general_event_block.cu`` and the detector set
+    ``csrc/general_event_block_det.cu``, one ``nvcc`` process each)."""
     from i3rc_tpu_torch.kernels.build import build as _build
 
-    built = _build("general_event_block", ("general_event_block.cu",))
+    built = _build("general_event_block", ("general_event_block.cu",
+                                           "general_event_block_det.cu"))
     lib = built.lib
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.i3rc_general_params_size.argtypes = []
@@ -547,6 +616,8 @@ def launch_refusal(spec: GeneralSpec, var: Variant, opt: DeviceOptics) -> str | 
         return f"the general block holds {MAX_BRDF_PARAMS} BRDF parameters"
     if var.bernoulli and spec.mode != WOODCOCK:
         return "the weight-1 class runs on Woodcock transport only"
+    if var.bernoulli and spec.det is not None and spec.det.est != RATIO:
+        return "the weight-1 class estimates radiance by ratio tracking only"
     return None
 
 
@@ -601,6 +672,18 @@ def general_params(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: D
     p.key0, p.key1 = key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF
     p.kb = kb & 0xFFFFFFFF
     p.n_lanes, p.K = state.n_lanes, spec.K
+    det = spec.det
+    if det is not None:
+        p.n_dirs, p.est, p.n_orig, p.clip = det.n, det.est, det.n_orig, int(det.clip)
+        p.max_int_crossings, p.ratio_crossings = det.max_crossings, det.ratio_crossings
+        p.n_fwd = tables.n_forward_steps
+        p.zeta, p.zeta_ratio, p.cap = det.zeta, det.zeta_ratio, det.cap
+        p.dirs, p.abs_mu = det.dirs.data_ptr(), det.abs_mu.data_ptr()
+        p.exit_status, p.det_phi = det.exit_status.data_ptr(), det.phi.data_ptr()
+        p.forward, p.forward_orig = tables.forward.data_ptr(), tables.forward_orig.data_ptr()
+        p.intensity, p.by_comp = buf.intensity.data_ptr(), buf.by_component.data_ptr()
+        p.excess, p.int_steps = buf.excess.data_ptr(), buf.int_steps.data_ptr()
+        p.int_rays = buf.int_rays.data_ptr()
     return p
 
 
@@ -630,7 +713,7 @@ def _launch(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: DeviceTa
         n = opt.n_components
         _need(opt.total_ext, dev, torch.float32, (g.n_cells,), "total_ext")
         _need(opt.cell_matrix, dev, torch.float32, (g.n_cells, 1 + 3 * n), "cell_matrix")
-        if spec.mode == WOODCOCK:
+        if spec.coarse is not None:
             c = spec.coarse
             _need(opt.block_majorant, dev, torch.float32, (c.n_x * c.n_y * c.n_z,),
                   "block_majorant")
@@ -640,6 +723,23 @@ def _launch(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: DeviceTa
         _need(buf.vol, dev, torch.float64, (g.n_cells if spec.vol else 0,), "vol")
         _need(buf.ctl, dev, torch.int64, (4,), "ctl")
         _need(buf.dead, dev, torch.int32, (2, -(-L // CTA_THREADS)), "dead")
+        det = spec.det
+        if det is not None:
+            D, n1 = det.n, det.n_comp + 1
+            n_fwd = n * tables.max_entries * tables.n_forward_steps
+            for t, dt, shape, what in (
+                    (det.dirs, torch.float32, (3, D), "detector directions"),
+                    (det.abs_mu, torch.float32, (D,), "abs_mu"),
+                    (det.exit_status, torch.int32, (D,), "exit_status"),
+                    (det.phi, torch.float32, (D,), "detector azimuths"),
+                    (tables.forward, torch.float32, (n_fwd,), "forward"),
+                    (tables.forward_orig, torch.float32, (n_fwd,), "forward_orig"),
+                    (buf.intensity, torch.float64, (g.n_x * g.n_y * D,), "intensity"),
+                    (buf.by_component, torch.float64, (g.n_x * g.n_y * D * n1,), "by_component"),
+                    (buf.excess, torch.float64, (D * n1,), "excess"),
+                    (buf.int_steps, torch.int32, (L,), "int_steps"),
+                    (buf.int_rays, torch.int32, (L,), "int_rays")):
+                _need(t, dev, dt, shape, what)
         p = general_params(spec, var, opt, tables, state, buf, key, source, kb)
         buf._params = (tag, p)
     lib = build().lib
@@ -656,15 +756,18 @@ def general_block(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: De
                   state: GeneralState, buf: GeneralBuffers, key: PhiloxKey,
                   source: PhotonSource, kb: int) -> None:
     """One block ``kb`` of the general trace loop, in place on ``state`` and
-    ``buf``: the refill, K events, the loop's control state.  On CUDA
-    tensors one launch of the kernel, counted in ``general_block.launches``
-    (and per transport mode in ``general_block.mode_launches``), and nothing
-    else; on CPU tensors ``general_block_reference``."""
+    ``buf``: the refill, K events (with detectors their local estimates),
+    the loop's control state.  On CUDA tensors one launch of the kernel,
+    counted in ``general_block.launches`` (per transport mode in
+    ``general_block.mode_launches``, and those with detectors, which run the
+    estimate stage, in ``general_block.det_launches``), and nothing else;
+    on CPU tensors ``general_block_reference``."""
     dev = state.f.device
     if dev.type == "cuda":
         _launch(spec, var, opt, tables, state, buf, key, source, kb)
         general_block.launches += 1
         general_block.mode_launches[MODE_NAMES[spec.mode]] += 1
+        general_block.det_launches += int(spec.det is not None)
     elif dev.type == "cpu":
         general_block_reference(spec, var, opt, tables, state, buf, key, source, kb)
     else:
@@ -672,7 +775,7 @@ def general_block(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: De
 
 
 def reset_launch_counters() -> None:
-    general_block.launches = 0
+    general_block.launches = general_block.det_launches = 0
     general_block.mode_launches = {name: 0 for name in MODE_NAMES.values()}
 
 

@@ -17,65 +17,16 @@ import torch
 
 from i3rc_tpu_torch.core.rng import batch_key
 from tests.general_oracles import host
+from tests.general_scenes import DET_MUS, DET_PHIS, step_cloud_32x8
 
 
 JAX, PORT = host("i3rc_tpu"), host("i3rc_tpu_torch")
 
 
-def step_cloud_32x8(h, ssa=0.99):
-    """The 32 x 1 x 8 step cloud of tests/test_integrator.py:157."""
-    table = h.PhaseFunctionTable.from_phase_functions(
-        [h.PhaseFunction.from_legendre(h.hg(0.85, 64))], key=[1.0])
-    ext = np.where(np.arange(32)[:, None, None] < 16, 2.0, 18.0) / 250.0 * np.ones((32, 1, 8))
-    dom = h.Domain.create(np.linspace(0, 500, 33), [0.0, 500.0], np.linspace(0, 250, 9))
-    return dom.add_component("cloud", ext, np.full_like(ext, ssa), np.zeros(ext.shape, np.int32),
-                             table)
-
-
-def two_component(h):
-    """A seeded random 3-D domain: an HG cloud with two phase entries and a
-    tabulated non-HG (Rayleigh) haze, ssa < 1, irregular x and z."""
-    rng = np.random.default_rng(7)
-    shape = (6, 5, 6)
-    ext1 = rng.uniform(0.0, 0.06, shape) * (rng.uniform(size=shape) > 0.3)
-    ext2 = rng.uniform(0.002, 0.01, shape)
-    hg = h.PhaseFunctionTable.from_phase_functions(
-        [h.PhaseFunction.from_legendre(h.hg(g, 48)) for g in (0.85, 0.5)], key=[1.0, 2.0])
-    ang = np.linspace(0.0, np.pi, 91)
-    ray = h.PhaseFunctionTable.from_phase_functions(
-        [h.PhaseFunction.from_tabulated(ang, 0.75 * (1 + np.cos(ang) ** 2))], key=[0.0])
-    z = np.concatenate([[0.0], np.cumsum(rng.uniform(25.0, 60.0, shape[2]))])
-    x = np.concatenate([[0.0], np.cumsum(rng.uniform(60.0, 140.0, shape[0]))])
-    dom = h.Domain.create(x, np.linspace(0, 500.0, 6), z)
-    dom = dom.add_component("cloud", ext1, rng.uniform(0.9, 1.0, shape),
-                            rng.integers(0, 2, shape).astype(np.int32), hg)
-    return dom.add_component("haze", ext2, np.full(shape, 0.9), np.zeros(shape, np.int32), ray)
-
-
-def weight1_domain(h):
-    """tests/test_serial_path.py:101-136's random 8^3 cloud, here at ssa 0.9."""
-    rng = np.random.default_rng(3)
-    table = h.PhaseFunctionTable.from_phase_functions(
-        [h.PhaseFunction.from_legendre(h.hg(0.85, 32))], key=[1.0])
-    ext = rng.uniform(0.0, 0.03, (8, 8, 8))
-    ext[ext < 0.01] = 0.0
-    dom = h.Domain.create(np.linspace(0, 800.0, 9), np.linspace(0, 800.0, 9),
-                          np.linspace(0, 400.0, 9))
-    return dom.add_component("c", ext, np.full_like(ext, 0.9), np.zeros(ext.shape, np.int32),
-                             table)
-
-
-RPV_GRID = np.array([[[0.1, 0.8, -0.1], [0.3, 0.7, 0.1]],
-                     [[0.2, 0.9, 0.0], [0.05, 0.6, -0.2]]])
-
-
-def rpv_grid(h):
-    """A 2 x 2 gridded RPV surface under the step cloud."""
-    return h.Surface.create(RPV_GRID, [0.0, 250.0, 500.0], [0.0, 250.0, 500.0],
-                            brdf_name="rpv")
-
-
-def fields(res, profile: bool) -> dict:
+def fields(res, profile: bool, radiance: bool = False) -> dict:
+    if radiance:
+        return {f"I{d}": float(v) for d, v in enumerate(np.asarray(res.mean_intensity,
+                                                                   np.float64))}
     out = {k: float(getattr(res, f"mean_flux_{k}")) for k in ("up", "down", "absorbed")}
     if profile:
         out.update({f"abs_z{k}": float(v) for k, v in
@@ -84,8 +35,9 @@ def fields(res, profile: bool) -> dict:
 
 
 def run_side(h, dom, cfg_kw: dict, create_kw: dict, n: int, batches: int, lanes: int,
-             profile: bool = False):
-    """(integrator, {field: per-batch values}) of ``batches`` batches."""
+             profile: bool = False, radiance: bool = False):
+    """(integrator, {field: per-batch values}) of ``batches`` batches; with
+    ``radiance`` the fields are the detectors' mean radiances."""
     cfg = h.Config(**cfg_kw)
     if h.pkg == "i3rc_tpu":
         integ = h.Integrator.create(dom, config=cfg, **create_kw)
@@ -96,7 +48,7 @@ def run_side(h, dom, cfg_kw: dict, create_kw: dict, n: int, batches: int, lanes:
         fn = integ.batch_fn(h.Source.directional(0.5, 0.0), n, n_lanes=lanes)
         with torch.inference_mode():
             runs = [fn(batch_key(200, b)) for b in range(batches)]
-    per = [fields(r, profile) for r in runs]
+    per = [fields(r, profile, radiance) for r in runs]
     return integ, {k: np.array([p[k] for p in per]) for k in per[0]}, runs
 
 
@@ -107,3 +59,50 @@ def assert_agree(jv: dict, tv: dict, n_se: float = 4.0, floor: float = 0.0) -> N
         a, b = jv[k], tv[k]
         se = np.sqrt(a.var(ddof=1) / a.size + b.var(ddof=1) / b.size)
         assert abs(a.mean() - b.mean()) <= n_se * se + floor, (k, a.mean(), b.mean(), se)
+
+
+def compare_radiance(dom_fn, cfg_kw: dict, create_fn=None, n: int = 2048, batches: int = 4,
+                     n_se: float = 4.0):
+    """The I3RC detectors' mean radiances of ``batches`` batches of ``n``
+    photons (one wavefront) on each side, the domain ``dom_fn(h)`` and the
+    creation arguments ``create_fn(h)`` built with that side's classes,
+    agreeing within ``n_se`` combined standard errors.  The JAX side runs
+    its inline estimator (use_queued_intensity=False: the queued one has
+    its expectations, and compiles 3x longer on the CPU); the port takes
+    ``cfg_kw`` as given.  Returns (JAX integrator, port integrator, the
+    port's Results)."""
+    def create(h):
+        kw = dict(intensity_mus=DET_MUS, intensity_phis=DET_PHIS)
+        kw.update(create_fn(h) if create_fn else {})
+        return kw
+
+    ji, jv, _ = run_side(JAX, dom_fn(JAX), dict(cfg_kw, use_queued_intensity=False), create(JAX),
+                         n, batches, n, radiance=True)
+    ti, tv, runs = run_side(PORT, dom_fn(PORT), cfg_kw, create(PORT), n, batches, n,
+                            radiance=True)
+    assert_agree(jv, tv, n_se)
+    return ji, ti, runs
+
+
+MODES = {"ray_tracing": dict(use_ray_tracing=True),
+         "max_cross_section": dict(use_ray_tracing=False),
+         "woodcock": dict(use_ray_tracing=False, majorant_block_size=4)}
+
+
+def check_mode_radiance(mode: str, iwabuchi: bool) -> None:
+    """The step cloud 32 x 8 (ssa 0.99) with the I3RC detectors in transport
+    ``mode`` (MODES), exact trace or Iwabuchi roulette at zeta_min 0.3,
+    fastpath off: the port's estimator and mode, finite fields, few bad
+    photons, and its radiances against the JAX package's
+    (compare_radiance)."""
+    from i3rc_tpu_torch.integrators.wavefront import EXACT, IWABUCHI
+
+    cfg = dict(use_fastpath=False, max_events=500, compute_volume_absorption=False,
+               use_russian_roulette_for_intensity=iwabuchi, zeta_min=0.3, **MODES[mode])
+    _, ti, runs = compare_radiance(step_cloud_32x8, cfg)
+    spec = ti.batch_tracer(2048, 2048).spec
+    assert spec.mode == list(MODES).index(mode)
+    assert spec.det.est == (IWABUCHI if iwabuchi else EXACT) and not spec.chained
+    for r in runs:
+        assert int(r.n_bad) <= 1e-3 * 2048
+        assert np.isfinite(r.intensity.numpy()).all() and r.intensity.shape == (32, 1, 3)

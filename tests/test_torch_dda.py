@@ -27,7 +27,8 @@ from i3rc_tpu.ops import dda as jdda
 from i3rc_tpu_torch.integrators import integrator as tint
 from i3rc_tpu_torch.integrators.wavefront import sample_cos_scat
 from i3rc_tpu_torch.ops import dda as tdda
-from tests.general_cases import JAX, PORT, two_component
+from tests.general_cases import JAX, PORT
+from tests.general_scenes import two_component
 
 torch.set_num_threads(2)
 SIDES = ("i3rc_tpu", "i3rc_tpu_torch")

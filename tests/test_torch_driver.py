@@ -1,6 +1,7 @@
 """The port's namelist driver, run on the CPU (``--device cpu``)."""
 
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -91,15 +92,39 @@ def test_driver_surface_albedo(tmp_path, radiance):
         assert np.isfinite(out["radiance"][0]).all() and float(out["radiance"][0].min()) > 0.0
 
 
-# Ray tracing runs (the general kernel); radiance on it is item 16b.
-_RADIANCE = dict(radiative="intensityMus = 1., intensityPhis = 0.,",
-                 files='outputRadFile = "rad.out"')
+ANCHOR_I = (0.1285, 0.3285, 0.1800)   # chip_smoke.py: the I3RC detector set
+
+
+@pytest.mark.parametrize("algorithms", ["useRayTracing = .true.,", ""],
+                         ids=["ray_tracing", "reference_default"])
+def test_driver_radiance_with_ray_tracing(tmp_path, algorithms):
+    """Radiance with ray tracing, asked for or the reference's default:
+    the general kernel's local estimate writes rad.out (3 detectors) and
+    the netCDF record says Ray_tracing; each radiance within 5 of the
+    driver's standard errors plus 5% of the step cloud's anchor (4 batches
+    of 512 photons)."""
+    write_domains(str(tmp_path))
+    nml = _namelist(tmp_path, radiative="intensityMus = 1., .5, .5, "
+                    "intensityPhis = 0., 0., 180.,", algorithms=algorithms,
+                    files=f'outputRadFile = "{tmp_path}/rad.out", '
+                          f'outputNetcdfFile = "{tmp_path}/rad.nc"')
+    Path(nml).write_text(Path(nml).read_text().replace("numPhotonsPerBatch = 4096",
+                                                       "numPhotonsPerBatch = 512"))
+    out = run_from_namelist(nml, quiet=True, device="cpu")
+    assert out["cfg"]["use_ray_tracing"] and (tmp_path / "rad.out").is_file()
+    m, e = out["radiance"]
+    # solarFlux = 2 scales every field.
+    i_m = out["stats"].mean["derived"]["mean_intensity"].numpy() / 2.0
+    i_e = out["stats"].stderr["derived"]["mean_intensity"].numpy() / 2.0
+    assert m.shape == (32, 1, 3) and np.isfinite(m).all() and np.isfinite(e).all()
+    for d, anchor in enumerate(ANCHOR_I):
+        assert abs(i_m[d] - anchor) <= 5 * i_e[d] + 0.05 * anchor, (d, i_m, i_e)
+    with netcdf_file(str(tmp_path / "rad.nc"), "r", mmap=False) as nc:
+        assert nc.Algorithm == b"Ray_tracing" and "intensity" in nc.variables
 
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(algorithms="useRayTracing = .false., polarized = .true.,"), "item 17"),
-    (dict(algorithms="useRayTracing = .true.,", **_RADIANCE), "item 16"),
-    (dict(algorithms="", **_RADIANCE), "item 16"),    # the reference default is ray tracing
 ])
 def test_driver_rejects_out_of_slice(tmp_path, kwargs, item):
     write_domains(str(tmp_path))

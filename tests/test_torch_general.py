@@ -10,10 +10,9 @@ event block on the CPU; the CUDA kernel in the tests marked ``cuda``):
   * closure: a conservative scene over a black surface without roulette
     leaks nothing, Fup + Fdn = 1 within 1e-5 (float32 column sums) with
     n_bad = 0;
-  * the dispatch, the variants' draws, the refusals (radiance detectors on
-    a workload without a fastpath plan name ROADMAP item 16b), the FIFO
-    refill (every photon of the budget launched once), the netCDF record of
-    ray tracing.
+  * the dispatch, the variants' draws, the default configuration with
+    radiance detectors (against the JAX package), the FIFO refill (every
+    photon of the budget launched once), the netCDF record of ray tracing.
 """
 
 import importlib.util
@@ -136,12 +135,21 @@ def test_variant_draws_follow_the_jax_layout():
         ("tau", "scat", "chi", "accept", "abs")
 
 
-def test_detectors_without_a_fastpath_plan_name_item_16b():
+def test_default_config_with_detectors_runs_and_agrees_with_jax():
+    """``IntegratorConfig()`` (ray tracing, no fastpath plan) with the I3RC
+    detectors: the general kernel's exact-trace local estimate on the step
+    cloud 32 x 8, its radiances within 4 combined standard errors of the
+    JAX package's (tests/general_cases.py compare_radiance; imported here,
+    so the tests marked ``cuda`` of this file import no JAX)."""
+    from tests.general_cases import compare_radiance
+    from tests.general_scenes import step_cloud_32x8
+
     integ = Integrator.create(make_step_cloud(1.0), IntegratorConfig(), device="cpu",
                               intensity_mus=[1.0], intensity_phis=[0.0])
-    assert integ._fast_plan is None
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        integ.batch_tracer(1024)
+    assert integ._fast_plan is None and integ.batch_tracer(1024).spec.det.n == 1
+    _, ti, runs = compare_radiance(step_cloud_32x8, {})
+    assert ti.config == IntegratorConfig() and ti.batch_tracer(2048).spec.mode == 0
+    assert all(float(r.intensity.min()) >= 0.0 and int(r.n_bad) <= 2 for r in runs)
 
 
 def test_cpu_tensors_run_the_plain_version():

@@ -21,7 +21,8 @@ from i3rc_tpu.integrators import spectral as jspectral
 from i3rc_tpu_torch import run_band
 from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
 from i3rc_tpu_torch.models.step_cloud import write_domains
-from tests.general_cases import JAX, PORT, step_cloud_32x8
+from tests.general_cases import JAX, PORT
+from tests.general_scenes import step_cloud_32x8
 
 torch.set_num_threads(2)
 

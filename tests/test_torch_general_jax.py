@@ -14,7 +14,8 @@ DDA step, ~4e-5 of the photons in ray tracing on both sides) stay below
 import pytest
 import torch
 
-from tests.general_cases import JAX, PORT, assert_agree, run_side, step_cloud_32x8
+from tests.general_cases import JAX, PORT, assert_agree, run_side
+from tests.general_scenes import step_cloud_32x8
 
 torch.set_num_threads(2)
 

@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from i3rc_tpu_torch.kernels import general_block as gb
-from tests.general_cases import (JAX, PORT, assert_agree, rpv_grid, run_side,
-                                 step_cloud_32x8, two_component, weight1_domain)
+from tests.general_cases import JAX, PORT, assert_agree, run_side
+from tests.general_scenes import rpv_grid, step_cloud_32x8, two_component, weight1_domain
 
 torch.set_num_threads(2)
 

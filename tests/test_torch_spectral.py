@@ -7,7 +7,8 @@ integrator per k point, k point k seeded ``seed + 1000 k``, band b seeded
 the JAX baked loop (``run_band(bake_fastpath=True)``, the XLA fastpath at
 unroll 1; the port's ``run_band`` runs baked by default) on a small cloud slab, and the broadband driver on the
 transparent-slab scene of tests/test_drivers.py:118, whose transmission is
-closed-form.  The fused-k and traced modes are not ported and raise.
+closed-form.  The fused-k mode is not ported and raises; the traced mode
+runs the general kernel, radiance detectors included.
 
 Tolerances: band and broadband fluxes within 4 sigma of the JAX run, sigma
 of the difference of two independent weighted means; the driver's
@@ -158,19 +159,47 @@ def test_unported_modes_raise():
         run_band(integ, cloud_slab(), kd, src, 64, 2, mode="fused")
     with pytest.raises(ValueError, match="spectral mode"):
         run_band(integ, cloud_slab(), kd, src, 64, 2, mode="warp")
-    # The traced mode runs the general kernel, which takes no radiance
-    # detectors yet (item 16b); "auto" on a workload without a fastpath plan
-    # lands on the traced mode.
-    det = dict(intensity_mus=[1.0], intensity_phis=[0.0])
-    traced = Integrator.create(domain_with_gas_component(cloud_slab(),
-                                                         kd.absorption_profiles_on(Z)[:, 0]),
-                               config=CFG, device="cpu", **det)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        run_band(traced, cloud_slab(), kd, src, 64, 2, mode="traced")
-    ray = Integrator.create(cloud_slab(), config=replace(CFG, use_ray_tracing=True),
-                            device="cpu", **det)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        run_band(ray, cloud_slab(), kd, src, 64, 2, mode="auto")
+
+
+def test_traced_band_radiance_matches_jax():
+    """run_band(mode="traced") with two detectors: each k point's optics
+    through the band integrator's general kernel, its local estimate
+    included, against the JAX package's traced band (the step cloud 32 x 8
+    on 4-cell super-voxels with a gas of k = 2e-4 and 2e-3): each k point's
+    mean radiances within 4 combined standard errors of the batch means."""
+    from tests.general_cases import JAX as JH
+    from tests.general_cases import PORT as TH
+    from tests.general_scenes import step_cloud_32x8
+
+    z = np.asarray(step_cloud_32x8(TH).z_edges)
+    det = dict(intensity_mus=[1.0, 0.5], intensity_phis=[0.0, 180.0])
+    cfg = dict(use_ray_tracing=False, max_events=500, compute_volume_absorption=False,
+               majorant_block_size=4)
+    derive = lambda r: {"rad": r.mean_intensity}
+    bands = {}
+    for h in (JH, TH):
+        kd_mod = importlib.import_module(f"{h.pkg}.core.k_distribution")
+        kd = kd_mod.KDistribution.create(z, np.broadcast_to([[2e-4, 2e-3]], (8, 2)).copy(),
+                                         [0.8, 0.2], wavelength_limits=(0.5, 0.7),
+                                         spectral_fraction=0.9)
+        spec = importlib.import_module(f"{h.pkg}.integrators.spectral")
+        dom = step_cloud_32x8(h, 1.0)
+        gas = spec.domain_with_gas_component(dom, kd.absorption_profiles_on(z)[:, 0])
+        src = h.Source.directional(0.5, 0.0)
+        if h.pkg == "i3rc_tpu":
+            integ = h.Integrator.create(gas, config=h.Config(**cfg, use_queued_intensity=False),
+                                        **det)
+            bands[h.pkg] = spec.run_band(integ, dom, kd, src, 1024, 4, seed=5, derive=derive)
+        else:
+            integ = h.Integrator.create(gas, config=h.Config(**cfg), device="cpu", **det)
+            bands[h.pkg] = run_band(integ, dom, kd, src, 1024, 4, seed=5, derive=derive,
+                                    mode="traced", n_lanes=1024)
+    jb, tb = bands["i3rc_tpu"], bands["i3rc_tpu_torch"]
+    assert len(tb.per_k) == len(jb.per_k) == 2
+    for js, ts in zip(jb.per_k, tb.per_k):
+        jm, je = (np.asarray(js.mean["derived"]["rad"]), np.asarray(js.stderr["derived"]["rad"]))
+        tm, te = ts.mean["derived"]["rad"].numpy(), ts.stderr["derived"]["rad"].numpy()
+        assert np.all(tm > 0.0) and np.all(np.abs(jm - tm) <= 4 * np.hypot(je, te)), (jm, tm)
 
 
 # The transparent-slab scene of tests/test_drivers.py:118.
@@ -267,13 +296,32 @@ def test_broadband_driver_validation_matches_jax(tmp_path, nml, error):
 
 @pytest.mark.parametrize("mode,algorithms,item", [
     ("fused", "useRayTracing = .false.", "item 13b"),
-    ("traced", "useRayTracing = .false.", "item 16"),
-    ("auto", "useRayTracing = .true.", "item 16"),
 ])
 def test_broadband_driver_unported_modes_raise(tmp_path, mode, algorithms, item):
     nml = _transparent_inputs(tmp_path, mode=mode, algorithms=algorithms, photons=64)
     with pytest.raises(NotImplementedError, match=item):
         run_bb(nml, quiet=True, device="cpu")
+
+
+@pytest.mark.parametrize("mode,algorithms", [
+    ("traced", "useRayTracing = .false."),
+    ("auto", "useRayTracing = .true."),       # no fastpath plan: the traced mode
+])
+def test_broadband_driver_traced_radiance(tmp_path, mode, algorithms):
+    """The broadband driver's traced mode with the namelist's two detectors:
+    the general kernel's local estimate per k point, bb_rad.out written,
+    the transmission within 1e-2 of the closed form, closure, and finite
+    radiances (the transparent slab's are of order 1e-5, and its phase
+    function from 16 moments has negative values, so they can be too)."""
+    out = run_bb(_transparent_inputs(tmp_path, mode=mode, algorithms=algorithms),
+                 quiet=True, device="cpu")
+    assert (tmp_path / "bb_rad.out").is_file()
+    expected = sum(FRACTIONS[b] * np.sum(WEIGHTS[b] * np.exp(-TAUS[b] / 0.5)) for b in (0, 1))
+    assert float(out["flux_down"][0].mean()) == pytest.approx(expected, rel=1e-2)
+    m = out["mean_stats"]
+    assert m[0][0] + m[1][0] + m[2][0] == pytest.approx(1.0, abs=1e-5)
+    rad = out["radiance"][0]
+    assert rad.shape == (1, 1, 2) and np.isfinite(rad).all() and np.abs(rad).max() < 1e-3
 
 
 def test_spectral_modules_do_not_import_jax():
