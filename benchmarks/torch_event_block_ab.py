@@ -53,7 +53,9 @@ process, it runs every build on identical inputs, alternating the builds
   general_step_cloud, general_landsat).
 
 The builds must share this checkout's C interface (a copy of ``csrc`` with
-the line under test changed); a build whose library refuses a variant, or
+the line under test changed, or another commit's ``csrc`` whose parameter
+block is a prefix of this one's: PR 10's, before the table variants, runs
+the HG cases); a build whose library refuses a variant, or
 whose block differs from the twin's (a constant K of 8 on a K = 32 plan),
 is left out of that block case.  The batches have no such check: give them
 only the builds that fit their cases (``--cases``).  The block times are
@@ -122,7 +124,18 @@ def general_library():
     return built
 
 
-_BUILD_FNS = {"event_block": eb.build, "general_block": general_library}
+def event_library():
+    """The event-block library of ``kbuild.CSRC`` from the sources it has, its
+    C interface declared as ``event_block.build`` declares it; another
+    commit's parameter block must be a prefix of this checkout's (the table
+    variants' fields were appended)."""
+    built = kbuild.build("fast_event_block",
+                         tuple(s for s in eb.SOURCES if (kbuild.CSRC / s).exists()))
+    eb.declare(built.lib, prefix=True)
+    return built
+
+
+_BUILD_FNS = {"event_block": event_library, "general_block": general_library}
 _BUILD_ONE = ("import sys; from pathlib import Path; sys.path.insert(0, {root!r}); "
               "import i3rc_tpu_torch.kernels.build as kb; kb.CSRC = Path(sys.argv[1]); "
               "import benchmarks.torch_event_block_ab as ab; ab._BUILD_FNS[{module!r}]()")
@@ -144,7 +157,7 @@ def build_all(dirs: dict, module: str = "event_block") -> dict:
         kbuild.CSRC = Path(d).resolve()
         try:
             # The cached library of that build.
-            built[name] = eb.build.__wrapped__() if module == "event_block" else general_library()
+            built[name] = event_library() if module == "event_block" else general_library()
         finally:
             kbuild.CSRC = own
     return built

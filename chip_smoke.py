@@ -34,7 +34,13 @@ estimator x mode x surface and the weight-1 class, then the step cloud's
 detectors through the default configuration, exact and with Iwabuchi
 roulette, bench.py's Woodcock radiance row, Landsat with 2 detectors by
 ratio tracking, vacuum over Cox-Munk and the radiance namelist with ray
-tracing) — and checks the physics.
+tracing), and the table modes of the fastpath (phase functions that are not
+exactly HG: all 88 table instantiations against their plain version on small
+cases and on each path's own scene, then the C.1 step cloud's flux and its
+radiance, Landsat with per-column ssa and table entries, the bench band over
+a C.1 cloud, the isotropic slab against the oracle, each against the general
+kernel or the oracle, and the radar cloud on the general kernel) — and
+checks the physics.
 Every phase prints one line; any failed check raises and the script exits
 nonzero.  Run from the repository root:
 
@@ -143,6 +149,15 @@ OPS_PER_EVENT = {                  # the step: where-chains, faces, distances
 OPS_PER_COLLISION = {"flux": (180, 7), "detectors": (180, 7), "gas": (190, 7),
                      "gas_detectors": (190, 7), "column": (180, 8), "probe": (0, 0)}
 OPS_PER_DETECTOR = (70, 4)         # HG phase value (1/sqrt), shadow z segments, exp, log
+# Table variants (tables.build_inverse_cubic, build_forward_cubic) in place
+# of HG: per sampled cosine the cubic (clamp, segment, 3 multiply-adds,
+# clip: ~10 ALU, its row one 16-byte load) for the HG inversion (two IEEE
+# divisions, ~8 ALU); per detector ray the forward read (acos: ~15 ALU and
+# one SFU step; 3 multiply-adds; exp: one SFU step) for HG's value (a
+# reciprocal square root, ~8 ALU).  The tables count once in a block's bytes
+# (state_bytes).
+OPS_CUBIC, OPS_HG_INVERSE = (10, 0), (8, 2)
+OPS_FORWARD, OPS_HG_VALUE = (18, 2), (8, 1)
 STATE_ROWS = 13                    # x, y, z, ux, uy, uz, tau, tgas; alive, orders, pk, bad, evct
 # The surface stage (fast_event_block.cuh resolve_surface): per bottom hit a
 # Philox call (~100 integer operations), the flux column, the revive test
@@ -162,27 +177,36 @@ def state_bytes(spec, n_lanes: int, n_live: int) -> int:
     """Bytes that one block needs to move: the alive flag and tau of every
     lane read once; the rows a variant keeps (y and tgas only where it
     tracks them) of each live lane read once and written once; the
-    detector accumulator read and written; the column table read once."""
+    detector accumulator read and written; the column table and a table
+    variant's cubic fits and entry rows read once."""
     rows = STATE_ROWS - (not spec.track_y) - (not spec.gas)
     n = 8 * n_lanes + n_live * (2 * rows * 4 - 8)
     if spec.det is not None:
         n += 2 * 8 * spec.det.n_cols * spec.det.n
-    if spec.col:
-        n += spec.column.numel() * 4
+    for t in (spec.column, spec.cubic, spec.fwd, spec.pf_row):
+        if t is not None:
+            n += t.numel() * 4
     return n
 
 
 def bound_ms(variant: str, lane_events: int, n_bytes: int, collisions: int = 0,
              detectors: int = 0, hits: int = 0, brdf_evals: int = 0, emits: int = 0,
-             extra_bytes: int = 0) -> tuple[float, str]:
+             extra_bytes: int = 0, table: bool = False) -> tuple[float, str]:
     """(least ms, what bounds it) for ``lane_events`` alive lane-events and
     ``collisions`` collisions of the variant that move ``n_bytes`` of
     device memory; over a reflecting surface (``bounce_work``) plus its
     ``hits`` bottom hits, ``brdf_evals`` BRDF evaluations, ``emits`` surface
-    shadow rays and ``extra_bytes``."""
+    shadow rays and ``extra_bytes``.  A ``table`` variant samples each
+    cosine from the cubic (OPS_CUBIC for OPS_HG_INVERSE) and takes each
+    detector ray's phase value from the forward fit (OPS_FORWARD for
+    OPS_HG_VALUE)."""
     (ea, es), (ca, cs) = OPS_PER_EVENT[variant], OPS_PER_COLLISION[variant]
-    alu = lane_events * ea + collisions * (ca + detectors * OPS_PER_DETECTOR[0])
-    sfu = lane_events * es + collisions * (cs + detectors * OPS_PER_DETECTOR[1])
+    da, ds = OPS_PER_DETECTOR
+    if table:
+        ca, cs = ca + OPS_CUBIC[0] - OPS_HG_INVERSE[0], cs + OPS_CUBIC[1] - OPS_HG_INVERSE[1]
+        da, ds = da + OPS_FORWARD[0] - OPS_HG_VALUE[0], ds + OPS_FORWARD[1] - OPS_HG_VALUE[1]
+    alu = lane_events * ea + collisions * (ca + detectors * da)
+    sfu = lane_events * es + collisions * (cs + detectors * ds)
     alu += hits * OPS_PER_HIT[0] + brdf_evals * OPS_PER_BRDF[0] + emits * OPS_PER_DETECTOR[0]
     sfu += hits * OPS_PER_HIT[1] + brdf_evals * OPS_PER_BRDF[1] + emits * OPS_PER_DETECTOR[1]
     n_bytes += extra_bytes
@@ -220,16 +244,27 @@ def ctas_per_sm(registers: int, threads: int = 256) -> int:
 
 
 # Event-block instantiations by template arguments (CHAIN, ABS, TY, DET, IW,
-# GAS, COL, SLICES, DCAP), for the SASS census: the ones the main paths
+# GAS, COL, SLICES, DCAP, TAB), for the SASS census: the ones the main paths
 # launch, then the detector tally of more than 751 bins and the Iwabuchi
-# variant sized for 16 detectors, which only the checks run.
-CENSUS = {"flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8EE",
-          "gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8EE",
-          "column_chain2": "ILi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0ELi8EE",
-          "detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8EE",
-          "gas_detectors": "ILi0ELb0ELb0ELb1ELb0ELb1ELb0ELb1ELi8EE",
-          "detectors_iwabuchi_wide": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb0ELi8EE",
-          "detectors_iwabuchi_16": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi16EE"}
+# variant sized for 16 detectors, which only the checks run; then the table
+# variants of the paths (f)-(j) (phases 38-43).
+CENSUS = {"flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb0EE",
+          "gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb0EE",
+          "column_chain2": "ILi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb0EE",
+          "detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8ELb0EE",
+          "gas_detectors": "ILi0ELb0ELb0ELb1ELb0ELb1ELb0ELb1ELi8ELb0EE",
+          "detectors_iwabuchi_wide": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb0ELi8ELb0EE",
+          "detectors_iwabuchi_16": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi16ELb0EE",
+          "table_flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb1EE",
+          "table_detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8ELb1EE",
+          "table_gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb1EE",
+          "table_column_chain2": "ILi2ELb1ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb1EE"}
+# ptxas_by_variant of the HG sets as the build without table variants gave
+# them (NVIDIA H100 80GB HBM3 machine's nvcc; chip_smoke.py phase 2 before
+# ROADMAP item 15): adding the table variants leaves them as they were.
+HG_PTXAS = {"column_flux": "8x/66regs/448B/3cta", "detectors": "24x/64regs/1344B/4cta",
+            "flux": "16x/64regs/932B/4cta", "gas_detectors": "24x/64regs/1440B/4cta",
+            "gas_flux": "16x/61regs/932B/4cta", "probe": "1x/28regs/0B/8cta"}
 # Opcode families counted per instantiation (static counts of the listing,
 # not of a run): "all" is every instruction; IMAD.HI and IMAD.WIDE are the
 # 32 x 32 -> 64 bit multiplies of Philox, which issue at half the FP32 rate.
@@ -264,18 +299,19 @@ def sass_census(library: Path) -> dict:
 
 def ptxas_by_variant(log: str) -> dict:
     """Per kernel variant (flux, detectors, gas, gas_detectors, column_flux,
-    probe): instantiations, their most registers, their stack-frame and
-    spill-store bytes and the resident CTAs per SM those registers allow,
-    from ptxas -v."""
+    probe, and the table variants table_*): instantiations, their most
+    registers, their stack-frame and spill-store bytes and the resident CTAs
+    per SM those registers allow, from ptxas -v."""
     out = {}
     name = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*fast_event_block_kernelILi\d+"
-                      r"ELb\dELb\dELb(\d)ELb\dELb(\d)ELb(\d)E", line)
+                      r"ELb\dELb\dELb(\d)ELb\dELb(\d)ELb(\d)ELb\dELi\d+ELb(\d)E", line)
         probe = "Compiling entry function" in line and "column_read_probe_kernel" in line
         if m or probe:
             name = "probe" if probe else (
-                ("gas_" if m[2] == "1" else "") + ("column_" if m[3] == "1" else "")
+                ("table_" if m[4] == "1" else "")
+                + ("gas_" if m[2] == "1" else "") + ("column_" if m[3] == "1" else "")
                 + ("detectors" if m[1] == "1" else "flux"))
             n, r, b = out.get(name, (0, 0, 0))
             out[name] = (n + 1, r, b)
@@ -623,7 +659,8 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
             "launched": max(ctl[0], ctl[1]),
             "bound": bound_ms(variant(spec), events, n_bytes, collisions,
                               spec.det.n if spec.det is not None else 0,
-                              **bounce_work(spec, rec[0][5] * len(rec), hits))}
+                              **bounce_work(spec, rec[0][5] * len(rec), hits),
+                              table=spec.table)}
 
 
 def profile_batch(run_batch, block_name: str = "fast_event_block_kernel") -> dict:
@@ -1265,9 +1302,17 @@ def main() -> int:
             check(v.get("spill_store_bytes", 1) == 0, f"general {name} spills: {v}")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", built.log)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", built.log))
+    n_inst = len(re.findall(r"Compiling entry function '\w*fast_event_block_kernel", built.log))
+    by_variant = ptxas_by_variant(built.log)
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
-        max_registers=max(regs) if regs else "n/a", spill_store_bytes=spills,
-        **ptxas_by_variant(built.log))
+        instantiations=n_inst, max_registers=max(regs) if regs else "n/a",
+        spill_store_bytes=spills, **by_variant)
+    # 88 HG instantiations and their 88 table twins; the HG sets compile to
+    # what they were before the table variants (registers, stack and spill
+    # bytes, CTAs per SM, as phase 2 printed them in the last call without).
+    check(n_inst == 176, f"event-block instantiations: {n_inst}")
+    for name, want in HG_PTXAS.items():
+        check(by_variant.get(name) == want, f"HG set {name}: {by_variant.get(name)}, was {want}")
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
     (out / "ptxas.log").write_text(built.log + gbuilt.log)
@@ -1279,7 +1324,8 @@ def main() -> int:
     if "cuobjdump" not in census:
         for name in CENSUS:
             check(name in census, f"{name} not found in the cuobjdump listing")
-        for name in ("detectors_iwabuchi", "gas_detectors", "detectors_iwabuchi_16"):
+        for name in ("detectors_iwabuchi", "gas_detectors", "detectors_iwabuchi_16",
+                     "table_detectors_iwabuchi"):
             # No compare-and-swap loop: the detector tally has no fp64 shared-
             # memory atomic.  What shared atomics there are, are the
             # prologue's int32 counts, which the flux variant has too.
@@ -1295,7 +1341,14 @@ def main() -> int:
     for nd in (9, 12):
         ku = eb.kernel_philox_uniforms(batch_key(SEED, 3), 11, 8, nd, L_CHECK, dev)
         tu = philox_uniforms(batch_key(SEED, 3), 11, 8, nd, L_CHECK, dev)
-        check(torch.equal(ku, tu), f"kernel Philox draws differ from torch (n_draws={nd})")
+        if not torch.equal(ku, tu):
+            # say which side is wrong: both against the same stream on the CPU
+            ref = philox_uniforms(batch_key(SEED, 3), 11, 8, nd, L_CHECK, "cpu")
+            bad = (ku != tu).nonzero()[:4].tolist()
+            check(False, f"kernel Philox draws differ from torch (n_draws={nd}): "
+                  f"{int((ku != tu).sum())} of {ku.numel()} differ, first (event, draw, lane) "
+                  f"{bad}; kernel differs from the CPU stream at {int((ku.cpu() != ref).sum())},"
+                  f" torch on the card at {int((tu.cpu() != ref).sum())}")
     say("3 philox", known_answer="ok", bit_equal_draws=2 * 8 * L_CHECK)
 
     # 4. kernel vs twin on one K-event block at L = 2^18, on a full and a
@@ -1554,6 +1607,15 @@ def main() -> int:
     e_timed, e_err = radiance_kernel_vs_twin(dev, card, gptx)
     e_rec = radiance_paths(out, card)
 
+    # 38-44. the table modes (ROADMAP item 15): every table instantiation
+    # against its plain version (small cases and each path's own scene),
+    # then (f) the C.1 step cloud's flux (K1-T), (g) its radiance (K3-T,
+    # exact and Iwabuchi), (h) Landsat with per-column ssa and table entries
+    # (COL-P), (i) the bench band over the C.1 cloud (K2-T), (j) the
+    # isotropic slab against the oracle, and the radar cloud on G
+    t_checks = table_kernel_vs_twin(dev, card, built.log)
+    t_rec = table_paths(out, card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -1610,7 +1672,19 @@ def main() -> int:
         surface_entry(f"fast_event_block{sfx}_surface", source, kind, surf_paths[kind],
                       surf_timed[kind], surf_err[kind], brdf_diff)
         for sfx, kind in (("", "flux"), ("_detectors", "detectors"))] + [
-        general_entry(g_timed, g_err, g_rec), estimate_entry(e_timed, e_err, e_rec)]},
+        general_entry(g_timed, g_err, g_rec), estimate_entry(e_timed, e_err, e_rec)] + [
+        table_entry(kind, f"i3rc_tpu_torch/csrc/{src}", replaces, t_rec[kind], t_checks)
+        for kind, src, replaces in (
+            ("flux", "fast_event_block_tab.cu",
+             "i3rc_tpu/integrators/fastpath.py:665 (table mode, fastpath.py:1573)"),
+            ("detectors", "fast_event_block_tab.cu",
+             "i3rc_tpu/integrators/fastpath.py:665 (n_detectors>0, table mode, "
+             "fastpath.py:1508)"),
+            ("gas", "fast_event_block_tab_gas.cu",
+             "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode)"),
+            ("column", "fast_event_block_col.cu",
+             "benchmarks/column_read_probe.py:83 (column_props, "
+             "i3rc_tpu/integrators/fastpath.py:1330)"))]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3218,6 +3292,445 @@ def estimate_entry(timed: dict, err: float, rec: dict) -> dict:
             "batch_launches": a["launches"], "batch_bound_ms": a["bound"][0],
             **{f"{k}_batch_ms": rec[k].get("kernel_ms") for k in ("a_iwabuchi", "b", "c")},
             **{f"{k}_batch_bound_ms": rec[k]["bound"][0] for k in ("a_iwabuchi", "b", "c")}}
+
+
+# ---------------------------------------------------------------------------
+# The table modes of the fastpath (ROADMAP item 15): the table variants of
+# the event block (TAB: the cubic inverse-CDF sampler, the log-cubic phase
+# value, per-column ssa and table entries) against their plain version, and
+# their paths (f)-(j); the radar cloud on G
+
+TABLE_LANES = 1 << 20                # paths (f), (g), (i), (j): the default width
+TABLE_CASE_LANES = (1 << 13) + 77    # phase 38's small cases (a partial last CTA)
+C1_PHOTONS = 1 << 24                 # path (f)
+C1_RAD_PHOTONS = 1 << 22             # path (g): 8 batches a side
+ISO_PHOTONS = 1 << 22                # path (j)
+RADAR_PHOTONS = 1 << 20              # the radar row: 4 batches, 2^22 photons
+
+def table_path_scene(name: str, dev) -> SimpleNamespace:
+    """The scene of a table path, built as its phase drives it and as phase
+    38 holds its kernel to the plain version: integ, photons, lanes, source,
+    and the HG sibling's integrator (the same extinction with the step
+    cloud's or Landsat's HG table) for the per-batch comparison."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, make_landsat_cloud,
+                                make_step_cloud)
+    from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
+
+    ts = _load_tests_module("tabulated_scenes")
+    h = ts.host("i3rc_tpu_torch")
+    src = PhotonSource.directional(0.5, 0.0)
+    flux = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                            compute_volume_absorption=False)
+    if name == "f_c1_step_cloud":
+        return SimpleNamespace(
+            integ=Integrator.create(ts.c1_step_cloud(h), flux, device=dev), n=C1_PHOTONS,
+            lanes=TABLE_LANES, src=src,
+            hg=Integrator.create(make_step_cloud(1.0), flux, device=dev))
+    if name.startswith("g_c1_radiance"):
+        cfg = radiance_config() if name.endswith("iwabuchi") else replace(
+            radiance_config(), use_russian_roulette_for_intensity=False)
+        det = dict(intensity_mus=DET_MUS, intensity_phis=DET_PHIS)
+        return SimpleNamespace(
+            integ=Integrator.create(ts.c1_step_cloud(h), cfg, device=dev, **det),
+            n=C1_RAD_PHOTONS, lanes=TABLE_LANES, src=src,
+            hg=Integrator.create(make_step_cloud(1.0), cfg, device=dev, **det))
+    if name.startswith("h_landsat_props"):
+        return SimpleNamespace(
+            integ=Integrator.create(ts.landsat_props(h, conservative=name.endswith("1.0")),
+                                    flux, device=dev),
+            n=LANDSAT_PHOTONS, lanes=L_CHECK, src=src,
+            hg=Integrator.create(make_landsat_cloud(1.0 if name.endswith("1.0") else 0.99),
+                                 flux, device=dev))
+    if name == "i_c1_band_k0":
+        kd, cfg = table_band()
+        z = np.asarray(make_step_cloud(1.0).z_edges)
+        gas = kd.absorption_profiles_on(z)[:, 0]
+        return SimpleNamespace(
+            integ=Integrator.create(domain_with_gas_component(ts.c1_step_cloud(h), gas), cfg,
+                                    device=dev),
+            n=SLICE_PHOTONS, lanes=TABLE_LANES, src=src,
+            hg=Integrator.create(domain_with_gas_component(make_step_cloud(1.0), gas), cfg,
+                                 device=dev))
+    if name == "j_isotropic":
+        return SimpleNamespace(
+            integ=Integrator.create(ts.isotropic_slab(h, 1.0), replace(flux, max_events=2000),
+                                    device=dev),
+            n=ISO_PHOTONS, lanes=TABLE_LANES, src=src, hg=None)
+    raise ValueError(name)
+
+
+TABLE_PATH_SCENES = ("f_c1_step_cloud", "g_c1_radiance_iwabuchi", "g_c1_radiance_exact",
+                     "h_landsat_props_0.99", "h_landsat_props_1.0", "i_c1_band_k0",
+                     "j_isotropic")
+# The mid-flight state of these scenes times each variant (the kernels line).
+TABLE_TIMED = {"flux": "f_c1_step_cloud", "detectors": "g_c1_radiance_iwabuchi",
+               "gas": "i_c1_band_k0", "column": "h_landsat_props_0.99"}
+
+
+def table_band():
+    """The bench row's band (bench.py:274-337, chip_smoke phase 13): one band
+    of k = 4e-4 and 4e-3 per m (weights 0.7 / 0.3) over the step cloud's 32
+    layers, and its configuration."""
+    from i3rc_tpu_torch import IntegratorConfig, KDistribution, make_step_cloud
+
+    z = np.asarray(make_step_cloud(1.0).z_edges)
+    kd = KDistribution.create(z, np.broadcast_to([[4e-4, 4e-3]], (32, 2)).copy(), [0.7, 0.3],
+                              wavelength_limits=(2.6, 2.8), spectral_fraction=1.0)
+    return kd, IntegratorConfig(use_ray_tracing=False, max_events=500,
+                                compute_volume_absorption=False, majorant_block_size=16)
+
+
+def table_kernel_vs_twin(dev, card: str, log: str) -> dict:
+    """Phase 38: every table instantiation against the plain version.  The
+    small cases of tests/tabulated_scenes.py table_cases (at
+    TABLE_CASE_LANES lanes, 4x the photons) and each path's own scene at its
+    photons and lanes, each on its launch, mid-flight and tail states: every
+    lane-state row, the flux and volume tallies, the control state and the
+    dead counts bit for bit, the detector accumulators within 1e-9.  The
+    instantiations they launch must be exactly the table instantiations of
+    the build.  The mid-flight and tail blocks of each path's scene are
+    timed: the kernel's device time (profiler), the plain version's (CUDA
+    events) and the bound.  Returns the timed records by scene and the
+    largest state difference by variant."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource, batch_key
+    from i3rc_tpu_torch.kernels.event_block import fused_block, fused_block_reference
+
+    ts = _load_tests_module("tabulated_scenes")
+    h = ts.host("i3rc_tpu_torch")
+    src = PhotonSource.directional(0.5, 0.0)
+    built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel(\w+?ELb1EE)v",
+                           log))
+    seen, err, n_states, timed = {}, {}, 0, {}
+
+    def hold(tag, spec, pro, states, key, source):
+        nonlocal n_states
+        for state, st, buf, kb in states:
+            r = ts.block_vs_twin(spec, pro, st, buf, key, source, kb)
+            check(r["bit_equal"] and r["acc_rel_err"] <= 1e-9, f"38 {tag} {state}: {r}")
+            n_states += 1
+            v = "table_" + variant(spec)
+            err[v] = max(err.get(v, 0.0), r["max_abs_err"])
+            seen.setdefault(ts.instantiation(spec), []).append(tag)
+            yield state, st, buf, kb, r
+
+    for name, (build, cfg, kw) in ts.table_cases().items():
+        integ = Integrator.create(build(h), IntegratorConfig(**cfg), device=dev, **kw)
+        key = batch_key(SEED, 900)
+        spec, pro, states = ts.trace_states(integ, src, 4 * TABLE_CASE_LANES, TABLE_CASE_LANES,
+                                            key)
+        check(spec.table, f"38 {name}: not a table plan")
+        for _ in hold(name, spec, pro, states, key, src):
+            pass
+    n_cases = n_states
+    for name in TABLE_PATH_SCENES:
+        sc = table_path_scene(name, dev)
+        key = batch_key(SEED, 910)
+        spec, pro, states = ts.trace_states(sc.integ, sc.src, sc.n, sc.lanes, key)
+        for state, st, buf, kb, r in hold(name, spec, pro, states, key, sc.src):
+            fields = dict(scene=name, state=state, lanes=sc.lanes, photons=sc.n, K=spec.K,
+                          chain=spec.chain, kb=kb, live=r["live"], bit_equal=r["bit_equal"],
+                          max_abs_err=f"{r['max_abs_err']:.3e}",
+                          acc_rel_err=f"{r['acc_rel_err']:.3e}",
+                          instantiation=ts.instantiation(spec))
+            if state != "launch":
+                run_k = lambda s, b: fused_block(spec, pro, s, b, key, sc.src, kb)
+                run_p = lambda s, b: fused_block_reference(spec, pro, s, b, key, sc.src, kb)
+                r["device_ms"] = device_block_ms(run_k, st, buf.clone, 20)
+                r["twin_ms"] = time_block_ms(run_p, st, buf.clone, 2)
+                n_bytes = (state_bytes(spec, sc.lanes, r["live"])
+                           + PROLOGUE_BYTES_PER_LANE * sc.lanes)
+                r["bound"] = bound_ms(variant(spec), r["lane_events"], n_bytes, r["collisions"],
+                                      spec.det.n if spec.det is not None else 0, table=True)
+                timed[(name, state)] = r
+                fields.update(lane_events=r["lane_events"], collisions=r["collisions"],
+                              device_ms=f"{r['device_ms']:.4f}", plain_ms=f"{r['twin_ms']:.4f}",
+                              bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+            say("38 table-block-vs-plain", **fields, card=json.dumps(card))
+    check(len(built) == 88 and set(seen) == built,
+          f"38: table instantiations run {sorted(seen)}, built {sorted(built)}")
+    say("38 table-block-vs-plain", cases=len(ts.table_cases()), case_states=n_cases,
+        path_states=n_states - n_cases, instantiations=len(seen), bit_equal=True,
+        max_abs_err=f"{max(err.values()):.3e}", card=json.dumps(card))
+    return {"timed": timed, "err": err}
+
+
+def table_path_counts(expect: str) -> int:
+    """The launches of the table variant ``expect`` since the counters were
+    reset; no other event-block variant and no G launch."""
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    counts = {n: getattr(eb.event_block, n) for n in eb.LAUNCH_COUNTERS.values()}
+    launches = counts.pop(expect)
+    check(launches > 0 and not any(counts.values()) and gb.general_block.launches == 0,
+          f"launches of {expect}: {launches}, others {counts}, G {gb.general_block.launches}")
+    return launches
+
+
+def reset_counts() -> None:
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    eb.reset_launch_counters()
+    gb.reset_launch_counters()
+
+
+def table_batches(tag: str, sc, card: str, seed: int, profile: bool = True) -> dict:
+    """One more batch of a table path and one of its HG sibling (the same
+    extinction, the HG table) at the same photons and lanes, the block
+    kernel's device time over each (batch_kernel_time) beside its bound."""
+    from i3rc_tpu_torch import batch_key
+
+    key = batch_key(SEED, seed)
+    out = {}
+    for side, integ in (("table", sc.integ), ("hg", sc.hg)):
+        if integ is None:
+            continue
+        tracer = integ.batch_tracer(sc.n, sc.lanes)
+        run = lambda: tracer(key, sc.src.sample(key, sc.lanes, "cuda"), sc.src)
+        run()
+        bk = batch_kernel_time(run, profile)
+        check(bk["spec"].table == (side == "table"), f"{tag}: the {side} batch's plan")
+        out[side] = bk
+        say(f"{tag}-batch-kernel", side=side, photons=sc.n, lanes=sc.lanes,
+            **batch_fields(bk, card))
+    return out
+
+
+def table_paths(out: Path, card: str) -> dict:
+    """Phases 39-44: the table paths (f)-(j) through Integrator.batch_fn or
+    run_band, each driven with the launch counts set to 0 just before it
+    and read just after (the table variant, no other, no G), each against
+    an independent estimate (the general kernel on the same scene, or the
+    slab oracle), with one more batch of the table variant and of its HG
+    sibling timed; then the radar cloud on G.  Returns per variant the
+    path's launches and batch records."""
+    from i3rc_tpu_torch import Integrator, PhotonSource, make_step_cloud, run_band
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    ts = _load_tests_module("tabulated_scenes")
+    h = ts.host("i3rc_tpu_torch")
+    src = PhotonSource.directional(0.5, 0.0)
+    rec = {}
+
+    # 39. (f) the C.1 step cloud, flux: 3 x 2^24 photons at 2^20 lanes (K1-T,
+    # chain 2) against G on the same scene (maximum cross-section), 2 x 2^24
+    sc = table_path_scene("f_c1_step_cloud", "cuda")
+    fn = sc.integ.batch_fn(src, sc.n, n_lanes=sc.lanes)
+    fn(batch_key_(950))
+    torch.cuda.synchronize()
+    reset_counts()
+    fups, times = [], []
+    for b in range(3):
+        t0 = time.perf_counter()
+        res = fn(batch_key_(951 + b))
+        fup, fdn = float(res.mean_flux_up), float(res.mean_flux_down)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(abs(fup + fdn - 1.0) < 1e-5 and int(res.n_bad) == 0,
+              f"39 (f): closure {fup + fdn}, n_bad {int(res.n_bad)}")
+        fups.append(fup)
+    launches = table_path_counts("table_launches")
+    g_integ = Integrator.create(ts.c1_step_cloud(h), replace(sc.integ.config, use_fastpath=False),
+                                device="cuda")
+    check(g_integ._fast_plan is None, "39: the G twin has a fastpath plan")
+    gfn = g_integ.batch_fn(src, sc.n, n_lanes=sc.lanes)
+    g_fups = [float(gfn(batch_key_(960 + b)).mean_flux_up) for b in range(2)]
+    f_m, g_m = float(np.mean(fups)), float(np.mean(g_fups))
+    sigma = (f_m * (1 - f_m) * (1 / (3 * sc.n) + 1 / (2 * sc.n))) ** 0.5
+    check(abs(f_m - g_m) <= 4 * sigma, f"39 (f): Fup {f_m} vs G {g_m} (sigma {sigma:.2e})")
+    say("39 table-c1-step-cloud", photons=sc.n, lanes=sc.lanes, fup=f"{f_m:.6f}",
+        fup_general=f"{g_m:.6f}", sigma=f"{sigma:.2e}",
+        seconds=",".join(f"{t:.4f}" for t in times),
+        photons_per_s=f"{sc.n / sorted(times)[1]:.4e}", launches=launches, card=json.dumps(card))
+    rec["flux"] = (launches, table_batches("39 table-c1-step-cloud", sc, card, 965))
+
+    # 40. (g) the same scene with the three I3RC detectors, exact and Iwabuchi
+    # (zeta 0.3): 8 x 2^22 photons (K3-T, the forward fit) against G with its
+    # estimate stage on the same scene and estimator, 8 x 2^22
+    for est in ("iwabuchi", "exact"):
+        sc = table_path_scene(f"g_c1_radiance_{est}", "cuda")
+        fn = sc.integ.batch_fn(src, sc.n, n_lanes=sc.lanes)
+        fn(batch_key_(970))
+        torch.cuda.synchronize()
+        reset_counts()
+        f_i, times = [], []
+        for b in range(8):
+            t0 = time.perf_counter()
+            res = fn(batch_key_(971 + b))
+            f_i.append(res.mean_intensity.double().cpu().numpy())
+            closure = float(res.mean_flux_up + res.mean_flux_down)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(abs(closure - 1.0) < 1e-5 and int(res.n_bad) == 0
+                  and bool(torch.isfinite(res.intensity).all()), f"40 (g) {est}: {closure}")
+        launches = table_path_counts("table_detector_launches")
+        g_integ = Integrator.create(ts.c1_step_cloud(h),
+                                    replace(sc.integ.config, use_fastpath=False), device="cuda",
+                                    intensity_mus=DET_MUS, intensity_phis=DET_PHIS)
+        gfn = g_integ.batch_fn(src, sc.n, n_lanes=sc.lanes)
+        g_i = [gfn(batch_key_(980 + b)).mean_intensity.double().cpu().numpy()
+               for b in range(8)]
+        f_i, g_i = np.array(f_i), np.array(g_i)
+        se = np.sqrt(f_i.var(0, ddof=1) / 8 + g_i.var(0, ddof=1) / 8)
+        check(np.all(np.abs(f_i.mean(0) - g_i.mean(0)) <= 5 * se) and np.all(f_i.mean(0) > 0),
+              f"40 (g) {est}: I {f_i.mean(0)} vs G {g_i.mean(0)} (se {se})")
+        say("40 table-c1-radiance", estimator=est, photons=8 * sc.n, lanes=sc.lanes,
+            intensity=",".join(f"{v:.5f}" for v in f_i.mean(0)),
+            intensity_general=",".join(f"{v:.5f}" for v in g_i.mean(0)),
+            combined_se=",".join(f"{v:.1e}" for v in se),
+            seconds=",".join(f"{t:.4f}" for t in times),
+            photons_per_s=f"{sc.n / sorted(times)[4]:.4e}", launches=launches,
+            card=json.dumps(card))
+        if est == "iwabuchi":
+            rec["detectors"] = (launches, table_batches("40 table-c1-radiance", sc, card, 985))
+
+    # 41. (h) Landsat with per-column ssa (U[0.99, 1]) and three HG-Legendre
+    # entries by optical-depth tercile, and its conservative twin: 2^23
+    # photons, K = 32 (COL-P) against G on the same scene, Fup, Fdn and Fabs
+    # within 5 combined sigma, n_bad < 1e-3 n
+    for ssa in ("0.99", "1.0"):
+        sc = table_path_scene(f"h_landsat_props_{ssa}", "cuda")
+        plan = sc.integ._fast_plan
+        check(plan.column_props and plan.cubic_entries == 3 and plan.unroll == 32,
+              f"41: plan K {plan.unroll}, entries {plan.cubic_entries}")
+        fn = sc.integ.batch_fn(src, sc.n, n_lanes=sc.lanes)
+        fn(batch_key_(1000))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(batch_key_(1001))
+        parts = np.array([float(res.mean_flux_up), float(res.mean_flux_down),
+                          float(res.mean_flux_absorbed)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_bad = int(res.n_bad)
+        check(n_bad < 1e-3 * sc.n and abs(parts.sum() - 1.0) <= 1e-5 + n_bad / sc.n,
+              f"41 (h) {ssa}: {parts}, n_bad {n_bad}")
+        check((parts[2] > 0) == (ssa == "0.99"), f"41 (h) {ssa}: absorbed {parts[2]}")
+        launches = table_path_counts("table_column_launches")
+        g_integ = Integrator.create(ts.landsat_props(h, conservative=ssa == "1.0"),
+                                    replace(sc.integ.config, use_fastpath=False), device="cuda")
+        g_res = g_integ.batch_fn(src, sc.n, n_lanes=GENERAL_LANES)(batch_key_(1010))
+        g_parts = np.array([float(g_res.mean_flux_up), float(g_res.mean_flux_down),
+                            float(g_res.mean_flux_absorbed)])
+        check(int(g_res.n_bad) < 1e-3 * sc.n, f"41 (h) {ssa}: G n_bad {int(g_res.n_bad)}")
+        p = np.maximum(0.5 * (parts + g_parts), 1e-6)
+        sigma = np.sqrt(p * (1 - p) * 2 / sc.n)
+        check(np.all(np.abs(parts - g_parts) <= 5 * sigma),
+              f"41 (h) {ssa}: {parts} vs G {g_parts} (sigma {sigma})")
+        say("41 table-landsat-props", ssa=ssa, photons=sc.n, lanes=sc.lanes, K=plan.unroll,
+            fluxes=",".join(f"{v:.6f}" for v in parts),
+            fluxes_general=",".join(f"{v:.6f}" for v in g_parts),
+            sigma=",".join(f"{v:.1e}" for v in sigma), n_bad=n_bad,
+            n_bad_general=int(g_res.n_bad), seconds=f"{dt:.4f}",
+            photons_per_s=f"{sc.n / dt:.4e}", launches=launches, card=json.dumps(card))
+        if ssa == "0.99":
+            rec["column"] = (launches, table_batches("41 table-landsat-props", sc, card, 1015,
+                                                     profile=False))
+
+    # 42. (i) the bench row's band over the C.1 step cloud, baked (K2-T, chain
+    # 3): 2 k x 2 x 2^24 photons at 2^20 lanes, band Fup against the traced
+    # mode (G with each k point's optics) within 5 combined sigma
+    kd, cfg = table_band()
+    dom = ts.c1_step_cloud(h)
+    sc = table_path_scene("i_c1_band_k0", "cuda")
+    derive = lambda r: {"fup": r.mean_flux_up, "fdn": r.mean_flux_down,
+                        "fabs": r.mean_flux_absorbed, "n_bad": r.n_bad}
+    cache = {}
+    band = lambda mode, seed: run_band(sc.integ, dom, kd, src, SLICE_PHOTONS, 2, seed=seed,
+                                       derive=derive, integrator_cache=cache, mode=mode,
+                                       n_lanes=TABLE_LANES)
+    band("baked", 1020)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    baked = band("baked", 1021)
+    m = {k: float(v) for k, v in baked.mean["derived"].items()}
+    dt = time.perf_counter() - t0
+    launches = table_path_counts("table_gas_launches")
+    check(abs(m["fup"] + m["fdn"] + m["fabs"] - 1.0) < 1e-5 and m["n_bad"] == 0,
+          f"42 (i): {m}")
+    traced = band("traced", 1022)
+    mt = {k: float(v) for k, v in traced.mean["derived"].items()}
+    n_k = 2 * SLICE_PHOTONS
+    per_k = [float(s.mean["derived"]["fup"]) for s in baked.per_k]
+    sigma = (2 * sum(w * w * f * (1 - f) / n_k for w, f in zip(kd.weights, per_k))) ** 0.5
+    # The traced mode's G loses a few photons to its face rule (n_bad: the
+    # band's weighted mean per batch), as phases 27-31 allow.
+    check(abs(m["fup"] - mt["fup"]) <= 5 * sigma and mt["n_bad"] < 1e-3 * SLICE_PHOTONS,
+          f"42 (i): band Fup {m['fup']} vs traced {mt['fup']} (sigma {sigma:.2e}), "
+          f"n_bad {mt['n_bad']}")
+    say("42 table-c1-band", photons=n_k * kd.n_k, lanes=TABLE_LANES, fup=f"{m['fup']:.6f}",
+        fdn=f"{m['fdn']:.6f}", fabs=f"{m['fabs']:.6f}", fup_traced=f"{mt['fup']:.6f}",
+        n_bad_traced=f"{mt['n_bad']:.1f}", sigma=f"{sigma:.2e}", seconds=f"{dt:.4f}",
+        photons_per_s=f"{n_k * kd.n_k / dt:.4e}",
+        launches=launches, card=json.dumps(card))
+    rec["gas"] = (launches, table_batches("42 table-c1-band", sc, card, 1025))
+
+    # 43. (j) the isotropic slab (tau 1, ssa 1, mu0 0.5; the cubic is exact):
+    # 2^22 photons, R and T within 4 sigma of the discrete-ordinates oracle
+    oracle = _load_tests_module("disort_oracle")
+    sc = table_path_scene("j_isotropic", "cuda")
+    reset_counts()
+    res = sc.integ.batch_fn(src, sc.n, n_lanes=sc.lanes)(batch_key_(1030))
+    r_t = [float(res.mean_flux_up), float(res.mean_flux_down)]
+    launches = table_path_counts("table_launches")
+    r_ex, t_ex = oracle.slab_fluxes(1.0, 1.0, [0.0], 0.5)
+    for got, want, what in zip(r_t, (r_ex, t_ex), ("R", "T")):
+        sigma = (want * (1 - want) / sc.n) ** 0.5
+        check(abs(got - want) <= 4 * sigma, f"43 (j): {what} {got} vs oracle {want}")
+    check(abs(sum(r_t) - 1.0) < 1e-5 and int(res.n_bad) == 0, f"43 (j): {r_t}")
+    say("43 table-isotropic-slab", photons=sc.n, lanes=sc.lanes, r=f"{r_t[0]:.6f}",
+        t=f"{r_t[1]:.6f}", oracle=f"{r_ex:.6f},{t_ex:.6f}",
+        sigma=f"{(r_ex * (1 - r_ex) / sc.n) ** 0.5:.2e}", launches=launches,
+        card=json.dumps(card))
+
+    # 44. the I3RC radar cloud (640 x 1 x 54) with the C.1 table on G (not
+    # separable, not one layer a column): 4 x 2^20 photons at 2^20 lanes,
+    # Fup and its standard error, gated on closure and n_bad < 1e-3 n
+    from i3rc_tpu_torch.models.radar_cloud import make_radar_cloud
+
+    integ = Integrator.create(make_radar_cloud("c1"),
+                              replace(table_band()[1], max_events=2000), device="cuda")
+    check(integ._fast_plan is None, "44: the radar cloud has a fastpath plan")
+    fn = integ.batch_fn(src, RADAR_PHOTONS, n_lanes=GENERAL_LANES)
+    fn(batch_key_(1040))
+    torch.cuda.synchronize()
+    reset_counts()
+    res, times = timed_general_batches(fn, RADAR_PHOTONS, 1041, 4,
+                                       bad_max=int(1e-3 * RADAR_PHOTONS))
+    launches = gb.general_block.launches
+    check(launches > 0, "44: the radar cloud launched no G")
+    fups = np.array([float(r.mean_flux_up) for r in res])
+    say("44 radar-cloud-c1-general", photons=4 * RADAR_PHOTONS, lanes=GENERAL_LANES,
+        fup=f"{fups.mean():.6f}", stderr=f"{fups.std(ddof=1) / 2:.2e}",
+        fdn=f"{np.mean([float(r.mean_flux_down) for r in res]):.6f}",
+        n_bad=",".join(str(int(r.n_bad)) for r in res),
+        seconds=",".join(f"{t:.4f}" for t in times),
+        photons_per_s=f"{RADAR_PHOTONS / sorted(times)[1]:.4e}", launches=launches,
+        card=json.dumps(card))
+    return rec
+
+
+def table_entry(kind: str, source: str, replaces: str, path: tuple, checks: dict) -> dict:
+    """The kernels-line entry of a table variant: launches on its path, its
+    largest state difference to the plain version (phase 38), its device
+    time, plain time and bound on its path's mid-flight block, and one
+    batch of the path beside the batch of its HG sibling."""
+    launches, bks = path
+    r = checks["timed"][(TABLE_TIMED[kind], "mid")]
+    tail = checks["timed"][(TABLE_TIMED[kind], "tail")]
+    e = {"name": "fast_event_block_table" + ("" if kind == "flux" else f"_{kind}"),
+         "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+         "max_abs_err": checks["err"].get("table_" + kind, 0.0), "ms": r["device_ms"],
+         "plain_ms": r["twin_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": None, "tail_ms": tail["device_ms"], "tail_bound_ms": tail["bound"][0],
+         "batch_ms": bks["table"]["kernel_ms"], "batch_launches": bks["table"]["launches"],
+         "batch_bound_ms": bks["table"]["bound"][0]}
+    if "hg" in bks:
+        e["hg_batch_ms"] = bks["hg"]["kernel_ms"]
+    return e
 
 
 if __name__ == "__main__":

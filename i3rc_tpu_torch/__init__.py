@@ -12,7 +12,7 @@ Layer map:
   core/         Philox random streams, photon sources, surfaces and BRDFs,
                 domains, phase functions, quadrature, k-distributions
   io/           netCDF domain and phase-table files
-  models/       the I3RC step cloud and Landsat scenes
+  models/       the I3RC step cloud, Landsat and radar scenes
   ops/          grid geometry and the voxel traversal (DDA)
   integrators/  the fastpath planner and trace loop, the general kernel's
                 trace loop and event, tables, results, the Integrator
@@ -35,6 +35,7 @@ _EXPORTS = {
     "make_step_cloud": "i3rc_tpu_torch.models.step_cloud",
     "write_domains": "i3rc_tpu_torch.models.step_cloud",
     "make_landsat_cloud": "i3rc_tpu_torch.models.landsat_cloud",
+    "make_radar_cloud": "i3rc_tpu_torch.models.radar_cloud",
     # The port.
     "PhotonSource": "i3rc_tpu_torch.core.illumination",
     "SurfaceDescription": "i3rc_tpu_torch.core.surface",

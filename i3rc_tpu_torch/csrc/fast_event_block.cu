@@ -154,25 +154,33 @@ int i3rc_cta_threads(void) { return CTA_THREADS; }
 // Runs one block of params->K events in place on the given stream, after
 // the block's prologue when params->pro.on; with detectors it adds their
 // contributions to acc; with a column table (col not null) it runs the
-// column variant; over a reflecting surface (params->srf.kind) with the
-// prologue on, the surface stage follows on the stream.  Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for an
-// unsupported K, CHAIN, detector count or column combination; the Python
-// wrapper checks those first).
+// column variant; with a cubic table (params->cubic not null) the table
+// variant; over a reflecting surface (params->srf.kind) with the prologue
+// on, the surface stage follows on the stream.  Returns cudaGetLastError()
+// after the launches (cudaErrorInvalidValue for an unsupported K, CHAIN,
+// detector count, column or table combination; the Python wrapper checks
+// those first).
 int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
                           const EventParams* params, int chain, int absorbing,
                           int track_y, int detectors, int iwabuchi, int gas, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const bool tab = params->cubic != nullptr;
+  if (tab && (params->n_seg < 1 || (detectors != 0) != (params->fwd != nullptr) ||
+              (col != nullptr) != (params->pf_row != nullptr)))
+    return (int)cudaErrorInvalidValue;
   bool ok;
   if (col != nullptr)
     ok = track_y && !detectors && !gas &&
-         launch_block_col(f, i, col, *params, chain, absorbing, st);
+         launch_block_col(f, i, col, *params, chain, absorbing, tab, st);
   else if (gas)
-    ok = launch_block_gas(f, i, acc, *params, chain, absorbing, track_y, detectors,
-                          iwabuchi, st);
+    ok = (tab ? launch_block_tab_gas : launch_block_gas)(f, i, acc, *params, chain, absorbing,
+                                                         track_y, detectors, iwabuchi, st);
+  else if (tab)
+    ok = launch_block_tab(f, i, acc, *params, chain, absorbing, track_y, detectors, iwabuchi,
+                          st);
   else
-    ok = launch_block<false>(f, i, acc, *params, chain, absorbing, track_y, detectors,
-                             iwabuchi, st);
+    ok = launch_block<false, false>(f, i, acc, *params, chain, absorbing, track_y, detectors,
+                                    iwabuchi, st);
   if (!ok) return (int)cudaErrorInvalidValue;
   if (params->pro.on && params->srf.kind != SURFACE_BLACK)
     fast_event_block_surface_kernel<<<(params->n_lanes + CTA_THREADS - 1) / CTA_THREADS,

@@ -7,12 +7,15 @@
 // event of the XLA fastpath (fastpath.py:1320-1345, :1377-1379, :1607-1614)
 // in the design of the TPU column-read probe `pallas_column_loop`
 // (benchmarks/column_read_probe.py:83, pallas_call at :140): a K-event loop
-// whose every event reads one row of the (n_cols, M) column table.  No table
-// mode.  This header holds the device code and the kernel template;
+// whose every event reads one row of the (n_cols, M) column table.  Each
+// variant also comes as a table variant (TAB, the table modes of the XLA
+// fastpath, fastpath.py:1573-1586, :1508-1520, :1330-1336; see the note
+// below).  This header holds the device code and the kernel template;
 // fast_event_block.cu instantiates the variants without the gas channel and
-// holds the C interface, fast_event_block_gas.cu the gas variants and
-// fast_event_block_col.cu the column variants.  The three files compile in
-// parallel.
+// holds the C interface, fast_event_block_gas.cu the gas variants,
+// fast_event_block_tab.cu and fast_event_block_tab_gas.cu their table
+// variants and fast_event_block_col.cu the column variants of both kinds.
+// The five files compile in parallel.
 //
 // One thread owns one photon lane.  It loads the lane's state once, runs K
 // events (free path, separable where-chain extinction, nearest segment face,
@@ -133,6 +136,26 @@
 //    limit); a full block holds 32 warps per SM, too few to hide an event's
 //    dependent chains (Philox rounds, IEEE divisions, the row read).
 //
+// Table variants (TAB: a phase function that is not exactly Henyey-
+// Greenstein; the planner's FastPlan.cubic).  The scattering cosine at a
+// collision and at each chained one comes from the piecewise-cubic fit of
+// the inverse CDF, mu(p) on 256 segments per table entry
+// (tables.build_inverse_cubic, the general kernel's sampler): segment
+// floor(u * n_seg), one 16-byte __ldg of its row [c0..c3], the cubic at the
+// segment's fraction, clipped to [-1, 1]; the draw is the one the HG
+// inversion reads.  With detectors the phase value toward detector d is
+// exp of the log-space cubic fit on 512 segments of [0, pi]
+// (tables.build_forward_cubic) at acos of the projection, one more row read.
+// In column media the lane's ssa rides the event's row read (slot 3, the
+// padding word of the HG rows) and the row base of its table entry, pf_index * n_seg,
+// is read from an int32 array only at a collision, from the column of the
+// event's start (the XLA path read both every event; the result is the
+// same).  The tables (4-12 KB; 8 KB forward) stay in L1/L2: one read per
+// sampled cosine, as the general kernel reads its own.  On the TPU these
+// modes never reached Pallas (a random row read is slow there).  TAB is a
+// template flag, so that the HG instantiations compile to the code they
+// had (a runtime branch raised the general kernel's spills).
+//
 // Differences from the TPU kernel:
 //  * RNG: counter-based Philox4x32-10 keyed (seed, batch) with counter
 //    (lane, kb, group, stream), the layout of i3rc_tpu_torch/core/rng.py; it
@@ -159,8 +182,9 @@
 //    bottom hits and only then takes the CTA's dead count, so that the next
 //    launch's FIFO rank sees a revived lane alive: counted dead at exit and
 //    revived at the next prologue, it would skip photon ids.  The kind of
-//    surface is a runtime value; the 89 event-kernel instantiations are
-//    those of a black surface but for DET's weight (see the note there).
+//    surface is a runtime value; the 176 event-kernel instantiations (88
+//    HG, 88 TAB) are those of a black surface but for DET's weight (see the
+//    note there).
 //
 // Float arithmetic follows the JAX reference and the PyTorch twin operation
 // by operation; the library is built with --fmad=false so that no multiply-
@@ -291,6 +315,12 @@ struct EventParams {
   float inv_dx, inv_dy, dx, dy;
   Prologue pro;
   SurfaceParams srf;
+  // Table variants (TAB) only; the HG variants never read these.
+  const float4* cubic;          // (entries * n_seg, 4) inverse-CDF cubic rows
+  const float4* fwd;            // with detectors: (n_fwd, 4) log-phase cubic rows
+  const int* pf_row;            // column media: (n_cols,) row base of each column's entry
+  int n_seg, n_fwd;
+  float fwd_scale;              // f32(n_fwd / pi)
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -381,6 +411,26 @@ __device__ __forceinline__ float hg_cosine(float g, float u) {
   const float frac = (1.0f - g * g) / (1.0f + g * (2.0f * u - 1.0f));
   const float c = (1.0f + g * g - frac * frac) / (2.0f * g);
   return fminf(fmaxf(c, -1.0f), 1.0f);
+}
+
+// The table variants' cosine: the piecewise-cubic inverse CDF at u, in the
+// table entry whose rows start at `row` (wavefront.sample_cos_scat).
+__device__ __forceinline__ float cubic_cosine(const EventParams& p, int row, float u) {
+  const float pos = fminf(fmaxf(u, 0.0f), 1.0f) * (float)p.n_seg;
+  const int seg = min(max((int)pos, 0), p.n_seg - 1);
+  const float t = pos - (float)seg;
+  const float4 c = __ldg(p.cubic + row + seg);
+  return fminf(fmaxf(((c.w * t + c.z) * t + c.y) * t + c.x, -1.0f), 1.0f);
+}
+
+// The table variants' phase value at the projection `proj` (a cosine):
+// exp of the log-space cubic at theta = acos(proj) (fastpath.py:1508-1520).
+__device__ __forceinline__ float forward_phase(const EventParams& p, float proj) {
+  const float pos = acosf(proj) * p.fwd_scale;
+  const int seg = min(max((int)pos, 0), p.n_fwd - 1);
+  const float t = pos - (float)seg;
+  const float4 c = __ldg(p.fwd + seg);
+  return expf(((c.w * t + c.z) * t + c.y) * t + c.x);
 }
 
 __device__ __forceinline__ void sincos_2pi(float u, float* sin_out, float* cos_out) {
@@ -617,15 +667,33 @@ __device__ __forceinline__ float detector_contribution(const EventParams& p, int
   return norm_pf * expf(-tau);
 }
 
+// The same with the phase value of the forward fit (TAB).  A function of its
+// own, so that the HG variants compile to the code they had.
+template <bool IW>
+__device__ __forceinline__ float detector_contribution_tab(const EventParams& p, int d,
+                                                           const Lane& s, float u_iw,
+                                                           int* col_out) {
+  const DetParams& q = p.det;
+  const float proj =
+      fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
+  const float norm_pf = forward_phase(p, proj) * q.norm[d];
+  const float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
+  return norm_pf * expf(-tau);
+}
+
 // One fast_event (fastpath.py:1291-1676, MARCH = 1).  u holds the event's
 // draws: u[0] free path, u[1] scattering cosine, u[2] azimuth, u[3]
 // absorption (when ABS), then CHAIN bonus phases of BD draws each, or with
 // DET && IW one Iwabuchi draw per detector; with LAZY they are drawn as
 // they are read (want).  DET adds the collision's detector contributions to
 // hist (tally: the warp's private slice when SLICES, else a histogram the
-// warps share).  Called by every thread of a warp together.
+// warps share).  TAB samples the cosine from the cubic inverse CDF (in column
+// media at the lane's entry, with the lane's ssa in the absorption tests) and
+// takes the detectors' phase values from the forward fit.  Called by every
+// thread of a warp together.
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
-          bool LAZY, int NU>
+          bool LAZY, bool TAB, int NU>
 __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU], Draws& dr,
                                            Lane& s, double* hist,
                                            const float4* __restrict__ col) {
@@ -641,15 +709,21 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
 
   float ext, inv_ext = 0.0f, face_x, face_z;
   float vcol = 0.0f, zb = 0.0f, zt = 0.0f;
+  // The ssa of the absorption tests: uniform, or (TAB in column media) the
+  // column's; ci is the column of the event's start.
+  float ssa = 0.0f;
+  int ci = 0;
   if (COL) {
     // The lane's column row (fastpath.py:1320-1345): ix, iy truncated
     // toward zero and clipped.
     const int ix = min(max((int)((s.x - p.x0) * p.inv_dx), 0), p.n_x - 1);
     const int iy = min(max((int)((s.y - p.y0) * p.inv_dy), 0), p.n_y - 1);
-    const float4 row = __ldg(col + ix * p.n_y + iy);
+    ci = ix * p.n_y + iy;
+    const float4 row = __ldg(col + ci);
     vcol = row.x;
     zb = row.y;
     zt = row.z;
+    if (TAB) ssa = row.w;
     ext = (s.z >= zb && s.z < zt) ? vcol : 0.0f;
     face_x = p.x0 + (floorf((s.x - p.x0) * p.inv_dx) + (up_x ? 1.0f : 0.0f)) * p.dx;
     face_z = up_z ? (s.z < zb ? zb : (s.z < zt ? zt : p.z_max))
@@ -730,7 +804,7 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
   bool collided = collide;
   if (ABS) {
     want<LAZY>(u, p, dr, 0, collide);
-    const bool die = collided && (u[3] >= p.ssa);
+    const bool die = collided && (u[3] >= (TAB && COL ? ssa : p.ssa));
     if (die) s.pk = 3;
     collided = collided && !die;
   }
@@ -739,17 +813,26 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
 #pragma unroll 1
     for (int d = 0; d < p.det.n; ++d) {
       int bin;
-      float c = detector_contribution<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin);
+      float c;
+      if constexpr (TAB)
+        c = detector_contribution_tab<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin);
+      else
+        c = detector_contribution<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin);
       if (!collided) c = 0.0f;
       // A BRDF plan's lane weight, read where it scales (constant in the block).
       if (p.srf.w) c = c * p.srf.w[dr.lane];
       tally<SLICES>(hist, bin * p.det.n + d, c);
     }
   }
+  // The row base of the lane's table entry (TAB in column media), read at
+  // its collision; a chained collision stays in the same column.
+  int prow = 0;
   if (warp_any<LAZY>(collided)) {
     want<LAZY>(u, p, dr, 0, collided);
+    if (TAB && COL && collided) prow = __ldg(p.pf_row + ci);
     float nx, ny, nz;
-    rotate_direction(s.ux, s.uy, s.uz, hg_cosine(p.g, u[1]), u[2], &nx, &ny, &nz);
+    rotate_direction(s.ux, s.uy, s.uz, TAB ? cubic_cosine(p, prow, u[1]) : hg_cosine(p.g, u[1]),
+                     u[2], &nx, &ny, &nz);
     if (collided) {
       s.ux = nx;
       s.uy = ny;
@@ -826,7 +909,7 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
       }
       if (ABS) {
         want<LAZY>(u, p, dr, (i0 + 3) / 4, commit);
-        const bool die_c = commit && (u[i0 + 3] >= p.ssa);
+        const bool die_c = commit && (u[i0 + 3] >= (TAB && COL ? ssa : p.ssa));
         if (die_c) s.pk = 3;
         commit = commit && !die_c;
       }
@@ -834,8 +917,9 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
         want<LAZY>(u, p, dr, (i0 + 1) / 4, commit);
         want<LAZY>(u, p, dr, (i0 + 2) / 4, commit);
         float nx, ny, nz;
-        rotate_direction(s.ux, s.uy, s.uz, hg_cosine(p.g, u[i0 + 1]), u[i0 + 2],
-                         &nx, &ny, &nz);
+        rotate_direction(s.ux, s.uy, s.uz,
+                         TAB ? cubic_cosine(p, prow, u[i0 + 1]) : hg_cosine(p.g, u[i0 + 1]),
+                         u[i0 + 2], &nx, &ny, &nz);
         if (commit) {
           s.ux = nx;
           s.uy = ny;
@@ -1128,7 +1212,8 @@ static __device__ __noinline__ float brdf_reflectance(const SurfaceParams& sp, f
 //   f: (8, L) float32 rows x, y, z, ux, uy, uz, tau, tgas
 //   i: (5, L) int32   rows alive, orders, pk, bad, evct
 // acc (DET): (n_cols, D) float64 detector accumulator, added to.
-// col (COL): (n_cols, 4) float32 column table [v, z_base, z_top, 0].
+// col (COL): (n_cols, 4) float32 column table [v, z_base, z_top, 0], with TAB
+// [v, z_base, z_top, ssa].
 // The detector tally (DET) goes to one of three places, chosen per launch by
 // hist_room: with SLICES, CTA_WARPS private slices of n_bins doubles in
 // dynamic shared memory; without, one CTA histogram there (hist_in_smem), or
@@ -1163,7 +1248,7 @@ static __device__ __noinline__ float brdf_reflectance(const SurfaceParams& sp, f
 // CTA's dead count after the bounce; a BRDF plan's weight (p.srf.w) scales
 // DET's contributions.
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
-          int DCAP>
+          int DCAP, bool TAB>
 __global__ void __launch_bounds__(CTA_THREADS)
 fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
                         const float4* __restrict__ col, int hist_in_smem,
@@ -1252,7 +1337,7 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
       float u[4 * G_MAX];
       Draws dr{lane, j * G, 0u};
       start_draws<LAZY>(u, p, dr, G);
-      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, LAZY>(p, u, dr, s, hist, col);
+      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, LAZY, TAB>(p, u, dr, s, hist, col);
     }
 
     if (valid) {
@@ -1306,7 +1391,7 @@ static HistRoom hist_room(int n_bins) {
 }
 
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL = false,
-          int DCAP = DET_DRAWS_SMALL>
+          int DCAP = DET_DRAWS_SMALL, bool TAB = false>
 static void launch(float* f, int* i, double* acc, const EventParams& p,
                    cudaStream_t stream, const float4* col = nullptr) {
   const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
@@ -1314,66 +1399,79 @@ static void launch(float* f, int* i, double* acc, const EventParams& p,
   const size_t bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
   if constexpr (DET) {
     if (room == HIST_SLICES) {
-      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, true, DCAP>
+      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, true, DCAP, TAB>
           <<<blocks, CTA_THREADS, CTA_WARPS * bytes, stream>>>(f, i, acc, col, 1, p);
       return;
     }
   }
-  const auto kernel = fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, false, DCAP>;
+  const auto kernel =
+      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, false, DCAP, TAB>;
   const size_t smem = room == HIST_SHARED ? bytes : 0;
   if (smem + SMEM_STATIC_BYTES > SMEM_DEFAULT_BYTES)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, CTA_THREADS, smem, stream>>>(f, i, acc, col, room == HIST_SHARED, p);
 }
 
-template <int CHAIN, bool DET, bool IW, bool GAS, int DCAP = DET_DRAWS_SMALL>
+template <int CHAIN, bool DET, bool IW, bool GAS, int DCAP, bool TAB>
 static void launch_flags(float* f, int* i, double* acc, const EventParams& p,
                          bool absorbing, bool track_y, cudaStream_t stream) {
   if (absorbing) {
-    if (track_y) launch<CHAIN, true, true, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
-    else launch<CHAIN, true, false, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
+    if (track_y) launch<CHAIN, true, true, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
+    else launch<CHAIN, true, false, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
   } else {
-    if (track_y) launch<CHAIN, false, true, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
-    else launch<CHAIN, false, false, DET, IW, GAS, false, DCAP>(f, i, acc, p, stream);
+    if (track_y) launch<CHAIN, false, true, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
+    else launch<CHAIN, false, false, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
   }
 }
 
 // One block (p.K events, any K >= 1) of the variant the flags name, with the
-// gas channel (GAS = true) or without it: flux at chain depth 0-3, or the
-// detector variant (always chain depth 0, up to MAX_DETECTORS detectors) with
-// or without Iwabuchi.  False for a chain depth or a detector count that is
-// not built; the Python wrapper refuses those first (launch_refusal).
-template <bool GAS>
+// gas channel (GAS = true) or without it, HG or table (TAB): flux at chain
+// depth 0-3, or the detector variant (always chain depth 0, up to
+// MAX_DETECTORS detectors) with or without Iwabuchi.  False for a chain depth
+// or a detector count that is not built; the Python wrapper refuses those
+// first (launch_refusal).
+template <bool GAS, bool TAB>
 static bool launch_block(float* f, int* i, double* acc, const EventParams& p, int chain,
                          bool absorbing, bool track_y, bool detectors, bool iwabuchi,
                          cudaStream_t stream) {
+  constexpr int DS = DET_DRAWS_SMALL;
   if (p.K < 1) return false;
   if (detectors) {
     if (chain != 0 || p.det.n < 1 || p.det.n > MAX_DETECTORS || acc == nullptr)
       return false;
     if (!iwabuchi)
-      launch_flags<0, true, false, GAS>(f, i, acc, p, absorbing, track_y, stream);
+      launch_flags<0, true, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream);
     else if (p.det.n <= DET_DRAWS_SMALL)
-      launch_flags<0, true, true, GAS>(f, i, acc, p, absorbing, track_y, stream);
+      launch_flags<0, true, true, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream);
     else
-      launch_flags<0, true, true, GAS, MAX_DETECTORS>(f, i, acc, p, absorbing, track_y, stream);
+      launch_flags<0, true, true, GAS, MAX_DETECTORS, TAB>(f, i, acc, p, absorbing, track_y,
+                                                           stream);
     return true;
   }
   switch (chain) {
-    case 0: launch_flags<0, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 1: launch_flags<1, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 2: launch_flags<2, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 3: launch_flags<3, false, false, GAS>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 0: launch_flags<0, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 1: launch_flags<1, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 2: launch_flags<2, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
+    case 3: launch_flags<3, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
     default: return false;
   }
   return true;
 }
 
-// The gas variants, instantiated in fast_event_block_gas.cu.
+// The gas variants, instantiated in fast_event_block_gas.cu; the table
+// variants without and with the gas channel, in fast_event_block_tab.cu and
+// fast_event_block_tab_gas.cu.
 bool launch_block_gas(float* f, int* i, double* acc, const EventParams& p, int chain,
                       bool absorbing, bool track_y, bool detectors, bool iwabuchi,
                       cudaStream_t stream);
+bool launch_block_tab(float* f, int* i, double* acc, const EventParams& p, int chain,
+                      bool absorbing, bool track_y, bool detectors, bool iwabuchi,
+                      cudaStream_t stream);
+bool launch_block_tab_gas(float* f, int* i, double* acc, const EventParams& p, int chain,
+                          bool absorbing, bool track_y, bool detectors, bool iwabuchi,
+                          cudaStream_t stream);
 
-// The column variants (flux, y tracked), instantiated in fast_event_block_col.cu.
+// The column variants (flux, y tracked), HG or table, instantiated in
+// fast_event_block_col.cu.
 bool launch_block_col(float* f, int* i, const float4* col, const EventParams& p, int chain,
-                      bool absorbing, cudaStream_t stream);
+                      bool absorbing, bool table, cudaStream_t stream);

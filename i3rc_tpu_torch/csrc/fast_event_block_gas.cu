@@ -8,6 +8,6 @@
 bool launch_block_gas(float* f, int* i, double* acc, const EventParams& p, int chain,
                       bool absorbing, bool track_y, bool detectors, bool iwabuchi,
                       cudaStream_t stream) {
-  return launch_block<true>(f, i, acc, p, chain, absorbing, track_y, detectors, iwabuchi,
-                            stream);
+  return launch_block<true, false>(f, i, acc, p, chain, absorbing, track_y, detectors,
+                                   iwabuchi, stream);
 }

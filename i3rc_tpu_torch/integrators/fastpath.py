@@ -1,4 +1,4 @@
-"""Fused transport fastpath (separable or column optics, HG phase) in PyTorch.
+"""Fused transport fastpath (separable or column optics) in PyTorch.
 
 Port of ``i3rc_tpu/integrators/fastpath.py`` for flux and radiance over a
 black, Lambertian or uniform-BRDF surface, with or without the baked gas
@@ -30,13 +30,17 @@ z_top] of the column table; a photon tallies at every exit (top, bottom,
 or absorption: Bernoulli when ssa < 1, or the gas channel when its
 threshold runs out), with weight 1 except over a BRDF surface, and a
 bottom hit over a reflecting surface revives it with the surface's
-probability.
+probability.  The scattering cosine is the Henyey-Greenstein inversion for
+an exact-HG table, else the piecewise-cubic inverse-CDF fit of the table
+(``FastPlan.cubic``, the table modes: one single-entry table, or with
+per-column ssa and phase entries every entry of the table, ``column_props``);
+a tabulated plan's detectors read the phase value from the log-space cubic
+fit (``FastPlan.fwd_cubic``).
 
 Plans the JAX package supports but the port does not yet — the marching
-shadow trace, fused-k gas batching, tabulated phase functions (per-column
-properties included) — raise NotImplementedError naming their ROADMAP
-item;
-configurations the JAX planner rejects return None, as there.
+shadow trace and fused-k gas batching — raise NotImplementedError naming
+their ROADMAP item; configurations the JAX planner rejects return None, as
+there.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.core.rng import GAS_LAUNCH_BLOCK, PhiloxKey, gas_thresholds
+from i3rc_tpu_torch.integrators.tables import build_forward_cubic, build_inverse_cubic
 from i3rc_tpu_torch.integrators.wavefront import (
     ONEHOT_MAX_ROWS,
     RawTallies,
@@ -81,7 +86,6 @@ def lane_width(n_photons: int, n_lanes: int | None = None) -> int:
 _ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two varying "
                         "horizontal factors): ROADMAP item 10b")
 _ITEM_GAS_K = (13.5, "fused-k gas batching (GasKTables): ROADMAP item 13b")
-_ITEM_TABLE = (15, "tabulated (non-HG) phase functions on the fastpath: ROADMAP item 15")
 _ITEM_REACH = (22, ITEM_REACH)
 
 
@@ -226,7 +230,8 @@ def detect_hg(table) -> float | None:
 class FastPlan:
     """Static (host-side) description of one fastpath trace: the separable
     extinction factors, the HG asymmetry, the block length K (``unroll``)
-    and the uniform single-scattering albedo (< 1: Bernoulli absorption)."""
+    and the uniform single-scattering albedo (< 1: Bernoulli absorption;
+    with column properties the least ssa of the occupied columns)."""
 
     fx: StepFactor
     fy: StepFactor
@@ -253,15 +258,31 @@ class FastPlan:
     surface_albedo: float = 0.0
     brdf: str | None = None
     brdf_params: tuple = ()
+    # Table modes (fastpath.py:318-346): a non-HG table samples the
+    # scattering cosine from ``cubic``, the (entries * 256, 4) float32
+    # piecewise-cubic inverse-CDF fit (tables.build_inverse_cubic; hg_g is
+    # then 0); ``cubic_entries`` of them flattened.  ``column_props``: the
+    # column table widens to (n_cols, 5) [v, z_base, z_top, ssa, pf_index]
+    # and each lane reads its ssa and table entry from its column.
+    # ``fwd_cubic``: a tabulated plan's detectors take the phase value from
+    # the (512, 4) log-space cubic fit (tables.build_forward_cubic).
+    cubic: np.ndarray | None = None
+    cubic_entries: int = 1
+    fwd_cubic: np.ndarray | None = None
+    column_props: bool = False
 
     def __eq__(self, other):
         if not isinstance(other, FastPlan):
             return NotImplemented
-        a, b = self.column_data, other.column_data
-        same_cols = (a is None and b is None) or (
-            a is not None and b is not None and np.array_equal(a, b))
-        return same_cols and all(getattr(self, f) == getattr(other, f) for f in
-                                 self.__dataclass_fields__ if f != "column_data")
+        arrays = ("column_data", "cubic", "fwd_cubic")
+
+        def same(a, b):
+            return (a is None and b is None) or (
+                a is not None and b is not None and np.array_equal(a, b))
+
+        return all(same(getattr(self, f), getattr(other, f)) for f in arrays) and all(
+            getattr(self, f) == getattr(other, f) for f in self.__dataclass_fields__
+            if f not in arrays)
 
 
 @dataclass(frozen=True)
@@ -371,7 +392,11 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
 
     Returns None where the JAX planner returns None.  Where it would return
     a plan that uses a feature the port lacks, raises
-    NotImplementedError naming the ROADMAP item.
+    NotImplementedError naming the ROADMAP item.  A table that is not
+    exactly HG takes the table modes (fastpath.py:502-553): per-column ssa
+    and phase entries the flattened cubic fit of every entry, a single
+    entry (with a gas channel, the cloud component's) its own fit, and with
+    detectors the forward fit too.
     """
     if not getattr(config, "use_fastpath", True) or config.use_ray_tracing:
         return None
@@ -416,11 +441,19 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
         uniform_ssa, g, cloud_field = 1.0, 0.0, flat.total_ext
     else:
         return None
-    if per_col_props or g is None or g == 0.0:
+    cubic, cubic_entries, fwd_cubic = None, 1, None
+    if per_col_props:
+        cub = np.asarray(build_inverse_cubic(flat)[0], np.float32)
+        cubic_entries = cub.shape[0]
+        cubic = cub.reshape(-1, 4)
+        g = 0.0
+    elif g is None or g == 0.0:
         comp = cloud_idx if gas else 0
-        if not per_col_props and len(flat.forward_tables[comp].phase_functions) != 1:
+        if len(flat.forward_tables[comp].phase_functions) != 1:
             return None
-        missing.append(_ITEM_TABLE)
+        cubic = np.asarray(build_inverse_cubic(flat)[comp, 0], np.float32)
+        if intensity is not None:
+            fwd_cubic = np.asarray(build_forward_cubic(flat)[comp, 0], np.float32)
         g = 0.0
     factors = None if per_col_props else separable_factors(
         cloud_field, *(np.asarray(e.cpu()) for e in
@@ -431,14 +464,17 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
     if factors is None:
         if intensity is not None or gas:
             return None
-        # Per-column ssa and phase index (5-field tables) need the tabulated
-        # inverse-CDF tables: item 15 is already in ``missing`` for them.
         column_data = column_structure(
             flat.total_ext, np.asarray(geom.z_edges.cpu()),
             ssa=np.asarray(flat.ssa)[..., 0] if per_col_props else None,
             pfi=np.asarray(flat.phase_index)[..., 0] if per_col_props else None)
         if column_data is None:
             return None
+        if per_col_props:
+            # The static absorbing switch: the least ssa of the occupied
+            # columns (fastpath.py:573-576).
+            occ = column_data[:, 0] > 0.0
+            uniform_ssa = float(column_data[occ, 3].min()) if occ.any() else 1.0
         trivial = StepFactor((), (1.0,))
         fx = fy = fz = trivial
     elif per_col_props:
@@ -466,7 +502,9 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
     return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g, unroll=unroll, ssa=uniform_ssa,
                     detectors=detectors, closed_shadow=closed_shadow,
                     gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data,
-                    surface_albedo=surface_albedo, brdf=brdf, brdf_params=brdf_params)
+                    surface_albedo=surface_albedo, brdf=brdf, brdf_params=brdf_params,
+                    cubic=cubic, cubic_entries=cubic_entries, fwd_cubic=fwd_cubic,
+                    column_props=per_col_props)
 
 
 def _chain_depth(config, detectors, gas: bool) -> int:
@@ -481,12 +519,8 @@ def plan_from_jax(plan) -> FastPlan:
     """The port's plan for a JAX ``FastPlan`` (host numpy already); its BRDF
     kernel maps to the registry name its function carries
     (``cox_munk_brdf`` -> "cox_munk")."""
-    extras = {"gas_k": _ITEM_GAS_K, "column_props": _ITEM_TABLE, "cubic": _ITEM_TABLE,
-              "fwd_cubic": _ITEM_TABLE}
-    for name, item in extras.items():
-        v = getattr(plan, name, None)
-        if v is not None and not (isinstance(v, (tuple, bool, float)) and not v):
-            raise NotImplementedError(f"fastpath plan needs {item[1]}")
+    if getattr(plan, "gas_k", None) is not None:
+        raise NotImplementedError(f"fastpath plan needs {_ITEM_GAS_K[1]}")
     if plan.detectors and not plan.closed_shadow:
         raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
     conv = lambda f: StepFactor(tuple(f.thresholds), tuple(f.values))
@@ -503,7 +537,12 @@ def plan_from_jax(plan) -> FastPlan:
                     brdf=None if plan.brdf_fn is None
                     else plan.brdf_fn.__name__.removesuffix("_brdf"),
                     brdf_params=() if plan.brdf_params is None
-                    else tuple(float(v) for v in np.asarray(plan.brdf_params, np.float32)))
+                    else tuple(float(v) for v in np.asarray(plan.brdf_params, np.float32)),
+                    cubic=None if plan.cubic is None else np.asarray(plan.cubic, np.float32),
+                    cubic_entries=int(plan.cubic_entries),
+                    fwd_cubic=None if plan.fwd_cubic is None
+                    else np.asarray(plan.fwd_cubic, np.float32),
+                    column_props=bool(plan.column_props))
 
 
 def state_from_numpy(st, device="cpu") -> LaneState:
@@ -527,16 +566,36 @@ def state_from_numpy(st, device="cpu") -> LaneState:
 
 def event_spec(geom, plan: FastPlan, config) -> EventSpec:
     """Constants of the event block for one plan on one grid; a column plan's
-    table moves to the grid's device here, once per tracer."""
+    table and a table plan's cubic fits move to the grid's device here, once
+    per tracer.
+
+    The column table is (n_cols, 4) float32, one 16-byte row a lane reads
+    per event: [v, z_base, z_top, 0]; on a table plan [v, z_base, z_top,
+    ssa], the column's ssa (plan.ssa where it is uniform) riding the row's
+    fourth word.  The table entry is needed only at a collision, so it is a
+    separate int32 (n_cols,) array ``pf_row`` of row bases pf_index * n_seg
+    (zeros for a single entry), read once per collision rather than
+    widening every event's row read (the JAX package read it every event,
+    fastpath.py:1334; the result is the same)."""
     x0, y0, z0 = geom.x0, geom.y0, geom.z0
     x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
     # Face-push nudges: ~8 float32 ulps of the coordinate scale per axis.
     nudge = lambda lo, hi: f32(8 * 2.0 ** -23 * max(abs(lo), abs(hi)))
-    column = None
+    dev = geom.x_edges.device
+    table = plan.cubic is not None
+    n_seg = plan.cubic.shape[0] // plan.cubic_entries if table else 0
+    column = pf_row = None
     if plan.column_data is not None:
-        cols = np.zeros((plan.column_data.shape[0], 4), np.float32)
-        cols[:, :3] = plan.column_data
-        column = torch.as_tensor(cols, device=geom.x_edges.device)
+        cd = plan.column_data
+        cols = np.zeros((cd.shape[0], 4), np.float32)
+        cols[:, :3] = cd[:, :3]
+        if table:
+            cols[:, 3] = cd[:, 3] if plan.column_props else np.float32(plan.ssa)
+            rows = (cd[:, 4].astype(np.int32) * n_seg if plan.column_props
+                    else np.zeros(cd.shape[0], np.int32))
+            pf_row = torch.as_tensor(rows, device=dev)
+        column = torch.as_tensor(cols, device=dev)
+    fwd = plan.fwd_cubic
     # y drops out for slab-symmetric domains: nothing reads it.  Column
     # media always track it (fastpath.py:876).
     track_y = column is not None or not (geom.n_y == 1 and plan.fy.n_ops == 0)
@@ -566,7 +625,11 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None,
         gz=gas, inv_gz=None if gas is None else gas.reciprocal(),
         column=column, n_x=geom.n_x, n_y=geom.n_y, inv_dx=f32(1.0 / geom.dx),
-        inv_dy=f32(1.0 / geom.dy), dx=f32(geom.dx), dy=f32(geom.dy), surface=surface)
+        inv_dy=f32(1.0 / geom.dy), dx=f32(geom.dx), dy=f32(geom.dy), surface=surface,
+        cubic=torch.as_tensor(np.ascontiguousarray(plan.cubic), device=dev) if table else None,
+        n_seg=n_seg, pf_row=pf_row,
+        fwd=None if fwd is None else torch.as_tensor(np.ascontiguousarray(fwd), device=dev),
+        fwd_scale=0.0 if fwd is None else f32(fwd.shape[0] / np.pi))
     # The twin and the card accept exactly the same plans.
     why = launch_refusal(spec)
     if why:

@@ -21,6 +21,12 @@ albedo or a uniform BRDF, ``SurfaceLaw``) the whole block ends with the
 surface stage (``resolve_surface``; on the card a second hand-written
 kernel, ``fast_event_block_surface_kernel``, launched by the same call).  The kernel takes every K >= 1, chain depth
 0-3 and up to 16 detectors; ``launch_refusal`` names what it does not.
+Every variant also comes as a table variant (``EventSpec.cubic``: a phase
+function that is not exactly HG samples the cosine from the piecewise-cubic
+inverse CDF, its detectors read the phase value from the log-space cubic
+``fwd``, and in column media each lane reads its ssa and table entry from
+its column; the table modes of the XLA fastpath, fastpath.py:1573-1586,
+:1508-1520, :1330-1336), counted in the ``table_*`` launch counters.
 
 The twin applies exactly the kernel's draw layout: event ``j`` of the block
 reads ``uniforms[j, i]`` for its draw ``i`` (``rng.philox_uniforms``).
@@ -212,6 +218,15 @@ class EventSpec:
     column read bins x and y with ``inv_dx``/``inv_dy`` and the faces step
     by ``dx``/``dy`` (float32 values in Python floats).  ``surface`` is the
     reflecting bottom (None: black).
+
+    Table modes (fastpath.py:1573-1586, :1508-1520): ``cubic`` is the
+    (entries * n_seg, 4) float32 piecewise-cubic inverse CDF that samples
+    the scattering cosine in place of the HG inversion (None: HG, ``g``);
+    on a column plan each lane reads its ssa from slot 3 of its column row
+    and, at a collision, the row base of its table entry from the int32
+    (n_cols,) ``pf_row``.  ``fwd`` is the (n_fwd, 4) float32 log-space
+    cubic of the phase value that a table plan's detectors read at the
+    photon-to-detector angle, ``fwd_scale`` = f32(n_fwd / pi).
     """
 
     fx: object
@@ -248,6 +263,16 @@ class EventSpec:
     dx: float = 0.0
     dy: float = 0.0
     surface: SurfaceLaw | None = None
+    cubic: torch.Tensor | None = None
+    n_seg: int = 0
+    pf_row: torch.Tensor | None = None
+    fwd: torch.Tensor | None = None
+    fwd_scale: float = 0.0
+
+    @property
+    def table(self) -> bool:
+        """A table plan: the cubic inverse CDF samples the cosine."""
+        return self.cubic is not None
 
     @property
     def gas(self) -> bool:
@@ -294,6 +319,31 @@ def hg_cosine(g: float, u):
     frac = torch.full_like(denom, float(one - g * g)) / denom
     c = (float(one + g * g) - frac * frac) / torch.full_like(denom, float(g + g))
     return torch.clamp(c, -1.0, 1.0)
+
+
+def cubic_cosine(spec: "EventSpec", u, pf_row=None):
+    """Scattering-angle cosine from the piecewise-cubic inverse CDF
+    (fastpath.py:1573-1586): the row of segment floor(u * n_seg) of the
+    lane's table entry (``pf_row``, row bases; None: the single entry),
+    evaluated at the segment's fraction.  The general kernel's
+    ``wavefront.sample_cos_scat`` on one table."""
+    s = spec.n_seg
+    pos = torch.clamp(u, 0.0, 1.0) * float(s)
+    seg = torch.clamp(pos.to(torch.int32), 0, s - 1)
+    t = pos - seg.to(pos.dtype)
+    c = spec.cubic[(seg if pf_row is None else pf_row + seg).long()]
+    return torch.clamp(((c[:, 3] * t + c[:, 2]) * t + c[:, 1]) * t + c[:, 0], -1.0, 1.0)
+
+
+def forward_phase(spec: "EventSpec", proj):
+    """A table plan's phase value at the cosine ``proj`` of the photon-to-
+    detector angle: exp of the log-space cubic at segment floor(theta *
+    n_fwd / pi) (fastpath.py:1508-1520)."""
+    pos = torch.acos(proj) * spec.fwd_scale
+    seg = torch.clamp(pos.to(torch.int32), 0, spec.fwd.shape[0] - 1)
+    t = pos - seg.to(pos.dtype)
+    c = spec.fwd[seg.long()]
+    return torch.exp(((c[:, 3] * t + c[:, 2]) * t + c[:, 1]) * t + c[:, 0])
 
 
 def hg_phase(g: float, cos_theta):
@@ -390,7 +440,8 @@ def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records, w=Non
     ux, uy, uz = dirs
     for d, (dx, dy, dz) in enumerate(det.dirs):
         proj = torch.clamp(ux * dx + uy * dy + uz * dz, -1.0, 1.0)
-        norm_pf = hg_phase(spec.g, proj) * det.norm[d]
+        pf = forward_phase(spec, proj) if spec.fwd is not None else hg_phase(spec.g, proj)
+        norm_pf = pf * det.norm[d]
         tau, col = shadow_closed(spec, d, x, y, z)
         if det.iwabuchi:
             contrib = torch.where(collided, _iwabuchi(det, norm_pf, tau,
@@ -415,7 +466,10 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     tensors in ``s``; u is the (n_draws, L) draw block of the event.
     Detector contributions go into ``acc`` ((n_cols, D) float64) and, per
     event and detector, as (contribution, column) pairs into ``records``.
-    With a gas channel the lanes also carry ``s["tgas"]``."""
+    With a gas channel the lanes also carry ``s["tgas"]``.  A table plan
+    samples the cosine from the cubic inverse CDF, on a column plan at the
+    row of the lane's table entry with the lane's ssa in the absorption
+    tests (both read from the column of the event's start)."""
     x, y, z = s["x"], s["y"], s["z"]
     ux, uy, uz = s["ux"], s["uy"], s["uz"]
     alive, pk = s["alive"], s["pk"]
@@ -431,7 +485,8 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
         # lines (floor) and the column's own layer bounds.
         ix = torch.clamp(((x - spec.x0) * spec.inv_dx).to(torch.int64), 0, spec.n_x - 1)
         iy = torch.clamp(((y - spec.y0) * spec.inv_dy).to(torch.int64), 0, spec.n_y - 1)
-        row = spec.column[ix * spec.n_y + iy]
+        ci = ix * spec.n_y + iy
+        row = spec.column[ci]
         vcol, zb, zt = row[:, 0], row[:, 1], row[:, 2]
         ext = torch.where((z >= zb) & (z < zt), vcol, 0.0)
         face_x = spec.x0 + (torch.floor((x - spec.x0) * spec.inv_dx)
@@ -502,15 +557,22 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
         nyp = torch.where(cross & (sy <= s_bnd), face_y + sign_y, y + uy * adv)
         y = torch.where(alive, _wrap(nyp, spec.y0, spec.y_max, spec.wy), y)
 
+    # The ssa of the absorption tests and the cosine's sampler.
+    ssa, pf_row = f32(spec.ssa), None
+    if spec.table and spec.col:
+        ssa, pf_row = row[:, 3], spec.pf_row[ci]
+    if spec.table:
+        sample_mu = lambda uu: cubic_cosine(spec, uu, pf_row)
+    else:
+        sample_mu = lambda uu: hg_cosine(spec.g, uu)
     collided = collide
     if spec.absorbing:
-        die = collided & (u[3] >= f32(spec.ssa))
+        die = collided & (u[3] >= ssa)
         pk = torch.where(die, 3, pk)
         collided = collided & ~die
     if spec.det is not None:
         _detector_block(spec, u, (x, y, z), (ux, uy, uz), collided, acc, records, s.get("w"))
-    nux, nuy, nuz = rotate_direction(ux, uy, uz, hg_cosine(spec.g, u[1]), u[2],
-                                     renormalize=False)
+    nux, nuy, nuz = rotate_direction(ux, uy, uz, sample_mu(u[1]), u[2], renormalize=False)
     ux = torch.where(collided, nux, ux)
     uy = torch.where(collided, nuy, uy)
     uz = torch.where(collided, nuz, uz)
@@ -570,11 +632,11 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
                 tgas = torch.where(commit, tgas - gcost, tgas)
             n_coll = n_coll + commit.to(torch.int32)
             if spec.absorbing:
-                die_c = commit & (u[i0 + 3] >= f32(spec.ssa))
+                die_c = commit & (u[i0 + 3] >= ssa)
                 pk = torch.where(die_c, 3, pk)
                 commit = commit & ~die_c
-            bx, by, bz = rotate_direction(ux, uy, uz, hg_cosine(spec.g, u[i0 + 1]),
-                                          u[i0 + 2], renormalize=False)
+            bx, by, bz = rotate_direction(ux, uy, uz, sample_mu(u[i0 + 1]), u[i0 + 2],
+                                          renormalize=False)
             ux = torch.where(commit, bx, ux)
             uy = torch.where(commit, by, uy)
             uz = torch.where(commit, bz, uz)
@@ -982,7 +1044,9 @@ class _EventParams(ctypes.Structure):
         ("det", _DetParams), ("gz", _StepChain), ("n_x", ctypes.c_int),
         ("n_y", ctypes.c_int)] + [
         (n, ctypes.c_float) for n in ("inv_dx", "inv_dy", "dx", "dy")] + [
-        ("pro", _Prologue), ("srf", _SurfaceParams)]
+        ("pro", _Prologue), ("srf", _SurfaceParams)] + [
+        (n, ctypes.c_void_p) for n in ("cubic", "fwd", "pf_row")] + [
+        ("n_seg", ctypes.c_int), ("n_fwd", ctypes.c_int), ("fwd_scale", ctypes.c_float)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -1019,13 +1083,24 @@ def _det_params(det: DetectorSpec) -> _DetParams:
 @functools.lru_cache(maxsize=None)
 def build():
     """Compile (or reuse) the kernel library and declare its C interface: the
-    event block in its three sources and the column-read probe
-    (``kernels/column_probe.py``), four ``nvcc`` processes in parallel."""
+    event block in its five sources and the column-read probe
+    (``kernels/column_probe.py``), six ``nvcc`` processes in parallel."""
     from i3rc_tpu_torch.kernels.build import build as _build
 
-    built = _build("fast_event_block", ("fast_event_block.cu", "fast_event_block_gas.cu",
-                                        "fast_event_block_col.cu", "column_read_probe.cu"))
-    lib = built.lib
+    built = _build("fast_event_block", SOURCES)
+    declare(built.lib)
+    return built
+
+
+# The event block's sources, compiled in parallel (the column-read probe too).
+SOURCES = ("fast_event_block.cu", "fast_event_block_gas.cu", "fast_event_block_tab.cu",
+           "fast_event_block_tab_gas.cu", "fast_event_block_col.cu", "column_read_probe.cu")
+
+
+def declare(lib, prefix: bool = False) -> None:
+    """Declare the library's C interface.  Its EventParams must be this
+    module's, or with ``prefix`` (another commit's build, for A/B timing) a
+    prefix of it: fields are only ever appended."""
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     for fn in (lib.i3rc_event_params_size, lib.i3rc_cta_threads):
         fn.argtypes = []
@@ -1040,11 +1115,11 @@ def build():
     lib.i3rc_brdf_reflectance.restype = ci
     lib.i3rc_column_read_probe.argtypes = [vp, vp, vp, vp, ci, cu, cu, cu, vp]
     lib.i3rc_column_read_probe.restype = ci
-    if lib.i3rc_event_params_size() != ctypes.sizeof(_EventParams):
+    size = lib.i3rc_event_params_size()
+    if size != ctypes.sizeof(_EventParams) and not (prefix and size < ctypes.sizeof(_EventParams)):
         raise RuntimeError("EventParams layout differs between Python and CUDA")
     if lib.i3rc_cta_threads() != CTA_THREADS:
         raise RuntimeError("CTA_THREADS differs between Python and CUDA")
-    return built
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -1073,6 +1148,10 @@ def launch_refusal(spec: EventSpec) -> str | None:
     if spec.col and (det is not None or spec.gas or not spec.track_y):
         return ("the event block runs column media for flux without the gas channel, "
                 "y tracked")
+    if spec.table and ((det is not None) != (spec.fwd is not None)
+                       or spec.col != (spec.pf_row is not None)):
+        return ("a table plan carries the forward fit exactly with detectors and the "
+                "entry rows exactly in column media")
     return None
 
 
@@ -1104,6 +1183,14 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
     col = spec.column
     if col is not None:
         _need(col, f.device, torch.float32, (spec.n_x * spec.n_y, 4), "the column table")
+    if spec.table:
+        _need(spec.cubic, f.device, torch.float32, (spec.cubic.shape[0], 4), "the cubic table")
+        if spec.cubic.shape[0] % spec.n_seg:
+            raise ValueError("event_block: the cubic table holds whole entries of n_seg rows")
+    if spec.pf_row is not None:
+        _need(spec.pf_row, f.device, torch.int32, (spec.n_x * spec.n_y,), "pf_row")
+    if spec.fwd is not None:
+        _need(spec.fwd, f.device, torch.float32, (spec.fwd.shape[0], 4), "the forward table")
     if det is not None:
         _need(acc, f.device, torch.float64, (det.n_cols, det.n), "acc")
     if (state.w is not None) != spec.weighted:
@@ -1193,11 +1280,17 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
     p.n_x, p.n_y = spec.n_x, spec.n_y
     for n in ("inv_dx", "inv_dy", "dx", "dy"):
         setattr(p, n, getattr(spec, n))
+    if spec.table:
+        p.cubic, p.n_seg = spec.cubic.data_ptr(), spec.n_seg
+    if spec.pf_row is not None:
+        p.pf_row = spec.pf_row.data_ptr()
+    if spec.fwd is not None:
+        p.fwd, p.n_fwd, p.fwd_scale = spec.fwd.data_ptr(), spec.fwd.shape[0], spec.fwd_scale
     return p
 
 
 def _count_launch(spec: EventSpec, surface: bool = False) -> None:
-    counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col, surface)]
+    counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col, spec.table, surface)]
     setattr(event_block, counter, getattr(event_block, counter) + 1)
 
 
@@ -1210,8 +1303,10 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
     the kernel, counted per variant in ``event_block.launches`` (flux),
     ``detector_launches`` (detectors), ``gas_launches`` (flux with the gas
     channel), ``gas_detector_launches`` (detectors with the gas channel) and
-    ``column_launches`` (flux in column media); CPU tensors run the plain
-    twin on ``philox_uniforms`` draws.  The K events carry no surface bounce
+    ``column_launches`` (flux in column media), and a table plan's in the
+    same names prefixed ``table_`` (``table_launches``, ...,
+    ``table_column_launches``); CPU tensors run the plain twin on
+    ``philox_uniforms`` draws.  The K events carry no surface bounce
     (that is a stage of the whole block); a BRDF plan's lane weight
     ``state.w`` scales the detector contributions.
     """
@@ -1254,14 +1349,16 @@ def fused_block(spec: EventSpec, pro: PrologueSpec, state: LaneState, buf: Block
 
 
 # The launch counter of each kernel variant, by (detectors, gas, column,
-# the whole block over a reflecting surface).
+# table, the whole block over a reflecting surface).
 _COUNTERS = {(False, False, False): "launches",
              (True, False, False): "detector_launches",
              (False, True, False): "gas_launches",
              (True, True, False): "gas_detector_launches",
              (False, False, True): "column_launches"}
-LAUNCH_COUNTERS = {k + (srf,): name.replace("launches", "surface_launches") if srf else name
-                   for k, name in _COUNTERS.items() for srf in (False, True)}
+LAUNCH_COUNTERS = {
+    k + (tab, srf): ("table_" if tab else "")
+    + (name.replace("launches", "surface_launches") if srf else name)
+    for k, name in _COUNTERS.items() for tab in (False, True) for srf in (False, True)}
 
 
 def reset_launch_counters() -> None:

@@ -173,12 +173,19 @@ def test_default_unroll_is_the_kernels():
 
 
 def test_column_props_plans_raise_item_15():
+    """Per-column ssa and table entries (the table mode of the column
+    variant): the port plans what the JAX planner plans and no longer
+    raises; a batch closes with absorption."""
     jplan = JaxIntegrator.create(column_props_scene(JAX), config=cfg(JAX))._fast_plan
     assert jplan is not None and jplan.column_props
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Integrator.create(column_props_scene(PORT), config=cfg(PORT), device="cpu")._fast_plan
-    with pytest.raises(NotImplementedError, match="item 15"):
-        plan_from_jax(jplan)
+    integ = Integrator.create(column_props_scene(PORT), config=cfg(PORT), device="cpu")
+    tplan = integ._fast_plan
+    assert tplan == plan_from_jax(jplan)
+    assert tplan.column_props and tplan.cubic_entries == 3 and tplan.column_data.shape[1] == 5
+    res = integ.batch_fn(PhotonSource.directional(0.5, 0.0), 2048)(batch_key(5, 1))
+    total = float(res.mean_flux_up + res.mean_flux_down + res.mean_flux_absorbed)
+    assert abs(total - 1.0) < 1e-5 and float(res.mean_flux_absorbed) > 0.0
+    assert int(res.n_bad) == 0
 
 
 def _find(fn, name, seen=None):

@@ -19,7 +19,6 @@ within 12% at 2^14 photons (tests/test_fastpath.py:868).
 """
 
 import importlib
-import os
 from dataclasses import replace
 from types import SimpleNamespace
 
@@ -65,8 +64,6 @@ torch.set_num_threads(2)
 DET = dict(intensity_mus=[1.0, 0.5], intensity_phis=[0.0, 0.0])
 L = 4096
 GAS_EXT = 3e-4          # tests/test_fastpath.py:883
-C1_PF = os.path.join(os.path.dirname(__file__), os.pardir, "i3rc_tpu", "models", "data",
-                     "C.1_PF")
 
 
 def host(pkg: str) -> SimpleNamespace:
@@ -75,7 +72,7 @@ def host(pkg: str) -> SimpleNamespace:
     mod = lambda name: importlib.import_module(f"{pkg}.{name}")
     pf = mod("core.phase_functions")
     return SimpleNamespace(
-        Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
+        pkg=pkg, Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
         PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
         make_step_cloud=mod("models.step_cloud").make_step_cloud,
         gas=mod("integrators.spectral").domain_with_gas_component,
@@ -188,14 +185,14 @@ def test_second_scatterer_has_no_plan():
 
 
 def test_tabulated_cloud_with_gas_raises():
-    """Tabulated (C.1) cloud plus gas: the JAX fastpath takes it with its
-    cubic sampler; the port raises for ROADMAP item 15.  The C.1 table is
-    read from its data file as i3rc_tpu/models/radar_cloud.py reads it."""
-    raw = np.loadtxt(C1_PF)
-
+    """Tabulated (C.1) cloud plus gas, the production broadband class: the
+    JAX fastpath takes it with its cubic sampler, and so does the port (the
+    table mode of the gas variant); it no longer raises.  Both planners
+    give the same plan, and a batch on the port closes.  The C.1 table is
+    each side's radar-cloud model's."""
     def c1_gas(h):
-        table = h.PhaseFunctionTable.from_phase_functions(
-            [h.PhaseFunction.from_tabulated(np.deg2rad(raw[:, 0]), raw[:, 1])], key=[1.0])
+        c1 = importlib.import_module(f"{h.pkg}.models.radar_cloud").load_c1_tabulated()
+        table = h.PhaseFunctionTable.from_phase_functions([c1], key=[1.0])
         dom = h.Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250, 5))
         ext = np.full((1, 1, 4), 2.0 / 250.0)
         dom = dom.add_component("cloud", ext, np.ones_like(ext), np.zeros(ext.shape, np.int32),
@@ -204,10 +201,14 @@ def test_tabulated_cloud_with_gas_raises():
 
     jplan = JaxIntegrator.create(c1_gas(JAX), config=JAX.cfg)._fast_plan
     assert jplan is not None and jplan.gas_factor is not None and jplan.cubic is not None
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Integrator.create(c1_gas(PORT), config=CFG, device="cpu")._fast_plan
-    with pytest.raises(NotImplementedError, match="item 15"):
-        plan_from_jax(jplan)
+    integ = Integrator.create(c1_gas(PORT), config=CFG, device="cpu")
+    tplan = integ._fast_plan
+    assert tplan == plan_from_jax(jplan)
+    assert tplan.gas_factor is not None and tplan.cubic.shape == (256, 4)
+    res = integ.batch_fn(PhotonSource.directional(0.5, 0.0), 2048)(batch_key(3, 1))
+    total = float(res.mean_flux_up + res.mean_flux_down + res.mean_flux_absorbed)
+    assert abs(total - 1.0) < 1e-5 and float(res.mean_flux_absorbed) > 0.0
+    assert int(res.n_bad) == 0
 
 
 def test_fused_k_plan_raises():
