@@ -39,7 +39,12 @@ exactly HG: all 88 table instantiations against their plain version on small
 cases and on each path's own scene, then the C.1 step cloud's flux and its
 radiance, Landsat with per-column ssa and table entries, the bench band over
 a C.1 cloud, the isotropic slab against the oracle, each against the general
-kernel or the oracle, and the radar cloud on the general kernel) — and
+kernel or the oracle, and the radar cloud on the general kernel), and
+fused-k spectral batching (every k point of a band in one trace: all 56
+fused-k instantiations against their plain version on small cases and on
+each path's own scene, then the bench band at full width and its C.1 twin
+in turns with the baked band, the three I3RC detectors, heating rates, an
+internal source against its closed form and the band over an albedo) — and
 checks the physics.
 Every phase prints one line; any failed check raises and the script exits
 nonzero.  Run from the repository root:
@@ -76,6 +81,7 @@ ANCHOR_FUP = 0.58054            # tests/test_external_validation.py:227
 DET_MUS, DET_PHIS = [1.0, 0.5, 0.5], [0.0, 0.0, 180.0]
 ANCHOR_I = [0.1285, 0.3285, 0.1800]
 SEED = 2024
+PHILOX_REPS = 20                # phase 3's repeats of each kernel-vs-torch draw check
 L_CHECK = 1 << 18               # lanes of the kernel-vs-twin check and the slice
 SLICE_PHOTONS = 1 << 24
 SLAB_PHOTONS = 1 << 22          # photons of the gas-slab oracle check
@@ -145,9 +151,18 @@ OPS_PER_EVENT = {                  # the step: where-chains, faces, distances
     "gas_detectors": (160, 3),
     "column": (110, 5),            # P1 in the event block: row index, 3 faces, s_col
     "probe": (120, 0),             # P1 probe: one Philox call and ~20 ALU per event
+    # FK: K1's step (no gas faces) + the endpoint read (clip, layer, Gz
+    # linear in it: ~15 ALU), the gas depth's division and the death test.
+    # The read's 8-byte row comes from the k table, a few KB that stay in
+    # L1: state_bytes counts the table once, as it counts the other tables
+    # (the death layer's binary search, only at a gas death with the volume
+    # tally, is not on a timed path).
+    "fused_k": (140, 4),
+    "fused_k_detectors": (140, 4),
 }
 OPS_PER_COLLISION = {"flux": (180, 7), "detectors": (180, 7), "gas": (190, 7),
-                     "gas_detectors": (190, 7), "column": (180, 8), "probe": (0, 0)}
+                     "gas_detectors": (190, 7), "column": (180, 8), "probe": (0, 0),
+                     "fused_k": (180, 7), "fused_k_detectors": (180, 7)}
 OPS_PER_DETECTOR = (70, 4)         # HG phase value (1/sqrt), shadow z segments, exp, log
 # Table variants (tables.build_inverse_cubic, build_forward_cubic) in place
 # of HG: per sampled cosine the cubic (clamp, segment, 3 multiply-adds,
@@ -159,6 +174,7 @@ OPS_PER_DETECTOR = (70, 4)         # HG phase value (1/sqrt), shadow z segments,
 OPS_CUBIC, OPS_HG_INVERSE = (10, 0), (8, 2)
 OPS_FORWARD, OPS_HG_VALUE = (18, 2), (8, 1)
 STATE_ROWS = 13                    # x, y, z, ux, uy, uz, tau, tgas; alive, orders, pk, bad, evct
+# (a fused-k plan's lanes carry one more, gcur: state_bytes adds it)
 # The surface stage (fast_event_block.cuh resolve_surface): per bottom hit a
 # Philox call (~100 integer operations), the flux column, the revive test
 # and the cosine-weighted direction (two square roots, the azimuth
@@ -179,13 +195,17 @@ def state_bytes(spec, n_lanes: int, n_live: int) -> int:
     tracks them) of each live lane read once and written once; the
     detector accumulator read and written; the column table and a table
     variant's cubic fits and entry rows read once."""
-    rows = STATE_ROWS - (not spec.track_y) - (not spec.gas)
+    rows = STATE_ROWS - (not spec.track_y) - (not spec.gas) + spec.fused
     n = 8 * n_lanes + n_live * (2 * rows * 4 - 8)
     if spec.det is not None:
         n += 2 * 8 * spec.det.n_cols * spec.det.n
-    for t in (spec.column, spec.cubic, spec.fwd, spec.pf_row):
+    tables = [spec.column, spec.cubic, spec.fwd, spec.pf_row]
+    if spec.fused:
+        tables += [spec.fk.table, spec.fk.weight, spec.fk.gtop, spec.fk.quota, spec.fk.cta0,
+                   spec.fk.cta_k]
+    for t in tables:
         if t is not None:
-            n += t.numel() * 4
+            n += t.numel() * t.element_size()
     return n
 
 
@@ -244,27 +264,38 @@ def ctas_per_sm(registers: int, threads: int = 256) -> int:
 
 
 # Event-block instantiations by template arguments (CHAIN, ABS, TY, DET, IW,
-# GAS, COL, SLICES, DCAP, TAB), for the SASS census: the ones the main paths
+# GAS, COL, SLICES, DCAP, TAB, FK), for the SASS census: the ones the main paths
 # launch, then the detector tally of more than 751 bins and the Iwabuchi
 # variant sized for 16 detectors, which only the checks run; then the table
-# variants of the paths (f)-(j) (phases 38-43).
-CENSUS = {"flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb0EE",
-          "gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb0EE",
-          "column_chain2": "ILi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb0EE",
-          "detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8ELb0EE",
-          "gas_detectors": "ILi0ELb0ELb0ELb1ELb0ELb1ELb0ELb1ELi8ELb0EE",
-          "detectors_iwabuchi_wide": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb0ELi8ELb0EE",
-          "detectors_iwabuchi_16": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi16ELb0EE",
-          "table_flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb1EE",
-          "table_detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8ELb1EE",
-          "table_gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb1EE",
-          "table_column_chain2": "ILi2ELb1ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb1EE"}
+# variants of the paths (f)-(j) (phases 38-43), and the fused-k variants of
+# phases 46-48.
+CENSUS = {"flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb0ELb0EE",
+          "gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb0ELb0EE",
+          "column_chain2": "ILi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb0ELb0EE",
+          "detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8ELb0ELb0EE",
+          "gas_detectors": "ILi0ELb0ELb0ELb1ELb0ELb1ELb0ELb1ELi8ELb0ELb0EE",
+          "detectors_iwabuchi_wide": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb0ELi8ELb0ELb0EE",
+          "detectors_iwabuchi_16": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi16ELb0ELb0EE",
+          "table_flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb1ELb0EE",
+          "table_detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb0ELb0ELb1ELi8ELb1ELb0EE",
+          "table_gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb1ELb0EE",
+          "table_column_chain2": "ILi2ELb1ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb1ELb0EE",
+          "fused_k_flux": "ILi0ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb0ELb1EE",
+          "fused_k_detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb1ELb0ELb1ELi8ELb0ELb1EE",
+          "table_fused_k_flux": "ILi0ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb1ELb1EE"}
 # ptxas_by_variant of the HG sets as the build without table variants gave
 # them (NVIDIA H100 80GB HBM3 machine's nvcc; chip_smoke.py phase 2 before
 # ROADMAP item 15): adding the table variants leaves them as they were.
 HG_PTXAS = {"column_flux": "8x/66regs/448B/3cta", "detectors": "24x/64regs/1344B/4cta",
             "flux": "16x/64regs/932B/4cta", "gas_detectors": "24x/64regs/1440B/4cta",
             "gas_flux": "16x/61regs/932B/4cta", "probe": "1x/28regs/0B/8cta"}
+# The same of the table sets, as the build before the fused-k variants gave
+# them on the same machine's nvcc: the fused-k variants leave every HG and
+# table set as it was.
+TAB_PTXAS = {"table_column_flux": "8x/64regs/448B/4cta",
+             "table_detectors": "24x/64regs/1416B/4cta", "table_flux": "16x/62regs/920B/4cta",
+             "table_gas_detectors": "24x/64regs/1424B/4cta",
+             "table_gas_flux": "16x/61regs/932B/4cta"}
 # Opcode families counted per instantiation (static counts of the listing,
 # not of a run): "all" is every instruction; IMAD.HI and IMAD.WIDE are the
 # 32 x 32 -> 64 bit multiplies of Philox, which issue at half the FP32 rate.
@@ -299,19 +330,21 @@ def sass_census(library: Path) -> dict:
 
 def ptxas_by_variant(log: str) -> dict:
     """Per kernel variant (flux, detectors, gas, gas_detectors, column_flux,
-    probe, and the table variants table_*): instantiations, their most
-    registers, their stack-frame and spill-store bytes and the resident CTAs
-    per SM those registers allow, from ptxas -v."""
+    fused_k_flux, fused_k_detectors, probe, and the table variants table_*):
+    instantiations, their most registers, their stack-frame and spill-store
+    bytes and the resident CTAs per SM those registers allow, from ptxas
+    -v."""
     out = {}
     name = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*fast_event_block_kernelILi\d+"
-                      r"ELb\dELb\dELb(\d)ELb\dELb(\d)ELb(\d)ELb\dELi\d+ELb(\d)E", line)
+                      r"ELb\dELb\dELb(\d)ELb\dELb(\d)ELb(\d)ELb\dELi\d+ELb(\d)ELb(\d)E", line)
         probe = "Compiling entry function" in line and "column_read_probe_kernel" in line
         if m or probe:
             name = "probe" if probe else (
                 ("table_" if m[4] == "1" else "")
-                + ("gas_" if m[2] == "1" else "") + ("column_" if m[3] == "1" else "")
+                + ("fused_k_" if m[5] == "1" else "gas_" if m[2] == "1" else "")
+                + ("column_" if m[3] == "1" else "")
                 + ("detectors" if m[1] == "1" else "flux"))
             n, r, b = out.get(name, (0, 0, 0))
             out[name] = (n + 1, r, b)
@@ -370,6 +403,8 @@ def variant(spec) -> str:
     """The bound's name for the event-block variant a spec runs."""
     if spec.col:
         return "column"
+    if spec.fused:
+        return "fused_k_detectors" if spec.det is not None else "fused_k"
     if spec.gas:
         return "gas_detectors" if spec.det is not None else "gas"
     return "detectors" if spec.det is not None else "flux"
@@ -472,6 +507,11 @@ def time_block_ms(run, s0, new_acc, n: int) -> float:
     return total / n
 
 
+# device_block_ms's profiler traces: all taken, those that showed fewer than
+# half of their launches, and those that showed none (printed at the end).
+PROFILER_TRACES = {"taken": 0, "short": 0, "empty": 0}
+
+
 def device_block_ms(run, s0, new_acc, n: int) -> float:
     """Mean device time of the block kernel in ``run(state, acc)`` over n
     fresh copies of s0, from torch.profiler: the kernel's own time, without
@@ -481,16 +521,21 @@ def device_block_ms(run, s0, new_acc, n: int) -> float:
     counts in."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     # The profiler now and then drops device records of a trace: take the
-    # mean over the launches it shows, from a trace that shows half of them.
+    # mean over the launches it shows, from the first of up to three traces
+    # that shows half of them; PROFILER_TRACES counts the short ones.
     for _ in range(3):
+        torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n):
                 run(s0.clone(), new_acc())
             torch.cuda.synchronize()
         found = [e for e in prof.key_averages() if "fast_event_block" in e.key]
         launches = sum(e.count for e in found if "fast_event_block_kernel" in e.key)
+        PROFILER_TRACES["taken"] += 1
         if 2 * launches >= n:
             break
+        PROFILER_TRACES["short"] += 1
+        PROFILER_TRACES["empty"] += launches == 0
     check(0 < launches <= n, f"the profiler shows {launches} block kernels for {n} launches")
     return sum(e.self_device_time_total for e in found) / launches / 1e3
 
@@ -613,13 +658,13 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
         n_dead = dead.sum(dtype=torch.int64)
         dead_orders = (st.i[ORDERS] * dead).sum(dtype=torch.int64)
         orders = st.i[ORDERS].sum(dtype=torch.int64)
-        launched = buf.ctl[kb & 1].clone()
+        launched = launched_now(spec, buf, kb).clone()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         orig(spec, pro, st, buf, key, source, kb)
         b.record()
-        taken = buf.ctl[(kb + 1) & 1] - launched
+        taken = launched_now(spec, buf, kb + 1) - launched
         reset = dead_orders * taken // n_dead.clamp(min=1)
         rec.append((spec, a, b, st.n_lanes - n_dead + taken,
                     st.i[ORDERS].sum(dtype=torch.int64) - orders + reset, st.n_lanes, buf))
@@ -656,11 +701,19 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
             "events_ms": events_ms, "live": sum(lives), "collisions": collisions,
             "lane_events": events, "blocks": raw.n_iterations // spec.K,
             "spent_at": ctl[SPENT] if ctl[SPENT] >= 0 else ctl[DONE], "hits": hits,
-            "launched": max(ctl[0], ctl[1]),
+            "launched": int(max(launched_now(spec, rec[-1][6], k) for k in (0, 1))),
             "bound": bound_ms(variant(spec), events, n_bytes, collisions,
                               spec.det.n if spec.det is not None else 0,
                               **bounce_work(spec, rec[0][5] * len(rec), hits),
                               table=spec.table)}
+
+
+def launched_now(spec, buf, kb: int):
+    """Photons launched as block kb reads it: a fused-k trace's sum over its
+    k points."""
+    from i3rc_tpu_torch.kernels.event_block import LAUNCHED_K
+
+    return buf.ctl[LAUNCHED_K + (kb & 1)::2].sum() if spec.fused else buf.ctl[kb & 1]
 
 
 def profile_batch(run_batch, block_name: str = "fast_event_block_kernel") -> dict:
@@ -1307,12 +1360,18 @@ def main() -> int:
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
         instantiations=n_inst, max_registers=max(regs) if regs else "n/a",
         spill_store_bytes=spills, **by_variant)
-    # 88 HG instantiations and their 88 table twins; the HG sets compile to
-    # what they were before the table variants (registers, stack and spill
-    # bytes, CTAs per SM, as phase 2 printed them in the last call without).
-    check(n_inst == 176, f"event-block instantiations: {n_inst}")
-    for name, want in HG_PTXAS.items():
-        check(by_variant.get(name) == want, f"HG set {name}: {by_variant.get(name)}, was {want}")
+    # 88 HG instantiations, their 88 table twins and the 2 x 28 fused-k ones;
+    # the HG sets compile to what they were before the table variants, and
+    # the table sets to what they were before the fused-k ones (registers,
+    # stack and spill bytes, CTAs per SM, as phase 2 printed them in the
+    # last call without).
+    check(n_inst == 232, f"event-block instantiations: {n_inst}")
+    for name, want in {**HG_PTXAS, **TAB_PTXAS}.items():
+        check(by_variant.get(name) == want, f"set {name}: {by_variant.get(name)}, was {want}")
+    for name in ("fused_k_flux", "fused_k_detectors", "table_fused_k_flux",
+                 "table_fused_k_detectors"):
+        check(by_variant.get(name, "").startswith("4x/" if name.endswith("flux") else "24x/"),
+              f"fused-k set {name}: {by_variant.get(name)}")
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
     (out / "ptxas.log").write_text(built.log + gbuilt.log)
@@ -1338,7 +1397,9 @@ def main() -> int:
     kat_torch = [int(w) for w in philox4x32(zero, zero, zero, zero, 0, 0)]
     expect = [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
     check(kat == expect and kat_torch == expect, f"Philox known answer: {kat} {kat_torch}")
-    for nd in (9, 12):
+    # Each check PHILOX_REPS times: a driver's run once saw n_draws = 9
+    # differ, which 120 repeats on fresh builds never showed again.
+    for nd in (9, 12) * PHILOX_REPS:
         ku = eb.kernel_philox_uniforms(batch_key(SEED, 3), 11, 8, nd, L_CHECK, dev)
         tu = philox_uniforms(batch_key(SEED, 3), 11, 8, nd, L_CHECK, dev)
         if not torch.equal(ku, tu):
@@ -1349,7 +1410,8 @@ def main() -> int:
                   f"{int((ku != tu).sum())} of {ku.numel()} differ, first (event, draw, lane) "
                   f"{bad}; kernel differs from the CPU stream at {int((ku.cpu() != ref).sum())},"
                   f" torch on the card at {int((tu.cpu() != ref).sum())}")
-    say("3 philox", known_answer="ok", bit_equal_draws=2 * 8 * L_CHECK)
+    say("3 philox", known_answer="ok", checks=2 * PHILOX_REPS,
+        bit_equal_draws=PHILOX_REPS * (9 + 12) * 8 * L_CHECK)
 
     # 4. kernel vs twin on one K-event block at L = 2^18, on a full and a
     # tail state: every state row bit for bit
@@ -1568,7 +1630,7 @@ def main() -> int:
     # 14. examples/broadbandDriver.nml, unmodified, through the port's driver
     # from a directory holding the inputs that examples/make_broadband_inputs.py
     # writes (its paths are relative)
-    launches_gas_det = broadband_driver(out / "broadband", card)
+    broadband_driver(out / "broadband", card)
 
     # 15. column variant vs twin: one K-event block from a mid-flight Landsat
     # state, ssa 1 at the auto chain depth (2), ssa 0.99 at depth 2 and 0
@@ -1616,6 +1678,15 @@ def main() -> int:
     t_checks = table_kernel_vs_twin(dev, card, built.log)
     t_rec = table_paths(out, card)
 
+    # 45-50. fused-k spectral batching (ROADMAP item 13b): every fused-k
+    # instantiation against its plain version (small cases and each path's
+    # own scene), then the bench band fused at full width (46) and the C.1
+    # band (47), each against the baked band, the three I3RC detectors (48),
+    # heating rates (49), an internal source against its closed form and the
+    # bench band over an albedo (50)
+    fk_checks = fused_k_kernel_vs_twin(dev, card, built.log)
+    fk_rec = fused_k_paths(card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -1630,7 +1701,9 @@ def main() -> int:
     # block over a reflecting surface (prologue, K events, surface stage) on
     # a mid-flight state, their max_abs_err the largest state difference to
     # the plain version in phase 4d.
+    say("20 profiler-traces", **PROFILER_TRACES)
     print(smi)
+
     source = "i3rc_tpu_torch/csrc/fast_event_block.cu"
     gas_source = "i3rc_tpu_torch/csrc/fast_event_block_gas.cu"
 
@@ -1661,7 +1734,8 @@ def main() -> int:
               "i3rc_tpu/integrators/fastpath.py:665 (gas=True)", bb_launches, gas_err[False],
               *gas_ms[False], fused["gas"], gas_bk),
         entry("fast_event_block_gas_detectors", gas_source,
-              "i3rc_tpu/integrators/fastpath.py:665 (gas=True)", launches_gas_det,
+              "i3rc_tpu/integrators/fastpath.py:665 (gas=True)",
+              fk_rec["gas_detectors_baked"],
               gas_err[True], *gas_ms[True], fused["gas_detectors"]),
         entry("fast_event_block_column", "i3rc_tpu_torch/csrc/fast_event_block_col.cu",
               "benchmarks/column_read_probe.py:83 (in the column event of "
@@ -1684,7 +1758,15 @@ def main() -> int:
              "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode)"),
             ("column", "fast_event_block_col.cu",
              "benchmarks/column_read_probe.py:83 (column_props, "
-             "i3rc_tpu/integrators/fastpath.py:1330)"))]},
+             "i3rc_tpu/integrators/fastpath.py:1330)"))] + [
+        fused_k_entry(kind, f"i3rc_tpu_torch/csrc/{src}", replaces, fk_rec[kind], fk_checks)
+        for kind, src, replaces in (
+            ("fused_k", "fast_event_block_fk.cu",
+             "i3rc_tpu/integrators/fastpath.py:665 (gas=True; fused-k, XLA in "
+             "fastpath.py:1409-1470)"),
+            ("table_fused_k", "fast_event_block_tab_fk.cu",
+             "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode; fused-k, XLA in "
+             "fastpath.py:1409-1470)"))]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2081,28 +2163,39 @@ def broadband_slice(dev, card: str) -> tuple[int, dict]:
     return launches, gas_bk
 
 
-def broadband_driver(bb_dir: Path, card: str) -> int:
-    """Phase 14; returns the gas-detector kernel launches of the driver run."""
+def broadband_driver(bb_dir: Path, card: str) -> None:
+    """Phase 14: the shipped namelist (spectralMode = "auto", 1e5 photons a
+    k point: fused), then its seconds against the same namelist baked, after
+    a warm-up, in turns (auto, baked, baked, auto, auto, baked; the median
+    of each mode's three)."""
     from i3rc_tpu_torch.kernels import event_block as eb
 
     (bb_dir / "examples").mkdir(parents=True, exist_ok=True)
     subprocess.run([sys.executable, str(ROOT / "examples" / "make_broadband_inputs.py"),
                     str(bb_dir / "examples")], check=True, capture_output=True)
-    shutil.copy(ROOT / "examples" / "broadbandDriver.nml", bb_dir / "broadbandDriver.nml")
+    shipped = (ROOT / "examples" / "broadbandDriver.nml").read_text()
+    check('spectralMode = "auto"' in shipped, "broadbandDriver.nml: spectralMode is not auto")
+    (bb_dir / "broadbandDriver.nml").write_text(shipped)
+    (bb_dir / "broadbandDriver_baked.nml").write_text(
+        shipped.replace('spectralMode = "auto"', 'spectralMode = "baked"'))
     bb_outputs = ("broadband_flux.out", "broadband_rad.out")
     for name in bb_outputs:
         (bb_dir / name).unlink(missing_ok=True)
     from i3rc_tpu_torch.drivers.broadband_driver import run_from_namelist as run_broadband_nml
 
+    def drive(nml: str):
+        cwd = os.getcwd()
+        os.chdir(bb_dir)
+        try:
+            t0 = time.perf_counter()
+            drv = run_broadband_nml(nml, quiet=True, device="cuda")
+            return drv, time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+
     eb.reset_launch_counters()
-    cwd = os.getcwd()
-    os.chdir(bb_dir)
-    try:
-        t0 = time.perf_counter()
-        drv = run_broadband_nml("broadbandDriver.nml", quiet=True, device="cuda")
-        t_drv = time.perf_counter() - t0
-    finally:
-        os.chdir(cwd)
+    drv, t_drv = drive("broadbandDriver.nml")
+    launches = eb.event_block.fused_k_detector_launches
     for name in bb_outputs:
         check((bb_dir / name).is_file(), f"broadband driver did not write {name}")
     (fup, fup_e), (fdn, _), (fabs, _) = drv["mean_stats"]
@@ -2110,16 +2203,28 @@ def broadband_driver(bb_dir: Path, card: str) -> int:
     rad = drv["radiance"][0]
     check(rad.shape == (32, 1, 2) and bool((rad > 0).all()) and bool(np.isfinite(rad).all()),
           f"broadband radiance {rad.shape}")
-    launches_gas_det = eb.event_block.gas_detector_launches
-    check(launches_gas_det > 0, "the broadband driver launched no gas-detector kernel")
-    check(eb.event_block.launches == eb.event_block.detector_launches == 0,
-          "the broadband driver launched a kernel without the gas channel")
-    say("14 broadband-driver", namelist="broadbandDriver.nml", bands=drv["cfg"]["num_bands"],
+    check(all(b.per_k == [] for b in drv["bands"]), "auto did not run the namelist fused")
+    check(launches > 0, "the broadband driver (auto) launched no fused-k detector kernel")
+    check(eb.event_block.launches == eb.event_block.detector_launches
+          == eb.event_block.gas_detector_launches == 0,
+          "the broadband driver launched a kernel without the fused-k gas channel")
+    drive("broadbandDriver_baked.nml")                     # warm-up
+    times = {"auto": [], "baked": []}
+    for rep_ in range(6):
+        mode = ("auto", "baked")[(rep_ + rep_ // 2) % 2]     # a, b, b, a, a, b
+        d, dt = drive("broadbandDriver.nml" if mode == "auto" else "broadbandDriver_baked.nml")
+        check(all((b.per_k == []) == (mode == "auto") for b in d["bands"]), f"14 {mode}: per_k")
+        times[mode].append(dt)
+    say("14 broadband-driver", namelist="broadbandDriver.nml", mode="auto (fused)",
+        bands=drv["cfg"]["num_bands"],
         photons=drv["cfg"]["num_photons"], fup=f"{fup:.5f}", stderr=f"{fup_e:.1e}",
         fdn=f"{fdn:.5f}", fabs=f"{fabs:.5f}",
         intensity=",".join(f"{float(v):.5f}" for v in rad.mean(axis=(0, 1))),
-        seconds=f"{t_drv:.2f}", launches=launches_gas_det, card=json.dumps(card))
-    return launches_gas_det
+        seconds=f"{t_drv:.2f}", launches=launches,
+        auto_seconds=",".join(f"{t:.4f}" for t in times["auto"]),
+        baked_seconds=",".join(f"{t:.4f}" for t in times["baked"]),
+        auto_over_baked_seconds=f"{sorted(times['auto'])[1] / sorted(times['baked'])[1]:.3f}",
+        card=json.dumps(card))
 
 
 # ---------------------------------------------------------------------------
@@ -3398,8 +3503,8 @@ def table_kernel_vs_twin(dev, card: str, log: str) -> dict:
     ts = _load_tests_module("tabulated_scenes")
     h = ts.host("i3rc_tpu_torch")
     src = PhotonSource.directional(0.5, 0.0)
-    built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel(\w+?ELb1EE)v",
-                           log))
+    built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel"
+                           r"(\w+?ELb1ELb0EE)v", log))
     seen, err, n_states, timed = {}, {}, 0, {}
 
     def hold(tag, spec, pro, states, key, source):
@@ -3731,6 +3836,385 @@ def table_entry(kind: str, source: str, replaces: str, path: tuple, checks: dict
     if "hg" in bks:
         e["hg_batch_ms"] = bks["hg"]["kernel_ms"]
     return e
+
+
+# ---------------------------------------------------------------------------
+# Fused-k spectral batching (ROADMAP item 13b): the fused-k variants of the
+# gas event block (FK: every k point of a band in one trace, HG and table)
+# against their plain version, and their paths
+
+FK_PHOTONS = 1 << 21                 # phases 48-49: per k point and batch, 8 batches
+FK_SMALL_PHOTONS = 1 << 20           # phase 50: per k point and batch, 2 batches
+# Phase 49's layered gas, two k points over the step cloud's 32 layers in 4
+# blocks (tests/test_spectral.py:286-313), weights 0.6 / 0.4.
+FK_HEATING_GAS = np.stack([np.repeat([2e-3, 1e-3, 5e-4, 2e-4], 8),
+                           np.repeat([8e-2, 3e-2, 1.5e-2, 8e-3], 8)])
+# The paths of phases 46-50 by name (fk_path_scene builds each).
+FK_PATHS = ("46_bench", "47_c1_band", "48_detectors_iwabuchi", "48_detectors_exact",
+            "49_heating", "50_internal", "50_albedo")
+# The mid-flight state of these scenes times each variant (the kernels line).
+FK_TIMED = {"fused_k": "46_bench", "table_fused_k": "47_c1_band"}
+
+
+def fk_path_scene(name: str, dev) -> SimpleNamespace:
+    """The scene of a fused-k path as its phase drives it and as phase 45
+    holds its kernel to the plain version: the base domain, the band, the
+    configuration and creation keywords, the source, photons per k point and
+    batch, batches and lanes, the fused-k integrator, and the band integrator
+    (the domain with k point 0's gas) that run_band takes."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, KDistribution, PhotonSource
+    from i3rc_tpu_torch import make_step_cloud
+    from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
+
+    fks = _load_tests_module("fused_k_scenes")
+    h = fks.host("i3rc_tpu_torch")
+    kd, cfg = table_band()
+    src = PhotonSource.directional(0.5, 0.0)
+    kw, n, batches, lanes = {}, SLICE_PHOTONS, 2, L_CHECK
+    dom = make_step_cloud(1.0)
+    if name == "47_c1_band":
+        dom, lanes = _load_tests_module("tabulated_scenes").c1_step_cloud(h), TABLE_LANES
+    elif name.startswith("48_detectors"):
+        cfg = radiance_config() if name.endswith("iwabuchi") else replace(
+            radiance_config(), use_russian_roulette_for_intensity=False)
+        kw, n, batches = dict(intensity_mus=DET_MUS, intensity_phis=DET_PHIS), FK_PHOTONS, 8
+    elif name == "49_heating":
+        dom = make_step_cloud(0.99)
+        kd = KDistribution.create(np.asarray(dom.z_edges), FK_HEATING_GAS.T.copy(), [0.6, 0.4],
+                                  spectral_fraction=1.0)
+        cfg, n, batches = replace(cfg, compute_volume_absorption=True), FK_PHOTONS, 8
+    elif name == "50_internal":
+        dom, kd = fks.beer_lambert(h)
+        cfg = IntegratorConfig(use_ray_tracing=False, max_events=100,
+                               compute_volume_absorption=False)
+        src, n = PhotonSource.internal_flux(0.5, 0.5, 0.5, True), FK_SMALL_PHOTONS
+    elif name == "50_albedo":
+        kw, n = dict(surface_albedo=0.2), FK_SMALL_PHOTONS
+    elif name != "46_bench":
+        raise ValueError(name)
+    profiles = kd.absorption_profiles_on(np.asarray(dom.z_edges))
+    baked = [Integrator.create(domain_with_gas_component(dom, profiles[:, k]), cfg, device=dev,
+                               **kw) for k in range(kd.n_k)]
+    return SimpleNamespace(
+        name=name, dom=dom, kd=kd, cfg=cfg, kw=kw, src=src, n=n, batches=batches, lanes=lanes,
+        fused=fks.with_k(h, dom, profiles.T, kd.weights, config=cfg, device=dev, **kw),
+        band=baked[0], baked=baked)
+
+
+def fused_k_kernel_vs_twin(dev, card: str, log: str) -> dict:
+    """Phase 45: every fused-k instantiation against the plain version.  The
+    small cases of tests/fused_k_scenes.py fk_cases (at TABLE_CASE_LANES
+    lanes, 4x the photons: a partial last CTA; every source of refills,
+    the exact death layer, the surface stage, an internal source) and each
+    path's own scene at its photons and lanes, each on its launch,
+    mid-flight and tail states: every lane-state row (gcur included), the
+    per-k control state and the dead counts bit for bit, the flux, volume
+    and detector tallies within 1e-9.  The instantiations they launch must
+    be exactly the fused-k instantiations of the build.  The mid-flight and
+    tail blocks of phases 46-47's scenes are timed: the kernel's device
+    time (profiler), the plain version's (CUDA events) and the bound.
+    Returns the timed records by scene and the largest state difference by
+    variant."""
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.kernels.event_block import PK, fused_block, fused_block_reference
+
+    fks = _load_tests_module("fused_k_scenes")
+    h = fks.host("i3rc_tpu_torch")
+    built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel(\w+?ELb1EE)v",
+                           log))
+    seen, err, n_states, timed = {}, {}, 0, {}
+
+    def hold(tag, integ, src, n, lanes, key):
+        nonlocal n_states
+        spec, pro, states = fks.trace_states(integ, src, n, lanes, key)
+        check(spec.fused, f"45 {tag}: not a fused-k plan")
+        for state, st, buf, kb in states:
+            r = fks.block_vs_twin(spec, pro, st, buf, key, src, kb)
+            check(r["bit_equal"] and r["tally_rel_err"] <= 1e-9, f"45 {tag} {state}: {r}")
+            n_states += 1
+            v = ("table_" if spec.table else "") + "fused_k"
+            err[v] = max(err.get(v, 0.0), r["max_abs_err"])
+            seen.setdefault(fks.instantiation(spec), []).append(tag)
+            yield spec, pro, state, st, buf, kb, r
+
+    for name, (_, _, _, kind) in fks.fk_cases().items():
+        integ = fks.case_integrator(name, dev)
+        for _ in hold(name, integ, fks.source(h, kind), 4 * TABLE_CASE_LANES, TABLE_CASE_LANES,
+                      batch_key(SEED, 1100)):
+            pass
+    n_cases = n_states
+    for name in FK_PATHS:
+        sc = fk_path_scene(name, dev)
+        n = sc.n * sc.kd.n_k
+        key = batch_key(SEED, 1110)
+        for spec, pro, state, st, buf, kb, r in hold(name, sc.fused, sc.src, n, sc.lanes, key):
+            fields = dict(scene=name, state=state, lanes=spec.fk.lanes, photons=n,
+                          k_points=spec.fk.n_k, kb=kb, live=r["live"], bit_equal=r["bit_equal"],
+                          max_abs_err=f"{r['max_abs_err']:.3e}",
+                          tally_rel_err=f"{r['tally_rel_err']:.3e}",
+                          instantiation=fks.instantiation(spec))
+            if state != "launch" and name in FK_TIMED.values():
+                run_k = lambda s_, b_: fused_block(spec, pro, s_, b_, key, sc.src, kb)
+                run_p = lambda s_, b_: fused_block_reference(spec, pro, s_, b_, key, sc.src, kb)
+                r["device_ms"] = device_block_ms(run_k, st, buf.clone, 20)
+                r["twin_ms"] = time_block_ms(run_p, st, buf.clone, 2)
+                n_bytes = (state_bytes(spec, spec.fk.lanes, r["live"])
+                           + PROLOGUE_BYTES_PER_LANE * spec.fk.lanes)
+                r["bound"] = bound_ms(variant(spec), r["lane_events"], n_bytes, r["collisions"],
+                                      table=spec.table)
+                timed[(name, state)] = r
+                fields.update(lane_events=r["lane_events"], collisions=r["collisions"],
+                              device_ms=f"{r['device_ms']:.4f}", plain_ms=f"{r['twin_ms']:.4f}",
+                              bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+            say("45 fused-k-block-vs-plain", **fields, card=json.dumps(card))
+    check(len(built) == 56 and set(seen) == built,
+          f"45: fused-k instantiations run {sorted(seen)}, built {sorted(built)}")
+    say("45 fused-k-block-vs-plain", cases=len(fks.fk_cases()), case_states=n_cases,
+        path_states=n_states - n_cases, instantiations=len(seen), bit_equal=True,
+        max_abs_err=f"{max(err.values()):.3e}", card=json.dumps(card))
+    return {"timed": timed, "err": err}
+
+
+def _band_stats(band, keys=("fup", "fdn", "fabs", "n_bad")) -> dict:
+    return {k: float(band.mean["derived"][k]) for k in keys}
+
+
+def fk_band_rates(tag: str, sc, counter: str, n: int, batches: int, seed: int,
+                  cache: dict) -> dict:
+    """The band of ``sc`` fused and baked at ``n`` photons a k point and
+    ``batches`` batches, after a warm-up of each, in turns (fused, baked,
+    baked, fused, fused, baked), each run with the launch counts set to 0
+    just before it and read just after (the fused mode launches its fused-k
+    variant only, the baked one the gas variant only); closure within 1e-5
+    and n_bad 0 on every run; photons/s of each mode the median of its
+    three (the measurements ``spectral.FUSED_AUTO_MAX_PHOTONS`` rests on)."""
+    from i3rc_tpu_torch import run_band
+
+    derive = lambda r: {"fup": r.mean_flux_up, "fdn": r.mean_flux_down,
+                        "fabs": r.mean_flux_absorbed, "n_bad": r.n_bad}
+    band = lambda mode, s_: run_band(sc.band, sc.dom, sc.kd, sc.src, n, batches, seed=s_,
+                                     derive=derive, integrator_cache=cache, mode=mode,
+                                     n_lanes=sc.lanes)
+    out = {}
+    for mode in ("fused", "baked"):
+        band(mode, seed)                            # warm-up
+    for rep_ in range(6):
+        mode = ("fused", "baked")[(rep_ + rep_ // 2) % 2]      # f, b, b, f, f, b
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        b = band(mode, seed + 1 + rep_)
+        m = _band_stats(b)
+        dt = time.perf_counter() - t0
+        launches = table_path_counts(counter if mode == "fused" else counter.replace(
+            "fused_k_launches", "gas_launches"))
+        check(abs(m["fup"] + m["fdn"] + m["fabs"] - 1.0) < 1e-5 and m["n_bad"] == 0,
+              f"{tag} {mode}: {m}")
+        check((b.per_k == []) == (mode == "fused"), f"{tag} {mode}: per_k")
+        if mode not in out:
+            out[mode] = dict(band=b, m=m, launches=launches, times=[])
+        out[mode]["times"].append(dt)
+    for o in out.values():
+        o["seconds"] = sorted(o["times"])[1]
+        o["rate"] = n * sc.kd.n_k * batches / o["seconds"]
+    return out
+
+
+def fk_band_pair(tag: str, sc, card: str, counter: str, seed: int) -> dict:
+    """Phases 46-47: fk_band_rates at the path's size; Fup of the fused band
+    within 5 combined sigma of the baked band's (the binomial sigma of the
+    band mean from the baked per-k Fup, for either mode); one more batch of
+    each timed per launch (batch_kernel_time: the fused batch beside the
+    baked batches of both k points); then fk_band_rates at 8 times the
+    photons a k point, above spectral.FUSED_AUTO_MAX_PHOTONS a band batch,
+    where "auto" takes the baked mode."""
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.integrators import spectral
+
+    cache = {}
+    out = fk_band_rates(tag, sc, counter, sc.n, sc.batches, seed, cache)
+    per_k = [float(st.mean["derived"]["fup"]) for st in out["baked"]["band"].per_k]
+    sigma = sum(w * w * f * (1 - f) / (sc.n * sc.batches)
+                for w, f in zip(sc.kd.weights, per_k)) ** 0.5
+    f_f, f_b = out["fused"]["m"]["fup"], out["baked"]["m"]["fup"]
+    check(abs(f_f - f_b) <= 5 * 2 ** 0.5 * sigma,
+          f"{tag}: fused Fup {f_f} vs baked {f_b} (sigma {sigma:.2e})")
+    key = batch_key(SEED, seed + 10)
+    check(sc.lanes >= 256 * sc.kd.n_k, f"{tag}: {sc.lanes} lanes")
+    bks = []
+    for integ, n in [(sc.fused, sc.n * sc.kd.n_k)] + [(b_, sc.n) for b_ in sc.baked]:
+        tracer = integ.batch_tracer(n, sc.lanes)
+        run = lambda tr=tracer, d=integ.device: tr(key, sc.src.sample(key, sc.lanes, d), sc.src)
+        run()
+        bks.append(batch_kernel_time(run))
+    bk, baked_bks = bks[0], bks[1:]
+    say(f"{tag}-batch-kernel", side="fused", photons=sc.n * sc.kd.n_k, **batch_fields(bk, card))
+    for k, b_ in enumerate(baked_bks):
+        say(f"{tag}-batch-kernel", side="baked", k_point=k, photons=sc.n,
+            **batch_fields(b_, card))
+    say(tag, photons=sc.n * sc.kd.n_k * sc.batches, lanes=sc.lanes,
+        fup=f"{f_f:.6f}", fdn=f"{out['fused']['m']['fdn']:.6f}",
+        fabs=f"{out['fused']['m']['fabs']:.6f}", fup_baked=f"{f_b:.6f}",
+        sigma=f"{sigma:.2e}", seconds=",".join(f"{t:.4f}" for t in out["fused"]["times"]),
+        photons_per_s=f"{out['fused']['rate']:.4e}",
+        baked_seconds=",".join(f"{t:.4f}" for t in out["baked"]["times"]),
+        baked_photons_per_s=f"{out['baked']['rate']:.4e}",
+        fused_over_baked=f"{out['fused']['rate'] / out['baked']['rate']:.3f}",
+        launches=out["fused"]["launches"], baked_launches=out["baked"]["launches"],
+        batch_kernel_ms=f"{bk['kernel_ms']:.3f}",
+        baked_batch_kernel_ms=f"{sum(b_['kernel_ms'] for b_ in baked_bks):.3f}",
+        card=json.dumps(card))
+    large = fk_band_rates(tag, sc, counter, 8 * sc.n, sc.batches, seed + 20, cache)
+    n_band = 8 * sc.n * sc.kd.n_k
+    check(sc.n * sc.kd.n_k <= spectral.FUSED_AUTO_MAX_PHOTONS < n_band,
+          f"{tag}: the two sizes do not straddle FUSED_AUTO_MAX_PHOTONS")
+    say(f"{tag}-large", photons_per_band_batch=n_band, batches=sc.batches, lanes=sc.lanes,
+        auto_takes="baked",
+        fup=f"{large['fused']['m']['fup']:.6f}", fup_baked=f"{large['baked']['m']['fup']:.6f}",
+        seconds=",".join(f"{t:.4f}" for t in large["fused"]["times"]),
+        photons_per_s=f"{large['fused']['rate']:.4e}",
+        baked_seconds=",".join(f"{t:.4f}" for t in large["baked"]["times"]),
+        baked_photons_per_s=f"{large['baked']['rate']:.4e}",
+        fused_over_baked=f"{large['fused']['rate'] / large['baked']['rate']:.3f}",
+        card=json.dumps(card))
+    return dict(out, sigma=sigma, batch=bk, baked_batches=baked_bks, large=large)
+
+
+def fk_band_means(sc, mode: str, seed: int, derive) -> tuple:
+    """(mean, stderr) of the derived tree of a band of ``sc`` in ``mode``."""
+    from i3rc_tpu_torch import run_band
+
+    b = run_band(sc.band, sc.dom, sc.kd, sc.src, sc.n, sc.batches, seed=seed, derive=derive,
+                 mode=mode, integrator_cache={}, n_lanes=sc.lanes)
+    return b.mean["derived"], b.stderr["derived"], b
+
+
+def fused_k_paths(card: str) -> dict:
+    """Phases 46-50: the fused-k paths through run_band(mode="fused"), each
+    driven with the launch counts set to 0 just before it and read just
+    after, each against the baked band on the same scene (or a closed
+    form).  Returns per variant the path's launches and records."""
+    rec = {}
+    # 46. the bench row at full width (bench.py:274-337): the step cloud, k =
+    # 4e-4 and 4e-3 (weights 0.7 / 0.3), 2 fused batches of 2 x 2^24 photons
+    # at phase 13's lanes; Fup within 5 combined sigma of the baked band and
+    # within 5 sigma + 3e-4 of the JAX anchor 0.4040
+    sc = fk_path_scene("46_bench", "cuda")
+    r = fk_band_pair("46 fused-k-bench-band", sc, card, "fused_k_launches", 1120)
+    f_f = r["fused"]["m"]["fup"]
+    check(abs(f_f - ANCHOR_BROADBAND_FUP) <= 5 * r["sigma"] + 3e-4,
+          f"46: fused Fup {f_f} vs {ANCHOR_BROADBAND_FUP} (sigma {r['sigma']:.2e})")
+    rec["fused_k"] = r
+
+    # 47. the production broadband class: phase 42's band over the C.1 step
+    # cloud, fused (the table variant), against the baked K2-T band
+    sc = fk_path_scene("47_c1_band", "cuda")
+    rec["table_fused_k"] = fk_band_pair("47 fused-k-c1-band", sc, card,
+                                        "table_fused_k_launches", 1140)
+
+    # 48. the step cloud + the bench band with the three I3RC detectors,
+    # exact and Iwabuchi: 8 x 2^21 photons per k point, fused against baked
+    # (the band's weighted detectors) within 5 combined standard errors
+    derive = lambda r_: {"i": r_.mean_intensity, "fup": r_.mean_flux_up,
+                         "fdn": r_.mean_flux_down, "fabs": r_.mean_flux_absorbed}
+    for est in ("iwabuchi", "exact"):
+        sc = fk_path_scene(f"48_detectors_{est}", "cuda")
+        reset_counts()
+        mf, sf, bf = fk_band_means(sc, "fused", 1150, derive)
+        launches = table_path_counts("fused_k_detector_launches")
+        reset_counts()
+        mb, sb, _ = fk_band_means(sc, "baked", 1160, derive)
+        baked_launches = table_path_counts("gas_detector_launches")
+        i_f, i_b = mf["i"].double().cpu().numpy(), mb["i"].double().cpu().numpy()
+        se = np.sqrt(sf["i"].double().cpu().numpy() ** 2 + sb["i"].double().cpu().numpy() ** 2)
+        check(np.all(np.abs(i_f - i_b) <= 5 * se) and np.all(i_f > 0) and bf.per_k == [],
+              f"48 {est}: I {i_f} vs baked {i_b} (se {se})")
+        closure = float(mf["fup"] + mf["fdn"] + mf["fabs"])
+        check(abs(closure - 1.0) < 1e-5, f"48 {est}: closure {closure}")
+        say("48 fused-k-detectors", estimator=est, photons=sc.n * sc.kd.n_k * sc.batches,
+            lanes=sc.lanes, intensity=",".join(f"{v:.5f}" for v in i_f),
+            intensity_baked=",".join(f"{v:.5f}" for v in i_b),
+            combined_se=",".join(f"{v:.1e}" for v in se), launches=launches,
+            baked_launches=baked_launches, card=json.dumps(card))
+        if est == "iwabuchi":
+            rec["fused_k_detectors"] = launches
+            rec["gas_detectors_baked"] = baked_launches
+
+    # 49. heating rates: the absorbing step cloud (ssa 0.99) and two k points
+    # of layered gas with the volume tally (gas deaths at their exact layer),
+    # 8 x 2^21 photons per k point; the layer profile of the absorption
+    # within 5 combined standard errors of the baked band's
+    sc = fk_path_scene("49_heating", "cuda")
+    derive = lambda r_: {"profile": r_.absorbed_profile, "fabs": r_.mean_flux_absorbed}
+    reset_counts()
+    mf, sf, _ = fk_band_means(sc, "fused", 1170, derive)
+    launches = table_path_counts("fused_k_launches")
+    mb, sb, _ = fk_band_means(sc, "baked", 1180, derive)
+    p_f, p_b = mf["profile"].double().cpu().numpy(), mb["profile"].double().cpu().numpy()
+    se = np.sqrt(sf["profile"].double().cpu().numpy() ** 2
+                 + sb["profile"].double().cpu().numpy() ** 2)
+    check(np.all(np.abs(p_f - p_b) <= 5 * se) and np.all(p_f > 0),
+          f"49: profile {p_f} vs baked {p_b} (se {se})")
+    worst = float(np.max(np.abs(p_f - p_b) / se))
+    say("49 fused-k-heating", photons=sc.n * sc.kd.n_k * sc.batches, lanes=sc.lanes, layers=len(p_f),
+        fabs=f"{float(mf['fabs']):.6f}", fabs_baked=f"{float(mb['fabs']):.6f}",
+        worst_layer_sigmas=f"{worst:.2f}", launches=launches, card=json.dumps(card))
+
+    # 50. the internal source of the Beer-Lambert scene (an upward Lambertian
+    # source at mid-height; the JAX fused mode starts its lanes at the top's
+    # gas depth and gives 0.9089): Fup = sum_k w_k 2 E3(tau_k / 2) within 4
+    # sigma; and the bench band over a Lambertian albedo of 0.2, fused
+    # against baked within 5 combined sigma
+    fks = _load_tests_module("fused_k_scenes")
+    sc = fk_path_scene("50_internal", "cuda")
+    derive = lambda r_: {"fup": r_.mean_flux_up, "fdn": r_.mean_flux_down,
+                         "fabs": r_.mean_flux_absorbed, "n_bad": r_.n_bad}
+    reset_counts()
+    mf, _, _ = fk_band_means(sc, "fused", 1190, derive)
+    launches = table_path_counts("fused_k_launches")
+    want = fks.internal_closed_form()
+    n_total = sc.n * sc.kd.n_k * sc.batches
+    sigma = (want * (1 - want) / n_total) ** 0.5
+    fup = float(mf["fup"])
+    check(abs(fup - want) <= 4 * sigma, f"50: internal source Fup {fup} vs {want}")
+    say("50 fused-k-internal-source", photons=n_total, fup=f"{fup:.6f}",
+        closed_form=f"{want:.6f}", sigma=f"{sigma:.2e}", launches=launches,
+        card=json.dumps(card))
+    sc = fk_path_scene("50_albedo", "cuda")
+    reset_counts()
+    mf, _, _ = fk_band_means(sc, "fused", 1200, derive)
+    launches = table_path_counts("fused_k_surface_launches")
+    mb, _, bb = fk_band_means(sc, "baked", 1210, derive)
+    per_k = [float(st.mean["derived"]["fup"]) for st in bb.per_k]
+    sigma = sum(w * w * f * (1 - f) / (sc.n * sc.batches)
+                for w, f in zip(sc.kd.weights, per_k)) ** 0.5
+    check(abs(float(mf["fup"]) - float(mb["fup"])) <= 5 * 2 ** 0.5 * sigma
+          and float(mf["n_bad"]) == 0, f"50: albedo Fup {mf} vs baked {mb}")
+    say("50 fused-k-albedo", photons=sc.n * sc.kd.n_k * sc.batches, albedo=0.2,
+        fup=f"{float(mf['fup']):.6f}", fup_baked=f"{float(mb['fup']):.6f}",
+        sigma=f"{sigma:.2e}", launches=launches, card=json.dumps(card))
+    return rec
+
+
+def fused_k_entry(kind: str, source: str, replaces: str, rec: dict, checks: dict) -> dict:
+    """The kernels-line entry of a fused-k variant: launches on its path
+    (phase 46 or 47, the fused band), its largest state difference to the
+    plain version (phase 45), its device time, plain time and bound on its
+    path's mid-flight block, and one fused batch of the path beside the
+    baked batches of its gas sibling over both k points (K2 or K2-T) and
+    the two modes' photons/s."""
+    r = checks["timed"][(FK_TIMED[kind], "mid")]
+    tail = checks["timed"][(FK_TIMED[kind], "tail")]
+    bk = rec["batch"]
+    return {"name": f"fast_event_block_{'tab_' if kind.startswith('table') else ''}fused_k",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": rec["fused"]["launches"], "max_abs_err": checks["err"].get(kind, 0.0),
+            "ms": r["device_ms"], "plain_ms": r["twin_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None, "tail_ms": tail["device_ms"],
+            "tail_bound_ms": tail["bound"][0], "batch_ms": bk["kernel_ms"],
+            "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
+            "baked_batch_ms": sum(b["kernel_ms"] for b in rec["baked_batches"]),
+            "photons_per_s": rec["fused"]["rate"], "baked_photons_per_s": rec["baked"]["rate"]}
 
 
 if __name__ == "__main__":

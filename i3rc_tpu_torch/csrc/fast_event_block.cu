@@ -34,12 +34,18 @@
 // a hit lane idled for the rest of its block.)  Every exit of a reflecting
 // plan is tallied here, so the next prologue finds none pending.
 //
+// On a fused-k plan (FK) every tally takes the lane's k weight w_k n_photons /
+// quota_k (a CTA holds one k), the surface's shadow rays add the lane's whole
+// gas column, Gz(z_max) of its k over dz_d, and a revived lane restarts at
+// gcur = 0, Gz of the surface (fastpath.py:1931-1934, :1964-1965, :1979-1983).
+//
 // Why a kernel of its own: as a stage of the event kernel (a __noinline__
 // call after the K events) it raised the registers of every one of the 89
 // instantiations to 64 (K1 from 48: 4 resident CTAs per SM for 5), since
 // ptxas sizes a kernel's registers by its call tree; a launch costs a few
 // microseconds of a block's ~0.1 ms and leaves the event kernels as they
 // were.
+template <bool FK>
 __global__ void __launch_bounds__(CTA_THREADS)
 fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
                                 const __grid_constant__ EventParams p) {
@@ -58,6 +64,9 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
   float x = 0.0f, y = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f, w = 1.0f;
   float u0 = 1.0f, u1 = 0.0f, u2 = 0.0f;
   int key = -1;
+  // FK: the CTA's k, its tally weight and gas column.
+  const int k = FK ? p.fk.cta_k[blockIdx.x] : 0;
+  const float wk = FK ? p.fk.w[k] : 1.0f;
   if (pk != 0) {
     x = f[lane];
     y = f[L + lane];
@@ -67,10 +76,10 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
     if (pk <= pr.n_kinds) key = c * pr.n_kinds + pk - 1;
     if (pr.vol_on && pk == 3) {
       const int iz = min(max((int)((f[2 * L + lane] - p.z0) * pr.inv_dz_cell), 0), pr.n_z - 1);
-      tally_add(pr.vol + (size_t)c * pr.n_z + iz, (double)w);
+      tally_add(pr.vol + (size_t)c * pr.n_z + iz, FK ? (double)w * (double)wk : (double)w);
     }
   }
-  warp_red(pr.columns, key, (double)w);
+  warp_red(pr.columns, key, FK ? (double)w * (double)wk : (double)w);
   if (hit) {
     ux = f[3 * L + lane];
     uy = f[4 * L + lane];
@@ -101,7 +110,8 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
       int bin = -1;
       if (emit) {
         int col;
-        const float tau = shadow_closed(p, d, x, y, zs, &col);
+        float tau = shadow_closed(p, d, x, y, zs, &col);
+        if (FK) tau = tau + p.fk.gtop[k] * q.inv_dz[d];
         const float npf = brdf
             ? fmaxf(brdf_reflectance(sp, uz, q.dz[d], phi_in, sp.det_phi[d]), 0.0f) * INV_PI_F
             : INV_PI_F;
@@ -116,6 +126,7 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
           c = npf * expf(-tau);
         }
         c = c * w;                           // the pre-reflection weight
+        if (FK) c = c * wk;
         bin = col * q.n + d;
       }
       warp_red(sp.acc, c != 0.0f ? bin : -1, (double)c);
@@ -130,6 +141,7 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
     f[5 * L + lane] = mu_r;
     iv[L + lane] += 1;
     iv[lane] = 1;
+    if (FK) f[8 * L + lane] = 0.0f;
     if (sp.w) sp.w[lane] = w * fmaxf(refl, 1.0f);
   } else if (pk != 0 && sp.w) {
     sp.w[lane] = 1.0f;
@@ -155,23 +167,29 @@ int i3rc_cta_threads(void) { return CTA_THREADS; }
 // the block's prologue when params->pro.on; with detectors it adds their
 // contributions to acc; with a column table (col not null) it runs the
 // column variant; with a cubic table (params->cubic not null) the table
-// variant; over a reflecting surface (params->srf.kind) with the prologue
-// on, the surface stage follows on the stream.  Returns cudaGetLastError()
-// after the launches (cudaErrorInvalidValue for an unsupported K, CHAIN,
-// detector count, column or table combination; the Python wrapper checks
-// those first).
+// variant; with fused-k tables (params->fk.tab not null) the fused-k variant
+// of the gas one; over a reflecting surface (params->srf.kind) with the
+// prologue on, the surface stage follows on the stream.  Returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for an
+// unsupported K, CHAIN, detector count, column, table or fused-k
+// combination; the Python wrapper checks those first).
 int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
                           const EventParams* params, int chain, int absorbing,
                           int track_y, int detectors, int iwabuchi, int gas, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool tab = params->cubic != nullptr;
+  const bool fk = params->fk.tab != nullptr;
   if (tab && (params->n_seg < 1 || (detectors != 0) != (params->fwd != nullptr) ||
               (col != nullptr) != (params->pf_row != nullptr)))
     return (int)cudaErrorInvalidValue;
   bool ok;
   if (col != nullptr)
-    ok = track_y && !detectors && !gas &&
+    ok = track_y && !detectors && !gas && !fk &&
          launch_block_col(f, i, col, *params, chain, absorbing, tab, st);
+  else if (fk)
+    ok = gas && (tab ? launch_block_tab_fk : launch_block_fk)(f, i, acc, *params, chain,
+                                                               absorbing, track_y, detectors,
+                                                               iwabuchi, st);
   else if (gas)
     ok = (tab ? launch_block_tab_gas : launch_block_gas)(f, i, acc, *params, chain, absorbing,
                                                          track_y, detectors, iwabuchi, st);
@@ -182,9 +200,13 @@ int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
     ok = launch_block<false, false>(f, i, acc, *params, chain, absorbing, track_y, detectors,
                                     iwabuchi, st);
   if (!ok) return (int)cudaErrorInvalidValue;
-  if (params->pro.on && params->srf.kind != SURFACE_BLACK)
-    fast_event_block_surface_kernel<<<(params->n_lanes + CTA_THREADS - 1) / CTA_THREADS,
-                                      CTA_THREADS, 0, st>>>(f, i, *params);
+  if (params->pro.on && params->srf.kind != SURFACE_BLACK) {
+    const int blocks = (params->n_lanes + CTA_THREADS - 1) / CTA_THREADS;
+    if (fk)
+      fast_event_block_surface_kernel<true><<<blocks, CTA_THREADS, 0, st>>>(f, i, *params);
+    else
+      fast_event_block_surface_kernel<false><<<blocks, CTA_THREADS, 0, st>>>(f, i, *params);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -14,8 +14,10 @@
 // fast_event_block.cu instantiates the variants without the gas channel and
 // holds the C interface, fast_event_block_gas.cu the gas variants,
 // fast_event_block_tab.cu and fast_event_block_tab_gas.cu their table
-// variants and fast_event_block_col.cu the column variants of both kinds.
-// The five files compile in parallel.
+// variants, fast_event_block_fk.cu and fast_event_block_tab_fk.cu the fused-k
+// variants of the gas ones (FK, see the note below) and
+// fast_event_block_col.cu the column variants of both kinds.  The seven files
+// compile in parallel.
 //
 // One thread owns one photon lane.  It loads the lane's state once, runs K
 // events (free path, separable where-chain extinction, nearest segment face,
@@ -156,6 +158,33 @@
 // template flag, so that the HG instantiations compile to the code they
 // had (a runtime branch raised the general kernel's spills).
 //
+// Fused-k variants (FK, of the gas variants HG and TAB, chain depth 0: the
+// XLA fastpath's gask_mode, fastpath.py:966-1057, :1409-1470, which stayed
+// out of Pallas because its per-lane endpoint read of the (n_k * n_z, 2) gas
+// table re-created the TPU's one-hot read chains, fastpath.py:1692-1712).
+// Every k point of a spectral band runs in one trace: k is a per-lane
+// attribute.  The lanes fall into blocks of whole CTAs, one per k point
+// (EventParams.fk: cta0, cta_k), so a CTA's k is one load and its lanes'
+// tally weight w_k n_photons / quota_k, Gz(z_max) and table row k * n_z are
+// CTA-uniform.  A lane carries gcur = Gz(z) of its k (state row 8).  A step
+// stops at no gas face: after the step, one 8-byte __ldg of the k table at
+// the layer of the step's end gives (gz, Gz at the base), Gz(z_end) is
+// linear in the layer, and the step's gas depth is (Gz(z_end) - gcur) / uz
+// (gz * step when |uz| < 1e-6).  Where it reaches tgas the lane dies inside
+// the step, at the constant-gz fraction tgas / depth, or, with the volume
+// tally on (fk.exact_layer), at the height where its cumulative row reaches
+// gcur + tgas uz: a binary search of the k's row, only at a gas death.  The
+// survivors carry Gz(z_end).  A detector's shadow ray adds max((Gz at its
+// exit - gcur) / dz_d, 0) of the lane's own k, and every contribution and
+// exit tallies with the lane's weight.  The prologue (block_prologue_fk)
+// ranks a dead lane among the dead lanes of its k block only: its CTA's
+// count below it plus the dead counts of the block's CTAs below its CTA;
+// the block's last CTA writes k's new launched count (ctl[4 + 2k + parity]),
+// and a fresh lane starts at gcur = Gz of its own height (the XLA path took
+// Gz of the domain top for every source, fastpath.py:2012, :2107-2108).  The
+// table is a few KB and stays in L1; what FK adds per lane-event is that
+// load and one division.
+//
 // Differences from the TPU kernel:
 //  * RNG: counter-based Philox4x32-10 keyed (seed, batch) with counter
 //    (lane, kb, group, stream), the layout of i3rc_tpu_torch/core/rng.py; it
@@ -206,6 +235,9 @@
 #define STREAM_GAS 3u
 #define STREAM_SURFACE 4u
 #define STREAM_SURFACE_IW 5u
+// First fused-k slot of Prologue.ctl: k's launched count for parity p at
+// LAUNCHED_K + 2 k + p (kernels/event_block.py LAUNCHED_K).
+#define LAUNCHED_K 4
 #define MAX_BRDF_PARAMS 4
 // Surface kinds (SurfaceParams.kind; kernels/event_block.py BRDF_KINDS).
 #define SURFACE_BLACK 0
@@ -297,6 +329,20 @@ struct SurfaceParams {
   double* acc;                  // (n_cols, D) surface radiance, or nullptr
 };
 
+// Fused-k spectral batching (FK; kernels/event_block.py FusedK): the per-k
+// tables, on the device.
+struct FusedK {
+  const float2* tab;            // (n_k * n_z) [gz, Gz at the layer base], row k * n_z + layer
+  const float* w;               // (n_k) tally weight w_k n_photons / quota_k
+  const float* gtop;            // (n_k) Gz(z_max)
+  const long long* quota;       // (n_k) photon quota
+  const int* cta0;              // (n_k + 1) first CTA of each k block
+  const int* cta_k;             // (n_ctas) the k of each CTA
+  int n_k, n_z;
+  float dz, inv_dz;             // the gas layers' height over n_z layers from z0, and 1 / dz
+  int exact_layer;              // gas deaths at their exact layer (the volume tally)
+};
+
 struct EventParams {
   StepChain fx, fy, fz;
   float x0, y0, z0, x_max, y_max, z_max;
@@ -321,6 +367,7 @@ struct EventParams {
   const int* pf_row;            // column media: (n_cols,) row base of each column's entry
   int n_seg, n_fwd;
   float fwd_scale;              // f32(n_fwd / pi)
+  FusedK fk;                    // the fused-k variants (FK) only
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -475,7 +522,45 @@ __device__ __forceinline__ void rotate_direction(float ux, float uy, float uz,
 struct Lane {
   float x, y, z, ux, uy, uz, tau, tgas;
   int alive, orders, pk, bad, evct;
+  float gcur;                   // FK: Gz(z) of the lane's k
 };
+
+// (gz, Gz(z)) of the k profile whose rows start at `row`, at z clipped to
+// the domain: one 8-byte read of the layer's row, Gz linear inside it
+// (fastpath.py:1415-1422).
+__device__ __forceinline__ float2 fk_gas_read(const EventParams& p, int row, float z) {
+  const float zc = fminf(fmaxf(z, p.z0), p.z_max);
+  const int lay = min(max((int)((zc - p.z0) * p.fk.inv_dz), 0), p.fk.n_z - 1);
+  const float2 r = __ldg(p.fk.tab + row + lay);
+  return make_float2(r.x, r.y + (zc - (p.z0 + (float)lay * p.fk.dz)) * r.x);
+}
+
+// A fused-k gas death's exact share of its step (fastpath.py:1432-1460): the
+// layer whose base Gz the k's nondecreasing cumulative row reaches at the
+// death target g_t (a binary search for the count of bases <= g_t, less
+// one), the height where Gz = g_t inside it (the middle where gz is 0), and
+// that height's share of the step's rise `denom`, clipped to [0, 1].
+__device__ __forceinline__ float fk_death_fraction(const EventParams& p, int row, float g_t,
+                                                   float z, float denom) {
+  const FusedK& q = p.fk;
+  int lo = 0, hi = q.n_z;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(&q.tab[row + mid].y) <= g_t) lo = mid + 1;
+    else hi = mid;
+  }
+  const int ld = min(max(lo - 1, 0), q.n_z - 1);
+  const float2 r = __ldg(q.tab + row + ld);
+  const float z_d = (p.z0 + (float)ld * q.dz) +
+                    (r.x > 0.0f ? (g_t - r.y) / fmaxf(r.x, TINY_F) : 0.5f * q.dz);
+  return fminf(fmaxf((z_d - z) / (fabsf(denom) > 0.0f ? denom : 1.0f), 0.0f), 1.0f);
+}
+
+// A fused-k shadow ray's gas: the lane's k from its gcur to the exit.
+__device__ __forceinline__ float fk_shadow_gas(const DetParams& q, int d, float gtop,
+                                               float gcur) {
+  return fmaxf(((q.dz[d] > 0.0f ? gtop : 0.0f) - gcur) * q.inv_dz[d], 0.0f);
+}
 
 // The draws of event j: group g is Philox4x32-10 at counter (lane, kb,
 // j * G + g, STREAM_EVENT).  Eager variants draw every group [0, G) before
@@ -652,32 +737,35 @@ __device__ __forceinline__ float iwabuchi(const DetParams& q, float npf, float t
 
 // Local estimate of detector d from a collision at s (direction before the
 // scattering): the contribution and its exit column (fastpath.py:1501-1571).
-template <bool IW>
+// FK adds the lane's own gas to the shadow ray (gtop: Gz(z_max) of its k).
+template <bool IW, bool FK>
 __device__ __forceinline__ float detector_contribution(const EventParams& p, int d,
                                                        const Lane& s, float u_iw,
-                                                       int* col_out) {
+                                                       int* col_out, float gtop) {
   const DetParams& q = p.det;
   const float proj =
       fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
   const float r =
       1.0f / sqrtf(fmaxf((1.0f + p.g * p.g) - (p.g + p.g) * proj, EPS12_F));
   const float norm_pf = (1.0f - p.g * p.g) * r * r * r * q.norm[d];
-  const float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  if (FK) tau = tau + fk_shadow_gas(q, d, gtop, s.gcur);
   if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
   return norm_pf * expf(-tau);
 }
 
 // The same with the phase value of the forward fit (TAB).  A function of its
 // own, so that the HG variants compile to the code they had.
-template <bool IW>
+template <bool IW, bool FK>
 __device__ __forceinline__ float detector_contribution_tab(const EventParams& p, int d,
                                                            const Lane& s, float u_iw,
-                                                           int* col_out) {
+                                                           int* col_out, float gtop) {
   const DetParams& q = p.det;
   const float proj =
       fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
   const float norm_pf = forward_phase(p, proj) * q.norm[d];
-  const float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  if (FK) tau = tau + fk_shadow_gas(q, d, gtop, s.gcur);
   if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
   return norm_pf * expf(-tau);
 }
@@ -690,14 +778,18 @@ __device__ __forceinline__ float detector_contribution_tab(const EventParams& p,
 // hist (tally: the warp's private slice when SLICES, else a histogram the
 // warps share).  TAB samples the cosine from the cubic inverse CDF (in column
 // media at the lane's entry, with the lane's ssa in the absorption tests) and
-// takes the detectors' phase values from the forward fit.  Called by every
+// takes the detectors' phase values from the forward fit.  FK (with GAS,
+// CHAIN 0) takes the fused-k gas step of the lane's k, the k of its CTA
+// (see the note at the top; read here, not passed in: an argument of its k
+// unused by the other variants, changed their registers).  Called by every
 // thread of a warp together.
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
-          bool LAZY, bool TAB, int NU>
+          bool LAZY, bool TAB, bool FK, int NU>
 __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU], Draws& dr,
                                            Lane& s, double* hist,
                                            const float4* __restrict__ col) {
   constexpr int BD = ABS ? 4 : 3;
+  const int fk_k = FK ? __ldg(p.fk.cta_k + blockIdx.x) : 0;
   const bool alive = s.alive != 0;
   want<LAZY>(u, p, dr, 0, !(s.tau > 0.0f));
   float tau = s.tau > 0.0f ? s.tau : exponential_deviate(u[0]);
@@ -739,7 +831,7 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
     face_z = up_z ? face_up(p.fz, s.z, p.z_max) : face_dn(p.fz, s.z, p.z0);
   }
   float gzv = 0.0f;
-  if (GAS) {
+  if (GAS && !FK) {
     // The step also stops at the gas faces, so gz is constant along it.
     gzv = chain_value(p.gz, p.gz.v, s.z);
     const float face_zg = up_z ? face_up(p.gz, s.z, p.z_max) : face_dn(p.gz, s.z, p.z0);
@@ -764,7 +856,7 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
 
   bool collide, cross, gas_die = false;
   float adv;
-  if (GAS) {
+  if (GAS && !FK) {
     // Collision, then gas absorption, then crossing; the gas optical depth
     // is consumed along every step.
     const float s_gas = gzv > 0.0f ? s.tgas * chain_value(p.gz, p.gz.iv, s.z) : HUGE_F;
@@ -789,6 +881,28 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
     if (cross && sy <= s_bnd) nyp = face_y + sign_y;
     nyp = wrap_fast(nyp, p.y0, p.y_max, p.wy);
   }
+  // FK: the step's gas depth from the endpoint read; a death inside the step
+  // lands at (xd, yd, zd).
+  float xd = 0.0f, yd = 0.0f, zd = 0.0f;
+  if (FK && alive) {
+    const float2 g = fk_gas_read(p, fk_k * p.fk.n_z, nzp);
+    const bool steep = fabsf(s.uz) >= EPS6_F;
+    const float dgas = fmaxf(steep ? (g.y - s.gcur) / s.uz : g.x * adv, 0.0f);
+    gas_die = dgas >= s.tgas;
+    if (gas_die) {
+      float fdie = fminf(fmaxf(s.tgas / fmaxf(dgas, TINY_F), 0.0f), 1.0f);
+      if (p.fk.exact_layer && steep)
+        fdie = fk_death_fraction(p, fk_k * p.fk.n_z, s.gcur + s.tgas * s.uz, s.z, s.uz * adv);
+      xd = wrap_fast(s.x + s.ux * adv * fdie, p.x0, p.x_max, p.wx);
+      zd = s.z + s.uz * adv * fdie;
+      if (TY) yd = wrap_fast(s.y + s.uy * adv * fdie, p.y0, p.y_max, p.wy);
+      collide = false;
+      cross = false;
+    } else {
+      s.tgas = s.tgas - dgas;
+      s.gcur = g.y;
+    }
+  }
   const bool exit_top = cross && (nzp >= p.z_max);
   const bool exit_bot = cross && !exit_top && (nzp <= p.z0);
   if (exit_top) s.pk = 1;
@@ -796,9 +910,9 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
   if (GAS && gas_die) s.pk = 3;
   tau = cross ? tau - s_bnd * ext : (collide ? 0.0f : tau);
   if (alive) {
-    s.x = nxp;
-    s.z = nzp;
-    if (TY) s.y = nyp;
+    s.x = FK && gas_die ? xd : nxp;
+    s.z = FK && gas_die ? zd : nzp;
+    if (TY) s.y = FK && gas_die ? yd : nyp;
   }
 
   bool collided = collide;
@@ -810,17 +924,21 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
   }
   if (DET && __any_sync(FULL_MASK, collided)) {
     // Warp-convergent: the lanes that did not collide contribute 0.
+    const float gtop = FK ? __ldg(p.fk.gtop + fk_k) : 0.0f;
 #pragma unroll 1
     for (int d = 0; d < p.det.n; ++d) {
       int bin;
       float c;
       if constexpr (TAB)
-        c = detector_contribution_tab<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin);
+        c = detector_contribution_tab<IW, FK>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin,
+                                              gtop);
       else
-        c = detector_contribution<IW>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin);
+        c = detector_contribution<IW, FK>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin,
+                                          gtop);
       if (!collided) c = 0.0f;
       // A BRDF plan's lane weight, read where it scales (constant in the block).
       if (p.srf.w) c = c * p.srf.w[dr.lane];
+      if (FK) c = c * __ldg(p.fk.w + fk_k);
       tally<SLICES>(hist, bin * p.det.n + d, c);
     }
   }
@@ -1117,6 +1235,136 @@ static __device__ __noinline__ int block_prologue(const EventParams& p, float* f
   return alive0;
 }
 
+// The prologue of a fused-k block (FK): block_prologue's steps, with two
+// differences.  Each exit tallies with its k's weight (a CTA holds one k:
+// its shared int32 counts are multiplied by that weight when they are
+// added).  A dead lane's FIFO rank counts the dead lanes of its own k block
+// only (its CTA's below it and the block's CTAs below its CTA): it takes a
+// photon while launched_k + rank is below k's quota, with gcur = Gz of its
+// k at its fresh height.  The block's last CTA writes k's new launched
+// count; the grid's last CTA records the first kb at whose entry every k
+// had launched its quota (ctl[3]) and, no lane alive either, ctl[2].  A
+// function of its own: a branch inside block_prologue would change the
+// callee that every other variant's registers are sized with.
+static __device__ __noinline__ int block_prologue_fk(const EventParams& p, float* f, int* iv,
+                                                     int* live_ids, int* warp_live,
+                                                     int* cta_sum) {
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const int lane0 = blockIdx.x * CTA_THREADS + t;
+  const size_t L = (size_t)p.n_lanes;
+  const Prologue& q = p.pro;
+  const FusedK& fk = p.fk;
+  const int k = fk.cta_k[blockIdx.x];
+  const int c0 = fk.cta0[k];
+  const double wk = (double)fk.w[k];
+  int alive0 = 0;
+  const int n_fbins = q.n_kinds * p.n_x * (q.col_y ? p.n_y : 1);
+  const bool flush_smem = n_fbins <= CTA_THREADS;
+  if (t == 0) cta_sum[0] = cta_sum[1] = 0;
+  if (flush_smem) live_ids[t] = 0;
+  __syncthreads();
+  const bool in_range = lane0 < p.n_lanes;
+  if (in_range) {
+    alive0 = iv[lane0];
+    const int pk = iv[2 * L + lane0];
+    const float ux = f[3 * L + lane0], uy = f[4 * L + lane0], uz = f[5 * L + lane0];
+    const float scale = rsqrtf(fmaxf(ux * ux + uy * uy + uz * uz, EPS12_F));
+    f[3 * L + lane0] = ux * scale;
+    f[4 * L + lane0] = uy * scale;
+    f[5 * L + lane0] = uz * scale;
+    if (pk != 0) {
+      int c = min(max((int)((f[lane0] - p.x0) * p.inv_dx), 0), p.n_x - 1);
+      if (q.col_y)
+        c = c * p.n_y + min(max((int)((f[L + lane0] - p.y0) * p.inv_dy), 0), p.n_y - 1);
+      if (pk <= q.n_kinds) {
+        if (flush_smem) atomicAdd(&live_ids[c * q.n_kinds + pk - 1], 1);
+        else tally_add(q.columns + (size_t)c * q.n_kinds + (pk - 1), wk);
+      }
+      if (q.vol_on && pk == 3) {
+        const int iz =
+            min(max((int)((f[2 * L + lane0] - p.z0) * q.inv_dz_cell), 0), q.n_z - 1);
+        tally_add(q.vol + (size_t)c * q.n_z + iz, wk);
+      }
+      iv[2 * L + lane0] = 0;
+    }
+  }
+  const unsigned par = p.kb & 1u;
+  long long* launched_k = q.ctl + LAUNCHED_K;
+  const long long launched = launched_k[2 * k + par];
+  const long long quota = fk.quota[k];
+  const bool budget = launched < quota;
+  const bool last_k = (int)blockIdx.x == fk.cta0[k + 1] - 1;
+  const bool last = blockIdx.x == gridDim.x - 1;
+  const bool dead = in_range && !alive0;
+  const unsigned dead_mask = __ballot_sync(FULL_MASK, dead);
+  if (wl == 0) warp_live[warp] = __popc(dead_mask);
+  const int* dead_in = q.dead + (size_t)par * gridDim.x;
+  if (budget || last_k) {
+    int below = 0;
+    for (int c = c0 + t; c < (int)blockIdx.x; c += CTA_THREADS) below += dead_in[c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) below += __shfl_xor_sync(FULL_MASK, below, o);
+    if (wl == 0 && below) atomicAdd(&cta_sum[0], below);
+  }
+  // The grid's last CTA: the dead lanes of the CTAs before its block, and
+  // whether some k has not launched its quota yet.
+  int open = 0;
+  if (last) {
+    int before = 0;
+    for (int c = t; c < c0; c += CTA_THREADS) before += dead_in[c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(FULL_MASK, before, o);
+    if (wl == 0 && before) atomicAdd(&cta_sum[1], before);
+    for (int j = t; j < fk.n_k; j += CTA_THREADS) open |= launched_k[2 * j + par] < fk.quota[j];
+  }
+  const bool any_open = __syncthreads_or(open) != 0;
+  if (flush_smem && t < n_fbins && live_ids[t])
+    tally_add(q.columns + t, (double)live_ids[t] * wk);
+  int rank = __popc(dead_mask & ((1u << wl) - 1u)), cta_dead = 0;
+#pragma unroll
+  for (int w = 0; w < CTA_WARPS; ++w) {
+    const int c = warp_live[w];
+    rank += w < warp ? c : 0;
+    cta_dead += c;
+  }
+  const long long base = launched + cta_sum[0];
+  if (last_k && t == 0) {
+    const long long total_dead = (long long)cta_sum[0] + cta_dead;
+    const long long room = quota - launched;
+    launched_k[2 * k + (par ^ 1u)] =
+        launched + (budget ? (total_dead < room ? total_dead : room) : 0);
+  }
+  if (last && t == 0) {
+    const long long grid_dead = (long long)cta_sum[1] + cta_sum[0] + cta_dead;
+    if (!any_open && q.ctl[3] < 0) q.ctl[3] = (long long)p.kb;
+    if (!any_open && grid_dead == (long long)p.n_lanes && q.ctl[2] < 0)
+      q.ctl[2] = (long long)p.kb;
+    cta_sum[1] = 0;                 // the kernel counts the lanes alive at exit there
+  }
+  if (dead && budget && base + rank < quota) {
+    float v[6];
+    sample_source(p, lane0, v);
+    f[lane0] = v[0];
+    f[L + lane0] = v[1];
+    f[2 * L + lane0] = v[2];
+    f[3 * L + lane0] = v[3];
+    f[4 * L + lane0] = v[4];
+    f[5 * L + lane0] = v[5];
+    f[6 * L + lane0] = 0.0f;
+    uint32_t w[4];
+    philox4x32_10((uint32_t)lane0, p.kb, 0u, STREAM_GAS, p.key0, p.key1, w);
+    f[7 * L + lane0] = exponential_deviate(to_unit(w[0]));
+    f[8 * L + lane0] = fk_gas_read(p, k * fk.n_z, v[2]).y;
+    iv[L + lane0] = 0;
+    iv[lane0] = 1;
+    alive0 = 1;
+  }
+  // The refilled rows are read below by other threads of the CTA, and the
+  // shared arrays are used again.
+  __syncthreads();
+  return alive0;
+}
+
 // The BRDFs of i3rc_tpu_torch/core/surface.py (and of the JAX package's
 // core/surface.py), operation by operation in their order: integer powers
 // as products ((x*x)*(x*x) for x**4), float powers with powf, Smith's
@@ -1209,7 +1457,7 @@ static __device__ __noinline__ float brdf_reflectance(const SurfaceParams& sp, f
 }
 
 // State layout (i3rc_tpu_torch/kernels/event_block.py LaneState):
-//   f: (8, L) float32 rows x, y, z, ux, uy, uz, tau, tgas
+//   f: (8, L) float32 rows x, y, z, ux, uy, uz, tau, tgas (FK: (9, L), row 8 gcur)
 //   i: (5, L) int32   rows alive, orders, pk, bad, evct
 // acc (DET): (n_cols, D) float64 detector accumulator, added to.
 // col (COL): (n_cols, 4) float32 column table [v, z_base, z_top, 0], with TAB
@@ -1248,7 +1496,7 @@ static __device__ __noinline__ float brdf_reflectance(const SurfaceParams& sp, f
 // CTA's dead count after the bounce; a BRDF plan's weight (p.srf.w) scales
 // DET's contributions.
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
-          int DCAP, bool TAB>
+          int DCAP, bool TAB, bool FK>
 __global__ void __launch_bounds__(CTA_THREADS)
 fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
                         const float4* __restrict__ col, int hist_in_smem,
@@ -1279,7 +1527,10 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
 
   int alive0 = 0;
   if (pro) {
-    alive0 = block_prologue(p, f, iv, GAS, live_ids, warp_live, cta_sum);
+    if constexpr (FK)
+      alive0 = block_prologue_fk(p, f, iv, live_ids, warp_live, cta_sum);
+    else
+      alive0 = block_prologue(p, f, iv, GAS, live_ids, warp_live, cta_sum);
   } else if (lane0 < p.n_lanes) {
     alive0 = iv[lane0];
   }
@@ -1318,6 +1569,7 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
       s.uz = f[5 * L + lane];
       s.tau = f[6 * L + lane];
       s.tgas = GAS ? f[7 * L + lane] : 0.0f;
+      if (FK) s.gcur = f[8 * L + lane];
       s.alive = iv[0 * L + lane];
       s.orders = iv[1 * L + lane];
       s.pk = iv[2 * L + lane];
@@ -1337,7 +1589,8 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
       float u[4 * G_MAX];
       Draws dr{lane, j * G, 0u};
       start_draws<LAZY>(u, p, dr, G);
-      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, LAZY, TAB>(p, u, dr, s, hist, col);
+      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, LAZY, TAB, FK>(p, u, dr, s, hist,
+                                                                          col);
     }
 
     if (valid) {
@@ -1349,6 +1602,7 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
       f[5 * L + lane] = s.uz;
       f[6 * L + lane] = s.tau;
       if (GAS) f[7 * L + lane] = s.tgas;
+      if (FK) f[8 * L + lane] = s.gcur;
       iv[0 * L + lane] = s.alive;
       iv[1 * L + lane] = s.orders;
       iv[2 * L + lane] = s.pk;
@@ -1391,7 +1645,7 @@ static HistRoom hist_room(int n_bins) {
 }
 
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL = false,
-          int DCAP = DET_DRAWS_SMALL, bool TAB = false>
+          int DCAP = DET_DRAWS_SMALL, bool TAB = false, bool FK = false>
 static void launch(float* f, int* i, double* acc, const EventParams& p,
                    cudaStream_t stream, const float4* col = nullptr) {
   const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
@@ -1399,38 +1653,42 @@ static void launch(float* f, int* i, double* acc, const EventParams& p,
   const size_t bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
   if constexpr (DET) {
     if (room == HIST_SLICES) {
-      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, true, DCAP, TAB>
+      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, true, DCAP, TAB, FK>
           <<<blocks, CTA_THREADS, CTA_WARPS * bytes, stream>>>(f, i, acc, col, 1, p);
       return;
     }
   }
   const auto kernel =
-      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, false, DCAP, TAB>;
+      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, false, DCAP, TAB, FK>;
   const size_t smem = room == HIST_SHARED ? bytes : 0;
   if (smem + SMEM_STATIC_BYTES > SMEM_DEFAULT_BYTES)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, CTA_THREADS, smem, stream>>>(f, i, acc, col, room == HIST_SHARED, p);
 }
 
-template <int CHAIN, bool DET, bool IW, bool GAS, int DCAP, bool TAB>
+template <int CHAIN, bool DET, bool IW, bool GAS, int DCAP, bool TAB, bool FK = false>
 static void launch_flags(float* f, int* i, double* acc, const EventParams& p,
                          bool absorbing, bool track_y, cudaStream_t stream) {
   if (absorbing) {
-    if (track_y) launch<CHAIN, true, true, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
-    else launch<CHAIN, true, false, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
+    if (track_y)
+      launch<CHAIN, true, true, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
+    else
+      launch<CHAIN, true, false, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
   } else {
-    if (track_y) launch<CHAIN, false, true, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
-    else launch<CHAIN, false, false, DET, IW, GAS, false, DCAP, TAB>(f, i, acc, p, stream);
+    if (track_y)
+      launch<CHAIN, false, true, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
+    else
+      launch<CHAIN, false, false, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
   }
 }
 
 // One block (p.K events, any K >= 1) of the variant the flags name, with the
 // gas channel (GAS = true) or without it, HG or table (TAB): flux at chain
 // depth 0-3, or the detector variant (always chain depth 0, up to
-// MAX_DETECTORS detectors) with or without Iwabuchi.  False for a chain depth
-// or a detector count that is not built; the Python wrapper refuses those
-// first (launch_refusal).
-template <bool GAS, bool TAB>
+// MAX_DETECTORS detectors) with or without Iwabuchi; fused-k (FK, with GAS)
+// at chain depth 0 only.  False for a chain depth or a detector count that
+// is not built; the Python wrapper refuses those first (launch_refusal).
+template <bool GAS, bool TAB, bool FK = false>
 static bool launch_block(float* f, int* i, double* acc, const EventParams& p, int chain,
                          bool absorbing, bool track_y, bool detectors, bool iwabuchi,
                          cudaStream_t stream) {
@@ -1440,20 +1698,25 @@ static bool launch_block(float* f, int* i, double* acc, const EventParams& p, in
     if (chain != 0 || p.det.n < 1 || p.det.n > MAX_DETECTORS || acc == nullptr)
       return false;
     if (!iwabuchi)
-      launch_flags<0, true, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream);
+      launch_flags<0, true, false, GAS, DS, TAB, FK>(f, i, acc, p, absorbing, track_y, stream);
     else if (p.det.n <= DET_DRAWS_SMALL)
-      launch_flags<0, true, true, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream);
+      launch_flags<0, true, true, GAS, DS, TAB, FK>(f, i, acc, p, absorbing, track_y, stream);
     else
-      launch_flags<0, true, true, GAS, MAX_DETECTORS, TAB>(f, i, acc, p, absorbing, track_y,
-                                                           stream);
+      launch_flags<0, true, true, GAS, MAX_DETECTORS, TAB, FK>(f, i, acc, p, absorbing,
+                                                               track_y, stream);
     return true;
   }
-  switch (chain) {
-    case 0: launch_flags<0, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 1: launch_flags<1, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 2: launch_flags<2, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
-    case 3: launch_flags<3, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
-    default: return false;
+  if constexpr (FK) {
+    if (chain != 0) return false;
+    launch_flags<0, false, false, GAS, DS, TAB, FK>(f, i, acc, p, absorbing, track_y, stream);
+  } else {
+    switch (chain) {
+      case 0: launch_flags<0, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
+      case 1: launch_flags<1, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
+      case 2: launch_flags<2, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
+      case 3: launch_flags<3, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
+      default: return false;
+    }
   }
   return true;
 }
@@ -1470,6 +1733,14 @@ bool launch_block_tab(float* f, int* i, double* acc, const EventParams& p, int c
 bool launch_block_tab_gas(float* f, int* i, double* acc, const EventParams& p, int chain,
                           bool absorbing, bool track_y, bool detectors, bool iwabuchi,
                           cudaStream_t stream);
+// The fused-k variants of the gas ones, HG and table, instantiated in
+// fast_event_block_fk.cu and fast_event_block_tab_fk.cu.
+bool launch_block_fk(float* f, int* i, double* acc, const EventParams& p, int chain,
+                     bool absorbing, bool track_y, bool detectors, bool iwabuchi,
+                     cudaStream_t stream);
+bool launch_block_tab_fk(float* f, int* i, double* acc, const EventParams& p, int chain,
+                         bool absorbing, bool track_y, bool detectors, bool iwabuchi,
+                         cudaStream_t stream);
 
 // The column variants (flux, y tracked), HG or table, instantiated in
 // fast_event_block_col.cu.

@@ -18,17 +18,20 @@ algorithms, output, fileNames) plus
       spectralMode       = "auto"   ! auto | fused | baked | traced
     /
 
-On the port "auto" and "baked" run one baked gas-channel integrator per k
-point (a k point changes only the event kernel's parameter block, so there
-is no compile to amortize); "traced", like "auto" on a workload without a
-fastpath plan, swaps each k point's optics into the band integrator's
-general kernel (radiance detectors included: its local estimate); "fused"
-raises NotImplementedError naming ROADMAP item
-13b.  ``--device`` defaults to ``cuda``; a missing
-GPU raises instead of running on the CPU.  The surface is the namelist's
-``surfaceAlbedo``, or a ``SurfaceDescription`` that a caller of
-``run_from_namelist`` passes as ``surface`` (the namelist has no BRDF
-entry; the albedo must then be 0).
+On the port (integrators/spectral.py) "baked" runs one baked gas-channel
+integrator per k point (a k point changes only the event kernel's
+parameter block, so there is no compile to amortize); "fused" runs every k
+point of a band in one trace of the fused-k kernel variant, k a per-lane
+attribute (a band without a gas-channel fastpath plan raises a ValueError
+naming why); "traced" swaps each k point's optics into the band
+integrator's general kernel (radiance detectors included: its local
+estimate); "auto" takes fused where the band can run it and a band batch
+is at most spectral.FUSED_AUTO_MAX_PHOTONS photons, else baked where the
+baked plan is a fastpath plan, else traced.  ``--device`` defaults to
+``cuda``; a missing GPU raises instead of running on the CPU.  The surface
+is the namelist's ``surfaceAlbedo``, or a ``SurfaceDescription`` that a
+caller of ``run_from_namelist`` passes as ``surface`` (the namelist has no
+BRDF entry; the albedo must then be 0).
 """
 
 from __future__ import annotations

@@ -37,10 +37,19 @@ per-column ssa and phase entries every entry of the table, ``column_props``);
 a tabulated plan's detectors read the phase value from the log-space cubic
 fit (``FastPlan.fwd_cubic``).
 
-Plans the JAX package supports but the port does not yet — the marching
-shadow trace and fused-k gas batching — raise NotImplementedError naming
-their ROADMAP item; configurations the JAX planner rejects return None, as
-there.
+Fused-k spectral batching (``GasKTables``, fastpath.py:244-265, :966-1057):
+a gas-channel plan with ``gas_k`` traces every k point of a band in one
+trace, k a per-lane attribute (``fused_k``: lanes in blocks of whole CTAs
+per k point, sized by weight, exact per-k photon quotas, tallies weighted
+w_k n_photons / quota_k; see kernels/event_block.py for the lane
+partition), at chain depth 0 and a lane width of at least CTA_THREADS per k
+point.  Each lane carries Gz(z) of its k profile from its own launch height
+(JAX starts every lane at the Gz of the domain top, fastpath.py:1029-1032,
+:2012, :2107-2108, which an internal source does not share).
+
+The plan the JAX package supports but the port does not yet — the marching
+shadow trace — raises NotImplementedError naming its ROADMAP item;
+configurations the JAX planner rejects return None, as there.
 """
 
 from __future__ import annotations
@@ -62,10 +71,10 @@ from i3rc_tpu_torch.integrators.wavefront import (
 # hg_cosine is re-exported (the JAX package defines it in fastpath), and
 # renormalize for callers that step a state by hand.
 from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
-    ALBEDO, ALIVE, BAD, BRDF_KINDS, DONE, EVCT, ITEM_REACH, MAX_DETECTORS, MAX_SEGMENTS, PK,
-    SUPPORTED_CHAIN, TGAS, UX, UY, UZ, X, Y, Z, DetectorSpec, EventSpec, LaneState,
-    PrologueSpec, SurfaceLaw, block_buffers, flush, fused_block, hg_cosine, launch_refusal,
-    renormalize,
+    ALBEDO, ALIVE, BAD, BRDF_KINDS, CTA_THREADS, DONE, EVCT, GCUR, ITEM_REACH, MAX_DETECTORS,
+    MAX_SEGMENTS, PK, SUPPORTED_CHAIN, TGAS, UX, UY, UZ, X, Y, Z, DetectorSpec, EventSpec,
+    FusedK, LaneState, PrologueSpec, SurfaceLaw, block_buffers, flush, fused_block, gas_read,
+    hg_cosine, launch_refusal, renormalize,
 )
 
 # Lanes per wavefront when the caller gives none (not tuned on the GPU yet).
@@ -78,14 +87,15 @@ DEFAULT_LANES = 1 << 20
 CHECK_EVERY = 8
 
 
-def lane_width(n_photons: int, n_lanes: int | None = None) -> int:
-    """The wavefront width: the caller's, else min(n_photons, DEFAULT_LANES)."""
-    return int(n_lanes or min(n_photons, DEFAULT_LANES))
+def lane_width(n_photons: int, n_lanes: int | None = None, n_k: int = 0) -> int:
+    """The wavefront width: the caller's, else min(n_photons, DEFAULT_LANES);
+    a fused-k trace of n_k points needs a CTA per k point, so below
+    CTA_THREADS * n_k lanes it takes that many."""
+    return max(int(n_lanes or min(n_photons, DEFAULT_LANES)), CTA_THREADS * n_k)
 
 # Features of the JAX fastpath not ported yet, by ROADMAP item number.
 _ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two varying "
                         "horizontal factors): ROADMAP item 10b")
-_ITEM_GAS_K = (13.5, "fused-k gas batching (GasKTables): ROADMAP item 13b")
 _ITEM_REACH = (22, ITEM_REACH)
 
 
@@ -226,6 +236,21 @@ def detect_hg(table) -> float | None:
     return g
 
 
+@dataclass(frozen=True, eq=False)
+class GasKTables:
+    """Fused spectral-k batching (fastpath.py:244-265): every k point of a
+    band in one trace.  ``profiles`` (n_k, n_z) float64 per-layer gas
+    extinction of each k point, ``weights`` (n_k,) its positive quadrature
+    weights."""
+
+    profiles: np.ndarray
+    weights: np.ndarray
+
+    def __eq__(self, other):
+        return (isinstance(other, GasKTables) and np.array_equal(self.profiles, other.profiles)
+                and np.array_equal(self.weights, other.weights))
+
+
 @dataclass(frozen=True)
 class FastPlan:
     """Static (host-side) description of one fastpath trace: the separable
@@ -270,6 +295,9 @@ class FastPlan:
     cubic_entries: int = 1
     fwd_cubic: np.ndarray | None = None
     column_props: bool = False
+    # Fused-k spectral batching (fastpath.py:356-361): attached by the
+    # tracer of an integrator created with gas_k, on a gas-channel plan.
+    gas_k: GasKTables | None = None
 
     def __eq__(self, other):
         if not isinstance(other, FastPlan):
@@ -507,20 +535,19 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
                     column_props=per_col_props)
 
 
-def _chain_depth(config, detectors, gas: bool) -> int:
+def _chain_depth(config, detectors, gas: bool, fused: bool = False) -> int:
     """Collision-chain depth: auto (-1) is 2 for cloud media and 3 with the
     gas channel (fastpath.py:1283-1286).  Detectors need the shadow trace of
-    every collision: no chaining with them."""
+    every collision, and a fused-k plan an endpoint read per move: no
+    chaining with them."""
     chain = int(getattr(config, "fastpath_chain", -1))
-    return 0 if detectors else ((3 if gas else 2) if chain < 0 else chain)
+    return 0 if detectors or fused else ((3 if gas else 2) if chain < 0 else chain)
 
 
 def plan_from_jax(plan) -> FastPlan:
     """The port's plan for a JAX ``FastPlan`` (host numpy already); its BRDF
     kernel maps to the registry name its function carries
     (``cox_munk_brdf`` -> "cox_munk")."""
-    if getattr(plan, "gas_k", None) is not None:
-        raise NotImplementedError(f"fastpath plan needs {_ITEM_GAS_K[1]}")
     if plan.detectors and not plan.closed_shadow:
         raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
     conv = lambda f: StepFactor(tuple(f.thresholds), tuple(f.values))
@@ -542,7 +569,55 @@ def plan_from_jax(plan) -> FastPlan:
                     cubic_entries=int(plan.cubic_entries),
                     fwd_cubic=None if plan.fwd_cubic is None
                     else np.asarray(plan.fwd_cubic, np.float32),
-                    column_props=bool(plan.column_props))
+                    column_props=bool(plan.column_props),
+                    gas_k=None if plan.gas_k is None else GasKTables(
+                        np.asarray(plan.gas_k.profiles, np.float64),
+                        np.asarray(plan.gas_k.weights, np.float64)))
+
+
+def _split(frac: np.ndarray, n: int) -> np.ndarray:
+    """n parts in proportion to ``frac``, each at least 1: JAX's remainder
+    rule (fastpath.py:1004-1009, :1015-1020)."""
+    c = np.maximum(1, np.floor(frac * n).astype(np.int64))
+    for _ in range(int(n - c.sum())):
+        c[np.argmax(frac * n - c)] += 1
+    while c.sum() > n:
+        c[np.argmax(c)] -= 1
+    return c
+
+
+def fused_k(geom, gas_k: GasKTables, n_photons: int, n_lanes: int, exact_layer: bool,
+            device) -> FusedK:
+    """The per-k tables of a fused-k tracer (fastpath.py:994-1049): the
+    (n_k * n_z, 2) [gz, Gz at the layer's base] table, each k's photon
+    quota (JAX's gk_budget, an exact partition of n_photons by weight) and
+    tally weight w_k n_photons / quota_k, Gz(z_max), and the lanes' blocks:
+    JAX's remainder rule in units of whole CTAs (JAX's in lanes), so that a
+    CTA holds one k.  Needs n_photons >= n_k and n_lanes >= CTA_THREADS n_k."""
+    prof = np.asarray(gas_k.profiles, np.float64)
+    w = np.asarray(gas_k.weights, np.float64)
+    n_k, n_z = prof.shape
+    if n_z != geom.n_z or w.shape != (n_k,) or np.any(w <= 0.0):
+        raise ValueError("gas_k: profiles must be (n_k, n_z) with n_k positive weights")
+    if n_photons < n_k:
+        raise ValueError(f"gas_k: {n_photons} photons for {n_k} k points; each needs one")
+    n_ctas = -(-n_lanes // CTA_THREADS)
+    if n_ctas < n_k:
+        raise ValueError(f"gas_k: {n_lanes} lanes for {n_k} k points; each needs a CTA "
+                         f"of {CTA_THREADS}")
+    dz = float(geom.z_max - geom.z0) / n_z
+    cum = np.concatenate([np.zeros((n_k, 1)), np.cumsum(prof * dz, axis=1)], axis=1)
+    frac = w / w.sum()
+    counts = _split(frac, n_ctas)
+    quota = _split(frac, int(n_photons))
+    t = lambda a, dtype: torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+    return FusedK(
+        table=t(np.stack([prof, cum[:, :n_z]], axis=-1).reshape(n_k * n_z, 2), np.float32),
+        weight=t(w * n_photons / quota, np.float32), gtop=t(cum[:, n_z], np.float32),
+        quota=t(quota, np.int64), cta0=t(np.concatenate([[0], np.cumsum(counts)]), np.int32),
+        cta_k=t(np.repeat(np.arange(n_k), counts), np.int32), n_z=n_z, dz=f32(dz),
+        inv_dz=f32(n_z / (geom.z_max - geom.z0)), exact_layer=bool(exact_layer),
+        lanes=int(n_lanes))
 
 
 def state_from_numpy(st, device="cpu") -> LaneState:
@@ -564,10 +639,12 @@ def state_from_numpy(st, device="cpu") -> LaneState:
 # Trace loop
 # ---------------------------------------------------------------------------
 
-def event_spec(geom, plan: FastPlan, config) -> EventSpec:
+def event_spec(geom, plan: FastPlan, config, n_photons: int | None = None,
+               n_lanes: int | None = None) -> EventSpec:
     """Constants of the event block for one plan on one grid; a column plan's
     table and a table plan's cubic fits move to the grid's device here, once
-    per tracer.
+    per tracer, and so do a fused-k plan's tables (``fused_k``: its quotas
+    and lane blocks need the batch's ``n_photons`` and ``n_lanes``).
 
     The column table is (n_cols, 4) float32, one 16-byte row a lane reads
     per event: [v, z_base, z_top, 0]; on a table plan [v, z_base, z_top,
@@ -620,7 +697,7 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         nudge_x=nudge(x0, x_max), nudge_y=nudge(y0, y_max), nudge_z=nudge(z0, z_max),
         g=f32(plan.hg_g), ssa=f32(plan.ssa), max_events=int(config.max_events),
         K=max(1, plan.unroll),
-        chain=_chain_depth(config, plan.detectors, gas is not None),
+        chain=_chain_depth(config, plan.detectors, gas is not None, plan.gas_k is not None),
         track_y=track_y,
         det=shadow_constants(geom, plan, config, track_y) if plan.detectors else None,
         gz=gas, inv_gz=None if gas is None else gas.reciprocal(),
@@ -629,7 +706,10 @@ def event_spec(geom, plan: FastPlan, config) -> EventSpec:
         cubic=torch.as_tensor(np.ascontiguousarray(plan.cubic), device=dev) if table else None,
         n_seg=n_seg, pf_row=pf_row,
         fwd=None if fwd is None else torch.as_tensor(np.ascontiguousarray(fwd), device=dev),
-        fwd_scale=0.0 if fwd is None else f32(fwd.shape[0] / np.pi))
+        fwd_scale=0.0 if fwd is None else f32(fwd.shape[0] / np.pi),
+        fk=None if plan.gas_k is None else fused_k(
+            geom, plan.gas_k, n_photons, n_lanes,
+            bool(getattr(config, "compute_volume_absorption", False)), dev))
     # The twin and the card accept exactly the same plans.
     why = launch_refusal(spec)
     if why:
@@ -659,7 +739,8 @@ def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpe
     z_segs = tuple((f32(lo), f32(hi), f32(float(v) * c_other)) for lo, hi, v in
                    zip((float(z0),) + fz.thresholds, fz.thresholds + (float(z_max),),
                        fz.values) if float(v) * c_other > 0.0)
-    gf = plan.gas_factor
+    # A fused-k plan's shadow rays take each lane's own gas instead.
+    gf = plan.gas_factor if plan.gas_k is None else None
     g_segs = () if gf is None else tuple(
         (f32(lo), f32(hi), f32(v)) for lo, hi, v in
         zip((float(z0),) + gf.thresholds, gf.thresholds + (float(z_max),), gf.values)
@@ -697,20 +778,30 @@ def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpe
 
 
 def launch_state(geom, batch, n_photons: int, gas_key: PhiloxKey | None = None,
-                 weighted: bool = False) -> LaneState:
+                 weighted: bool = False, spec: EventSpec | None = None) -> LaneState:
     """Lane state for a launch batch (positions in [0, 1] scaled to the
     domain); lanes beyond the photon budget start dead.  With ``gas_key``
     (a gas plan) the tgas row takes the launch's gas thresholds, else 0.
-    ``weighted`` (a BRDF plan): every lane's weight starts at 1."""
+    ``weighted`` (a BRDF plan): every lane's weight starts at 1.  With the
+    ``spec`` of a fused-k plan a lane starts alive when its rank in its k
+    block is below its k's quota (fastpath.py:1837-1843), and every lane's
+    GCUR is Gz of its k at its own height."""
     L = batch.n_photons
     dev = batch.x.device
-    f = torch.zeros((8, L), dtype=torch.float32, device=dev)
+    fk = spec.fk if spec is not None else None
+    f = torch.zeros((8 if fk is None else 9, L), dtype=torch.float32, device=dev)
     i = torch.zeros((5, L), dtype=torch.int32, device=dev)
     f[X] = geom.x0 + batch.x * (geom.x_max - geom.x0)
     f[Y] = geom.y0 + batch.y * (geom.y_max - geom.y0)
     f[Z] = geom.z0 + batch.z * (geom.z_max - geom.z0)
     f[UX], f[UY], f[UZ] = make_direction_cosines(batch.mu, batch.phi)
-    i[ALIVE] = (torch.arange(L, device=dev) < n_photons).to(torch.int32)
+    if fk is None:
+        i[ALIVE] = (torch.arange(L, device=dev) < n_photons).to(torch.int32)
+    else:
+        k = fk.lane_k()
+        rank = torch.arange(L, device=dev) - fk.cta0.long()[k] * CTA_THREADS
+        i[ALIVE] = (rank < fk.quota[k]).to(torch.int32)
+        f[GCUR] = gas_read(spec, k * fk.n_z, f[Z])[1]
     if gas_key is not None:
         f[TGAS] = gas_thresholds(gas_key, GAS_LAUNCH_BLOCK, L, dev)
     w = torch.ones(L, dtype=torch.float32, device=dev) if weighted else None
@@ -734,10 +825,12 @@ def prologue_spec(geom, spec: EventSpec, config, n_photons: int) -> PrologueSpec
 def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
                      n_lanes: int | None = None):
     """Build trace(key, batch, source) -> RawTallies for the fast plan; the
-    trace runs on the device of the launch batch's tensors."""
+    trace runs on the device of the launch batch's tensors.  A fused-k plan
+    traces n_photons over all its k points, at ``lane_width(n_photons,
+    n_lanes, n_k)`` lanes."""
     n_z = geom.n_z
-    L = lane_width(n_photons, n_lanes)
-    spec = event_spec(geom, plan, config)
+    L = lane_width(n_photons, n_lanes, 0 if plan.gas_k is None else len(plan.gas_k.weights))
+    spec = event_spec(geom, plan, config, n_photons, L)
     pro = prologue_spec(geom, spec, config, n_photons)
     K = spec.K
     # Global hang guard (counts K-event blocks): ~2x the event budget.
@@ -749,8 +842,9 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
     def trace(key: PhiloxKey, batch, source: PhotonSource) -> RawTallies:
         dev = batch.x.device
         st = launch_state(geom, batch, n_photons, gas_key=key if spec.gas else None,
-                          weighted=spec.weighted)
-        buf = block_buffers(spec, pro, st, min(L, n_photons))
+                          weighted=spec.weighted, spec=spec)
+        buf = block_buffers(spec, pro, st,
+                            spec.fk.launch_counts() if spec.fused else min(L, n_photons))
         # The loop ends at the first block at whose entry no lane is alive
         # and the budget is spent: the block itself records that, and the
         # host reads it every CHECK_EVERY blocks.
@@ -769,7 +863,8 @@ def make_fast_tracer(geom, plan: FastPlan, config, n_photons: int,
             n_bad = n_bad + (i[PK] == 2).sum(dtype=torch.int64)
         if done < 0:
             # The block cap: pending exits still wait for their tally.
-            flush(pro, buf.columns, buf.vol, st)
+            flush(pro, buf.columns, buf.vol, st,
+                  spec.fk.weight[spec.fk.lane_k()] if spec.fused else None)
         n_blocks = done if done >= 0 else kb
         zeros = lambda n: torch.zeros(n, dtype=torch.float64, device=dev)
         # Radiance layout of fastpath.py:2126-2153: (n_cols * D), and per

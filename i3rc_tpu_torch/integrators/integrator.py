@@ -17,7 +17,10 @@ transmittance (with the JAX package's I3RCWarning).  ``batch_tracer``
 dispatches as the JAX package does: the fastpath when it has a plan, else
 the general kernel (``wavefront.make_batch_tracer``; its packed optics,
 inverse-CDF and, with detectors, forward phase tables are built at first
-use).
+use).  ``create(gas_k=(profiles, weights))`` makes a fused-k integrator
+(JAX integrator.py:160-200, :354-375): every k point of a band in one
+trace, on the gas-channel fastpath plan of the domain, or a ValueError
+naming why not.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from i3rc_tpu_torch.utils.errors import I3RCWarning, Status
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.core.rng import PhiloxKey
 from i3rc_tpu_torch.integrators.fastpath import (
+    GasKTables,
     OpticsFlags,
     fast_plan,
     lane_width,
@@ -145,12 +149,20 @@ class Integrator:
     _surface_arg: SurfaceDescription | None = None
     # The super-voxel grid of Woodcock transport (majorant_block_size > 0).
     coarse_geometry: GridGeometry | None = None
+    # Fused-k spectral batching: the (n_k, n_z) profiles and (n_k,) weights.
+    _gas_k: GasKTables | None = None
 
     @staticmethod
     def create(domain: Domain, config: IntegratorConfig | None = None,
                surface_albedo: float = 0.0, surface: SurfaceDescription | None = None,
-               intensity_mus=None, intensity_phis=None, device="cuda") -> "Integrator":
-        """new_Integrator + specifyParameters in one constructor."""
+               intensity_mus=None, intensity_phis=None, device="cuda",
+               gas_k=None) -> "Integrator":
+        """new_Integrator + specifyParameters in one constructor.
+
+        ``gas_k=(profiles, weights)``, profiles (n_k, n_z) >= 0 and weights
+        > 0, makes a fused-k integrator: the domain carries the gas-channel
+        shape (spectral.domain_with_gas_component) and every batch traces
+        all k points at once (fastpath.GasKTables)."""
         dev = resolve_device(device)
         config = (config or IntegratorConfig()).validate()
         s = Status()
@@ -170,6 +182,16 @@ class Integrator:
                       "intensityMus can't be 0 (directly sideways)")
             s.fail_if(bool(np.any((phis < 0.0) | (phis > 360.0))),
                       "intensityPhis must be between 0 and 360")
+        if gas_k is not None:
+            prof_k = np.asarray(gas_k[0], np.float64)
+            w_k = np.atleast_1d(np.asarray(gas_k[1], np.float64))
+            s.fail_if(prof_k.ndim != 2 or prof_k.shape[1] != len(domain.z_edges) - 1,
+                      "gas_k profiles must be (n_k, n_z)")
+            s.fail_if(prof_k.ndim == 2 and prof_k.shape[0] != w_k.size,
+                      "gas_k profiles and weights disagree on n_k")
+            s.fail_if(bool(np.any(w_k <= 0.0)), "gas_k weights must be > 0")
+            s.fail_if(bool(np.any(prof_k < 0.0)), "gas_k profiles must be non-negative")
+            gas_k = GasKTables(prof_k, w_k)
         s.check("Integrator.create")
 
         flat = flatten_optics(domain)
@@ -217,7 +239,8 @@ class Integrator:
             _col_weights=column_weights(domain.x_edges, domain.y_edges),
             _dz=np.diff(np.asarray(domain.z_edges, dtype=np.float64)).astype(np.float32),
             _intensity_mus=mus, _intensity_phis=phis, _surface_arg=surface,
-            coarse_geometry=coarse_geometry(domain, blocks, dev) if blocks else None)
+            coarse_geometry=coarse_geometry(domain, blocks, dev) if blocks else None,
+            _gas_k=gas_k)
 
     @property
     def grid_shape(self):
@@ -231,6 +254,24 @@ class Integrator:
                 self.geometry, self._flat, self.optics, self.surface,
                 self.intensity, self.config)
         return self.__dict__["_fast_plan_cache"]
+
+    def fused_refusal(self) -> str | None:
+        """Why a fused-k integrator cannot trace (JAX integrator.py:362-371),
+        or None: it needs a gas-channel fastpath plan (a separable cloud and
+        a horizontally uniform pure absorber; with detectors the closed-form
+        shadow trace)."""
+        plan = self._fast_plan
+        if plan is None or plan.gas_factor is None:
+            return ("gas_k spectral batching requires a gas-channel fastpath plan "
+                    "(separable cloud + horizontally uniform pure-absorber component; "
+                    "radiance detectors additionally need closed-shadow eligibility: at "
+                    "most one varying horizontal factor and |mu_d| > 1e-6)")
+        return None
+
+    @property
+    def n_k(self) -> int:
+        """The k points one batch traces: those of gas_k, else 0."""
+        return 0 if self._gas_k is None else len(self._gas_k.weights)
 
     def _cached(self, name: str, build):
         if name not in self.__dict__:
@@ -280,8 +321,16 @@ class Integrator:
         """The raw (key, PhotonBatch, source[, optics_override]) -> RawTallies
         function: the fastpath when it has a plan, else the general kernel
         (JAX integrator.py:334-390); an optics override (the spectral loop's
-        traced mode) always takes the general kernel."""
+        traced mode) always takes the general kernel.  A fused-k
+        integrator traces every k point on its gas-channel plan with
+        ``gas_k`` attached, or raises ValueError (``fused_refusal``; an
+        optics override too: the k profiles are its optics)."""
         plan = self._fast_plan
+        if self._gas_k is not None:
+            why = self.fused_refusal()
+            if why:
+                raise ValueError(why)
+            plan = replace(plan, gas_k=self._gas_k)
         if plan is None:
             return self.general_tracer(n_photons, n_lanes)
         fast = make_fast_tracer(self.geometry, plan, self.config, n_photons, n_lanes)
@@ -290,6 +339,9 @@ class Integrator:
         def trace(key, batch, source, optics_override=None):
             if optics_override is None:
                 return fast(key, batch, source)
+            if self._gas_k is not None:
+                raise ValueError("gas_k batching traces every k profile; an optics "
+                                 "override does not apply")
             if not general:
                 general.append(self.general_tracer(n_photons, n_lanes))
             return general[0](key, batch, source, optics_override)
@@ -303,7 +355,7 @@ class Integrator:
         shape (``device_optics_from_flat``) through the general kernel: the
         spectral loop's traced mode."""
         cache = self.__dict__.setdefault("_batch_fn_cache", {})
-        lanes = lane_width(n_photons, n_lanes)
+        lanes = lane_width(n_photons, n_lanes, self.n_k)
         cache_key = (source, int(n_photons), lanes)
         if cache_key not in cache:
             tracer = self.batch_tracer(n_photons, lanes)

@@ -27,6 +27,21 @@ inverse CDF, its detectors read the phase value from the log-space cubic
 ``fwd``, and in column media each lane reads its ssa and table entry from
 its column; the table modes of the XLA fastpath, fastpath.py:1573-1586,
 :1508-1520, :1330-1336), counted in the ``table_*`` launch counters.
+The gas variants, HG and table, also come as a fused-k variant
+(``EventSpec.fk``, ``FusedK``: every k point of a spectral band in one
+trace, k a per-lane attribute; the XLA fastpath's ``gask_mode``,
+fastpath.py:966-1057, :1409-1470, which never reached Pallas), counted in
+the ``fused_k_*`` and ``table_fused_k_*`` launch counters.
+
+Fused-k lanes fall into contiguous blocks of whole CTAs, one block per k
+point, sized by quadrature weight; each k point has its exact photon quota
+(JAX's ``gk_budget``) and a lane tallies with its k's weight w_k n_photons /
+quota_k.  The FIFO refill ranks a dead lane within its k block.  JAX
+partitions lanes one by one (a block needs one lane, not one CTA): the
+lane blocks only schedule photons, so the quotas and weights, and with
+them the expectation, are JAX's, but the draws differ, and port and
+reference agree statistically (as JAX's own fused-vs-baked test says,
+tests/test_spectral.py:133-137).
 
 The twin applies exactly the kernel's draw layout: event ``j`` of the block
 reads ``uniforms[j, i]`` for its draw ``i`` (``rng.philox_uniforms``).
@@ -74,11 +89,14 @@ CTA_THREADS = 256                  # lanes per CTA of the kernel (BlockBuffers.d
 ITEM_REACH = ("more than 16 radiance detectors, or a collision-chain depth above 3, in "
               "the event block: ROADMAP item 22")
 # Entries of BlockBuffers.ctl: launched has one slot for even and one for odd kb.
-LAUNCHED, DONE, SPENT = 0, 2, 3
+# A fused-k trace keeps launched per k point after these, k's slot for
+# parity p at LAUNCHED_K + 2 k + p (ctl[LAUNCHED_K + p::2]).
+LAUNCHED, DONE, SPENT, LAUNCHED_K = 0, 2, 3, 4
 
-# Rows of LaneState.f and LaneState.i.
-X, Y, Z, UX, UY, UZ, TAU, TGAS = range(8)
+# Rows of LaneState.f (GCUR on fused-k plans only) and LaneState.i.
+X, Y, Z, UX, UY, UZ, TAU, TGAS, GCUR = range(9)
 ALIVE, ORDERS, PK, BAD, EVCT = range(5)
+EPS6 = f32(1e-6)
 
 
 @dataclass
@@ -87,12 +105,14 @@ class LaneState:
 
     ``f`` is (8, L) float32: x, y, z, ux, uy, uz, tau (remaining optical
     depth; 0 = draw a fresh free path), tgas (remaining gas optical depth
-    before a gas absorption).  ``i`` is (5, L) int32: alive, orders, pk
-    (pending exit kind: 1 top, 2 bottom, 3 absorbed), bad, evct.  The y and
-    tgas rows are always present; plans that do not track y, or have no gas
-    channel, leave them untouched.  ``w`` is the (L,) float32 lane weight of
-    a BRDF surface (fastpath.py:908-917: 1 at launch and refill, times
-    max(R, 1) at each bounce), None on every other plan.
+    before a gas absorption); on a fused-k plan (9, L), row ``GCUR`` the
+    cumulative gas optical depth Gz(z) of the lane's k profile at its
+    position (fastpath.py:1296-1299).  ``i`` is (5, L) int32: alive, orders,
+    pk (pending exit kind: 1 top, 2 bottom, 3 absorbed), bad, evct.  The y
+    and tgas rows are always present; plans that do not track y, or have no
+    gas channel, leave them untouched.  ``w`` is the (L,) float32 lane
+    weight of a BRDF surface (fastpath.py:908-917: 1 at launch and refill,
+    times max(R, 1) at each bounce), None on every other plan.
     """
 
     f: torch.Tensor
@@ -203,6 +223,74 @@ def brdf_function(law: SurfaceLaw):
 
 
 @dataclass(frozen=True)
+class FusedK:
+    """Fused-k spectral batching (fastpath.GasKTables; JAX fastpath.py:
+    966-1057): the per-k tables of one tracer, on the grid's device
+    (``fastpath.fused_k`` builds them).
+
+    ``table`` is the (n_k * n_z, 2) float32 [gz, Gz at the layer's base] of
+    each k profile, row k * n_z + layer (the row offset of k is k * n_z).
+    Per k: ``weight`` the float32 tally weight w_k n_photons / quota_k,
+    ``gtop`` the float32 Gz(z_max), ``quota`` the int64 photon quota.  The
+    lanes fall into blocks of whole CTAs (``CTA_THREADS`` lanes): block k
+    is CTAs [cta0[k], cta0[k + 1]) (int32 (n_k + 1,)), and ``cta_k`` (int32
+    (n_ctas,)) names each CTA's k; the last block ends at ``lanes``.
+    ``dz`` and ``inv_dz`` are the gas layers' float32 height and its
+    inverse over ``n_z`` layers from z0.  ``exact_layer`` (the volume tally
+    on): a gas death inverts the lane's cumulative row for its exact layer
+    (fastpath.py:1432-1460); off, it dies at the constant-gz fraction of
+    its step."""
+
+    table: torch.Tensor
+    weight: torch.Tensor
+    gtop: torch.Tensor
+    quota: torch.Tensor
+    cta0: torch.Tensor
+    cta_k: torch.Tensor
+    n_z: int
+    dz: float
+    inv_dz: float
+    exact_layer: bool
+    lanes: int
+
+    @property
+    def n_k(self) -> int:
+        return self.weight.shape[0]
+
+    def lane_k(self) -> torch.Tensor:
+        """(lanes,) int64: the k point of each lane."""
+        return self.cta_k.long().repeat_interleave(CTA_THREADS)[:self.lanes]
+
+    def block_lanes(self) -> list:
+        """[(first lane, end lane)] of each k block."""
+        c = [min(int(v) * CTA_THREADS, self.lanes) for v in self.cta0.tolist()]
+        return list(zip(c[:-1], c[1:]))
+
+    def launch_counts(self) -> list:
+        """Photons each k point launches with its block at the start:
+        min(its lanes, its quota)."""
+        return [min(e - s, q) for (s, e), q in zip(self.block_lanes(), self.quota.tolist())]
+
+
+def gas_read(spec: "EventSpec", k_row, z):
+    """(gz, Gz(z)) of each lane's k profile (rows from ``k_row`` = k * n_z)
+    at z clipped to the domain: the endpoint read of fastpath.py:1415-1422,
+    Gz linear within the layer."""
+    fk = spec.fk
+    zc = torch.clamp(z, spec.z0, spec.z_max)
+    lay = torch.clamp(((zc - spec.z0) * fk.inv_dz).to(torch.int32), 0, fk.n_z - 1)
+    row = fk.table[(k_row + lay).long()]
+    return row[:, 0], row[:, 1] + (zc - (spec.z0 + lay.to(torch.float32) * fk.dz)) * row[:, 0]
+
+
+def lane_constants(spec: "EventSpec") -> dict:
+    """A fused-k plan's per-lane constants of the twin: the row offset of
+    the lane's k (int64), its tally weight and Gz(z_max) (float32)."""
+    k = spec.fk.lane_k()
+    return {"k_row": k * spec.fk.n_z, "kw": spec.fk.weight[k], "gtop": spec.fk.gtop[k]}
+
+
+@dataclass(frozen=True)
 class EventSpec:
     """Everything the event block needs besides the state and the draws.
 
@@ -227,6 +315,11 @@ class EventSpec:
     (n_cols,) ``pf_row``.  ``fwd`` is the (n_fwd, 4) float32 log-space
     cubic of the phase value that a table plan's detectors read at the
     photon-to-detector angle, ``fwd_scale`` = f32(n_fwd / pi).
+
+    ``fk`` (a gas plan only, chain depth 0) runs the fused-k variant: no
+    step stops at a gas face; the gas depth of a step comes from the lane's
+    carried Gz and one endpoint read of its k table (``FusedK``).  ``gz``
+    still holds the k = 0 chain, which it does not read.
     """
 
     fx: object
@@ -268,6 +361,12 @@ class EventSpec:
     pf_row: torch.Tensor | None = None
     fwd: torch.Tensor | None = None
     fwd_scale: float = 0.0
+    fk: FusedK | None = None
+
+    @property
+    def fused(self) -> bool:
+        """A fused-k plan: k is a per-lane attribute."""
+        return self.fk is not None
 
     @property
     def table(self) -> bool:
@@ -428,13 +527,17 @@ def _iwabuchi(det: DetectorSpec, norm_pf, tau, u_iw):
     return torch.where(pf_pi <= det.zeta, c_small, c_large)
 
 
-def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records, w=None) -> None:
+def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records, w=None,
+                    lane=None) -> None:
     """Local-estimate radiance of every collision (fastpath.py:1501-1571):
     P(photon -> detector) / (4 pi |mu_d|) x exp(-tau to the boundary) at the
     shadow ray's exit column, with Iwabuchi roulette when asked for, times
     the lane weight ``w`` of a BRDF surface (fastpath.py:1553-1556).
     ``pos`` is the collision point, ``dirs`` the direction before
-    scattering."""
+    scattering.  On a fused-k plan ``lane`` holds the lanes' ``gcur`` and
+    ``lane_constants``: the shadow ray adds the lane's own gas, max((Gz at
+    the exit - gcur) / dz_d, 0), and the contribution takes its k's weight
+    (fastpath.py:1526-1531, :1557-1562)."""
     det = spec.det
     x, y, z = pos
     ux, uy, uz = dirs
@@ -443,6 +546,9 @@ def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records, w=Non
         pf = forward_phase(spec, proj) if spec.fwd is not None else hg_phase(spec.g, proj)
         norm_pf = pf * det.norm[d]
         tau, col = shadow_closed(spec, d, x, y, z)
+        if lane is not None:
+            g_exit = lane["gtop"] if dz > 0.0 else torch.zeros_like(tau)
+            tau = tau + torch.clamp((g_exit - lane["gcur"]) * det.inv_dz[d], min=0.0)
         if det.iwabuchi:
             contrib = torch.where(collided, _iwabuchi(det, norm_pf, tau,
                                                       u[spec.bonus_draws + d]), 0.0)
@@ -450,6 +556,8 @@ def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records, w=Non
             contrib = torch.where(collided, norm_pf * torch.exp(-tau), 0.0)
         if w is not None:
             contrib = contrib * w
+        if lane is not None:
+            contrib = contrib * lane["kw"]
         if acc is not None:
             acc.view(-1).index_add_(0, col * det.n + d, contrib.to(torch.float64))
         if records is not None:
@@ -461,6 +569,24 @@ def _wrap(v, lo: float, hi: float, w: float):
     return torch.where(v >= hi, v - w, torch.where(v < lo, v + w, v))
 
 
+def _death_fraction(spec: EventSpec, k_row, g_t, z, denom):
+    """A fused-k gas death's exact fraction of its step (fastpath.py:
+    1432-1460): the layer ld whose base Gz the lane's cumulative row
+    reaches at the death target g_t = gcur + tgas uz (the count of bases
+    <= g_t, less one, clipped), the height where Gz = g_t inside it
+    (linear; the layer's middle where gz is 0), and that height's share of
+    the step's rise ``denom`` = uz * step, clipped to [0, 1]."""
+    fk = spec.fk
+    n_z = fk.n_z
+    rows = fk.table[(k_row[:, None] + torch.arange(n_z, device=k_row.device)).long(), 1]
+    ld = torch.clamp((rows <= g_t[:, None]).sum(dim=1, dtype=torch.int32) - 1, 0, n_z - 1)
+    row = fk.table[(k_row + ld).long()]
+    gz_ld = row[:, 0]
+    z_d = (spec.z0 + ld.to(torch.float32) * fk.dz) + torch.where(
+        gz_ld > 0.0, (g_t - row[:, 1]) / torch.clamp(gz_ld, min=TINY), f32(0.5 * fk.dz))
+    return torch.clamp((z_d - z) / torch.where(denom.abs() > 0.0, denom, 1.0), 0.0, 1.0)
+
+
 def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     """One fast_event (fastpath.py:1291-1676 with MARCH = 1) on the lane
     tensors in ``s``; u is the (n_draws, L) draw block of the event.
@@ -469,11 +595,19 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     With a gas channel the lanes also carry ``s["tgas"]``.  A table plan
     samples the cosine from the cubic inverse CDF, on a column plan at the
     row of the lane's table entry with the lane's ssa in the absorption
-    tests (both read from the column of the event's start)."""
+    tests (both read from the column of the event's start).  A fused-k plan
+    (fastpath.py:1409-1470) stops at no gas face: the step's gas depth is
+    (Gz(z_end) - gcur) / uz from one endpoint read of the lane's k table
+    (gz * step when |uz| < 1e-6), a lane whose depth reaches tgas dies in
+    the step at the constant-gz fraction or, with ``exact_layer``, at the
+    layer where its cumulative row reaches gcur + tgas uz, and the
+    survivors carry gcur = Gz(z_end); ``s`` then also holds ``gcur`` and
+    ``lane_constants``."""
     x, y, z = s["x"], s["y"], s["z"]
     ux, uy, uz = s["ux"], s["uy"], s["uz"]
     alive, pk = s["alive"], s["pk"]
-    ty, gas = spec.track_y, spec.gas
+    ty, fk = spec.track_y, spec.fk
+    gas = spec.gas and fk is None      # the gas chain with its faces
     tau = torch.where(s["tau"] > 0.0, s["tau"], exponential_deviate(u[0]))
 
     up_x, up_z = ux >= 0.0, uz >= 0.0
@@ -545,17 +679,43 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
     nxp = torch.where(cross & (sx <= s_bnd), face_x + sign_x, x + ux * adv)
     nzp = torch.where(cross & (sz <= s_bnd), face_z + sign_z, z + uz * adv)
     nxp = _wrap(nxp, spec.x0, spec.x_max, spec.wx)
+    if ty:
+        nyp = torch.where(cross & (sy <= s_bnd), face_y + sign_y, y + uy * adv)
+        nyp = _wrap(nyp, spec.y0, spec.y_max, spec.wy)
+    if fk is not None:
+        tgas, gcur = s["tgas"], s["gcur"]
+        g2, g_next = gas_read(spec, s["k_row"], nzp)
+        steep = uz.abs() >= EPS6
+        dgas = torch.clamp(torch.where(steep, (g_next - gcur) / uz, g2 * adv), min=0.0)
+        gas_die = alive & (dgas >= tgas)
+        fdie = torch.clamp(tgas / torch.clamp(dgas, min=TINY), 0.0, 1.0)
+        if fk.exact_layer:
+            fdie = torch.where(steep, _death_fraction(spec, s["k_row"], gcur + tgas * uz, z,
+                                                      uz * adv), fdie)
+        xd = _wrap(x + ux * adv * fdie, spec.x0, spec.x_max, spec.wx)
+        zd = z + uz * adv * fdie
+        collide = collide & ~gas_die
+        cross = cross & ~gas_die
+        surv = alive & ~gas_die
+        s["tgas"] = torch.where(surv, tgas - dgas, tgas)
+        s["gcur"] = torch.where(surv, g_next, gcur)
     exit_top = cross & (nzp >= spec.z_max)
     exit_bot = cross & ~exit_top & (nzp <= spec.z0)
     pk = torch.where(exit_top, 1, torch.where(exit_bot, 2, pk))
-    if gas:
+    if gas or fk is not None:
         pk = torch.where(gas_die, 3, pk)
     tau = torch.where(cross, tau - s_bnd * ext, torch.where(collide, 0.0, tau))
-    x = torch.where(alive, nxp, x)
-    z = torch.where(alive, nzp, z)
-    if ty:
-        nyp = torch.where(cross & (sy <= s_bnd), face_y + sign_y, y + uy * adv)
-        y = torch.where(alive, _wrap(nyp, spec.y0, spec.y_max, spec.wy), y)
+    if fk is not None:
+        x = torch.where(gas_die, xd, torch.where(alive, nxp, x))
+        z = torch.where(gas_die, zd, torch.where(alive, nzp, z))
+        if ty:
+            yd = _wrap(y + uy * adv * fdie, spec.y0, spec.y_max, spec.wy)
+            y = torch.where(gas_die, yd, torch.where(alive, nyp, y))
+    else:
+        x = torch.where(alive, nxp, x)
+        z = torch.where(alive, nzp, z)
+        if ty:
+            y = torch.where(alive, nyp, y)
 
     # The ssa of the absorption tests and the cosine's sampler.
     ssa, pf_row = f32(spec.ssa), None
@@ -571,7 +731,8 @@ def _fast_event(spec: EventSpec, u, s: dict, acc=None, records=None) -> None:
         pk = torch.where(die, 3, pk)
         collided = collided & ~die
     if spec.det is not None:
-        _detector_block(spec, u, (x, y, z), (ux, uy, uz), collided, acc, records, s.get("w"))
+        _detector_block(spec, u, (x, y, z), (ux, uy, uz), collided, acc, records, s.get("w"),
+                        s if fk is not None else None)
     nux, nuy, nuz = rotate_direction(ux, uy, uz, sample_mu(u[1]), u[2], renormalize=False)
     ux = torch.where(collided, nux, ux)
     uy = torch.where(collided, nuy, uy)
@@ -660,16 +821,20 @@ def event_block_reference(spec: EventSpec, state: LaneState, uniforms, acc=None,
     ``state`` in place; with detectors, adds their contributions to ``acc``
     ((n_cols, D) float64) and appends each event's per-detector
     (contribution, column) pairs to the list ``records`` when given.  The
-    lane weight ``state.w`` (a BRDF surface) scales the contributions.
+    lane weight ``state.w`` (a BRDF surface) scales the contributions.  A
+    fused-k plan's lanes carry the GCUR row.
     """
     f, i = state.f, state.i
     s = {"x": f[X], "y": f[Y], "z": f[Z], "ux": f[UX], "uy": f[UY], "uz": f[UZ],
          "tau": f[TAU], "tgas": f[TGAS], "alive": i[ALIVE] != 0, "orders": i[ORDERS],
          "pk": i[PK], "bad": i[BAD], "evct": i[EVCT], "w": state.w}
+    rows = ["x", "y", "z", "ux", "uy", "uz", "tau", "tgas"]
+    if spec.fused:
+        s.update(lane_constants(spec), gcur=f[GCUR])
+        rows.append("gcur")
     for j in range(spec.K):
         _fast_event(spec, uniforms[j], s, acc, records)
-    state.f.copy_(torch.stack([s[k] for k in ("x", "y", "z", "ux", "uy", "uz", "tau",
-                                              "tgas")]))
+    state.f.copy_(torch.stack([s[k] for k in rows]))
     state.i.copy_(torch.stack([s["alive"].to(torch.int32), s["orders"], s["pk"],
                                s["bad"], s["evct"]]))
 
@@ -748,9 +913,12 @@ class BlockBuffers:
     launched so far as block ``kb`` reads it at ``kb & 1`` and leaves it for
     the next at ``(kb + 1) & 1``; ``DONE``, the first ``kb`` at whose entry no
     lane was alive and the budget was spent (-1 until then: the trace loop's
-    end); ``SPENT``, the first at whose entry the budget was spent.  ``dead``
-    is int32 (2, n_ctas): dead lanes per ``CTA_THREADS`` lanes at the entry
-    of block ``kb`` in row ``kb & 1``, which the kernel's FIFO rank reads."""
+    end); ``SPENT``, the first at whose entry the budget was spent.  A
+    fused-k trace has (4 + 2 n_k,): its launched slots stay 0, and k's count
+    is at ``LAUNCHED_K + 2 k + (kb & 1)``; its budget is spent when every k
+    has launched its quota (fastpath.py:2084).  ``dead`` is int32 (2,
+    n_ctas): dead lanes per ``CTA_THREADS`` lanes at the entry of block
+    ``kb`` in row ``kb & 1``, which the kernel's FIFO rank reads."""
 
     columns: torch.Tensor
     vol: torch.Tensor
@@ -774,14 +942,19 @@ def cta_dead_counts(alive) -> torch.Tensor:
     return dead.view(n_ctas, CTA_THREADS).sum(dim=1, dtype=torch.int32)
 
 
-def block_buffers(spec: EventSpec, pro: PrologueSpec, state: LaneState, launched: int,
+def block_buffers(spec: EventSpec, pro: PrologueSpec, state: LaneState, launched,
                   kb: int = 0) -> BlockBuffers:
     """Zeroed tallies and the loop's control state for a trace that enters
-    block ``kb`` on ``state`` with ``launched`` photons launched."""
+    block ``kb`` on ``state`` with ``launched`` photons launched (on a
+    fused-k plan, the n_k counts of its k points)."""
     dev = state.f.device
     f64 = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
-    ctl = torch.tensor([0, 0, -1, -1], dtype=torch.int64, device=dev)
-    ctl[kb & 1] = launched
+    n_k = spec.fk.n_k if spec.fused else 0
+    ctl = torch.tensor([0, 0, -1, -1] + [0] * (2 * n_k), dtype=torch.int64, device=dev)
+    if spec.fused:
+        ctl[LAUNCHED_K + (kb & 1)::2] = torch.as_tensor(launched, dtype=torch.int64)
+    else:
+        ctl[kb & 1] = launched
     dead = torch.zeros((2, -(-state.n_lanes // CTA_THREADS)), dtype=torch.int32, device=dev)
     dead[kb & 1] = cta_dead_counts(state.i[ALIVE])
     radiance = spec.det is not None
@@ -810,14 +983,17 @@ def flux_column(pro: PrologueSpec, x, y):
     return col
 
 
-def flush(pro: PrologueSpec, columns, vol, st: LaneState) -> None:
+def flush(pro: PrologueSpec, columns, vol, st: LaneState, kw=None) -> None:
     """Tally pending exits at their frozen positions, each with its lane
-    weight on a BRDF surface (fastpath.py:1748-1749, :1758-1759), then
-    clear pk."""
+    weight on a BRDF surface (fastpath.py:1748-1749, :1758-1759) times, on
+    a fused-k plan, its k's weight ``kw`` (float32 per lane, :1750-1760),
+    then clear pk."""
     x, z = st.f[X], st.f[Z]
     pk = st.i[PK]
     col = flux_column(pro, x, st.f[Y])
     w = None if st.w is None else st.w.to(torch.float64)
+    if kw is not None:
+        w = kw.to(torch.float64) if w is None else w * kw.to(torch.float64)
     kinds = [pk == 1, pk == 2] + ([pk == 3] if pro.deaths else [])
     vals = torch.stack(kinds, dim=1).to(torch.float64)
     columns.index_add_(0, col, vals if w is None else vals * w[:, None])
@@ -832,11 +1008,20 @@ def refill(spec: EventSpec, pro: PrologueSpec, st: LaneState, launched, key: Phi
            source: PhotonSource, kb: int):
     """Dead lanes take the next photons of the budget, in lane order;
     returns the new count of photons launched."""
-    L = st.n_lanes
     dead = st.i[ALIVE] == 0
     dead_i = dead.to(torch.int64)
     new_id = launched + torch.cumsum(dead_i, 0) - dead_i
     take = dead & (new_id < pro.n_photons)
+    _take_fresh(spec, pro, st, take, key, source, kb)
+    return launched + take.sum()
+
+
+def _take_fresh(spec: EventSpec, pro: PrologueSpec, st: LaneState, take, key: PhiloxKey,
+                source: PhotonSource, kb: int) -> None:
+    """The lanes ``take`` start a fresh photon: the source sample of block kb
+    (STREAM_REFILL), tau 0, orders 0, alive, and with the gas channel a
+    fresh threshold (STREAM_GAS)."""
+    L = st.n_lanes
     fresh = source.sample(key, L, st.f.device, stream=STREAM_REFILL, block=kb)
     f, i = st.f, st.i
     f[X] = torch.where(take, pro.x0 + fresh.x * (pro.x_max - pro.x0), f[X])
@@ -849,7 +1034,27 @@ def refill(spec: EventSpec, pro: PrologueSpec, st: LaneState, launched, key: Phi
         f[TGAS] = torch.where(take, gas_thresholds(key, kb, L, f.device), f[TGAS])
     i[ORDERS] = torch.where(take, 0, i[ORDERS])
     i[ALIVE] = i[ALIVE] | take.to(torch.int32)
-    return launched + take.sum()
+
+
+def refill_fused(spec: EventSpec, pro: PrologueSpec, st: LaneState, launched,
+                 key: PhiloxKey, source: PhotonSource, kb: int):
+    """A fused-k plan's refill (fastpath.py:1984-2017): a dead lane ranks
+    among the dead lanes of its own k block, in lane order, and takes a
+    photon while its k's quota lasts; a fresh lane starts with gcur = Gz at
+    its own height (not JAX's Gz at the domain top, :2012, which is wrong
+    for an internal source).  ``launched`` is the (n_k,) int64 count per k;
+    returns the new counts."""
+    fk = spec.fk
+    lane_k = fk.lane_k()
+    dead = st.i[ALIVE] == 0
+    dead_i = dead.to(torch.int64)
+    below = torch.cumsum(dead_i, 0) - dead_i
+    first = (fk.cta0.long() * CTA_THREADS)[lane_k]
+    rank = below - below[first]
+    take = dead & (launched[lane_k] + rank < fk.quota[lane_k])
+    _take_fresh(spec, pro, st, take, key, source, kb)
+    st.f[GCUR] = torch.where(take, gas_read(spec, lane_k * fk.n_z, st.f[Z])[1], st.f[GCUR])
+    return launched + torch.bincount(lane_k[take], minlength=fk.n_k)
 
 
 def surface_uniforms(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int, device):
@@ -879,14 +1084,18 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
     revived lane takes the cosine-weighted direction (max(sqrt(u1), 1e-6),
     azimuth 2 pi u2), z0 + nudge_z, orders + 1, its weight times max(R, 1),
     and is alive; it keeps its tau.  A lane that exited and stays dead gets
-    weight 1 for its refill."""
+    weight 1 for its refill.  On a fused-k plan every tally takes the
+    lane's k weight, the surface's shadow rays add the whole gas column of
+    the lane's k, Gz(z_max) / dz_d, and a revived lane restarts at gcur = 0
+    (fastpath.py:1931-1934, :1964-1965, :1979-1983)."""
     law, det = spec.surface, spec.det
     f, i = st.f, st.i
     x, y, ux, uy, uz = f[X], f[Y], f[UX], f[UY], f[UZ]
     exited = i[PK] != 0
     hit = i[PK] == 2
     w = st.w
-    flush(pro, buf.columns, buf.vol, st)
+    lane = lane_constants(spec) if spec.fused else None
+    flush(pro, buf.columns, buf.vol, st, None if lane is None else lane["kw"])
     mu_r = torch.clamp(torch.sqrt(u[1]), min=f32(1e-6))
     sin_r = torch.sqrt(torch.clamp(1.0 - u[1], min=0.0))
     z_surf = f32(np.float32(spec.z0) + np.float32(spec.nudge_z))
@@ -904,6 +1113,8 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
             if dz <= 0.0:
                 continue            # a surface emits upward only
             tau, col = shadow_closed(spec, d, x, y, zs)
+            if lane is not None:
+                tau = tau + lane["gtop"] * det.inv_dz[d]
             if law.brdf:
                 npf = torch.clamp(brdf(law.params, uz, torch.full_like(uz, dz), phi_in,
                                        torch.full_like(uz, law.det_phi[d])), min=0.0) * INV_PI
@@ -916,6 +1127,8 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
             contrib = torch.where(emit, contrib, 0.0)
             if w is not None:
                 contrib = contrib * w
+            if lane is not None:
+                contrib = contrib * lane["kw"]
             buf.srf.view(-1).index_add_(0, col * det.n + d, contrib.to(torch.float64))
     if w is not None:
         w.copy_(torch.where(revive, w * torch.clamp(refl, min=1.0),
@@ -927,6 +1140,8 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
     f[Z] = torch.where(revive, z_surf, f[Z])
     i[ORDERS] = torch.where(revive, i[ORDERS] + 1, i[ORDERS])
     i[ALIVE] = i[ALIVE] | revive.to(torch.int32)
+    if spec.fused:
+        f[GCUR] = torch.where(revive, 0.0, f[GCUR])
 
 
 def fused_block_reference(spec: EventSpec, pro: PrologueSpec, state: LaneState,
@@ -939,18 +1154,25 @@ def fused_block_reference(spec: EventSpec, pro: PrologueSpec, state: LaneState,
     stage (``resolve_surface``: the block's exits and the bounce of its
     bottom hits, before the next block's dead counts are taken, so that its
     FIFO rank sees a revived lane alive), all in place on ``state`` and
-    ``buf``."""
+    ``buf``.  A fused-k plan flushes with each lane's k weight and refills
+    per k (``refill_fused``), its budget spent when every k's is."""
     ctl = buf.ctl
-    launched = ctl[kb & 1].clone()
-    spent = launched >= pro.n_photons
+    fused = spec.fused
+    launched = (ctl[LAUNCHED_K + (kb & 1)::2] if fused else ctl[kb & 1]).clone()
+    spent = (launched >= spec.fk.quota).all() if fused else launched >= pro.n_photons
     none_alive = ~state.i[ALIVE].any()
     ctl[SPENT] = torch.where(spent & (ctl[SPENT] < 0), kb, ctl[SPENT])
     ctl[DONE] = torch.where(spent & none_alive & (ctl[DONE] < 0), kb, ctl[DONE])
     renormalize(state)
-    flush(pro, buf.columns, buf.vol, state)
-    if pro.n_photons > state.n_lanes:
-        launched = refill(spec, pro, state, launched, key, source, kb)
-    ctl[(kb + 1) & 1] = launched
+    if fused:
+        flush(pro, buf.columns, buf.vol, state, lane_constants(spec)["kw"])
+        ctl[LAUNCHED_K + ((kb + 1) & 1)::2] = refill_fused(spec, pro, state, launched, key,
+                                                           source, kb)
+    else:
+        flush(pro, buf.columns, buf.vol, state)
+        if pro.n_photons > state.n_lanes:
+            launched = refill(spec, pro, state, launched, key, source, kb)
+        ctl[(kb + 1) & 1] = launched
     u = philox_uniforms(key, kb, spec.K, spec.n_draws, state.n_lanes, state.f.device)
     event_block_reference(spec, state, u, buf.acc)
     if spec.reflecting:
@@ -1033,6 +1255,12 @@ class _SurfaceParams(ctypes.Structure):
                 ("w", ctypes.c_void_p), ("acc", ctypes.c_void_p)]
 
 
+class _FusedK(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in ("tab", "w", "gtop", "quota", "cta0", "cta_k")] + [
+        ("n_k", ctypes.c_int), ("n_z", ctypes.c_int), ("dz", ctypes.c_float),
+        ("inv_dz", ctypes.c_float), ("exact_layer", ctypes.c_int)]
+
+
 class _EventParams(ctypes.Structure):
     _fields_ = [("fx", _StepChain), ("fy", _StepChain), ("fz", _StepChain)] + [
         (n, ctypes.c_float) for n in ("x0", "y0", "z0", "x_max", "y_max", "z_max",
@@ -1046,7 +1274,8 @@ class _EventParams(ctypes.Structure):
         (n, ctypes.c_float) for n in ("inv_dx", "inv_dy", "dx", "dy")] + [
         ("pro", _Prologue), ("srf", _SurfaceParams)] + [
         (n, ctypes.c_void_p) for n in ("cubic", "fwd", "pf_row")] + [
-        ("n_seg", ctypes.c_int), ("n_fwd", ctypes.c_int), ("fwd_scale", ctypes.c_float)]
+        ("n_seg", ctypes.c_int), ("n_fwd", ctypes.c_int), ("fwd_scale", ctypes.c_float),
+        ("fk", _FusedK)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -1083,8 +1312,8 @@ def _det_params(det: DetectorSpec) -> _DetParams:
 @functools.lru_cache(maxsize=None)
 def build():
     """Compile (or reuse) the kernel library and declare its C interface: the
-    event block in its five sources and the column-read probe
-    (``kernels/column_probe.py``), six ``nvcc`` processes in parallel."""
+    event block in its seven sources and the column-read probe
+    (``kernels/column_probe.py``), eight ``nvcc`` processes in parallel."""
     from i3rc_tpu_torch.kernels.build import build as _build
 
     built = _build("fast_event_block", SOURCES)
@@ -1094,7 +1323,8 @@ def build():
 
 # The event block's sources, compiled in parallel (the column-read probe too).
 SOURCES = ("fast_event_block.cu", "fast_event_block_gas.cu", "fast_event_block_tab.cu",
-           "fast_event_block_tab_gas.cu", "fast_event_block_col.cu", "column_read_probe.cu")
+           "fast_event_block_tab_gas.cu", "fast_event_block_fk.cu", "fast_event_block_tab_fk.cu",
+           "fast_event_block_col.cu", "column_read_probe.cu")
 
 
 def declare(lib, prefix: bool = False) -> None:
@@ -1152,6 +1382,8 @@ def launch_refusal(spec: EventSpec) -> str | None:
                        or spec.col != (spec.pf_row is not None)):
         return ("a table plan carries the forward fit exactly with detectors and the "
                 "entry rows exactly in column media")
+    if spec.fused and (not spec.gas or spec.col or spec.chain):
+        return "the event block runs fused-k plans with the gas channel at chain depth 0"
     return None
 
 
@@ -1169,13 +1401,14 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
     ``pro``, ``buf`` and ``source`` the whole block."""
     f, i = state.f, state.i
     L = state.n_lanes
+    rows = 9 if spec.fused else 8
     if f.device != i.device or i.device.type != "cuda":
         raise ValueError("event_block: state tensors must share one CUDA device")
     if f.dtype != torch.float32 or i.dtype != torch.int32:
         raise TypeError("event_block: state must be float32 (f) and int32 (i)")
-    if f.shape != (8, L) or i.shape != (5, L) or not (f.is_contiguous()
-                                                      and i.is_contiguous()):
-        raise ValueError("event_block: state must be contiguous (8, L) and (5, L)")
+    if f.shape != (rows, L) or i.shape != (5, L) or not (f.is_contiguous()
+                                                         and i.is_contiguous()):
+        raise ValueError(f"event_block: state must be contiguous ({rows}, L) and (5, L)")
     why = launch_refusal(spec)
     if why:
         raise NotImplementedError(why)
@@ -1191,6 +1424,18 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
         _need(spec.pf_row, f.device, torch.int32, (spec.n_x * spec.n_y,), "pf_row")
     if spec.fwd is not None:
         _need(spec.fwd, f.device, torch.float32, (spec.fwd.shape[0], 4), "the forward table")
+    if spec.fused:
+        fk = spec.fk
+        if fk.lanes != L:
+            raise ValueError("event_block: the fused-k partition is for another lane count")
+        for t, dtype, shape, what in (
+                (fk.table, torch.float32, (fk.n_k * fk.n_z, 2), "the fused-k table"),
+                (fk.weight, torch.float32, (fk.n_k,), "the fused-k weights"),
+                (fk.gtop, torch.float32, (fk.n_k,), "the fused-k Gz(z_max)"),
+                (fk.quota, torch.int64, (fk.n_k,), "the fused-k quotas"),
+                (fk.cta0, torch.int32, (fk.n_k + 1,), "the fused-k blocks"),
+                (fk.cta_k, torch.int32, (-(-L // CTA_THREADS),), "the fused-k CTA map")):
+            _need(t, f.device, dtype, shape, what)
     if det is not None:
         _need(acc, f.device, torch.float64, (det.n_cols, det.n), "acc")
     if (state.w is not None) != spec.weighted:
@@ -1213,7 +1458,8 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
             _need(buf.columns, f.device, torch.float64, (pro.n_cols, pro.n_kinds), "columns")
             _need(buf.vol, f.device, torch.float64,
                   (pro.n_cols * pro.n_z if pro.vol_tally else 0,), "vol")
-            _need(buf.ctl, f.device, torch.int64, (4,), "ctl")
+            _need(buf.ctl, f.device, torch.int64,
+                  (4 + 2 * spec.fk.n_k if spec.fused else 4,), "ctl")
             _need(buf.dead, f.device, torch.int32, (2, -(-L // CTA_THREADS)), "dead")
             if (spec.n_x, spec.n_y) != (pro.n_x, pro.n_y):
                 raise ValueError("event_block: the prologue's grid differs from the spec's")
@@ -1286,11 +1532,18 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
         p.pf_row = spec.pf_row.data_ptr()
     if spec.fwd is not None:
         p.fwd, p.n_fwd, p.fwd_scale = spec.fwd.data_ptr(), spec.fwd.shape[0], spec.fwd_scale
+    if spec.fused:
+        fk, q = spec.fk, p.fk
+        q.tab, q.w, q.gtop = fk.table.data_ptr(), fk.weight.data_ptr(), fk.gtop.data_ptr()
+        q.quota, q.cta0, q.cta_k = fk.quota.data_ptr(), fk.cta0.data_ptr(), fk.cta_k.data_ptr()
+        q.n_k, q.n_z, q.dz, q.inv_dz = fk.n_k, fk.n_z, fk.dz, fk.inv_dz
+        q.exact_layer = int(fk.exact_layer)
     return p
 
 
 def _count_launch(spec: EventSpec, surface: bool = False) -> None:
-    counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col, spec.table, surface)]
+    counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col, spec.fused,
+                               spec.table, surface)]
     setattr(event_block, counter, getattr(event_block, counter) + 1)
 
 
@@ -1303,9 +1556,10 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
     the kernel, counted per variant in ``event_block.launches`` (flux),
     ``detector_launches`` (detectors), ``gas_launches`` (flux with the gas
     channel), ``gas_detector_launches`` (detectors with the gas channel) and
-    ``column_launches`` (flux in column media), and a table plan's in the
-    same names prefixed ``table_`` (``table_launches``, ...,
-    ``table_column_launches``); CPU tensors run the plain twin on
+    ``column_launches`` (flux in column media), a fused-k plan's in
+    ``fused_k_launches`` and ``fused_k_detector_launches``, and a table
+    plan's in the same names prefixed ``table_`` (``table_launches``, ...,
+    ``table_fused_k_detector_launches``); CPU tensors run the plain twin on
     ``philox_uniforms`` draws.  The K events carry no surface bounce
     (that is a stage of the whole block); a BRDF plan's lane weight
     ``state.w`` scales the detector contributions.
@@ -1349,12 +1603,14 @@ def fused_block(spec: EventSpec, pro: PrologueSpec, state: LaneState, buf: Block
 
 
 # The launch counter of each kernel variant, by (detectors, gas, column,
-# table, the whole block over a reflecting surface).
-_COUNTERS = {(False, False, False): "launches",
-             (True, False, False): "detector_launches",
-             (False, True, False): "gas_launches",
-             (True, True, False): "gas_detector_launches",
-             (False, False, True): "column_launches"}
+# fused-k, table, the whole block over a reflecting surface).
+_COUNTERS = {(False, False, False, False): "launches",
+             (True, False, False, False): "detector_launches",
+             (False, True, False, False): "gas_launches",
+             (True, True, False, False): "gas_detector_launches",
+             (False, False, True, False): "column_launches",
+             (False, True, False, True): "fused_k_launches",
+             (True, True, False, True): "fused_k_detector_launches"}
 LAUNCH_COUNTERS = {
     k + (tab, srf): ("table_" if tab else "")
     + (name.replace("launches", "surface_launches") if srf else name)

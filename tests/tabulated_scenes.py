@@ -222,15 +222,15 @@ SLICE_BINS = 751
 
 def instantiation(spec) -> str:
     """The template arguments (CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES,
-    DCAP, TAB) of the event-block kernel a spec launches, as they appear in
-    its mangled name."""
+    DCAP, TAB, FK) of the event-block kernel a spec launches, as they appear
+    in its mangled name."""
     det = spec.det
     iw = det is not None and det.iwabuchi
     slices = det is not None and det.n_cols * det.n <= SLICE_BINS
     dcap = 16 if iw and det.n > 8 else 8
     b = lambda v: f"Lb{int(bool(v))}E"
     return (f"ILi{spec.chain}E{b(spec.absorbing)}{b(spec.track_y)}{b(det is not None)}{b(iw)}"
-            f"{b(spec.gas)}{b(spec.col)}{b(slices)}Li{dcap}E{b(spec.table)}E")
+            f"{b(spec.gas)}{b(spec.col)}{b(slices)}Li{dcap}E{b(spec.table)}{b(spec.fused)}E")
 
 
 def trace_states(integ, source, n_photons: int, lanes: int, key, tail_alive: float = 0.15,

@@ -212,10 +212,20 @@ def test_tabulated_cloud_with_gas_raises():
 
 
 def test_fused_k_plan_raises():
-    """A JAX plan with fused-k tables (GasKTables) is ROADMAP item 13b."""
-    jplan = JaxIntegrator.create(step_gas(JAX), config=JAX.cfg)._fast_plan
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        plan_from_jax(replace(jplan, gas_k=object()))
+    """A JAX plan with fused-k tables (GasKTables, ROADMAP item 13b) no longer
+    raises: plan_from_jax carries the tables across, equal to the port's own
+    fused plan, and the port runs one batch of both k points (the uniform
+    and the layered gas): closure within 1e-5, n_bad 0."""
+    prof, w = np.stack([np.full(32, GAS_EXT), layered_gas()]), np.array([0.6, 0.4])
+    jinteg = JaxIntegrator.create(step_gas(JAX), config=JAX.cfg, gas_k=(prof, w))
+    jplan = replace(jinteg._fast_plan, gas_k=jfast.GasKTables(*jinteg._gas_k))
+    integ = Integrator.create(step_gas(PORT), config=CFG, device="cpu", gas_k=(prof, w))
+    tplan = plan_from_jax(jplan)
+    assert tplan.gas_k is not None and tplan == replace(integ._fast_plan, gas_k=integ._gas_k)
+    res = integ.batch_fn(PhotonSource.directional(0.5, 0.0), 2048)(batch_key(3, 1))
+    total = float(res.mean_flux_up + res.mean_flux_down + res.mean_flux_absorbed)
+    assert abs(total - 1.0) < 1e-5 and float(res.mean_flux_absorbed) > 0.0
+    assert int(res.n_bad) == 0
 
 
 def test_gas_threshold_stream():

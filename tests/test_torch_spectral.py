@@ -152,11 +152,17 @@ def test_run_broadband_matches_jax(jax_broadband):
 
 
 def test_unported_modes_raise():
+    """An unknown mode still raises; the fused mode (ROADMAP item 13b) runs:
+    64 photons a k point trace as one band sample at the fused lane width
+    (a CTA per k point), closing, with no per-k statistics."""
     kd = KDS[0]
     integ = _band_integrator(kd)
     src = PhotonSource.directional(0.5, 0.0)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        run_band(integ, cloud_slab(), kd, src, 64, 2, mode="fused")
+    band = run_band(integ, cloud_slab(), kd, src, 64, 2, mode="fused", derive=means)
+    d = band.mean["derived"]
+    assert band.per_k == [] and band.wavelength_limits == kd.wavelength_limits
+    assert float(d["fup"] + d["fdn"] + d["fabs"]) == pytest.approx(1.0, abs=1e-5)
+    assert int(band.mean["results"].n_photons) == 64 * kd.n_k
     with pytest.raises(ValueError, match="spectral mode"):
         run_band(integ, cloud_slab(), kd, src, 64, 2, mode="warp")
 
@@ -251,14 +257,17 @@ def _transparent_inputs(tmp_path, mode="auto", algorithms="useRayTracing = .fals
     return str(nml)
 
 
-def test_broadband_driver_transparent_slab(tmp_path):
+@pytest.mark.parametrize("mode", ["auto", "baked"])
+def test_broadband_driver_transparent_slab(tmp_path, mode):
     """Closed-form broadband transmission T = sum_b f_b sum_k w_bk
     exp(-tau_bk / mu0), closure, the absorption profile integrating to Fabs,
-    and the four output files."""
-    assert bb_main([_transparent_inputs(tmp_path), "--device", "cpu"]) == 0
+    and the four output files; "auto" runs this small band fused, "baked"
+    one integrator per k point."""
+    assert bb_main([_transparent_inputs(tmp_path, mode=mode), "--device", "cpu"]) == 0
     for f in ("bb_flux.out", "bb_rad.out", "bb_prof.out", "bb.nc"):
         assert (tmp_path / f).is_file(), f
-    out = run_bb(_transparent_inputs(tmp_path), quiet=True, device="cpu")
+    out = run_bb(_transparent_inputs(tmp_path, mode=mode), quiet=True, device="cpu")
+    assert all((band.per_k == []) == (mode == "auto") for band in out["bands"])
     expected = sum(FRACTIONS[b] * np.sum(WEIGHTS[b] * np.exp(-TAUS[b] / 0.5)) for b in (0, 1))
     assert float(out["flux_down"][0].mean()) == pytest.approx(expected, rel=1e-2)
     m = out["mean_stats"]
@@ -294,13 +303,22 @@ def test_broadband_driver_validation_matches_jax(tmp_path, nml, error):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("mode,algorithms,item", [
-    ("fused", "useRayTracing = .false.", "item 13b"),
+@pytest.mark.parametrize("mode,algorithms", [
+    ("fused", "useRayTracing = .false., maxEvents = 100"),
 ])
-def test_broadband_driver_unported_modes_raise(tmp_path, mode, algorithms, item):
-    nml = _transparent_inputs(tmp_path, mode=mode, algorithms=algorithms, photons=64)
-    with pytest.raises(NotImplementedError, match=item):
-        run_bb(nml, quiet=True, device="cpu")
+def test_broadband_driver_unported_modes_raise(tmp_path, mode, algorithms):
+    """spectralMode = "fused" (ROADMAP item 13b) runs the namelist: each band
+    in one fused trace, the transmission within 1e-2 of the closed form,
+    closure, the radiance file, and the photon count of the other modes."""
+    out = run_bb(_transparent_inputs(tmp_path, mode=mode, algorithms=algorithms),
+                 quiet=True, device="cpu")
+    expected = sum(FRACTIONS[b] * np.sum(WEIGHTS[b] * np.exp(-TAUS[b] / 0.5)) for b in (0, 1))
+    assert float(out["flux_down"][0].mean()) == pytest.approx(expected, rel=1e-2)
+    m = out["mean_stats"]
+    assert m[0][0] + m[1][0] + m[2][0] == pytest.approx(1.0, abs=1e-5)
+    assert all(band.per_k == [] for band in out["bands"])
+    assert out["cfg"]["num_photons"] == 20000 * 2 * 4 and out["cfg"]["spectral_mode"] == "fused"
+    assert (tmp_path / "bb_rad.out").is_file() and np.isfinite(out["radiance"][0]).all()
 
 
 @pytest.mark.parametrize("mode,algorithms", [
