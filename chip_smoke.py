@@ -44,8 +44,12 @@ fused-k spectral batching (every k point of a band in one trace: all 56
 fused-k instantiations against their plain version on small cases and on
 each path's own scene, then the bench band at full width and its C.1 twin
 in turns with the baked band, the three I3RC detectors, heating rates, an
-internal source against its closed form and the band over an albedo) — and
-checks the physics.
+internal source against its closed form and the band over an albedo), and
+polarized transport (the polarized event block against its plain version
+on its four instantiations, then the bench row's Rayleigh atmosphere with
+2 Stokes detectors against the JAX package's degree of polarization, a
+Mie step cloud with the I3RC detectors and the polarized namelist through
+the driver) — and checks the physics.
 Every phase prints one line; any failed check raises and the script exits
 nonzero.  Run from the repository root:
 
@@ -512,13 +516,13 @@ def time_block_ms(run, s0, new_acc, n: int) -> float:
 PROFILER_TRACES = {"taken": 0, "short": 0, "empty": 0}
 
 
-def device_block_ms(run, s0, new_acc, n: int) -> float:
+def device_block_ms(run, s0, new_acc, n: int, kernel: str = "fast_event_block") -> float:
     """Mean device time of the block kernel in ``run(state, acc)`` over n
     fresh copies of s0, from torch.profiler: the kernel's own time, without
     the host's work between the first event and the launch (building the
     parameter block), which the CUDA-event time of time_block_ms includes
     on an idle device.  Over a reflecting surface the surface stage's kernel
-    counts in."""
+    counts in.  ``kernel`` names the kernels' family."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     # The profiler now and then drops device records of a trace: take the
     # mean over the launches it shows, from the first of up to three traces
@@ -529,8 +533,8 @@ def device_block_ms(run, s0, new_acc, n: int) -> float:
             for _ in range(n):
                 run(s0.clone(), new_acc())
             torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if "fast_event_block" in e.key]
-        launches = sum(e.count for e in found if "fast_event_block_kernel" in e.key)
+        found = [e for e in prof.key_averages() if kernel in e.key]
+        launches = sum(e.count for e in found if f"{kernel}_kernel" in e.key)
         PROFILER_TRACES["taken"] += 1
         if 2 * launches >= n:
             break
@@ -1335,11 +1339,26 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from i3rc_tpu_torch.kernels import general_block as gb
+    from i3rc_tpu_torch.kernels import polarized_block as pb
 
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         general_built = pool.submit(gb.build)
+        polarized_built = pool.submit(pb.build)
         built = eb.build()
         gbuilt = general_built.result()
+        pbuilt = polarized_built.result()
+    pptx = ptxas_polarized(pbuilt.log)
+    say("2 build-polarized", seconds=f"{pbuilt.seconds:.1f}", library=pbuilt.path.name,
+        instantiations=len(pptx),
+        **{k: "{registers}regs/{stack_bytes}Bstack/{spill_store_bytes}Bspill/{ctas_per_sm}cta"
+           .format(**v) for k, v in sorted(pptx.items())})
+    # PZ: the four instantiations, each at 3 CTAs per SM or more; the flux
+    # set (no detectors) spills nothing.
+    check(sorted(pptx) == sorted(pb.VARIANTS), f"PZ instantiations {sorted(pptx)}")
+    for name, v in pptx.items():
+        check(v.get("ctas_per_sm", 0) >= 3, f"PZ {name}: {v}")
+        if "detectors" not in name:
+            check(v.get("spill_store_bytes", 1) == 0, f"PZ {name} spills: {v}")
     gptx = ptxas_general(gbuilt.log)
     check(len(gptx) == 26, f"general kernel instantiations {sorted(gptx)}")
     say("2 build-general", seconds=f"{gbuilt.seconds:.1f}", library=gbuilt.path.name,
@@ -1374,7 +1393,7 @@ def main() -> int:
               f"fused-k set {name}: {by_variant.get(name)}")
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "ptxas.log").write_text(built.log + gbuilt.log)
+    (out / "ptxas.log").write_text(built.log + gbuilt.log + pbuilt.log)
     census = sass_census(built.path)
     ptxas = ptxas_of_census(built.log)
     for name, ops in census.items():
@@ -1687,6 +1706,14 @@ def main() -> int:
     fk_checks = fused_k_kernel_vs_twin(dev, card, built.log)
     fk_rec = fused_k_paths(card)
 
+    # 51-54. polarized transport (ROADMAP item 17): PZ against its plain
+    # version on every instantiation (small cases and each path's own
+    # scene), then the bench row's Rayleigh atmosphere (52, at the bench's
+    # lanes and the port's), the Mie step cloud with the I3RC detectors (53)
+    # and the polarized namelist through the driver (54)
+    pz_checks = polarized_kernel_vs_twin(dev, card, pptx)
+    pz_rec = polarized_paths(out, card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -1766,7 +1793,7 @@ def main() -> int:
              "fastpath.py:1409-1470)"),
             ("table_fused_k", "fast_event_block_tab_fk.cu",
              "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode; fused-k, XLA in "
-             "fastpath.py:1409-1470)"))]},
+             "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4215,6 +4242,413 @@ def fused_k_entry(kind: str, source: str, replaces: str, rec: dict, checks: dict
             "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
             "baked_batch_ms": sum(b["kernel_ms"] for b in rec["baked_batches"]),
             "photons_per_s": rec["fused"]["rate"], "baked_photons_per_s": rec["baked"]["rate"]}
+
+
+# ---------------------------------------------------------------------------
+# Polarized transport (ROADMAP item 17): the polarized event block PZ
+# (csrc/polarized_event_block.cuh) against its plain version, and its paths
+
+PZ_BENCH_PHOTONS = 1 << 23          # bench.py:340-377's row
+PZ_BENCH_LANES = 1 << 16            # the bench row's lanes
+# Detector 0's degree of polarization on the bench row (BENCH_r05.json,
+# "DoP(94deg)=0.715"): a physics value of the JAX package, not a speed.
+ANCHOR_PZ_DOP = 0.715
+PZ_STEP_PHOTONS = 1 << 22           # the Mie step cloud
+PZ_STEP_LANES = 1 << 20
+# Closure of a batch: the Stokes weight ratio I / a1 has expectation 1, not
+# value 1, so Fup + Fdn (+ Fabs) of a conservative scene spreads about 1
+# (per photon std 0.39 on the tau-1 Rayleigh slab, 0.27 on the Mie step
+# cloud: the port's CPU twin, 8 batches each); 1e-3 is >= 5 sigma at these
+# batches.
+PZ_CLOSURE_TOL = 1e-3
+# Operations (ALU, SFU) by hand from csrc/polarized_event_block.cuh: per
+# lane-event two Philox4x32-10 calls (~200 integer operations), the free
+# path's logf, the exit division, the wraps' fmodf and the cell's three
+# locates (true divisions); per collision the component pick, the chi
+# rotation (sincos polynomial), the cubic, acosf and the division by pi,
+# the matrix interpolation, I / a1 and 1 / I, the renormalizations' two
+# square roots and two reciprocals; per estimate ray the rotations, acosf,
+# the matrix and the prefactor's division; per ratio-tracking round half a
+# Philox call, logf, the wraps, the locates, the ratio and the roulette's
+# division.
+OPS_PER_PZ_EVENT = (300, 6)
+OPS_PER_PZ_COLLISION = (200, 10)
+OPS_PER_PZ_RAY = (140, 7)
+OPS_PER_PZ_ROUND = (120, 6)
+PZ_STATE_ROWS = 19                  # 13 float, 6 int32
+
+
+def ptxas_polarized(log: str) -> dict:
+    """Per PZ instantiation (flux, detectors, lambertian, detectors_
+    lambertian): registers, the kernel's own stack and spill bytes, CTAs
+    per SM (ptxas_general's reading)."""
+    from i3rc_tpu_torch.kernels.polarized_block import VARIANTS
+
+    out, name, own = {}, None, False
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*polarized_event_block_kernelILb(\d)ELb(\d)E",
+                      line)
+        if m:
+            name = VARIANTS[int(m[1]) + 2 * int(m[2])]
+            out[name], own = {}, False
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and "Function properties for" in line:
+            own = "polarized_event_block_kernel" in line
+        elif name and own and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                              r"stores", line)):
+            out[name].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name].update(registers=int(m[1]), ctas_per_sm=ctas_per_sm(int(m[1])))
+    return out
+
+
+def pz_bound(lane_events: int, collisions: int, rays: int, rounds: int, n_bytes: int):
+    """(least ms, what bounds it) of PZ's work: lane-events, collisions,
+    estimate rays and ratio-tracking rounds (OPS_PER_PZ_*), and ``n_bytes``
+    of device memory."""
+    work = ((lane_events, OPS_PER_PZ_EVENT), (collisions, OPS_PER_PZ_COLLISION),
+            (rays, OPS_PER_PZ_RAY), (rounds, OPS_PER_PZ_ROUND))
+    alu = sum(n * ops[0] for n, ops in work)
+    sfu = sum(n * ops[1] for n, ops in work)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pz_block_bytes(spec, n_lanes: int, n_live: int) -> int:
+    """Bytes one block needs to move: every lane's alive flag read; the 19
+    rows of each live lane read once and written once (its alive flag
+    counted once); the optics, the cubic, the matrix table and the detector
+    rows read once; each float64 tally written once."""
+    n = 4 * n_lanes + n_live * (2 * PZ_STATE_ROWS * 4 - 4)
+    for t in (spec.total_ext, spec.cells, spec.cubic, spec.matrix, spec.det):
+        n += t.numel() * t.element_size()
+    g = spec.geom
+    return n + 8 * g.n_x * g.n_y * (3 + 4 * spec.n_dirs)
+
+
+def pz_block_counts(st0, st) -> dict:
+    """Device scalars of one block from the lane state before and after:
+    live lanes, lane-events, collisions (order grows by one a collision; a
+    refilled lane restarts at 0), estimate rays and ratio-tracking rounds."""
+    from i3rc_tpu_torch.integrators import polarized as pz
+
+    events = st.i[pz.EVCT] - st0.i[pz.EVCT]
+    refilled = (st0.i[pz.ALIVE] == 0) & (events > 0)
+    grow = lambda row: (st.i[row] - st0.i[row]).sum(dtype=torch.int64)
+    return {"live": (events > 0).sum(), "lane_events": events.sum(dtype=torch.int64),
+            "collisions": st.i[pz.ORDER].sum(dtype=torch.int64)
+            - (st0.i[pz.ORDER] * ~refilled).sum(dtype=torch.int64),
+            "rays": grow(pz.RAYS), "rounds": grow(pz.ROUNDS)}
+
+
+def pz_batch_time(integ, src, n: int, lanes: int, key, profile: bool = True) -> dict:
+    """One batch with each PZ launch bracketed by CUDA events behind a ~1 ms
+    spin (batch_kernel_time's method): the kernel's device time over the
+    batch (the profiler's where it shows device time, else the events'),
+    the launches, blocks, and the batch's lane-events, collisions, rays and
+    rounds and its bound (per block: pz_block_bytes of the block's live
+    lanes)."""
+    import i3rc_tpu_torch.kernels.polarized_block as pbm
+
+    orig = pbm._launch
+    rec = []
+
+    def bracketed(spec, st, buf, key_, source, kb):
+        st0 = st.clone()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        orig(spec, st, buf, key_, source, kb)
+        b.record()
+        rec.append((spec, a, b, st.n_lanes, pz_block_counts(st0, st)))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pbm._launch = bracketed
+    try:
+        tracer = integ.batch_tracer(n, lanes)
+        run = lambda: tracer(key, src.sample(key, lanes, integ.device), src)
+        if profile:
+            with torch.profiler.profile(activities=acts) as prof:
+                raw = run()
+                torch.cuda.synchronize()
+        else:
+            raw = run()
+            torch.cuda.synchronize()
+    finally:
+        pbm._launch = orig
+    prof_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if "polarized_event_block" in e.key) if profile else 0
+    spec = rec[0][0]
+    tot = {k: sum(int(r[4][k]) for r in rec) for k in rec[0][4]}
+    n_bytes = sum(pz_block_bytes(spec, r[3], int(r[4]["live"])) for r in rec)
+    events_ms = sum(r[1].elapsed_time(r[2]) for r in rec)
+    kernel_ms, source = (prof_us / 1e3, "profiler") if prof_us else (events_ms, "cuda-events")
+    return {"raw": raw, "launches": len(rec), "blocks": raw["n_blocks"], "kernel_ms": kernel_ms,
+            "kernel_ms_from": source, "events_ms": events_ms, **tot,
+            "bound": pz_bound(tot["lane_events"], tot["collisions"], tot["rays"],
+                              tot["rounds"], n_bytes)}
+
+
+def pz_batch_fields(bk: dict, card: str) -> dict:
+    return dict(launches=bk["launches"], blocks=bk["blocks"], kernel_ms=f"{bk['kernel_ms']:.3f}",
+                kernel_ms_from=bk["kernel_ms_from"], events_ms=f"{bk['events_ms']:.3f}",
+                live_lanes=bk["live"], lane_events=bk["lane_events"],
+                collisions=bk["collisions"], rays=bk["rays"], rounds=bk["rounds"],
+                bound_ms=f"{bk['bound'][0]:.3f}", bound_by=bk["bound"][1], card=json.dumps(card))
+
+
+def pz_scene(name: str, dev) -> SimpleNamespace:
+    """The scenes of phases 52-53 on the port: the bench row's Rayleigh
+    atmosphere with its 2 detectors (max_events 200) and the Mie step cloud
+    with the shipped namelist's 3 detectors (the default max_events)."""
+    from i3rc_tpu_torch.integrators.polarized import PolarizedIntegrator
+
+    pzs = _load_tests_module("polarized_scenes")
+    h = pzs.host("i3rc_tpu_torch")
+    if name == "52_bench":
+        integ = PolarizedIntegrator.create(
+            pzs.bench_scene(h), config=h.Config(**pzs.CFG_KW, max_events=200), device=dev,
+            **pzs.BENCH_DETECTORS)
+        return SimpleNamespace(integ=integ, src=h.Source.directional(0.5, 0.0),
+                               n=PZ_BENCH_PHOTONS, lanes=PZ_BENCH_LANES)
+    integ = PolarizedIntegrator.create(pzs.mie_step_cloud(h), config=h.Config(**pzs.CFG_KW),
+                                       device=dev, intensity_mus=DET_MUS, intensity_phis=DET_PHIS)
+    return SimpleNamespace(integ=integ, src=h.Source.directional(0.5, 0.0), n=PZ_STEP_PHOTONS,
+                           lanes=PZ_STEP_LANES)
+
+
+def polarized_kernel_vs_twin(dev, card: str, built: dict) -> dict:
+    """Phase 51: PZ against its plain version, bit for bit.  The small cases
+    of tests/polarized_scenes.py pz_cases (TABLE_CASE_LANES lanes, 4x the
+    photons: every instantiation, one and two components, a polarized
+    source, the event budget) and phases 52-53's scenes at their photons
+    and lanes, each on its launch, mid-flight and tail states: every state
+    row, the control state and the dead counts bit for bit, the tallies
+    within 1e-9.  The instantiations run must be the four built.  The
+    mid-flight and tail blocks of the path scenes are timed: the kernel's
+    device time (profiler), the plain version's (CUDA events) and the
+    bound.  Returns the timed records and the largest state difference."""
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.integrators.polarized import polarized_block_reference
+    from i3rc_tpu_torch.kernels.polarized_block import polarized_block, variant
+
+    pzs = _load_tests_module("polarized_scenes")
+    seen, timed, err, n_states = set(), {}, 0.0, 0
+
+    def hold(tag, integ, src, n, lanes, key):
+        nonlocal err, n_states
+        spec, states = pzs.trace_states(integ, src, n, lanes, key)
+        for state, st, buf, kb in states:
+            r = pzs.block_vs_twin(spec, st, buf, key, src, kb)
+            check(r["bit_equal"] and r["tally_abs_err"] <= 1e-9, f"51 {tag} {state}: {r}")
+            err = max(err, r["max_abs_err"])
+            n_states += 1
+            seen.add(variant(spec))
+            yield spec, state, st, buf, kb, r
+
+    for name in pzs.pz_cases():
+        integ, src = pzs.case_integrator(name, dev)
+        for _ in hold(name, integ, src, 4 * TABLE_CASE_LANES, TABLE_CASE_LANES,
+                      batch_key(SEED, 1300)):
+            pass
+    n_cases = n_states
+    for name in ("52_bench", "53_mie_step_cloud"):
+        sc = pz_scene(name, dev)
+        key = batch_key(SEED, 1310)
+        for spec, state, st, buf, kb, r in hold(name, sc.integ, sc.src, sc.n, sc.lanes, key):
+            fields = dict(scene=name, state=state, lanes=sc.lanes, photons=sc.n, kb=kb,
+                          live=r["live"], bit_equal=r["bit_equal"],
+                          tally_abs_err=f"{r['tally_abs_err']:.3e}", instantiation=variant(spec))
+            if state != "launch":
+                run_k = lambda s_, b_: polarized_block(spec, s_, b_, key, sc.src, kb)
+                run_p = lambda s_, b_: polarized_block_reference(spec, s_, b_, key, sc.src, kb)
+                r["device_ms"] = device_block_ms(run_k, st, buf.clone, 20, "polarized_event_block")
+                r["twin_ms"] = time_block_ms(run_p, st, buf.clone, 1)
+                r["bound"] = pz_bound(r["lane_events"], r["collisions"], r["rays"], r["rounds"],
+                                      pz_block_bytes(spec, sc.lanes, r["live"]))
+                timed[(name, state)] = r
+                fields.update(lane_events=r["lane_events"], collisions=r["collisions"],
+                              rays=r["rays"], rounds=r["rounds"],
+                              device_ms=f"{r['device_ms']:.4f}", plain_ms=f"{r['twin_ms']:.2f}",
+                              bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+            say("51 polarized-block-vs-plain", **fields, card=json.dumps(card))
+    check(seen == set(built), f"51: PZ instantiations run {sorted(seen)}, built {sorted(built)}")
+    say("51 polarized-block-vs-plain", cases=len(pzs.pz_cases()), case_states=n_cases,
+        path_states=n_states - n_cases, instantiations=len(seen), bit_equal=True,
+        max_abs_err=f"{err:.3e}", card=json.dumps(card))
+    return {"timed": timed, "err": err}
+
+
+def pz_closure(res) -> float:
+    return float(res.mean_flux_up + res.mean_flux_down + res.mean_flux_absorbed)
+
+
+def polarized_paths(out: Path, card: str) -> dict:
+    """Phases 52-54: the bench row's scene (at its lanes and at the port's
+    lane_width), the Mie step cloud, and the polarized namelist through the
+    driver, each driven with PZ's launch counts set to 0 just before it and
+    read just after.  Returns the records of the kernels line."""
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
+    from i3rc_tpu_torch.integrators.fastpath import lane_width
+    from i3rc_tpu_torch.kernels import polarized_block as pb
+
+    rec = {}
+    # 52. bench.py:340-377: 2^23 photons at 2^16 lanes (the bench's) and at
+    # lane_width; photons/s median of 3 after a warm-up; closure and n_bad
+    # every batch; detector 0's DoP over 4 batches against the JAX value
+    sc = pz_scene("52_bench", "cuda")
+    for tag, lanes in (("bench_lanes", sc.lanes), ("port_lanes", lane_width(sc.n))):
+        fn = sc.integ.batch_fn(sc.src, sc.n, n_lanes=lanes)
+        fn(batch_key(SEED, 1400))
+        torch.cuda.synchronize()
+        pb.reset_launch_counters()
+        dops, times = [], []
+        for b in range(4):
+            t0 = time.perf_counter()
+            res = fn(batch_key(SEED, 1401 + b))
+            c, bad = pz_closure(res), int(res.n_bad)
+            dops.append(float(res.degree_of_polarization[0]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(abs(c - 1.0) <= PZ_CLOSURE_TOL + bad / sc.n and bad == 0,
+                  f"52 {tag}: closure {c}, n_bad {bad}")
+            check(bool(torch.isfinite(res.intensity).all())
+                  and tuple(res.intensity.shape) == (1, 1, 2, 4), f"52 {tag}: intensity")
+        launches = pb.polarized_block.launches
+        check(launches > 0 and pb.polarized_block.variant_launches["detectors"] == launches,
+              f"52 {tag}: PZ launches {pb.polarized_block.variant_launches}")
+        dop, dop_se = float(np.mean(dops)), float(np.std(dops, ddof=1) / 2.0)
+        check(abs(dop - ANCHOR_PZ_DOP) <= 5 * dop_se + 0.005,
+              f"52 {tag}: DoP {dop} +- {dop_se} vs {ANCHOR_PZ_DOP}")
+        rate = sc.n / float(np.median(times[:3]))
+        rec[tag] = {"launches": launches, "rate": rate, "dop": dop}
+        say("52 polarized-bench", lanes=lanes, photons=sc.n, batches=4,
+            fup=f"{float(res.mean_flux_up):.6f}", closure=f"{c:.6f}", dop=f"{dop:.5f}",
+            dop_se=f"{dop_se:.1e}", anchor=ANCHOR_PZ_DOP,
+            stokes0=",".join(f"{float(v):.5f}" for v in res.mean_intensity[0]),
+            seconds=",".join(f"{t:.4f}" for t in times), photons_per_s=f"{rate:.4e}",
+            launches=launches, card=json.dumps(card))
+        bk = pz_batch_time(sc.integ, sc.src, sc.n, lanes, batch_key(SEED, 1410))
+        rec[tag]["batch"] = bk
+        say("52 polarized-bench-batch-kernel", lanes=lanes, photons=sc.n,
+            **pz_batch_fields(bk, card))
+
+    # 53. the Mie step cloud (32 x 1 x 32, tau 2 / 18, a 10 um drop at 0.67
+    # um) with the 3 I3RC detectors: 3 batches of 2^22 photons at 2^20 lanes
+    sc = pz_scene("53_mie_step_cloud", "cuda")
+    fn = sc.integ.batch_fn(sc.src, sc.n, n_lanes=sc.lanes)
+    fn(batch_key(SEED, 1500))
+    torch.cuda.synchronize()
+    pb.reset_launch_counters()
+    times, fups, stokes = [], [], []
+    for b in range(3):
+        t0 = time.perf_counter()
+        res = fn(batch_key(SEED, 1501 + b))
+        c, bad = pz_closure(res), int(res.n_bad)
+        fups.append(float(res.mean_flux_up))
+        stokes.append(res.mean_intensity.double().cpu().numpy())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(abs(c - 1.0) <= PZ_CLOSURE_TOL + bad / sc.n and bad == 0,
+              f"53: closure {c}, n_bad {bad}")
+        check(bool(torch.isfinite(res.intensity).all())
+              and tuple(res.intensity.shape) == (32, 1, 3, 4), "53: intensity")
+    launches = pb.polarized_block.launches
+    check(launches > 0 and pb.polarized_block.variant_launches["detectors"] == launches,
+          f"53: PZ launches {pb.polarized_block.variant_launches}")
+    rate = sc.n / float(np.median(times))
+    st = np.stack(stokes)
+    rec["step"] = {"launches": launches, "rate": rate}
+    say("53 polarized-mie-step-cloud", photons=sc.n, lanes=sc.lanes, batches=3,
+        fup=f"{np.mean(fups):.6f}", closure=f"{c:.6f}",
+        stokes=";".join(",".join(f"{v:.5f}" for v in d) for d in st.mean(0)),
+        stokes_se=";".join(",".join(f"{v:.1e}" for v in d)
+                           for d in st.std(0, ddof=1) / np.sqrt(3)),
+        seconds=",".join(f"{t:.4f}" for t in times), photons_per_s=f"{rate:.4e}",
+        launches=launches, card=json.dumps(card))
+    bk = pz_batch_time(sc.integ, sc.src, sc.n, sc.lanes, batch_key(SEED, 1510))
+    rec["step"]["batch"] = bk
+    say("53 polarized-mie-step-cloud-batch-kernel", photons=sc.n, **pz_batch_fields(bk, card))
+
+    # 54. the polarized namelist of tests/test_polarized.py:380-433 through
+    # the port's driver on the card: Stokes ASCII and netCDF outputs
+    from scipy.io import netcdf_file
+
+    from i3rc_tpu_torch.io.netcdf import write_domain
+
+    pzs = _load_tests_module("polarized_scenes")
+    d = out / "polarized"
+    d.mkdir(parents=True, exist_ok=True)
+    write_domain(pzs.rayleigh_slab(pzs.host("i3rc_tpu_torch"), 0.5), str(d / "ray.dom"))
+    nml = d / "polarized.nml"
+    nml.write_text(textwrap.dedent(f"""
+    &radiativeTransfer
+      solarFlux = 1., solarMu = 0.6, solarAzimuth = 0., surfaceAlbedo = 0.2,
+      intensityMus = 0.8, 0.4,  intensityPhis = 0., 120.,
+    /
+    &monteCarlo
+      numPhotonsPerBatch = 4000, numBatches = 4, iseed = 3
+    /
+    &algorithms
+      useRayTracing = .false., polarized = .true.,
+    /
+    &fileNames
+      domainFileName = "{d}/ray.dom",
+      outputFluxFile = "{d}/pflux.out",
+      outputRadFile = "{d}/prad.out",
+      outputNetcdfFile = "{d}/pol.nc"
+    /
+    &output
+    /
+    """))
+    pb.reset_launch_counters()
+    t0 = time.perf_counter()
+    drv = run_from_namelist(str(nml), quiet=True, device="cuda")
+    t_drv = time.perf_counter() - t0
+    check((d / "pflux.out").is_file() and "Stokes" in (d / "prad.out").read_text(),
+          "54: the driver wrote no Stokes radiance file")
+    mean, err_ = drv["radiance"]
+    check(mean.shape == (1, 1, 2, 4) and np.all(mean[..., 0] > 0) and np.all(err_[..., 0] >= 0),
+          f"54: radiance {mean}")
+    with netcdf_file(str(d / "pol.nc"), "r", mmap=False) as nc:
+        dims = nc.variables["intensity"].dimensions
+    check(dims == ("stokes", "direction", "y", "x"), f"54: netCDF intensity {dims}")
+    check(pb.polarized_block.variant_launches["detectors_lambertian"] > 0,
+          f"54: the driver launched {pb.polarized_block.variant_launches}")
+    (fup, _), (fdn, _), _ = drv["mean_stats"]
+    say("54 polarized-driver", batches=drv["cfg"]["num_batches"],
+        photons=drv["cfg"]["num_photons"], fup=f"{fup:.5f}", fdn=f"{fdn:.5f}",
+        stokes0=",".join(f"{float(v):.5f}" for v in mean[0, 0, 0]), seconds=f"{t_drv:.2f}",
+        launches=pb.polarized_block.launches, card=json.dumps(card))
+    return rec
+
+
+def polarized_entry(checks: dict, rec: dict) -> dict:
+    """The kernels-line entry of PZ: launches on its main path (phase 52 at
+    the bench's lanes), its largest state difference to the plain version
+    (phase 51), its device time, plain time and bound on the bench scene's
+    mid-flight block (and tail), and one batch of the bench row and of the
+    Mie step cloud beside their bounds."""
+    r = checks["timed"][("52_bench", "mid")]
+    tail = checks["timed"][("52_bench", "tail")]
+    step = checks["timed"][("53_mie_step_cloud", "mid")]
+    b, s = rec["bench_lanes"], rec["step"]
+    return {"name": "polarized_event_block", "route": "cuda",
+            "source": "i3rc_tpu_torch/csrc/polarized_event_block.cu",
+            "replaces": "no TPU kernel: XLA in i3rc_tpu/integrators/polarized.py:455 and :328",
+            "launches": b["launches"], "max_abs_err": checks["err"], "ms": r["device_ms"],
+            "plain_ms": r["twin_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None, "tail_ms": tail["device_ms"], "tail_bound_ms": tail["bound"][0],
+            "batch_ms": b["batch"]["kernel_ms"], "batch_launches": b["batch"]["launches"],
+            "batch_bound_ms": b["batch"]["bound"][0], "photons_per_s": b["rate"],
+            "step_cloud_ms": step["device_ms"], "step_cloud_plain_ms": step["twin_ms"],
+            "step_cloud_bound_ms": step["bound"][0],
+            "step_cloud_batch_ms": s["batch"]["kernel_ms"],
+            "step_cloud_batch_bound_ms": s["batch"]["bound"][0],
+            "step_cloud_photons_per_s": s["rate"]}
 
 
 if __name__ == "__main__":

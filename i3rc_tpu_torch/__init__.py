@@ -10,12 +10,15 @@ the JAX package's module path) and imports nothing of ``i3rc_tpu`` and never
 Layer map:
   utils/        error policy, namelist reader
   core/         Philox random streams, photon sources, surfaces and BRDFs,
-                domains, phase functions, quadrature, k-distributions
+                domains, phase functions and matrices, quadrature,
+                k-distributions
   io/           netCDF domain and phase-table files
   models/       the I3RC step cloud, Landsat and radar scenes
   ops/          grid geometry and the voxel traversal (DDA)
   integrators/  the fastpath planner and trace loop, the general kernel's
-                trace loop and event, tables, results, the Integrator
+                trace loop and event, tables, results, the Integrator, the
+                polarized (Stokes-vector) integrator
+  tools/        the single-sphere Mie series
   kernels/      hand-written CUDA kernels, their plain PyTorch twins, the build
   csrc/         CUDA C++ sources (built with nvcc for sm_90a at first use)
   parallel/     batch statistics
@@ -36,12 +39,16 @@ _EXPORTS = {
     "write_domains": "i3rc_tpu_torch.models.step_cloud",
     "make_landsat_cloud": "i3rc_tpu_torch.models.landsat_cloud",
     "make_radar_cloud": "i3rc_tpu_torch.models.radar_cloud",
+    "PhaseMatrix": "i3rc_tpu_torch.core.phase_matrices",
+    "PhaseMatrixTable": "i3rc_tpu_torch.core.phase_matrices",
     # The port.
     "PhotonSource": "i3rc_tpu_torch.core.illumination",
     "SurfaceDescription": "i3rc_tpu_torch.core.surface",
     "batch_key": "i3rc_tpu_torch.core.rng",
     "Integrator": "i3rc_tpu_torch.integrators.integrator",
     "Results": "i3rc_tpu_torch.integrators.results",
+    "PolarizedIntegrator": "i3rc_tpu_torch.integrators.polarized",
+    "PolarizedResults": "i3rc_tpu_torch.integrators.polarized",
     "run_batches": "i3rc_tpu_torch.parallel.mesh",
     "run_band": "i3rc_tpu_torch.integrators.spectral",
     "run_broadband": "i3rc_tpu_torch.integrators.spectral",

@@ -15,8 +15,9 @@ on the CPU.  The port covers flux and radiance with ray tracing
 its local estimate with the namelist's Iwabuchi roulette and ``zetaMin``,
 hybrid phase functions and contribution clipping) or maximum cross-section
 (the fastpath where it has a plan, else the general kernel), over a black
-or Lambertian (``surfaceAlbedo``) surface; polarized transport raises
-NotImplementedError naming ROADMAP item 17.
+or Lambertian (``surfaceAlbedo``) surface; with ``polarized = .true.`` the
+Stokes-vector integrator (integrators/polarized.py: a domain of phase
+matrices, Stokes radiances, column absorption only).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+import warnings
+from dataclasses import replace
 
 import numpy as np
 
@@ -35,7 +38,9 @@ from i3rc_tpu_torch.io.netcdf import read_domain
 from i3rc_tpu_torch.utils.namelist import read_namelist
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.integrators.integrator import Integrator
+from i3rc_tpu_torch.integrators.polarized import PolarizedIntegrator
 from i3rc_tpu_torch.parallel.mesh import run_batches
+from i3rc_tpu_torch.utils.errors import I3RCWarning
 
 
 def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") -> dict:
@@ -79,9 +84,6 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     # Intensity directions: nonzero mus count (:151-154)
     mus, phis, compute_intensity = intensity_directions(
         intensity_mus, intensity_phis, bool(out_rad) or bool(out_netcdf))
-    if polarized:
-        raise NotImplementedError("monte_carlo_driver: polarized transport: ROADMAP item 17")
-
     # --- domain + integrator ------------------------------------------------
     domain = read_domain(domain_file)
     config = IntegratorConfig(
@@ -98,8 +100,19 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
         compute_volume_absorption=(report_volume or report_profile
                                    or bool(out_abs_prof) or bool(out_abs_vol)),
     )
-    integ = Integrator.create(domain, config=config, surface_albedo=surface_albedo,
-                              intensity_mus=mus, intensity_phis=phis, device=device)
+    if polarized:
+        # Polarized transport (the reference's Wishlist item 3) tallies
+        # column absorption only.
+        if config.compute_volume_absorption:
+            warnings.warn("polarized transport reports column absorption only; "
+                          "volume-absorption outputs are skipped", I3RCWarning, stacklevel=2)
+            config = replace(config, compute_volume_absorption=False)
+        integ = PolarizedIntegrator.create(domain, config=config, surface_albedo=surface_albedo,
+                                           intensity_mus=mus, intensity_phis=phis,
+                                           device=device)
+    else:
+        integ = Integrator.create(domain, config=config, surface_albedo=surface_albedo,
+                                  intensity_mus=mus, intensity_phis=phis, device=device)
     source = PhotonSource.directional(solar_mu, solar_azimuth)
     t_setup = time.perf_counter() - t0
     if not quiet:
@@ -108,8 +121,9 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     def derive(res):
         out = {"mean_flux_up": res.mean_flux_up,
                "mean_flux_down": res.mean_flux_down,
-               "mean_flux_absorbed": res.mean_flux_absorbed,
-               "absorbed_profile": res.absorbed_profile}
+               "mean_flux_absorbed": res.mean_flux_absorbed}
+        if not polarized:
+            out["absorbed_profile"] = res.absorbed_profile
         if compute_intensity:
             out["mean_intensity"] = res.mean_intensity
         return out
@@ -141,8 +155,15 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     flux_up = (np_(res_m.flux_up), np_(res_e.flux_up))
     flux_down = (np_(res_m.flux_down), np_(res_e.flux_down))
     flux_abs = (np_(res_m.flux_absorbed), np_(res_e.flux_absorbed))
-    profile = (np_(der_m["absorbed_profile"]), np_(der_e["absorbed_profile"]))
-    volume = (np_(res_m.volume_absorption), np_(res_e.volume_absorption))
+    if polarized:
+        # Polarized transport tallies column absorption only.
+        nz = domain.n_z
+        zeros3 = np.zeros(flux_up[0].shape + (nz,), np.float32)
+        profile = (np.zeros(nz, np.float32), np.zeros(nz, np.float32))
+        volume = (zeros3, zeros3)
+    else:
+        profile = (np_(der_m["absorbed_profile"]), np_(der_e["absorbed_profile"]))
+        volume = (np_(res_m.volume_absorption), np_(res_e.volume_absorption))
     radiance = ((np_(res_m.intensity), np_(res_e.intensity))
                 if compute_intensity else None)
     mean_stats = [(float(der_m[k]), float(der_e[k]))

@@ -151,13 +151,28 @@ def add_phase_function_table(nc, table, prefix: str = "") -> None:
 def read_phase_function_table_nc(nc, prefix: str = ""):
     """Read a table from an open netcdf_file (read_PhaseFunctionTable analog).
 
-    Returns a PhaseFunctionTable.  A file with the polarized-extension
-    ``phaseMatrixElements`` variable raises NotImplementedError: the port
-    has no phase matrices yet (ROADMAP item 17).
+    Returns a PhaseMatrixTable when the polarized-extension
+    ``phaseMatrixElements`` variable is present (see
+    _add_phase_matrix_table), else a PhaseFunctionTable.
     """
     if prefix + "phaseMatrixElements" in nc.variables:
-        raise NotImplementedError(
-            "polarized phase-matrix tables: ROADMAP item 17 (polarized transport)")
+        from i3rc_tpu_torch.core.phase_matrices import PhaseMatrix, PhaseMatrixTable
+
+        key = _var(nc, prefix + "phaseFunctionKeyT").astype(np.float64)
+        ext = _var(nc, prefix + "extinctionT").astype(np.float64)
+        ssa = _var(nc, prefix + "singleScatteringAlbedoT").astype(np.float64)
+        angles = _var(nc, prefix + "scatteringAngle").astype(np.float64)
+        p11 = _var(nc, prefix + "phaseFunctionValues").astype(np.float64)
+        el = _var(nc, prefix + "phaseMatrixElements").astype(np.float64)
+        mats = [
+            PhaseMatrix.from_elements(
+                angles, p11[i], el[i, 0], a2=el[i, 1], a3=el[i, 2],
+                a4=el[i, 3], b2=el[i, 4], extinction=ext[i],
+                single_scattering_albedo=ssa[i])
+            for i in range(key.size)
+        ]
+        return PhaseMatrixTable.from_phase_matrices(
+            mats, key, description=_att(nc, prefix + "description", "") or "")
     storage = _att(nc, prefix + "phaseFunctionStorageType")
     if storage is None:
         raise ValidationError(

@@ -123,10 +123,57 @@ def test_driver_radiance_with_ray_tracing(tmp_path, algorithms):
         assert nc.Algorithm == b"Ray_tracing" and "intensity" in nc.variables
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(algorithms="useRayTracing = .false., polarized = .true.,"), "item 17"),
-])
-def test_driver_rejects_out_of_slice(tmp_path, kwargs, item):
-    write_domains(str(tmp_path))
-    with pytest.raises(NotImplementedError, match=item):
-        run_from_namelist(_namelist(tmp_path, **kwargs), quiet=True, device="cpu")
+def test_driver_runs_the_polarized_namelist(tmp_path):
+    """``polarized = .true.`` (the namelist of tests/test_polarized.py:380-433):
+    the port's driver writes the Stokes radiance file and the netCDF
+    ``intensity`` (stokes, direction, y, x), and its flux means agree with
+    the JAX driver's on the same namelist and domain file within 5 combined
+    standard errors."""
+    import importlib.util
+
+    from i3rc_tpu.drivers.monte_carlo_driver import run_from_namelist as jax_run
+
+    spec = importlib.util.spec_from_file_location(
+        "polarized_scenes", Path(__file__).with_name("polarized_scenes.py"))
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    from i3rc_tpu_torch.io.netcdf import write_domain
+
+    dom_path = str(tmp_path / "ray.dom")
+    write_domain(scenes.rayleigh_slab(scenes.host("i3rc_tpu_torch"), 0.5), dom_path)
+    outs = []
+    for tag, run in (("port", lambda p: run_from_namelist(p, quiet=True, device="cpu")),
+                     ("jax", lambda p: jax_run(p, quiet=True))):
+        nml = tmp_path / f"{tag}.nml"
+        nml.write_text(textwrap.dedent(f"""
+        &radiativeTransfer
+          solarFlux = 1., solarMu = 0.6, solarAzimuth = 0., surfaceAlbedo = 0.2,
+          intensityMus = 0.8, 0.4,  intensityPhis = 0., 120.,
+        /
+        &monteCarlo
+          numPhotonsPerBatch = 4000, numBatches = 4, iseed = 3
+        /
+        &algorithms
+          useRayTracing = .false., polarized = .true.,
+        /
+        &fileNames
+          domainFileName = "{dom_path}",
+          outputFluxFile = "{tmp_path}/{tag}_flux.out",
+          outputRadFile = "{tmp_path}/{tag}_rad.out",
+          outputNetcdfFile = "{tmp_path}/{tag}.nc"
+        /
+        &output
+        /
+        """))
+        outs.append(run(str(nml)))
+    port, ref = outs
+    assert (tmp_path / "port_flux.out").is_file()
+    assert "Stokes" in (tmp_path / "port_rad.out").read_text()
+    mean, err = port["radiance"]
+    assert mean.shape == (1, 1, 2, 4) and np.all(mean[..., 0] > 0) and np.all(err[..., 0] >= 0)
+    with netcdf_file(str(tmp_path / "port.nc"), "r", mmap=False) as nc:
+        v = nc.variables["intensity"]
+        assert v.dimensions == ("stokes", "direction", "y", "x")
+        assert nc.variables["intensity_StdErr"].shape == v.shape
+    for (m, e), (mj, ej) in zip(port["mean_stats"], ref["mean_stats"]):
+        assert abs(m - mj) <= 5 * np.hypot(e, ej), (port["mean_stats"], ref["mean_stats"])
