@@ -30,17 +30,26 @@ process, it runs every build on identical inputs, alternating the builds
   its parameter block is a prefix of this checkout's (the detectors'
   fields were appended): its library is built from the sources it has and
   given the flux cases only.
-* estimate: G with detectors (its ``general_estimate`` stage) of each
-  build on ``chip_smoke.py`` phase 32's path (a) scene (the step cloud
-  through the default configuration with the I3RC detectors, 2^22 photons
-  at 2^20 lanes): its mid-flight and tail blocks (device ms per launch,
-  each build's state bit-equal to the twin's; the tallies too for this
-  checkout's build) and one batch by the profiler.  A copy of ``csrc``
-  whose estimate stage adds nothing to the tallies (the ``tally_add``
-  calls of ``general_estimate`` removed: a build for this measurement
-  only) gives the tally's share.  The other builds' lane state and
-  estimate steps are held to the twin's; their tallies and ray counts are
-  not (an earlier commit's build has no ray counts).
+* estimate: G with detectors (its estimate stage) of each build on the
+  radiance paths of ``chip_smoke.py`` phases 33-35, each built as phase 32
+  builds it at its photons and lanes: (a) the step cloud through the
+  default configuration with the I3RC detectors, exact and Iwabuchi (2^22
+  photons at 2^20 lanes), (b) its Woodcock bench row (2^16 lanes) and (c)
+  Landsat(0.99) with 2 detectors, ratio tracking in the weight-1 class
+  (2^21 at 2^20).  Per path its mid-flight and tail blocks (device ms per
+  launch, each build's state, estimate steps and rays bit-equal to the
+  twin's; the tallies too for this checkout's build) and one batch per
+  build and round by the profiler (``--cases`` picks paths by name:
+  a_exact, a_iwabuchi, b, c).  A copy of ``csrc`` whose estimate adds
+  nothing to the tallies (a build for this measurement only) gives the
+  tally's share; an earlier commit's build may have no ray counts.
+* polarized: the polarized event block PZ (``polarized_event_block.cu``)
+  of each build on ``chip_smoke.py`` phases 52-53's scenes (the bench row,
+  2^23 photons at 2^16 lanes; the Mie step cloud with 3 detectors, 2^22 at
+  2^20): the mid-flight and tail blocks (device ms, each build's state
+  bit-equal to the twin's, this checkout's tallies within 1e-9 too) and
+  one batch per build and round (``chip_smoke.
+  pz_batch_time``: PZ's device ms over the batch, by the profiler).
 * rates: the end-to-end photons/s of the four slices (step-cloud flux and
   radiance, broadband, Landsat, timed as ``chip_smoke.py`` phases 5, 9, 13
   and 16 time them) and of the two general paths (phases 27 and 28, with
@@ -69,6 +78,7 @@ root:
     python3 benchmarks/torch_event_block_ab.py --parts rates --tree parent=build/ab/parent
     python3 benchmarks/torch_event_block_ab.py --parts general --build compact=build/ab/compact/csrc
     python3 benchmarks/torch_event_block_ab.py --parts estimate --build notally=build/ab/notally/csrc
+    python3 benchmarks/torch_event_block_ab.py --parts estimate,polarized --build parent=build/ab/parent/i3rc_tpu_torch/csrc
 """
 
 from __future__ import annotations
@@ -124,6 +134,24 @@ def general_library():
     return built
 
 
+def polarized_library():
+    """PZ's library of ``kbuild.CSRC``, its C function declared as
+    ``polarized_block.build`` declares it; another commit's parameter block
+    must be a prefix of this checkout's."""
+    import ctypes
+
+    import i3rc_tpu_torch.kernels.polarized_block as pbm
+
+    built = kbuild.build("polarized_event_block", ("polarized_event_block.cu",))
+    lib, vp, ci = built.lib, ctypes.c_void_p, ctypes.c_int
+    lib.i3rc_polarized_params_size.restype = ci
+    lib.i3rc_polarized_event_block.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.i3rc_polarized_event_block.restype = ci
+    if lib.i3rc_polarized_params_size() > ctypes.sizeof(pbm._PolParams):
+        raise RuntimeError(f"{kbuild.CSRC}: its PolParams is not a prefix of this one")
+    return built
+
+
 def event_library():
     """The event-block library of ``kbuild.CSRC`` from the sources it has, its
     C interface declared as ``event_block.build`` declares it; another
@@ -135,20 +163,24 @@ def event_library():
     return built
 
 
-_BUILD_FNS = {"event_block": event_library, "general_block": general_library}
+_BUILD_FNS = {"event_block": event_library, "general_block": general_library,
+              "polarized_block": polarized_library}
 _BUILD_ONE = ("import sys; from pathlib import Path; sys.path.insert(0, {root!r}); "
               "import i3rc_tpu_torch.kernels.build as kb; kb.CSRC = Path(sys.argv[1]); "
               "import benchmarks.torch_event_block_ab as ab; ab._BUILD_FNS[{module!r}]()")
 
 
 def build_all(dirs: dict, module: str = "event_block") -> dict:
-    """{name: Built}: this checkout's library of ``module`` (event_block or
-    general_block) and one per source directory, the others compiled in
-    child processes while this one compiles."""
+    """{name: Built}: this checkout's library of ``module`` (event_block,
+    general_block or polarized_block) and one per source directory, the
+    others compiled in child processes while this one compiles."""
+    import i3rc_tpu_torch.kernels.polarized_block as pbm
+
     code = _BUILD_ONE.format(root=str(ROOT), module=module)
     procs = {name: subprocess.Popen([sys.executable, "-c", code, str(Path(d).resolve())],
                                     cwd=ROOT) for name, d in dirs.items()}
-    built = {"this": eb.build() if module == "event_block" else gb.build()}
+    built = {"this": {"event_block": eb, "general_block": gb,
+                      "polarized_block": pbm}[module].build()}
     for name, p in procs.items():
         if p.wait() != 0:
             raise RuntimeError(f"build {name} failed")
@@ -157,7 +189,7 @@ def build_all(dirs: dict, module: str = "event_block") -> dict:
         kbuild.CSRC = Path(d).resolve()
         try:
             # The cached library of that build.
-            built[name] = event_library() if module == "event_block" else general_library()
+            built[name] = _BUILD_FNS[module]()
         finally:
             kbuild.CSRC = own
     return built
@@ -396,80 +428,166 @@ def general_ab(builds: dict, dev, card: str, cases) -> dict:
     return out
 
 
-def estimate_ab(builds: dict, dev, card: str) -> dict:
-    """G with detectors of each build: path (a)'s mid-flight and tail blocks
-    (chip_smoke.py phase 32's scene), then one batch of path (a), the
-    builds alternating; every build's lane state bit-equal to the twin's,
-    this checkout's tallies within 1e-9 of the twin's too."""
-    from i3rc_tpu_torch import Integrator, PhotonSource, batch_key, make_step_cloud
+ESTIMATE_PATHS = ("a_exact", "a_iwabuchi", "b", "c")
+
+
+def estimate_path(name: str, dev):
+    """(integrator, photons, lanes) of a radiance path, as chip_smoke.py
+    phases 32-35 build it."""
+    from i3rc_tpu_torch import IntegratorConfig
+
+    if name == "a_exact":
+        return cs.step_cloud_radiance(dev), cs.RAD_GENERAL_PHOTONS, cs.GENERAL_LANES
+    if name == "a_iwabuchi":
+        cfg = IntegratorConfig(use_russian_roulette_for_intensity=True, zeta_min=0.3)
+        return cs.step_cloud_radiance(dev, cfg), cs.RAD_GENERAL_PHOTONS, cs.GENERAL_LANES
+    if name == "b":
+        return (cs.step_cloud_radiance(dev, cs.woodcock_bench_config()), cs.RAD_GENERAL_PHOTONS,
+                cs.RAD_WOODCOCK_LANES)
+    return (cs.landsat_radiance(dev), cs.LANDSAT_RAD_PHOTONS,
+            min(cs.LANDSAT_RAD_PHOTONS, cs.GENERAL_LANES))
+
+
+def estimate_ab(builds: dict, dev, card: str, cases=()) -> dict:
+    """G with detectors of each build on each radiance path: its mid-flight
+    and tail blocks, then one batch per build and round, the builds
+    alternating; every build's lane state, estimate steps and rays
+    bit-equal to the twin's, this checkout's tallies within 1e-9 of the
+    twin's too."""
+    from i3rc_tpu_torch import PhotonSource, batch_key
 
     out = {"blocks": [], "batches": []}
     names = list(builds)
-    use(builds["this"], gb)
     src = PhotonSource.directional(0.5, 0.0)
-    n, L = cs.RAD_GENERAL_PHOTONS, cs.GENERAL_LANES
-    integ = Integrator.create(make_step_cloud(1.0), device=dev, intensity_mus=cs.DET_MUS,
-                              intensity_phis=cs.DET_PHIS)
-    tracer = integ.general_tracer(n, L)
-    spec, tables, opt = tracer.spec, integ.tables, integ.device_optics
-    var = gb.variant(spec, opt)
-    key = batch_key(cs.SEED, 990)
-    st = gb.launch_state(spec, src.sample(key, L, dev), n)
-    buf = gb.general_buffers(spec, st, min(L, n))
-    gb.general_block(spec, var, opt, tables, st, buf, key, src, 0)
-    states, kb = [("mid", st.clone(), buf.clone(), 1)], 1
-    while not (int(buf.ctl[kb & 1]) >= n and float(st.i[gb.ALIVE].float().mean()) <= 0.15):
-        gb.general_block(spec, var, opt, tables, st, buf, key, src, kb)
-        kb += 1
-    states.append(("tail", st.clone(), buf.clone(), kb))
-    for state, s0, b0, kb_s in states:
-        sr, br = s0.clone(), b0.clone()
-        gb.general_block_reference(spec, var, opt, tables, sr, br, key, src, kb_s)
-        run = lambda s, b: gb.general_block(spec, var, opt, tables, s, b, key, src, kb_s)
-        for bname in names:
-            use(builds[bname], gb)
-            sk, bk = s0.clone(), b0.clone()
-            run(sk, bk)
-            torch.cuda.synchronize()
-            cs.check(torch.equal(sk.f, sr.f) and torch.equal(sk.i, sr.i)
-                     and torch.equal(bk.int_steps, br.int_steps),
-                     f"G+estimate {state}: build {bname} differs from the twin")
-            if bname == "this":
-                err = float((bk.intensity - br.intensity).abs().max()) / float(br.intensity.max())
-                cs.check(err <= 1e-9 and torch.equal(bk.int_rays, br.int_rays),
-                         f"G+estimate {state}: tallies {err:.2e} or ray counts differ")
-        ms = {b: [] for b in names}
-        for r in range(ROUNDS):
+    for row, path in enumerate(ESTIMATE_PATHS):
+        if cases and path not in cases:
+            continue
+        use(builds["this"], gb)
+        integ, n, L = estimate_path(path, dev)
+        tracer = integ.general_tracer(n, L)
+        spec, tables, opt = tracer.spec, integ.tables, integ.device_optics
+        var = gb.variant(spec, opt)
+        key = batch_key(cs.SEED, 990 + row)
+        st = gb.launch_state(spec, src.sample(key, L, dev), n)
+        buf = gb.general_buffers(spec, st, min(L, n))
+        gb.general_block(spec, var, opt, tables, st, buf, key, src, 0)
+        states, kb = [("mid", st.clone(), buf.clone(), 1)], 1
+        while not (int(buf.ctl[kb & 1]) >= n and float(st.i[gb.ALIVE].float().mean()) <= 0.15):
+            gb.general_block(spec, var, opt, tables, st, buf, key, src, kb)
+            kb += 1
+        states.append(("tail", st.clone(), buf.clone(), kb))
+        for state, s0, b0, kb_s in states:
+            sr, br = s0.clone(), b0.clone()
+            gb.general_block_reference(spec, var, opt, tables, sr, br, key, src, kb_s)
+            run = lambda s, b: gb.general_block(spec, var, opt, tables, s, b, key, src, kb_s)
+            for bname in names:
+                use(builds[bname], gb)
+                sk, bk = s0.clone(), b0.clone()
+                run(sk, bk)
+                torch.cuda.synchronize()
+                cs.check(torch.equal(sk.f, sr.f) and torch.equal(sk.i, sr.i)
+                         and torch.equal(bk.int_steps, br.int_steps),
+                         f"G+estimate {path} {state}: build {bname} differs from the twin")
+                if bname == "this":
+                    err = float((bk.intensity - br.intensity).abs().max()) / max(
+                        float(br.intensity.abs().max()), 1e-300)
+                    cs.check(err <= 1e-9 and torch.equal(bk.int_rays, br.int_rays),
+                             f"G+estimate {path} {state}: tallies {err:.2e} or ray counts differ")
+            ms = {b: [] for b in names}
+            for r in range(ROUNDS):
+                for bname in order(names, r):
+                    use(builds[bname], gb)
+                    ms[bname].append(cs.general_block_ms(run, lambda: (s0.clone(), b0.clone()),
+                                                         10)[1])
+            out["blocks"].append({"path": path, "state": state, "ms": ms,
+                                  "alive": float(s0.i[gb.ALIVE].float().mean())})
+            for bname in names:
+                cs.say("ab estimate-block", path=path, state=state, build=bname,
+                       alive=f"{out['blocks'][-1]['alive']:.4f}",
+                       device_ms=",".join(f"{t:.4f}" for t in ms[bname]),
+                       device_ms_median=f"{statistics.median(ms[bname]):.4f}",
+                       card=json.dumps(card))
+        bkey = batch_key(cs.SEED, 995 + row)
+        batch = lambda: tracer(bkey, src.sample(bkey, L, "cuda"), src)
+        batch()
+        torch.cuda.synchronize()
+        recs = {b: [] for b in names}
+        for r in range(2):
             for bname in order(names, r):
                 use(builds[bname], gb)
-                ms[bname].append(cs.general_block_ms(run, lambda: (s0.clone(), b0.clone()),
-                                                     10)[1])
-        out["blocks"].append({"state": state, "ms": ms,
-                              "alive": float(s0.i[gb.ALIVE].float().mean())})
+                pb = cs.profile_batch(batch, "general_event_block_kernel")
+                recs[bname].append({"block_ms": pb["block_ms"], "launches": pb["block_launches"],
+                                    "host_ms": pb["wall_ms"],
+                                    "rays": int(pb["raw"].n_int_rays)})
         for bname in names:
-            cs.say("ab estimate-block", state=state, build=bname,
-                   alive=f"{out['blocks'][-1]['alive']:.4f}",
-                   device_ms=",".join(f"{t:.4f}" for t in ms[bname]),
-                   device_ms_median=f"{statistics.median(ms[bname]):.4f}", card=json.dumps(card))
-    bkey = batch_key(cs.SEED, 995)
-    batch = lambda: tracer(bkey, src.sample(bkey, L, "cuda"), src)
-    batch()
-    torch.cuda.synchronize()
-    recs = {b: [] for b in names}
-    for r in range(2):
-        for bname in order(names, r):
-            use(builds[bname], gb)
-            pb = cs.profile_batch(batch, "general_event_block_kernel")
-            recs[bname].append({"block_ms": pb["block_ms"], "launches": pb["block_launches"],
-                                "host_ms": pb["wall_ms"]})
-    for bname in names:
-        out["batches"].append({"build": bname, "photons": n, "batches": recs[bname]})
-        cs.say("ab estimate-batch", build=bname, photons=n,
-               kernel_ms=",".join(f"{r['block_ms']:.3f}" for r in recs[bname]),
-               launches=recs[bname][0]["launches"],
-               host_ms=",".join(f"{r['host_ms']:.3f}" for r in recs[bname]),
-               card=json.dumps(card))
+            out["batches"].append({"path": path, "build": bname, "photons": n, "lanes": L,
+                                   "batches": recs[bname]})
+            cs.say("ab estimate-batch", path=path, build=bname, photons=n, lanes=L,
+                   kernel_ms=",".join(f"{r['block_ms']:.3f}" for r in recs[bname]),
+                   launches=recs[bname][0]["launches"], rays=recs[bname][0]["rays"],
+                   host_ms=",".join(f"{r['host_ms']:.3f}" for r in recs[bname]),
+                   card=json.dumps(card))
     use(builds["this"], gb)
+    return out
+
+
+def polarized_ab(builds: dict, dev, card: str, cases=()) -> dict:
+    """PZ of each build on phases 52-53's scenes: the mid-flight and tail
+    blocks (each build bit-equal to the twin), then one batch per build and
+    round, the builds alternating."""
+    import i3rc_tpu_torch.kernels.polarized_block as pbm
+    from i3rc_tpu_torch import batch_key
+
+    pzs = cs._load_tests_module("polarized_scenes")
+    out = {"blocks": [], "batches": []}
+    names = list(builds)
+    for row, name in enumerate(("53_mie_step_cloud", "52_bench")):
+        if cases and name not in cases:
+            continue
+        use(builds["this"], pbm)
+        sc = cs.pz_scene(name, dev)
+        key = batch_key(cs.SEED, 1310 + row)
+        spec, states = pzs.trace_states(sc.integ, sc.src, sc.n, sc.lanes, key)
+        for state, s0, b0, kb in states[1:]:
+            run = lambda s, b: pbm.polarized_block(spec, s, b, key, sc.src, kb)
+            for bname in names:
+                use(builds[bname], pbm)
+                r = pzs.block_vs_twin(spec, s0, b0, key, sc.src, kb)
+                cs.check(r["bit_equal"] and (bname != "this" or r["tally_abs_err"] <= 1e-9),
+                         f"PZ {name} {state}: build {bname} differs from the twin: {r}")
+            ms = {b: [] for b in names}
+            for r in range(ROUNDS):
+                for bname in order(names, r):
+                    use(builds[bname], pbm)
+                    ms[bname].append(cs.device_block_ms(run, s0, b0.clone, 10,
+                                                        "polarized_event_block"))
+            alive = float((s0.i[0] != 0).float().mean())
+            out["blocks"].append({"scene": name, "state": state, "ms": ms, "alive": alive})
+            for bname in names:
+                cs.say("ab polarized-block", scene=name, state=state, build=bname,
+                       alive=f"{alive:.4f}", device_ms=",".join(f"{t:.4f}" for t in ms[bname]),
+                       device_ms_median=f"{statistics.median(ms[bname]):.4f}",
+                       card=json.dumps(card))
+        bkey = batch_key(cs.SEED, 1320 + row)
+        cs.pz_batch_time(sc.integ, sc.src, sc.n, sc.lanes, bkey, profile=False)
+        recs = {b: [] for b in names}
+        for r in range(2):
+            for bname in order(names, r):
+                use(builds[bname], pbm)
+                bk = cs.pz_batch_time(sc.integ, sc.src, sc.n, sc.lanes, bkey)
+                recs[bname].append({"kernel_ms": bk["kernel_ms"], "from": bk["kernel_ms_from"],
+                                    "launches": bk["launches"], "rays": bk["rays"],
+                                    "rounds": bk["rounds"], "bound_ms": bk["bound"][0],
+                                    "flushes": bk["flushes"]})
+        for bname in names:
+            out["batches"].append({"scene": name, "build": bname, "photons": sc.n,
+                                   "lanes": sc.lanes, "batches": recs[bname]})
+            cs.say("ab polarized-batch", scene=name, build=bname, photons=sc.n, lanes=sc.lanes,
+                   kernel_ms=",".join(f"{r['kernel_ms']:.3f}" for r in recs[bname]),
+                   kernel_ms_from=recs[bname][0]["from"], launches=recs[bname][0]["launches"],
+                   rays=recs[bname][0]["rays"], rounds=recs[bname][0]["rounds"],
+                   bound_ms=f"{recs[bname][0]['bound_ms']:.3f}", card=json.dumps(card))
+    use(builds["this"], pbm)
     return out
 
 
@@ -598,7 +716,7 @@ def main() -> int:
                     help="another checkout's root, for the rates part")
     ap.add_argument("--parts", default="blocks,batches,broadband",
                     help="comma-separated subset of blocks, batches, broadband, general, "
-                         "estimate, rates")
+                         "estimate, polarized, rates")
     ap.add_argument("--cases", default="",
                     help="comma-separated block and batch case names (default: all)")
     ap.add_argument("--out", default=str(ROOT / "build" / "event_block_ab.json"),
@@ -628,7 +746,11 @@ def main() -> int:
     if "general" in parts:
         result["general"] = general_ab(gbuilds, dev, card, cases)
     if "estimate" in parts:
-        result["estimate"] = estimate_ab(gbuilds, dev, card)
+        result["estimate"] = estimate_ab(gbuilds, dev, card, cases)
+    if "polarized" in parts:
+        pbuilds = build_all(dirs, "polarized_block")
+        cs.say("ab polarized builds", builds=",".join(pbuilds), card=json.dumps(card))
+        result["polarized"] = polarized_ab(pbuilds, dev, card, cases)
     if "blocks" in parts:
         result["blocks"] = block_ab(builds, dev, card, cases)
     if "batches" in parts:

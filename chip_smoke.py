@@ -1350,21 +1350,21 @@ def main() -> int:
     pptx = ptxas_polarized(pbuilt.log)
     say("2 build-polarized", seconds=f"{pbuilt.seconds:.1f}", library=pbuilt.path.name,
         instantiations=len(pptx),
-        **{k: "{registers}regs/{stack_bytes}Bstack/{spill_store_bytes}Bspill/{ctas_per_sm}cta"
-           .format(**v) for k, v in sorted(pptx.items())})
-    # PZ: the four instantiations, each at 3 CTAs per SM or more; the flux
-    # set (no detectors) spills nothing.
+        **{k: PTXAS_FMT.format(**v) + f"(before:{BEFORE_QUEUE_PTXAS['pz_' + k]})"
+           for k, v in sorted(pptx.items())})
+    # PZ: the four instantiations, each at 3 CTAs per SM or more, none
+    # spilling.
     check(sorted(pptx) == sorted(pb.VARIANTS), f"PZ instantiations {sorted(pptx)}")
     for name, v in pptx.items():
         check(v.get("ctas_per_sm", 0) >= 3, f"PZ {name}: {v}")
-        if "detectors" not in name:
-            check(v.get("spill_store_bytes", 1) == 0, f"PZ {name} spills: {v}")
+        check(v.get("spill_store_bytes", 1) == 0, f"PZ {name} spills: {v}")
     gptx = ptxas_general(gbuilt.log)
     check(len(gptx) == 26, f"general kernel instantiations {sorted(gptx)}")
     say("2 build-general", seconds=f"{gbuilt.seconds:.1f}", library=gbuilt.path.name,
         instantiations=len(gptx),
-        **{k: "{registers}regs/{stack_bytes}Bstack/{spill_store_bytes}Bspill/{ctas_per_sm}cta"
-           .format(**v) for k, v in sorted(gptx.items())})
+        **{k: PTXAS_FMT.format(**v)
+           + (f"(before:{BEFORE_QUEUE_PTXAS[k]})" if k in BEFORE_QUEUE_PTXAS else "")
+           for k, v in sorted(gptx.items())})
     # <= 64 registers keeps 4 CTAs of 256 threads on an SM; the flux
     # instantiations spill nothing.
     for name, v in gptx.items():
@@ -2684,11 +2684,14 @@ def general_batch_record(integ, src, n: int, lanes: int, seed: int, card: str, t
     from the batch's tallies).  ``optics``: the batch runs those optics
     through the general kernel (the traced spectral mode)."""
     from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.kernels.general_block import ray_flush_counter
 
     key = batch_key(SEED, seed)
     tracer = integ.general_tracer(n, lanes)
     run_batch = lambda: (tracer(key, src.sample(key, lanes, "cuda"), src) if optics is None
                          else tracer(key, src.sample(key, lanes, "cuda"), src, optics))
+    flushes = ray_flush_counter("cuda")
+    flushes.zero_()
     pb = profile_batch(run_batch, "general_event_block_kernel") if profile else None
     if pb is None:
         raw = run_batch()
@@ -2701,17 +2704,21 @@ def general_batch_record(integ, src, n: int, lanes: int, seed: int, card: str, t
     n_bytes = n * 2 * GSTATE_ROWS * 4 + 8 * lanes * launches
     # With detectors: the estimate's DDA steps and rays (D per physical
     # collision and estimating surface event, counted per lane), the two
-    # per-lane counters and the radiance tallies.
+    # per-lane counters and the radiance tallies; the ray queues' flushes.
     det = tracer.spec.det
     int_steps = int(raw.n_int_steps) if det is not None else 0
     rays = int(raw.n_int_rays) if det is not None else 0
+    n_flushes = int(flushes[0])
     if det is not None:
         n_bytes += 16 * lanes * launches + 16 * raw.intensity.numel()
     bound = general_bound(steps + int_steps, events, max(events - n, 0), n_bytes, rays)
     rec = {"bound": bound, "launches": launches, "raw": raw, "steps": steps, "events": events,
-           "int_steps": int_steps, "rays": rays}
+           "int_steps": int_steps, "rays": rays, "flushes": n_flushes}
     fields = dict(photons=n, lanes=lanes, blocks=launches, lane_events=events, dda_steps=steps,
                   estimate_steps=int_steps, estimate_rays=rays, bound_ms=f"{bound[0]:.3f}", bound_by=bound[1])
+    if det is not None:
+        fields.update(ray_flushes=n_flushes,
+                      ray_flushes_per_block=f"{n_flushes / max(launches, 1):.1f}")
     if pb is not None:
         rec.update(kernel_ms=pb["block_ms"], idle=pb["idle_share"])
         fields.update(block_launches=pb["block_launches"],
@@ -3000,9 +3007,10 @@ def general_entry(timed: dict, err: float, rec: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The general kernel's local estimate: G's general_estimate stage (the DET
-# instantiations, csrc/general_event_block_det.cu) against its plain version,
-# and its paths
+# The general kernel's local estimate: G's estimate stage (the DET
+# instantiations, csrc/general_event_block_det.cu: each estimate a record in
+# the CTA's ray queue, traced by the CTA after its lanes' events) against its
+# plain version, and its paths
 
 RAD_GENERAL_PHOTONS = 1 << 22       # paths (a) and (b)
 LANDSAT_RAD_PHOTONS = 1 << 21       # bench.py:218-246's row
@@ -4278,6 +4286,32 @@ OPS_PER_PZ_ROUND = (120, 6)
 PZ_STATE_ROWS = 19                  # 13 float, 6 int32
 
 
+# ptxas of the sets with detectors, and of PZ's, as the build before the
+# estimate stages traced their rays from the CTAs' ray queues gave them
+# (registers / stack / spill stores / CTAs per SM; NVIDIA H100 80GB HBM3
+# machine's nvcc, its phase 2): phase 2 prints each beside this build's.
+BEFORE_QUEUE_PTXAS = {
+    "maxcs_general_det": "64regs/448Bstack/556Bspill/4cta",
+    "maxcs_general_reflecting_det": "64regs/512Bstack/636Bspill/4cta",
+    "maxcs_uniform_det": "64regs/448Bstack/516Bspill/4cta",
+    "maxcs_uniform_reflecting_det": "64regs/496Bstack/588Bspill/4cta",
+    "rt_general_det": "64regs/448Bstack/812Bspill/4cta",
+    "rt_general_reflecting_det": "64regs/512Bstack/852Bspill/4cta",
+    "rt_uniform_det": "64regs/448Bstack/812Bspill/4cta",
+    "rt_uniform_reflecting_det": "64regs/496Bstack/804Bspill/4cta",
+    "woodcock_general_det": "64regs/464Bstack/712Bspill/4cta",
+    "woodcock_general_reflecting_det": "64regs/512Bstack/772Bspill/4cta",
+    "woodcock_uniform_det": "64regs/448Bstack/692Bspill/4cta",
+    "woodcock_uniform_reflecting_det": "64regs/496Bstack/740Bspill/4cta",
+    "woodcock_uniform_weight1_det": "64regs/448Bstack/692Bspill/4cta",
+    "pz_flux": "72regs/56Bstack/0Bspill/3cta",
+    "pz_detectors": "75regs/64Bstack/0Bspill/3cta",
+    "pz_lambertian": "72regs/56Bstack/0Bspill/3cta",
+    "pz_detectors_lambertian": "80regs/64Bstack/0Bspill/3cta",
+}
+PTXAS_FMT = "{registers}regs/{stack_bytes}Bstack/{spill_store_bytes}Bspill/{ctas_per_sm}cta"
+
+
 def ptxas_polarized(log: str) -> dict:
     """Per PZ instantiation (flux, detectors, lambertian, detectors_
     lambertian): registers, the kernel's own stack and spill bytes, CTAs
@@ -4354,6 +4388,8 @@ def pz_batch_time(integ, src, n: int, lanes: int, key, profile: bool = True) -> 
 
     orig = pbm._launch
     rec = []
+    flushes = pbm.ray_flush_counter("cuda")
+    flushes.zero_()
 
     def bracketed(spec, st, buf, key_, source, kb):
         st0 = st.clone()
@@ -4386,7 +4422,7 @@ def pz_batch_time(integ, src, n: int, lanes: int, key, profile: bool = True) -> 
     events_ms = sum(r[1].elapsed_time(r[2]) for r in rec)
     kernel_ms, source = (prof_us / 1e3, "profiler") if prof_us else (events_ms, "cuda-events")
     return {"raw": raw, "launches": len(rec), "blocks": raw["n_blocks"], "kernel_ms": kernel_ms,
-            "kernel_ms_from": source, "events_ms": events_ms, **tot,
+            "kernel_ms_from": source, "events_ms": events_ms, "flushes": int(flushes[0]), **tot,
             "bound": pz_bound(tot["lane_events"], tot["collisions"], tot["rays"],
                               tot["rounds"], n_bytes)}
 
@@ -4396,6 +4432,8 @@ def pz_batch_fields(bk: dict, card: str) -> dict:
                 kernel_ms_from=bk["kernel_ms_from"], events_ms=f"{bk['events_ms']:.3f}",
                 live_lanes=bk["live"], lane_events=bk["lane_events"],
                 collisions=bk["collisions"], rays=bk["rays"], rounds=bk["rounds"],
+                ray_flushes=bk["flushes"],
+                ray_flushes_per_block=f"{bk['flushes'] / max(bk['launches'], 1):.1f}",
                 bound_ms=f"{bk['bound'][0]:.3f}", bound_by=bk["bound"][1], card=json.dumps(card))
 
 

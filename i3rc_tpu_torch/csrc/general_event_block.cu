@@ -30,7 +30,8 @@ int i3rc_general_event_block(float* f, int* i, const GeneralParams* params, int 
                              int uniform, int reflecting, int bernoulli, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const GeneralParams& p = *params;
-  if (p.K < 1 || p.n_draws > GEN_MAX_DRAWS || p.n_params > MAX_BRDF_PARAMS || p.n_dirs < 0)
+  if (p.K < 1 || p.n_draws > GEN_MAX_DRAWS || p.n_params > MAX_BRDF_PARAMS || p.n_dirs < 0
+      || (p.n_dirs > 0 && p.n_comp + 1 > GEN_RAY_MAX_SLOT))
     return (int)cudaErrorInvalidValue;
   if (mode < MODE_RT || mode > MODE_WOOD) return (int)cudaErrorInvalidValue;
   if (bernoulli && (mode != MODE_WOOD || !uniform || reflecting))

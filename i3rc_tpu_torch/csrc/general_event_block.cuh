@@ -51,7 +51,9 @@
 //    weight) and a surface event (an albedo's live reflection with its
 //    post-reflection weight, a BRDF's every bottom hit with the pre-
 //    reflection weight) make the local estimate (wavefront.py:884-1003,
-//    :1487-1497) in general_estimate: per detector the phase value at the
+//    :1487-1497): the lane pushes a record of the event to its CTA's ray
+//    queue (gen_push), and after every lane's K events the CTA traces the
+//    queue's rays (gen_flush): per (record, detector) the phase value at the
 //    photon-to-detector angle from the forward table (the original one for
 //    orders <= n_orig under hybrid phases) over 4 pi |mu_d|, or 1/pi, or
 //    R(in -> detector)/pi, then the transmittance to the boundary: the DDA
@@ -60,11 +62,11 @@
 //    in the weight-1 class the chained tracer's estimator, prefactor ssa P /
 //    (4 pi |mu_d|), a bad or over-long ray counted bad).  A ray that leaves
 //    through its detector's side adds its contribution (clipped at the cap,
-//    the excess kept) to the float64 radiance tallies, summed first over
-//    the lanes of the warp that tally the same bin together (active_red).  The
-//    thread that collided traces its D rays to their end: the JAX package
-//    queued them on the TPU (use_queued_intensity), whose persistent ray
-//    slots have the inline estimator's expectations.
+//    the excess kept) to the float64 radiance tallies.  A ray's draws are
+//    keyed by (lane, kb, event j, detector), so the thread that traces it
+//    changes no number: the kernel is bit-equal to the twin, which traces
+//    each event's rays inline.  (The JAX package's persistent ray slots,
+//    use_queued_intensity, draw another stream.)
 //
 // What bounds it.  Device memory traffic is the lane state (15 rows) once
 // in and out per launch, one 4-byte extinction read per crossing, one
@@ -110,11 +112,43 @@
 // Landsat-general batch (Woodcock, 2^21), 1.05x on a dense Landsat block.
 // The slowest lane's DDA is left: a re-sort per event would address it.
 //
+// The estimate stage (DET).  The first design traced an event's D rays on the
+// thread that collided, inside the event loop: a warp waited for its
+// slowest lane's sum of D rays while lanes without an estimate idled, and
+// the noinline call spilled 516-852 B.  A census of the twin's per-ray DDA
+// steps (kernels/general_block.py ray_census, benchmarks/
+// torch_ray_census.py) put that design's ray lane use at 18-37% and showed
+// that dealing rays 32 at a time, over a warp or a CTA, cannot beat it on
+// dense events (an event's largest sum of D rays is at most the sum of the
+// D rounds' longest rays): only threads that take the next ray as soon as
+// theirs ends can.  So the ray is the unit of work:
+//  * the event loop is the flux set's with a push: a record of three
+//    float4 to the CTA's segment of a device-memory queue (K a lane, so it
+//    never fills; L2 holds it while the launch runs);
+//  * after the lane loop's barrier every thread of the CTA, idle and dead
+//    lanes' too, pulls the queue's rays detector by detector (like rays:
+//    like lengths and bins), one DDA crossing a trip; a warp refills when
+//    at most GEN_REFILL_AT of its threads still have a ray, the ended rays
+//    tallied together (active_red) and the idle threads set up new ones;
+//  * the per-lane integers (int_steps, int_rays, the weight-1 class's bad
+//    rays) reach the lanes' rows by atomics after the lanes stored them.
+// A warp-level buffer in shared memory, flushed by the warp when an event
+// left it more than half full, ran 1.02-1.41x the first design's time per
+// radiance batch: its event loop ran in step to flush, and each flush ended
+// on its longest ray.  Per batch against the first design in one process
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): 0.77x on the step
+// cloud's exact radiance, 0.69x Iwabuchi, 0.85x Woodcock (bench.py:
+// 249-271), 0.48x Landsat's ratio tracking; the DET set spills 0-20 B.  The
+// float64 tallies' atomics are 7-20% of a radiance batch (a build without
+// them).
+//
 // Float arithmetic follows the JAX reference and the PyTorch twin
 // (wavefront.general_event, ops/dda.py) operation by operation, built with
 // --fmad=false; divisions by grid constants are true divisions.
 
 #pragma once
+
+#include <type_traits>
 
 #include "fast_event_block.cuh"
 
@@ -197,6 +231,8 @@ struct GeneralParams {
   double* excess;               // (n_dirs * (n_comp + 1)) float64
   int* int_steps;               // (n_lanes) the lane's estimate DDA steps
   int* int_rays;                // (n_lanes) the lane's estimate rays
+  unsigned long long* flushes;  // the estimate stage's flushes, or null
+  float4* rays;                 // (n_tiles * CTA_THREADS * K * GEN_RAY_F4) the ray records
 };
 
 struct GLane {
@@ -238,13 +274,12 @@ __device__ __forceinline__ float wrap_periodic(float v, float lo, float hi, floa
 // cell (ix, iy, iz) along u until `target` optical depth of `ext` is spent
 // (STATUS_SCATTER, the point inside the cell), the lane leaves through the
 // top or the bottom (STATUS_EXIT_*, z on the boundary, iz clipped), a step is
-// not positive, or max_crossings crossings are used (STATUS_BAD).  With
-// tau_out, the optical depth accumulated (target at a scatter).
+// not positive, or max_crossings crossings are used (STATUS_BAD).
 __device__ __forceinline__ int trace_extinction(const Grid& g, const float* __restrict__ ext,
                                                 float& x, float& y, float& z, int& ix,
                                                 int& iy, int& iz, float ux, float uy,
                                                 float uz, float target, int max_crossings,
-                                                int& steps, float* tau_out = nullptr) {
+                                                int& steps) {
   const int side_x = ux >= 0.0f, side_y = uy >= 0.0f, side_z = uz >= 0.0f;
   const int inc_x = 2 * side_x - 1, inc_y = 2 * side_y - 1, inc_z = 2 * side_z - 1;
   const bool mx = fabsf(ux) >= DIR_EPS_F, my = fabsf(uy) >= DIR_EPS_F,
@@ -275,7 +310,6 @@ __device__ __forceinline__ int trace_extinction(const Grid& g, const float* __re
       x = x + partial * ux;
       y = y + partial * uy;
       z = z + partial * uz;
-      if (tau_out) *tau_out = target;
       return STATUS_SCATTER;
     }
     // A full crossing to the closest face, with the near-corner guard.
@@ -299,17 +333,106 @@ __device__ __forceinline__ int trace_extinction(const Grid& g, const float* __re
     if (iz >= g.nz) {
       iz = g.nz - 1;
       z = g.z_max;
-      if (tau_out) *tau_out = tau;
       return STATUS_EXIT_TOP;
     }
     if (iz < 0) {
       iz = 0;
       z = g.z0;
-      if (tau_out) *tau_out = tau;
       return STATUS_EXIT_BOT;
     }
   }
   return STATUS_BAD;            // the crossing budget (grazing trajectories)
+}
+
+// A ray's direction as the DDA reads it: the side of each axis it moves
+// toward, the cell index step, and the reciprocal of each component that
+// is not near 0 (HUGE_F otherwise).
+struct DdaDir {
+  float ux, uy, uz, inv_ux, inv_uy, inv_uz;
+  int side_x, side_y, side_z;
+  bool mx, my, mz;
+};
+
+__device__ __forceinline__ DdaDir dda_dir(float ux, float uy, float uz) {
+  DdaDir d;
+  d.ux = ux;
+  d.uy = uy;
+  d.uz = uz;
+  d.side_x = ux >= 0.0f;
+  d.side_y = uy >= 0.0f;
+  d.side_z = uz >= 0.0f;
+  d.mx = fabsf(ux) >= DIR_EPS_F;
+  d.my = fabsf(uy) >= DIR_EPS_F;
+  d.mz = fabsf(uz) >= DIR_EPS_F;
+  d.inv_ux = d.mx ? 1.0f / ux : HUGE_F;
+  d.inv_uy = d.my ? 1.0f / uy : HUGE_F;
+  d.inv_uz = d.mz ? 1.0f / uz : HUGE_F;
+  return d;
+}
+
+// One crossing of the DDA (make_crossing_stepper), the body of
+// trace_extinction's loop for a ray that a flush advances one crossing a
+// trip (the same operations; trace_extinction keeps its own, whose code the
+// flux set's registers were fitted to): from (x, y, z) in cell (ix, iy, iz)
+// with `tau` optical depth of `ext` spent so far, either the point inside
+// the cell where it reaches `target` (STATUS_SCATTER, tau = target), or the
+// closest face and the next cell (wrapped in x/y), leaving through the top
+// or the bottom (STATUS_EXIT_*, z on the boundary, iz clipped), a step that
+// is not positive (STATUS_BAD), or STATUS_TRACING to go on.
+__device__ __forceinline__ int dda_crossing(const Grid& g, const float* __restrict__ ext,
+                                            const DdaDir& u, float& x, float& y, float& z,
+                                            int& ix, int& iy, int& iz, float target,
+                                            float& tau) {
+  const float ex = g.xy_regular ? g.x0 + (float)(ix + u.side_x) * g.dx
+                                : __ldg(g.xe + min(max(ix + u.side_x, 0), g.nx));
+  const float ey = g.xy_regular ? g.y0 + (float)(iy + u.side_y) * g.dy
+                                : __ldg(g.ye + min(max(iy + u.side_y, 0), g.ny));
+  const float ez = g.z_regular ? g.z0 + (float)(iz + u.side_z) * g.dz
+                               : __ldg(g.ze + min(max(iz + u.side_z, 0), g.nz));
+  const float sx = u.mx ? (ex - x) * u.inv_ux : HUGE_F;
+  const float sy = u.my ? (ey - y) * u.inv_uy : HUGE_F;
+  const float sz = u.mz ? (ez - z) * u.inv_uz : HUGE_F;
+  const float s = fminf(fminf(sx, sy), sz);
+  if (s <= 0.0f) return STATUS_BAD;                              // :1711-1714
+  const int flat = min(max((ix * g.ny + iy) * g.nz + iz, 0), g.nx * g.ny * g.nz - 1);
+  const float ce = __ldg(ext + flat);
+  if (tau + s * ce > target) {                                   // :1721-1731
+    const float partial = ce > 0.0f ? (target - tau) / fmaxf(ce, EXT_EPS_F) : 0.0f;
+    x = x + partial * u.ux;
+    y = y + partial * u.uy;
+    z = z + partial * u.uz;
+    tau = target;
+    return STATUS_SCATTER;
+  }
+  // A full crossing to the closest face, with the near-corner guard.
+  const float nx_ = x + s * u.ux, ny_ = y + s * u.uy, nz_ = z + s * u.uz;
+  const bool cx = (sx <= s) || (fabsf(ex - nx_) <= 2.0f * (SPACING_EPS_F * fmaxf(fabsf(nx_), EPS20_F)));
+  const bool cy = (sy <= s) || (fabsf(ey - ny_) <= 2.0f * (SPACING_EPS_F * fmaxf(fabsf(ny_), EPS20_F)));
+  const bool cz = (sz <= s) || (fabsf(ez - nz_) <= 2.0f * (SPACING_EPS_F * fmaxf(fabsf(nz_), EPS20_F)));
+  x = cx ? ex : nx_;
+  y = cy ? ey : ny_;
+  z = cz ? ez : nz_;
+  if (cx) ix += 2 * u.side_x - 1;
+  if (cy) iy += 2 * u.side_y - 1;
+  if (cz) iz += 2 * u.side_z - 1;
+  tau = tau + s * ce;
+  // Periodic x/y (:1774-1788): exact edge reassignment.
+  if (ix < 0) { ix = g.nx - 1; x = g.x_max; }
+  else if (ix >= g.nx) { ix = 0; x = g.x0; }
+  if (iy < 0) { iy = g.ny - 1; y = g.y_max; }
+  else if (iy >= g.ny) { iy = 0; y = g.y0; }
+  // Vertical exits (:1793-1804).
+  if (iz >= g.nz) {
+    iz = g.nz - 1;
+    z = g.z_max;
+    return STATUS_EXIT_TOP;
+  }
+  if (iz < 0) {
+    iz = 0;
+    z = g.z0;
+    return STATUS_EXIT_BOT;
+  }
+  return STATUS_TRACING;
 }
 
 // The surface's reflectance at (x, y) for an arrival (mu_in, phi_in) and an
@@ -358,59 +481,6 @@ __device__ __forceinline__ float table_lookup(const float* __restrict__ row, flo
   return (1.0f - frac) * __ldg(row + i0) + frac * __ldg(row + i0 + 1);
 }
 
-// Ratio tracking of one ray to the boundary over the block majorants
-// (wavefront.ratio_transmittance): free paths against the majorants of the
-// block grid, each tentative collision multiplying T by clip(1 - ext /
-// majorant, 0, 1), roulette of T at zeta_ratio; round r reads words
-// 2 (r % 2), 2 (r % 2) + 1 of the Philox call of pair r / 2.  Returns 1 for
-// a bad ray (a bad flight, or alive after `rounds` rounds); T, the exit
-// column and whether it left through the detector's side by reference.
-__device__ __forceinline__ int ratio_track(const GeneralParams& p, int lane, int j, int d,
-                                           float x, float y, float z, float dx, float dy,
-                                           float dz, int rounds, int exit_d, float& T,
-                                           int& fix, int& fiy, bool& esc, int& steps) {
-  const Grid& g = p.fine;
-  const Grid& c = p.coarse;
-  T = 1.0f;
-  fix = fiy = 0;
-  esc = false;
-  uint32_t w4[4] = {0u, 0u, 0u, 0u};
-#pragma unroll 1
-  for (int r = 0; r < rounds; ++r) {
-    if ((r & 1) == 0)
-      philox4x32_10((uint32_t)lane, p.kb,
-                    (uint32_t)j + (uint32_t)p.K * ((uint32_t)d + (uint32_t)p.n_dirs * (uint32_t)(r >> 1)),
-                    STREAM_INTENSITY, p.key0, p.key1, w4);
-    const float u_free = to_unit(w4[2 * (r & 1)]);
-    const float u_kill = to_unit(w4[2 * (r & 1) + 1]);
-    float rx = x, ry = y, rz = z;
-    int bx = locate(x, c.x0, c.dx, c.xe, c.nx, c.xy_regular);
-    int by = locate(y, c.y0, c.dy, c.ye, c.ny, c.xy_regular);
-    int bz = locate(z, c.z0, c.dz, c.ze, c.nz, c.z_regular);
-    const int status = trace_extinction(c, p.majorant, rx, ry, rz, bx, by, bz, dx, dy, dz,
-                                        exponential_deviate(u_free), p.ratio_crossings, steps);
-    if (status == exit_d) {
-      esc = true;
-      fix = locate(rx, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
-      fiy = locate(ry, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
-      return 0;
-    }
-    if (status != STATUS_SCATTER) return status == STATUS_BAD ? 1 : 0;
-    const int fx = locate(rx, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
-    const int fy = locate(ry, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
-    const int fz = locate(rz, g.z0, g.dz, g.ze, g.nz, g.z_regular);
-    const float ext = __ldg(p.total_ext + (fx * g.ny + fy) * g.nz + fz);
-    const float maj = __ldg(p.majorant + (bx * c.ny + by) * c.nz + bz);
-    T = T * fminf(fmaxf(1.0f - ext / fmaxf(maj, EXT_EPS_F), 0.0f), 1.0f);
-    if (T < p.zeta_ratio) T = (u_kill >= T / p.zeta_ratio) ? 0.0f : p.zeta_ratio;
-    if (!(T > 0.0f)) return 0;
-    x = rx;
-    y = ry;
-    z = rz;
-  }
-  return 1;
-}
-
 // Adds v to base[key] for the lanes of the active mask with key >= 0: the
 // lanes of one key grouped by __match_any_sync over __activemask(), summed
 // by warp_red's shuffle tree (fast_event_block.cuh), the group's lowest lane
@@ -436,103 +506,295 @@ __device__ __forceinline__ void active_red(double* base, int key, double v) {
   if (key >= 0 && (peers & below) == 0u) tally_add(base + key, v);
 }
 
-// The local estimate of one event toward every detector
-// (wavefront.intensity_estimate; see the header): at (x, y, z) in cell (ix,
-// iy, iz), incoming direction u, the event's weight (post-absorption, or a
-// surface's), its component, phase index and order; `surface` for a bottom
-// hit, `bern` the weight-1 class.  The contributions go to the float64
-// tallies (active_red over the lanes that tally together), the rays' DDA
-// steps to int_steps[lane] and their number to int_rays[lane].  Returns the
-// bad rays that the weight-1 class counts.  Not inlined: the DET
-// instantiations keep its registers out of the event loop's.
-static __device__ __noinline__ int general_estimate(const GeneralParams& p, int lane, int j,
-                                                    bool surface, float x, float y, float z,
-                                                    int ix, int iy, int iz, float ux, float uy,
-                                                    float uz, float weight, int comp, int pf,
-                                                    int order, bool bern) {
-  const Grid& g = p.fine;
+// The estimate stage's ray queue (DET): a CTA's records, one per estimating
+// event, in the order pushed, in its own segment of `rays` (device memory,
+// which L2 holds while the launch runs): the CTA that runs tiles [c, c + T)
+// owns records [c, c + T) * CTA_THREADS * K, room for an estimate at every
+// event of every lane it runs, so the queue never fills.  A record is three
+// float4: the point and the estimate's weight; the incoming direction and
+// the fine column ix * ny + iy; the fine iz, the forward-table row offset,
+// `meta` (the event j, the tally slot: 0 the surface, comp + 1; the surface
+// flag; whether the order reads the original table under hybrid phases)
+// and the lane.
+#define GEN_RAY_F4 3
+#define GEN_RAY_MAX_SLOT 0xff      // the tally slot's field (kernels/general_block.py RAY_MAX_SLOT)
+#define GEN_RAY_SURFACE (1 << 8)
+#define GEN_RAY_ORIG (1 << 9)
+#define GEN_RAY_J_SHIFT 10
+
+struct GenQueue {
+  int n;                        // records pushed
+  int next;                     // the next ray the flush deals
+};
+
+// The record of one estimating event (general_event's call site), its slot
+// taken by a shared atomic; the values are the event's own registers, bit
+// for bit.
+__device__ __forceinline__ void gen_push(const GeneralParams& p, GenQueue& q, int lane, int j,
+                                         bool surface, float x, float y, float z, int ix,
+                                         int iy, int iz, float ux, float uy, float uz,
+                                         float weight, int comp, int pf, int order) {
+  const int k = atomicAdd(&q.n, 1);
+  float4* r = p.rays + GEN_RAY_F4 * ((size_t)blockIdx.x * CTA_THREADS * p.K + k);
+  const int meta = (surface ? GEN_RAY_SURFACE : comp + 1)
+                   | (p.n_orig > 0 && order <= p.n_orig ? GEN_RAY_ORIG : 0)
+                   | (j << GEN_RAY_J_SHIFT);
+  r[0] = make_float4(x, y, z, weight);
+  r[1] = make_float4(ux, uy, uz, __int_as_float(ix * p.fine.ny + iy));
+  r[2] = make_float4(__int_as_float(iz), __int_as_float((comp * p.max_entries + pf) * p.n_fwd),
+                     __int_as_float(meta), __int_as_float(lane));
+}
+
+// One ray (record, detector) in flight in a flush: what a thread holds
+// between the trips of the pull loop.  The DDA's point, cell, depth spent
+// and crossings used (per round in ratio tracking, on the block grid), its
+// target; the estimate's weight and phase value; Iwabuchi's acceptance
+// draw, P pi, tau_max and small-phase flag; ratio tracking's transmittance,
+// round, kill draw and the pair's two words for the odd round.
+struct GenRay {
+  DdaDir u;
+  float x, y, z, tau, target, weight, norm_pf, u_accept, pn, tau_max, T, u_kill;
+  uint32_t w_free, w_kill;
+  int ix, iy, iz, it, steps, round, d, lane, j, slot, exit_d;
+  bool small;
+};
+
+// The round's draws and the start of its flight on the block grid
+// (wavefront.ratio_transmittance): round r reads words 2 (r % 2) and
+// 2 (r % 2) + 1 of the Philox call of pair r / 2.
+__device__ __forceinline__ void gen_ratio_round(const GeneralParams& p, GenRay& a) {
+  const Grid& c = p.coarse;
+  uint32_t wf = a.w_free, wk = a.w_kill;
+  if ((a.round & 1) == 0) {
+    uint32_t w4[4];
+    philox4x32_10((uint32_t)a.lane, p.kb,
+                  (uint32_t)a.j + (uint32_t)p.K * ((uint32_t)a.d + (uint32_t)p.n_dirs * (uint32_t)(a.round >> 1)),
+                  STREAM_INTENSITY, p.key0, p.key1, w4);
+    wf = w4[0];
+    wk = w4[1];
+    a.w_free = w4[2];
+    a.w_kill = w4[3];
+  }
+  a.u_kill = to_unit(wk);
+  a.target = exponential_deviate(to_unit(wf));
+  a.ix = locate(a.x, c.x0, c.dx, c.xe, c.nx, c.xy_regular);
+  a.iy = locate(a.y, c.y0, c.dy, c.ye, c.ny, c.xy_regular);
+  a.iz = locate(a.z, c.z0, c.dz, c.ze, c.nz, c.z_regular);
+  a.tau = 0.0f;
+  a.it = 0;
+}
+
+// The ray r of the CTA's queue of n records, dealt detector by detector
+// (ray r is record r % n toward detector r / n), set up as
+// wavefront.intensity_estimate sets up its trace: the phase value at the
+// photon-to-detector angle from the forward table (the original one for
+// the record's flag) over 4 pi |mu_d|, or 1/pi, or R(in -> detector)/pi;
+// then the exact trace to the boundary, Iwabuchi's draws and target, or
+// ratio tracking's first round.
+template <bool RATIO>
+__device__ __forceinline__ void gen_ray_start(const GeneralParams& p, int r, int n, bool bern,
+                                              GenRay& a) {
   const int D = p.n_dirs;
-  const int n1 = p.n_comp + 1;
-  const int slot = surface ? 0 : comp + 1;
-  const float* row = (p.n_orig > 0 && order <= p.n_orig ? p.forward_orig : p.forward)
-                     + (size_t)((comp * p.max_entries + pf) * p.n_fwd);
+  const int d = r / n;
+  const int k = r - d * n;
+  const float4* rec = p.rays + GEN_RAY_F4 * ((size_t)blockIdx.x * CTA_THREADS * p.K + k);
+  const float4 r0 = __ldcg(rec), r1 = __ldcg(rec + 1), r2 = __ldcg(rec + 2);
+  const float ux = r1.x, uy = r1.y, uz = r1.z;
+  const int meta = __float_as_int(r2.z);
+  a.d = d;
+  a.lane = __float_as_int(r2.w);
+  a.j = meta >> GEN_RAY_J_SHIFT;
+  const bool surface = meta & GEN_RAY_SURFACE;
+  a.slot = surface ? 0 : meta & GEN_RAY_MAX_SLOT;
+  a.weight = r0.w;
+  a.x = r0.x;
+  a.y = r0.y;
+  a.z = r0.z;
+  const float* row = ((meta & GEN_RAY_ORIG) ? p.forward_orig : p.forward) + __float_as_int(r2.y);
   const bool brdf = surface && p.srf_kind > SURFACE_ALBEDO;
   const float phi_in = brdf ? atan2f(uy, ux) : 0.0f;
-  int bad = 0, steps = 0;
-#pragma unroll 1
-  for (int d = 0; d < D; ++d) {
-    const float dx = __ldg(p.dirs + d), dy = __ldg(p.dirs + D + d), dz = __ldg(p.dirs + 2 * D + d);
-    const int exit_d = __ldg(p.exit_status + d);
-    const float proj = fminf(fmaxf(ux * dx + uy * dy + uz * dz, -1.0f), 1.0f);
-    const float pfv = table_lookup(row, acosf(proj) / PI_F, p.n_fwd);
-    const float amu = __ldg(p.abs_mu + d);
-    float norm_pf;
-    if (bern) norm_pf = pfv * p.ssa / (FOUR_PI_F * amu);   // the weight-1 class's prefactor
-    else if (!surface) norm_pf = pfv / (FOUR_PI_F * amu);
-    else if (brdf)
-      norm_pf = dz > 0.0f
-          ? surface_reflectance(p, x, y, uz, dz, phi_in, __ldg(p.det_phi + d)) / PI_F : 0.0f;
-    else norm_pf = INV_PI_F;
-    float contrib = 0.0f;
-    int fix, fiy;
-    bool esc;
-    if (p.est == EST_RATIO) {
-      float T;
-      const int ray_bad = ratio_track(p, lane, j, d, x, y, z, dx, dy, dz,
-                                      bern ? 4 * p.max_int_crossings : p.max_int_crossings,
-                                      exit_d, T, fix, fiy, esc, steps);
-      if (esc) contrib = bern ? norm_pf * T : weight * norm_pf * T;
-      if (bern) bad += ray_bad;
+  const float dx = __ldg(p.dirs + d), dy = __ldg(p.dirs + D + d), dz = __ldg(p.dirs + 2 * D + d);
+  a.exit_d = __ldg(p.exit_status + d);
+  const float proj = fminf(fmaxf(ux * dx + uy * dy + uz * dz, -1.0f), 1.0f);
+  const float pfv = table_lookup(row, acosf(proj) / PI_F, p.n_fwd);
+  const float amu = __ldg(p.abs_mu + d);
+  if (bern) a.norm_pf = pfv * p.ssa / (FOUR_PI_F * amu);   // the weight-1 class's prefactor
+  else if (!surface) a.norm_pf = pfv / (FOUR_PI_F * amu);
+  else if (brdf)
+    a.norm_pf = dz > 0.0f
+        ? surface_reflectance(p, a.x, a.y, uz, dz, phi_in, __ldg(p.det_phi + d)) / PI_F : 0.0f;
+  else a.norm_pf = INV_PI_F;
+  a.u = dda_dir(dx, dy, dz);
+  a.steps = 0;
+  if (RATIO) {
+    a.T = 1.0f;
+    a.round = 0;
+    gen_ratio_round(p, a);
+    return;
+  }
+  a.target = TRACE_TARGET_F;
+  a.small = false;
+  if (p.est == EST_IWABUCHI) {
+    uint32_t w4[4];
+    philox4x32_10((uint32_t)a.lane, p.kb, (uint32_t)a.j + (uint32_t)p.K * (uint32_t)d,
+                  STREAM_INTENSITY, p.key0, p.key1, w4);
+    const float tau_free = exponential_deviate(to_unit(w4[0]));
+    a.u_accept = to_unit(w4[1]);
+    a.pn = PI_F * a.norm_pf;
+    a.small = a.pn <= p.zeta;
+    a.tau_max = -logf(p.zeta / fmaxf(a.pn, TINY_F));
+    a.target = a.small ? tau_free : a.tau_max + tau_free;
+  }
+  const int c = __float_as_int(r1.w);
+  a.ix = c / p.fine.ny;
+  a.iy = c - a.ix * p.fine.ny;
+  a.iz = __float_as_int(r2.x);
+  a.tau = 0.0f;
+  a.it = 0;
+}
+
+// One trip of a ray in flight: one crossing of its DDA (the fine grid, or
+// the round's flight on the block grid; STATUS_BAD once the crossing budget
+// is used) and, in ratio tracking, the end of a round: the transmittance
+// times clip(1 - ext / majorant, 0, 1) at a tentative collision, its
+// roulette at zeta_ratio, the next round.  Returns STATUS_TRACING while the
+// ray goes on, else its end: for ratio tracking exit_d (left through the
+// detector's side; the fine column in ix, iy), STATUS_BAD (a bad flight or
+// alive after the round budget) or STATUS_SCATTER (killed, or left through
+// the other side).
+template <bool RATIO>
+__device__ __forceinline__ int gen_ray_trip(const GeneralParams& p, GenRay& a, int rounds) {
+  const Grid& g = p.fine;
+  const Grid& c = p.coarse;
+  if (a.it >= (RATIO ? p.ratio_crossings : p.max_int_crossings)) return STATUS_BAD;
+  ++a.it;
+  ++a.steps;
+  const int status = dda_crossing(RATIO ? c : g, RATIO ? p.majorant : p.total_ext, a.u, a.x,
+                                  a.y, a.z, a.ix, a.iy, a.iz, a.target, a.tau);
+  if (!RATIO || status == STATUS_TRACING) return status;
+  if (status == a.exit_d) {
+    a.ix = locate(a.x, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+    a.iy = locate(a.y, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+    return status;
+  }
+  if (status != STATUS_SCATTER) return status == STATUS_BAD ? STATUS_BAD : STATUS_SCATTER;
+  const int fx = locate(a.x, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+  const int fy = locate(a.y, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+  const int fz = locate(a.z, g.z0, g.dz, g.ze, g.nz, g.z_regular);
+  const float ext = __ldg(p.total_ext + (fx * g.ny + fy) * g.nz + fz);
+  const float maj = __ldg(p.majorant + (a.ix * c.ny + a.iy) * c.nz + a.iz);
+  a.T = a.T * fminf(fmaxf(1.0f - ext / fmaxf(maj, EXT_EPS_F), 0.0f), 1.0f);
+  if (a.T < p.zeta_ratio) a.T = (a.u_kill >= a.T / p.zeta_ratio) ? 0.0f : p.zeta_ratio;
+  if (!(a.T > 0.0f)) return STATUS_SCATTER;
+  if (++a.round >= rounds) return STATUS_BAD;
+  gen_ratio_round(p, a);
+  return STATUS_TRACING;
+}
+
+// The end of a ray (its status): the contribution of a ray that left
+// through its detector's side, clipped at the cap (the excess kept), to
+// the float64 tallies summed over the threads of the warp that tally at the
+// same refill on the same bin (active_red); the ray's DDA steps to
+// int_steps[lane], D rays an estimate to int_rays[lane] and, in the
+// weight-1 class (`bern`), a bad ray to the lane's bad row, by integer
+// atomics: exact in any order.
+template <bool RATIO>
+__device__ __forceinline__ void gen_ray_end(const GeneralParams& p, int* __restrict__ iv,
+                                            const GenRay& a, int status, bool bern) {
+  const Grid& g = p.fine;
+  const int D = p.n_dirs, n1 = p.n_comp + 1;
+  float contrib = 0.0f;
+  if (status == a.exit_d) {
+    if (RATIO) {
+      contrib = bern ? a.norm_pf * a.T : a.weight * a.norm_pf * a.T;
+    } else if (p.est == EST_IWABUCHI) {
+      const float flat = a.weight * p.zeta / PI_F;
+      if (a.small) contrib = a.u_accept <= a.pn / p.zeta ? flat : 0.0f;
+      else contrib = a.tau <= a.tau_max ? a.weight * a.norm_pf * expf(-a.tau) : flat;
     } else {
-      float target = TRACE_TARGET_F, u_accept = 0.0f, pn = 0.0f, tau_max = 0.0f;
-      bool small = false;
-      if (p.est == EST_IWABUCHI) {
-        uint32_t w4[4];
-        philox4x32_10((uint32_t)lane, p.kb, (uint32_t)j + (uint32_t)p.K * (uint32_t)d,
-                      STREAM_INTENSITY, p.key0, p.key1, w4);
-        const float tau_free = exponential_deviate(to_unit(w4[0]));
-        u_accept = to_unit(w4[1]);
-        pn = PI_F * norm_pf;
-        small = pn <= p.zeta;
-        tau_max = -logf(p.zeta / fmaxf(pn, TINY_F));
-        target = small ? tau_free : tau_max + tau_free;
+      contrib = a.weight * a.norm_pf * expf(-a.tau);
+    }
+  }
+  if (p.clip) {
+    const float over = fmaxf(contrib - p.cap, 0.0f);
+    contrib = fminf(contrib, p.cap);
+    if (over > 0.0f) tally_add(p.excess + a.d * n1 + a.slot, (double)over);
+  }
+  const int bin = (a.ix * g.ny + a.iy) * D + a.d;
+  active_red(p.intensity, contrib != 0.0f ? bin : -1, (double)contrib);
+  active_red(p.by_comp, contrib != 0.0f ? bin * n1 + a.slot : -1, (double)contrib);
+  if (a.steps) atomicAdd(p.int_steps + a.lane, a.steps);
+  if (a.d == 0) atomicAdd(p.int_rays + a.lane, D);
+  if (RATIO && bern && status == STATUS_BAD) atomicAdd(iv + 5 * (size_t)p.n_lanes + a.lane, 1);
+}
+
+// The pull loop of a flush, in two phases.  The refill: the threads whose
+// ray ended tally it (together: their sums over a bin are taken at once),
+// and every idle thread takes the next ray from the group's counter and
+// sets it up.  The steps: each trip advances every thread's ray by one
+// crossing (a thread whose ray ends idles), until at most GEN_REFILL_AT
+// threads of the warp have a ray while rays are left, or none has.  A warp
+// so waits for its longest ray only at the end of the flush, and pays a
+// ray's set-up and tally once a refill, not in every trip of its steps
+// (refilling at 8 or 16 of 32 ran 0.90-1.0x the time of refilling at 24
+// per radiance batch; PERF.md section 6).
+#define GEN_REFILL_AT 8
+template <bool RATIO>
+__device__ __forceinline__ void gen_pull(const GeneralParams& p, int* __restrict__ iv, int n,
+                                         int* next, bool bern) {
+  const int nr = n * p.n_dirs;
+  const int rounds = bern ? 4 * p.max_int_crossings : p.max_int_crossings;
+  GenRay a;
+  int status = STATUS_TRACING;
+  bool act = false, fin = false, more = true;
+#pragma unroll 1
+  for (;;) {
+    if (fin) {
+      gen_ray_end<RATIO>(p, iv, a, status, bern);
+      fin = false;
+    }
+    if (!act && more) {
+      const int r = atomicAdd(next, 1);
+      more = r < nr;
+      if (more) {
+        gen_ray_start<RATIO>(p, r, n, bern, a);
+        act = true;
       }
-      float tx = x, ty = y, tz = z, tau = 0.0f;
-      int tiz = iz;
-      fix = ix;
-      fiy = iy;
-      const int status = trace_extinction(g, p.total_ext, tx, ty, tz, fix, fiy, tiz, dx, dy, dz,
-                                          target, p.max_int_crossings, steps, &tau);
-      esc = status == exit_d;
-      if (esc) {
-        if (p.est == EST_IWABUCHI) {
-          const float flat = weight * p.zeta / PI_F;
-          if (small) contrib = u_accept <= pn / p.zeta ? flat : 0.0f;
-          else contrib = tau <= tau_max ? weight * norm_pf * expf(-tau) : flat;
-        } else {
-          contrib = weight * norm_pf * expf(-tau);
+    }
+    if (!__any_sync(FULL_MASK, act)) break;
+    const bool left = __any_sync(FULL_MASK, more);
+#pragma unroll 1
+    for (;;) {
+      if (act) {
+        status = gen_ray_trip<RATIO>(p, a, rounds);
+        if (status != STATUS_TRACING) {
+          act = false;
+          fin = true;
         }
       }
+      const unsigned am = __ballot_sync(FULL_MASK, act);
+      if (am == 0u || (left && __popc(am) <= GEN_REFILL_AT)) break;
     }
-    if (p.clip) {
-      const float over = fmaxf(contrib - p.cap, 0.0f);
-      contrib = fminf(contrib, p.cap);
-      if (over > 0.0f) tally_add(p.excess + d * n1 + slot, (double)over);
-    }
-    const int bin = (fix * g.ny + fiy) * D + d;
-    active_red(p.intensity, contrib != 0.0f ? bin : -1, (double)contrib);
-    active_red(p.by_comp, contrib != 0.0f ? bin * n1 + slot : -1, (double)contrib);
   }
-  p.int_steps[lane] += steps;
-  p.int_rays[lane] += D;
-  return bad;
+}
+
+// Traces the rays (record, detector) of the CTA's queue
+// (wavefront.intensity_estimate): its threads pull them from q.next
+// (gen_pull).  Every thread of the CTA calls it, after the lane loop's
+// barrier.  Not inlined: its registers stay out of the event loop's.
+static __device__ __noinline__ void gen_flush(const GeneralParams& p, int* __restrict__ iv,
+                                              GenQueue& q, bool bern) {
+  const int n = q.n;
+  if (n > 0 && threadIdx.x == 0 && p.flushes) atomicAdd(p.flushes, 1ull);
+  if (p.est == EST_RATIO) gen_pull<true>(p, iv, n, &q.next, bern);
+  else gen_pull<false>(p, iv, n, &q.next, bern);
 }
 
 // One event_step (wavefront.py:1144-1540, the inline branch), for a live
 // lane: lane and event j of the block key the estimate's draws (DET).
 template <int MODE, bool UNI, bool REFL, bool BERN, bool DET>
 __device__ __forceinline__ void general_event(const GeneralParams& p, const float (&u)[GEN_MAX_DRAWS],
-                                              GLane& s, int lane, int j) {
+                                              GLane& s, int lane, int j, GenQueue* q) {
   const Grid& g = p.fine;
   // The draws' slots are constants of the instantiation: a draw it does not
   // read is not held over the DDA, and no select chain picks it.
@@ -639,13 +901,13 @@ __device__ __forceinline__ void general_event(const GeneralParams& p, const floa
   if (exit_bot) tally_add(p.columns + (size_t)col * 3 + 1, (double)s.w);
   const bool math_move = MODE != MODE_RT && collide && !physical;
 
-  // The local estimate (:1487-1497), before the roulette and the rotation.
+  // The local estimate (:1487-1497), before the roulette and the rotation:
+  // its record, traced by the CTA after its lanes' events.
   if (DET) {
     const bool brdf = REFL && p.srf_kind > SURFACE_ALBEDO;
     if (physical || (brdf ? exit_bot : surf_alive))
-      s.bad += general_estimate(p, lane, j, exit_bot, rx, ry, rz, rix, riy, riz, s.ux, s.uy,
-                                s.uz, exit_bot ? (brdf ? s.w : w_srf) : w_sc, comp, pf,
-                                order_next, BERN);
+      gen_push(p, *q, lane, j, exit_bot, rx, ry, rz, rix, riy, riz, s.ux, s.uy, s.uz,
+               exit_bot ? (brdf ? s.w : w_srf) : w_sc, comp, pf, order_next);
   }
 
   // Russian roulette (:1499-1505).
@@ -898,12 +1160,14 @@ static __device__ __noinline__ int general_prologue(const GeneralParams& p, floa
   return nt;
 }
 
-// One lane's K events: its state loaded, the events run, the state stored,
-// and the lane counted in its tile's survivors.  Inlined at both of the
-// kernel's call sites.
+// One lane's K events: its state loaded, the events run (with detectors
+// each estimate pushed to the CTA's queue), the state stored, and the lane
+// counted in its tile's survivors.  Inlined at both of the kernel's call
+// sites.
 template <int MODE, bool UNI, bool REFL, bool BERN, bool DET>
 __device__ __forceinline__ void general_lane(const GeneralParams& p, float* __restrict__ f,
-                                             int* __restrict__ iv, int lane, GenShared& sh) {
+                                             int* __restrict__ iv, int lane, GenShared& sh,
+                                             GenQueue* q) {
   const size_t L = (size_t)p.n_lanes;
   GLane s;
   s.x = f[lane];
@@ -934,15 +1198,13 @@ __device__ __forceinline__ void general_lane(const GeneralParams& p, float* __re
 #pragma unroll
       for (int q = 0; q < 4; ++q) u[4 * g + q] = to_unit(w4[q]);
     }
-    general_event<MODE, UNI, REFL, BERN, DET>(p, u, s, lane, j);
+    general_event<MODE, UNI, REFL, BERN, DET>(p, u, s, lane, j, q);
   }
-  // The flux set forms the stores' addresses from a lane the compiler
-  // cannot see through: it would otherwise keep the loads' 15 row addresses
-  // over the events, which under 64 registers spills them (24-72 B, ptxas
-  // of the H100 build).  The DET set, which spills around its noinline
-  // estimate call anyway, ran 4% slower per radiance batch with it
-  // (PERF.md section 6).
-  if (!DET) asm volatile("" : "+r"(lane));
+  // The stores' addresses formed from a lane the compiler cannot see
+  // through: it would otherwise keep the loads' 15 row addresses over the
+  // events, which under 64 registers spills them (24-72 B, ptxas of the
+  // H100 build).
+  asm volatile("" : "+r"(lane));
   f[lane] = s.x;
   f[L + lane] = s.y;
   f[2 * L + lane] = s.z;
@@ -975,20 +1237,26 @@ __device__ __forceinline__ void general_lane(const GeneralParams& p, float* __re
 // instantiations over a reflecting surface take 73-79 registers since the
 // lanes are compacted (3 CTAs); with it every one takes <= 64 registers.
 // The flux set spills nothing (the draws' slots are constants, the stores'
-// addresses are formed at the stores); the DET set spills around its
-// noinline estimate call (2 or 3 CTAs per SM did not pay: PERF.md).
-// chip_smoke.py phase 2 reads each from ptxas.
+// addresses are formed at the stores); the DET set 0-20 B, in its flush.
+// chip_smoke.py phase 2 reads each from ptxas.  With detectors the CTA
+// then traces its ray queue (gen_flush).
 template <int MODE, bool UNI, bool REFL, bool BERN, bool DET>
 __global__ void __launch_bounds__(CTA_THREADS, GEN_CTAS_PER_SM)
 general_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
                            const __grid_constant__ GeneralParams p) {
   __shared__ GenShared sh;
+  __shared__ typename std::conditional<DET, GenQueue, char>::type q;   // the ray queue's counts
   const int t = threadIdx.x, wl = t & 31;
+  GenQueue* qp = nullptr;
+  if constexpr (DET) {
+    if (t == 0) q.n = q.next = 0;        // seen after the prologue's barriers
+    qp = &q;
+  }
   if (general_prologue(p, f, iv, MODE == MODE_RT, sh) == 0) return;
   // n_live, T and the CTA's tiles are read from shared memory and the
   // parameters where they are used: no register holds them over the events.
   if (sh.tiles == 1) {
-    if (t < sh.n_live) general_lane<MODE, UNI, REFL, BERN, DET>(p, f, iv, sh.live_ids[t], sh);
+    if (t < sh.n_live) general_lane<MODE, UNI, REFL, BERN, DET>(p, f, iv, sh.live_ids[t], sh, qp);
   } else {
 #pragma unroll 1
     for (;;) {
@@ -997,10 +1265,14 @@ general_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
       chunk = __shfl_sync(FULL_MASK, chunk, 0);
       if (chunk * 32 >= sh.n_live) break;
       const int k = chunk * 32 + wl;
-      if (k < sh.n_live) general_lane<MODE, UNI, REFL, BERN, DET>(p, f, iv, sh.live_ids[k], sh);
+      if (k < sh.n_live)
+        general_lane<MODE, UNI, REFL, BERN, DET>(p, f, iv, sh.live_ids[k], sh, qp);
     }
   }
   __syncthreads();
+  // The estimates' rays, traced by every thread of the CTA (idle and dead
+  // lanes' threads too); the lanes' rows they add to are stored.
+  if constexpr (DET) gen_flush(p, iv, q, BERN);
   const int n_tiles = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
   if ((int)threadIdx.x < min(sh.tiles, n_tiles - (int)blockIdx.x)) {
     // Each tile's dead lanes at exit: the next launch's FIFO ranks.

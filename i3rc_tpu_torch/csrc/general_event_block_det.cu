@@ -1,6 +1,6 @@
 // The general event block's thirteen instantiations with radiance
-// detectors (DET: the local estimate of general_event_block.cuh's
-// general_estimate stage), one per flux instantiation of
+// detectors (DET: the local estimate, general_event_block.cuh's ray queue
+// and gen_flush), one per flux instantiation of
 // general_event_block.cu, whose C function calls launch_general_det when the
 // parameter block has detectors.
 

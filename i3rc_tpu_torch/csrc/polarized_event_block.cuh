@@ -24,8 +24,8 @@
 //      column of the boundary point (x/y wrapped); the depolarizing
 //      Lambertian bounce (LAMB); the acceptance against the cell's
 //      extinction, the component pick by cumulative fractions, the absorbed
-//      weight; with detectors (DET) the polarized local estimate of a
-//      physical collision or a Lambertian reflection (pz_estimate); the chi
+//      weight; with detectors (DET) a record of a physical collision or a
+//      Lambertian reflection in the CTA's ray queue (pz_push); the chi
 //      rotation of the frame and of (Q, U), theta from P11's cubic inverse
 //      CDF (one float4 row), the interpolated phase-matrix read (a row of 8
 //      floats per endpoint: two float4 loads each), the weight ratio
@@ -39,7 +39,8 @@
 //  scene of one column every lane of the grid adds to the same few bins:
 //  with one atomic a lane a mid-flight bench-row block took 0.38 ms, summed
 //  first 0.092 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
-//  DET: per detector the rotation of (Q, U) into the scattering plane toward
+//  DET: after the lanes' events the CTA traces its queue's rays (pz_flush),
+//    per (record, detector) the rotation of (Q, U) into the scattering plane toward
 //    d, the matrix at the photon-to-detector angle, the rotation into d's
 //    meridian frame (L(-a): the -s2a sign of polarized.py:383-393), w /
 //    (4 pi |mu_d|) or, for a Lambertian reflection, w / pi toward upward
@@ -56,10 +57,28 @@
 // tables come from L2 through the read-only path.  The work is a lane's
 // dependent chain: Philox rounds, logf, acosf, sqrtf and IEEE divisions,
 // and the ratio-tracking loop of each detector ray.  Latency, not bytes or
-// issue slots.  This first design runs thread l on lane l, one CTA per tile
-// of CTA_THREADS lanes: a warp waits for its slowest lane's events and its
-// rays (the general kernel's known loss, PERF.md section 7), and the drain
-// runs sparse warps.  Its time per batch is recorded beside its bound.
+// issue slots.  Thread l runs lane l, one CTA per tile of CTA_THREADS
+// lanes: a warp waits for its slowest lane's events, and the drain runs
+// sparse warps.  The first design also traced an event's D rays on the
+// thread that collided: 313M rays and 559M rounds a Mie step-cloud batch,
+// a warp waiting for its slowest lane's sum of rays (ray lane use 11%, the
+// census of kernels/general_block.py ray_census).  The ray is now the unit
+// of work, as in the general kernel's estimate stage:
+//  * a collision or reflection pushes a record of four float4 (the point,
+//    the weight, the direction, the frame e1, (q, u, v), the matrix row,
+//    event and lane) to the CTA's segment of a device-memory queue, K
+//    records a lane, so the queue never fills;
+//  * after the lane loop's barrier every thread of the CTA pulls the
+//    queue's rays detector by detector, one ratio-tracking round a trip; a
+//    warp refills when at most PZ_REFILL_AT of its threads still have a
+//    ray, the ended rays tallied together and new ones set up;
+//  * the rays, rounds and bad rows reach the lanes by atomics after the
+//    lanes stored them.
+// A ray's draws are keyed by (lane, kb, event j, detector), so the kernel
+// stays bit-equal to the twin.  Per batch against the first design in one
+// process (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): 0.46x on the
+// Mie step cloud, 0.50x on the bench row (2^16 lanes); a warp-level buffer
+// in shared memory flushed by the warp ran 0.71x and 0.57x.
 //
 // Float arithmetic follows the twin (integrators/polarized.py
 // polarized_event) operation by operation, built with --fmad=false; where the
@@ -91,6 +110,8 @@ struct PolParams {
   int n_comp, max_entries, n_seg, n_fwd, n_dirs, max_events, max_rounds, n_lanes, K;
   float inv_maj, albedo, q0, u0, v0, zeta;
   unsigned int key0, key1, kb;
+  unsigned long long* flushes;  // the estimate's flushes, or null
+  float4* rays;                 // (n_tiles * CTA_THREADS * K * PZ_RAY_F4) the ray records
 };
 
 struct PzLane {
@@ -134,143 +155,234 @@ __device__ __forceinline__ void pz_matrix(const PolParams& p, int row, float pos
   a1 = e0;
 }
 
-// Ratio tracking of one detector ray to the boundary against the global
-// majorant (polarized._ratio_track).  Returns T; the exit column, whether it
-// left through the detector's side, whether it is alive after max_rounds
-// rounds and the rounds run by reference.
-__device__ __forceinline__ float pz_ratio_track(const PolParams& p, int lane, int j, int d,
-                                                float x, float y, float z, float dx, float dy,
-                                                float dz, bool up, int& ecol, bool& esc,
-                                                bool& alive, int& rounds) {
-  const Grid& g = p.g;
-  float T = 1.0f;
-  ecol = 0;
-  esc = false;
-  alive = true;
-  uint32_t w4[4] = {0u, 0u, 0u, 0u};
-  const float safe = fabsf(dz) < EPS12_F ? EPS12_F : dz;
-#pragma unroll 1
-  for (int r = 0; r < p.max_rounds; ++r) {
-    ++rounds;
-    if ((r & 1) == 0)
-      philox4x32_10((uint32_t)lane, p.kb,
-                    (uint32_t)j + (uint32_t)p.K * ((uint32_t)d + (uint32_t)p.n_dirs * (uint32_t)(r >> 1)),
-                    STREAM_INTENSITY, p.key0, p.key1, w4);
-    const float u_free = to_unit(w4[2 * (r & 1)]);
-    const float u_kill = to_unit(w4[2 * (r & 1) + 1]);
-    const float step = exponential_deviate(u_free) * p.inv_maj;
-    float nz = z + step * dz;
-    const bool top = nz >= g.z_max;
-    const bool out = top || nz <= g.z0;
-    const float tb = out ? ((top ? g.z_max : g.z0) - z) / safe : step;
-    const float nx = wrap_periodic(x + tb * dx, g.x0, g.x_max, g.wx);
-    const float ny = wrap_periodic(y + tb * dy, g.y0, g.y_max, g.wy);
-    const int cx = locate(nx, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
-    const int cy = locate(ny, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
-    if (out) {
-      if (top == up) {
-        ecol = cx * g.ny + cy;
-        esc = true;
-      }
-      alive = false;
-      return T;
-    }
-    nz = fminf(fmaxf(nz, g.z0), g.z_max);
-    const int cz = locate(nz, g.z0, g.dz, g.ze, g.nz, g.z_regular);
-    const float ext = __ldg(p.total_ext + (cx * g.ny + cy) * g.nz + cz);
-    const float ratio = fminf(fmaxf(1.0f - ext * p.inv_maj, 0.0f), 1.0f);
-    T = T * ratio;
-    if (T < p.zeta) T = (u_kill >= T / p.zeta) ? 0.0f : p.zeta;
-    if (!(T > 0.0f)) {
-      alive = false;
-      return T;
-    }
-    x = nx;
-    y = ny;
-    z = nz;
-  }
-  return T;
-}
+// The estimate's ray queue (DET): a CTA's records, one per estimating event
+// (a physical collision or a Lambertian reflection), in the order pushed,
+// in its own segment of `rays` (device memory, which L2 holds while the
+// launch runs): CTA c owns records c * CTA_THREADS * K onwards, room for an
+// estimate at every event of each of its lanes.  A record is four float4:
+// the point and the weight; the direction and e1x; e1y, e1z, q, u; v, the
+// matrix row of the event's (component, phase entry), `meta` (the event j
+// and the surface flag) and the lane.
+#define PZ_RAY_F4 4
 
-struct PzEst {
-  int bad, rounds;
+struct PzQueue {
+  int n;                        // records pushed
+  int next;                     // the next ray the flush deals
 };
 
-// The polarized local estimate of one event toward every detector
-// (polarized.detector_estimates): at (x, y, z) with direction u, frame e1,
-// Stokes (1, q, us, v) and weight w; `surface` for a Lambertian reflection,
-// `row` the matrix table row of the event's (component, phase entry).  Adds
-// to the Stokes tally; returns the rays alive after the round budget and
-// the rounds run.  Not inlined: the DET instantiations keep its registers
-// out of the event loop's.
-static __device__ __noinline__ PzEst pz_estimate(const PolParams& p, int lane, int j,
-                                                 bool surface, float x, float y, float z,
-                                                 float ux, float uy, float uz, float e1x,
-                                                 float e1y, float e1z, float q, float us,
-                                                 float v, float w, int row) {
-  const int D = p.n_dirs;
-  PzEst out = {0, 0};
-  const float e2x = uy * e1z - uz * e1y;
-  const float e2y = uz * e1x - ux * e1z;
-  const float e2z = ux * e1y - uy * e1x;
-#pragma unroll 1
-  for (int d = 0; d < D; ++d) {
-    const float* dr = p.det + (size_t)d * PZ_DET_COLS;
-    const float dx = __ldg(dr), dy = __ldg(dr + 1), dz = __ldg(dr + 2);
-    float amp[4];
-    if (surface) {
-      amp[0] = dz > 0.0f ? w / PI_F : 0.0f;
-      amp[1] = amp[2] = amp[3] = 0.0f;
-    } else {
-      const float ctd = fminf(fmaxf(ux * dx + uy * dy + uz * dz, -1.0f), 1.0f);
-      const float dpar = e1x * dx + e1y * dy + e1z * dz;
-      const float dperp = e2x * dx + e2y * dy + e2z * dz;
-      const float st2 = fmaxf(dpar * dpar + dperp * dperp, 0.0f);
-      const bool deg = st2 < EPS12_F;
-      const float inv_st2 = deg ? 0.0f : 1.0f / fmaxf(st2, EPS12_F);
-      const float c2 = deg ? 1.0f : (dpar * dpar - dperp * dperp) * inv_st2;
-      const float s2 = deg ? 0.0f : 2.0f * dpar * dperp * inv_st2;
-      const float qr = c2 * q + s2 * us, ur = -s2 * q + c2 * us;
-      float i2, q2, u2, v2, a1;
-      pz_matrix(p, row, acosf(ctd) / PI_F, qr, ur, v, i2, q2, u2, v2, a1);
-      const float st = sqrtf(st2);
-      const float inv_st = deg ? 0.0f : 1.0f / fmaxf(st, EPS12_F);
-      const float e1dx = (dx - ctd * ux) * inv_st;
-      const float e1dy = (dy - ctd * uy) * inv_st;
-      const float e1dz = (dz - ctd * uz) * inv_st;
-      const float e1sx = -st * ux + ctd * e1dx;
-      const float e1sy = -st * uy + ctd * e1dy;
-      const float e1sz = -st * uz + ctd * e1dz;
-      const float ca = e1sx * __ldg(dr + 3) + e1sy * __ldg(dr + 4) + e1sz * __ldg(dr + 5);
-      const float sa = e1sx * __ldg(dr + 6) + e1sy * __ldg(dr + 7) + e1sz * __ldg(dr + 8);
-      const float c2a = deg ? 1.0f : ca * ca - sa * sa;
-      const float s2a = deg ? 0.0f : 2.0f * ca * sa;
-      const float pref = w / (FOUR_PI_F * __ldg(dr + 9));
-      amp[0] = pref * i2;
-      amp[1] = pref * (c2a * q2 + -s2a * u2);
-      amp[2] = pref * (s2a * q2 + c2a * u2);
-      amp[3] = pref * v2;
+// The record of one estimating event, its slot taken by a shared atomic;
+// the values are the event's own registers, bit for bit.
+__device__ __forceinline__ void pz_push(const PolParams& p, PzQueue& q, int lane, int j,
+                                        bool surface, const PzLane& s, float w, int row) {
+  const int k = atomicAdd(&q.n, 1);
+  float4* r = p.rays + PZ_RAY_F4 * ((size_t)blockIdx.x * CTA_THREADS * p.K + k);
+  r[0] = make_float4(s.x, s.y, s.z, w);
+  r[1] = make_float4(s.ux, s.uy, s.uz, s.e1x);
+  r[2] = make_float4(s.e1y, s.e1z, s.q, s.u);
+  r[3] = make_float4(s.v, __int_as_float(row), __int_as_float((j << 1) | (surface ? 1 : 0)),
+                     __int_as_float(lane));
+}
+
+// One detector ray in flight in a flush: its point, direction, the
+// transmittance so far, its round and the pair's two words for the odd
+// round, the Stokes amplitudes it carries, its lane, event and detector.
+struct PzRay {
+  float x, y, z, dx, dy, dz, safe, T, amp[4];
+  uint32_t w_free, w_kill;
+  int round, d, lane, j;
+};
+
+// The ray r of the CTA's queue of n records, dealt detector by detector
+// (ray r is record r % n toward detector r / n): the
+// polarized local estimate toward d (polarized.detector_estimates): the
+// virtual scattering toward d (the chi rotation of (Q, U), the matrix at
+// the photon-to-detector angle), the rotation into d's meridian frame, w /
+// (4 pi |mu_d|); or, for a Lambertian reflection, w / pi toward an upward
+// detector, depolarized.
+__device__ __forceinline__ void pz_ray_start(const PolParams& p, int r, int n, PzRay& a) {
+  const int d = r / n;
+  const int k = r - d * n;
+  const float4* rec = p.rays + PZ_RAY_F4 * ((size_t)blockIdx.x * CTA_THREADS * p.K + k);
+  const float4 r0 = __ldcg(rec), r1 = __ldcg(rec + 1), r3 = __ldcg(rec + 3);
+  const float ux = r1.x, uy = r1.y, uz = r1.z;
+  const float w_est = r0.w;
+  const int meta = __float_as_int(r3.z);
+  const float* dr = p.det + (size_t)d * PZ_DET_COLS;
+  const float dx = __ldg(dr), dy = __ldg(dr + 1), dz = __ldg(dr + 2);
+  a.amp[1] = a.amp[2] = a.amp[3] = 0.0f;
+  if (meta & 1) {
+    a.amp[0] = dz > 0.0f ? w_est / PI_F : 0.0f;
+  } else {
+    const float4 r2 = __ldcg(rec + 2);
+    const float e1x = r1.w, e1y = r2.x, e1z = r2.y;
+    const float q = r2.z, us = r2.w, v = r3.x;
+    const float e2x = uy * e1z - uz * e1y;
+    const float e2y = uz * e1x - ux * e1z;
+    const float e2z = ux * e1y - uy * e1x;
+    const float ctd = fminf(fmaxf(ux * dx + uy * dy + uz * dz, -1.0f), 1.0f);
+    const float dpar = e1x * dx + e1y * dy + e1z * dz;
+    const float dperp = e2x * dx + e2y * dy + e2z * dz;
+    const float st2 = fmaxf(dpar * dpar + dperp * dperp, 0.0f);
+    const bool deg = st2 < EPS12_F;
+    const float inv_st2 = deg ? 0.0f : 1.0f / fmaxf(st2, EPS12_F);
+    const float c2 = deg ? 1.0f : (dpar * dpar - dperp * dperp) * inv_st2;
+    const float s2 = deg ? 0.0f : 2.0f * dpar * dperp * inv_st2;
+    const float qr = c2 * q + s2 * us, ur = -s2 * q + c2 * us;
+    float i2, q2, u2, v2, a1;
+    pz_matrix(p, __float_as_int(r3.y), acosf(ctd) / PI_F, qr, ur, v, i2, q2, u2, v2, a1);
+    const float st = sqrtf(st2);
+    const float inv_st = deg ? 0.0f : 1.0f / fmaxf(st, EPS12_F);
+    const float e1dx = (dx - ctd * ux) * inv_st;
+    const float e1dy = (dy - ctd * uy) * inv_st;
+    const float e1dz = (dz - ctd * uz) * inv_st;
+    const float e1sx = -st * ux + ctd * e1dx;
+    const float e1sy = -st * uy + ctd * e1dy;
+    const float e1sz = -st * uz + ctd * e1dz;
+    const float ca = e1sx * __ldg(dr + 3) + e1sy * __ldg(dr + 4) + e1sz * __ldg(dr + 5);
+    const float sa = e1sx * __ldg(dr + 6) + e1sy * __ldg(dr + 7) + e1sz * __ldg(dr + 8);
+    const float c2a = deg ? 1.0f : ca * ca - sa * sa;
+    const float s2a = deg ? 0.0f : 2.0f * ca * sa;
+    const float pref = w_est / (FOUR_PI_F * __ldg(dr + 9));
+    a.amp[0] = pref * i2;
+    a.amp[1] = pref * (c2a * q2 + -s2a * u2);
+    a.amp[2] = pref * (s2a * q2 + c2a * u2);
+    a.amp[3] = pref * v2;
+  }
+  a.x = r0.x;
+  a.y = r0.y;
+  a.z = r0.z;
+  a.dx = dx;
+  a.dy = dy;
+  a.dz = dz;
+  a.safe = fabsf(dz) < EPS12_F ? EPS12_F : dz;
+  a.T = 1.0f;
+  a.round = 0;
+  a.d = d;
+  a.lane = __float_as_int(r3.w);
+  a.j = meta >> 1;
+}
+
+// One round of a ray's ratio tracking against the global majorant
+// (polarized._ratio_track): returns 0 while the ray goes on, 1 when it
+// ended (left the domain: `ecol` and `esc` set if through the detector's
+// side; or killed), 2 when it is alive after max_rounds rounds (bad).
+__device__ __forceinline__ int pz_ray_round(const PolParams& p, PzRay& a, int& ecol, bool& esc) {
+  const Grid& g = p.g;
+  if (a.round >= p.max_rounds) return 2;
+  uint32_t wf = a.w_free, wk = a.w_kill;
+  if ((a.round & 1) == 0) {
+    uint32_t w4[4];
+    philox4x32_10((uint32_t)a.lane, p.kb,
+                  (uint32_t)a.j + (uint32_t)p.K * ((uint32_t)a.d + (uint32_t)p.n_dirs * (uint32_t)(a.round >> 1)),
+                  STREAM_INTENSITY, p.key0, p.key1, w4);
+    wf = w4[0];
+    wk = w4[1];
+    a.w_free = w4[2];
+    a.w_kill = w4[3];
+  }
+  ++a.round;
+  const float step = exponential_deviate(to_unit(wf)) * p.inv_maj;
+  float nz = a.z + step * a.dz;
+  const bool top = nz >= g.z_max;
+  const bool out = top || nz <= g.z0;
+  const float tb = out ? ((top ? g.z_max : g.z0) - a.z) / a.safe : step;
+  const float nx = wrap_periodic(a.x + tb * a.dx, g.x0, g.x_max, g.wx);
+  const float ny = wrap_periodic(a.y + tb * a.dy, g.y0, g.y_max, g.wy);
+  const int cx = locate(nx, g.x0, g.dx, g.xe, g.nx, g.xy_regular);
+  const int cy = locate(ny, g.y0, g.dy, g.ye, g.ny, g.xy_regular);
+  if (out) {
+    if (top == (a.dz > 0.0f)) {
+      ecol = cx * g.ny + cy;
+      esc = true;
     }
-    int ecol;
-    bool esc, alive;
-    const float T = pz_ratio_track(p, lane, j, d, x, y, z, dx, dy, dz, dz > 0.0f, ecol, esc,
-                                   alive, out.rounds);
-    out.bad += alive ? 1 : 0;
-    const int bin = (ecol * D + d) * 4;
+    return 1;
+  }
+  nz = fminf(fmaxf(nz, g.z0), g.z_max);
+  const int cz = locate(nz, g.z0, g.dz, g.ze, g.nz, g.z_regular);
+  const float ext = __ldg(p.total_ext + (cx * g.ny + cy) * g.nz + cz);
+  const float ratio = fminf(fmaxf(1.0f - ext * p.inv_maj, 0.0f), 1.0f);
+  a.T = a.T * ratio;
+  if (a.T < p.zeta) a.T = (to_unit(wk) >= a.T / p.zeta) ? 0.0f : p.zeta;
+  if (!(a.T > 0.0f)) return 1;
+  a.x = nx;
+  a.y = ny;
+  a.z = nz;
+  return 0;
+}
+
+// The end of a ray (`end` of pz_ray_round): its Stokes contribution, if it
+// left through its detector's side, to the tally summed over the threads
+// of the warp that tally at the same refill on the same bin (active_red);
+// its rounds to its lane's rounds row, D rays a record to the rays row, a
+// ray alive after the round budget to the bad row, by integer atomics:
+// exact in any order.
+__device__ __forceinline__ void pz_ray_end(const PolParams& p, int* __restrict__ iv,
+                                           const PzRay& a, int end, int ecol, bool esc) {
+  const int D = p.n_dirs;
+  const size_t L = (size_t)p.n_lanes;
+  const int bin = (ecol * D + a.d) * 4;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float c = amp[k] * T;
-      active_red(p.intensity, esc && c != 0.0f ? bin + k : -1, (double)c);
+  for (int k = 0; k < 4; ++k) {
+    const float c = a.amp[k] * a.T;
+    active_red(p.intensity, esc && c != 0.0f ? bin + k : -1, (double)c);
+  }
+  atomicAdd(iv + 5 * L + a.lane, a.round);
+  if (a.d == 0) atomicAdd(iv + 4 * L + a.lane, D);
+  if (end == 2) atomicAdd(iv + 2 * L + a.lane, 1);
+}
+
+// Traces the rays (record, detector) of the CTA's queue by all its
+// threads, after the lane loop's barrier, in two phases (the general
+// kernel's gen_pull).  The refill: the threads whose ray ended tally it,
+// every idle thread takes the next ray from q.next and sets it up.  The
+// steps: each trip runs one ratio-tracking round of every thread's ray,
+// until at most PZ_REFILL_AT threads of the warp have a ray while rays are
+// left, or none has.  Not inlined: its registers stay out of
+// the event loop's.
+#define PZ_REFILL_AT 8
+static __device__ __noinline__ void pz_flush(const PolParams& p, int* __restrict__ iv,
+                                             PzQueue& q) {
+  const int n = q.n;
+  if (n > 0 && threadIdx.x == 0 && p.flushes) atomicAdd(p.flushes, 1ull);
+  const int nr = n * p.n_dirs;
+  PzRay a;
+  int end = 0, ecol = 0;
+  bool esc = false, act = false, more = true;
+#pragma unroll 1
+  for (;;) {
+    if (end) {
+      pz_ray_end(p, iv, a, end, ecol, esc);
+      end = 0;
+    }
+    if (!act && more) {
+      const int r = atomicAdd(&q.next, 1);
+      more = r < nr;
+      if (more) {
+        pz_ray_start(p, r, n, a);
+        act = true;
+        ecol = 0;
+        esc = false;
+      }
+    }
+    if (!__any_sync(FULL_MASK, act)) break;
+    const bool left = __any_sync(FULL_MASK, more);
+#pragma unroll 1
+    for (;;) {
+      if (act) {
+        end = pz_ray_round(p, a, ecol, esc);
+        act = end == 0;
+      }
+      const unsigned am = __ballot_sync(FULL_MASK, act);
+      if (am == 0u || (left && __popc(am) <= PZ_REFILL_AT)) break;
     }
   }
-  return out;
 }
 
 // One event of a live lane (polarized.polarized_event; JAX polarized.py:
 // 492-622): lane and event j key the estimate's draws.
 template <bool DET, bool LAMB>
 __device__ __forceinline__ void pz_event(const PolParams& p, const float (&u)[PZ_DRAWS],
-                                         PzLane& s, int lane, int j) {
+                                         PzLane& s, int lane, int j, PzQueue* q) {
   const Grid& g = p.g;
   // The free path against the global majorant, exits, horizontal wrap.
   const float step = exponential_deviate(u[0]) * p.inv_maj;
@@ -331,13 +443,8 @@ __device__ __forceinline__ void pz_event(const PolParams& p, const float (&u)[PZ
     return;
   }
   const int entry = comp * p.max_entries + pf;
-  if (DET && (physical || refl)) {
-    const PzEst e = pz_estimate(p, lane, j, refl, s.x, s.y, s.z, s.ux, s.uy, s.uz, s.e1x,
-                                s.e1y, s.e1z, s.q, s.u, s.v, w_scat, entry * p.n_fwd);
-    s.bad += e.bad;
-    s.rays += p.n_dirs;
-    s.rounds += e.rounds;
-  }
+  // The local estimate's record, traced by the CTA after its lanes' events.
+  if (DET && (physical || refl)) pz_push(p, *q, lane, j, refl, s, w_scat, entry * p.n_fwd);
   if (physical) {
     // The chi rotation of the frame and of (Q, U).
     float s_chi, c_chi;
@@ -478,16 +585,22 @@ static __device__ __noinline__ int pz_prologue(const PolParams& p, float* f, int
 //   i: (6, L)  int32   rows alive, order, bad, evct, rays, rounds
 // One CTA per tile of CTA_THREADS lanes, thread t on lane tile * CTA_THREADS
 // + t; a live lane runs up to K events in registers; the CTA's dead count
-// at exit is the next launch's FIFO rank.  Three CTAs per SM, and the
-// stores' addresses formed at the stores: with both no instantiation spills
-// (flux 72 registers, detectors 75-80); without the bound the flux set kept
-// 64 registers and spilled 8 B, without the address fix the detector and
-// Lambertian set 32 B (ptxas of the H100 build; chip_smoke.py phase 2 reads
-// them).
+// at exit is the next launch's FIFO rank; with detectors the CTA then traces
+// its ray queue (pz_flush).  Three CTAs per SM, and the stores' addresses
+// formed at the stores: with both no instantiation spills (72 registers
+// each); without the bound the flux set kept 64 registers and spilled 8 B,
+// without the address fix the first design's detector and Lambertian set
+// 32 B (ptxas of the H100 build; chip_smoke.py phase 2 reads them).
 template <bool DET, bool LAMB>
 __global__ void __launch_bounds__(CTA_THREADS, PZ_CTAS_PER_SM)
 polarized_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
                              const __grid_constant__ PolParams p) {
+  __shared__ typename std::conditional<DET, PzQueue, char>::type q;
+  PzQueue* qp = nullptr;
+  if constexpr (DET) {
+    if (threadIdx.x == 0) q.n = q.next = 0;   // seen after the prologue's barrier
+    qp = &q;
+  }
   const int lane = blockIdx.x * CTA_THREADS + threadIdx.x;
   const size_t L = (size_t)p.n_lanes;
   int survived = 0;
@@ -523,7 +636,7 @@ polarized_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
 #pragma unroll
         for (int q = 0; q < 4; ++q) u[4 * gi + q] = to_unit(w4[q]);
       }
-      pz_event<DET, LAMB>(p, u, s, lane, j);
+      pz_event<DET, LAMB>(p, u, s, lane, j, qp);
     }
     // The stores' addresses formed here, from a lane the compiler cannot
     // see through: it would otherwise keep the loads' 19 row addresses over
@@ -551,6 +664,9 @@ polarized_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
     survived = s.alive;
   }
   const int n_alive = __syncthreads_count(survived);
+  // The estimates' rays, traced by every thread of the CTA (dead lanes'
+  // threads too); the lanes' rows they add to are stored.
+  if constexpr (DET) pz_flush(p, iv, q);
   if (threadIdx.x == 0) {
     const int n_tiles = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
     const int n_here = min(CTA_THREADS, p.n_lanes - (int)blockIdx.x * CTA_THREADS);

@@ -402,7 +402,8 @@ def _ratio_track(spec: PolarizedSpec, key: PhiloxKey, kb: int, j: int, lane, d, 
 
 
 def detector_estimates(spec: PolarizedSpec, key: PhiloxKey, kb: int, j: int, est, surface,
-                       s: dict, w_scat, comp, pf, buf: PolarizedBuffers) -> None:
+                       s: dict, w_scat, comp, pf, buf: PolarizedBuffers,
+                       record: dict | None = None) -> None:
     """The polarized local estimate of the lanes ``est`` toward every
     detector (JAX polarized.py:328-453): the virtual scattering toward d
     (the chi rotation of (Q, U), the matrix at the photon-to-detector
@@ -411,7 +412,9 @@ def detector_estimates(spec: PolarizedSpec, key: PhiloxKey, kb: int, j: int, est
     reflection (``surface``) w / pi toward upward detectors, depolarized;
     times the ratio-tracking transmittance, tallied at the exit column.  A
     ray alive after ``max_rounds`` rounds counts bad on its lane; each lane
-    counts its rays and rounds."""
+    counts its rays and rounds.  ``record``, a dict, receives in its list
+    ``rays`` one int64 (4, n) tensor of the event's rays, rows (event j,
+    lane, detector, ratio-tracking rounds), lane-major (``ray_census``)."""
     sel = torch.nonzero(est).flatten()
     if sel.numel() == 0:
         return
@@ -460,12 +463,16 @@ def detector_estimates(spec: PolarizedSpec, key: PhiloxKey, kb: int, j: int, est
     s["bad"].index_add_(0, lane, act.to(torch.int32))
     s["rays"].index_add_(0, lane, torch.ones_like(rounds))
     s["rounds"].index_add_(0, lane, rounds)
+    if record is not None:
+        record.setdefault("rays", []).append(
+            torch.stack([torch.full_like(lane, j), lane, d, rounds.long()]))
 
 
 def polarized_event(spec: PolarizedSpec, u, s: dict, buf: PolarizedBuffers, key: PhiloxKey,
-                    kb: int, j: int) -> None:
+                    kb: int, j: int, record: dict | None = None) -> None:
     """Event j of block kb on every lane (JAX polarized.py:492-622), in
-    place on the state dict ``s``; dead lanes keep their state."""
+    place on the state dict ``s``; dead lanes keep their state; ``record``
+    goes to ``detector_estimates``."""
     g = spec.geom
     a = s["alive"]
     x, y, z, ux, uy, uz, w = (s[k] for k in ("x", "y", "z", "ux", "uy", "uz", "w"))
@@ -518,7 +525,8 @@ def polarized_event(spec: PolarizedSpec, u, s: dict, buf: PolarizedBuffers, key:
                                  (w * (1.0 - ssa))[physical].to(torch.float64))
     s.update(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz, e1x=e1x, e1y=e1y, e1z=e1z, q=q, u=us, v=v)
     if spec.n_dirs:
-        detector_estimates(spec, key, kb, j, physical | refl, refl, s, w_scat, comp, pf, buf)
+        detector_estimates(spec, key, kb, j, physical | refl, refl, s, w_scat, comp, pf, buf,
+                           record)
     # Polarized scattering: the chi rotation of the frame and of (Q, U).
     uu, e1 = (ux, uy, uz), (e1x, e1y, e1z)
     s_chi, c_chi = _sincos_2pi(u[4])
@@ -570,13 +578,16 @@ INT_ROWS = ("alive", "order", "bad", "evct", "rays", "rounds")
 
 def polarized_block_reference(spec: PolarizedSpec, state: PolarizedState,
                               buf: PolarizedBuffers, key: PhiloxKey, source: PhotonSource,
-                              kb: int) -> None:
+                              kb: int, record: dict | None = None) -> None:
     """Plain PyTorch version of one block (the twin of PZ): the loop's end
     condition as seen at entry, the FIFO refill (while the batch has more
     photons than lanes: dead lane l takes photon launched + its rank among
     the dead lanes, with the source sample at (l, kb, group,
     STREAM_REFILL)), the K events and the next block's CTA dead counts, in
-    place on ``state`` and ``buf``."""
+    place on ``state`` and ``buf``.  ``record``, a dict, receives ``rays``:
+    int64 (4, n_rays) rows (event j, lane, detector, ratio-tracking rounds)
+    of the block's detector rays, in event order and lane-major within an
+    event (``kernels.general_block.ray_census``)."""
     ctl = buf.ctl
     f, i = state.f, state.i
     L = state.n_lanes
@@ -598,7 +609,11 @@ def polarized_block_reference(spec: PolarizedSpec, state: PolarizedState,
     s.update({n: i[r].clone() for r, n in enumerate(INT_ROWS)})
     s["alive"] = s["alive"] != 0
     for j in range(spec.K):
-        polarized_event(spec, u[j], s, buf, key, kb, j)
+        polarized_event(spec, u[j], s, buf, key, kb, j, record)
+    if record is not None:
+        record["rays"] = torch.cat(record.get("rays", [])
+                                   or [torch.zeros((4, 0), dtype=torch.int64,
+                                                   device=f.device)], dim=1)
     f.copy_(torch.stack([s[n] for n in FLOAT_ROWS]))
     s["alive"] = s["alive"].to(torch.int32)
     i.copy_(torch.stack([s[n] for n in INT_ROWS]))

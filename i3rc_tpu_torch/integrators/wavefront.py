@@ -394,7 +394,7 @@ def ratio_transmittance(spec, opt: DeviceOptics, key, kb: int, j: int, lane, d, 
 
 def intensity_estimate(spec, var, opt: DeviceOptics, tables: DeviceTables, key, kb: int, j: int,
                        est, is_surface, x, y, z, ix, iy, iz, ux, uy, uz, weight, comp, pf_idx,
-                       order, buf) -> torch.Tensor:
+                       order, buf, record: dict | None = None) -> torch.Tensor:
     """Local estimation toward each detector (intensity_contribution,
     wavefront.py:884-1003; in the weight-1 class the chained tracer's,
     :485-503 and :532-603) for the lanes ``est`` of an event, at (x, y, z)
@@ -407,7 +407,9 @@ def intensity_estimate(spec, var, opt: DeviceOptics, tables: DeviceTables, key, 
     kept.  Adds to ``buf.intensity`` (column of the exit * D + d),
     ``buf.by_component`` (slot 0 the surface, comp + 1 otherwise),
     ``buf.excess``, ``buf.int_steps`` (the rays' DDA steps per lane) and
-    ``buf.int_rays`` (the rays per lane).
+    ``buf.int_rays`` (the rays per lane).  ``record``, a dict, receives in
+    its list ``rays`` one int64 (4, n) tensor of the event's rays, rows
+    (event j, lane, detector, DDA steps), lane-major (``ray_census``).
     Returns the lanes' bad rays (the weight-1 class counts them; (L,)
     int32)."""
     det, g = spec.det, spec.geom
@@ -479,6 +481,9 @@ def intensity_estimate(spec, var, opt: DeviceOptics, tables: DeviceTables, key, 
             contrib = torch.where(esc, w * norm_pf * torch.exp(-tau), 0.0)
     buf.int_steps.index_add_(0, lane, steps)
     buf.int_rays.index_add_(0, lane, torch.ones_like(steps))
+    if record is not None:
+        record.setdefault("rays", []).append(
+            torch.stack([torch.full_like(lane, j), lane, d, steps.long()]))
     n1 = det.n_comp + 1
     slot = torch.where(surf, 0, comp[lane] + 1).long()
     if det.clip:
@@ -510,7 +515,7 @@ def surface_reflectance(spec, x, y, mu_in, mu_out, phi_in, phi_out):
 
 
 def general_event(spec, var, opt: DeviceOptics, tables: DeviceTables, u, s: dict, buf,
-                  key=None, kb: int = 0, j: int = 0) -> None:
+                  key=None, kb: int = 0, j: int = 0, record: dict | None = None) -> None:
     """One ``event_step`` (wavefront.py:1144-1540, the inline branch) on the
     lane tensors in ``s``, in place: free path, transport (DDA, maximum
     cross-section jump or Woodcock on the block majorants), exits, the
@@ -520,7 +525,8 @@ def general_event(spec, var, opt: DeviceOptics, tables: DeviceTables, u, s: dict
     inverse-CDF angle and rotation, and the budgets.  ``u`` is the event's
     (n_draws, L) draws in the order of ``var.draws``; exits and absorption
     add float64 weights to ``buf.columns`` ((n_cols, 3): up, down,
-    absorbed) and, with the volume tally, ``buf.vol`` ((n_cells,))."""
+    absorbed) and, with the volume tally, ``buf.vol`` ((n_cells,));
+    ``record`` goes to ``intensity_estimate``."""
     d = {n: u[k] for k, n in enumerate(var.draws)}
     geom = spec.geom
     alive = s["alive"]
@@ -634,7 +640,7 @@ def general_event(spec, var, opt: DeviceOptics, tables: DeviceTables, u, s: dict
         w_event = torch.where(exit_bot, w if brdf else w_srf, w_sc)
         s["bad"] = s["bad"] + intensity_estimate(
             spec, var, opt, tables, key, kb, j, est, exit_bot, rx, ry, rz, rix, riy, riz,
-            ux, uy, uz, w_event, comp, pf_idx, order_next, buf)
+            ux, uy, uz, w_event, comp, pf_idx, order_next, buf, record)
 
     # Russian roulette (:1499-1505).
     if var.rr:

@@ -5,8 +5,9 @@
 the FIFO refill of dead lanes from the photon budget (source sampled in
 the kernel), then K events of the general kernel
 (``wavefront.general_event``), with radiance detectors each event's local
-estimate (``wavefront.intensity_estimate``; the kernel's noinline
-``general_estimate`` stage).  On a CUDA tensor it launches the
+estimate (``wavefront.intensity_estimate``; in the kernel each estimate
+a record in its CTA's ray queue, whose rays the CTA traces after its lanes'
+events: ``gen_flush``).  On a CUDA tensor it launches the
 hand-written Hopper kernel ``csrc/general_event_block.cuh`` once and raises
 if the build or the launch fails; on a CPU tensor it runs
 ``general_block_reference``, the plain PyTorch version, on the same Philox
@@ -74,6 +75,8 @@ MAX_DRAWS = 8                    # the kernel's draw registers per event
 MAX_TILES = 16                   # the kernel's GEN_MAX_TILES: tiles of CTA_THREADS lanes a CTA
 KEY_BUCKETS = 4                  # the kernel's GEN_KEY_BUCKETS: buckets of the key (lane_keys)
 KEY_LIFT = 1.0 + 2.0 ** -10      # the key's scale over inv_max_ext (lane_keys)
+GEN_RAY_F4 = 3                   # float4 words of a ray record in the kernel's queue
+RAY_MAX_SLOT = 0xFF              # the record's tally-slot (comp + 1) field: GEN_RAY_MAX_SLOT
 
 # Rows of GeneralState.f and GeneralState.i.
 X, Y, Z, UX, UY, UZ, W = range(7)
@@ -359,7 +362,9 @@ def general_block_reference(spec: GeneralSpec, var: Variant, opt: DeviceOptics,
     receives what ``warp_census`` reads: ``entry``, a copy of the state
     after the refill, and per event the lanes alive at its start
     (``alive``, (K, L) bool) and the DDA steps each lane took in it
-    (``steps``, (K, L) int32)."""
+    (``steps``, (K, L) int32); with detectors what ``ray_census`` reads:
+    ``rays``, int64 (4, n_rays) rows (event j, lane, detector, the ray's
+    DDA steps), in event order and lane-major within an event."""
     ctl = buf.ctl
     f, i = state.f, state.i
     L = state.n_lanes
@@ -388,11 +393,14 @@ def general_block_reference(spec: GeneralSpec, var: Variant, opt: DeviceOptics,
         if record is not None:
             alive_rows.append(s["alive"].clone())
             xing0 = s["xing"].clone()
-        general_event(spec, var, opt, tables, u[j], s, buf, key, kb, j)
+        general_event(spec, var, opt, tables, u[j], s, buf, key, kb, j, record)
         if record is not None:
             step_rows.append(s["xing"] - xing0)
     if record is not None:
         record["alive"], record["steps"] = torch.stack(alive_rows), torch.stack(step_rows)
+        record["rays"] = torch.cat(record.get("rays", [])
+                                   or [torch.zeros((4, 0), dtype=torch.int64,
+                                                   device=f.device)], dim=1)
     f.copy_(torch.stack([s[n] for n in names]))
     i.copy_(torch.stack([s["alive"].to(torch.int32), s["ix"], s["iy"], s["iz"], s["order"],
                          s["bad"], s["evct"], s["xing"]]))
@@ -509,6 +517,97 @@ def warp_census(steps: torch.Tensor, alive: torch.Tensor, order: torch.Tensor,
             if trips else float("nan")}
 
 
+def _round_cost(cost: torch.Tensor, group: torch.Tensor, n: int = 32) -> tuple[int, int]:
+    """(sum over rounds of the longest cost, rounds): the costs, sorted so
+    that each ``group`` is contiguous, dealt ``n`` at a time within their
+    group."""
+    if cost.numel() == 0:
+        return 0, 0
+    _, counts = torch.unique_consecutive(group, return_counts=True)
+    start = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    pos = torch.arange(cost.numel(), device=cost.device) - start
+    grp = torch.repeat_interleave(torch.arange(counts.numel(), device=cost.device), counts)
+    rnd = grp * (int(counts.max()) // n + 1) + pos // n
+    _, rid = torch.unique(rnd, return_inverse=True)
+    top = torch.zeros(int(rid.max()) + 1, dtype=cost.dtype, device=cost.device)
+    top.scatter_reduce_(0, rid, cost, "amax")
+    return int(top.sum()), top.numel()
+
+
+def ray_census(rays: torch.Tensor, order: torch.Tensor, cta_slots: int = CTA_THREADS) -> dict:
+    """The warp cost of one recorded block's detector rays under three
+    designs of the estimate stage.  ``rays`` int64 (4, n) rows (event j,
+    lane, detector, cost: the ray's DDA steps or ratio-tracking rounds),
+    the ``record["rays"]`` of ``general_block_reference`` or of
+    ``polarized_block_reference``; ``order`` the lane of each thread slot
+    (-1 idle: ``lane_order``, ``identity_order``), slot // 32 its warp and
+    slot // ``cta_slots`` its CTA.  A warp's time on a set of rays is the
+    longest ray of each round it runs:
+
+    * ``serial`` (i), the first design: a lane traces its D rays of an
+      event one after another; per (event, warp) trip the largest sum over
+      a lane's rays;
+    * ``warp`` (ii): the rays of a warp's lanes in push order (event,
+      slot, detector), traced 32 at a time by the warp's threads;
+    * ``cta_by_detector`` (iii): the rays of a CTA's lanes grouped by
+      detector (detector, event, slot), 32 at a time by its warps;
+    * ``warp_pull`` (iv): the rays of a warp's lanes pulled one at a time
+      by whichever of its threads is free, a step of every thread's ray per
+      trip of one loop: the warp's time is at least max(ceil(cost / 32),
+      its longest ray), the bound given.
+
+    Each gives ``warp_cost`` (the sum of the longest rays), ``rounds`` (the
+    trips or rounds of 32) and ``efficiency`` = cost / (32 warp_cost); and
+    ``rays`` and ``cost``, the block's totals.  The ratio of two designs'
+    warp costs bounds the gain of the ray stage: the card bills latency,
+    not lane use."""
+    j, lane, d, cost = (r.long() for r in rays)
+    dev = cost.device
+    n_slots = order.numel()
+    valid = order >= 0
+    slot_of = torch.full((int(order.max()) + 1 if valid.any() else 1,), -1, dtype=torch.int64,
+                         device=dev)
+    slot_of[order[valid]] = torch.nonzero(valid).flatten()
+    slot = slot_of[lane]
+    if bool((slot < 0).any()):
+        raise ValueError("ray_census: a ray's lane has no thread slot in the order")
+    total = int(cost.sum())
+    out = {"rays": int(cost.numel()), "cost": total}
+
+    def fields(warp_cost: int, rounds: int) -> dict:
+        return {"warp_cost": warp_cost, "rounds": rounds,
+                "efficiency": total / (32 * warp_cost) if warp_cost else float("nan")}
+
+    K = int(j.max()) + 1 if j.numel() else 1
+    warp = slot // 32
+    n_warps = -(-n_slots // 32)
+    # (i): per (event, lane) the sum of its rays, per (event, warp) the largest
+    lane_event = j * n_slots + slot
+    le, inv = torch.unique(lane_event, return_inverse=True)
+    sums = torch.zeros(le.numel(), dtype=torch.int64, device=dev).index_add_(0, inv, cost)
+    trip = (le // n_slots) * n_warps + (le % n_slots) // 32
+    tr, tinv = torch.unique(trip, return_inverse=True)
+    top = torch.zeros(tr.numel(), dtype=torch.int64, device=dev)
+    top.scatter_reduce_(0, tinv, sums, "amax")
+    out["serial"] = fields(int(top.sum()), tr.numel())
+    # (ii): a warp's rays in push order, 32 at a time
+    key = ((warp * K + j) * n_slots + slot) * (int(d.max()) + 1 if d.numel() else 1) + d
+    perm = torch.sort(key, stable=True).indices
+    out["warp"] = fields(*_round_cost(cost[perm], warp[perm]))
+    # (iii): a CTA's rays grouped by detector, 32 at a time
+    cta = slot // cta_slots
+    key = ((cta * (int(d.max()) + 1 if d.numel() else 1) + d) * K + j) * n_slots + slot
+    perm = torch.sort(key, stable=True).indices
+    out["cta_by_detector"] = fields(*_round_cost(cost[perm], cta[perm]))
+    # (iv): a warp's rays pulled by its free threads
+    w_ids, winv = torch.unique(warp, return_inverse=True)
+    w_sum = torch.zeros(w_ids.numel(), dtype=torch.int64, device=dev).index_add_(0, winv, cost)
+    w_max = torch.zeros_like(w_sum).scatter_reduce_(0, winv, cost, "amax")
+    pull = torch.maximum(-(-w_sum // 32), w_max)
+    out["warp_pull"] = fields(int(pull.sum()), w_ids.numel())
+    return out
+
+
 def census_orders(spec: GeneralSpec, opt: DeviceOptics, record: dict,
                   buckets=(2, KEY_BUCKETS, 8), tiles: int | None = None) -> dict:
     """``warp_census`` of one recorded block under (a) the first design's
@@ -568,7 +667,7 @@ class _GeneralParams(ctypes.Structure):
         (n, ctypes.c_float) for n in ("zeta", "zeta_ratio", "cap")] + [
         (n, ctypes.c_void_p) for n in ("dirs", "abs_mu", "exit_status", "det_phi", "forward",
                                        "forward_orig", "intensity", "by_comp", "excess",
-                                       "int_steps", "int_rays")]
+                                       "int_steps", "int_rays", "flushes", "rays")]
 
 
 def _grid(g: GridGeometry | None) -> _Grid:
@@ -618,6 +717,9 @@ def launch_refusal(spec: GeneralSpec, var: Variant, opt: DeviceOptics) -> str | 
         return "the weight-1 class runs on Woodcock transport only"
     if var.bernoulli and spec.det is not None and spec.det.est != RATIO:
         return "the weight-1 class estimates radiance by ratio tracking only"
+    if spec.det is not None and opt.n_components + 1 > RAY_MAX_SLOT:
+        return (f"the estimate's ray record holds tally slots up to {RAY_MAX_SLOT}: at most "
+                f"{RAY_MAX_SLOT - 1} components with detectors; got {opt.n_components}")
     return None
 
 
@@ -684,6 +786,8 @@ def general_params(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: D
         p.intensity, p.by_comp = buf.intensity.data_ptr(), buf.by_component.data_ptr()
         p.excess, p.int_steps = buf.excess.data_ptr(), buf.int_steps.data_ptr()
         p.int_rays = buf.int_rays.data_ptr()
+        p.flushes = ray_flush_counter(state.f.device).data_ptr()
+        p.rays = ray_queue(buf, state.n_lanes, spec.K, GEN_RAY_F4).data_ptr()
     return p
 
 
@@ -774,9 +878,49 @@ def general_block(spec: GeneralSpec, var: Variant, opt: DeviceOptics, tables: De
         raise NotImplementedError(f"general_block: no kernel for device {dev}")
 
 
+
+
+def ray_queue(buf, n_lanes: int, K: int, f4: int) -> torch.Tensor:
+    """The device scratch of a kernel's ray queue (``rays`` of G's or PZ's
+    parameter block): room for a record of ``f4`` float4 words at every
+    event of every lane, CTA by CTA (a CTA's segment is its tiles' lanes x
+    K records).  Made at the first launch with ``buf`` and kept on it; its
+    contents do not outlive a launch."""
+    n = -(-n_lanes // CTA_THREADS) * CTA_THREADS * K * f4 * 4
+    t = getattr(buf, "_rays", None)
+    if t is None or t.numel() < n or t.device != buf.ctl.device:
+        t = torch.empty(n, dtype=torch.float32, device=buf.ctl.device)
+        buf._rays = t
+    return t
+
+
+def device_counter(counters: dict, device) -> torch.Tensor:
+    """The int64 (1,) counter of ``counters`` on ``device`` (``cuda`` is the
+    current card), made at first use."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in counters:
+        counters[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return counters[dev]
+
+
+_FLUSHES: dict = {}
+
+
+def ray_flush_counter(device) -> torch.Tensor:
+    """int64 (1,) on ``device``: the flushes of the estimate stage's ray
+    queue (one a working CTA that queued a record: the CTA's rays traced
+    after its lanes' events) that the kernel has counted since
+    ``reset_launch_counters``; a diagnostic of the card only."""
+    return device_counter(_FLUSHES, device)
+
+
 def reset_launch_counters() -> None:
     general_block.launches = general_block.det_launches = 0
     general_block.mode_launches = {name: 0 for name in MODE_NAMES.values()}
+    for t in _FLUSHES.values():
+        t.zero_()
 
 
 reset_launch_counters()

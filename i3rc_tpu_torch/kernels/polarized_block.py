@@ -33,9 +33,10 @@ from i3rc_tpu_torch.integrators.polarized import (
     polarized_block_reference,
 )
 from i3rc_tpu_torch.kernels.event_block import CTA_THREADS, _SourceParams, source_constants
-from i3rc_tpu_torch.kernels.general_block import _Grid, _grid
+from i3rc_tpu_torch.kernels.general_block import _Grid, _grid, device_counter, ray_queue
 
 VARIANTS = ("flux", "detectors", "lambertian", "detectors_lambertian")
+PZ_RAY_F4 = 4                    # float4 words of a ray record in PZ's queue
 
 
 class _PolParams(ctypes.Structure):
@@ -46,7 +47,8 @@ class _PolParams(ctypes.Structure):
         (n, ctypes.c_int) for n in ("n_comp", "max_entries", "n_seg", "n_fwd", "n_dirs",
                                     "max_events", "max_rounds", "n_lanes", "K")] + [
         (n, ctypes.c_float) for n in ("inv_maj", "albedo", "q0", "u0", "v0", "zeta")] + [
-        (n, ctypes.c_uint32) for n in ("key0", "key1", "kb")]
+        (n, ctypes.c_uint32) for n in ("key0", "key1", "kb")] + [
+        ("flushes", ctypes.c_void_p), ("rays", ctypes.c_void_p)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +109,9 @@ def polarized_params(spec: PolarizedSpec, state: PolarizedState, buf: PolarizedB
     p.q0, p.u0, p.v0 = spec.q0, spec.u0, spec.v0
     p.key0, p.key1 = key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF
     p.kb = kb & 0xFFFFFFFF
+    if spec.n_dirs:
+        p.flushes = ray_flush_counter(state.f.device).data_ptr()
+        p.rays = ray_queue(buf, state.n_lanes, spec.K, PZ_RAY_F4).data_ptr()
     return p
 
 
@@ -174,9 +179,21 @@ def polarized_block(spec: PolarizedSpec, state: PolarizedState, buf: PolarizedBu
         raise NotImplementedError(f"polarized_block: no kernel for device {dev}")
 
 
+_FLUSHES: dict = {}
+
+
+def ray_flush_counter(device) -> torch.Tensor:
+    """int64 (1,) on ``device``: the flushes of the estimate's ray queue
+    (one a CTA that queued a record) that the kernel has counted since
+    ``reset_launch_counters``; a diagnostic of the card only."""
+    return device_counter(_FLUSHES, device)
+
+
 def reset_launch_counters() -> None:
     polarized_block.launches = 0
     polarized_block.variant_launches = {v: 0 for v in VARIANTS}
+    for t in _FLUSHES.values():
+        t.zero_()
 
 
 reset_launch_counters()

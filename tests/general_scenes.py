@@ -121,19 +121,30 @@ RADIANCE_CASES = {
     "woodcock_iwabuchi_albedo": ("step99", "woodcock", "iwabuchi", "albedo", {}),
     "woodcock_iwabuchi_rpv": ("step", "woodcock", "iwabuchi", "rpv", {}),
     "woodcock_ratio_albedo": ("two_comp", "woodcock", "ratio", "albedo", {}),
+    "rt_exact_16_detectors": ("step", "rt", "exact", "black", {}),
 }
+
+# Sixteen detectors, twelve up and four down: every collision of the step
+# cloud queues sixteen rays (the kernel's many-ray case: a CTA's queue deals
+# far more rays than it has threads).
+MANY_MUS = [1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.5, 0.5, 0.5, 0.5, -0.5, -0.7, -0.9, -0.3]
+MANY_PHIS = [0.0, 0.0, 30.0, 60.0, 90.0, 120.0, 150.0, 180.0, 210.0, 240.0, 270.0, 300.0,
+             0.0, 90.0, 180.0, 270.0]
+CASE_DETECTORS = {"rt_exact_16_detectors": (MANY_MUS, MANY_PHIS)}
 
 
 def radiance_case(h, name: str, device="cpu"):
     """The port's (or the JAX package's, without ``device``) integrator of
-    one RADIANCE_CASES entry, with the I3RC detectors."""
+    one RADIANCE_CASES entry, with the I3RC detectors (or the case's own,
+    CASE_DETECTORS)."""
     dom_name, mode, est, srf, extra = RADIANCE_CASES[name]
     dom = {"step": lambda: step_cloud_32x8(h, 1.0), "step99": lambda: step_cloud_32x8(h, 0.99),
            "two_comp": lambda: two_component(h), "weight1": lambda: weight1_domain(h)}[dom_name]()
     kw = dict(max_events=500, use_fastpath=False)
     for part in (MODE_KW[mode], EST_KW[est], extra):
         kw.update(part)
-    create = dict(intensity_mus=DET_MUS, intensity_phis=DET_PHIS)
+    mus, phis = CASE_DETECTORS.get(name, (DET_MUS, DET_PHIS))
+    create = dict(intensity_mus=mus, intensity_phis=phis)
     if srf == "albedo":
         create["surface_albedo"] = 0.2
     elif srf == "rpv":

@@ -86,9 +86,19 @@ def mie_step_cloud(h):
                              c.phase_function_index, tab)
 
 
+# Sixteen detectors, twelve up and four down (tests/general_scenes.py
+# MANY_MUS): every collision on the Mie step cloud queues sixteen rays.
+MANY_DETECTORS = dict(
+    intensity_mus=[1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.5, 0.5, 0.5, 0.5,
+                   -0.5, -0.7, -0.9, -0.3],
+    intensity_phis=[0.0, 0.0, 30.0, 60.0, 90.0, 120.0, 150.0, 180.0, 210.0, 240.0, 270.0,
+                    300.0, 0.0, 90.0, 180.0, 270.0])
+
+
 # name: (domain, create keywords, config keywords, source (mu, azimuth)).
 # Together: every instantiation (flux, detectors, Lambertian, both), one
-# and two components, a polarized source, the event budget, the x wrap.
+# and two components, a polarized source, the event budget, the x wrap,
+# and sixteen detectors on the Mie step cloud.
 def pz_cases() -> dict:
     return {
         "flux_slab": (lambda h: rayleigh_slab(h, 1.0), {}, {"max_events": 200}, (0.5, 0.0)),
@@ -109,6 +119,7 @@ def pz_cases() -> dict:
         "det_lamb": (lambda h: rayleigh_slab(h, 0.1),
                      dict(surface_albedo=0.8, intensity_mus=[0.6, -0.7],
                           intensity_phis=[0.0, 0.0]), {"max_events": 100}, (0.6, 0.0)),
+        "det_16_mie_step_cloud": (mie_step_cloud, MANY_DETECTORS, {}, (0.5, 0.0)),
         "det_lamb_dipole": (lambda h: two_component(h, nx=2),
                             dict(surface_albedo=0.5, intensity_mus=[0.6, 0.6, -0.5],
                                  intensity_phis=[0.0, 135.0, 30.0],

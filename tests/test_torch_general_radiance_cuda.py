@@ -1,10 +1,11 @@
 """The general event block with radiance detectors on the card: one block of
-the CUDA kernel (its ``general_estimate`` stage) against its plain version
-(``general_block_reference``) for every case of
+the CUDA kernel (its estimate stage: the CTA's ray queue) against its plain
+version (``general_block_reference``) for every case of
 ``tests/general_scenes.py`` RADIANCE_CASES: each estimator (exact trace,
 Iwabuchi roulette, ratio tracking, the weight-1 class's) in each transport
 mode that has it, over black, albedo and gridded RPV surfaces, with hybrid
-phases and clipping.  The lane state, the control state, the dead counts
+phases and clipping, and sixteen detectors on the step cloud (many rays a
+collision).  The lane state, the control state, the dead counts
 and each lane's estimate steps bit for bit; the float64 tallies within
 1e-9 of their largest entry (the kernel adds them in another order).
 

@@ -4,7 +4,8 @@ polarized local estimates and ratio-tracking rays) against its plain
 version ``polarized_block_reference`` at the launch, mid-flight and tail
 states of every case of ``tests/polarized_scenes.py`` pz_cases, which
 together launch the four instantiations (flux, detectors, Lambertian, both)
-with one and two components.  Every lane-state row, the control state and
+with one and two components, and sixteen detectors on the Mie step cloud
+(many rays a collision in the CTA's ray queue).  Every lane-state row, the control state and
 the dead counts bit for bit; the float64 tallies within 1e-9 (the kernel
 adds them in another order).  A batch on the card launches PZ, counted per
 instantiation, and never runs the plain version.
