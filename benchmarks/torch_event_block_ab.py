@@ -50,6 +50,15 @@ process, it runs every build on identical inputs, alternating the builds
   bit-equal to the twin's, this checkout's tallies within 1e-9 too) and
   one batch per build and round (``chip_smoke.
   pz_batch_time``: PZ's device ms over the batch, by the profiler).
+* surface: one batch of each reflecting-surface path (``SURFACE_PATHS``:
+  the glint row, the step cloud over an albedo, over RPV with 2 detectors,
+  the 13-detector scan, the fused-k bench band over an albedo; and the step
+  cloud's flux batch without a surface) per build and round, by the
+  profiler: the block kernel's device time and the surface stage's
+  kernel's.  ``--surface-split NAME=DIR`` also builds two copies of a
+  ``csrc`` (``surface_split_copies``): an empty stage kernel and one whose
+  tallies add nothing, which split its time into launch, tallies and
+  bounce.
 * rates: the end-to-end photons/s of the four slices (step-cloud flux and
   radiance, broadband, Landsat, timed as ``chip_smoke.py`` phases 5, 9, 13
   and 16 time them) and of the two general paths (phases 27 and 28, with
@@ -79,6 +88,7 @@ root:
     python3 benchmarks/torch_event_block_ab.py --parts general --build compact=build/ab/compact/csrc
     python3 benchmarks/torch_event_block_ab.py --parts estimate --build notally=build/ab/notally/csrc
     python3 benchmarks/torch_event_block_ab.py --parts estimate,polarized --build parent=build/ab/parent/i3rc_tpu_torch/csrc
+    python3 benchmarks/torch_event_block_ab.py --parts surface --build parent=build/ab/parent/i3rc_tpu_torch/csrc --surface-split parent=build/ab/parent/i3rc_tpu_torch/csrc
 """
 
 from __future__ import annotations
@@ -591,6 +601,105 @@ def polarized_ab(builds: dict, dev, card: str, cases=()) -> dict:
     return out
 
 
+# The surface part's paths (benchmarks/torch_surface_census.py path_scene)
+# and the step cloud's flux batch without a surface (K1), in that order.
+SURFACE_PATHS = ("glint", "albedo", "rpv", "scan", "fk_albedo", "flux")
+
+
+def surface_split_copies(src: str, out: Path) -> dict:
+    """Two copies of a ``csrc`` whose surface stage is the kernel of its own
+    in its first design (``fast_event_block_surface_kernel`` with one float64
+    atomic a warp and bin): "empty", whose launch returns at
+    once (the cost of a launch of its grid; no lane bounces, so its exits
+    pend to the next block's prologue), and "notally", whose warp sums add
+    nothing to device memory (the sums are kept: their group's lowest lane
+    compares with a value no sum takes) nor to the volume tally (the
+    bounce's cost without the tallies' atomics).  {name: directory}."""
+    import shutil
+
+    made = {}
+    for name in ("empty", "notally"):
+        dst = out / name
+        if dst.exists():
+            shutil.rmtree(dst)
+        shutil.copytree(src, dst)
+        cu, cuh = dst / "fast_event_block.cu", dst / "fast_event_block.cuh"
+        text = cu.read_text()
+        head = "fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,\n" \
+               "                                const __grid_constant__ EventParams p) {\n"
+        cs.check(head in text, f"{src}: no fast_event_block_surface_kernel to split")
+        if name == "empty":
+            text = text.replace(head, head + "  if (p.n_lanes > 0) return;\n")
+        else:
+            text = text.replace("      tally_add(pr.vol +", "      if (w < -1.0f) tally_add(pr.vol +")
+            h = cuh.read_text()
+            old = "  if (key >= 0 && (peers & below) == 0u) tally_add(base + key, v);"
+            cs.check(old in h, f"{src}: warp_red's add not found")
+            cuh.write_text(h.replace(old, "  if (key >= 0 && (peers & below) == 0u && v == -1.25e300) "
+                                          "tally_add(base + key, v);"))
+        cu.write_text(text)
+        made[name] = dst
+    return made
+
+
+def surface_ab(builds: dict, card: str, cases) -> list:
+    """One batch of each surface path per build and round (two rounds, the
+    builds alternating), by the profiler: the block kernel's device time and
+    launches, and the surface stage's kernel's (the whole surfaced block:
+    their sum).  The step cloud's flux batch (no surface) rides along: the
+    event kernel's time without a surface in the same call."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
+                                make_step_cloud)
+    from i3rc_tpu_torch.integrators.fastpath import lane_width
+
+    import benchmarks.torch_surface_census as census
+
+    names = list(builds)
+    out = []
+    for row, name in enumerate(SURFACE_PATHS):
+        if cases and name not in cases:
+            continue
+        use(builds["this"])
+        if name == "flux":
+            integ = Integrator.create(make_step_cloud(1.0), IntegratorConfig(
+                use_ray_tracing=False, max_events=500), device="cuda")
+            src, n, lanes = PhotonSource.directional(0.5, 0.0), cs.SLICE_PHOTONS, cs.L_CHECK
+        else:
+            integ, src, n, lanes = census.path_scene(name, "cuda")
+        lanes = lane_width(n, lanes, integ.n_k)
+        key = batch_key(cs.SEED, 1400 + row)
+        tracer = integ.batch_tracer(n, lanes)
+        batch = lambda: tracer(key, src.sample(key, lanes, "cuda"), src)
+        recs = {b: [] for b in names}
+        for r in range(2):
+            for bname in order(names, r):
+                use(builds[bname])
+                if r == 0:
+                    batch()                             # warm-up of this build
+                pb = cs.profile_batch(batch)
+                recs[bname].append({"block_ms": pb["block_ms"],
+                                    "launches": pb["block_launches"],
+                                    "stage_kernel_ms": pb["surface_ms"],
+                                    "stage_launches": pb["surface_launches"],
+                                    "whole_ms": pb["block_ms"] + pb["surface_ms"],
+                                    "fup": float(pb["raw"].flux_up.sum()) / n})
+        out.append({"path": name, "photons": n, "lanes": lanes, "builds": recs})
+        for bname in names:
+            rs = recs[bname]
+            per = lambda k, l: ",".join(f"{1e3 * x[k] / max(x[l], 1):.2f}" for x in rs)
+            cs.say("ab surface-batch", path=name, build=bname, photons=n, lanes=lanes,
+                   whole_ms=",".join(f"{x['whole_ms']:.3f}" for x in rs),
+                   block_ms=",".join(f"{x['block_ms']:.3f}" for x in rs),
+                   launches=rs[0]["launches"],
+                   stage_kernel_ms=",".join(f"{x['stage_kernel_ms']:.3f}" for x in rs),
+                   stage_launches=rs[0]["stage_launches"],
+                   stage_kernel_us_per_launch=per("stage_kernel_ms", "stage_launches"),
+                   block_us_per_launch=per("block_ms", "launches"),
+                   fup=",".join(f"{x['fup']:.6f}" for x in rs), card=json.dumps(card))
+    use(builds["this"])
+    return out
+
+
 # One fresh process per measurement: the slices' photons/s, with the
 # package and the kernels of the tree the process runs in.
 _RATES = r"""
@@ -716,7 +825,10 @@ def main() -> int:
                     help="another checkout's root, for the rates part")
     ap.add_argument("--parts", default="blocks,batches,broadband",
                     help="comma-separated subset of blocks, batches, broadband, general, "
-                         "estimate, polarized, rates")
+                         "estimate, polarized, surface, rates")
+    ap.add_argument("--surface-split", action="append", default=[], metavar="NAME=DIR",
+                    help="a csrc whose surface stage is a kernel of its own: also build its "
+                         "copies NAME_empty and NAME_notally (surface_split_copies)")
     ap.add_argument("--cases", default="",
                     help="comma-separated block and batch case names (default: all)")
     ap.add_argument("--out", default=str(ROOT / "build" / "event_block_ab.json"),
@@ -736,7 +848,11 @@ def main() -> int:
         trees = {"this": ROOT, **{k: Path(v).resolve()
                                   for k, v in (t.split("=", 1) for t in args.tree)}}
         result["rates"] = rates_ab(trees, card, cases)
-    if set(parts) & {"blocks", "batches", "broadband"}:
+    for split in args.surface_split:
+        name, src = split.split("=", 1)
+        made = surface_split_copies(src, ROOT / "build" / "ab" / f"{name}_split")
+        dirs.update({f"{name}_{k}": str(v) for k, v in made.items()})
+    if set(parts) & {"blocks", "batches", "broadband", "surface"}:
         builds = build_all(dirs)
         cs.say("ab builds", builds=",".join(builds), card=json.dumps(card))
     dev = torch.device("cuda", 0)
@@ -757,6 +873,8 @@ def main() -> int:
         result["batches"] = batch_ab(builds, card, cases)
     if "broadband" in parts:
         result["broadband"] = broadband_ab(builds, dev, card)
+    if "surface" in parts:
+        result["surface"] = surface_ab(builds, card, cases)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1, default=str))

@@ -179,7 +179,7 @@ OPS_CUBIC, OPS_HG_INVERSE = (10, 0), (8, 2)
 OPS_FORWARD, OPS_HG_VALUE = (18, 2), (8, 1)
 STATE_ROWS = 13                    # x, y, z, ux, uy, uz, tau, tgas; alive, orders, pk, bad, evct
 # (a fused-k plan's lanes carry one more, gcur: state_bytes adds it)
-# The surface stage (fast_event_block.cuh resolve_surface): per bottom hit a
+# The surface stage (fast_event_block.cu fast_event_block_surface_kernel): per bottom hit a
 # Philox call (~100 integer operations), the flux column, the revive test
 # and the cosine-weighted direction (two square roots, the azimuth
 # polynomial); per BRDF evaluation (a hit's R, and one per upward detector
@@ -300,6 +300,16 @@ TAB_PTXAS = {"table_column_flux": "8x/64regs/448B/4cta",
              "table_detectors": "24x/64regs/1416B/4cta", "table_flux": "16x/62regs/920B/4cta",
              "table_gas_detectors": "24x/64regs/1424B/4cta",
              "table_gas_flux": "16x/61regs/932B/4cta"}
+# The fused-k sets as the build before the surface stage's CTA sums gave
+# them (built beside this checkout's in one call on the same machine's
+# nvcc): the redesign leaves them as they were.
+FK_PTXAS = {"fused_k_detectors": "24x/77regs/1560B/3cta", "fused_k_flux": "4x/64regs/236B/4cta",
+            "table_fused_k_detectors": "24x/64regs/1516B/4cta",
+            "table_fused_k_flux": "4x/64regs/236B/4cta"}
+# The surface stage's kernel as it was built before its CTA sums, as
+# PTXAS_FMT prints it.
+SURFACE_BEFORE_PTXAS = {"surface": "48regs/48Bstack/0Bspill/5cta",
+                        "surface_fused_k": "48regs/48Bstack/0Bspill/5cta"}
 # Opcode families counted per instantiation (static counts of the listing,
 # not of a run): "all" is every instruction; IMAD.HI and IMAD.WIDE are the
 # 32 x 32 -> 64 bit multiplies of Philox, which issue at half the FP32 rate.
@@ -362,6 +372,26 @@ def ptxas_by_variant(log: str) -> dict:
             n, r, b = out[name]
             out[name] = (n, max(r, int(m[1])), b)
     return {k: f"{n}x/{r}regs/{b}B/{ctas_per_sm(r)}cta" for k, (n, r, b) in sorted(out.items())}
+
+
+def ptxas_surface(log: str) -> dict:
+    """Per instantiation of the surface stage's kernel
+    (fast_event_block_surface_kernel: "surface" and "surface_fused_k"): its
+    registers, the resident CTAs per SM they allow, and its stack-frame and
+    spill-store bytes."""
+    out, lines = {}, log.splitlines()
+    for at, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*fast_event_block_surface_kernelILb(\d)E", line)
+        if not m:
+            continue
+        text = "\n".join(lines[at:at + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", text)
+        if regs and frame:
+            out["surface_fused_k" if m[1] == "1" else "surface"] = dict(
+                registers=int(regs[1]), ctas_per_sm=ctas_per_sm(int(regs[1])),
+                stack_bytes=int(frame[1]), spill_store_bytes=int(frame[2]))
+    return out
 
 
 def ptxas_of_census(log: str) -> dict:
@@ -847,10 +877,14 @@ def fused_vs_reference(name: str, integ, source, dev, card: str, timed: bool = F
     exits = dict(pending)          # the exits the block tallies
     resolve = eb.resolve_surface
 
+    stage_in = []
+
     def counted(spec_, pro_, s, b, u, u_iw=None):
         alive = int(s.i[ALIVE].sum())
         exits.update({k: int((s.i[PK] == k).sum()) for k in (1, 2, 3)})
         bounce["hits"] += exits[2]
+        if timed:
+            stage_in.append((s.clone(), b.clone(), u, u_iw))
         resolve(spec_, pro_, s, b, u, u_iw)
         bounce["revived"] += int(s.i[ALIVE].sum()) - alive
 
@@ -926,6 +960,21 @@ def fused_vs_reference(name: str, integ, source, dev, card: str, timed: bool = F
         r["events_ms"] = ms(events_only, 20, after)
         r["device_ms"] = device_block_ms(run_kernel, st, buf.clone, 20)
         r["events_device_ms"] = device_block_ms(events_only, after, buf.clone, 20)
+        if spec.reflecting:
+            # The surface stage's kernel alone over the same launches, its
+            # plain version (resolve_surface) on the state it takes, and the
+            # bound of the block's bounce.
+            r["stage_device_ms"] = device_block_ms(run_kernel, st, buf.clone, 20,
+                                                   "fast_event_block_surface")
+            s_in, b_in, u_s, u_iw = stage_in[0]
+            r["stage_plain_ms"] = time_block_ms(lambda s_, b_: resolve(spec, pro, s_, b_, u_s,
+                                                                       u_iw), s_in, b_in.clone, 5)
+            r["stage_bound"] = bound_ms(variant(spec), 0, 0,
+                                        **bounce_work(spec, L_CHECK, r["hits"]))
+            fields.update(stage_device_ms=f"{r['stage_device_ms']:.4f}",
+                          stage_plain_ms=f"{r['stage_plain_ms']:.4f}",
+                          stage_bound_ms=f"{r['stage_bound'][0]:.4f}",
+                          stage_bound_by=r["stage_bound"][1])
         n_bytes = state_bytes(spec, L_CHECK, r["live"]) + PROLOGUE_BYTES_PER_LANE * L_CHECK
         r["bound"] = bound_ms(variant(spec), r["lane_events"], n_bytes, r["collisions"],
                               spec.det.n if spec.det is not None else 0,
@@ -1022,13 +1071,18 @@ def brdf_kernel_checks(dev, card: str) -> dict:
     return out
 
 
-def surfaced_tail_ms(integ, source, dev) -> tuple[float, float]:
-    """(device ms, alive share) of one whole surfaced block at L = 2^18 on a
-    tail state: a trace of 2 L photons run until the budget is spent and at
-    most 15% of lanes are alive, then the next block on fresh copies."""
+def surfaced_tail_ms(integ, source, dev) -> tuple:
+    """(device ms, alive share, the surface stage's kernel's device ms, the
+    stage's bound, the whole block's bound) of one whole surfaced block at
+    L = 2^18 on a tail state: a trace of 2 L photons run until the budget is
+    spent and at most 15% of lanes are alive, then the next block on fresh
+    copies; the bounds of its bounce (bounce_work of its bottom hits) and of
+    the whole block (its events and the bounce)."""
     from i3rc_tpu_torch import batch_key
     from i3rc_tpu_torch.integrators.fastpath import event_spec, launch_state, prologue_spec
-    from i3rc_tpu_torch.kernels.event_block import ALIVE, block_buffers, fused_block
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.kernels.event_block import (ALIVE, EVCT, ORDERS, PK, block_buffers,
+                                                     fused_block)
 
     spec = event_spec(integ.geometry, integ._fast_plan, integ.config)
     key = batch_key(SEED, 41)
@@ -1045,7 +1099,35 @@ def surfaced_tail_ms(integ, source, dev) -> tuple[float, float]:
     check(alive > 0.0, "the surfaced tail state has no live lane")
     ms = device_block_ms(lambda s, b: fused_block(spec, pro, s, b, key, source, kb), st,
                          buf.clone, 20)
-    return ms, alive
+    stage_ms = device_block_ms(lambda s, b: fused_block(spec, pro, s, b, key, source, kb), st,
+                               buf.clone, 20, "fast_event_block_surface")
+    # The block's bottom hits and revivals, from the plain version's stage,
+    # and its lane-events and collisions: the bounds of the stage and of the
+    # whole block (as fused_vs_reference counts them).
+    hits, resolve = [], eb.resolve_surface
+
+    def counted(sp, pr, s, b, *u):
+        n0 = int(s.i[ALIVE].sum())
+        hits.append(int((s.i[PK] == 2).sum()))
+        resolve(sp, pr, s, b, *u)
+        hits.append(int(s.i[ALIVE].sum()) - n0)
+
+    ref = st.clone()
+    eb.resolve_surface = counted
+    try:
+        eb.fused_block_reference(spec, pro, ref, buf.clone(), key, source, kb)
+    finally:
+        eb.resolve_surface = resolve
+    dead0 = st.i[ALIVE] == 0
+    ran = ref.i[EVCT] > st.i[EVCT]
+    events = int((ref.i[EVCT] - st.i[EVCT]).sum())
+    collisions = int((ref.i[ORDERS] - torch.where(dead0 & ran, 0, st.i[ORDERS])).sum()) - hits[1]
+    n_bytes = state_bytes(spec, L_CHECK, int(ran.sum())) + PROLOGUE_BYTES_PER_LANE * L_CHECK
+    whole = bound_ms(variant(spec), events, n_bytes, collisions,
+                     spec.det.n if spec.det is not None else 0,
+                     **bounce_work(spec, L_CHECK, hits[0]))
+    bound = bound_ms(variant(spec), 0, 0, **bounce_work(spec, L_CHECK, hits[0]))
+    return ms, alive, stage_ms, bound, whole
 
 
 def surface_block_checks(dev, card: str) -> tuple[dict, dict]:
@@ -1054,9 +1136,13 @@ def surface_block_checks(dev, card: str) -> tuple[dict, dict]:
     (thin cirrus, and the absorbing step cloud with the volume tally),
     detector, gas and column variants, and each BRDF on the flux and
     detector variants over the cirrus, whose lanes mostly reach the surface
-    (at least 10% hit it in the block).  Returns the timed records (the
+    (at least 10% hit it in the block), and the 13-detector scan of phase
+    24; then both instantiations of the surface stage after the event
+    variants (surface_stage_checks).  Returns the timed records (the
     glint row's Cox-Munk flux block and the RPV radiance block of phase 23,
-    each with its tail) and the largest state error by variant."""
+    each with its tail and its surface stage's kernel alone; "cases": how
+    many cases surface_stage_checks ran) and the largest state
+    error by variant."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, SurfaceDescription,
                                 make_landsat_cloud, make_step_cloud)
     from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
@@ -1077,9 +1163,12 @@ def surface_block_checks(dev, card: str) -> tuple[dict, dict]:
         if "glint" in name:
             check(r["hits"] >= 0.10 * L_CHECK, f"{name}: {r['hits']} bottom hits in the block")
         if key:
-            r["tail_ms"], r["tail_alive"] = surfaced_tail_ms(integ, src, dev)
+            (r["tail_ms"], r["tail_alive"], r["tail_stage_ms"], r["tail_stage_bound"],
+             r["tail_bound"]) = surfaced_tail_ms(integ, src, dev)
             say(phase, case=name, state="tail", alive=f"{r['tail_alive']:.4f}",
-                fused_device_ms=f"{r['tail_ms']:.4f}", card=json.dumps(card))
+                fused_device_ms=f"{r['tail_ms']:.4f}", bound_ms=f"{r['tail_bound'][0]:.4f}",
+                bound_by=r["tail_bound"][1], stage_device_ms=f"{r['tail_stage_ms']:.4f}",
+                stage_bound_ms=f"{r['tail_stage_bound'][0]:.4f}", card=json.dumps(card))
             timed[key] = r
         return r
 
@@ -1102,7 +1191,56 @@ def surface_block_checks(dev, card: str) -> tuple[dict, dict]:
     run("rpv-detectors-step", make(make_step_cloud(1.0), flux, surface=rpv,
                                    intensity_mus=RPV_DET_MUS, intensity_phis=RPV_DET_PHIS),
         directional, key="detectors", timed=True)
+    cox = SurfaceDescription.uniform(SURFACE_BRDFS["cox_munk"], brdf_name="cox_munk")
+    run("cox_munk-scan-glint", make(glint_scene(), flux, surface=cox,
+                                    intensity_mus=[SCAN_MU] * len(SCAN_PHIS),
+                                    intensity_phis=SCAN_PHIS), sun)
+    timed["cases"] = surface_stage_checks(dev, card)
     return timed, err
+
+
+def surface_stage_checks(dev, card: str) -> int:
+    """Phase 4d: both instantiations of the surface stage's kernel (FK or
+    not) after the event variants, against the plain version.  Every seventh
+    case of tests/surface_scenes.py (the table cases, their HG twins and the
+    fused-k cases, each over one of the five surfaces in turn; the test file
+    runs them all) and the 13-detector scan of phase 24, at TABLE_CASE_LANES
+    lanes and 4x the photons, each on its launch, mid-flight and tail
+    states: every lane-state row and the lane weight, the control state and
+    the dead counts bit for bit, the flux, volume, detector and
+    surface-radiance tallies within 1e-9, no exit pending after the block.
+    Returns the cases that ran."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, SurfaceDescription,
+                                batch_key)
+
+    ss = _load_tests_module("surface_scenes")
+    src = PhotonSource.directional(0.5, 0.0)
+    cases = {name: (lambda n=name: ss.case_integrator(n, dev), fused)
+             for name, (_, _, _, fused) in list(ss.surface_cases().items())[::7]}
+    cox = SurfaceDescription.uniform(SURFACE_BRDFS["cox_munk"], brdf_name="cox_munk")
+    cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
+                           compute_volume_absorption=False)
+    cases["scan_13_detectors"] = (lambda: Integrator.create(
+        glint_scene(), cfg, surface=cox, intensity_mus=[SCAN_MU] * len(SCAN_PHIS),
+        intensity_phis=SCAN_PHIS, device=dev), False)
+    kinds, n_states, worst = set(), 0, 0.0
+    for name, (make, fused) in cases.items():
+        key = batch_key(SEED, 1300)
+        spec, pro, states = ss.trace_states(make(), src, 4 * TABLE_CASE_LANES,
+                                            TABLE_CASE_LANES, key, fused)
+        check(spec.reflecting, f"4d {name}: no reflecting surface")
+        for state, st, buf, kb in states:
+            r = ss.block_vs_twin(spec, pro, st, buf, key, src, kb)
+            check(r["bit_equal"] and r["tally_rel_err"] <= 1e-9 and r["pending_after"] == 0,
+                  f"4d {name} {state}: {r}")
+            worst = max(worst, r["tally_rel_err"])
+            n_states += 1
+        kinds.add((spec.fused, spec.surface.kind, spec.table, spec.det is not None))
+    check({k[0] for k in kinds} == {False, True} and len({k[1] for k in kinds}) == 5,
+          f"4d: the cases ran {sorted(kinds)}")
+    say("4d surface-stage-vs-plain", cases=len(cases), states=n_states,
+        kinds=len(kinds), bit_equal=True, tally_rel_err=f"{worst:.3e}", card=json.dumps(card))
+    return len(cases)
 
 
 class LaunchWatch:
@@ -1171,19 +1309,27 @@ def surface_path(tag: str, integ, src, n: int, card: str, seed0: int, counter: s
     bk = batch_kernel_time(batch, profile=profile_kernels)
     check(bk["launched"] == n, f"{tag}: the timed batch launched {bk['launched']} of {n}")
     say(f"{tag}-batch-kernel", photons=n, hits=bk["hits"], **batch_fields(bk, card))
-    # The surface stage on its own: its device time over the profiled batch
-    # (the same key, so the same photons) beside the bound of its work alone,
-    # the bottom hits' bytes and operations (bounce_work).
-    spec = bk["spec"]
-    stage = bound_ms(variant(spec), 0, 0, **bounce_work(spec, L_CHECK * pb["surface_launches"],
-                                                         bk["hits"]))
-    bk["stage"] = {"ms": pb["surface_ms"], "launches": pb["surface_launches"], "bound": stage}
-    say(f"{tag}-surface-stage", photons=n, launches=pb["surface_launches"],
-        kernel_ms_per_batch=f"{pb['surface_ms']:.3f}", hits=bk["hits"],
-        bound_ms=f"{stage[0]:.4f}", bound_by=stage[1], card=json.dumps(card))
+    surface_stage_record(tag, pb, bk, n, L_CHECK, card)
     rate = n / sorted(times)[1]
     return results, launches, bk, dict(seconds=",".join(f"{t:.4f}" for t in times),
                                        photons_per_s=f"{rate:.4e}")
+
+
+def surface_stage_record(tag: str, pb: dict, bk: dict, n: int, lanes: int, card: str) -> dict:
+    """The surface stage on its own over one batch: its kernel's device time
+    from the profiled batch ``pb`` (the same key as batch_kernel_time's
+    ``bk``, so the same photons) beside the bound of its work alone, the
+    bottom hits' bytes and operations (bounce_work).  Stored in
+    bk["stage"]."""
+    spec = bk["spec"]
+    stage = bound_ms(variant(spec), 0, 0, **bounce_work(spec, lanes * pb["surface_launches"],
+                                                         bk["hits"]))
+    bk["stage"] = {"ms": pb["surface_ms"], "launches": pb["surface_launches"], "bound": stage}
+    say(f"{tag}-surface-stage", photons=n, launches=pb["surface_launches"],
+        kernel_ms_per_batch=f"{pb['surface_ms']:.3f}",
+        us_per_launch=f"{1e3 * pb['surface_ms'] / max(pb['surface_launches'], 1):.2f}",
+        hits=bk["hits"], bound_ms=f"{stage[0]:.4f}", bound_by=stage[1], card=json.dumps(card))
+    return bk
 
 
 def gate_anchor(tag: str, what: str, values: list, anchor: tuple, n: int) -> str:
@@ -1229,8 +1375,9 @@ def surface_paths(out: Path, card: str) -> dict:
 
     # 22. the step cloud over a Lambertian albedo of 0.2, flux
     integ = Integrator.create(make_step_cloud(1.0), cfg, surface_albedo=0.2, device="cuda")
-    res, launches, _, rate = surface_path("22 albedo", integ, src, SURFACE_PHOTONS, card, 820,
-                                          "surface_launches")
+    res, launches, bk, rate = surface_path("22 albedo", integ, src, SURFACE_PHOTONS, card, 820,
+                                           "surface_launches")
+    rec["albedo"] = (launches, bk)
     say("22 albedo", photons=SURFACE_PHOTONS, albedo=0.2, fup=gate_anchor(
         "albedo", "Fup", [float(r.mean_flux_up) for r in res], ANCHORS_ALBEDO["fup"],
         SURFACE_PHOTONS), launches=launches, **rate, card=json.dumps(card))
@@ -1257,8 +1404,9 @@ def surface_paths(out: Path, card: str) -> dict:
     integ = Integrator.create(glint_scene(), cfg, surface=cox,
                               intensity_mus=[SCAN_MU] * len(SCAN_PHIS),
                               intensity_phis=SCAN_PHIS, device="cuda")
-    res, launches, _, rate = surface_path("24 ocean-glint-scan", integ, sun, SURFACE_PHOTONS,
-                                          card, 860, "detector_surface_launches")
+    res, launches, bk, rate = surface_path("24 ocean-glint-scan", integ, sun, SURFACE_PHOTONS,
+                                           card, 860, "detector_surface_launches")
+    rec["scan"] = (launches, bk)
     scan = [gate_anchor("scan", f"I{d}", [float(r.mean_intensity[d]) for r in res],
                         ANCHORS_SCAN[f"i{d}"], SURFACE_PHOTONS) for d in range(len(SCAN_PHIS))]
     say("24 ocean-glint-scan", photons=SURFACE_PHOTONS, detectors=len(SCAN_PHIS),
@@ -1376,16 +1524,24 @@ def main() -> int:
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", built.log))
     n_inst = len(re.findall(r"Compiling entry function '\w*fast_event_block_kernel", built.log))
     by_variant = ptxas_by_variant(built.log)
+    stage_ptx = ptxas_surface(built.log)
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
         instantiations=n_inst, max_registers=max(regs) if regs else "n/a",
-        spill_store_bytes=spills, **by_variant)
+        spill_store_bytes=spills, **by_variant,
+        **{k: PTXAS_FMT.format(**v) + f"(before:{SURFACE_BEFORE_PTXAS[k]})"
+           for k, v in stage_ptx.items()})
     # 88 HG instantiations, their 88 table twins and the 2 x 28 fused-k ones;
-    # the HG sets compile to what they were before the table variants, and
-    # the table sets to what they were before the fused-k ones (registers,
+    # the HG sets compile to what they were before the table variants, the
+    # table sets to what they were before the fused-k ones, and the fused-k
+    # sets to what they were before the surface stage's redesign (registers,
     # stack and spill bytes, CTAs per SM, as phase 2 printed them in the
-    # last call without).
+    # last call without).  The surface stage's two instantiations: no spill,
+    # and the 5 CTAs per SM they had.
     check(n_inst == 232, f"event-block instantiations: {n_inst}")
-    for name, want in {**HG_PTXAS, **TAB_PTXAS}.items():
+    check(sorted(stage_ptx) == ["surface", "surface_fused_k"], f"surface stage {stage_ptx}")
+    for name, v in stage_ptx.items():
+        check(v["ctas_per_sm"] >= 5 and v["spill_store_bytes"] == 0, f"surface stage {name}: {v}")
+    for name, want in {**HG_PTXAS, **TAB_PTXAS, **FK_PTXAS}.items():
         check(by_variant.get(name) == want, f"set {name}: {by_variant.get(name)}, was {want}")
     for name in ("fused_k_flux", "fused_k_detectors", "table_fused_k_flux",
                  "table_fused_k_detectors"):
@@ -1773,6 +1929,7 @@ def main() -> int:
         surface_entry(f"fast_event_block{sfx}_surface", source, kind, surf_paths[kind],
                       surf_timed[kind], surf_err[kind], brdf_diff)
         for sfx, kind in (("", "flux"), ("_detectors", "detectors"))] + [
+        stage_entry(surf_paths, fk_rec["albedo"], surf_timed, surf_err)] + [
         general_entry(g_timed, g_err, g_rec), estimate_entry(e_timed, e_err, e_rec)] + [
         table_entry(kind, f"i3rc_tpu_torch/csrc/{src}", replaces, t_rec[kind], t_checks)
         for kind, src, replaces in (
@@ -1816,12 +1973,37 @@ def surface_entry(name: str, source: str, kind: str, path: tuple, whole: dict, e
             "plain_ms": whole["twin_ms"], "bound_ms": whole["bound"][0],
             "bound_by": whole["bound"][1], "library_ms": None,
             "events_ms": whole["kernel_ms"], "fused_events_only_ms": whole["events_device_ms"],
-            "tail_ms": whole["tail_ms"], "batch_ms": bk["kernel_ms"],
+            "tail_ms": whole["tail_ms"], "tail_bound_ms": whole["tail_bound"][0],
+            "batch_ms": bk["kernel_ms"],
             "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
             "surface_stage_ms": bk["stage"]["ms"],
             "surface_stage_launches": bk["stage"]["launches"],
             "surface_stage_bound_ms": bk["stage"]["bound"][0],
             "brdf_values_differing": {k: v[0] for k, v in brdf_diff.items()}}
+
+
+def stage_entry(paths: dict, fk_albedo: tuple, timed: dict, err: dict) -> dict:
+    """The kernels-line entry of the surface stage S
+    (fast_event_block_surface_kernel): its launches on the glint row (phase
+    21: one after each surfaced block); its device ms a launch, full
+    (mid-flight) and tail (phase 4d, the glint row's Cox-Munk flux block),
+    beside its plain version (resolve_surface, on the card) and the bound of
+    the block's bounce (bounce_work); and per batch its time on each
+    surface path (phases 21-24 and 50, by the profiler) beside its bound."""
+    w = timed["flux"]
+    batch = {name: {"stage_ms": bk["stage"]["ms"], "launches": bk["stage"]["launches"],
+                    "bound_ms": bk["stage"]["bound"][0]}
+             for name, (_, bk) in {**paths, "fk_albedo": fk_albedo}.items()}
+    return {"name": "fast_event_block_surface_stage", "route": "cuda",
+            "source": "i3rc_tpu_torch/csrc/fast_event_block.cu",
+            "replaces": "i3rc_tpu/integrators/fastpath.py:665 with the surface glue of "
+                        ":1874-1981 (the bounce of a block's bottom hits and its tallies)",
+            "launches": paths["flux"][0], "max_abs_err": max(err.values()),
+            "ms": w["stage_device_ms"], "plain_ms": w["stage_plain_ms"],
+            "bound_ms": w["stage_bound"][0], "bound_by": w["stage_bound"][1],
+            "library_ms": None, "tail_ms": w["tail_stage_ms"],
+            "tail_bound_ms": w["tail_stage_bound"][0],
+            "cases_vs_plain": timed["cases"], "batch": batch}
 
 
 def gas_kernel_checks(dev, card: str):
@@ -3539,7 +3721,7 @@ def table_kernel_vs_twin(dev, card: str, log: str) -> dict:
     h = ts.host("i3rc_tpu_torch")
     src = PhotonSource.directional(0.5, 0.0)
     built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel"
-                           r"(\w+?ELb1ELb0EE)v", log))
+                           r"(ILi\w+?ELb1ELb0EE)v", log))
     seen, err, n_states, timed = {}, {}, 0, {}
 
     def hold(tag, spec, pro, states, key, source):
@@ -3955,7 +4137,7 @@ def fused_k_kernel_vs_twin(dev, card: str, log: str) -> dict:
 
     fks = _load_tests_module("fused_k_scenes")
     h = fks.host("i3rc_tpu_torch")
-    built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel(\w+?ELb1EE)v",
+    built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel(ILi\w+?ELb1EE)v",
                            log))
     seen, err, n_states, timed = {}, {}, 0, {}
 
@@ -4228,6 +4410,20 @@ def fused_k_paths(card: str) -> dict:
     say("50 fused-k-albedo", photons=sc.n * sc.kd.n_k * sc.batches, albedo=0.2,
         fup=f"{float(mf['fup']):.6f}", fup_baked=f"{float(mb['fup']):.6f}",
         sigma=f"{sigma:.2e}", launches=launches, card=json.dumps(card))
+    # The surface stage's share of one fused band batch over the albedo.
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.integrators.fastpath import lane_width
+
+    n = sc.n * sc.kd.n_k
+    lanes = lane_width(n, sc.lanes, sc.kd.n_k)
+    key = batch_key(SEED, 1220)
+    tracer = sc.fused.batch_tracer(n, lanes)
+    batch = lambda: tracer(key, sc.src.sample(key, lanes, "cuda"), sc.src)
+    pb = profile_batch(batch)
+    bk = batch_kernel_time(batch)
+    say("50 fused-k-albedo-batch-kernel", photons=n, hits=bk["hits"], **batch_fields(bk, card))
+    rec["albedo"] = (launches, surface_stage_record("50 fused-k-albedo", pb, bk, n, lanes,
+                                                    card))
     return rec
 
 

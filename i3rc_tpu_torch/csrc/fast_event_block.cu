@@ -12,8 +12,7 @@
 // (pk != 0) of its lane:
 //  * tallies it at the frozen position with the lane's weight (1 but on a
 //    BRDF plan): columns[col, pk - 1], and for a kind-3 death with the
-//    volume tally vol[col * n_z + iz].  The column adds are warp-aggregated
-//    (warp_red): the glint scene has one column;
+//    volume tally vol[col * n_z + iz];
 //  * for a bottom hit (pk == 2) draws group 0 of STREAM_SURFACE at (lane,
 //    kb): u0 the revive test, u1 the outgoing cosine mu_r = max(sqrt(u1),
 //    1e-6), u2 the azimuth.  The lane is revived when u0 < albedo, or under a
@@ -39,16 +38,35 @@
 // gas column, Gz(z_max) of its k over dz_d, and a revived lane restarts at
 // gcur = 0, Gz of the surface (fastpath.py:1931-1934, :1964-1965, :1979-1983).
 //
-// Why a kernel of its own: as a stage of the event kernel (a __noinline__
-// call after the K events) it raised the registers of every one of the 89
-// instantiations to 64 (K1 from 48: 4 resident CTAs per SM for 5), since
-// ptxas sizes a kernel's registers by its call tree; a launch costs a few
-// microseconds of a block's ~0.1 ms and leaves the event kernels as they
-// were.
+// What bounds it, and the design (H100 runs, PERF.md section 6).  Split on
+// the card (the stage as first written, an empty copy of it and a copy
+// whose tallies add nothing): a launch of the 1024 CTAs costs 1.5 us;
+// the tallies cost 4 us a launch on the glint row, 12 us on RPV and 30 us
+// over an albedo, where each warp added each bin it held with one float64
+// atomic to device memory, 8 warps x 1024 CTAs onto the same few
+// addresses (the glint scene has one column; the step cloud's 32 columns
+// still take a few hundred adds each); the rest is the bounce, the BRDF of
+// each hit and, per upward detector, its BRDF and shadow ray.  So each CTA
+// now sums its exits and its surface radiance in shared memory first
+// (warp_red<true>: the warp's lanes of a bin summed by shuffles, one
+// shared-memory add per warp and bin) and adds each nonzero bin to device
+// memory once, while the histograms have at most SRF_SMEM_BINS bins
+// (Landsat's 32768 flux bins go straight to device memory as before).
+// Folding the stage into the event kernel (a second set of 232
+// instantiations, the stage run from the registers of the thread that ran
+// the lane) measured faster where hits are sparse and slower where nearly
+// every lane hits (the glint row 41.9 ms a batch against 37.0, the scan
+// 23.2 against 20.7): it raised K1's registers from 48 to 64 (4 CTAs per SM
+// for 5), put the bounce's latency on the event kernel's tail, and
+// doubled the first-use build.  The launch of its own leaves the event
+// kernels as they were.
+#define SRF_SMEM_BINS 1024
+
 template <bool FK>
 __global__ void __launch_bounds__(CTA_THREADS)
-fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
+fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv, int smem_flags,
                                 const __grid_constant__ EventParams p) {
+  extern __shared__ double srf_hist[];
   __shared__ int n_alive;
   const int t = threadIdx.x, wl = t & 31;
   const int lane = blockIdx.x * CTA_THREADS + t;
@@ -56,6 +74,13 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
   const SurfaceParams& sp = p.srf;
   const DetParams& q = p.det;
   const Prologue& pr = p.pro;
+  // The CTA's histograms: the flux columns (smem_flags & 1), then the surface
+  // radiance (smem_flags & 2).
+  const int n_fbins = pr.n_kinds * p.n_x * (pr.col_y ? p.n_y : 1);
+  double* cols = (smem_flags & 1) ? srf_hist : nullptr;
+  double* rad = (smem_flags & 2) ? srf_hist + ((smem_flags & 1) ? n_fbins : 0) : nullptr;
+  const int n_hist = ((smem_flags & 1) ? n_fbins : 0) + ((smem_flags & 2) ? q.n_bins : 0);
+  for (int k = t; k < n_hist; k += CTA_THREADS) srf_hist[k] = 0.0;
   if (t == 0) n_alive = 0;
   __syncthreads();
   const bool in_range = lane < p.n_lanes;
@@ -79,7 +104,9 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
       tally_add(pr.vol + (size_t)c * pr.n_z + iz, FK ? (double)w * (double)wk : (double)w);
     }
   }
-  warp_red(pr.columns, key, FK ? (double)w * (double)wk : (double)w);
+  const double wv = FK ? (double)w * (double)wk : (double)w;
+  if (cols) warp_red<true>(cols, key, wv);
+  else warp_red<false>(pr.columns, key, wv);
   if (hit) {
     ux = f[3 * L + lane];
     uy = f[4 * L + lane];
@@ -98,8 +125,8 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
     refl = fmaxf(brdf_reflectance(sp, uz, mu_r, phi_in, TWO_PI_F * u2), 0.0f);
   }
   const bool revive = hit && u0 < (brdf ? fminf(refl, 1.0f) : sp.albedo);
-  if (sp.acc != nullptr) {
-    const bool emit = brdf ? hit : revive;
+  const bool emit = brdf ? hit : revive;
+  if (sp.acc != nullptr && __any_sync(FULL_MASK, emit)) {
     const float zs = p.z0 + p.nudge_z;
     uint32_t r[4] = {0u, 0u, 0u, 0u};
     int have = -1;
@@ -129,7 +156,8 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
         if (FK) c = c * wk;
         bin = col * q.n + d;
       }
-      warp_red(sp.acc, c != 0.0f ? bin : -1, (double)c);
+      if (rad) warp_red<true>(rad, c != 0.0f ? bin : -1, (double)c);
+      else warp_red<false>(sp.acc, c != 0.0f ? bin : -1, (double)c);
     }
   }
   if (revive) {
@@ -155,6 +183,36 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv,
     const int n_here = min(CTA_THREADS, p.n_lanes - (int)blockIdx.x * CTA_THREADS);
     pr.dead[(size_t)((p.kb + 1u) & 1u) * gridDim.x + blockIdx.x] = n_here - n_alive;
   }
+  // One global add per nonzero bin of the CTA's histograms.
+  if (cols)
+    for (int b = t; b < n_fbins; b += CTA_THREADS)
+      if (cols[b] != 0.0) tally_add(pr.columns + b, cols[b]);
+  if (rad)
+    for (int b = t; b < q.n_bins; b += CTA_THREADS)
+      if (rad[b] != 0.0) tally_add(sp.acc + b, rad[b]);
+}
+
+// The surface stage's launch after a block's (see the kernel): its CTA
+// histograms in dynamic shared memory while each has at most SRF_SMEM_BINS
+// bins.
+static void launch_surface(float* f, int* i, const EventParams& p, bool fk,
+                           cudaStream_t stream) {
+  const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
+  const int n_fbins = p.pro.n_kinds * p.n_x * (p.pro.col_y ? p.n_y : 1);
+  int flags = 0;
+  size_t smem = 0;
+  if (n_fbins <= SRF_SMEM_BINS) {
+    flags |= 1;
+    smem += (size_t)n_fbins * sizeof(double);
+  }
+  if (p.srf.acc != nullptr && p.det.n_bins <= SRF_SMEM_BINS) {
+    flags |= 2;
+    smem += (size_t)p.det.n_bins * sizeof(double);
+  }
+  if (fk)
+    fast_event_block_surface_kernel<true><<<blocks, CTA_THREADS, smem, stream>>>(f, i, flags, p);
+  else
+    fast_event_block_surface_kernel<false><<<blocks, CTA_THREADS, smem, stream>>>(f, i, flags, p);
 }
 
 extern "C" {
@@ -200,13 +258,7 @@ int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
     ok = launch_block<false, false>(f, i, acc, *params, chain, absorbing, track_y, detectors,
                                     iwabuchi, st);
   if (!ok) return (int)cudaErrorInvalidValue;
-  if (params->pro.on && params->srf.kind != SURFACE_BLACK) {
-    const int blocks = (params->n_lanes + CTA_THREADS - 1) / CTA_THREADS;
-    if (fk)
-      fast_event_block_surface_kernel<true><<<blocks, CTA_THREADS, 0, st>>>(f, i, *params);
-    else
-      fast_event_block_surface_kernel<false><<<blocks, CTA_THREADS, 0, st>>>(f, i, *params);
-  }
+  if (params->pro.on && params->srf.kind != SURFACE_BLACK) launch_surface(f, i, *params, fk, st);
   return (int)cudaGetLastError();
 }
 

@@ -211,9 +211,10 @@
 //    bottom hits and only then takes the CTA's dead count, so that the next
 //    launch's FIFO rank sees a revived lane alive: counted dead at exit and
 //    revived at the next prologue, it would skip photon ids.  The kind of
-//    surface is a runtime value; the 176 event-kernel instantiations (88
-//    HG, 88 TAB) are those of a black surface but for DET's weight (see the
-//    note there).
+//    surface is a runtime value; the 232 event-kernel instantiations are
+//    those of a black surface but for DET's weight (see the note there).
+//    Why the stage stays a launch of its own, and what its design does,
+//    is in fast_event_block.cu.
 //
 // Float arithmetic follows the JAX reference and the PyTorch twin operation
 // by operation; the library is built with --fmad=false so that no multiply-
@@ -1067,9 +1068,11 @@ __device__ __forceinline__ void tally_add(double* addr, double v) {
 
 // Adds v to base[key] for the lanes with key >= 0, from a converged warp:
 // the lanes of one key are grouped by __match_any_sync and summed by a
-// shuffle tree (as in tally), and the group's lowest lane adds the sum with
-// tally_add.  The weighted flux counts and the surface radiance, whose
-// lanes crowd onto few bins (the glint scene has one column).
+// shuffle tree (as in tally), and the group's lowest lane adds the sum, with
+// tally_add into device memory or (SHARED) with atomicAdd into the CTA's
+// histogram in shared memory.  The surface stage's weighted flux counts and
+// radiance, whose lanes crowd onto few bins (the glint scene has one column).
+template <bool SHARED>
 __device__ __forceinline__ void warp_red(double* base, int key, double v) {
   if (!__any_sync(FULL_MASK, key >= 0)) return;
   const unsigned peers = __match_any_sync(FULL_MASK, key);
@@ -1084,7 +1087,10 @@ __device__ __forceinline__ void warp_red(double* base, int key, double v) {
     higher &= ~__ballot_sync(FULL_MASK, rank & 1);
     rank >>= 1;
   }
-  if (key >= 0 && (peers & below) == 0u) tally_add(base + key, v);
+  if (key >= 0 && (peers & below) == 0u) {
+    if (SHARED) atomicAdd(base + key, v);
+    else tally_add(base + key, v);
+  }
   __syncwarp();
 }
 

@@ -19,8 +19,10 @@ state in place and add the detector contributions of the block to a
 float64 (n_cols, D) accumulator.  Over a reflecting surface (a Lambertian
 albedo or a uniform BRDF, ``SurfaceLaw``) the whole block ends with the
 surface stage (``resolve_surface``; on the card a second hand-written
-kernel, ``fast_event_block_surface_kernel``, launched by the same call).  The kernel takes every K >= 1, chain depth
-0-3 and up to 16 detectors; ``launch_refusal`` names what it does not.
+kernel, ``fast_event_block_surface_kernel``, launched by the same call, its
+tallies summed per CTA; ``surface_census`` counts its work and its tallies'
+atomics block by block).  The kernel takes every K >= 1, chain depth 0-3
+and up to 16 detectors; ``launch_refusal`` names what it does not.
 Every variant also comes as a table variant (``EventSpec.cubic``: a phase
 function that is not exactly HG samples the cosine from the piecewise-cubic
 inverse CDF, its detectors read the phase value from the log-space cubic
@@ -1142,6 +1144,149 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
     i[ALIVE] = i[ALIVE] | revive.to(torch.int32)
     if spec.fused:
         f[GCUR] = torch.where(revive, 0.0, f[GCUR])
+
+
+SURFACE_SMEM_BINS = 1024            # the stage's CTA histograms in shared memory (SRF_SMEM_BINS)
+
+
+def surface_census(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: BlockBuffers,
+                   u, u_iw=None, entry_alive=None) -> dict:
+    """Counts of the surface stage that ends one block over a reflecting
+    surface, on the state ``resolve_surface`` would take (after the K events,
+    exits pending) and its draws; changes nothing.  ``entry_alive`` is the
+    alive flag of each lane as the K events began (after the refill), whose
+    lanes the kernel compacts onto the first threads of their CTA; every
+    pending exit is one of them.
+
+    Per block: ``exits`` (by kind), ``hits`` (pk == 2), ``revived``; the
+    ``warps`` (in lane order, as the stage's kernel runs them:
+    ``warps_lane_order``; compacted, as a stage inside the event kernel
+    would hold them: ``warps_compacted``) and ``ctas`` that hold an exit;
+    ``bins_per_cta`` (the distinct flux bins of a CTA's exits: sum and
+    max); the float64 atomics of the tallies into device memory
+    (``atomics``: flux columns, volume, surface radiance) as one atomic a
+    warp and bin issues them (``warp``, lane order) and as a CTA's sum in
+    shared memory does (``cta``: one a CTA and bin while the histogram has
+    at most SURFACE_SMEM_BINS bins), each with the most that fall on one
+    address (``same_address``; past that many bins, one a warp and bin as
+    before).  With detectors: ``emits`` (the nonzero
+    surface-radiance contributions of each upward detector), and the lane
+    use of the per-hit detector loop (emitting hit x upward detector
+    pairs over 32 x the rounds a warp runs), one lane per thread in lane
+    order (``loop_lane_order``), compacted (``loop_compacted``), and with a
+    warp's pairs dealt to all its threads (``loop_dealt``); the bounce's lane
+    use (hits over 32 x the warps holding a hit) in both orders."""
+    law, det = spec.surface, spec.det
+    f, i = st.f, st.i
+    L = st.n_lanes
+    pk = i[PK].long()
+    exited, hit = pk != 0, pk == 2
+    lane = torch.arange(L, device=f.device)
+    cta = lane // CTA_THREADS
+    if entry_alive is None:
+        entry_alive = exited
+    entry_alive = entry_alive != 0
+    if bool((exited & ~entry_alive).any()):
+        raise ValueError("surface_census: an exit pends on a lane that did not run the block")
+    # The compacted thread of each lane that ran: its rank among its CTA's.
+    live = entry_alive.long()
+    below = torch.cumsum(live, 0) - live
+    starts = below[::CTA_THREADS]
+    slot = below - starts[cta]
+    warp_lane = lane // 32
+    warp_comp = cta * (CTA_THREADS // 32) + slot // 32
+    n_warps = -(-L // CTA_THREADS) * (CTA_THREADS // 32)
+
+    if law.brdf:
+        mu_r = torch.clamp(torch.sqrt(u[1]), min=f32(1e-6))
+        phi_in = torch.atan2(f[UY], f[UX])
+        refl = torch.clamp(brdf_function(law)(law.params, f[UZ], mu_r, phi_in, TWO_PI * u[2]),
+                           min=0.0)
+        revive = hit & (u[0] < torch.clamp(refl, max=1.0))
+    else:
+        revive = hit & (u[0] < law.albedo)
+
+    def groups(warp, key, ok):
+        """(atomics, same-address max) of one add per distinct (group, key)."""
+        if not bool(ok.any()):
+            return 0, 0
+        pairs = torch.unique(warp[ok] * (1 << 40) + key[ok])
+        per_key = torch.unique(pairs % (1 << 40), return_counts=True)[1]
+        return int(pairs.numel()), int(per_key.max())
+
+    def tally(key, ok, n_bins, reps: int = 1):
+        """One tally's adds (its keys and flags for reps copies of the lanes)."""
+        by_warp = groups(warp_lane.repeat(reps), key, ok)
+        by_cta = groups(cta.repeat(reps), key, ok) if n_bins <= SURFACE_SMEM_BINS else by_warp
+        return {"warp": by_warp[0], "warp_same_address": by_warp[1],
+                "cta": by_cta[0], "cta_same_address": by_cta[1]}
+
+    col = flux_column(pro, f[X], f[Y])
+    key = col * pro.n_kinds + pk - 1
+    flux_ok = exited & (pk <= pro.n_kinds)
+    atomics = {"columns": tally(key, flux_ok, pro.n_cols * pro.n_kinds)}
+    if pro.vol_tally:
+        dead = pk == 3
+        iz = torch.clamp(((f[Z] - pro.z0) * pro.inv_dz_cell).to(torch.int64), 0, pro.n_z - 1)
+        per = torch.unique(col[dead] * pro.n_z + iz[dead], return_counts=True)[1]
+        n = int(dead.sum())
+        most = int(per.max()) if n else 0
+        atomics["vol"] = {"warp": n, "warp_same_address": most, "cta": n,
+                          "cta_same_address": most}
+    cta_bins = torch.unique(cta[flux_ok] * (1 << 40) + key[flux_ok])
+    per_cta = torch.unique(cta_bins // (1 << 40), return_counts=True)[1]
+
+    def lane_use(work, warp, rounds_of, per_item: int = 1):
+        """The work's items (per_item each) over 32 x the rounds that the
+        warps holding it run (rounds_of: a warp's count of work -> rounds)."""
+        if not bool(work.any()):
+            return None
+        n = torch.bincount(warp[work], minlength=n_warps)
+        return int(work.sum()) * per_item / (32 * int(rounds_of(n[n > 0]).sum()))
+
+    out = {"lanes": L, "exits": {k: int((pk == k).sum()) for k in (1, 2, 3)},
+           "hits": int(hit.sum()), "revived": int(revive.sum()),
+           "warps_lane_order": int(torch.unique(warp_lane[exited]).numel()),
+           "warps_compacted": int(torch.unique(warp_comp[exited]).numel()),
+           "ctas": int(torch.unique(cta[exited]).numel()),
+           "bins_per_cta": {"sum": int(cta_bins.numel()),
+                            "max": int(per_cta.max()) if per_cta.numel() else 0}}
+    for name, warp in (("lane_order", warp_lane), ("compacted", warp_comp)):
+        out[f"bounce_{name}"] = lane_use(hit, warp, torch.ones_like)
+    if buf.srf is not None:
+        emit = hit if law.brdf else revive
+        up = [d for d, (_, _, dz) in enumerate(det.dirs) if dz > 0.0]
+        zs = torch.full_like(f[X], f32(np.float32(spec.z0) + np.float32(spec.nudge_z)))
+        lane_k = lane_constants(spec) if spec.fused else None
+        keys, oks, emits = [], [], {}
+        for d in up:
+            tau, dcol = shadow_closed(spec, d, f[X], f[Y], zs)
+            if lane_k is not None:
+                tau = tau + lane_k["gtop"] * det.inv_dz[d]
+            if law.brdf:
+                dz = det.dirs[d][2]
+                npf = torch.clamp(brdf_function(law)(law.params, f[UZ], torch.full_like(f[UZ], dz),
+                                                     phi_in, torch.full_like(f[UZ], law.det_phi[d])),
+                                  min=0.0) * INV_PI
+            else:
+                npf = torch.full_like(f[X], INV_PI)
+            c = _iwabuchi(det, npf, tau, u_iw[d]) if det.iwabuchi else npf * torch.exp(-tau)
+            nonzero = emit & (c != 0.0)
+            emits[d] = int(nonzero.sum())
+            keys.append(dcol * det.n + d)
+            oks.append(nonzero)
+        n_up = len(up)
+        out["emits"] = emits
+        out["emitting_hits"] = int(emit.sum())
+        if n_up:
+            atomics["srf"] = tally(torch.cat(keys), torch.cat(oks), det.n_cols * det.n, n_up)
+        for name, warp in (("lane_order", warp_lane), ("compacted", warp_comp)):
+            out[f"loop_{name}"] = lane_use(emit, warp, lambda n: torch.full_like(n, n_up),
+                                           n_up) if n_up else None
+        out["loop_dealt"] = lane_use(emit, warp_comp, lambda n: -(-(n * n_up) // 32),
+                                     n_up) if n_up else None
+    out["atomics"] = atomics
+    return out
 
 
 def fused_block_reference(spec: EventSpec, pro: PrologueSpec, state: LaneState,
