@@ -49,7 +49,14 @@ polarized transport (the polarized event block against its plain version
 on its four instantiations, then the bench row's Rayleigh atmosphere with
 2 Stokes detectors against the JAX package's degree of polarization, a
 Mie step cloud with the I3RC detectors and the polarized namelist through
-the driver) — and checks the physics.
+the driver), and the marching shadow trace of a plan whose x and y factors
+both vary (its 48 instantiations and the surface stage's against their
+plain version on small cases and on their paths' scenes, the step cloud's
+closed trace against the marching one, a 3-D separable scene's radiance
+against the general kernel's exact trace, and the same scene over RPV),
+and the plane-parallel verification driver (the shipped namelist, copies
+against the discrete-ordinates slab on the general kernel and the
+fastpath, and in radiance mode) — and checks the physics.
 Every phase prints one line; any failed check raises and the script exits
 nonzero.  Run from the repository root:
 
@@ -191,6 +198,19 @@ STATE_ROWS = 13                    # x, y, z, ux, uy, uz, tau, tgas; alive, orde
 OPS_PER_HIT = (170, 4)
 OPS_PER_BRDF = (150, 30)
 BYTES_PER_HIT = 52
+# The marching shadow trace (fast_event_block.cuh shadow_march, K3-M): per
+# ray (a collision or emitting hit x detector) the phase value (HG: a
+# reciprocal square root; TAB: the forward fit, OPS_FORWARD for
+# OPS_HG_VALUE), the exp of the estimate and the bin, ~30 ALU and 3 SFU
+# steps, in place of OPS_PER_DETECTOR's closed trace; per segment step the
+# three where-chains of the extinction and the product, the faces of the z
+# chain and of the x and y chains the ray moves along, three products by
+# reciprocals, the minimum and the clamp, the optical depth's product and
+# sum, the nudged or advanced position on each axis, two wraps and the exit
+# test: ~70 ALU, no SFU step (no division).  The steps are the twin's count
+# of this run's rays (event_block.march_census).
+OPS_PER_MARCH_RAY = (30, 3)
+OPS_PER_MARCH_STEP = (70, 0)
 
 
 def state_bytes(spec, n_lanes: int, n_live: int) -> int:
@@ -215,7 +235,8 @@ def state_bytes(spec, n_lanes: int, n_live: int) -> int:
 
 def bound_ms(variant: str, lane_events: int, n_bytes: int, collisions: int = 0,
              detectors: int = 0, hits: int = 0, brdf_evals: int = 0, emits: int = 0,
-             extra_bytes: int = 0, table: bool = False) -> tuple[float, str]:
+             extra_bytes: int = 0, table: bool = False, march: dict | None = None
+             ) -> tuple[float, str]:
     """(least ms, what bounds it) for ``lane_events`` alive lane-events and
     ``collisions`` collisions of the variant that move ``n_bytes`` of
     device memory; over a reflecting surface (``bounce_work``) plus its
@@ -223,7 +244,10 @@ def bound_ms(variant: str, lane_events: int, n_bytes: int, collisions: int = 0,
     shadow rays and ``extra_bytes``.  A ``table`` variant samples each
     cosine from the cubic (OPS_CUBIC for OPS_HG_INVERSE) and takes each
     detector ray's phase value from the forward fit (OPS_FORWARD for
-    OPS_HG_VALUE)."""
+    OPS_HG_VALUE).  ``march``, a plan with the marching shadow trace: the
+    ``rays`` and ``steps`` of event_block.march_census (collision and surface
+    rays both; pass detectors=0 and no emits), each ray at OPS_PER_MARCH_RAY
+    and each step at OPS_PER_MARCH_STEP."""
     (ea, es), (ca, cs) = OPS_PER_EVENT[variant], OPS_PER_COLLISION[variant]
     da, ds = OPS_PER_DETECTOR
     if table:
@@ -233,6 +257,12 @@ def bound_ms(variant: str, lane_events: int, n_bytes: int, collisions: int = 0,
     sfu = lane_events * es + collisions * (cs + detectors * ds)
     alu += hits * OPS_PER_HIT[0] + brdf_evals * OPS_PER_BRDF[0] + emits * OPS_PER_DETECTOR[0]
     sfu += hits * OPS_PER_HIT[1] + brdf_evals * OPS_PER_BRDF[1] + emits * OPS_PER_DETECTOR[1]
+    if march is not None:
+        ra, rs = OPS_PER_MARCH_RAY
+        if table:
+            ra, rs = ra + OPS_FORWARD[0] - OPS_HG_VALUE[0], rs + OPS_FORWARD[1] - OPS_HG_VALUE[1]
+        alu += march["rays"] * ra + march["steps"] * OPS_PER_MARCH_STEP[0]
+        sfu += march["rays"] * rs + march["steps"] * OPS_PER_MARCH_STEP[1]
     n_bytes += extra_bytes
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
@@ -271,8 +301,8 @@ def ctas_per_sm(registers: int, threads: int = 256) -> int:
 # GAS, COL, SLICES, DCAP, TAB, FK), for the SASS census: the ones the main paths
 # launch, then the detector tally of more than 751 bins and the Iwabuchi
 # variant sized for 16 detectors, which only the checks run; then the table
-# variants of the paths (f)-(j) (phases 38-43), and the fused-k variants of
-# phases 46-48.
+# variants of the paths (f)-(j) (phases 38-43), the fused-k variants of
+# phases 46-48, and K3-M (fast_event_block_kernel_march, phases 55-57).
 CENSUS = {"flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb0ELb0EE",
           "gas_chain3": "ILi3ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb0ELb0EE",
           "column_chain2": "ILi2ELb0ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb0ELb0EE",
@@ -286,7 +316,10 @@ CENSUS = {"flux_chain2": "ILi2ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELi8ELb0ELb0EE",
           "table_column_chain2": "ILi2ELb1ELb1ELb0ELb0ELb0ELb1ELb0ELi8ELb1ELb0EE",
           "fused_k_flux": "ILi0ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb0ELb1EE",
           "fused_k_detectors_iwabuchi": "ILi0ELb0ELb0ELb1ELb1ELb1ELb0ELb1ELi8ELb0ELb1EE",
-          "table_fused_k_flux": "ILi0ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb1ELb1EE"}
+          "table_fused_k_flux": "ILi0ELb0ELb0ELb0ELb0ELb1ELb0ELb0ELi8ELb1ELb1EE",
+          # K3-M (fast_event_block_kernel_march): phase 57's variant
+          "march_detectors": "_marchILi0ELb1ELb1ELb1ELb0ELb0ELb0ELb1ELi8ELb0ELb0EE",
+          "march_detectors_iwabuchi": "_marchILi0ELb0ELb1ELb1ELb1ELb0ELb0ELb1ELi8ELb0ELb0EE"}
 # ptxas_by_variant of the HG sets as the build without table variants gave
 # them (NVIDIA H100 80GB HBM3 machine's nvcc; chip_smoke.py phase 2 before
 # ROADMAP item 15): adding the table variants leaves them as they were.
@@ -374,21 +407,50 @@ def ptxas_by_variant(log: str) -> dict:
     return {k: f"{n}x/{r}regs/{b}B/{ctas_per_sm(r)}cta" for k, (n, r, b) in sorted(out.items())}
 
 
+def ptxas_march(log: str) -> dict:
+    """Per set of K3-M instantiations (fast_event_block_kernel_march, HG
+    "march_detectors" and table "table_march_detectors"): their count, most
+    registers, the resident CTAs per SM those allow, and their summed
+    stack-frame and spill-store bytes, from ptxas -v."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*fast_event_block_kernel_marchILi\d+"
+                      r"(?:ELb\d){7}ELi\d+ELb(\d)ELb\dEEv", line)
+        if m:
+            name = ("table_" if m[1] == "1" else "") + "march_detectors"
+            out.setdefault(name, dict(count=0, registers=0, stack_bytes=0,
+                                      spill_store_bytes=0))["count"] += 1
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                                      line)):
+            out[name]["stack_bytes"] += int(m[1])
+            out[name]["spill_store_bytes"] += int(m[2])
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = max(out[name]["registers"], int(m[1]))
+    for v in out.values():
+        v["ctas_per_sm"] = ctas_per_sm(v["registers"])
+    return out
+
+
 def ptxas_surface(log: str) -> dict:
     """Per instantiation of the surface stage's kernel
-    (fast_event_block_surface_kernel: "surface" and "surface_fused_k"): its
-    registers, the resident CTAs per SM they allow, and its stack-frame and
+    (fast_event_block_surface_kernel: "surface" and "surface_fused_k"; and
+    fast_event_block_surface_kernel_march, "surface_march"): its registers,
+    the resident CTAs per SM they allow, and its stack-frame and
     spill-store bytes."""
     out, lines = {}, log.splitlines()
     for at, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\w*fast_event_block_surface_kernelILb(\d)E", line)
+        m = re.search(r"Compiling entry function '\w*fast_event_block_surface_kernel"
+                      r"(?:ILb(\d)E|_march)", line)
         if not m:
             continue
         text = "\n".join(lines[at:at + 4])
         regs = re.search(r"Used (\d+) registers", text)
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", text)
         if regs and frame:
-            out["surface_fused_k" if m[1] == "1" else "surface"] = dict(
+            out["surface_march" if m[1] is None else
+                "surface_fused_k" if m[1] == "1" else "surface"] = dict(
                 registers=int(regs[1]), ctas_per_sm=ctas_per_sm(int(regs[1])),
                 stack_bytes=int(frame[1]), spill_store_bytes=int(frame[2]))
     return out
@@ -665,7 +727,7 @@ SPIN_CYCLES = 2_000_000
 PROLOGUE_BYTES_PER_LANE = 8 * 4
 
 
-def batch_kernel_time(run_batch, profile: bool = True) -> dict:
+def batch_kernel_time(run_batch, profile: bool = True, march: dict | None = None) -> dict:
     """One batch: the block kernel's device time (prologue and events, one
     launch per block, and over a reflecting surface the surface stage's
     kernel after it) summed over the batch, from torch.profiler
@@ -680,7 +742,8 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
     ``orders``, with the refills' resets added back: exact but for the one
     block in which the budget runs out); and the batch's bound.
     ``kernel_ms`` is the profiler's sum where it shows device time, else the
-    events' sum."""
+    events' sum.  ``march``: the batch's marching census (march_batch_census),
+    which the bound counts in place of the closed trace's rays."""
     import i3rc_tpu_torch.integrators.fastpath as fp
     from i3rc_tpu_torch.kernels.event_block import ALIVE, DONE, ORDERS, SPENT
 
@@ -737,9 +800,10 @@ def batch_kernel_time(run_batch, profile: bool = True) -> dict:
             "spent_at": ctl[SPENT] if ctl[SPENT] >= 0 else ctl[DONE], "hits": hits,
             "launched": int(max(launched_now(spec, rec[-1][6], k) for k in (0, 1))),
             "bound": bound_ms(variant(spec), events, n_bytes, collisions,
-                              spec.det.n if spec.det is not None else 0,
-                              **bounce_work(spec, rec[0][5] * len(rec), hits),
-                              table=spec.table)}
+                              spec.det.n if spec.det is not None and march is None else 0,
+                              **dict(bounce_work(spec, rec[0][5] * len(rec), hits),
+                                     **({"emits": 0} if march and spec.reflecting else {})),
+                              table=spec.table, march=march)}
 
 
 def launched_now(spec, buf, kb: int):
@@ -1522,13 +1586,17 @@ def main() -> int:
             check(v.get("spill_store_bytes", 1) == 0, f"general {name} spills: {v}")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", built.log)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", built.log))
-    n_inst = len(re.findall(r"Compiling entry function '\w*fast_event_block_kernel", built.log))
+    n_inst = len(re.findall(r"Compiling entry function '\w*fast_event_block_kernelILi",
+                            built.log))
     by_variant = ptxas_by_variant(built.log)
+    march_ptx = ptxas_march(built.log)
     stage_ptx = ptxas_surface(built.log)
     say("2 build", seconds=f"{built.seconds:.1f}", library=built.path.name,
         instantiations=n_inst, max_registers=max(regs) if regs else "n/a",
         spill_store_bytes=spills, **by_variant,
-        **{k: PTXAS_FMT.format(**v) + f"(before:{SURFACE_BEFORE_PTXAS[k]})"
+        **{k: "{count}x/{registers}regs/{stack_bytes}Bstack/{spill_store_bytes}Bspill/"
+              "{ctas_per_sm}cta".format(**v) for k, v in march_ptx.items()},
+        **{k: PTXAS_FMT.format(**v) + f"(before:{SURFACE_BEFORE_PTXAS.get(k, 'none')})"
            for k, v in stage_ptx.items()})
     # 88 HG instantiations, their 88 table twins and the 2 x 28 fused-k ones;
     # the HG sets compile to what they were before the table variants, the
@@ -1538,9 +1606,17 @@ def main() -> int:
     # last call without).  The surface stage's two instantiations: no spill,
     # and the 5 CTAs per SM they had.
     check(n_inst == 232, f"event-block instantiations: {n_inst}")
-    check(sorted(stage_ptx) == ["surface", "surface_fused_k"], f"surface stage {stage_ptx}")
+    # K3-M: the 24 detector instantiations of each of HG and TAB again, with
+    # the marching trace (MARCH); none spills.  The surface stage's third
+    # instantiation is its marching one.
+    check(sorted(march_ptx) == ["march_detectors", "table_march_detectors"]
+          and all(v["count"] == 24 and v["spill_store_bytes"] == 0 for v in march_ptx.values()),
+          f"K3-M instantiations {march_ptx}")
+    check(sorted(stage_ptx) == ["surface", "surface_fused_k", "surface_march"],
+          f"surface stage {stage_ptx}")
     for name, v in stage_ptx.items():
-        check(v["ctas_per_sm"] >= 5 and v["spill_store_bytes"] == 0, f"surface stage {name}: {v}")
+        check((v["ctas_per_sm"] >= 5 or name == "surface_march") and v["spill_store_bytes"] == 0,
+              f"surface stage {name}: {v}")
     for name, want in {**HG_PTXAS, **TAB_PTXAS, **FK_PTXAS}.items():
         check(by_variant.get(name) == want, f"set {name}: {by_variant.get(name)}, was {want}")
     for name in ("fused_k_flux", "fused_k_detectors", "table_fused_k_flux",
@@ -1559,7 +1635,7 @@ def main() -> int:
         for name in CENSUS:
             check(name in census, f"{name} not found in the cuobjdump listing")
         for name in ("detectors_iwabuchi", "gas_detectors", "detectors_iwabuchi_16",
-                     "table_detectors_iwabuchi"):
+                     "table_detectors_iwabuchi", "march_detectors_iwabuchi"):
             # No compare-and-swap loop: the detector tally has no fp64 shared-
             # memory atomic.  What shared atomics there are, are the
             # prologue's int32 counts, which the flux variant has too.
@@ -1870,6 +1946,17 @@ def main() -> int:
     pz_checks = polarized_kernel_vs_twin(dev, card, pptx)
     pz_rec = polarized_paths(out, card)
 
+    # 55-58. the marching shadow trace (ROADMAP item 10b) and the
+    # plane-parallel driver (item 18): K3-M and K3-M+S against their plain
+    # version (55), the step cloud's closed trace against the marching one
+    # (56), a 3-D separable scene with radiance detectors against G's exact
+    # trace, and K3-M+S's path over RPV (57), and the shipped planeParallel
+    # namelist with copies against the slab oracle on G and K1 and in
+    # radiance mode on G+E and K3 (58)
+    m_checks = march_kernel_vs_twin(dev, card)
+    m_rec = march_paths(card)
+    plane_parallel_runs(out, card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -1950,7 +2037,8 @@ def main() -> int:
              "fastpath.py:1409-1470)"),
             ("table_fused_k", "fast_event_block_tab_fk.cu",
              "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode; fused-k, XLA in "
-             "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)]},
+             "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)] + [
+        march_entry(kind, m_checks, m_rec) for kind in ("march", "march_surface")]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4883,6 +4971,401 @@ def polarized_entry(checks: dict, rec: dict) -> dict:
             "step_cloud_batch_ms": s["batch"]["kernel_ms"],
             "step_cloud_batch_bound_ms": s["batch"]["bound"][0],
             "step_cloud_photons_per_s": s["rate"]}
+
+
+
+# ---------------------------------------------------------------------------
+# The marching shadow trace (ROADMAP item 10b): the detector block K3 and its
+# surface stage on a plan whose x and y factors both vary (K3-M, K3-M+S)
+# against their plain version, the closed trace against the marching one, a
+# 3-D separable scene against G's exact trace; and the plane-parallel driver
+# (ROADMAP item 18)
+
+MARCH_PHOTONS = 1 << 22             # phases 56-57: a batch
+MARCH_LANES = 1 << 20
+MARCH_BATCHES = 4                   # phase 57, each side
+MARCH_SRF_PHOTONS = 1 << 21         # K3-M+S's path: the 3-D scene over RPV
+# A marching path may lose this share of its photons (n_bad): a photon past
+# the max_events budget of 500 scattering orders and surface bounces
+# (march_scenes.CFG_KW) ends as bad; over RPV, 1 of 6.3e6 reached it.
+MARCH_BAD_SHARE = 1e-5
+PP_PHOTONS = 1 << 22                # phase 58's copies of the shipped namelist
+PP_BATCHES = 8
+PP_RAD_PHOTONS = 1 << 21            # its radiance copies
+PP_RAD_BATCHES = 4
+# Fup of the shipped planeParallel namelist's slab (tau 1, HG 0.85,
+# conservative, mu0 0.5, black surface) by discrete ordinates
+# (tests/disort_oracle.py hg_slab_fluxes; tests/test_external_validation.py:256).
+ANCHOR_SLAB_FUP = 0.164878
+
+
+def march_path_scene(name: str, dev) -> SimpleNamespace:
+    """The marching paths' scenes (tests/march_scenes.py separable_3d: HG,
+    ssa 0.95, the exact estimator): "3d", phase 57's, with
+    march_scenes.DETECTORS at MARCH_PHOTONS; "3d_rpv", the same over the
+    RPV surface with the two upward detectors at MARCH_SRF_PHOTONS (K3-M+S);
+    both at MARCH_LANES lanes."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource
+
+    ms = _load_tests_module("march_scenes")
+    h = ms.host("i3rc_tpu_torch")
+    cfg = IntegratorConfig(**ms.CFG_KW)
+    if name == "3d":
+        integ = Integrator.create(ms.separable_3d(h), cfg, device=dev, **ms.DETECTORS)
+        n = MARCH_PHOTONS
+    else:
+        integ = Integrator.create(ms.separable_3d(h), cfg, device=dev,
+                                  **ms._srf.surface_kw(h, "rpv"), **ms.UP_DETECTORS)
+        n = MARCH_SRF_PHOTONS
+    return SimpleNamespace(integ=integ, n=n, lanes=MARCH_LANES,
+                           src=PhotonSource.directional(0.5, 0.0))
+
+
+def march_block_bound(spec, r: dict, lanes: int, census: dict) -> tuple:
+    """The bound of one K3-M or K3-M+S block (march_scenes.block_vs_twin's
+    work, the twin's census of its marching rays and steps)."""
+    n_bytes = state_bytes(spec, lanes, r["live"]) + PROLOGUE_BYTES_PER_LANE * lanes
+    work = dict(bounce_work(spec, lanes, r["hits"]), emits=0) if spec.reflecting else {}
+    return bound_ms(variant(spec), r["lane_events"], n_bytes, r["collisions"], 0, **work,
+                    table=spec.table, march=census)
+
+
+def march_kernel_vs_twin(dev, card: str) -> dict:
+    """Phase 55: K3-M and K3-M+S against their plain version, bit for bit.
+    The cases of tests/march_scenes.py march_cases (HG and table, Iwabuchi on
+    and off, absorbing and conservative, over black, an albedo and RPV with
+    upward detectors; LANES lanes, 4x the photons) and the two path scenes
+    at their photons and lanes, each on its launch, mid-flight and tail
+    states: every lane-state row, the lane weight, the control state and
+    the dead counts bit for bit (over black the flux tallies too), the
+    detector, surface-radiance (and, over a surface, flux) tallies within
+    1e-9.  The path scenes' mid-flight and tail blocks are timed: the
+    kernels' device time (profiler; over RPV the event kernel and the
+    surface stage), the plain version's (CUDA events) and the bound, with
+    the twin's census of the block's marching rays and steps."""
+    from i3rc_tpu_torch import PhotonSource, batch_key
+    from i3rc_tpu_torch.kernels.event_block import (fused_block, fused_block_reference,
+                                                     march_census)
+
+    ms = _load_tests_module("march_scenes")
+    src = PhotonSource.directional(0.5, 0.0)
+    err, timed, seen = {"march": 0.0, "march_surface": 0.0}, {}, set()
+    n_states = 0
+
+    def hold(tag, spec, pro, states, key, source):
+        nonlocal n_states
+        check(spec.det is not None and spec.det.march_steps > 0, f"55 {tag}: not a marching plan")
+        for state, st, buf, kb in states:
+            with march_census() as cen:
+                r = ms.block_vs_twin(spec, pro, st, buf, key, source, kb)
+            check(r["bit_equal"] and r["acc_rel_err"] <= 1e-9, f"55 {tag} {state}: {r}")
+            kind = "march_surface" if spec.reflecting else "march"
+            err[kind] = max(err[kind], r["max_abs_err"])
+            seen.add(ms.instantiation(spec) + ("+S" if spec.reflecting else ""))
+            n_states += 1
+            yield state, st, buf, kb, r, cen
+
+    for name in ms.march_cases():
+        integ = ms.case_integrator(name, dev)
+        key = batch_key(SEED, 950)
+        spec, pro, states = ms.trace_states(integ, src, 4 * ms.LANES, ms.LANES, key)
+        for _ in hold(name, spec, pro, states, key, src):
+            pass
+    n_cases = n_states
+    for name in ("3d", "3d_rpv"):
+        sc = march_path_scene(name, dev)
+        key = batch_key(SEED, 960)
+        spec, pro, states = ms.trace_states(sc.integ, sc.src, sc.n, sc.lanes, key)
+        for state, st, buf, kb, r, cen in hold(name, spec, pro, states, key, sc.src):
+            fields = dict(scene=name, state=state, lanes=sc.lanes, photons=sc.n, kb=kb,
+                          live=r["live"], bit_equal=r["bit_equal"],
+                          max_abs_err=f"{r['max_abs_err']:.3e}",
+                          acc_rel_err=f"{r['acc_rel_err']:.3e}", march_steps=spec.det.march_steps,
+                          rays=cen["rays"], ray_steps=cen["steps"],
+                          warp_steps=cen["warp_steps"], most_steps=cen["most"],
+                          unfinished=cen["unfinished"], instantiation=ms.instantiation(spec))
+            if state != "launch":
+                run_k = lambda s, b: fused_block(spec, pro, s, b, key, sc.src, kb)
+                run_p = lambda s, b: fused_block_reference(spec, pro, s, b, key, sc.src, kb)
+                r["device_ms"] = device_block_ms(run_k, st, buf.clone, 20)
+                r["twin_ms"] = time_block_ms(run_p, st, buf.clone, 2)
+                r["bound"] = march_block_bound(spec, r, sc.lanes, cen)
+                r["census"] = dict(cen)
+                timed[(name, state)] = r
+                fields.update(lane_events=r["lane_events"], collisions=r["collisions"],
+                              hits=r["hits"], device_ms=f"{r['device_ms']:.4f}",
+                              plain_ms=f"{r['twin_ms']:.4f}", bound_ms=f"{r['bound'][0]:.4f}",
+                              bound_by=r["bound"][1])
+            say("55 march-block-vs-plain", **fields, card=json.dumps(card))
+    say("55 march-block-vs-plain", cases=len(ms.march_cases()), case_states=n_cases,
+        path_states=n_states - n_cases, instantiations=len(seen),
+        bit_equal=True, max_abs_err=",".join(f"{k}:{v:.3e}" for k, v in err.items()),
+        card=json.dumps(card))
+    return {"timed": timed, "err": err}
+
+
+def march_batch_census(run_batch) -> dict:
+    """The marching census (rays, steps) of one batch, counted by the plain
+    version of every block of the same batch (same key: bit-equal to the
+    kernels' run), and the plain batch's host seconds."""
+    import i3rc_tpu_torch.integrators.fastpath as fp
+    from i3rc_tpu_torch.kernels.event_block import fused_block_reference, march_census
+
+    orig = fp.fused_block
+    fp.fused_block = fused_block_reference
+    try:
+        with march_census() as cen:
+            t0 = time.perf_counter()
+            run_batch()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        fp.fused_block = orig
+    return dict(cen, plain_seconds=seconds)
+
+
+def closed_vs_march(card: str) -> dict:
+    """Phase 56: the step cloud's closed plan against the same plan with
+    the marching trace of 24 steps (tests/test_fastpath.py:994-1030), one
+    batch of MARCH_PHOTONS at MARCH_LANES lanes on the same key, the three
+    detectors of tests/test_fastpath.py:1007-1008: the flux tallies bitwise
+    equal (the shadow trace draws no random numbers), the radiance sum within
+    rtol 2e-4 and each column within rtol 0.02, atol 1e-3 of the largest.
+    The marching batch launches K3-M (the march counter), the closed one
+    not.  y is not tracked here: the marching trace without fy."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource, make_step_cloud
+    from i3rc_tpu_torch.integrators.fastpath import make_fast_tracer
+    from i3rc_tpu_torch.kernels import event_block as eb
+
+    ms = _load_tests_module("march_scenes")
+    integ = Integrator.create(make_step_cloud(1.0), IntegratorConfig(**ms.CFG_KW),
+                              device="cuda", **ms.CLOSED_VS_MARCH_DETECTORS)
+    src = PhotonSource.directional(0.5, 0.0)
+    key = batch_key_(970)
+    raws, fields = {}, {}
+    for tag, plan in zip(("closed", "march"), ms.closed_and_marching(integ)):
+        tracer = make_fast_tracer(integ.geometry, plan, integ.config, MARCH_PHOTONS, MARCH_LANES)
+        tracer(key, src.sample(key, MARCH_LANES, "cuda"), src)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        raws[tag] = tracer(key, src.sample(key, MARCH_LANES, "cuda"), src)
+        torch.cuda.synchronize()
+        fields[f"{tag}_seconds"] = f"{time.perf_counter() - t0:.4f}"
+        fields[f"{tag}_launches"] = eb.event_block.detector_launches
+        check(eb.event_block.march_launches == (eb.event_block.detector_launches
+                                                if tag == "march" else 0)
+              and eb.event_block.detector_launches > 0, f"56 {tag}: launches")
+        check(int(raws[tag].n_bad) == 0, f"56 {tag}: n_bad {int(raws[tag].n_bad)}")
+    cmp = ms.compare_closed_and_marching(raws["closed"], raws["march"])
+    check(cmp["ok"], f"56 closed vs marching: {cmp}")
+    say("56 march-vs-closed", photons=MARCH_PHOTONS, lanes=MARCH_LANES,
+        shadow_steps=ms.CLOSED_VS_MARCH_STEPS, flux_bit_equal=cmp["flux_bit_equal"],
+        radiance_sum_rel=f"{cmp['sum_rel']:.3e}", max_column_diff=f"{cmp['max_col_diff']:.3e}",
+        **fields, card=json.dumps(card))
+    return cmp
+
+
+def march_paths(card: str) -> dict:
+    """Phases 56-57.  57: the 3-D separable scene (march_path_scene "3d":
+    both horizontal factors vary, so the planner takes the marching trace)
+    at MARCH_PHOTONS a batch and MARCH_LANES lanes, MARCH_BATCHES batches
+    with the launch counts set to 0 just before and read just after (K3-M
+    alone), its radiance against the same scene on G's exact trace (G+E,
+    IntegratorConfig(): ray tracing), MARCH_BATCHES batches, within 4
+    combined standard errors; photons/s, one batch under the profiler (the
+    device's idle share), one with each launch timed beside its bound (the
+    twin's census of the same batch's marching steps); then K3-M+S's path,
+    the scene over RPV ("3d_rpv", three batches and one timed)."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    ms = _load_tests_module("march_scenes")
+    rec = {"closed_vs_march": closed_vs_march(card), "launches": {}, "batch": {}}
+    sc = march_path_scene("3d", "cuda")
+    plan = sc.integ._fast_plan
+    check(plan is not None and not plan.closed_shadow and 0 < plan.shadow_steps <= 24,
+          f"57: the plan {plan and (plan.closed_shadow, plan.shadow_steps)}")
+    fn = sc.integ.batch_fn(sc.src, sc.n, n_lanes=sc.lanes)
+    fn(batch_key_(980))
+    torch.cuda.synchronize()
+    reset_counts()
+    intens, fl, times, bads = radiance_batches(fn, sc.n, 981, MARCH_BATCHES, False,
+                                               int(MARCH_BAD_SHARE * sc.n))
+    launches = eb.event_block.march_launches
+    check(launches > 0 and launches == eb.event_block.detector_launches
+          and gb.general_block.launches == 0, f"57: K3-M launches {launches}")
+    rec["launches"]["march"] = launches
+    h = ms.host("i3rc_tpu_torch")
+    g_integ = Integrator.create(ms.separable_3d(h), IntegratorConfig(), device="cuda",
+                                **ms.DETECTORS)
+    check(g_integ._fast_plan is None, "57: G's side has a fastpath plan")
+    gfn = g_integ.batch_fn(sc.src, sc.n, n_lanes=sc.lanes)
+    gfn(batch_key_(990))
+    torch.cuda.synchronize()
+    reset_counts()
+    g_intens, g_fl, g_times, g_bad = radiance_batches(gfn, sc.n, 991, MARCH_BATCHES, False,
+                                                      int(1e-3 * sc.n))
+    check(gb.general_block.det_launches > 0, "57: G+E did not launch")
+    m, s = intens.mean(0), intens.std(0, ddof=1) / MARCH_BATCHES ** 0.5
+    gm, gs = g_intens.mean(0), g_intens.std(0, ddof=1) / MARCH_BATCHES ** 0.5
+    z = np.abs(m - gm) / np.sqrt(s ** 2 + gs ** 2)
+    check(bool(np.all(z <= 4.0)), f"57: K3-M {m} +- {s} vs G+E {gm} +- {gs}")
+    rate = sc.n / sorted(times)[len(times) // 2]
+    say("57 march-3d-radiance", photons=sc.n, lanes=sc.lanes, batches=MARCH_BATCHES,
+        shadow_steps=plan.shadow_steps, intensity=",".join(f"{v:.5f}" for v in m),
+        sigma=",".join(f"{v:.1e}" for v in s), g_intensity=",".join(f"{v:.5f}" for v in gm),
+        g_sigma=",".join(f"{v:.1e}" for v in gs), z=",".join(f"{v:.2f}" for v in z),
+        fup=f"{fl[:, 0].mean():.6f}", g_fup=f"{g_fl[:, 0].mean():.6f}",
+        n_bad=",".join(map(str, bads)), g_n_bad=",".join(map(str, g_bad)),
+        seconds=",".join(f"{t:.4f}" for t in times),
+        g_seconds=",".join(f"{t:.4f}" for t in g_times), photons_per_s=f"{rate:.4e}",
+        g_photons_per_s=f"{sc.n / sorted(g_times)[len(g_times) // 2]:.4e}",
+        launches=launches, card=json.dumps(card))
+    for name, counter in (("3d", "march"), ("3d_rpv", "march_surface")):
+        if name == "3d_rpv":
+            sc = march_path_scene(name, "cuda")
+            fn = sc.integ.batch_fn(sc.src, sc.n, n_lanes=sc.lanes)
+            fn(batch_key_(1010))
+            torch.cuda.synchronize()
+            reset_counts()
+            bads = radiance_batches(fn, sc.n, 1011, 3, False, int(MARCH_BAD_SHARE * sc.n))[3]
+            rec["launches"][counter] = eb.event_block.march_surface_launches
+            check(rec["launches"][counter] > 0
+                  and eb.event_block.detector_surface_launches == rec["launches"][counter],
+                  f"57 {name}: K3-M+S launches {rec['launches'][counter]}")
+            say("57 march-3d_rpv", photons=sc.n, batches=3, n_bad=",".join(map(str, bads)),
+                launches=rec["launches"][counter], card=json.dumps(card))
+        key = batch_key_(1020)
+        tracer = sc.integ.batch_tracer(sc.n, sc.lanes)
+        run = lambda: tracer(key, sc.src.sample(key, sc.lanes, "cuda"), sc.src)
+        run()
+        pb = profile_batch(run)
+        cen = march_batch_census(run)
+        bk = batch_kernel_time(run, march=cen)
+        bk.update(idle=pb["idle_share"], census=cen)
+        rec["batch"][counter] = bk
+        say(f"57 march-{name}-profile", photons=sc.n,
+            **profile_fields(pb, sc.integ._fast_plan.unroll, card))
+        say(f"57 march-{name}-batch-kernel", photons=sc.n, rays=cen["rays"],
+            ray_steps=cen["steps"], warp_steps=cen["warp_steps"], unfinished=cen["unfinished"],
+            plain_batch_seconds=f"{cen['plain_seconds']:.3f}", **batch_fields(bk, card))
+    return rec
+
+
+def plane_parallel_runs(out: Path, card: str) -> dict:
+    """Phase 58: the plane-parallel verification driver
+    (i3rc_tpu_torch/drivers/plane_parallel.py).  The shipped
+    examples/planeParallel.nml unmodified through ``python -m`` (G: ray
+    tracing), held as tests/test_drivers.py:14-25 holds it (closure within
+    2e-3, 0.12 < Fup < 0.21); a copy at PP_PHOTONS x PP_BATCHES photons with
+    ray tracing (G) and without (K1), each's Fup within 4 standard errors of
+    the batch mean of the discrete-ordinates slab's ANCHOR_SLAB_FUP; a
+    radiance copy (two detectors) with ray tracing (G+E) and without (K3,
+    the closed trace), the two within 5 combined standard errors.  Each run
+    with the launch counts set to 0 just before it and read just after;
+    each run's wall seconds."""
+    from i3rc_tpu_torch.drivers.plane_parallel import run_from_namelist as run_pp
+    from i3rc_tpu_torch.kernels import event_block as eb
+    from i3rc_tpu_torch.kernels import general_block as gb
+
+    pp = out / "plane_parallel"
+    pp.mkdir(parents=True, exist_ok=True)
+    shipped = ROOT / "examples" / "planeParallel.nml"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "i3rc_tpu_torch.drivers.plane_parallel",
+                           str(shipped)], cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    t_cli = time.perf_counter() - t0
+    check(proc.returncode == 0, f"58 the shipped namelist: {proc.stderr[-2000:]}")
+    row = proc.stdout.strip().splitlines()[-1].split()
+    fup, fdn = float(row[4]), float(row[5])
+    check(abs(fup + fdn - 1.0) < 2e-3 and 0.12 < fup < 0.21, f"58 shipped: {row}")
+    say("58 plane-parallel-shipped", namelist=shipped.name, fup=f"{fup:.5f}", fdn=f"{fdn:.5f}",
+        fup_err=row[6], seconds=f"{t_cli:.2f}", card=json.dumps(card))
+    text = shipped.read_text()
+    big = (text.replace("numPhotonsPerBatch = 10000,", f"numPhotonsPerBatch = {PP_PHOTONS},")
+               .replace("numBatches = 4,", f"numBatches = {PP_BATCHES},"))
+    no_rt = lambda t: t.replace("useRayTracing = T,", "useRayTracing = F,")
+    check(big != text and no_rt(big) != big, "58: the namelist copies")
+    rec = {}
+    for tag, body in (("ray-tracing", big), ("max-cross-section", no_rt(big))):
+        path = pp / f"{tag}.nml"
+        path.write_text(body)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_pp(str(path), quiet=True, device="cuda")
+        seconds = time.perf_counter() - t0
+        g_launches, k1 = gb.general_block.launches, eb.event_block.launches
+        check((g_launches > 0 and k1 == 0) if tag == "ray-tracing" else (k1 > 0 and g_launches == 0),
+              f"58 {tag}: G {g_launches}, K1 {k1}")
+        sigma = res["flux_up_err"] / PP_BATCHES ** 0.5
+        check(abs(res["flux_up"] - ANCHOR_SLAB_FUP) <= 4 * sigma,
+              f"58 {tag}: Fup {res['flux_up']} +- {sigma}, oracle {ANCHOR_SLAB_FUP}")
+        check(abs(res["flux_up"] + res["flux_down"] - 1.0) < 2e-3, f"58 {tag}: closure {res}")
+        rec[tag] = dict(res, seconds=seconds)
+        say("58 plane-parallel-oracle", run=tag, photons=PP_PHOTONS, batches=PP_BATCHES,
+            fup=f"{res['flux_up']:.6f}", sigma=f"{sigma:.2e}", oracle=ANCHOR_SLAB_FUP,
+            z=f"{(res['flux_up'] - ANCHOR_SLAB_FUP) / sigma:.2f}", fdn=f"{res['flux_down']:.6f}",
+            kernel="G" if tag == "ray-tracing" else "K1", launches=g_launches or k1,
+            seconds=f"{seconds:.2f}", card=json.dumps(card))
+    rad = (text.replace("numPhotonsPerBatch = 10000,", f"numPhotonsPerBatch = {PP_RAD_PHOTONS},")
+               .replace("  surfaceAlbedo = 0.0,",
+                        "  surfaceAlbedo = 0.0,\n  intensityMus = 1., 0.5,\n"
+                        "  intensityPhis = 0., 0.,"))
+    check("intensityMus" in rad and f"numBatches = {PP_RAD_BATCHES}," in rad, "58: radiance copy")
+    rads = {}
+    for tag, body in (("radiance-ray-tracing", rad), ("radiance-max-cross-section", no_rt(rad))):
+        path = pp / f"{tag}.nml"
+        path.write_text(body)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_pp(str(path), quiet=True, device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = (gb.general_block.det_launches if tag == "radiance-ray-tracing"
+                    else eb.event_block.detector_launches)
+        check(launches > 0 and bool(np.all(np.isfinite(res["radiance"])))
+              and bool(np.all(res["radiance"] > 0.0)), f"58 {tag}: {res}, launches {launches}")
+        rads[tag] = res
+        say("58 plane-parallel-radiance", run=tag, photons=PP_RAD_PHOTONS, batches=PP_RAD_BATCHES,
+            radiance=",".join(f"{v:.6f}" for v in res["radiance"]),
+            error=",".join(f"{v:.2e}" for v in res["radiance_err"]),
+            kernel="G+E" if tag == "radiance-ray-tracing" else "K3", launches=launches,
+            seconds=f"{seconds:.2f}", card=json.dumps(card))
+    a, b = rads["radiance-ray-tracing"], rads["radiance-max-cross-section"]
+    # The driver's error is the batches' RMS about their mean: / sqrt(n - 1)
+    # for the standard error of the mean.
+    sig = np.sqrt(a["radiance_err"] ** 2 + b["radiance_err"] ** 2) / (PP_RAD_BATCHES - 1) ** 0.5
+    check(bool(np.all(np.abs(a["radiance"] - b["radiance"]) <= 5 * sig)),
+          f"58 radiance G+E {a} vs K3 {b}")
+    rec["radiance"] = rads
+    return rec
+
+
+def march_entry(kind: str, checks: dict, rec: dict) -> dict:
+    """The kernels-line entry of K3-M ("march": the detector block with the
+    marching trace, on phase 57's path) or K3-M+S ("march_surface": that
+    block and the surface stage over RPV): launches on its path, its largest
+    state difference to the plain version (phase 55), the device time, plain
+    time and bound of its path scene's mid-flight and tail blocks, and one
+    batch of its path beside the batch's bound."""
+    scene = "3d" if kind == "march" else "3d_rpv"
+    r, tail = checks["timed"][(scene, "mid")], checks["timed"][(scene, "tail")]
+    bk = rec["batch"][kind]
+    surface = kind == "march_surface"
+    return {"name": "fast_event_block_detectors_march" + ("_surface" if surface else ""),
+            "route": "cuda", "source": "i3rc_tpu_torch/csrc/fast_event_block.cuh",
+            "replaces": "i3rc_tpu/integrators/fastpath.py:1061 (shadow_trace, XLA inside the "
+                        "path of :665" + (", with the surface glue of :1874-1981)" if surface
+                                          else ")"),
+            "launches": rec["launches"][kind], "max_abs_err": checks["err"][kind],
+            "ms": r["device_ms"], "plain_ms": r["twin_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None, "tail_ms": tail["device_ms"],
+            "tail_bound_ms": tail["bound"][0], "batch_ms": bk["kernel_ms"],
+            "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
+            "batch_march_steps": bk["census"]["steps"], "batch_rays": bk["census"]["rays"],
+            "batch_idle_share": bk["idle"]}
 
 
 if __name__ == "__main__":

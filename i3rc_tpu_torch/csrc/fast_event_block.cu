@@ -60,12 +60,15 @@
 // for 5), put the bounce's latency on the event kernel's tail, and
 // doubled the first-use build.  The launch of its own leaves the event
 // kernels as they were.
+//
+// A plan with the marching shadow trace (MARCH, never FK) takes the stage's
+// instantiation of its own, fast_event_block_surface_kernel_march, whose
+// surface rays march; the other two carry no marching loop.
 #define SRF_SMEM_BINS 1024
 
-template <bool FK>
-__global__ void __launch_bounds__(CTA_THREADS)
-fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv, int smem_flags,
-                                const __grid_constant__ EventParams p) {
+template <bool FK, bool MARCH>
+__device__ __forceinline__ void surface_stage(float* __restrict__ f, int* __restrict__ iv,
+                                              int smem_flags, const EventParams& p) {
   extern __shared__ double srf_hist[];
   __shared__ int n_alive;
   const int t = threadIdx.x, wl = t & 31;
@@ -135,9 +138,9 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv, int
       if (!(q.dz[d] > 0.0f)) continue;      // a surface emits upward only
       float c = 0.0f;
       int bin = -1;
-      if (emit) {
-        int col;
-        float tau = shadow_closed(p, d, x, y, zs, &col);
+      int col;
+      float tau;
+      if (emit && shadow_ray<MARCH>(p, d, emit, x, y, zs, &col, &tau)) {
         if (FK) tau = tau + p.fk.gtop[k] * q.inv_dz[d];
         const float npf = brdf
             ? fmaxf(brdf_reflectance(sp, uz, q.dz[d], phi_in, sp.det_phi[d]), 0.0f) * INV_PI_F
@@ -192,6 +195,20 @@ fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv, int
       if (rad[b] != 0.0) tally_add(sp.acc + b, rad[b]);
 }
 
+template <bool FK>
+__global__ void __launch_bounds__(CTA_THREADS)
+fast_event_block_surface_kernel(float* __restrict__ f, int* __restrict__ iv, int smem_flags,
+                                const __grid_constant__ EventParams p) {
+  surface_stage<FK, false>(f, iv, smem_flags, p);
+}
+
+// K3-M+S: the stage of a plan with the marching shadow trace.
+__global__ void __launch_bounds__(CTA_THREADS)
+fast_event_block_surface_kernel_march(float* __restrict__ f, int* __restrict__ iv,
+                                      int smem_flags, const __grid_constant__ EventParams p) {
+  surface_stage<false, true>(f, iv, smem_flags, p);
+}
+
 // The surface stage's launch after a block's (see the kernel): its CTA
 // histograms in dynamic shared memory while each has at most SRF_SMEM_BINS
 // bins.
@@ -211,6 +228,8 @@ static void launch_surface(float* f, int* i, const EventParams& p, bool fk,
   }
   if (fk)
     fast_event_block_surface_kernel<true><<<blocks, CTA_THREADS, smem, stream>>>(f, i, flags, p);
+  else if (p.det.march_steps > 0)
+    fast_event_block_surface_kernel_march<<<blocks, CTA_THREADS, smem, stream>>>(f, i, flags, p);
   else
     fast_event_block_surface_kernel<false><<<blocks, CTA_THREADS, smem, stream>>>(f, i, flags, p);
 }
@@ -226,8 +245,10 @@ int i3rc_cta_threads(void) { return CTA_THREADS; }
 // contributions to acc; with a column table (col not null) it runs the
 // column variant; with a cubic table (params->cubic not null) the table
 // variant; with fused-k tables (params->fk.tab not null) the fused-k variant
-// of the gas one; over a reflecting surface (params->srf.kind) with the
-// prologue on, the surface stage follows on the stream.  Returns
+// of the gas one; with detectors and params->det.march_steps > 0 (no gas
+// channel, no column table) the marching variant (K3-M); over a reflecting
+// surface (params->srf.kind) with the prologue on, the surface stage follows
+// on the stream.  Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for an
 // unsupported K, CHAIN, detector count, column, table or fused-k
 // combination; the Python wrapper checks those first).
@@ -248,6 +269,10 @@ int i3rc_fast_event_block(float* f, int* i, double* acc, const float4* col,
     ok = gas && (tab ? launch_block_tab_fk : launch_block_fk)(f, i, acc, *params, chain,
                                                                absorbing, track_y, detectors,
                                                                iwabuchi, st);
+  else if (detectors && params->det.march_steps > 0)
+    ok = !gas && chain == 0 &&
+         (tab ? launch_block_tab_march : launch_block_march)(f, i, acc, *params, absorbing,
+                                                             track_y, iwabuchi, st);
   else if (gas)
     ok = (tab ? launch_block_tab_gas : launch_block_gas)(f, i, acc, *params, chain, absorbing,
                                                          track_y, detectors, iwabuchi, st);

@@ -264,8 +264,8 @@ struct StepChain {
   float iv[MAX_SEGMENTS + 1];   // reciprocal values (0 for zero segments)
 };
 
-// Radiance detectors and the closed-form shadow trace (i3rc_tpu_torch/kernels/
-// event_block.py DetectorSpec).
+// Radiance detectors and the closed-form or marching shadow trace
+// (i3rc_tpu_torch/kernels/event_block.py DetectorSpec).
 struct DetParams {
   int n;                          // detectors D
   int n_bins;                     // n_cols * D
@@ -286,6 +286,11 @@ struct DetParams {
   float zeta, zeta_pi;            // Iwabuchi zeta_min and zeta / pi
   int n_g;                        // gas z segments with extinction > 0
   float g_lo[MAX_SEGMENTS + 1], g_hi[MAX_SEGMENTS + 1], g_v[MAX_SEGMENTS + 1];
+  // The marching trace (march_steps > 0; never with the gas channel).
+  int march_steps;                // segment steps a ray may take
+  int march_ty;                   // y tracked: the extinction takes fy
+  unsigned int march_xy;          // bit d: detector d steps along x; bit 16 + d: along y
+  float inv_dxd[MAX_DETECTORS], inv_dyd[MAX_DETECTORS];   // f32(1 / dx), f32(1 / dy)
 };
 
 // The photon source of the refill (i3rc_tpu_torch/core/illumination.py
@@ -724,6 +729,79 @@ __device__ __forceinline__ float shadow_closed(const EventParams& p, int d, floa
   return tau;
 }
 
+// The marching shadow trace of detector d from (x, y, z) (shadow_march,
+// fastpath.py:1061-1127, the trace of a plan whose x and y factors both vary
+// or whose detector grazes the horizon): up to march_steps segment steps,
+// each to the nearest face of the z chain and of the x and y chains the ray
+// moves along (strict faces), with the face nudges and the periodic wrap, the
+// optical depth of each step from the factors at its start.  The exit column
+// comes from the stepped position.  ok: the ray reached the boundary within
+// the budget (a lane that is not live is done at once, not ok).  The plain
+// version steps every lane march_steps times under a mask that freezes a
+// finished ray; here a lane leaves the loop when its ray is done, which
+// gives the same bits.  Rays finish at different steps, so a warp runs its
+// longest ray's steps.  A function of its own (noinline) that returns its
+// three results in registers: inlined into the detector loop, or returning
+// through pointers, its loop's live values spilled 24-56 bytes in 12 of
+// the 48 instantiations and in the surface stage (ptxas -v on the H100
+// machine's nvcc); so the K3-M instantiations take 80 registers (3 CTAs per
+// SM), those sized for 16 Iwabuchi draws 97-113 (2 CTAs).
+struct MarchRay {
+  float tau;
+  int col;
+  int ok;
+};
+static __device__ __noinline__ MarchRay shadow_march(const EventParams& p, int d, bool live,
+                                                       float x, float y, float z) {
+  const DetParams& q = p.det;
+  const float dx = q.dx[d], dy = q.dy[d], dz = q.dz[d];
+  const bool up = dz >= 0.0f;
+  const bool use_x = (q.march_xy >> d) & 1u, use_y = (q.march_xy >> (16 + d)) & 1u;
+  float tau = 0.0f;
+  int col = 0;
+  bool done = !live;
+#pragma unroll 1
+  for (int k = 0; k < q.march_steps && !done; ++k) {
+    float ext = chain_value(p.fx, p.fx.v, x) * chain_value(p.fz, p.fz.v, z);
+    if (q.march_ty) ext = ext * chain_value(p.fy, p.fy.v, y);
+    const float face_z = up ? face_up(p.fz, z, p.z_max) : face_dn(p.fz, z, p.z0);
+    const float s_z = (face_z - z) * q.inv_dz[d];
+    float s_b = s_z, s_x = 0.0f, s_y = 0.0f, face_x = 0.0f, face_y = 0.0f;
+    if (use_x) {
+      face_x = dx >= 0.0f ? face_up(p.fx, x, p.x_max) : face_dn(p.fx, x, p.x0);
+      s_x = (face_x - x) * q.inv_dxd[d];
+      s_b = fminf(s_b, s_x);
+    }
+    if (use_y) {
+      face_y = dy >= 0.0f ? face_up(p.fy, y, p.y_max) : face_dn(p.fy, y, p.y0);
+      s_y = (face_y - y) * q.inv_dyd[d];
+      s_b = fminf(s_b, s_y);
+    }
+    s_b = fmaxf(s_b, 0.0f);
+    tau = tau + s_b * ext;
+    const float nz = s_z <= s_b ? face_z + (up ? p.nudge_z : -p.nudge_z) : z + dz * s_b;
+    float nx = x, ny = y;
+    if (use_x) {
+      nx = s_x <= s_b ? face_x + (dx >= 0.0f ? p.nudge_x : -p.nudge_x) : x + dx * s_b;
+      nx = wrap_fast(nx, p.x0, p.x_max, p.wx);
+    }
+    if (use_y) {
+      ny = s_y <= s_b ? face_y + (dy >= 0.0f ? p.nudge_y : -p.nudge_y) : y + dy * s_b;
+      ny = wrap_fast(ny, p.y0, p.y_max, p.wy);
+    }
+    if (up ? nz >= p.z_max : nz <= p.z0) {
+      col = min(max((int)((nx - q.x0) * q.inv_dx), 0), q.n_x - 1);
+      if (q.col_y) col = col * q.n_y + min(max((int)((ny - q.y0) * q.inv_dy), 0), q.n_y - 1);
+      done = true;
+    } else {
+      x = nx;
+      y = ny;
+      z = nz;
+    }
+  }
+  return MarchRay{tau, col, (int)(done && live)};
+}
+
 // Iwabuchi Eq 13/14 on the exact tau, for a normalized phase value npf;
 // the small-phase case accepts with probability (pf_pi / zeta) exp(-tau)
 // (see the header).
@@ -736,12 +814,34 @@ __device__ __forceinline__ float iwabuchi(const DetParams& q, float npf, float t
   return (u_iw < expf(tau_max - tau)) ? q.zeta_pi : 0.0f;
 }
 
+// The shadow ray of detector d from (x, y, z): the marching trace in the
+// MARCH instantiations (a plan with march_steps > 0), else the closed form.
+// False when the marching ray did not reach the boundary: the contribution
+// is 0.  MARCH is a template flag, not a runtime branch on march_steps: the
+// branch's loop, inlined into every detector instantiation, raised K3 from
+// 64 to 80 registers (3 CTAs per SM for 4) and its closed-trace batch by
+// 5.6% (H100, PERF.md section 6).
+template <bool MARCH>
+__device__ __forceinline__ bool shadow_ray(const EventParams& p, int d, bool live, float x,
+                                           float y, float z, int* col_out, float* tau_out) {
+  if constexpr (MARCH) {
+    const MarchRay r = shadow_march(p, d, live, x, y, z);
+    *col_out = r.col;
+    *tau_out = r.tau;
+    return r.ok != 0;
+  } else {
+    *tau_out = shadow_closed(p, d, x, y, z, col_out);
+    return true;
+  }
+}
+
 // Local estimate of detector d from a collision at s (direction before the
-// scattering): the contribution and its exit column (fastpath.py:1501-1571).
-// FK adds the lane's own gas to the shadow ray (gtop: Gz(z_max) of its k).
-template <bool IW, bool FK>
+// scattering): the contribution and its exit column (fastpath.py:1501-1571);
+// live: the lane collided (a marching ray is traced for those only).  FK
+// adds the lane's own gas to the shadow ray (gtop: Gz(z_max) of its k).
+template <bool IW, bool FK, bool MARCH>
 __device__ __forceinline__ float detector_contribution(const EventParams& p, int d,
-                                                       const Lane& s, float u_iw,
+                                                       const Lane& s, bool live, float u_iw,
                                                        int* col_out, float gtop) {
   const DetParams& q = p.det;
   const float proj =
@@ -749,7 +849,8 @@ __device__ __forceinline__ float detector_contribution(const EventParams& p, int
   const float r =
       1.0f / sqrtf(fmaxf((1.0f + p.g * p.g) - (p.g + p.g) * proj, EPS12_F));
   const float norm_pf = (1.0f - p.g * p.g) * r * r * r * q.norm[d];
-  float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  float tau;
+  if (!shadow_ray<MARCH>(p, d, live, s.x, s.y, s.z, col_out, &tau)) return 0.0f;
   if (FK) tau = tau + fk_shadow_gas(q, d, gtop, s.gcur);
   if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
   return norm_pf * expf(-tau);
@@ -757,15 +858,16 @@ __device__ __forceinline__ float detector_contribution(const EventParams& p, int
 
 // The same with the phase value of the forward fit (TAB).  A function of its
 // own, so that the HG variants compile to the code they had.
-template <bool IW, bool FK>
+template <bool IW, bool FK, bool MARCH>
 __device__ __forceinline__ float detector_contribution_tab(const EventParams& p, int d,
-                                                           const Lane& s, float u_iw,
+                                                           const Lane& s, bool live, float u_iw,
                                                            int* col_out, float gtop) {
   const DetParams& q = p.det;
   const float proj =
       fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
   const float norm_pf = forward_phase(p, proj) * q.norm[d];
-  float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
+  float tau;
+  if (!shadow_ray<MARCH>(p, d, live, s.x, s.y, s.z, col_out, &tau)) return 0.0f;
   if (FK) tau = tau + fk_shadow_gas(q, d, gtop, s.gcur);
   if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
   return norm_pf * expf(-tau);
@@ -779,13 +881,14 @@ __device__ __forceinline__ float detector_contribution_tab(const EventParams& p,
 // hist (tally: the warp's private slice when SLICES, else a histogram the
 // warps share).  TAB samples the cosine from the cubic inverse CDF (in column
 // media at the lane's entry, with the lane's ssa in the absorption tests) and
-// takes the detectors' phase values from the forward fit.  FK (with GAS,
+// takes the detectors' phase values from the forward fit.  MARCH (with DET,
+// neither GAS nor FK) traces the shadow rays by marching.  FK (with GAS,
 // CHAIN 0) takes the fused-k gas step of the lane's k, the k of its CTA
 // (see the note at the top; read here, not passed in: an argument of its k
 // unused by the other variants, changed their registers).  Called by every
 // thread of a warp together.
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
-          bool LAZY, bool TAB, bool FK, int NU>
+          bool LAZY, bool TAB, bool FK, bool MARCH, int NU>
 __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU], Draws& dr,
                                            Lane& s, double* hist,
                                            const float4* __restrict__ col) {
@@ -931,11 +1034,11 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
       int bin;
       float c;
       if constexpr (TAB)
-        c = detector_contribution_tab<IW, FK>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin,
-                                              gtop);
+        c = detector_contribution_tab<IW, FK, MARCH>(p, d, s, collided,
+                                                     IW ? pick(u, BD + d) : 0.0f, &bin, gtop);
       else
-        c = detector_contribution<IW, FK>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin,
-                                          gtop);
+        c = detector_contribution<IW, FK, MARCH>(p, d, s, collided,
+                                                 IW ? pick(u, BD + d) : 0.0f, &bin, gtop);
       if (!collided) c = 0.0f;
       // A BRDF plan's lane weight, read where it scales (constant in the block).
       if (p.srf.w) c = c * p.srf.w[dr.lane];
@@ -1502,11 +1605,10 @@ static __device__ __noinline__ float brdf_reflectance(const SurfaceParams& sp, f
 // CTA's dead count after the bounce; a BRDF plan's weight (p.srf.w) scales
 // DET's contributions.
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
-          int DCAP, bool TAB, bool FK>
-__global__ void __launch_bounds__(CTA_THREADS)
-fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
-                        const float4* __restrict__ col, int hist_in_smem,
-                        const __grid_constant__ EventParams p) {
+          int DCAP, bool TAB, bool FK, bool MARCH>
+__device__ __forceinline__ void event_block(float* __restrict__ f, int* __restrict__ iv,
+                                            double* acc, const float4* __restrict__ col,
+                                            int hist_in_smem, const EventParams& p) {
   extern __shared__ double smem_hist[];
   __shared__ int live_ids[CTA_THREADS];
   __shared__ int warp_live[CTA_WARPS];
@@ -1595,8 +1697,8 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
       float u[4 * G_MAX];
       Draws dr{lane, j * G, 0u};
       start_draws<LAZY>(u, p, dr, G);
-      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, LAZY, TAB, FK>(p, u, dr, s, hist,
-                                                                          col);
+      fast_event<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, LAZY, TAB, FK, MARCH>(p, u, dr, s,
+                                                                                 hist, col);
     }
 
     if (valid) {
@@ -1637,6 +1739,30 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
   }
 }
 
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
+          int DCAP, bool TAB, bool FK>
+__global__ void __launch_bounds__(CTA_THREADS)
+fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc,
+                        const float4* __restrict__ col, int hist_in_smem,
+                        const __grid_constant__ EventParams p) {
+  event_block<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, DCAP, TAB, FK, false>(
+      f, iv, acc, col, hist_in_smem, p);
+}
+
+// K3-M: the detector block of a plan with the marching shadow trace
+// (DET, neither GAS, COL nor FK, CHAIN 0), instantiated in
+// fast_event_block_march.cu (HG) and fast_event_block_tab_march.cu (TAB).
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
+          int DCAP, bool TAB, bool FK>
+__global__ void __launch_bounds__(CTA_THREADS)
+fast_event_block_kernel_march(float* __restrict__ f, int* __restrict__ iv, double* acc,
+                              const float4* __restrict__ col, int hist_in_smem,
+                              const __grid_constant__ EventParams p) {
+  static_assert(CHAIN == 0 && DET && !GAS && !COL && !FK, "K3-M is the detector block");
+  event_block<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, DCAP, TAB, FK, true>(
+      f, iv, acc, col, hist_in_smem, p);
+}
+
 // Where the detector tally of n_bins goes: CTA_WARPS private slices while
 // they fit, beside the static arrays, in the shared memory a CTA gets without
 // opting in (<= 751 bins); else one CTA histogram of up to 48 KB (<= 6144
@@ -1650,8 +1776,20 @@ static HistRoom hist_room(int n_bins) {
   return HIST_GLOBAL;
 }
 
+// The kernel of a variant: fast_event_block_kernel, or with MARCH
+// fast_event_block_kernel_march.
+template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
+          int DCAP, bool TAB, bool FK, bool MARCH>
+static auto block_kernel() {
+  if constexpr (MARCH)
+    return fast_event_block_kernel_march<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, DCAP, TAB,
+                                         FK>;
+  else
+    return fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, SLICES, DCAP, TAB, FK>;
+}
+
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL = false,
-          int DCAP = DET_DRAWS_SMALL, bool TAB = false, bool FK = false>
+          int DCAP = DET_DRAWS_SMALL, bool TAB = false, bool FK = false, bool MARCH = false>
 static void launch(float* f, int* i, double* acc, const EventParams& p,
                    cudaStream_t stream, const float4* col = nullptr) {
   const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
@@ -1659,32 +1797,35 @@ static void launch(float* f, int* i, double* acc, const EventParams& p,
   const size_t bytes = DET ? (size_t)p.det.n_bins * sizeof(double) : 0;
   if constexpr (DET) {
     if (room == HIST_SLICES) {
-      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, true, DCAP, TAB, FK>
-          <<<blocks, CTA_THREADS, CTA_WARPS * bytes, stream>>>(f, i, acc, col, 1, p);
+      const auto sliced =
+          block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, true, DCAP, TAB, FK, MARCH>();
+      sliced<<<blocks, CTA_THREADS, CTA_WARPS * bytes, stream>>>(f, i, acc, col, 1, p);
       return;
     }
   }
   const auto kernel =
-      fast_event_block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, false, DCAP, TAB, FK>;
+      block_kernel<CHAIN, ABS, TY, DET, IW, GAS, COL, false, DCAP, TAB, FK, MARCH>();
   const size_t smem = room == HIST_SHARED ? bytes : 0;
   if (smem + SMEM_STATIC_BYTES > SMEM_DEFAULT_BYTES)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, CTA_THREADS, smem, stream>>>(f, i, acc, col, room == HIST_SHARED, p);
 }
 
-template <int CHAIN, bool DET, bool IW, bool GAS, int DCAP, bool TAB, bool FK = false>
+template <int CHAIN, bool DET, bool IW, bool GAS, int DCAP, bool TAB, bool FK = false,
+          bool MARCH = false>
 static void launch_flags(float* f, int* i, double* acc, const EventParams& p,
                          bool absorbing, bool track_y, cudaStream_t stream) {
   if (absorbing) {
     if (track_y)
-      launch<CHAIN, true, true, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
+      launch<CHAIN, true, true, DET, IW, GAS, false, DCAP, TAB, FK, MARCH>(f, i, acc, p, stream);
     else
-      launch<CHAIN, true, false, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
+      launch<CHAIN, true, false, DET, IW, GAS, false, DCAP, TAB, FK, MARCH>(f, i, acc, p, stream);
   } else {
     if (track_y)
-      launch<CHAIN, false, true, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
+      launch<CHAIN, false, true, DET, IW, GAS, false, DCAP, TAB, FK, MARCH>(f, i, acc, p, stream);
     else
-      launch<CHAIN, false, false, DET, IW, GAS, false, DCAP, TAB, FK>(f, i, acc, p, stream);
+      launch<CHAIN, false, false, DET, IW, GAS, false, DCAP, TAB, FK, MARCH>(f, i, acc, p,
+                                                                           stream);
   }
 }
 
@@ -1727,6 +1868,29 @@ static bool launch_block(float* f, int* i, double* acc, const EventParams& p, in
   return true;
 }
 
+// K3-M, the detector block with the marching shadow trace (HG or TAB, with
+// or without IW; chain depth 0, no gas channel): false for a detector count
+// that is not built.
+template <bool TAB>
+static bool launch_block_marching(float* f, int* i, double* acc, const EventParams& p,
+                                  bool absorbing, bool track_y, bool iwabuchi,
+                                  cudaStream_t stream) {
+  constexpr int DS = DET_DRAWS_SMALL;
+  if (p.K < 1 || p.det.n < 1 || p.det.n > MAX_DETECTORS || acc == nullptr ||
+      p.det.march_steps < 1)
+    return false;
+  if (!iwabuchi)
+    launch_flags<0, true, false, false, DS, TAB, false, true>(f, i, acc, p, absorbing, track_y,
+                                                              stream);
+  else if (p.det.n <= DET_DRAWS_SMALL)
+    launch_flags<0, true, true, false, DS, TAB, false, true>(f, i, acc, p, absorbing, track_y,
+                                                             stream);
+  else
+    launch_flags<0, true, true, false, MAX_DETECTORS, TAB, false, true>(f, i, acc, p, absorbing,
+                                                                        track_y, stream);
+  return true;
+}
+
 // The gas variants, instantiated in fast_event_block_gas.cu; the table
 // variants without and with the gas channel, in fast_event_block_tab.cu and
 // fast_event_block_tab_gas.cu.
@@ -1747,6 +1911,12 @@ bool launch_block_fk(float* f, int* i, double* acc, const EventParams& p, int ch
 bool launch_block_tab_fk(float* f, int* i, double* acc, const EventParams& p, int chain,
                          bool absorbing, bool track_y, bool detectors, bool iwabuchi,
                          cudaStream_t stream);
+// K3-M, HG and table, instantiated in fast_event_block_march.cu and
+// fast_event_block_tab_march.cu.
+bool launch_block_march(float* f, int* i, double* acc, const EventParams& p, bool absorbing,
+                        bool track_y, bool iwabuchi, cudaStream_t stream);
+bool launch_block_tab_march(float* f, int* i, double* acc, const EventParams& p,
+                            bool absorbing, bool track_y, bool iwabuchi, cudaStream_t stream);
 
 // The column variants (flux, y tracked), HG or table, instantiated in
 // fast_event_block_col.cu.

@@ -5,7 +5,7 @@ on the command line, the domain (optionally one per band) and the
 k-distribution files, runs every band's k points through
 ``integrators/spectral.py``, and writes broadband fluxes (and radiances,
 the absorption profile and netCDF output when asked for) with standard
-errors through the JAX package's own writers.
+errors through the port's own writers (``drivers/results_io.py``).
 
     python -m i3rc_tpu_torch.drivers.broadband_driver [--device cuda] run.nml
 

@@ -4,8 +4,8 @@ Port of ``i3rc_tpu/drivers/monte_carlo_driver.py:35-256``
 (Example-Drivers/monteCarloDriver.f95): reads the namelists from the file
 named on the command line, reads the domain, runs numBatches independent
 photon batches, accumulates first/second moments, and writes ASCII and/or
-netCDF flux and radiance results with standard errors through the JAX
-package's own writers.
+netCDF flux and radiance results with standard errors through the port's
+own writers (``drivers/results_io.py``).
 
     python -m i3rc_tpu_torch.drivers.monte_carlo_driver [--device cuda] run.nml
 
@@ -65,10 +65,14 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     use_rr = bool(_get(g, "algorithms", "userussianroulette", True))
     use_hybrid = bool(_get(g, "algorithms", "usehybridphasefunsforintencalcs", False))
     hybrid_width = float(_get(g, "algorithms", "hybridphasefunwidth", 7.0))
+    n_orders_orig = int(_get(g, "algorithms", "numordersorigphasefunintencalcs", 0))
     use_rr_intensity = bool(_get(g, "algorithms", "userussianrouletteforintensity", True))
     zeta_min = float(_get(g, "algorithms", "zetamin", 0.3))
     limit_intensity = bool(_get(g, "algorithms", "limitintensitycontributions", False))
     max_intensity = float(_get(g, "algorithms", "maxintensitycontribution", 77.0))
+    # The super-voxel majorant size (JAX monte_carlo_driver.py:64-69): 16 by
+    # default; majorantBlockSize = 0 runs the reference's one global majorant.
+    majorant_block_size = int(_get(g, "algorithms", "majorantblocksize", 16))
     polarized = bool(_get(g, "algorithms", "polarized", False))
 
     report_volume = bool(_get(g, "output", "reportvolumeabsorption", False))
@@ -91,22 +95,26 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
         use_russian_roulette=use_rr,
         use_hybrid_phase_funs=use_hybrid,
         hybrid_phase_fun_width=hybrid_width,
+        num_orders_orig_phase_fun=n_orders_orig,
         use_russian_roulette_for_intensity=use_rr_intensity,
         zeta_min=zeta_min,
         limit_intensity_contributions=limit_intensity,
         max_intensity_contribution=max_intensity,
         min_forward_table_size=n_phase_intervals,
         min_inverse_table_size=n_phase_intervals,
+        majorant_block_size=majorant_block_size,
         compute_volume_absorption=(report_volume or report_profile
                                    or bool(out_abs_prof) or bool(out_abs_vol)),
     )
     if polarized:
         # Polarized transport (the reference's Wishlist item 3) tallies
-        # column absorption only.
+        # column absorption only, and runs one global majorant: the config
+        # passes on what that path runs, so IGNORED_FLAGS warns only on what
+        # the namelist asked for and the path cannot give.
         if config.compute_volume_absorption:
             warnings.warn("polarized transport reports column absorption only; "
                           "volume-absorption outputs are skipped", I3RCWarning, stacklevel=2)
-            config = replace(config, compute_volume_absorption=False)
+        config = replace(config, compute_volume_absorption=False, majorant_block_size=0)
         integ = PolarizedIntegrator.create(domain, config=config, surface_albedo=surface_albedo,
                                            intensity_mus=mus, intensity_phis=phis,
                                            device=device)

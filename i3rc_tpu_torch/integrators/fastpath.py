@@ -93,11 +93,6 @@ def lane_width(n_photons: int, n_lanes: int | None = None, n_k: int = 0) -> int:
     CTA_THREADS * n_k lanes it takes that many."""
     return max(int(n_lanes or min(n_photons, DEFAULT_LANES)), CTA_THREADS * n_k)
 
-# Features of the JAX fastpath not ported yet, by ROADMAP item number.
-_ITEM_MARCHING = (10.5, "the marching shadow trace for radiance detectors (two varying "
-                        "horizontal factors): ROADMAP item 10b")
-_ITEM_REACH = (22, ITEM_REACH)
-
 
 # ---------------------------------------------------------------------------
 # Host-side plan construction
@@ -266,9 +261,11 @@ class FastPlan:
     ssa: float = 1.0
     # (dx, dy, dz, |mu|) per radiance detector; closed_shadow: at most one
     # horizontal factor varies and every detector leaves the z range, so the
-    # transmittance is closed-form (fastpath.py:602-606).
+    # transmittance is closed-form (fastpath.py:602-606); else the marching
+    # trace of at most shadow_steps segment steps (fastpath.py:613-631).
     detectors: tuple = ()
     closed_shadow: bool = False
+    shadow_steps: int = 0
     # Gas channel (fastpath.py:925-936): the horizontally uniform pure
     # absorber of a cloud + gas domain as a StepFactor over z, and the gas
     # component's index (the cloud is the other one).
@@ -386,13 +383,15 @@ def _gas_split(flat, geom):
 
 def _detector_plan(fx, fy, fz, intensity, geom, gas: bool):
     """The JAX planner's detectors and shadow-trace choice (fastpath.py:
-    592-631): (detectors, closed_shadow), or None where it declines."""
+    592-631): (detectors, closed_shadow, shadow_steps), or None where it
+    declines: gas with the marching trace (its faces hold no gas segments),
+    or a marching budget above 24 steps."""
     dirs = np.asarray(intensity.directions, float)
     mus = np.asarray(intensity.abs_mu, float)
     detectors = tuple((float(dirs[0, d]), float(dirs[1, d]), float(dirs[2, d]),
                        float(mus[d])) for d in range(dirs.shape[1]))
     if (fx.n_ops > 0) + (fy.n_ops > 0) <= 1 and all(abs(d[2]) > 1e-6 for d in detectors):
-        return detectors, True
+        return detectors, True, 0
     if gas:
         return None
     xe, ye, ze = (np.asarray(e.cpu(), float) for e in
@@ -412,7 +411,7 @@ def _detector_plan(fx, fy, fz, intensity, geom, gas: bool):
             steps += int(path * abs(dy_) / min_gap(fy, ye[0], ye[-1])) + 1
         steps += int(path * abs(dy_) / (ye[-1] - ye[0])) + 1
         shadow_steps = max(shadow_steps, steps)
-    return (detectors, False) if shadow_steps <= 24 else None
+    return (detectors, False, shadow_steps) if shadow_steps <= 24 else None
 
 
 def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> FastPlan | None:
@@ -431,7 +430,6 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
     if intensity is not None and (config.use_hybrid_phase_funs
                                   or config.limit_intensity_contributions):
         return None
-    missing = []
     brdf, brdf_params, surface_albedo = None, (), 0.0
     if surface.uses_brdf:
         # Uniform-parameter BRDFs only (fastpath.py:414-430); a gridded
@@ -509,27 +507,23 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
         return None
     else:
         fx, fy, fz = factors
-    detectors, closed_shadow = (), False
+    detectors, closed_shadow, shadow_steps = (), False, 0
     if intensity is not None:
         det = _detector_plan(fx, fy, fz, intensity, geom, gas)
         if det is None:
             return None
-        detectors, closed_shadow = det
-        if not closed_shadow:
-            missing.append(_ITEM_MARCHING)
+        detectors, closed_shadow, shadow_steps = det
     # What the event block is not built for is refused here, on every device.
     if len(detectors) > MAX_DETECTORS or (
             not detectors and _chain_depth(config, detectors, gas) not in SUPPORTED_CHAIN):
-        missing.append(_ITEM_REACH)
-    if missing:
-        raise NotImplementedError(f"fastpath plan needs {min(missing)[1]}")
+        raise NotImplementedError(f"fastpath plan needs {ITEM_REACH}")
     # K as the JAX planner gives it (fastpath.py:633-635): 32 for column
     # plans, 8 for separable ones.
     cfg_unroll = getattr(config, "fastpath_unroll", None)
     unroll = int(cfg_unroll) if cfg_unroll else (32 if column_data is not None else 8)
     return FastPlan(fx=fx, fy=fy, fz=fz, hg_g=g, unroll=unroll, ssa=uniform_ssa,
                     detectors=detectors, closed_shadow=closed_shadow,
-                    gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data,
+                    shadow_steps=shadow_steps, gas_factor=gas_factor, gas_idx=gas_idx, column_data=column_data,
                     surface_albedo=surface_albedo, brdf=brdf, brdf_params=brdf_params,
                     cubic=cubic, cubic_entries=cubic_entries, fwd_cubic=fwd_cubic,
                     column_props=per_col_props)
@@ -548,14 +542,13 @@ def plan_from_jax(plan) -> FastPlan:
     """The port's plan for a JAX ``FastPlan`` (host numpy already); its BRDF
     kernel maps to the registry name its function carries
     (``cox_munk_brdf`` -> "cox_munk")."""
-    if plan.detectors and not plan.closed_shadow:
-        raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
     conv = lambda f: StepFactor(tuple(f.thresholds), tuple(f.values))
     gas = plan.gas_factor
     return FastPlan(conv(plan.fx), conv(plan.fy), conv(plan.fz), float(plan.hg_g),
                     int(plan.unroll), float(plan.ssa),
                     detectors=tuple(tuple(float(v) for v in d) for d in plan.detectors),
                     closed_shadow=bool(plan.closed_shadow),
+                    shadow_steps=int(plan.shadow_steps),
                     gas_factor=None if gas is None else conv(gas),
                     gas_idx=int(plan.gas_idx),
                     column_data=None if plan.column_data is None
@@ -720,10 +713,12 @@ def event_spec(geom, plan: FastPlan, config, n_photons: int | None = None,
 def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpec:
     """Constants of the detector block and the closed-form shadow trace
     (fastpath.py:890-895, :1140-1192, and the gas segments of :1160-1164),
-    computed as the JAX package computes them: in Python double, rounded to
-    float32 at the point of use."""
-    if not plan.closed_shadow:
-        raise NotImplementedError(f"fastpath plan needs {_ITEM_MARCHING[1]}")
+    and of a marching plan's trace (:1061-1093), computed as the JAX package
+    computes them: in Python double, rounded to float32 at the point of
+    use."""
+    march = not plan.closed_shadow
+    if march and plan.shadow_steps < 1:
+        raise ValueError("a marching shadow trace needs shadow_steps >= 1")
     fx, fy, fz = plan.fx, plan.fy, plan.fz
     x0, y0, z0 = geom.x0, geom.y0, geom.z0
     x_max, y_max, z_max = geom.x_max, geom.y_max, geom.z_max
@@ -774,7 +769,15 @@ def shadow_constants(geom, plan: FastPlan, config, track_y: bool) -> DetectorSpe
         wrap_wy=f32(y_max - y0) if col_y else 0.0,
         wrap_inv_y=f32(1.0 / (y_max - y0)) if col_y else 0.0, n_y=geom.n_y,
         iwabuchi=bool(getattr(config, "use_russian_roulette_for_intensity", False)),
-        zeta=zeta, zeta_pi=f32(zeta / np.pi), g_segs=g_segs)
+        zeta=zeta, zeta_pi=f32(zeta / np.pi), g_segs=g_segs,
+        march_steps=int(plan.shadow_steps) if march else 0,
+        inv_dxd=tuple(f32(1.0 / dx) if abs(dx) >= 1e-12 else 0.0
+                      for dx, _, _, _ in plan.detectors),
+        inv_dyd=tuple(f32(1.0 / dy) if abs(dy) >= 1e-12 else 0.0
+                      for _, dy, _, _ in plan.detectors),
+        use_x=tuple(abs(dx) >= 1e-12 for dx, _, _, _ in plan.detectors),
+        use_y=tuple(track_y and abs(dy) >= 1e-12 for _, dy, _, _ in plan.detectors),
+        march_ty=track_y)
 
 
 def launch_state(geom, batch, n_photons: int, gas_key: PhiloxKey | None = None,

@@ -51,6 +51,7 @@ reads ``uniforms[j, i]`` for its draw ``i`` (``rng.philox_uniforms``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -133,8 +134,9 @@ class LaneState:
 @dataclass(frozen=True)
 class DetectorSpec:
     """Radiance detectors with the closed-form shadow trace
-    (i3rc_tpu/integrators/fastpath.py:1140-1247), as float32 constants in
-    Python floats (``fastpath.shadow_constants`` builds them).
+    (i3rc_tpu/integrators/fastpath.py:1140-1247) or the marching one
+    (:1061-1127), as float32 constants in Python floats
+    (``fastpath.shadow_constants`` builds them).
 
     Per detector: direction (dx, dy, dz), f32(1/dz), the horizontal
     component dh along the varying axis and f32(1/dh), ``h_mode`` (0: no
@@ -151,6 +153,12 @@ class DetectorSpec:
     f32(zeta / pi).  ``g_segs`` are the (lo, hi, value) z segments of the
     gas channel with value > 0 (fastpath.py:1160-1164), added to every
     shadow ray without a horizontal factor.
+
+    ``march_steps`` > 0 takes the marching trace (``shadow_march``) of that
+    many masked segment steps: per detector f32(1/dx) and f32(1/dy)
+    (``inv_dxd``, ``inv_dyd``; 0 on an axis the ray does not step along) and
+    the flags ``use_x``, ``use_y`` (|d| >= 1e-12; y only when tracked);
+    ``march_ty``: y is tracked, so the extinction takes fy too.
     """
 
     dirs: tuple
@@ -183,6 +191,12 @@ class DetectorSpec:
     zeta: float
     zeta_pi: float
     g_segs: tuple = ()
+    march_steps: int = 0
+    inv_dxd: tuple = ()
+    inv_dyd: tuple = ()
+    use_x: tuple = ()
+    use_y: tuple = ()
+    march_ty: bool = False
 
     @property
     def n(self) -> int:
@@ -512,6 +526,110 @@ def shadow_closed(spec: EventSpec, d: int, x, y, z):
     return tau, col
 
 
+_MARCH_CENSUS = []      # the open march_census records
+
+
+@contextlib.contextmanager
+def march_census():
+    """While open, ``shadow_march`` counts into the record it yields: its
+    ``rays`` (live lanes x detectors traced), ``steps`` (each ray's segment
+    steps until it reaches the boundary or the budget ends: the steps the
+    kernel's loop takes), ``warp_steps`` (per group of 32 lanes in lane
+    order, the most steps of its rays: what a warp of those lanes runs),
+    ``unfinished`` (rays the budget ended) and ``most`` (the largest steps
+    of one ray).  The plain version on CPU or CUDA tensors; nothing else
+    changes."""
+    rec = {"rays": 0, "steps": 0, "warp_steps": 0, "unfinished": 0, "most": 0}
+    _MARCH_CENSUS.append(rec)
+    try:
+        yield rec
+    finally:
+        _MARCH_CENSUS.remove(rec)
+
+
+def _count_march(live, steps, done) -> None:
+    L = steps.numel()
+    pad = torch.zeros(-(-L // 32) * 32, dtype=steps.dtype, device=steps.device)
+    pad[:L] = steps
+    counts = {"rays": int(live.sum()), "steps": int(steps.sum()),
+              "warp_steps": int(pad.view(-1, 32).max(dim=1).values.sum()),
+              "unfinished": int((live & ~done).sum())}
+    for rec in _MARCH_CENSUS:
+        for k, v in counts.items():
+            rec[k] += v
+        rec["most"] = max(rec["most"], int(steps.max()) if L else 0)
+
+
+def shadow_march(spec: EventSpec, d: int, live, x, y, z):
+    """(optical depth to the z boundary, exit column, ok) along detector d
+    from (x, y, z) by the marching trace (fastpath.py:1061-1127): at most
+    ``march_steps`` segment steps, each to the nearest face of the z chain
+    and of the x and y chains the ray moves along (strict faces), with the
+    face nudges and the periodic wrap; the exit column from the stepped
+    position; ok = the ray reached the boundary within the budget, for the
+    ``live`` lanes only.  A lane whose ray is done keeps its state."""
+    det = spec.det
+    dx, dy, dz = det.dirs[d]
+    up = dz >= 0.0
+    use_x, use_y = det.use_x[d], det.use_y[d]
+    tau = torch.zeros_like(x)
+    col = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    done = ~live
+    steps = torch.zeros(x.shape, dtype=torch.int64, device=x.device) if _MARCH_CENSUS else None
+    for _ in range(det.march_steps):
+        if steps is not None:
+            steps += (~done).long()
+        ext = spec.fx(x) * spec.fz(z)
+        if det.march_ty:
+            ext = ext * spec.fy(y)
+        face_z = spec.fz.face_up(z, spec.z_max) if up else spec.fz.face_dn(z, spec.z0)
+        s_z = (face_z - z) * det.inv_dz[d]
+        s_b = s_z
+        if use_x:
+            face_x = spec.fx.face_up(x, spec.x_max) if dx >= 0.0 else spec.fx.face_dn(x, spec.x0)
+            s_x = (face_x - x) * det.inv_dxd[d]
+            s_b = torch.minimum(s_b, s_x)
+        if use_y:
+            face_y = spec.fy.face_up(y, spec.y_max) if dy >= 0.0 else spec.fy.face_dn(y, spec.y0)
+            s_y = (face_y - y) * det.inv_dyd[d]
+            s_b = torch.minimum(s_b, s_y)
+        s_b = torch.clamp(s_b, min=0.0)
+        tau = torch.where(done, tau, tau + s_b * ext)
+        nz = torch.where(s_z <= s_b, face_z + (spec.nudge_z if up else -spec.nudge_z),
+                         z + dz * s_b)
+        nx, ny = x, y
+        if use_x:
+            nx = torch.where(s_x <= s_b, face_x + (spec.nudge_x if dx >= 0.0 else -spec.nudge_x),
+                             x + dx * s_b)
+            nx = _wrap(nx, spec.x0, spec.x_max, spec.wx)
+        if use_y:
+            ny = torch.where(s_y <= s_b, face_y + (spec.nudge_y if dy >= 0.0 else -spec.nudge_y),
+                             y + dy * s_b)
+            ny = _wrap(ny, spec.y0, spec.y_max, spec.wy)
+        exit_now = ~done & ((nz >= spec.z_max) if up else (nz <= spec.z0))
+        col_s = torch.clamp(((nx - det.x0) * det.inv_dx).to(torch.int64), 0, det.n_x - 1)
+        if det.col_y:
+            iy = torch.clamp(((ny - det.y0) * det.inv_dy).to(torch.int64), 0, det.n_y - 1)
+            col_s = col_s * det.n_y + iy
+        col = torch.where(exit_now, col_s, col)
+        done = done | exit_now
+        x = torch.where(done, x, nx)
+        y = torch.where(done, y, ny)
+        z = torch.where(done, z, nz)
+    if steps is not None:
+        _count_march(live, steps, done)
+    return tau, col, done & live
+
+
+def shadow(spec: EventSpec, d: int, live, x, y, z):
+    """(tau, exit column, ok) of detector d's shadow ray from (x, y, z):
+    the marching trace when the plan has one, else the closed form, whose
+    ray always reaches the boundary (ok = live)."""
+    if spec.det.march_steps:
+        return shadow_march(spec, d, live, x, y, z)
+    return (*shadow_closed(spec, d, x, y, z), live)
+
+
 def _iwabuchi(det: DetectorSpec, norm_pf, tau, u_iw):
     """Iwabuchi Eq 13/14 on the exact tau (monteCarloRadiativeTransfer.f95:
     1536-1596): pf_pi <= zeta contributes zeta / pi with probability
@@ -547,15 +665,14 @@ def _detector_block(spec: EventSpec, u, pos, dirs, collided, acc, records, w=Non
         proj = torch.clamp(ux * dx + uy * dy + uz * dz, -1.0, 1.0)
         pf = forward_phase(spec, proj) if spec.fwd is not None else hg_phase(spec.g, proj)
         norm_pf = pf * det.norm[d]
-        tau, col = shadow_closed(spec, d, x, y, z)
+        tau, col, ok = shadow(spec, d, collided, x, y, z)
         if lane is not None:
             g_exit = lane["gtop"] if dz > 0.0 else torch.zeros_like(tau)
             tau = tau + torch.clamp((g_exit - lane["gcur"]) * det.inv_dz[d], min=0.0)
         if det.iwabuchi:
-            contrib = torch.where(collided, _iwabuchi(det, norm_pf, tau,
-                                                      u[spec.bonus_draws + d]), 0.0)
+            contrib = torch.where(ok, _iwabuchi(det, norm_pf, tau, u[spec.bonus_draws + d]), 0.0)
         else:
-            contrib = torch.where(collided, norm_pf * torch.exp(-tau), 0.0)
+            contrib = torch.where(ok, norm_pf * torch.exp(-tau), 0.0)
         if w is not None:
             contrib = contrib * w
         if lane is not None:
@@ -1114,7 +1231,7 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
         for d, (_, _, dz) in enumerate(det.dirs):
             if dz <= 0.0:
                 continue            # a surface emits upward only
-            tau, col = shadow_closed(spec, d, x, y, zs)
+            tau, col, ok = shadow(spec, d, emit, x, y, zs)
             if lane is not None:
                 tau = tau + lane["gtop"] * det.inv_dz[d]
             if law.brdf:
@@ -1126,7 +1243,7 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
                 contrib = _iwabuchi(det, npf, tau, u_iw[d])
             else:
                 contrib = npf * torch.exp(-tau)
-            contrib = torch.where(emit, contrib, 0.0)
+            contrib = torch.where(ok, contrib, 0.0)
             if w is not None:
                 contrib = contrib * w
             if lane is not None:
@@ -1260,7 +1377,7 @@ def surface_census(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Block
         lane_k = lane_constants(spec) if spec.fused else None
         keys, oks, emits = [], [], {}
         for d in up:
-            tau, dcol = shadow_closed(spec, d, f[X], f[Y], zs)
+            tau, dcol, ok = shadow(spec, d, emit, f[X], f[Y], zs)
             if lane_k is not None:
                 tau = tau + lane_k["gtop"] * det.inv_dz[d]
             if law.brdf:
@@ -1271,7 +1388,7 @@ def surface_census(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Block
             else:
                 npf = torch.full_like(f[X], INV_PI)
             c = _iwabuchi(det, npf, tau, u_iw[d]) if det.iwabuchi else npf * torch.exp(-tau)
-            nonzero = emit & (c != 0.0)
+            nonzero = ok & (c != 0.0)
             emits[d] = int(nonzero.sum())
             keys.append(dcol * det.n + d)
             oks.append(nonzero)
@@ -1375,7 +1492,10 @@ class _DetParams(ctypes.Structure):
         (n, ctypes.c_int) for n in ("n_x", "n_y", "col_y")] + [
         (n, ctypes.c_float) for n in ("zeta", "zeta_pi")] + [
         ("n_g", ctypes.c_int)] + [
-        (n, ctypes.c_float * (MAX_SEGMENTS + 1)) for n in ("g_lo", "g_hi", "g_v")]
+        (n, ctypes.c_float * (MAX_SEGMENTS + 1)) for n in ("g_lo", "g_hi", "g_v")] + [
+        ("march_steps", ctypes.c_int), ("march_ty", ctypes.c_int),
+        ("march_xy", ctypes.c_uint32)] + [
+        (n, ctypes.c_float * MAX_DETECTORS) for n in ("inv_dxd", "inv_dyd")]
 
 
 class _SourceParams(ctypes.Structure):
@@ -1449,16 +1569,21 @@ def _det_params(det: DetectorSpec) -> _DetParams:
     q.h_cum[:len(det.h_cums)] = list(det.h_cums)
     for n in ("h_lo", "h_tot", "h_w", "h_inv_w", "z_top", "z_bot", "x0", "inv_dx",
               "wrap_wx", "wrap_inv_x", "y0", "inv_dy", "wrap_wy", "wrap_inv_y", "n_x",
-              "n_y", "col_y", "zeta", "zeta_pi"):
+              "n_y", "col_y", "zeta", "zeta_pi", "march_steps", "march_ty"):
         setattr(q, n, getattr(det, n))
+    if det.march_steps:
+        q.march_xy = sum((int(ux) << d) | (int(uy) << (16 + d))
+                         for d, (ux, uy) in enumerate(zip(det.use_x, det.use_y)))
+        q.inv_dxd[:det.n] = list(det.inv_dxd)
+        q.inv_dyd[:det.n] = list(det.inv_dyd)
     return q
 
 
 @functools.lru_cache(maxsize=None)
 def build():
     """Compile (or reuse) the kernel library and declare its C interface: the
-    event block in its seven sources and the column-read probe
-    (``kernels/column_probe.py``), eight ``nvcc`` processes in parallel."""
+    event block in its nine sources and the column-read probe
+    (``kernels/column_probe.py``), ten ``nvcc`` processes in parallel."""
     from i3rc_tpu_torch.kernels.build import build as _build
 
     built = _build("fast_event_block", SOURCES)
@@ -1469,7 +1594,8 @@ def build():
 # The event block's sources, compiled in parallel (the column-read probe too).
 SOURCES = ("fast_event_block.cu", "fast_event_block_gas.cu", "fast_event_block_tab.cu",
            "fast_event_block_tab_gas.cu", "fast_event_block_fk.cu", "fast_event_block_tab_fk.cu",
-           "fast_event_block_col.cu", "column_read_probe.cu")
+           "fast_event_block_col.cu", "fast_event_block_march.cu",
+           "fast_event_block_tab_march.cu", "column_read_probe.cu")
 
 
 def declare(lib, prefix: bool = False) -> None:
@@ -1518,6 +1644,8 @@ def launch_refusal(spec: EventSpec) -> str | None:
                 f"{det.n if det is not None else 0} detectors, chain depth {spec.chain})")
     if det is not None and spec.chain:
         return f"the event block runs detectors at chain depth 0; got chain {spec.chain}"
+    if det is not None and det.march_steps and spec.gas:
+        return "the marching shadow trace runs without the gas channel"
     if spec.weighted and len(spec.surface.params) > MAX_BRDF_PARAMS:
         return f"the event block holds {MAX_BRDF_PARAMS} BRDF parameters"
     if spec.col and (det is not None or spec.gas or not spec.track_y):
@@ -1690,6 +1818,9 @@ def _count_launch(spec: EventSpec, surface: bool = False) -> None:
     counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col, spec.fused,
                                spec.table, surface)]
     setattr(event_block, counter, getattr(event_block, counter) + 1)
+    if spec.det is not None and spec.det.march_steps:
+        counter = MARCH_COUNTERS[surface]
+        setattr(event_block, counter, getattr(event_block, counter) + 1)
 
 
 def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
@@ -1760,10 +1891,14 @@ LAUNCH_COUNTERS = {
     k + (tab, srf): ("table_" if tab else "")
     + (name.replace("launches", "surface_launches") if srf else name)
     for k, name in _COUNTERS.items() for tab in (False, True) for srf in (False, True)}
+# The launches of a plan with the marching shadow trace (HG or table), also
+# counted in their variant's counter above: the block without and with the
+# surface stage.
+MARCH_COUNTERS = {False: "march_launches", True: "march_surface_launches"}
 
 
 def reset_launch_counters() -> None:
-    for name in LAUNCH_COUNTERS.values():
+    for name in (*LAUNCH_COUNTERS.values(), *MARCH_COUNTERS.values()):
         setattr(event_block, name, 0)
 
 

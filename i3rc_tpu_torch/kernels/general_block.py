@@ -896,12 +896,15 @@ def ray_queue(buf, n_lanes: int, K: int, f4: int) -> torch.Tensor:
 
 def device_counter(counters: dict, device) -> torch.Tensor:
     """The int64 (1,) counter of ``counters`` on ``device`` (``cuda`` is the
-    current card), made at first use."""
+    current card), made at first use: a normal tensor even when that use is
+    inside a trace's inference mode, so that ``reset_launch_counters`` can
+    zero it outside one."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev not in counters:
-        counters[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        with torch.inference_mode(False):
+            counters[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
     return counters[dev]
 
 
