@@ -56,7 +56,12 @@ closed trace against the marching one, a 3-D separable scene's radiance
 against the general kernel's exact trace, and the same scene over RPV),
 and the plane-parallel verification driver (the shipped namelist, copies
 against the discrete-ordinates slab on the general kernel and the
-fastpath, and in radiance mode) — and checks the physics.
+fastpath, and in radiance mode), and multi-device runs (the x-sharded
+tracer's kernels SD and SR against their plain versions; run_batches on a
+world of one NCCL rank and on two gloo ranks that share the card; a resume
+finished in a second process; the x-sharded tracer over two ranks on the
+whole Landsat scene and on __graft_entry__.py's detector scene) — and
+checks the physics.
 Every phase prints one line; any failed check raises and the script exits
 nonzero.  Run from the repository root:
 
@@ -1552,13 +1557,24 @@ def main() -> int:
 
     from i3rc_tpu_torch.kernels import general_block as gb
     from i3rc_tpu_torch.kernels import polarized_block as pb
+    from i3rc_tpu_torch.kernels import sharded_block as sdb
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         general_built = pool.submit(gb.build)
         polarized_built = pool.submit(pb.build)
+        sharded_built = pool.submit(sdb.build)
         built = eb.build()
         gbuilt = general_built.result()
         pbuilt = polarized_built.result()
+        sbuilt = sharded_built.result()
+    sptx = ptxas_sharded(sbuilt.log)
+    say("2 build-sharded", seconds=f"{sbuilt.seconds:.1f}", library=sbuilt.path.name,
+        **{k: PTXAS_FMT.format(**v) for k, v in sorted(sptx.items())})
+    # SD and SR: both built, neither spilling.
+    check(sorted(sptx) == ["SD", "SR"], f"sharded kernels {sorted(sptx)}")
+    for name, v in sptx.items():
+        check(v.get("spill_store_bytes", 1) == 0 and v.get("ctas_per_sm", 0) >= 1,
+              f"sharded {name}: {v}")
     pptx = ptxas_polarized(pbuilt.log)
     say("2 build-polarized", seconds=f"{pbuilt.seconds:.1f}", library=pbuilt.path.name,
         instantiations=len(pptx),
@@ -1625,7 +1641,7 @@ def main() -> int:
               f"fused-k set {name}: {by_variant.get(name)}")
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "ptxas.log").write_text(built.log + gbuilt.log + pbuilt.log)
+    (out / "ptxas.log").write_text(built.log + gbuilt.log + pbuilt.log + sbuilt.log)
     census = sass_census(built.path)
     ptxas = ptxas_of_census(built.log)
     for name, ops in census.items():
@@ -1957,6 +1973,20 @@ def main() -> int:
     m_rec = march_paths(card)
     plane_parallel_runs(out, card)
 
+    # 59-63. multi-device runs (ROADMAP item 19): SD and SR against their
+    # plain versions on a mid-flight and a tail state of the surface, volume
+    # and detector scenes on a world of one, and of the flux (Landsat) and
+    # graft scenes on each rank of the main path's two (59); the two ranks
+    # run alone on the card before this process's runs; run_batches on a world of one NCCL
+    # rank (bit for bit against no mesh) and on two gloo ranks sharing the
+    # card (1e-12) (60); a resume finished in a second process, exactly
+    # (61); the x-sharded tracer over two ranks at full width: the whole
+    # Landsat scene against the unsharded fastpath (62) and the graft scene
+    # (two components, an albedo, 2 detectors, heating rates) against G+E
+    # (63), SD and SR counted on that path
+    sd_checks = sharded_kernel_vs_twin(dev, card)
+    sd_rec = mesh_paths(out, card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -2038,7 +2068,8 @@ def main() -> int:
             ("table_fused_k", "fast_event_block_tab_fk.cu",
              "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode; fused-k, XLA in "
              "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)] + [
-        march_entry(kind, m_checks, m_rec) for kind in ("march", "march_surface")]},
+        march_entry(kind, m_checks, m_rec) for kind in ("march", "march_surface")] + [
+        sharded_entry(kind, sd_checks, sd_rec) for kind in ("SD", "SR")]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5366,6 +5397,529 @@ def march_entry(kind: str, checks: dict, rec: dict) -> dict:
             "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
             "batch_march_steps": bk["census"]["steps"], "batch_rays": bk["census"]["rays"],
             "batch_idle_share": bk["idle"]}
+
+
+
+# ---------------------------------------------------------------------------
+# Multi-device runs (ROADMAP item 19): run_batches over torch.distributed
+# ranks, exact resume, and the x-sharded domain tracer with its two kernels,
+# SD (csrc/sharded_event_block.cu sharded_event_block_kernel: K events a
+# lane) and SR (shadow_advance_kernel: K cell-DDA steps a shadow ray).  The
+# card is one H100: two gloo ranks share cuda:0 (gloo's buffers staged
+# through pinned host memory), and a world of one NCCL rank checks NCCL.
+
+SHARD_PHOTONS = 1 << 22             # Landsat and the graft scene over two ranks
+SHARD_LANES = 1 << 20               # lanes (and shadow-ray slots) a rank
+MESH_PHOTONS = 1 << 20              # run_batches on the step cloud (K1)
+MESH_BATCHES = 8
+GE_PHOTONS = 1 << 19                # G+E on the graft scene: 16 batches
+# Phase 59's world-of-one scenes (tests/sharded_scenes.py) by what they
+# cover: photons and lanes of the trace whose mid-flight and tail states it
+# checks.  The flux scene (Landsat) and the graft scene (two components, an
+# albedo, 2 detectors, the volume tally) are checked on the main path's
+# two ranks at its shapes, in chip_world_job.
+SHARD_CASES = {"surface": ("reflecting", 1 << 18, 1 << 16), "volume": ("volume", 1 << 18, 1 << 16),
+               "detectors_3": ("detectors", 1 << 18, 1 << 16)}
+# Operations per SD lane-event: two Philox4x32-10 calls (~200 integer
+# operations), the flight (four face distances, comparisons, moves, wraps,
+# the cell index: ~100), with 4 IEEE divisions and a share of logf (SFU
+# steps); per SR ray step: three face distances (3 divisions), the cell
+# index, the optical depth, the moves and the wrap (~60).
+OPS_PER_SD_EVENT = (300, 5)
+OPS_PER_SR_STEP = (60, 3)
+SD_STATE_ROWS = 16                  # 7 float and 9 int rows a lane (+ D prefactors)
+SR_STATE_ROWS = 9                   # 5 float and 4 int rows a ray
+
+
+def _sharded_scenes():
+    """tests/sharded_scenes.py, importable by name (spawned ranks import it)."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import sharded_scenes
+
+    return sharded_scenes
+
+
+def ptxas_sharded(log: str) -> dict:
+    """SD's and SR's registers, own stack and spill bytes, CTAs per SM."""
+    out, name, own = {}, None, False
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*(sharded_event_block|shadow_advance)_kernel",
+                      line)
+        if m:
+            name = "SD" if m[1] == "sharded_event_block" else "SR"
+            out[name], own = {}, False
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and "Function properties for" in line:
+            own = "_kernel" in line
+        elif name and own and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                              r"stores", line)):
+            out[name].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name].update(registers=int(m[1]), ctas_per_sm=ctas_per_sm(int(m[1])))
+    return out
+
+
+def sd_bound(lane_events: int, launches: int, lanes: int, n_dirs: int, table_bytes: int):
+    """(least ms, what bounds it) of SD's work: the lane-events' operations;
+    every lane's two flags read each launch, each live lane's state read and
+    written once a launch (a live lane runs at most K events a launch, so
+    lane_events / K lane-launches at least), the tables once."""
+    K = 8
+    n_bytes = launches * lanes * 8 + (lane_events // K) * (SD_STATE_ROWS + n_dirs) * 8 \
+        + table_bytes
+    alu, sfu = (lane_events * o for o in OPS_PER_SD_EVENT)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sr_bound(steps: int, launches: int, rays: int, escapes: int):
+    """(least ms, what bounds it) of SR's work: the steps' operations; every
+    slot's two flags read each launch, each moving ray's state read and
+    written once a launch (steps / K ray-launches at least), two float64
+    adds an escape."""
+    K = 8
+    n_bytes = launches * rays * 8 + (steps // K) * SR_STATE_ROWS * 8 + escapes * 16
+    alu, sfu = (steps * o for o in OPS_PER_SR_STEP)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sharded_kernel_vs_twin(dev, card: str) -> dict:
+    """59. SD and SR against their twins, bit for bit (SR's float64 tallies
+    within 1e-9 of their sum), at a mid-flight and a tail state of a trace
+    of the surface, volume and three-detector scenes on a world of one on
+    the card (its slab the whole domain)."""
+    ss = _sharded_scenes()
+
+    h = ss.host("i3rc_tpu_torch")
+    out = {"err": 0.0, "tally_err": 0.0}
+    for case, (name, photons, lanes) in SHARD_CASES.items():
+        st = ss.trace_states(ss.scene(name, h, 2), photons, lanes, dev)
+        check(len(st["sd"]) == 2 and (not st["spec"].n_dirs or len(st["sr"]) == 2),
+              f"59 {case}: states sd {[kb for kb, _ in st['sd']]} sr {len(st['sr'])}")
+        for r in ss.states_vs_twins(st["spec"], st["key"], st):
+            _twin_record(out, r, f"59 {case}")
+            say(f"59 sharded-{r['kernel']}-vs-twin", scene=name, case=case, ranks=1,
+                lanes=lanes, **_twin_fields(r), card=json.dumps(card))
+    return out
+
+
+def _twin_record(out: dict, r: dict, what: str) -> None:
+    """Check one kernel-vs-twin record and keep its largest difference."""
+    if r["kernel"] == "SD":
+        check(r["bit_equal"], f"{what} SD {r['state']}: {r}")
+        out["err"] = max(out["err"], r["max_abs_err"])
+    else:
+        check(r["bit_equal"] and r["tally_abs_err"] <= 1e-9 * max(1.0, r["tally_sum"]),
+              f"{what} SR {r['state']}: {r}")
+        out["tally_err"] = max(out["tally_err"], r["tally_abs_err"])
+
+
+def _twin_fields(r: dict) -> dict:
+    if r["kernel"] == "SD":
+        return dict(state=r["state"], kb=r["kb"], live=r["live"], lane_events=r["lane_events"],
+                    collisions=r["collisions"], tagged=r["tagged"], bit_equal=r["bit_equal"])
+    return dict(state=r["state"], kb=r["kb"], rays=r["rays"], steps=r["steps"],
+                escapes=r["escapes"], tagged=r["tagged"], bit_equal=r["bit_equal"],
+                tally_abs_err=f"{r['tally_abs_err']:.2e}")
+
+
+def _step_cloud_batches(mesh=None, offset: int = 0, n_batches: int = MESH_BATCHES, chunk=None,
+                        sums: bool = False):
+    """run_batches of the step cloud (K1) with domain means, on the mesh."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource, make_step_cloud
+    from i3rc_tpu_torch.parallel.mesh import run_batches
+
+    integ = Integrator.create(make_step_cloud(1.0), IntegratorConfig(use_ray_tracing=False,
+                                                                     max_events=500),
+                              device=mesh.device if mesh else "cuda")
+    derive = lambda res: {"fup": res.mean_flux_up, "fdn": res.mean_flux_down}
+    return run_batches(integ, PhotonSource.directional(0.5, 0.0), MESH_PHOTONS, n_batches,
+                       seed=SEED, derive=derive, mesh=mesh, batch_offset=offset,
+                       chunk_batches=chunk, _return_sums=sums)
+
+
+def _sharded_run(ss, name: str, mesh, profile: bool) -> dict:
+    """One trace of a scene (its two-rank form) over the mesh.  Unprofiled:
+    through trace_sharded, its summary and wall seconds.  Profiled: the
+    same trace through its ShardedTrace, this rank's SD and SR device ms,
+    the counts of the bound (lane-events, ray steps and escapes, blocks),
+    and SD's and SR's inputs at a mid-flight and a tail block ("_states":
+    the spec, the key and capture_states' lists)."""
+    from i3rc_tpu_torch import PhotonSource
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+    from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace, shard_plan, trace_sharded
+
+    sc = ss.scene(name, ss.host("i3rc_tpu_torch"), 2)
+    kw = sc["kw"]
+    src = PhotonSource.directional(*sc["src"])
+    torch.cuda.synchronize()
+    if not profile:
+        t0 = time.perf_counter()
+        raw = trace_sharded(sc["domain"], src, SHARD_PHOTONS, mesh,
+                            n_lanes_per_shard=SHARD_LANES, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        spec = shard_plan(sc["domain"], mesh, intensity_mus=kw.get("intensity_mus"),
+                          intensity_phis=kw.get("intensity_phis"))
+        return dict(ss.summary(raw), seconds=seconds,
+                    cell_bytes=spec.cells.numel() * spec.cells.element_size(),
+                    rows=int(spec.cells.shape[0]), n_dirs=spec.n_dirs)
+    tr = ShardedTrace.create(sc["domain"], src, SHARD_PHOTONS, mesh,
+                             n_lanes_per_shard=SHARD_LANES, seed=SEED, **kw)
+    spec = tr.spec
+    escapes = []
+    sr = tr.shadow_advance
+
+    def counted(spec_, pool, acc_int, acc_byc):
+        before = (pool.i[sb.QALIVE] != 0).sum()
+        sr(spec_, pool, acc_int, acc_byc)
+        escapes.append(before - (pool.i[sb.QALIVE] != 0).sum())
+
+    tr.shadow_advance = counted
+    keep = ss.capture_states(tr)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        while tr.running():
+            tr.block()
+        torch.cuda.synchronize()
+    tr.finish()
+    found = prof.key_averages()
+    ms = lambda k: sum(e.self_device_time_total for e in found if k in e.key) / 1e3
+    cnt = lambda k: sum(e.count for e in found if k in e.key)
+    tables = sum(t.numel() * 4 for t in (spec.cells, spec.cubic, spec.fwd, spec.det))
+    return {"sd_ms": ms("sharded_event_block_kernel"), "sr_ms": ms("shadow_advance_kernel"),
+            "sd_seen": cnt("sharded_event_block_kernel"),
+            "sr_seen": cnt("shadow_advance_kernel"),
+            "lane_events": int(tr.state.i[sb.EVCT].sum()), "blocks": tr.kb,
+            "steps": int(tr.pool.i[sb.QSTEPS].sum()),
+            "escapes": int(sum(escapes)) if escapes else 0, "table_bytes": tables,
+            "_states": (spec, tr.key, keep)}
+
+
+def _time_mid_launches(mesh, states: dict, checks: list) -> dict:
+    """Rank 0 times SD's mid-flight launch of the Landsat trace and SR's
+    of the graft trace (profiler; 2^20 lanes, its half slab) and their
+    twins (CUDA events) while the other ranks wait at a barrier, so that
+    the card runs these launches alone; the bounds from the launches'
+    counts.  The other ranks return {}."""
+    import torch.distributed as dist
+
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    timed = {}
+    if mesh.rank == 0:
+        mid = {(c["scene"], c["kernel"]): c for c in checks if c["state"] == "mid"}
+        spec, key, keep = states["landsat"]
+        kb, st = keep["sd"][0]
+        ms = device_block_ms(lambda s, _: sb.sharded_event_block(spec, s, key, kb), st,
+                             lambda: None, 5, kernel="sharded_event_block")
+        plain = time_block_ms(lambda s, _: sb.sharded_block_reference(spec, s, key, kb), st,
+                              lambda: None, 3)
+        tables = sum(t.numel() * 4 for t in (spec.cells, spec.cubic, spec.fwd, spec.det))
+        bound = sd_bound(mid[("landsat", "SD")]["lane_events"], 1, SHARD_LANES, spec.n_dirs,
+                         tables)
+        timed["SD"] = dict(ms=ms, plain_ms=plain, bound=bound, kb=kb)
+        spec, key, keep = states["graft"]
+        kb, pool = keep["sr"][0]
+        n = spec.nx_loc * spec.n_y * spec.n_dirs
+        acc = lambda: tuple(torch.zeros(k, dtype=torch.float64, device=mesh.device)
+                            for k in (n, n * (spec.n_comp + 1)))
+        ms = device_block_ms(lambda p, a: sb.shadow_advance(spec, p, *a), pool, acc, 5,
+                             kernel="shadow_advance")
+        plain = time_block_ms(lambda p, a: sb.shadow_advance_reference(spec, p, *a), pool, acc, 3)
+        r = mid[("graft", "SR")]
+        timed["SR"] = dict(ms=ms, plain_ms=plain,
+                           bound=sr_bound(r["steps"], 1, pool.n_rays, r["escapes"]), kb=kb)
+    dist.barrier(group=mesh.group)
+    return timed
+
+
+def chip_world_job(mesh) -> dict:
+    """A rank's job in phases 59 and 60-63 (two gloo ranks on cuda:0):
+    run_batches on the mesh; the full-width Landsat scene and the graft
+    scene through trace_sharded with SD's and SR's launches counted (the
+    main path); each once more under the profiler, keeping SD's and SR's
+    inputs at a mid-flight and a tail block; those launches against their
+    twins on this rank's half slab (59, at the main path's shapes), and
+    rank 0's mid-flight launches timed alone."""
+    ss = _sharded_scenes()
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+    from i3rc_tpu_torch.parallel.mesh import tree_leaves
+
+    s1, s2, n = _step_cloud_batches(mesh, sums=True)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
+           "batches": {"s1": [a.numpy() for a in tree_leaves(s1)],
+                       "s2": [a.numpy() for a in tree_leaves(s2)], "n": n}}
+    sb.reset_launch_counters()
+    for name in ("landsat", "graft"):
+        out[name] = _sharded_run(ss, name, mesh, profile=False)
+    out["launches"] = {"SD": sb.sharded_event_block.launches, "SR": sb.shadow_advance.launches}
+    states, out["checks"] = {}, []
+    for name in ("landsat", "graft"):
+        out[name].update(_sharded_run(ss, name, mesh, profile=True))
+        spec, key, keep = states[name] = out[name].pop("_states")
+        out[name]["nx_loc"] = spec.nx_loc
+        out["checks"] += [dict(r, scene=name) for r in ss.states_vs_twins(spec, key, keep)]
+    out["timed"] = _time_mid_launches(mesh, states, out["checks"])
+    return out
+
+
+def mesh_paths(out: Path, card: str) -> dict:
+    """59 (the main path's shapes) and 60-63: the two gloo ranks sharing
+    the card run alone first (this process waits); then run_batches on a
+    world of one NCCL rank, the one-rank traces of both scenes, a resume
+    in a second process and the unsharded references, each alone on the
+    card."""
+    import torch.distributed as dist
+
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, make_landsat_cloud,
+                                make_step_cloud)
+    from i3rc_tpu_torch.parallel import checkpoint as ckpt
+    from i3rc_tpu_torch.parallel.mesh import default_mesh, run_batches, tree_leaves
+
+    ss = _sharded_scenes()
+    torch.cuda.synchronize()
+    ranks = ss.join_world(ss.start_world(2, chip_world_job, (), device="cuda:0"), timeout=900)
+
+    # 59 (cont.). SD and SR against their twins on each rank's half slab of
+    # the main path's traces (2^20 lanes a rank, interior x faces)
+    twin = {"err": 0.0, "tally_err": 0.0}
+    for r in ranks:
+        check(r["landsat"]["nx_loc"] == 64 and r["graft"]["nx_loc"] == 2,
+              f"59 rank {r['rank']} slabs {r['landsat']['nx_loc']}, {r['graft']['nx_loc']}")
+        got = sorted((c["scene"], c["kernel"], c["state"]) for c in r["checks"])
+        check(got == sorted((sc, k, t) for sc, k in (("landsat", "SD"), ("graft", "SD"),
+                                                       ("graft", "SR"))
+                            for t in ("mid", "tail")), f"59 rank {r['rank']} states {got}")
+        for c in r["checks"]:
+            _twin_record(twin, c, f"59 rank {r['rank']} {c['scene']}")
+            check(c["state"] != "mid" or c["tagged"] > 0,
+                  f"59 rank {r['rank']} {c['scene']} {c['kernel']} mid: no migrant tagged")
+            fields = {}
+            t = ranks[0]["timed"].get(c["kernel"])
+            if r["rank"] == 0 and c["state"] == "mid" and t and t["kb"] == c["kb"] and (
+                    c["scene"] == ("landsat" if c["kernel"] == "SD" else "graft")):
+                fields = dict(device_ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.3f}",
+                              bound_ms=f"{t['bound'][0]:.4f}", bound_by=t["bound"][1])
+            say(f"59 sharded-{c['kernel']}-vs-twin", scene=c["scene"], ranks=2, rank=r["rank"],
+                nx_loc=r[c["scene"]]["nx_loc"], lanes=SHARD_LANES, **_twin_fields(c), **fields,
+                card=json.dumps(card))
+    check(set(ranks[0]["timed"]) == {"SD", "SR"}, f"59 timed {sorted(ranks[0]['timed'])}")
+
+    # 60. a world of one NCCL rank against no mesh: the same bits; the
+    # one-rank traces of 62 and 63 (no exchange, no other process)
+    plain = _step_cloud_batches(sums=True)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = default_mesh(device=torch.device("cuda", 0))
+        check(mesh.backend == "nccl" and mesh.size == 1, f"NCCL mesh {mesh}")
+        nccl = _step_cloud_batches(mesh, sums=True)
+        one = {}
+        for name in ("landsat", "graft"):
+            one[name] = _sharded_run(ss, name, mesh, profile=False)
+            one[name].update(_sharded_run(ss, name, mesh, profile=True))
+            one[name].pop("_states")
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(plain[0]) + tree_leaves(plain[1]),
+                                                   tree_leaves(nccl[0]) + tree_leaves(nccl[1])))
+    check(same and plain[2] == nccl[2], "60 NCCL world of one differs from run_batches")
+    fup = float(plain[0]["derived"]["fup"]) / plain[2]
+    say("60 mesh-nccl", backend="nccl", ranks=1, batches=plain[2], photons=MESH_PHOTONS,
+        fup=f"{fup:.6f}", bit_equal=same, card=json.dumps(card))
+
+    # 60 (cont.). two gloo ranks sharing the card against no mesh: 1e-12
+    g = ranks[0]["batches"]
+    rel = max(float(np.max(np.abs(a - b.numpy()) / np.maximum(np.abs(b.numpy()), 1e-300)))
+              for a, b in zip(g["s1"] + g["s2"], tree_leaves(plain[0]) + tree_leaves(plain[1]))
+              if a.size)
+    check(g["n"] == MESH_BATCHES and rel <= 1e-12, f"60 gloo ranks: n {g['n']}, rel {rel}")
+    say("60 mesh-gloo", backend=ranks[0]["backend"], ranks=2, device=ranks[0]["device"],
+        batches=g["n"], max_rel_diff=f"{rel:.2e}", card=json.dumps(card))
+
+    # 61. exact resume: half the batches here, the rest in a fresh process
+    ck = out / "resume.npz"
+    ck.unlink(missing_ok=True)
+    integ = Integrator.create(make_step_cloud(1.0), IntegratorConfig(use_ray_tracing=False,
+                                                                     max_events=500),
+                              device="cuda")
+    src = PhotonSource.directional(0.5, 0.0)
+    ckpt.run_batches_resumable(integ, src, MESH_PHOTONS, MESH_BATCHES // 2, seed=SEED,
+                               checkpoint_path=str(ck), chunk_batches=2)
+    code = textwrap.dedent(f"""
+        import json, sys
+        sys.path.insert(0, {str(ROOT)!r})
+        from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource, make_step_cloud
+        from i3rc_tpu_torch.parallel import checkpoint as ckpt
+        offsets = []
+        run = ckpt.run_batches
+        def counted(*a, **kw):
+            offsets.append(kw["batch_offset"])
+            return run(*a, **kw)
+        ckpt.run_batches = counted
+        integ = Integrator.create(make_step_cloud(1.0), IntegratorConfig(use_ray_tracing=False,
+                                  max_events=500), device="cuda")
+        st = ckpt.run_batches_resumable(integ, PhotonSource.directional(0.5, 0.0),
+                                        {MESH_PHOTONS}, {MESH_BATCHES}, seed={SEED},
+                                        checkpoint_path={str(ck)!r}, chunk_batches=2)
+        print(json.dumps({{"offsets": offsets, "n": st.n_batches,
+                          "flux_up": [float(v).hex() for v in st.mean.flux_up.flatten()],
+                          "se": [float(v).hex() for v in st.stderr.flux_up.flatten()]}}))
+    """)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONHASHSEED="4321"))
+    check(res.returncode == 0, f"61 the resuming process failed: {res.stderr[-2000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    single = run_batches(integ, src, MESH_PHOTONS, MESH_BATCHES, seed=SEED, chunk_batches=2)
+    exact = ([float.fromhex(v) for v in got["flux_up"]] == single.mean.flux_up.flatten().tolist()
+             and [float.fromhex(v) for v in got["se"]] == single.stderr.flux_up.flatten().tolist())
+    check(got["offsets"] == [4, 6] and got["n"] == MESH_BATCHES and exact,
+          f"61 resume: offsets {got['offsets']}, exact {exact}")
+    say("61 resume", batches=MESH_BATCHES, first_process=MESH_BATCHES // 2,
+        second_process_offsets=",".join(map(str, got["offsets"])), exact=exact,
+        seconds=f"{time.perf_counter() - t0:.1f}", card=json.dumps(card))
+
+    # The unsharded references of 62 and 63.
+    land = Integrator.create(make_landsat_cloud(0.99), IntegratorConfig(
+        use_ray_tracing=False, max_events=500, compute_volume_absorption=False), device="cuda")
+    res = land.batch_fn(src, SHARD_PHOTONS, n_lanes=1 << 18)(batch_key_(700))
+    land_ref = {"fup": float(res.mean_flux_up), "fabs": float(res.mean_flux_absorbed)}
+    sc = ss.scene("graft", ss.host("i3rc_tpu_torch"), 2)
+    ge = Integrator.create(sc["domain"], IntegratorConfig(
+        use_ray_tracing=False, use_fastpath=False, max_events=500,
+        compute_volume_absorption=True), surface_albedo=sc["kw"]["surface_albedo"],
+        intensity_mus=sc["kw"]["intensity_mus"], intensity_phis=sc["kw"]["intensity_phis"],
+        device="cuda")
+    ge_st = run_batches(ge, PhotonSource.directional(*sc["src"]), GE_PHOTONS, 16, seed=SEED,
+                        derive=lambda r: {"i": r.intensity.mean(dim=(0, 1)),
+                                          "fup": r.mean_flux_up})
+
+    # 62. Landsat, whole (128 x 128 columns, ssa 0.99), over two ranks
+    r0 = ranks[0]["landsat"]
+    n = r0["n_photons"]
+    tot = r0["flux_up"].sum() + r0["flux_down"].sum() + r0["flux_absorbed"].sum()
+    check(tot + r0["n_bad"] == n == SHARD_PHOTONS, f"62 conservation {tot} + {r0['n_bad']}")
+    whole_bytes = 128 * 128 * 119 * 4 * 4
+    check(all(r["landsat"]["cell_bytes"] * 2 == whole_bytes for r in ranks),
+          f"62 cell bytes {[r['landsat']['cell_bytes'] for r in ranks]}")
+    got = {"fup": r0["flux_up"].sum() / n, "fabs": r0["flux_absorbed"].sum() / n}
+    for k in ("fup", "fabs"):
+        p = land_ref[k]
+        sigma = (p * (1 - p) * (1.0 / n + 1.0 / SHARD_PHOTONS)) ** 0.5
+        check(abs(got[k] - p) <= 5 * sigma, f"62 Landsat {k}: {got[k]} vs {p} (sigma {sigma})")
+    rec = {"landsat": _shard_record(ranks, "landsat"), "graft": _shard_record(ranks, "graft"),
+           "one": {k: _shard_record([one], k) for k in ("landsat", "graft")},
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("SD", "SR")},
+           "twin": twin, "timed": ranks[0]["timed"]}
+    o = one["landsat"]
+    n1 = o["n_photons"]
+    tot1 = o["flux_up"].sum() + o["flux_down"].sum() + o["flux_absorbed"].sum()
+    check(tot1 + o["n_bad"] == n1 and abs(o["flux_up"].sum() / n1 - land_ref["fup"])
+          <= 5 * (2 * land_ref["fup"] * (1 - land_ref["fup"]) / n1) ** 0.5,
+          f"62 one NCCL rank: {tot1} + {o['n_bad']}, Fup {o['flux_up'].sum() / n1}")
+    say("62 sharded-landsat-one-rank", ranks=1, backend="nccl", photons=n1,
+        lanes_a_rank=SHARD_LANES, fup=f"{o['flux_up'].sum() / n1:.6f}",
+        fabs=f"{o['flux_absorbed'].sum() / n1:.6f}", n_bad=o["n_bad"],
+        migrations=int(o["migrations"]), **_shard_fields(rec["one"]["landsat"]),
+        card=json.dumps(card))
+    say("62 sharded-landsat", ranks=2, backend=ranks[0]["backend"],
+        exchange="device buffers" if ranks[0]["backend"] == "nccl" else "pinned host staging",
+        photons=n,
+        lanes_a_rank=SHARD_LANES, fup=f"{got['fup']:.6f}", fabs=f"{got['fabs']:.6f}",
+        unsharded_fup=f"{land_ref['fup']:.6f}", unsharded_fabs=f"{land_ref['fabs']:.6f}",
+        n_bad=r0["n_bad"], migrations=int(r0["migrations"]),
+        cell_bytes_a_rank=",".join(str(r["landsat"]["cell_bytes"]) for r in ranks),
+        whole_cell_bytes=whole_bytes, **_shard_fields(rec["landsat"]), card=json.dumps(card))
+
+    # 63. the graft scene (two components, albedo 0.3, 2 detectors, volume)
+    r0 = ranks[0]["graft"]
+    n = r0["n_photons"]
+    i_sh = r0["intensity"].reshape(-1, 2).sum(axis=0) / n
+    i_ge = ge_st.mean["derived"]["i"].cpu().numpy()
+    se = ge_st.stderr["derived"]["i"].cpu().numpy()
+    scale = GE_PHOTONS * ge_st.n_batches / n
+    check(np.all(i_sh > 0) and r0["n_bad"] <= 0.01 * n and r0["volume"].sum() > 0,
+          f"63 graft: I {i_sh}, n_bad {r0['n_bad']}")
+    check(np.all(np.abs(i_sh - i_ge) <= 5 * se * np.sqrt(1.0 + scale)),
+          f"63 graft radiance {i_sh} vs G+E {i_ge} +- {se}")
+    say("63 sharded-graft", ranks=2, photons=n, lanes_a_rank=SHARD_LANES,
+        intensity=",".join(f"{v:.5f}" for v in i_sh),
+        ge_intensity=",".join(f"{v:.5f}" for v in i_ge), ge_stderr=",".join(f"{v:.1e}" for v in se),
+        n_bad=r0["n_bad"], migrations=int(r0["migrations"]), **_shard_fields(rec["graft"]),
+        card=json.dumps(card))
+    o = one["graft"]
+    i_one = o["intensity"].reshape(-1, 2).sum(axis=0) / o["n_photons"]
+    check(o["n_bad"] <= 0.01 * o["n_photons"]
+          and np.all(np.abs(i_one - i_ge) <= 5 * se * np.sqrt(1.0 + scale)),
+          f"63 graft on one NCCL rank: I {i_one} vs G+E {i_ge} +- {se}, n_bad {o['n_bad']}")
+    say("63 sharded-graft-one-rank", ranks=1, backend="nccl", photons=o["n_photons"],
+        lanes_a_rank=SHARD_LANES, intensity=",".join(f"{v:.5f}" for v in i_one),
+        n_bad=o["n_bad"], **_shard_fields(rec["one"]["graft"]), card=json.dumps(card))
+    say("62-63 launches", **rec["launches"])
+    check(rec["launches"]["SD"] > 0 and rec["launches"]["SR"] > 0,
+          f"the sharded path launched {rec['launches']}")
+    return rec
+
+
+def _shard_record(ranks: list, name: str) -> dict:
+    """The ranks' trace of a scene (two ranks, or one): photons/s (the
+    slowest rank's wall time), SD's and SR's device ms (every rank's
+    kernels) and the bounds."""
+    rs = [r[name] for r in ranks]
+    n = rs[0]["n_photons"]
+    sd_launches = sum(r["blocks"] for r in rs)
+    sd = sd_bound(sum(r["lane_events"] for r in rs), sd_launches, SHARD_LANES, rs[0]["n_dirs"],
+                  sum(r["table_bytes"] for r in rs))
+    sr = sr_bound(sum(r["steps"] for r in rs), sd_launches if rs[0]["n_dirs"] else 0,
+                  SHARD_LANES, sum(r["escapes"] for r in rs))
+    return {"photons_per_s": n / max(r["seconds"] for r in rs),
+            "seconds": max(r["seconds"] for r in rs),
+            "sd_ms": sum(r["sd_ms"] for r in rs), "sr_ms": sum(r["sr_ms"] for r in rs),
+            "sd_bound": sd, "sr_bound": sr, "blocks": rs[0]["blocks"],
+            "lane_events": sum(r["lane_events"] for r in rs),
+            "steps": sum(r["steps"] for r in rs)}
+
+
+def _shard_fields(rec: dict) -> dict:
+    return dict(photons_per_s=f"{rec['photons_per_s']:.4e}", seconds=f"{rec['seconds']:.3f}",
+                blocks=rec["blocks"], sd_device_ms=f"{rec['sd_ms']:.3f}",
+                sd_bound_ms=f"{rec['sd_bound'][0]:.3f}", sd_bound_by=rec["sd_bound"][1],
+                sr_device_ms=f"{rec['sr_ms']:.3f}", sr_bound_ms=f"{rec['sr_bound'][0]:.3f}",
+                sr_bound_by=rec["sr_bound"][1], lane_events=rec["lane_events"],
+                ray_steps=rec["steps"])
+
+
+def sharded_entry(kind: str, checks: dict, rec: dict) -> dict:
+    """The kernels-line entry of SD or SR: launches on the sharded path
+    (both ranks, phases 62-63), the largest difference to the twin (59,
+    both the world of one and the two ranks), rank 0's mid-flight launch
+    on the main path (Landsat for SD, graft for SR; 2^20 lanes, half the
+    slab) timed alone, the twin's time and the bound; beside them the
+    per-batch device time of the path on two ranks sharing the card and on
+    one rank alone, each with its bound."""
+    sd = kind == "SD"
+    t = rec["timed"][kind]
+    name = "landsat" if sd else "graft"
+    k = "sd" if sd else "sr"
+    two, one = rec[name], rec["one"][name]
+    err = "err" if sd else "tally_err"
+    return {"name": "sharded_event_block" if sd else "shadow_advance", "route": "cuda",
+            "source": "i3rc_tpu_torch/csrc/sharded_event_block.cu",
+            "replaces": "none: XLA, i3rc_tpu/parallel/sharded_domain.py:" + ("230" if sd else "464"),
+            "launches": rec["launches"][kind],
+            "max_abs_err": max(checks[err], rec["twin"][err]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None,
+            "batch_ms": two[f"{k}_ms"], "batch_bound_ms": two[f"{k}_bound"][0],
+            "photons_per_s": two["photons_per_s"],
+            "one_rank_batch_ms": one[f"{k}_ms"], "one_rank_batch_bound_ms": one[f"{k}_bound"][0],
+            "one_rank_photons_per_s": one["photons_per_s"]}
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ Layer map:
   tools/        the single-sphere Mie series
   kernels/      hand-written CUDA kernels, their plain PyTorch twins, the build
   csrc/         CUDA C++ sources (built with nvcc for sm_90a at first use)
-  parallel/     batch statistics
+  parallel/     batches over torch.distributed ranks and their statistics,
+                checkpoint and resume, the x-sharded domain tracer
   drivers/      the namelist drivers (monteCarloDriver analog, broadband)
 """
 

@@ -136,18 +136,20 @@ class PhotonSource:
 
     # --- sampling -------------------------------------------------------------
     def sample(self, key: PhiloxKey, n_photons: int, device,
-               stream: int = STREAM_LAUNCH, block: int = 0) -> PhotonBatch:
+               stream: int = STREAM_LAUNCH, block: int = 0,
+               lanes: torch.Tensor | None = None) -> PhotonBatch:
         """Draw the initial conditions for a batch of n photons.
 
         Lane i's draws come from counter (i, block, group, stream) under
         ``key``; the trace loop's refill passes ``STREAM_REFILL`` and its
-        block index.
+        block index.  ``lanes`` (n_photons lane indices) draws only those
+        lanes' samples, in that order.
         """
         if self.kind not in ("directional", "random_azimuth", "flux_weighted",
                              "spotlight", "internal_flux", "internal_intensity"):
             raise ValueError(f"unknown photon source kind '{self.kind}'")
         n_groups = 2 if (self.delta_x > 0 or self.delta_y > 0) else 1
-        u = stream_uniforms(key, stream, block, n_groups, n_photons, device)
+        u = stream_uniforms(key, stream, block, n_groups, n_photons, device, lanes)
         full = lambda v: torch.full((n_photons,), float(v), dtype=torch.float32,
                                     device=device)
         top = full(_TOP_Z)

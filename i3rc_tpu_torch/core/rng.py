@@ -123,9 +123,11 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def stream_uniforms(key: PhiloxKey, stream: int, block: int, n_groups: int,
-                    n_lanes: int, device) -> torch.Tensor:
-    """(4 * n_groups, n_lanes) float32 uniforms; row r is draw r of a lane."""
-    lane = torch.arange(n_lanes, dtype=torch.int64, device=device)
+                    n_lanes: int, device, lanes: torch.Tensor | None = None) -> torch.Tensor:
+    """(4 * n_groups, n_lanes) float32 uniforms; row r is draw r of a lane.
+    ``lanes`` (int64, n_lanes entries) draws those lanes' columns only."""
+    lane = (torch.arange(n_lanes, dtype=torch.int64, device=device) if lanes is None
+            else lanes.to(device=device, dtype=torch.int64))
     group = torch.arange(n_groups, dtype=torch.int64, device=device)
     c0 = lane.expand(n_groups, n_lanes)
     c2 = group[:, None].expand(n_groups, n_lanes)

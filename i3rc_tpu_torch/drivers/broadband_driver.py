@@ -8,6 +8,7 @@ the absorption profile and netCDF output when asked for) with standard
 errors through the port's own writers (``drivers/results_io.py``).
 
     python -m i3rc_tpu_torch.drivers.broadband_driver [--device cuda] run.nml
+    torchrun --nproc_per_node=N -m i3rc_tpu_torch.drivers.broadband_driver run.nml
 
 Namelist groups: the monteCarloDriver five (radiativeTransfer, monteCarlo,
 algorithms, output, fileNames) plus
@@ -31,12 +32,15 @@ baked plan is a fastpath plan, else traced.  ``--device`` defaults to
 ``cuda``; a missing GPU raises instead of running on the CPU.  The surface
 is the namelist's ``surfaceAlbedo``, or a ``SurfaceDescription`` that a
 caller of ``run_from_namelist`` passes as ``surface`` (the namelist has no
-BRDF entry; the albedo must then be 0).
+BRDF entry; the albedo must then be 0).  Under ``torchrun`` each rank runs
+its share of every k point's batches on ``cuda:LOCAL_RANK`` and rank 0
+alone writes (as the monteCarloDriver port does).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -52,7 +56,7 @@ from i3rc_tpu_torch.io.netcdf import read_domain
 from i3rc_tpu_torch.utils.namelist import read_namelist
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.integrators.spectral import MODES, run_broadband
-from i3rc_tpu_torch.parallel.mesh import tree_map
+from i3rc_tpu_torch.parallel.mesh import default_mesh, initialize_multihost, tree_map
 
 
 def _listify(v):
@@ -64,9 +68,14 @@ def _listify(v):
 
 
 def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda",
-                      surface=None) -> dict:
-    """Execute the broadband driver; returns a dict for programmatic use."""
+                      surface=None, mesh=None) -> dict:
+    """Execute the broadband driver; returns a dict for programmatic use.
+    ``mesh`` (default: ``default_mesh`` on ``device``) spreads the batches
+    over its ranks, on the mesh's device; rank 0 alone writes and prints."""
     t0 = time.perf_counter()
+    mesh = mesh or default_mesh(device=device)
+    device = mesh.device
+    quiet = quiet or mesh.rank != 0
     g = read_namelist(namelist_path)
 
     solar_flux = float(_get(g, "radiativetransfer", "solarflux", 1.0))
@@ -137,7 +146,7 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda",
         surface_albedo=surface_albedo, surface=surface, intensity_mus=mus,
         intensity_phis=phis,
         band_domains=band_domains, derive=derive, mode=mode, integrator_cache={},
-        device=device)
+        device=device, mesh=mesh)
     bb_res, bb_der = broadband["results"], broadband["derived"]
     # Bands are independent runs: their spectral-fraction-weighted standard
     # errors add in quadrature (monteCarloDriver.f95:358-378).
@@ -161,7 +170,7 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda",
                num_batches=n_batches, num_bands=len(kds), solar_flux=solar_flux,
                solar_mu=solar_mu, solar_azimuth=solar_azimuth,
                surface_albedo=surface_albedo, seed=iseed, time_total=t_total,
-               time_setup=t_setup, n_devices=1,
+               time_setup=t_setup, n_devices=mesh.size,
                # Header keys of results_io; this driver runs the default
                # estimator configuration.
                use_ray_tracing=use_ray_tracing,
@@ -185,6 +194,8 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda",
     # Layer-mean absorption profile, per meter, with its batch-derived stderr.
     profile = (np_(bb_der["absorbed_profile"]), np_(err_der["absorbed_profile"]))
 
+    if mesh.rank != 0:
+        out_flux = out_abs_prof = out_rad = out_netcdf = ""
     if out_flux:
         results_io.write_flux_ascii(out_flux, cfg, x_edges, y_edges, z_edges, mean_stats,
                                     flux_up, flux_down, flux_abs)
@@ -221,7 +232,14 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; no CPU fallback)")
     args = parser.parse_args(argv)
-    run_from_namelist(args.namelist, device=args.device)
+    if "WORLD_SIZE" in os.environ:       # launched by torchrun
+        mesh = initialize_multihost(device=args.device)
+        try:
+            run_from_namelist(args.namelist, device=mesh.device, mesh=mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        run_from_namelist(args.namelist, device=args.device)
     return 0
 
 

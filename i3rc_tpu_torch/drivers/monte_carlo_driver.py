@@ -8,9 +8,14 @@ netCDF flux and radiance results with standard errors through the port's
 own writers (``drivers/results_io.py``).
 
     python -m i3rc_tpu_torch.drivers.monte_carlo_driver [--device cuda] run.nml
+    torchrun --nproc_per_node=N -m i3rc_tpu_torch.drivers.monte_carlo_driver run.nml
 
 ``--device`` defaults to ``cuda``; a missing GPU raises instead of running
-on the CPU.  The port covers flux and radiance with ray tracing
+on the CPU.  Under ``torchrun`` (``WORLD_SIZE`` set) each rank joins the
+process group on ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``),
+runs its share of the batches (``parallel/mesh.py``), and rank 0 alone
+writes the output files (the MasterProc convention,
+multipleProcesses_mpi.f95:26-39).  The port covers flux and radiance with ray tracing
 (``useRayTracing = .true.``, the reference's default: the general kernel,
 its local estimate with the namelist's Iwabuchi roulette and ``zetaMin``,
 hybrid phase functions and contribution clipping) or maximum cross-section
@@ -23,12 +28,14 @@ matrices, Stokes radiances, column absorption only).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 import warnings
 from dataclasses import replace
 
 import numpy as np
+import torch
 
 from i3rc_tpu_torch.drivers import results_io
 from i3rc_tpu_torch.drivers.nml_common import get as _get
@@ -39,13 +46,19 @@ from i3rc_tpu_torch.utils.namelist import read_namelist
 from i3rc_tpu_torch.core.illumination import PhotonSource
 from i3rc_tpu_torch.integrators.integrator import Integrator
 from i3rc_tpu_torch.integrators.polarized import PolarizedIntegrator
-from i3rc_tpu_torch.parallel.mesh import run_batches
+from i3rc_tpu_torch.parallel.mesh import default_mesh, initialize_multihost, run_batches
 from i3rc_tpu_torch.utils.errors import I3RCWarning
 
 
-def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") -> dict:
-    """Execute the full driver; returns a dict of stats for programmatic use."""
+def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda",
+                      mesh=None) -> dict:
+    """Execute the full driver; returns a dict of stats for programmatic use.
+    ``mesh`` (default: ``default_mesh`` on ``device``) spreads the batches
+    over its ranks, on the mesh's device; rank 0 alone writes and prints."""
     t0 = time.perf_counter()
+    mesh = mesh or default_mesh(device=device)
+    device = mesh.device
+    quiet = quiet or mesh.rank != 0
     g = read_namelist(namelist_path)
 
     # --- namelist parameters with reference defaults (:60-103) -------------
@@ -137,7 +150,7 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
         return out
 
     stats = run_batches(integ, source, n_photons, n_batches, seed=iseed,
-                        chunk_batches=2, derive=derive).scaled(solar_flux)
+                        chunk_batches=2, derive=derive, mesh=mesh).scaled(solar_flux)
     n_batches = stats.n_batches
     t_total = time.perf_counter() - t0
     if not quiet:
@@ -154,7 +167,7 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
                zeta_min=zeta_min, limit_intensity=limit_intensity,
                max_intensity=max_intensity, seed=iseed,
                n_phase_intervals=n_phase_intervals, time_total=t_total,
-               time_setup=t_setup, n_devices=1)
+               time_setup=t_setup, n_devices=mesh.size)
 
     x_edges = np.asarray(domain.x_edges)
     y_edges = np.asarray(domain.y_edges)
@@ -177,6 +190,8 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
     mean_stats = [(float(der_m[k]), float(der_e[k]))
                   for k in ("mean_flux_up", "mean_flux_down", "mean_flux_absorbed")]
 
+    if mesh.rank != 0:
+        out_flux = out_abs_prof = out_abs_vol = out_rad = out_netcdf = ""
     if out_flux:
         results_io.write_flux_ascii(out_flux, cfg, x_edges, y_edges, z_edges,
                                     mean_stats, flux_up, flux_down, flux_abs)
@@ -220,7 +235,14 @@ def main(argv=None):
         if not path:
             parser.print_usage(sys.stderr)
             return 1
-    run_from_namelist(path, device=args.device)
+    if "WORLD_SIZE" in os.environ:       # launched by torchrun
+        mesh = initialize_multihost(device=args.device)
+        try:
+            run_from_namelist(path, device=mesh.device, mesh=mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        run_from_namelist(path, device=args.device)
     return 0
 
 

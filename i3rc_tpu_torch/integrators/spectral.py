@@ -97,7 +97,7 @@ class BandResult:
 def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, source,
              n_photons_per_batch: int, n_batches: int, seed: int = 10, derive=None,
              mode: str = "baked", integrator_cache: dict | None = None,
-             n_lanes: int | None = None) -> BandResult:
+             n_lanes: int | None = None, mesh=None) -> BandResult:
     """All k points of one band, each through its own baked integrator, or
     (``mode="traced"``) through ``integrator``'s general kernel with the k
     point's optics, or (``mode="fused"``) all at once through one fused-k
@@ -111,6 +111,8 @@ def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, 
     ``n_photons_per_batch * n_k`` with seed ``seed``.  ``integrator_cache``
     keeps the per-k and fused integrators (and their tracers) across band
     runs.  ``mode`` is one of ``MODES`` (see the module docstring).
+    ``mesh`` spreads every k point's batches over its ranks
+    (``parallel.mesh.run_batches``; default ``default_mesh``).
     """
     if mode not in MODES:
         raise ValueError(f"spectral mode must be one of {MODES}, got {mode!r}")
@@ -145,7 +147,7 @@ def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, 
             pass
     if mode == "fused":
         stats = run_batches(fused_integrator(), source, n_photons_per_batch * kdist.n_k,
-                            n_batches, seed=seed, derive=derive, n_lanes=n_lanes)
+                            n_batches, seed=seed, derive=derive, n_lanes=n_lanes, mesh=mesh)
         return BandResult(mean=stats.mean, per_k=[], wavelength_limits=kdist.wavelength_limits,
                           spectral_fraction=kdist.spectral_fraction, stderr=stats.stderr)
 
@@ -163,13 +165,14 @@ def run_band(integrator: Integrator, base_domain: Domain, kdist: KDistribution, 
     def k_stats(k: int):
         if not traced:
             return run_batches(k_integrator(k), source, n_photons_per_batch, n_batches,
-                               seed=seed + 1000 * k, derive=derive, n_lanes=n_lanes)
+                               seed=seed + 1000 * k, derive=derive, n_lanes=n_lanes,
+                               mesh=mesh)
         optics_k = device_optics_from_flat(
             flatten_optics(domain_with_gas_component(base_domain, profiles[:, k])),
             integrator.config.majorant_block_size, integrator.device)
         return run_batches(integrator, source, n_photons_per_batch, n_batches,
                            seed=seed + 1000 * k, derive=derive, n_lanes=n_lanes,
-                           optics_override=optics_k)
+                           optics_override=optics_k, mesh=mesh)
 
     per_k, mean, var = [], None, None
     for k in range(kdist.n_k):
@@ -190,7 +193,7 @@ def run_broadband(base_domain: Domain, k_distributions, source, n_photons_per_ba
                   surface=None, intensity_mus=None, intensity_phis=None, band_domains=None,
                   derive=None,
                   mode: str = "baked", integrator_cache: dict | None = None,
-                  device="cuda", n_lanes: int | None = None):
+                  device="cuda", n_lanes: int | None = None, mesh=None):
     """The spectral loop over bands and their k points.
 
     ``band_domains`` optionally gives each band its own domain (per-band
@@ -198,7 +201,7 @@ def run_broadband(base_domain: Domain, k_distributions, source, n_photons_per_ba
     is ``surface_albedo`` or the ``SurfaceDescription`` ``surface``.  Band b runs
     with seed ``seed + 100000 * b``.  Returns (broadband mean tree, [BandResult
     per band]); the broadband tree is the spectral-fraction-weighted sum of
-    the band means.
+    the band means.  ``mesh`` goes to every band's ``run_band``.
     """
     results, broadband = [], None
     for b, kdist in enumerate(k_distributions):
@@ -211,7 +214,7 @@ def run_broadband(base_domain: Domain, k_distributions, source, n_photons_per_ba
             intensity_mus=intensity_mus, intensity_phis=intensity_phis, device=device)
         band = run_band(integ, dom_b, kdist, source, n_photons_per_batch, n_batches,
                         seed=seed + 100000 * b, derive=derive, mode=mode,
-                        integrator_cache=integrator_cache, n_lanes=n_lanes)
+                        integrator_cache=integrator_cache, n_lanes=n_lanes, mesh=mesh)
         results.append(band)
         contrib = tree_map(lambda a, f=band.spectral_fraction: a * f, band.mean)
         broadband = contrib if broadband is None else tree_map(torch.add, broadband, contrib)

@@ -1,0 +1,386 @@
+"""Scenes, rank worlds and kernel-vs-twin checks of the x-sharded tracer.
+
+Imports no JAX: ``tests/test_torch_sharded_*.py`` build each side's domains
+with ``host("i3rc_tpu")`` / ``host("i3rc_tpu_torch")``, and ``chip_smoke.py``
+and ``tests/test_torch_sharded_cuda.py`` load this file on the card's
+machine.
+
+  * ``scene(name, h, n_dev)``: the cases of ``tests/test_sharded_domain.py``
+    (the absorbing Landsat scene, the reflecting random field, its volume
+    absorption and radiance detectors, the two-component tabulated scene)
+    and the scene of ``__graft_entry__.py:127-156``;
+  * ``run_world(n, job, args)``: ``job(mesh, *args)`` on every rank of a
+    gloo world of n processes (``torch.multiprocessing`` spawn, a store on
+    a localhost port), each rank's return value back in rank order;
+  * ``capture_states`` / ``trace_states`` / ``sd_vs_twin`` /
+    ``sr_vs_twin``: SD's and SR's inputs at a mid-flight and a tail block
+    of a trace (on a world of one, or on each rank of a mesh), and one
+    launch of each kernel against its twin from the same input.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import pickle
+import tempfile
+import time
+from datetime import timedelta
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+SCENES = ("landsat", "reflecting", "volume", "detectors", "multi_tab")
+
+
+def host(pkg: str) -> SimpleNamespace:
+    """One side's host layer: the port keeps its copies under the JAX
+    package's module paths."""
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+    pf = mod("core.phase_functions")
+    return SimpleNamespace(
+        Domain=mod("core.optics").Domain, PhaseFunction=pf.PhaseFunction,
+        PhaseFunctionTable=pf.PhaseFunctionTable, hg=pf.henyey_greenstein_coefficients,
+        make_landsat_cloud=mod("models.landsat_cloud").make_landsat_cloud,
+        load_c1_tabulated=mod("models.radar_cloud").load_c1_tabulated)
+
+
+def random_field(h, seed: int = 3, ssa: float = 0.95):
+    """tests/test_sharded_domain.py:_random_absorbing_domain: 16 x 4 x 6
+    cells of U[0, 0.02] extinction, HG 0.7."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = 16, 4, 6
+    ext = rng.uniform(0.0, 0.02, (nx, ny, nz))
+    table = h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(h.hg(0.7, 32))], key=[1.0])
+    dom = h.Domain.create(np.linspace(0, 480, nx + 1), np.linspace(0, 120, ny + 1),
+                          np.linspace(0, 180, nz + 1))
+    return dom.add_component("c", ext, np.full_like(ext, ssa), np.zeros(ext.shape, np.int32),
+                             table)
+
+
+def multi_tab(h):
+    """tests/test_sharded_domain.py:138-170: a C.1 cloud and a second
+    (Legendre, g = 0.1/3) component over 16 x 4 x 6 cells."""
+    rng = np.random.default_rng(11)
+    nx, ny, nz = 16, 4, 6
+    cloud = rng.uniform(0.0, 0.02, (nx, ny, nz))
+    cloud[cloud < 0.004] = 0.0
+    c1 = h.PhaseFunctionTable.from_phase_functions([h.load_c1_tabulated()], key=[1.0])
+    ray = h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(np.array([0.0, 0.1]))], key=[1.0])
+    dom = h.Domain.create(np.linspace(0, 480, nx + 1), np.linspace(0, 120, ny + 1),
+                          np.linspace(0, 180, nz + 1))
+    dom = dom.add_component("cloud", cloud, np.full_like(cloud, 0.95),
+                            np.zeros(cloud.shape, np.int32), c1)
+    return dom.add_component("rayleigh", np.full(nz, 2e-3), np.ones(nz), np.zeros(nz, np.int32),
+                             ray)
+
+
+def graft(h, n_dev: int):
+    """__graft_entry__.py:127-156: 2 n_dev x 4 x 4 cells, HG 0.7 at ssa 0.9
+    and a uniform C.1 layer."""
+    rng = np.random.default_rng(0)
+    nx, ny, nz = 2 * n_dev, 4, 4
+    ext = rng.uniform(0.0, 0.02, (nx, ny, nz))
+    table = h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(h.hg(0.7, 16))], key=[1.0])
+    dom = h.Domain.create(np.linspace(0, 60.0 * nx, nx + 1), np.linspace(0, 240, ny + 1),
+                          np.linspace(0, 200, nz + 1))
+    dom = dom.add_component("c", ext, np.full_like(ext, 0.9), np.zeros(ext.shape, np.int32),
+                            table)
+    c1 = h.PhaseFunctionTable.from_phase_functions([h.load_c1_tabulated()], key=[1.0])
+    return dom.add_component("aerosol", np.full(nz, 2e-3), np.ones(nz), np.zeros(nz, np.int32),
+                             c1)
+
+
+def scene(name: str, h, n_dev: int = 2) -> dict:
+    """The domain, the source (mu0, phi0) and the tracer's keywords of a
+    case; ``n_dev`` sizes the graft scene only."""
+    src = (0.6, 30.0)
+    if name == "landsat":
+        return dict(domain=h.make_landsat_cloud(0.99), src=(0.5, 0.0), kw={})
+    if name == "reflecting":
+        return dict(domain=random_field(h), src=src, kw=dict(surface_albedo=0.4))
+    if name == "volume":
+        return dict(domain=random_field(h), src=src, kw=dict(compute_volume_absorption=True))
+    if name == "detectors":
+        return dict(domain=random_field(h), src=src,
+                    kw=dict(surface_albedo=0.4, intensity_mus=[1.0, 0.6, -0.5],
+                            intensity_phis=[0.0, 45.0, 0.0]))
+    if name == "multi_tab":
+        return dict(domain=multi_tab(h), src=src,
+                    kw=dict(intensity_mus=[1.0, -0.5], intensity_phis=[0.0, 0.0]))
+    if name == "graft":
+        return dict(domain=graft(h, n_dev), src=(0.5, 0.0),
+                    kw=dict(surface_albedo=0.3, intensity_mus=[1.0, 0.5],
+                            intensity_phis=[0.0, 60.0], compute_volume_absorption=True))
+    raise KeyError(name)
+
+
+def summary(raw) -> dict:
+    """A RawTallies as numpy arrays and numbers."""
+    a = lambda t: t.detach().cpu().numpy()
+    return dict(flux_up=a(raw.flux_up), flux_down=a(raw.flux_down),
+                flux_absorbed=a(raw.flux_absorbed), volume=a(raw.volume_absorption),
+                intensity=a(raw.intensity), by_component=a(raw.intensity_by_component),
+                n_photons=int(raw.n_photons), n_bad=int(raw.n_bad),
+                migrations=float(raw.n_lane_events), n_iterations=int(raw.n_iterations))
+
+
+def trace_cases(mesh, names, n_photons: int, lanes: int, seed: int, unroll: int = 8) -> dict:
+    """A rank's job: every named scene through ``trace_sharded`` on the
+    mesh; per case the summary, this rank's cell rows and its cubic rows."""
+    from i3rc_tpu_torch import PhotonSource
+    from i3rc_tpu_torch.parallel.sharded_domain import shard_plan, trace_sharded
+
+    h = host("i3rc_tpu_torch")
+    out = {}
+    for k, name in enumerate(names):
+        sc = scene(name, h, mesh.size)
+        src = PhotonSource.directional(*sc["src"])
+        t0 = time.perf_counter()
+        raw = trace_sharded(sc["domain"], src, n_photons, mesh, n_lanes_per_shard=lanes,
+                            seed=seed + k, unroll=unroll, **sc["kw"])
+        seconds = time.perf_counter() - t0
+        spec = shard_plan(sc["domain"], mesh, unroll=unroll,
+                          intensity_mus=sc["kw"].get("intensity_mus"),
+                          intensity_phis=sc["kw"].get("intensity_phis"))
+        out[name] = dict(summary(raw), rows=int(spec.cells.shape[0]),
+                         cell_bytes=spec.cells.numel() * spec.cells.element_size(),
+                         seconds=seconds)
+    return out
+
+
+def _rank_main(rank: int, n: int, port: int, device: str, job, args, out_dir: str) -> None:
+    import torch.distributed as dist
+
+    from i3rc_tpu_torch.parallel.mesh import default_mesh
+
+    torch.set_num_threads(1)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timedelta(seconds=300))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=n,
+                            timeout=timedelta(seconds=300))
+    try:
+        res = job(default_mesh(device=device), *args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_world(n: int, job, args=(), device: str = "cpu"):
+    """Spawn a gloo world of ``n`` processes running ``job(mesh, *args)``;
+    ``join_world`` waits for it.  This process holds the world's store on
+    a port the system picks (no other world or client socket can take it
+    between a choice and a bind)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    out = tempfile.TemporaryDirectory()
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    ctx = mp.start_processes(_rank_main, args=(n, store.port, device, job, args, out.name),
+                             nprocs=n, join=False, start_method="spawn")
+    return n, ctx, out, store
+
+
+def join_world(world, timeout: float = 600.0) -> list:
+    """The results of a started world in rank order.  Raises if a rank
+    fails or the world outlives ``timeout`` seconds (its processes are then
+    killed)."""
+    n, ctx, out, _store = world
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"a world of {n} ranks outlived {timeout} s")
+        results = []
+        for r in range(n):
+            with open(os.path.join(out.name, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        out.cleanup()
+
+
+def run_world(n: int, job, args=(), device: str = "cpu", timeout: float = 600.0) -> list:
+    """``job(mesh, *args)`` on each rank of a gloo world of ``n`` spawned
+    processes; their results in rank order."""
+    return join_world(start_world(n, job, args, device), timeout)
+
+
+def slab(h, levels: int = 3, tau: float = 2.0):
+    """tests/test_checkpoint.py's slab: one column, HG 0.85, ssa 0.99."""
+    table = h.PhaseFunctionTable.from_phase_functions(
+        [h.PhaseFunction.from_legendre(h.hg(0.85, 32))], key=[1.0])
+    dom = h.Domain.create([0, 500.0], [0, 500.0], np.linspace(0, 250.0, levels))
+    ext = np.full((1, 1, levels - 1), tau / 250.0)
+    return dom.add_component("cloud", ext, np.full_like(ext, 0.99),
+                             np.zeros(ext.shape, np.int32), table)
+
+
+def domain_means(res):
+    return {"fup": res.mean_flux_up, "fdn": res.mean_flux_down,
+            "fabs": res.mean_flux_absorbed}
+
+
+def batches_job(mesh, n_photons: int, n_batches: int, seed: int, offset: int = 0,
+                chunk: int | None = None) -> dict:
+    """A rank's job: ``run_batches`` of the slab (maximum cross-section,
+    albedo 0.1) on the mesh: the summed moments' leaves and the count."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource
+    from i3rc_tpu_torch.parallel.mesh import run_batches, tree_leaves
+
+    integ = Integrator.create(slab(host("i3rc_tpu_torch")), IntegratorConfig(
+        use_ray_tracing=False), surface_albedo=0.1, device=mesh.device)
+    s1, s2, n = run_batches(integ, PhotonSource.directional(0.5, 0.0), n_photons, n_batches,
+                            seed=seed, derive=domain_means, mesh=mesh, batch_offset=offset,
+                            chunk_batches=chunk, _return_sums=True)
+    return {"s1": [a.numpy() for a in tree_leaves(s1)],
+            "s2": [a.numpy() for a in tree_leaves(s2)], "n_batches": n, "rank": mesh.rank,
+            "size": mesh.size}
+
+
+def driver_job(mesh, namelist: str, workdir: str) -> dict:
+    """A rank's job: the namelist driver from ``workdir/rank<r>`` (its
+    outputs relative), with the default mesh (the initialized world)."""
+    from i3rc_tpu_torch.drivers.monte_carlo_driver import run_from_namelist
+
+    here = os.path.join(workdir, f"rank{mesh.rank}")
+    os.makedirs(here, exist_ok=True)
+    os.chdir(here)
+    drv = run_from_namelist(namelist, quiet=True, device=str(mesh.device))
+    out = {"n_devices": drv["cfg"]["n_devices"], "files": sorted(os.listdir(here)),
+           "mean_stats": drv["mean_stats"], "num_batches": drv["cfg"]["num_batches"]}
+    if "out.nc" in out["files"]:
+        from scipy.io import netcdf_file
+
+        with netcdf_file("out.nc", "r") as nc:
+            out["processors"] = int(nc.Number_of_processors_used)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SD and SR against their twins
+
+def capture_states(tr, tail_alive: float = 0.15) -> dict:
+    """Wrap a ShardedTrace's two kernels so that its run keeps the inputs
+    of SD (and, with detectors, of SR) at a mid-flight block (the third)
+    and the first tail block (at most ``tail_alive`` of the lanes alive, or
+    of the pool in flight): {"sd": [(kb, ShardState)], "sr": [(kb,
+    RayPool)]}, filled as the trace runs."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    lanes = tr.state.i.shape[1]
+    keep = {"sd": [], "sr": []}
+    sd_fn, sr_fn = tr.event_block, tr.shadow_advance
+
+    def want(kind, live):
+        got = keep[kind]
+        return (not got and tr.kb >= 2) or (len(got) == 1 and live <= tail_alive * lanes)
+
+    def sd(spec_, st, key, kb):
+        if want("sd", int((st.i[sb.ALIVE] != 0).sum())):
+            keep["sd"].append((kb, st.clone()))
+        sd_fn(spec_, st, key, kb)
+
+    def sr(spec_, pool, acc_int, acc_byc):
+        live = int(((pool.i[sb.QALIVE] != 0) & (pool.i[sb.QTAG] == 0)).sum())
+        if live and want("sr", live):
+            keep["sr"].append((tr.kb, pool.clone()))
+        sr_fn(spec_, pool, acc_int, acc_byc)
+
+    tr.event_block, tr.shadow_advance = sd, sr
+    return keep
+
+
+def trace_states(sc: dict, n_photons: int, lanes: int, device, seed: int = 7,
+                 tail_alive: float = 0.15, unroll: int = 8, mesh=None) -> dict:
+    """Trace a scene on ``mesh`` (by default a world of one on ``device``)
+    and keep SD's and SR's inputs as ``capture_states`` does: {"spec",
+    "key", "sd": [(kb, ShardState)], "sr": [(kb, RayPool)], "raw":
+    RawTallies}.  Every rank of the mesh calls it."""
+    from i3rc_tpu_torch import PhotonSource
+    from i3rc_tpu_torch.parallel.mesh import default_mesh
+    from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace
+
+    mesh = mesh or default_mesh(device=device)
+    tr = ShardedTrace.create(sc["domain"], PhotonSource.directional(*sc["src"]), n_photons, mesh,
+                             n_lanes_per_shard=lanes, unroll=unroll, seed=seed, **sc["kw"])
+    keep = capture_states(tr, tail_alive)
+    while tr.running():
+        tr.block()
+    return dict(spec=tr.spec, key=tr.key, sd=keep["sd"], sr=keep["sr"], raw=tr.finish())
+
+
+def sd_vs_twin(spec, st0, key, kb: int) -> dict:
+    """One SD launch against ``sharded_block_reference`` from the same
+    state: whether every row agrees bit for bit, the largest difference,
+    and the launch's lane-events, collisions and lanes it tagged to
+    migrate across a slab face (the twin's)."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    got, ref = st0.clone(), st0.clone()
+    sb.sharded_event_block(spec, got, key, kb)
+    sb.sharded_block_reference(spec, ref, key, kb)
+    same = torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i)
+    rows = ([r for r in range(got.f.shape[0]) if not torch.equal(got.f[r], ref.f[r])]
+            + [100 + r for r in range(9) if not torch.equal(got.i[r], ref.i[r])])
+    return {"bit_equal": same, "rows_differing": rows,
+            "max_abs_err": float((got.f - ref.f).abs().max()),
+            "live": int((st0.i[sb.ALIVE] != 0).sum()),
+            "lane_events": int((ref.i[sb.EVCT] - st0.i[sb.EVCT]).sum()),
+            "collisions": int((ref.i[sb.ORDERS] - st0.i[sb.ORDERS]).clamp(min=0).sum()),
+            "tagged": int(((ref.i[sb.TAG] != 0) & (st0.i[sb.TAG] == 0)).sum()),
+            "kb": kb}
+
+
+def sr_vs_twin(spec, pool0) -> dict:
+    """One SR launch against ``shadow_advance_reference`` from the same
+    pool and zeroed tallies: the pool bit for bit, the tallies' largest
+    absolute difference (the kernel adds in another order), and the
+    launch's ray steps, escapes and rays it tagged to migrate (the
+    twin's)."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    n = spec.nx_loc * spec.n_y * spec.n_dirs
+    dev = pool0.f.device
+    acc = lambda k: torch.zeros(k, dtype=torch.float64, device=dev)
+    got, ref = pool0.clone(), pool0.clone()
+    g_int, g_byc = acc(n), acc(n * (spec.n_comp + 1))
+    r_int, r_byc = acc(n), acc(n * (spec.n_comp + 1))
+    sb.shadow_advance(spec, got, g_int, g_byc)
+    sb.shadow_advance_reference(spec, ref, r_int, r_byc)
+    same = torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i)
+    err = max(float((g_int - r_int).abs().max()), float((g_byc - r_byc).abs().max()))
+    return {"bit_equal": same, "tally_abs_err": err, "tally_sum": float(r_int.sum()),
+            "rays": int(((pool0.i[sb.QALIVE] != 0) & (pool0.i[sb.QTAG] == 0)).sum()),
+            "steps": int((ref.i[sb.QSTEPS] - pool0.i[sb.QSTEPS]).sum()),
+            "escapes": int(((pool0.i[sb.QALIVE] != 0) & (ref.i[sb.QALIVE] == 0)).sum()),
+            "tagged": int(((ref.i[sb.QTAG] != 0) & (pool0.i[sb.QTAG] == 0)).sum())}
+
+
+def states_vs_twins(spec, key, keep: dict) -> list:
+    """``sd_vs_twin`` on each kept SD state and ``sr_vs_twin`` on each
+    kept SR pool of a rank: one record each, with its kernel and state
+    ("mid", "tail")."""
+    out = [dict(sd_vs_twin(spec, st, key, kb), kernel="SD", state=tag)
+           for tag, (kb, st) in zip(("mid", "tail"), keep["sd"])]
+    return out + [dict(sr_vs_twin(spec, pool), kernel="SR", state=tag, kb=kb)
+                  for tag, (kb, pool) in zip(("mid", "tail"), keep["sr"])]
+
+
+def twin_check_job(mesh, name: str, n_photons: int, lanes: int, seed: int = 7) -> dict:
+    """A rank's job: trace a scene on the mesh keeping SD's and SR's
+    inputs, then hold each kernel against its twin on this rank's states
+    (its half slab, one face of it inside the domain)."""
+    st = trace_states(scene(name, host("i3rc_tpu_torch"), mesh.size), n_photons, lanes,
+                      mesh.device, seed=seed, mesh=mesh)
+    return {"rank": mesh.rank, "nx_loc": st["spec"].nx_loc,
+            "checks": states_vs_twins(st["spec"], st["key"], st)}
+
