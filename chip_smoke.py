@@ -57,7 +57,8 @@ against the general kernel's exact trace, and the same scene over RPV),
 and the plane-parallel verification driver (the shipped namelist, copies
 against the discrete-ordinates slab on the general kernel and the
 fastpath, and in radiance mode), and multi-device runs (the x-sharded
-tracer's kernels SD and SR against their plain versions; run_batches on a
+tracer's block, its kernels SD, SR and SP, against its plain version;
+run_batches on a
 world of one NCCL rank and on two gloo ranks that share the card; a resume
 finished in a second process; the x-sharded tracer over two ranks on the
 whole Landsat scene and on __graft_entry__.py's detector scene) — and
@@ -1570,8 +1571,8 @@ def main() -> int:
     sptx = ptxas_sharded(sbuilt.log)
     say("2 build-sharded", seconds=f"{sbuilt.seconds:.1f}", library=sbuilt.path.name,
         **{k: PTXAS_FMT.format(**v) for k, v in sorted(sptx.items())})
-    # SD and SR: both built, neither spilling.
-    check(sorted(sptx) == ["SD", "SR"], f"sharded kernels {sorted(sptx)}")
+    # SD (the whole block), SR and SP: all built, none spilling.
+    check(sorted(sptx) == ["SD", "SP", "SR"], f"sharded kernels {sorted(sptx)}")
     for name, v in sptx.items():
         check(v.get("spill_store_bytes", 1) == 0 and v.get("ctas_per_sm", 0) >= 1,
               f"sharded {name}: {v}")
@@ -1654,8 +1655,10 @@ def main() -> int:
                      "table_detectors_iwabuchi", "march_detectors_iwabuchi"):
             # No compare-and-swap loop: the detector tally has no fp64 shared-
             # memory atomic.  What shared atomics there are, are the
-            # prologue's int32 counts, which the flux variant has too.
-            check(all(census[name][op] == census["flux_chain2"][op] for op in ("CAS", "ATOMS")),
+            # prologue's int32 counts, which the flux variant has too, and
+            # in K3-M the ray queue's int32 slot counts (march_push).
+            ops = ("CAS",) if name.startswith("march") else ("CAS", "ATOMS")
+            check(all(census[name][op] == census["flux_chain2"][op] for op in ops),
                   f"{name}: SASS {census[name]}")
 
     # 3. Philox: known answer, and the kernel's draws equal the torch stream
@@ -1973,17 +1976,19 @@ def main() -> int:
     m_rec = march_paths(card)
     plane_parallel_runs(out, card)
 
-    # 59-63. multi-device runs (ROADMAP item 19): SD and SR against their
-    # plain versions on a mid-flight and a tail state of the surface, volume
-    # and detector scenes on a world of one, and of the flux (Landsat) and
-    # graft scenes on each rank of the main path's two (59); the two ranks
+    # 59-63. multi-device runs (ROADMAP item 19): the whole block (SD's
+    # launch, then SR and SP) and SR alone against their plain versions on a
+    # mid-flight and a tail state of the surface, volume and detector scenes
+    # on a world of one, and of the flux (Landsat) and graft scenes on each
+    # rank of the main path's two (59), rank 0's launches timed; the two ranks
     # run alone on the card before this process's runs; run_batches on a world of one NCCL
     # rank (bit for bit against no mesh) and on two gloo ranks sharing the
     # card (1e-12) (60); a resume finished in a second process, exactly
     # (61); the x-sharded tracer over two ranks at full width: the whole
     # Landsat scene against the unsharded fastpath (62) and the graft scene
     # (two components, an albedo, 2 detectors, heating rates) against G+E
-    # (63), SD and SR counted on that path
+    # (63), SD, SR and SP counted on that path, with the host ms a block and
+    # the device's idle share
     sd_checks = sharded_kernel_vs_twin(dev, card)
     sd_rec = mesh_paths(out, card)
 
@@ -2069,7 +2074,7 @@ def main() -> int:
              "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode; fused-k, XLA in "
              "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)] + [
         march_entry(kind, m_checks, m_rec) for kind in ("march", "march_surface")] + [
-        sharded_entry(kind, sd_checks, sd_rec) for kind in ("SD", "SR")]},
+        sharded_entry(kind, sd_checks, sd_rec) for kind in ("SD", "SR", "SP")]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5075,8 +5080,9 @@ def march_kernel_vs_twin(dev, card: str) -> dict:
     surface stage), the plain version's (CUDA events) and the bound, with
     the twin's census of the block's marching rays and steps."""
     from i3rc_tpu_torch import PhotonSource, batch_key
-    from i3rc_tpu_torch.kernels.event_block import (fused_block, fused_block_reference,
-                                                     march_census)
+    from i3rc_tpu_torch.kernels.event_block import (MARCH_USE, fused_block,
+                                                     fused_block_reference, march_census,
+                                                     march_ray_use)
 
     ms = _load_tests_module("march_scenes")
     src = PhotonSource.directional(0.5, 0.0)
@@ -5118,13 +5124,17 @@ def march_kernel_vs_twin(dev, card: str) -> dict:
             if state != "launch":
                 run_k = lambda s, b: fused_block(spec, pro, s, b, key, sc.src, kb)
                 run_p = lambda s, b: fused_block_reference(spec, pro, s, b, key, sc.src, kb)
+                use = march_ray_use(dev)
+                use.zero_()
                 r["device_ms"] = device_block_ms(run_k, st, buf.clone, 20)
+                r["ray_use"] = dict(zip(MARCH_USE, use.tolist()))
                 r["twin_ms"] = time_block_ms(run_p, st, buf.clone, 2)
                 r["bound"] = march_block_bound(spec, r, sc.lanes, cen)
                 r["census"] = dict(cen)
                 timed[(name, state)] = r
                 fields.update(lane_events=r["lane_events"], collisions=r["collisions"],
-                              hits=r["hits"], device_ms=f"{r['device_ms']:.4f}",
+                              hits=r["hits"], **ray_loop_fields(r["ray_use"], cen),
+                              device_ms=f"{r['device_ms']:.4f}",
                               plain_ms=f"{r['twin_ms']:.4f}", bound_ms=f"{r['bound'][0]:.4f}",
                               bound_by=r["bound"][1])
             say("55 march-block-vs-plain", **fields, card=json.dumps(card))
@@ -5133,6 +5143,17 @@ def march_kernel_vs_twin(dev, card: str) -> dict:
         bit_equal=True, max_abs_err=",".join(f"{k}:{v:.3e}" for k, v in err.items()),
         card=json.dumps(card))
     return {"timed": timed, "err": err}
+
+
+def ray_loop_fields(use: dict, cen: dict) -> dict:
+    """K3-M's ray loop as the kernel counted it (``event_block.march_ray_use``:
+    the queue's rays, their segment steps, the warp trips' thread slots) and
+    the lane use a loop of one lane a thread would have had on the same
+    rays (the twin's census: every step of a warp's longest ray, detector
+    after detector, at each event)."""
+    return dict(queue_rays=use["rays"], queue_flushes=use["flushes"],
+                ray_loop_lane_use=f"{use['steps'] / max(use['slots'], 1):.3f}",
+                per_lane_loop_lane_use=f"{cen['steps'] / max(32 * cen['warp_steps'], 1):.3f}")
 
 
 def march_batch_census(run_batch) -> dict:
@@ -5274,13 +5295,17 @@ def march_paths(card: str) -> dict:
         run()
         pb = profile_batch(run)
         cen = march_batch_census(run)
+        use = eb.march_ray_use("cuda")
+        use.zero_()
         bk = batch_kernel_time(run, march=cen)
-        bk.update(idle=pb["idle_share"], census=cen)
+        bk.update(idle=pb["idle_share"], census=cen,
+                  ray_use=dict(zip(eb.MARCH_USE, use.tolist())))
         rec["batch"][counter] = bk
         say(f"57 march-{name}-profile", photons=sc.n,
             **profile_fields(pb, sc.integ._fast_plan.unroll, card))
         say(f"57 march-{name}-batch-kernel", photons=sc.n, rays=cen["rays"],
             ray_steps=cen["steps"], warp_steps=cen["warp_steps"], unfinished=cen["unfinished"],
+            **ray_loop_fields(bk["ray_use"], cen),
             plain_batch_seconds=f"{cen['plain_seconds']:.3f}", **batch_fields(bk, card))
     return rec
 
@@ -5396,15 +5421,17 @@ def march_entry(kind: str, checks: dict, rec: dict) -> dict:
             "tail_bound_ms": tail["bound"][0], "batch_ms": bk["kernel_ms"],
             "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
             "batch_march_steps": bk["census"]["steps"], "batch_rays": bk["census"]["rays"],
-            "batch_idle_share": bk["idle"]}
+            "batch_idle_share": bk["idle"],
+            "batch_ray_loop_lane_use": bk["ray_use"]["steps"] / max(bk["ray_use"]["slots"], 1)}
 
 
 
 # ---------------------------------------------------------------------------
 # Multi-device runs (ROADMAP item 19): run_batches over torch.distributed
-# ranks, exact resume, and the x-sharded domain tracer with its two kernels,
-# SD (csrc/sharded_event_block.cu sharded_event_block_kernel: K events a
-# lane) and SR (shadow_advance_kernel: K cell-DDA steps a shadow ray).  The
+# ranks, exact resume, and the x-sharded domain tracer with its kernels, SD
+# (csrc/sharded_event_block.cu sharded_event_block_kernel: the whole block,
+# K events a lane and the glue around them), SR (shadow_advance_kernel: K
+# cell-DDA steps a shadow ray) and SP (shadow_pack_kernel: the rays' pack).  The
 # card is one H100: two gloo ranks share cuda:0 (gloo's buffers staged
 # through pinned host memory), and a world of one NCCL rank checks NCCL.
 
@@ -5442,13 +5469,13 @@ def _sharded_scenes():
 
 
 def ptxas_sharded(log: str) -> dict:
-    """SD's and SR's registers, own stack and spill bytes, CTAs per SM."""
+    """SD's, SR's and SP's registers, own stack and spill bytes, CTAs per SM."""
     out, name, own = {}, None, False
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*(sharded_event_block|shadow_advance)_kernel",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'\w*(sharded_event_block|shadow_advance|shadow_pack)_kernel", line)
         if m:
-            name = "SD" if m[1] == "sharded_event_block" else "SR"
+            name = {"sharded_event_block": "SD", "shadow_advance": "SR", "shadow_pack": "SP"}[m[1]]
             out[name], own = {}, False
         elif "Compiling entry function" in line:
             name = None
@@ -5463,12 +5490,13 @@ def ptxas_sharded(log: str) -> dict:
 
 
 def sd_bound(lane_events: int, launches: int, lanes: int, n_dirs: int, table_bytes: int):
-    """(least ms, what bounds it) of SD's work: the lane-events' operations;
-    every lane's two flags read each launch, each live lane's state read and
-    written once a launch (a live lane runs at most K events a launch, so
-    lane_events / K lane-launches at least), the tables once."""
+    """(least ms, what bounds it) of SD's work, the whole block: the
+    lane-events' operations; every lane's four flags (alive, tag, pending,
+    exit) read each launch, each live lane's state read and written once a
+    launch (a live lane runs at most K events a launch, so lane_events / K
+    lane-launches at least), the tables once."""
     K = 8
-    n_bytes = launches * lanes * 8 + (lane_events // K) * (SD_STATE_ROWS + n_dirs) * 8 \
+    n_bytes = launches * lanes * 16 + (lane_events // K) * (SD_STATE_ROWS + n_dirs) * 8 \
         + table_bytes
     alu, sfu = (lane_events * o for o in OPS_PER_SD_EVENT)
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -5490,19 +5518,20 @@ def sr_bound(steps: int, launches: int, rays: int, escapes: int):
 
 
 def sharded_kernel_vs_twin(dev, card: str) -> dict:
-    """59. SD and SR against their twins, bit for bit (SR's float64 tallies
-    within 1e-9 of their sum), at a mid-flight and a tail state of a trace
-    of the surface, volume and three-detector scenes on a world of one on
-    the card (its slab the whole domain)."""
+    """59. The whole block (SD's launch, then SR and SP) against its plain
+    version, and SR alone against its twin, bit for bit (the radiance
+    tallies within 1e-9 of their sum), at a mid-flight and a tail state of
+    a trace of the surface, volume and three-detector scenes on a world of
+    one on the card (its slab the whole domain)."""
     ss = _sharded_scenes()
 
     h = ss.host("i3rc_tpu_torch")
     out = {"err": 0.0, "tally_err": 0.0}
     for case, (name, photons, lanes) in SHARD_CASES.items():
         st = ss.trace_states(ss.scene(name, h, 2), photons, lanes, dev)
-        check(len(st["sd"]) == 2 and (not st["spec"].n_dirs or len(st["sr"]) == 2),
-              f"59 {case}: states sd {[kb for kb, _ in st['sd']]} sr {len(st['sr'])}")
-        for r in ss.states_vs_twins(st["spec"], st["key"], st):
+        check(len(st["block"]) == 2 and (not st["spec"].n_dirs or len(st["sr"]) == 2),
+              f"59 {case}: states block {[k[0] for k in st['block']]} sr {len(st['sr'])}")
+        for r in ss.states_vs_twins(st):
             _twin_record(out, r, f"59 {case}")
             say(f"59 sharded-{r['kernel']}-vs-twin", scene=name, case=case, ranks=1,
                 lanes=lanes, **_twin_fields(r), card=json.dumps(card))
@@ -5512,8 +5541,9 @@ def sharded_kernel_vs_twin(dev, card: str) -> dict:
 def _twin_record(out: dict, r: dict, what: str) -> None:
     """Check one kernel-vs-twin record and keep its largest difference."""
     if r["kernel"] == "SD":
-        check(r["bit_equal"], f"{what} SD {r['state']}: {r}")
+        check(r["bit_equal"] and r["tally_ok"], f"{what} block {r['state']}: {r}")
         out["err"] = max(out["err"], r["max_abs_err"])
+        out["tally_err"] = max(out["tally_err"], r["tally_abs_err"])
     else:
         check(r["bit_equal"] and r["tally_abs_err"] <= 1e-9 * max(1.0, r["tally_sum"]),
               f"{what} SR {r['state']}: {r}")
@@ -5523,7 +5553,11 @@ def _twin_record(out: dict, r: dict, what: str) -> None:
 def _twin_fields(r: dict) -> dict:
     if r["kernel"] == "SD":
         return dict(state=r["state"], kb=r["kb"], live=r["live"], lane_events=r["lane_events"],
-                    collisions=r["collisions"], tagged=r["tagged"], bit_equal=r["bit_equal"])
+                    collisions=r["collisions"], tagged=r["tagged"], sent=r["sent"],
+                    received=r["received"], refilled=r["refilled"],
+                    rays_tagged=r["rays_tagged"], bit_equal=r["bit_equal"],
+                    parts_differing=",".join(r["parts_differing"]) or "none",
+                    tally_abs_err=f"{r['tally_abs_err']:.2e}")
     return dict(state=r["state"], kb=r["kb"], rays=r["rays"], steps=r["steps"],
                 escapes=r["escapes"], tagged=r["tagged"], bit_equal=r["bit_equal"],
                 tally_abs_err=f"{r['tally_abs_err']:.2e}")
@@ -5546,14 +5580,17 @@ def _step_cloud_batches(mesh=None, offset: int = 0, n_batches: int = MESH_BATCHE
 
 def _sharded_run(ss, name: str, mesh, profile: bool) -> dict:
     """One trace of a scene (its two-rank form) over the mesh.  Unprofiled:
-    through trace_sharded, its summary and wall seconds.  Profiled: the
-    same trace through its ShardedTrace, this rank's SD and SR device ms,
-    the counts of the bound (lane-events, ray steps and escapes, blocks),
-    and SD's and SR's inputs at a mid-flight and a tail block ("_states":
-    the spec, the key and capture_states' lists)."""
+    the trace (trace_sharded's steps: the set-up of its ShardedTrace, the
+    block loop, the finish), its summary, wall seconds, the block loop's
+    wall seconds and blocks.  Profiled:
+    the same trace through its ShardedTrace, this rank's SD, SR and SP
+    device ms and every device kernel's (the device's busy time), the
+    counts of the bound (lane-events, ray steps and escapes, blocks), and
+    the block's and SR's inputs at a mid-flight and a tail block
+    ("_states": trace_states' dict without the tallies)."""
     from i3rc_tpu_torch import PhotonSource
     from i3rc_tpu_torch.kernels import sharded_block as sb
-    from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace, shard_plan, trace_sharded
+    from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace
 
     sc = ss.scene(name, ss.host("i3rc_tpu_torch"), 2)
     kw = sc["kw"]
@@ -5561,13 +5598,20 @@ def _sharded_run(ss, name: str, mesh, profile: bool) -> dict:
     torch.cuda.synchronize()
     if not profile:
         t0 = time.perf_counter()
-        raw = trace_sharded(sc["domain"], src, SHARD_PHOTONS, mesh,
-                            n_lanes_per_shard=SHARD_LANES, seed=SEED, **kw)
+        tr = ShardedTrace.create(sc["domain"], src, SHARD_PHOTONS, mesh,
+                                 n_lanes_per_shard=SHARD_LANES, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        while tr.running():
+            tr.block()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        raw = tr.finish()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        spec = shard_plan(sc["domain"], mesh, intensity_mus=kw.get("intensity_mus"),
-                          intensity_phis=kw.get("intensity_phis"))
-        return dict(ss.summary(raw), seconds=seconds,
+        spec = tr.spec
+        return dict(ss.summary(raw), seconds=seconds, loop_seconds=t2 - t1,
+                    blocks_unprofiled=tr.kb, host_ms_per_block=1e3 * (t2 - t1) / max(tr.kb, 1),
                     cell_bytes=spec.cells.numel() * spec.cells.element_size(),
                     rows=int(spec.cells.shape[0]), n_dirs=spec.n_dirs)
     tr = ShardedTrace.create(sc["domain"], src, SHARD_PHOTONS, mesh,
@@ -5593,48 +5637,90 @@ def _sharded_run(ss, name: str, mesh, profile: bool) -> dict:
     cnt = lambda k: sum(e.count for e in found if k in e.key)
     tables = sum(t.numel() * 4 for t in (spec.cells, spec.cubic, spec.fwd, spec.det))
     return {"sd_ms": ms("sharded_event_block_kernel"), "sr_ms": ms("shadow_advance_kernel"),
+            "sp_ms": ms("shadow_pack_kernel"),
+            "device_ms_total": sum(e.self_device_time_total for e in found) / 1e3,
             "sd_seen": cnt("sharded_event_block_kernel"),
             "sr_seen": cnt("shadow_advance_kernel"),
             "lane_events": int(tr.state.i[sb.EVCT].sum()), "blocks": tr.kb,
-            "steps": int(tr.pool.i[sb.QSTEPS].sum()),
+            "steps": int(tr.pool.i[sb.QSTEPS].sum()) if spec.n_dirs else 0,
             "escapes": int(sum(escapes)) if escapes else 0, "table_bytes": tables,
-            "_states": (spec, tr.key, keep)}
+            "_states": dict(spec=spec, key=tr.key, source=tr.source, albedo=tr.albedo,
+                            block=keep["block"], sr=keep["sr"])}
+
+
+class _BlockInput:
+    """A kept block input's state, pool and buffers, as device_block_ms and
+    time_block_ms take a state: ``clone`` gives fresh copies."""
+
+    def __init__(self, st, pool, bufs):
+        self.st, self.pool, self.bufs = st, pool, bufs
+
+    def clone(self) -> "_BlockInput":
+        return _BlockInput(self.st.clone(), self.pool.clone(), self.bufs.clone())
+
+
+def sp_bound(slots: int, rows: int, free: int) -> tuple:
+    """(least ms, what bounds it) of SP's work: every slot's two flags read,
+    each packed row (six floats and its slot) and each free slot's index
+    written."""
+    return 1e3 * (slots * 8 + rows * 28 + free * 4) / HBM_BYTES_PER_S, "bytes"
 
 
 def _time_mid_launches(mesh, states: dict, checks: list) -> dict:
-    """Rank 0 times SD's mid-flight launch of the Landsat trace and SR's
-    of the graft trace (profiler; 2^20 lanes, its half slab) and their
-    twins (CUDA events) while the other ranks wait at a barrier, so that
-    the card runs these launches alone; the bounds from the launches'
-    counts.  The other ranks return {}."""
+    """Rank 0 times the block's launches on the main path (profiler; 2^20
+    lanes, its half slab) while the other ranks wait at a barrier, so that
+    the card runs these launches alone: SD's whole block at the Landsat
+    trace's mid-flight and tail blocks, SR's launch at the graft trace's,
+    and SP's on the graft trace's mid-flight block after SD and SR; beside
+    each its plain version's time (CUDA events) and its bound from the
+    launch's counts.  The other ranks return {}."""
     import torch.distributed as dist
 
     from i3rc_tpu_torch.kernels import sharded_block as sb
 
     timed = {}
     if mesh.rank == 0:
-        mid = {(c["scene"], c["kernel"]): c for c in checks if c["state"] == "mid"}
-        spec, key, keep = states["landsat"]
-        kb, st = keep["sd"][0]
-        ms = device_block_ms(lambda s, _: sb.sharded_event_block(spec, s, key, kb), st,
-                             lambda: None, 5, kernel="sharded_event_block")
-        plain = time_block_ms(lambda s, _: sb.sharded_block_reference(spec, s, key, kb), st,
-                              lambda: None, 3)
+        got = {(c["scene"], c["kernel"], c["state"]): c for c in checks}
+        st = states["landsat"]
+        spec, key, source, albedo = st["spec"], st["key"], st["source"], st["albedo"]
         tables = sum(t.numel() * 4 for t in (spec.cells, spec.cubic, spec.fwd, spec.det))
-        bound = sd_bound(mid[("landsat", "SD")]["lane_events"], 1, SHARD_LANES, spec.n_dirs,
-                         tables)
-        timed["SD"] = dict(ms=ms, plain_ms=plain, bound=bound, kb=kb)
-        spec, key, keep = states["graft"]
-        kb, pool = keep["sr"][0]
+        for tag, (kb, plan, s0, pool0, bufs0) in zip(("mid", "tail"), st["block"]):
+            run = lambda s, _, kb=kb, plan=plan: sb.sharded_event_block(
+                spec, s.st, s.pool, s.bufs, plan, key, kb, source, albedo)
+            plain = lambda s, _, kb=kb, plan=plan: sb.sharded_block_reference(
+                spec, s.st, s.pool, s.bufs, plan, key, kb, source, albedo)
+            x0 = _BlockInput(s0, pool0, bufs0)
+            r = got[("landsat", "SD", tag)]
+            timed[f"SD_{tag}"] = dict(
+                ms=device_block_ms(run, x0, lambda: None, 5, kernel="sharded_event_block"),
+                plain_ms=time_block_ms(plain, x0, lambda: None, 2),
+                bound=sd_bound(r["lane_events"], 1, SHARD_LANES, spec.n_dirs, tables), kb=kb)
+        st = states["graft"]
+        spec, key, source, albedo = st["spec"], st["key"], st["source"], st["albedo"]
         n = spec.nx_loc * spec.n_y * spec.n_dirs
         acc = lambda: tuple(torch.zeros(k, dtype=torch.float64, device=mesh.device)
                             for k in (n, n * (spec.n_comp + 1)))
-        ms = device_block_ms(lambda p, a: sb.shadow_advance(spec, p, *a), pool, acc, 5,
-                             kernel="shadow_advance")
-        plain = time_block_ms(lambda p, a: sb.shadow_advance_reference(spec, p, *a), pool, acc, 3)
-        r = mid[("graft", "SR")]
-        timed["SR"] = dict(ms=ms, plain_ms=plain,
-                           bound=sr_bound(r["steps"], 1, pool.n_rays, r["escapes"]), kb=kb)
+        for tag, (kb, pool) in zip(("mid", "tail"), st["sr"]):
+            r = got[("graft", "SR", tag)]
+            timed[f"SR_{tag}"] = dict(
+                ms=device_block_ms(lambda p, a: sb.shadow_advance(spec, p, *a), pool, acc, 5,
+                                   kernel="shadow_advance"),
+                plain_ms=time_block_ms(lambda p, a: sb.shadow_advance_reference(spec, p, *a),
+                                       pool, acc, 3),
+                bound=sr_bound(r["steps"], 1, pool.n_rays, r["escapes"]), kb=kb)
+        kb, plan, s0, pool0, bufs0 = st["block"][0]
+        x0 = _BlockInput(s0, pool0, bufs0).clone()
+        sb.sharded_event_block(spec, x0.st, x0.pool, x0.bufs, plan, key, kb, source, albedo)
+        sb.shadow_advance(spec, x0.pool, *acc())
+        q = x0.pool.i
+        rows = sum(min(int((q[sb.QTAG] == d).sum()), x0.bufs.cap) for d in sb.DIRS)
+        free = int(((q[sb.QALIVE] == 0) & (q[sb.QTAG] == 0)).sum())
+        timed["SP"] = dict(
+            ms=device_block_ms(lambda s, _: sb.shadow_pack(spec, s.st, s.pool, s.bufs), x0,
+                               lambda: None, 5, kernel="shadow_pack"),
+            plain_ms=time_block_ms(lambda s, _: sb.shadow_pack_reference(spec, s.pool, s.bufs),
+                                   x0, lambda: None, 3),
+            bound=sp_bound(x0.pool.n_rays, rows, free), kb=kb)
     dist.barrier(group=mesh.group)
     return timed
 
@@ -5642,11 +5728,11 @@ def _time_mid_launches(mesh, states: dict, checks: list) -> dict:
 def chip_world_job(mesh) -> dict:
     """A rank's job in phases 59 and 60-63 (two gloo ranks on cuda:0):
     run_batches on the mesh; the full-width Landsat scene and the graft
-    scene through trace_sharded with SD's and SR's launches counted (the
-    main path); each once more under the profiler, keeping SD's and SR's
-    inputs at a mid-flight and a tail block; those launches against their
-    twins on this rank's half slab (59, at the main path's shapes), and
-    rank 0's mid-flight launches timed alone."""
+    scene through trace_sharded with SD's, SR's and SP's launches counted
+    (the main path); each once more under the profiler, keeping the block's
+    and SR's inputs at a mid-flight and a tail block; those blocks against
+    their plain version on this rank's half slab (59, at the main path's
+    shapes), and rank 0's launches timed alone."""
     ss = _sharded_scenes()
     from i3rc_tpu_torch.kernels import sharded_block as sb
     from i3rc_tpu_torch.parallel.mesh import tree_leaves
@@ -5658,13 +5744,14 @@ def chip_world_job(mesh) -> dict:
     sb.reset_launch_counters()
     for name in ("landsat", "graft"):
         out[name] = _sharded_run(ss, name, mesh, profile=False)
-    out["launches"] = {"SD": sb.sharded_event_block.launches, "SR": sb.shadow_advance.launches}
+    out["launches"] = {"SD": sb.sharded_event_block.launches, "SR": sb.shadow_advance.launches,
+                       "SP": sb.shadow_pack.launches}
     states, out["checks"] = {}, []
     for name in ("landsat", "graft"):
         out[name].update(_sharded_run(ss, name, mesh, profile=True))
-        spec, key, keep = states[name] = out[name].pop("_states")
-        out[name]["nx_loc"] = spec.nx_loc
-        out["checks"] += [dict(r, scene=name) for r in ss.states_vs_twins(spec, key, keep)]
+        st = states[name] = out[name].pop("_states")
+        out[name]["nx_loc"] = st["spec"].nx_loc
+        out["checks"] += [dict(r, scene=name) for r in ss.states_vs_twins(st)]
     out["timed"] = _time_mid_launches(mesh, states, out["checks"])
     return out
 
@@ -5686,8 +5773,9 @@ def mesh_paths(out: Path, card: str) -> dict:
     torch.cuda.synchronize()
     ranks = ss.join_world(ss.start_world(2, chip_world_job, (), device="cuda:0"), timeout=900)
 
-    # 59 (cont.). SD and SR against their twins on each rank's half slab of
-    # the main path's traces (2^20 lanes a rank, interior x faces)
+    # 59 (cont.). The whole block and SR against their plain versions on each
+    # rank's half slab of the main path's traces (2^20 lanes a rank,
+    # interior x faces)
     twin = {"err": 0.0, "tally_err": 0.0}
     for r in ranks:
         check(r["landsat"]["nx_loc"] == 64 and r["graft"]["nx_loc"] == 2,
@@ -5701,15 +5789,20 @@ def mesh_paths(out: Path, card: str) -> dict:
             check(c["state"] != "mid" or c["tagged"] > 0,
                   f"59 rank {r['rank']} {c['scene']} {c['kernel']} mid: no migrant tagged")
             fields = {}
-            t = ranks[0]["timed"].get(c["kernel"])
-            if r["rank"] == 0 and c["state"] == "mid" and t and t["kb"] == c["kb"] and (
+            t = ranks[0]["timed"].get(f"{c['kernel']}_{c['state']}")
+            if r["rank"] == 0 and t and t["kb"] == c["kb"] and (
                     c["scene"] == ("landsat" if c["kernel"] == "SD" else "graft")):
                 fields = dict(device_ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.3f}",
                               bound_ms=f"{t['bound'][0]:.4f}", bound_by=t["bound"][1])
             say(f"59 sharded-{c['kernel']}-vs-twin", scene=c["scene"], ranks=2, rank=r["rank"],
                 nx_loc=r[c["scene"]]["nx_loc"], lanes=SHARD_LANES, **_twin_fields(c), **fields,
                 card=json.dumps(card))
-    check(set(ranks[0]["timed"]) == {"SD", "SR"}, f"59 timed {sorted(ranks[0]['timed'])}")
+    check(set(ranks[0]["timed"]) == {"SD_mid", "SD_tail", "SR_mid", "SR_tail", "SP"},
+          f"59 timed {sorted(ranks[0]['timed'])}")
+    t = ranks[0]["timed"]["SP"]
+    say("59 sharded-SP", scene="graft", ranks=2, rank=0, kb=t["kb"], lanes=SHARD_LANES,
+        device_ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.3f}",
+        bound_ms=f"{t['bound'][0]:.4f}", bound_by=t["bound"][1], card=json.dumps(card))
 
     # 60. a world of one NCCL rank against no mesh: the same bits; the
     # one-rank traces of 62 and 63 (no exchange, no other process)
@@ -5815,7 +5908,7 @@ def mesh_paths(out: Path, card: str) -> dict:
         check(abs(got[k] - p) <= 5 * sigma, f"62 Landsat {k}: {got[k]} vs {p} (sigma {sigma})")
     rec = {"landsat": _shard_record(ranks, "landsat"), "graft": _shard_record(ranks, "graft"),
            "one": {k: _shard_record([one], k) for k in ("landsat", "graft")},
-           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("SD", "SR")},
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("SD", "SR", "SP")},
            "twin": twin, "timed": ranks[0]["timed"]}
     o = one["landsat"]
     n1 = o["n_photons"]
@@ -5862,15 +5955,18 @@ def mesh_paths(out: Path, card: str) -> dict:
         lanes_a_rank=SHARD_LANES, intensity=",".join(f"{v:.5f}" for v in i_one),
         n_bad=o["n_bad"], **_shard_fields(rec["one"]["graft"]), card=json.dumps(card))
     say("62-63 launches", **rec["launches"])
-    check(rec["launches"]["SD"] > 0 and rec["launches"]["SR"] > 0,
+    check(all(rec["launches"][k] > 0 for k in ("SD", "SR", "SP")),
           f"the sharded path launched {rec['launches']}")
     return rec
 
 
 def _shard_record(ranks: list, name: str) -> dict:
     """The ranks' trace of a scene (two ranks, or one): photons/s (the
-    slowest rank's wall time), SD's and SR's device ms (every rank's
-    kernels) and the bounds."""
+    slowest rank's wall time, the trace's set-up included), host ms a block
+    (the slowest rank's block loop over its blocks), SD's, SR's and SP's
+    device ms (every rank's kernels) and the bounds, and the device's idle
+    share over the block loop (one minus every rank's device time of the
+    profiled loop over the slowest rank's unprofiled loop)."""
     rs = [r[name] for r in ranks]
     n = rs[0]["n_photons"]
     sd_launches = sum(r["blocks"] for r in rs)
@@ -5878,9 +5974,14 @@ def _shard_record(ranks: list, name: str) -> dict:
                   sum(r["table_bytes"] for r in rs))
     sr = sr_bound(sum(r["steps"] for r in rs), sd_launches if rs[0]["n_dirs"] else 0,
                   SHARD_LANES, sum(r["escapes"] for r in rs))
-    return {"photons_per_s": n / max(r["seconds"] for r in rs),
-            "seconds": max(r["seconds"] for r in rs),
+    seconds = max(r["seconds"] for r in rs)
+    return {"photons_per_s": n / seconds, "seconds": seconds,
+            "loop_seconds": max(r["loop_seconds"] for r in rs),
+            "host_ms_per_block": max(r["host_ms_per_block"] for r in rs),
+            "idle_share": 1.0 - sum(r["device_ms_total"] for r in rs)
+            / (1e3 * max(r["loop_seconds"] for r in rs)),
             "sd_ms": sum(r["sd_ms"] for r in rs), "sr_ms": sum(r["sr_ms"] for r in rs),
+            "sp_ms": sum(r["sp_ms"] for r in rs),
             "sd_bound": sd, "sr_bound": sr, "blocks": rs[0]["blocks"],
             "lane_events": sum(r["lane_events"] for r in rs),
             "steps": sum(r["steps"] for r in rs)}
@@ -5888,38 +5989,55 @@ def _shard_record(ranks: list, name: str) -> dict:
 
 def _shard_fields(rec: dict) -> dict:
     return dict(photons_per_s=f"{rec['photons_per_s']:.4e}", seconds=f"{rec['seconds']:.3f}",
-                blocks=rec["blocks"], sd_device_ms=f"{rec['sd_ms']:.3f}",
+                loop_seconds=f"{rec['loop_seconds']:.3f}", blocks=rec["blocks"],
+                host_ms_per_block=f"{rec['host_ms_per_block']:.3f}",
+                device_idle_share=f"{rec['idle_share']:.4f}",
+                sd_device_ms=f"{rec['sd_ms']:.3f}",
                 sd_bound_ms=f"{rec['sd_bound'][0]:.3f}", sd_bound_by=rec["sd_bound"][1],
                 sr_device_ms=f"{rec['sr_ms']:.3f}", sr_bound_ms=f"{rec['sr_bound'][0]:.3f}",
-                sr_bound_by=rec["sr_bound"][1], lane_events=rec["lane_events"],
-                ray_steps=rec["steps"])
+                sr_bound_by=rec["sr_bound"][1], sp_device_ms=f"{rec['sp_ms']:.3f}",
+                lane_events=rec["lane_events"], ray_steps=rec["steps"])
 
 
 def sharded_entry(kind: str, checks: dict, rec: dict) -> dict:
-    """The kernels-line entry of SD or SR: launches on the sharded path
-    (both ranks, phases 62-63), the largest difference to the twin (59,
-    both the world of one and the two ranks), rank 0's mid-flight launch
-    on the main path (Landsat for SD, graft for SR; 2^20 lanes, half the
-    slab) timed alone, the twin's time and the bound; beside them the
-    per-batch device time of the path on two ranks sharing the card and on
-    one rank alone, each with its bound."""
-    sd = kind == "SD"
-    t = rec["timed"][kind]
-    name = "landsat" if sd else "graft"
-    k = "sd" if sd else "sr"
+    """The kernels-line entry of SD (the whole block), SR or SP: launches on
+    the sharded path (both ranks, phases 62-63), the largest difference to
+    the plain version (59, both the world of one and the two ranks: SD's
+    the block's state, SR's its tallies; SP's state is part of the
+    block's), rank 0's launches on the main path (SD on Landsat, SR and SP
+    on graft; 2^20 lanes, half the slab) timed alone at a mid-flight
+    (``ms``) and a tail block, the plain version's time and the bound;
+    beside them the per-trace device time of the path on two ranks sharing
+    the card and on one rank alone, each with its bound (SP: none), the
+    host ms a block and the device's idle share."""
+    t = rec["timed"][kind if kind == "SP" else f"{kind}_mid"]
+    tail = rec["timed"].get(f"{kind}_tail")
+    name = "landsat" if kind == "SD" else "graft"
+    k = kind.lower()
     two, one = rec[name], rec["one"][name]
-    err = "err" if sd else "tally_err"
-    return {"name": "sharded_event_block" if sd else "shadow_advance", "route": "cuda",
-            "source": "i3rc_tpu_torch/csrc/sharded_event_block.cu",
-            "replaces": "none: XLA, i3rc_tpu/parallel/sharded_domain.py:" + ("230" if sd else "464"),
-            "launches": rec["launches"][kind],
-            "max_abs_err": max(checks[err], rec["twin"][err]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": None,
-            "batch_ms": two[f"{k}_ms"], "batch_bound_ms": two[f"{k}_bound"][0],
-            "photons_per_s": two["photons_per_s"],
-            "one_rank_batch_ms": one[f"{k}_ms"], "one_rank_batch_bound_ms": one[f"{k}_bound"][0],
-            "one_rank_photons_per_s": one["photons_per_s"]}
+    err = {"SD": "err", "SR": "tally_err", "SP": "err"}[kind]
+    out = {"name": {"SD": "sharded_event_block", "SR": "shadow_advance",
+                    "SP": "shadow_pack"}[kind], "route": "cuda",
+           "source": "i3rc_tpu_torch/csrc/sharded_event_block.cu",
+           "replaces": "none: XLA, i3rc_tpu/parallel/sharded_domain.py:" + {
+               "SD": "230 (event) and the glue of the body at :373",
+               "SR": "464", "SP": "358 (pack_send of the shadow rays, :529-557)"}[kind],
+           "launches": rec["launches"][kind],
+           "max_abs_err": max(checks[err], rec["twin"][err]),
+           "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+           "bound_by": t["bound"][1], "library_ms": None,
+           "batch_ms": two[f"{k}_ms"], "photons_per_s": two["photons_per_s"],
+           "one_rank_batch_ms": one[f"{k}_ms"], "one_rank_photons_per_s": one["photons_per_s"],
+           "host_ms_per_block": two["host_ms_per_block"], "idle_share": two["idle_share"],
+           "one_rank_host_ms_per_block": one["host_ms_per_block"],
+           "one_rank_idle_share": one["idle_share"]}
+    if tail is not None:
+        out.update(tail_ms=tail["ms"], tail_plain_ms=tail["plain_ms"],
+                   tail_bound_ms=tail["bound"][0])
+    if kind != "SP":
+        out.update(batch_bound_ms=two[f"{k}_bound"][0],
+                   one_rank_batch_bound_ms=one[f"{k}_bound"][0])
+    return out
 
 
 if __name__ == "__main__":

@@ -374,6 +374,11 @@ struct EventParams {
   int n_seg, n_fwd;
   float fwd_scale;              // f32(n_fwd / pi)
   FusedK fk;                    // the fused-k variants (FK) only
+  // K3-M (MARCH) only: the CTAs' ray queues, MARCH_REC_F4 float4 a record and
+  // CTA_THREADS * K records a CTA; and, when not null, the ray loop's counts
+  // (MARCH_USE_*).
+  float4* rays;
+  unsigned long long* ray_use;
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -729,23 +734,69 @@ __device__ __forceinline__ float shadow_closed(const EventParams& p, int d, floa
   return tau;
 }
 
-// The marching shadow trace of detector d from (x, y, z) (shadow_march,
+// One segment step of the marching shadow trace of detector d (shadow_march,
 // fastpath.py:1061-1127, the trace of a plan whose x and y factors both vary
-// or whose detector grazes the horizon): up to march_steps segment steps,
-// each to the nearest face of the z chain and of the x and y chains the ray
-// moves along (strict faces), with the face nudges and the periodic wrap, the
-// optical depth of each step from the factors at its start.  The exit column
-// comes from the stepped position.  ok: the ray reached the boundary within
-// the budget (a lane that is not live is done at once, not ok).  The plain
-// version steps every lane march_steps times under a mask that freezes a
-// finished ray; here a lane leaves the loop when its ray is done, which
-// gives the same bits.  Rays finish at different steps, so a warp runs its
-// longest ray's steps.  A function of its own (noinline) that returns its
-// three results in registers: inlined into the detector loop, or returning
-// through pointers, its loop's live values spilled 24-56 bytes in 12 of
-// the 48 instantiations and in the surface stage (ptxas -v on the H100
-// machine's nvcc); so the K3-M instantiations take 80 registers (3 CTAs per
-// SM), those sized for 16 Iwabuchi draws 97-113 (2 CTAs).
+// or whose detector grazes the horizon): to the nearest face of the z chain
+// and of the x and y chains the ray moves along (strict faces), with the face
+// nudges and the periodic wrap, the optical depth of the step from the
+// factors at its start.  True when the step reaches the z boundary: the exit
+// column comes from the stepped position (*col), and the position is left
+// where it was.
+__device__ __forceinline__ bool march_step(const EventParams& p, int d, float& x, float& y,
+                                           float& z, float& tau, int& col) {
+  const DetParams& q = p.det;
+  const float dx = q.dx[d], dy = q.dy[d], dz = q.dz[d];
+  const bool up = dz >= 0.0f;
+  const bool use_x = (q.march_xy >> d) & 1u, use_y = (q.march_xy >> (16 + d)) & 1u;
+  float ext = chain_value(p.fx, p.fx.v, x) * chain_value(p.fz, p.fz.v, z);
+  if (q.march_ty) ext = ext * chain_value(p.fy, p.fy.v, y);
+  const float face_z = up ? face_up(p.fz, z, p.z_max) : face_dn(p.fz, z, p.z0);
+  const float s_z = (face_z - z) * q.inv_dz[d];
+  float s_b = s_z, s_x = 0.0f, s_y = 0.0f, face_x = 0.0f, face_y = 0.0f;
+  if (use_x) {
+    face_x = dx >= 0.0f ? face_up(p.fx, x, p.x_max) : face_dn(p.fx, x, p.x0);
+    s_x = (face_x - x) * q.inv_dxd[d];
+    s_b = fminf(s_b, s_x);
+  }
+  if (use_y) {
+    face_y = dy >= 0.0f ? face_up(p.fy, y, p.y_max) : face_dn(p.fy, y, p.y0);
+    s_y = (face_y - y) * q.inv_dyd[d];
+    s_b = fminf(s_b, s_y);
+  }
+  s_b = fmaxf(s_b, 0.0f);
+  tau = tau + s_b * ext;
+  const float nz = s_z <= s_b ? face_z + (up ? p.nudge_z : -p.nudge_z) : z + dz * s_b;
+  float nx = x, ny = y;
+  if (use_x) {
+    nx = s_x <= s_b ? face_x + (dx >= 0.0f ? p.nudge_x : -p.nudge_x) : x + dx * s_b;
+    nx = wrap_fast(nx, p.x0, p.x_max, p.wx);
+  }
+  if (use_y) {
+    ny = s_y <= s_b ? face_y + (dy >= 0.0f ? p.nudge_y : -p.nudge_y) : y + dy * s_b;
+    ny = wrap_fast(ny, p.y0, p.y_max, p.wy);
+  }
+  if (up ? nz >= p.z_max : nz <= p.z0) {
+    col = min(max((int)((nx - q.x0) * q.inv_dx), 0), q.n_x - 1);
+    if (q.col_y) col = col * q.n_y + min(max((int)((ny - q.y0) * q.inv_dy), 0), q.n_y - 1);
+    return true;
+  }
+  x = nx;
+  y = ny;
+  z = nz;
+  return false;
+}
+
+// The marching shadow trace of detector d from (x, y, z): up to march_steps
+// steps (march_step).  ok: the ray reached the boundary within the budget
+// (a lane that is not live is done at once, not ok).  The plain version
+// steps every lane march_steps times under a mask that freezes a finished
+// ray; here a lane leaves the loop when its ray is done, which gives the
+// same bits.  The surface stage's trace (fast_event_block_surface_kernel_
+// march): its rays are few (an emitting bottom hit each), so each thread
+// traces its own; the event block queues its rays instead (march_flush).  A
+// function of its own (noinline) that returns its three results in
+// registers: inlined, or returning through pointers, its loop's live values
+// spilled 24-56 bytes (ptxas -v on the H100 machine's nvcc).
 struct MarchRay {
   float tau;
   int col;
@@ -753,52 +804,12 @@ struct MarchRay {
 };
 static __device__ __noinline__ MarchRay shadow_march(const EventParams& p, int d, bool live,
                                                        float x, float y, float z) {
-  const DetParams& q = p.det;
-  const float dx = q.dx[d], dy = q.dy[d], dz = q.dz[d];
-  const bool up = dz >= 0.0f;
-  const bool use_x = (q.march_xy >> d) & 1u, use_y = (q.march_xy >> (16 + d)) & 1u;
   float tau = 0.0f;
   int col = 0;
   bool done = !live;
 #pragma unroll 1
-  for (int k = 0; k < q.march_steps && !done; ++k) {
-    float ext = chain_value(p.fx, p.fx.v, x) * chain_value(p.fz, p.fz.v, z);
-    if (q.march_ty) ext = ext * chain_value(p.fy, p.fy.v, y);
-    const float face_z = up ? face_up(p.fz, z, p.z_max) : face_dn(p.fz, z, p.z0);
-    const float s_z = (face_z - z) * q.inv_dz[d];
-    float s_b = s_z, s_x = 0.0f, s_y = 0.0f, face_x = 0.0f, face_y = 0.0f;
-    if (use_x) {
-      face_x = dx >= 0.0f ? face_up(p.fx, x, p.x_max) : face_dn(p.fx, x, p.x0);
-      s_x = (face_x - x) * q.inv_dxd[d];
-      s_b = fminf(s_b, s_x);
-    }
-    if (use_y) {
-      face_y = dy >= 0.0f ? face_up(p.fy, y, p.y_max) : face_dn(p.fy, y, p.y0);
-      s_y = (face_y - y) * q.inv_dyd[d];
-      s_b = fminf(s_b, s_y);
-    }
-    s_b = fmaxf(s_b, 0.0f);
-    tau = tau + s_b * ext;
-    const float nz = s_z <= s_b ? face_z + (up ? p.nudge_z : -p.nudge_z) : z + dz * s_b;
-    float nx = x, ny = y;
-    if (use_x) {
-      nx = s_x <= s_b ? face_x + (dx >= 0.0f ? p.nudge_x : -p.nudge_x) : x + dx * s_b;
-      nx = wrap_fast(nx, p.x0, p.x_max, p.wx);
-    }
-    if (use_y) {
-      ny = s_y <= s_b ? face_y + (dy >= 0.0f ? p.nudge_y : -p.nudge_y) : y + dy * s_b;
-      ny = wrap_fast(ny, p.y0, p.y_max, p.wy);
-    }
-    if (up ? nz >= p.z_max : nz <= p.z0) {
-      col = min(max((int)((nx - q.x0) * q.inv_dx), 0), q.n_x - 1);
-      if (q.col_y) col = col * q.n_y + min(max((int)((ny - q.y0) * q.inv_dy), 0), q.n_y - 1);
-      done = true;
-    } else {
-      x = nx;
-      y = ny;
-      z = nz;
-    }
-  }
+  for (int k = 0; k < p.det.march_steps && !done; ++k)
+    done = march_step(p, d, x, y, z, tau, col);
   return MarchRay{tau, col, (int)(done && live)};
 }
 
@@ -814,13 +825,13 @@ __device__ __forceinline__ float iwabuchi(const DetParams& q, float npf, float t
   return (u_iw < expf(tau_max - tau)) ? q.zeta_pi : 0.0f;
 }
 
-// The shadow ray of detector d from (x, y, z): the marching trace in the
-// MARCH instantiations (a plan with march_steps > 0), else the closed form.
-// False when the marching ray did not reach the boundary: the contribution
-// is 0.  MARCH is a template flag, not a runtime branch on march_steps: the
-// branch's loop, inlined into every detector instantiation, raised K3 from
-// 64 to 80 registers (3 CTAs per SM for 4) and its closed-trace batch by
-// 5.6% (H100, PERF.md section 6).
+// The shadow ray of detector d from (x, y, z) in the surface stage: the
+// marching trace in its MARCH instantiation (a plan with march_steps > 0),
+// else the closed form.  False when the marching ray did not reach the
+// boundary: the contribution is 0.  MARCH is a template flag, not a runtime
+// branch on march_steps: the branch's loop, inlined into every detector
+// instantiation, raised K3 from 64 to 80 registers (3 CTAs per SM for 4) and
+// its closed-trace batch by 5.6% (H100, PERF.md section 6).
 template <bool MARCH>
 __device__ __forceinline__ bool shadow_ray(const EventParams& p, int d, bool live, float x,
                                            float y, float z, int* col_out, float* tau_out) {
@@ -836,21 +847,20 @@ __device__ __forceinline__ bool shadow_ray(const EventParams& p, int d, bool liv
 }
 
 // Local estimate of detector d from a collision at s (direction before the
-// scattering): the contribution and its exit column (fastpath.py:1501-1571);
-// live: the lane collided (a marching ray is traced for those only).  FK
-// adds the lane's own gas to the shadow ray (gtop: Gz(z_max) of its k).
-template <bool IW, bool FK, bool MARCH>
+// scattering) by the closed-form trace: the contribution and its exit column
+// (fastpath.py:1501-1571).  FK adds the lane's own gas to the shadow ray
+// (gtop: Gz(z_max) of its k).
+template <bool IW, bool FK>
 __device__ __forceinline__ float detector_contribution(const EventParams& p, int d,
-                                                       const Lane& s, bool live, float u_iw,
-                                                       int* col_out, float gtop) {
+                                                       const Lane& s, float u_iw, int* col_out,
+                                                       float gtop) {
   const DetParams& q = p.det;
   const float proj =
       fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
   const float r =
       1.0f / sqrtf(fmaxf((1.0f + p.g * p.g) - (p.g + p.g) * proj, EPS12_F));
   const float norm_pf = (1.0f - p.g * p.g) * r * r * r * q.norm[d];
-  float tau;
-  if (!shadow_ray<MARCH>(p, d, live, s.x, s.y, s.z, col_out, &tau)) return 0.0f;
+  float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
   if (FK) tau = tau + fk_shadow_gas(q, d, gtop, s.gcur);
   if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
   return norm_pf * expf(-tau);
@@ -858,19 +868,186 @@ __device__ __forceinline__ float detector_contribution(const EventParams& p, int
 
 // The same with the phase value of the forward fit (TAB).  A function of its
 // own, so that the HG variants compile to the code they had.
-template <bool IW, bool FK, bool MARCH>
+template <bool IW, bool FK>
 __device__ __forceinline__ float detector_contribution_tab(const EventParams& p, int d,
-                                                           const Lane& s, bool live, float u_iw,
+                                                           const Lane& s, float u_iw,
                                                            int* col_out, float gtop) {
   const DetParams& q = p.det;
   const float proj =
       fminf(fmaxf(s.ux * q.dx[d] + s.uy * q.dy[d] + s.uz * q.dz[d], -1.0f), 1.0f);
   const float norm_pf = forward_phase(p, proj) * q.norm[d];
-  float tau;
-  if (!shadow_ray<MARCH>(p, d, live, s.x, s.y, s.z, col_out, &tau)) return 0.0f;
+  float tau = shadow_closed(p, d, s.x, s.y, s.z, col_out);
   if (FK) tau = tau + fk_shadow_gas(q, d, gtop, s.gcur);
   if (IW) return iwabuchi(q, norm_pf, tau, u_iw);
   return norm_pf * expf(-tau);
+}
+
+// K3-M's ray queue.  The closed-trace instantiations trace an event's D
+// rays in the event loop, one lane a thread.  A marching ray takes up to
+// march_steps segment steps, so there a warp ran its longest ray, detector
+// after detector, at each of the K events, and in the drain a few live lanes
+// walked their rays alone while the CTA's other threads idled (0.24 of a
+// warp's lanes busy in the ray loop, PERF.md section 6).  So, as G's
+// estimate stage does (general_event_block.cuh gen_flush), a lane that
+// collides pushes one record to its CTA's segment of the device scratch
+// p.rays (room for a record at every event of every lane: the queue never
+// fills), and after the lanes' K events the CTA's 256 threads pull the
+// queue's (record, detector) rays, a warp refilling as its rays finish.  A
+// record is two float4: the point; the direction before the scattering, the
+// lane and j * G, the counter base of the event's draws, from which a ray
+// redraws its Iwabuchi word (the word pick(u, BD + d) of the event).  A
+// ray's phase value, trace, Iwabuchi roulette and lane weight repeat
+// detector_contribution's float32 arithmetic, so each contribution is the
+// closed-loop design's bit for bit; only the order of the float64 sums
+// differs.
+#define MARCH_REC_F4 2
+// The ray loop's counts (p.ray_use): rays, their segment steps, the warp
+// trips' thread slots (32 a trip of a warp with a ray), and flushes.
+#define MARCH_USE_RAYS 0
+#define MARCH_USE_STEPS 1
+#define MARCH_USE_SLOTS 2
+#define MARCH_USE_FLUSHES 3
+// A warp refills when at most this many of its threads still hold a ray
+// (G's GEN_REFILL_AT).
+#define MARCH_REFILL_AT 8
+
+// The CTA's queue counts: records pushed, and the next ray dealt (one
+// shared array a CTA: a function's __shared__ variable is static).
+static __device__ __forceinline__ int* march_q() {
+  __shared__ int q[2];
+  return q;
+}
+
+__device__ __forceinline__ float4* march_record(const EventParams& p, int k) {
+  return p.rays + MARCH_REC_F4 * ((size_t)blockIdx.x * CTA_THREADS * p.K + k);
+}
+
+// The records of the warp's colliding lanes, one slot range a warp taken by
+// one shared atomic.  Called by every thread of a warp together.
+__device__ __forceinline__ void march_push(const EventParams& p, const Draws& dr, const Lane& s,
+                                           bool collided) {
+  const int wl = threadIdx.x & 31;
+  const unsigned m = __ballot_sync(FULL_MASK, collided);
+  const int lead = __ffs(m) - 1;
+  int base = 0;
+  if (wl == lead) base = atomicAdd(march_q(), __popc(m));
+  base = __shfl_sync(FULL_MASK, base, lead);
+  if (collided) {
+    float4* r = march_record(p, base + __popc(m & ((1u << wl) - 1u)));
+    r[0] = make_float4(s.x, s.y, s.z, s.ux);
+    r[1] = make_float4(s.uy, s.uz, __int_as_float(dr.lane), __int_as_float(dr.g0));
+  }
+}
+
+// A ray of the queue in flight: its point and optical depth, its phase value
+// over 4 pi |mu_d| and Iwabuchi draw, detector, lane and steps taken.
+struct MarchRayState {
+  float x, y, z, tau, npf, u_iw;
+  int d, lane, steps;
+};
+
+// Ray r of the CTA's n records, dealt detector by detector (record r % n
+// toward detector r / n), set up as detector_contribution(_tab) sets up its
+// ray.
+template <bool IW, bool TAB>
+__device__ __forceinline__ void march_ray_start(const EventParams& p, int r, int n, int bd,
+                                                MarchRayState& a) {
+  const DetParams& q = p.det;
+  const int d = r / n;
+  const float4* rec = march_record(p, r - d * n);
+  const float4 r0 = __ldcg(rec), r1 = __ldcg(rec + 1);
+  a.x = r0.x;
+  a.y = r0.y;
+  a.z = r0.z;
+  a.d = d;
+  a.lane = __float_as_int(r1.z);
+  a.tau = 0.0f;
+  a.steps = 0;
+  const float proj = fminf(fmaxf(r0.w * q.dx[d] + r1.x * q.dy[d] + r1.y * q.dz[d], -1.0f), 1.0f);
+  if constexpr (TAB) {
+    a.npf = forward_phase(p, proj) * q.norm[d];
+  } else {
+    const float rr = 1.0f / sqrtf(fmaxf((1.0f + p.g * p.g) - (p.g + p.g) * proj, EPS12_F));
+    a.npf = (1.0f - p.g * p.g) * rr * rr * rr * q.norm[d];
+  }
+  a.u_iw = 0.0f;
+  if (IW) {
+    uint32_t w[4];
+    philox_group(p, Draws{a.lane, __float_as_int(r1.w), 0u}, (bd + d) >> 2, w);
+    const int k = (bd + d) & 3;
+    a.u_iw = to_unit(k == 0 ? w[0] : k == 1 ? w[1] : k == 2 ? w[2] : w[3]);
+  }
+}
+
+// Traces the rays (record, detector) of the CTA's queue: every thread of the
+// CTA pulls rays, a warp's idle threads taking the next ones with one shared
+// atomic; each trip advances every thread's ray one segment step, until at
+// most MARCH_REFILL_AT threads of the warp hold a ray while rays are left,
+// or none does.  A finished ray's contribution is tallied when the warp next
+// meets at the refill (tally, converged), into the warp's hist.  Called by
+// every thread of the CTA after the lanes' events and a barrier.  Inlined:
+// after the lanes' loop its values no longer overlap the event loop's, and
+// the K3-M instantiations take 40-56 registers and spill nothing; as a
+// call (noinline) they took 64 and the table set spilled 14-152 bytes
+// (ptxas -v on the H100 machine's nvcc, copies built side by side).
+template <bool IW, bool TAB, bool SLICES>
+__device__ __forceinline__ void march_flush(const EventParams& p, double* hist, int bd) {
+  const int n = march_q()[0], D = p.det.n, nr = n * D;
+  const int wl = threadIdx.x & 31;
+  unsigned steps = 0, slots = 0;     // this warp's (lane 0's)
+  MarchRayState a;
+  int col = 0;
+  // fin: the ray ended at the last trip, 2 if it reached the boundary.
+  int fin = 0;
+  bool act = false, more = nr > 0;
+#pragma unroll 1
+  for (;;) {
+    float c = 0.0f;
+    if (fin == 2) {
+      c = IW ? iwabuchi(p.det, a.npf, a.tau, a.u_iw) : a.npf * expf(-a.tau);
+      if (p.srf.w) c = c * p.srf.w[a.lane];
+    }
+    tally<SLICES>(hist, col * D + a.d, c);
+    fin = 0;
+    const bool want = !act && more;
+    const unsigned wm = __ballot_sync(FULL_MASK, want);
+    if (wm) {
+      const int lead = __ffs(wm) - 1;
+      int r0 = 0;
+      if (wl == lead) r0 = atomicAdd(march_q() + 1, __popc(wm));
+      r0 = __shfl_sync(FULL_MASK, r0, lead);
+      if (want) {
+        const int r = r0 + __popc(wm & ((1u << wl) - 1u));
+        more = r < nr;
+        if (more) {
+          march_ray_start<IW, TAB>(p, r, n, bd, a);
+          act = true;
+        }
+      }
+    }
+    if (!__any_sync(FULL_MASK, act)) break;
+    const bool left = __any_sync(FULL_MASK, more);
+#pragma unroll 1
+    for (;;) {
+      steps += __popc(__ballot_sync(FULL_MASK, act));
+      slots += 32;
+      if (act) {
+        if (march_step(p, a.d, a.x, a.y, a.z, a.tau, col)) fin = 2;
+        else if (++a.steps >= p.det.march_steps) fin = 1;
+        act = fin == 0;
+      }
+      const unsigned am = __ballot_sync(FULL_MASK, act);
+      if (am == 0u || (left && __popc(am) <= MARCH_REFILL_AT)) break;
+    }
+  }
+  if (p.ray_use && wl == 0) {
+    atomicAdd(p.ray_use + MARCH_USE_STEPS, (unsigned long long)steps);
+    atomicAdd(p.ray_use + MARCH_USE_SLOTS, (unsigned long long)slots);
+    if (threadIdx.x == 0 && nr > 0) {
+      atomicAdd(p.ray_use + MARCH_USE_RAYS, (unsigned long long)nr);
+      atomicAdd(p.ray_use + MARCH_USE_FLUSHES, 1ull);
+    }
+  }
 }
 
 // One fast_event (fastpath.py:1291-1676, MARCH = 1).  u holds the event's
@@ -882,7 +1059,8 @@ __device__ __forceinline__ float detector_contribution_tab(const EventParams& p,
 // warps share).  TAB samples the cosine from the cubic inverse CDF (in column
 // media at the lane's entry, with the lane's ssa in the absorption tests) and
 // takes the detectors' phase values from the forward fit.  MARCH (with DET,
-// neither GAS nor FK) traces the shadow rays by marching.  FK (with GAS,
+// neither GAS nor FK) queues each collision's record for the CTA's marching
+// rays (march_push) in place of the detector loop.  FK (with GAS,
 // CHAIN 0) takes the fused-k gas step of the lane's k, the k of its CTA
 // (see the note at the top; read here, not passed in: an argument of its k
 // unused by the other variants, changed their registers).  Called by every
@@ -1026,7 +1204,9 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
     if (die) s.pk = 3;
     collided = collided && !die;
   }
-  if (DET && __any_sync(FULL_MASK, collided)) {
+  if constexpr (MARCH) {
+    if (__any_sync(FULL_MASK, collided)) march_push(p, dr, s, collided);
+  } else if (DET && __any_sync(FULL_MASK, collided)) {
     // Warp-convergent: the lanes that did not collide contribute 0.
     const float gtop = FK ? __ldg(p.fk.gtop + fk_k) : 0.0f;
 #pragma unroll 1
@@ -1034,11 +1214,10 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
       int bin;
       float c;
       if constexpr (TAB)
-        c = detector_contribution_tab<IW, FK, MARCH>(p, d, s, collided,
-                                                     IW ? pick(u, BD + d) : 0.0f, &bin, gtop);
+        c = detector_contribution_tab<IW, FK>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin,
+                                              gtop);
       else
-        c = detector_contribution<IW, FK, MARCH>(p, d, s, collided,
-                                                 IW ? pick(u, BD + d) : 0.0f, &bin, gtop);
+        c = detector_contribution<IW, FK>(p, d, s, IW ? pick(u, BD + d) : 0.0f, &bin, gtop);
       if (!collided) c = 0.0f;
       // A BRDF plan's lane weight, read where it scales (constant in the block).
       if (p.srf.w) c = c * p.srf.w[dr.lane];
@@ -1632,6 +1811,9 @@ __device__ __forceinline__ void event_block(float* __restrict__ f, int* __restri
 
   if (in_smem)
     for (int k = t; k < n_slices * n_bins; k += CTA_THREADS) smem_hist[k] = 0.0;
+  if constexpr (MARCH) {
+    if (t == 0) march_q()[0] = march_q()[1] = 0;
+  }
 
   int alive0 = 0;
   if (pro) {
@@ -1723,6 +1905,12 @@ __device__ __forceinline__ void event_block(float* __restrict__ f, int* __restri
     }
   }
 
+  if constexpr (MARCH) {
+    // The queued rays, traced by every thread of the CTA (march_flush).
+    __syncthreads();
+    march_flush<IW, TAB, SLICES>(
+        p, SLICES ? smem_hist + warp * n_bins : (in_smem ? smem_hist : acc), BD);
+  }
   if (in_smem || pro) __syncthreads();
   if (pro && t == 0) {
     // The CTA's dead lanes at exit: the next launch's FIFO ranks.
@@ -1750,7 +1938,8 @@ fast_event_block_kernel(float* __restrict__ f, int* __restrict__ iv, double* acc
 }
 
 // K3-M: the detector block of a plan with the marching shadow trace
-// (DET, neither GAS, COL nor FK, CHAIN 0), instantiated in
+// (DET, neither GAS, COL nor FK, CHAIN 0), its rays traced from the CTA's
+// queue after the lanes' events (march_flush), instantiated in
 // fast_event_block_march.cu (HG) and fast_event_block_tab_march.cu (TAB).
 template <int CHAIN, bool ABS, bool TY, bool DET, bool IW, bool GAS, bool COL, bool SLICES,
           int DCAP, bool TAB, bool FK>
@@ -1877,7 +2066,7 @@ static bool launch_block_marching(float* f, int* i, double* acc, const EventPara
                                   cudaStream_t stream) {
   constexpr int DS = DET_DRAWS_SMALL;
   if (p.K < 1 || p.det.n < 1 || p.det.n > MAX_DETECTORS || acc == nullptr ||
-      p.det.march_steps < 1)
+      p.det.march_steps < 1 || p.rays == nullptr)
     return false;
   if (!iwabuchi)
     launch_flags<0, true, false, false, DS, TAB, false, true>(f, i, acc, p, absorbing, track_y,

@@ -1,7 +1,8 @@
 // Fast event block, K3-M: the detector variant with the marching shadow
-// trace (shadow_march in fast_event_block.cuh, the trace `shadow_trace` of
+// trace (march_step in fast_event_block.cuh, the trace `shadow_trace` of
 // i3rc_tpu/integrators/fastpath.py:1061-1127, XLA in the path of the Pallas
-// kernel `_build_pallas_block`, fastpath.py:665), HG.  A source of its own
+// kernel `_build_pallas_block`, fastpath.py:665), its rays queued a record a
+// collision and traced by the CTA after its lanes' events (march_flush), HG.  A source of its own
 // so that nvcc builds these instantiations in parallel with the others.
 
 #include "fast_event_block.cuh"

@@ -1540,7 +1540,7 @@ class _EventParams(ctypes.Structure):
         ("pro", _Prologue), ("srf", _SurfaceParams)] + [
         (n, ctypes.c_void_p) for n in ("cubic", "fwd", "pf_row")] + [
         ("n_seg", ctypes.c_int), ("n_fwd", ctypes.c_int), ("fwd_scale", ctypes.c_float),
-        ("fk", _FusedK)]
+        ("fk", _FusedK), ("rays", ctypes.c_void_p), ("ray_use", ctypes.c_void_p)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -1741,6 +1741,9 @@ def _launch(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int, acc,
                 _need(buf.srf, f.device, torch.float64, (det.n_cols, det.n), "srf")
                 p.srf.acc = buf.srf.data_ptr()
             buf._params = (tag, p)
+    if det is not None and det.march_steps:
+        p.rays = march_queue(f.device, L, spec.K).data_ptr()
+        p.ray_use = march_ray_use(f.device).data_ptr()
     lib = build().lib
     with torch.cuda.device(f.device):
         rc = lib.i3rc_fast_event_block(
@@ -1897,9 +1900,45 @@ LAUNCH_COUNTERS = {
 MARCH_COUNTERS = {False: "march_launches", True: "march_surface_launches"}
 
 
+# K3-M's ray queues and the counts of its ray loop, per device.
+MARCH_REC_F4 = 2                   # float4 words a queued record (csrc MARCH_REC_F4)
+MARCH_USE = ("rays", "steps", "slots", "flushes")     # csrc MARCH_USE_*
+_MARCH_QUEUES: dict = {}
+_MARCH_USE: dict = {}
+
+
+def march_queue(device, n_lanes: int, K: int) -> torch.Tensor:
+    """The device scratch of K3-M's ray queues (``EventParams.rays``): a
+    record of ``MARCH_REC_F4`` float4 words at every event of every lane,
+    CTA by CTA.  Made at the first launch that needs it and kept per device;
+    its contents do not outlive a launch."""
+    n = -(-n_lanes // CTA_THREADS) * CTA_THREADS * K * MARCH_REC_F4 * 4
+    t = _MARCH_QUEUES.get(device)
+    if t is None or t.numel() < n:
+        t = _MARCH_QUEUES[device] = torch.empty(n, dtype=torch.float32, device=device)
+    return t
+
+
+def march_ray_use(device) -> torch.Tensor:
+    """int64 (4,) on ``device``: K3-M's ray loop since
+    ``reset_launch_counters``, as ``MARCH_USE`` names its entries: the rays
+    traced, their segment steps, the thread slots of the warps' trips (32 a
+    trip of a warp holding a ray; steps / slots is the loop's lane use) and
+    the flushes (one a CTA that queued a record); a diagnostic of the card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _MARCH_USE:
+        with torch.inference_mode(False):
+            _MARCH_USE[dev] = torch.zeros(len(MARCH_USE), dtype=torch.int64, device=dev)
+    return _MARCH_USE[dev]
+
+
 def reset_launch_counters() -> None:
     for name in (*LAUNCH_COUNTERS.values(), *MARCH_COUNTERS.values()):
         setattr(event_block, name, 0)
+    for t in _MARCH_USE.values():
+        t.zero_()
 
 
 reset_launch_counters()

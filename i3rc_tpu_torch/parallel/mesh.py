@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from i3rc_tpu_torch.core.rng import batch_key
+from i3rc_tpu_torch.integrators.integrator import resolve_device
 
 
 def tree_map(fn, *trees):
@@ -79,17 +80,22 @@ class Mesh:
         return None if self.group is None else dist.get_backend(self.group)
 
 
-def _default_device() -> torch.device:
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _device(device) -> torch.device:
+    """``device``, by default the current CUDA device: like every other entry
+    point of the port, a mesh runs on the card unless the caller asks for
+    the CPU, and raises when torch finds no card
+    (``integrators.integrator.resolve_device``)."""
+    dev = resolve_device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def default_mesh(group=None, device=None) -> Mesh:
     """The world of ``group`` (by default the initialized default group), or
     with no group a world of one, on ``device`` (by default the current CUDA
-    device, else the CPU)."""
-    dev = torch.device(device) if device is not None else _default_device()
+    device; without a card only ``device="cpu"`` gives a mesh)."""
+    dev = _device(device)
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     if group is None:
@@ -107,7 +113,7 @@ def initialize_multihost(device=None, **kwargs) -> Mesh:
     ``cuda:LOCAL_RANK`` and NCCL; on the CPU gloo.  Output should be written
     by rank 0 alone (the MasterProc convention).
     """
-    dev = torch.device(device) if device is not None else _default_device()
+    dev = _device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)

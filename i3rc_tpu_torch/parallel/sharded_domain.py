@@ -30,30 +30,36 @@ surface, 1 + c component c).
 Each block of the loop, on each rank (the JAX body's steps from its
 migration on, so that a block's migrants are known when it starts):
   1. lossless receiver-granted migration of shadow rays and photons: one
-     ``all_reduce`` tells every rank each rank's inbox space (at most
-     ``CAP`` a kind and direction), its migrants waiting and whether it
-     still has work; each sender sends min(waiting, the receiver's space)
-     of each kind, in lane order (unsent migrants keep their tag and try
-     again next block), and received ones fill free lanes in lane order,
-     the rest waiting in the inbox;
-  2. the refill of dead lanes from the rank's photon budget, keeping
-     ``RESERVE`` lanes free for immigrants;
-  3. ``kernels.sharded_block.sharded_event_block`` (SD: K events a lane);
-  4. the flush of the block's exits into the local float64 column
-     tallies (``index_put_``), the surface records and revive;
-  5. with detectors the emission drain into the pool (lane-order
-     compaction), then ``kernels.sharded_block.shadow_advance`` (SR: K exact
-     cell-DDA steps a ray).
-The loop ends when no rank has anything in flight, or at the block cap.
+     ``all_reduce`` of the counts vector that the last block's kernels left
+     tells every rank each rank's inbox space (at most ``CAP`` a kind and
+     direction), its migrants waiting and whether it still has work; each
+     sender sends min(waiting, the receiver's space) of each kind, the
+     prefix of its send buffer (its first tagged rows in lane order;
+     unsent migrants keep their tag and try again next block);
+  2. ``kernels.sharded_block.sharded_event_block`` (SD), the whole block in
+     one launch: the sent rows leave, the received ones fill free lanes
+     and pool slots in order (the rest wait in the inbox), the refill of
+     dead lanes from the rank's photon budget keeping ``RESERVE`` lanes
+     free for immigrants, K events a lane, the flush of the block's exits
+     into the local float64 tallies, the surface records and revive, with
+     detectors the emission drain into the pool, and the packing of the
+     tagged photons and of the counts;
+  3. with detectors ``kernels.sharded_block.shadow_advance`` (SR: K exact
+     cell-DDA steps a ray) and ``shadow_pack`` (SP: the tagged rays and the
+     pool's free slots packed, the ray side of the counts).
+The host plans each block from the counts alone (``ShardedTrace.plan``:
+integer arithmetic every rank repeats), so one read of the counts vector
+is the block's only wait on the device.  The loop ends when no rank has
+anything in flight, or at the block cap.
 
 In the JAX package every ``jax.lax.ppermute`` is a ring shift along the
 mesh axis.  Here each block makes that one ``all_reduce`` and one
 ``dist.batch_isend_irecv`` step carrying each direction's photons and
-rays to the neighbour in one message of the size both ends computed from
-the ``all_reduce``.  With NCCL the buffers stay on the
-device; with gloo (the CPU, or ranks that share one GPU) they are staged
-through pinned host memory.  The backend of the mesh's group decides; the
-algorithm is the same.  A world of one exchanges with itself in memory.
+rays to the neighbour, a message a kind, of the size both ends computed
+from the ``all_reduce``.  With NCCL the buffers stay on the device; with
+gloo (the CPU, or ranks that share one GPU) they are staged through pinned
+host memory.  The backend of the mesh's group decides; the algorithm is
+the same.  A world of one receives what it sent, in place.
 
 Random streams: every rank draws from the Philox key (seed, rank), where
 the JAX package folds the rank into its key (``fold_in(key, me)``,
@@ -65,7 +71,10 @@ depends on the rank count only statistically.
 Departures from the JAX tracer: the event budget ends only lanes still in
 flight (JAX also counts a lane that dies or leaves on its last allowed
 event as bad, and tallies it); a tracer needs an x-uniform source (JAX
-samples each slab's share of any source in the slab).
+samples each slab's share of any source in the slab); a shadow ray sent to
+the next rank frees its pool slot at the next block's pack, not in the
+block that sends it (the free slots are the pack's, so that the drain's
+slots are known without a second pass over the pool).
 """
 
 from __future__ import annotations
@@ -75,31 +84,18 @@ import torch
 import torch.distributed as dist
 
 from i3rc_tpu_torch.core.optics import flatten_optics
-from i3rc_tpu_torch.core.rng import STREAM_REFILL, STREAM_SURFACE, PhiloxKey, stream_uniforms
+from i3rc_tpu_torch.core.rng import PhiloxKey
 from i3rc_tpu_torch.integrators.tables import build_forward_cubic, build_inverse_cubic
-from i3rc_tpu_torch.integrators.wavefront import (
-    RawTallies,
-    _sincos_2pi,
-    f32,
-    make_direction_cosines,
-)
+from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32
 from i3rc_tpu_torch.kernels import sharded_block as sb
 from i3rc_tpu_torch.kernels.sharded_block import (
     ALIVE,
     BAD,
-    ORDERS,
     PEND,
-    PEND_COMP,
     PEND_PF,
-    PEND_SRF,
-    PK,
     QALIVE,
-    QDET,
-    QPF,
     QTAG,
-    QTAU,
     TAG,
-    TAU,
     RayPool,
     ShardSpec,
     ShardState,
@@ -107,8 +103,6 @@ from i3rc_tpu_torch.kernels.sharded_block import (
 from i3rc_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 X_UNIFORM_SOURCES = ("directional", "random_azimuth", "flux_weighted")
-PHOTON_FIELDS = 8      # x, y, z, ux, uy, uz, tau, orders
-RAY_FIELDS = 6         # x, y, z, tau, prefactor, det
 
 
 def shardable(domain, mesh: Mesh) -> bool:
@@ -187,42 +181,6 @@ def shard_plan(domain, mesh: Mesh, max_events: int = 500, unroll: int = 8,
         max_ext=f32(max_ext), nudge=float(nudge), fwd_scale=f32(n_fwd / np.pi))
 
 
-def _exchange(mesh: Mesh, sends: dict, recv_sizes: dict) -> dict:
-    """One ring step: ``sends[dirn]`` (a float32 vector) goes to rank
-    ``rank + dirn`` and ``recv_sizes[dirn]`` floats arrive from ``rank -
-    dirn``, each size known to both ends (an empty message is not sent).
-    Returns the received vectors on the mesh's device."""
-    if mesh.size == 1:
-        return dict(sends)
-    n, me, dev = mesh.size, mesh.rank, mesh.device
-    staged = mesh.backend != "nccl" and dev.type == "cuda"
-
-    def host(t):
-        if not staged:
-            return t.contiguous()
-        buf = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
-        buf.copy_(t)
-        return buf
-
-    ops, got = [], {}
-    # Two messages to one peer (a world of two) keep their order: the tag
-    # names the direction, and every rank posts +1 before -1.
-    for dirn in (1, -1):
-        if sends[dirn].numel():
-            ops.append(dist.P2POp(dist.isend, host(sends[dirn]), (me + dirn) % n, mesh.group,
-                                  tag=dirn + 2))
-    for dirn in (1, -1):
-        got[dirn] = torch.empty(recv_sizes[dirn], dtype=torch.float32,
-                                device="cpu" if staged else dev, pin_memory=staged)
-        if recv_sizes[dirn]:
-            ops.append(dist.P2POp(dist.irecv, got[dirn], (me - dirn) % n, mesh.group,
-                                  tag=dirn + 2))
-    if ops:
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-    return {d: v.to(dev) for d, v in got.items()}
-
-
 def _all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The ranks' (n, ...) tensors stacked in rank order along dim 0."""
     if mesh.group is None:
@@ -259,7 +217,7 @@ class ShardedTrace:
         self.spec, self.mesh, self.source = spec, mesh, source
         dev = mesh.device
         L = int(n_lanes)
-        D, C = spec.n_dirs, spec.n_comp
+        D = spec.n_dirs
         self.CAP = max(128, L // 16)            # migrants a direction and block
         self.RESERVE = 2 * self.CAP             # free lanes kept for immigrants
         self.INBOX = 2 * self.CAP
@@ -267,9 +225,6 @@ class ShardedTrace:
         self.n_total = self.budget * mesh.size
         self.key = PhiloxKey(int(seed), mesh.rank)
         self.albedo = float(surface_albedo)
-        # Reflected radiance A / pi toward the upward detectors only
-        # (:1473-1480).
-        self.surf_pf = torch.where(spec.det[:, 2] > 0.0, f32(self.albedo / np.pi), 0.0)
         max_blocks = -(-4 * spec.max_events * (self.budget // L + 2) // spec.K)
         if D:
             # Shadow rays drain at ~K cells a block; budget the extra latency.
@@ -277,239 +232,173 @@ class ShardedTrace:
         self.max_blocks = max_blocks
         self.state = ShardState(torch.zeros(PEND_PF + D, L, device=dev),
                                 torch.zeros(9, L, dtype=torch.int32, device=dev))
-        self.pool = RayPool(torch.zeros(5, L, device=dev),
-                            torch.zeros(4, L, dtype=torch.int32, device=dev))
+        R = L if D else 0
+        self.pool = RayPool(torch.zeros(5, R, device=dev),
+                            torch.zeros(4, R, dtype=torch.int32, device=dev))
+        self.bufs = sb.shard_buffers(spec, L, self.CAP, self.INBOX, mesh.size, mesh.rank,
+                                     volume, dev)
+        self.bufs.counts[mesh.rank, sb.WORK] = int(self.budget > 0)
         n_cols = spec.nx_loc * spec.n_y
         f64 = dict(dtype=torch.float64, device=dev)
-        self.columns = torch.zeros(n_cols, 3, **f64)
-        self.vol = torch.zeros(spec.n_loc_cells if volume else 0, **f64)
         self.acc_int = torch.zeros(n_cols * D, **f64)
-        self.acc_byc = torch.zeros(n_cols * D * (C + 1), **f64)
-        # Migrants received but not yet placed: rows x count, a direction.
-        self.inbox = {d: torch.zeros(PHOTON_FIELDS, 0, device=dev) for d in (1, -1)}
-        self.q_inbox = {d: torch.zeros(RAY_FIELDS, 0, device=dev) for d in (1, -1)}
+        self.acc_byc = torch.zeros(n_cols * D * (spec.n_comp + 1), **f64)
+        # Rows waiting in the inboxes (photons, rays), a direction: the
+        # host's count of what the block kernel keeps there.
+        self.waiting = {"ph": [0, 0], "q": [0, 0]}
         self.kb = 0
         self.launched = 0
         self.n_mig = 0
         self._plan = None
-        # The two kernels a block launches (a check may wrap them).
+        # The block's kernels (a check may wrap them).
         self.event_block = sb.sharded_event_block
         self.shadow_advance = sb.shadow_advance
+        self.shadow_pack = sb.shadow_pack
 
-    # -- the loop's end and the migration plan (one all_reduce a block) ----
+    # -- the loop's end and the block's plan (one read of the counts) -------
+    def _counts(self) -> list:
+        """Every rank's row of the counts vector, as Python ints: this
+        rank's read from the device (under NCCL after the all_reduce on
+        the device), all-reduced over the ranks."""
+        c, mesh = self.bufs.counts, self.mesh
+        if mesh.group is not None and mesh.backend == "nccl":
+            dist.all_reduce(c, group=mesh.group)
+            return c.cpu().tolist()
+        host = c.cpu()
+        if mesh.group is not None:
+            dist.all_reduce(host, group=mesh.group)
+        return host.tolist()
+
     def running(self) -> bool:
         """Whether any rank has work left (and the block cap is not hit).
-        Every rank also learns every rank's inbox space and waiting
-        migrants, so each sender and receiver computes the same counts for
-        this block's migration: min(migrants, the receiver's space), each
-        kind and direction."""
-        i, qi = self.state.i, self.pool.i
-        flags = torch.stack([
-            (i[[ALIVE, TAG, PEND]] != 0).any().to(torch.int64),
-            (qi[[QALIVE, QTAG]] != 0).any().to(torch.int64),
-            (i[TAG] == 1).sum(dtype=torch.int64), (i[TAG] == -1).sum(dtype=torch.int64),
-            (qi[QTAG] == 1).sum(dtype=torch.int64), (qi[QTAG] == -1).sum(dtype=torch.int64)])
-        busy, q_busy, *waiting = flags.tolist()
-        local = (busy or q_busy or self.launched < self.budget
-                 or any(self.inbox[d].shape[1] or self.q_inbox[d].shape[1] for d in (1, -1)))
-        n, me = self.mesh.size, self.mesh.rank
-        space = lambda box, d: min(self.CAP, self.INBOX - box[d].shape[1])
-        mine = [space(self.inbox, 1), space(self.inbox, -1), space(self.q_inbox, 1),
-                space(self.q_inbox, -1)] + waiting
-        vec = torch.zeros(1 + 8 * n, dtype=torch.float64)
-        vec[0] = float(local)
-        vec[1 + 8 * me:9 + 8 * me] = torch.tensor(mine, dtype=torch.float64)
-        vec = all_reduce_sum(self.mesh, vec)
-        g = vec[1:].view(n, 8).to(torch.int64).tolist()
-        # Rank s sends photons (k = 0) or rays (k = 1) moving in dirn to
-        # rank s + dirn: min(its waiting ones, the receiver's space).
-        col = lambda dirn, k: (0 if dirn == 1 else 1) + 2 * k
-        sent = lambda s_, dirn, k: min(g[s_][4 + col(dirn, k)], g[(s_ + dirn) % n][col(dirn, k)])
-        self._plan = {
-            "send": {d: (sent(me, d, 0), sent(me, d, 1)) for d in (1, -1)},
-            "recv": {d: (sent((me - d) % n, d, 0), sent((me - d) % n, d, 1)) for d in (1, -1)}}
-        return bool(vec[0] > 0) and self.kb < self.max_blocks
+        Every rank reads every rank's counts (inbox space, tagged migrants,
+        free lanes and slots), so each sender and receiver computes the same
+        counts for this block's migration: min(migrants, the receiver's
+        space), each kind and direction; then this rank's placements, its
+        refill and drain (``plan``)."""
+        g = self._counts()
+        if not (any(r[sb.WORK] or r[sb.BUSY_PH] or r[sb.BUSY_Q] for r in g)
+                and self.kb < self.max_blocks):
+            return False
+        self._plan = self.plan(g)
+        return True
 
-    # -- the glue ------------------------------------------------------------
-    def _columns_of(self, x, y):
-        s = self.spec
-        ix = torch.clamp(((x - s.x_lo) * s.inv_dx).to(torch.int32), 0, s.nx_loc - 1)
-        iy = torch.clamp(((y - s.y0) * s.inv_dy).to(torch.int32), 0, s.n_y - 1)
-        return ix.long() * s.n_y + iy.long()
-
-    def _flush(self) -> None:
-        """Tally the exits and deaths the last block left in pk."""
-        f, i = self.state.f, self.state.i
-        e = (i[PK] != 0).nonzero()[:, 0]
-        if not e.numel():
-            return
-        pk = i[PK][e].long()
-        col = self._columns_of(f[0][e], f[1][e])
-        self.columns.index_put_((col, pk - 1), torch.ones(e.numel(), dtype=torch.float64,
-                                                           device=e.device), accumulate=True)
-        if self.vol.numel():
-            s = self.spec
-            dead = pk == 3
-            iz = torch.clamp(((f[2][e][dead] - s.z0) * s.inv_dz).to(torch.int32), 0, s.n_z - 1)
-            self.vol.index_add_(0, col[dead] * s.n_z + iz.long(),
-                                torch.ones(int(dead.sum()), dtype=torch.float64,
-                                           device=e.device))
-
-    def _surface(self) -> None:
-        """Bottom hits: the reflected-radiance record (before the revive),
-        then the Bernoulli revive with a Lambertian direction."""
-        f, i = self.state.f, self.state.i
-        h = (i[PK] == 2).nonzero()[:, 0]
-        if not h.numel():
-            return
-        if self.spec.n_dirs:
-            f[PEND_PF:, h] = self.surf_pf[:, None]
-            i[PEND_SRF, h] = 1
-            i[PEND, h] = 1
-        u = stream_uniforms(self.key, STREAM_SURFACE, self.kb, 1, h.numel(), f.device, h)
-        rev = h[u[0] < f32(self.albedo)]
-        u = u[:, u[0] < f32(self.albedo)]
-        mu = torch.clamp(torch.sqrt(u[1]), min=f32(1e-6))
-        sin_t = torch.sqrt(torch.clamp(1.0 - u[1], min=0.0))
-        s_az, c_az = _sincos_2pi(u[2])
-        f[3, rev], f[4, rev], f[5, rev] = sin_t * c_az, sin_t * s_az, mu
-        f[2, rev] = f32(self.spec.z0 + self.spec.nudge)
-        f[TAU, rev] = 0.0
-        i[ORDERS, rev] += 1
-        i[ALIVE, rev] = 1
-
-    def _drain(self) -> None:
-        """Move pending records into free pool slots, D slots a record."""
-        f, i = self.state.f, self.state.i
-        qf, qi = self.pool.f, self.pool.i
-        D = self.spec.n_dirs
-        free = ((qi[QALIVE] == 0) & (qi[QTAG] == 0)).nonzero()[:, 0]
-        pend = (i[PEND] != 0).nonzero()[:, 0]
-        can = pend[:free.numel() // D]
-        if not can.numel():
-            return
-        slots = free[:can.numel() * D].view(-1, D)
-        dets = torch.arange(D, dtype=torch.int32, device=f.device)
-        for r, row in ((0, 0), (1, 1), (2, 2)):
-            qf[r, slots] = f[row, can][:, None]
-        qf[QTAU, slots] = 0.0
-        qf[QPF, slots] = f[PEND_PF:, can].t()
-        det = torch.where(i[PEND_SRF, can][:, None] != 0, dets[None, :],
-                          (i[PEND_COMP, can][:, None] + 1) * D + dets[None, :])
-        qi[QDET, slots] = det.to(torch.int32)
-        qi[QALIVE, slots] = 1
-        i[PEND, can] = 0
-
-    @staticmethod
-    def _pack(tagged: torch.Tensor, cap: int, f: torch.Tensor, extra: torch.Tensor):
-        """The first ``cap`` tagged lanes (lane order) and their rows: the
-        float rows ``f`` and the int row ``extra`` as floats."""
-        idx = tagged.nonzero()[:, 0][:cap]
-        return idx, torch.cat([f[:, idx], extra[idx][None].to(torch.float32)])
-
-    @staticmethod
-    def _merge(box: dict, dirn: int, got: torch.Tensor, free: torch.Tensor):
-        """Received rows after the inbox's: the first ones fill the free
-        lanes in lane order; returns (lanes, rows) placed."""
-        rows = torch.cat([box[dirn], got], dim=1)
-        slots = free.nonzero()[:, 0][:rows.shape[1]]
-        box[dirn] = rows[:, slots.numel():]
-        return slots, rows[:, :slots.numel()]
-
-    def _migrate(self) -> None:
-        """Send each direction's planned photons and rays (the first
-        tagged ones in lane order), exchange them, and place what arrives
-        (rays first, +1 then -1, as the JAX body orders them)."""
-        f, i = self.state.f, self.state.i
-        qf, qi = self.pool.f, self.pool.i
-        sends, sizes = {}, {}
-        for dirn in (1, -1):
-            n_ph, n_q = self._plan["send"][dirn]
-            p_idx, p_rows = self._pack(i[TAG] == dirn, n_ph, f[:TAU + 1], i[ORDERS])
-            i[TAG, p_idx] = 0
-            parts = [p_rows.reshape(-1)]
-            if n_q:
-                q_idx, q_rows = self._pack(qi[QTAG] == dirn, n_q, qf, qi[QDET])
-                qi[QTAG, q_idx] = 0
-                qi[QALIVE, q_idx] = 0
-                parts.append(q_rows.reshape(-1))
-            sends[dirn] = torch.cat(parts)
-            self.n_mig += n_ph + n_q
-            r_ph, r_q = self._plan["recv"][dirn]
-            sizes[dirn] = PHOTON_FIELDS * r_ph + RAY_FIELDS * r_q
-        got = _exchange(self.mesh, sends, sizes)
-        for dirn in (1, -1):
-            r_ph, r_q = self._plan["recv"][dirn]
-            rays = got[dirn][PHOTON_FIELDS * r_ph:].view(RAY_FIELDS, r_q)
-            slots, rows = self._merge(self.q_inbox, dirn, rays,
-                                      (qi[QALIVE] == 0) & (qi[QTAG] == 0))
-            qf[:, slots] = rows[:5]
-            qi[QDET, slots] = rows[5].to(torch.int32)
-            qi[QALIVE, slots] = 1
-        for dirn in (1, -1):
-            r_ph = self._plan["recv"][dirn][0]
-            photons = got[dirn][:PHOTON_FIELDS * r_ph].view(PHOTON_FIELDS, r_ph)
-            slots, rows = self._merge(self.inbox, dirn, photons,
-                                      (i[ALIVE] == 0) & (i[TAG] == 0) & (i[PEND] == 0))
-            f[:TAU + 1, slots] = rows[:TAU + 1]
-            i[ORDERS, slots] = rows[TAU + 1].to(torch.int32)
-            i[ALIVE, slots] = 1
-
-    def _refill(self) -> None:
-        """Fresh photons of the rank's budget into dead lanes, in lane
-        order, keeping RESERVE lanes free for immigrants."""
-        f, i = self.state.f, self.state.i
-        s = self.spec
-        dead = ((i[ALIVE] == 0) & (i[TAG] == 0) & (i[PEND] == 0)).nonzero()[:, 0]
-        n_new = min(max(dead.numel() - self.RESERVE, 0), self.budget - self.launched)
-        if n_new <= 0:
-            return
-        lanes = dead[:n_new]
-        b = self.source.sample(self.key, n_new, f.device, stream=STREAM_REFILL,
-                               block=self.kb, lanes=lanes)
-        ux, uy, uz = make_direction_cosines(b.mu, b.phi)
-        f[0, lanes] = s.x_lo + b.x * f32(s.x_hi - s.x_lo)
-        f[1, lanes] = s.y0 + b.y * s.wy
-        f[2, lanes] = s.z0 + b.z * f32(s.z_max - s.z0)
-        f[3, lanes], f[4, lanes], f[5, lanes] = ux, uy, uz
-        f[TAU, lanes] = 0.0
-        i[ORDERS, lanes] = 0
-        i[ALIVE, lanes] = 1
+    def plan(self, g: list) -> sb.BlockPlan:
+        """The block's plan from the counts ``g`` (a row a rank)."""
+        n, me, D = self.mesh.size, self.mesh.rank, self.spec.n_dirs
+        src = [(me - dirn) % n for dirn in sb.DIRS]
+        # Rank s sends kind (photons, rays) moving in direction k to rank
+        # s + dirn: min(its waiting ones, the receiver's space).
+        sent = lambda s, k, wait, space: min(g[s][wait + k], g[(s + sb.DIRS[k]) % n][space + k])
+        kinds = {"ph": (sb.WAIT_PH, sb.SPACE_PH, sb.FREE_PH), "q": (sb.WAIT_Q, sb.SPACE_Q,
+                                                                   sb.FREE_Q)}
+        out = {}
+        for kind, (wait, space, free) in kinds.items():
+            if kind == "q" and not D:
+                out[kind] = dict(sent=(0, 0), n_in=(0, 0), n_rx=(0, 0), placed=(0, 0), free=0)
+                continue
+            snd = tuple(sent(me, k, wait, space) for k in range(2))
+            rx = tuple(sent(src[k], k, wait, space) for k in range(2))
+            n_in = tuple(self.waiting[kind])
+            # A photon sent frees its lane in this block; a ray's slot joins
+            # the free slots at the next pack.
+            room = g[me][free] + (sum(snd) if kind == "ph" else 0)
+            placed = []
+            for k in range(2):
+                placed.append(min(n_in[k] + rx[k], room))
+                room -= placed[k]
+            self.waiting[kind] = [n_in[k] + rx[k] - placed[k] for k in range(2)]
+            self.n_mig += sum(snd)
+            out[kind] = dict(sent=snd, n_in=n_in, n_rx=rx, placed=tuple(placed), free=room)
+        n_new = min(max(out["ph"]["free"] - self.RESERVE, 0), self.budget - self.launched)
         self.launched += n_new
+        waiting = sum(self.waiting["ph"]) + sum(self.waiting["q"])
+        space = lambda kind: tuple(min(self.CAP, self.INBOX - w) for w in self.waiting[kind])
+        ph, q = out["ph"], out["q"]
+        return sb.BlockPlan(
+            sent_ph=ph["sent"], sent_q=q["sent"], n_in_ph=ph["n_in"], n_rx_ph=ph["n_rx"],
+            placed_ph=ph["placed"], n_in_q=q["n_in"], n_rx_q=q["n_rx"], placed_q=q["placed"],
+            n_new=n_new, drain_cap=q["free"] // D if D else 0,
+            work=int(self.launched < self.budget or waiting > 0),
+            space_ph=space("ph"), space_q=space("q"))
 
+    def _exchange(self, plan: sb.BlockPlan) -> None:
+        """One ring step: the planned prefix of each send buffer goes to
+        rank ``rank + dirn`` (photons and rays, one message each) and the
+        planned rows arrive from ``rank - dirn`` into the receive buffers.
+        With NCCL the buffers stay on the device; with gloo (the CPU, or
+        ranks that share one GPU) they are staged through pinned host
+        buffers made at the first exchange.  A world of one receives what
+        it sent in place."""
+        bufs, mesh = self.bufs, self.mesh
+        if bufs.self_exchange:
+            return
+        n, me, dev = mesh.size, mesh.rank, mesh.device
+        staged = mesh.backend != "nccl" and dev.type == "cuda"
+        if staged and not hasattr(self, "_pinned"):
+            pin = lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._pinned = {"send": [pin(bufs.send_ph[0, k]) for k in range(2)]
+                            + [pin(bufs.send_q[k]) for k in range(2)],
+                            "recv": [pin(bufs.recv_ph[k]) for k in range(2)]
+                            + [pin(bufs.recv_q[k]) for k in range(2)]}
+        par = self.kb & 1
+        # (send buffer, receive buffer, rows sent, rows received, tag) of
+        # each kind and direction: every rank posts photons before rays and
+        # +1 before -1, and the tag names the kind and direction, so two
+        # messages to one peer (a world of two) keep apart.
+        msgs = [(bufs.send_ph[par, k], bufs.recv_ph[k], plan.sent_ph[k], plan.n_rx_ph[k], 2 + dirn)
+                for k, dirn in enumerate(sb.DIRS)]
+        msgs += [(bufs.send_q[k], bufs.recv_q[k], plan.sent_q[k], plan.n_rx_q[k], 6 + dirn)
+                 for k, dirn in enumerate(sb.DIRS)]
+        ops, got = [], []
+        for m, ((send, _, n_send, _, tag), dirn) in enumerate(zip(msgs, sb.DIRS * 2)):
+            if n_send:
+                t = send[:n_send]
+                if staged:
+                    t = self._pinned["send"][m][:n_send].copy_(t)
+                ops.append(dist.P2POp(dist.isend, t, (me + dirn) % n, mesh.group, tag=tag))
+        for m, ((_, recv, _, n_recv, tag), dirn) in enumerate(zip(msgs, sb.DIRS * 2)):
+            if n_recv:
+                t = recv[:n_recv]
+                buf = self._pinned["recv"][m][:n_recv] if staged else t
+                got.append((t, buf))
+                ops.append(dist.P2POp(dist.irecv, buf, (me - dirn) % n, mesh.group, tag=tag))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        for t, buf in got:
+            if buf is not t:
+                t.copy_(buf, non_blocking=True)
+
+    # -- one block -----------------------------------------------------------
     def block(self) -> None:
-        """One block of the loop on this rank (call after ``running``).
-        The JAX body's order from its migration on: the migrants of the
-        last block are known when ``running`` plans their sends."""
-        self._migrate()
-        self._refill()
-        self.event_block(self.spec, self.state, self.key, self.kb)
-        self._flush()
-        if self.albedo > 0.0:
-            self._surface()
-        self.state.i[PK] = 0
+        """One block of the loop on this rank (call after ``running``): the
+        exchange of the migrants its plan names, then the block's kernels
+        (SD, and with detectors SR and SP), which leave the next counts."""
+        plan = self._plan
+        self._exchange(plan)
+        self.event_block(self.spec, self.state, self.pool, self.bufs, plan, self.key, self.kb,
+                         self.source, self.albedo)
         if self.spec.n_dirs:
-            self._drain()
             self.shadow_advance(self.spec, self.pool, self.acc_int, self.acc_byc)
+            self.shadow_pack(self.spec, self.state, self.pool, self.bufs)
         self.kb += 1
 
     def finish(self) -> RawTallies:
-        """The final flush (no revive), n_bad and the global tallies."""
-        self._flush()
+        """n_bad and the global tallies (every exit is flushed in the block
+        that made it)."""
         i, qi = self.state.i, self.pool.i
         moving = (i[ALIVE] != 0) | (i[TAG] != 0)
-        waiting = lambda box: sum(box[d].shape[1] for d in (1, -1))
-        n_bad = int(i[BAD].sum()) + int(moving.sum()) + waiting(self.inbox)
+        n_bad = int(i[BAD].sum()) + int(moving.sum()) + sum(self.waiting["ph"])
         if self.spec.n_dirs:
             # Undelivered radiance: records still pending on lanes not
             # counted above, rays in flight or waiting.
             n_bad += (int(((i[PEND] != 0) & ~moving).sum())
                       + int(((qi[QALIVE] != 0) | (qi[QTAG] != 0)).sum())
-                      + waiting(self.q_inbox))
+                      + sum(self.waiting["q"]))
         tot = all_reduce_sum(self.mesh, torch.tensor([n_bad, self.n_mig], dtype=torch.float64))
         dev = self.mesh.device
         gather = lambda t: _all_gather_rows(self.mesh, t) if t.numel() else t
-        cols, vol = gather(self.columns), gather(self.vol)
+        cols, vol = gather(self.bufs.columns), gather(self.bufs.vol)
         acc_int, acc_byc = gather(self.acc_int), gather(self.acc_byc)
         n_cols = cols.shape[0]
         D, C = self.spec.n_dirs, self.spec.n_comp

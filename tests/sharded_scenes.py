@@ -12,10 +12,11 @@ machine.
   * ``run_world(n, job, args)``: ``job(mesh, *args)`` on every rank of a
     gloo world of n processes (``torch.multiprocessing`` spawn, a store on
     a localhost port), each rank's return value back in rank order;
-  * ``capture_states`` / ``trace_states`` / ``sd_vs_twin`` /
-    ``sr_vs_twin``: SD's and SR's inputs at a mid-flight and a tail block
-    of a trace (on a world of one, or on each rank of a mesh), and one
-    launch of each kernel against its twin from the same input.
+  * ``capture_states`` / ``trace_states`` / ``block_vs_twin`` /
+    ``sr_vs_twin``: the inputs of a whole block (SD, SR, SP) and of SR at
+    a mid-flight and a tail block of a trace (on a world of one, or on
+    each rank of a mesh), and the block's kernels, or SR alone, against
+    their plain versions from the same input.
 """
 
 from __future__ import annotations
@@ -266,28 +267,30 @@ def driver_job(mesh, namelist: str, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# SD and SR against their twins
+# The block's kernels against their plain versions
 
 def capture_states(tr, tail_alive: float = 0.15) -> dict:
-    """Wrap a ShardedTrace's two kernels so that its run keeps the inputs
-    of SD (and, with detectors, of SR) at a mid-flight block (the third)
-    and the first tail block (at most ``tail_alive`` of the lanes alive, or
-    of the pool in flight): {"sd": [(kb, ShardState)], "sr": [(kb,
-    RayPool)]}, filled as the trace runs."""
+    """Wrap a ShardedTrace's kernels so that its run keeps the inputs of a
+    whole block (SD, and with detectors SR and SP after it) at a mid-flight
+    block (the third) and the first tail block (at most ``tail_alive`` of
+    the lanes alive), and SR's inputs at the first two blocks with rays in
+    flight past the second and the first tail one: {"block": [(kb, plan,
+    ShardState, RayPool, ShardBuffers)], "sr": [(kb, RayPool)]}, filled as
+    the trace runs."""
     from i3rc_tpu_torch.kernels import sharded_block as sb
 
     lanes = tr.state.i.shape[1]
-    keep = {"sd": [], "sr": []}
+    keep = {"block": [], "sr": []}
     sd_fn, sr_fn = tr.event_block, tr.shadow_advance
 
     def want(kind, live):
         got = keep[kind]
         return (not got and tr.kb >= 2) or (len(got) == 1 and live <= tail_alive * lanes)
 
-    def sd(spec_, st, key, kb):
-        if want("sd", int((st.i[sb.ALIVE] != 0).sum())):
-            keep["sd"].append((kb, st.clone()))
-        sd_fn(spec_, st, key, kb)
+    def sd(spec_, st, pool, bufs, plan, key, kb, source, albedo):
+        if want("block", int((st.i[sb.ALIVE] != 0).sum())):
+            keep["block"].append((kb, plan, st.clone(), pool.clone(), bufs.clone()))
+        sd_fn(spec_, st, pool, bufs, plan, key, kb, source, albedo)
 
     def sr(spec_, pool, acc_int, acc_byc):
         live = int(((pool.i[sb.QALIVE] != 0) & (pool.i[sb.QTAG] == 0)).sum())
@@ -302,8 +305,8 @@ def capture_states(tr, tail_alive: float = 0.15) -> dict:
 def trace_states(sc: dict, n_photons: int, lanes: int, device, seed: int = 7,
                  tail_alive: float = 0.15, unroll: int = 8, mesh=None) -> dict:
     """Trace a scene on ``mesh`` (by default a world of one on ``device``)
-    and keep SD's and SR's inputs as ``capture_states`` does: {"spec",
-    "key", "sd": [(kb, ShardState)], "sr": [(kb, RayPool)], "raw":
+    and keep the block's and SR's inputs as ``capture_states`` does:
+    {"spec", "key", "source", "albedo", "block": [...], "sr": [...], "raw":
     RawTallies}.  Every rank of the mesh calls it."""
     from i3rc_tpu_torch import PhotonSource
     from i3rc_tpu_torch.parallel.mesh import default_mesh
@@ -315,28 +318,86 @@ def trace_states(sc: dict, n_photons: int, lanes: int, device, seed: int = 7,
     keep = capture_states(tr, tail_alive)
     while tr.running():
         tr.block()
-    return dict(spec=tr.spec, key=tr.key, sd=keep["sd"], sr=keep["sr"], raw=tr.finish())
+    return dict(spec=tr.spec, key=tr.key, source=tr.source, albedo=tr.albedo,
+                block=keep["block"], sr=keep["sr"], raw=tr.finish())
 
 
-def sd_vs_twin(spec, st0, key, kb: int) -> dict:
-    """One SD launch against ``sharded_block_reference`` from the same
-    state: whether every row agrees bit for bit, the largest difference,
-    and the launch's lane-events, collisions and lanes it tagged to
-    migrate across a slab face (the twin's)."""
+def run_block(spec, key, source, albedo, kept, plain: bool) -> tuple:
+    """One whole block from a kept input, on copies: SD, and with detectors
+    SR and SP, through the kernels or (``plain``) their plain versions.
+    Returns (state, pool, buffers, acc_int, acc_byc)."""
     from i3rc_tpu_torch.kernels import sharded_block as sb
 
-    got, ref = st0.clone(), st0.clone()
-    sb.sharded_event_block(spec, got, key, kb)
-    sb.sharded_block_reference(spec, ref, key, kb)
-    same = torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i)
-    rows = ([r for r in range(got.f.shape[0]) if not torch.equal(got.f[r], ref.f[r])]
-            + [100 + r for r in range(9) if not torch.equal(got.i[r], ref.i[r])])
-    return {"bit_equal": same, "rows_differing": rows,
-            "max_abs_err": float((got.f - ref.f).abs().max()),
+    kb, plan, st0, pool0, bufs0 = kept
+    st, pool, bufs = st0.clone(), pool0.clone(), bufs0.clone()
+    n = spec.nx_loc * spec.n_y * spec.n_dirs
+    acc = lambda k: torch.zeros(k, dtype=torch.float64, device=st.f.device)
+    acc_int, acc_byc = acc(n), acc(n * (spec.n_comp + 1))
+    sd = sb.sharded_block_reference if plain else sb.sharded_event_block
+    sd(spec, st, pool, bufs, plan, key, kb, source, albedo)
+    if spec.n_dirs:
+        (sb.shadow_advance_reference if plain else sb.shadow_advance)(spec, pool, acc_int,
+                                                                     acc_byc)
+        if plain:
+            sb.shadow_pack_reference(spec, pool, bufs)
+        else:
+            sb.shadow_pack(spec, st, pool, bufs)
+    return st, pool, bufs, acc_int, acc_byc
+
+
+def _block_parts(spec, st, pool, bufs, kb: int) -> dict:
+    """What a block leaves that its plain version must equal bit for bit:
+    the lane state, the pool, the filled prefixes of the send buffers, the
+    free-slot and sent-slot lists and the next inboxes (by the counts and
+    the plan), the tiles' counts, the counts vector, the flux tallies."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    npar = (kb + 1) & 1
+    row = bufs.counts[bufs.rank].tolist()
+    cap = bufs.cap
+    out = {"f": st.f, "i": st.i, "pool_f": pool.f, "pool_i": pool.i, "counts": bufs.counts,
+           "tiles": bufs.tiles[npar], "columns": bufs.columns, "vol": bufs.vol}
+    for k in range(2):
+        out[f"send_ph{k}"] = bufs.send_ph[npar, k, :min(row[sb.WAIT_PH + k], cap)]
+        if spec.n_dirs:
+            out[f"send_q{k}"] = bufs.send_q[k, :min(row[sb.WAIT_Q + k], cap)]
+            out[f"tag_q{k}"] = bufs.tag_q[k, :min(row[sb.WAIT_Q + k], cap)]
+    if spec.n_dirs:
+        out["free_q"] = bufs.free_q[:row[sb.FREE_Q]]
+    return out
+
+
+def block_vs_twin(spec, key, source, albedo, kept) -> dict:
+    """A whole block (SD, then SR and SP) against its plain version from the
+    same input: whether everything it leaves agrees bit for bit (the
+    radiance tallies within 1e-9 of their sum: SR adds in another order),
+    the first parts that differ, and the block's counts (the plain
+    version's): live lanes, lane-events, collisions, photons and rays
+    tagged to migrate, rays drained, steps, escapes."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    kb, plan, st0, pool0, bufs0 = kept
+    got = run_block(spec, key, source, albedo, kept, plain=False)
+    ref = run_block(spec, key, source, albedo, kept, plain=True)
+    gp, rp = _block_parts(spec, *got[:3], kb), _block_parts(spec, *ref[:3], kb)
+    differ = [k for k in rp if gp[k].shape != rp[k].shape or not torch.equal(gp[k], rp[k])]
+    err = max([float((g - r).abs().max()) for g, r in zip(got[3:], ref[3:]) if r.numel()],
+              default=0.0)
+    tally = float(ref[3].abs().sum())
+    st, pool = ref[0], ref[1]
+    return {"bit_equal": not differ, "parts_differing": differ[:6],
+            "max_abs_err": float((got[0].f - st.f).abs().max()),
+            "tally_abs_err": err, "tally_sum": tally,
+            "tally_ok": err <= 1e-9 * max(1.0, tally),
             "live": int((st0.i[sb.ALIVE] != 0).sum()),
-            "lane_events": int((ref.i[sb.EVCT] - st0.i[sb.EVCT]).sum()),
-            "collisions": int((ref.i[sb.ORDERS] - st0.i[sb.ORDERS]).clamp(min=0).sum()),
-            "tagged": int(((ref.i[sb.TAG] != 0) & (st0.i[sb.TAG] == 0)).sum()),
+            "lane_events": int((st.i[sb.EVCT] - st0.i[sb.EVCT]).sum()),
+            "collisions": int((st.i[sb.ORDERS] - st0.i[sb.ORDERS]).clamp(min=0).sum()),
+            "tagged": int((st.i[sb.TAG] != 0).sum()),
+            "sent": sum(plan.sent_ph), "received": sum(plan.n_rx_ph), "refilled": plan.n_new,
+            "rays_tagged": int((pool.i[sb.QTAG] != 0).sum()) if spec.n_dirs else 0,
+            "rays": int(((pool0.i[sb.QALIVE] != 0) & (pool0.i[sb.QTAG] == 0)).sum())
+            if spec.n_dirs else 0,
+            "steps": int((pool.i[sb.QSTEPS] - pool0.i[sb.QSTEPS]).sum()) if spec.n_dirs else 0,
             "kb": kb}
 
 
@@ -365,22 +426,22 @@ def sr_vs_twin(spec, pool0) -> dict:
             "tagged": int(((ref.i[sb.QTAG] != 0) & (pool0.i[sb.QTAG] == 0)).sum())}
 
 
-def states_vs_twins(spec, key, keep: dict) -> list:
-    """``sd_vs_twin`` on each kept SD state and ``sr_vs_twin`` on each
-    kept SR pool of a rank: one record each, with its kernel and state
-    ("mid", "tail")."""
-    out = [dict(sd_vs_twin(spec, st, key, kb), kernel="SD", state=tag)
-           for tag, (kb, st) in zip(("mid", "tail"), keep["sd"])]
-    return out + [dict(sr_vs_twin(spec, pool), kernel="SR", state=tag, kb=kb)
-                  for tag, (kb, pool) in zip(("mid", "tail"), keep["sr"])]
+def states_vs_twins(st: dict) -> list:
+    """``block_vs_twin`` on each kept block input and ``sr_vs_twin`` on each
+    kept SR pool of a rank (``trace_states``' result): one record each,
+    with its kernel ("SD": the whole block; "SR") and state ("mid",
+    "tail")."""
+    args = (st["spec"], st["key"], st["source"], st["albedo"])
+    out = [dict(block_vs_twin(*args, kept), kernel="SD", state=tag)
+           for tag, kept in zip(("mid", "tail"), st["block"])]
+    return out + [dict(sr_vs_twin(st["spec"], pool), kernel="SR", state=tag, kb=kb)
+                  for tag, (kb, pool) in zip(("mid", "tail"), st["sr"])]
 
 
 def twin_check_job(mesh, name: str, n_photons: int, lanes: int, seed: int = 7) -> dict:
-    """A rank's job: trace a scene on the mesh keeping SD's and SR's
-    inputs, then hold each kernel against its twin on this rank's states
-    (its half slab, one face of it inside the domain)."""
+    """A rank's job: trace a scene on the mesh keeping the block's and SR's
+    inputs, then hold the kernels against their plain versions on this
+    rank's states (its half slab, one face of it inside the domain)."""
     st = trace_states(scene(name, host("i3rc_tpu_torch"), mesh.size), n_photons, lanes,
                       mesh.device, seed=seed, mesh=mesh)
-    return {"rank": mesh.rank, "nx_loc": st["spec"].nx_loc,
-            "checks": states_vs_twins(st["spec"], st["key"], st)}
-
+    return {"rank": mesh.rank, "nx_loc": st["spec"].nx_loc, "checks": states_vs_twins(st)}

@@ -7,7 +7,9 @@ every case of ``tests/march_scenes.py`` march_cases: HG and table,
 Iwabuchi on and off, absorbing and conservative, black, an albedo and RPV.
 Every lane-state row, the lane weight, the control state and the dead
 counts bit for bit; the tallies within 1e-9 of their largest bin (the
-kernels add them in another order).  Then the step cloud's closed plan
+kernels add them in another order, K3-M its queued rays in the order the
+CTA's threads pull them).  Over black, the rays K3-M's queue traced are the
+plain version's rays, with the same segment steps.  Then the step cloud's closed plan
 against the same plan made to march, and the plane-parallel driver on
 ``cuda``.
 
@@ -53,6 +55,27 @@ def test_march_block_matches_reference_on_gpu(case):
         r = _scenes.block_vs_twin(spec, pro, st, buf, key, SRC, kb)
         assert r["bit_equal"], (name, r)
         assert r["acc_rel_err"] <= 1e-9, (name, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(c for c in CASES if "ssa" in c))
+def test_queued_rays_are_the_plain_versions_rays(case):
+    """K3-M traces its rays from the CTAs' queues: at the mid-flight state
+    the rays the kernel's loop traced, and their segment steps, are the
+    plain version's (its census), each ray once."""
+    dev = need_card()
+    integ = _scenes.case_integrator(case, dev)
+    key = batch_key(41, 1)
+    spec, pro, states = _scenes.trace_states(integ, SRC, 4 * _scenes.LANES, _scenes.LANES, key)
+    name, st, buf, kb = states[1]
+    with eb.march_census() as cen:
+        eb.fused_block_reference(spec, pro, st.clone(), buf.clone(), key, SRC, kb)
+    use = eb.march_ray_use(dev)
+    use.zero_()
+    eb.fused_block(spec, pro, st.clone(), buf.clone(), key, SRC, kb)
+    got = dict(zip(eb.MARCH_USE, use.tolist()))
+    assert cen["rays"] > 0 and got["rays"] == cen["rays"], (got, cen)
+    assert got["steps"] == cen["steps"] and got["slots"] >= got["steps"], (got, cen)
 
 
 @pytest.mark.cuda

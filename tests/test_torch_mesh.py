@@ -115,6 +115,20 @@ def test_default_mesh_without_a_group_is_a_world_of_one():
     assert m.device == torch.device("cpu") and m.backend is None
 
 
+def test_default_mesh_without_a_card_raises(monkeypatch):
+    # Like every other entry point of the port, a mesh defaults to cuda and
+    # raises without a card; only device="cpu" gives the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from i3rc_tpu_torch.parallel.mesh import initialize_multihost
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_multihost()
+    m = default_mesh(device="cpu")
+    assert (m.group, m.rank, m.size, m.device) == (None, 0, 1, torch.device("cpu"))
+
+
 def test_against_jax_run_batches_on_a_mesh_of_four():
     """Domain-mean fluxes of the port and of JAX on a mesh of 4 CPU
     devices, 16 batches of 512 photons each side, within 5 combined

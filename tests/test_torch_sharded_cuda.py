@@ -1,17 +1,19 @@
-"""The sharded tracer's kernels on the card: SD (the event block) and SR
-(the shadow-ray advance) against their plain twins
-(``sharded_block_reference``, ``shadow_advance_reference``) at a
-mid-flight and a tail state of a trace of each scene of
-``tests/sharded_scenes.py`` on a world of one: the absorbing Landsat scene
-(flux), the reflecting random field (surface), its volume absorption, its
-three detectors over the albedo, and the scene of
-``__graft_entry__.py:127-156`` (two components, an albedo, two detectors,
-the volume tally).  Every state row bit for bit; SR's float64 tallies
-within 1e-9 of their sum (the kernel adds them in another order).
+"""The sharded tracer's kernels on the card: the whole block (SD's launch,
+then with detectors SR and SP) against its plain version
+(``sharded_block_reference``, ``shadow_advance_reference``,
+``shadow_pack_reference``), and SR alone against its twin, at a mid-flight
+and a tail state of a trace of each scene of ``tests/sharded_scenes.py`` on
+a world of one: the absorbing Landsat scene (flux), the reflecting random
+field (surface), its volume absorption, its three detectors over the
+albedo, and the scene of ``__graft_entry__.py:127-156`` (two components, an
+albedo, two detectors, the volume tally).  The lane state, the pool, the
+send buffers, the free-slot list, the tiles' counts, the counts vector and
+the flux tallies bit for bit; the radiance tallies within 1e-9 of their sum
+(SR adds them in another order).
 
-The last test holds both kernels against their twins on each rank of a
-gloo world of two that share the card (each rank's half slab, whose
-faces at the middle of the domain are interior).
+The last test holds them on each rank of a gloo world of two that share
+the card (each rank's half slab, whose faces at the middle of the domain
+are interior).
 
 Marked ``cuda``: skipped without a card; imports no JAX, so it runs on the
 card's machine with ``--noconftest``.
@@ -47,21 +49,20 @@ def test_kernels_equal_their_twins(case):
     name, photons, lanes = CASES[case]
     sc = _scenes.scene(name, _scenes.host("i3rc_tpu_torch"), 2)
     st = _scenes.trace_states(sc, photons, lanes, dev)
-    assert len(st["sd"]) == 2, [kb for kb, _ in st["sd"]]
-    for kb, state in st["sd"]:
-        r = _scenes.sd_vs_twin(st["spec"], state, st["key"], kb)
-        assert r["bit_equal"], r
-        assert r["lane_events"] > 0
-    if st["spec"].n_dirs:
-        assert len(st["sr"]) >= 1
-        for kb, pool in st["sr"]:
-            r = _scenes.sr_vs_twin(st["spec"], pool)
-            assert r["bit_equal"], r
+    assert len(st["block"]) == 2, [kept[0] for kept in st["block"]]
+    for r in _scenes.states_vs_twins(st):
+        assert r["bit_equal"] and r.get("tally_ok", True), r
+        if r["kernel"] == "SR":
             assert r["tally_abs_err"] <= 1e-9 * max(1.0, r["tally_sum"]), r
-    before = (sb.sharded_event_block.launches, sb.shadow_advance.launches)
-    _scenes.sd_vs_twin(st["spec"], st["sd"][0][1], st["key"], st["sd"][0][0])
-    assert sb.sharded_event_block.launches == before[0] + 1
-    assert sb.shadow_advance.launches == before[1]
+        else:
+            assert r["lane_events"] > 0
+    assert not st["spec"].n_dirs or len(st["sr"]) >= 1
+    before = (sb.sharded_event_block.launches, sb.shadow_advance.launches,
+              sb.shadow_pack.launches)
+    _scenes.block_vs_twin(st["spec"], st["key"], st["source"], st["albedo"], st["block"][0])
+    d = int(st["spec"].n_dirs > 0)
+    assert (sb.sharded_event_block.launches, sb.shadow_advance.launches,
+            sb.shadow_pack.launches) == (before[0] + 1, before[1] + d, before[2] + d)
 
 
 @pytest.mark.cuda
@@ -72,6 +73,5 @@ def test_kernels_equal_their_twins_on_two_ranks():
     for r in ranks:
         assert len(r["checks"]) == 4, r["checks"]
         for c in r["checks"]:
-            assert c["bit_equal"], c
-            assert c["state"] != "mid" or c["tagged"] > 0, c
-
+            assert c["bit_equal"] and c.get("tally_ok", True), c
+            assert c["state"] != "mid" or c["tagged"] + c.get("sent", 0) > 0, c
