@@ -57,7 +57,7 @@ against the general kernel's exact trace, and the same scene over RPV),
 and the plane-parallel verification driver (the shipped namelist, copies
 against the discrete-ordinates slab on the general kernel and the
 fastpath, and in radiance mode), and multi-device runs (the x-sharded
-tracer's block, its kernels SD, SR and SP, against its plain version;
+tracer's block, its kernels SD and SB, against its plain version;
 run_batches on a
 world of one NCCL rank and on two gloo ranks that share the card; a resume
 finished in a second process; the x-sharded tracer over two ranks on the
@@ -1571,8 +1571,9 @@ def main() -> int:
     sptx = ptxas_sharded(sbuilt.log)
     say("2 build-sharded", seconds=f"{sbuilt.seconds:.1f}", library=sbuilt.path.name,
         **{k: PTXAS_FMT.format(**v) for k, v in sorted(sptx.items())})
-    # SD (the whole block), SR and SP: all built, none spilling.
-    check(sorted(sptx) == ["SD", "SP", "SR"], f"sharded kernels {sorted(sptx)}")
+    # SD (the whole block) and SB (the shadow rays): both built, neither
+    # spilling.
+    check(sorted(sptx) == ["SB", "SD"], f"sharded kernels {sorted(sptx)}")
     for name, v in sptx.items():
         check(v.get("spill_store_bytes", 1) == 0 and v.get("ctas_per_sm", 0) >= 1,
               f"sharded {name}: {v}")
@@ -1977,7 +1978,7 @@ def main() -> int:
     plane_parallel_runs(out, card)
 
     # 59-63. multi-device runs (ROADMAP item 19): the whole block (SD's
-    # launch, then SR and SP) and SR alone against their plain versions on a
+    # launch, then SB's) and SB alone against their plain versions on a
     # mid-flight and a tail state of the surface, volume and detector scenes
     # on a world of one, and of the flux (Landsat) and graft scenes on each
     # rank of the main path's two (59), rank 0's launches timed; the two ranks
@@ -1987,7 +1988,7 @@ def main() -> int:
     # (61); the x-sharded tracer over two ranks at full width: the whole
     # Landsat scene against the unsharded fastpath (62) and the graft scene
     # (two components, an albedo, 2 detectors, heating rates) against G+E
-    # (63), SD, SR and SP counted on that path, with the host ms a block and
+    # (63), SD and SB counted on that path, with the host ms a block and
     # the device's idle share
     sd_checks = sharded_kernel_vs_twin(dev, card)
     sd_rec = mesh_paths(out, card)
@@ -2074,7 +2075,7 @@ def main() -> int:
              "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode; fused-k, XLA in "
              "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)] + [
         march_entry(kind, m_checks, m_rec) for kind in ("march", "march_surface")] + [
-        sharded_entry(kind, sd_checks, sd_rec) for kind in ("SD", "SR", "SP")]},
+        sharded_entry(kind, sd_checks, sd_rec) for kind in ("SD", "SB")]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5159,21 +5160,31 @@ def ray_loop_fields(use: dict, cen: dict) -> dict:
 def march_batch_census(run_batch) -> dict:
     """The marching census (rays, steps) of one batch, counted by the plain
     version of every block of the same batch (same key: bit-equal to the
-    kernels' run), and the plain batch's host seconds."""
+    kernels' run), the plain batch's host seconds, and apart the rays and
+    steps of the surface stage's own marching (``surface``: those of the
+    plain version's resolve_surface)."""
     import i3rc_tpu_torch.integrators.fastpath as fp
-    from i3rc_tpu_torch.kernels.event_block import fused_block_reference, march_census
+    from i3rc_tpu_torch.kernels import event_block as eb
 
-    orig = fp.fused_block
-    fp.fused_block = fused_block_reference
+    orig, orig_surface = fp.fused_block, eb.resolve_surface
+    surface = {"rays": 0, "steps": 0}
+
+    def resolve(*args):
+        with eb.march_census() as c:
+            orig_surface(*args)
+        for k in surface:
+            surface[k] += c[k]
+
+    fp.fused_block, eb.resolve_surface = eb.fused_block_reference, resolve
     try:
-        with march_census() as cen:
+        with eb.march_census() as cen:
             t0 = time.perf_counter()
             run_batch()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
     finally:
-        fp.fused_block = orig
-    return dict(cen, plain_seconds=seconds)
+        fp.fused_block, eb.resolve_surface = orig, orig_surface
+    return dict(cen, plain_seconds=seconds, surface=surface)
 
 
 def closed_vs_march(card: str) -> dict:
@@ -5300,6 +5311,23 @@ def march_paths(card: str) -> dict:
         bk = batch_kernel_time(run, march=cen)
         bk.update(idle=pb["idle_share"], census=cen,
                   ray_use=dict(zip(eb.MARCH_USE, use.tolist())))
+        if name == "3d_rpv":
+            # K3-M+S split: the marching surface stage's own launches, device
+            # ms of the profiled batch and bound (its bounce, bounce_work of
+            # the batch's bottom hits, and its own marching rays and steps).
+            spec = bk["spec"]
+            work = dict(bounce_work(spec, sc.lanes * pb["surface_launches"], bk["hits"]),
+                        emits=0)
+            bk["stage"] = dict(ms=pb["surface_ms"], launches=pb["surface_launches"],
+                               block_ms=pb["block_ms"], census=cen["surface"],
+                               bound=bound_ms(variant(spec), 0, 0, **work, table=spec.table,
+                                              march=cen["surface"]))
+            say("57 march-3d_rpv-stage", photons=sc.n, stage_launches=pb["surface_launches"],
+                stage_ms=f"{pb['surface_ms']:.3f}", block_ms=f"{pb['block_ms']:.3f}",
+                stage_bound_ms=f"{bk['stage']['bound'][0]:.3f}",
+                stage_bound_by=bk["stage"]["bound"][1], hits=bk["hits"],
+                stage_rays=cen["surface"]["rays"], stage_steps=cen["surface"]["steps"],
+                card=json.dumps(card))
         rec["batch"][counter] = bk
         say(f"57 march-{name}-profile", photons=sc.n,
             **profile_fields(pb, sc.integ._fast_plan.unroll, card))
@@ -5405,11 +5433,18 @@ def march_entry(kind: str, checks: dict, rec: dict) -> dict:
     block and the surface stage over RPV): launches on its path, its largest
     state difference to the plain version (phase 55), the device time, plain
     time and bound of its path scene's mid-flight and tail blocks, and one
-    batch of its path beside the batch's bound."""
+    batch of its path beside the batch's bound; K3-M+S's also split, the
+    marching surface stage's own launches, device ms and bound a batch
+    beside the block kernel's ms."""
     scene = "3d" if kind == "march" else "3d_rpv"
     r, tail = checks["timed"][(scene, "mid")], checks["timed"][(scene, "tail")]
     bk = rec["batch"][kind]
     surface = kind == "march_surface"
+    stage = {}
+    if surface:
+        st = bk["stage"]
+        stage = {"batch_stage_launches": st["launches"], "batch_stage_ms": st["ms"],
+                 "batch_stage_bound_ms": st["bound"][0], "batch_block_ms": st["block_ms"]}
     return {"name": "fast_event_block_detectors_march" + ("_surface" if surface else ""),
             "route": "cuda", "source": "i3rc_tpu_torch/csrc/fast_event_block.cuh",
             "replaces": "i3rc_tpu/integrators/fastpath.py:1061 (shadow_trace, XLA inside the "
@@ -5422,7 +5457,8 @@ def march_entry(kind: str, checks: dict, rec: dict) -> dict:
             "batch_launches": bk["launches"], "batch_bound_ms": bk["bound"][0],
             "batch_march_steps": bk["census"]["steps"], "batch_rays": bk["census"]["rays"],
             "batch_idle_share": bk["idle"],
-            "batch_ray_loop_lane_use": bk["ray_use"]["steps"] / max(bk["ray_use"]["slots"], 1)}
+            "batch_ray_loop_lane_use": bk["ray_use"]["steps"] / max(bk["ray_use"]["slots"], 1),
+            **stage}
 
 
 
@@ -5430,8 +5466,8 @@ def march_entry(kind: str, checks: dict, rec: dict) -> dict:
 # Multi-device runs (ROADMAP item 19): run_batches over torch.distributed
 # ranks, exact resume, and the x-sharded domain tracer with its kernels, SD
 # (csrc/sharded_event_block.cu sharded_event_block_kernel: the whole block,
-# K events a lane and the glue around them), SR (shadow_advance_kernel: K
-# cell-DDA steps a shadow ray) and SP (shadow_pack_kernel: the rays' pack).  The
+# K events a lane and the glue around them) and SB (shadow_block_kernel: K
+# cell-DDA steps of each shadow ray in flight, then the rays' pack).  The
 # card is one H100: two gloo ranks share cuda:0 (gloo's buffers staged
 # through pinned host memory), and a world of one NCCL rank checks NCCL.
 
@@ -5469,13 +5505,13 @@ def _sharded_scenes():
 
 
 def ptxas_sharded(log: str) -> dict:
-    """SD's, SR's and SP's registers, own stack and spill bytes, CTAs per SM."""
+    """SD's and SB's registers, own stack and spill bytes, CTAs per SM."""
     out, name, own = {}, None, False
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'\w*(sharded_event_block|shadow_advance|shadow_pack)_kernel", line)
+                      r"'\w*(sharded_event_block|shadow_block)_kernel", line)
         if m:
-            name = {"sharded_event_block": "SD", "shadow_advance": "SR", "shadow_pack": "SP"}[m[1]]
+            name = {"sharded_event_block": "SD", "shadow_block": "SB"}[m[1]]
             out[name], own = {}, False
         elif "Compiling entry function" in line:
             name = None
@@ -5504,13 +5540,16 @@ def sd_bound(lane_events: int, launches: int, lanes: int, n_dirs: int, table_byt
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sr_bound(steps: int, launches: int, rays: int, escapes: int):
-    """(least ms, what bounds it) of SR's work: the steps' operations; every
-    slot's two flags read each launch, each moving ray's state read and
-    written once a launch (steps / K ray-launches at least), two float64
-    adds an escape."""
+def sb_bound(steps: int, launches: int, slots: int, escapes: int, rows: int, free: int):
+    """(least ms, what bounds it) of SB's work (SR's and SP's of the same
+    launches, the flags read once): the steps' operations; every slot's two
+    flags read each launch, each moving ray's state read and written once a
+    launch (steps / K ray-launches at least), two float64 adds an escape,
+    each packed row (six floats and its slot) and each free slot's index
+    written."""
     K = 8
-    n_bytes = launches * rays * 8 + (steps // K) * SR_STATE_ROWS * 8 + escapes * 16
+    n_bytes = (launches * slots * 8 + (steps // K) * SR_STATE_ROWS * 8 + escapes * 16
+               + rows * 28 + free * 4)
     alu, sfu = (steps * o for o in OPS_PER_SR_STEP)
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max(alu / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
@@ -5518,19 +5557,20 @@ def sr_bound(steps: int, launches: int, rays: int, escapes: int):
 
 
 def sharded_kernel_vs_twin(dev, card: str) -> dict:
-    """59. The whole block (SD's launch, then SR and SP) against its plain
-    version, and SR alone against its twin, bit for bit (the radiance
-    tallies within 1e-9 of their sum), at a mid-flight and a tail state of
-    a trace of the surface, volume and three-detector scenes on a world of
-    one on the card (its slab the whole domain)."""
+    """59. The whole block (SD's launch, then SB's) against its plain
+    version, and SB alone against its plain version (SR's steps, then SP's
+    pack), bit for bit (the radiance tallies within 1e-9 of their sum), at
+    a mid-flight and a tail state of a trace of the surface, volume and
+    three-detector scenes on a world of one on the card (its slab the whole
+    domain)."""
     ss = _sharded_scenes()
 
     h = ss.host("i3rc_tpu_torch")
     out = {"err": 0.0, "tally_err": 0.0}
     for case, (name, photons, lanes) in SHARD_CASES.items():
         st = ss.trace_states(ss.scene(name, h, 2), photons, lanes, dev)
-        check(len(st["block"]) == 2 and (not st["spec"].n_dirs or len(st["sr"]) == 2),
-              f"59 {case}: states block {[k[0] for k in st['block']]} sr {len(st['sr'])}")
+        check(len(st["block"]) == 2 and (not st["spec"].n_dirs or len(st["sb"]) == 2),
+              f"59 {case}: states block {[k[0] for k in st['block']]} sb {len(st['sb'])}")
         for r in ss.states_vs_twins(st):
             _twin_record(out, r, f"59 {case}")
             say(f"59 sharded-{r['kernel']}-vs-twin", scene=name, case=case, ranks=1,
@@ -5545,8 +5585,9 @@ def _twin_record(out: dict, r: dict, what: str) -> None:
         out["err"] = max(out["err"], r["max_abs_err"])
         out["tally_err"] = max(out["tally_err"], r["tally_abs_err"])
     else:
-        check(r["bit_equal"] and r["tally_abs_err"] <= 1e-9 * max(1.0, r["tally_sum"]),
-              f"{what} SR {r['state']}: {r}")
+        check(r["bit_equal"] and r["tally_abs_err"] <= 1e-9 * max(1.0, r["tally_sum"])
+              and (r["use"]["rays"], r["use"]["steps"]) == (r["rays"], r["steps"]),
+              f"{what} SB {r['state']}: {r}")
         out["tally_err"] = max(out["tally_err"], r["tally_abs_err"])
 
 
@@ -5560,7 +5601,10 @@ def _twin_fields(r: dict) -> dict:
                     tally_abs_err=f"{r['tally_abs_err']:.2e}")
     return dict(state=r["state"], kb=r["kb"], rays=r["rays"], steps=r["steps"],
                 escapes=r["escapes"], tagged=r["tagged"], bit_equal=r["bit_equal"],
-                tally_abs_err=f"{r['tally_abs_err']:.2e}")
+                tally_abs_err=f"{r['tally_abs_err']:.2e}", bins=r["n_bins"],
+                runs=r["use"]["runs"], kernel_rays=r["use"]["rays"],
+                kernel_steps=r["use"]["steps"],
+                ray_loop_lane_use=f"{r['use']['steps'] / max(r['use']['slots'], 1):.3f}")
 
 
 def _step_cloud_batches(mesh=None, offset: int = 0, n_batches: int = MESH_BATCHES, chunk=None,
@@ -5583,11 +5627,12 @@ def _sharded_run(ss, name: str, mesh, profile: bool) -> dict:
     the trace (trace_sharded's steps: the set-up of its ShardedTrace, the
     block loop, the finish), its summary, wall seconds, the block loop's
     wall seconds and blocks.  Profiled:
-    the same trace through its ShardedTrace, this rank's SD, SR and SP
-    device ms and every device kernel's (the device's busy time), the
-    counts of the bound (lane-events, ray steps and escapes, blocks), and
-    the block's and SR's inputs at a mid-flight and a tail block
-    ("_states": trace_states' dict without the tallies)."""
+    the same trace through its ShardedTrace, this rank's SD and SB device
+    ms and every device kernel's (the device's busy time), the counts of
+    the bound (lane-events, ray steps, escapes, packed rows and free slots,
+    blocks), SB's ray loop as the kernel counted it over the trace, and the
+    block's and SB's inputs at a mid-flight and a tail block ("_states":
+    trace_states' dict without the tallies)."""
     from i3rc_tpu_torch import PhotonSource
     from i3rc_tpu_torch.kernels import sharded_block as sb
     from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace
@@ -5617,63 +5662,66 @@ def _sharded_run(ss, name: str, mesh, profile: bool) -> dict:
     tr = ShardedTrace.create(sc["domain"], src, SHARD_PHOTONS, mesh,
                              n_lanes_per_shard=SHARD_LANES, seed=SEED, **kw)
     spec = tr.spec
-    escapes = []
-    sr = tr.shadow_advance
+    # Per SB launch, on the device: escapes, packed rows, free slots.
+    work = []
+    shadow = tr.shadow_block
 
-    def counted(spec_, pool, acc_int, acc_byc):
+    def counted(spec_, pool, bufs, acc_int, acc_byc):
         before = (pool.i[sb.QALIVE] != 0).sum()
-        sr(spec_, pool, acc_int, acc_byc)
-        escapes.append(before - (pool.i[sb.QALIVE] != 0).sum())
+        shadow(spec_, pool, bufs, acc_int, acc_byc)
+        row = bufs.counts[bufs.rank]
+        work.append(torch.stack([before - (pool.i[sb.QALIVE] != 0).sum(),
+                                 row[sb.WAIT_Q:sb.WAIT_Q + 2].clamp(max=bufs.cap).sum(),
+                                 row[sb.FREE_Q]]))
 
-    tr.shadow_advance = counted
+    tr.shadow_block = counted
     keep = ss.capture_states(tr)
+    use0 = sb.shadow_ray_use(mesh.device).clone()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         while tr.running():
             tr.block()
         torch.cuda.synchronize()
+    use = dict(zip(sb.SHADOW_USE, (sb.shadow_ray_use(mesh.device) - use0).tolist()))
     tr.finish()
     found = prof.key_averages()
     ms = lambda k: sum(e.self_device_time_total for e in found if k in e.key) / 1e3
     cnt = lambda k: sum(e.count for e in found if k in e.key)
     tables = sum(t.numel() * 4 for t in (spec.cells, spec.cubic, spec.fwd, spec.det))
-    return {"sd_ms": ms("sharded_event_block_kernel"), "sr_ms": ms("shadow_advance_kernel"),
-            "sp_ms": ms("shadow_pack_kernel"),
+    escapes, rows, free = (torch.stack(work).sum(0).tolist() if work else [0, 0, 0])
+    return {"sd_ms": ms("sharded_event_block_kernel"), "sb_ms": ms("shadow_block_kernel"),
             "device_ms_total": sum(e.self_device_time_total for e in found) / 1e3,
             "sd_seen": cnt("sharded_event_block_kernel"),
-            "sr_seen": cnt("shadow_advance_kernel"),
+            "sb_seen": cnt("shadow_block_kernel"),
             "lane_events": int(tr.state.i[sb.EVCT].sum()), "blocks": tr.kb,
             "steps": int(tr.pool.i[sb.QSTEPS].sum()) if spec.n_dirs else 0,
-            "escapes": int(sum(escapes)) if escapes else 0, "table_bytes": tables,
+            "escapes": escapes, "rows": rows, "free": free, "sb_use": use,
+            "table_bytes": tables,
             "_states": dict(spec=spec, key=tr.key, source=tr.source, albedo=tr.albedo,
-                            block=keep["block"], sr=keep["sr"])}
+                            block=keep["block"], sb=keep["sb"])}
 
 
 class _BlockInput:
-    """A kept block input's state, pool and buffers, as device_block_ms and
-    time_block_ms take a state: ``clone`` gives fresh copies."""
+    """A kept block input's state (None for SB's), pool and buffers, as
+    device_block_ms and time_block_ms take a state: ``clone`` gives fresh
+    copies."""
 
     def __init__(self, st, pool, bufs):
         self.st, self.pool, self.bufs = st, pool, bufs
 
     def clone(self) -> "_BlockInput":
-        return _BlockInput(self.st.clone(), self.pool.clone(), self.bufs.clone())
-
-
-def sp_bound(slots: int, rows: int, free: int) -> tuple:
-    """(least ms, what bounds it) of SP's work: every slot's two flags read,
-    each packed row (six floats and its slot) and each free slot's index
-    written."""
-    return 1e3 * (slots * 8 + rows * 28 + free * 4) / HBM_BYTES_PER_S, "bytes"
+        return _BlockInput(self.st and self.st.clone(), self.pool.clone(), self.bufs.clone())
 
 
 def _time_mid_launches(mesh, states: dict, checks: list) -> dict:
     """Rank 0 times the block's launches on the main path (profiler; 2^20
     lanes, its half slab) while the other ranks wait at a barrier, so that
     the card runs these launches alone: SD's whole block at the Landsat
-    trace's mid-flight and tail blocks, SR's launch at the graft trace's,
-    and SP's on the graft trace's mid-flight block after SD and SR; beside
-    each its plain version's time (CUDA events) and its bound from the
-    launch's counts.  The other ranks return {}."""
+    trace's mid-flight and tail blocks, SB's launch at the graft trace's;
+    beside each its plain version's time (CUDA events; SB's: SR's and then SP's) and
+    its bound from the launch's counts (SB's: sb_bound, and apart the
+    bounds of its steps and of its pack), and SB's ray loop as the kernel
+    counted it in phase 59's launch of the same input.  The other ranks
+    return {}."""
     import torch.distributed as dist
 
     from i3rc_tpu_torch.kernels import sharded_block as sb
@@ -5695,32 +5743,23 @@ def _time_mid_launches(mesh, states: dict, checks: list) -> dict:
                 ms=device_block_ms(run, x0, lambda: None, 5, kernel="sharded_event_block"),
                 plain_ms=time_block_ms(plain, x0, lambda: None, 2),
                 bound=sd_bound(r["lane_events"], 1, SHARD_LANES, spec.n_dirs, tables), kb=kb)
-        st = states["graft"]
-        spec, key, source, albedo = st["spec"], st["key"], st["source"], st["albedo"]
+        spec = states["graft"]["spec"]
         n = spec.nx_loc * spec.n_y * spec.n_dirs
         acc = lambda: tuple(torch.zeros(k, dtype=torch.float64, device=mesh.device)
                             for k in (n, n * (spec.n_comp + 1)))
-        for tag, (kb, pool) in zip(("mid", "tail"), st["sr"]):
-            r = got[("graft", "SR", tag)]
-            timed[f"SR_{tag}"] = dict(
-                ms=device_block_ms(lambda p, a: sb.shadow_advance(spec, p, *a), pool, acc, 5,
-                                   kernel="shadow_advance"),
-                plain_ms=time_block_ms(lambda p, a: sb.shadow_advance_reference(spec, p, *a),
-                                       pool, acc, 3),
-                bound=sr_bound(r["steps"], 1, pool.n_rays, r["escapes"]), kb=kb)
-        kb, plan, s0, pool0, bufs0 = st["block"][0]
-        x0 = _BlockInput(s0, pool0, bufs0).clone()
-        sb.sharded_event_block(spec, x0.st, x0.pool, x0.bufs, plan, key, kb, source, albedo)
-        sb.shadow_advance(spec, x0.pool, *acc())
-        q = x0.pool.i
-        rows = sum(min(int((q[sb.QTAG] == d).sum()), x0.bufs.cap) for d in sb.DIRS)
-        free = int(((q[sb.QALIVE] == 0) & (q[sb.QTAG] == 0)).sum())
-        timed["SP"] = dict(
-            ms=device_block_ms(lambda s, _: sb.shadow_pack(spec, s.st, s.pool, s.bufs), x0,
-                               lambda: None, 5, kernel="shadow_pack"),
-            plain_ms=time_block_ms(lambda s, _: sb.shadow_pack_reference(spec, s.pool, s.bufs),
-                                   x0, lambda: None, 3),
-            bound=sp_bound(x0.pool.n_rays, rows, free), kb=kb)
+        ss = _sharded_scenes()
+        run = lambda x, a: sb.shadow_block(spec, x.pool, x.bufs, *a)
+        for tag, (kb, pool, bufs) in zip(("mid", "tail"), states["graft"]["sb"]):
+            r = got[("graft", "SB", tag)]
+            x0 = _BlockInput(None, pool, bufs)
+            timed[f"SB_{tag}"] = dict(
+                ms=device_block_ms(run, x0, acc, 5, kernel="shadow_block"),
+                plain_ms=time_block_ms(lambda x, a: ss.shadow_block(spec, x.pool, x.bufs, *a,
+                                                                    plain=True), x0, acc, 3),
+                bound=sb_bound(r["steps"], 1, pool.n_rays, r["escapes"], r["rows"], r["free"]),
+                sr_bound=sb_bound(r["steps"], 1, pool.n_rays, r["escapes"], 0, 0),
+                sp_bound=sb_bound(0, 1, pool.n_rays, 0, r["rows"], r["free"]),
+                use=r["use"], kb=kb)
     dist.barrier(group=mesh.group)
     return timed
 
@@ -5728,9 +5767,9 @@ def _time_mid_launches(mesh, states: dict, checks: list) -> dict:
 def chip_world_job(mesh) -> dict:
     """A rank's job in phases 59 and 60-63 (two gloo ranks on cuda:0):
     run_batches on the mesh; the full-width Landsat scene and the graft
-    scene through trace_sharded with SD's, SR's and SP's launches counted
-    (the main path); each once more under the profiler, keeping the block's
-    and SR's inputs at a mid-flight and a tail block; those blocks against
+    scene through trace_sharded with SD's and SB's launches counted (the
+    main path); each once more under the profiler, keeping the block's and
+    SB's inputs at a mid-flight and a tail block; those blocks against
     their plain version on this rank's half slab (59, at the main path's
     shapes), and rank 0's launches timed alone."""
     ss = _sharded_scenes()
@@ -5744,8 +5783,7 @@ def chip_world_job(mesh) -> dict:
     sb.reset_launch_counters()
     for name in ("landsat", "graft"):
         out[name] = _sharded_run(ss, name, mesh, profile=False)
-    out["launches"] = {"SD": sb.sharded_event_block.launches, "SR": sb.shadow_advance.launches,
-                       "SP": sb.shadow_pack.launches}
+    out["launches"] = {"SD": sb.sharded_event_block.launches, "SB": sb.shadow_block.launches}
     states, out["checks"] = {}, []
     for name in ("landsat", "graft"):
         out[name].update(_sharded_run(ss, name, mesh, profile=True))
@@ -5773,7 +5811,7 @@ def mesh_paths(out: Path, card: str) -> dict:
     torch.cuda.synchronize()
     ranks = ss.join_world(ss.start_world(2, chip_world_job, (), device="cuda:0"), timeout=900)
 
-    # 59 (cont.). The whole block and SR against their plain versions on each
+    # 59 (cont.). The whole block and SB against their plain versions on each
     # rank's half slab of the main path's traces (2^20 lanes a rank,
     # interior x faces)
     twin = {"err": 0.0, "tally_err": 0.0}
@@ -5782,7 +5820,7 @@ def mesh_paths(out: Path, card: str) -> dict:
               f"59 rank {r['rank']} slabs {r['landsat']['nx_loc']}, {r['graft']['nx_loc']}")
         got = sorted((c["scene"], c["kernel"], c["state"]) for c in r["checks"])
         check(got == sorted((sc, k, t) for sc, k in (("landsat", "SD"), ("graft", "SD"),
-                                                       ("graft", "SR"))
+                                                       ("graft", "SB"))
                             for t in ("mid", "tail")), f"59 rank {r['rank']} states {got}")
         for c in r["checks"]:
             _twin_record(twin, c, f"59 rank {r['rank']} {c['scene']}")
@@ -5797,12 +5835,15 @@ def mesh_paths(out: Path, card: str) -> dict:
             say(f"59 sharded-{c['kernel']}-vs-twin", scene=c["scene"], ranks=2, rank=r["rank"],
                 nx_loc=r[c["scene"]]["nx_loc"], lanes=SHARD_LANES, **_twin_fields(c), **fields,
                 card=json.dumps(card))
-    check(set(ranks[0]["timed"]) == {"SD_mid", "SD_tail", "SR_mid", "SR_tail", "SP"},
+    check(set(ranks[0]["timed"]) == {"SD_mid", "SD_tail", "SB_mid", "SB_tail"},
           f"59 timed {sorted(ranks[0]['timed'])}")
-    t = ranks[0]["timed"]["SP"]
-    say("59 sharded-SP", scene="graft", ranks=2, rank=0, kb=t["kb"], lanes=SHARD_LANES,
-        device_ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.3f}",
-        bound_ms=f"{t['bound'][0]:.4f}", bound_by=t["bound"][1], card=json.dumps(card))
+    for tag in ("mid", "tail"):
+        t = ranks[0]["timed"][f"SB_{tag}"]
+        say("59 sharded-SB-launch", scene="graft", ranks=2, rank=0, state=tag, kb=t["kb"],
+            lanes=SHARD_LANES, device_ms=f"{t['ms']:.4f}", runs=t["use"]["runs"],
+            sr_bound_ms=f"{t['sr_bound'][0]:.4f}", sp_bound_ms=f"{t['sp_bound'][0]:.4f}",
+            ray_loop_lane_use=f"{t['use']['steps'] / max(t['use']['slots'], 1):.3f}",
+            card=json.dumps(card))
 
     # 60. a world of one NCCL rank against no mesh: the same bits; the
     # one-rank traces of 62 and 63 (no exchange, no other process)
@@ -5908,7 +5949,7 @@ def mesh_paths(out: Path, card: str) -> dict:
         check(abs(got[k] - p) <= 5 * sigma, f"62 Landsat {k}: {got[k]} vs {p} (sigma {sigma})")
     rec = {"landsat": _shard_record(ranks, "landsat"), "graft": _shard_record(ranks, "graft"),
            "one": {k: _shard_record([one], k) for k in ("landsat", "graft")},
-           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("SD", "SR", "SP")},
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("SD", "SB")},
            "twin": twin, "timed": ranks[0]["timed"]}
     o = one["landsat"]
     n1 = o["n_photons"]
@@ -5955,7 +5996,7 @@ def mesh_paths(out: Path, card: str) -> dict:
         lanes_a_rank=SHARD_LANES, intensity=",".join(f"{v:.5f}" for v in i_one),
         n_bad=o["n_bad"], **_shard_fields(rec["one"]["graft"]), card=json.dumps(card))
     say("62-63 launches", **rec["launches"])
-    check(all(rec["launches"][k] > 0 for k in ("SD", "SR", "SP")),
+    check(all(rec["launches"][k] > 0 for k in ("SD", "SB")),
           f"the sharded path launched {rec['launches']}")
     return rec
 
@@ -5963,26 +6004,29 @@ def mesh_paths(out: Path, card: str) -> dict:
 def _shard_record(ranks: list, name: str) -> dict:
     """The ranks' trace of a scene (two ranks, or one): photons/s (the
     slowest rank's wall time, the trace's set-up included), host ms a block
-    (the slowest rank's block loop over its blocks), SD's, SR's and SP's
-    device ms (every rank's kernels) and the bounds, and the device's idle
-    share over the block loop (one minus every rank's device time of the
-    profiled loop over the slowest rank's unprofiled loop)."""
+    (the slowest rank's block loop over its blocks), SD's and SB's device
+    ms (every rank's kernels) and the bounds, SB's launches and its ray
+    loop's lane use over the trace, and the device's idle share over the
+    block loop (one minus every rank's device time of the profiled loop
+    over the slowest rank's unprofiled loop)."""
     rs = [r[name] for r in ranks]
     n = rs[0]["n_photons"]
     sd_launches = sum(r["blocks"] for r in rs)
     sd = sd_bound(sum(r["lane_events"] for r in rs), sd_launches, SHARD_LANES, rs[0]["n_dirs"],
                   sum(r["table_bytes"] for r in rs))
-    sr = sr_bound(sum(r["steps"] for r in rs), sd_launches if rs[0]["n_dirs"] else 0,
-                  SHARD_LANES, sum(r["escapes"] for r in rs))
+    tot = lambda k: sum(r[k] for r in rs)
+    sbb = sb_bound(tot("steps"), sd_launches if rs[0]["n_dirs"] else 0, SHARD_LANES,
+                   tot("escapes"), tot("rows"), tot("free"))
+    use = {k: sum(r["sb_use"][k] for r in rs) for k in rs[0]["sb_use"]}
     seconds = max(r["seconds"] for r in rs)
     return {"photons_per_s": n / seconds, "seconds": seconds,
             "loop_seconds": max(r["loop_seconds"] for r in rs),
             "host_ms_per_block": max(r["host_ms_per_block"] for r in rs),
             "idle_share": 1.0 - sum(r["device_ms_total"] for r in rs)
             / (1e3 * max(r["loop_seconds"] for r in rs)),
-            "sd_ms": sum(r["sd_ms"] for r in rs), "sr_ms": sum(r["sr_ms"] for r in rs),
-            "sp_ms": sum(r["sp_ms"] for r in rs),
-            "sd_bound": sd, "sr_bound": sr, "blocks": rs[0]["blocks"],
+            "sd_ms": tot("sd_ms"), "sb_ms": tot("sb_ms"),
+            "sd_bound": sd, "sb_bound": sbb, "blocks": rs[0]["blocks"],
+            "sb_lane_use": use["steps"] / max(use["slots"], 1), "sb_launches": tot("sb_seen"),
             "lane_events": sum(r["lane_events"] for r in rs),
             "steps": sum(r["steps"] for r in rs)}
 
@@ -5994,49 +6038,55 @@ def _shard_fields(rec: dict) -> dict:
                 device_idle_share=f"{rec['idle_share']:.4f}",
                 sd_device_ms=f"{rec['sd_ms']:.3f}",
                 sd_bound_ms=f"{rec['sd_bound'][0]:.3f}", sd_bound_by=rec["sd_bound"][1],
-                sr_device_ms=f"{rec['sr_ms']:.3f}", sr_bound_ms=f"{rec['sr_bound'][0]:.3f}",
-                sr_bound_by=rec["sr_bound"][1], sp_device_ms=f"{rec['sp_ms']:.3f}",
+                sb_device_ms=f"{rec['sb_ms']:.3f}", sb_bound_ms=f"{rec['sb_bound'][0]:.3f}",
+                sb_bound_by=rec["sb_bound"][1], sb_launches=rec["sb_launches"],
+                sb_ray_loop_lane_use=f"{rec['sb_lane_use']:.3f}",
                 lane_events=rec["lane_events"], ray_steps=rec["steps"])
 
 
 def sharded_entry(kind: str, checks: dict, rec: dict) -> dict:
-    """The kernels-line entry of SD (the whole block), SR or SP: launches on
-    the sharded path (both ranks, phases 62-63), the largest difference to
-    the plain version (59, both the world of one and the two ranks: SD's
-    the block's state, SR's its tallies; SP's state is part of the
-    block's), rank 0's launches on the main path (SD on Landsat, SR and SP
-    on graft; 2^20 lanes, half the slab) timed alone at a mid-flight
-    (``ms``) and a tail block, the plain version's time and the bound;
-    beside them the per-trace device time of the path on two ranks sharing
-    the card and on one rank alone, each with its bound (SP: none), the
-    host ms a block and the device's idle share."""
-    t = rec["timed"][kind if kind == "SP" else f"{kind}_mid"]
-    tail = rec["timed"].get(f"{kind}_tail")
+    """The kernels-line entry of SD (the whole block) or SB (the shadow
+    rays' steps and pack, which merged SR and SP): launches on the sharded
+    path (both ranks, phases 62-63), the largest difference to the plain
+    version (59, both the world of one and the two ranks: SD's the block's
+    state, SB's its tallies), rank 0's launches on the main path (SD on
+    Landsat, SB on graft; 2^20 lanes, half the slab) timed alone at a
+    mid-flight (``ms``) and a tail block, the plain version's time and the
+    bound; beside them the per-trace device time of the path on two ranks
+    sharing the card and on one rank alone, each with its bound, the host
+    ms a block and the device's idle share; SB's ray loop's lane use and
+    its runs of tiles."""
+    t, tail = rec["timed"][f"{kind}_mid"], rec["timed"][f"{kind}_tail"]
     name = "landsat" if kind == "SD" else "graft"
     k = kind.lower()
     two, one = rec[name], rec["one"][name]
-    err = {"SD": "err", "SR": "tally_err", "SP": "err"}[kind]
-    out = {"name": {"SD": "sharded_event_block", "SR": "shadow_advance",
-                    "SP": "shadow_pack"}[kind], "route": "cuda",
+    err = {"SD": "err", "SB": "tally_err"}[kind]
+    out = {"name": {"SD": "sharded_event_block", "SB": "shadow_block"}[kind], "route": "cuda",
            "source": "i3rc_tpu_torch/csrc/sharded_event_block.cu",
            "replaces": "none: XLA, i3rc_tpu/parallel/sharded_domain.py:" + {
                "SD": "230 (event) and the glue of the body at :373",
-               "SR": "464", "SP": "358 (pack_send of the shadow rays, :529-557)"}[kind],
+               "SB": "464 (the shadow rays' K steps) and :358 (pack_send of the shadow rays, "
+                     ":529-557)"}[kind],
            "launches": rec["launches"][kind],
            "max_abs_err": max(checks[err], rec["twin"][err]),
            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
            "bound_by": t["bound"][1], "library_ms": None,
-           "batch_ms": two[f"{k}_ms"], "photons_per_s": two["photons_per_s"],
-           "one_rank_batch_ms": one[f"{k}_ms"], "one_rank_photons_per_s": one["photons_per_s"],
+           "tail_ms": tail["ms"], "tail_plain_ms": tail["plain_ms"],
+           "tail_bound_ms": tail["bound"][0],
+           "batch_ms": two[f"{k}_ms"], "batch_bound_ms": two[f"{k}_bound"][0],
+           "photons_per_s": two["photons_per_s"],
+           "one_rank_batch_ms": one[f"{k}_ms"], "one_rank_batch_bound_ms": one[f"{k}_bound"][0],
+           "one_rank_photons_per_s": one["photons_per_s"],
            "host_ms_per_block": two["host_ms_per_block"], "idle_share": two["idle_share"],
            "one_rank_host_ms_per_block": one["host_ms_per_block"],
            "one_rank_idle_share": one["idle_share"]}
-    if tail is not None:
-        out.update(tail_ms=tail["ms"], tail_plain_ms=tail["plain_ms"],
-                   tail_bound_ms=tail["bound"][0])
-    if kind != "SP":
-        out.update(batch_bound_ms=two[f"{k}_bound"][0],
-                   one_rank_batch_bound_ms=one[f"{k}_bound"][0])
+    if kind == "SB":
+        lane_use = lambda u: u["steps"] / max(u["slots"], 1)
+        out.update(merged=["shadow_advance (SR)", "shadow_pack (SP)"],
+                   ray_loop_lane_use=lane_use(t["use"]), runs=t["use"]["runs"],
+                   tail_ray_loop_lane_use=lane_use(tail["use"]),
+                   batch_ray_loop_lane_use=two["sb_lane_use"],
+                   one_rank_batch_ray_loop_lane_use=one["sb_lane_use"])
     return out
 
 

@@ -50,29 +50,26 @@
 //       below (a decoupled look-back, as a single-pass scan does): every
 //       tile below is held by a CTA that started first, so none waits on a
 //       CTA that has not started.
-//  * SR, shadow_advance_kernel: K exact cell-DDA steps of every shadow ray
-//    in flight in the rank's pool (sharded_domain.py:464-530, unrolled K
-//    times in the same body): the optical depth of the cell crossed, a ray
-//    past the slab's x face tagged to migrate (its tau carried), and an
-//    escaping ray's w exp(-tau) added to its exit column's float64
-//    radiance tallies, total and by component slot.  The lanes of a warp
-//    that add to one bin are summed first and one lane adds the sum
-//    (warp_red: a bin's lanes crowd when every ray of a detector leaves
-//    through few columns; one float64 atomic a lane cost PZ 4x, PERF.md).
-//  * SP, shadow_pack_kernel, after SR: the pool's free slots in slot order
-//    (the next prologue's and drain's slots), the first CAP tagged rays of
-//    each direction in slot order into the send buffer with their slots,
-//    and the ray side of this rank's row of the counts vector (the same
-//    tickets and look-back).
-// So a block is SD, and with detectors SR and SP, and the host reads one
-// counts vector a block (all-reduced over the ranks) and exchanges the
-// planned prefix of each send buffer.
+//  * SB, shadow_block_kernel: the shadow rays of the rank's pool, in one
+//    launch: K exact cell-DDA steps of every ray in flight
+//    (sharded_domain.py:464-530, unrolled K times in the same body; once
+//    SR, a kernel of its own): the optical depth of the cell crossed, a ray past the slab's x
+//    face tagged to migrate (its tau carried), an escaping ray's w exp(-tau)
+//    added to its exit column's float64 radiance tallies, total and by
+//    component slot; then the pool's pack (pack_send, :358 and :531-557;
+//    once SP, a second launch): the free slots in slot order (the next prologue's and
+//    drain's slots), the first CAP tagged rays of each direction in slot
+//    order into the send buffer with their slots, and the ray side of this
+//    rank's row of the counts vector.
+// So a block is SD, and with detectors SB, and the host reads one counts
+// vector a block (all-reduced over the ranks) and exchanges the planned
+// prefix of each send buffer.
 //
 // Draws (SD): event j of block kb reads Philox4x32-10 groups 2j and 2j + 1
 // at counter (lane, kb, group, STREAM_EVENT) under the key (seed, rank):
 // u0-u3 the first group's words, u4-u6 the second's (free path,
 // acceptance, absorption, cosine, azimuth, -, component), the twin's
-// philox_uniforms(key, kb, K, 7, L) layout.  SR and SP draw nothing.
+// philox_uniforms(key, kb, K, 7, L) layout.  SB draws nothing.
 //
 // What bounds them.  SD per live lane-event: two Philox calls (~200
 // integer operations), a logf where a new free path is drawn, four IEEE
@@ -80,13 +77,38 @@
 // collision the 16-byte cubic row, the rotation's square roots and
 // division, and per detector acosf, a 16-byte forward row and expf; the
 // lane state (7 + D floats and 9 ints) is read and written once a launch,
-// and the glue reads every lane's flags.  SR per ray step: the 4-byte
-// extinction of the cell, three divisions and the moves; per escape expf
-// and two float64 adds.  SP reads every slot's two flags.
+// and the glue reads every lane's flags.  SB: every slot's two flags read
+// once; per ray step the 4-byte extinction of the cell, three divisions and
+// the moves; per moving ray its state read and written once; per escape
+// expf and two float64 adds; per packed row 28 bytes, per free slot 4.
+// Its bound is a few microseconds; what held SR and SP at 20-30x it was
+// latency and idle lanes (PERF.md section 6): SR ran one thread a
+// slot over all 2^20 slots in ~5 waves, each warp with a ray running all K
+// steps though a ray on a slab two cells wide ends after ~2.2 (0.13 of its
+// thread-steps used), with two warp sums a step onto 64 float64 bins; SP
+// was a second grid of 4096 ticketed CTAs that read both flags again and
+// looked back over 4096 tiles.  So SB's CTA takes a run of T tiles (T from
+// the kernel's occupancy: one wave, 512 runs of 8 tiles at 2^20 slots and
+// 4 CTAs an SM), reads the flags of T tiles once, queues their rays in
+// flight in shared memory and pulls them, a warp's idle threads refilled
+// from the queue (a ray runs to its escape, tag or K-th step, so the
+// loop's thread slots follow the rays' steps); sums the escapes in a
+// histogram in shared memory and adds its nonzero bins once; and then packs
+// its run, looking back over the runs below it 256 at a time, the rows it
+// sends copied by all its threads at once.  The rays of a pool crowd its
+// low slots (the drain and the arrivals take the free slots in slot order:
+// at a tail block all in the first ~500 of 4096 tiles), so the tiles a CTA
+// traces are spread over the pool (run, run + n_runs, ...) and its run's
+// pack waits for the CTAs that traced them, which a cooperative launch
+// makes resident with it; a run's own tiles, traced by itself, left a few
+// CTAs with every ray (PERF.md section 6), and are what a pool past one
+// wave takes, no CTA then waiting on one that has not started.
 //
 // Float arithmetic follows the twins (sharded_block.sharded_event,
 // shadow_step and the block's glue) operation by operation, built with
-// --fmad=false.
+// --fmad=false.  Rays do not interact, so SB's queue order leaves the pool
+// bit-equal to the plain version's; only the order of the float64 sums
+// differs.
 
 #include "fast_event_block.cuh"
 
@@ -147,13 +169,13 @@ struct ShardParams {
   const float4* cubic;   // inverse-CDF cubic rows: row_c * n_seg + segment
   const float4* fwd;     // log-phase cubic rows: row_c * n_fwd + segment (detectors)
   const float4* det;     // (n_dirs): direction, 1 / (4 pi |mu_d|)
-  double* acc_int;       // SR: (nx_loc * n_y * n_dirs) radiance sums
-  double* acc_byc;       // SR: (nx_loc * n_y * n_dirs * (n_comp + 1)) by slot
+  double* acc_int;       // SB: (nx_loc * n_y * n_dirs) radiance sums
+  double* acc_byc;       // SB: (nx_loc * n_y * n_dirs * (n_comp + 1)) by slot
   int n_lanes, K, n_comp, n_seg, n_fwd, n_dirs, nx_loc, n_y, n_z, max_events;
   float x_lo, x_hi, x0, x_max, y0, y_max, z0, z_max, wx, wy, hi_push, lo_push;
   float inv_dx, inv_dy, inv_dz, dx, dy, dz, inv_max_ext, max_ext, nudge, fwd_scale;
   unsigned int key0, key1, kb;
-  // The whole block (SD) and the pack (SP): the buffers of
+  // The whole block (SD) and SB: the buffers of
   // kernels/sharded_block.py ShardBuffers, [0] of a direction +1, [1] -1.
   float* pool_f;         // (5, n_rays)
   int* pool_i;           // (4, n_rays)
@@ -236,77 +258,104 @@ __device__ __forceinline__ int cta_sum(int v) {
   return tot;
 }
 
-// Decoupled look-back over the tiles in ticket order: publishes the tile's
-// V counts (agg), then looks at the 32 tiles below it at a time, one a lane
-// of warp 0, each lane waiting until its tile has published: the nearest of
-// them with its inclusive prefix ends the look-back (its prefix and the
-// aggregates of the tiles above it are the sum), else the window's
-// aggregates are summed and the next 32 below are read.  Returns the sums
-// of the tiles below (excl) and publishes the tile's inclusive prefix.  A
-// record is the flag (epoch << 2 | 1 aggregate, | 2 inclusive), the
-// aggregates and the inclusive prefixes; the epoch, unique to a launch,
+// A status int read with acquire and written with release semantics at the
+// device's scope: what the writer stored before the release is visible to a
+// reader after its acquire.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A look-back record in `status` (SD's a tile, SB's a run): the flag (epoch
+// << 2 | 1 aggregate, | 2 inclusive), then the four aggregates and the four
+// inclusive prefixes, each an int4 read in one load.
+#define LB_FLAG 0
+#define LB_AGG 4
+#define LB_INC 8
+
+// Decoupled look-back over the CTAs in ticket order (SD's tiles, SB's runs):
+// publishes the CTA's counts (agg), then looks at the CTA_THREADS records
+// below it at a time, one a thread, each thread waiting until its record
+// has published (sleeping between its reads): the nearest record with its
+// inclusive prefix ends the look-back (its prefix and the aggregates of the
+// records above it are the sum), else the window's aggregates are summed
+// and the next window below is read.  Sets excl to the sums of the records
+// below (a reference: returned in registers, they spilled 4 bytes of SD's
+// epilogue) and publishes the CTA's inclusive prefix.  The epoch, unique to a launch,
 // makes a record of an earlier launch read as not yet written.  Looking
-// back one tile at a time (thread 0 alone) made a Landsat launch of 2^20
-// lanes 0.37 ms against 0.15 for its events (H100, PERF.md section 6): the
-// prefixes crossed the grid a tile a memory round trip.  Every thread of the
-// CTA calls it.  A function of its own (noinline), so that its registers
-// stay out of SD's event loop (inlined, SD bounded to 64 registers spilled
-// 16 bytes).
-template <int V>
-static __device__ __noinline__ void look_back(int* status, int epoch, int tile,
-                                              const int (&agg)[V], int (&excl)[V]) {
-  static_assert(1 + 2 * V <= SHARD_STATUS_INTS, "a look-back record holds 2 V + 1 ints");
-  __shared__ int sx[V];
-  volatile int* me = status + (size_t)tile * SHARD_STATUS_INTS;
-  if (threadIdx.x < 32) {
-    const int wl = threadIdx.x;
-    if (wl == 0 && tile > 0) {
-#pragma unroll
-      for (int q = 0; q < V; ++q) me[1 + q] = agg[q];
-      __threadfence();
-      me[0] = (epoch << 2) | 1;
-    }
-    int acc[V];
-#pragma unroll
-    for (int q = 0; q < V; ++q) acc[q] = 0;
-    for (int top = tile - 1; top >= 0; top -= 32) {
-      // Lane wl reads tile top - wl; a lane past tile 0 reads as an
-      // inclusive prefix of 0.
-      const int k = top - wl;
-      volatile int* st = status + (size_t)max(k, 0) * SHARD_STATUS_INTS;
-      int fl = 2;
-      if (k >= 0) {
-        do {
-          fl = st[0];
-        } while ((fl >> 2) != epoch || (fl & 3) == 0);
+// back one tile at a time (thread 0 alone) made a Landsat launch of SD 0.37
+// ms against 0.15 for its events (H100, PERF.md section 6): the prefixes
+// crossed the grid a tile a memory round trip; a window of 32 records, each
+// read an int at a time, made the last of SB's ~500 runs, which finish their
+// ray loops together, wait ~16 windows.  Every thread of the CTA calls it.
+// A function of its own (noinline), so that its registers stay out of SD's
+// event loop (inlined, SD bounded to 64 registers spilled 16 bytes).
+static __device__ __noinline__ void look_back(int* status, int epoch, int rec_no, int4 agg,
+                                              int4& excl) {
+  static_assert(LB_INC + 4 <= SHARD_STATUS_INTS, "a look-back record holds 12 ints");
+  __shared__ int sstop[CTA_WARPS];
+  __shared__ int4 sred[CTA_WARPS];
+  __shared__ int4 sx;
+  const int t = threadIdx.x, wl = t & 31, warp = t >> 5;
+  int* me = status + (size_t)rec_no * SHARD_STATUS_INTS;
+  if (t == 0 && rec_no > 0) {
+    *reinterpret_cast<int4*>(me + LB_AGG) = agg;
+    st_release(me + LB_FLAG, (epoch << 2) | 1);
+  }
+  int4 acc = make_int4(0, 0, 0, 0);
+  for (int top = rec_no - 1; top >= 0; top -= CTA_THREADS) {
+    // Thread t reads record top - t; a thread past record 0 reads as an
+    // inclusive prefix of 0.
+    const int k = top - t;
+    const int* rec = status + (size_t)max(k, 0) * SHARD_STATUS_INTS;
+    int fl = 2;
+    if (k >= 0) {
+      for (;;) {
+        fl = ld_acquire(rec + LB_FLAG);
+        if ((fl >> 2) == epoch && (fl & 3) != 0) break;
+        __nanosleep(64);
       }
-      __threadfence();
-      const unsigned inclusive = __ballot_sync(FULL_MASK, (fl & 3) == 2);
-      const int stop = inclusive ? __ffs(inclusive) - 1 : 32;
-      int v[V];
-#pragma unroll
-      for (int q = 0; q < V; ++q)
-        v[q] = k >= 0 && wl <= stop ? st[(wl == stop ? 1 + V : 1) + q] : 0;
-#pragma unroll
-      for (int q = 0; q < V; ++q) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_xor_sync(FULL_MASK, v[q], o);
-        acc[q] += v[q];
-      }
-      if (inclusive) break;
     }
-    if (wl == 0) {
+    const unsigned inclusive = __ballot_sync(FULL_MASK, (fl & 3) == 2);
+    if (wl == 0) sstop[warp] = inclusive ? __ffs(inclusive) - 1 : 32;
+    __syncthreads();
+    // The nearest record with its inclusive prefix ends the window.
+    int stop = CTA_THREADS;
+    for (int w = CTA_WARPS - 1; w >= 0; --w)
+      if (sstop[w] < 32) stop = w * 32 + sstop[w];
+    int4 v = make_int4(0, 0, 0, 0);
+    if (k >= 0 && t <= stop)
+      v = __ldcg(reinterpret_cast<const int4*>(rec + (t == stop ? LB_INC : LB_AGG)));
 #pragma unroll
-      for (int q = 0; q < V; ++q) me[1 + V + q] = acc[q] + agg[q];
-      __threadfence();
-      me[0] = (epoch << 2) | 2;
-#pragma unroll
-      for (int q = 0; q < V; ++q) sx[q] = acc[q];
+    for (int o = 16; o > 0; o >>= 1) {
+      v.x += __shfl_xor_sync(FULL_MASK, v.x, o);
+      v.y += __shfl_xor_sync(FULL_MASK, v.y, o);
+      v.z += __shfl_xor_sync(FULL_MASK, v.z, o);
+      v.w += __shfl_xor_sync(FULL_MASK, v.w, o);
     }
+    if (wl == 0) sred[warp] = v;
+    __syncthreads();
+    for (int w = 0; w < CTA_WARPS; ++w) {
+      acc.x += sred[w].x;
+      acc.y += sred[w].y;
+      acc.z += sred[w].z;
+      acc.w += sred[w].w;
+    }
+    __syncthreads();
+    if (stop < CTA_THREADS) break;
+  }
+  if (t == 0) {
+    *reinterpret_cast<int4*>(me + LB_INC) =
+        make_int4(acc.x + agg.x, acc.y + agg.y, acc.z + agg.z, acc.w + agg.w);
+    st_release(me + LB_FLAG, (epoch << 2) | 2);
+    sx = acc;
   }
   __syncthreads();
-#pragma unroll
-  for (int q = 0; q < V; ++q) excl[q] = sx[q];
+  excl = sx;
 }
 
 // Row i of the rows arriving in direction k: the inbox's n_in waiting rows
@@ -584,12 +633,13 @@ sharded_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
   pend = in ? iv[SD_PEND * L + lane] : 0;
   tag = in ? iv[SD_TAG * L + lane] : 0;
   const bool fl[3] = {pend != 0, tag == 1, tag == -1};
-  int rk[3], tot[3], ex[3];
+  int rk[3], tot[3];
   cta_ranks<3>(fl, rk, tot);
-  look_back<3>(p.status, p.epoch, tile, tot, ex);
-  if (D > 0 && pend && ex[0] + rk[0] < p.drain_cap) {
+  int4 ex;
+  look_back(p.status, p.epoch, tile, make_int4(tot[0], tot[1], tot[2], 0), ex);
+  if (D > 0 && pend && ex.x + rk[0] < p.drain_cap) {
     // The drain: record k into D free slots after the placed rays.
-    const int base = p.placed_q[0] + p.placed_q[1] + (ex[0] + rk[0]) * D;
+    const int base = p.placed_q[0] + p.placed_q[1] + (ex.x + rk[0]) * D;
     const int srf = iv[SD_PEND_SRF * L + lane], comp = iv[SD_PEND_COMP * L + lane];
     const float x = f[SD_X * L + lane], y = f[SD_Y * L + lane], z = f[SD_Z * L + lane];
     for (int d = 0; d < D; ++d) {
@@ -609,7 +659,7 @@ sharded_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
     // The first CAP tagged photons of each direction into the next send
     // buffer.
     const int k = tag == 1 ? 0 : 1;
-    const int g = ex[1 + k] + rk[1 + k];
+    const int g = (k ? ex.z : ex.y) + rk[1 + k];
     if (g < p.cap) {
       float* row = p.send_ph + (((size_t)npar * 2 + k) * p.cap + g) * PH_FIELDS;
       for (int c = 0; c < SD_TAU + 1; ++c) row[c] = f[c * L + lane];
@@ -624,8 +674,8 @@ sharded_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
     tn[T_FREE * n_tiles + tile] = n_free;
     tn[T_HI * n_tiles + tile] = tot[1];
     tn[T_LO * n_tiles + tile] = tot[2];
-    tn[T_PRE_HI * n_tiles + tile] = ex[1];
-    tn[T_PRE_LO * n_tiles + tile] = ex[2];
+    tn[T_PRE_HI * n_tiles + tile] = ex.y;
+    tn[T_PRE_LO * n_tiles + tile] = ex.z;
     tn[T_BUSY * n_tiles + tile] = n_busy;
   }
   __threadfence();
@@ -663,118 +713,333 @@ sharded_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
   }
 }
 
-__global__ void __launch_bounds__(CTA_THREADS)
-shadow_advance_kernel(float* __restrict__ qf, int* __restrict__ qi,
-                      const __grid_constant__ ShardParams p) {
-  const int r = blockIdx.x * CTA_THREADS + threadIdx.x;
-  const int R = p.n_lanes;
-  const bool in = r < R;
-  int alive = in ? qi[SR_ALIVE * R + r] : 0;
-  int tag = in ? qi[SR_TAG * R + r] : 0;
-  bool live = alive && tag == 0;
-  // Every thread of a warp with a ray in flight stays to the end: the
-  // tallies' warp sums need the whole warp.
-  if (!__any_sync(FULL_MASK, live)) return;
-  const int D = p.n_dirs, C = p.n_comp;
-  const int qdet = in ? qi[SR_DET * R + r] : 0;
-  const int d = qdet % D, slot = qdet / D;
-  const float4 dd = __ldg(p.det + d);
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f, qtau = 0.0f, qpf = 0.0f;
-  int steps = 0;
-  if (in) {
-    qx = qf[SR_X * R + r];
-    qy = qf[SR_Y * R + r];
-    qz = qf[SR_Z * R + r];
-    qtau = qf[SR_TAU * R + r];
-    qpf = qf[SR_PF * R + r];
-    steps = qi[SR_STEPS * R + r];
-  }
-  for (int k = 0; k < p.K; ++k) {
-    int bin = -1;
-    double contrib = 0.0;
-    if (live) {
-      ++steps;
-      const int ix = min(max((int)((qx - p.x_lo) * p.inv_dx), 0), p.nx_loc - 1);
-      const int iy = min(max((int)((qy - p.y0) * p.inv_dy), 0), p.n_y - 1);
-      const int iz = min(max((int)((qz - p.z0) * p.inv_dz), 0), p.n_z - 1);
-      const float ext = __ldg(p.cells + (size_t)((ix * p.n_y + iy) * p.n_z + iz) * (1 + 3 * C));
-      const float fx = p.x_lo + ((float)ix + (dd.x >= 0.0f ? 1.0f : 0.0f)) * p.dx;
-      const float fy = p.y0 + ((float)iy + (dd.y >= 0.0f ? 1.0f : 0.0f)) * p.dy;
-      const float fz = p.z0 + ((float)iz + (dd.z >= 0.0f ? 1.0f : 0.0f)) * p.dz;
-      const float s_x = fabsf(dd.x) >= DIR_EPS_F ? (fx - qx) / dd.x : HUGE_F;
-      const float s_y = fabsf(dd.y) >= DIR_EPS_F ? (fy - qy) / dd.y : HUGE_F;
-      const float s_z = fabsf(dd.z) >= DIR_EPS_F ? (fz - qz) / dd.z : HUGE_F;
-      const float s = fmaxf(fminf(fminf(s_x, s_y), s_z), 0.0f);
-      qtau = qtau + ext * s;
-      const float adv = s + s * EPS6_F + p.nudge;
-      float nqx = qx + dd.x * adv;
-      const float nqy = wrap_fast(qy + dd.y * adv, p.y0, p.y_max, p.wy);
-      const float nqz = qz + dd.z * adv;
-      const bool escaped = (dd.z > 0.0f && nqz >= p.z_max) || (dd.z < 0.0f && nqz <= p.z0);
-      if (escaped) {
-        // The exit column from the crossing point, before the x wrap.
-        const int eix = min(max((int)((nqx - p.x_lo) * p.inv_dx), 0), p.nx_loc - 1);
-        const int eiy = min(max((int)((nqy - p.y0) * p.inv_dy), 0), p.n_y - 1);
-        bin = (eix * p.n_y + eiy) * D + d;
-        contrib = (double)(qpf * expf(-qtau));
-        alive = 0;
-      }
-      const bool mig = !escaped && (nqx >= p.x_hi || nqx < p.x_lo);
-      nqx = wrap_fast(nqx, p.x0, p.x_max, p.wx);
-      if (mig) tag = dd.x >= 0.0f ? 1 : -1;
-      qx = nqx;
-      qy = nqy;
-      qz = nqz;
-      live = alive && tag == 0;
-    }
-    warp_red<false>(p.acc_int, bin, contrib);
-    warp_red<false>(p.acc_byc, bin < 0 ? -1 : bin * (C + 1) + slot, contrib);
-  }
-  if (in) {
-    qf[SR_X * R + r] = qx;
-    qf[SR_Y * R + r] = qy;
-    qf[SR_Z * R + r] = qz;
-    qf[SR_TAU * R + r] = qtau;
-    qi[SR_ALIVE * R + r] = alive;
-    qi[SR_TAG * R + r] = tag;
-    qi[SR_STEPS * R + r] = steps;
-  }
+// SB's design constants (see the note above).
+#define SB_MAX_TILES 8          // tiles of CTA_THREADS pool slots in a CTA's run, at most
+#define SB_SMEM_BINS 512        // the CTA's radiance histogram: acc_int's bins, then acc_byc's
+#define SB_REFILL_AT 8          // a warp refills when at most this many threads hold a ray
+// A slot's flag at the pack: free, a ray in flight, tagged +1, tagged -1.
+#define SB_FREE 0
+#define SB_LIVE 1
+#define SB_HI 2
+#define SB_LO 3
+// The ray loop's counts (the wrapper's shadow_ray_use): rays, their steps,
+// the warps' thread-step slots (32 a trip of a warp), and CTAs (runs).
+#define SB_USE_RAYS 0
+#define SB_USE_STEPS 1
+#define SB_USE_SLOTS 2
+#define SB_USE_RUNS 3
+
+__device__ __forceinline__ int sb_flag(int alive, int tag) {
+  return tag == 1 ? SB_HI : tag == -1 ? SB_LO : alive ? SB_LIVE : SB_FREE;
 }
 
-// SP: the pack of the pool after SR (see the note above).  One thread a
-// slot, the CTAs' tiles by ticket.
-__global__ void __launch_bounds__(CTA_THREADS)
-shadow_pack_kernel(const __grid_constant__ ShardParams p) {
-  const int tile = take_tile(p.ctl);
-  const int R = p.n_rays;
-  const int s = tile * CTA_THREADS + threadIdx.x;
-  const bool in = s < R;
+// A tile's int in `status` beside its look-back record: the epoch of the SB
+// launch that traced it.
+#define SB_DONE 15
+
+// SB: the K steps of every ray in flight and the pool's pack, one launch (see
+// the note above).  A CTA takes a run by ticket: T tiles of the pool in slot
+// order, which it packs, and T tiles whose rays it traces, the same tiles or,
+// with `interleave`, tiles run, run + n_runs, ... spread over the pool (a
+// pool's rays crowd its low slots, which the drain and the arrivals fill
+// first).  The traced tiles' flags are read once and their rays in flight
+// queued in shared memory; the CTA's threads pull the queue's rays, each ray
+// run to its escape, its tag or its K-th step, a warp refilling its idle
+// threads when at most SB_REFILL_AT still hold a ray (G+E's gen_flush, K3-M's
+// march_flush); an escape's w exp(-tau) is summed where the warp meets to
+// refill (converged: warp_red), into the CTA's histogram in shared memory
+// (smem) or, past SB_SMEM_BINS bins, into device memory.  Each traced tile is
+// then marked done (its status int SB_DONE set to the launch's epoch); the
+// pack waits for its run's tiles to be done, reads their final flags, ranks
+// them in slot order and looks back over the runs below (look_back).
+// With `interleave` a CTA may wait on a tile traced by a CTA with a later
+// ticket: the host sets it only in a cooperative launch, whose CTAs are all
+// resident at once.
+__global__ void __launch_bounds__(CTA_THREADS, 4)
+shadow_block_kernel(const __grid_constant__ ShardParams p, int T, int smem, int interleave,
+                    unsigned long long* ray_use) {
+  // The traced tiles' rays (slots); in the pack, the slots of the rows to send.
+  __shared__ int queue[SB_MAX_TILES * CTA_THREADS];
+  __shared__ int row_at[SB_MAX_TILES * CTA_THREADS];       // the pack: each row's place
+  __shared__ unsigned char flag[SB_MAX_TILES * CTA_THREADS];
+  __shared__ double hist[SB_SMEM_BINS];
+  __shared__ int wcount[4][SB_MAX_TILES * CTA_WARPS];     // flags a warp-tile, then prefixes
+  __shared__ int qn[3];                                    // rays queued, next dealt; rows
+  __shared__ unsigned long long use[2];
+  __shared__ int run_tot[4];
+  const int run = take_tile(p.ctl);
+  const int t = threadIdx.x, wl = t & 31, warp = t >> 5;
+  const int R = p.n_rays, D = p.n_dirs, C = p.n_comp;
   const int n_tiles = (R + CTA_THREADS - 1) / CTA_THREADS;
-  const int alive = in ? p.pool_i[SR_ALIVE * R + s] : 0;
-  const int tag = in ? p.pool_i[SR_TAG * R + s] : 0;
-  const bool fl[4] = {in && !alive && !tag, tag == 1, tag == -1, alive || tag};
-  int rk[4], tot[4], ex[4];
-  cta_ranks<4>(fl, rk, tot);
-  look_back<4>(p.status, p.epoch, tile, tot, ex);
-  if (fl[0]) p.free_q[ex[0] + rk[0]] = s;
-  if (tag != 0) {
-    const int k = tag == 1 ? 0 : 1;
-    const int g = ex[1 + k] + rk[1 + k];
-    if (g < p.cap) {
-      float* row = p.send_q + ((size_t)k * p.cap + g) * Q_FIELDS;
-      for (int c = 0; c < 5; ++c) row[c] = p.pool_f[c * R + s];
-      row[5] = (float)p.pool_i[SR_DET * R + s];
-      p.tag_q[k * p.cap + g] = s;
+  const int n_runs = (n_tiles + T - 1) / T;
+  const int n_int = p.nx_loc * p.n_y * D;
+  const int n_bins = smem ? n_int * (C + 2) : 0;
+  float* __restrict__ qf = p.pool_f;
+  int* __restrict__ qi = p.pool_i;
+  int* __restrict__ status = p.status;
+  // Traced tile j of this CTA (past the pool: none).
+  auto traced = [&](int j) { return interleave ? run + j * n_runs : run * T + j; };
+  for (int k = t; k < n_bins; k += CTA_THREADS) hist[k] = 0.0;
+  if (t < 3) qn[t] = 0;
+  if (t < 2) use[t] = 0ull;
+  __syncthreads();
+  {
+    // The traced tiles' flags, read once, and their rays in flight queued.
+    int alive[SB_MAX_TILES], tag[SB_MAX_TILES];
+#pragma unroll
+    for (int j = 0; j < SB_MAX_TILES; ++j) {
+      const int s = traced(j) * CTA_THREADS + t;
+      const bool in = j < T && traced(j) < n_tiles && s < R;
+      alive[j] = in ? qi[SR_ALIVE * R + s] : 0;
+      tag[j] = in ? qi[SR_TAG * R + s] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < SB_MAX_TILES; ++j) {
+      const bool live = alive[j] && tag[j] == 0;
+      const unsigned m = __ballot_sync(FULL_MASK, live);
+      if (m) {
+        const int lead = __ffs(m) - 1;
+        int base = 0;
+        if (wl == lead) base = atomicAdd(qn, __popc(m));
+        base = __shfl_sync(FULL_MASK, base, lead);
+        if (live) queue[base + __popc(m & ((1u << wl) - 1u))] = traced(j) * CTA_THREADS + t;
+      }
     }
   }
-  if (tile == n_tiles - 1 && threadIdx.x == 0) {
-    // The last tile's inclusive prefixes are the pool's totals; every
+  __syncthreads();
+
+  // The ray loop.  A ray's arithmetic is shadow_step's.
+  const int n = qn[0];
+  unsigned steps = 0, slots = 0;     // this warp's (lane 0's)
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f, qtau = 0.0f, qpf = 0.0f;
+  float4 dd = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int sl = 0, d = 0, slot = 0, k = 0, nst = 0;
+  // bin: the exit bin of the ray that escaped at the last trip, or -1.
+  int bin = -1;
+  double contrib = 0.0;
+  bool act = false, more = n > 0;
+#pragma unroll 1
+  for (;;) {
+    const int bk = bin < 0 ? -1 : bin * (C + 1) + slot;
+    if (smem) {
+      warp_red<true>(hist, bin, contrib);
+      warp_red<true>(hist + n_int, bk, contrib);
+    } else {
+      warp_red<false>(p.acc_int, bin, contrib);
+      warp_red<false>(p.acc_byc, bk, contrib);
+    }
+    bin = -1;
+    const bool want = !act && more;
+    const unsigned wm = __ballot_sync(FULL_MASK, want);
+    if (wm) {
+      const int lead = __ffs(wm) - 1;
+      int r0 = 0;
+      if (wl == lead) r0 = atomicAdd(qn + 1, __popc(wm));
+      r0 = __shfl_sync(FULL_MASK, r0, lead);
+      if (want) {
+        const int r = r0 + __popc(wm & ((1u << wl) - 1u));
+        more = r < n;
+        if (more) {
+          sl = queue[r];
+          qx = qf[SR_X * R + sl];
+          qy = qf[SR_Y * R + sl];
+          qz = qf[SR_Z * R + sl];
+          qtau = qf[SR_TAU * R + sl];
+          qpf = qf[SR_PF * R + sl];
+          const int qdet = qi[SR_DET * R + sl];
+          d = qdet % D;
+          slot = qdet / D;
+          dd = __ldg(p.det + d);
+          nst = qi[SR_STEPS * R + sl];
+          k = 0;
+          act = true;
+        }
+      }
+    }
+    if (!__any_sync(FULL_MASK, act)) break;
+    const bool left = __any_sync(FULL_MASK, more);
+#pragma unroll 1
+    for (;;) {
+      steps += __popc(__ballot_sync(FULL_MASK, act));
+      slots += 32;
+      if (act) {
+        ++nst;
+        ++k;
+        const int ix = min(max((int)((qx - p.x_lo) * p.inv_dx), 0), p.nx_loc - 1);
+        const int iy = min(max((int)((qy - p.y0) * p.inv_dy), 0), p.n_y - 1);
+        const int iz = min(max((int)((qz - p.z0) * p.inv_dz), 0), p.n_z - 1);
+        const float ext = __ldg(p.cells + (size_t)((ix * p.n_y + iy) * p.n_z + iz) * (1 + 3 * C));
+        const float fx = p.x_lo + ((float)ix + (dd.x >= 0.0f ? 1.0f : 0.0f)) * p.dx;
+        const float fy = p.y0 + ((float)iy + (dd.y >= 0.0f ? 1.0f : 0.0f)) * p.dy;
+        const float fz = p.z0 + ((float)iz + (dd.z >= 0.0f ? 1.0f : 0.0f)) * p.dz;
+        const float s_x = fabsf(dd.x) >= DIR_EPS_F ? (fx - qx) / dd.x : HUGE_F;
+        const float s_y = fabsf(dd.y) >= DIR_EPS_F ? (fy - qy) / dd.y : HUGE_F;
+        const float s_z = fabsf(dd.z) >= DIR_EPS_F ? (fz - qz) / dd.z : HUGE_F;
+        const float s = fmaxf(fminf(fminf(s_x, s_y), s_z), 0.0f);
+        qtau = qtau + ext * s;
+        const float adv = s + s * EPS6_F + p.nudge;
+        float nqx = qx + dd.x * adv;
+        const float nqy = wrap_fast(qy + dd.y * adv, p.y0, p.y_max, p.wy);
+        const float nqz = qz + dd.z * adv;
+        const bool escaped = (dd.z > 0.0f && nqz >= p.z_max) || (dd.z < 0.0f && nqz <= p.z0);
+        if (escaped) {
+          // The exit column from the crossing point, before the x wrap.
+          const int eix = min(max((int)((nqx - p.x_lo) * p.inv_dx), 0), p.nx_loc - 1);
+          const int eiy = min(max((int)((nqy - p.y0) * p.inv_dy), 0), p.n_y - 1);
+          bin = (eix * p.n_y + eiy) * D + d;
+          contrib = (double)(qpf * expf(-qtau));
+        }
+        const bool mig = !escaped && (nqx >= p.x_hi || nqx < p.x_lo);
+        nqx = wrap_fast(nqx, p.x0, p.x_max, p.wx);
+        qx = nqx;
+        qy = nqy;
+        qz = nqz;
+        if (escaped || mig || k >= p.K) {
+          // The ray's state back to its slot.
+          qf[SR_X * R + sl] = qx;
+          qf[SR_Y * R + sl] = qy;
+          qf[SR_Z * R + sl] = qz;
+          qf[SR_TAU * R + sl] = qtau;
+          qi[SR_STEPS * R + sl] = nst;
+          if (escaped) qi[SR_ALIVE * R + sl] = 0;
+          if (mig) qi[SR_TAG * R + sl] = dd.x >= 0.0f ? 1 : -1;
+          act = false;
+        }
+      }
+      const unsigned am = __ballot_sync(FULL_MASK, act);
+      if (am == 0u || (left && __popc(am) <= SB_REFILL_AT)) break;
+    }
+  }
+  if (wl == 0) {
+    atomicAdd(use, (unsigned long long)steps);
+    atomicAdd(use + 1, (unsigned long long)slots);
+  }
+  // The traced tiles done: the CTA's stores made visible with the marks.
+  __syncthreads();
+  if (t < T && traced(t) < n_tiles)
+    st_release(status + (size_t)traced(t) * SHARD_STATUS_INTS + SB_DONE, p.epoch);
+  if (t == 0 && ray_use) {
+    atomicAdd(ray_use + SB_USE_RAYS, (unsigned long long)n);
+    atomicAdd(ray_use + SB_USE_STEPS, use[0]);
+    atomicAdd(ray_use + SB_USE_SLOTS, use[1]);
+    atomicAdd(ray_use + SB_USE_RUNS, 1ull);
+  }
+  // The histogram's nonzero bins into the tallies, once a CTA.
+  for (int b = t; b < n_bins; b += CTA_THREADS) {
+    const double v = hist[b];
+    if (v != 0.0) tally_add(b < n_int ? p.acc_int + b : p.acc_byc + (b - n_int), v);
+  }
+
+  // The pack of the run's tiles, once each is done: their final flags (read
+  // past the L1, other CTAs may have traced them) counted a warp-tile at a
+  // time (wcount), scanned in slot order, the runs below looked back over,
+  // then each slot's rank.
+  const int s0 = run * T * CTA_THREADS;
+  if (t < T && run * T + t < n_tiles) {
+    const int* done = status + (size_t)(run * T + t) * SHARD_STATUS_INTS + SB_DONE;
+    while (ld_acquire(done) != p.epoch) __nanosleep(64);
+  }
+  __syncthreads();
+  {
+    int alive[SB_MAX_TILES], tag[SB_MAX_TILES];
+#pragma unroll
+    for (int j = 0; j < SB_MAX_TILES; ++j) {
+      const int s = s0 + j * CTA_THREADS + t;
+      const bool in = j < T && s < R;
+      alive[j] = in ? __ldcg(qi + SR_ALIVE * R + s) : 0;
+      tag[j] = in ? __ldcg(qi + SR_TAG * R + s) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < SB_MAX_TILES; ++j) {
+      if (j >= T) break;
+      const bool in = s0 + j * CTA_THREADS + t < R;
+      const int fl = sb_flag(alive[j], tag[j]);
+      flag[j * CTA_THREADS + t] = (unsigned char)fl;
+      const unsigned mf = __ballot_sync(FULL_MASK, in && fl == SB_FREE);
+      const unsigned mh = __ballot_sync(FULL_MASK, fl == SB_HI);
+      const unsigned ml = __ballot_sync(FULL_MASK, fl == SB_LO);
+      const unsigned mb = __ballot_sync(FULL_MASK, in && fl != SB_FREE);
+      if (wl < 4)
+        wcount[wl][j * CTA_WARPS + warp] = __popc(wl == 0 ? mf : wl == 1 ? mh : wl == 2 ? ml : mb);
+    }
+  }
+  __syncthreads();
+  const int nw = T * CTA_WARPS;
+  if (warp < 4) {
+    // Warp q: the exclusive prefixes of flag q over the run's warp-tiles,
+    // two a lane (nw <= 64).
+    int* w = wcount[warp];
+    const int a = 2 * wl < nw ? w[2 * wl] : 0;
+    const int b = 2 * wl + 1 < nw ? w[2 * wl + 1] : 0;
+    int inc = a + b;
+#pragma unroll
+    for (int sh = 1; sh < 32; sh <<= 1) {
+      const int v = __shfl_up_sync(FULL_MASK, inc, sh);
+      if (wl >= sh) inc += v;
+    }
+    const int ex = inc - a - b;
+    if (2 * wl < nw) w[2 * wl] = ex;
+    if (2 * wl + 1 < nw) w[2 * wl + 1] = ex + a;
+    if (wl == 31) run_tot[warp] = inc;
+  }
+  __syncthreads();
+  const int4 tot = make_int4(run_tot[0], run_tot[1], run_tot[2], run_tot[3]);
+  int4 ex;
+  look_back(status, p.epoch, run, tot, ex);
+  int* __restrict__ free_q = p.free_q;
+  int* __restrict__ tag_q = p.tag_q;
+  float* __restrict__ send_q = p.send_q;
+#pragma unroll
+  for (int j = 0; j < SB_MAX_TILES; ++j) {
+    if (j >= T) break;
+    const int s = s0 + j * CTA_THREADS + t;
+    const bool in = s < R;
+    const int fl = flag[j * CTA_THREADS + t];
+    const unsigned below = (1u << wl) - 1u;
+    const unsigned mf = __ballot_sync(FULL_MASK, in && fl == SB_FREE);
+    const unsigned mh = __ballot_sync(FULL_MASK, fl == SB_HI);
+    const unsigned ml = __ballot_sync(FULL_MASK, fl == SB_LO);
+    const int wt = j * CTA_WARPS + warp;
+    if (in && fl == SB_FREE) free_q[ex.x + wcount[0][wt] + __popc(mf & below)] = s;
+    // The first CAP tagged rays of each direction: their rows' places listed,
+    // the rows copied below by all the CTA's threads at once, so that the
+    // loads of the run's rows overlap.
+    const int q = fl == SB_HI ? 0 : 1;
+    const int g = (q ? ex.z : ex.y) + wcount[1 + q][wt] + __popc((q ? ml : mh) & below);
+    const bool send = (fl == SB_HI || fl == SB_LO) && g < p.cap;
+    const unsigned ms = __ballot_sync(FULL_MASK, send);
+    if (ms) {
+      const int lead = __ffs(ms) - 1;
+      int base = 0;
+      if (wl == lead) base = atomicAdd(qn + 2, __popc(ms));
+      base = __shfl_sync(FULL_MASK, base, lead);
+      if (send) {
+        const int i = base + __popc(ms & below);
+        queue[i] = s;
+        row_at[i] = q * p.cap + g;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < qn[2]; i += CTA_THREADS) {
+    const int s = queue[i], at = row_at[i];
+    float v[Q_FIELDS];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) v[c] = __ldcg(qf + c * R + s);
+    v[5] = (float)__ldcg(qi + SR_DET * R + s);
+    float* row = send_q + (size_t)at * Q_FIELDS;
+#pragma unroll
+    for (int c = 0; c < Q_FIELDS; ++c) row[c] = v[c];
+    tag_q[at] = s;
+  }
+  if (run == n_runs - 1 && t == 0) {
+    // The last run's inclusive prefixes are the pool's totals; every
     // ticket is taken.
     long long* row = p.counts + (size_t)p.rank * N_COUNTS;
-    row[C_FREE_Q] = ex[0] + tot[0];
-    row[C_WAIT_Q] = ex[1] + tot[1];
-    row[C_WAIT_Q + 1] = ex[2] + tot[2];
-    row[C_BUSY_Q] = ex[3] + tot[3];
+    row[C_FREE_Q] = ex.x + tot.x;
+    row[C_WAIT_Q] = ex.y + tot.y;
+    row[C_WAIT_Q + 1] = ex.z + tot.z;
+    row[C_BUSY_Q] = ex.w + tot.w;
     p.ctl[0] = 0;
   }
 }
@@ -804,27 +1069,51 @@ int i3rc_sharded_event_block(float* f, int* i, const ShardParams* params, void* 
   return (int)cudaGetLastError();
 }
 
-// One launch of SR (params->K DDA steps of each of params->n_lanes rays).
-int i3rc_shadow_advance(float* qf, int* qi, const ShardParams* params, void* stream) {
+// One launch of SB (params->K DDA steps of each ray in flight of the
+// params->n_rays pool slots, then the pool's pack): runs of as many tiles of
+// CTA_THREADS slots a CTA as make one wave of the kernel's resident CTAs, at
+// most SB_MAX_TILES.  Within one wave the traced tiles are spread over the
+// pool, so a CTA's pack may wait on a CTA with a later ticket: that launch is
+// cooperative, which makes every CTA resident at once or fails
+// (cudaErrorCooperativeLaunchTooLarge) instead of hanging.  Past one wave
+// each CTA traces its own run's tiles and waits only on CTAs that started
+// before it.  ray_use (4 counts, or null) adds the ray loop's counts.
+int i3rc_shadow_block(const ShardParams* params, unsigned long long* ray_use, void* stream) {
   const ShardParams& p = *params;
-  if (p.K < 1 || p.n_lanes < 1 || p.n_comp < 1 || p.n_dirs < 1 || p.det == nullptr
-      || p.acc_int == nullptr || p.acc_byc == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (p.n_lanes + CTA_THREADS - 1) / CTA_THREADS;
-  shadow_advance_kernel<<<blocks, CTA_THREADS, 0, (cudaStream_t)stream>>>(qf, qi, p);
-  return (int)cudaGetLastError();
-}
-
-// One launch of SP over params->n_rays pool slots.
-int i3rc_shadow_pack(const ShardParams* params, void* stream) {
-  const ShardParams& p = *params;
-  if (p.n_rays < 1 || p.pool_f == nullptr || p.pool_i == nullptr || p.free_q == nullptr
+  if (p.K < 1 || p.n_rays < 1 || p.n_comp < 1 || p.n_dirs < 1 || p.det == nullptr
+      || p.cells == nullptr || p.acc_int == nullptr || p.acc_byc == nullptr
+      || p.pool_f == nullptr || p.pool_i == nullptr || p.free_q == nullptr
       || p.tag_q == nullptr || p.send_q == nullptr || p.status == nullptr || p.ctl == nullptr
       || p.counts == nullptr || p.cap < 1 || p.rank < 0 || p.rank >= p.n_ranks
       || p.epoch < 1 || p.epoch >= (1 << 29))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (p.n_rays + CTA_THREADS - 1) / CTA_THREADS;
-  shadow_pack_kernel<<<blocks, CTA_THREADS, 0, (cudaStream_t)stream>>>(p);
+  // The CTAs of one wave, once a device.
+  static int wave_dev = -1, wave = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev != wave_dev) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shadow_block_kernel, CTA_THREADS,
+                                                      0);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    wave = per_sm * sms > 1 ? per_sm * sms : 1;
+    wave_dev = dev;
+  }
+  const int n_tiles = (p.n_rays + CTA_THREADS - 1) / CTA_THREADS;
+  const int fit = (n_tiles + wave - 1) / wave;
+  int T = fit < SB_MAX_TILES ? fit : SB_MAX_TILES;
+  const int runs = (n_tiles + T - 1) / T;
+  int smem = p.nx_loc * p.n_y * p.n_dirs * (p.n_comp + 2) <= SB_SMEM_BINS;
+  int interleave = runs <= wave;
+  if (interleave) {
+    void* args[] = {const_cast<ShardParams*>(&p), &T, &smem, &interleave, &ray_use};
+    return (int)cudaLaunchCooperativeKernel((const void*)shadow_block_kernel, dim3(runs),
+                                            dim3(CTA_THREADS), args, 0, (cudaStream_t)stream);
+  }
+  shadow_block_kernel<<<runs, CTA_THREADS, 0, (cudaStream_t)stream>>>(p, T, smem, interleave,
+                                                                         ray_use);
   return (int)cudaGetLastError();
 }
 

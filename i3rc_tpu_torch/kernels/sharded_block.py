@@ -1,13 +1,13 @@
-"""The sharded tracer's kernels: the whole block SD, the shadow-ray advance
-SR and the rays' pack SP, each beside its plain PyTorch version.
+"""The sharded tracer's kernels: the whole block SD and the shadow-ray
+kernel SB (the rays' steps, then their pack), each beside its plain
+PyTorch version.
 
 The x-sharded domain tracer (``parallel/sharded_domain.py``) holds one
 x-slab of the per-cell optics on each rank.  Its block is XLA in the JAX
 package (``i3rc_tpu/parallel/sharded_domain.py:230-363``, the event,
 ``:464-530``, the shadow-ray steps, and the glue around them, all inside
 the ``lax.while_loop`` at ``:713``); it has no TPU kernel.  Here it is
-three hand-written Hopper kernels (``csrc/sharded_event_block.cu``), one
-thread a lane or pool slot:
+two hand-written Hopper kernels (``csrc/sharded_event_block.cu``):
 
   * ``sharded_event_block`` (SD), the whole block in one launch: the rows
     the host sent leave, the arrived rows take free lanes and pool slots,
@@ -25,15 +25,17 @@ thread a lane or pool slot:
     event budget (``sharded_events_reference``); then the flush into the
     float64 tallies, the surface record and revive, the drain, the tagged
     photons packed into the send buffers and the counts the host plans the
-    next block with (``block_epilogue_reference``);
-  * ``shadow_advance`` (SR): K exact cell-DDA steps of each shadow ray of
-    the pool in the local slab, the optical depth accumulated, a ray that
-    crosses the slab's x face tagged to migrate, and an escaping ray's
-    w exp(-tau) added to its exit column's float64 radiance tallies, the
-    lanes of a warp that add to one bin summed first (``warp_red``);
-  * ``shadow_pack`` (SP), after SR: the tagged rays packed into the send
-    buffers, the pool's free slots listed, the counts' ray side
-    (``shadow_pack_reference``).
+    next block with (``block_epilogue_reference``); one thread a lane;
+  * ``shadow_block`` (SB), the pool's shadow rays in one launch: K exact
+    cell-DDA steps of each ray in flight in the local slab, the optical
+    depth accumulated, a ray that crosses the slab's x face tagged to
+    migrate, and an escaping ray's w exp(-tau) added to its exit column's
+    float64 radiance tallies (``shadow_advance_reference``); then the tagged
+    rays packed into the send buffers, the pool's free slots listed, the
+    counts' ray side (``shadow_pack_reference``).  A CTA takes a run of
+    tiles, queues its rays in flight in shared memory and pulls them, a
+    warp refilling its idle threads, so that a ray runs to its escape, its
+    tag or its K-th step; ``shadow_ray_use`` counts that loop.
 
 On a CUDA tensor a wrapper launches its kernel and raises if the build or
 the launch fails; on a CPU tensor it runs the plain version, which draws
@@ -282,7 +284,7 @@ def sharded_events_reference(spec: ShardSpec, st: ShardState, key: PhiloxKey, kb
 def shadow_step(spec: ShardSpec, pool: RayPool, acc_int: torch.Tensor,
                 acc_byc: torch.Tensor) -> None:
     """One exact cell-DDA step of every shadow ray in flight, in place:
-    the plain version of SR's step."""
+    the plain version of SB's step."""
     qf, qi = pool.f, pool.i
     step = (qi[QALIVE] != 0) & (qi[QTAG] == 0)
     D, C = spec.n_dirs, spec.n_comp
@@ -328,13 +330,14 @@ def shadow_step(spec: ShardSpec, pool: RayPool, acc_int: torch.Tensor,
 
 def shadow_advance_reference(spec: ShardSpec, pool: RayPool, acc_int: torch.Tensor,
                              acc_byc: torch.Tensor) -> None:
-    """SR's plain version: K steps of the pool in place, tallies added."""
+    """The plain version of SB's ray loop: K steps of the pool in place,
+    tallies added."""
     for _ in range(spec.K):
         shadow_step(spec, pool, acc_int, acc_byc)
 
 
 # ---------------------------------------------------------------------------
-# The whole block: SD's prologue and epilogue, and SP (the rays' pack)
+# The whole block: SD's prologue and epilogue, and SB's pack
 
 PHOTON_FIELDS = 8      # a migrating photon's row: x, y, z, ux, uy, uz, tau, orders (a float)
 RAY_FIELDS = 6         # a migrating ray's row: x, y, z, tau, prefactor, det (a float)
@@ -375,8 +378,8 @@ class ShardBuffers:
     tag_q: torch.Tensor      # (2, CAP) int32: the pool slot of each ray in send_q
     free_q: torch.Tensor     # (R,) int32: the free pool slots in slot order
     tiles: torch.Tensor      # (2, N_TILE_ROWS, n_tiles) int32: [parity]
-    status: torch.Tensor     # (2, n_tiles, STATUS_INTS) int32: SD's and SP's look-back
-    ctl: torch.Tensor        # (4,) int32: SD's tickets and finished tiles, SP's
+    status: torch.Tensor     # (2, n_tiles, STATUS_INTS) int32: SD's, SB's look-back (+ done marks)
+    ctl: torch.Tensor        # (4,) int32: SD's tickets and finished tiles, SB's tickets
     counts: torch.Tensor     # (n_ranks, N_COUNTS) int64
     columns: torch.Tensor    # (n_cols, 3) float64 flux tallies: up, down, absorbed
     vol: torch.Tensor        # (n_cols * n_z,) float64 volume tally, or (0,)
@@ -620,10 +623,10 @@ def block_epilogue_reference(spec: ShardSpec, st: ShardState, pool: RayPool,
 
 
 def shadow_pack_reference(spec: ShardSpec, pool: RayPool, bufs: ShardBuffers) -> None:
-    """SP's plain version, after SR: the pool's free slots in slot order
-    into ``free_q``; the first CAP tagged rays of each direction, in slot
-    order, into ``send_q`` (their slots into ``tag_q``); this rank's row of
-    the counts vector, its ray side."""
+    """The plain version of SB's pack, after its steps: the pool's free
+    slots in slot order into ``free_q``; the first CAP tagged rays of each
+    direction, in slot order, into ``send_q`` (their slots into ``tag_q``);
+    this rank's row of the counts vector, its ray side."""
     qf, qi = pool.f, pool.i
     free = ((qi[QALIVE] == 0) & (qi[QTAG] == 0)).nonzero()[:, 0]
     bufs.free_q[:free.numel()] = free.to(torch.int32)
@@ -667,7 +670,7 @@ class _ShardParams(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def build():
-    """Compile (or reuse) SD's, SR's and SP's library
+    """Compile (or reuse) SD's and SB's library
     (``csrc/sharded_event_block.cu``, one ``nvcc`` process) and declare its
     C interface."""
     from i3rc_tpu_torch.kernels.build import build as _build
@@ -685,10 +688,8 @@ def declare(lib) -> None:
     lib.i3rc_sharded_params_size.restype = ctypes.c_int
     lib.i3rc_sharded_event_block.argtypes = [vp, vp, vp, vp]
     lib.i3rc_sharded_event_block.restype = ctypes.c_int
-    lib.i3rc_shadow_advance.argtypes = [vp, vp, vp, vp]
-    lib.i3rc_shadow_advance.restype = ctypes.c_int
-    lib.i3rc_shadow_pack.argtypes = [vp, vp]
-    lib.i3rc_shadow_pack.restype = ctypes.c_int
+    lib.i3rc_shadow_block.argtypes = [vp, vp, vp]
+    lib.i3rc_shadow_block.restype = ctypes.c_int
     if lib.i3rc_sharded_params_size() != ctypes.sizeof(_ShardParams):
         raise RuntimeError("ShardParams layout differs between Python and CUDA")
 
@@ -702,8 +703,8 @@ def _need(t, device, dtype, shape, what: str) -> None:
 
 def shard_params(spec: ShardSpec, n_lanes: int, key: PhiloxKey, kb: int,
                  acc_int=None, acc_byc=None) -> _ShardParams:
-    """The kernels' by-value parameter block (SR's whole; SD's and SP's
-    without the block's buffers and plan, which ``_block_params`` adds)."""
+    """The kernels' by-value parameter block without the block's buffers
+    and plan, which ``_block_params`` and ``_shadow_params`` add."""
     p = _ShardParams()
     p.cells, p.cubic = spec.cells.data_ptr(), spec.cubic.data_ptr()
     p.fwd = spec.fwd.data_ptr() if spec.n_dirs else None
@@ -727,39 +728,45 @@ def shard_params(spec: ShardSpec, n_lanes: int, key: PhiloxKey, kb: int,
 _EPOCHS = itertools.count(1)
 
 
-def _block_params(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: ShardBuffers,
-                  plan: BlockPlan, key: PhiloxKey, kb: int, source, albedo: float,
-                  kernel: int) -> _ShardParams:
-    """SD's (kernel 0) or SP's (kernel 1) parameter block: the buffers (made
-    and checked at the trace's first launch and kept on the buffers while
-    the tensors, source and surface stay the same), and this launch's
-    block, key, epoch, receive buffers and plan."""
-    tag = (spec, st.f, st.i, pool.f, pool.i, source, albedo)
+def _held_params(bufs: ShardBuffers, kernel: str, tag: tuple, make) -> _ShardParams:
+    """A kernel's parameter block kept on the buffers while the objects of
+    ``tag`` (compared by identity, the last by value) stay the same; else
+    ``make()``'s.  Each launch then sets its own fields and a new epoch."""
     if not hasattr(bufs, "_params"):
         bufs._params = {}
     held = bufs._params.get(kernel)
-    if held is None or held[0][-1] != albedo or not all(
+    if held is None or held[0][-1] != tag[-1] or not all(
             x is y for x, y in zip(held[0][:-1], tag[:-1])):
-        held = bufs._params[kernel] = (tag, _static_params(spec, st, pool, bufs, source, albedo,
-                                                           kernel))
+        held = bufs._params[kernel] = (tag, make())
     p = held[1]
+    p.epoch = next(_EPOCHS) % (1 << 29) or next(_EPOCHS)
+    return p
+
+
+def _block_params(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: ShardBuffers,
+                  plan: BlockPlan, key: PhiloxKey, kb: int, source,
+                  albedo: float) -> _ShardParams:
+    """SD's parameter block: the buffers (made and checked at the trace's
+    first launch and kept on the buffers while the tensors, source and
+    surface stay the same), and this launch's block, key, epoch, receive
+    buffers and plan."""
+    p = _held_params(bufs, "block", (spec, st.f, st.i, pool.f, pool.i, source, albedo),
+                     lambda: _static_params(spec, st, pool, bufs, source, albedo))
     p.key0, p.key1 = key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF
     p.kb = kb & 0xFFFFFFFF
-    p.epoch = next(_EPOCHS) % (1 << 29) or next(_EPOCHS)
     recv_ph, recv_q = received(bufs, kb)
     p.recv_ph, p.recv_q = recv_ph.data_ptr(), recv_q.data_ptr()
-    if kernel == 0:
-        for n in ("sent_ph", "sent_q", "n_in_ph", "n_rx_ph", "placed_ph", "n_in_q", "n_rx_q",
-                  "placed_q", "space_ph", "space_q"):
-            getattr(p, n)[:] = list(getattr(plan, n))
-        p.n_new, p.drain_cap, p.work = plan.n_new, plan.drain_cap, plan.work
+    for n in ("sent_ph", "sent_q", "n_in_ph", "n_rx_ph", "placed_ph", "n_in_q", "n_rx_q",
+              "placed_q", "space_ph", "space_q"):
+        getattr(p, n)[:] = list(getattr(plan, n))
+    p.n_new, p.drain_cap, p.work = plan.n_new, plan.drain_cap, plan.work
     return p
 
 
 def _static_params(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: ShardBuffers, source,
-                   albedo: float, kernel: int) -> _ShardParams:
-    """The parts of SD's or SP's parameter block that stay for a trace,
-    after the checks of every buffer."""
+                   albedo: float) -> _ShardParams:
+    """The parts of SD's parameter block that stay for a trace, after the
+    checks of every buffer."""
     dev = bufs.ctl.device
     L, D = st.n_lanes, spec.n_dirs
     cap, box = bufs.cap, bufs.inbox_ph.shape[2]
@@ -795,29 +802,63 @@ def _static_params(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: ShardBu
     p.send_ph, p.send_q = bufs.send_ph.data_ptr(), bufs.send_q.data_ptr()
     p.inbox_ph, p.inbox_q = bufs.inbox_ph.data_ptr(), bufs.inbox_q.data_ptr()
     p.tag_q, p.free_q, p.tiles = bufs.tag_q.data_ptr(), ptr(bufs.free_q), bufs.tiles.data_ptr()
-    p.status, p.ctl = bufs.status[kernel].data_ptr(), bufs.ctl[2 * kernel:].data_ptr()
+    p.status, p.ctl = bufs.status[0].data_ptr(), bufs.ctl.data_ptr()
     p.counts, p.columns, p.vol = bufs.counts.data_ptr(), bufs.columns.data_ptr(), ptr(bufs.vol)
     p.n_rays, p.cap, p.inbox = R, cap, box
     p.rank, p.n_ranks = bufs.rank, bufs.counts.shape[0]
     p.vol_on = int(n_vol > 0)
-    if kernel == 0:
-        # The source's constants and the surface's prefactors (their making
-        # reads device values back), kept with the parameter block.
-        p.surface = int(albedo > 0.0)
-        if p.surface and D:
-            bufs._surf_pf = surface_prefactors(spec, albedo).contiguous()
-            p.surf_pf = bufs._surf_pf.data_ptr()
-        p.albedo, p.z_revive = f32(albedo), f32(spec.z0 + spec.nudge)
-        for n, v in source_constants(source, dev).items():
-            if n == "dir":
-                p.src.dir[:] = v
-            else:
-                setattr(p.src, n, v)
-        # The refill's scaling, the plain version's: x over the slab.
-        p.src.x0, p.src.wx = spec.x_lo, f32(spec.x_hi - spec.x_lo)
-        p.src.y0, p.src.wy = spec.y0, spec.wy
-        p.src.z0, p.src.wz = spec.z0, f32(spec.z_max - spec.z0)
+    # The source's constants and the surface's prefactors (their making
+    # reads device values back), kept with the parameter block.
+    p.surface = int(albedo > 0.0)
+    if p.surface and D:
+        bufs._surf_pf = surface_prefactors(spec, albedo).contiguous()
+        p.surf_pf = bufs._surf_pf.data_ptr()
+    p.albedo, p.z_revive = f32(albedo), f32(spec.z0 + spec.nudge)
+    for n, v in source_constants(source, dev).items():
+        if n == "dir":
+            p.src.dir[:] = v
+        else:
+            setattr(p.src, n, v)
+    # The refill's scaling, the plain version's: x over the slab.
+    p.src.x0, p.src.wx = spec.x_lo, f32(spec.x_hi - spec.x_lo)
+    p.src.y0, p.src.wy = spec.y0, spec.wy
+    p.src.z0, p.src.wz = spec.z0, f32(spec.z_max - spec.z0)
     return p
+
+
+def _shadow_params(spec: ShardSpec, pool: RayPool, bufs: ShardBuffers, acc_int: torch.Tensor,
+                   acc_byc: torch.Tensor) -> _ShardParams:
+    """SB's parameter block: made and checked at the trace's first launch
+    and kept on the buffers while the tensors stay the same; a launch sets
+    its epoch."""
+    def make() -> _ShardParams:
+        dev = bufs.ctl.device
+        R, D, C, cap = pool.n_rays, spec.n_dirs, spec.n_comp, bufs.cap
+        n_cols = spec.nx_loc * spec.n_y
+        _check_spec(spec, dev)
+        for t, dtype, shape, what in (
+                (pool.f, torch.float32, (5, R), "the pool's f"),
+                (pool.i, torch.int32, (4, R), "the pool's i"),
+                (acc_int, torch.float64, (n_cols * D,), "acc_int"),
+                (acc_byc, torch.float64, (n_cols * D * (C + 1),), "acc_byc"),
+                (bufs.send_q, torch.float32, (2, cap, RAY_FIELDS), "send_q"),
+                (bufs.tag_q, torch.int32, (2, cap), "tag_q"),
+                (bufs.free_q, torch.int32, (R,), "free_q"),
+                (bufs.status, torch.int32, (2, -(-R // CTA_THREADS), STATUS_INTS), "status"),
+                (bufs.ctl, torch.int32, (4,), "ctl"),
+                (bufs.counts, torch.int64, (bufs.counts.shape[0], N_COUNTS), "counts")):
+            _need(t, dev, dtype, shape, what)
+        p = shard_params(spec, R, PhiloxKey(0, 0), 0, acc_int, acc_byc)
+        p.pool_f, p.pool_i = pool.f.data_ptr(), pool.i.data_ptr()
+        p.send_q, p.tag_q, p.free_q = (bufs.send_q.data_ptr(), bufs.tag_q.data_ptr(),
+                                       bufs.free_q.data_ptr())
+        p.status, p.ctl = bufs.status[1].data_ptr(), bufs.ctl[2:].data_ptr()
+        p.counts = bufs.counts.data_ptr()
+        p.n_rays, p.cap = R, cap
+        p.rank, p.n_ranks = bufs.rank, bufs.counts.shape[0]
+        return p
+
+    return _held_params(bufs, "shadow", (spec, pool.f, pool.i, acc_int, acc_byc, None), make)
 
 
 def _check_spec(spec: ShardSpec, dev) -> None:
@@ -848,7 +889,7 @@ def sharded_event_block(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: Sh
         return
     if dev.type != "cuda":
         raise NotImplementedError(f"sharded_event_block: no kernel for device {dev}")
-    p = _block_params(spec, st, pool, bufs, plan, key, kb, source, albedo, 0)
+    p = _block_params(spec, st, pool, bufs, plan, key, kb, source, albedo)
     with torch.cuda.device(dev):
         rc = build().lib.i3rc_sharded_event_block(st.f.data_ptr(), st.i.data_ptr(),
                                                   ctypes.byref(p), _stream(dev))
@@ -857,59 +898,61 @@ def sharded_event_block(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: Sh
     sharded_event_block.launches += 1
 
 
-def shadow_advance(spec: ShardSpec, pool: RayPool, acc_int: torch.Tensor,
-                   acc_byc: torch.Tensor) -> None:
-    """K DDA steps of every shadow ray in flight, in place on ``pool`` and
-    the float64 tallies.  On CUDA tensors one launch of SR, counted in
-    ``shadow_advance.launches``; on CPU tensors ``shadow_advance_reference``."""
+def shadow_block(spec: ShardSpec, pool: RayPool, bufs: ShardBuffers, acc_int: torch.Tensor,
+                 acc_byc: torch.Tensor) -> None:
+    """K DDA steps of every shadow ray in flight, then the pool's pack, in
+    place on ``pool``, ``bufs`` and the float64 tallies (see
+    ``shadow_advance_reference`` and ``shadow_pack_reference``).  On CUDA
+    tensors one launch of SB, counted in ``shadow_block.launches``, its ray
+    loop in ``shadow_ray_use``; on CPU tensors the two plain versions."""
     dev = pool.f.device
     if dev.type == "cpu":
         shadow_advance_reference(spec, pool, acc_int, acc_byc)
-        return
-    if dev.type != "cuda":
-        raise NotImplementedError(f"shadow_advance: no kernel for device {dev}")
-    R, D, C = pool.n_rays, spec.n_dirs, spec.n_comp
-    if D < 1:
-        raise ValueError("shadow_advance: the plan has no detectors")
-    _check_spec(spec, dev)
-    _need(pool.f, dev, torch.float32, (5, R), "the pool's f")
-    _need(pool.i, dev, torch.int32, (4, R), "the pool's i")
-    n_cols = spec.nx_loc * spec.n_y
-    _need(acc_int, dev, torch.float64, (n_cols * D,), "acc_int")
-    _need(acc_byc, dev, torch.float64, (n_cols * D * (C + 1),), "acc_byc")
-    p = shard_params(spec, R, PhiloxKey(0, 0), 0, acc_int, acc_byc)
-    with torch.cuda.device(dev):
-        rc = build().lib.i3rc_shadow_advance(pool.f.data_ptr(), pool.i.data_ptr(),
-                                             ctypes.byref(p), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"shadow_advance launch: CUDA error {rc}")
-    shadow_advance.launches += 1
-
-
-def shadow_pack(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: ShardBuffers) -> None:
-    """The pack of the pool after SR (see ``shadow_pack_reference``).  On
-    CUDA tensors one launch of SP, counted in ``shadow_pack.launches``; on
-    CPU tensors ``shadow_pack_reference``."""
-    dev = pool.f.device
-    if dev.type == "cpu":
         shadow_pack_reference(spec, pool, bufs)
         return
     if dev.type != "cuda":
-        raise NotImplementedError(f"shadow_pack: no kernel for device {dev}")
+        raise NotImplementedError(f"shadow_block: no kernel for device {dev}")
     if spec.n_dirs < 1:
-        raise ValueError("shadow_pack: the plan has no detectors")
-    p = _block_params(spec, st, pool, bufs, BlockPlan(), PhiloxKey(0, 0), 0, None, 0.0, 1)
+        raise ValueError("shadow_block: the plan has no detectors")
+    p = _shadow_params(spec, pool, bufs, acc_int, acc_byc)
     with torch.cuda.device(dev):
-        rc = build().lib.i3rc_shadow_pack(ctypes.byref(p), _stream(dev))
+        rc = build().lib.i3rc_shadow_block(ctypes.byref(p), shadow_ray_use(dev).data_ptr(),
+                                           _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"shadow_pack launch: CUDA error {rc}")
-    shadow_pack.launches += 1
+        raise RuntimeError(f"shadow_block launch: CUDA error {rc}")
+    shadow_block.launches += 1
+
+
+# SB's runs of tiles a CTA, at most, and the radiance bins (acc_int's and
+# acc_byc's) its CTA sums in shared memory, at most (csrc SB_MAX_TILES,
+# SB_SMEM_BINS).
+SHADOW_MAX_TILES = 8
+SHADOW_SMEM_BINS = 512
+# SB's ray-loop counts (csrc SB_USE_*), by entry.
+SHADOW_USE = ("rays", "steps", "slots", "runs")
+_SHADOW_USE = {}
+
+
+def shadow_ray_use(device) -> torch.Tensor:
+    """int64 (4,) on ``device``: SB's ray loop since
+    ``reset_launch_counters``, as ``SHADOW_USE`` names its entries: the rays
+    in flight it took, their steps, the thread slots of the warps' trips
+    (32 a trip; steps / slots is the loop's lane use) and the CTAs (runs of
+    tiles) it ran; a diagnostic of the card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _SHADOW_USE:
+        with torch.inference_mode(False):
+            _SHADOW_USE[dev] = torch.zeros(len(SHADOW_USE), dtype=torch.int64, device=dev)
+    return _SHADOW_USE[dev]
 
 
 def reset_launch_counters() -> None:
     sharded_event_block.launches = 0
-    shadow_advance.launches = 0
-    shadow_pack.launches = 0
+    shadow_block.launches = 0
+    for t in _SHADOW_USE.values():
+        t.zero_()
 
 
 reset_launch_counters()

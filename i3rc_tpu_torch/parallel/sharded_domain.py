@@ -44,9 +44,9 @@ migration on, so that a block's migrants are known when it starts):
      into the local float64 tallies, the surface records and revive, with
      detectors the emission drain into the pool, and the packing of the
      tagged photons and of the counts;
-  3. with detectors ``kernels.sharded_block.shadow_advance`` (SR: K exact
-     cell-DDA steps a ray) and ``shadow_pack`` (SP: the tagged rays and the
-     pool's free slots packed, the ray side of the counts).
+  3. with detectors ``kernels.sharded_block.shadow_block`` (SB, one
+     launch: K exact cell-DDA steps of each ray in flight, then the tagged
+     rays and the pool's free slots packed, the ray side of the counts).
 The host plans each block from the counts alone (``ShardedTrace.plan``:
 integer arithmetic every rank repeats), so one read of the counts vector
 is the block's only wait on the device.  The loop ends when no rank has
@@ -251,8 +251,7 @@ class ShardedTrace:
         self._plan = None
         # The block's kernels (a check may wrap them).
         self.event_block = sb.sharded_event_block
-        self.shadow_advance = sb.shadow_advance
-        self.shadow_pack = sb.shadow_pack
+        self.shadow_block = sb.shadow_block
 
     # -- the loop's end and the block's plan (one read of the counts) -------
     def _counts(self) -> list:
@@ -373,14 +372,13 @@ class ShardedTrace:
     def block(self) -> None:
         """One block of the loop on this rank (call after ``running``): the
         exchange of the migrants its plan names, then the block's kernels
-        (SD, and with detectors SR and SP), which leave the next counts."""
+        (SD, and with detectors SB), which leave the next counts."""
         plan = self._plan
         self._exchange(plan)
         self.event_block(self.spec, self.state, self.pool, self.bufs, plan, self.key, self.kb,
                          self.source, self.albedo)
         if self.spec.n_dirs:
-            self.shadow_advance(self.spec, self.pool, self.acc_int, self.acc_byc)
-            self.shadow_pack(self.spec, self.state, self.pool, self.bufs)
+            self.shadow_block(self.spec, self.pool, self.bufs, self.acc_int, self.acc_byc)
         self.kb += 1
 
     def finish(self) -> RawTallies:

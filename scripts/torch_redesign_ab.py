@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the PyTorch/CUDA port's marching detector block (K3-M, K3-M+S) and
-sharded block (SD) against another tree's design, on the card, in one call.
+sharded tracer's kernels against another tree's design, on the card, in one
+call.
 
 * march: this checkout's event-block library and the one built from the
   other tree's ``i3rc_tpu_torch/csrc`` (``--parent``; built side by side by
@@ -16,19 +17,32 @@ sharded block (SD) against another tree's design, on the card, in one call.
   result checked bit for bit against the plain version (tallies within
   1e-9) in its first round.
 * sharded: this tree and the other, each in a fresh process, in turns
-  (other, this, this, other): the whole Landsat scene (2^22 photons)
-  through ``trace_sharded`` on one NCCL rank (2^20 lanes) and on two gloo
-  ranks sharing the card (2^20 lanes a rank, half the slab each):
-  photons/s (the set-up included) and blocks; on the one rank the block
-  loop's host ms a block, and a profiled loop: SD's device ms a trace,
-  every kernel's (the device's busy time) and the device's idle share over
-  the unprofiled loop's wall time.
-* lookback: SD's launch split (this tree only): a copy of
-  ``csrc/sharded_event_block.cu`` whose look-back reads each predecessor's
-  record once without waiting for it (its ranks are wrong: for timing
-  only), against this build, in turns, on the mid-flight and tail blocks of
-  the whole Landsat scene on one rank (2^22 photons, 2^20 lanes): the
-  difference is the launch's wait on the tiles below it.
+  (other, this, this, other): the scene of ``__graft_entry__.py:127-156``
+  (2^22 photons, two detectors) through ``ShardedTrace`` on one NCCL rank
+  (2^20 lanes) and on two gloo ranks sharing the card (2^20 lanes a rank,
+  half the slab each): photons/s (the set-up included), blocks, the
+  radiance and n_bad; and a profiled trace: the shadow-ray kernels'
+  device ms a trace (SR's and SP's, or SB's: whichever the tree has), SD's
+  and every kernel's (the device's busy time), summed over the ranks.
+* lookback: SD's launch split: a copy of ``csrc/sharded_event_block.cu``
+  whose look-back reads each predecessor's record once without waiting for
+  it (its ranks are wrong: for timing only), and the other tree's SD where
+  its library takes this tree's parameter block, against this build, in
+  turns, on the mid-flight and tail blocks of the whole Landsat scene on
+  one rank (2^22 photons, 2^20 lanes): the difference to the first is the
+  launch's wait on the tiles below it.
+* sbsplit: SB's launch split the same way (this tree only), on the graft
+  scene's mid-flight and tail blocks on one rank: a copy without its waits
+  on other CTAs (the look-back's, and the pack's on the tiles other CTAs
+  traced), a copy whose ray loop deals no ray (the flags, the queue and
+  the pack alone), one without the pack and one with neither (for timing
+  only).
+* sbtiles: SB's run of tiles a CTA (this tree only), on the same blocks:
+  copies whose launch takes runs of 1, 2 or 4 tiles (more CTAs than one
+  wave: each CTA tracing its own run), and one whose CTAs trace their own
+  runs of 8 tiles (no cooperative launch), against this build (8 tiles,
+  the traced tiles spread over the pool), in turns; each copy's result is
+  held against the plain version first.
 
 Every number names the card (``nvidia-smi`` name and power limit).  Usage,
 from the root of the checkout, the other tree unpacked with ``git
@@ -41,6 +55,7 @@ archive`` into a directory that ``.gitignore`` lists:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import shutil
@@ -125,59 +140,73 @@ def march_ab(parent_csrc: Path) -> dict:
     return out
 
 
-# A fresh process in a tree: Landsat through trace_sharded on one NCCL rank
-# (unprofiled, then profiled) and on two gloo ranks sharing the card.
+# A rank's job in a tree (written beside the build, importable by the
+# spawned ranks): the graft scene's trace on the mesh, unprofiled, then
+# profiled.
+SHARD_RANK_JOB = textwrap.dedent("""
+    import time
+    import torch
+
+    RAY_KERNELS = ("shadow_advance_kernel", "shadow_pack_kernel", "shadow_block_kernel")
+
+    def graft_job(mesh, photons, lanes, seed):
+        import sharded_scenes as ss
+        from i3rc_tpu_torch import PhotonSource
+        from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace
+        sc = ss.scene("graft", ss.host("i3rc_tpu_torch"), 2)
+        src = PhotonSource.directional(*sc["src"])
+
+        def trace(prof=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = ShardedTrace.create(sc["domain"], src, photons, mesh, n_lanes_per_shard=lanes,
+                                     seed=seed, **sc["kw"])
+            if prof is not None:
+                prof.__enter__()
+            while tr.running():
+                tr.block()
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            raw = tr.finish()
+            torch.cuda.synchronize()
+            return raw, time.perf_counter() - t0, tr.kb
+
+        raw, seconds, blocks = trace()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        trace(prof)
+        found = prof.key_averages()
+        ms = lambda keys: sum(e.self_device_time_total for e in found
+                              if any(k in e.key for k in keys)) / 1e3
+        return dict(seconds=seconds, blocks=blocks, rays_ms=ms(RAY_KERNELS),
+                    sd_ms=ms(("sharded_event_block_kernel",)), busy_ms=ms(("",)),
+                    n_bad=int(raw.n_bad), n=int(raw.n_photons),
+                    intensity=(raw.intensity.reshape(-1, 2).sum(0) / raw.n_photons).tolist())
+""")
+# A fresh process in a tree: the graft scene on one NCCL rank, then on two
+# gloo ranks sharing the card.
 SHARD_JOB = textwrap.dedent("""
-    import json, sys, time, torch, torch.distributed as dist
-    sys.path.insert(0, "tests")
+    import json, torch, torch.distributed as dist
     import sharded_scenes as ss
-    from i3rc_tpu_torch import PhotonSource
+    import shard_rank_job as job
     from i3rc_tpu_torch.kernels import sharded_block as sb
     from i3rc_tpu_torch.parallel.mesh import default_mesh
-    from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace, trace_sharded
     N, L = {photons}, {lanes}
     sb.build()
-    sc = ss.scene("landsat", ss.host("i3rc_tpu_torch"), 2)
-    src = PhotonSource.directional(*sc["src"])
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     mesh = default_mesh(device=torch.device("cuda", 0))
-    trace_sharded(sc["domain"], src, 1 << 18, mesh, n_lanes_per_shard=L, seed=5, **sc["kw"])
-    def trace(profile=None):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr = ShardedTrace.create(sc["domain"], src, N, mesh, n_lanes_per_shard=L, seed=7,
-                                 **sc["kw"])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        if profile is not None:
-            profile.__enter__()
-        while tr.running():
-            tr.block()
-        torch.cuda.synchronize()
-        if profile is not None:
-            profile.__exit__(None, None, None)
-        t2 = time.perf_counter()
-        raw = tr.finish()
-        torch.cuda.synchronize()
-        return raw, time.perf_counter() - t0, t2 - t1, tr.kb
-    raw, seconds, loop, blocks = trace()
-    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    trace(prof)
-    found = prof.key_averages()
-    sd_ms = sum(e.self_device_time_total for e in found
-                if "sharded_event_block_kernel" in e.key) / 1e3
-    busy_ms = sum(e.self_device_time_total for e in found) / 1e3
+    job.graft_job(mesh, 1 << 18, L, 5)
+    one = job.graft_job(mesh, N, L, 7)
     dist.destroy_process_group()
-    one = dict(photons_per_s=N / seconds, seconds=seconds, loop_seconds=loop, blocks=blocks,
-               host_ms_per_block=1e3 * loop / blocks, sd_ms=sd_ms, busy_ms=busy_ms,
-               idle_share=1.0 - busy_ms / (1e3 * loop), n_bad=int(raw.n_bad),
-               fup=float(raw.flux_up.sum()) / N)
-    ranks = ss.join_world(ss.start_world(2, ss.trace_cases, (["landsat"], N, L, 7),
-                                         device="cuda:0"), timeout=900)
-    sec = max(r["landsat"]["seconds"] for r in ranks)
-    blocks2 = max(r["landsat"]["n_iterations"] for r in ranks) // 8
-    two = dict(photons_per_s=N / sec, seconds=sec, blocks=blocks2,
-               ms_per_block_with_setup=1e3 * sec / blocks2)
+    ranks = ss.join_world(ss.start_world(2, job.graft_job, (N, L, 7), device="cuda:0"),
+                          timeout=900)
+    sec = max(r["seconds"] for r in ranks)
+    two = dict(seconds=sec, blocks=max(r["blocks"] for r in ranks),
+               rays_ms=sum(r["rays_ms"] for r in ranks), sd_ms=sum(r["sd_ms"] for r in ranks),
+               busy_ms=sum(r["busy_ms"] for r in ranks), n_bad=ranks[0]["n_bad"],
+               intensity=ranks[0]["intensity"])
+    for r in (one, two):
+        r["photons_per_s"] = N / r["seconds"]
     print("RESULT " + json.dumps(dict(one_rank=one, two_ranks=two)))
 """)
 
@@ -185,12 +214,16 @@ SHARD_JOB = textwrap.dedent("""
 def sharded_ab(parent: Path) -> dict:
     trees = {"other": parent.resolve(), "this": ROOT}
     code = SHARD_JOB.format(photons=SHARD_PHOTONS, lanes=SHARD_LANES)
+    jobs = ROOT / "build" / "ab" / "shard_job"
+    jobs.mkdir(parents=True, exist_ok=True)
+    (jobs / "shard_rank_job.py").write_text(SHARD_RANK_JOB)
     rec = {b: [] for b in trees}
     for _ in range(SHARD_ROUNDS):
         for b in ("other", "this", "this", "other"):
+            path = os.pathsep.join(map(str, (trees[b], trees[b] / "tests", jobs)))
             res = subprocess.run([sys.executable, "-c", code], cwd=trees[b], text=True,
                                  capture_output=True, timeout=1200,
-                                 env=dict(os.environ, PYTHONPATH=str(trees[b])))
+                                 env=dict(os.environ, PYTHONPATH=path))
             lines = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")]
             if res.returncode != 0 or not lines:
                 raise RuntimeError(f"sharded {b}: {res.stderr[-3000:]}")
@@ -199,31 +232,93 @@ def sharded_ab(parent: Path) -> dict:
     return rec
 
 
-# The look-back's wait on a tile below (csrc/sharded_event_block.cu
-# look_back), and the copy's: read the record once, as an inclusive prefix.
-LOOKBACK_WAIT = ("        do {\n          fl = st[0];\n        } while ((fl >> 2) != epoch || "
-                 "(fl & 3) == 0);", "        fl = 2;")
+# The look-back's wait on a record below (csrc/sharded_event_block.cu
+# look_back, SD's and SB's), and the copy's: read the record once, as an
+# inclusive prefix.
+LOOKBACK_WAIT = ("      for (;;) {\n        fl = ld_acquire(rec + LB_FLAG);\n"
+                 "        if ((fl >> 2) == epoch && (fl & 3) != 0) break;\n"
+                 "        __nanosleep(64);\n      }", "      fl = 2;")
 
 
-def lookback_split() -> dict:
-    import sharded_scenes as ss
+# SB's waits on other CTAs, each read once (for timing only): its
+# look-back's and its pack's on the tiles other CTAs traced.
+SB_NO_WAIT = [LOOKBACK_WAIT, ("    while (ld_acquire(done) != p.epoch) __nanosleep(64);", "")]
+# SB's ray loop left out: no ray of the queue is dealt; SB's pack left out:
+# the CTA ends after its ray loop and tallies (the last run resets the
+# tickets).  For timing only.
+NO_RAY_LOOP = ("  const int n = qn[0];\n", "  const int n = 0;\n")
+NO_PACK = ("  const int s0 = run * T * CTA_THREADS;\n",
+           "  if (run == n_runs - 1 && t == 0) p.ctl[0] = 0;\n  return;\n"
+           "  const int s0 = run * T * CTA_THREADS;\n")
+# SB's run of tiles a CTA, as the launch picks it (one wave, at most
+# SB_MAX_TILES), and its traced tiles spread over the pool while the grid
+# fits one wave; the copies' fixed length, and each CTA tracing its own run.
+SB_RUN = "  int T = fit < SB_MAX_TILES ? fit : SB_MAX_TILES;\n"
+SB_SPREAD = "  int interleave = runs <= wave;\n"
+SB_TILES = {"tiles1": [(SB_RUN, "  int T = 1;\n")], "tiles2": [(SB_RUN, "  int T = 2;\n")],
+            "tiles4": [(SB_RUN, "  int T = 4;\n")],
+            "own8": [(SB_SPREAD, "  int interleave = 0;\n")]}
+
+
+def copy_build(name: str, edits, csrc: Path | None = None) -> object:
+    """The sharded library built from a copy of ``csrc`` (this tree's by
+    default) whose ``sharded_event_block.cu`` has each (old, new) of
+    ``edits`` replaced, its C interface declared (SD's alone where the
+    library has no SB)."""
     import i3rc_tpu_torch.kernels.build as kbuild
     from i3rc_tpu_torch.kernels import sharded_block as sb
 
-    own = sb.build()
-    copy = ROOT / "build" / "ab" / "lookback_no_wait" / "csrc"
+    copy = ROOT / "build" / "ab" / name / "csrc"
     shutil.rmtree(copy, ignore_errors=True)
-    shutil.copytree(kbuild.CSRC, copy)
+    shutil.copytree(csrc or kbuild.CSRC, copy)
     src = (copy / "sharded_event_block.cu").read_text()
-    if LOOKBACK_WAIT[0] not in src:
-        raise RuntimeError("the look-back's wait is not where this script expects it")
-    (copy / "sharded_event_block.cu").write_text(src.replace(*LOOKBACK_WAIT))
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"{name}: the code to replace is not where this script expects it")
+        src = src.replace(old, new)
+    (copy / "sharded_event_block.cu").write_text(src)
     here, kbuild.CSRC = kbuild.CSRC, copy
     try:
-        no_wait = kbuild.build("sharded_event_block", ("sharded_event_block.cu",))
+        built = kbuild.build("sharded_event_block", ("sharded_event_block.cu",))
     finally:
         kbuild.CSRC = here
-    sb.declare(no_wait.lib)
+    if hasattr(built.lib, "i3rc_shadow_block"):
+        sb.declare(built.lib)
+    else:
+        lib = built.lib
+        lib.i3rc_sharded_params_size.restype = ctypes.c_int
+        lib.i3rc_sharded_event_block.argtypes = [ctypes.c_void_p] * 4
+        lib.i3rc_sharded_event_block.restype = ctypes.c_int
+        if lib.i3rc_sharded_params_size() != ctypes.sizeof(sb._ShardParams):
+            raise RuntimeError(f"{name}: the library's ShardParams differs from this tree's")
+    return built
+
+
+def in_turns(builds: dict, run, x0, new_acc, kernel: str) -> dict:
+    """Mean device ms of ``run`` under each build, in turns (this, the
+    others, the others, this), twice."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    own = builds["this"]
+    times = {b: [] for b in builds}
+    order = ["this"] + [b for b in builds if b != "this"]
+    for _ in range(2):
+        for b in order + order[::-1]:
+            sb.build = lambda b=b: builds[b]
+            times[b].append(cs.device_block_ms(run, x0, new_acc, 5, kernel=kernel))
+    sb.build = lambda: own
+    return {b: sum(v) / len(v) for b, v in times.items()}
+
+
+def lookback_split(parent: Path) -> dict:
+    import sharded_scenes as ss
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    builds = {"this": sb.build(), "no_wait": copy_build("lookback_no_wait", [LOOKBACK_WAIT])}
+    try:
+        builds["other"] = copy_build("lookback_other", [], parent / "i3rc_tpu_torch" / "csrc")
+    except RuntimeError as e:
+        print(json.dumps({"lookback_other": str(e)[:300]}), flush=True)
     dev = torch.device("cuda", 0)
     st = ss.trace_states(ss.scene("landsat", ss.host("i3rc_tpu_torch"), 2), SHARD_PHOTONS,
                          SHARD_LANES, dev)
@@ -233,15 +328,67 @@ def lookback_split() -> dict:
         x0 = cs._BlockInput(s0, pool0, bufs0)
         run = lambda s, _, kb=kb, plan=plan: sb.sharded_event_block(
             spec, s.st, s.pool, s.bufs, plan, key, kb, source, albedo)
-        times = {"this": [], "no_wait": []}
-        for _ in range(2):
-            for b in ("this", "no_wait", "no_wait", "this"):
-                sb.build = lambda b=b: own if b == "this" else no_wait
-                times[b].append(cs.device_block_ms(run, x0, lambda: None, 5,
-                                                   kernel="sharded_event_block"))
-        sb.build = lambda: own
-        rec[tag] = {b: sum(v) / len(v) for b, v in times.items()}
+        rec[tag] = in_turns(builds, run, x0, lambda: None, "sharded_event_block")
         print(json.dumps({"lookback": tag, "kb": kb, **rec[tag]}), flush=True)
+    return rec
+
+
+def shadow_split() -> dict:
+    """SB's launch split (this tree only), on the graft scene's mid-flight
+    and tail blocks on one rank (its two-rank form, the whole domain;
+    2^22 photons, 2^20 slots): this build against a copy that does not wait
+    on other CTAs (its look-back over the runs below, its pack on the tiles
+    other CTAs traced: the launch's waits), a copy whose ray loop deals no
+    ray (the flags, the queue and the pack alone), one without the pack
+    (the flags and the ray loop) and one with neither, in turns."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    return shadow_in_turns({"this": sb.build(), "no_wait": copy_build("sb_no_wait", SB_NO_WAIT),
+                            "no_ray_loop": copy_build("sb_no_ray_loop", [NO_RAY_LOOP]),
+                            "no_pack": copy_build("sb_no_pack", [NO_PACK]),
+                            "flags_only": copy_build("sb_flags_only", [NO_RAY_LOOP, NO_PACK])},
+                           "shadow_split", check=())
+
+
+def shadow_tiles() -> dict:
+    """SB's run of tiles a CTA (this tree only), on the blocks of
+    ``shadow_split``: this build against the copies of ``SB_TILES``, in
+    turns, each copy's result held against the plain version first."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    builds = {"this": sb.build(), **{k: copy_build(f"sb_{k}", e) for k, e in SB_TILES.items()}}
+    return shadow_in_turns(builds, "shadow_tiles", check=tuple(SB_TILES))
+
+
+def shadow_in_turns(builds: dict, label: str, check: tuple) -> dict:
+    """SB's device ms a launch under each build, in turns, on the graft
+    scene's mid-flight and tail blocks on one rank, beside the block's rays
+    and steps and the launch's ray loop; the builds of ``check`` first held
+    against the plain version (bit for bit, tallies within 1e-9)."""
+    import sharded_scenes as ss
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    own = builds["this"]
+    dev = torch.device("cuda", 0)
+    st = ss.trace_states(ss.scene("graft", ss.host("i3rc_tpu_torch"), 2), SHARD_PHOTONS,
+                         SHARD_LANES, dev)
+    spec = st["spec"]
+    n = spec.nx_loc * spec.n_y * spec.n_dirs
+    acc = lambda: tuple(torch.zeros(k, dtype=torch.float64, device=dev)
+                        for k in (n, n * (spec.n_comp + 1)))
+    run = lambda x, a: sb.shadow_block(spec, x.pool, x.bufs, *a)
+    rec = {}
+    for tag, (kb, pool, bufs) in zip(("mid", "tail"), st["sb"]):
+        for b in check:
+            sb.build = lambda b=b: builds[b]
+            v = ss.sb_vs_twin(spec, pool, bufs)
+            sb.build = lambda: own
+            if not (v["bit_equal"] and v["tally_abs_err"] <= 1e-9 * max(1.0, v["tally_sum"])):
+                raise RuntimeError(f"{label} {tag} build {b}: {v}")
+        r = ss.sb_vs_twin(spec, pool, bufs)
+        rec[tag] = in_turns(builds, run, cs._BlockInput(None, pool, bufs), acc, "shadow_block")
+        rec[tag].update(kb=kb, rays=r["rays"], steps=r["steps"], use=r["use"])
+        print(json.dumps({label: tag, **rec[tag]}), flush=True)
     return rec
 
 
@@ -263,7 +410,11 @@ def main() -> int:
     if "sharded" in parts:
         out["sharded"] = sharded_ab(parent)
     if "lookback" in parts:
-        out["lookback"] = lookback_split()
+        out["lookback"] = lookback_split(parent)
+    if "sbsplit" in parts:
+        out["sbsplit"] = shadow_split()
+    if "sbtiles" in parts:
+        out["sbtiles"] = shadow_tiles()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))
     return 0

@@ -13,14 +13,15 @@ machine.
     gloo world of n processes (``torch.multiprocessing`` spawn, a store on
     a localhost port), each rank's return value back in rank order;
   * ``capture_states`` / ``trace_states`` / ``block_vs_twin`` /
-    ``sr_vs_twin``: the inputs of a whole block (SD, SR, SP) and of SR at
-    a mid-flight and a tail block of a trace (on a world of one, or on
-    each rank of a mesh), and the block's kernels, or SR alone, against
-    their plain versions from the same input.
+    ``sb_vs_twin``: the inputs of a whole block (SD, SB) and of SB at a
+    mid-flight and a tail block of a trace (on a world of one, or on each
+    rank of a mesh), and the block's kernels, or SB alone, against their
+    plain versions from the same input.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import os
 import pickle
@@ -271,17 +272,17 @@ def driver_job(mesh, namelist: str, workdir: str) -> dict:
 
 def capture_states(tr, tail_alive: float = 0.15) -> dict:
     """Wrap a ShardedTrace's kernels so that its run keeps the inputs of a
-    whole block (SD, and with detectors SR and SP after it) at a mid-flight
-    block (the third) and the first tail block (at most ``tail_alive`` of
-    the lanes alive), and SR's inputs at the first two blocks with rays in
-    flight past the second and the first tail one: {"block": [(kb, plan,
-    ShardState, RayPool, ShardBuffers)], "sr": [(kb, RayPool)]}, filled as
-    the trace runs."""
+    whole block (SD, and with detectors SB after it) at a mid-flight block
+    (the third) and the first tail block (at most ``tail_alive`` of the
+    lanes alive), and SB's inputs at the first block with rays in flight
+    past the second and the first tail one: {"block": [(kb, plan,
+    ShardState, RayPool, ShardBuffers)], "sb": [(kb, RayPool,
+    ShardBuffers)]}, filled as the trace runs."""
     from i3rc_tpu_torch.kernels import sharded_block as sb
 
     lanes = tr.state.i.shape[1]
-    keep = {"block": [], "sr": []}
-    sd_fn, sr_fn = tr.event_block, tr.shadow_advance
+    keep = {"block": [], "sb": []}
+    sd_fn, sb_fn = tr.event_block, tr.shadow_block
 
     def want(kind, live):
         got = keep[kind]
@@ -292,21 +293,21 @@ def capture_states(tr, tail_alive: float = 0.15) -> dict:
             keep["block"].append((kb, plan, st.clone(), pool.clone(), bufs.clone()))
         sd_fn(spec_, st, pool, bufs, plan, key, kb, source, albedo)
 
-    def sr(spec_, pool, acc_int, acc_byc):
+    def shadow(spec_, pool, bufs, acc_int, acc_byc):
         live = int(((pool.i[sb.QALIVE] != 0) & (pool.i[sb.QTAG] == 0)).sum())
-        if live and want("sr", live):
-            keep["sr"].append((tr.kb, pool.clone()))
-        sr_fn(spec_, pool, acc_int, acc_byc)
+        if live and want("sb", live):
+            keep["sb"].append((tr.kb, pool.clone(), bufs.clone()))
+        sb_fn(spec_, pool, bufs, acc_int, acc_byc)
 
-    tr.event_block, tr.shadow_advance = sd, sr
+    tr.event_block, tr.shadow_block = sd, shadow
     return keep
 
 
 def trace_states(sc: dict, n_photons: int, lanes: int, device, seed: int = 7,
                  tail_alive: float = 0.15, unroll: int = 8, mesh=None) -> dict:
     """Trace a scene on ``mesh`` (by default a world of one on ``device``)
-    and keep the block's and SR's inputs as ``capture_states`` does:
-    {"spec", "key", "source", "albedo", "block": [...], "sr": [...], "raw":
+    and keep the block's and SB's inputs as ``capture_states`` does:
+    {"spec", "key", "source", "albedo", "block": [...], "sb": [...], "raw":
     RawTallies}.  Every rank of the mesh calls it."""
     from i3rc_tpu_torch import PhotonSource
     from i3rc_tpu_torch.parallel.mesh import default_mesh
@@ -319,12 +320,12 @@ def trace_states(sc: dict, n_photons: int, lanes: int, device, seed: int = 7,
     while tr.running():
         tr.block()
     return dict(spec=tr.spec, key=tr.key, source=tr.source, albedo=tr.albedo,
-                block=keep["block"], sr=keep["sr"], raw=tr.finish())
+                block=keep["block"], sb=keep["sb"], raw=tr.finish())
 
 
 def run_block(spec, key, source, albedo, kept, plain: bool) -> tuple:
     """One whole block from a kept input, on copies: SD, and with detectors
-    SR and SP, through the kernels or (``plain``) their plain versions.
+    SB, through the kernels or (``plain``) their plain versions.
     Returns (state, pool, buffers, acc_int, acc_byc)."""
     from i3rc_tpu_torch.kernels import sharded_block as sb
 
@@ -336,13 +337,49 @@ def run_block(spec, key, source, albedo, kept, plain: bool) -> tuple:
     sd = sb.sharded_block_reference if plain else sb.sharded_event_block
     sd(spec, st, pool, bufs, plan, key, kb, source, albedo)
     if spec.n_dirs:
-        (sb.shadow_advance_reference if plain else sb.shadow_advance)(spec, pool, acc_int,
-                                                                     acc_byc)
-        if plain:
-            sb.shadow_pack_reference(spec, pool, bufs)
-        else:
-            sb.shadow_pack(spec, st, pool, bufs)
+        shadow_block(spec, pool, bufs, acc_int, acc_byc, plain)
     return st, pool, bufs, acc_int, acc_byc
+
+
+def shadow_block(spec, pool, bufs, acc_int, acc_byc, plain: bool) -> None:
+    """SB's launch, or (``plain``) its plain version: SR's steps, then SP's
+    pack."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    if plain:
+        sb.shadow_advance_reference(spec, pool, acc_int, acc_byc)
+        sb.shadow_pack_reference(spec, pool, bufs)
+    else:
+        sb.shadow_block(spec, pool, bufs, acc_int, acc_byc)
+
+
+def widened(pool, bufs, m: int) -> tuple:
+    """``pool``'s slots repeated ``m`` times, with copies of ``bufs`` whose
+    free-slot list and look-back records are sized for it: a pool of ``m``
+    times the slots (and tiles) for SB alone."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    big = sb.RayPool(pool.f.repeat(1, m).contiguous(), pool.i.repeat(1, m).contiguous())
+    b = bufs.clone()
+    n_tiles = -(-big.n_rays // sb.CTA_THREADS)
+    return big, dataclasses.replace(
+        b, free_q=torch.zeros(big.n_rays, dtype=torch.int32, device=b.free_q.device),
+        status=torch.zeros(2, n_tiles, sb.STATUS_INTS, dtype=torch.int32, device=b.free_q.device))
+
+
+def _pool_parts(pool, bufs) -> dict:
+    """What SB leaves that its plain version must equal bit for bit: the
+    pool, the filled prefixes of the rays' send buffer and of the sent-slot
+    list, the free-slot list (by the counts), the counts vector."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    row = bufs.counts[bufs.rank].tolist()
+    out = {"pool_f": pool.f, "pool_i": pool.i, "counts": bufs.counts,
+           "free_q": bufs.free_q[:row[sb.FREE_Q]]}
+    for k in range(2):
+        out[f"send_q{k}"] = bufs.send_q[k, :min(row[sb.WAIT_Q + k], bufs.cap)]
+        out[f"tag_q{k}"] = bufs.tag_q[k, :min(row[sb.WAIT_Q + k], bufs.cap)]
+    return out
 
 
 def _block_parts(spec, st, pool, bufs, kb: int) -> dict:
@@ -354,23 +391,19 @@ def _block_parts(spec, st, pool, bufs, kb: int) -> dict:
 
     npar = (kb + 1) & 1
     row = bufs.counts[bufs.rank].tolist()
-    cap = bufs.cap
     out = {"f": st.f, "i": st.i, "pool_f": pool.f, "pool_i": pool.i, "counts": bufs.counts,
            "tiles": bufs.tiles[npar], "columns": bufs.columns, "vol": bufs.vol}
     for k in range(2):
-        out[f"send_ph{k}"] = bufs.send_ph[npar, k, :min(row[sb.WAIT_PH + k], cap)]
-        if spec.n_dirs:
-            out[f"send_q{k}"] = bufs.send_q[k, :min(row[sb.WAIT_Q + k], cap)]
-            out[f"tag_q{k}"] = bufs.tag_q[k, :min(row[sb.WAIT_Q + k], cap)]
+        out[f"send_ph{k}"] = bufs.send_ph[npar, k, :min(row[sb.WAIT_PH + k], bufs.cap)]
     if spec.n_dirs:
-        out["free_q"] = bufs.free_q[:row[sb.FREE_Q]]
+        out.update(_pool_parts(pool, bufs))
     return out
 
 
 def block_vs_twin(spec, key, source, albedo, kept) -> dict:
-    """A whole block (SD, then SR and SP) against its plain version from the
-    same input: whether everything it leaves agrees bit for bit (the
-    radiance tallies within 1e-9 of their sum: SR adds in another order),
+    """A whole block (SD, then SB) against its plain version from the same
+    input: whether everything it leaves agrees bit for bit (the radiance
+    tallies within 1e-9 of their sum: SB adds in another order),
     the first parts that differ, and the block's counts (the plain
     version's): live lanes, lane-events, collisions, photons and rays
     tagged to migrate, rays drained, steps, escapes."""
@@ -401,45 +434,66 @@ def block_vs_twin(spec, key, source, albedo, kept) -> dict:
             "kb": kb}
 
 
-def sr_vs_twin(spec, pool0) -> dict:
-    """One SR launch against ``shadow_advance_reference`` from the same
-    pool and zeroed tallies: the pool bit for bit, the tallies' largest
-    absolute difference (the kernel adds in another order), and the
-    launch's ray steps, escapes and rays it tagged to migrate (the
-    twin's)."""
+def shadow_census(pool0, pool) -> dict:
+    """The rays in flight of ``pool0``, the steps they took, the rays that
+    escaped and those tagged to migrate, by ``pool`` after SB's work."""
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    q0, q = pool0.i, pool.i
+    return {"rays": int(((q0[sb.QALIVE] != 0) & (q0[sb.QTAG] == 0)).sum()),
+            "steps": int((q[sb.QSTEPS] - q0[sb.QSTEPS]).sum()),
+            "escapes": int(((q0[sb.QALIVE] != 0) & (q[sb.QALIVE] == 0)).sum()),
+            "tagged": int(((q[sb.QTAG] != 0) & (q0[sb.QTAG] == 0)).sum())}
+
+
+def sb_vs_twin(spec, pool0, bufs0) -> dict:
+    """One SB launch against SR's and then SP's plain versions from the
+    same pool, buffers and zeroed tallies: the pool, the packed rows and
+    slots, the free slots and the counts bit for bit; the tallies' largest
+    absolute difference
+    (the kernel adds in another order); the launch's census (the plain
+    version's rays, steps, escapes and tagged rays, its packed rows and
+    free slots) and, on the card, the kernel's own counts of its ray loop
+    (``shadow_ray_use``: rays, steps, thread slots, CTAs)."""
     from i3rc_tpu_torch.kernels import sharded_block as sb
 
     n = spec.nx_loc * spec.n_y * spec.n_dirs
     dev = pool0.f.device
     acc = lambda k: torch.zeros(k, dtype=torch.float64, device=dev)
-    got, ref = pool0.clone(), pool0.clone()
-    g_int, g_byc = acc(n), acc(n * (spec.n_comp + 1))
-    r_int, r_byc = acc(n), acc(n * (spec.n_comp + 1))
-    sb.shadow_advance(spec, got, g_int, g_byc)
-    sb.shadow_advance_reference(spec, ref, r_int, r_byc)
-    same = torch.equal(got.f, ref.f) and torch.equal(got.i, ref.i)
-    err = max(float((g_int - r_int).abs().max()), float((g_byc - r_byc).abs().max()))
-    return {"bit_equal": same, "tally_abs_err": err, "tally_sum": float(r_int.sum()),
-            "rays": int(((pool0.i[sb.QALIVE] != 0) & (pool0.i[sb.QTAG] == 0)).sum()),
-            "steps": int((ref.i[sb.QSTEPS] - pool0.i[sb.QSTEPS]).sum()),
-            "escapes": int(((pool0.i[sb.QALIVE] != 0) & (ref.i[sb.QALIVE] == 0)).sum()),
-            "tagged": int(((ref.i[sb.QTAG] != 0) & (pool0.i[sb.QTAG] == 0)).sum())}
+    got, ref = (pool0.clone(), bufs0.clone()), (pool0.clone(), bufs0.clone())
+    g_acc, r_acc = (acc(n), acc(n * (spec.n_comp + 1))), (acc(n), acc(n * (spec.n_comp + 1)))
+    use = sb.shadow_ray_use(dev).clone() if dev.type == "cuda" else None
+    shadow_block(spec, *got, *g_acc, plain=False)
+    if use is not None:
+        use = dict(zip(sb.SHADOW_USE, (sb.shadow_ray_use(dev) - use).tolist()))
+    shadow_block(spec, *ref, *r_acc, plain=True)
+    gp, rp = _pool_parts(*got), _pool_parts(*ref)
+    differ = [k for k in rp if gp[k].shape != rp[k].shape or not torch.equal(gp[k], rp[k])]
+    err = max(float((g - r).abs().max()) for g, r in zip(g_acc, r_acc))
+    row = ref[1].counts[ref[1].rank].tolist()
+    out = {"bit_equal": not differ, "parts_differing": differ[:6], "tally_abs_err": err,
+           "tally_sum": float(r_acc[0].sum()), "n_bins": n * (spec.n_comp + 2),
+           "rows": sum(min(row[sb.WAIT_Q + k], ref[1].cap) for k in range(2)),
+           "free": row[sb.FREE_Q], **shadow_census(pool0, ref[0])}
+    if use is not None:
+        out["use"] = use
+    return out
 
 
 def states_vs_twins(st: dict) -> list:
-    """``block_vs_twin`` on each kept block input and ``sr_vs_twin`` on each
-    kept SR pool of a rank (``trace_states``' result): one record each,
-    with its kernel ("SD": the whole block; "SR") and state ("mid",
+    """``block_vs_twin`` on each kept block input and ``sb_vs_twin`` on each
+    kept SB input of a rank (``trace_states``' result): one record each,
+    with its kernel ("SD": the whole block; "SB") and state ("mid",
     "tail")."""
     args = (st["spec"], st["key"], st["source"], st["albedo"])
     out = [dict(block_vs_twin(*args, kept), kernel="SD", state=tag)
            for tag, kept in zip(("mid", "tail"), st["block"])]
-    return out + [dict(sr_vs_twin(st["spec"], pool), kernel="SR", state=tag, kb=kb)
-                  for tag, (kb, pool) in zip(("mid", "tail"), st["sr"])]
+    return out + [dict(sb_vs_twin(st["spec"], pool, bufs), kernel="SB", state=tag, kb=kb)
+                  for tag, (kb, pool, bufs) in zip(("mid", "tail"), st["sb"])]
 
 
 def twin_check_job(mesh, name: str, n_photons: int, lanes: int, seed: int = 7) -> dict:
-    """A rank's job: trace a scene on the mesh keeping the block's and SR's
+    """A rank's job: trace a scene on the mesh keeping the block's and SB's
     inputs, then hold the kernels against their plain versions on this
     rank's states (its half slab, one face of it inside the domain)."""
     st = trace_states(scene(name, host("i3rc_tpu_torch"), mesh.size), n_photons, lanes,

@@ -1,6 +1,6 @@
 """The sharded tracer's whole block on the CPU: the plain version of SD's
 launch (``kernels/sharded_block.py`` ``block_prologue_reference``, the K
-events, ``block_epilogue_reference``) and of SP (``shadow_pack_reference``)
+events, ``block_epilogue_reference``) and of SB's pack (``shadow_pack_reference``)
 held against the rules a block keeps, on a world of one:
 
   * the FIFO refill takes the free lanes in lane order after the placed
@@ -10,8 +10,9 @@ held against the rules a block keeps, on a world of one:
   * the arriving rows of a direction are the inbox's waiting rows, then the
     received ones: they take the free lanes (slots) in order, +1 before -1,
     and the rest wait, in order, in the next parity's inbox;
-  * the counts vector after SD (its photon side) and after SP (its ray
-    side) equals the counts recomputed from the state and the pool;
+  * the counts vector after SD (its photon side) and after SB's pack (its
+    ray side) equals the counts recomputed from the state and the pool, and
+    the pack's free slots and sent slots are the pool's, in slot order;
   * a whole trace on one rank gives the tallies that
     ``tests/test_torch_sharded_domain.py`` expects against JAX, within 4
     combined binomial standard errors, and conserves photons exactly.
@@ -68,6 +69,17 @@ def counts_of(tr: ShardedTrace, plan: sb.BlockPlan) -> list:
         row[sb.WAIT_Q + 1] = int((qi[sb.QTAG] == -1).sum())
         row[sb.FREE_Q] = int(((qi[sb.QALIVE] == 0) & (qi[sb.QTAG] == 0)).sum())
     return row
+
+
+def assert_pack_lists(tr: ShardedTrace) -> None:
+    """The pool's free slots in slot order at the head of ``free_q``, and
+    the first CAP slots tagged each way in slot order in ``tag_q``."""
+    qi, bufs = tr.pool.i, tr.bufs
+    free = ((qi[sb.QALIVE] == 0) & (qi[sb.QTAG] == 0)).nonzero()[:, 0].to(torch.int32)
+    assert torch.equal(bufs.free_q[:free.numel()], free), tr.kb
+    for k, dirn in enumerate(sb.DIRS):
+        slots = (qi[sb.QTAG] == dirn).nonzero()[:, 0][:bufs.cap].to(torch.int32)
+        assert torch.equal(bufs.tag_q[k, :slots.numel()], slots), tr.kb
 
 
 def test_refill_takes_free_lanes_in_lane_order_keeping_the_reserve():
@@ -130,7 +142,7 @@ def test_send_buffers_hold_the_first_cap_tagged_rows_in_lane_order():
         want = torch.cat([st.f[:sb.TAU + 1, lanes[:cap]],
                           st.i[sb.ORDERS, lanes[:cap]][None].float()]).t()
         assert torch.equal(bufs.send_ph[npar, k], want)
-    # The rays: SP packs the first CAP tagged slots of each direction.
+    # The rays: SB's pack takes the first CAP tagged slots of each direction.
     qtag = torch.where(pick < 0.3, 1, torch.where(pick > 0.65, -1, 0)).to(torch.int32)
     pool.i[sb.QTAG] = qtag
     sb.shadow_pack_reference(tr.spec, pool, bufs)
@@ -197,6 +209,7 @@ def test_counts_equal_the_state(name):
         plan = tr._plan
         tr.block()
         assert tr.bufs.counts[0].tolist() == counts_of(tr, plan), tr.kb
+        assert_pack_lists(tr)
         n_checked += 1
         running = tr.running()
     assert n_checked > 8

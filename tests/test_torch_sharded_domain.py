@@ -1,6 +1,6 @@
 """The x-sharded domain tracer (``i3rc_tpu_torch/parallel/sharded_domain.py``)
 on the absorbing I3RC Landsat scene, on the CPU: gloo worlds of 2 and 4
-ranks (spawned processes) run the plain twins of SD and SR.
+ranks (spawned processes) run the plain twins of SD and SB.
 
 Each rank holds n_cells / n_ranks rows of the cell matrix; photons migrate;
 ``sum(flux) + n_bad == n_photons`` holds exactly; the domain-mean fluxes

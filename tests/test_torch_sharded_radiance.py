@@ -1,5 +1,5 @@
 """Radiance detectors on the x-sharded domain tracer, on the CPU in gloo
-worlds of 2 and 4 ranks (the twins of SD and SR): the reflecting random
+worlds of 2 and 4 ranks (the twins of SD and SB): the reflecting random
 field of tests/test_sharded_domain.py with three detectors (mu 1, 0.6,
 -0.5; phi 0, 45, 0: the slanted one's shadow rays cross slab faces) over
 an albedo of 0.4.

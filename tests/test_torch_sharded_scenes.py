@@ -71,7 +71,7 @@ def test_volume_absorption(runs, n_dev):
 
 
 def test_rank_states_cross_interior_faces():
-    """Each rank of a gloo world of 2 keeps SD's and SR's inputs at a
+    """Each rank of a gloo world of 2 keeps SD's and SB's inputs at a
     mid-flight and a tail block of the graft scene (2 of its 4 x cells a
     rank) and holds each launch against its twin; the mid-flight launches
     tag photons and shadow rays for migration at faces that, on one side of
@@ -81,7 +81,7 @@ def test_rank_states_cross_interior_faces():
     for r in ranks:
         assert r["nx_loc"] == 2
         got = {(c["kernel"], c["state"]): c for c in r["checks"]}
-        assert sorted(got) == [("SD", "mid"), ("SD", "tail"), ("SR", "mid"), ("SR", "tail")]
+        assert sorted(got) == [("SB", "mid"), ("SB", "tail"), ("SD", "mid"), ("SD", "tail")]
         assert all(c["bit_equal"] for c in r["checks"])
-        assert got[("SD", "mid")]["tagged"] > 0 and got[("SR", "mid")]["tagged"] > 0
+        assert got[("SD", "mid")]["tagged"] > 0 and got[("SB", "mid")]["tagged"] > 0
 

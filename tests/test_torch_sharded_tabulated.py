@@ -1,7 +1,7 @@
 """Radiance on the x-sharded domain tracer with two components, one of them
 tabulated: tests/test_sharded_domain.py's C.1 cloud and Legendre
 component (detectors mu 1 and -0.5), on the CPU in gloo worlds of 2 and
-4 ranks (the twins of SD and SR).  The component pick by cumulative
+4 ranks (the twins of SD and SB).  The component pick by cumulative
 extinction and the replicated cubic inverse-CDF and log-cubic forward
 fits of both tables: per detector against the port's unsharded general
 kernel and JAX ``trace_sharded`` within 5 combined standard errors, and
