@@ -167,7 +167,16 @@ OPS_PER_EVENT = {                  # the step: where-chains, faces, distances
     "gas": (160, 3),               # K2: + the gas chain and its faces
     "gas_detectors": (160, 3),
     "column": (110, 5),            # P1 in the event block: row index, 3 faces, s_col
-    "probe": (120, 0),             # P1 probe: one Philox call and ~20 ALU per event
+    # P1 probe, per event in units of the 67e12 rate, written out: the draw's
+    # Philox word 0 (19 32 x 32 -> 64-bit multiplies, IMAD.WIDE at half the
+    # FP32 instruction rate: 4 units each, 76; 19 three-way xors, LOP3: 2
+    # each, 38), to_unit (a shift and a product: 4), the row index (two
+    # products, four clamps, the address: 14) and the advance and wrap (18
+    # float adds and products: 36): 168; on the conversion pipe (16 a clock
+    # an SM, SFU_OPS_PER_S) one I2F, two F2I and two FRND.  The key
+    # schedule runs on the warp's uniform datapath.  The first count,
+    # OPS_PER_EVENT_PROBE_BEFORE, left out the multiplies' half rate.
+    "probe": (168, 5),
     # FK: K1's step (no gas faces) + the endpoint read (clip, layer, Gz
     # linear in it: ~15 ALU), the gas depth's division and the death test.
     # The read's 8-byte row comes from the k table, a few KB that stay in
@@ -177,6 +186,7 @@ OPS_PER_EVENT = {                  # the step: where-chains, faces, distances
     "fused_k": (140, 4),
     "fused_k_detectors": (140, 4),
 }
+OPS_PER_EVENT_PROBE_BEFORE = (120, 0)   # one Philox call and ~20 ALU an event, at 67e12
 OPS_PER_COLLISION = {"flux": (180, 7), "detectors": (180, 7), "gas": (190, 7),
                      "gas_detectors": (190, 7), "column": (180, 8), "probe": (0, 0),
                      "fused_k": (180, 7), "fused_k_detectors": (180, 7)}
@@ -369,6 +379,8 @@ def sass_census(library: Path) -> dict:
         if "Function :" in line:
             name = next((k for k, v in CENSUS.items()
                          if f"fast_event_block_kernel{v}" in line), None)
+            if "column_read_probe_kernel" in line:
+                name = "probe"
             if name:
                 counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name and (m := re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
@@ -609,9 +621,32 @@ def time_block_ms(run, s0, new_acc, n: int) -> float:
     return total / n
 
 
-# device_block_ms's profiler traces: all taken, those that showed fewer than
+# The profiler's traces (traced): all taken, those that showed fewer than
 # half of their launches, and those that showed none (printed at the end).
 PROFILER_TRACES = {"taken": 0, "short": 0, "empty": 0}
+
+
+def traced(launch, n: int, kernel: str, counted: str):
+    """The profiler's records of the kernels named ``kernel`` over n calls of
+    ``launch()``, and the launches of those named ``counted`` among them.
+    The profiler now and then drops device records of a trace: the records
+    are those of the first of up to three traces that shows half of the n
+    launches; PROFILER_TRACES counts the short ones."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                launch()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if kernel in e.key]
+        launches = sum(e.count for e in found if counted in e.key)
+        PROFILER_TRACES["taken"] += 1
+        if 2 * launches >= n:
+            break
+        PROFILER_TRACES["short"] += 1
+        PROFILER_TRACES["empty"] += launches == 0
+    return found, launches
 
 
 def device_block_ms(run, s0, new_acc, n: int, kernel: str = "fast_event_block") -> float:
@@ -621,24 +656,32 @@ def device_block_ms(run, s0, new_acc, n: int, kernel: str = "fast_event_block") 
     parameter block), which the CUDA-event time of time_block_ms includes
     on an idle device.  Over a reflecting surface the surface stage's kernel
     counts in.  ``kernel`` names the kernels' family."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    # The profiler now and then drops device records of a trace: take the
-    # mean over the launches it shows, from the first of up to three traces
-    # that shows half of them; PROFILER_TRACES counts the short ones.
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                run(s0.clone(), new_acc())
-            torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if kernel in e.key]
-        launches = sum(e.count for e in found if f"{kernel}_kernel" in e.key)
-        PROFILER_TRACES["taken"] += 1
-        if 2 * launches >= n:
-            break
-        PROFILER_TRACES["short"] += 1
-        PROFILER_TRACES["empty"] += launches == 0
+    found, launches = traced(lambda: run(s0.clone(), new_acc()), n, kernel, f"{kernel}_kernel")
     check(0 < launches <= n, f"the profiler shows {launches} block kernels for {n} launches")
+    return sum(e.self_device_time_total for e in found) / launches / 1e3
+
+
+def queued_ms(launch, n: int) -> float:
+    """Device ms a call of ``launch()``: CUDA events around n calls queued
+    behind a spin kernel (~1 ms), so that the host's work of each call falls
+    inside the spin and the events time the device alone."""
+    launch()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES * max(1, n // 20))
+    a.record()
+    for _ in range(n):
+        launch()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def profiled_ms(launch, n: int, kernel: str) -> float:
+    """Mean device ms a launch of the kernels named ``kernel`` over n calls
+    of ``launch()``, from the profiler (traced)."""
+    found, launches = traced(launch, n, kernel, kernel)
+    check(launches > 0, f"the profiler shows no {kernel} in {n} calls")
     return sum(e.self_device_time_total for e in found) / launches / 1e3
 
 
@@ -1650,7 +1693,7 @@ def main() -> int:
         say("2 sass", instantiation=name, **ptxas.get(name, {}),
             **(ops if isinstance(ops, dict) else {"ops": ops}))
     if "cuobjdump" not in census:
-        for name in CENSUS:
+        for name in (*CENSUS, "probe"):
             check(name in census, f"{name} not found in the cuobjdump listing")
         for name in ("detectors_iwabuchi", "gas_detectors", "detectors_iwabuchi_16",
                      "table_detectors_iwabuchi", "march_detectors_iwabuchi"):
@@ -2075,6 +2118,7 @@ def main() -> int:
              "i3rc_tpu/integrators/fastpath.py:665 (gas=True, table mode; fused-k, XLA in "
              "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)] + [
         march_entry(kind, m_checks, m_rec) for kind in ("march", "march_surface")] + [
+        march_stage_entry(m_checks, m_rec)] + [
         sharded_entry(kind, sd_checks, sd_rec) for kind in ("SD", "SB")]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2341,8 +2385,10 @@ def landsat_driver(land_dir: Path, card: str) -> None:
 
 def probe_checks(dev, card: str):
     """Phase 19; returns (launches, max abs error, ms, twin ms, bound, ms) of
-    one launch at 2^17 lanes (CUDA events around 20 queued launches: no host
-    work falls between them, so the event time is the device's)."""
+    one launch at 2^17 lanes: ms the profiler's device time of the kernel,
+    the last the CUDA-event time of 20 launches queued behind a spin kernel
+    (queued_ms; 20 calls timed without the spin, calls_ms, measure the
+    host's calls, not the device)."""
     from i3rc_tpu_torch import batch_key
     from i3rc_tpu_torch.kernels import column_probe as cp
 
@@ -2369,6 +2415,14 @@ def probe_checks(dev, card: str):
     err = max(float((a - b).abs().max()) for a, b in ((kx, tx), (ky, ty), (kacc, tacc)))
     check(torch.equal(kx, tx) and torch.equal(ky, ty) and torch.equal(kacc, tacc),
           f"probe kernel and twin differ (max abs error {err})")
+    # A partial last CTA: 2^16 + 77 lanes.
+    n_odd = (1 << 16) + 77
+    ox, oy = x0[:n_odd].clone(), y0[:n_odd].clone()
+    oacc = cp.column_probe(table, ox, oy, key, 1)
+    rx, ry, racc = cp.column_probe_reference(table, x0[:n_odd], y0[:n_odd],
+                                             cp.probe_uniforms(key, 1, n_odd, dev))
+    check(torch.equal(ox, rx) and torch.equal(oy, ry) and torch.equal(oacc, racc),
+          f"probe kernel and twin differ at {n_odd} lanes")
 
     def time_ms(fn, n):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2383,15 +2437,27 @@ def probe_checks(dev, card: str):
         return a.elapsed_time(b) / n
 
     u = cp.probe_uniforms(key, 0, PROBE_LANES, dev)
-    k_ms = time_ms(lambda xs, ys: cp.column_probe(table, xs, ys, key, 0), 20)
+    calls_ms = time_ms(lambda xs, ys: cp.column_probe(table, xs, ys, key, 0), 20)
     p_ms = time_ms(lambda xs, ys: cp.column_probe_reference(table, xs, ys, u), 5)
+    xs, ys = x0.clone(), y0.clone()
+    run = lambda: cp.column_probe(table, xs, ys, key, 0)
+    k_ms = queued_ms(run, 20)
+    dev_ms = profiled_ms(run, 20, "column_read_probe_kernel")
     lane_events = PROBE_LANES * cp.K
-    bound = bound_ms("probe", lane_events, PROBE_LANES * 5 * 4 + table.numel() * 4)
+    n_bytes = PROBE_LANES * 5 * 4 + table.numel() * 4
+    bound = bound_ms("probe", lane_events, n_bytes)
+    before = OPS_PER_EVENT["probe"]
+    OPS_PER_EVENT["probe"] = OPS_PER_EVENT_PROBE_BEFORE
+    try:
+        bound_before = bound_ms("probe", lane_events, n_bytes)
+    finally:
+        OPS_PER_EVENT["probe"] = before
     say("19 probe", lanes=PROBE_LANES, K=cp.K, loop=PROBE_LOOP, bit_equal=True,
-        kernel_ms=f"{k_ms:.4f}", twin_ms=f"{p_ms:.4f}",
-        ns_per_lane_event=f"{1e6 * k_ms / lane_events:.4f}", launches=launches,
-        card=json.dumps(card))
-    return launches, err, k_ms, p_ms, bound, k_ms
+        device_ms=f"{dev_ms:.4f}", queued_ms=f"{k_ms:.4f}", calls_ms=f"{calls_ms:.4f}",
+        twin_ms=f"{p_ms:.4f}", ns_per_lane_event=f"{1e6 * dev_ms / lane_events:.4f}",
+        bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+        bound_before_ms=f"{bound_before[0]:.4f}", launches=launches, card=json.dumps(card))
+    return launches, err, dev_ms, p_ms, bound, k_ms
 
 
 def gas_slab_oracle(dev) -> None:
@@ -5132,6 +5198,16 @@ def march_kernel_vs_twin(dev, card: str) -> dict:
                 r["twin_ms"] = time_block_ms(run_p, st, buf.clone, 2)
                 r["bound"] = march_block_bound(spec, r, sc.lanes, cen)
                 r["census"] = dict(cen)
+                if spec.reflecting:
+                    r["stage"] = stage_vs_plain(spec, pro, st, buf, key, sc.src, kb, sc.lanes)
+                    su = r["stage"]["ray_use"]
+                    check(su["rays"] == r["stage"]["census"]["rays"]
+                          and su["steps"] == r["stage"]["census"]["steps"]
+                          and su["runs"] == r["stage"]["shape"]["runs"],
+                          f"55 {name} {state}: S-M's ray loop {su} vs the plain version's "
+                          f"{r['stage']['census']}, runs {r['stage']['shape']}")
+                    say("55 march-surface-stage", scene=name, state=state, lanes=sc.lanes,
+                        **stage_fields(r["stage"]), card=json.dumps(card))
                 timed[(name, state)] = r
                 fields.update(lane_events=r["lane_events"], collisions=r["collisions"],
                               hits=r["hits"], **ray_loop_fields(r["ray_use"], cen),
@@ -5144,6 +5220,68 @@ def march_kernel_vs_twin(dev, card: str) -> dict:
         bit_equal=True, max_abs_err=",".join(f"{k}:{v:.3e}" for k, v in err.items()),
         card=json.dumps(card))
     return {"timed": timed, "err": err}
+
+
+def stage_vs_plain(spec, pro, st, buf, key, source, kb: int, lanes: int) -> dict:
+    """The marching surface stage S-M (fast_event_block_surface_kernel_march)
+    of one block alone: its device ms a launch (the profiler's time of the
+    stage's kernel in the whole block's launch), its plain version's
+    (resolve_surface on the stage's input, CUDA events), the bound of its
+    work (bounce_work of the block's bottom hits and the marching census of
+    its rays), its launch shape (T tiles a run, runs, one wave's CTAs), its
+    ray loop as the kernel counted it, and the census of the same input
+    (surface_census at the kernel's T: the queue's rays, steps and modeled
+    lane use)."""
+    from i3rc_tpu_torch.kernels import event_block as eb
+
+    seen = []
+    real = eb.resolve_surface
+
+    def grab(*args):
+        seen.append((args[2].clone(), args[3].clone(), *args[4:]))
+        return real(*args)
+
+    eb.resolve_surface = grab
+    try:
+        eb.fused_block_reference(spec, pro, st.clone(), buf.clone(), key, source, kb)
+    finally:
+        eb.resolve_surface = real
+    check(len(seen) == 1, "55: the plain block ran no surface stage")
+    s_in, b_in, u, u_iw = seen[0]
+    shape = eb.surface_march_runs(pro, spec, lanes, s_in.f.device)
+    run = lambda s, b: eb.fused_block(spec, pro, s, b, key, source, kb)
+    ms = profiled_ms(lambda: run(st.clone(), buf.clone()), 10,
+                     "fast_event_block_surface_kernel_march")
+    use = eb.march_ray_use(s_in.f.device)
+    use.zero_()
+    run(st.clone(), buf.clone())
+    got = dict(zip(eb.MARCH_USE, use.tolist()))
+    plain = time_block_ms(lambda s, b: eb.resolve_surface(spec, pro, s, b, u, u_iw), s_in,
+                          b_in.clone, 3)
+    with eb.march_census() as cen:
+        eb.resolve_surface(spec, pro, s_in.clone(), b_in.clone(), u, u_iw)
+    hits = int((s_in.i[eb.PK] == 2).sum())
+    bound = bound_ms(variant(spec), 0, 0, **dict(bounce_work(spec, lanes, hits), emits=0),
+                     table=spec.table, march=cen)
+    census = eb.surface_census(spec, pro, s_in, b_in, u, u_iw, tiles=shape["tiles"])
+    return {"ms": ms, "plain_ms": plain, "bound": bound, "hits": hits, "shape": shape,
+            "ray_use": {k[len("surface_"):]: v for k, v in got.items()
+                        if k.startswith("surface_")},
+            "census": dict(cen), "queue": census["queue"]}
+
+
+def stage_fields(r: dict) -> dict:
+    """The say() fields of stage_vs_plain's record."""
+    use, qu = r["ray_use"], r["queue"]
+    return dict(stage_device_ms=f"{r['ms']:.4f}", stage_plain_ms=f"{r['plain_ms']:.4f}",
+                stage_bound_ms=f"{r['bound'][0]:.4f}", stage_bound_by=r["bound"][1],
+                hits=r["hits"], tiles=r["shape"]["tiles"], runs=r["shape"]["runs"],
+                wave=r["shape"]["wave"], kernel_runs=use["runs"], kernel_rays=use["rays"],
+                kernel_steps=use["steps"], kernel_slots=use["slots"],
+                kernel_lane_use=f"{use['steps'] / max(use['slots'], 1):.3f}",
+                census_rays=qu["rays"]["sum"], census_steps=qu["steps"],
+                census_slots=qu["slots"], census_lane_use=f"{qu['lane_use'] or 0.0:.3f}",
+                census_flushes=qu["flushes"], max_rays_a_run=qu["rays"]["max"])
 
 
 def ray_loop_fields(use: dict, cen: dict) -> dict:
@@ -5162,14 +5300,25 @@ def march_batch_census(run_batch) -> dict:
     version of every block of the same batch (same key: bit-equal to the
     kernels' run), the plain batch's host seconds, and apart the rays and
     steps of the surface stage's own marching (``surface``: those of the
-    plain version's resolve_surface)."""
+    plain version's resolve_surface) with, over the batch, its census's
+    queue (surface_census at the kernel's run length: emitting hits, the
+    CTAs' runs and flushes, and the modeled thread slots of its ray loop)."""
     import i3rc_tpu_torch.integrators.fastpath as fp
     from i3rc_tpu_torch.kernels import event_block as eb
 
     orig, orig_surface = fp.fused_block, eb.resolve_surface
     surface = {"rays": 0, "steps": 0}
+    queue = {"emitting_hits": 0, "runs": 0, "flushes": 0, "steps": 0, "slots": 0, "tiles": 0}
 
     def resolve(*args):
+        spec, pro, st = args[:3]
+        if spec.det is not None and spec.det.march_steps:
+            T = eb.surface_march_runs(pro, spec, st.n_lanes, st.f.device)["tiles"]
+            qu = eb.surface_census(*args, tiles=T)["queue"]
+            queue["tiles"] = T
+            queue["emitting_hits"] += qu["emitting_hits"]["sum"]
+            for k in ("runs", "flushes", "steps", "slots"):
+                queue[k] += qu[k]
         with eb.march_census() as c:
             orig_surface(*args)
         for k in surface:
@@ -5184,7 +5333,7 @@ def march_batch_census(run_batch) -> dict:
             seconds = time.perf_counter() - t0
     finally:
         fp.fused_block, eb.resolve_surface = orig, orig_surface
-    return dict(cen, plain_seconds=seconds, surface=surface)
+    return dict(cen, plain_seconds=seconds, surface=dict(surface, queue=queue))
 
 
 def closed_vs_march(card: str) -> dict:
@@ -5322,11 +5471,22 @@ def march_paths(card: str) -> dict:
                                block_ms=pb["block_ms"], census=cen["surface"],
                                bound=bound_ms(variant(spec), 0, 0, **work, table=spec.table,
                                               march=cen["surface"]))
+            use, qu = bk["ray_use"], cen["surface"]["queue"]
+            check(use["surface_rays"] == cen["surface"]["rays"]
+                  and use["surface_steps"] == cen["surface"]["steps"],
+                  f"57 {name}: S-M's ray loop {use} vs the plain version's {cen['surface']}")
             say("57 march-3d_rpv-stage", photons=sc.n, stage_launches=pb["surface_launches"],
                 stage_ms=f"{pb['surface_ms']:.3f}", block_ms=f"{pb['block_ms']:.3f}",
                 stage_bound_ms=f"{bk['stage']['bound'][0]:.3f}",
                 stage_bound_by=bk["stage"]["bound"][1], hits=bk["hits"],
                 stage_rays=cen["surface"]["rays"], stage_steps=cen["surface"]["steps"],
+                kernel_rays=use["surface_rays"], kernel_steps=use["surface_steps"],
+                kernel_slots=use["surface_slots"], kernel_runs=use["surface_runs"],
+                kernel_lane_use=f"{use['surface_steps'] / max(use['surface_slots'], 1):.3f}",
+                census_tiles=qu["tiles"], census_emitting_hits=qu["emitting_hits"],
+                census_runs=qu["runs"], census_flushes=qu["flushes"],
+                census_slots=qu["slots"],
+                census_lane_use=f"{qu['steps'] / max(qu['slots'], 1):.3f}",
                 card=json.dumps(card))
         rec["batch"][counter] = bk
         say(f"57 march-{name}-profile", photons=sc.n,
@@ -5460,6 +5620,32 @@ def march_entry(kind: str, checks: dict, rec: dict) -> dict:
             "batch_ray_loop_lane_use": bk["ray_use"]["steps"] / max(bk["ray_use"]["slots"], 1),
             **stage}
 
+
+def march_stage_entry(checks: dict, rec: dict) -> dict:
+    """The kernels-line entry of S-M, the marching surface stage
+    (fast_event_block_surface_kernel_march, launched after each K3-M block
+    over a surface): its launches on K3-M+S's path (phase 57), its largest
+    state difference (phase 55's, the whole surfaced block's), its device
+    ms a launch on the path scene's mid-flight and tail blocks (phase 55),
+    its plain version's (resolve_surface), its bound, its ray loop's lane
+    use, and per batch its ms beside its bound (phase 57)."""
+    mid = checks["timed"][("3d_rpv", "mid")]["stage"]
+    tail = checks["timed"][("3d_rpv", "tail")]["stage"]
+    st = rec["batch"]["march_surface"]["stage"]
+    use = mid["ray_use"]
+    return {"name": "fast_event_block_surface_stage_march", "route": "cuda",
+            "source": "i3rc_tpu_torch/csrc/fast_event_block.cu",
+            "replaces": "i3rc_tpu/integrators/fastpath.py:1874-1981 (the surface glue in the "
+                        "path of :665, its shadow ray the marching shadow_trace of :1061)",
+            "launches": rec["launches"]["march_surface"],
+            "max_abs_err": checks["err"]["march_surface"], "ms": mid["ms"],
+            "plain_ms": mid["plain_ms"], "bound_ms": mid["bound"][0],
+            "bound_by": mid["bound"][1], "library_ms": None, "tail_ms": tail["ms"],
+            "tail_bound_ms": tail["bound"][0], "tiles_a_run": mid["shape"]["tiles"],
+            "runs": mid["shape"]["runs"],
+            "ray_loop_lane_use": use["steps"] / max(use["slots"], 1),
+            "batch_ms": st["ms"], "batch_launches": st["launches"],
+            "batch_bound_ms": st["bound"][0]}
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,19 @@
 // is draw 0 of event j in the event block's Philox layout (counter (lane,
 // kb, j, STREAM_EVENT), word 0) in place of the TPU's hardware PRNG.
 //
-// What bounds it: latency of the dependent chain load -> update -> next
-// index, and the Philox call per event; device memory traffic is 12 B read
-// and written per lane per launch plus one pass over the 256 KB table.
+// What bounds it (H100 runs, PERF.md section 6): the L2.  Device memory
+// traffic is 12 B read and written per lane per launch plus one pass over
+// the 256 KB table, but each random 16-byte row read fetches a 32-byte
+// sector: 2^17 lanes x 8 reads move ~34 MB through the L2 a launch, as much
+// as every SM reading the whole table.  Split on the card (copies without
+// the loop, without the read, without the Philox call): the chain of reads
+// alone takes ~0.006 ms a launch, the Philox calls and arithmetic alone
+// ~0.005, the whole 0.0065, so the step's Philox call already runs in the
+// shadow of its read.  Two redesigns measured slower and went: all K draws
+// of a lane first, then the chain of reads (0.0075); the table in the
+// distributed shared memory of a cluster of 2, 4 or 8 CTAs, one CTA an SM
+// (0.016-0.028: the slices' load and too few warps to cover the remote
+// reads' latency).
 //
 // Built with --fmad=false, like the event block, so that it agrees bit for
 // bit with its PyTorch twin (kernels/column_probe.py).

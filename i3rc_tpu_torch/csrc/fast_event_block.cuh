@@ -786,33 +786,6 @@ __device__ __forceinline__ bool march_step(const EventParams& p, int d, float& x
   return false;
 }
 
-// The marching shadow trace of detector d from (x, y, z): up to march_steps
-// steps (march_step).  ok: the ray reached the boundary within the budget
-// (a lane that is not live is done at once, not ok).  The plain version
-// steps every lane march_steps times under a mask that freezes a finished
-// ray; here a lane leaves the loop when its ray is done, which gives the
-// same bits.  The surface stage's trace (fast_event_block_surface_kernel_
-// march): its rays are few (an emitting bottom hit each), so each thread
-// traces its own; the event block queues its rays instead (march_flush).  A
-// function of its own (noinline) that returns its three results in
-// registers: inlined, or returning through pointers, its loop's live values
-// spilled 24-56 bytes (ptxas -v on the H100 machine's nvcc).
-struct MarchRay {
-  float tau;
-  int col;
-  int ok;
-};
-static __device__ __noinline__ MarchRay shadow_march(const EventParams& p, int d, bool live,
-                                                       float x, float y, float z) {
-  float tau = 0.0f;
-  int col = 0;
-  bool done = !live;
-#pragma unroll 1
-  for (int k = 0; k < p.det.march_steps && !done; ++k)
-    done = march_step(p, d, x, y, z, tau, col);
-  return MarchRay{tau, col, (int)(done && live)};
-}
-
 // Iwabuchi Eq 13/14 on the exact tau, for a normalized phase value npf;
 // the small-phase case accepts with probability (pf_pi / zeta) exp(-tau)
 // (see the header).
@@ -823,27 +796,6 @@ __device__ __forceinline__ float iwabuchi(const DetParams& q, float npf, float t
   if (pf_pi <= q.zeta) return (u_iw * q.zeta <= pf_pi * expf(-tau)) ? q.zeta_pi : 0.0f;
   if (tau <= tau_max) return npf * expf(-tau);
   return (u_iw < expf(tau_max - tau)) ? q.zeta_pi : 0.0f;
-}
-
-// The shadow ray of detector d from (x, y, z) in the surface stage: the
-// marching trace in its MARCH instantiation (a plan with march_steps > 0),
-// else the closed form.  False when the marching ray did not reach the
-// boundary: the contribution is 0.  MARCH is a template flag, not a runtime
-// branch on march_steps: the branch's loop, inlined into every detector
-// instantiation, raised K3 from 64 to 80 registers (3 CTAs per SM for 4) and
-// its closed-trace batch by 5.6% (H100, PERF.md section 6).
-template <bool MARCH>
-__device__ __forceinline__ bool shadow_ray(const EventParams& p, int d, bool live, float x,
-                                           float y, float z, int* col_out, float* tau_out) {
-  if constexpr (MARCH) {
-    const MarchRay r = shadow_march(p, d, live, x, y, z);
-    *col_out = r.col;
-    *tau_out = r.tau;
-    return r.ok != 0;
-  } else {
-    *tau_out = shadow_closed(p, d, x, y, z, col_out);
-    return true;
-  }
 }
 
 // Local estimate of detector d from a collision at s (direction before the
@@ -907,6 +859,12 @@ __device__ __forceinline__ float detector_contribution_tab(const EventParams& p,
 #define MARCH_USE_STEPS 1
 #define MARCH_USE_SLOTS 2
 #define MARCH_USE_FLUSHES 3
+// The same of the marching surface stage's ray loop (S-M,
+// fast_event_block.cu): rays, steps, thread slots, and the CTAs' runs.
+#define SRF_USE_RAYS 4
+#define SRF_USE_STEPS 5
+#define SRF_USE_SLOTS 6
+#define SRF_USE_RUNS 7
 // A warp refills when at most this many of its threads still hold a ray
 // (G's GEN_REFILL_AT).
 #define MARCH_REFILL_AT 8

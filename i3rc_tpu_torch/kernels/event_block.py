@@ -20,9 +20,12 @@ float64 (n_cols, D) accumulator.  Over a reflecting surface (a Lambertian
 albedo or a uniform BRDF, ``SurfaceLaw``) the whole block ends with the
 surface stage (``resolve_surface``; on the card a second hand-written
 kernel, ``fast_event_block_surface_kernel``, launched by the same call, its
-tallies summed per CTA; ``surface_census`` counts its work and its tallies'
-atomics block by block).  The kernel takes every K >= 1, chain depth 0-3
-and up to 16 detectors; ``launch_refusal`` names what it does not.
+tallies summed per CTA, and on a plan with the marching shadow trace
+``fast_event_block_surface_kernel_march``, whose CTAs take runs of tiles
+and pull their emitting hits' rays from a queue; ``surface_census`` counts
+their work and their tallies' atomics block by block).  The kernel takes
+every K >= 1, chain depth 0-3 and up to 16 detectors; ``launch_refusal``
+names what it does not.
 Every variant also comes as a table variant (``EventSpec.cubic``: a phase
 function that is not exactly HG samples the cosine from the piecewise-cubic
 inverse CDF, its detectors read the phase value from the log-space cubic
@@ -530,16 +533,19 @@ _MARCH_CENSUS = []      # the open march_census records
 
 
 @contextlib.contextmanager
-def march_census():
+def march_census(lane_steps: bool = False):
     """While open, ``shadow_march`` counts into the record it yields: its
     ``rays`` (live lanes x detectors traced), ``steps`` (each ray's segment
     steps until it reaches the boundary or the budget ends: the steps the
     kernel's loop takes), ``warp_steps`` (per group of 32 lanes in lane
     order, the most steps of its rays: what a warp of those lanes runs),
     ``unfinished`` (rays the budget ended) and ``most`` (the largest steps
-    of one ray).  The plain version on CPU or CUDA tensors; nothing else
+    of one ray); with ``lane_steps`` also, per call, each lane's steps (0
+    where not live).  The plain version on CPU or CUDA tensors; nothing else
     changes."""
     rec = {"rays": 0, "steps": 0, "warp_steps": 0, "unfinished": 0, "most": 0}
+    if lane_steps:
+        rec["lane_steps"] = []
     _MARCH_CENSUS.append(rec)
     try:
         yield rec
@@ -558,6 +564,8 @@ def _count_march(live, steps, done) -> None:
         for k, v in counts.items():
             rec[k] += v
         rec["most"] = max(rec["most"], int(steps.max()) if L else 0)
+        if "lane_steps" in rec:
+            rec["lane_steps"].append(torch.where(live, steps, 0))
 
 
 def shadow_march(spec: EventSpec, d: int, live, x, y, z):
@@ -1264,10 +1272,110 @@ def resolve_surface(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Bloc
 
 
 SURFACE_SMEM_BINS = 1024            # the stage's CTA histograms in shared memory (SRF_SMEM_BINS)
+SURFACE_MAX_TILES = 16              # the marching stage's tiles a CTA's run, at most (SM_MAX_TILES)
+SURFACE_QUEUE = 512                 # records of its CTA's queue (SM_QUEUE)
+MARCH_REFILL_AT = 8                 # a warp of a ray loop refills at this many busy threads
+
+
+def queue_trips(steps: torch.Tensor, n: torch.Tensor) -> int:
+    """The warp trips of a ray loop that deals each unit's rays to the
+    CTA_THREADS threads of a CTA (march_flush's and the marching surface
+    stage's rule): ``steps`` (U, R) int64 holds each unit's ray steps (each
+    >= 1) in deal order, ``n`` (U,) its rays.  The idle threads of a warp
+    take the next rays, warps in order; a warp runs trips, each advancing
+    each of its rays one step, until none of its threads holds a ray or, while
+    rays were left when it last took some, at most MARCH_REFILL_AT do; it
+    leaves the loop when it finds no ray to take.  The warps advance in
+    lockstep (on the card they race, so this is a model of the slots; the
+    steps are exact)."""
+    U = steps.shape[0]
+    if U == 0 or not bool((n > 0).any()):
+        return 0
+    W, dev = CTA_THREADS // 32, steps.device
+    rem = torch.zeros((U, W, 32), dtype=torch.int64, device=dev)
+    more = (n > 0)[:, None, None].expand(U, W, 32).clone()
+    need = torch.ones((U, W), dtype=torch.bool, device=dev)
+    done = torch.zeros((U, W), dtype=torch.bool, device=dev)
+    left = torch.zeros((U, W), dtype=torch.bool, device=dev)
+    nxt = torch.zeros(U, dtype=torch.int64, device=dev)
+    nn = n[:, None, None]
+    trips = 0
+    while True:
+        want = (need & ~done)[:, :, None] & (rem == 0) & more
+        w = want.long()
+        cw = w.sum(2)
+        r = nxt[:, None, None] + (torch.cumsum(cw, 1) - cw)[:, :, None] + torch.cumsum(w, 2) - w
+        more = torch.where(want, r < nn, more)
+        got = want & (r < nn)
+        pick = torch.gather(steps, 1, r.clamp(0, steps.shape[1] - 1).view(U, -1)).view(U, W, 32)
+        rem = torch.where(got, pick, rem)
+        nxt += cw.sum(1)
+        busy = (rem > 0).sum(2)
+        refilled = need & ~done
+        done |= refilled & (busy == 0)
+        left = torch.where(refilled, more.any(2), left)
+        running = ~done & (busy > 0)
+        if not bool(running.any()):
+            return trips
+        trips += int(running.sum())
+        rem = torch.where(running[:, :, None] & (rem > 0), rem - 1, rem)
+        busy = (rem > 0).sum(2)
+        need = running & ((busy == 0) | (left & (busy <= MARCH_REFILL_AT)))
+
+
+def _surface_queue(exited, emit, lane_steps: list, tiles: int) -> dict:
+    """The marching surface stage's work, run by run (``tiles`` tiles a
+    CTA): each run's exits in lane order in rounds of CTA_THREADS, its
+    emitting hits queued, the queue traced when a round leaves more than
+    SURFACE_QUEUE - CTA_THREADS records (a flush) and at the run's end; a
+    flush's rays are its records toward each upward detector in turn, each
+    with the steps of its lane's ray (``lane_steps``, one (L,) tensor an
+    upward detector)."""
+    L, dev = emit.shape[0], emit.device
+    per_run = CTA_THREADS * tiles
+    n_runs = -(-L // per_run)
+    run = torch.arange(L, device=dev) // per_run
+    # Each exit's round within its run, and the flush its record falls in.
+    order = torch.cumsum(exited.long(), 0) - exited.long()
+    first = torch.zeros(n_runs + 1, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(torch.bincount(run[exited], minlength=n_runs), 0)
+    rnd = (order - first[run]) // CTA_THREADS
+    n_rounds = -(-per_run // CTA_THREADS)
+    flush_of = torch.zeros(L, dtype=torch.int64, device=dev)
+    queued = torch.zeros(n_runs, dtype=torch.int64, device=dev)
+    group = torch.zeros(n_runs, dtype=torch.int64, device=dev)
+    for k in range(n_rounds):
+        at = emit & (rnd == k)
+        flush_of = torch.where(at, group[run], flush_of)
+        queued += torch.bincount(run[at], minlength=n_runs)
+        full = queued > SURFACE_QUEUE - CTA_THREADS
+        group += full.long()
+        queued = torch.where(full, 0, queued)
+    n_up = len(lane_steps)
+    hits_run = torch.bincount(run[emit], minlength=n_runs)
+    # Flush units: (run, flush), their records in lane order.
+    unit = run * (n_rounds + 1) + flush_of
+    keys, inv, n_rec = torch.unique(unit[emit], return_inverse=True, return_counts=True)
+    U = keys.numel()
+    out = {"tiles": tiles, "runs": n_runs, "flushes": U,
+           "emitting_hits": {"sum": int(hits_run.sum()), "max": int(hits_run.max()) if n_runs else 0},
+           "rays": {"sum": int(hits_run.sum()) * n_up,
+                    "max": int(hits_run.max()) * n_up if n_runs else 0}}
+    if U == 0 or n_up == 0:
+        return dict(out, steps=0, slots=0, lane_use=None)
+    lanes = torch.nonzero(emit)[:, 0]
+    rank = torch.arange(lanes.numel(), device=dev) - (torch.cumsum(n_rec, 0) - n_rec)[inv]
+    R = int(n_rec.max()) * n_up
+    steps = torch.zeros((U, R), dtype=torch.int64, device=dev)
+    for k, ls in enumerate(lane_steps):
+        steps[inv, k * n_rec[inv] + rank] = ls[lanes]
+    total = int(steps.sum())
+    slots = 32 * queue_trips(steps, n_rec * n_up)
+    return dict(out, steps=total, slots=slots, lane_use=total / slots)
 
 
 def surface_census(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: BlockBuffers,
-                   u, u_iw=None, entry_alive=None) -> dict:
+                   u, u_iw=None, entry_alive=None, tiles: int = SURFACE_MAX_TILES) -> dict:
     """Counts of the surface stage that ends one block over a reflecting
     surface, on the state ``resolve_surface`` would take (after the K events,
     exits pending) and its draws; changes nothing.  ``entry_alive`` is the
@@ -1292,7 +1400,11 @@ def surface_census(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Block
     pairs over 32 x the rounds a warp runs), one lane per thread in lane
     order (``loop_lane_order``), compacted (``loop_compacted``), and with a
     warp's pairs dealt to all its threads (``loop_dealt``); the bounce's lane
-    use (hits over 32 x the warps holding a hit) in both orders."""
+    use (hits over 32 x the warps holding a hit) in both orders.  With the
+    marching trace, ``queue``: the marching stage's runs of ``tiles``
+    tiles, their emitting hits and rays (sum and most in one run), flushes,
+    the rays' steps, the thread slots of its queue-dealt ray loop
+    (``queue_trips``) and their ratio, ``lane_use``, also ``loop_queue``."""
     law, det = spec.surface, spec.det
     f, i = st.f, st.i
     L = st.n_lanes
@@ -1376,8 +1488,15 @@ def surface_census(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Block
         zs = torch.full_like(f[X], f32(np.float32(spec.z0) + np.float32(spec.nudge_z)))
         lane_k = lane_constants(spec) if spec.fused else None
         keys, oks, emits = [], [], {}
-        for d in up:
-            tau, dcol, ok = shadow(spec, d, emit, f[X], f[Y], zs)
+        marching = bool(det.march_steps)
+        outer = _MARCH_CENSUS[:]            # the census's own rays count in no open census
+        _MARCH_CENSUS.clear()
+        try:
+            with march_census(lane_steps=True) as mc:
+                traced = [shadow(spec, d, emit, f[X], f[Y], zs) for d in up]
+        finally:
+            _MARCH_CENSUS[:] = outer
+        for d, (tau, dcol, ok) in zip(up, traced):
             if lane_k is not None:
                 tau = tau + lane_k["gtop"] * det.inv_dz[d]
             if law.brdf:
@@ -1402,6 +1521,9 @@ def surface_census(spec: EventSpec, pro: PrologueSpec, st: LaneState, buf: Block
                                            n_up) if n_up else None
         out["loop_dealt"] = lane_use(emit, warp_comp, lambda n: -(-(n * n_up) // 32),
                                      n_up) if n_up else None
+        if marching:
+            out["queue"] = _surface_queue(exited, emit, mc["lane_steps"], tiles)
+            out["loop_queue"] = out["queue"]["lane_use"]
     out["atomics"] = atomics
     return out
 
@@ -1616,6 +1738,9 @@ def declare(lib, prefix: bool = False) -> None:
     lib.i3rc_brdf_reflectance.restype = ci
     lib.i3rc_column_read_probe.argtypes = [vp, vp, vp, vp, ci, cu, cu, cu, vp]
     lib.i3rc_column_read_probe.restype = ci
+    if hasattr(lib, "i3rc_surface_march_runs"):      # another commit's build may lack it
+        lib.i3rc_surface_march_runs.argtypes = [ci, ci, ci, vp]
+        lib.i3rc_surface_march_runs.restype = ci
     size = lib.i3rc_event_params_size()
     if size != ctypes.sizeof(_EventParams) and not (prefix and size < ctypes.sizeof(_EventParams)):
         raise RuntimeError("EventParams layout differs between Python and CUDA")
@@ -1900,9 +2025,11 @@ LAUNCH_COUNTERS = {
 MARCH_COUNTERS = {False: "march_launches", True: "march_surface_launches"}
 
 
-# K3-M's ray queues and the counts of its ray loop, per device.
+# K3-M's ray queues and the counts of its ray loop and of the marching
+# surface stage's, per device.
 MARCH_REC_F4 = 2                   # float4 words a queued record (csrc MARCH_REC_F4)
-MARCH_USE = ("rays", "steps", "slots", "flushes")     # csrc MARCH_USE_*
+MARCH_USE = ("rays", "steps", "slots", "flushes",      # csrc MARCH_USE_*
+             "surface_rays", "surface_steps", "surface_slots", "surface_runs")  # SRF_USE_*
 _MARCH_QUEUES: dict = {}
 _MARCH_USE: dict = {}
 
@@ -1920,11 +2047,13 @@ def march_queue(device, n_lanes: int, K: int) -> torch.Tensor:
 
 
 def march_ray_use(device) -> torch.Tensor:
-    """int64 (4,) on ``device``: K3-M's ray loop since
+    """int64 (8,) on ``device``: K3-M's ray loop since
     ``reset_launch_counters``, as ``MARCH_USE`` names its entries: the rays
     traced, their segment steps, the thread slots of the warps' trips (32 a
     trip of a warp holding a ray; steps / slots is the loop's lane use) and
-    the flushes (one a CTA that queued a record); a diagnostic of the card."""
+    the flushes (one a CTA that queued a record); then the same of the
+    marching surface stage's ray loop (``surface_*``: its rays, steps and
+    slots, and the runs of tiles its CTAs took); a diagnostic of the card."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -1932,6 +2061,21 @@ def march_ray_use(device) -> torch.Tensor:
         with torch.inference_mode(False):
             _MARCH_USE[dev] = torch.zeros(len(MARCH_USE), dtype=torch.int64, device=dev)
     return _MARCH_USE[dev]
+
+
+def surface_march_runs(pro: PrologueSpec, spec: EventSpec, n_lanes: int, device) -> dict:
+    """The marching surface stage's launch shape on the card ``device`` for
+    ``n_lanes`` lanes: ``tiles`` (T, the 256-lane tiles of a CTA's run),
+    ``runs`` (its CTAs) and ``wave`` (the CTAs of one wave at the kernel's
+    occupancy with this plan's shared histograms)."""
+    det = spec.det
+    n_fbins = pro.n_kinds * pro.n_x * (pro.n_y if pro.col_y else 1)
+    n_rbins = det.n_cols * det.n if det is not None and spec.reflecting else -1
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(torch.device(device)):
+        _check(build().lib.i3rc_surface_march_runs(n_lanes, n_fbins, n_rbins, out),
+               "surface_march_runs")
+    return {"tiles": out[0], "runs": out[1], "wave": out[2]}
 
 
 def reset_launch_counters() -> None:

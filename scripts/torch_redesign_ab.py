@@ -16,6 +16,24 @@ call.
   each build's device ms a launch (``chip_smoke.device_block_ms``), its
   result checked bit for bit against the plain version (tallies within
   1e-9) in its first round.
+* smarch: the marching surface stage S-M
+  (``fast_event_block_surface_kernel_march``) of this checkout against the
+  other tree's, the same two libraries in turns, on K3-M+S's path (the
+  scene over RPV, 2^21 photons, 2^20 lanes): per round one batch under the
+  profiler (the block kernel's and the stage's device ms summed over it)
+  and the stage's device ms a launch on the mid-flight and tail blocks
+  (the profiler's time of the stage's kernel in a whole block's launch),
+  each build's result first held against the plain version; and this
+  build's ray loop on the same blocks (rays, steps, thread slots, runs).
+  ``--build NAME=CSRC`` adds another copy of ``csrc`` to the turns (a
+  design tried beside this one; its parameter block a prefix of this one's).
+* probe: the column-read probe (``csrc/column_read_probe.cu``) of this
+  checkout and of the other tree, each built alone, and copies of this
+  one (with an empty loop, without the table read, without the Philox
+  call, and with the row read past the L1), in turns, at phase 19's
+  2^17 lanes: device ms a launch (CUDA events around 20 launches queued
+  behind a spin kernel, and the profiler's time of the kernel), the real
+  builds first held bit for bit against the plain version.
 * sharded: this tree and the other, each in a fresh process, in turns
   (other, this, this, other): the scene of ``__graft_entry__.py:127-156``
   (2^22 photons, two detectors) through ``ShardedTrace`` on one NCCL rank
@@ -98,15 +116,35 @@ def batch_device_ms(run) -> dict:
             "stage_ms": ms("fast_event_block_surface_kernel_march")}
 
 
-def march_ab(parent_csrc: Path) -> dict:
+def stage_launch_ms(run, s0, new_buf, n: int) -> float:
+    """Mean device ms a launch of the marching surface stage's kernel in
+    ``run(state, buffers)`` (a whole block over a surface) over n fresh
+    copies, from the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            run(s0.clone(), new_buf())
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if "fast_event_block_surface_kernel_march" in e.key]
+    launches = sum(e.count for e in found)
+    if launches == 0:
+        raise RuntimeError("the profiler shows no marching surface stage")
+    return sum(e.self_device_time_total for e in found) / launches / 1e3
+
+
+def march_ab(parent_csrc: Path, scenes=("3d", "3d_rpv"), stage: bool = False,
+             extra: dict | None = None) -> dict:
     import march_scenes as ms
     from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.kernels import event_block as eb
     from i3rc_tpu_torch.kernels.event_block import fused_block
 
-    builds = ab.build_all({"other": str(parent_csrc)})
+    builds = ab.build_all({"other": str(parent_csrc), **(extra or {})})
+    turns = ["other", "this", *(extra or {})]
     dev = torch.device("cuda", 0)
     out = {}
-    for name in ("3d", "3d_rpv"):
+    for name in scenes:
         sc = cs.march_path_scene(name, dev)
         key = batch_key(cs.SEED, 960)
         ab.use(builds["this"])
@@ -116,7 +154,7 @@ def march_ab(parent_csrc: Path) -> dict:
         run = lambda: tracer(bkey, sc.src.sample(bkey, sc.lanes, "cuda"), sc.src)
         rec = {b: {"batch": [], "mid": [], "tail": []} for b in builds}
         for r in range(MARCH_ROUNDS):
-            for b in ("other", "this", "this", "other"):
+            for b in turns + turns[::-1]:
                 ab.use(builds[b])
                 run()
                 rec[b]["batch"].append(batch_device_ms(run))
@@ -128,15 +166,132 @@ def march_ab(parent_csrc: Path) -> dict:
                         if not (v["bit_equal"] and v["acc_rel_err"] <= 1e-9):
                             raise RuntimeError(f"march {name} {state} build {b}: {v}")
                     run_k = lambda s, bb, kb=kb: fused_block(spec, pro, s, bb, key, sc.src, kb)
-                    rec[b][state].append(cs.device_block_ms(run_k, st, buf.clone, 10))
+                    rec[b][state].append(stage_launch_ms(run_k, st, buf.clone, 10) if stage
+                                         else cs.device_block_ms(run_k, st, buf.clone, 10))
         ab.use(builds["this"])
         mean = lambda v: sum(v) / len(v)
+        what = "stage_" if stage else ""
         out[name] = {b: {"batch_block_ms": mean([x["block_ms"] for x in v["batch"]]),
                          "batch_stage_ms": mean([x["stage_ms"] for x in v["batch"]]),
-                         "mid_ms": mean(v["mid"]), "tail_ms": mean(v["tail"]),
+                         f"{what}mid_ms": mean(v["mid"]), f"{what}tail_ms": mean(v["tail"]),
                          "batches": v["batch"]} for b, v in rec.items()}
+        if stage:
+            # This build's stage: its ray loop and runs on the same blocks.
+            for state, st, buf, kb in states[1:]:
+                use = eb.march_ray_use(dev)
+                use.zero_()
+                fused_block(spec, pro, st.clone(), buf.clone(), key, sc.src, kb)
+                got = dict(zip(eb.MARCH_USE, use.tolist()))
+                out[name]["this"][f"{state}_ray_use"] = {
+                    k: got[k] for k in eb.MARCH_USE if k.startswith("surface_")}
+            out[name]["this"]["runs"] = eb.surface_march_runs(pro, spec, sc.lanes, dev)
         print(json.dumps({"march": name, **{b: {k: v for k, v in x.items() if k != "batches"}
                                             for b, x in out[name].items()}}), flush=True)
+    return out
+
+
+# The probe's copies: (tree, edits of its column_read_probe.cu) by name:
+# its event loop run 0 times, its row read replaced by a float4 of the index,
+# its Philox call by a hash, and its row read past the L1 (ld.global.cg).
+OLD_LOOP = ("  for (int j = 0; j < PROBE_K; ++j) {", "  for (int j = 0; j < 0; ++j) {")
+OLD_NO_READ = ("const float4 r = __ldg(table + ix * PROBE_N + iy);",
+               "const float4 r = make_float4(xs, ys, (float)ix, (float)iy);")
+OLD_NO_PHILOX = ("philox4x32_10((uint32_t)lane, kb, (uint32_t)j, STREAM_EVENT, k0, k1, w);",
+                 "w[0] = (uint32_t)lane * 2654435761u + (uint32_t)j;")
+OLD_LDCG = ("const float4 r = __ldg(table + ix * PROBE_N + iy);",
+            "const float4 r = __ldcg(table + ix * PROBE_N + iy);")
+PROBE_COPIES = {"this": ("this", []), "other": ("other", []), "empty": ("this", [OLD_LOOP]),
+                "no_read": ("this", [OLD_NO_READ]), "no_philox": ("this", [OLD_NO_PHILOX]),
+                "ldcg": ("this", [OLD_LDCG])}
+PROBE_REAL = ("this", "other", "ldcg")     # held to the plain version
+PROBE_BUILD = textwrap.dedent("""
+    import sys
+    from pathlib import Path
+    import i3rc_tpu_torch.kernels.build as kb
+    kb.CSRC = Path(sys.argv[1])
+    kb.build(sys.argv[2], ("column_read_probe.cu",))
+""")
+
+
+def probe_builds(parent: Path) -> dict:
+    """{name: library} of PROBE_COPIES, each the probe's source alone in a
+    copy of its tree's csrc, compiled in parallel child processes."""
+    import i3rc_tpu_torch.kernels.build as kbuild
+
+    trees = {"this": kbuild.CSRC, "other": parent / "i3rc_tpu_torch" / "csrc"}
+    dirs = {}
+    for name, (tree, edits) in PROBE_COPIES.items():
+        copy = ROOT / "build" / "ab" / f"probe_{name}" / "csrc"
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(trees[tree], copy)
+        src = (copy / "column_read_probe.cu").read_text()
+        for old, new in edits:
+            if old not in src:
+                raise RuntimeError(f"probe {name}: the code to replace is not there")
+            src = src.replace(old, new)
+        (copy / "column_read_probe.cu").write_text(src)
+        dirs[name] = copy
+    procs = {n: subprocess.Popen([sys.executable, "-c", PROBE_BUILD, str(d), f"probe_{n}"],
+                                 cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+             for n, d in dirs.items()}
+    libs = {}
+    for n, p in procs.items():
+        if p.wait() != 0:
+            raise RuntimeError(f"probe build {n} failed")
+        here, kbuild.CSRC = kbuild.CSRC, dirs[n]
+        try:
+            built = kbuild.build(f"probe_{n}", ("column_read_probe.cu",))
+        finally:
+            kbuild.CSRC = here
+        fn = built.lib.i3rc_column_read_probe
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                                               ctypes.c_uint, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[n] = built
+    return libs
+
+
+def probe_ab(parent: Path) -> dict:
+    from i3rc_tpu_torch import batch_key
+    from i3rc_tpu_torch.kernels import column_probe as cp
+
+    libs = probe_builds(parent)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(cs.SEED)
+    table = torch.rand((cp.N_SIDE ** 2, 4), generator=g).to(dev)
+    x0 = torch.rand(cs.PROBE_LANES, generator=g).to(dev)
+    y0 = torch.rand(cs.PROBE_LANES, generator=g).to(dev)
+    key = batch_key(cs.SEED, 700)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(name, x, y, acc):
+        rc = libs[name].lib.i3rc_column_read_probe(
+            x.data_ptr(), y.data_ptr(), acc.data_ptr(), table.data_ptr(), cs.PROBE_LANES,
+            key.seed & 0xFFFFFFFF, key.batch & 0xFFFFFFFF, 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"probe {name}: CUDA error {rc}")
+
+    tx, ty, tacc = cp.column_probe_reference(table, x0, y0,
+                                             cp.probe_uniforms(key, 0, cs.PROBE_LANES, dev))
+    for name in PROBE_REAL:
+        x, y, acc = x0.clone(), y0.clone(), torch.empty_like(x0)
+        launch(name, x, y, acc)
+        torch.cuda.synchronize()
+        if not (torch.equal(x, tx) and torch.equal(y, ty) and torch.equal(acc, tacc)):
+            raise RuntimeError(f"probe {name} differs from the plain version")
+    n = 20
+    times = {b: {"events": [], "profiler": []} for b in libs}
+    order = list(libs)
+    for _ in range(2):
+        for b in order + order[::-1]:
+            x, y, acc = x0.clone(), y0.clone(), torch.empty_like(x0)
+            launch(b, x, y, acc)
+            times[b]["events"].append(cs.queued_ms(lambda: launch(b, x, y, acc), n))
+            times[b]["profiler"].append(cs.profiled_ms(lambda: launch(b, x, y, acc), n,
+                                                       "column_read_probe_kernel"))
+    mean = lambda v: sum(v) / len(v)
+    out = {b: {k: mean(v) for k, v in t.items()} for b, t in times.items()}
+    print(json.dumps({"probe": out}), flush=True)
     return out
 
 
@@ -397,6 +552,9 @@ def main() -> int:
     ap.add_argument("--parent", required=True, help="the other tree (git archive of a commit)")
     ap.add_argument("--parts", default="march,sharded,lookback")
     ap.add_argument("--out", default="build/redesign_ab.json")
+    ap.add_argument("--build", action="append", default=[], metavar="NAME=CSRC",
+                    help="smarch: another copy of csrc to time beside this tree's and the "
+                         "other's (its parameter block a prefix of this one's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -407,6 +565,12 @@ def main() -> int:
     parts = args.parts.split(",")
     if "march" in parts:
         out["march"] = march_ab(parent / "i3rc_tpu_torch" / "csrc")
+    if "smarch" in parts:
+        extra = dict(b.split("=", 1) for b in args.build)
+        out["smarch"] = march_ab(parent / "i3rc_tpu_torch" / "csrc", ("3d_rpv",), stage=True,
+                                 extra=extra)
+    if "probe" in parts:
+        out["probe"] = probe_ab(parent)
     if "sharded" in parts:
         out["sharded"] = sharded_ab(parent)
     if "lookback" in parts:

@@ -451,12 +451,13 @@ def test_column_kernel_matches_twin_on_gpu(ssa, chain):
 
 
 @pytest.mark.cuda
-def test_probe_kernel_matches_twin_on_gpu():
+@pytest.mark.parametrize("lanes", [1 << 16, (1 << 16) + 77])
+def test_probe_kernel_matches_twin_on_gpu(lanes):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     g = torch.Generator().manual_seed(2)
     table = torch.rand((128 * 128, 4), generator=g).cuda()
-    x, y = torch.rand(1 << 16, generator=g).cuda(), torch.rand(1 << 16, generator=g).cuda()
+    x, y = torch.rand(lanes, generator=g).cuda(), torch.rand(lanes, generator=g).cuda()
     key = batch_key(3, 4)
     rx, ry, racc = cp.column_probe_reference(table, x, y, cp.probe_uniforms(key, 5, x.numel(),
                                                                              x.device))

@@ -9,7 +9,11 @@ Every lane-state row, the lane weight, the control state and the dead
 counts bit for bit; the tallies within 1e-9 of their largest bin (the
 kernels add them in another order, K3-M its queued rays in the order the
 CTA's threads pull them).  Over black, the rays K3-M's queue traced are the
-plain version's rays, with the same segment steps.  Then the step cloud's closed plan
+plain version's rays, with the same segment steps.  The marching surface
+stage (S-M) takes runs of tiles a CTA: it is held to the plain version at
+lane counts of one tile a run, of two tiles a run past one wave of CTAs, and
+past one wave of runs of the most tiles, each with a partial last tile, and
+its ray loop's rays and steps are the plain version's.  Then the step cloud's closed plan
 against the same plan made to march, and the plane-parallel driver on
 ``cuda``.
 
@@ -76,6 +80,54 @@ def test_queued_rays_are_the_plain_versions_rays(case):
     got = dict(zip(eb.MARCH_USE, use.tolist()))
     assert cen["rays"] > 0 and got["rays"] == cen["rays"], (got, cen)
     assert got["steps"] == cen["steps"] and got["slots"] >= got["steps"], (got, cen)
+
+
+# (surfaced case, lanes): one tile a run, two a run, past a wave of runs of
+# the most tiles; each lane count leaves a partial last tile.
+STAGE_RUNS = [(c, size) for c in sorted(c for c in CASES if "ssa" not in c)
+              for size in ("one_tile", "two_tiles")] + [
+    ("hg_iw_rpv", "past_a_wave"), ("tab_exact_rpv", "past_a_wave")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,size", STAGE_RUNS)
+def test_surface_stage_runs_of_tiles_on_gpu(case, size):
+    """S-M's runs of T tiles: at the launch, mid-flight and tail states of a
+    trace at the lane count of ``size`` (from the stage's wave on this card),
+    the whole surfaced block bit-equal to the plain version (tallies within
+    1e-9); at the mid-flight state the stage's runs are its launch shape's,
+    and the rays and steps of both ray loops, K3-M's and S-M's, are the plain
+    version's."""
+    dev = need_card()
+    integ = _scenes.case_integrator(case, dev)
+    from i3rc_tpu_torch.integrators.fastpath import event_spec, prologue_spec
+
+    spec = event_spec(integ.geometry, integ._fast_plan, integ.config)
+    pro = prologue_spec(integ.geometry, spec, integ.config, 1)
+    wave = eb.surface_march_runs(pro, spec, 256, dev)["wave"]
+    most = eb.SURFACE_MAX_TILES
+    tiles = {"one_tile": 32, "two_tiles": wave + 3, "past_a_wave": most * wave + 3}[size]
+    lanes = tiles * 256 + 77
+    shape = eb.surface_march_runs(pro, spec, lanes, dev)
+    want_t = {"one_tile": 1, "two_tiles": 2, "past_a_wave": most}[size]
+    assert shape["tiles"] == want_t and shape["runs"] == -(-(tiles + 1) // want_t), shape
+    assert (shape["runs"] > shape["wave"]) == (size == "past_a_wave"), shape
+    key = batch_key(47, 3)
+    spec, pro, states = _scenes.trace_states(integ, SRC, lanes, lanes, key)
+    for name, st, buf, kb in states:
+        r = _scenes.block_vs_twin(spec, pro, st, buf, key, SRC, kb)
+        assert r["bit_equal"] and r["acc_rel_err"] <= 1e-9, (name, r)
+    name, st, buf, kb = states[1]
+    with eb.march_census() as cen:
+        eb.fused_block_reference(spec, pro, st.clone(), buf.clone(), key, SRC, kb)
+    use = eb.march_ray_use(dev)
+    use.zero_()
+    eb.fused_block(spec, pro, st.clone(), buf.clone(), key, SRC, kb)
+    got = dict(zip(eb.MARCH_USE, use.tolist()))
+    assert got["surface_runs"] == shape["runs"], (got, shape)
+    assert got["surface_rays"] > 0 and got["rays"] + got["surface_rays"] == cen["rays"]
+    assert got["steps"] + got["surface_steps"] == cen["steps"], (got, cen)
+    assert got["surface_slots"] >= got["surface_steps"], got
 
 
 @pytest.mark.cuda

@@ -3,11 +3,18 @@ surface stage, against counts taken directly, lane by lane, on the states
 that the plain block hands its surface stage: one column (every exit of a
 CTA in one of two bins), an albedo over the absorbing step cloud (deaths and
 the volume tally), RPV with one upward and one downward detector (only the
-upward one emits) and a fused-k band over an albedo.  Also: the census
-changes nothing, and its revived lanes are those resolve_surface revives.
+upward one emits) and a fused-k band over an albedo; and over the marching
+shadow trace (tests/march_scenes.py, RPV and an albedo with two upward
+detectors) the marching stage's runs of tiles, their emitting hits and
+rays, the flushes of its queue and the lane use of its queue-dealt ray loop,
+against counts taken run by run and a warp-by-warp model of the loop.  Also:
+the census changes nothing, and its revived lanes are those resolve_surface
+revives.
 """
 
+import importlib.util
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +30,10 @@ from i3rc_tpu_torch.kernels.event_block import (ALIVE, PK, X, Y, block_buffers, 
                                                 fused_block, surface_census)
 
 torch.set_num_threads(2)
+_spec = importlib.util.spec_from_file_location("march_scenes",
+                                               Path(__file__).with_name("march_scenes.py"))
+ms = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ms)
 CFG = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False)
 LANES = 1000                      # 4 CTAs, the last one partial
 SRC = PhotonSource.directional(0.6, 0.0)
@@ -209,3 +220,79 @@ def test_census_refuses_an_exit_on_a_lane_that_did_not_run():
     spec, pro, st, buf, u, u_iw, alive = stage_inputs(integ, 4 * LANES, blocks=1)[0]
     with pytest.raises(ValueError, match="did not run"):
         surface_census(spec, pro, st, buf, u, u_iw, torch.zeros_like(alive))
+
+
+def plain_trips(rays: list) -> int:
+    """Warp trips of one flush's rays (their steps, in deal order) dealt to
+    eight warps of 32 threads, warp by warp and thread by thread: the rule
+    of event_block.queue_trips."""
+    n, nxt, trips = len(rays), 0, 0
+    rem = [[0] * 32 for _ in range(8)]
+    more = [[n > 0] * 32 for _ in range(8)]
+    need, done, left = [True] * 8, [False] * 8, [False] * 8
+    while True:
+        for w in range(8):
+            if need[w] and not done[w]:
+                for t in range(32):
+                    if rem[w][t] == 0 and more[w][t]:
+                        more[w][t] = nxt < n
+                        if nxt < n:
+                            rem[w][t] = rays[nxt]
+                        nxt += 1
+                done[w] = not any(rem[w])
+                left[w] = any(more[w])
+        running = [not done[w] and any(rem[w]) for w in range(8)]
+        if not any(running):
+            return trips
+        for w in range(8):
+            need[w] = False
+            if running[w]:
+                trips += 1
+                rem[w] = [v - 1 if v else 0 for v in rem[w]]
+                busy = sum(1 for v in rem[w] if v)
+                need[w] = busy == 0 or (left[w] and busy <= eb.MARCH_REFILL_AT)
+
+
+@pytest.mark.parametrize("case", ["hg_iw_rpv", "tab_iw_albedo"])
+def test_marching_stage_runs_and_queue(case):
+    """The marching stage's queue on a marching plan over a surface: per run
+    of T tiles the emitting hits (every hit under RPV, the revived ones over
+    an albedo) and rays (x the two upward detectors), counted lane by lane;
+    the flushes (at most SURFACE_QUEUE - 256 records queued after a round of
+    256 exits); the rays' steps equal to the plain stage's marching census;
+    and the ray loop's thread slots equal to plain_trips on each flush's rays
+    (record by record toward detector 0, then toward detector 1)."""
+    integ = ms.case_integrator(case, "cpu")
+    for spec, pro, st, buf, u, u_iw, alive in stage_inputs(integ, 4 * LANES, blocks=2):
+        assert spec.det.march_steps > 0
+        with eb.march_census(lane_steps=True) as cen:
+            eb.resolve_surface(spec, pro, st.clone(), buf.clone(), u, u_iw)
+        steps = cen["lane_steps"]
+        emit = steps[0] > 0
+        assert len(steps) == 2 and torch.equal(emit, steps[1] > 0)
+        for T in (1, 2, eb.SURFACE_MAX_TILES):
+            c = surface_census(spec, pro, st, buf, u, u_iw, alive, tiles=T)
+            q = c["queue"]
+            per_run = 256 * T
+            lanes = emit.nonzero()[:, 0].tolist()
+            hits = Counter(i // per_run for i in lanes)
+            assert q["runs"] == -(-LANES // per_run) and q["tiles"] == T
+            assert q["emitting_hits"] == {"sum": len(lanes), "max": max(hits.values())}
+            assert q["rays"] == {"sum": 2 * len(lanes), "max": 2 * max(hits.values())}
+            assert c["emitting_hits"] == len(lanes) and q["steps"] == cen["steps"]
+            # The flushes, run by run: exits in lane order, rounds of 256.
+            exits = (st.i[PK] != 0).nonzero()[:, 0].tolist()
+            slots = flushes = 0
+            for r in range(q["runs"]):
+                ran = [i for i in exits if i // per_run == r]
+                queue = []
+                for k in range(0, len(ran), 256):
+                    queue += [i for i in ran[k:k + 256] if emit[i]]
+                    if len(queue) > eb.SURFACE_QUEUE - 256 or k + 256 >= len(ran):
+                        if queue:
+                            rays = [int(s[i]) for s in steps for i in queue]
+                            slots += 32 * plain_trips(rays)
+                            flushes += 1
+                        queue = []
+            assert q["flushes"] == flushes and q["slots"] == slots, (q, flushes, slots)
+            assert 0.0 < q["lane_use"] <= 1.0 and c["loop_queue"] == q["lane_use"]
