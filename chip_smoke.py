@@ -61,8 +61,14 @@ tracer's block, its kernels SD and SB, against its plain version;
 run_batches on a
 world of one NCCL rank and on two gloo ranks that share the card; a resume
 finished in a second process; the x-sharded tracer over two ranks on the
-whole Landsat scene and on __graft_entry__.py's detector scene) — and
-checks the physics.
+whole Landsat scene and on __graft_entry__.py's detector scene), and the
+kernels' reach (every runtime-depth instantiation of the event block, the
+general kernel's estimate stage at 300 components and 32 detectors and SD's
+refill from a source queue against their plain versions; the main path at
+collision-chain depth 4 and 6, the gas step cloud and Landsat past depth 3;
+32 detectors and 300 components on the general kernel; a sharded spotlight
+and internal source over two gloo ranks and one NCCL rank; the monteCarlo
+driver with --profile) — and checks the physics.
 Every phase prints one line; any failed check raises and the script exits
 nonzero.  Run from the repository root:
 
@@ -296,8 +302,14 @@ def bounce_work(spec, n_lanes: int, hits: int) -> dict:
                 emits=hits * up, extra_bytes=4 * n_lanes + BYTES_PER_HIT * hits)
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+    """One phase's line: its name, the script's seconds so far (t), then
+    the fields."""
+    print(f"[{phase}] t={time.perf_counter() - _T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -395,22 +407,22 @@ def sass_census(library: Path) -> dict:
 
 def ptxas_by_variant(log: str) -> dict:
     """Per kernel variant (flux, detectors, gas, gas_detectors, column_flux,
-    fused_k_flux, fused_k_detectors, probe, and the table variants table_*):
-    instantiations, their most registers, their stack-frame and spill-store
-    bytes and the resident CTAs per SM those registers allow, from ptxas
-    -v."""
+    fused_k_flux, fused_k_detectors, probe, the table variants table_*, and
+    the runtime-depth ones deep_*): instantiations, their most registers,
+    their stack-frame and spill-store bytes and the resident CTAs per SM
+    those registers allow, from ptxas -v."""
     out = {}
     name = None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*fast_event_block_kernelILi\d+"
+        m = re.search(r"Compiling entry function '\w*fast_event_block_kernelILi(n?)\d+"
                       r"ELb\dELb\dELb(\d)ELb\dELb(\d)ELb(\d)ELb\dELi\d+ELb(\d)ELb(\d)E", line)
         probe = "Compiling entry function" in line and "column_read_probe_kernel" in line
         if m or probe:
             name = "probe" if probe else (
-                ("table_" if m[4] == "1" else "")
-                + ("fused_k_" if m[5] == "1" else "gas_" if m[2] == "1" else "")
-                + ("column_" if m[3] == "1" else "")
-                + ("detectors" if m[1] == "1" else "flux"))
+                ("deep_" if m[1] else "") + ("table_" if m[5] == "1" else "")
+                + ("fused_k_" if m[6] == "1" else "gas_" if m[3] == "1" else "")
+                + ("column_" if m[4] == "1" else "")
+                + ("detectors" if m[2] == "1" else "flux"))
             n, r, b = out.get(name, (0, 0, 0))
             out[name] = (n + 1, r, b)
         elif "Compiling entry function" in line:
@@ -525,7 +537,7 @@ def variant(spec) -> str:
 
 
 def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None,
-                 n_detectors: int = 0):
+                 n_detectors: int = 0, step_chain: int = -1):
     """Two lane states of a scene at L = 2^18 for timing one K-event block:
     "full", a mid-flight state whose dead lanes took fresh photons as the
     trace loop's refill gives them (every lane alive at entry), and "tail",
@@ -538,7 +550,8 @@ def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None,
     run by the column variant at that chain depth and at ``K`` events per
     block (None: the planner's).  With ``n_detectors`` the step cloud
     carries that many detectors, an azimuth scan at mu = 0.5 with the
-    roulette; without ``chain``, ``K`` is the separable plan's K.  Returns (spec, key, a maker of fresh
+    roulette; without ``chain``, ``K`` is the separable plan's K, and
+    ``step_chain`` the flux and gas scenes' chain depth (-1: auto).  Returns (spec, key, a maker of fresh
     accumulators (None without detectors), [(name, state, block index)])."""
     from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
                                 make_landsat_cloud, make_step_cloud)
@@ -547,7 +560,7 @@ def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None,
     from i3rc_tpu_torch.kernels.event_block import ALIVE, ORDERS, PK, event_block
 
     flux_cfg = IntegratorConfig(use_ray_tracing=False, max_events=500,
-                                compute_volume_absorption=False)
+                                compute_volume_absorption=False, fastpath_chain=step_chain)
     if gas is not None:
         dom = domain_with_gas_component(make_step_cloud(ssa), gas)
         det = dict(intensity_mus=GAS_DET_MUS, intensity_phis=GAS_DET_PHIS) if detectors else {}
@@ -567,7 +580,7 @@ def block_states(ssa: float, dev, detectors: bool = False, gas=None, chain=None,
     else:
         integ = Integrator.create(make_step_cloud(ssa),
                                   IntegratorConfig(use_ray_tracing=False, max_events=500,
-                                                   fastpath_unroll=K),
+                                                   fastpath_unroll=K, fastpath_chain=step_chain),
                                   device=dev)
     spec = event_spec(integ.geometry, integ._fast_plan, integ.config)
     check(spec.gas == (gas is not None) and (spec.det is not None) == detectors
@@ -686,7 +699,7 @@ def profiled_ms(launch, n: int, kernel: str) -> float:
 
 
 def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=None, K=None,
-                   n_detectors: int = 0):
+                   n_detectors: int = 0, step_chain: int = -1):
     """One K-event block, kernel vs twin, on the two states of block_states
     (same arguments).  With ``detectors`` the (n_cols, D) accumulators are
     compared too (relative to their largest bin).  Returns (spec, one dict
@@ -697,7 +710,8 @@ def kernel_vs_twin(ssa: float, dev, detectors: bool = False, gas=None, chain=Non
     from i3rc_tpu_torch.kernels.event_block import (ALIVE, EVCT, ORDERS, event_block,
                                                      event_block_reference)
 
-    spec, key, new_acc, states = block_states(ssa, dev, detectors, gas, chain, K, n_detectors)
+    spec, key, new_acc, states = block_states(ssa, dev, detectors, gas, chain, K, n_detectors,
+                                              step_chain)
     n_twin = 5 if spec.K <= 8 else 2
     out = []
     for name, s0, kb_s in states:
@@ -1573,6 +1587,412 @@ def reach_checks(dev, card: str) -> None:
         say("4c reach", **block_fields(spec, r, card))
 
 
+# ---------------------------------------------------------------------------
+# 64-68. The kernels' reach (ROADMAP item 22) and the profiler (item 20):
+# collision chains past depth 3 (the event block's runtime-depth variant,
+# csrc/fast_event_block_deep.cu), more than 16 detectors (G+E), more than
+# 254 components with detectors (G's 16-bit tally slot), the sharded
+# tracer's sources that are not uniform in x (SD's refill from a source
+# queue), and the drivers' --profile.
+
+DEEP_DEPTHS = (4, 6)                # the main path's runtime depths (K1), beside depth 2
+DEEP_BATCHES = 2                    # batches of SLICE_PHOTONS a depth
+DEEP_GAS_PHOTONS = 1 << 22          # K2 at depth 4 against its auto depth 3, a batch
+WIDE_PHOTONS, WIDE_BATCHES = 1 << 20, 4     # 32 detectors on G+E
+COMP_N = 300                        # components of the split step cloud
+COMP_PHOTONS, COMP_BATCHES = 1 << 20, 4     # 300 components against one, each side
+SOURCE_PHOTONS = 1 << 21            # the sharded spotlight and internal source on Landsat
+SOURCE_LANES = 1 << 20
+# The runtime-depth instantiations a set (chip_smoke.ptxas_by_variant).
+DEEP_SETS = {"deep_flux": 4, "deep_gas_flux": 4, "deep_table_flux": 4,
+             "deep_table_gas_flux": 4, "deep_column_flux": 2, "deep_table_column_flux": 2}
+# The x-uniform sharded trace's digest as the tree before the source queue
+# gave it on the card (tests/test_torch_reach_cuda.py X_UNIFORM_CARD).
+X_UNIFORM_DIGEST = "f01d19b6b571c187"
+
+
+def reach_kernel_vs_twin(dev, card: str) -> dict:
+    """Phase 64: every runtime-depth instantiation against its plain version
+    (tests/reach_scenes.py deep_cases: the whole block at a launch, a
+    mid-flight and a tail state, bit for bit); G+E with 300 components and
+    with 32 detectors against its plain version (launch and mid-flight
+    blocks at 2^16 lanes); SD's refill from a source queue (a spotlight and
+    an internal source on Landsat, a world of one) against its plain
+    version; and the x-uniform sharded trace's digest against the tree
+    before the source queue."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource, batch_key
+    from i3rc_tpu_torch.models.step_cloud import make_step_cloud
+
+    rs, ss = _load_tests_module("reach_scenes"), _sharded_scenes()
+    err = {"flux": 0.0, "gas": 0.0, "column": 0.0}
+    seen = set()
+    for name in sorted(rs.deep_cases()):
+        rows = rs.deep_vs_twin(name, dev, TABLE_CASE_LANES)
+        kind = "column" if name.startswith("col_") else "gas" if "gas_" in name else "flux"
+        for r in rows:
+            check(r["bit_equal"] and r["acc_rel_err"] == 0.0, f"64 deep {name} {r['state']}: {r}")
+            err[kind] = max(err[kind], r["max_abs_err"])
+            seen.add(r["instantiation"])
+        say("64 deep-vs-twin", case=name, chain=rows[0]["chain"],
+            instantiation=rows[0]["instantiation"], states=len(rows), bit_equal=True,
+            lane_events=sum(r["lane_events"] for r in rows), lanes=TABLE_CASE_LANES,
+            card=json.dumps(card))
+    check(len(seen) == sum(DEEP_SETS.values()) and all(i.startswith("ILin1E") for i in seen),
+          f"64 runtime-depth instantiations {sorted(seen)}")
+    h = rs.host("i3rc_tpu_torch")
+    cfg = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False)
+    src = PhotonSource.directional(0.5, 0.0)
+    ge_err = 0.0
+    for tag, dom, (mus, phis) in (
+            ("components_300", rs.split_components(h, make_step_cloud(1.0), COMP_N),
+             (DET_MUS, DET_PHIS)),
+            ("detectors_32", make_step_cloud(1.0), rs.scan(32))):
+        integ = Integrator.create(dom, cfg, intensity_mus=mus, intensity_phis=phis, device=dev)
+        check(integ._fast_plan is None, f"64 {tag}: a fastpath plan")
+        for state in ("launch", "mid"):
+            r = rs.general_vs_twin(integ, src, RAD_CASE_LANES, batch_key(SEED, 64), state)
+            check(r["lanes_differ"] == 0 and r["equal"] and r["tally_rel_err"] <= 1e-9
+                  and r["rays"] > 0, f"64 G+E {tag} {state}: {r}")
+            check(tag != "components_300" or r["top_slot"] > 255, f"64 G+E slots {r}")
+            ge_err = max(ge_err, r["max_abs_err"])
+            say("64 general-vs-twin", case=tag, state=state, lanes=RAD_CASE_LANES, **r,
+                card=json.dumps(card))
+    sd = {"err": 0.0, "tally_err": 0.0}
+    sc = ss.scene("landsat", ss.host("i3rc_tpu_torch"), 2)
+    for name in sorted(ss.NON_UNIFORM_SOURCES):
+        st = ss.trace_states(sc, 1 << 18, 1 << 16, dev, source=ss.photon_source(name))
+        raw = st["raw"]
+        total = float(raw.flux_up.sum() + raw.flux_down.sum() + raw.flux_absorbed.sum())
+        check(len(st["block"]) == 2 and total + int(raw.n_bad) == 1 << 18,
+              f"64 SD {name}: {len(st['block'])} states, {total} + {int(raw.n_bad)}")
+        for r in ss.states_vs_twins(st):
+            _twin_record(sd, r, f"64 SD {name}")
+            say("64 source-queue-vs-twin", source=name, **_twin_fields(r), card=json.dumps(card))
+    digest = ss.x_uniform_digest(dev)
+    check(digest == X_UNIFORM_DIGEST, f"64 x-uniform sharded digest {digest}")
+    say("64 x-uniform-sharded", digest=digest, unchanged=True, card=json.dumps(card))
+    return {"err": err, "ge_err": ge_err, "sd_err": sd["err"]}
+
+
+def _batches(fn, seed0: int, n_batches: int) -> tuple[list, list]:
+    """n batches of ``fn``: their Results and host seconds."""
+    from i3rc_tpu_torch import batch_key
+
+    out, times = [], []
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        res = fn(batch_key(SEED, seed0 + b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        out.append(res)
+    return out, times
+
+
+def deep_paths(card: str) -> dict:
+    """Phase 65: the runtime-depth variant on its paths at full width.  The
+    main path (the step cloud, K1, 2^24 photons at 2^18 lanes) at chain depth
+    2 (the templated instantiation), 4 and 6: closure within 1e-5, n_bad 0,
+    Fup within 5 sigma (floor 1e-3) of the anchor, the kernel's device ms a
+    batch; the gas step cloud (K2) at its auto depth 3 and at 4, and Landsat
+    (COL, 2^23) at depth 2 and 4, each pair within 5 combined sigma; then
+    one block of each runtime-depth kernel against its plain version at
+    2^18 lanes, full and tail (K1 at 4 and 6, K2 at 4 and 6, COL at 4),
+    timed.  Each path's launch counts are set to 0 just before it runs."""
+    from i3rc_tpu_torch import (Integrator, IntegratorConfig, PhotonSource, batch_key,
+                                make_landsat_cloud, make_step_cloud)
+    from i3rc_tpu_torch.integrators.spectral import domain_with_gas_component
+    from i3rc_tpu_torch.kernels import event_block as eb
+
+    dev = torch.device("cuda", 0)
+    src = PhotonSource.directional(0.5, 0.0)
+    rec = {"launches": {}, "batch": {}, "timed": {}, "chain": {}}
+
+    def path(tag, dom, depth, n, n_batches, seed0, counter, timed=True, profile=True):
+        cfg = IntegratorConfig(use_ray_tracing=False, max_events=500, fastpath_chain=depth,
+                               compute_volume_absorption=False)
+        integ = Integrator.create(dom, cfg, device="cuda")
+        fn = integ.batch_fn(src, n, n_lanes=L_CHECK)
+        fn(batch_key(SEED, seed0 + 9))
+        torch.cuda.synchronize()
+        eb.reset_launch_counters()
+        res, times = _batches(fn, seed0, n_batches)
+        launches = getattr(eb.event_block, counter)
+        check(launches > 0, f"65 {tag} depth {depth}: no {counter}")
+        parts = np.array([[float(r.mean_flux_up), float(r.mean_flux_down),
+                           float(r.mean_flux_absorbed)] for r in res])
+        for r, pr in zip(res, parts):
+            check(abs(pr.sum() - 1.0) < 1e-5, f"65 {tag} depth {depth} closure {pr}")
+            check(int(r.n_bad) < 1e-3 * n, f"65 {tag} depth {depth} n_bad {int(r.n_bad)}")
+        bk = None
+        if timed:
+            key = batch_key(SEED, seed0 + 8)
+            tracer = integ.batch_tracer(n, L_CHECK)
+            bk = batch_kernel_time(lambda: tracer(key, src.sample(key, L_CHECK, "cuda"), src),
+                                   profile=profile)
+        out = {"fluxes": parts.mean(0), "n": n * n_batches, "launches": launches,
+               "photons_per_s": n / sorted(times)[len(times) // 2], "bk": bk}
+        say("65 deep-path", path=tag, depth=depth, photons=n, batches=n_batches, lanes=L_CHECK,
+            fup=f"{out['fluxes'][0]:.6f}", fdn=f"{out['fluxes'][1]:.6f}",
+            fabs=f"{out['fluxes'][2]:.6f}", launches=launches, counter=counter,
+            photons_per_s=f"{out['photons_per_s']:.4e}",
+            **({} if bk is None else dict(batch_kernel_ms=f"{bk['kernel_ms']:.3f}",
+                                          batch_bound_ms=f"{bk['bound'][0]:.3f}",
+                                          batch_launches=bk["launches"])),
+            card=json.dumps(card))
+        return out
+
+    def agree(tag, a, b, what=(0, 1, 2)):
+        for k in what:
+            p = (a["fluxes"][k] + b["fluxes"][k]) / 2
+            sigma = np.sqrt(max(p * (1 - p), 1e-4) * (1 / a["n"] + 1 / b["n"]))
+            check(abs(a["fluxes"][k] - b["fluxes"][k]) <= 5 * sigma,
+                  f"65 {tag}: {a['fluxes']} against {b['fluxes']} (sigma {sigma:.2e})")
+
+    # K1: the main path at depth 2, 4 and 6
+    k1 = {d: path("step_cloud", make_step_cloud(1.0), d, SLICE_PHOTONS, DEEP_BATCHES, 650 + 10 * d,
+                  "deep_launches" if d > 3 else "launches") for d in (2, *DEEP_DEPTHS)}
+    sigma = (ANCHOR_FUP * (1 - ANCHOR_FUP) / (DEEP_BATCHES * SLICE_PHOTONS)) ** 0.5
+    for d, r in k1.items():
+        check(abs(r["fluxes"][0] - ANCHOR_FUP) <= max(5 * sigma, 1e-3), f"65 K1 depth {d} {r}")
+    rec["launches"]["flux"], rec["chain"]["flux"] = k1[4]["launches"], 4
+    rec["batch"]["flux"] = {d: r["bk"] for d, r in k1.items()}
+    # K2: the gas step cloud at its auto depth 3 and at 4
+    gas_dom = domain_with_gas_component(make_step_cloud(0.99), LAYERED_GAS)
+    k2 = {d: path("gas_step_cloud", gas_dom, d, DEEP_GAS_PHOTONS, DEEP_BATCHES, 700 + 10 * d,
+                  "deep_gas_launches" if d > 3 else "gas_launches") for d in (3, 4)}
+    agree("K2 depth 4 against 3", k2[4], k2[3])
+    rec["launches"]["gas"], rec["chain"]["gas"] = k2[4]["launches"], 4
+    rec["batch"]["gas"] = {d: r["bk"] for d, r in k2.items()}
+    # COL: Landsat at depth 2 and 4 (K = 32)
+    land = make_landsat_cloud(1.0)
+    col = {d: path("landsat", land, d, LANDSAT_PHOTONS, DEEP_BATCHES, 750 + 10 * d,
+                   "deep_column_launches" if d > 3 else "column_launches", profile=False)
+           for d in (2, 4)}
+    agree("COL depth 4 against 2", col[4], col[2], (0,))
+    rec["launches"]["column"], rec["chain"]["column"] = col[4]["launches"], 4
+    rec["batch"]["column"] = {d: r["bk"] for d, r in col.items()}
+    # One block of each runtime-depth kernel against its plain version, timed.
+    for kind, kw in (("flux", dict(ssa=1.0)), ("gas", dict(ssa=0.99, gas=LAYERED_GAS)),
+                     ("column", dict(ssa=1.0, chain=4))):
+        for depth in ((4,) if kind == "column" else DEEP_DEPTHS):
+            args = dict(kw) if kind == "column" else dict(kw, step_chain=depth)
+            ssa = args.pop("ssa")
+            spec, results = kernel_vs_twin(ssa, dev, **args)
+            check(spec.chain == depth, f"65 {kind} spec chain {spec.chain}")
+            for r in results:
+                check_block(f"65 {kind} depth {depth}", r)
+                say("65 deep-kernel-vs-twin", kind=kind, **block_fields(spec, r, card))
+            if depth == 4:
+                rec["timed"][kind] = results
+    return rec
+
+
+def general_reach_paths(card: str) -> dict:
+    """Phase 66: G+E past the event block's reach at full width.  The step
+    cloud with 32 detectors (the three I3RC directions and a scan of 29;
+    no fastpath plan, so the general kernel's estimate stage runs it; exact
+    estimator, WIDE_BATCHES x 2^20 photons at 2^20 lanes): the I3RC
+    directions within 1% + 5 standard errors of their anchors, and G's
+    device ms a batch (the profiler); the step cloud split into 300
+    components of equal optics against the one-component cloud (each
+    COMP_BATCHES x 2^20, both on G+E): each detector within 5 combined
+    standard errors, weight in the slots past 255, and G's device ms a
+    batch of each."""
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, PhotonSource, batch_key
+    from i3rc_tpu_torch.kernels import general_block as gb
+    from i3rc_tpu_torch.models.step_cloud import make_step_cloud
+    from i3rc_tpu_torch.parallel.mesh import run_batches
+
+    rs = _load_tests_module("reach_scenes")
+    h = rs.host("i3rc_tpu_torch")
+    cfg = IntegratorConfig(use_ray_tracing=False, max_events=500, compute_volume_absorption=False)
+    src = PhotonSource.directional(0.5, 0.0)
+    derive = lambda r: {"I": r.intensity.mean(dim=(0, 1)), "fup": r.mean_flux_up,
+                        "fdn": r.mean_flux_down}
+    out = {}
+    mus, phis = rs.scan(32)
+    integ = Integrator.create(make_step_cloud(1.0), cfg, intensity_mus=mus, intensity_phis=phis,
+                              device="cuda")
+    check(integ._fast_plan is None, "66 32 detectors: a fastpath plan")
+    gb.reset_launch_counters()
+    t0 = time.perf_counter()
+    st = run_batches(integ, src, WIDE_PHOTONS, WIDE_BATCHES, seed=SEED, n_lanes=GENERAL_LANES,
+                     derive=derive)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = gb.general_block.det_launches
+    check(launches > 0, "66 32 detectors: no G+E launch")
+    mean, err = st.mean["derived"]["I"].cpu().numpy(), st.stderr["derived"]["I"].cpu().numpy()
+    fup, fdn = float(st.mean["derived"]["fup"]), float(st.mean["derived"]["fdn"])
+    check(abs(fup + fdn - 1.0) < 1e-5, f"66 32 detectors closure {fup + fdn}")
+    for d, anchor in enumerate(ANCHOR_I):
+        check(abs(mean[d] - anchor) <= 0.01 * anchor + 5 * err[d],
+              f"66 32 detectors: I[{d}] {mean[d]} +- {err[d]}, anchor {anchor}")
+    fn = integ.batch_fn(src, WIDE_PHOTONS, n_lanes=GENERAL_LANES)
+    found, _ = traced(lambda: fn(batch_key(SEED, 666)), 1, "general_event_block_kernel",
+                      "general_event_block_kernel")
+    batch_ms = sum(e.self_device_time_total for e in found) / 1e3
+    check(batch_ms > 0.0, "66 32 detectors: the profiler shows no G+E time")
+    out["wide"] = {"launches": launches, "batch_ms": batch_ms,
+                   "photons_per_s": WIDE_BATCHES * WIDE_PHOTONS / seconds}
+    say("66 detectors-32", photons=WIDE_PHOTONS, batches=WIDE_BATCHES, lanes=GENERAL_LANES,
+        route="G+E", fup=f"{fup:.6f}", i3rc=",".join(f"{v:.5f}" for v in mean[:3]),
+        i3rc_stderr=",".join(f"{v:.1e}" for v in err[:3]), launches=launches,
+        g_device_ms_per_batch=f"{batch_ms:.3f}", photons_per_s=f"{out['wide']['photons_per_s']:.4e}",
+        card=json.dumps(card))
+    res = {}
+    # The one-component cloud has a fastpath plan (K3): it runs on G+E too.
+    general = replace(cfg, use_fastpath=False)
+    for tag, dom in (("one", make_step_cloud(1.0)),
+                     ("split", rs.split_components(h, make_step_cloud(1.0), COMP_N))):
+        integ = Integrator.create(dom, general, intensity_mus=DET_MUS, intensity_phis=DET_PHIS,
+                                  device="cuda")
+        split = {}
+
+        def keep(r):
+            split["byc"] = r.intensity_by_component
+            return derive(r)
+
+        gb.reset_launch_counters()
+        st = run_batches(integ, src, COMP_PHOTONS, COMP_BATCHES, seed=SEED + 1,
+                         n_lanes=GENERAL_LANES, derive=keep)
+        check(gb.general_block.det_launches > 0, f"66 {tag}: no G+E launch")
+        fn = integ.batch_fn(src, COMP_PHOTONS, n_lanes=GENERAL_LANES)
+        found, _ = traced(lambda: fn(batch_key(SEED, 667)), 1, "general_event_block_kernel",
+                          "general_event_block_kernel")
+        res[tag] = (st.mean["derived"]["I"].cpu().numpy(), st.stderr["derived"]["I"].cpu().numpy(),
+                    split["byc"], sum(e.self_device_time_total for e in found) / 1e3)
+    (a, ea, _, ms_one), (b, eb_, byc, ms_split) = res["one"], res["split"]
+    check(np.all(np.abs(a - b) <= 5 * np.hypot(ea, eb_)), f"66 300 components {b} vs {a}")
+    high = float(byc[..., 256:].abs().sum())
+    check(byc.shape[-1] == COMP_N + 1 and high > 0.0, f"66 slots past 255: {high}")
+    out["components"] = {"one": a.tolist(), "split": b.tolist(), "one_ms": ms_one,
+                         "split_ms": ms_split}
+    say("66 components-300", photons=COMP_PHOTONS, batches=COMP_BATCHES,
+        one=",".join(f"{v:.5f}" for v in a), split=",".join(f"{v:.5f}" for v in b),
+        stderr=",".join(f"{v:.1e}" for v in np.hypot(ea, eb_)),
+        weight_past_slot_255=f"{high:.4e}", g_device_ms_per_batch_one=f"{ms_one:.3f}",
+        g_device_ms_per_batch_split=f"{ms_split:.3f}", card=json.dumps(card))
+    return out
+
+
+def chip_source_job(mesh) -> dict:
+    """A rank's job in phase 67: the spotlight and the internal source on
+    the Landsat scene through trace_sharded (source_cases), with SD's
+    launches counted."""
+    ss = _sharded_scenes()
+    from i3rc_tpu_torch.kernels import sharded_block as sb
+
+    sb.reset_launch_counters()
+    t0 = time.perf_counter()
+    out = ss.source_cases(mesh, "landsat", sorted(ss.NON_UNIFORM_SOURCES), SOURCE_PHOTONS,
+                          SOURCE_LANES, SEED)
+    torch.cuda.synchronize()
+    return {"cases": out, "sd": sb.sharded_event_block.launches,
+            "seconds": time.perf_counter() - t0, "rank": mesh.rank}
+
+
+def sharded_source_paths(card: str) -> dict:
+    """Phase 67: the sharded tracer with a spotlight and an internal source
+    spread across both slabs, on Landsat at 2^21 photons: two gloo ranks
+    sharing the card (spawned, alone on it), then one NCCL rank; each
+    launches n photons in all (sum(flux) + n_bad == n), and its fluxes
+    agree with the unsharded port (COL) within 5 combined sigma."""
+    import torch.distributed as dist
+
+    from i3rc_tpu_torch import Integrator, IntegratorConfig, make_landsat_cloud
+    from i3rc_tpu_torch.parallel.mesh import default_mesh
+
+    ss = _sharded_scenes()
+    torch.cuda.synchronize()
+    two = ss.join_world(ss.start_world(2, chip_source_job, (), device="cuda:0"), timeout=600)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        one = [chip_source_job(default_mesh(device=torch.device("cuda", 0)))]
+    finally:
+        dist.destroy_process_group()
+    integ = Integrator.create(make_landsat_cloud(0.99),
+                              IntegratorConfig(use_ray_tracing=False, max_events=500,
+                                               compute_volume_absorption=False), device="cuda")
+    n = SOURCE_PHOTONS
+    rec = {"sd": {"two": sum(r["sd"] for r in two), "one": one[0]["sd"]}}
+    for name in sorted(ss.NON_UNIFORM_SOURCES):
+        res = integ.batch_fn(ss.photon_source(name), n, n_lanes=L_CHECK)(batch_key_(670))
+        ref = [float(res.mean_flux_up), float(res.mean_flux_down), float(res.mean_flux_absorbed)]
+        for world, ranks in (("two_gloo", two), ("one_nccl", one)):
+            a = ranks[0]["cases"][name]
+            got = [float(a[k].sum()) / n for k in ("flux_up", "flux_down", "flux_absorbed")]
+            budgets = [r["cases"][name]["budget"] for r in ranks]
+            check(sum(budgets) == n and a["n_photons"] == n
+                  and int(round(sum(got) * n)) + a["n_bad"] == n,
+                  f"67 {name} {world}: budgets {budgets}, {got}, n_bad {a['n_bad']}")
+            check(name != "spotlight" or len(ranks) == 1 or sorted(budgets) == [0, n],
+                  f"67 spotlight budgets {budgets}")
+            for g, p in zip(got, ref):
+                sigma = np.sqrt(max(p * (1 - p), 1e-4) * 2 / n)
+                check(abs(g - p) <= 5 * sigma, f"67 {name} {world}: {got} against {ref}")
+            say("67 sharded-source", source=name, world=world, photons=n, budgets=budgets,
+                fup=f"{got[0]:.6f}", fdn=f"{got[1]:.6f}", fabs=f"{got[2]:.6f}",
+                unsharded=",".join(f"{v:.6f}" for v in ref), n_bad=a["n_bad"],
+                migrations=int(a["migrations"]), sd_launches=sum(r["sd"] for r in ranks),
+                seconds=f"{max(r['seconds'] for r in ranks):.2f}", card=json.dumps(card))
+            check(sum(r["sd"] for r in ranks) > 0, f"67 {world}: no SD launch")
+    return rec
+
+
+def profile_driver(out: Path, card: str) -> dict:
+    """Phase 68: the monteCarlo driver with --profile on the shipped
+    step-cloud namelist (from the directory that holds its domains): the
+    printed table names the event block with device time above 0."""
+    prof = out / "profile"
+    shutil.rmtree(prof, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "i3rc_tpu_torch.drivers.monte_carlo_driver", "--profile",
+         str(prof), str(ROOT / "examples" / "monteCarloDriver_stepCloud.nml")],
+        cwd=out, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True, text=True,
+        timeout=600)
+    check(proc.returncode == 0, f"68 --profile driver failed: {proc.stderr[-2000:]}")
+    table = [ln for ln in proc.stderr.splitlines() if ln.startswith("#")]
+    row = next((ln for ln in table if "event block (K1" in ln), "")
+    ms = re.search(r"([0-9.]+) ms", row)
+    check(bool(ms) and float(ms[1]) > 0.0, f"68 --profile table: {table}")
+    say("68 profile", rows=len(table) - 1, event_block_ms=ms[1],
+        header=json.dumps(table[0] if table else ""), seconds=f"{time.perf_counter() - t0:.1f}",
+        card=json.dumps(card))
+    return {"event_block_ms": float(ms[1]), "table": table}
+
+
+def deep_entry(kind: str, checks: dict, rec: dict) -> dict:
+    """The kernels-line entry of a runtime-depth kernel (K1, K2 or COL at
+    depth 4): launches on its phase-65 path (counts set to 0 just before
+    it), the largest difference to its plain version (phases 64-65), one
+    block's device time at 2^18 lanes (full; the tail beside it), its plain
+    version's time and bound, and its batch's device time beside the batch
+    at the templated depth (2; K2's auto 3)."""
+    full, tail = rec["timed"][kind]
+    batches = rec["batch"][kind]
+    deep = batches[rec["chain"][kind]]
+    shallow_depth = min(batches)
+    return {"name": {"flux": "fast_event_block_deep", "gas": "fast_event_block_gas_deep",
+                     "column": "fast_event_block_column_deep"}[kind],
+            "route": "cuda", "source": "i3rc_tpu_torch/csrc/fast_event_block_deep.cu",
+            "replaces": {
+                "flux": "i3rc_tpu/integrators/fastpath.py:665 (fastpath_chain > 3, :1283-1286)",
+                "gas": "i3rc_tpu/integrators/fastpath.py:665 (gas=True, fastpath_chain > 3)",
+                "column": "benchmarks/column_read_probe.py:83 (the column event of "
+                          "i3rc_tpu/integrators/fastpath.py:1320, fastpath_chain > 3)"}[kind],
+            "launches": rec["launches"][kind],
+            "max_abs_err": max(checks["err"][kind], full["max_abs_err"], tail["max_abs_err"]),
+            "ms": full["device_ms"], "plain_ms": full["twin_ms"], "bound_ms": full["bound"][0],
+            "bound_by": full["bound"][1], "library_ms": None, "chain": rec["chain"][kind],
+            "tail_ms": tail["device_ms"], "tail_plain_ms": tail["twin_ms"],
+            "tail_bound_ms": tail["bound"][0],
+            "batch_ms": deep["kernel_ms"], "batch_bound_ms": deep["bound"][0],
+            "batch_launches": deep["launches"], "templated_chain": shallow_depth,
+            "templated_batch_ms": batches[shallow_depth]["kernel_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1659,14 +2079,20 @@ def main() -> int:
               "{ctas_per_sm}cta".format(**v) for k, v in march_ptx.items()},
         **{k: PTXAS_FMT.format(**v) + f"(before:{SURFACE_BEFORE_PTXAS.get(k, 'none')})"
            for k, v in stage_ptx.items()})
-    # 88 HG instantiations, their 88 table twins and the 2 x 28 fused-k ones;
+    # 88 HG instantiations, their 88 table twins and the 2 x 28 fused-k ones
+    # (and the 20 runtime-depth ones, DEEP_SETS);
     # the HG sets compile to what they were before the table variants, the
     # table sets to what they were before the fused-k ones, and the fused-k
     # sets to what they were before the surface stage's redesign (registers,
     # stack and spill bytes, CTAs per SM, as phase 2 printed them in the
     # last call without).  The surface stage's two instantiations: no spill,
     # and the 5 CTAs per SM they had.
-    check(n_inst == 232, f"event-block instantiations: {n_inst}")
+    check(n_inst == 232 + sum(DEEP_SETS.values()), f"event-block instantiations: {n_inst}")
+    # The runtime-depth variant (csrc/fast_event_block_deep.cu): its 20
+    # instantiations, none spilling; the sets above stay as they were.
+    for name, count in DEEP_SETS.items():
+        v = by_variant.get(name, "")
+        check(v.startswith(f"{count}x/"), f"runtime-depth set {name}: {v}")
     # K3-M: the 24 detector instantiations of each of HG and TAB again, with
     # the marching trace (MARCH); none spills.  The surface stage's third
     # instantiation is its marching one.
@@ -2036,6 +2462,21 @@ def main() -> int:
     sd_checks = sharded_kernel_vs_twin(dev, card)
     sd_rec = mesh_paths(out, card)
 
+    # 64-68. the kernels' reach (ROADMAP item 22) and the profiler (item
+    # 20): every runtime-depth instantiation, G+E past 255 components and
+    # at 32 detectors, SD's refill from a source queue, each against its
+    # plain version, and the x-uniform sharded trace unchanged (64); the
+    # runtime-depth variant on the main path at chain depth 4 and 6 (K1),
+    # on the gas step cloud (K2) and on Landsat (COL) (65); 32 detectors
+    # and 300 components on G+E (66); the sharded spotlight and internal
+    # source over two gloo ranks and one NCCL rank (67); the monteCarlo
+    # driver with --profile (68)
+    reach_checks_ = reach_kernel_vs_twin(dev, card)
+    deep_rec = deep_paths(card)
+    ge_reach = general_reach_paths(card)
+    src_rec = sharded_source_paths(card)
+    prof_rec = profile_driver(out, card)
+
     # 20. results: every kernel with its launches on its path, its error
     # against its twin, its device time from the profiler (one block of K
     # events, prologue off, on the full state; events_ms is the CUDA-event
@@ -2096,7 +2537,10 @@ def main() -> int:
                       surf_timed[kind], surf_err[kind], brdf_diff)
         for sfx, kind in (("", "flux"), ("_detectors", "detectors"))] + [
         stage_entry(surf_paths, fk_rec["albedo"], surf_timed, surf_err)] + [
-        general_entry(g_timed, g_err, g_rec), estimate_entry(e_timed, e_err, e_rec)] + [
+        general_entry(g_timed, g_err, g_rec),
+        dict(estimate_entry(e_timed, max(e_err, reach_checks_["ge_err"]), e_rec),
+             detectors_32_batch_ms=ge_reach["wide"]["batch_ms"],
+             detectors_32_launches=ge_reach["wide"]["launches"])] + [
         table_entry(kind, f"i3rc_tpu_torch/csrc/{src}", replaces, t_rec[kind], t_checks)
         for kind, src, replaces in (
             ("flux", "fast_event_block_tab.cu",
@@ -2119,7 +2563,12 @@ def main() -> int:
              "fastpath.py:1409-1470)"))] + [polarized_entry(pz_checks, pz_rec)] + [
         march_entry(kind, m_checks, m_rec) for kind in ("march", "march_surface")] + [
         march_stage_entry(m_checks, m_rec)] + [
-        sharded_entry(kind, sd_checks, sd_rec) for kind in ("SD", "SB")]},
+        dict(sharded_entry(kind, sd_checks, sd_rec),
+             **({"source_queue_max_abs_err": reach_checks_["sd_err"],
+                 "source_queue_launches": src_rec["sd"]["two"] + src_rec["sd"]["one"]}
+                if kind == "SD" else {}))
+        for kind in ("SD", "SB")] + [
+        deep_entry(kind, reach_checks_, deep_rec) for kind in ("flux", "gas", "column")]},
         allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3911,8 +4360,10 @@ def table_kernel_vs_twin(dev, card: str, log: str) -> dict:
     ts = _load_tests_module("tabulated_scenes")
     h = ts.host("i3rc_tpu_torch")
     src = PhotonSource.directional(0.5, 0.0)
+    # The templated table instantiations (the runtime-depth ones, ILin1E,
+    # are phase 64's).
     built = set(re.findall(r"Compiling entry function '\w*fast_event_block_kernel"
-                           r"(ILi\w+?ELb1ELb0EE)v", log))
+                           r"(ILi\d\w+?ELb1ELb0EE)v", log))
     seen, err, n_states, timed = {}, {}, 0, {}
 
     def hold(tag, spec, pro, states, key, source):
@@ -5387,8 +5838,9 @@ def march_paths(card: str) -> dict:
     IntegratorConfig(): ray tracing), MARCH_BATCHES batches, within 4
     combined standard errors; photons/s, one batch under the profiler (the
     device's idle share), one with each launch timed beside its bound (the
-    twin's census of the same batch's marching steps); then K3-M+S's path,
-    the scene over RPV ("3d_rpv", three batches and one timed)."""
+    twin's census of the same batch's marching steps; those two batches of
+    half the path's photons); then K3-M+S's path, the scene over RPV
+    ("3d_rpv", three batches and one timed)."""
     from i3rc_tpu_torch import Integrator, IntegratorConfig
     from i3rc_tpu_torch.kernels import event_block as eb
     from i3rc_tpu_torch.kernels import general_block as gb
@@ -5449,8 +5901,11 @@ def march_paths(card: str) -> dict:
                   f"57 {name}: K3-M+S launches {rec['launches'][counter]}")
             say("57 march-3d_rpv", photons=sc.n, batches=3, n_bad=",".join(map(str, bads)),
                 launches=rec["launches"][counter], card=json.dumps(card))
-        key = batch_key_(1020)
-        tracer = sc.integ.batch_tracer(sc.n, sc.lanes)
+        # The timed batch is half the path's: its plain census (every block
+        # of the batch by the plain version) took 64 s for 2^22 photons on
+        # the card's host (PR 21), the script's longest phase.
+        key, n_timed = batch_key_(1020), sc.n // 2
+        tracer = sc.integ.batch_tracer(n_timed, sc.lanes)
         run = lambda: tracer(key, sc.src.sample(key, sc.lanes, "cuda"), sc.src)
         run()
         pb = profile_batch(run)
@@ -5475,7 +5930,7 @@ def march_paths(card: str) -> dict:
             check(use["surface_rays"] == cen["surface"]["rays"]
                   and use["surface_steps"] == cen["surface"]["steps"],
                   f"57 {name}: S-M's ray loop {use} vs the plain version's {cen['surface']}")
-            say("57 march-3d_rpv-stage", photons=sc.n, stage_launches=pb["surface_launches"],
+            say("57 march-3d_rpv-stage", photons=n_timed, stage_launches=pb["surface_launches"],
                 stage_ms=f"{pb['surface_ms']:.3f}", block_ms=f"{pb['block_ms']:.3f}",
                 stage_bound_ms=f"{bk['stage']['bound'][0]:.3f}",
                 stage_bound_by=bk["stage"]["bound"][1], hits=bk["hits"],
@@ -5489,9 +5944,9 @@ def march_paths(card: str) -> dict:
                 census_lane_use=f"{qu['steps'] / max(qu['slots'], 1):.3f}",
                 card=json.dumps(card))
         rec["batch"][counter] = bk
-        say(f"57 march-{name}-profile", photons=sc.n,
+        say(f"57 march-{name}-profile", photons=n_timed,
             **profile_fields(pb, sc.integ._fast_plan.unroll, card))
-        say(f"57 march-{name}-batch-kernel", photons=sc.n, rays=cen["rays"],
+        say(f"57 march-{name}-batch-kernel", photons=n_timed, rays=cen["rays"],
             ray_steps=cen["steps"], warp_steps=cen["warp_steps"], unfinished=cen["unfinished"],
             **ray_loop_fields(bk["ray_use"], cen),
             plain_batch_seconds=f"{cen['plain_seconds']:.3f}", **batch_fields(bk, card))
@@ -5882,7 +6337,7 @@ def _sharded_run(ss, name: str, mesh, profile: bool) -> dict:
             "steps": int(tr.pool.i[sb.QSTEPS].sum()) if spec.n_dirs else 0,
             "escapes": escapes, "rows": rows, "free": free, "sb_use": use,
             "table_bytes": tables,
-            "_states": dict(spec=spec, key=tr.key, source=tr.source, albedo=tr.albedo,
+            "_states": dict(spec=spec, key=tr.key, source=tr.refill, albedo=tr.albedo,
                             block=keep["block"], sb=keep["sb"])}
 
 

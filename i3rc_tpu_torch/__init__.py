@@ -8,7 +8,7 @@ the JAX package's module path) and imports nothing of ``i3rc_tpu`` and never
 ``jax``.
 
 Layer map:
-  utils/        error policy, namelist reader
+  utils/        error policy, namelist reader, the torch.profiler report
   core/         Philox random streams, photon sources, surfaces and BRDFs,
                 domains, phase functions and matrices, quadrature,
                 k-distributions
@@ -18,12 +18,14 @@ Layer map:
   integrators/  the fastpath planner and trace loop, the general kernel's
                 trace loop and event, tables, results, the Integrator, the
                 polarized (Stokes-vector) integrator
-  tools/        the single-sphere Mie series
+  tools/        Mie tables, the physical- and optical-properties to domain
+                converters, refractive indices (python -m i3rc_tpu_torch.tools.*)
   kernels/      hand-written CUDA kernels, their plain PyTorch twins, the build
   csrc/         CUDA C++ sources (built with nvcc for sm_90a at first use)
   parallel/     batches over torch.distributed ranks and their statistics,
                 checkpoint and resume, the x-sharded domain tracer
-  drivers/      the namelist drivers (monteCarloDriver analog, broadband)
+  drivers/      the namelist drivers (monteCarloDriver analog, broadband,
+                planeParallel; --profile DIR on utils/profiling.py)
 """
 
 __version__ = "0.1.0"
@@ -31,6 +33,7 @@ __version__ = "0.1.0"
 _EXPORTS = {
     # The host layer: the port's copies of the JAX package's host modules.
     "Domain": "i3rc_tpu_torch.core.optics",
+    "OpticalComponent": "i3rc_tpu_torch.core.optics",
     "PhaseFunction": "i3rc_tpu_torch.core.phase_functions",
     "PhaseFunctionTable": "i3rc_tpu_torch.core.phase_functions",
     "henyey_greenstein_coefficients": "i3rc_tpu_torch.core.phase_functions",

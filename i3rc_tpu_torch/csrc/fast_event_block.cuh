@@ -231,6 +231,10 @@
 // detectors, and a second set, launched only past that, for MAX_DETECTORS.
 #define MAX_DETECTORS 16
 #define DET_DRAWS_SMALL 8
+// The CHAIN of the runtime-depth variant (fast_event_block_deep.cu): the
+// collision-chain depth is EventParams.chain, any depth >= 1; depths 0-3 keep
+// instantiations of their own.
+#define CHAIN_RUNTIME (-1)
 #define STREAM_EVENT 0u
 #define STREAM_REFILL 1u
 #define STREAM_GAS 3u
@@ -379,6 +383,7 @@ struct EventParams {
   // (MARCH_USE_*).
   float4* rays;
   unsigned long long* ray_use;
+  int chain;                    // the collision-chain depth (read by CHAIN_RUNTIME only)
 };
 
 // float32 constants of the JAX reference (fastpath.py _HUGE, rng.TINY,
@@ -622,6 +627,47 @@ __device__ __forceinline__ void want(float (&u)[NU], const EventParams& p, Draws
 template <bool LAZY>
 __device__ __forceinline__ bool warp_any(bool pred) {
   return LAZY ? __any_sync(FULL_MASK, pred) : pred;
+}
+
+// Element w (0-3) of a group's four values, w a runtime index, by selects
+// (an index into the register array would put it in local memory).
+__device__ __forceinline__ float elem_of(const float (&a)[4], int w) {
+  return w == 0 ? a[0] : w == 1 ? a[1] : w == 2 ? a[2] : a[3];
+}
+
+// The runtime-depth variant's bonus phase: its BD draws, the words i0,
+// i0 + 1, ... of the event, from group i0 / 4 (from word i0 % 4) and, past
+// its end, the next group, at the counters the eager variants use, so that
+// they equal the twin's.  Phases run in order and a phase's groups follow
+// the last one drawn, so the caller keeps that group's values (last, its
+// index g_last; group 0 is the event's u) and each group is drawn once, as
+// in the eager variants.  Nothing for a lane without pred.  Four draw
+// registers and the kept group, whatever the depth.
+template <int BD>
+__device__ __forceinline__ void phase_draws(const EventParams& p, const Draws& d, int i0,
+                                            bool pred, float (&last)[4], int& g_last,
+                                            float (&v)[4]) {
+  v[0] = v[1] = v[2] = v[3] = 0.0f;
+  if (!pred) return;
+  const int g = i0 >> 2, k = i0 & 3;
+  float a[4], b[4];
+  uint32_t w[4];
+  if (g != g_last) {
+    philox_group(p, d, g, w);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) last[m] = to_unit(w[m]);
+    g_last = g;
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) a[m] = b[m] = last[m];
+  if (k + BD > 4) {
+    philox_group(p, d, g + 1, w);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) b[m] = last[m] = to_unit(w[m]);
+    g_last = g + 1;
+  }
+#pragma unroll
+  for (int m = 0; m < BD; ++m) v[m] = k + m < 4 ? elem_of(a, k + m) : elem_of(b, k + m - 4);
 }
 
 // The dead-lane contract's free path at event j: word 0 of group j * G.
@@ -1200,7 +1246,7 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
   }
   int n_coll = collided ? 1 : 0;
 
-  if (CHAIN > 0 && (!LAZY || warp_any<LAZY>(collided))) {
+  if (CHAIN != 0 && (!LAZY || warp_any<LAZY>(collided))) {
     // Segment box around the collision point: extinction is constant
     // inside it, so a candidate that stays strictly within commits as a
     // physical collision; one that leaves defers its optical depth.  In
@@ -1237,6 +1283,62 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
       wz_hi = fminf(wz_hi, face_up(p.gz, s.z, p.z_max));
     }
     bool chain = collided;
+    if constexpr (CHAIN < 0) {
+      // The runtime depth p.chain: each bonus phase draws its own words
+      // (phase_draws), so the registers do not grow with the depth; the loop
+      // ends once no lane of the warp chains.  A chaining lane collided, so
+      // u holds group 0 (drawn eagerly, or in the lazy column variant for
+      // its collision).
+      float last[4] = {u[0], u[1], u[2], u[3]};
+      int g_last = 0;
+#pragma unroll 1
+      for (int b = 0; b < p.chain; ++b) {
+        if (!__any_sync(FULL_MASK, chain)) break;
+        float v[4];
+        phase_draws<BD>(p, dr, BD + b * BD, chain, last, g_last, v);
+        const float tau_new = exponential_deviate(v[0]);
+        const float s_c = tau_new * inv_c;
+        const float cx = s.x + s.ux * s_c;
+        const float cz = s.z + s.uz * s_c;
+        bool inside = (cx > wx_lo) && (cx < wx_hi) && (cz > wz_lo) && (cz < wz_hi);
+        float cy = s.y;
+        if (TY) {
+          cy = s.y + s.uy * s_c;
+          inside = inside && (cy > wy_lo) && (cy < wy_hi);
+        }
+        float gcost = 0.0f;
+        if (GAS) {
+          gcost = s_c * gzv_c;
+          inside = inside && (gcost < s.tgas);
+        }
+        bool commit = chain && inside;
+        if (chain && !inside) tau = tau_new;
+        if (commit) {
+          s.x = cx;
+          s.z = cz;
+          if (TY) s.y = cy;
+          if (GAS) s.tgas = s.tgas - gcost;
+          n_coll += 1;
+        }
+        if (ABS) {
+          const bool die_c = commit && (v[3] >= (TAB && COL ? ssa : p.ssa));
+          if (die_c) s.pk = 3;
+          commit = commit && !die_c;
+        }
+        if (warp_any<LAZY>(commit)) {
+          float nx, ny, nz;
+          rotate_direction(s.ux, s.uy, s.uz,
+                           TAB ? cubic_cosine(p, prow, v[1]) : hg_cosine(p.g, v[1]), v[2],
+                           &nx, &ny, &nz);
+          if (commit) {
+            s.ux = nx;
+            s.uy = ny;
+            s.uz = nz;
+          }
+        }
+        chain = commit;
+      }
+    } else {
 #pragma unroll
     for (int b = 0; b < CHAIN; ++b) {
       if (LAZY && !warp_any<LAZY>(chain)) break;
@@ -1286,6 +1388,7 @@ __device__ __forceinline__ void fast_event(const EventParams& p, float (&u)[NU],
         }
       }
       chain = commit;
+    }
     }
   }
 
@@ -1756,15 +1859,19 @@ __device__ __forceinline__ void event_block(float* __restrict__ f, int* __restri
   constexpr int BD = ABS ? 4 : 3;
   // Draw slots: with DET && IW the count depends on the runtime D, so the
   // register array is sized for DCAP detectors and only G groups are drawn.
-  constexpr int ND_MAX = DET ? (IW ? BD + DCAP : BD) : BD * (1 + CHAIN);
+  // The runtime-depth variant (CHAIN < 0) holds the event's first BD draws
+  // and draws its bonus phases as it runs them (phase_draws); its groups an
+  // event follow the runtime depth.
+  constexpr int ND_MAX = DET ? (IW ? BD + DCAP : BD) : BD * (1 + (CHAIN < 0 ? 0 : CHAIN));
   constexpr int G_MAX = (ND_MAX + 3) / 4;
-  const int G = (DET && IW) ? (BD + p.det.n + 3) / 4 : G_MAX;
+  const int G = (DET && IW) ? (BD + p.det.n + 3) / 4
+                : CHAIN < 0 ? (BD * (1 + p.chain) + 3) / 4 : G_MAX;
   const int n_bins = DET ? p.det.n_bins : 0;
   const bool in_smem = DET && (SLICES || hist_in_smem);
   const int n_slices = SLICES ? CTA_WARPS : 1;
   // Draws as read, per warp, in the column variant with chaining only (see
   // the source note).
-  constexpr bool LAZY = COL && CHAIN > 0;
+  constexpr bool LAZY = COL && CHAIN != 0;
   const bool pro = p.pro.on != 0;
 
   if (in_smem)
@@ -1976,11 +2083,20 @@ static void launch_flags(float* f, int* i, double* acc, const EventParams& p,
   }
 }
 
+// The runtime-depth variants (CHAIN_RUNTIME), instantiated in
+// fast_event_block_deep.cu: flux at chain depth p.chain = chain >= 1, with or
+// without the gas channel, HG or table; and the column ones.  False for
+// another depth.
+bool launch_block_deep(float* f, int* i, double* acc, const EventParams& p, int chain, bool gas,
+                       bool table, bool absorbing, bool track_y, cudaStream_t stream);
+bool launch_block_col_deep(float* f, int* i, const float4* col, const EventParams& p, int chain,
+                           bool absorbing, bool table, cudaStream_t stream);
+
 // One block (p.K events, any K >= 1) of the variant the flags name, with the
 // gas channel (GAS = true) or without it, HG or table (TAB): flux at chain
-// depth 0-3, or the detector variant (always chain depth 0, up to
-// MAX_DETECTORS detectors) with or without Iwabuchi; fused-k (FK, with GAS)
-// at chain depth 0 only.  False for a chain depth or a detector count that
+// depth 0-3 (deeper: launch_block_deep), or the detector variant (always
+// chain depth 0, up to MAX_DETECTORS detectors) with or without Iwabuchi;
+// fused-k (FK, with GAS) at chain depth 0 only.  False for a chain depth or a detector count that
 // is not built; the Python wrapper refuses those first (launch_refusal).
 template <bool GAS, bool TAB, bool FK = false>
 static bool launch_block(float* f, int* i, double* acc, const EventParams& p, int chain,
@@ -2009,7 +2125,8 @@ static bool launch_block(float* f, int* i, double* acc, const EventParams& p, in
       case 1: launch_flags<1, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
       case 2: launch_flags<2, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
       case 3: launch_flags<3, false, false, GAS, DS, TAB>(f, i, acc, p, absorbing, track_y, stream); break;
-      default: return false;
+      default:
+        return launch_block_deep(f, i, acc, p, chain, GAS, TAB, absorbing, track_y, stream);
     }
   }
   return true;

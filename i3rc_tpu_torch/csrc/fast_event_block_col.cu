@@ -5,7 +5,8 @@
 // see fast_event_block.cuh).  A source of its own so that nvcc builds these
 // 16 instantiations (chain depth 0-3, absorbing or not, HG or table: a
 // single-entry tabulated table, or per-column ssa and table entries) in
-// parallel with the others.  Column plans run K = 32 events per launch by default, the JAX
+// parallel with the others; deeper chains run the runtime-depth ones of
+// fast_event_block_deep.cu.  Column plans run K = 32 events per launch by default, the JAX
 // planner's K (i3rc_tpu/integrators/fastpath.py:633-635): a lane that dies
 // early in a long block costs its warp nothing once the warp's lanes are all
 // dead, and the CTA's compaction drops it from the next launch.
@@ -30,7 +31,7 @@ static bool launch_col_chain(float* f, int* i, const float4* col, const EventPar
     case 1: launch_col<1, TAB>(f, i, col, p, absorbing, stream); return true;
     case 2: launch_col<2, TAB>(f, i, col, p, absorbing, stream); return true;
     case 3: launch_col<3, TAB>(f, i, col, p, absorbing, stream); return true;
-    default: return false;
+    default: return launch_block_col_deep(f, i, col, p, chain, absorbing, TAB, stream);
   }
 }
 

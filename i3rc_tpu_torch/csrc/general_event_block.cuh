@@ -517,10 +517,10 @@ __device__ __forceinline__ void active_red(double* base, int key, double v) {
 // flag; whether the order reads the original table under hybrid phases)
 // and the lane.
 #define GEN_RAY_F4 3
-#define GEN_RAY_MAX_SLOT 0xff      // the tally slot's field (kernels/general_block.py RAY_MAX_SLOT)
-#define GEN_RAY_SURFACE (1 << 8)
-#define GEN_RAY_ORIG (1 << 9)
-#define GEN_RAY_J_SHIFT 10
+#define GEN_RAY_MAX_SLOT 0xffff    // the tally slot's field (kernels/general_block.py RAY_MAX_SLOT)
+#define GEN_RAY_SURFACE (1 << 16)
+#define GEN_RAY_ORIG (1 << 17)
+#define GEN_RAY_J_SHIFT 18
 
 struct GenQueue {
   int n;                        // records pushed

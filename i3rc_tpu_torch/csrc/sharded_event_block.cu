@@ -14,7 +14,8 @@
 //       pack (rays) and the free lanes in lane order (photons), the rest
 //       waiting in the next parity's inbox; the FIFO refill of the next
 //       free lanes, keeping RESERVE free, with the source sample at (lane,
-//       kb, STREAM_REFILL).  A lane's rank needs the free and tagged lanes
+//       kb, STREAM_REFILL), or for a source that is not uniform in x the
+//       next rows of the rank's source queue (src_q).  A lane's rank needs the free and tagged lanes
 //       of the tiles below it: the last launch left each tile's counts and
 //       tag prefixes in `tiles`, so a CTA sums those below it and scans its
 //       own (as the fast event block's prologue ranks its refill);
@@ -202,6 +203,11 @@ struct ShardParams {
   float albedo;          // f32(albedo): the revive test
   float z_revive;        // f32(z0 + nudge): a revived lane's height
   SourceParams src;      // the refill's source (x scaled to the slab)
+  // A source that is not uniform in x: the rank's photons of one batch
+  // drawn for every rank, (n, 6) x, y, z, ux, uy, uz in batch order, read by
+  // the refill from row q_at on in place of src (null: src).
+  const float* src_q;
+  long long q_at;
 };
 
 __device__ __forceinline__ int sd_row(const ShardParams& p, float x, float y, float z) {
@@ -555,7 +561,12 @@ sharded_event_block_kernel(float* __restrict__ f, int* __restrict__ iv,
       iv[SD_ALIVE * L + lane] = 1;
     } else if (is_free && r - p0 - p1 < p.n_new) {
       float v[6];
-      source_sample(p.src, p.kb, p.key0, p.key1, lane, v);
+      if (p.src_q != nullptr) {
+        const float* q = p.src_q + (size_t)(p.q_at + (r - p0 - p1)) * 6;
+        for (int c = 0; c < 6; ++c) v[c] = q[c];
+      } else {
+        source_sample(p.src, p.kb, p.key0, p.key1, lane, v);
+      }
       for (int c = 0; c < 6; ++c) f[c * L + lane] = v[c];
       f[SD_TAU * L + lane] = 0.0f;
       iv[SD_ORDERS * L + lane] = 0;

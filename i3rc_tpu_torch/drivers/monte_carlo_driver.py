@@ -226,6 +226,9 @@ def main(argv=None):
     parser.add_argument("namelist", nargs="?", help="namelist file")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; no CPU fallback)")
+    parser.add_argument("--profile", nargs="?", const="profile_trace", metavar="DIR",
+                        help="trace the run with torch.profiler into DIR and print the "
+                             "device time by kernel to stderr")
     args = parser.parse_args(argv)
     path = args.namelist
     if path is None:
@@ -238,12 +241,26 @@ def main(argv=None):
     if "WORLD_SIZE" in os.environ:       # launched by torchrun
         mesh = initialize_multihost(device=args.device)
         try:
-            run_from_namelist(path, device=mesh.device, mesh=mesh)
+            _run(lambda: run_from_namelist(path, device=mesh.device, mesh=mesh),
+                 args.profile and os.path.join(args.profile, f"rank{mesh.rank}"), mesh.device)
         finally:
             torch.distributed.destroy_process_group()
     else:
-        run_from_namelist(path, device=args.device)
+        _run(lambda: run_from_namelist(path, device=args.device), args.profile, args.device)
     return 0
+
+
+def _run(run, profile_dir, device) -> None:
+    """``run()``; with a profile directory under torch.profiler, the device
+    time by kernel printed to stderr (the cpu_time_setup/total analog,
+    monteCarloDriver.f95:255-259, at kernel resolution)."""
+    if not profile_dir:
+        run()
+        return
+    from i3rc_tpu_torch.utils.profiling import profile_report, profile_run
+
+    profile_run(run, profile_dir, device)
+    print(profile_report(profile_dir), file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,8 @@ with between-batch errors to stdout in the reference's tabular format
     python -m i3rc_tpu_torch.drivers.plane_parallel [--device cuda] planeParallel.nml
 
 ``--device`` defaults to ``cuda``; a missing GPU raises instead of running
-on the CPU.  The JAX driver's ``--profile DIR`` (a trace of the run) is
-ROADMAP item 20 and is refused here.
+on the CPU.  ``--profile DIR`` traces the run with ``torch.profiler`` into DIR
+and prints the device time by kernel to stderr (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -28,9 +28,8 @@ from i3rc_tpu_torch.integrators.integrator import Integrator
 from i3rc_tpu_torch.models.slab import make_slab_domain
 from i3rc_tpu_torch.utils.namelist import read_namelist
 
-PROFILE_REFUSAL = ("--profile (a trace of the run) is not ported yet: ROADMAP item 20 "
-                   "(utils/profiling.py on torch.profiler)")
-USAGE = "usage: python -m i3rc_tpu_torch.drivers.plane_parallel [--device DEV] <namelist.nml>"
+USAGE = ("usage: python -m i3rc_tpu_torch.drivers.plane_parallel [--device DEV] "
+         "[--profile DIR] <namelist.nml>")
 
 
 def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") -> dict:
@@ -153,10 +152,11 @@ def run_from_namelist(namelist_path: str, quiet: bool = False, device="cuda") ->
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    profile_dir = None
     if "--profile" in argv:
-        print(f"python -m i3rc_tpu_torch.drivers.plane_parallel: {PROFILE_REFUSAL}",
-              file=sys.stderr)
-        return 2
+        i = argv.index("--profile")
+        profile_dir = argv[i + 1] if i + 1 < len(argv) else "profile_trace"
+        argv = argv[:i] + argv[i + 2 if i + 1 < len(argv) else i + 1:]
     device = "cuda"
     if "--device" in argv:
         i = argv.index("--device")
@@ -175,7 +175,13 @@ def main(argv=None):
     if len(argv) != 1:
         print(USAGE, file=sys.stderr)
         return 1
-    run_from_namelist(argv[0], device=device)
+    if profile_dir:
+        from i3rc_tpu_torch.utils.profiling import profile_report, profile_run
+
+        profile_run(lambda: run_from_namelist(argv[0], device=device), profile_dir, device)
+        print(profile_report(profile_dir), file=sys.stderr)
+    else:
+        run_from_namelist(argv[0], device=device)
     return 0
 
 

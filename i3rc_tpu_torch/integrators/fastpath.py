@@ -47,9 +47,11 @@ point.  Each lane carries Gz(z) of its k profile from its own launch height
 (JAX starts every lane at the Gz of the domain top, fastpath.py:1029-1032,
 :2012, :2107-2108, which an internal source does not share).
 
-The plan the JAX package supports but the port does not yet — the marching
-shadow trace — raises NotImplementedError naming its ROADMAP item;
-configurations the JAX planner rejects return None, as there.
+Configurations the JAX planner rejects return None, as there; so does a
+plan with more radiance detectors than the event block holds
+(``MAX_DETECTORS``), which the general kernel's estimate stage runs (JAX
+runs it on its XLA fastpath, fastpath.py:1702-1712).  Every collision-chain
+depth plans (``fastpath_chain``, fastpath.py:1283-1286).
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ from i3rc_tpu_torch.integrators.wavefront import (
 # hg_cosine is re-exported (the JAX package defines it in fastpath), and
 # renormalize for callers that step a state by hand.
 from i3rc_tpu_torch.kernels.event_block import (  # noqa: F401
-    ALBEDO, ALIVE, BAD, BRDF_KINDS, CTA_THREADS, DONE, EVCT, GCUR, ITEM_REACH, MAX_DETECTORS,
-    MAX_SEGMENTS, PK, SUPPORTED_CHAIN, TGAS, UX, UY, UZ, X, Y, Z, DetectorSpec, EventSpec,
+    ALBEDO, ALIVE, BAD, BRDF_KINDS, CTA_THREADS, DONE, EVCT, GCUR, MAX_DETECTORS,
+    MAX_SEGMENTS, PK, TGAS, UX, UY, UZ, X, Y, Z, DetectorSpec, EventSpec,
     FusedK, LaneState, PrologueSpec, SurfaceLaw, block_buffers, flush, fused_block, gas_read,
     hg_cosine, launch_refusal, renormalize,
 )
@@ -417,9 +419,8 @@ def _detector_plan(fx, fy, fz, intensity, geom, gas: bool):
 def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> FastPlan | None:
     """Eligibility check + plan, decided as the JAX ``fast_plan`` decides.
 
-    Returns None where the JAX planner returns None.  Where it would return
-    a plan that uses a feature the port lacks, raises
-    NotImplementedError naming the ROADMAP item.  A table that is not
+    Returns None where the JAX planner returns None, and past
+    ``MAX_DETECTORS`` detectors (the general kernel runs those).  A table that is not
     exactly HG takes the table modes (fastpath.py:502-553): per-column ssa
     and phase entries the flattened cubic fit of every entry, a single
     entry (with a gas channel, the cloud component's) its own fit, and with
@@ -513,10 +514,10 @@ def fast_plan(geom, flat, optics: OpticsFlags, surface, intensity, config) -> Fa
         if det is None:
             return None
         detectors, closed_shadow, shadow_steps = det
-    # What the event block is not built for is refused here, on every device.
-    if len(detectors) > MAX_DETECTORS or (
-            not detectors and _chain_depth(config, detectors, gas) not in SUPPORTED_CHAIN):
-        raise NotImplementedError(f"fastpath plan needs {ITEM_REACH}")
+    # Past the event block's detector cap there is no plan: the general
+    # kernel's estimate stage (G+E) has none, and runs it.
+    if len(detectors) > MAX_DETECTORS:
+        return None
     # K as the JAX planner gives it (fastpath.py:633-635): 32 for column
     # plans, 8 for separable ones.
     cfg_unroll = getattr(config, "fastpath_unroll", None)

@@ -147,6 +147,8 @@ class Integrator:
     _intensity_mus: np.ndarray | None = None
     _intensity_phis: np.ndarray | None = None
     _surface_arg: SurfaceDescription | None = None
+    _surface_albedo: float = 0.0
+    _domain: Domain | None = None
     # The super-voxel grid of Woodcock transport (majorant_block_size > 0).
     coarse_geometry: GridGeometry | None = None
     # Fused-k spectral batching: the (n_k, n_z) profiles and (n_k,) weights.
@@ -239,8 +241,39 @@ class Integrator:
             _col_weights=column_weights(domain.x_edges, domain.y_edges),
             _dz=np.diff(np.asarray(domain.z_edges, dtype=np.float64)).astype(np.float32),
             _intensity_mus=mus, _intensity_phis=phis, _surface_arg=surface,
+            _surface_albedo=float(surface_albedo), _domain=domain,
             coarse_geometry=coarse_geometry(domain, blocks, dev) if blocks else None,
             _gas_k=gas_k)
+
+    def with_params(self, **kwargs) -> "Integrator":
+        """Reconfigure and rebuild (the specifyParameters analog,
+        monteCarloRadiativeTransfer.f95:830-1069), on the same device.
+
+        Accepts any IntegratorConfig field plus surface_albedo / surface /
+        intensity_mus / intensity_phis; any other name raises TypeError.
+        Returns a new Integrator (i3rc_tpu/integrators/integrator.py:301-322).
+        """
+        cfg_updates = {k: v for k, v in kwargs.items() if hasattr(self.config, k)}
+        other = {k: v for k, v in kwargs.items() if not hasattr(self.config, k)}
+        unknown = set(other) - {"surface_albedo", "surface", "intensity_mus",
+                                "intensity_phis"}
+        if unknown:
+            raise TypeError(f"with_params: unknown parameters {sorted(unknown)}")
+        surface = other.get("surface", self._surface_arg)
+        albedo = other.get("surface_albedo",
+                           0.0 if "surface" in other else self._surface_albedo)
+        mus = other.get("intensity_mus", self._intensity_mus)
+        phis = other.get("intensity_phis", self._intensity_phis)
+        gas_k = None if self._gas_k is None else (self._gas_k.profiles, self._gas_k.weights)
+        return Integrator.create(self._domain, config=replace(self.config, **cfg_updates),
+                                 surface_albedo=albedo, surface=surface,
+                                 intensity_mus=mus, intensity_phis=phis, device=self.device,
+                                 gas_k=gas_k)
+
+    @property
+    def is_ready(self) -> bool:
+        """isReady_Integrator analog: construction guarantees readiness."""
+        return True
 
     @property
     def grid_shape(self):

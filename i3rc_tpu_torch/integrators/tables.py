@@ -67,14 +67,18 @@ def build_inverse_cubic(optics: FlatOptics, n_segments: int = 256,
     p = (np.arange(s)[:, None] + t[None, :]).reshape(-1) / s     # (s*m,)
     p = np.clip(p, 0.0, 1.0)
 
-    per_comp = []
+    per_comp, fits = [], {}
     for table in optics.forward_tables:
-        rows = []
-        for pf in table.phase_functions:
-            mu = inverse_cdf_mu(pf, p).reshape(s, m)             # (s, m)
-            coeffs = mu @ pinv.T                                  # (s, 4)
-            rows.append(coeffs)
-        per_comp.append(np.stack(rows))                           # (entries, s, 4)
+        # Components that share a table share its fit (the port's addition:
+        # a domain of many components of one table fits it once).
+        if id(table) not in fits:
+            rows = []
+            for pf in table.phase_functions:
+                mu = inverse_cdf_mu(pf, p).reshape(s, m)         # (s, m)
+                coeffs = mu @ pinv.T                              # (s, 4)
+                rows.append(coeffs)
+            fits[id(table)] = np.stack(rows)                      # (entries, s, 4)
+        per_comp.append(fits[id(table)])
     max_entries = max(c.shape[0] for c in per_comp)
     out = np.zeros((len(per_comp), max_entries, s, 4), dtype=np.float32)
     for i, c in enumerate(per_comp):
@@ -113,11 +117,13 @@ def build_forward_cubic(optics: FlatOptics, n_segments: int = 512,
     theta = np.clip(((np.arange(s)[:, None] + t[None, :])
                      * (np.pi / s)).reshape(-1), 0.0, np.pi)     # (s*m,)
 
-    per_comp = []
+    per_comp, fits = [], {}
     for table in optics.forward_tables:
-        vals = np.asarray(table.values(theta), dtype=np.float64).T
-        logv = np.log(np.maximum(vals, 1e-30)).reshape(-1, s, m)
-        per_comp.append(logv @ pinv.T)                           # (entries, s, 4)
+        if id(table) not in fits:                                # one fit a shared table
+            vals = np.asarray(table.values(theta), dtype=np.float64).T
+            logv = np.log(np.maximum(vals, 1e-30)).reshape(-1, s, m)
+            fits[id(table)] = logv @ pinv.T                       # (entries, s, 4)
+        per_comp.append(fits[id(table)])
     max_entries = max(c.shape[0] for c in per_comp)
     out = np.zeros((len(per_comp), max_entries, s, 4), dtype=np.float32)
     for i, c in enumerate(per_comp):

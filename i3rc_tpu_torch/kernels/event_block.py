@@ -24,8 +24,10 @@ tallies summed per CTA, and on a plan with the marching shadow trace
 ``fast_event_block_surface_kernel_march``, whose CTAs take runs of tiles
 and pull their emitting hits' rays from a queue; ``surface_census`` counts
 their work and their tallies' atomics block by block).  The kernel takes
-every K >= 1, chain depth 0-3 and up to 16 detectors; ``launch_refusal``
-names what it does not.
+every K >= 1, every collision-chain depth (0-3 as template instantiations,
+deeper ones in the runtime-depth variant, ``CHAIN_TEMPLATED``) and up to
+16 detectors (the planner gives a plan with more none, so G+E runs it);
+``launch_refusal`` names what it does not.
 Every variant also comes as a table variant (``EventSpec.cubic``: a phase
 function that is not exactly HG samples the cosine from the piecewise-cubic
 inverse CDF, its detectors read the phase value from the log-space cubic
@@ -89,11 +91,10 @@ HUGE = f32(3.0e38)
 PI = f32(np.pi)
 INV_PI = f32(1.0 / np.pi)
 TWO_PI = f32(2.0 * np.pi)
-SUPPORTED_CHAIN = (0, 1, 2, 3)     # chain depths the kernel is built for
+# Chain depths with an instantiation of their own; deeper ones run the
+# runtime-depth variant (csrc/fast_event_block_deep.cu).
+CHAIN_TEMPLATED = (0, 1, 2, 3)
 CTA_THREADS = 256                  # lanes per CTA of the kernel (BlockBuffers.dead)
-# What the kernel does not run, for the refusals (launch_refusal, fast_plan).
-ITEM_REACH = ("more than 16 radiance detectors, or a collision-chain depth above 3, in "
-              "the event block: ROADMAP item 22")
 # Entries of BlockBuffers.ctl: launched has one slot for even and one for odd kb.
 # A fused-k trace keeps launched per k point after these, k's slot for
 # parity p at LAUNCHED_K + 2 k + p (ctl[LAUNCHED_K + p::2]).
@@ -1662,7 +1663,8 @@ class _EventParams(ctypes.Structure):
         ("pro", _Prologue), ("srf", _SurfaceParams)] + [
         (n, ctypes.c_void_p) for n in ("cubic", "fwd", "pf_row")] + [
         ("n_seg", ctypes.c_int), ("n_fwd", ctypes.c_int), ("fwd_scale", ctypes.c_float),
-        ("fk", _FusedK), ("rays", ctypes.c_void_p), ("ray_use", ctypes.c_void_p)]
+        ("fk", _FusedK), ("rays", ctypes.c_void_p), ("ray_use", ctypes.c_void_p),
+        ("chain", ctypes.c_int)]
 
 
 def _step_chain(f, inv) -> _StepChain:
@@ -1704,8 +1706,8 @@ def _det_params(det: DetectorSpec) -> _DetParams:
 @functools.lru_cache(maxsize=None)
 def build():
     """Compile (or reuse) the kernel library and declare its C interface: the
-    event block in its nine sources and the column-read probe
-    (``kernels/column_probe.py``), ten ``nvcc`` processes in parallel."""
+    event block in its ten sources and the column-read probe
+    (``kernels/column_probe.py``), eleven ``nvcc`` processes in parallel."""
     from i3rc_tpu_torch.kernels.build import build as _build
 
     built = _build("fast_event_block", SOURCES)
@@ -1717,7 +1719,7 @@ def build():
 SOURCES = ("fast_event_block.cu", "fast_event_block_gas.cu", "fast_event_block_tab.cu",
            "fast_event_block_tab_gas.cu", "fast_event_block_fk.cu", "fast_event_block_tab_fk.cu",
            "fast_event_block_col.cu", "fast_event_block_march.cu",
-           "fast_event_block_tab_march.cu", "column_read_probe.cu")
+           "fast_event_block_tab_march.cu", "fast_event_block_deep.cu", "column_read_probe.cu")
 
 
 def declare(lib, prefix: bool = False) -> None:
@@ -1764,9 +1766,11 @@ def launch_refusal(spec: EventSpec) -> str | None:
     det = spec.det
     if spec.K < 1:
         return f"the event block needs K >= 1 events per launch; got K={spec.K}"
-    if spec.chain not in SUPPORTED_CHAIN or (det is not None and det.n > MAX_DETECTORS):
-        return (f"fastpath plan needs {ITEM_REACH} (got "
-                f"{det.n if det is not None else 0} detectors, chain depth {spec.chain})")
+    if spec.chain < 0:
+        return f"the event block needs a collision-chain depth >= 0; got {spec.chain}"
+    if det is not None and det.n > MAX_DETECTORS:
+        return (f"the event block's parameter block holds {MAX_DETECTORS} detectors; got "
+                f"{det.n} (the planner gives such plans to the general kernel)")
     if det is not None and spec.chain:
         return f"the event block runs detectors at chain depth 0; got chain {spec.chain}"
     if det is not None and det.march_steps and spec.gas:
@@ -1914,6 +1918,7 @@ def event_params(spec: EventSpec, key: PhiloxKey, kb: int, n_lanes: int) -> _Eve
     p.kb = kb & 0xFFFFFFFF
     p.n_lanes = n_lanes
     p.K = spec.K
+    p.chain = spec.chain
     if spec.det is not None:
         p.det = _det_params(spec.det)
     if spec.gas:
@@ -1946,6 +1951,10 @@ def _count_launch(spec: EventSpec, surface: bool = False) -> None:
     counter = LAUNCH_COUNTERS[(spec.det is not None, spec.gas, spec.col, spec.fused,
                                spec.table, surface)]
     setattr(event_block, counter, getattr(event_block, counter) + 1)
+    if spec.chain not in CHAIN_TEMPLATED:
+        # The runtime-depth variant, also counted in its variant's counter.
+        setattr(event_block, DEEP_PREFIX + counter,
+                getattr(event_block, DEEP_PREFIX + counter) + 1)
     if spec.det is not None and spec.det.march_steps:
         counter = MARCH_COUNTERS[surface]
         setattr(event_block, counter, getattr(event_block, counter) + 1)
@@ -1963,7 +1972,10 @@ def event_block(spec: EventSpec, state: LaneState, key: PhiloxKey, kb: int,
     ``column_launches`` (flux in column media), a fused-k plan's in
     ``fused_k_launches`` and ``fused_k_detector_launches``, and a table
     plan's in the same names prefixed ``table_`` (``table_launches``, ...,
-    ``table_fused_k_detector_launches``); CPU tensors run the plain twin on
+    ``table_fused_k_detector_launches``), and at a chain depth past 3 (the
+    runtime-depth variant) in the same name prefixed ``deep_`` as well
+    (``deep_launches``, ``deep_gas_launches``, ``deep_column_launches``,
+    ``deep_table_launches``, ...); CPU tensors run the plain twin on
     ``philox_uniforms`` draws.  The K events carry no surface bounce
     (that is a stage of the whole block); a BRDF plan's lane weight
     ``state.w`` scales the detector contributions.
@@ -2023,6 +2035,10 @@ LAUNCH_COUNTERS = {
 # counted in their variant's counter above: the block without and with the
 # surface stage.
 MARCH_COUNTERS = {False: "march_launches", True: "march_surface_launches"}
+# The launches of a plan at a chain depth past CHAIN_TEMPLATED (the
+# runtime-depth variant), also counted in their variant's counter: its name
+# prefixed (deep_launches, deep_gas_launches, deep_column_launches, ...).
+DEEP_PREFIX = "deep_"
 
 
 # K3-M's ray queues and the counts of its ray loop and of the marching
@@ -2079,7 +2095,8 @@ def surface_march_runs(pro: PrologueSpec, spec: EventSpec, n_lanes: int, device)
 
 
 def reset_launch_counters() -> None:
-    for name in (*LAUNCH_COUNTERS.values(), *MARCH_COUNTERS.values()):
+    for name in (*LAUNCH_COUNTERS.values(), *MARCH_COUNTERS.values(),
+                 *(DEEP_PREFIX + n for n in LAUNCH_COUNTERS.values())):
         setattr(event_block, name, 0)
     for t in _MARCH_USE.values():
         t.zero_()

@@ -76,7 +76,7 @@ MAX_TILES = 16                   # the kernel's GEN_MAX_TILES: tiles of CTA_THRE
 KEY_BUCKETS = 4                  # the kernel's GEN_KEY_BUCKETS: buckets of the key (lane_keys)
 KEY_LIFT = 1.0 + 2.0 ** -10      # the key's scale over inv_max_ext (lane_keys)
 GEN_RAY_F4 = 3                   # float4 words of a ray record in the kernel's queue
-RAY_MAX_SLOT = 0xFF              # the record's tally-slot (comp + 1) field: GEN_RAY_MAX_SLOT
+RAY_MAX_SLOT = 0xFFFF            # the record's tally-slot (comp + 1) field: GEN_RAY_MAX_SLOT
 
 # Rows of GeneralState.f and GeneralState.i.
 X, Y, Z, UX, UY, UZ, W = range(7)

@@ -37,6 +37,10 @@ two hand-written Hopper kernels (``csrc/sharded_event_block.cu``):
     warp refilling its idle threads, so that a ray runs to its escape, its
     tag or its K-th step; ``shadow_ray_use`` counts that loop.
 
+The refill draws an x-uniform source's sample in the kernel, x over the
+rank's slab; any other source comes as a ``SourceQueue``, the rank's share
+of one batch drawn for all ranks, taken in order.
+
 On a CUDA tensor a wrapper launches its kernel and raises if the build or
 the launch fails; on a CPU tensor it runs the plain version, which draws
 the same Philox numbers (event j of block kb: groups 2j and 2j + 1 at
@@ -426,15 +430,25 @@ def shard_buffers(spec: ShardSpec, n_lanes: int, cap: int, inbox: int, n_ranks: 
 
 
 @dataclass(frozen=True)
+class SourceQueue:
+    """A rank's photons of a source that is not uniform in x: ``rows`` (n, 6)
+    float32 x, y, z, ux, uy, uz, the photons of one batch drawn for every
+    rank whose x falls in this rank's slab, in batch order.  The refill
+    takes them in that order (``BlockPlan.q_at`` the first of a block)."""
+
+    rows: torch.Tensor
+
+
+@dataclass(frozen=True)
 class BlockPlan:
     """What the host decided for one block from the counts vector (every
     rank decides the same for the rows between two ranks): per direction
     (+1, -1) the photons and rays this rank sent (the first ones of its send
     buffers), the rows waiting in its inboxes and received, and how many of
-    them take a free lane or pool slot; the refill's photons, how many
-    pending records the pool's free slots take, and the host's entries of
-    the next counts vector (work left, the inboxes' space after the
-    block)."""
+    them take a free lane or pool slot; the refill's photons (from a
+    source queue, its rows from ``q_at`` on), how many pending records the
+    pool's free slots take, and the host's entries of the next counts vector
+    (work left, the inboxes' space after the block)."""
 
     sent_ph: tuple = (0, 0)
     sent_q: tuple = (0, 0)
@@ -449,6 +463,7 @@ class BlockPlan:
     work: int = 0
     space_ph: tuple = (0, 0)
     space_q: tuple = (0, 0)
+    q_at: int = 0
 
 
 def received(bufs: ShardBuffers, kb: int) -> tuple:
@@ -492,7 +507,7 @@ def block_prologue_reference(spec: ShardSpec, st: ShardState, pool: RayPool,
     before -1, the pool's free slots in the order of the last pack (rays) and the free lanes
     in lane order (photons), the rest waiting in the next parity's inbox; then the FIFO
     refill of the next ``plan.n_new`` free lanes with the source sample at (lane, kb,
-    ``STREAM_REFILL``)."""
+    ``STREAM_REFILL``), or from a ``SourceQueue`` its rows from ``plan.q_at`` on."""
     f, iv = st.f, st.i
     qf, qi = pool.f, pool.i
     D, dev = spec.n_dirs, f.device
@@ -527,7 +542,12 @@ def block_prologue_reference(spec: ShardSpec, st: ShardState, pool: RayPool,
         bufs.inbox_ph[npar, k, :rows.shape[0] - n] = rows[n:]
         at += n
     lanes = free[at:at + plan.n_new]
-    if lanes.numel():
+    if lanes.numel() and isinstance(source, SourceQueue):
+        f[:UZ + 1, lanes] = source.rows[plan.q_at:plan.q_at + lanes.numel()].t()
+        f[TAU, lanes] = 0.0
+        iv[ORDERS, lanes] = 0
+        iv[ALIVE, lanes] = 1
+    elif lanes.numel():
         b = source.sample(key, lanes.numel(), dev, stream=STREAM_REFILL, block=kb, lanes=lanes)
         ux, uy, uz = make_direction_cosines(b.mu, b.phi)
         f[X, lanes] = spec.x_lo + b.x * f32(spec.x_hi - spec.x_lo)
@@ -665,7 +685,8 @@ class _ShardParams(ctypes.Structure):
                                         "n_in_q", "n_rx_q", "placed_q")] + [
         (n, ctypes.c_int) for n in ("n_new", "drain_cap", "work")] + [
         (n, ctypes.c_int * 2) for n in ("space_ph", "space_q")] + [
-        (n, ctypes.c_float) for n in ("albedo", "z_revive")] + [("src", _SourceParams)]
+        (n, ctypes.c_float) for n in ("albedo", "z_revive")] + [("src", _SourceParams)] + [
+        ("src_q", ctypes.c_void_p), ("q_at", ctypes.c_longlong)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -760,6 +781,7 @@ def _block_params(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: ShardBuf
               "placed_q", "space_ph", "space_q"):
         getattr(p, n)[:] = list(getattr(plan, n))
     p.n_new, p.drain_cap, p.work = plan.n_new, plan.drain_cap, plan.work
+    p.q_at = plan.q_at
     return p
 
 
@@ -814,6 +836,11 @@ def _static_params(spec: ShardSpec, st: ShardState, pool: RayPool, bufs: ShardBu
         bufs._surf_pf = surface_prefactors(spec, albedo).contiguous()
         p.surf_pf = bufs._surf_pf.data_ptr()
     p.albedo, p.z_revive = f32(albedo), f32(spec.z0 + spec.nudge)
+    if isinstance(source, SourceQueue):
+        # The refill reads the queue's rows in place of the source sample.
+        _need(source.rows, dev, torch.float32, (source.rows.shape[0], 6), "the source queue")
+        p.src_q = source.rows.data_ptr() if source.rows.shape[0] else None
+        return p
     for n, v in source_constants(source, dev).items():
         if n == "dir":
             p.src.dir[:] = v

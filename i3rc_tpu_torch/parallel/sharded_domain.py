@@ -61,20 +61,32 @@ gloo (the CPU, or ranks that share one GPU) they are staged through pinned
 host memory.  The backend of the mesh's group decides; the algorithm is
 the same.  A world of one receives what it sent, in place.
 
+Sources: an x-uniform source (``X_UNIFORM_SOURCES``) is sampled in SD's
+refill, x over the rank's slab, each rank launching ceil(n / ranks) photons.
+Any other source (a spotlight, an internal source, whose x is a point or
+spreads by ``delta_x``) is drawn once, n photons under a key that no rank
+owns (``source_queue``); each rank keeps the photons whose x falls in its
+slab, by the rule that locates a cell, and its refill takes them in batch
+order.  So every photon starts where the unsharded source puts it, and the
+ranks launch n in all (a spotlight's all on one rank).
+
 Random streams: every rank draws from the Philox key (seed, rank), where
 the JAX package folds the rank into its key (``fold_in(key, me)``,
 sharded_domain.py:411, :642, :658): events at (lane, kb, group,
 ``STREAM_EVENT``), refills at ``STREAM_REFILL`` and surface revives at
-``STREAM_SURFACE`` (core/rng.py).  Ranks are independent streams; a result
-depends on the rank count only statistically.
+``STREAM_SURFACE`` (core/rng.py); a source queue at (photon, 0, group,
+``STREAM_LAUNCH``) under the key (seed, 0).  Ranks are independent streams;
+a result depends on the rank count only statistically.
 
 Departures from the JAX tracer: the event budget ends only lanes still in
 flight (JAX also counts a lane that dies or leaves on its last allowed
-event as bad, and tallies it); a tracer needs an x-uniform source (JAX
-samples each slab's share of any source in the slab); a shadow ray sent to
-the next rank frees its pool slot at the next block's pack, not in the
-block that sends it (the free slots are the pack's, so that the drain's
-slots are known without a second pass over the pool).
+event as bad, and tallies it); a source that is not uniform in x starts
+its photons where the unsharded source does (JAX's ``sample_local``,
+sharded_domain.py:222-228, scales every rank's draw of x into the rank's
+own slab, so a spotlight or an internal source appears once a rank); a
+shadow ray sent to the next rank frees its pool slot at the next block's
+pack, not in the block that sends it (the free slots are the pack's, so
+that the drain's slots are known without a second pass over the pool).
 """
 
 from __future__ import annotations
@@ -84,9 +96,9 @@ import torch
 import torch.distributed as dist
 
 from i3rc_tpu_torch.core.optics import flatten_optics
-from i3rc_tpu_torch.core.rng import PhiloxKey
+from i3rc_tpu_torch.core.rng import STREAM_LAUNCH, PhiloxKey
 from i3rc_tpu_torch.integrators.tables import build_forward_cubic, build_inverse_cubic
-from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32
+from i3rc_tpu_torch.integrators.wavefront import RawTallies, f32, make_direction_cosines
 from i3rc_tpu_torch.kernels import sharded_block as sb
 from i3rc_tpu_torch.kernels.sharded_block import (
     ALIVE,
@@ -99,10 +111,31 @@ from i3rc_tpu_torch.kernels.sharded_block import (
     RayPool,
     ShardSpec,
     ShardState,
+    SourceQueue,
 )
 from i3rc_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 X_UNIFORM_SOURCES = ("directional", "random_azimuth", "flux_weighted")
+
+
+def source_queue(source, n_photons: int, seed: int, spec: ShardSpec,
+                 mesh: Mesh) -> tuple[SourceQueue, list]:
+    """This rank's photons of a source that is not uniform in x, and every
+    rank's count.  The n photons are drawn once, as the unsharded source
+    draws a batch (photon i at (i, 0, group, ``STREAM_LAUNCH``)), under the
+    key (seed, 0) on every rank; a photon belongs to the rank whose slab
+    holds its x cell, the cell index clamped to the grid as a lane's is."""
+    dev = mesh.device
+    b = source.sample(PhiloxKey(int(seed), 0), int(n_photons), dev, stream=STREAM_LAUNCH)
+    ux, uy, uz = make_direction_cosines(b.mu, b.phi)
+    x = spec.x0 + b.x * spec.wx
+    rows = torch.stack([x, spec.y0 + b.y * spec.wy, spec.z0 + b.z * f32(spec.z_max - spec.z0),
+                        ux, uy, uz], dim=1)
+    n_x = spec.nx_loc * mesh.size
+    cell = torch.clamp(torch.floor((x - spec.x0) * spec.inv_dx), 0, n_x - 1).to(torch.int64)
+    owner = cell // spec.nx_loc
+    counts = torch.bincount(owner, minlength=mesh.size).tolist()
+    return SourceQueue(rows[owner == mesh.rank].contiguous()), counts
 
 
 def shardable(domain, mesh: Mesh) -> bool:
@@ -211,9 +244,6 @@ class ShardedTrace:
 
     def __init__(self, spec: ShardSpec, mesh: Mesh, source, n_photons: int, seed: int,
                  n_lanes: int, surface_albedo: float = 0.0, volume: bool = False):
-        if source.kind not in X_UNIFORM_SOURCES:
-            raise ValueError(f"sharded tracer: the source must be uniform in x "
-                             f"({', '.join(X_UNIFORM_SOURCES)}); got {source.kind!r}")
         self.spec, self.mesh, self.source = spec, mesh, source
         dev = mesh.device
         L = int(n_lanes)
@@ -221,11 +251,21 @@ class ShardedTrace:
         self.CAP = max(128, L // 16)            # migrants a direction and block
         self.RESERVE = 2 * self.CAP             # free lanes kept for immigrants
         self.INBOX = 2 * self.CAP
-        self.budget = -(-int(n_photons) // mesh.size)
-        self.n_total = self.budget * mesh.size
+        if source.kind in X_UNIFORM_SOURCES:
+            # Sampled in SD's refill (the source, x over the slab).
+            self.refill = source
+            self.budget = -(-int(n_photons) // mesh.size)
+            self.n_total = self.budget * mesh.size
+            most = self.budget
+        else:
+            self.refill, counts = source_queue(source, n_photons, seed, spec, mesh)
+            self.budget = counts[mesh.rank]
+            self.n_total = int(n_photons)
+            most = max(counts)
         self.key = PhiloxKey(int(seed), mesh.rank)
         self.albedo = float(surface_albedo)
-        max_blocks = -(-4 * spec.max_events * (self.budget // L + 2) // spec.K)
+        # The block cap, the same on every rank (from the largest budget).
+        max_blocks = -(-4 * spec.max_events * (most // L + 2) // spec.K)
         if D:
             # Shadow rays drain at ~K cells a block; budget the extra latency.
             max_blocks = 2 * max_blocks + 4 * (spec.nx_loc + spec.n_y + spec.n_z) // spec.K
@@ -309,6 +349,7 @@ class ShardedTrace:
             self.n_mig += sum(snd)
             out[kind] = dict(sent=snd, n_in=n_in, n_rx=rx, placed=tuple(placed), free=room)
         n_new = min(max(out["ph"]["free"] - self.RESERVE, 0), self.budget - self.launched)
+        q_at = self.launched
         self.launched += n_new
         waiting = sum(self.waiting["ph"]) + sum(self.waiting["q"])
         space = lambda kind: tuple(min(self.CAP, self.INBOX - w) for w in self.waiting[kind])
@@ -318,7 +359,7 @@ class ShardedTrace:
             placed_ph=ph["placed"], n_in_q=q["n_in"], n_rx_q=q["n_rx"], placed_q=q["placed"],
             n_new=n_new, drain_cap=q["free"] // D if D else 0,
             work=int(self.launched < self.budget or waiting > 0),
-            space_ph=space("ph"), space_q=space("q"))
+            space_ph=space("ph"), space_q=space("q"), q_at=q_at)
 
     def _exchange(self, plan: sb.BlockPlan) -> None:
         """One ring step: the planned prefix of each send buffer goes to
@@ -376,7 +417,7 @@ class ShardedTrace:
         plan = self._plan
         self._exchange(plan)
         self.event_block(self.spec, self.state, self.pool, self.bufs, plan, self.key, self.kb,
-                         self.source, self.albedo)
+                         self.refill, self.albedo)
         if self.spec.n_dirs:
             self.shadow_block(self.spec, self.pool, self.bufs, self.acc_int, self.acc_byc)
         self.kb += 1

@@ -1,21 +1,47 @@
-# Copy of the single-sphere series of i3rc_tpu/tools/mie.py (n_mie_terms,
-# mie_coefficients, mie_cross_sections, mie_amplitudes): the port keeps its own
-# host layer and imports nothing of i3rc_tpu.
-"""Mie scattering: the single-sphere series that PhaseMatrix.from_mie needs.
+# Copy of i3rc_tpu/tools/mie.py: the port keeps its own host layer and imports
+# nothing of i3rc_tpu.
+"""Mie scattering: single-sphere series and phase-function table generation.
 
-Vectorized float64 NumPy re-implementation of the reference's Mie stack
-(Tools/mieindsub.f): the an/bn coefficients (MIECALC), the Qext/Qscat
-efficiencies (MIECROSS) and the complex scattering amplitudes S1, S2
-(MIEANGLE's angular sums).  The rest of the JAX package's ``tools/`` (the
-size-distribution tables of MakeMieTable, the physical-to-domain and
-optical-to-domain converters) is ROADMAP item 20.
+Re-implements the reference's Mie stack in vectorized float64 NumPy:
+
+  * mie_coefficients   — an/bn by logarithmic-derivative downward recurrence
+                         (MIECALC, Tools/mieindsub.f:83-142)
+  * mie_cross_sections — Qext/Qscat sums (MIECROSS, :147-169)
+  * mie_one            — Legendre coefficients of (phase function x
+                         scattering cross-section) by Gauss-Legendre
+                         quadrature of |S1|^2+|S2|^2 (MIE_ONE, :4-77;
+                         MIEANGLE, :174-209), with the angular recurrences
+                         vectorized over all quadrature nodes at once
+  * make_mie_table     — the MakeMieTable program (Tools/MakeMieTable.f95):
+                         Planck-weighted central wavelength and refractive
+                         index, adaptive size grid Delta x = max(.01,.03 sqrt x),
+                         gamma/lognormal size distributions with iterative
+                         effective-radius matching, spectral averaging, and
+                         a PhaseFunctionTable keyed by effective radius with
+                         extinction per 1 g/m^3 mass content
+
+The size-distribution and spectral-averaging logic follows the reference
+closely (same grids, same iteration scheme) so tables agree to numerical
+precision; cross-sections are validated against van de Hulst's classic
+x=10, m=1.33 benchmark in the tests.
 """
 
 from __future__ import annotations
 
 import numpy as np
+from scipy.special import gammaln
+
+from i3rc_tpu_torch.core.phase_functions import PhaseFunction, PhaseFunctionTable
+from i3rc_tpu_torch.core.quadrature import gauss_legendre
+from i3rc_tpu_torch.tools.refractive_index import refractive_index
+
+WATER_TEMPERATURE = 283.0  # MakeMieTable.f95:65
+ICE_TEMPERATURE = 243.0
 
 
+# ---------------------------------------------------------------------------
+# Single-sphere Mie series
+# ---------------------------------------------------------------------------
 def n_mie_terms(x: float) -> int:
     """Wiscombe series length x + 4 x^(1/3) + 2 (mieindsub.f:102)."""
     return int(x + 4.0 * x ** 0.3334 + 2)
@@ -84,3 +110,344 @@ def mie_amplitudes(a: np.ndarray, b: np.ndarray, mu: np.ndarray):
         s2 += c * (b[n - 1] * pin + a[n - 1] * taun)
         pin, pim = ((2 * n + 1) * mu * pin - (n + 1) * pim) / n, pin
     return s1, s2
+
+
+def mie_intensity(a: np.ndarray, b: np.ndarray, mu: np.ndarray) -> np.ndarray:
+    """P1 = (|S1|^2+|S2|^2)/2 at each mu, vectorized (MIEANGLE, :174-209)."""
+    s1, s2 = mie_amplitudes(a, b, mu)
+    return 0.5 * (np.abs(s1) ** 2 + np.abs(s2) ** 2)
+
+
+_QUAD_CACHE: dict = {}
+
+
+def mie_one(wavelength: float, m: complex, radius: float, max_leg: int):
+    """Extinction/scattering cross-sections + Legendre series for one sphere.
+
+    Mirrors MIE_ONE (mieindsub.f:4-77): returns (extinction, scatter, n_leg,
+    legen) with legen[l] the coefficients of phase function x scattering, in
+    the reference's chi_l = (2l+1) xi_l convention.
+    """
+    x = 2.0 * np.pi * radius / wavelength
+    geom_area = np.pi * radius**2
+    a, b = mie_coefficients(x, m)
+    n_mie = a.size
+    qext, qscat = mie_cross_sections(x, a, b)
+    extinction = geom_area * qext
+    scatter = geom_area * qscat
+
+    n_leg = min(max_leg, 2 * n_mie)
+    n_quad = (n_leg + 2 * n_mie + 2) // 2
+    n_quad = min(int(round(1.25 * n_quad)), max_leg) or 1
+    if n_quad not in _QUAD_CACHE:
+        if len(_QUAD_CACHE) > 8:
+            _QUAD_CACHE.clear()
+        _QUAD_CACHE[n_quad] = gauss_legendre(n_quad)
+    mu, wts = _QUAD_CACHE[n_quad]
+
+    p1 = mie_intensity(a, b, mu)
+    # Project onto Legendre polynomials with the running two-row recursion
+    # (no (n_leg, n_quad) matrix): coef_l = sum_i P_l(mu_i) P1_i w_i.
+    coef = np.empty(n_leg + 1)
+    p1w = p1 * wts
+    pl1 = np.ones_like(mu)
+    pl = mu.copy()
+    coef[0] = np.sum(p1w)
+    if n_leg >= 1:
+        coef[1] = np.sum(pl * p1w)
+    for l in range(1, n_leg):
+        pl, pl1 = ((2 * l + 1) * mu * pl - l * pl1) / (l + 1), pl
+        coef[l + 1] = np.sum(pl * p1w)
+    legen = (2 * np.arange(n_leg + 1) + 1) / 2.0 * (wavelength**2 / np.pi) * coef
+    return extinction, scatter, n_leg, legen
+
+
+# ---------------------------------------------------------------------------
+# Planck weighting (MakeMieTable.f95:281-409)
+# ---------------------------------------------------------------------------
+def planck_radiation(wavelength_um, temperature_k):
+    return (1.19e8 / wavelength_um**5) / (
+        np.exp(1.439e4 / (wavelength_um * temperature_k)) - 1.0)
+
+
+def effective_blackbody_temp(wavelength1, wavelength2):
+    center = 0.5 * (wavelength1 + wavelength2)
+    if center < 3.0:
+        return 5800.0
+    if center > 5.0:
+        return 270.0
+    return -1.0
+
+
+def planck_weighting_wavelengths(wavelength1, wavelength2):
+    if wavelength1 == wavelength2:
+        return np.array([wavelength1])
+    center = 0.5 * (wavelength1 + wavelength2)
+    delta = min(center / 100.0, 0.1 * abs(wavelength2 - wavelength1))
+    delta = max(delta, center * 1e-5)
+    n = int(abs(wavelength2 - wavelength1) / delta)
+    return wavelength1 + (wavelength2 - wavelength1) * np.arange(n + 1) / n
+
+
+def get_center_wavelength(wavelength1, wavelength2):
+    """Planck-weighted central wavelength (GET_CENTER_WAVELEN, :374-409)."""
+    if wavelength1 == wavelength2:
+        return wavelength1
+    wavelengths = planck_weighting_wavelengths(wavelength1, wavelength2)
+    bb = effective_blackbody_temp(wavelength1, wavelength2)
+    weights = planck_radiation(wavelengths, bb) if bb > 0 else np.ones_like(wavelengths)
+    # The reference truncates to 3 decimals (:405).
+    return 0.001 * int(1000 * np.sum(weights * wavelengths) / np.sum(weights))
+
+
+def get_average_refractive_index(particle_type, wavelength1, wavelength2):
+    """Planck-weighted index of refraction (GET_REFRACT_INDEX, :414-460)."""
+    wavelengths = planck_weighting_wavelengths(wavelength1, wavelength2)
+    bb = effective_blackbody_temp(wavelength1, wavelength2)
+    weights = planck_radiation(wavelengths, bb) if bb > 0 else np.ones_like(wavelengths)
+    n_re, n_im = refractive_index(particle_type, wavelengths)
+    mre = np.sum(weights * n_re) / np.sum(weights)
+    mim = np.sum(weights * n_im) / np.sum(weights)
+    return complex(mre, -mim)
+
+
+# ---------------------------------------------------------------------------
+# Size grids and distributions (MakeMieTable.f95:464-712)
+# ---------------------------------------------------------------------------
+def size_grid(sretab, max_radius, wavelength):
+    """Adaptive radius grid: Delta x = max(0.01, 0.03 sqrt(x)) (:464-516)."""
+    two_pi = 2.0 * np.pi
+    radii = [0.02 * sretab]
+    while radii[-1] < max_radius:
+        x = two_pi * radii[-1] / wavelength
+        delta = max(0.01, 0.03 * np.sqrt(x)) * wavelength / two_pi
+        radii.append(radii[-1] + delta)
+    return np.array(radii)
+
+
+def _size_dist(density, dist_flag, alpha, re, radii):
+    """Number concentrations for 1 g/m^3; returns (nd, true_reff) (:666-712)."""
+    delta_r = np.empty_like(radii)
+    delta_r[1:-1] = (np.sqrt(radii[1:-1] * radii[2:])
+                     - np.sqrt(radii[1:-1] * radii[:-2]))
+    delta_r[0] = np.sqrt(radii[1] * radii[2]) - radii[0]
+    delta_r[-1] = radii[-1] - np.sqrt(radii[-1] * radii[-2])
+    if dist_flag.upper() == "G":
+        b = (alpha + 3) / re
+        a = 1e6 / ((4 * np.pi / 3.0) * density * b ** (-alpha - 4)
+                   * np.exp(gammaln(alpha + 4.0)))
+        nd = a * radii**alpha * np.exp(-b * radii) * delta_r
+    else:
+        b = re * np.exp(-2.5 * alpha**2)
+        a = 1e6 / ((4 * np.pi / 3.0) * density * np.sqrt(2 * np.pi) * alpha
+                   * b**3 * np.exp(4.5 * alpha**2))
+        nd = (a / radii) * np.exp(-0.5 * (np.log(radii / b)) ** 2 / alpha**2) * delta_r
+    sum2 = np.sum(nd * radii**2)
+    sum3 = np.sum(nd * radii**3)
+    true_re = sum3 / sum2
+    lwc = 1.0e-6 * density * (4.0 * np.pi / 3.0) * sum3
+    return nd / lwc, true_re
+
+
+def make_size_distribution(dist_flag, density, radii, reff, alpha,
+                           tol=0.001, max_iterations=8):
+    """Iterate the distribution Reff parameter to hit the target (:597-662)."""
+    nd, true_re = _size_dist(density, dist_flag, alpha, reff, radii)
+    if abs(true_re - reff) < tol * reff:
+        return nd
+    f = reff / true_re
+    if true_re < reff:
+        re_lo, re_hi = reff, f * reff
+        i = 0
+        true_re = reff / f
+        while true_re <= reff and i < max_iterations:
+            re_hi *= f
+            i += 1
+            nd, true_re = _size_dist(density, dist_flag, alpha, re_hi, radii)
+        if true_re <= reff:
+            raise RuntimeError(f"effective radius {reff} cannot be achieved "
+                               f"(reached {true_re}); increase max_radius")
+    else:
+        re_hi, re_lo = reff, f * reff
+        i = 0
+        true_re = reff / f
+        while true_re >= reff and i < max_iterations:
+            re_lo *= f
+            i += 1
+            nd, true_re = _size_dist(density, dist_flag, alpha, re_lo, radii)
+        if true_re >= reff:
+            raise RuntimeError(f"effective radius {reff} cannot be achieved "
+                               f"(reached {true_re}); decrease the size-grid start")
+    while abs(true_re - reff) > tol * reff:
+        re_mid = 0.5 * (re_lo + re_hi)
+        nd, true_re = _size_dist(density, dist_flag, alpha, re_mid, radii)
+        if true_re < reff:
+            re_lo = re_mid
+        else:
+            re_hi = re_mid
+    return nd
+
+
+# ---------------------------------------------------------------------------
+# The MakeMieTable program
+# ---------------------------------------------------------------------------
+def make_mie_table(wavelen1, wavelen2=None, particle_type="W", avg_flag="C",
+                   delta_wave=0.0, refraction_index=None, density=None,
+                   dist_flag="G", alpha=7.0, n_retab=1, s_retab=10.0,
+                   e_retab=None, max_radius=None, verbose=False) -> PhaseFunctionTable:
+    """Build a Mie phase-function table keyed by effective radius.
+
+    Mirrors MakeMiePhaseFunctionTable (Tools/MakeMieTable.f95:72-267);
+    negative n_retab selects log-spaced effective radii.
+    """
+    wavelen2 = wavelen2 or wavelen1
+    if wavelen2 < wavelen1:
+        raise ValueError("wavelen2 must be >= wavelen1")
+    if alpha <= 0:
+        raise ValueError("must specify size-distribution parameter alpha > 0")
+    if s_retab <= 0:
+        raise ValueError("must specify a starting effective radius")
+    e_retab = e_retab or s_retab
+    log_spaced = n_retab < 0
+    n_retab = abs(int(n_retab))
+    if e_retab == s_retab:
+        n_retab = 1
+    max_radius = max_radius or 25 * max(s_retab, e_retab)
+
+    p = particle_type.upper()
+    if p == "W":
+        density = 1.0
+    elif p == "I":
+        density = 0.916
+    else:
+        if not density or density <= 0:
+            raise ValueError("must specify a particle density (g/cm^3) for aerosols")
+        if refraction_index is None:
+            raise ValueError("must specify a refractive index for aerosols")
+
+    center = get_center_wavelength(wavelen1, wavelen2)
+    spectral_avg = avg_flag.upper() == "A"
+    xmax = 2 * np.pi * max_radius / (wavelen1 if spectral_avg else center)
+    max_leg = int(round(2 * (xmax + 4.0 * xmax ** 0.3334 + 2)))  # Wiscombe (:130)
+    if p in ("W", "I"):
+        refraction_index = get_average_refractive_index(p, wavelen1, wavelen2)
+
+    radii = size_grid(s_retab, max_radius, center)
+    n_size = radii.size
+    if verbose:
+        print(f"make_mie_table: {n_size} radii up to {max_radius} um, "
+              f"max_leg {max_leg}, m = {refraction_index:.4f}")
+
+    ext1 = np.zeros(n_size)
+    sca1 = np.zeros(n_size)
+    nleg1 = np.ones(n_size, dtype=int)
+    leg1 = np.zeros((max_leg + 1, n_size))
+    if not spectral_avg:
+        for i, r in enumerate(radii):
+            ext1[i], sca1[i], nleg1[i], leg = mie_one(center, refraction_index,
+                                                      r, max_leg)
+            leg1[: nleg1[i] + 1, i] = leg[: nleg1[i] + 1]
+    else:
+        # Spectral averaging with Planck weights (:560-591).
+        if delta_wave <= 0:
+            raise ValueError("spectral averaging needs delta_wave > 0")
+        bb = effective_blackbody_temp(wavelen1, wavelen2)
+        sum_p = 0.0
+        wave = wavelen1
+        while wave <= wavelen2:
+            planck = planck_radiation(wave, bb) if bb > 0 else 1.0
+            sum_p += planck
+            n_re, n_im = refractive_index_for(p, wave)
+            m = complex(n_re, -n_im)
+            for i, r in enumerate(radii):
+                e, s, nl, leg = mie_one(wave, m, r, max_leg)
+                ext1[i] += planck * e
+                sca1[i] += planck * s
+                nleg1[i] = max(nleg1[i], nl)
+                leg1[: nl + 1, i] += planck * leg[: nl + 1]
+            wave += delta_wave
+        ext1 /= sum_p
+        sca1 /= sum_p
+        leg1 /= sum_p
+
+    # Effective-radius table (:169-177).
+    if n_retab == 1:
+        reff = np.array([s_retab])
+    elif log_spaced:
+        reff = s_retab * (e_retab / s_retab) ** (np.arange(n_retab) / (n_retab - 1))
+    else:
+        reff = s_retab + (e_retab - s_retab) * np.arange(n_retab) / (n_retab - 1)
+
+    phase_functions = []
+    for i, re in enumerate(reff):
+        nd = make_size_distribution(dist_flag, density, radii, re, alpha)
+        extinct = np.sum(nd * ext1)
+        scatter = np.sum(nd * sca1)
+        legcoef = (leg1 * nd[None, :]).sum(axis=1) / scatter
+        if abs(legcoef[0] - 1.0) > 1e-4:
+            raise RuntimeError(f"phase function not normalized for Reff={re}: "
+                               f"{legcoef[0]}")
+        significant = np.nonzero(legcoef > 0.5e-5)[0]
+        nl = int(significant[-1]) if significant.size else 1
+        ssa = min(scatter / extinct, 1.0) if extinct > 0 else 0.0
+        # Convert chi_l = (2l+1) xi_l to the package's xi_l convention (:222-223)
+        xi = legcoef[1: nl + 1] / (2 * np.arange(1, nl + 1) + 1)
+        phase_functions.append(PhaseFunction.from_legendre(
+            xi, extinction=0.001 * extinct, single_scattering_albedo=ssa))
+
+    material = {"W": "water", "I": "ice"}.get(p, "aerosol")
+    dist = "Gamma" if dist_flag.upper() == "G" else "Lognormal"
+    description = (f"Mie phase function table for spheres made of {material} at a "
+                   f"concentration of 1 g/m^3. Key is in microns.  {dist} size "
+                   "distribution. ")
+    return PhaseFunctionTable.from_phase_functions(phase_functions, key=reff,
+                                                   description=description)
+
+
+def refractive_index_for(particle_type, wavelength):
+    n_re, n_im = refractive_index(particle_type, wavelength)
+    return float(n_re[0]), float(n_im[0])
+
+
+def main(argv=None):
+    """CLI entry: python -m i3rc_tpu_torch.tools.mie <namelist.nml>."""
+    import sys
+
+    from i3rc_tpu_torch.io.netcdf import write_phase_function_table
+    from i3rc_tpu_torch.utils.namelist import read_namelist
+
+    argv = argv if argv is not None else sys.argv[1:]
+    if len(argv) != 1:
+        print("usage: python -m i3rc_tpu_torch.tools.mie <namelist.nml>", file=sys.stderr)
+        return 1
+    g = read_namelist(argv[0]).get("mie_table_input", {})
+    rindex = g.get("rindex")
+    if isinstance(rindex, (list, tuple)):
+        rindex = complex(rindex[0], rindex[1])
+    if rindex == 0:
+        rindex = None
+    table = make_mie_table(
+        wavelen1=float(g.get("wavelen1", 0.0)),
+        wavelen2=float(g.get("wavelen2", 0.0)) or None,
+        particle_type=str(g.get("partype", "W")),
+        avg_flag=str(g.get("avgflag", "C")),
+        delta_wave=float(g.get("deltawave", 0.0)),
+        refraction_index=rindex,
+        density=float(g.get("pardens", 0.0)) or None,
+        dist_flag=str(g.get("distflag", "G")),
+        alpha=float(g.get("alpha", 0.0)),
+        n_retab=int(g.get("nretab", 0)),
+        s_retab=float(g.get("sretab", 0.0)),
+        e_retab=float(g.get("eretab", 0.0)) or None,
+        max_radius=float(g.get("maxradius", 0.0)) or None,
+        verbose=True)
+    out = str(g.get("phasefunctiontablefile", "phaseFunctionTable.pft"))
+    write_phase_function_table(table, out)
+    print(f"Wrote {table.n_entries}-entry Mie table to {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -155,6 +155,64 @@ def trace_cases(mesh, names, n_photons: int, lanes: int, seed: int, unroll: int 
     return out
 
 
+# Sources that are not uniform in x (PhotonSource's constructor and its
+# arguments): a spotlight, and an internal flux source whose delta_x spreads
+# its x over (0.45, 0.65] of the domain, across the slabs of two ranks.
+NON_UNIFORM_SOURCES = {
+    "spotlight": ("spotlight", (0.6, 30.0, 0.3, 0.5)),
+    "internal": ("internal_flux", (0.25, 0.5, 0.6, True, 0.4, 0.0)),
+}
+
+
+def photon_source(name: str, pkg: str = "i3rc_tpu_torch"):
+    """A source of ``NON_UNIFORM_SOURCES`` built with one side's class."""
+    kind, args = NON_UNIFORM_SOURCES[name]
+    cls = importlib.import_module(f"{pkg}.core.illumination").PhotonSource
+    return getattr(cls, kind)(*args)
+
+
+def source_cases(mesh, scene_name: str, sources, n_photons: int, lanes: int,
+                 seed: int) -> dict:
+    """A rank's job: the scene through the sharded tracer once for each named
+    source of ``NON_UNIFORM_SOURCES``; per source the summary and this
+    rank's budget (its photons of the batch)."""
+    from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace
+
+    sc = scene(scene_name, host("i3rc_tpu_torch"), mesh.size)
+    out = {}
+    for name in sources:
+        tr = ShardedTrace.create(sc["domain"], photon_source(name), n_photons, mesh,
+                                 n_lanes_per_shard=lanes, seed=seed, **sc["kw"])
+        while tr.running():
+            tr.block()
+        out[name] = dict(summary(tr.finish()), budget=tr.budget)
+    return out
+
+
+def x_uniform_digest(device, n_photons: int = 1 << 16, lanes: int = 1 << 14,
+                     seed: int = 3) -> str:
+    """The volume scene's x-uniform (directional) sharded trace on a world of
+    one: its flux and volume tallies (unit counts, so their float64 sums do
+    not depend on the order of the adds), n_bad, migrations and blocks, as
+    one SHA-256 digest (16 hex digits)."""
+    import hashlib
+
+    from i3rc_tpu_torch import PhotonSource
+    from i3rc_tpu_torch.parallel.mesh import Mesh
+    from i3rc_tpu_torch.parallel.sharded_domain import trace_sharded
+
+    sc = scene("volume", host("i3rc_tpu_torch"))
+    raw = trace_sharded(sc["domain"], PhotonSource.directional(*sc["src"]), n_photons,
+                        Mesh(None, 0, 1, torch.device(device)), n_lanes_per_shard=lanes,
+                        seed=seed, **sc["kw"])
+    s = summary(raw)
+    d = hashlib.sha256()
+    for k in ("flux_up", "flux_down", "flux_absorbed", "volume"):
+        d.update(np.ascontiguousarray(s[k], np.float64).tobytes())
+    d.update(repr((s["n_bad"], s["migrations"], s["n_iterations"])).encode())
+    return d.hexdigest()[:16]
+
+
 def _rank_main(rank: int, n: int, port: int, device: str, job, args, out_dir: str) -> None:
     import torch.distributed as dist
 
@@ -304,22 +362,25 @@ def capture_states(tr, tail_alive: float = 0.15) -> dict:
 
 
 def trace_states(sc: dict, n_photons: int, lanes: int, device, seed: int = 7,
-                 tail_alive: float = 0.15, unroll: int = 8, mesh=None) -> dict:
+                 tail_alive: float = 0.15, unroll: int = 8, mesh=None, source=None) -> dict:
     """Trace a scene on ``mesh`` (by default a world of one on ``device``)
     and keep the block's and SB's inputs as ``capture_states`` does:
     {"spec", "key", "source", "albedo", "block": [...], "sb": [...], "raw":
-    RawTallies}.  Every rank of the mesh calls it."""
+    RawTallies}; ``source`` (by default the scene's directional one) is the
+    refill's (a source queue for a source not uniform in x).  Every rank of
+    the mesh calls it."""
     from i3rc_tpu_torch import PhotonSource
     from i3rc_tpu_torch.parallel.mesh import default_mesh
     from i3rc_tpu_torch.parallel.sharded_domain import ShardedTrace
 
     mesh = mesh or default_mesh(device=device)
-    tr = ShardedTrace.create(sc["domain"], PhotonSource.directional(*sc["src"]), n_photons, mesh,
-                             n_lanes_per_shard=lanes, unroll=unroll, seed=seed, **sc["kw"])
+    tr = ShardedTrace.create(sc["domain"], source or PhotonSource.directional(*sc["src"]),
+                             n_photons, mesh, n_lanes_per_shard=lanes, unroll=unroll, seed=seed,
+                             **sc["kw"])
     keep = capture_states(tr, tail_alive)
     while tr.running():
         tr.block()
-    return dict(spec=tr.spec, key=tr.key, source=tr.source, albedo=tr.albedo,
+    return dict(spec=tr.spec, key=tr.key, source=tr.refill, albedo=tr.albedo,
                 block=keep["block"], sb=keep["sb"], raw=tr.finish())
 
 

@@ -368,6 +368,10 @@ PLANS = {
     "column_K7_chain1": ("column", dict(fastpath_unroll=7, fastpath_chain=1), {}),
     "detectors_9": ("detectors", {}, wide_detectors(9)),
     "detectors_16_K3": ("detectors", dict(fastpath_unroll=3), wide_detectors(16)),
+    # Past the templated depths: the runtime-depth variant on the card.
+    "flux_chain5": ("flux", dict(fastpath_chain=5), {}),
+    "gas_chain4": ("gas", dict(fastpath_chain=4), {}),
+    "column_K7_chain6": ("column", dict(fastpath_unroll=7, fastpath_chain=6), {}),
 }
 
 
@@ -395,25 +399,37 @@ def test_every_plan_is_one_the_kernel_launches(name):
 @pytest.mark.parametrize("cfg_kw,det", [({}, wide_detectors(17)),
                                         (dict(fastpath_chain=4), {})])
 def test_plans_past_the_kernels_reach_are_refused_at_the_plan(cfg_kw, det):
+    """The plans the event block once refused now run: chain depth 4 plans
+    on the fastpath (the runtime-depth variant on the card), and 17
+    detectors get no fastpath plan, so the general kernel's estimate stage
+    runs them (JAX's XLA fastpath does, fastpath.py:1702-1712)."""
     integ = Integrator.create(make_step_cloud(1.0), config=replace(CFG, **cfg_kw),
                               device="cpu", **det)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        integ._fast_plan
-    with pytest.raises(NotImplementedError, match="item 22"):
-        integ.batch_fn(DIRECTIONAL, 1 << 9, n_lanes=1 << 8)
+    plan = integ._fast_plan
+    if det:
+        assert plan is None
+    else:
+        assert plan is not None and launch_refusal(event_spec(integ.geometry, plan, integ.config)
+                                                   ) is None
+    res = integ.batch_fn(DIRECTIONAL, 1 << 9, n_lanes=1 << 8)(batch_key(1, 0))
+    assert float(res.mean_flux_up + res.mean_flux_down) == pytest.approx(1.0, abs=1e-5)
+    if det:
+        assert res.intensity.shape[-1] == 17 and bool(torch.isfinite(res.intensity).all())
 
 
 def test_launch_refusal_names_what_it_refuses():
     integ = Integrator.create(make_step_cloud(1.0), config=CFG, device="cpu")
     spec = event_spec(integ.geometry, integ._fast_plan, CFG)
     assert launch_refusal(spec) is None
-    assert "item 22" in launch_refusal(replace(spec, chain=4))
+    assert launch_refusal(replace(spec, chain=4)) is None
+    assert launch_refusal(replace(spec, chain=9)) is None
+    assert "depth >= 0" in launch_refusal(replace(spec, chain=-1))
     assert "K >= 1" in launch_refusal(replace(spec, K=0))
     dinteg = Integrator.create(make_step_cloud(1.0), config=CFG, device="cpu", **DET3)
     dspec = event_spec(dinteg.geometry, dinteg._fast_plan, CFG)
     assert "chain depth 0" in launch_refusal(replace(dspec, chain=1))
     wide = replace(dspec.det, dirs=dspec.det.dirs * 6)
-    assert "item 22" in launch_refusal(replace(dspec, det=wide))
+    assert "holds 16 detectors" in launch_refusal(replace(dspec, det=wide))
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +525,8 @@ def test_fused_kernel_matches_reference_for_each_source_on_gpu(kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["detectors_9", "detectors_16_K3", "flux_K4",
-                                  "flux_K32_chain3", "gas_K5", "column_K7_chain1"])
+                                  "flux_K32_chain3", "gas_K5", "column_K7_chain1",
+                                  "flux_chain5", "gas_chain4", "column_K7_chain6"])
 def test_plans_the_card_used_to_refuse_match_the_twin_on_gpu(name):
     dev = need_card()
     integ, cfg = planned(name, dev)

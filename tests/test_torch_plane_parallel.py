@@ -123,8 +123,9 @@ def test_driver_against_the_slab_oracle(tmp_path, capsys):
 def test_main_stdin_usage_and_profile(tmp_path, monkeypatch, capsys):
     """With no argument the driver prompts for the namelist on stdin
     (userInterface_Unix.f95:70-99), empty input or two files is the usage
-    error (tests/test_drivers.py:235-256), and ``--profile`` is refused,
-    naming ROADMAP item 20."""
+    error (tests/test_drivers.py:235-256), and ``--profile DIR`` writes a
+    torch.profiler trace under DIR and prints its table (on the CPU, the
+    host's time by torch op) to stderr."""
     nml = _copy(tmp_path, "pp.nml", **{"numPhotonsPerBatch = 10000,":
                                        "numPhotonsPerBatch = 2000,"})
     monkeypatch.setattr("sys.stdin", io.StringIO(f"{nml}\n"))
@@ -135,5 +136,8 @@ def test_main_stdin_usage_and_profile(tmp_path, monkeypatch, capsys):
     assert plane_parallel.main(["--device", "cpu"]) == 1
     assert plane_parallel.main([nml, nml, "--device", "cpu"]) == 1
     assert "usage:" in capsys.readouterr().err
-    assert plane_parallel.main(["--profile", "trace", nml]) == 2
-    assert "ROADMAP item 20" in capsys.readouterr().err
+    trace = tmp_path / "trace"
+    assert plane_parallel.main(["--profile", str(trace), nml, "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert "host time by torch op" in err and "a CPU run: no device" in err
+    assert list(trace.glob("trace-*.json"))

@@ -136,8 +136,9 @@ def test_general_rays_sum_to_int_steps():
 
 
 def test_ray_record_slot_field_bounds_the_components():
-    """The kernel's ray record keeps the tally slot (comp + 1) in 8 bits:
-    with detectors, more than 254 components are refused before a launch."""
+    """The kernel's ray record keeps the tally slot (comp + 1) in 16 bits:
+    with detectors 255 components and more run (the 8-bit field refused
+    them), and only past 65534 is a plan refused before a launch."""
     from types import SimpleNamespace
 
     integ = Integrator.create(make_step_cloud(1.0), IntegratorConfig(), device="cpu",
@@ -145,8 +146,10 @@ def test_ray_record_slot_field_bounds_the_components():
     spec, opt = integ.general_tracer(4096, 1024).spec, integ.device_optics
     var = gb.variant(spec, opt)
     assert gb.launch_refusal(spec, var, opt) is None
-    assert gb.launch_refusal(spec, var, SimpleNamespace(n_components=254)) is None
-    assert "254 components" in gb.launch_refusal(spec, var, SimpleNamespace(n_components=255))
+    for n in (254, 255, 300, 65534):
+        assert gb.launch_refusal(spec, var, SimpleNamespace(n_components=n)) is None
+    assert "65534 components" in gb.launch_refusal(spec, var,
+                                                   SimpleNamespace(n_components=65535))
 
 
 def test_general_record_changes_nothing():
